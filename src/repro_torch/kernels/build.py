@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles on its own, with ``nvcc`` for ``sm_90a``,
+into a shared library with a plain C interface that ctypes loads (no
+PyTorch headers, so a build takes seconds, not minutes).  Libraries land in
+``_build/`` beside this file (listed in .gitignore), named by a digest of
+the sources and flags, so an edited kernel rebuilds and an unchanged one
+loads from disk.  Nothing is built at import: the first launch builds, or a
+caller builds every kernel at once, in parallel, with :func:`build_all`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().with_name("_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [shutil.which("nvcc")]
+    if home:
+        candidates.append(str(Path(home) / "bin" / "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and Path(c).exists():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from source at first use")
+
+
+class Kernel:
+    """One hand-written kernel: its source, its C entry point, its ctypes
+    signature, and the count of launches its wrapper has made.
+
+    ``launches`` is a plain integer that the wrapper adds one to where it
+    launches the kernel, and nowhere else; a caller resets it to 0 before a
+    run and reads it after to show the run went through the kernel.
+    """
+
+    def __init__(self, name: str, entry: str, argtypes: Sequence,
+                 replaces: str):
+        self.name = name
+        self.entry = entry
+        self.argtypes = list(argtypes)
+        self.replaces = replaces
+        self.launches = 0
+        self._fn = None
+
+    @property
+    def source(self) -> Path:
+        return CSRC / f"{self.name}.cu"
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256()
+        for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
+            h.update(src.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+
+    def build_command(self, out: Path) -> List[str]:
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+
+    def function(self):
+        """The ctypes entry point, building the library first if needed."""
+        if self._fn is None:
+            path = self.library_path()
+            if not path.exists():
+                build_all([self])
+            fn = getattr(ctypes.CDLL(str(path)), self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+
+def build_all(kernels: Sequence[Kernel], log: Optional[Dict[str, str]] = None):
+    """Compile every kernel whose library is missing, one ``nvcc`` process
+    per source, all started together.  Raises with the compiler's output if
+    any build fails.  ``log`` (optional) receives each build's compiler
+    output (``-Xptxas -v``: registers, shared memory, spills)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for k in kernels:
+        out = k.library_path()
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((k, out, tmp, subprocess.Popen(
+            k.build_command(tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for k, out, tmp, p in procs:
+        text, _ = p.communicate()
+        if log is not None:
+            log[k.name] = text
+        if p.returncode != 0:
+            failed.append(f"{k.name} (nvcc exit {p.returncode}):\n{text}")
+            continue
+        os.replace(tmp, out)  # atomic: a reader never sees half a library
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+
+
+def check(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

@@ -1,0 +1,272 @@
+// Shared online-softmax device functions for the attention kernels.
+//
+// CUDA counterpart of repro/kernels/attention_core.py (OnlineSoftmax): every
+// attention kernel streams K/V tiles through shared memory, scores them
+// against a resident block of query rows and folds each tile into a running
+// softmax.  The numerics follow the TPU template exactly:
+//
+//   * queries are prescaled by sm_scale * log2(e), so scores live in the
+//     log2 domain and every exponential is an exp2;
+//   * the running max is clamped at NEG_CLAMP = -2^20 before differencing
+//     (attention_core.py:34, :97-102): a fully masked tile leaves the max at
+//     -inf, and (-inf) - (-inf) would be NaN;
+//   * the final normalisation divides by max(l, 1e-30) (safe_div,
+//     attention_core.py:117), so a row with no live key emits 0, not NaN.
+//
+// All state lives in shared memory and is fp32 whatever the input type.  The
+// functions are written for a whole thread block (blockDim.x a multiple of
+// 32): each spreads its work over threadIdx.x, and the caller separates the
+// phases with __syncthreads().
+//
+// A K/V tile is `cols` consecutive rows of `d` values, contiguous in device
+// memory (one KV page, or one page-sized slice of the chunk).  Tiles are read
+// with 16-byte vector loads into registers one tile ahead of the compute
+// (attend_tiles), so the device-memory latency of tile t + 1 overlaps the
+// scoring of tile t.  Scores of one query row sit in `cols` neighbouring
+// lanes of a warp, so the row's max and sum are warp shuffles.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace ac {
+
+constexpr float NEG_CLAMP = -1048576.0f;  // -2^20; exp2 underflows long before
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAXV = 4;  // 16-byte vectors per thread per tile (K or V)
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__host__ __device__ constexpr int vec_elems() { return 16 / (int)sizeof(T); }
+
+// Whether a launch's shapes fit the kernels' vector loads and shuffles:
+// d a multiple of the vector width, cols a power of two <= 32, and one tile
+// at most MAXV vectors per thread.
+template <typename T>
+inline bool shapes_ok(int cols, int d, int threads) {
+  const int vec = vec_elems<T>();
+  return d % vec == 0 && d % 4 == 0 && cols >= 1 && cols <= 32 &&
+         (cols & (cols - 1)) == 0 && cols * d / vec <= MAXV * threads;
+}
+
+// Stage `rows` rows of `d` values into shared memory as fp32 (row stride
+// `sstride` floats), multiplied by `scale`.  Used once per block, for Q.
+template <typename T>
+__device__ void load_rows(float* dst, int sstride, const T* __restrict__ src,
+                          long gstride, int rows, int d, float scale) {
+  for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
+    const int r = i / d, c = i - r * d;
+    dst[r * sstride + c] = to_float(src[r * gstride + c]) * scale;
+  }
+}
+
+// A K or V tile in flight: this thread's 16-byte vectors of it.
+struct Stage {
+  uint4 v[MAXV];
+};
+
+// Start the loads of one contiguous tile (cols * d elements) into registers.
+template <typename T>
+__device__ __forceinline__ void fetch(Stage& st, const T* __restrict__ src,
+                                      int cols, int d) {
+  const int n = cols * d / vec_elems<T>();
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int k = 0; k < MAXV; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n) st.v[k] = __ldg(s + i);
+  }
+}
+
+// Convert a fetched tile to fp32 and store it in shared memory (row stride
+// `sstride` floats, a multiple of 4).
+template <typename T>
+__device__ __forceinline__ void commit(float* dst, int sstride, const Stage& st,
+                                       int cols, int d) {
+  constexpr int VEC = vec_elems<T>();
+  const int n = cols * d / VEC;
+#pragma unroll
+  for (int k = 0; k < MAXV; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n) {
+      const int e = i * VEC, r = e / d, c = e - r * d;
+      const T* x = reinterpret_cast<const T*>(&st.v[k]);
+      float* o = dst + r * sstride + c;
+#pragma unroll
+      for (int q = 0; q < VEC; q += 4)
+        *reinterpret_cast<float4*>(o + q) = make_float4(
+            to_float(x[q]), to_float(x[q + 1]), to_float(x[q + 2]), to_float(x[q + 3]));
+    }
+  }
+}
+
+// Shared-memory layout common to both kernels: a resident block of `rows`
+// query rows, one K and one V tile of `cols` keys, the probability tile, the
+// output accumulator and the per-row softmax carries.  Q and K rows are
+// padded to d + 4 floats: 16-byte aligned, and rows a lane apart start four
+// banks apart, so a quarter warp's float4 reads of eight rows hit all 32
+// banks once.
+struct Smem {
+  float *qs, *ks, *vs, *s, *acc, *m, *l, *alpha;
+  int stride;
+
+  __device__ Smem(float* base, int rows, int cols, int d) {
+    stride = d + 4;
+    qs = base;
+    ks = qs + rows * stride;
+    vs = ks + cols * stride;
+    acc = vs + cols * d;  // every float4-read array starts 16-byte aligned
+    s = acc + rows * d;
+    m = s + rows * cols;
+    l = m + rows;
+    alpha = l + rows;
+  }
+
+  static size_t bytes(int rows, int cols, int d) {
+    return sizeof(float) * ((size_t)rows * (d + 4) + (size_t)cols * (d + 4) +
+                            (size_t)cols * d + (size_t)rows * cols +
+                            (size_t)rows * d + 3 * (size_t)rows);
+  }
+};
+
+// acc = 0, m = -inf, l = 0 for `rows` query rows of width `d`.
+__device__ void init_state(Smem& sm, int rows, int d) {
+  for (int i = threadIdx.x; i < rows * d; i += blockDim.x) sm.acc[i] = 0.f;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    sm.m[r] = -CUDART_INF_F;
+    sm.l[r] = 0.f;
+  }
+}
+
+// Score the staged K tile against every query row and fold it into the
+// running softmax: s[r][j] = exp2(q[r].k[j] - m_new[r]) (0 where the mask
+// is false), l and m updated, and the accumulator's rescale factor left in
+// alpha.  Row r's `cols` scores sit in neighbouring lanes, so its max and
+// sum are xor shuffles; every warp runs every iteration, so the shuffles
+// always see full warps.
+template <typename Mask>
+__device__ void score_softmax(Smem& sm, int rows, int cols, int d,
+                              const Mask& mask) {
+  const int total = rows * cols;
+  for (int base = 0; base < total; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const bool act = i < total;
+    const int r = act ? i / cols : 0, j = i - r * cols;
+    float sc = -CUDART_INF_F;
+    float m_prev = -CUDART_INF_F;
+    if (act) {
+      const float4* q = reinterpret_cast<const float4*>(sm.qs + r * sm.stride);
+      const float4* k = reinterpret_cast<const float4*>(sm.ks + j * sm.stride);
+      float a0 = 0.f, a1 = 0.f;
+      for (int c = 0; c < d / 4; ++c) {
+        const float4 x = q[c], y = k[c];
+        a0 = fmaf(x.x, y.x, a0);
+        a1 = fmaf(x.y, y.y, a1);
+        a0 = fmaf(x.z, y.z, a0);
+        a1 = fmaf(x.w, y.w, a1);
+      }
+      if (mask(r, j)) sc = a0 + a1;
+      m_prev = sm.m[r];
+    }
+    float mx = sc;
+    for (int off = cols >> 1; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_cur = fmaxf(m_prev, mx);
+    const float mc = fmaxf(m_cur, NEG_CLAMP);
+    const float e = act ? exp2f(sc - mc) : 0.f;
+    float sum = e;
+    for (int off = cols >> 1; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    __syncwarp();  // every lane has read m[r] before its owner rewrites it
+    if (act) {
+      sm.s[i] = e;
+      if (j == 0) {
+        const float a = exp2f(fmaxf(m_prev, NEG_CLAMP) - mc);
+        sm.l[r] = sm.l[r] * a + sum;
+        sm.m[r] = m_cur;
+        sm.alpha[r] = a;
+      }
+    }
+  }
+}
+
+// acc[r] = acc[r] * alpha[r] + sum_j p[r][j] * v[j]   (the P.V product),
+// four output columns per thread.
+__device__ void pv_accumulate(Smem& sm, int rows, int cols, int d) {
+  const int d4 = d / 4;
+  for (int i = threadIdx.x; i < rows * d4; i += blockDim.x) {
+    const int r = i / d4, c = (i - r * d4) * 4;
+    const float* p = sm.s + r * cols;
+    float4 o = *reinterpret_cast<float4*>(sm.acc + r * d + c);
+    const float a = sm.alpha[r];
+    o.x *= a; o.y *= a; o.z *= a; o.w *= a;
+    for (int j = 0; j < cols; ++j) {
+      const float pj = p[j];
+      const float4 v = *reinterpret_cast<const float4*>(sm.vs + j * d + c);
+      o.x = fmaf(pj, v.x, o.x);
+      o.y = fmaf(pj, v.y, o.y);
+      o.z = fmaf(pj, v.z, o.z);
+      o.w = fmaf(pj, v.w, o.w);
+    }
+    *reinterpret_cast<float4*>(sm.acc + r * d + c) = o;
+  }
+}
+
+// The online-softmax pass over `n` K/V tiles.  `src.tile(t, k, v)` sets the
+// device pointers of tile t (contiguous cols x d) and returns false when the
+// tile must contribute nothing; `src.mask(t)` gives the tile's (r, j) mask.
+// Tile t + 1's loads are in flight while tile t is scored.
+template <typename T, typename Src>
+__device__ void attend_tiles(Smem& sm, int rows, int cols, int d, int n,
+                             const Src& src) {
+  Stage kst, vst;
+  const T *k, *v;
+  bool ok = n > 0 && src.tile(0, k, v);
+  if (ok) {
+    fetch<T>(kst, k, cols, d);
+    fetch<T>(vst, v, cols, d);
+  }
+  for (int t = 0; t < n; ++t) {
+    const bool cur_ok = ok;
+    __syncthreads();  // the previous tile is fully consumed
+    if (cur_ok) {
+      commit<T>(sm.ks, sm.stride, kst, cols, d);
+      commit<T>(sm.vs, d, vst, cols, d);
+    }
+    ok = t + 1 < n && src.tile(t + 1, k, v);
+    if (ok) {
+      fetch<T>(kst, k, cols, d);
+      fetch<T>(vst, v, cols, d);
+    }
+    if (!cur_ok) continue;  // uniform across the block
+    __syncthreads();
+    score_softmax(sm, rows, cols, d, src.mask(t));
+    __syncthreads();
+    pv_accumulate(sm, rows, cols, d);
+  }
+}
+
+// out[r] = acc[r] / max(l[r], 1e-30): empty rows emit zeros (safe_div).
+template <typename T>
+__device__ void store_rows(T* __restrict__ dst, long gstride, const Smem& sm,
+                           int rows, int d) {
+  for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
+    const int r = i / d, c = i - r * d;
+    dst[r * gstride + c] = from_float<T>(sm.acc[i] / fmaxf(sm.l[r], 1e-30f));
+  }
+}
+
+}  // namespace ac

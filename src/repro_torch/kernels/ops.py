@@ -1,0 +1,156 @@
+"""Public kernel API: dispatch between the hand-written CUDA kernels and the
+plain PyTorch path, plus the host-side dispatch guard.
+
+Counterpart of ``repro.kernels.ops`` for the serving path.  The routing
+rules are the reference's, kept as explicit rules:
+
+* a soft-capped model takes the plain path (ops.py:247), because neither
+  kernel caps its scores;
+* chunked prefill takes the kernel only when ``chunk % page_size == 0`` and
+  the chunk spans at most ``max_pages`` pages (ops.py:290);
+* otherwise the kernel wrapper runs: it launches the CUDA kernel for CUDA
+  tensors (or raises), and uses the kernel's plain version for CPU tensors.
+
+The device of the tensors is the only other rule: there is no backend knob,
+so a CUDA tensor on the kernels' path always reaches its kernel.
+
+Nothing here catches a build or launch error to fall back.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..core.errors import GuardError
+from . import paged_attention as _pa
+from . import prefill_attention as _pf
+from . import ref
+
+# the hand-written kernels on the serving path, by name
+KERNELS = {"paged_attention": _pa.KERNEL, "prefill_attention": _pf.KERNEL}
+
+
+def guard_dispatch(tables, num_pages, page_size, work):
+    """Discharge the kernels' runtime obligations for one paged dispatch,
+    before any page is read or written (``repro.kernels.ops.guard_dispatch``,
+    ops.py:60, verbatim).
+
+    ``tables`` is the (rows, max_pages) block table, ``num_pages`` the pool
+    extent on the page axis (page 0 reserved as the garbage sink), and
+    ``work`` an iterable of ``(row, read_end, write_begin, write_end)``
+    token positions: the row will read KV for positions ``[0, read_end)``
+    and write positions ``[write_begin, write_end)``.
+
+    Checks (host-side, O(tokens) ints): capacity; ``table_in_range`` (every
+    entry backing a live position lies in ``[1, num_pages)``);
+    ``table_writes_disjoint`` (no page written by two rows, twice within a
+    row, or by one row while live in another).  All violations are raised
+    as one :class:`GuardError` so a batch dispatcher can fail exactly the
+    offending rows and keep the rest.
+    """
+    tb = np.asarray(tables)
+    max_pages = tb.shape[1]
+    capacity = max_pages * page_size
+    violations = []
+    live: dict = {}  # row -> np entries backing positions [0, read_end)
+    writes: dict = {}  # row -> np entries written in [write_begin, write_end)
+    for row, read_end, wbeg, wend in work:
+        if read_end > capacity or wend > capacity:
+            violations.append(
+                (row, "table_in_range",
+                 f"length {max(read_end, wend)} exceeds page capacity "
+                 f"{capacity} ({max_pages} pages x {page_size})")
+            )
+            continue
+        n_live = -(-int(read_end) // page_size)
+        entries = tb[row, :n_live].astype(np.int64)
+        bad = np.flatnonzero((entries < 1) | (entries >= num_pages))
+        if bad.size:
+            j = int(bad[0])
+            violations.append(
+                (row, "table_in_range",
+                 f"entry {j} is page {int(entries[j])}, not in "
+                 f"[1, {num_pages}) (page 0 is the reserved sink)")
+            )
+            continue
+        live[row] = entries
+        if wend > wbeg:
+            pbeg, pend = int(wbeg) // page_size, -(-int(wend) // page_size)
+            writes[row] = tb[row, pbeg:pend].astype(np.int64)
+
+    writer_of: dict = {}  # page -> first writer row
+    bad_rows = set()
+    for row, pages in writes.items():
+        for pg in pages.tolist():
+            other = writer_of.get(pg)
+            if other is not None and (other != row or
+                                      pages.tolist().count(pg) > 1):
+                for r in {row, other} - bad_rows:
+                    violations.append(
+                        (r, "table_writes_disjoint",
+                         f"page {pg} written by rows {other} and {row}")
+                    )
+                bad_rows.update({row, other})
+            else:
+                writer_of[pg] = row
+    for row, pages in writes.items():
+        if row in bad_rows:
+            continue
+        pset = set(pages.tolist())
+        for other, lv in live.items():
+            if other == row:
+                continue
+            shared = pset.intersection(lv.tolist())
+            if shared:
+                violations.append(
+                    (row, "table_writes_disjoint",
+                     f"page {sorted(shared)[0]} written by row {row} while "
+                     f"live in row {other}")
+                )
+                bad_rows.add(row)
+                break
+    if violations:
+        raise GuardError(violations)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
+                    sm_scale=None, window: Optional[int] = None,
+                    logit_soft_cap=None):
+    """Single-token decode attention over a paged KV pool (shapes in
+    kernels/paged_attention.py)."""
+    if logit_soft_cap is not None:
+        return ref.paged_attention(
+            q, k_pages, v_pages, block_tables, seq_lens, sm_scale=sm_scale,
+            window=window, logit_soft_cap=logit_soft_cap,
+        )
+    return _pa.paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                               sm_scale=sm_scale, window=window)
+
+
+def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
+                      start_lens, chunk_lens, *, sm_scale=None,
+                      window: Optional[int] = None, logit_soft_cap=None):
+    """Chunked-prefill attention over a paged KV pool.
+
+    ``q``/``k_new``/``v_new`` are the chunk's (B, H*, C, D) projections;
+    ``start_lens`` (B,) counts prior resident tokens (the chunk's write
+    offset) and ``chunk_lens`` (B,) the live tokens within the chunk.
+    Returns ``(out, k_pages, v_pages)``: the chunk's K/V are written into the
+    given pools in place, through the block table.
+    """
+    chunk = q.shape[2]
+    page_size = k_pages.shape[2]
+    max_pages = block_tables.shape[1]
+    if (logit_soft_cap is None and chunk % page_size == 0 and chunk // page_size <= max_pages):
+        return _pf.prefill_attention(
+            q, k_new, v_new, k_pages, v_pages, block_tables, start_lens,
+            chunk_lens, sm_scale=sm_scale, window=window)
+    return ref.paged_prefill_attention(
+        q, k_new, v_new, k_pages, v_pages, block_tables, start_lens,
+        chunk_lens, sm_scale=sm_scale, window=window,
+        logit_soft_cap=logit_soft_cap)
+
+
+def rmsnorm(x, weight, eps: float = 1e-6):
+    return ref.rmsnorm(x, weight, eps)

@@ -1,0 +1,105 @@
+"""Chunked-prefill attention: the wrapper around ``csrc/prefill_attention.cu``.
+
+Counterpart of ``repro.kernels.prefill_attention.prefill_attention_program``
+(repro/kernels/prefill_attention.py:44): a chunk of C prompt tokens per slot
+attends its prior pages through the block table plus itself causally, and
+the chunk's K/V land in the pool pages **in place** (the reference returned
+updated copies of the pools; here the given pools are written).  The plain
+version is ``ref.paged_prefill_attention``; this wrapper takes it for CPU
+tensors only.  For a CUDA tensor it launches the kernel or raises.
+
+Kernel contract (the serving engine's chunk contract): ``chunk %
+page_size == 0``, ``chunk // page_size <= max_pages``, every live slot's
+start page-aligned, and pools that started zeroed (several blocks write the
+sink page 0 at once).  Past a slot's live length the kernel writes whole
+pages where the plain version sends dead positions to page 0, so pool bytes
+past ``chunk_lens`` differ between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import ref
+from .build import Kernel, check
+from .paged_attention import DTYPES
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL = Kernel(
+    "prefill_attention", "prefill_attention_launch",
+    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+     _I, ctypes.c_float, _P],
+    replaces="src/repro/kernels/prefill_attention.py:44",
+)
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"prefill_attention kernel: {msg}")
+
+
+def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
+                      start_lens, chunk_lens, *, sm_scale: Optional[float] = None,
+                      window: Optional[int] = None):
+    """``q`` (B, Hq, C, D), ``k_new``/``v_new`` (B, Hkv, C, D), pools
+    (Hkv, P, page_size, D), ``block_tables`` (B, max_pages) int32,
+    ``start_lens``/``chunk_lens`` (B,) int32.  Returns ``(out (B, Hq, C, D),
+    k_pages, v_pages)``, the pools being the tensors given, updated."""
+    if not q.is_cuda:
+        return ref.paged_prefill_attention(
+            q, k_new, v_new, k_pages, v_pages, block_tables, start_lens,
+            chunk_lens, sm_scale=sm_scale, window=window)
+    b, hq, chunk, d = q.shape
+    hkv, num_pages, page_size, d2 = k_pages.shape
+    max_pages = block_tables.shape[1]
+    group = hq // hkv
+    for name, t in (("k_new", k_new), ("v_new", v_new), ("k_pages", k_pages),
+                    ("v_pages", v_pages), ("block_tables", block_tables),
+                    ("start_lens", start_lens), ("chunk_lens", chunk_lens)):
+        _require(t.device == q.device, f"{name} is on {t.device}, q on {q.device}")
+    _require(window is None or window > 0, f"window {window} must be positive")
+    _require(q.dtype in DTYPES, f"dtype {q.dtype} (float32 or bfloat16)")
+    for t in (k_new, v_new, k_pages, v_pages):
+        _require(t.dtype == q.dtype, "q, chunk K/V and pools share one dtype")
+    _require(hq % hkv == 0 and d2 == d and v_pages.shape == k_pages.shape,
+             f"shapes q {tuple(q.shape)}, pools {tuple(k_pages.shape)}")
+    _require(tuple(k_new.shape) == (b, hkv, chunk, d)
+             and v_new.shape == k_new.shape, "k_new/v_new must be (B, Hkv, C, D)")
+    _require(chunk % page_size == 0 and chunk // page_size <= max_pages,
+             f"chunk {chunk} must be a multiple of page_size {page_size} "
+             f"spanning at most max_pages {max_pages}")
+    for name, t in (("block_tables", block_tables), ("start_lens", start_lens),
+                    ("chunk_lens", chunk_lens)):
+        _require(t.dtype == torch.int32, f"{name} must be int32")
+    _require(k_pages.is_contiguous() and v_pages.is_contiguous()
+             and block_tables.is_contiguous(), "pools and tables must be contiguous")
+    # pack queries chunk-major with their GQA group: row = i * group + g
+    qp = q.reshape(b, hkv, group, chunk, d).transpose(2, 3).contiguous()
+    kn, vn = k_new.contiguous(), v_new.contiguous()
+    starts, lens = start_lens.contiguous(), chunk_lens.contiguous()
+    out = torch.empty_like(qp)
+    vec = 16 // q.element_size()
+    _require(d % vec == 0 and 0 < page_size <= 32
+             and page_size & (page_size - 1) == 0,
+             f"head_dim {d} must be a multiple of {vec} and page_size "
+             f"{page_size} a power of two <= 32")
+    for name, t in (("k_new", kn), ("v_new", vn), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = KERNEL.function()(
+            DTYPES[q.dtype], qp.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            starts.data_ptr(), lens.data_ptr(), out.data_ptr(), b, hkv, group,
+            chunk, d, page_size, max_pages, num_pages,
+            window if window is not None else 0, scale, stream,
+        )
+    check(rc, "prefill_attention")
+    KERNEL.launches += 1
+    out = out.reshape(b, hkv, chunk, group, d).transpose(2, 3)
+    return out.reshape(b, hq, chunk, d), k_pages, v_pages

@@ -1,0 +1,1 @@
+"""Launch surfaces of the port (``python -m repro_torch.launch.serve``)."""

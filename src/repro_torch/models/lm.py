@@ -1,0 +1,278 @@
+"""Decoder-only language model, dense GQA family: the port's counterpart of
+``repro.models.lm`` for the serving path.
+
+Parameters are a plain dict with the reference's tree layout
+(``lm.init``, lm.py:61): ``embed``, ``prefix_layers`` (empty for the dense
+family), ``layers`` with every leaf stacked over layers in front, and
+``final_norm``.  A Python loop over layers takes the place of
+``jax.lax.scan``.  The paged KV pools live in :class:`Cache` and are
+updated **in place** by :func:`decode_step`, :func:`prefill_step` and
+:func:`copy_pages` (the reference donated them and returned new ones).
+
+Only ``family == "dense"`` with GQA attention runs; the other families raise
+``NotImplementedError`` naming their ROADMAP Queue 1 item.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import torch
+
+from ..core.device import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+# Families not ported yet -> the ROADMAP Queue 1 item that ports them.
+_NOT_PORTED = {
+    "mla": "item 13 (MLA serving)",
+    "ssm": "item 15 (SSM and hybrid)",
+    "hybrid": "item 15 (SSM and hybrid)",
+    "moe": "item 16 (MoE, encoder-decoder and frontends)",
+    "vlm": "item 16 (MoE, encoder-decoder and frontends)",
+    "audio": "item 16 (MoE, encoder-decoder and frontends)",
+}
+
+
+def require_supported(cfg: ModelConfig):
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder."""
+    if cfg.attention == "mla":
+        item = _NOT_PORTED["mla"]
+    elif cfg.family != "dense" or cfg.attention != "gqa" or cfg.is_encoder_decoder:
+        item = _NOT_PORTED.get(cfg.family, "item 16")
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name} (family={cfg.family}, attention={cfg.attention}) is not "
+        f"ported to PyTorch yet: ROADMAP Queue 1 {item}")
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen, cfg: ModelConfig) -> Dict:
+    dt = L.dtype_of(cfg)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    return {"norm1": ones(), "attn": L.init_attention(gen, cfg),
+            "norm2": ones(), "mlp": L.init_mlp(gen, cfg)}
+
+
+def _stack(trees: List[Dict]) -> Dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def init(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
+         device="cuda") -> Dict:
+    """Random parameters in the shapes and distribution of ``lm.init``.
+
+    ``key`` is a seed or a ``torch.Generator`` on ``device``.  Weights are
+    drawn on the device itself, so a full-width model never passes through
+    host memory."""
+    require_supported(cfg)
+    dev = resolve_device(device)
+    if isinstance(key, torch.Generator):
+        gen = key
+        if gen.device.type != dev.type:
+            raise ValueError(f"generator is on {gen.device}, device is {dev}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(int(key))
+    params: Dict[str, Any] = {"embed": L.init_embedding(gen, cfg)}
+    params["prefix_layers"] = []
+    params["layers"] = _stack([_init_block(gen, cfg)
+                               for _ in range(cfg.num_layers)])
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=L.dtype_of(cfg),
+                                      device=dev)
+    return params
+
+
+def param_count(params) -> int:
+    def count(t):
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        if isinstance(t, list):
+            return sum(count(v) for v in t)
+        return t.numel()
+    return count(params)
+
+
+def layer_params(params, i: int) -> Dict:
+    """Layer ``i``'s parameters: views into the stacked leaves."""
+    def pick(t):
+        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) else t[i]
+    return pick(params["layers"])
+
+
+def static_windows(cfg: ModelConfig) -> List[Optional[int]]:
+    """Python-level per-layer window (None = global attention)."""
+    out: List[Optional[int]] = []
+    for i in range(cfg.num_layers):
+        w = cfg.window_for_layer(i)
+        if cfg.family == "hybrid" and i in (0, cfg.num_layers // 2, cfg.num_layers - 1):
+            w = None
+        out.append(w)
+    return out
+
+
+def rope_fraction(cfg: ModelConfig) -> float:
+    # ChatGLM's "2d RoPE" rotates half the head dim
+    return 0.5 if "chatglm" in cfg.name else 1.0
+
+
+def _soft_cap(cfg: ModelConfig, logits):
+    if cfg.logit_soft_cap:
+        logits = cfg.logit_soft_cap * torch.tanh(logits / cfg.logit_soft_cap)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# paged decode cache
+# ---------------------------------------------------------------------------
+
+
+class Cache:
+    """Paged decode cache: per-layer page pools stacked over layers, plus
+    the (B, max_pages) int32 block table.
+
+    ``kv`` holds ``k_pages``/``v_pages`` of shape (L, Hkv, P, page_size, D),
+    the page axis at ``ndim - 3`` as in the reference.  Steps write the
+    pools in place; :meth:`with_tables` swaps in a refreshed table (the
+    host-side allocation lives in serving/paged_cache.py)."""
+
+    def __init__(self, kv: Dict[str, torch.Tensor], max_len: int,
+                 page_size: int, tables: torch.Tensor):
+        self.kv = kv
+        self.max_len = max_len
+        self.page_size = page_size
+        self.tables = tables
+
+    @property
+    def num_pages(self) -> int:
+        return self.kv["k_pages"].shape[2]
+
+    def layer(self, i: int) -> Dict[str, torch.Tensor]:
+        """Layer ``i``'s pools: views, so writes land in the stacked pools."""
+        return {k: v[i] for k, v in self.kv.items()}
+
+    def with_tables(self, tables) -> "Cache":
+        """Same pools (shared, not copied) under refreshed block tables."""
+        return Cache(self.kv, self.max_len, self.page_size, tables)
+
+    def kv_bytes(self) -> int:
+        """Bytes held by the KV page pools."""
+        return sum(t.numel() * t.element_size() for t in self.kv.values())
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               layout: str = "paged", page_size: int = 16,
+               num_blocks: Optional[int] = None, device="cuda") -> Cache:
+    require_supported(cfg)
+    if layout == "contiguous":
+        raise NotImplementedError(
+            "the contiguous cache layout is not ported yet (ROADMAP Queue 1 "
+            "item 4, contiguous half); use layout='paged'")
+    if layout != "paged":
+        raise ValueError(f"unknown cache layout {layout!r}")
+    dev = resolve_device(device)
+    max_pages = -(-max_len // page_size)
+    if num_blocks is None:
+        num_blocks = batch * max_pages
+    kv = L.init_paged_kv_cache(cfg, num_blocks, page_size, dev,
+                               layers=cfg.num_layers)
+    tables = torch.zeros((batch, max_pages), dtype=torch.int32, device=dev)
+    return Cache(kv, max_len, page_size, tables)
+
+
+def copy_pages(cache: Cache, src, dst) -> Cache:
+    """Copy-on-write on the device: duplicate physical pages ``src[i]`` onto
+    ``dst[i]`` in every page pool, in place (lm.py:366).  The shared
+    contents never pass through the host."""
+    src = torch.as_tensor(src, dtype=torch.long, device=cache.tables.device)
+    dst = torch.as_tensor(dst, dtype=torch.long, device=cache.tables.device)
+    for leaf in cache.kv.values():
+        pool = leaf.movedim(leaf.ndim - 3, 0)  # a view: pages leading
+        pool[dst] = pool[src]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# decode and chunked prefill
+# ---------------------------------------------------------------------------
+
+
+def _block(p, x, cfg, attend):
+    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + attend(p["attn"], h)
+    h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h2, cfg)
+
+
+def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
+                live=None):
+    """One decode step: ``token`` (B,) int32, ``pos`` (B,) int32 ->
+    ``(logits (B, V) fp32, cache)``.
+
+    Every slot writes its K/V at ``pos`` through its table row, dead ones
+    included (into page 0), as the reference does.  ``live`` marks the slots
+    genuinely stepping; positional KV caches never need it (a dead slot's
+    write lands beyond its live length), so the dense family ignores it.
+    """
+    del live  # only recurrent (SSM) state needs it: ROADMAP Queue 1 item 15
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.tables.device)
+    x = L.embed(params["embed"], token[:, None]).to(L.dtype_of(cfg))
+    wlist = static_windows(cfg)
+    rf = rope_fraction(cfg)
+    tables = cache.tables
+    append = L.decode_append_index(pos, tables, cache.page_size, cache.num_pages)
+    for i in range(cfg.num_layers):
+        pools = cache.layer(i)
+        x = _block(layer_params(params, i), x, cfg,
+                   lambda pa, h: L.attention_decode_paged(
+                       pa, h, cfg, pools, pos, tables, window=wlist[i],
+                       rope_fraction=rf, append=append))
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg)[:, 0]
+    return _soft_cap(cfg, logits), cache
+
+
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Chunked prefill covers the attention families (lm.py:698)."""
+    return cfg.attention in ("gqa", "mla") and cfg.family not in ("ssm", "hybrid")
+
+
+def _prefill_trunk(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
+    """Embed, every block's chunk attention + KV page writes, final norm
+    (lm.py:706).  Returns ``x (B, C, d)``."""
+    if not supports_chunked_prefill(cfg):
+        raise NotImplementedError(
+            f"chunked prefill supports attention archs (GQA/MLA); {cfg.name} "
+            f"(attention={cfg.attention}, family={cfg.family}) replays "
+            "prompts through decode_step instead.")
+    dev = cache.tables.device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    x = L.embed(params["embed"], tokens).to(L.dtype_of(cfg))
+    wlist = static_windows(cfg)
+    rf = rope_fraction(cfg)
+    for i in range(cfg.num_layers):
+        pools = cache.layer(i)
+        x = _block(layer_params(params, i), x, cfg,
+                   lambda pa, h: L.attention_prefill_paged(
+                       pa, h, cfg, pools, pos, cache.tables, lens,
+                       window=wlist[i], rope_fraction=rf))
+    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), lens
+
+
+def prefill_step(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
+    """One chunked-prefill step (lm.py:754): a (B, C) block of prompt tokens
+    advances every slot with ``lens[b] > 0`` by ``lens[b]`` positions.
+    Returns ``(logits (B, V), cache)``, the logits of each slot's last live
+    chunk token (idle slots read row 0: garbage the engine ignores)."""
+    x, lens = _prefill_trunk(params, cfg, cache, tokens, pos, lens)
+    last = torch.clamp(lens - 1, 0, x.shape[1] - 1).long()
+    x_last = x[torch.arange(x.shape[0], device=x.device), last]
+    logits = L.unembed(params["embed"], x_last, cfg)
+    return _soft_cap(cfg, logits), cache

@@ -1,0 +1,817 @@
+"""Batched serving engine: continuous batching over a paged KV cache, the
+per-tick path of ``repro.serving.engine``.
+
+The scheduler is the reference's host logic, ported line for line, so on the
+same workload and ``ServeConfig`` it takes the same decisions on the same
+ticks (``steps_run``, TTFT ticks, preemptions and shared pages are equal):
+
+* **paged KV cache** (serving/paged_cache.py): admission gates on free
+  blocks, growth preempts the lowest-priority (then youngest) request back
+  to the queue when the pool runs dry (recompute resume), and completion
+  recycles blocks at once;
+* **chunked prefill** under the token-budget scheduler
+  (:func:`plan_prefill_chunks`): each tick runs one decode step for the
+  generating slots plus prompt chunks within the leftover budget, through
+  ``lm.prefill_step`` and the prefill_attention kernel; ``prefill="replay"``
+  streams prompts one token per tick through the decode step instead;
+* **prefix cache**: full prompt pages are indexed when a request finishes
+  prefilling, and a later request whose prompt shares them attaches the
+  pages at admission; a write into a shared page goes through copy-on-write
+  (``lm.copy_pages``, on the device) first;
+* **dispatch guard** (``kernels.ops.guard_dispatch``) before every paged
+  dispatch, failing exactly the offending request;
+* request lifecycle: every request ends in one terminal status through one
+  exit path (``_terminate``) that releases its pages; deadlines and
+  ``cancel()`` are honoured before each dispatch.
+
+Each tick runs eagerly on the device (no jit): the KV pools are updated in
+place and the sampled token ids are the only per-tick download.
+
+Not ported yet, each raising ``NotImplementedError`` where it is asked for:
+``sync_every > 1`` (the multi-step window, ROADMAP Queue 1 item 7),
+``spec_decode`` (item 12), ``kv_dtype`` (item 9), ``cache="contiguous"``
+(item 4), ``audit=True`` and fault injection (item 11), ``temperature > 0``
+(item 5), and ``drain``/``shutdown``/``snapshot`` (item 11).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..core.errors import GuardError
+from ..kernels.ops import guard_dispatch
+from ..models import lm
+from ..models.config import ModelConfig
+from .paged_cache import (
+    BlockPool,
+    PoolExhausted,
+    PrefixCache,
+    SlotTables,
+    blocks_for,
+)
+from .sampling import sample_step
+
+
+def plan_prefill_chunks(
+    budget: int,
+    n_gen: int,
+    pending: Sequence[Tuple[int, int, int]],  # (slot, admit_seq, remaining)
+    chunk: int,
+) -> Dict[int, int]:
+    """Sarathi-style budget split: decode tokens are spent first (one per
+    generating slot), the leftover feeds prompt chunks oldest-admitted
+    first.  Grants are all-or-nothing per request, always ``min(chunk,
+    remaining)``, so every chunk *starts* at a multiple of ``chunk``: the
+    page-alignment contract of the prefill kernel's page writes."""
+    room = budget - n_gen
+    out: Dict[int, int] = {}
+    for slot, _seq, remaining in sorted(pending, key=lambda t: t[1]):
+        n = min(chunk, remaining)
+        if n <= 0:
+            continue
+        if n > room:
+            break
+        out[slot] = n
+        room -= n
+    return out
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 item {item})")
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    slots: int = 8  # decode batch width
+    max_len: int = 1024  # per-request logical cache length
+    max_new_tokens: int = 128
+    eos_id: int = -1  # -1: never stops early
+    temperature: float = 0.0
+    seed: int = 0
+    cache: str = "paged"  # "paged" | "contiguous"
+    page_size: int = 16  # tokens per KV block (paged mode)
+    # pool size in blocks; None = slots * ceil(max_len / page_size).  Size it
+    # below that to oversubscribe memory (that's the point of paging).
+    num_blocks: Optional[int] = None
+    kv_dtype: Optional[str] = None
+    # -- prefill fast path ------------------------------------------------
+    prefill: str = "chunked"  # "chunked" | "replay"
+    # prompt tokens per chunk-wide forward pass; clamped at engine init to
+    # token_budget - slots + 1 so a chunk always fits the leftover budget
+    prefill_chunk: int = 16
+    # per-tick token budget shared by the decode batch and prefill chunks;
+    # None = slots + prefill_chunk.  Floored at `slots`.
+    token_budget: Optional[int] = None
+    # -- prefix caching ---------------------------------------------------
+    prefix_cache: bool = True
+    # -- options of the reference not ported yet (each raises) ------------
+    sync_every: int = 1
+    spec_decode: Optional[str] = None
+    draft_len: int = 4
+    audit: bool = False
+    # base ticks a preemption victim waits before re-admission, doubling
+    # per preemption (capped at 32x).  0 = immediate re-admission.
+    retry_backoff: int = 0
+    # discharge the kernels' runtime obligations before every paged dispatch
+    guards: bool = True
+
+    def __post_init__(self):
+        for name in ("slots", "max_len", "max_new_tokens", "page_size",
+                     "prefill_chunk", "draft_len"):
+            v = getattr(self, name)
+            if v <= 0:
+                raise ValueError(f"{name} must be positive, got {v}")
+        if self.num_blocks is not None and self.num_blocks <= 0:
+            raise ValueError(
+                f"num_blocks must be positive, got {self.num_blocks}"
+            )
+        if self.token_budget is not None and self.token_budget < self.slots:
+            raise ValueError(
+                f"token_budget={self.token_budget} < slots={self.slots}: "
+                "a full generation batch could never fit in one tick"
+            )
+        if self.kv_dtype not in (None, "int8", "int4"):
+            raise ValueError(
+                f"unknown kv_dtype {self.kv_dtype!r} "
+                "(expected None, 'int8' or 'int4')"
+            )
+        if self.cache not in ("paged", "contiguous"):
+            raise ValueError(f"unknown cache mode {self.cache!r}")
+        if self.prefill not in ("chunked", "replay"):
+            raise ValueError(f"unknown prefill mode {self.prefill!r}")
+        if self.retry_backoff < 0:
+            raise ValueError(
+                f"retry_backoff must be >= 0, got {self.retry_backoff}"
+            )
+        # no option is silently ignored: what is not ported raises
+        if self.sync_every > 1:
+            _not_ported("sync_every > 1 (the multi-step decode window)", "7")
+        if self.spec_decode is not None:
+            _not_ported(f"spec_decode={self.spec_decode!r}", "12")
+        if self.kv_dtype is not None:
+            _not_ported(f"kv_dtype={self.kv_dtype!r}", "9")
+        if self.cache == "contiguous":
+            _not_ported("cache='contiguous'", "4")
+        if self.audit:
+            _not_ported("audit=True (the invariant auditor)", "11")
+        if self.temperature > 0.0:
+            _not_ported(f"temperature={self.temperature}", "5")
+
+
+# Request lifecycle: QUEUED <-> RUNNING (preemption re-queues), ending in
+# exactly one terminal status, which releases every block the request held.
+QUEUED = "queued"
+RUNNING = "running"
+COMPLETED = "completed"  # EOS / token limit reached
+TIMED_OUT = "timed_out"  # deadline_ticks expired before completion
+CANCELLED = "cancelled"  # cancel() honored
+FAILED = "failed"  # poisoned logits, retry budget, or outgrew the pool
+REJECTED = "rejected"  # could never be served (admission fail-fast)
+TERMINAL = (COMPLETED, TIMED_OUT, CANCELLED, FAILED, REJECTED)
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new_tokens: Optional[int] = None
+    priority: int = 0  # higher survives preemption longer
+    # ticks from submission before the request times out wherever it is
+    deadline_ticks: Optional[int] = None
+    # preemption re-admissions before the request fails instead of retrying
+    max_retries: Optional[int] = None
+    # filled by the engine:
+    status: str = QUEUED  # QUEUED <-> RUNNING -> one of TERMINAL
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    preemptions: int = 0
+    error: Optional[str] = None  # why a non-COMPLETED request ended
+    submit_step: int = 0  # engine tick at submission
+    first_token_step: Optional[int] = None  # tick that produced output[0]
+    admit_step: Optional[int] = None  # tick of first admission into a slot
+    cached_tokens: int = 0  # prompt tokens covered by prefix-cache hits
+    _cancel: bool = dataclasses.field(default=False, repr=False)
+
+    def cancel(self) -> None:
+        """Request cancellation, honored at the next scheduler boundary."""
+        if not self.done:
+            self._cancel = True
+
+    @property
+    def ttft_ticks(self) -> Optional[int]:
+        """Engine ticks from submission to the first generated token."""
+        if self.first_token_step is None:
+            return None
+        return self.first_token_step - self.submit_step + 1
+
+    @property
+    def ttft_admit_ticks(self) -> Optional[int]:
+        """Engine ticks from first admission to the first generated token."""
+        if self.first_token_step is None or self.admit_step is None:
+            return None
+        return self.first_token_step - self.admit_step + 1
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
+                 injector=None, *, device="cuda"):
+        if injector is not None:
+            _not_ported("fault injection", "11")
+        self.device = resolve_device(device)
+        emb = params["embed"]["embedding"]
+        if emb.device.type != self.device.type:
+            raise ValueError(
+                f"params are on {emb.device}, the engine runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.scfg = serve_cfg
+        b = serve_cfg.slots
+        self.cache_mode = serve_cfg.cache
+        ps = serve_cfg.page_size
+        self.max_pages = blocks_for(serve_cfg.max_len, ps)
+        nb = serve_cfg.num_blocks or b * self.max_pages
+        # physical page 0 is reserved (padding/garbage page), so the device
+        # pool holds nb + 1 pages and the allocator hands out ids 1..nb.
+        self.cache = lm.init_cache(
+            cfg, b, serve_cfg.max_len, layout="paged", page_size=ps,
+            num_blocks=nb + 1, device=self.device,
+        )
+        page_bytes = self.cache.kv_bytes() // (nb + 1)
+        self.pool = BlockPool(nb, ps, base=1, page_bytes=page_bytes)
+        self.tables = SlotTables(self.pool, b, self.max_pages)
+
+        self.prefix: Optional[PrefixCache] = None
+        if serve_cfg.prefix_cache and lm.supports_chunked_prefill(cfg):
+            self.prefix = PrefixCache(
+                self.pool, salt=(cfg.name, serve_cfg.page_size)
+            )
+        self.pages_shared = 0  # cache-hit pages attached at admission
+        self.pages_copied = 0  # copy-on-write page duplications
+        self.pages_deduped = 0  # duplicate prefill pages absorbed at insert
+
+        self.pos = np.zeros((b,), np.int32)  # next write position per slot
+        self.slot_req: List[Optional[Request]] = [None] * b
+        # chunked mode: "prefill" until the replay cursor reaches the end of
+        # prompt+output, then "gen" (replay mode leaves these unused)
+        self.slot_state: List[Optional[str]] = [None] * b
+        self.queue: collections.deque[Request] = collections.deque()
+        self._uid = itertools.count()
+        self._admit_seq = itertools.count()
+        self.prefill_mode = (
+            "chunked"
+            if serve_cfg.prefill == "chunked" and lm.supports_chunked_prefill(cfg)
+            else "replay"
+        )
+        # the device block table is re-uploaded only after the scheduler
+        # mutates tables (admission growth, preemption, EOS recycling, COW)
+        self._tables_dirty = True
+        self.table_uploads = 0  # host->device table transfers
+        self.dispatches = 0  # step() calls that ran device work
+        self.token_budget = max(
+            serve_cfg.token_budget or (b + serve_cfg.prefill_chunk), b
+        )
+        # grants are all-or-nothing (chunk starts must stay chunk-aligned),
+        # so the chunk is clamped to the worst-case leftover room
+        self.prefill_chunk = max(
+            1, min(serve_cfg.prefill_chunk, self.token_budget - b + 1)
+        )
+        self.tick_tokens: "collections.deque[int]" = collections.deque(
+            maxlen=4096
+        )
+        self.completed: List[Request] = []
+        self.steps_run = 0
+        self.preemptions = 0
+        self.admission_open = True
+        self.poisoned_rows = 0  # logits rows with no finite value seen
+        self.guard_failures = 0  # requests FAILed by the dispatch guard
+
+    # ------------------------------------------------------------------
+    def submit(self, prompt: Sequence[int], max_new_tokens=None,
+               priority: int = 0, deadline_ticks: Optional[int] = None,
+               max_retries: Optional[int] = None) -> Request:
+        req = Request(next(self._uid), list(prompt), max_new_tokens,
+                      priority=priority, deadline_ticks=deadline_ticks,
+                      max_retries=max_retries, submit_step=self.steps_run)
+        self.queue.append(req)
+        return req
+
+    # -- scheduler ------------------------------------------------------
+    def _resident_tokens(self, req: Request) -> int:
+        """Tokens the request must hold to make forward progress: its full
+        replay (prompt + already-generated) plus the next write."""
+        return len(req.prompt) + len(req.output) + 1
+
+    def _admit(self):
+        """FIFO admission into free slots, gated on free blocks (the
+        request's replay footprint is allocated up front, prefix-cache hits
+        attached first).  Preemption victims still in retry backoff step
+        aside; nothing else skips the queue head."""
+        if not self.admission_open:
+            return
+        for s in range(self.scfg.slots):
+            if self.slot_req[s] is not None or not self.queue:
+                continue
+            req = None
+            for cand in self.queue:
+                if getattr(cand, "_not_before", 0) > self.steps_run:
+                    continue  # backing off after a preemption storm
+                req = cand
+                break
+            if req is None:
+                break  # everyone queued is backing off
+            need = blocks_for(self._resident_tokens(req), self.pool.page_size)
+            if need > min(self.pool.num_blocks, self.max_pages):
+                # can never fit: fail fast instead of wedging the queue head
+                self.queue.remove(req)
+                self._terminate(req, REJECTED, error=(
+                    f"needs {need} KV blocks; pool holds "
+                    f"{self.pool.num_blocks}, table holds {self.max_pages}"
+                ))
+                continue
+            matched: List[int] = []
+            if self.prefix is not None:
+                # keep one replay token uncached (the decode needs a real last
+                # token to feed) and consume only prompt pages
+                ps = self.pool.page_size
+                replay_len = len(req.prompt) + len(req.output)
+                cap = min(len(req.prompt), replay_len - 1) // ps
+                matched = self.prefix.match(req.prompt, cap)
+            shortfall = (need - len(matched)) - self.pool.free
+            if shortfall > 0 and self.prefix is not None:
+                self.prefix.evict(shortfall, protect=frozenset(matched))
+            if self.pool.free < need - len(matched):
+                break
+            self.queue.remove(req)
+            self.slot_req[s] = req
+            self.slot_state[s] = "prefill"
+            req.status = RUNNING
+            start = len(matched) * self.pool.page_size if matched else 0
+            self.pos[s] = start
+            req._cursor = start  # type: ignore[attr-defined]
+            req._admit_seq = next(self._admit_seq)  # type: ignore[attr-defined]
+            req._prefix_done = False  # type: ignore[attr-defined]
+            if req.admit_step is None:
+                req.admit_step = self.steps_run
+            req.cached_tokens = start
+            if matched:
+                self.tables.attach(s, matched)
+                self.pages_shared += len(matched)
+                self._tables_dirty = True
+            if self.tables.ensure_capacity(s, self._resident_tokens(req),
+                                           req.uid):
+                self._tables_dirty = True
+
+    def _pick_victim(self, exclude) -> Optional[int]:
+        """Preemption victim: lowest priority, then youngest admission."""
+        excluded = {exclude} if isinstance(exclude, int) else set(exclude)
+        best = None
+        for s in range(self.scfg.slots):
+            if s in excluded or self.slot_req[s] is None:
+                continue
+            r = self.slot_req[s]
+            key = (r.priority, -r._admit_seq)  # type: ignore[attr-defined]
+            if best is None or key < best[0]:
+                best = (key, s)
+        return None if best is None else best[1]
+
+    def _preempt(self, s: int):
+        """Evict slot ``s``: blocks back to the pool, request to the front of
+        the queue (recompute resume).  A victim past ``max_retries`` fails;
+        with ``retry_backoff`` it waits out an exponential backoff."""
+        req = self.slot_req[s]
+        req.preemptions += 1
+        self.preemptions += 1
+        if req.max_retries is not None and req.preemptions > req.max_retries:
+            self._terminate(req, FAILED, slot=s, error=(
+                f"preempted {req.preemptions} times "
+                f"(max_retries={req.max_retries})"
+            ))
+            return
+        self.tables.release_slot(s)
+        self._tables_dirty = True
+        self.slot_req[s] = None
+        self.slot_state[s] = None
+        self.pos[s] = 0
+        req._cursor = 0  # type: ignore[attr-defined]
+        req.status = QUEUED
+        if self.scfg.retry_backoff > 0:
+            wait = self.scfg.retry_backoff * (
+                1 << min(req.preemptions - 1, 5)
+            )
+            req._not_before = self.steps_run + wait  # type: ignore[attr-defined]
+        self.queue.appendleft(req)
+
+    def _reclaim(self, want: int) -> int:
+        """Evict up to ``want`` unreferenced prefix-cache pages back to the
+        pool, before any live slot is preempted."""
+        if self.prefix is None or want <= 0:
+            return 0
+        return self.prefix.evict(want)
+
+    def _ensure_with_evict(self, s: int, target_tokens: int, owner) -> bool:
+        """ensure_capacity with prefix-cache eviction as the pressure valve.
+        Returns False only when eviction cannot free enough blocks."""
+        while True:
+            try:
+                if self.tables.ensure_capacity(s, target_tokens, owner):
+                    self._tables_dirty = True
+                return True
+            except PoolExhausted:
+                need = blocks_for(target_tokens, self.pool.page_size) - self.tables.num_blocks(s)
+                if self.prefix is None or self.prefix.evict(need - self.pool.free) == 0:
+                    return False
+
+    def _grow(self, s: int) -> bool:
+        """Ensure slot ``s`` can write at ``pos[s]``; preempt on exhaustion.
+        Returns False when ``s`` itself was evicted to make room."""
+        req = self.slot_req[s]
+        if blocks_for(int(self.pos[s]) + 1, self.pool.page_size) > self.pool.num_blocks:
+            self._terminate(req, FAILED, slot=s,
+                            error="request outgrew the KV block pool")
+            return False
+        while True:
+            if self._ensure_with_evict(s, int(self.pos[s]) + 1, req.uid):
+                return True
+            victim = self._pick_victim(exclude=s)
+            if victim is None:
+                self._preempt(s)
+                return False
+            # don't evict someone strictly more important than s
+            v = self.slot_req[victim]
+            if (v.priority, -v._admit_seq) > (req.priority, -req._admit_seq):  # type: ignore[attr-defined]
+                self._preempt(s)
+                return False
+            self._preempt(victim)
+
+    def _terminate(self, req: Request, status: str,
+                   slot: Optional[int] = None,
+                   error: Optional[str] = None):
+        """The single request exit path: the request ends exactly once,
+        with its slot's pages released, whatever the reason."""
+        if slot is not None:
+            self.slot_req[slot] = None
+            self.slot_state[slot] = None
+            self.pos[slot] = 0
+            self.tables.release_slot(slot)  # blocks recycle immediately
+            self._tables_dirty = True
+        if error is not None:
+            req.error = error
+        req.status = status
+        req.done = True
+        self.completed.append(req)
+
+    def _sweep_lifecycle(self):
+        """Honor ``cancel()`` and ``deadline_ticks`` before dispatching,
+        wherever the request lives (queue or slot).  Partial output stays."""
+        now = self.steps_run
+        for req in list(self.queue):
+            verdict = self._lifecycle_verdict(req, now)
+            if verdict is not None:
+                self.queue.remove(req)
+                self._terminate(req, verdict[0], error=verdict[1])
+        for s in range(self.scfg.slots):
+            req = self.slot_req[s]
+            if req is None:
+                continue
+            verdict = self._lifecycle_verdict(req, now)
+            if verdict is not None:
+                self._terminate(req, verdict[0], slot=s, error=verdict[1])
+
+    @staticmethod
+    def _lifecycle_verdict(req: Request, now: int):
+        if req._cancel:
+            return (CANCELLED, "cancelled by caller")
+        if (req.deadline_ticks is not None
+                and now - req.submit_step >= req.deadline_ticks):
+            return (TIMED_OUT,
+                    f"deadline of {req.deadline_ticks} ticks exceeded")
+        return None
+
+    def _emit_token(self, s: int, req: Request, tok: int):
+        """Record a generated token and apply the stop conditions."""
+        req.output.append(tok)
+        if req.first_token_step is None:
+            req.first_token_step = self.steps_run
+        limit = req.max_new_tokens or self.scfg.max_new_tokens
+        if (
+            tok == self.scfg.eos_id
+            or len(req.output) >= limit
+            or self.pos[s] >= self.scfg.max_len
+        ):
+            self._terminate(req, COMPLETED, slot=s)
+
+    # -- device work ----------------------------------------------------
+    def _fresh_cache(self) -> lm.Cache:
+        """The cache for the next step, its block table re-uploaded only
+        after a scheduler mutation."""
+        if self._tables_dirty:
+            self.cache = self.cache.with_tables(torch.as_tensor(
+                self.tables.tables(), device=self.device))
+            self._tables_dirty = False
+            self.table_uploads += 1
+        return self.cache
+
+    def _sample(self, logits) -> Tuple[np.ndarray, np.ndarray]:
+        """Greedy tokens plus a per-row flag for logits with no finite value
+        (failed instead of emitted), in one download."""
+        bad = ~torch.isfinite(logits).any(dim=-1)
+        tok, _ = sample_step(logits, temperature=self.scfg.temperature)
+        both = torch.stack([tok, bad.to(torch.int32)]).cpu().numpy()
+        return both[0], both[1].astype(bool)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.array(a), device=self.device)
+
+    def _decode(self, feed: np.ndarray, live: np.ndarray):
+        logits, self.cache = lm.decode_step(
+            self.params, self.cfg, self._fresh_cache(), self._dev(feed),
+            self._dev(self.pos), live=self._dev(live))
+        return self._sample(logits)
+
+    def _prefill(self, toks: np.ndarray, lens: np.ndarray):
+        logits, self.cache = lm.prefill_step(
+            self.params, self.cfg, self._fresh_cache(), self._dev(toks),
+            self._dev(self.pos), self._dev(lens))
+        return self._sample(logits)
+
+    # -- per-tick step --------------------------------------------------
+    def step(self) -> int:
+        """One engine tick (one host dispatch).  Replay mode: one batched
+        decode step.  Chunked mode: one decode step for the generating slots
+        plus prompt chunks for prefilling slots, together bounded by
+        ``token_budget``.  Returns #active slots."""
+        self._sweep_lifecycle()
+        return self._step_inner()
+
+    def _step_inner(self) -> int:
+        self._admit()
+        for s in range(self.scfg.slots):
+            if self.slot_req[s] is not None:
+                self._grow(s)
+        self._admit()  # preemption may have freed blocks for the queue head
+        active = [s for s in range(self.scfg.slots) if self.slot_req[s] is not None]
+        if not active:
+            if self.queue and self.admission_open:
+                # every queued request is waiting out a retry backoff: the
+                # clock must still advance or backoffs would never expire
+                self.steps_run += 1
+            return 0
+        self.dispatches += 1
+        if self.prefill_mode == "chunked":
+            return self._step_chunked(active)
+        return self._step_replay(active)
+
+    # -- prefix-cache bookkeeping ---------------------------------------
+    def _register_prefix(self, s: int, req: Request):
+        """Publish the slot's full prompt pages into the prefix index once
+        prefill completes; pages already cached elsewhere are repointed to
+        the canonical copy so the duplicate recycles."""
+        if self.prefix is None or getattr(req, "_prefix_done", False):
+            return
+        req._prefix_done = True  # type: ignore[attr-defined]
+        ps = self.pool.page_size
+        n_pages = min(len(req.prompt) // ps, self.tables.num_blocks(s))
+        if n_pages <= 0:
+            return
+        pages = self.tables.blocks(s)[:n_pages]
+        for idx, cached in self.prefix.insert(req.prompt[: n_pages * ps], pages):
+            self.tables.repoint(s, idx, cached)
+            self.pages_deduped += 1
+            self._tables_dirty = True
+
+    def _cow_range(self, s: int, last_pos: int,
+                   protect: frozenset = frozenset(),
+                   out: Optional[List[Tuple[int, int]]] = None,
+                   ) -> List[Tuple[int, int]]:
+        """Copy-on-write guard for the pages slot ``s`` may write this
+        dispatch (positions ``pos[s]..last_pos``): shared pages are swapped
+        for fresh private copies and the (src, dst) pairs returned for the
+        device copy.  Exhaustion tries prefix-cache eviction, then
+        preempting a victim outside ``protect | {s}``, then raises."""
+        pairs = out if out is not None else []
+        ps = self.pool.page_size
+        req = self.slot_req[s]
+        first = int(self.pos[s]) // ps
+        last = min(last_pos // ps, self.tables.num_blocks(s) - 1)
+        for pidx in range(first, last + 1):
+            while True:
+                try:
+                    pair = self.tables.ensure_writable(s, pidx, req.uid)
+                    break
+                except PoolExhausted:
+                    if self._reclaim(1):
+                        continue
+                    victim = self._pick_victim(exclude=protect | {s})
+                    if victim is None:
+                        raise
+                    self._preempt(victim)
+            if pair:
+                pairs.append(pair)
+        return pairs
+
+    def _cow_or_preempt(self, work: List[Tuple[int, int]],
+                        ) -> Tuple[List[int], List[Tuple[int, int]]]:
+        """Run the COW gate for each ``(slot, last_pos)`` about to be
+        dispatched; a slot whose copy cannot be satisfied is preempted and
+        dropped.  Returns (surviving slots, device copy pairs)."""
+        dispatch = frozenset(s for s, _ in work)
+        survivors: List[int] = []
+        pairs: List[Tuple[int, int]] = []
+        for s, last in work:
+            if self.slot_req[s] is None:
+                continue  # became a victim earlier in this loop
+            try:
+                local = self._cow_range(s, last, protect=dispatch)
+            except PoolExhausted:
+                self._preempt(s)  # recompute resume replays it cleanly
+                continue
+            survivors.append(s)
+            pairs += local
+        return survivors, pairs
+
+    def _guard_work(self, work: List[Tuple[int, int]],
+                    ) -> List[Tuple[int, int]]:
+        """Discharge the kernels' runtime obligations for the ``(slot,
+        n_tokens)`` pairs about to dispatch.  A violating slot FAILs through
+        ``_terminate`` and is dropped; the survivors proceed untouched."""
+        if not work or not self.scfg.guards:
+            return work
+        rows = []
+        for s, n in work:
+            p = int(self.pos[s])
+            rows.append((s, p + n, p, p + n))
+        try:
+            guard_dispatch(
+                self.tables.tables(),
+                self.pool.base + self.pool.num_blocks,
+                self.pool.page_size, rows,
+            )
+        except GuardError as e:
+            blamed = sorted({row for row, _, _ in e.violations})
+            detail = {row: f"{kind}: {msg}"
+                      for row, kind, msg in reversed(e.violations)}
+            for s in blamed:
+                req = self.slot_req[s]
+                if req is None:
+                    continue
+                self.guard_failures += 1
+                self._terminate(req, FAILED, slot=s,
+                                error=f"dispatch guard: {detail[s]}")
+            dead = set(blamed)
+            return [(s, n) for s, n in work if s not in dead]
+        return work
+
+    def _apply_cow(self, pairs: List[Tuple[int, int]]):
+        """Run the device-side page copies for COW repoints."""
+        if not pairs:
+            return
+        self.pages_copied += len(pairs)
+        self._tables_dirty = True
+        src, dst = zip(*pairs)
+        lm.copy_pages(self.cache, list(src), list(dst))
+
+    # -- per-tick paths -------------------------------------------------
+    def _step_replay(self, active: List[int]) -> int:
+        active, pairs = self._cow_or_preempt(
+            [(s, int(self.pos[s])) for s in active]
+        )
+        self._apply_cow(pairs)
+        active = [s for s, _ in self._guard_work([(s, 1) for s in active])]
+        if not active:
+            self.dispatches -= 1  # nothing actually dispatched
+            return 0
+        feed = np.zeros((self.scfg.slots,), np.int32)
+        live = np.zeros((self.scfg.slots,), bool)
+        full_len: Dict[int, int] = {}
+        for s in active:
+            req = self.slot_req[s]
+            cur = req._cursor  # type: ignore[attr-defined]
+            np_ = len(req.prompt)
+            full_len[s] = np_ + len(req.output)
+            feed[s] = (
+                req.prompt[cur] if cur < np_ else req.output[cur - np_]
+            )
+            live[s] = True
+        next_tok, bad = self._decode(feed, live)
+        for s in active:
+            req = self.slot_req[s]
+            cur = req._cursor  # type: ignore[attr-defined]
+            self.pos[s] += 1
+            req._cursor = cur + 1  # type: ignore[attr-defined]
+            if bad[s]:
+                self.poisoned_rows += 1
+                self._terminate(req, FAILED, slot=s,
+                                error="poisoned logits row (no finite value)")
+                continue
+            if cur + 1 >= full_len[s]:  # this step produced a real token
+                self._register_prefix(s, req)
+                self._emit_token(s, req, int(next_tok[s]))
+        self.tick_tokens.append(len(active))
+        self.steps_run += 1
+        return len(active)
+
+    def _step_chunked(self, active: List[int]) -> int:
+        """One token-budget tick: decode for generating slots + prompt
+        chunks for prefilling slots (oldest admitted first) within the
+        leftover budget."""
+        gen = [s for s in active if self.slot_state[s] == "gen"]
+        pending = []
+        for s in active:
+            if self.slot_state[s] != "prefill":
+                continue
+            req = self.slot_req[s]
+            remaining = len(req.prompt) + len(req.output) - req._cursor  # type: ignore[attr-defined]
+            pending.append((s, req._admit_seq, remaining))  # type: ignore[attr-defined]
+        chunk_lens = plan_prefill_chunks(
+            self.token_budget, len(gen), pending, self.prefill_chunk
+        )
+
+        if gen:
+            gen, pairs = self._cow_or_preempt(
+                [(s, int(self.pos[s])) for s in gen]
+            )
+            self._apply_cow(pairs)
+            gen = [s for s, _ in self._guard_work([(s, 1) for s in gen])]
+        if gen:
+            feed = np.zeros((self.scfg.slots,), np.int32)
+            live = np.zeros((self.scfg.slots,), bool)
+            for s in gen:
+                req = self.slot_req[s]
+                feed[s] = req.output[-1]
+                live[s] = True
+            next_tok, bad = self._decode(feed, live)
+            for s in gen:
+                req = self.slot_req[s]
+                self.pos[s] += 1
+                req._cursor += 1  # type: ignore[attr-defined]
+                if bad[s]:
+                    self.poisoned_rows += 1
+                    self._terminate(
+                        req, FAILED, slot=s,
+                        error="poisoned logits row (no finite value)")
+                    continue
+                self._emit_token(s, req, int(next_tok[s]))
+
+        # COW during the gen dispatch may have preempted a prefilling slot
+        chunk_lens = {s: n for s, n in chunk_lens.items()
+                      if self.slot_req[s] is not None}
+        if chunk_lens:
+            ok, pairs = self._cow_or_preempt(
+                [(s, int(self.pos[s]) + n - 1) for s, n in chunk_lens.items()]
+            )
+            chunk_lens = {s: chunk_lens[s] for s in ok}
+            self._apply_cow(pairs)
+            chunk_lens = dict(self._guard_work(list(chunk_lens.items())))
+        if chunk_lens:
+            width = self.prefill_chunk
+            toks = np.zeros((self.scfg.slots, width), np.int32)
+            lens = np.zeros((self.scfg.slots,), np.int32)
+            for s, n in chunk_lens.items():
+                req = self.slot_req[s]
+                cur = req._cursor  # type: ignore[attr-defined]
+                replay = (req.prompt + req.output)[cur : cur + n]
+                toks[s, :n] = replay
+                lens[s] = n
+            ptok, pbad = self._prefill(toks, lens)
+            for s, n in chunk_lens.items():
+                req = self.slot_req[s]
+                self.pos[s] += n
+                req._cursor += n  # type: ignore[attr-defined]
+                if pbad[s]:
+                    self.poisoned_rows += 1
+                    self._terminate(
+                        req, FAILED, slot=s,
+                        error="poisoned logits row (no finite value)")
+                    continue
+                if req._cursor >= len(req.prompt) + len(req.output):  # type: ignore[attr-defined]
+                    # the chunk reached the end of the replay stream: its
+                    # last live logits produce the next real token
+                    self.slot_state[s] = "gen"
+                    self._register_prefix(s, req)
+                    self._emit_token(s, req, int(ptok[s]))
+
+        self.tick_tokens.append(len(gen) + sum(chunk_lens.values()))
+        self.steps_run += 1
+        return len(active)
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        """Drive until queue + slots drain (or step budget)."""
+        for _ in range(max_steps):
+            if self.step() == 0 and not self.queue:
+                break
+        return self.completed
+
+    # -- accounting -----------------------------------------------------
+    def kv_cache_bytes(self) -> int:
+        """Bytes held by the KV page pools."""
+        return self.cache.kv_bytes()
+
+    def peak_kv_blocks(self) -> Optional[int]:
+        return self.pool.peak_in_use

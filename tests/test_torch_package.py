@@ -1,0 +1,183 @@
+"""Boundaries of the port: it imports neither JAX nor the JAX package, its
+entry points run on the card unless asked for the CPU, options it has not
+ported raise, and chip_smoke.py refuses to run without a card."""
+import importlib.util
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config
+from repro_torch.models import lm
+from repro_torch.serving import ServeConfig, ServingEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_port_imports_neither_jax_nor_repro():
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")]
+    assert "repro_torch.serving.engine" in names and len(names) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, env=_env(),
+                   timeout=120)
+    # chip_smoke.py cannot run here without a card: read its imports
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "from repro." not in src
+    assert "from repro import" not in src
+
+
+def test_tf32_is_off_in_the_port():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2_1_5b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(cfg, 1, 16)
+    params = lm.init(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params, ServeConfig(slots=1, max_len=16))
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen2_1_5b", "--reduced"])
+    eng = ServingEngine(cfg, params, ServeConfig(slots=1, max_len=16,
+                                                 max_new_tokens=2), device="cpu")
+    assert eng.cache.tables.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(sync_every=4), "item 7"), (dict(spec_decode="ngram"), "item 12"),
+    (dict(kv_dtype="int8"), "item 9"), (dict(cache="contiguous"), "item 4"),
+    (dict(audit=True), "item 11"), (dict(temperature=0.7), "item 5"),
+])
+def test_unported_serve_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ServeConfig(**kw)
+
+
+def test_reference_validation_still_raises_value_errors():
+    with pytest.raises(ValueError):
+        ServeConfig(slots=0)
+    with pytest.raises(ValueError):
+        ServeConfig(cache="ring")
+    with pytest.raises(ValueError):
+        ServeConfig(slots=4, token_budget=2)
+
+
+def test_fault_injection_and_temperature_sampling_raise():
+    from repro_torch.serving.sampling import sample_step
+    cfg = get_config("qwen2_1_5b").reduced()
+    params = lm.init(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ServingEngine(cfg, params, ServeConfig(slots=1, max_len=16),
+                      injector=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        sample_step(torch.zeros(2, 8), temperature=1.0)
+
+
+def test_serve_cli_runs_on_the_cpu_and_reports_launches(capsys):
+    from repro_torch.launch import serve
+    done = serve.main(["--arch", "qwen2_1_5b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--slots", "2", "--max-new", "3",
+                       "--prompt-len", "20", "--max-len", "48"])
+    assert len(done) == 3 and all(r.status == "completed" for r in done)
+    out = capsys.readouterr().out
+    assert "served 3 requests, 9 tokens" in out
+    # CPU tensors run the kernels' plain versions: no kernel launched
+    assert "paged_attention=0, prefill_attention=0" in out
+
+
+def test_trace_measures_the_card_only():
+    from repro_torch.launch import trace
+    with pytest.raises(SystemExit, match="measures the card"):
+        trace.main(["--arch", "qwen2_1_5b", "--reduced", "--device", "cpu"])
+
+
+def test_chip_smoke_phases_rehearse_on_the_cpu():
+    """chip_smoke.py's phases, run here with CPU tensors (its kernels'
+    plain versions; untimed): the checks at the main path's shapes and the
+    controls of the bf16 limit, the
+    serving workload on a reduced model (its scheduling depends only on the
+    prompt lengths, so preemption and sharing fire as on the card), and the
+    teacher-forced comparison on a reduced 4-layer model."""
+    import dataclasses
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import KERNELS
+
+    cpu = torch.device("cpu")
+    for window in (None, 256):
+        r = cs.check_decode(torch, np, ref, PA, torch.float32, window, None, False, cpu)
+        assert r["err"] == 0.0
+    r = cs.check_prefill(torch, np, ref, PF, torch.float32, 96, None, False, cpu)
+    assert r["err"] == 0.0
+    # the bf16 limit passes a sound online softmax and rejects bf16 sums
+    for check, mod in ((cs.check_decode, PA), (cs.check_prefill, PF)):
+        r = check(torch, np, ref, mod, torch.bfloat16, None, None, False, cpu)
+        assert r["ulps"] == 0.0 and cs.kernel_ok(r), r
+    cfg = dataclasses.replace(get_config("qwen2_1_5b").reduced(), num_layers=1,
+                              vocab_size=151936)
+    params = lm.init(cfg, 0, device="cpu")
+    runs = {}
+    for nb in (None, int(0.39 * cs.SLOTS * cs.MAX_LEN // cs.PAGE)):
+        eng, reqs, _, launches = cs.serve(torch, np, cfg, params, KERNELS, nb, cpu)
+        assert all(r.status == "completed" and len(r.output) == 32 for r in reqs)
+        assert launches == {"paged_attention": 0, "prefill_attention": 0}
+        runs[nb] = eng
+    assert runs[None].pages_shared > 0 and runs[199].preemptions > 0
+    cfg4 = dataclasses.replace(get_config("qwen2_1_5b").reduced(), num_layers=4,
+                               dtype="bfloat16")
+    tf = cs.teacher_forced(torch, np, lm, cfg4, cpu)
+    assert cs.teacher_forced_ok(tf), tf
+
+
+def test_chip_smoke_refuses_to_run_without_a_card_or_the_port(
+        tmp_path, monkeypatch, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                       capture_output=True, text=True, env=_env(), timeout=120)
+    assert r.returncode != 0 and '"ok": true' not in r.stdout
+    # alone in a directory, with a card: no result either
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    spec = importlib.util.spec_from_file_location("chip_smoke_alone", alone)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.SRC == tmp_path / "src"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert cs.main([]) != 0
+    assert '"ok": true' not in capsys.readouterr().out
