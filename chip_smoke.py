@@ -8,33 +8,43 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/repro_torch``.  It
 imports neither JAX nor the JAX package.  Phases (any failure exits non-zero;
 no phase is skipped):
 
-1. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-   (sm_90a, one process per source, in parallel) and print the card's name
-   and power limit;
+1. build the four CUDA kernels (fp and quantized decode, fp and quantized
+   chunked prefill) from the two sources in ``src/repro_torch/kernels/csrc``
+   with nvcc (sm_90a, one process per source, in parallel) and print the
+   card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's full-width shapes (qwen2-1.5B: Hq 12, Hkv 2, D 128, page 16,
-   bf16; plus an fp32 pass), including a len-0 slot, a sliding window and a
-   partial chunk (bf16 limit in ulps of the plain value, checked against
-   an fp32- and a bf16-accumulating control); time kernel, plain version
-   and, as a yardstick only,
-   ``scaled_dot_product_attention`` over the gathered pages;
+   bf16; plus an fp32 pass; the quantized kernels in int8 and int4),
+   including a len-0 slot, a sliding window and a partial chunk (bf16 limit
+   in ulps of the plain value, checked against an fp32- and a
+   bf16-accumulating control); time kernel, plain version and, as a
+   yardstick only, ``scaled_dot_product_attention`` over the gathered (for
+   the quantized kernels: gathered and dequantized) pages;
 3. serve full-width qwen2-1.5B (28 layers, bf16, seeded random weights)
    through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
    prefix cache, guards, greedy): 16 requests of 100-600 prompt tokens, half
    sharing a 256-token prefix, 32 new tokens each; then again with the pool
    at 39% of slots * max_pages (199 blocks), where this workload preempts
-   (its scheduling depends only on prompt lengths).  Each run resets the
-   kernels' launch counts before it and reads them after;
+   (its scheduling depends only on prompt lengths); then with int8 and with
+   int4 KV pages (ticks and TTFT equal to fp's), int8 with the pool at the
+   bytes of fp's 199 pages (fewer preemptions than fp there), and int8 with
+   the multi-step window ``sync_every=16`` (outputs byte-identical to per-tick
+   int8, fewer host dispatches, and no host sync inside a window).  Each run
+   resets the kernels' launch counts before it and reads them after;
 4. teacher-forced logits at full width, depth cut to 4 layers: the card's
    bf16 kernel path against the plain path in fp32 on the CPU (error in
-   standard deviations of the logits, top-10 and argmax agreement).
+   standard deviations of the logits, top-10 and argmax agreement), for fp
+   and int8 pages within one limit; int4's reading is printed, not gated.
 
 The last three lines are the card's name and power limit, the kernel table
-as one JSON line, and ``{"ok": true, "device": {...}}``.
+as one JSON line (each kernel's launches from its own path's default-pool
+run: fp, or int8 for the quantized kernels), and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -182,7 +192,16 @@ def _tables(torch, rng, dev):
     return torch.as_tensor(tables, device=dev), num_pages
 
 
-def check_decode(torch, np, ref, PA, dtype, window, flush, timed, dev):
+def _quantized(torch, ref, pools, fmt):
+    """Each fp pool quantized per row: (packed, scales) pairs."""
+    return [ref.quantize_rows(p, fmt) for p in pools]
+
+
+def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
+                 fmt=None):
+    """The decode kernel (``fmt`` None) or its quantized twin (``fmt`` int8
+    or int4, pools quantized from the same random values) against its plain
+    version."""
     rng = np.random.default_rng(1)
     tables, num_pages = _tables(torch, rng, dev)
     lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
@@ -193,10 +212,23 @@ def check_decode(torch, np, ref, PA, dtype, window, flush, timed, dev):
     kp = torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).to(dtype)
     vp = torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).to(dtype)
     lens_t = torch.as_tensor(lens, device=dev)
-    before = PA.KERNEL.launches
-    out = PA.paged_attention(q, kp, vp, tables, lens_t, window=window)
-    plain = ref.paged_attention(q, kp, vp, tables, lens_t, window=window)
-    PA.KERNEL.launches = before  # comparison launches do not count
+    isz = q.element_size()
+    if fmt is None:
+        args, kw, row_bytes = (kp, vp), {}, HEAD_DIM * isz
+        kernel, plain_fn = mod.paged_attention, ref.paged_attention
+    else:
+        (kq, ks), (vq, vs) = _quantized(torch, ref, (kp, vp), fmt)
+        args, kw = (kq, vq, ks, vs), {"fmt": fmt}
+        row_bytes = HEAD_DIM // ref.KV_PACK[fmt] + isz  # packed row + scale
+        kernel, plain_fn = mod.paged_attention_quant, ref.paged_attention_quant
+        # what the kernel attends: the pages dequantized to q's dtype
+        kp = ref.dequantize_rows(kq, ks, fmt).to(dtype)
+        vp = ref.dequantize_rows(vq, vs, fmt).to(dtype)
+    run = lambda: kernel(q, *args, tables, lens_t, window=window, **kw)  # noqa: E731
+    plain_run = lambda: plain_fn(q, *args, tables, lens_t, window=window, **kw)  # noqa: E731
+    before = mod.KERNEL.launches
+    out, plain = run(), plain_run()
+    mod.KERNEL.launches = before  # comparison launches do not count
     err = (out.float() - plain.float()).abs().max().item()
     assert torch.isfinite(out).all() and out[2].abs().max().item() == 0.0
     res = {"err": err}
@@ -215,26 +247,30 @@ def check_decode(torch, np, ref, PA, dtype, window, flush, timed, dev):
         res["ulps"] = bf16_ulps(torch, out, plain)
         res.update(accumulation_controls(torch, q4, kg, vg, mask, plain[:, :, None]))
     if timed:
-        res["ms"] = time_ms(torch, lambda: PA.paged_attention(
-            q, kp, vp, tables, lens_t, window=window), flush=flush)
-        res["plain_ms"] = time_ms(torch, lambda: ref.paged_attention(
-            q, kp, vp, tables, lens_t, window=window), flush=flush)
-        PA.KERNEL.launches = before
-        # yardstick: one SDPA call over the gathered pages (gather untimed)
+        res["ms"] = time_ms(torch, run, flush=flush)
+        res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
+        mod.KERNEL.launches = before
+        # yardstick: one SDPA call over the gathered pages (gather untimed);
+        # no single PyTorch call dequantizes paged KV, so for the quantized
+        # kernels it is labelled apart and library_ms stays null
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        res["library_ms"] = time_ms(
-            torch, lambda: sdpa(q4, kg, vg, attn_mask=mask), flush=flush)
+        sdpa_ms = time_ms(torch, lambda: sdpa(q4, kg, vg, attn_mask=mask), flush=flush)
+        res["library_ms"] = sdpa_ms if fmt is None else None
+        if fmt is not None:
+            res["sdpa_dequantized_ms"] = sdpa_ms
         eff = lens if window is None else np.minimum(lens, window)
-        isz = q.element_size()
         live = int(eff.sum())
-        nbytes = (q.numel() * isz * 2 + 2 * HKV * live * HEAD_DIM * isz
+        nbytes = (q.numel() * isz * 2 + 2 * HKV * live * row_bytes
                   + SLOTS * 4 + sum(-(-int(n) // PAGE) for n in eff) * 4)
         flops = 4.0 * HQ * HEAD_DIM * live
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
     return res
 
 
-def check_prefill(torch, np, ref, PF, dtype, window, flush, timed, dev):
+def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
+                  fmt=None):
+    """The chunked-prefill kernel (``fmt`` None) or its quantized twin
+    against its plain version: outputs, and the pages both write."""
     rng = np.random.default_rng(3)
     tables, num_pages = _tables(torch, rng, dev)
     max_pages = MAX_LEN // PAGE
@@ -251,15 +287,32 @@ def check_prefill(torch, np, ref, PF, dtype, window, flush, timed, dev):
     kp = torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).to(dtype)
     vp = torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).to(dtype)
     st, ln = torch.as_tensor(starts, device=dev), torch.as_tensor(lens, device=dev)
-    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-    before = PF.KERNEL.launches
-    out, k1, v1 = PF.prefill_attention(q, kn, vn, k1, v1, tables, st, ln, window=window)
-    plain, k2, v2 = ref.paged_prefill_attention(q, kn, vn, k2, v2, tables, st, ln, window=window)
-    PF.KERNEL.launches = before
+    isz = q.element_size()
+    if fmt is None:
+        new, pools, kw = (kn, vn), (kp, vp), {}
+        row_bytes = HEAD_DIM * isz
+        kernel, plain_fn = mod.prefill_attention, ref.paged_prefill_attention
+    else:
+        (knq, kns), (vnq, vns), (kq, ks), (vq, vs) = _quantized(
+            torch, ref, (kn, vn, kp, vp), fmt)
+        new, pools, kw = (knq, vnq, kns, vns), (kq, vq, ks, vs), {"fmt": fmt}
+        row_bytes = HEAD_DIM // ref.KV_PACK[fmt] + isz  # packed row + scale
+        kernel = mod.prefill_attention_quant
+        plain_fn = ref.paged_prefill_attention_quant
+        # what the kernel attends: the chunk and the pages dequantized
+        kn, vn, kp, vp = (ref.dequantize_rows(a, b, fmt).to(dtype) for a, b in
+                          ((knq, kns), (vnq, vns), (kq, ks), (vq, vs)))
+    p1, p2 = [t.clone() for t in pools], [t.clone() for t in pools]
+    run = lambda: kernel(q, *new, *p1, tables, st, ln, window=window, **kw)[0]  # noqa: E731
+    plain_run = lambda: plain_fn(q, *new, *p2, tables, st, ln, window=window, **kw)[0]  # noqa: E731
+    before = mod.KERNEL.launches
+    out, plain = run(), plain_run()
+    mod.KERNEL.launches = before
     err = (out.float() - plain.float()).abs().max().item()
     assert torch.isfinite(out).all()
-    # live positions hold the chunk's K/V on both paths; pages no chunk
-    # writes keep their contents (page 0 is the sink of both)
+    # live positions hold the chunk's K/V (packed bytes and scales) on both
+    # paths; pages no chunk writes keep their contents (page 0 is the sink
+    # of both)
     tb = tables.cpu().numpy()
     written = {0}
     for b in range(SLOTS):
@@ -268,13 +321,13 @@ def check_prefill(torch, np, ref, PF, dtype, window, flush, timed, dev):
         for c in range(int(lens[b])):
             p = int(starts[b]) + c
             pg, of = int(tb[b, p // PAGE]), p % PAGE
-            for pools in ((k1, v1), (k2, v2)):
-                assert torch.equal(pools[0][:, pg, of], kn[b, :, c])
-                assert torch.equal(pools[1][:, pg, of], vn[b, :, c])
+            for written_pools in (p1, p2):
+                for pool, chunk_rows in zip(written_pools, new):
+                    assert torch.equal(pool[:, pg, of], chunk_rows[b, :, c])
     keep = torch.as_tensor([p for p in range(num_pages) if p not in written], device=dev)
-    for pools in ((k1, v1), (k2, v2)):
-        assert torch.equal(pools[0][:, keep], kp[:, keep])
-        assert torch.equal(pools[1][:, keep], vp[:, keep])
+    for written_pools in (p1, p2):
+        for pool, orig in zip(written_pools, pools):
+            assert torch.equal(pool[:, keep], orig[:, keep])
     res = {"err": err}
     # [gathered prior pages ; chunk] for one dense call: SDPA and the controls
     kg = kp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
@@ -295,16 +348,15 @@ def check_prefill(torch, np, ref, PF, dtype, window, flush, timed, dev):
         live_rows = (ci[None, :] < ln[:, None])[:, None, :, None]
         res.update(accumulation_controls(torch, q, kall, vall, mask, plain, live_rows))
     if timed:
-        res["ms"] = time_ms(torch, lambda: PF.prefill_attention(
-            q, kn, vn, k1, v1, tables, st, ln, window=window), flush=flush)
-        res["plain_ms"] = time_ms(torch, lambda: ref.paged_prefill_attention(
-            q, kn, vn, k2, v2, tables, st, ln, window=window), flush=flush)
-        PF.KERNEL.launches = before
+        res["ms"] = time_ms(torch, run, flush=flush)
+        res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
+        mod.KERNEL.launches = before
         # yardstick: one SDPA call over the gathered inputs (gather untimed)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        res["library_ms"] = time_ms(
-            torch, lambda: sdpa(q, kall, vall, attn_mask=mask), flush=flush)
-        isz = q.element_size()
+        sdpa_ms = time_ms(torch, lambda: sdpa(q, kall, vall, attn_mask=mask), flush=flush)
+        res["library_ms"] = sdpa_ms if fmt is None else None
+        if fmt is not None:
+            res["sdpa_dequantized_ms"] = sdpa_ms
         pairs = 0
         prior_rows = 0
         for b in range(SLOTS):
@@ -317,7 +369,7 @@ def check_prefill(torch, np, ref, PF, dtype, window, flush, timed, dev):
                 pairs += qp + 1 - kl
         live = int(lens.sum())
         nbytes = ((HQ * HEAD_DIM * live) * isz * 2  # live Q rows in, out
-                  + 2 * HKV * HEAD_DIM * isz * (live * 2 + prior_rows))
+                  + 2 * HKV * row_bytes * (live * 2 + prior_rows))
         flops = 4.0 * HQ * HEAD_DIM * pairs
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
     return res
@@ -328,26 +380,34 @@ def check_prefill(torch, np, ref, PF, dtype, window, flush, timed, dev):
 # ---------------------------------------------------------------------------
 
 
+# Token ids are drawn from qwen2-1.5B's vocabulary whatever the model, and
+# folded into a smaller one, so the prompt lengths (drawn from the same
+# generator) and with them the schedule stay those of the card's run.
+WORKLOAD_VOCAB = 151936
+
+
 def workload(rng, vocab: int, n: int = 16, shared_len: int = 256):
     """``n`` prompts of 100-600 tokens; every other one is one shared
-    ``shared_len``-token prefix plus its own tail (300-600 tokens in all)."""
-    shared = rng.integers(0, vocab, size=shared_len).tolist()
+    ``shared_len``-token prefix plus its own tail (300-600 tokens in all).
+    Ids are drawn below WORKLOAD_VOCAB and taken modulo ``vocab``."""
+    draw = lambda size: (rng.integers(0, WORKLOAD_VOCAB, size=size) % vocab).tolist()  # noqa: E731
+    shared = draw(shared_len)
     prompts = []
     for i in range(n):
         if i % 2 == 0:
             tail = int(rng.integers(300, 601)) - shared_len
-            prompts.append(shared + rng.integers(0, vocab, size=tail).tolist())
+            prompts.append(shared + draw(tail))
         else:
-            prompts.append(rng.integers(0, vocab, size=int(rng.integers(100, 601))).tolist())
+            prompts.append(draw(int(rng.integers(100, 601))))
     return prompts
 
 
-def serve(torch, np, cfg, params, kernels, num_blocks, device, max_new=32):
+def serve(torch, np, cfg, params, kernels, device, max_new=32, **serve_kw):
+    """One serving run of the workload; ``serve_kw`` go to ServeConfig."""
     from repro_torch.serving import ServeConfig, ServingEngine
 
     scfg = ServeConfig(slots=SLOTS, max_len=MAX_LEN, prefill_chunk=CHUNK,
-                       max_new_tokens=max_new, page_size=PAGE,
-                       num_blocks=num_blocks)
+                       max_new_tokens=max_new, page_size=PAGE, **serve_kw)
     engine = ServingEngine(cfg, params, scfg, device=device)
     prompts = workload(np.random.default_rng(0), cfg.vocab_size)
     reqs = [engine.submit(p) for p in prompts]
@@ -362,6 +422,94 @@ def serve(torch, np, cfg, params, kernels, num_blocks, device, max_new=32):
     dt = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     return engine, reqs, dt, launches
+
+
+FP_KERNELS = ("paged_attention", "prefill_attention")
+QUANT_KERNELS = ("paged_attention_quant", "prefill_attention_quant")
+FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
+
+
+@contextlib.contextmanager
+def no_host_sync(torch, device):
+    """On a card, any operation that makes the host wait for the device
+    raises inside the block (torch.cuda.set_sync_debug_mode)."""
+    if device.type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def serving_phase(torch, np, lm, cfg, params, kernels, device):
+    """Phase 3: the six serving runs and their checks.  Returns the runs by
+    label as (engine, requests, seconds, launches)."""
+    from repro_torch.serving.paged_cache import blocks_for_bytes
+
+    runs = {}
+
+    def run(label, path_kernels, **kw):
+        engine, reqs, dt, launches = serve(torch, np, cfg, params, kernels,
+                                           device, **kw)
+        toks = sum(len(r.output) for r in reqs)
+        ttft = [r.ttft_ticks for r in reqs]
+        log(f"[serve] {label}: {len(reqs)} requests, {toks} tokens in {dt:.2f} s "
+            f"({toks / dt:.1f} tok/s), {engine.steps_run} ticks, "
+            f"{engine.dispatches} dispatches, mean TTFT "
+            f"{sum(ttft) / len(ttft):.2f} ticks, {engine.preemptions} preemptions, "
+            f"{engine.pages_shared} pages shared, peak {engine.peak_kv_blocks()} "
+            f"of {engine.pool.num_blocks} blocks of {engine.pool.page_bytes} bytes, "
+            f"launches {launches}")
+        assert all(r.status == "completed" and len(r.output) == 32 for r in reqs), \
+            [(r.uid, r.status, r.error) for r in reqs if r.status != "completed"]
+        # the run went through its path's kernels and no other (on the CPU,
+        # the plain versions: no kernel launches)
+        launched = {k for k, n in launches.items() if n > 0}
+        assert launched == set(path_kernels if device.type == "cuda" else ()), launches
+        runs[label] = (engine, reqs, dt, launches)
+        return engine, reqs
+
+    fp, fp_reqs = run("fp, default pool", FP_KERNELS)
+    fp_tight, _ = run(f"fp, {FP_BUDGET_BLOCKS} blocks", FP_KERNELS,
+                      num_blocks=FP_BUDGET_BLOCKS)
+    assert fp.pages_shared > 0 and fp_tight.preemptions > 0
+    mean_ttft = lambda reqs: sum(r.ttft_ticks for r in reqs) / len(reqs)  # noqa: E731
+    for fmt in ("int8", "int4"):
+        eng, reqs = run(f"{fmt}, default pool", QUANT_KERNELS, kv_dtype=fmt)
+        same = sum(a.output == b.output for a, b in zip(reqs, fp_reqs))
+        toks = sum(len(r.output) for r in reqs)
+        match = sum(x == y for a, b in zip(reqs, fp_reqs)
+                    for x, y in zip(a.output, b.output))
+        log(f"[serve] {fmt} vs fp: {eng.cache.kv_bytes() / fp.cache.kv_bytes():.3f}x "
+            f"the KV bytes; tokens equal to fp's {match}/{toks}, requests equal "
+            f"{same}/{len(reqs)}")
+        assert eng.steps_run == fp.steps_run and mean_ttft(reqs) == mean_ttft(fp_reqs)
+    q8, q8_reqs = runs["int8, default pool"][:2]
+    nb = blocks_for_bytes(FP_BUDGET_BLOCKS * fp.pool.page_bytes, q8.pool.page_bytes)
+    q8_tight, _ = run(f"int8 at the bytes of fp's {FP_BUDGET_BLOCKS} pages "
+                      f"({nb} blocks)", QUANT_KERNELS, kv_dtype="int8",
+                      num_blocks=nb)
+    assert q8_tight.preemptions < fp_tight.preemptions
+    loop = lm.decode_loop
+
+    def strict_loop(*a, **kw):  # a window must never wait for the host
+        with no_host_sync(torch, device):
+            return loop(*a, **kw)
+
+    lm.decode_loop = strict_loop
+    try:
+        win, win_reqs = run("int8, sync_every=16", QUANT_KERNELS,
+                            kv_dtype="int8", sync_every=16)
+    finally:
+        lm.decode_loop = loop
+    assert win.decode_windows > 0 and win.dispatches < q8.dispatches
+    assert [r.output for r in win_reqs] == [r.output for r in q8_reqs]
+    log(f"[serve] int8 sync_every=16: outputs byte-identical to per-tick int8; "
+        f"{win.dispatches} dispatches ({win.decode_windows} windows, no host "
+        f"sync inside) against {q8.dispatches}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +584,56 @@ def teacher_forced_ok(r) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, driven
+# ---------------------------------------------------------------------------
+
+
+def kernel_phase(torch, np, ref, flush, device):
+    """Every kernel against its plain version, bf16 and fp32, with and
+    without a window; the quantized kernels in int8 and int4.  Returns the
+    timed results by kernel name (the quantized kernels' int8 run; int4's
+    timing is logged)."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import paged_attention_quant as PAQ
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import prefill_attention_quant as PFQ
+
+    table = {}
+    cases = (("paged_attention", check_decode, PA, (None,), (None, 256)),
+             ("prefill_attention", check_prefill, PF, (None,), (None, 96)),
+             ("paged_attention_quant", check_decode, PAQ, ("int8", "int4"), (None, 256)),
+             ("prefill_attention_quant", check_prefill, PFQ, ("int8", "int4"), (None, 96)))
+    for name, check, mod, fmts, windows in cases:
+        for fmt in fmts:
+            for dtype in (torch.bfloat16, torch.float32):
+                for window in windows:
+                    timed = dtype == torch.bfloat16 and window is None
+                    r = check(torch, np, ref, mod, dtype, window, flush, timed,
+                              device, fmt=fmt)
+                    if "ulps" in r:
+                        limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
+                                 f"{BF16_ULPS:g}; controls: fp32-accumulating "
+                                 f"{r['fp32_acc_ulps']:.2f}, bf16-accumulating "
+                                 f"{r['bf16_acc_ulps']:.2f})")
+                    else:
+                        limit = f"limit {FP32_ATOL:.0e}"
+                    if timed:
+                        lib = (f"sdpa {r['library_ms']:.4f} ms" if fmt is None else
+                               f"sdpa over dequantized pages (yardstick) "
+                               f"{r['sdpa_dequantized_ms']:.4f} ms")
+                        limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                                  f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                    log(f"[kernel] {name}{'' if fmt is None else ' ' + fmt} "
+                        f"{str(dtype)[6:]} window={window}: max abs err "
+                        f"{r['err']:.3e}, {limit}")
+                    if not kernel_ok(r):
+                        raise AssertionError(f"{name} {fmt} disagrees with its plain version")
+                    if timed and fmt in (None, "int8"):
+                        table[name] = r
+    return table
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -457,8 +655,6 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels import prefill_attention as PF
     from repro_torch.kernels import ref
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.ops import KERNELS
@@ -474,40 +670,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build_log: dict = {}
     build_all(list(KERNELS.values()), log=build_log)
-    log(f"[build] {len(build_log)} kernel(s) compiled in "
+    log(f"[build] {len(KERNELS)} kernels from {len(build_log)} source(s) compiled in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        fn = ""
+        for line in text.splitlines():  # ptxas -v: one block per function
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                log(f"[build] {name} {fn}: {line.split(':', 1)[-1].strip()}; {spill}")
 
     # ---- phase 2: kernels vs plain versions -------------------------------
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    flush = flush_buf.zero_
-    table = {}
-    for name, check, windows in (("paged_attention", check_decode, (None, 256)),
-                                 ("prefill_attention", check_prefill, (None, 96))):
-        mod = PA if name == "paged_attention" else PF
-        for dtype in (torch.bfloat16, torch.float32):
-            for window in windows:
-                timed = dtype == torch.bfloat16 and window is None
-                r = check(torch, np, ref, mod, dtype, window, flush, timed, device)
-                if "ulps" in r:
-                    limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
-                             f"{BF16_ULPS:g}; controls: fp32-accumulating "
-                             f"{r['fp32_acc_ulps']:.2f}, bf16-accumulating "
-                             f"{r['bf16_acc_ulps']:.2f})")
-                else:
-                    limit = f"limit {FP32_ATOL:.0e}"
-                log(f"[kernel] {name} {str(dtype)[6:]} window={window}: "
-                    f"max abs err {r['err']:.3e}, {limit}"
-                    + (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                       f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                       f"({r['bound_by']})" if timed else ""))
-                if not kernel_ok(r):
-                    raise AssertionError(f"{name} disagrees with its plain version")
-                if timed:
-                    table[name] = r
+    table = kernel_phase(torch, np, ref, flush_buf.zero_, device)
     if args.only == "kernels":
         log(json.dumps({"kernels_checked": sorted(table)}))
         log(json.dumps({"ok": True, "device": {
@@ -522,47 +699,32 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"[serve] {cfg.name}: {lm.param_count(params) / 1e9:.3f} B params "
         f"({cfg.dtype}) initialised on the card in {time.perf_counter() - t0:.1f} s")
-    max_pages = MAX_LEN // PAGE
-    runs = {}
-    for label, nb in (("default pool", None),
-                      ("39% pool", int(0.39 * SLOTS * max_pages))):
-        engine, reqs, dt, launches = serve(torch, np, cfg, params, KERNELS, nb, device)
-        toks = sum(len(r.output) for r in reqs)
-        ttft = [r.ttft_ticks for r in reqs]
-        log(f"[serve] {label}: {len(reqs)} requests, {toks} tokens in {dt:.2f} s "
-            f"({toks / dt:.1f} tok/s), {engine.steps_run} ticks, mean TTFT "
-            f"{sum(ttft) / len(ttft):.2f} ticks, {engine.preemptions} preemptions, "
-            f"{engine.pages_shared} pages shared, peak {engine.peak_kv_blocks()} "
-            f"blocks, launches {launches}")
-        assert all(r.status == "completed" and len(r.output) == 32 for r in reqs), \
-            [(r.uid, r.status, r.error) for r in reqs if r.status != "completed"]
-        assert all(n > 0 for n in launches.values()), launches
-        runs[label] = (engine, reqs, launches)
-    assert runs["default pool"][0].pages_shared > 0
-    assert runs["39% pool"][0].preemptions > 0
-    main_launches = runs["default pool"][2]
-    same = sum(a.output == b.output for a, b in zip(runs["default pool"][1],
-                                                      runs["39% pool"][1]))
-    log(f"[serve] greedy outputs equal between the two runs for {same}/16 "
-        "requests (bf16: near-tied logits may flip after recompute)")
-    del params, runs, engine
+    runs = serving_phase(torch, np, lm, cfg, params, KERNELS, device)
+    # each kernel's launches on its own path's run
+    main_launches = {**runs["fp, default pool"][3],
+                     **{k: runs["int8, default pool"][3][k] for k in QUANT_KERNELS}}
+    del params, runs
     torch.cuda.empty_cache()
 
     # ---- phase 4: teacher-forced, card bf16 vs CPU fp32 -------------------
-    t0 = time.perf_counter()
-    tf = teacher_forced(torch, np, lm, dataclasses.replace(cfg, num_layers=4),
-                        device)
-    log(f"[e2e] 4-layer full-width teacher-forced logits, card bf16 vs CPU fp32, "
-        f"{tf['steps']} steps: worst max|diff| {tf['err']:.3e} standard deviations "
-        f"of the logits (limit {TF_STD_LIMIT:g}), fewest top-{TOPK} tokens kept "
-        f"{tf['top10']} (limit {TF_TOP10_MIN}), argmax agrees at {tf['argmax']}/"
-        f"{tf['steps']} steps, {time.perf_counter() - t0:.1f} s")
-    assert teacher_forced_ok(tf), tf
+    for kv_dtype in (None, "int8", "int4"):
+        t0 = time.perf_counter()
+        cfg4 = dataclasses.replace(cfg, num_layers=4, kv_dtype=kv_dtype)
+        tf = teacher_forced(torch, np, lm, cfg4, device)
+        gated = kv_dtype != "int4"
+        log(f"[e2e] 4-layer full-width teacher-forced logits, {kv_dtype or 'fp'} "
+            f"KV, card bf16 vs CPU fp32, {tf['steps']} steps: worst max|diff| "
+            f"{tf['err']:.3e} standard deviations of the logits (limit "
+            f"{TF_STD_LIMIT:g}), fewest top-{TOPK} tokens kept {tf['top10']} "
+            f"(limit {TF_TOP10_MIN}), argmax agrees at {tf['argmax']}/"
+            f"{tf['steps']} steps{'' if gated else ' (printed, not gated)'}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        assert not gated or teacher_forced_ok(tf), (kv_dtype, tf)
 
     # ---- result lines --------------------------------------------------
     rows = []
     for name, k in KERNELS.items():
-        r = table[name]
+        r = table[name]  # the quantized kernels: their int8 timing
         rows.append({
             "name": name, "route": "cuda",
             "source": str(k.source.relative_to(ROOT)), "replaces": k.replaces,

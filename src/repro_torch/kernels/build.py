@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` compiles on its own, with ``nvcc`` for ``sm_90a``,
-into a shared library with a plain C interface that ctypes loads (no
-PyTorch headers, so a build takes seconds, not minutes).  Libraries land in
-``_build/`` beside this file (listed in .gitignore), named by a digest of
-the sources and flags, so an edited kernel rebuilds and an unchanged one
-loads from disk.  Nothing is built at import: the first launch builds, or a
+Each ``csrc/<source>.cu`` compiles on its own, with ``nvcc`` for
+``sm_90a``, into a shared library with a plain C interface that ctypes loads
+(no PyTorch headers, so a build takes seconds, not minutes).  One source may
+hold several kernels (an fp kernel and its quantized twin share a body), each
+an entry point of the same library.  Libraries land in ``_build/`` beside
+this file (listed in .gitignore), named by a digest of the sources and
+flags, so an edited kernel rebuilds and an unchanged one loads from disk.  Nothing is built at import: the first launch builds, or a
 caller builds every kernel at once, in parallel, with :func:`build_all`.
 """
 from __future__ import annotations
@@ -49,24 +50,25 @@ class Kernel:
     """
 
     def __init__(self, name: str, entry: str, argtypes: Sequence,
-                 replaces: str):
+                 replaces: str, source: Optional[str] = None):
         self.name = name
         self.entry = entry
         self.argtypes = list(argtypes)
         self.replaces = replaces
         self.launches = 0
+        self._stem = source or name
         self._fn = None
 
     @property
     def source(self) -> Path:
-        return CSRC / f"{self.name}.cu"
+        return CSRC / f"{self._stem}.cu"
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
         for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
             h.update(src.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{self._stem}_{h.hexdigest()[:16]}.so"
 
     def build_command(self, out: Path) -> List[str]:
         return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
@@ -88,13 +90,16 @@ def build_all(kernels: Sequence[Kernel], log: Optional[Dict[str, str]] = None):
     """Compile every kernel whose library is missing, one ``nvcc`` process
     per source, all started together.  Raises with the compiler's output if
     any build fails.  ``log`` (optional) receives each build's compiler
-    output (``-Xptxas -v``: registers, shared memory, spills)."""
+    output (``-Xptxas -v``: registers, shared memory, spills), keyed by
+    source file name."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
+    wanted = set()
     for k in kernels:
         out = k.library_path()
-        if out.exists():
+        if out.exists() or out in wanted:  # kernels of one source build once
             continue
+        wanted.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs.append((k, out, tmp, subprocess.Popen(
             k.build_command(tmp), stdout=subprocess.PIPE,
@@ -103,7 +108,7 @@ def build_all(kernels: Sequence[Kernel], log: Optional[Dict[str, str]] = None):
     for k, out, tmp, p in procs:
         text, _ = p.communicate()
         if log is not None:
-            log[k.name] = text
+            log[k.source.name] = text
         if p.returncode != 0:
             failed.append(f"{k.name} (nvcc exit {p.returncode}):\n{text}")
             continue

@@ -19,17 +19,22 @@
 // phases with __syncthreads().
 //
 // A K/V tile is `cols` consecutive rows of `d` values, contiguous in device
-// memory (one KV page, or one page-sized slice of the chunk).  Tiles are read
-// with 16-byte vector loads into registers one tile ahead of the compute
-// (attend_tiles), so the device-memory latency of tile t + 1 overlaps the
-// scoring of tile t.  Scores of one query row sit in `cols` neighbouring
-// lanes of a warp, so the row's max and sum are warp shuffles.
+// memory (one KV page, or one page-sized slice of the chunk), in one of two
+// formats: FpKV (rows of T) or QuantKV (the DequantStage of
+// attention_core.py:127: packed int8 / int4 rows plus one scale per row,
+// dequantized on the way into shared memory).  Either way the tile lands in
+// the same fp32 shared tiles and goes through the one online softmax below.
+// Tiles are read with 16-byte vector loads into registers one tile ahead of
+// the compute (attend_tiles), so the device-memory latency of tile t + 1
+// overlaps the scoring of tile t.  Scores of one query row sit in `cols`
+// neighbouring lanes of a warp, so the row's max and sum are warp shuffles.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace ac {
 
@@ -113,7 +118,7 @@ __device__ __forceinline__ void commit(float* dst, int sstride, const Stage& st,
   }
 }
 
-// Shared-memory layout common to both kernels: a resident block of `rows`
+// Shared-memory layout common to all the kernels: a resident block of `rows`
 // query rows, one K and one V tile of `cols` keys, the probability tile, the
 // output accumulator and the per-row softmax carries.  Q and K rows are
 // padded to d + 4 floats: 16-byte aligned, and rows a lane apart start four
@@ -139,6 +144,172 @@ struct Smem {
     return sizeof(float) * ((size_t)rows * (d + 4) + (size_t)cols * (d + 4) +
                             (size_t)cols * d + (size_t)rows * cols +
                             (size_t)rows * d + 3 * (size_t)rows);
+  }
+};
+
+// ---- K/V tile formats ---------------------------------------------------
+//
+// A format is a bundle of pointers to consecutive K and V rows, plus how one
+// tile of `cols` rows is fetched into registers (Regs) and committed to the
+// shared tiles sm.ks / sm.vs as fp32.  rows(n, d) advances the bundle by n
+// rows: a pool page and a page-sized chunk slice are both runs of rows.
+// copy_rows(dst, n, d) copies n rows onto another bundle of the same format
+// (the prefill kernels' page write).
+
+// fp K/V: rows of d values of T.
+template <typename T>
+struct FpKV {
+  using Elem = T;
+  T *k, *v;
+  struct Regs {
+    Stage k, v;
+  };
+
+  static bool shapes_ok(int cols, int d, int threads) {
+    return ac::shapes_ok<T>(cols, d, threads);
+  }
+  __device__ FpKV rows(long n, int d) const { return {k + n * d, v + n * d}; }
+  __device__ void fetch(Regs& r, int cols, int d) const {
+    ac::fetch<T>(r.k, k, cols, d);
+    ac::fetch<T>(r.v, v, cols, d);
+  }
+  __device__ static void commit(Smem& sm, const Regs& r, int cols, int d) {
+    ac::commit<T>(sm.ks, sm.stride, r.k, cols, d);
+    ac::commit<T>(sm.vs, d, r.v, cols, d);
+  }
+  __device__ void copy_rows(const FpKV& dst, int n, int d) const {
+    const int nvec = n * d / vec_elems<T>();
+    const uint4* ks = reinterpret_cast<const uint4*>(k);
+    const uint4* vs = reinterpret_cast<const uint4*>(v);
+    uint4* kd = reinterpret_cast<uint4*>(dst.k);
+    uint4* vd = reinterpret_cast<uint4*>(dst.v);
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+      kd[i] = ks[i];
+      vd[i] = vs[i];
+    }
+  }
+};
+
+// A packed tile in flight: this thread's 16-byte vectors of codes and the
+// scale of the row each vector lies in, both as loaded: converting a scale
+// at fetch time would wait for its load there and stall the prefetch.
+template <typename T>
+struct QStage {
+  uint4 v[MAXV];
+  T s[MAXV];
+};
+
+// The dequantized value, rounded once to T: the TPU DequantStage computes
+// int x scale in the compute dtype (attention_core.py:166) and the plain
+// version casts the fp32 product to the query's dtype.  For a bf16 scale the
+// fp32 product of a code (at most 8 bits) and the scale (8 significant bits)
+// is exact, so both round the same exact value once.
+template <typename T>
+__device__ __forceinline__ float deq(int code, float scale) {
+  return to_float(from_float<T>((float)code * scale));
+}
+
+// int4 code of nibble `hi` of byte b, sign-extended (v >= 8 -> v - 16).
+__device__ __forceinline__ int nibble(uint32_t b, int hi) {
+  const int v = (b >> (hi * 4)) & 0xF;
+  return v >= 8 ? v - 16 : v;
+}
+
+// Start the loads of one packed tile: cols rows of d / PACK bytes, plus the
+// scale of each vector's row.
+template <typename T, int PACK>
+__device__ __forceinline__ void fetch_q(QStage<T>& st, const int8_t* __restrict__ src,
+                                        const T* __restrict__ scales, int cols,
+                                        int d) {
+  const int row_vecs = d / PACK / 16;
+  const int n = cols * row_vecs;
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int k = 0; k < MAXV; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n) {
+      st.v[k] = __ldg(s + i);
+      st.s[k] = scales[i / row_vecs];
+    }
+  }
+}
+
+// Unpack a fetched tile, scale it and store it in shared memory as fp32
+// (row stride `sstride` floats): 16 int8 or 32 int4 values per vector.
+template <typename T, int PACK>
+__device__ __forceinline__ void commit_q(float* dst, int sstride, const QStage<T>& st,
+                                         int cols, int d) {
+  const int row_vecs = d / PACK / 16;
+  const int n = cols * row_vecs;
+#pragma unroll
+  for (int k = 0; k < MAXV; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n) {
+      const int r = i / row_vecs, c = (i - r * row_vecs) * 16 * PACK;
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&st.v[k]);
+      const float sc = to_float(st.s[k]);
+      float* o = dst + r * sstride + c;
+      if (PACK == 1) {
+#pragma unroll
+        for (int q = 0; q < 16; q += 4)
+          *reinterpret_cast<float4*>(o + q) = make_float4(
+              deq<T>((int8_t)b[q], sc), deq<T>((int8_t)b[q + 1], sc),
+              deq<T>((int8_t)b[q + 2], sc), deq<T>((int8_t)b[q + 3], sc));
+      } else {  // low nibble first: byte j holds values 2j and 2j + 1
+#pragma unroll
+        for (int q = 0; q < 16; q += 2)
+          *reinterpret_cast<float4*>(o + 2 * q) = make_float4(
+              deq<T>(nibble(b[q], 0), sc), deq<T>(nibble(b[q], 1), sc),
+              deq<T>(nibble(b[q + 1], 0), sc), deq<T>(nibble(b[q + 1], 1), sc));
+      }
+    }
+  }
+}
+
+// Quantized K/V, the DequantStage: rows of d / PACK packed bytes (PACK = 1:
+// int8 codes; PACK = 2: two int4 codes a byte, low nibble first) plus one
+// scale of T per row.
+template <typename T, int PACK>
+struct QuantKV {
+  using Elem = T;
+  int8_t *k, *v;
+  T *ks, *vs;
+  struct Regs {
+    QStage<T> k, v;
+  };
+
+  static bool shapes_ok(int cols, int d, int threads) {
+    return d % (16 * PACK) == 0 && cols >= 1 && cols <= 32 &&
+           (cols & (cols - 1)) == 0 && cols * (d / PACK / 16) <= MAXV * threads;
+  }
+  __device__ QuantKV rows(long n, int d) const {
+    const long nb = n * (d / PACK);
+    return {k + nb, v + nb, ks + n, vs + n};
+  }
+  __device__ void fetch(Regs& r, int cols, int d) const {
+    fetch_q<T, PACK>(r.k, k, ks, cols, d);
+    fetch_q<T, PACK>(r.v, v, vs, cols, d);
+  }
+  __device__ static void commit(Smem& sm, const Regs& r, int cols, int d) {
+    commit_q<T, PACK>(sm.ks, sm.stride, r.k, cols, d);
+    commit_q<T, PACK>(sm.vs, d, r.v, cols, d);
+  }
+  // packed bytes and scales of the same rows, so that no page holds the
+  // bytes of one write and the scales of another
+  __device__ void copy_rows(const QuantKV& dst, int n, int d) const {
+    const int nvec = n * (d / PACK) / 16;
+    const uint4* kb = reinterpret_cast<const uint4*>(k);
+    const uint4* vb = reinterpret_cast<const uint4*>(v);
+    uint4* kd = reinterpret_cast<uint4*>(dst.k);
+    uint4* vd = reinterpret_cast<uint4*>(dst.v);
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+      kd[i] = kb[i];
+      vd[i] = vb[i];
+    }
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      dst.ks[i] = ks[i];
+      dst.vs[i] = vs[i];
+    }
   }
 };
 
@@ -225,32 +396,24 @@ __device__ void pv_accumulate(Smem& sm, int rows, int cols, int d) {
   }
 }
 
-// The online-softmax pass over `n` K/V tiles.  `src.tile(t, k, v)` sets the
-// device pointers of tile t (contiguous cols x d) and returns false when the
-// tile must contribute nothing; `src.mask(t)` gives the tile's (r, j) mask.
-// Tile t + 1's loads are in flight while tile t is scored.
-template <typename T, typename Src>
+// The online-softmax pass over `n` K/V tiles.  `src.tile(t, kv)` sets the
+// bundle of tile t (a Src::KV format above, `cols` rows) and returns false
+// when the tile must contribute nothing; `src.mask(t)` gives the tile's
+// (r, j) mask.  Tile t + 1's loads are in flight while tile t is scored.
+template <typename Src>
 __device__ void attend_tiles(Smem& sm, int rows, int cols, int d, int n,
                              const Src& src) {
-  Stage kst, vst;
-  const T *k, *v;
-  bool ok = n > 0 && src.tile(0, k, v);
-  if (ok) {
-    fetch<T>(kst, k, cols, d);
-    fetch<T>(vst, v, cols, d);
-  }
+  using KV = typename Src::KV;
+  typename KV::Regs regs;
+  KV kv;
+  bool ok = n > 0 && src.tile(0, kv);
+  if (ok) kv.fetch(regs, cols, d);
   for (int t = 0; t < n; ++t) {
     const bool cur_ok = ok;
     __syncthreads();  // the previous tile is fully consumed
-    if (cur_ok) {
-      commit<T>(sm.ks, sm.stride, kst, cols, d);
-      commit<T>(sm.vs, d, vst, cols, d);
-    }
-    ok = t + 1 < n && src.tile(t + 1, k, v);
-    if (ok) {
-      fetch<T>(kst, k, cols, d);
-      fetch<T>(vst, v, cols, d);
-    }
+    if (cur_ok) KV::commit(sm, regs, cols, d);
+    ok = t + 1 < n && src.tile(t + 1, kv);
+    if (ok) kv.fetch(regs, cols, d);
     if (!cur_ok) continue;  // uniform across the block
     __syncthreads();
     score_softmax(sm, rows, cols, d, src.mask(t));

@@ -1,13 +1,23 @@
 // Chunked-prefill attention over a paged KV pool, with the chunk's K/V page
 // writes done inside the kernel.
 //
-// Replaces the TPU kernel repro/kernels/prefill_attention.py:44
-// (prefill_attention_program), same arguments and result:
-//   q (B, Hkv, C * G, D) packed chunk-major with its GQA group
-//   (row = i * G + g), k / v (B, Hkv, C, D) the chunk's own keys and values,
-//   k_pages / v_pages (Hkv, P, ps, D) updated in place, tables (B, max_pages),
-//   starts (B,) prior tokens (page-aligned for a live slot), lens (B,) live
-//   tokens in the chunk  ->  out (B, Hkv, C * G, D).
+// Two entry points, one kernel body templated on the K/V format
+// (attention_core.cuh):
+//   * prefill_attention_launch replaces the TPU kernel
+//     repro/kernels/prefill_attention.py:44 (prefill_attention_program):
+//     q (B, Hkv, C * G, D) packed chunk-major with its GQA group
+//     (row = i * G + g), k / v (B, Hkv, C, D) the chunk's own keys and
+//     values, k_pages / v_pages (Hkv, P, ps, D) updated in place, tables
+//     (B, max_pages), starts (B,) prior tokens (page-aligned for a live
+//     slot), lens (B,) live tokens in the chunk  ->  out (B, Hkv, C * G, D);
+//   * prefill_attention_quant_launch replaces
+//     repro/kernels/prefill_attention.py:157
+//     (prefill_attention_quant_program): the chunk arrives quantized
+//     (k / v (B, Hkv, C, D / pack) int8 plus scales (B, Hkv, C, 1) of q's
+//     dtype), prior pages are dequantized page by page, the chunk attends
+//     its own dequantized round trip (what later decode steps read back),
+//     and the packed bytes and scales of each chunk page are written into
+//     the four pools, bytes and scales of the same rows together.
 //
 // Bound on the H100: bytes at serving batch sizes.  Each block reads its
 // slot's prior pages (2 * Hkv * starts * D * itemsize bytes per slot, read
@@ -71,18 +81,17 @@ struct ChunkMask {  // in-chunk keys: causal, ragged on lens, banded window
 };
 
 // Prior context: the slot's pages [p_lo, p_lo + n), through its table row.
-template <typename T>
+template <typename F>
 struct PriorTiles {
-  const T *k_head, *v_head;
+  using KV = F;
+  F head;  // the kv head's pool, at page 0
   const int* row;
-  int p_lo, ps, num_pages, start, q_lo, group, window;
-  long page_elems;
+  int p_lo, ps, num_pages, start, q_lo, group, window, d;
 
-  __device__ bool tile(int t, const T*& k, const T*& v) const {
+  __device__ bool tile(int t, F& kv) const {
     const int page = row[p_lo + t];
     if (page < 0 || page >= num_pages) return false;  // ruled out by the guard
-    k = k_head + page * page_elems;
-    v = v_head + page * page_elems;
+    kv = head.rows((long)page * ps, d);
     return true;
   }
   __device__ PriorMask mask(int t) const {
@@ -91,15 +100,14 @@ struct PriorTiles {
 };
 
 // The chunk itself: page-sized slices [t_lo, t_lo + n) of the k / v inputs.
-template <typename T>
+template <typename F>
 struct ChunkTiles {
-  const T *k_chunk, *v_chunk;
-  int t_lo, ps, i_lo, group, len, window;
-  long page_elems;
+  using KV = F;
+  F chunk;  // the (slot, kv head)'s chunk rows
+  int t_lo, ps, i_lo, group, len, window, d;
 
-  __device__ bool tile(int t, const T*& k, const T*& v) const {
-    k = k_chunk + (t_lo + t) * page_elems;
-    v = v_chunk + (t_lo + t) * page_elems;
+  __device__ bool tile(int t, F& kv) const {
+    kv = chunk.rows((long)(t_lo + t) * ps, d);
     return true;
   }
   __device__ ChunkMask mask(int t) const {
@@ -107,17 +115,15 @@ struct ChunkTiles {
   }
 };
 
-template <typename T>
+template <typename F>
 __global__ void __launch_bounds__(kThreads)
-prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ k_pages,
-                         T* __restrict__ v_pages,
-                         const int* __restrict__ tables,
+prefill_attention_kernel(const typename F::Elem* __restrict__ q, F chunk_kv,
+                         F pools, const int* __restrict__ tables,
                          const int* __restrict__ starts,
-                         const int* __restrict__ lens, T* __restrict__ out,
-                         int kv_heads, int group, int chunk, int d, int ps,
-                         int max_pages, int num_pages, int window,
-                         float qscale) {
+                         const int* __restrict__ lens,
+                         typename F::Elem* __restrict__ out, int kv_heads,
+                         int group, int chunk, int d, int ps, int max_pages,
+                         int num_pages, int window, float qscale) {
   const int h = blockIdx.x;   // kv head
   const int bq = blockIdx.y;  // chunk page
   const int b = blockIdx.z;   // slot
@@ -128,8 +134,8 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int start = starts[b];
   const int len = lens[b];
   const long bh = (long)b * kv_heads + h;
-  const T* q_blk = q + (bh * chunk * group + (long)bq * rows) * d;
-  ac::load_rows(sm.qs, sm.stride, q_blk, d, rows, d, qscale);
+  const long q_off = (bh * chunk * group + (long)bq * rows) * d;
+  ac::load_rows(sm.qs, sm.stride, q + q_off, d, rows, d, qscale);
   ac::init_state(sm, rows, d);
 
   // ---- prior context, gathered through the block table ------------------
@@ -137,61 +143,53 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_lo = start + i_lo;    // its absolute position
   const int p_hi = min((start + ps - 1) / ps, max_pages);
   const int p_lo = window > 0 ? max(0, q_lo - window + 1) / ps : 0;
-  const long page_elems = (long)ps * d;
   const int* row = tables + (long)b * max_pages;
-  PriorTiles<T> prior{k_pages + (long)h * num_pages * page_elems,
-                      v_pages + (long)h * num_pages * page_elems, row, p_lo,
-                      ps, num_pages, start, q_lo, group, window, page_elems};
-  ac::attend_tiles<T>(sm, rows, ps, d, max(0, p_hi - p_lo), prior);
+  const F head = pools.rows((long)h * num_pages * ps, d);
+  PriorTiles<F> prior{head, row, p_lo, ps, num_pages, start, q_lo, group,
+                      window, d};
+  ac::attend_tiles(sm, rows, ps, d, max(0, p_hi - p_lo), prior);
 
   // ---- the chunk itself, from the k / v inputs --------------------------
-  const T* k_chunk = k + bh * chunk * d;
-  const T* v_chunk = v + bh * chunk * d;
+  const F own_rows = chunk_kv.rows(bh * chunk, d);
   const int t_lo = window > 0 ? max(0, i_lo - window + 1) / ps : 0;
   const int t_hi = min(bq + 1, (len + ps - 1) / ps);
-  ChunkTiles<T> own{k_chunk, v_chunk, t_lo, ps, i_lo, group, len, window,
-                    page_elems};
-  ac::attend_tiles<T>(sm, rows, ps, d, max(0, t_hi - t_lo), own);
+  ChunkTiles<F> own{own_rows, t_lo, ps, i_lo, group, len, window, d};
+  ac::attend_tiles(sm, rows, ps, d, max(0, t_hi - t_lo), own);
   __syncthreads();
-  ac::store_rows(out + (bh * chunk * group + (long)bq * rows) * d, d, sm,
-                 rows, d);
+  ac::store_rows(out + q_off, d, sm, rows, d);
 
   // ---- the paged write: this block's chunk page, through the table ------
   const bool live_page = i_lo < len;
   const int tidx = min(start / ps + bq, max_pages - 1);
   const int dst = live_page ? row[tidx] : 0;
   if (dst < 0 || dst >= num_pages) return;  // dropped, like XLA's scatter
-  uint4* k_dst = reinterpret_cast<uint4*>(k_pages + ((long)h * num_pages + dst) * page_elems);
-  uint4* v_dst = reinterpret_cast<uint4*>(v_pages + ((long)h * num_pages + dst) * page_elems);
-  const uint4* k_src = reinterpret_cast<const uint4*>(k_chunk + (long)bq * page_elems);
-  const uint4* v_src = reinterpret_cast<const uint4*>(v_chunk + (long)bq * page_elems);
-  const int nvec = (int)(page_elems / ac::vec_elems<T>());
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    k_dst[i] = k_src[i];
-    v_dst[i] = v_src[i];
-  }
+  own_rows.rows(i_lo, d).copy_rows(head.rows((long)dst * ps, d), ps, d);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* k_pages,
-           void* v_pages, const void* tables, const void* starts,
-           const void* lens, void* out, int slots, int kv_heads, int group,
-           int chunk, int d, int ps, int max_pages, int num_pages, int window,
-           float sm_scale, cudaStream_t stream) {
-  if (chunk % ps != 0 || !ac::shapes_ok<T>(ps, d, kThreads))
+template <typename F>
+int launch(const void* q, F chunk_kv, F pools, const void* tables,
+           const void* starts, const void* lens, void* out, int slots,
+           int kv_heads, int group, int chunk, int d, int ps, int max_pages,
+           int num_pages, int window, float sm_scale, cudaStream_t stream) {
+  using T = typename F::Elem;
+  if (chunk % ps != 0 || !F::shapes_ok(ps, d, kThreads))
     return (int)cudaErrorInvalidValue;
   const size_t smem = ac::Smem::bytes(ps * group, ps, d);
-  auto kernel = prefill_attention_kernel<T>;
+  auto kernel = prefill_attention_kernel<F>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(kv_heads, chunk / ps, slots);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)k_pages, (T*)v_pages,
-      (const int*)tables, (const int*)starts, (const int*)lens, (T*)out,
-      kv_heads, group, chunk, d, ps, max_pages, num_pages, window,
-      sm_scale * ac::LOG2E);
+      (const T*)q, chunk_kv, pools, (const int*)tables, (const int*)starts,
+      (const int*)lens, (T*)out, kv_heads, group, chunk, d, ps, max_pages,
+      num_pages, window, sm_scale * ac::LOG2E);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int PACK>
+ac::QuantKV<T, PACK> quant_kv(void* k, void* v, void* ks, void* vs) {
+  return {(int8_t*)k, (int8_t*)v, (T*)ks, (T*)vs};
 }
 
 }  // namespace
@@ -201,19 +199,45 @@ int launch(const void* q, const void* k, const void* v, void* k_pages,
 // a multiple of 8, with 16-byte aligned tensors.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for shapes it does not take.
 extern "C" int prefill_attention_launch(
-    int dtype, const void* q, const void* k, const void* v, void* k_pages,
-    void* v_pages, const void* tables, const void* starts, const void* lens,
-    void* out, int slots, int kv_heads, int group, int chunk, int d, int ps,
+    int dtype, const void* q, void* k, void* v, void* k_pages, void* v_pages,
+    const void* tables, const void* starts, const void* lens, void* out,
+    int slots, int kv_heads, int group, int chunk, int d, int ps,
     int max_pages, int num_pages, int window, float sm_scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k, v, k_pages, v_pages, tables, starts, lens, out,
-                         slots, kv_heads, group, chunk, d, ps, max_pages,
-                         num_pages, window, sm_scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, k_pages, v_pages, tables, starts,
-                                 lens, out, slots, kv_heads, group, chunk, d,
-                                 ps, max_pages, num_pages, window, sm_scale,
-                                 s);
+    return launch(q, ac::FpKV<float>{(float*)k, (float*)v},
+                  ac::FpKV<float>{(float*)k_pages, (float*)v_pages}, tables,
+                  starts, lens, out, slots, kv_heads, group, chunk, d, ps,
+                  max_pages, num_pages, window, sm_scale, s);
+  if (dtype == 1) {
+    using B = __nv_bfloat16;
+    return launch(q, ac::FpKV<B>{(B*)k, (B*)v},
+                  ac::FpKV<B>{(B*)k_pages, (B*)v_pages}, tables, starts, lens,
+                  out, slots, kv_heads, group, chunk, d, ps, max_pages,
+                  num_pages, window, sm_scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The quantized twin: pack 1 = int8, 2 = int4; the chunk's scales and the
+// scale pools are of q's dtype.  Needs head_dim / pack a multiple of 16
+// bytes, with 16-byte aligned packed tensors.
+extern "C" int prefill_attention_quant_launch(
+    int dtype, int pack, const void* q, void* k, void* v, void* k_scale,
+    void* v_scale, void* k_pages, void* v_pages, void* k_scales,
+    void* v_scales, const void* tables, const void* starts, const void* lens,
+    void* out, int slots, int kv_heads, int group, int chunk, int d, int ps,
+    int max_pages, int num_pages, int window, float sm_scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define PF_QUANT(T, P)                                                       \
+  return launch(q, quant_kv<T, P>(k, v, k_scale, v_scale),                   \
+                quant_kv<T, P>(k_pages, v_pages, k_scales, v_scales), tables, \
+                starts, lens, out, slots, kv_heads, group, chunk, d, ps,     \
+                max_pages, num_pages, window, sm_scale, s)
+  if (dtype == 0 && pack == 1) PF_QUANT(float, 1);
+  if (dtype == 0 && pack == 2) PF_QUANT(float, 2);
+  if (dtype == 1 && pack == 1) PF_QUANT(__nv_bfloat16, 1);
+  if (dtype == 1 && pack == 2) PF_QUANT(__nv_bfloat16, 2);
+#undef PF_QUANT
   return (int)cudaErrorInvalidValue;
 }

@@ -4,10 +4,11 @@ plain PyTorch path, plus the host-side dispatch guard.
 Counterpart of ``repro.kernels.ops`` for the serving path.  The routing
 rules are the reference's, kept as explicit rules:
 
-* a soft-capped model takes the plain path (ops.py:247), because neither
+* a soft-capped model takes the plain path (ops.py:247, :353), because no
   kernel caps its scores;
-* chunked prefill takes the kernel only when ``chunk % page_size == 0`` and
-  the chunk spans at most ``max_pages`` pages (ops.py:290);
+* chunked prefill, fp or quantized, takes the kernel only when ``chunk %
+  page_size == 0`` and the chunk spans at most ``max_pages`` pages
+  (ops.py:290, :392);
 * otherwise the kernel wrapper runs: it launches the CUDA kernel for CUDA
   tensors (or raises), and uses the kernel's plain version for CPU tensors.
 
@@ -24,11 +25,15 @@ import numpy as np
 
 from ..core.errors import GuardError
 from . import paged_attention as _pa
+from . import paged_attention_quant as _paq
 from . import prefill_attention as _pf
+from . import prefill_attention_quant as _pfq
 from . import ref
 
 # the hand-written kernels on the serving path, by name
-KERNELS = {"paged_attention": _pa.KERNEL, "prefill_attention": _pf.KERNEL}
+KERNELS = {"paged_attention": _pa.KERNEL, "prefill_attention": _pf.KERNEL,
+           "paged_attention_quant": _paq.KERNEL,
+           "prefill_attention_quant": _pfq.KERNEL}
 
 
 def guard_dispatch(tables, num_pages, page_size, work):
@@ -139,16 +144,59 @@ def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     Returns ``(out, k_pages, v_pages)``: the chunk's K/V are written into the
     given pools in place, through the block table.
     """
-    chunk = q.shape[2]
-    page_size = k_pages.shape[2]
-    max_pages = block_tables.shape[1]
-    if (logit_soft_cap is None and chunk % page_size == 0 and chunk // page_size <= max_pages):
+    if _prefill_takes_kernel(q.shape[2], k_pages.shape[2],
+                             block_tables.shape[1], logit_soft_cap):
         return _pf.prefill_attention(
             q, k_new, v_new, k_pages, v_pages, block_tables, start_lens,
             chunk_lens, sm_scale=sm_scale, window=window)
     return ref.paged_prefill_attention(
         q, k_new, v_new, k_pages, v_pages, block_tables, start_lens,
         chunk_lens, sm_scale=sm_scale, window=window,
+        logit_soft_cap=logit_soft_cap)
+
+
+def _prefill_takes_kernel(chunk, page_size, max_pages, logit_soft_cap) -> bool:
+    return (logit_soft_cap is None and chunk % page_size == 0
+            and chunk // page_size <= max_pages)
+
+
+def paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
+                          block_tables, seq_lens, *, fmt: str = "int8",
+                          sm_scale=None, window: Optional[int] = None,
+                          logit_soft_cap=None):
+    """Quantized paged decode (ops.py:343): packed int8 / int4 pools plus
+    per-token scale columns (shapes in kernels/paged_attention_quant.py)."""
+    if logit_soft_cap is not None:
+        return ref.paged_attention_quant(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables, seq_lens,
+            fmt=fmt, sm_scale=sm_scale, window=window,
+            logit_soft_cap=logit_soft_cap)
+    return _paq.paged_attention_quant(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, seq_lens,
+        fmt=fmt, sm_scale=sm_scale, window=window)
+
+
+def prefill_attention_quant(q, k_new, v_new, k_pages, v_pages, k_scales,
+                            v_scales, block_tables, start_lens, chunk_lens, *,
+                            fmt: str = "int8", sm_scale=None,
+                            window: Optional[int] = None, logit_soft_cap=None):
+    """Quantized chunked prefill (ops.py:373): the chunk's fp K/V are
+    quantized per token here, the write-time quantization point, with scales
+    in the scale pools' dtype; then the kernel (or the plain path) attends
+    the dequantized round trip and writes packed bytes plus scales into the
+    four pools in place.  Returns ``(out, k_pages, v_pages, k_scales,
+    v_scales)``."""
+    kq, ks = ref.quantize_rows(k_new, fmt)
+    vq, vs = ref.quantize_rows(v_new, fmt)
+    ks, vs = ks.to(k_scales.dtype), vs.to(v_scales.dtype)
+    args = (q, kq, vq, ks, vs, k_pages, v_pages, k_scales, v_scales,
+            block_tables, start_lens, chunk_lens)
+    if _prefill_takes_kernel(q.shape[2], k_pages.shape[2],
+                             block_tables.shape[1], logit_soft_cap):
+        return _pfq.prefill_attention_quant(*args, fmt=fmt, sm_scale=sm_scale,
+                                            window=window)
+    return ref.paged_prefill_attention_quant(
+        *args, fmt=fmt, sm_scale=sm_scale, window=window,
         logit_soft_cap=logit_soft_cap)
 
 

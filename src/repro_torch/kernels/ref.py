@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels on the serving path.
 
 Counterparts of ``repro.kernels.ref``: ``paged_attention`` (ref.py:286),
-``prefill_attention`` (:343) and ``rmsnorm`` (:664), op for op.  They are
+``prefill_attention`` (:343), ``rmsnorm`` (:664) and the KV quantization
+primitives with ``paged_attention_quant`` (:115-172), op for op.  They are
 the oracles the CUDA kernels are held against on the card, and the path
 every CPU tensor takes.  Scores, softmax and the P.V product run in fp32
 whatever the input dtype; the result is cast back to ``out_dtype`` (default:
@@ -125,6 +126,32 @@ def prefill_attention(
     return out.reshape(b, hq, c, d).to(out_dtype or q.dtype)
 
 
+def _chunk_scatter_index(start_lens, chunk_lens, block_tables, chunk: int,
+                         page_size: int, num_pages: int):
+    """Where the plain path scatters each chunk position: ``(keep, phys,
+    off, pos)``.  The logical page is clamped to ``max_pages - 1`` and the
+    dead chunk tail goes to the reserved page 0 (ops.py:312-326); ``keep``
+    masks page ids outside the pool, whose write XLA drops (a torch index
+    would raise instead)."""
+    max_pages = block_tables.shape[1]
+    ar = torch.arange(chunk, dtype=torch.int32, device=block_tables.device)
+    pos = start_lens.to(torch.int32)[:, None] + ar
+    logical = torch.clamp(pos // page_size, 0, max_pages - 1)
+    phys = torch.gather(block_tables.long(), 1, logical.long())  # (B, C)
+    valid = ar[None, :] < chunk_lens.to(torch.int32)[:, None]
+    phys = torch.where(valid, phys, 0)
+    keep = (phys >= 0) & (phys < num_pages)
+    return keep, phys, (pos % page_size).long(), pos
+
+
+def _context_positions(start_lens, s_total: int):
+    """(B, S) absolute position of each gathered page row; -1 past the
+    slot's prior tokens."""
+    si = torch.arange(s_total, dtype=torch.int32, device=start_lens.device)
+    return torch.where(si[None, :] < start_lens.to(torch.int32)[:, None],
+                       si[None, :], -1)
+
+
 def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
                             start_lens, chunk_lens, *, sm_scale=None,
                             window: Optional[int] = None, logit_soft_cap=None):
@@ -140,31 +167,124 @@ def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     """
     b, hq, chunk, d = q.shape
     hkv, num_pages, page_size, _ = k_pages.shape
-    max_pages = block_tables.shape[1]
-    tables = block_tables.long()
-    ar = torch.arange(chunk, dtype=torch.int32, device=q.device)
-    pos = start_lens.to(torch.int32)[:, None] + ar
-    logical = torch.clamp(pos // page_size, 0, max_pages - 1)
-    phys = torch.gather(tables, 1, logical.long())  # (B, C)
-    valid = ar[None, :] < chunk_lens.to(torch.int32)[:, None]
-    phys = torch.where(valid, phys, 0)  # dead tail -> reserved garbage page
-    off = (pos % page_size).long()
-    keep = (phys >= 0) & (phys < num_pages)
+    keep, phys, off, pos = _chunk_scatter_index(
+        start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
     k_pages[:, phys[keep], off[keep]] = k_new.transpose(0, 1)[:, keep].to(k_pages.dtype)
     v_pages[:, phys[keep], off[keep]] = v_new.transpose(0, 1)[:, keep].to(v_pages.dtype)
+    tables = block_tables.long()
 
     def gathered(pages):  # (Hkv, B, max_pages, ps, D) -> (B, Hkv, S, D)
         return pages[:, tables].transpose(0, 1).reshape(b, hkv, -1, d)
 
-    si = torch.arange(max_pages * page_size, dtype=torch.int32, device=q.device)
-    ctx_pos = torch.where(si[None, :] < start_lens.to(torch.int32)[:, None],
-                          si[None, :], -1)
+    kg, vg = gathered(k_pages), gathered(v_pages)
     out = prefill_attention(
-        q, k_new, v_new, gathered(k_pages), gathered(v_pages), ctx_pos, pos,
-        chunk_lens, sm_scale=sm_scale, window=window,
+        q, k_new, v_new, kg, vg, _context_positions(start_lens, kg.shape[2]),
+        pos, chunk_lens, sm_scale=sm_scale, window=window,
         logit_soft_cap=logit_soft_cap,
     )
     return out, k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# KV-cache quantization: symmetric per-row (per-token) scales, packed along
+# the feature axis.  A quantized page pool holds packed int8 bytes
+# (..., D // pack) plus a (..., 1) scale column in the model's dtype.
+# ---------------------------------------------------------------------------
+
+KV_QMAX = {"int8": 127.0, "int4": 7.0}
+KV_PACK = {"int8": 1, "int4": 2}
+
+
+def pack_int4(vals: torch.Tensor) -> torch.Tensor:
+    """(..., K) int8 in [-8, 7] -> (..., K//2) int8, low nibble first."""
+    lo = vals[..., 0::2].to(torch.int32) & 0xF
+    hi = vals[..., 1::2].to(torch.int32) & 0xF
+    return (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., K//2) int8 -> (..., K) int8 values in [-8, 7]."""
+    b = packed.to(torch.int32)
+    vals = torch.stack([b & 0xF, (b >> 4) & 0xF], dim=-1)
+    vals = vals.reshape(*packed.shape[:-1], -1)
+    return torch.where(vals >= 8, vals - 16, vals).to(torch.int8)
+
+
+def quantize_rows(x: torch.Tensor, fmt: str = "int8"):
+    """Symmetric per-row quantization over the last axis: ``(packed,
+    scales)``, packed int8 data (last axis divided by the pack factor) and
+    (..., 1) scales in ``x``'s dtype.  The codes are ``round(x / scale)``
+    with the fp32 scale (half to even, as ``jnp.round``); all-zero rows get
+    scale 1 so they dequantize to exact zeros."""
+    qmax = KV_QMAX[fmt]
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
+    if fmt == "int4":
+        q = pack_int4(q)
+    return q, scale.to(x.dtype)
+
+
+def dequantize_rows(packed: torch.Tensor, scales: torch.Tensor,
+                    fmt: str = "int8") -> torch.Tensor:
+    """Inverse of :func:`quantize_rows` -> float32."""
+    vals = unpack_int4(packed) if fmt == "int4" else packed
+    return vals.float() * scales.float()
+
+
+def paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
+                          block_tables, seq_lens, fmt: str = "int8",
+                          sm_scale: Optional[float] = None,
+                          window: Optional[int] = None,
+                          logit_soft_cap: Optional[float] = None,
+                          out_dtype=None) -> torch.Tensor:
+    """Quantized paged decode: dequantize the pools (packed (Hkv, P, ps,
+    D // pack) int8 plus (Hkv, P, ps, 1) scales), round to the query's
+    dtype, then :func:`paged_attention` (ref.py:151)."""
+    kf = dequantize_rows(k_pages, k_scales, fmt).to(q.dtype)
+    vf = dequantize_rows(v_pages, v_scales, fmt).to(q.dtype)
+    return paged_attention(q, kf, vf, block_tables, seq_lens,
+                           sm_scale=sm_scale, window=window,
+                           logit_soft_cap=logit_soft_cap, out_dtype=out_dtype)
+
+
+def paged_prefill_attention_quant(q, k_q, v_q, k_s, v_s, k_pages, v_pages,
+                                  k_scales, v_scales, block_tables,
+                                  start_lens, chunk_lens, *, fmt="int8",
+                                  sm_scale=None, window: Optional[int] = None,
+                                  logit_soft_cap=None):
+    """The plain quantized chunked-prefill path over paged pools: the XLA
+    branch of ``repro.kernels.ops.prefill_attention_quant`` (ops.py:416-447).
+
+    The chunk arrives quantized: ``k_q``/``v_q`` (B, Hkv, C, D // pack) int8
+    and ``k_s``/``v_s`` (B, Hkv, C, 1) scales.  Its packed bytes and scales
+    are scattered into the four pools **in place** (the scatter of
+    :func:`paged_prefill_attention`), then every chunk query attends the
+    dequantized gather of its prior pages plus the chunk's own dequantized
+    round trip, all rounded to the query's dtype.  Returns ``(out, k_pages,
+    v_pages, k_scales, v_scales)``, the pools being the tensors given."""
+    b, hq, chunk, d = q.shape
+    hkv, num_pages, page_size, _ = k_pages.shape
+    keep, phys, off, pos = _chunk_scatter_index(
+        start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
+    for pool, new in ((k_pages, k_q), (v_pages, v_q), (k_scales, k_s),
+                      (v_scales, v_s)):
+        pool[:, phys[keep], off[keep]] = new.transpose(0, 1)[:, keep].to(pool.dtype)
+    tables = block_tables.long()
+
+    def gathered(pages, scales):  # (Hkv, B, max_pages, ps, D) -> (B, Hkv, S, D)
+        g = dequantize_rows(pages[:, tables], scales[:, tables], fmt).to(q.dtype)
+        return g.transpose(0, 1).reshape(b, hkv, -1, d)
+
+    kg, vg = gathered(k_pages, k_scales), gathered(v_pages, v_scales)
+    out = prefill_attention(
+        q, dequantize_rows(k_q, k_s, fmt).to(q.dtype),
+        dequantize_rows(v_q, v_s, fmt).to(q.dtype), kg, vg,
+        _context_positions(start_lens, kg.shape[2]), pos, chunk_lens,
+        sm_scale=sm_scale, window=window, logit_soft_cap=logit_soft_cap,
+    )
+    return out, k_pages, v_pages, k_scales, v_scales
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -6,10 +6,11 @@ or full-width model, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1_5b \
         --reduced --device cpu
 
-The flags are ``repro.launch.serve``'s, plus ``--device``.  Options of the
-reference that are not ported yet (``--sync-every`` > 1, ``--spec-decode``,
-``--audit``, ``--cache contiguous``, ``--temperature`` > 0) raise
-``NotImplementedError`` naming their ROADMAP item.  The summary line is the
+The flags are ``repro.launch.serve``'s, plus ``--device``; as in the
+reference, the KV storage format (int8 / int4 pages) is a ``ServeConfig``
+field with no flag.  Options of the reference that are not ported yet
+(``--spec-decode``, ``--audit``, ``--cache contiguous``, ``--temperature`` >
+0) raise ``NotImplementedError`` naming their ROADMAP item.  The summary line is the
 reference's, followed by the kernel launch counts of the run.
 """
 from __future__ import annotations
@@ -56,7 +57,9 @@ def parser() -> argparse.ArgumentParser:
                     help="per-tick token budget shared by the decode batch "
                          "and prefill chunks (default slots+prefill_chunk)")
     ap.add_argument("--sync-every", type=int, default=1,
-                    help="decode ticks per host dispatch (only 1 is ported)")
+                    help="decode ticks per host dispatch: N > 1 runs up to N "
+                         "decode ticks on the device per dispatch once every "
+                         "active request is generating")
     ap.add_argument("--spec-decode", choices=["ngram"], default=None,
                     help="speculative decoding (not ported yet)")
     ap.add_argument("--draft-len", type=int, default=4)
@@ -71,9 +74,10 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_engine(args, device, params=None):
+def make_engine(args, device, params=None, **serve_kw):
     """The engine of ``args`` with its seeded requests submitted, and the
-    parameters it serves (``params`` reuses an earlier engine's)."""
+    parameters it serves (``params`` reuses an earlier engine's;
+    ``serve_kw`` are further ServeConfig fields)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -86,7 +90,8 @@ def make_engine(args, device, params=None):
                        token_budget=args.token_budget,
                        sync_every=args.sync_every,
                        spec_decode=args.spec_decode, draft_len=args.draft_len,
-                       audit=args.audit, guards=args.guards == "on")
+                       audit=args.audit, guards=args.guards == "on",
+                       **serve_kw)
     if params is None:
         params = lm.init(cfg, args.seed, device=device)
     engine = ServingEngine(cfg, params, scfg, device=device)

@@ -4,10 +4,14 @@
         --requests 16 --slots 8 --max-len 1024 --prompt-len 400 \
         --prefill-chunk 64 --max-new 32 --trace-from 20 --trace-ticks 10
 
-Takes ``launch/serve.py``'s flags.  It serves the workload once untraced,
-timing every tick (the first tick also builds the kernels), then serves it
-again on a fresh engine with the same parameters and traces ticks
-``[--trace-from, --trace-from + --trace-ticks)``.  The schedule depends only
+Takes ``launch/serve.py``'s flags, plus ``--kv-dtype`` (the KV storage
+format, which serve.py leaves to ``ServeConfig`` as the reference does).  It
+serves the workload once untraced, timing every tick (the first tick also
+builds the kernels), then serves it again on a fresh engine with the same
+parameters and traces ticks ``[--trace-from, --trace-from +
+--trace-ticks)``; a negative ``--trace-from`` counts from the end.  With
+``--sync-every`` > 1 a "tick" here is one ``engine.step()``, and a
+multi-step window is one step however many decode ticks it covers.  The schedule depends only
 on the prompt lengths, so both runs tick alike.  It prints the device's busy
 time in the window (the traced kernels and copies, each counted once) beside
 the untraced wall time of the same ticks, and the largest device consumers.
@@ -43,12 +47,14 @@ def main(argv=None):
                     help="first traced tick")
     ap.add_argument("--trace-ticks", type=int, default=10,
                     help="number of ticks traced")
+    ap.add_argument("--kv-dtype", choices=["int8", "int4"], default=None,
+                    help="quantized KV pages (default: the model's dtype)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if device.type != "cuda":
         raise SystemExit("trace: this script measures the card (--device cuda)")
 
-    engine, params = make_engine(args, device)
+    engine, params = make_engine(args, device, kv_dtype=args.kv_dtype)
     times: list = []
     _ticks(engine, 10_000, device, times)
     wall = sum(times)
@@ -57,13 +63,14 @@ def main(argv=None):
           f"({toks / wall:.1f} tok/s); first tick {times[0] * 1e3:.1f} ms "
           f"(kernel build), later ticks {sum(times[1:]) / (len(times) - 1) * 1e3:.2f} "
           "ms on average")
-    lo, hi = args.trace_from, args.trace_from + args.trace_ticks
+    lo = args.trace_from + (len(times) if args.trace_from < 0 else 0)
+    hi = lo + args.trace_ticks
     if not 0 < lo < hi <= len(times):
         raise SystemExit(f"trace: window [{lo}, {hi}) not within ticks "
                          f"[1, {len(times)})")
     window_wall = sum(times[lo:hi])
 
-    engine, _ = make_engine(args, device, params)
+    engine, _ = make_engine(args, device, params, kv_dtype=args.kv_dtype)
     _ticks(engine, lo, device)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import ops, ref
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -135,18 +135,29 @@ def _qkv(params, x, cfg: ModelConfig):
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
                         device, layers: Optional[int] = None):
     """Page pools ``(kv_heads, num_blocks, page_size, head_dim)``, stacked
-    over ``layers`` in front when given.  Zero-filled like ``jnp.zeros``:
-    the reserved page 0 is written by idle slots and dead chunk tails and
-    must hold finite values.  fp storage only (int8/int4 ``kv_dtype`` is
-    ROADMAP Queue 1 item 9)."""
-    if cfg.kv_dtype is not None:
-        raise NotImplementedError(
-            f"kv_dtype={cfg.kv_dtype!r}: quantized KV pages are not ported "
-            "yet (ROADMAP Queue 1 item 9)")
-    shape = (cfg.num_kv_heads, num_blocks, page_size, cfg.head_dim)
-    if layers is not None:
-        shape = (layers,) + shape
+    over ``layers`` in front when given (layers.py:195).  Zero-filled like
+    ``jnp.zeros``: the reserved page 0 is written by idle slots and dead
+    chunk tails and must hold finite values.
+
+    With ``cfg.kv_dtype`` set ("int8"/"int4") the pools hold packed int8
+    bytes ``(..., head_dim // pack)`` plus per-token scales
+    ``k_scale_pages``/``v_scale_pages`` ``(..., page_size, 1)`` in the
+    model's dtype.  The scale leaves keep the page axis at ``ndim - 3``, so
+    ``lm.copy_pages`` (COW) treats them like any other ``*_pages`` leaf."""
+    lead = (layers,) if layers is not None else ()
     dt = dtype_of(cfg)
+    if cfg.kv_dtype is not None:
+        pack = ref.KV_PACK[cfg.kv_dtype]
+        pshape = lead + (cfg.num_kv_heads, num_blocks, page_size,
+                         cfg.head_dim // pack)
+        sshape = lead + (cfg.num_kv_heads, num_blocks, page_size, 1)
+        return {
+            "k_pages": torch.zeros(pshape, dtype=torch.int8, device=device),
+            "v_pages": torch.zeros(pshape, dtype=torch.int8, device=device),
+            "k_scale_pages": torch.zeros(sshape, dtype=dt, device=device),
+            "v_scale_pages": torch.zeros(sshape, dtype=dt, device=device),
+        }
+    shape = lead + (cfg.num_kv_heads, num_blocks, page_size, cfg.head_dim)
     return {
         "k_pages": torch.zeros(shape, dtype=dt, device=device),
         "v_pages": torch.zeros(shape, dtype=dt, device=device),
@@ -154,26 +165,26 @@ def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
 
 
 def decode_append_index(pos, tables, page_size: int, num_pages: int
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Where each slot's decode KV append lands: ``(rows, pages, offsets)``
-    for the rows whose write happens.
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where each slot's decode KV append lands: ``(pages, offsets)``, one
+    per slot.
 
     The reference looks the page up with ``take_along_axis`` (an
     out-of-range logical page gathers INT_MIN) and scatters with
     ``.at[].set`` (an out-of-range page is dropped).  Torch indexing raises
-    (or device-asserts) instead, so those rows are dropped here explicitly.
-    Every other slot writes, dead ones included, exactly as the reference:
-    a dead slot's table row is page 0, the reserved sink."""
+    (or device-asserts) instead, and dropping rows would need their count on
+    the host, a device sync in every decode step.  So such a row is sent to
+    the reserved sink page 0, which no live position reads: every other page
+    ends as the reference leaves it.  Every other slot writes exactly as the
+    reference, dead ones included: a dead slot's table row is page 0."""
     max_pages = tables.shape[1]
     pos = pos.long()
     logical = pos // page_size
-    offset = pos % page_size
     in_table = (logical >= 0) & (logical < max_pages)
     phys = torch.gather(tables.long(), 1,
                         logical.clamp(0, max_pages - 1)[:, None])[:, 0]
     ok = in_table & (phys >= 0) & (phys < num_pages)
-    rows = ok.nonzero().squeeze(1)
-    return rows, phys[rows], offset[rows]
+    return torch.where(ok, phys, 0), pos % page_size
 
 
 def attention_decode_paged(params, x, cfg: ModelConfig, cache, pos, tables,
@@ -182,11 +193,12 @@ def attention_decode_paged(params, x, cfg: ModelConfig, cache, pos, tables,
 
     ``tables`` is the (B, max_pages) int32 block table (padded with page 0);
     ``pos`` (B,) the absolute position per slot.  The new K/V are scattered
-    into the page holding ``pos`` **in place** in ``cache["k_pages"]`` /
-    ``cache["v_pages"]`` (``append``: a precomputed
-    :func:`decode_append_index`), then the query attends over the slot's
-    pages with a ragged length mask.  Returns the attention output
-    projection (B, 1, d)."""
+    into the page holding ``pos`` **in place** in the pools of ``cache``
+    (``append``: a precomputed :func:`decode_append_index`), then the query
+    attends over the slot's pages with a ragged length mask.  With
+    ``cfg.kv_dtype`` the appended row is quantized per (head, slot) and its
+    packed bytes and scale land in the four pools (layers.py:244-262).
+    Returns the attention output projection (B, 1, d)."""
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _qkv(params, x, cfg)  # (b, 1, ...)
@@ -196,14 +208,27 @@ def attention_decode_paged(params, x, cfg: ModelConfig, cache, pos, tables,
     kp, vp = cache["k_pages"], cache["v_pages"]
     if append is None:
         append = decode_append_index(pos, tables, kp.shape[2], kp.shape[1])
-    rows, phys, off = append
-    # (b, 1, hkv, hd) -> (hkv, n, hd) rows into their pages
-    kp[:, phys, off] = k[rows, 0].transpose(0, 1).to(kp.dtype)
-    vp[:, phys, off] = v[rows, 0].transpose(0, 1).to(vp.dtype)
-    out = ops.paged_attention(
-        q[:, 0], kp, vp, tables, (pos + 1).to(torch.int32), window=window,
-        logit_soft_cap=cfg.logit_soft_cap,
-    )
+    phys, off = append
+    # (b, 1, hkv, hd) -> (hkv, b, hd) rows into their pages
+    k_rows, v_rows = k[:, 0].transpose(0, 1), v[:, 0].transpose(0, 1)
+    if cfg.kv_dtype is not None:
+        ksp, vsp = cache["k_scale_pages"], cache["v_scale_pages"]
+        kq, ks = ref.quantize_rows(k_rows, cfg.kv_dtype)
+        vq, vs = ref.quantize_rows(v_rows, cfg.kv_dtype)
+        for pool, new in ((kp, kq), (vp, vq), (ksp, ks), (vsp, vs)):
+            pool[:, phys, off] = new.to(pool.dtype)
+        out = ops.paged_attention_quant(
+            q[:, 0], kp, vp, ksp, vsp, tables, (pos + 1).to(torch.int32),
+            fmt=cfg.kv_dtype, window=window,
+            logit_soft_cap=cfg.logit_soft_cap,
+        )
+    else:
+        kp[:, phys, off] = k_rows.to(kp.dtype)
+        vp[:, phys, off] = v_rows.to(vp.dtype)
+        out = ops.paged_attention(
+            q[:, 0], kp, vp, tables, (pos + 1).to(torch.int32), window=window,
+            logit_soft_cap=cfg.logit_soft_cap,
+        )
     out = out.reshape(b, 1, h * hd)
     return out.to(x.dtype) @ params["wo"]
 
@@ -216,19 +241,28 @@ def attention_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables,
     slot's chunk start, ``lens`` (B,) the live tokens within the chunk
     (0 = slot not prefilling).  The chunk's K/V land in the pool pages in
     place (inside the CUDA kernel, or by the plain path's masked scatter)
-    and every chunk query attends prior pages plus the chunk causally."""
+    and every chunk query attends prior pages plus the chunk causally.  With
+    ``cfg.kv_dtype`` the chunk is quantized and attended as its dequantized
+    round trip, and its packed bytes and scales land in the four pools."""
     b, c, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _qkv(params, x, cfg)  # (b, c, ...)
     posmat = pos[:, None] + torch.arange(c, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posmat, cfg.rope_theta, rope_fraction)
     k = apply_rope(k, posmat, cfg.rope_theta, rope_fraction)
-    out, _, _ = ops.prefill_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        cache["k_pages"], cache["v_pages"], tables, pos.to(torch.int32),
-        lens.to(torch.int32), window=window,
-        logit_soft_cap=cfg.logit_soft_cap,
-    )
+    qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    starts, lens = pos.to(torch.int32), lens.to(torch.int32)
+    if cfg.kv_dtype is not None:  # layers.py:299-310
+        out = ops.prefill_attention_quant(
+            *qkv, cache["k_pages"], cache["v_pages"], cache["k_scale_pages"],
+            cache["v_scale_pages"], tables, starts, lens, fmt=cfg.kv_dtype,
+            window=window, logit_soft_cap=cfg.logit_soft_cap,
+        )[0]
+    else:
+        out = ops.prefill_attention(
+            *qkv, cache["k_pages"], cache["v_pages"], tables, starts, lens,
+            window=window, logit_soft_cap=cfg.logit_soft_cap,
+        )[0]
     out = out.transpose(1, 2).reshape(b, c, h * hd)
     return out.to(x.dtype) @ params["wo"]
 

@@ -137,10 +137,13 @@ class Cache:
     """Paged decode cache: per-layer page pools stacked over layers, plus
     the (B, max_pages) int32 block table.
 
-    ``kv`` holds ``k_pages``/``v_pages`` of shape (L, Hkv, P, page_size, D),
-    the page axis at ``ndim - 3`` as in the reference.  Steps write the
-    pools in place; :meth:`with_tables` swaps in a refreshed table (the
-    host-side allocation lives in serving/paged_cache.py)."""
+    ``kv`` holds ``k_pages``/``v_pages`` of shape (L, Hkv, P, page_size, D)
+    or, with ``cfg.kv_dtype``, packed int8 pools (L, Hkv, P, page_size,
+    D // pack) plus ``k_scale_pages``/``v_scale_pages`` (L, Hkv, P,
+    page_size, 1); every leaf has its page axis at ``ndim - 3``, as in the
+    reference.  Steps write the pools in place; :meth:`with_tables` swaps in
+    a refreshed table (the host-side allocation lives in
+    serving/paged_cache.py)."""
 
     def __init__(self, kv: Dict[str, torch.Tensor], max_len: int,
                  page_size: int, tables: torch.Tensor):
@@ -162,7 +165,7 @@ class Cache:
         return Cache(self.kv, self.max_len, self.page_size, tables)
 
     def kv_bytes(self) -> int:
-        """Bytes held by the KV page pools."""
+        """Bytes held by the KV page pools, scale pools included."""
         return sum(t.numel() * t.element_size() for t in self.kv.values())
 
 
@@ -236,6 +239,42 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)[:, 0]
     return _soft_cap(cfg, logits), cache
+
+
+def decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, live,
+                remaining, *, n_steps: int, sample_fn, eos_id: int,
+                max_len: int):
+    """Up to ``n_steps`` decode ticks with no host transfer between them:
+    the device-resident decode loop of the multi-step window (lm.py:602).
+
+    ``feed`` (B,) is each slot's last known token, ``pos`` (B,) its next
+    write position, ``live`` (B,) bool the slots generating, ``remaining``
+    (B,) each slot's token allowance, all device tensors, and they stay on
+    the device: ``sample_fn(logits) -> tokens`` samples there, and the stop
+    rule is applied with masks, so nothing in the loop waits for the host.
+    Per iteration, as the per-tick engine's ``_emit_token``: a live slot
+    feeds its token, samples the next, advances ``pos`` and burns one
+    ``remaining``; it stops when the token equals ``eos_id``, its allowance
+    hits zero, or ``pos`` reaches ``max_len`` (lm.py:638-647).  Dead slots
+    re-feed their frozen token at their frozen ``pos``: the write lands past
+    their live length (or in the sink page 0) and is never read.  All
+    ``n_steps`` iterations run, as the reference's ``lax.scan`` does.
+
+    Returns ``(tokens (n_steps, B) int32, emitted (n_steps, B) bool)``:
+    ``emitted[t, b]`` marks a token the host must deliver; rows after the
+    last live iteration are all False.  The pools of ``cache`` are written
+    in place."""
+    toks, emitted = [], []
+    for _ in range(n_steps):
+        logits, cache = decode_step(params, cfg, cache, feed, pos, live=live)
+        tok = torch.where(live, sample_fn(logits), feed)
+        pos = torch.where(live, pos + 1, pos)
+        remaining = torch.where(live, remaining - 1, remaining)
+        stop = (tok == eos_id) | (remaining <= 0) | (pos >= max_len)
+        toks.append(tok)
+        emitted.append(live)
+        feed, live = tok, live & ~stop
+    return torch.stack(toks), torch.stack(emitted)
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:

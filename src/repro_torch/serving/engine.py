@@ -20,18 +20,26 @@ ticks (``steps_run``, TTFT ticks, preemptions and shared pages are equal):
   (``lm.copy_pages``, on the device) first;
 * **dispatch guard** (``kernels.ops.guard_dispatch``) before every paged
   dispatch, failing exactly the offending request;
+* **quantized KV** (``kv_dtype="int8"|"int4"``): the page pools hold packed
+  bytes plus per-token scales, a storage format the engine forwards into the
+  model config; scheduling, sharing and COW run unchanged over them;
+* **multi-step decode window** (``sync_every > 1``): when every active slot
+  is generating, up to ``sync_every`` decode ticks run back to back on the
+  device (``lm.decode_loop``) after one all-or-nothing grow-ahead page
+  grant, and the host drains their tokens once at the end;
 * request lifecycle: every request ends in one terminal status through one
   exit path (``_terminate``) that releases its pages; deadlines and
   ``cancel()`` are honoured before each dispatch.
 
 Each tick runs eagerly on the device (no jit): the KV pools are updated in
-place and the sampled token ids are the only per-tick download.
+place and the sampled token ids are the only per-tick download (one per
+window with ``sync_every > 1``).
 
 Not ported yet, each raising ``NotImplementedError`` where it is asked for:
-``sync_every > 1`` (the multi-step window, ROADMAP Queue 1 item 7),
-``spec_decode`` (item 12), ``kv_dtype`` (item 9), ``cache="contiguous"``
-(item 4), ``audit=True`` and fault injection (item 11), ``temperature > 0``
-(item 5), and ``drain``/``shutdown``/``snapshot`` (item 11).
+``spec_decode`` (ROADMAP Queue 1 item 12), ``cache="contiguous"`` (item 4),
+``audit=True`` and fault injection (item 11), ``temperature > 0`` (item 5,
+with or without the window), and ``drain``/``shutdown``/``snapshot``
+(item 11).
 """
 from __future__ import annotations
 
@@ -100,6 +108,9 @@ class ServeConfig:
     # pool size in blocks; None = slots * ceil(max_len / page_size).  Size it
     # below that to oversubscribe memory (that's the point of paging).
     num_blocks: Optional[int] = None
+    # KV storage format of the page pools: None = the model's dtype;
+    # "int8"/"int4" = packed per-token quantization with per-row scales
+    # (paged mode only); overrides ModelConfig.kv_dtype for this engine
     kv_dtype: Optional[str] = None
     # -- prefill fast path ------------------------------------------------
     prefill: str = "chunked"  # "chunked" | "replay"
@@ -111,8 +122,13 @@ class ServeConfig:
     token_budget: Optional[int] = None
     # -- prefix caching ---------------------------------------------------
     prefix_cache: bool = True
-    # -- options of the reference not ported yet (each raises) ------------
+    # -- multi-step decode window -----------------------------------------
+    # decode ticks per host dispatch: 1 = per-tick stepping; N > 1 runs up
+    # to N ticks back to back on the device when every active slot is
+    # generating, after an all-or-nothing grow-ahead page grant (else that
+    # boundary falls back to a per-tick step)
     sync_every: int = 1
+    # -- options of the reference not ported yet (each raises) ------------
     spec_decode: Optional[str] = None
     draft_len: int = 4
     audit: bool = False
@@ -150,13 +166,15 @@ class ServeConfig:
             raise ValueError(
                 f"retry_backoff must be >= 0, got {self.retry_backoff}"
             )
+        if self.kv_dtype is not None and self.cache != "paged":
+            # the reference raises this at engine init (engine.py:500); the
+            # contiguous layout itself is not ported, so it is checked here,
+            # before that option raises
+            raise ValueError(
+                f"kv_dtype={self.kv_dtype!r} requires cache='paged'")
         # no option is silently ignored: what is not ported raises
-        if self.sync_every > 1:
-            _not_ported("sync_every > 1 (the multi-step decode window)", "7")
         if self.spec_decode is not None:
             _not_ported(f"spec_decode={self.spec_decode!r}", "12")
-        if self.kv_dtype is not None:
-            _not_ported(f"kv_dtype={self.kv_dtype!r}", "9")
         if self.cache == "contiguous":
             _not_ported("cache='contiguous'", "4")
         if self.audit:
@@ -225,6 +243,10 @@ class ServingEngine:
         if injector is not None:
             _not_ported("fault injection", "11")
         self.device = resolve_device(device)
+        if serve_cfg.kv_dtype is not None and cfg.kv_dtype != serve_cfg.kv_dtype:
+            # the storage format is a property of the cache the steps run
+            # over, so it lives on the model config (engine.py:488-492)
+            cfg = dataclasses.replace(cfg, kv_dtype=serve_cfg.kv_dtype)
         emb = params["embed"]["embedding"]
         if emb.device.type != self.device.type:
             raise ValueError(
@@ -269,11 +291,17 @@ class ServingEngine:
             if serve_cfg.prefill == "chunked" and lm.supports_chunked_prefill(cfg)
             else "replay"
         )
+        self.sync_every = max(1, serve_cfg.sync_every)
         # the device block table is re-uploaded only after the scheduler
-        # mutates tables (admission growth, preemption, EOS recycling, COW)
+        # mutates tables (admission growth, grow-ahead grants and trims,
+        # preemption, EOS recycling, COW)
         self._tables_dirty = True
         self.table_uploads = 0  # host->device table transfers
-        self.dispatches = 0  # step() calls that ran device work
+        self.decode_windows = 0  # multi-step dispatches taken
+        self.window_fallbacks = 0  # grow-ahead denied -> per-tick boundary
+        # step() calls that ran device work: a window counts once however
+        # many ticks it covers
+        self.dispatches = 0
         self.token_budget = max(
             serve_cfg.token_budget or (b + serve_cfg.prefill_chunk), b
         )
@@ -518,12 +546,15 @@ class ServingEngine:
             self.table_uploads += 1
         return self.cache
 
+    def _greedy(self, logits) -> torch.Tensor:
+        return sample_step(logits, temperature=self.scfg.temperature)[0]
+
     def _sample(self, logits) -> Tuple[np.ndarray, np.ndarray]:
         """Greedy tokens plus a per-row flag for logits with no finite value
         (failed instead of emitted), in one download."""
         bad = ~torch.isfinite(logits).any(dim=-1)
-        tok, _ = sample_step(logits, temperature=self.scfg.temperature)
-        both = torch.stack([tok, bad.to(torch.int32)]).cpu().numpy()
+        both = torch.stack([self._greedy(logits), bad.to(torch.int32)])
+        both = both.cpu().numpy()
         return both[0], both[1].astype(bool)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -542,6 +573,15 @@ class ServingEngine:
         return self._sample(logits)
 
     # -- per-tick step --------------------------------------------------
+    def _gen_ready(self, s: int) -> bool:
+        """Slot ``s`` is in steady generation: its next feed is its last
+        known token and every later feed a model output, the work the
+        device-resident loop runs without the host (engine.py:904)."""
+        req = self.slot_req[s]
+        if self.prefill_mode == "chunked" and self.slot_state[s] != "gen":
+            return False
+        return req._cursor == len(req.prompt) + len(req.output) - 1  # type: ignore[attr-defined]
+
     def step(self) -> int:
         """One engine tick (one host dispatch).  Replay mode: one batched
         decode step.  Chunked mode: one decode step for the generating slots
@@ -564,9 +604,130 @@ class ServingEngine:
                 self.steps_run += 1
             return 0
         self.dispatches += 1
+        if self.sync_every > 1 and all(self._gen_ready(s) for s in active):
+            done = self._step_window(active)
+            if done is not None:
+                return done
+            self.window_fallbacks += 1  # pool too tight for grow-ahead
         if self.prefill_mode == "chunked":
             return self._step_chunked(active)
         return self._step_replay(active)
+
+    # -- device-resident multi-step window ------------------------------
+    def _grant_window(self, active: List[int], spans: Dict[int, int]) -> bool:
+        """All-or-nothing grow-ahead (engine.py:973): every active slot gets
+        pages covering its worst-case window span (``spans[s]`` tokens past
+        its position, never past ``max_len``).  On any shortfall the grant
+        rolls back exactly (each slot trimmed to its pre-grant block count,
+        the table-dirty flag restored) and the boundary falls back to a
+        per-tick step.  The grant never preempts."""
+        pre = {s: self.tables.num_blocks(s) for s in active}
+        dirty_before = self._tables_dirty
+        for s in active:
+            req = self.slot_req[s]
+            target = min(int(self.pos[s]) + spans[s], self.scfg.max_len)
+            if not self._ensure_with_evict(s, target, req.uid):
+                ps = self.pool.page_size
+                for t in active:
+                    self.tables.trim(t, pre[t] * ps)
+                self._tables_dirty = dirty_before
+                return False
+        return True
+
+    def _prepare_window(self, active: List[int],
+                        spans: Dict[int, int]) -> bool:
+        """The window's preamble (engine.py:998): grow-ahead grant,
+        copy-on-write over the whole write span, and the dispatch guard over
+        the grown tables.  On any failure the grow-ahead is given back
+        (survivors trimmed to ``pos + 1``) and the caller falls back to a
+        per-tick step."""
+        if not self._grant_window(active, spans):
+            return False
+        pairs: List[Tuple[int, int]] = []
+        try:
+            for s in active:
+                target = min(int(self.pos[s]) + spans[s], self.scfg.max_len)
+                last = max(int(self.pos[s]), target - 1)
+                self._cow_range(s, last, protect=frozenset(active), out=pairs)
+        except PoolExhausted:
+            # apply the copies already repointed, give back the grow-ahead
+            # and fall back: the per-tick path's COW failure preempts
+            self._apply_cow(pairs)
+            self._trim_to_pos(active)
+            return False
+        self._apply_cow(pairs)
+        work = [(s, spans[s]) for s in active]
+        if len(self._guard_work(work)) != len(work):
+            # the guard FAILed the blamed slot(s); the survivors' next path
+            # re-checks its own trimmed dispatch
+            self._trim_to_pos(active)
+            return False
+        return True
+
+    def _trim_to_pos(self, slots: List[int]):
+        """Return each live slot's unused grow-ahead pages (keeping the next
+        write), so boundary admission and preemption see the pool a per-tick
+        engine would."""
+        for s in slots:
+            if self.slot_req[s] is not None:
+                if self.tables.trim(s, int(self.pos[s]) + 1):
+                    self._tables_dirty = True
+
+    def _step_window(self, active: List[int]) -> Optional[int]:
+        """Up to ``sync_every`` decode ticks in one dispatch
+        (engine.py:1042).  Feed, positions, stop flags and emitted tokens
+        stay on the device through ``lm.decode_loop``; the host uploads one
+        feed vector and downloads one token buffer.  Returns #active slots,
+        or ``None`` when the pool cannot cover the worst-case window (the
+        caller falls back to a per-tick step)."""
+        b = self.scfg.slots
+        feed = np.zeros((b,), np.int32)
+        live = np.zeros((b,), bool)
+        rem = np.zeros((b,), np.int32)
+        for s in active:
+            req = self.slot_req[s]
+            feed[s] = (req.prompt + req.output)[req._cursor]  # type: ignore[attr-defined]
+            live[s] = True
+            limit = req.max_new_tokens or self.scfg.max_new_tokens
+            rem[s] = limit - len(req.output)
+        # clamp the window to the slots' host-known spans (token allowance
+        # and max_len headroom) by halving, as the reference does: iterations
+        # past every slot's stop would burn full-batch decode steps and delay
+        # the next boundary's admission
+        n = self.sync_every
+        max_span = max(min(int(rem[s]), self.scfg.max_len - int(self.pos[s]))
+                       for s in active)
+        while n // 2 >= max_span:
+            n //= 2
+        spans = {s: min(n, int(rem[s]) + 1) for s in active}
+        if not self._prepare_window(active, spans):
+            return None
+        toks, emitted = lm.decode_loop(
+            self.params, self.cfg, self._fresh_cache(), self._dev(feed),
+            self._dev(self.pos), self._dev(live), self._dev(rem), n_steps=n,
+            sample_fn=self._greedy, eos_id=self.scfg.eos_id,
+            max_len=self.scfg.max_len)
+        self.decode_windows += 1
+        both = torch.cat([toks, emitted.to(torch.int32)]).cpu().numpy()
+        toks, emitted = both[:n], both[n:].astype(bool)
+        # drain: replay each in-window tick through the host bookkeeping the
+        # per-tick path runs, so requests, tick counts and EOS recycling stay
+        # identical to per-tick stepping
+        for t in range(n):
+            row = emitted[t]
+            if not row.any():
+                break  # every slot stopped; later rows are all False too
+            for s in active:
+                if not row[s]:
+                    continue
+                req = self.slot_req[s]
+                self.pos[s] += 1
+                req._cursor += 1  # type: ignore[attr-defined]
+                self._emit_token(s, req, int(toks[t, s]))
+            self.tick_tokens.append(int(row.sum()))
+            self.steps_run += 1
+        self._trim_to_pos(active)
+        return len(active)
 
     # -- prefix-cache bookkeeping ---------------------------------------
     def _register_prefix(self, s: int, req: Request):

@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import paged_attention_quant as PAQ
 from repro_torch.kernels import prefill_attention as PF
+from repro_torch.kernels import prefill_attention_quant as PFQ
 from repro_torch.kernels import ref
 
 _spec = importlib.util.spec_from_file_location(
@@ -33,6 +35,12 @@ def _tables(rng, b, mp, num_pages):
     return t.reshape(b, mp).astype("int32")
 
 
+def _within_limit(got, want):
+    if got.dtype == torch.bfloat16:
+        return cs.bf16_ulps(torch, got, want) <= cs.BF16_ULPS
+    return (got - want).abs().max().item() <= cs.FP32_ATOL
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """On a card: each CUDA kernel against its plain version, bf16 and fp32,
@@ -44,11 +52,6 @@ def test_cuda_kernels_match_plain_versions():
     b, hq, hkv, d, ps, mp, chunk = 4, 12, 2, 128, 16, 8, 32
     num_pages = b * mp + 1
     tables = torch.as_tensor(_tables(rng, b, mp, num_pages), device=dev)
-    def within_limit(got, want):
-        if got.dtype == torch.bfloat16:
-            return cs.bf16_ulps(torch, got, want) <= cs.BF16_ULPS
-        return (got - want).abs().max().item() <= cs.FP32_ATOL
-
     for dtype in (torch.float32, torch.bfloat16):
         for window in (None, 40):
             g = torch.Generator(device=dev).manual_seed(0)
@@ -59,7 +62,7 @@ def test_cuda_kernels_match_plain_versions():
             got = PA.paged_attention(q, kp, vp, tables, lens, window=window)
             assert PA.KERNEL.launches == n0 + 1
             want = ref.paged_attention(q, kp, vp, tables, lens, window=window)
-            assert within_limit(got, want)
+            assert _within_limit(got, want)
             qc, kn, vn = rand(b, hq, chunk, d), rand(b, hkv, chunk, d), rand(b, hkv, chunk, d)
             starts = torch.tensor([0, 16, 48, 96], dtype=torch.int32, device=dev)
             clens = torch.tensor([32, 0, 19, 32], dtype=torch.int32, device=dev)
@@ -67,4 +70,56 @@ def test_cuda_kernels_match_plain_versions():
                                              tables, starts, clens, window=window)
             plain, _, _ = ref.paged_prefill_attention(
                 qc, kn, vn, kp.clone(), vp.clone(), tables, starts, clens, window=window)
-            assert within_limit(out, plain)
+            assert _within_limit(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_quant_kernels_match_plain_versions(fmt):
+    """On a card: each quantized kernel against its plain version, bf16 and
+    fp32, with a len-0 slot, a window and a partial chunk; the pages both
+    write hold the same packed bytes and scales at live positions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    b, hq, hkv, d, ps, mp, chunk = 4, 12, 2, 128, 16, 8, 32
+    num_pages = b * mp + 1
+    tables = torch.as_tensor(_tables(rng, b, mp, num_pages), device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, 40):
+            g = torch.Generator(device=dev).manual_seed(0)
+            rand = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+            q = rand(b, hq, d)
+            pools = [*ref.quantize_rows(rand(hkv, num_pages, ps, d), fmt),
+                     *ref.quantize_rows(rand(hkv, num_pages, ps, d), fmt)]
+            kq, ks, vq, vs = pools
+            lens = torch.tensor([0, 1, 77, mp * ps], dtype=torch.int32, device=dev)
+            n0 = PAQ.KERNEL.launches
+            got = PAQ.paged_attention_quant(q, kq, vq, ks, vs, tables, lens,
+                                            fmt=fmt, window=window)
+            assert PAQ.KERNEL.launches == n0 + 1
+            want = ref.paged_attention_quant(q, kq, vq, ks, vs, tables, lens,
+                                             fmt=fmt, window=window)
+            assert _within_limit(got, want)
+            qc = rand(b, hq, chunk, d)
+            knq, kns = ref.quantize_rows(rand(b, hkv, chunk, d), fmt)
+            vnq, vns = ref.quantize_rows(rand(b, hkv, chunk, d), fmt)
+            starts = torch.tensor([0, 16, 48, 96], dtype=torch.int32, device=dev)
+            clens = torch.tensor([32, 0, 19, 32], dtype=torch.int32, device=dev)
+            p1 = [t.clone() for t in (kq, vq, ks, vs)]
+            p2 = [t.clone() for t in (kq, vq, ks, vs)]
+            out = PFQ.prefill_attention_quant(qc, knq, vnq, kns, vns, *p1, tables,
+                                              starts, clens, fmt=fmt,
+                                              window=window)[0]
+            plain = ref.paged_prefill_attention_quant(
+                qc, knq, vnq, kns, vns, *p2, tables, starts, clens, fmt=fmt,
+                window=window)[0]
+            assert _within_limit(out, plain)
+            tb = tables.cpu().numpy()
+            for bi, (s0, n) in enumerate(zip(starts.tolist(), clens.tolist())):
+                for c in range(n):
+                    pg, of = int(tb[bi, (s0 + c) // ps]), (s0 + c) % ps
+                    for pool_k, pool_p, new in zip(p1, p2, (knq, vnq, kns, vns)):
+                        assert torch.equal(pool_k[:, pg, of], new[bi, :, c])
+                        assert torch.equal(pool_p[:, pg, of], new[bi, :, c])

@@ -126,7 +126,9 @@ def test_teacher_forced_logits_match_reference(name, cfg_j):
 
 def test_decode_append_drops_out_of_range_writes():
     """A position past the table (logical page >= max_pages) gathers INT_MIN
-    in the reference and its scatter is dropped; the port drops it too."""
+    in the reference and its scatter is dropped; the port sends it to the
+    sink page 0 (no host sync to count dropped rows), so no other page
+    changes."""
     cfg = tconfigs.get_config("qwen2_1_5b").reduced()
     params = lm.init(cfg, 0, device="cpu")
     cache = lm.init_cache(cfg, 2, 32, page_size=16, num_blocks=5, device="cpu")

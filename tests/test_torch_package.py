@@ -70,8 +70,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sync_every=4), "item 7"), (dict(spec_decode="ngram"), "item 12"),
-    (dict(kv_dtype="int8"), "item 9"), (dict(cache="contiguous"), "item 4"),
+    (dict(spec_decode="ngram"), "item 12"), (dict(cache="contiguous"), "item 4"),
     (dict(audit=True), "item 11"), (dict(temperature=0.7), "item 5"),
 ])
 def test_unported_serve_options_raise(kw, item):
@@ -119,11 +118,12 @@ def test_trace_measures_the_card_only():
 
 def test_chip_smoke_phases_rehearse_on_the_cpu():
     """chip_smoke.py's phases, run here with CPU tensors (its kernels'
-    plain versions; untimed): the checks at the main path's shapes and the
-    controls of the bf16 limit, the
-    serving workload on a reduced model (its scheduling depends only on the
-    prompt lengths, so preemption and sharing fire as on the card), and the
-    teacher-forced comparison on a reduced 4-layer model."""
+    plain versions; untimed): the checks at the main path's shapes, fp and
+    quantized, and the controls of the bf16 limit; the six serving runs on
+    a reduced model (their scheduling depends only on the prompt lengths,
+    so preemption, sharing, tick equality across KV formats and the byte
+    budget's fewer preemptions hold as on the card); and the teacher-forced
+    comparison on a reduced 4-layer model, fp and int8."""
     import dataclasses
 
     import numpy as np
@@ -134,7 +134,9 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
     finally:
         sys.path.remove(str(ROOT))
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import paged_attention_quant as PAQ
     from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import prefill_attention_quant as PFQ
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import KERNELS
 
@@ -144,24 +146,32 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
         assert r["err"] == 0.0
     r = cs.check_prefill(torch, np, ref, PF, torch.float32, 96, None, False, cpu)
     assert r["err"] == 0.0
+    for fmt in ("int8", "int4"):
+        r = cs.check_decode(torch, np, ref, PAQ, torch.float32, 256, None, False,
+                            cpu, fmt=fmt)
+        assert r["err"] == 0.0
+        r = cs.check_prefill(torch, np, ref, PFQ, torch.float32, None, None,
+                             False, cpu, fmt=fmt)
+        assert r["err"] == 0.0
     # the bf16 limit passes a sound online softmax and rejects bf16 sums
-    for check, mod in ((cs.check_decode, PA), (cs.check_prefill, PF)):
-        r = check(torch, np, ref, mod, torch.bfloat16, None, None, False, cpu)
+    for check, mod, fmt in ((cs.check_decode, PA, None), (cs.check_prefill, PF, None),
+                            (cs.check_decode, PAQ, "int8"),
+                            (cs.check_prefill, PFQ, "int4")):
+        r = check(torch, np, ref, mod, torch.bfloat16, None, None, False, cpu,
+                  fmt=fmt)
         assert r["ulps"] == 0.0 and cs.kernel_ok(r), r
-    cfg = dataclasses.replace(get_config("qwen2_1_5b").reduced(), num_layers=1,
-                              vocab_size=151936)
+    cfg = dataclasses.replace(get_config("qwen2_1_5b").reduced(), num_layers=1)
     params = lm.init(cfg, 0, device="cpu")
-    runs = {}
-    for nb in (None, int(0.39 * cs.SLOTS * cs.MAX_LEN // cs.PAGE)):
-        eng, reqs, _, launches = cs.serve(torch, np, cfg, params, KERNELS, nb, cpu)
-        assert all(r.status == "completed" and len(r.output) == 32 for r in reqs)
-        assert launches == {"paged_attention": 0, "prefill_attention": 0}
-        runs[nb] = eng
-    assert runs[None].pages_shared > 0 and runs[199].preemptions > 0
-    cfg4 = dataclasses.replace(get_config("qwen2_1_5b").reduced(), num_layers=4,
-                               dtype="bfloat16")
-    tf = cs.teacher_forced(torch, np, lm, cfg4, cpu)
-    assert cs.teacher_forced_ok(tf), tf
+    runs = cs.serving_phase(torch, np, lm, cfg, params, KERNELS, cpu)
+    assert runs["fp, 199 blocks"][0].preemptions > 0
+    assert all(n == 0 for run in runs.values() for n in run[3].values())
+    assert lm.decode_loop.__name__ == "decode_loop"  # restored after the run
+    for kv_dtype in (None, "int8"):
+        cfg4 = dataclasses.replace(get_config("qwen2_1_5b").reduced(),
+                                   num_layers=4, dtype="bfloat16",
+                                   kv_dtype=kv_dtype)
+        tf = cs.teacher_forced(torch, np, lm, cfg4, cpu)
+        assert cs.teacher_forced_ok(tf), tf
 
 
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_port(
