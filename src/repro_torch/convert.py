@@ -3,10 +3,12 @@
     params = params_from_numpy(jax.tree.map(np.asarray, repro_lm.init(cfg, key)),
                                cfg, device="cpu")
 
-The tree keeps its layout (``embed``, ``prefix_layers``, stacked ``layers``
-leaves of shape (L, ...), ``final_norm``); each leaf becomes a tensor of the
-config's dtype on ``device``.  bfloat16 leaves (``ml_dtypes``) are
-reinterpreted bit for bit.  This module imports neither JAX nor ``repro``.
+The tree keeps its layout (``embed``, the ``prefix_layers`` list, stacked
+``layers`` leaves of shape (L - prefix, ...), ``final_norm``); each leaf
+becomes a tensor of the config's dtype on ``device``, except the MoE
+router, which the reference keeps in fp32 whatever the model's dtype
+(layers.py:753).  bfloat16 leaves (``ml_dtypes``) are reinterpreted bit for
+bit.  This module imports neither JAX nor ``repro``.
 """
 from __future__ import annotations
 
@@ -33,18 +35,21 @@ def params_from_numpy(tree, cfg, device="cuda"):
     lm.require_supported(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg)
-    if tree.get("prefix_layers"):
-        raise ValueError("dense models carry no prefix layers")
+    n_prefix = lm.num_prefix_layers(cfg)
+    if len(tree.get("prefix_layers") or []) != n_prefix:
+        raise ValueError(f"tree has {len(tree.get('prefix_layers') or [])} "
+                         f"prefix layers, config {n_prefix}")
 
-    def conv(node):
+    def conv(node, key=None):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
-        return _tensor(node, dt, dev)
+        return _tensor(node, torch.float32 if key == "router" else dt, dev)
 
     params = conv(tree)
     n = params["layers"]["norm1"].shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"tree has {n} stacked layers, config {cfg.num_layers}")
+    if n_prefix + n != cfg.num_layers:
+        raise ValueError(f"tree has {n_prefix} + {n} layers, config "
+                         f"{cfg.num_layers}")
     return params

@@ -1,4 +1,6 @@
 """Kernels of the port: hand-written CUDA for Hopper (``csrc/``), their
 ctypes wrappers (``paged_attention``, ``prefill_attention`` and their
 quantized twins ``paged_attention_quant``, ``prefill_attention_quant``),
-the plain PyTorch versions (``ref``) and the dispatch layer (``ops``)."""
+the latent (MLA) kernels ``mla_paged``, ``mla_prefill`` and their twins
+``mla_paged_quant``, ``mla_prefill_quant``, the plain PyTorch versions
+(``ref``) and the dispatch layer (``ops``)."""

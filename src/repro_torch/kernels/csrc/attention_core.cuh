@@ -24,6 +24,12 @@
 // attention_core.py:127: packed int8 / int4 rows plus one scale per row,
 // dequantized on the way into shared memory).  Either way the tile lands in
 // the same fp32 shared tiles and goes through the one online softmax below.
+//
+// Multi-head latent attention (MLA) scores a key of width dk = R + Dpe (the
+// shared latent plus its rotary part) and takes as value the key's first
+// dv = R columns: its tiles are FpLatent / QuantLatent, one shared tile of
+// [latent | rope] rows that P.V reads again (no second load), and the
+// latent layout of Smem points the V tile at the K tile.
 // Tiles are read with 16-byte vector loads into registers one tile ahead of
 // the compute (attend_tiles), so the device-memory latency of tile t + 1
 // overlaps the scoring of tile t.  Scores of one query row sit in `cols`
@@ -126,10 +132,11 @@ __device__ __forceinline__ void commit(float* dst, int sstride, const Stage& st,
 // banks once.
 struct Smem {
   float *qs, *ks, *vs, *s, *acc, *m, *l, *alpha;
-  int stride;
+  int stride, vstride;  // floats between Q/K rows, and between V rows
 
   __device__ Smem(float* base, int rows, int cols, int d) {
     stride = d + 4;
+    vstride = d;
     qs = base;
     ks = qs + rows * stride;
     vs = ks + cols * stride;
@@ -144,6 +151,28 @@ struct Smem {
     return sizeof(float) * ((size_t)rows * (d + 4) + (size_t)cols * (d + 4) +
                             (size_t)cols * d + (size_t)rows * cols +
                             (size_t)rows * d + 3 * (size_t)rows);
+  }
+
+  // The latent layout: Q and K rows of dk values (padded to dk + 4 as
+  // above), V the first dv columns of the K tile itself, the accumulator
+  // dv wide.
+  __device__ Smem(float* base, int rows, int cols, int dk, int dv) {
+    stride = dk + 4;
+    vstride = stride;
+    qs = base;
+    ks = qs + rows * stride;
+    vs = ks;
+    acc = ks + cols * stride;
+    s = acc + rows * dv;
+    m = s + rows * cols;
+    l = m + rows;
+    alpha = l + rows;
+  }
+
+  static size_t latent_bytes(int rows, int cols, int dk, int dv) {
+    return sizeof(float) * ((size_t)rows * (dk + 4) + (size_t)cols * (dk + 4) +
+                            (size_t)rows * dv + (size_t)rows * cols +
+                            3 * (size_t)rows);
   }
 };
 
@@ -234,6 +263,26 @@ __device__ __forceinline__ void fetch_q(QStage<T>& st, const int8_t* __restrict_
   }
 }
 
+// Unpack one packed vector (16 int8 or 32 int4 codes), scale it and store
+// it at `o` as fp32.
+template <typename T, int PACK>
+__device__ __forceinline__ void unpack_vec(float* o, const uint4& v, float sc) {
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
+  if (PACK == 1) {
+#pragma unroll
+    for (int q = 0; q < 16; q += 4)
+      *reinterpret_cast<float4*>(o + q) = make_float4(
+          deq<T>((int8_t)b[q], sc), deq<T>((int8_t)b[q + 1], sc),
+          deq<T>((int8_t)b[q + 2], sc), deq<T>((int8_t)b[q + 3], sc));
+  } else {  // low nibble first: byte j holds values 2j and 2j + 1
+#pragma unroll
+    for (int q = 0; q < 16; q += 2)
+      *reinterpret_cast<float4*>(o + 2 * q) = make_float4(
+          deq<T>(nibble(b[q], 0), sc), deq<T>(nibble(b[q], 1), sc),
+          deq<T>(nibble(b[q + 1], 0), sc), deq<T>(nibble(b[q + 1], 1), sc));
+  }
+}
+
 // Unpack a fetched tile, scale it and store it in shared memory as fp32
 // (row stride `sstride` floats): 16 int8 or 32 int4 values per vector.
 template <typename T, int PACK>
@@ -246,22 +295,7 @@ __device__ __forceinline__ void commit_q(float* dst, int sstride, const QStage<T
     const int i = threadIdx.x + k * blockDim.x;
     if (i < n) {
       const int r = i / row_vecs, c = (i - r * row_vecs) * 16 * PACK;
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&st.v[k]);
-      const float sc = to_float(st.s[k]);
-      float* o = dst + r * sstride + c;
-      if (PACK == 1) {
-#pragma unroll
-        for (int q = 0; q < 16; q += 4)
-          *reinterpret_cast<float4*>(o + q) = make_float4(
-              deq<T>((int8_t)b[q], sc), deq<T>((int8_t)b[q + 1], sc),
-              deq<T>((int8_t)b[q + 2], sc), deq<T>((int8_t)b[q + 3], sc));
-      } else {  // low nibble first: byte j holds values 2j and 2j + 1
-#pragma unroll
-        for (int q = 0; q < 16; q += 2)
-          *reinterpret_cast<float4*>(o + 2 * q) = make_float4(
-              deq<T>(nibble(b[q], 0), sc), deq<T>(nibble(b[q], 1), sc),
-              deq<T>(nibble(b[q + 1], 0), sc), deq<T>(nibble(b[q + 1], 1), sc));
-      }
+      unpack_vec<T, PACK>(dst + r * sstride + c, st.v[k], to_float(st.s[k]));
     }
   }
 }
@@ -312,6 +346,176 @@ struct QuantKV {
     }
   }
 };
+
+// ---- latent (MLA) tile formats -------------------------------------------
+//
+// A latent tile is `cols` rows of the latent pool (R values a row) and the
+// same rows of the rope pool (Dpe values a row), two contiguous runs in
+// device memory, committed side by side into sm.ks as rows [latent | rope]
+// of dk = R + Dpe floats.  A page at full width (R 512, Dpe 64, page 16) is
+// 1152 16-byte vectors in bf16 and 2304 in fp32, so these formats hold NV
+// vectors a thread (at 256 threads: 5 and 9), more than FpKV's MAXV.
+
+// fp latent: rows of R and Dpe values of T.
+template <typename T>
+struct FpLatent {
+  using Elem = T;
+  static constexpr int NV = sizeof(T) == 4 ? 9 : 5;
+  T *ckv, *kpe;
+  int r, pe;
+  struct Regs {
+    uint4 v[NV];
+  };
+
+  static bool shapes_ok(int cols, int r, int pe, int threads) {
+    const int vec = vec_elems<T>();
+    return r % vec == 0 && pe % vec == 0 && cols >= 1 && cols <= 32 &&
+           (cols & (cols - 1)) == 0 && cols * (r + pe) / vec <= NV * threads;
+  }
+  __device__ FpLatent rows(long n) const { return {ckv + n * r, kpe + n * pe, r, pe}; }
+  __device__ void fetch(Regs& st, int cols, int /*dk*/) const {
+    constexpr int VEC = vec_elems<T>();
+    const int nc = cols * r / VEC, n = nc + cols * pe / VEC;
+    const uint4* c = reinterpret_cast<const uint4*>(ckv);
+    const uint4* p = reinterpret_cast<const uint4*>(kpe);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < nc)
+        st.v[k] = __ldg(c + i);
+      else if (i < n)
+        st.v[k] = __ldg(p + (i - nc));
+    }
+  }
+  __device__ void commit(Smem& sm, const Regs& st, int cols, int /*dk*/) const {
+    constexpr int VEC = vec_elems<T>();
+    const int nc = cols * r / VEC, n = nc + cols * pe / VEC;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < n) {
+        int row, col;
+        if (i < nc) {
+          const int e = i * VEC;
+          row = e / r;
+          col = e - row * r;
+        } else {
+          const int e = (i - nc) * VEC;
+          row = e / pe;
+          col = r + e - row * pe;
+        }
+        const T* x = reinterpret_cast<const T*>(&st.v[k]);
+        float* o = sm.ks + row * sm.stride + col;
+#pragma unroll
+        for (int q = 0; q < VEC; q += 4)
+          *reinterpret_cast<float4*>(o + q) = make_float4(
+              to_float(x[q]), to_float(x[q + 1]), to_float(x[q + 2]), to_float(x[q + 3]));
+      }
+    }
+  }
+  // n rows of both pools onto `dst` (the prefill kernels' page write)
+  __device__ void copy_rows(const FpLatent& dst, int n) const {
+    const int nc = n * r / vec_elems<T>(), np = n * pe / vec_elems<T>();
+    const uint4* c = reinterpret_cast<const uint4*>(ckv);
+    const uint4* p = reinterpret_cast<const uint4*>(kpe);
+    uint4* cd = reinterpret_cast<uint4*>(dst.ckv);
+    uint4* pd = reinterpret_cast<uint4*>(dst.kpe);
+    for (int i = threadIdx.x; i < nc; i += blockDim.x) cd[i] = c[i];
+    for (int i = threadIdx.x; i < np; i += blockDim.x) pd[i] = p[i];
+  }
+};
+
+// Quantized latent: rows of R / PACK and Dpe / PACK packed bytes with one
+// scale of T per row in each pool.  The latent columns are dequantized with
+// the latent row's scale and the rope columns with the rope row's.
+template <typename T, int PACK>
+struct QuantLatent {
+  using Elem = T;
+  static constexpr int NV = PACK == 1 ? 3 : 2;
+  int8_t *ckv, *kpe;
+  T *cs, *rs;  // (rows, 1) scales of the latent and the rope rows
+  int r, pe;
+  struct Regs {
+    uint4 v[NV];
+    T s[NV];
+  };
+
+  static bool shapes_ok(int cols, int r, int pe, int threads) {
+    return r % (16 * PACK) == 0 && pe % (16 * PACK) == 0 && cols >= 1 &&
+           cols <= 32 && (cols & (cols - 1)) == 0 &&
+           cols * (r + pe) / PACK / 16 <= NV * threads;
+  }
+  __device__ QuantLatent rows(long n) const {
+    return {ckv + n * (r / PACK), kpe + n * (pe / PACK), cs + n, rs + n, r, pe};
+  }
+  __device__ void fetch(Regs& st, int cols, int /*dk*/) const {
+    const int rc = r / PACK / 16, rp = pe / PACK / 16;
+    const int nc = cols * rc, n = nc + cols * rp;
+    const uint4* c = reinterpret_cast<const uint4*>(ckv);
+    const uint4* p = reinterpret_cast<const uint4*>(kpe);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < nc) {
+        st.v[k] = __ldg(c + i);
+        st.s[k] = cs[i / rc];
+      } else if (i < n) {
+        st.v[k] = __ldg(p + (i - nc));
+        st.s[k] = rs[(i - nc) / rp];
+      }
+    }
+  }
+  __device__ void commit(Smem& sm, const Regs& st, int cols, int /*dk*/) const {
+    const int rc = r / PACK / 16, rp = pe / PACK / 16;
+    const int nc = cols * rc, n = nc + cols * rp;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < n) {
+        int row, col;
+        if (i < nc) {
+          row = i / rc;
+          col = (i - row * rc) * 16 * PACK;
+        } else {
+          const int j = i - nc;
+          row = j / rp;
+          col = r + (j - row * rp) * 16 * PACK;
+        }
+        unpack_vec<T, PACK>(sm.ks + row * sm.stride + col, st.v[k], to_float(st.s[k]));
+      }
+    }
+  }
+  // packed bytes and both scales of the same n rows, together
+  __device__ void copy_rows(const QuantLatent& dst, int n) const {
+    const int nc = n * (r / PACK) / 16, np = n * (pe / PACK) / 16;
+    const uint4* c = reinterpret_cast<const uint4*>(ckv);
+    const uint4* p = reinterpret_cast<const uint4*>(kpe);
+    uint4* cd = reinterpret_cast<uint4*>(dst.ckv);
+    uint4* pd = reinterpret_cast<uint4*>(dst.kpe);
+    for (int i = threadIdx.x; i < nc; i += blockDim.x) cd[i] = c[i];
+    for (int i = threadIdx.x; i < np; i += blockDim.x) pd[i] = p[i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      dst.cs[i] = cs[i];
+      dst.rs[i] = rs[i];
+    }
+  }
+};
+
+// Stage `rows` latent query rows [q_lat | q_pe] into sm.qs as fp32,
+// multiplied by `scale`; block row rr is row row_of(rr) of q (R values a
+// row) and of q_pe (Dpe values a row).
+template <typename T, typename RowOf>
+__device__ void load_latent_rows(Smem& sm, const T* __restrict__ q,
+                                 const T* __restrict__ q_pe, int rows, int r,
+                                 int pe, float scale, const RowOf& row_of) {
+  const int dk = r + pe;
+  for (int i = threadIdx.x; i < rows * dk; i += blockDim.x) {
+    const int rr = i / dk, c = i - rr * dk;
+    const long g = row_of(rr);
+    const float x = c < r ? to_float(q[g * r + c]) : to_float(q_pe[g * pe + c - r]);
+    sm.qs[rr * sm.stride + c] = x * scale;
+  }
+}
 
 // acc = 0, m = -inf, l = 0 for `rows` query rows of width `d`.
 __device__ void init_state(Smem& sm, int rows, int d) {
@@ -386,7 +590,7 @@ __device__ void pv_accumulate(Smem& sm, int rows, int cols, int d) {
     o.x *= a; o.y *= a; o.z *= a; o.w *= a;
     for (int j = 0; j < cols; ++j) {
       const float pj = p[j];
-      const float4 v = *reinterpret_cast<const float4*>(sm.vs + j * d + c);
+      const float4 v = *reinterpret_cast<const float4*>(sm.vs + j * sm.vstride + c);
       o.x = fmaf(pj, v.x, o.x);
       o.y = fmaf(pj, v.y, o.y);
       o.z = fmaf(pj, v.z, o.z);
@@ -396,30 +600,38 @@ __device__ void pv_accumulate(Smem& sm, int rows, int cols, int d) {
   }
 }
 
-// The online-softmax pass over `n` K/V tiles.  `src.tile(t, kv)` sets the
-// bundle of tile t (a Src::KV format above, `cols` rows) and returns false
-// when the tile must contribute nothing; `src.mask(t)` gives the tile's
-// (r, j) mask.  Tile t + 1's loads are in flight while tile t is scored.
+// The online-softmax pass over `n` K/V tiles, scoring dk columns and
+// accumulating dv.  `src.tile(t, kv)` sets the bundle of tile t (a Src::KV
+// format above, `cols` rows) and returns false when the tile must contribute
+// nothing; `src.mask(t)` gives the tile's (r, j) mask.  Tile t + 1's loads
+// are in flight while tile t is scored.
 template <typename Src>
-__device__ void attend_tiles(Smem& sm, int rows, int cols, int d, int n,
-                             const Src& src) {
+__device__ void attend_tiles(Smem& sm, int rows, int cols, int dk, int dv,
+                             int n, const Src& src) {
   using KV = typename Src::KV;
   typename KV::Regs regs;
   KV kv;
   bool ok = n > 0 && src.tile(0, kv);
-  if (ok) kv.fetch(regs, cols, d);
+  if (ok) kv.fetch(regs, cols, dk);
   for (int t = 0; t < n; ++t) {
     const bool cur_ok = ok;
     __syncthreads();  // the previous tile is fully consumed
-    if (cur_ok) KV::commit(sm, regs, cols, d);
+    if (cur_ok) kv.commit(sm, regs, cols, dk);  // kv is still tile t here
     ok = t + 1 < n && src.tile(t + 1, kv);
-    if (ok) kv.fetch(regs, cols, d);
+    if (ok) kv.fetch(regs, cols, dk);
     if (!cur_ok) continue;  // uniform across the block
     __syncthreads();
-    score_softmax(sm, rows, cols, d, src.mask(t));
+    score_softmax(sm, rows, cols, dk, src.mask(t));
     __syncthreads();
-    pv_accumulate(sm, rows, cols, d);
+    pv_accumulate(sm, rows, cols, dv);
   }
+}
+
+// The same with one width d for Q, K and V (FpKV, QuantKV).
+template <typename Src>
+__device__ void attend_tiles(Smem& sm, int rows, int cols, int d, int n,
+                             const Src& src) {
+  attend_tiles(sm, rows, cols, d, d, n, src);
 }
 
 // out[r] = acc[r] / max(l[r], 1e-30): empty rows emit zeros (safe_div).
@@ -429,6 +641,16 @@ __device__ void store_rows(T* __restrict__ dst, long gstride, const Smem& sm,
   for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
     const int r = i / d, c = i - r * d;
     dst[r * gstride + c] = from_float<T>(sm.acc[i] / fmaxf(sm.l[r], 1e-30f));
+  }
+}
+
+// The same with block row r stored at row row_of(r) of dst (d values a row).
+template <typename T, typename RowOf>
+__device__ void store_rows_at(T* __restrict__ dst, const Smem& sm, int rows,
+                              int d, const RowOf& row_of) {
+  for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
+    const int r = i / d, c = i - r * d;
+    dst[row_of(r) * d + c] = from_float<T>(sm.acc[i] / fmaxf(sm.l[r], 1e-30f));
   }
 }
 

@@ -6,9 +6,9 @@ rules are the reference's, kept as explicit rules:
 
 * a soft-capped model takes the plain path (ops.py:247, :353), because no
   kernel caps its scores;
-* chunked prefill, fp or quantized, takes the kernel only when ``chunk %
-  page_size == 0`` and the chunk spans at most ``max_pages`` pages
-  (ops.py:290, :392);
+* chunked prefill, GQA or MLA, fp or quantized, takes the kernel only when
+  ``chunk % page_size == 0`` and the chunk spans at most ``max_pages`` pages
+  (ops.py:290, :392, :529, :628);
 * otherwise the kernel wrapper runs: it launches the CUDA kernel for CUDA
   tensors (or raises), and uses the kernel's plain version for CPU tensors.
 
@@ -24,6 +24,10 @@ from typing import Optional
 import numpy as np
 
 from ..core.errors import GuardError
+from . import mla_paged as _mp
+from . import mla_paged_quant as _mpq
+from . import mla_prefill as _mf
+from . import mla_prefill_quant as _mfq
 from . import paged_attention as _pa
 from . import paged_attention_quant as _paq
 from . import prefill_attention as _pf
@@ -33,7 +37,9 @@ from . import ref
 # the hand-written kernels on the serving path, by name
 KERNELS = {"paged_attention": _pa.KERNEL, "prefill_attention": _pf.KERNEL,
            "paged_attention_quant": _paq.KERNEL,
-           "prefill_attention_quant": _pfq.KERNEL}
+           "prefill_attention_quant": _pfq.KERNEL,
+           "mla_paged": _mp.KERNEL, "mla_prefill": _mf.KERNEL,
+           "mla_paged_quant": _mpq.KERNEL, "mla_prefill_quant": _mfq.KERNEL}
 
 
 def guard_dispatch(tables, num_pages, page_size, work):
@@ -198,6 +204,74 @@ def prefill_attention_quant(q, k_new, v_new, k_pages, v_pages, k_scales,
     return ref.paged_prefill_attention_quant(
         *args, fmt=fmt, sm_scale=sm_scale, window=window,
         logit_soft_cap=logit_soft_cap)
+
+
+def mla_paged(q_lat, q_pe, ckv_pages, kpe_pages, block_tables, seq_lens, *,
+              sm_scale=None, window: Optional[int] = None,
+              logit_soft_cap=None):
+    """Paged MLA decode (ops.py:472): latent queries (B, H, R) and rope
+    queries (B, H, Dpe) against the latent and rope pools (shapes in
+    kernels/mla_paged.py)."""
+    if logit_soft_cap is not None:
+        return ref.mla_paged(q_lat, q_pe, ckv_pages, kpe_pages, block_tables,
+                             seq_lens, sm_scale=sm_scale, window=window,
+                             logit_soft_cap=logit_soft_cap)
+    return _mp.mla_paged(q_lat, q_pe, ckv_pages, kpe_pages, block_tables,
+                         seq_lens, sm_scale=sm_scale, window=window)
+
+
+def mla_prefill(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
+                block_tables, start_lens, chunk_lens, *, sm_scale=None,
+                window: Optional[int] = None, logit_soft_cap=None):
+    """MLA chunked prefill over the latent pools (ops.py:506): ``q_lat``/
+    ``q_pe`` (B, H, C, .), the chunk's ``ckv_new``/``kpe_new`` (B, C, .).
+    Returns ``(out (B, H, C, R), ckv_pages, kpe_pages)``: the chunk's latents
+    are written into the given pools in place, through the block table."""
+    args = (q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages, block_tables,
+            start_lens, chunk_lens)
+    if _prefill_takes_kernel(q_lat.shape[2], ckv_pages.shape[1],
+                             block_tables.shape[1], logit_soft_cap):
+        return _mf.mla_prefill(*args, sm_scale=sm_scale, window=window)
+    return ref.paged_mla_prefill(*args, sm_scale=sm_scale, window=window,
+                                 logit_soft_cap=logit_soft_cap)
+
+
+def mla_paged_quant(q_lat, q_pe, ckv_pages, kpe_pages, ckv_scales, kpe_scales,
+                    block_tables, seq_lens, *, fmt: str = "int8",
+                    sm_scale=None, window: Optional[int] = None,
+                    logit_soft_cap=None):
+    """Quantized paged MLA decode (ops.py:575): packed latent and rope pools
+    with a per-token scale pool each (shapes in kernels/mla_paged_quant.py)."""
+    args = (q_lat, q_pe, ckv_pages, kpe_pages, ckv_scales, kpe_scales,
+            block_tables, seq_lens)
+    if logit_soft_cap is not None:
+        return ref.mla_paged_quant(*args, fmt=fmt, sm_scale=sm_scale,
+                                   window=window, logit_soft_cap=logit_soft_cap)
+    return _mpq.mla_paged_quant(*args, fmt=fmt, sm_scale=sm_scale, window=window)
+
+
+def mla_prefill_quant(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
+                      ckv_scales, kpe_scales, block_tables, start_lens,
+                      chunk_lens, *, fmt: str = "int8", sm_scale=None,
+                      window: Optional[int] = None, logit_soft_cap=None):
+    """Quantized MLA chunked prefill (ops.py:611): the chunk's latent and
+    rope rows are quantized per token here, the write-time quantization
+    point, with scales in the scale pools' dtype; then the kernel (or the
+    plain path) attends the dequantized round trip and writes packed bytes
+    plus both scales into the four pools in place.  Returns ``(out,
+    ckv_pages, kpe_pages, ckv_scales, kpe_scales)``."""
+    cq, cs = ref.quantize_rows(ckv_new, fmt)
+    pq, ps = ref.quantize_rows(kpe_new, fmt)
+    args = (q_lat, q_pe, cq, pq, cs.to(ckv_scales.dtype), ps.to(kpe_scales.dtype),
+            ckv_pages, kpe_pages, ckv_scales, kpe_scales, block_tables,
+            start_lens, chunk_lens)
+    if _prefill_takes_kernel(q_lat.shape[2], ckv_pages.shape[1],
+                             block_tables.shape[1], logit_soft_cap):
+        return _mfq.mla_prefill_quant(*args, fmt=fmt, sm_scale=sm_scale,
+                                      window=window)
+    return ref.paged_mla_prefill_quant(*args, fmt=fmt, sm_scale=sm_scale,
+                                       window=window,
+                                       logit_soft_cap=logit_soft_cap)
 
 
 def rmsnorm(x, weight, eps: float = 1e-6):

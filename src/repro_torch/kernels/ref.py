@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the kernels on the serving path.
 
 Counterparts of ``repro.kernels.ref``: ``paged_attention`` (ref.py:286),
-``prefill_attention`` (:343), ``rmsnorm`` (:664) and the KV quantization
-primitives with ``paged_attention_quant`` (:115-172), op for op.  They are
+``prefill_attention`` (:343), ``rmsnorm`` (:664), the KV quantization
+primitives with ``paged_attention_quant`` (:115-172) and the latent (MLA)
+oracles ``mla_paged`` (:454), ``mla_prefill`` (:480) and
+``mla_paged_quant`` (:174), op for op.  They are
 the oracles the CUDA kernels are held against on the card, and the path
 every CPU tensor takes.  Scores, softmax and the P.V product run in fp32
 whatever the input dtype; the result is cast back to ``out_dtype`` (default:
@@ -285,6 +287,184 @@ def paged_prefill_attention_quant(q, k_q, v_q, k_s, v_s, k_pages, v_pages,
         sm_scale=sm_scale, window=window, logit_soft_cap=logit_soft_cap,
     )
     return out, k_pages, v_pages, k_scales, v_scales
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (MLA): every query head attends one shared
+# latent (R) plus a rotary part (Dpe); V is the latent itself.  Pools carry
+# no head axis: (P, page_size, R) and (P, page_size, Dpe).
+# ---------------------------------------------------------------------------
+
+
+def mla_masked(q_lat, q_pe, c_kv, k_pe, kv_len, sm_scale: float,
+               window: Optional[int] = None,
+               logit_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """Latent decode attention under a length mask (ref.py:422): scores
+    ``q_lat.c_kv + q_pe.k_pe`` in fp32, scaled then capped, and the float32
+    latent output (B, H, R).  A slot with no live key emits zeros, as the
+    kernels' safe_div does (the reference's XLA softmax would give NaN
+    there; decode never asks, its lengths are at least 1)."""
+    scores = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c_kv.float())
+              + torch.einsum("bhp,bsp->bhs", q_pe.float(), k_pe.float())) * sm_scale
+    if logit_soft_cap is not None:
+        scores = logit_soft_cap * torch.tanh(scores / logit_soft_cap)
+    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=scores.device)
+    lens = lens.expand(scores.shape[0])
+    ki = torch.arange(c_kv.shape[1], dtype=torch.int32, device=scores.device)
+    mask = ki[None, None, :] < lens[:, None, None]
+    if window is not None:
+        mask = mask & (ki[None, None, :] >= (lens[:, None, None] - window))
+    scores = torch.where(mask, scores, _NEG)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m) * mask
+    p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    return torch.einsum("bhs,bsr->bhr", p, c_kv.float())
+
+
+def mla_paged(q_lat, q_pe, ckv_pages, kpe_pages, block_tables, seq_lens,
+              sm_scale: Optional[float] = None, window: Optional[int] = None,
+              logit_soft_cap: Optional[float] = None,
+              out_dtype=None) -> torch.Tensor:
+    """Paged MLA decode (ref.py:454): ``q_lat`` (B, H, R) and ``q_pe`` (B,
+    H, Dpe) against the latent and rope pages of each slot's table row,
+    gathered into logical order, then :func:`mla_masked`."""
+    b, _, r = q_lat.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(r + q_pe.shape[-1])
+    tables = block_tables.long()
+    ckv = ckv_pages[tables].reshape(b, -1, r)
+    kpe = kpe_pages[tables].reshape(b, -1, kpe_pages.shape[-1])
+    out = mla_masked(q_lat, q_pe, ckv, kpe, seq_lens, sm_scale, window=window,
+                     logit_soft_cap=logit_soft_cap)
+    return out.to(out_dtype or q_lat.dtype)
+
+
+def mla_paged_quant(q_lat, q_pe, ckv_pages, kpe_pages, ckv_scales, kpe_scales,
+                    block_tables, seq_lens, fmt: str = "int8",
+                    sm_scale: Optional[float] = None,
+                    window: Optional[int] = None,
+                    logit_soft_cap: Optional[float] = None,
+                    out_dtype=None) -> torch.Tensor:
+    """Quantized paged MLA decode (ref.py:174): both pools packed ((P, ps,
+    R // pack) and (P, ps, Dpe // pack) int8) with their own (P, ps, 1)
+    scales, dequantized and rounded to the query's dtype, then
+    :func:`mla_paged`."""
+    ckv = dequantize_rows(ckv_pages, ckv_scales, fmt).to(q_lat.dtype)
+    kpe = dequantize_rows(kpe_pages, kpe_scales, fmt).to(q_lat.dtype)
+    return mla_paged(q_lat, q_pe, ckv, kpe, block_tables, seq_lens,
+                     sm_scale=sm_scale, window=window,
+                     logit_soft_cap=logit_soft_cap, out_dtype=out_dtype)
+
+
+def mla_prefill(q_lat, q_pe, ckv_new, kpe_new, ckv_ctx, kpe_ctx, ctx_pos,
+                q_pos, chunk_lens, sm_scale: Optional[float] = None,
+                window: Optional[int] = None,
+                logit_soft_cap: Optional[float] = None,
+                out_dtype=None) -> torch.Tensor:
+    """MLA chunked-prefill oracle (ref.py:480): ``q_lat``/``q_pe`` (B, H,
+    C, ·) attend ``softmax([scores_ctx ; scores_new])`` over the prior
+    latents ``ckv_ctx``/``kpe_ctx`` (B, S, ·) and the chunk's own
+    ``ckv_new``/``kpe_new`` (B, C, ·), the latent as V.  The masks are
+    :func:`prefill_attention`'s: context validity, causality and the window
+    from ``ctx_pos``/``q_pos``, the chunk causal and ragged on
+    ``chunk_lens``; a row with no valid key emits zeros."""
+    b, h, c, r = q_lat.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(r + q_pe.shape[-1])
+    qf, qpef = q_lat.float(), q_pe.float()
+
+    def scores_of(kv, pe):
+        s = (torch.einsum("bhcr,bsr->bhcs", qf, kv.float())
+             + torch.einsum("bhcp,bsp->bhcs", qpef, pe.float())) * sm_scale
+        if logit_soft_cap is not None:
+            s = logit_soft_cap * torch.tanh(s / logit_soft_cap)
+        return s
+
+    s_ctx = scores_of(ckv_ctx, kpe_ctx)  # (B, H, C, S)
+    s_new = scores_of(ckv_new, kpe_new)  # (B, H, C, C)
+    qp = q_pos.to(torch.int32)
+    cp = ctx_pos.to(torch.int32)
+    lens = chunk_lens.to(torch.int32)
+    m_ctx = (cp[:, None, :] >= 0) & (cp[:, None, :] <= qp[:, :, None])
+    ci = torch.arange(c, dtype=torch.int32, device=q_lat.device)
+    m_new = (ci[None, None, :] <= ci[None, :, None]) & (
+        ci[None, None, :] < lens[:, None, None])
+    if window is not None:
+        m_ctx = m_ctx & ((qp[:, :, None] - cp[:, None, :]) < window)
+        m_new = m_new & ((ci[None, :, None] - ci[None, None, :]) < window)
+    mask = torch.cat([m_ctx.expand(b, c, s_ctx.shape[-1]),
+                      m_new.expand(b, c, c)], dim=-1)[:, None]  # (B, 1, C, S+C)
+    scores = torch.where(mask, torch.cat([s_ctx, s_new], dim=-1), _NEG)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m) * mask
+    p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    v_all = torch.cat([ckv_ctx.float(), ckv_new.float()], dim=1)
+    out = torch.einsum("bhcs,bsr->bhcr", p, v_all)
+    return out.to(out_dtype or q_lat.dtype)
+
+
+def paged_mla_prefill(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
+                      block_tables, start_lens, chunk_lens, *, sm_scale=None,
+                      window: Optional[int] = None, logit_soft_cap=None):
+    """The plain MLA chunked-prefill path over the latent pools: the XLA
+    branch of ``repro.kernels.ops.mla_prefill`` (ops.py:545-566).
+
+    Scatters the chunk's latent and rope rows into the pools **in place**
+    (the logical page clamped to ``max_pages - 1``, the dead chunk tail sent
+    to page 0), then :func:`mla_prefill` over the gathered pages.  Returns
+    ``(out (B, H, C, R), ckv_pages, kpe_pages)``, the pools as given."""
+    b, h, chunk, r = q_lat.shape
+    num_pages, page_size, _ = ckv_pages.shape
+    keep, phys, off, pos = _chunk_scatter_index(
+        start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
+    ckv_pages[phys[keep], off[keep]] = ckv_new[keep].to(ckv_pages.dtype)
+    kpe_pages[phys[keep], off[keep]] = kpe_new[keep].to(kpe_pages.dtype)
+    tables = block_tables.long()
+    ckv_ctx = ckv_pages[tables].reshape(b, -1, r)
+    kpe_ctx = kpe_pages[tables].reshape(b, -1, kpe_pages.shape[-1])
+    out = mla_prefill(
+        q_lat, q_pe, ckv_new, kpe_new, ckv_ctx, kpe_ctx,
+        _context_positions(start_lens, ckv_ctx.shape[1]), pos, chunk_lens,
+        sm_scale=sm_scale, window=window, logit_soft_cap=logit_soft_cap)
+    return out, ckv_pages, kpe_pages
+
+
+def paged_mla_prefill_quant(q_lat, q_pe, ckv_q, kpe_q, ckv_s, kpe_s,
+                            ckv_pages, kpe_pages, ckv_scales, kpe_scales,
+                            block_tables, start_lens, chunk_lens, *,
+                            fmt="int8", sm_scale=None,
+                            window: Optional[int] = None,
+                            logit_soft_cap=None):
+    """The plain quantized MLA chunked-prefill path: the XLA branch of
+    ``repro.kernels.ops.mla_prefill_quant`` (ops.py:651-681).
+
+    The chunk arrives quantized: ``ckv_q`` (B, C, R // pack) and ``kpe_q``
+    (B, C, Dpe // pack) int8 with their (B, C, 1) scales.  Packed bytes and
+    scales are scattered into the four pools **in place**, then every chunk
+    query attends the dequantized gather of its prior pages plus the chunk's
+    own dequantized round trip, all rounded to the query's dtype.  Returns
+    ``(out, ckv_pages, kpe_pages, ckv_scales, kpe_scales)``."""
+    b, h, chunk, r = q_lat.shape
+    num_pages, page_size, _ = ckv_pages.shape
+    keep, phys, off, pos = _chunk_scatter_index(
+        start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
+    for pool, new in ((ckv_pages, ckv_q), (kpe_pages, kpe_q),
+                      (ckv_scales, ckv_s), (kpe_scales, kpe_s)):
+        pool[phys[keep], off[keep]] = new[keep].to(pool.dtype)
+    tables = block_tables.long()
+
+    def gathered(pages, scales):  # (B, max_pages, ps, .) -> (B, S, .)
+        g = dequantize_rows(pages[tables], scales[tables], fmt).to(q_lat.dtype)
+        return g.reshape(b, -1, g.shape[-1])
+
+    ckv_ctx = gathered(ckv_pages, ckv_scales)
+    out = mla_prefill(
+        q_lat, q_pe, dequantize_rows(ckv_q, ckv_s, fmt).to(q_lat.dtype),
+        dequantize_rows(kpe_q, kpe_s, fmt).to(q_lat.dtype), ckv_ctx,
+        gathered(kpe_pages, kpe_scales),
+        _context_positions(start_lens, ckv_ctx.shape[1]), pos, chunk_lens,
+        sm_scale=sm_scale, window=window, logit_soft_cap=logit_soft_cap)
+    return out, ckv_pages, kpe_pages, ckv_scales, kpe_scales
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Model layers of the dense GQA decoder (plain functions over parameter
-dicts), the port's counterpart of the dense subset of ``repro.models.layers``.
+"""Model layers of the dense GQA decoder and of the MLA + MoE decoder (plain
+functions over parameter dicts), the port's counterpart of the serving
+subset of ``repro.models.layers``: GQA and multi-head latent attention over
+paged pools, the dense MLP and the capacity-dispatched mixture of experts.
 
 Parameters are plain dicts of tensors with the reference's tree layout.
 Paged KV pools are updated **in place**: where the reference returned new
@@ -268,6 +270,182 @@ def attention_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables,
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2) over latent page pools
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ModelConfig) -> Params:
+    """layers.py:411: the latent down-projection ``w_dkv``, the rope key
+    ``w_kpe``, the up-projections ``w_uk``/``w_uv`` (absorbed into the query
+    and the output at serving time), ``w_o``, a full-rank ``w_q`` and the
+    latent's norm."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dt = dtype_of(cfg)
+    qd = h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return {
+        "w_dkv": _dense_init(gen, (d, m.kv_lora_rank), dt),
+        "w_kpe": _dense_init(gen, (d, m.qk_rope_head_dim), dt),
+        "w_uk": _dense_init(gen, (m.kv_lora_rank, h * m.qk_nope_head_dim), dt),
+        "w_uv": _dense_init(gen, (m.kv_lora_rank, h * m.v_head_dim), dt),
+        "w_o": _dense_init(gen, (h * m.v_head_dim, d), dt),
+        "w_q": _dense_init(gen, (d, qd), dt),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dt, device=gen.device),
+    }
+
+
+def init_mla_paged_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
+                         device, layers: Optional[int] = None):
+    """Latent page pools (layers.py:468): the latent is shared by every
+    query head, so pages carry no head axis: ``ckv_pages`` (num_blocks,
+    page_size, rank) and ``kpe_pages`` (num_blocks, page_size, rope_dim),
+    stacked over ``layers`` in front when given, zero-filled.  With
+    ``cfg.kv_dtype`` both hold packed int8 bytes (last axis divided by the
+    pack factor) plus ``ckv_scale_pages``/``kpe_scale_pages`` (..., page_size,
+    1) in the model's dtype; every leaf keeps its page axis at ``ndim - 3``."""
+    m = cfg.mla
+    lead = (layers,) if layers is not None else ()
+    dt = dtype_of(cfg)
+    if cfg.kv_dtype is not None:
+        pack = ref.KV_PACK[cfg.kv_dtype]
+        page = lead + (num_blocks, page_size)
+        return {
+            "ckv_pages": torch.zeros(page + (m.kv_lora_rank // pack,),
+                                     dtype=torch.int8, device=device),
+            "kpe_pages": torch.zeros(page + (m.qk_rope_head_dim // pack,),
+                                     dtype=torch.int8, device=device),
+            "ckv_scale_pages": torch.zeros(page + (1,), dtype=dt, device=device),
+            "kpe_scale_pages": torch.zeros(page + (1,), dtype=dt, device=device),
+        }
+    page = lead + (num_blocks, page_size)
+    return {
+        "ckv_pages": torch.zeros(page + (m.kv_lora_rank,), dtype=dt, device=device),
+        "kpe_pages": torch.zeros(page + (m.qk_rope_head_dim,), dtype=dt,
+                                 device=device),
+    }
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def _mla_absorbed_q(params, q_nope, cfg: ModelConfig):
+    """Absorb W_uk into the queries (layers.py:494): latent-space scoring,
+    in fp32."""
+    m = cfg.mla
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, cfg.num_heads,
+                                  m.qk_nope_head_dim)
+    return torch.einsum("...hn,rhn->...hr", q_nope.float(), w_uk.float())
+
+
+def _mla_out_proj(params, out_lat, x_dtype, cfg: ModelConfig):
+    """Expand latent outputs through W_uv in fp32, cast to the activations'
+    dtype, then project with W_o (layers.py:503)."""
+    m = cfg.mla
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, cfg.num_heads, m.v_head_dim)
+    out = torch.einsum("...hr,rhv->...hv", out_lat.float(), w_uv.float())
+    out = out.reshape(*out.shape[:-2], cfg.num_heads * m.v_head_dim)
+    return out.to(x_dtype) @ params["w_o"]
+
+
+def _mla_decode_qkv(params, x, cfg: ModelConfig, posv):
+    """Single-token MLA projections (layers.py:539): ``q_nope`` (B, H,
+    nope), rotated ``q_pe`` (B, H, rope), the token's latent ``c_kv`` (B, R)
+    and rotated rope key ``k_pe`` (B, 1, rope)."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.num_heads
+    q = (x @ params["w_q"]).reshape(b, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_pe = apply_rope(q_pe.reshape(b, 1, h, m.qk_rope_head_dim), posv,
+                      cfg.rope_theta).reshape(b, h, m.qk_rope_head_dim)
+    c_kv = rmsnorm(x[:, 0] @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope((x[:, 0] @ params["w_kpe"]).reshape(b, 1, -1), posv,
+                      cfg.rope_theta)
+    return q_nope, q_pe, c_kv, k_pe
+
+
+def mla_decode_paged(params, x, cfg: ModelConfig, cache, pos, tables,
+                     window=None, append=None):
+    """One-token MLA decode against the latent page pools (layers.py:563).
+
+    The token's latent and rope entries are scattered **in place** into the
+    page holding ``pos`` (``append``: a precomputed
+    :func:`decode_append_index`; a write JAX drops lands in the sink page 0),
+    then the absorbed queries attend the slot's pages under a ragged length
+    mask.  With ``cfg.kv_dtype`` both entries are quantized per token and
+    their packed bytes and scales land in the four pools.  Returns the
+    output projection (B, 1, d)."""
+    q_nope, q_pe, c_kv, k_pe = _mla_decode_qkv(params, x, cfg, pos[:, None])
+    ckv, kpe = cache["ckv_pages"], cache["kpe_pages"]
+    if append is None:
+        append = decode_append_index(pos, tables, ckv.shape[1], ckv.shape[0])
+    phys, off = append
+    dt = dtype_of(cfg)
+    q_lat = _mla_absorbed_q(params, q_nope, cfg).to(dt)
+    lens = (pos + 1).to(torch.int32)
+    kw = dict(sm_scale=_mla_scale(cfg), window=window,
+              logit_soft_cap=cfg.logit_soft_cap)
+    if cfg.kv_dtype is not None:
+        cs_pool, ps_pool = cache["ckv_scale_pages"], cache["kpe_scale_pages"]
+        cq, cs = ref.quantize_rows(c_kv, cfg.kv_dtype)
+        pq, ps = ref.quantize_rows(k_pe[:, 0], cfg.kv_dtype)
+        for pool, new in ((ckv, cq), (kpe, pq), (cs_pool, cs), (ps_pool, ps)):
+            pool[phys, off] = new.to(pool.dtype)
+        out = ops.mla_paged_quant(q_lat, q_pe.to(dt), ckv, kpe, cs_pool,
+                                  ps_pool, tables, lens, fmt=cfg.kv_dtype, **kw)
+    else:
+        ckv[phys, off] = c_kv.to(ckv.dtype)
+        kpe[phys, off] = k_pe[:, 0].to(kpe.dtype)
+        out = ops.mla_paged(q_lat, q_pe.to(dt), ckv, kpe, tables, lens, **kw)
+    return _mla_out_proj(params, out, x.dtype, cfg)[:, None]
+
+
+def _mla_prefill_qkv(params, x, cfg: ModelConfig, posmat):
+    """Chunk-wide MLA projections (layers.py:612): absorbed ``q_lat`` (B, H,
+    C, R) in fp32, rotated ``q_pe`` (B, H, C, rope), the chunk's latents
+    ``c_kv`` (B, C, R) and rope keys ``k_pe`` (B, C, rope)."""
+    m = cfg.mla
+    b, c, _ = x.shape
+    h = cfg.num_heads
+    q = (x @ params["w_q"]).reshape(b, c, h,
+                                    m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_pe = apply_rope(q_pe, posmat, cfg.rope_theta)
+    c_kv = rmsnorm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(x @ params["w_kpe"], posmat, cfg.rope_theta)
+    q_lat = _mla_absorbed_q(params, q_nope, cfg)
+    return q_lat.transpose(1, 2), q_pe.transpose(1, 2), c_kv, k_pe
+
+
+def mla_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables, lens,
+                      window=None):
+    """Chunk-wide MLA prefill against the latent page pools (layers.py:635):
+    the chunk's latents land in the pages holding ``[pos, pos + lens)`` in
+    place (inside the CUDA kernel, or by the plain path's masked scatter) and
+    every chunk query attends prior pages plus the chunk causally, in latent
+    space.  With ``cfg.kv_dtype`` the chunk is quantized and attended as its
+    dequantized round trip.  Returns the output projection (B, C, d)."""
+    c = x.shape[1]
+    posmat = pos[:, None] + torch.arange(c, dtype=torch.int32, device=x.device)
+    q_lat, q_pe, c_kv, k_pe = _mla_prefill_qkv(params, x, cfg, posmat)
+    dt = dtype_of(cfg)
+    args = (q_lat.to(dt), q_pe.to(dt), c_kv, k_pe, cache["ckv_pages"],
+            cache["kpe_pages"])
+    starts, lens = pos.to(torch.int32), lens.to(torch.int32)
+    kw = dict(sm_scale=_mla_scale(cfg), window=window,
+              logit_soft_cap=cfg.logit_soft_cap)
+    if cfg.kv_dtype is not None:
+        out = ops.mla_prefill_quant(
+            *args, cache["ckv_scale_pages"], cache["kpe_scale_pages"], tables,
+            starts, lens, fmt=cfg.kv_dtype, **kw)[0]
+    else:
+        out = ops.mla_prefill(*args, tables, starts, lens, **kw)[0]
+    return _mla_out_proj(params, out.transpose(1, 2), x.dtype, cfg)
+
+
+# ---------------------------------------------------------------------------
 # MLP (dense)
 # ---------------------------------------------------------------------------
 
@@ -299,3 +477,92 @@ def mlp(params: Params, x, cfg: ModelConfig):
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: GShard-style capacity dispatch
+# ---------------------------------------------------------------------------
+
+
+def init_moe(gen, cfg: ModelConfig) -> Params:
+    """layers.py:748: an fp32 router (whatever the model's dtype), expert
+    SiLU-gated MLPs stacked over experts, and the shared experts' MLP."""
+    mo = cfg.moe
+    d, fe, e = cfg.d_model, mo.d_ff_expert, mo.num_experts
+    dt = dtype_of(cfg)
+    p = {
+        "router": _dense_init(gen, (d, e), torch.float32),
+        "w_gate": _dense_init(gen, (e, d, fe), dt),
+        "w_up": _dense_init(gen, (e, d, fe), dt),
+        "w_down": _dense_init(gen, (e, fe, d), dt),
+    }
+    if mo.num_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, d_ff=mo.num_shared_experts * fe)
+    return p
+
+
+def _moe_groups(t: int, batch: int) -> int:
+    """Dispatch-group count (layers.py:764): the largest of 16, 8, 4, 2 that
+    divides the token count, else 1."""
+    for g in (16, 8, 4, 2):
+        if t % g == 0 and t // g >= 1:
+            return g
+    return 1
+
+
+def top_k(x, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values, largest
+    first, ties broken toward the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(params: Params, x, cfg: ModelConfig):
+    """Capacity-based top-k routing with grouped dispatch (layers.py:773).
+    Returns ``(output, aux_loss)``.
+
+    The tokens split into G groups (:func:`_moe_groups`); each group routes
+    through the fp32 router, keeps its top k experts per token (gates
+    renormalised), and places each (token, choice) at its position in the
+    expert's queue, counted over (token, choice) in token-major order.  A
+    choice at or past the capacity ``int(capacity_factor * tokens_per_group
+    * k / E)`` (at least 1) is dropped: it still lands in the expert's last
+    slot, as a zero row, and its gate is zeroed.  The expert products run
+    over every expert's (group, capacity) buffer, and the shared experts'
+    MLP is added on all tokens.  All shapes are static and nothing waits for
+    the host: the dispatch is a ``scatter_add_`` (each slot takes one
+    nonzero row, so the sum is exact) and the combine a ``gather``."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = mo.num_experts, mo.experts_per_token
+    g = _moe_groups(t, b)
+    tg = t // g
+    cap = max(1, int(mo.capacity_factor * tg * k / e))
+    xg = x.reshape(g, tg, d)
+    logits = xg.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = top_k(probs, k)  # (G, tg, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    # position of each (token, choice) within its expert's queue, per group
+    experts = torch.arange(e, device=x.device)
+    flat = (gate_idx.reshape(g, tg * k)[..., None] == experts).long()  # (G, tg*k, E)
+    pos = ((flat.cumsum(dim=1) - flat) * flat).sum(dim=-1)  # (G, tg*k)
+    keep = (pos < cap).to(x.dtype)
+    dest = gate_idx.reshape(g, tg * k) * cap + pos.clamp(0, cap - 1)
+    dest = dest[..., None].expand(g, tg * k, d)
+    updates = (xg[:, :, None, :] * keep.reshape(g, tg, k, 1)).reshape(g, tg * k, d)
+    expert_in = torch.zeros((g, e * cap, d), dtype=x.dtype, device=x.device)
+    expert_in = expert_in.scatter_add_(1, dest, updates).reshape(g, e, cap, d)
+    h = (F.silu(torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"]))
+         * torch.einsum("gecd,edf->gecf", expert_in, params["w_up"]))
+    expert_out = torch.einsum("gecf,efd->gecd", h, params["w_down"])
+    gathered = torch.gather(expert_out.reshape(g, e * cap, d), 1, dest)
+    wts = (gate_vals.reshape(g, tg * k) * keep)[..., None].to(gathered.dtype)
+    out = (gathered * wts).reshape(g, tg, k, d).sum(dim=2).reshape(t, d)
+    if "shared" in params:
+        out = out + mlp(params["shared"], x.reshape(t, d), cfg)
+    # load-balance auxiliary loss (Switch-style)
+    density = (gate_idx[..., 0, None] == experts).float().mean(dim=(0, 1))
+    aux = (density * probs.mean(dim=(0, 1))).sum() * e * mo.router_aux_weight
+    return out.reshape(b, s, d).to(x.dtype), aux

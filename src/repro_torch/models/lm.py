@@ -1,16 +1,19 @@
-"""Decoder-only language model, dense GQA family: the port's counterpart of
-``repro.models.lm`` for the serving path.
+"""Decoder-only language model, dense GQA and MLA + MoE families: the
+port's counterpart of ``repro.models.lm`` for the serving path.
 
 Parameters are a plain dict with the reference's tree layout
-(``lm.init``, lm.py:61): ``embed``, ``prefix_layers`` (empty for the dense
-family), ``layers`` with every leaf stacked over layers in front, and
+(``lm.init``, lm.py:61): ``embed``, ``prefix_layers`` (a list of unstacked
+blocks: DeepSeek-V2's first, dense-FFN layer; empty for the dense family),
+``layers`` with every leaf stacked over the remaining layers in front, and
 ``final_norm``.  A Python loop over layers takes the place of
-``jax.lax.scan``.  The paged KV pools live in :class:`Cache` and are
-updated **in place** by :func:`decode_step`, :func:`prefill_step` and
+``jax.lax.scan``.  The paged pools live in :class:`Cache` and are updated
+**in place** by :func:`decode_step`, :func:`prefill_step` and
 :func:`copy_pages` (the reference donated them and returned new ones).
 
-Only ``family == "dense"`` with GQA attention runs; the other families raise
-``NotImplementedError`` naming their ROADMAP Queue 1 item.
+Two families run: ``family == "dense"`` with GQA attention
+(``qwen2_1_5b``), and ``family == "moe"`` with MLA attention
+(``deepseek_v2_lite_16b``); the others raise ``NotImplementedError`` naming
+their ROADMAP Queue 1 item.
 """
 from __future__ import annotations
 
@@ -24,23 +27,24 @@ from .config import ModelConfig
 
 # Families not ported yet -> the ROADMAP Queue 1 item that ports them.
 _NOT_PORTED = {
-    "mla": "item 13 (MLA serving)",
     "ssm": "item 15 (SSM and hybrid)",
     "hybrid": "item 15 (SSM and hybrid)",
-    "moe": "item 16 (MoE, encoder-decoder and frontends)",
-    "vlm": "item 16 (MoE, encoder-decoder and frontends)",
-    "audio": "item 16 (MoE, encoder-decoder and frontends)",
+    "moe": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
+    "vlm": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
+    "audio": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
 }
+_PORTED = {("dense", "gqa"), ("moe", "mla")}
 
 
 def require_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder."""
-    if cfg.attention == "mla":
-        item = _NOT_PORTED["mla"]
-    elif cfg.family != "dense" or cfg.attention != "gqa" or cfg.is_encoder_decoder:
-        item = _NOT_PORTED.get(cfg.family, "item 16")
-    else:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder
+    or an MLA + MoE decoder."""
+    if (cfg.family, cfg.attention) in _PORTED and not cfg.is_encoder_decoder:
         return
+    if cfg.attention == "mla":
+        item = "item 13 (MLA serving, ported with MoE only)"
+    else:
+        item = _NOT_PORTED.get(cfg.family, "item 16")
     raise NotImplementedError(
         f"{cfg.name} (family={cfg.family}, attention={cfg.attention}) is not "
         f"ported to PyTorch yet: ROADMAP Queue 1 {item}")
@@ -51,18 +55,47 @@ def require_supported(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _init_block(gen, cfg: ModelConfig) -> Dict:
+def _init_block(gen, cfg: ModelConfig, dense_ffn: bool) -> Dict:
+    """One block (lm.py:34): attention (GQA or MLA) and its FFN: the MoE,
+    or a dense MLP (an MoE model's dense prefix layer widened to the active
+    experts' width, lm.py:51-57)."""
     dt = L.dtype_of(cfg)
-    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
-    return {"norm1": ones(), "attn": L.init_attention(gen, cfg),
-            "norm2": ones(), "mlp": L.init_mlp(gen, cfg)}
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)  # noqa: E731
+    attn = L.init_mla(gen, cfg) if cfg.attention == "mla" else L.init_attention(gen, cfg)
+    p = {"norm1": ones(), "attn": attn, "norm2": ones()}
+    mo = cfg.moe
+    if mo is not None and mo.num_experts and not dense_ffn:
+        p["moe"] = L.init_moe(gen, cfg)
+    elif cfg.d_ff:
+        p["mlp"] = L.init_mlp(gen, cfg)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, d_ff=mo.d_ff_expert * max(
+            mo.experts_per_token + mo.num_shared_experts, 1))
+    return p
 
 
-def _stack(trees: List[Dict]) -> Dict:
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _init_stacked(gen, cfg: ModelConfig, n: int) -> Dict:
+    """``n`` blocks with every leaf stacked over them in front.  Each block
+    is drawn and copied into preallocated stacked leaves, so at full width
+    the peak holds one copy of the weights plus one block, not two copies."""
+    stacked = None
+    for i in range(n):
+        block = _init_block(gen, cfg, dense_ffn=False)
+        if stacked is None:
+            stacked = _tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), block)
+        _tree_map(lambda dst, src: dst[i].copy_(src), stacked, block)
+    return stacked
+
+
+def num_prefix_layers(cfg: ModelConfig) -> int:
+    """Unstacked dense-FFN layers in front (DeepSeek-V2's first layer)."""
+    return cfg.moe.first_dense_layers if cfg.moe else 0
 
 
 def init(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
@@ -81,9 +114,10 @@ def init(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
     else:
         gen = torch.Generator(device=dev).manual_seed(int(key))
     params: Dict[str, Any] = {"embed": L.init_embedding(gen, cfg)}
-    params["prefix_layers"] = []
-    params["layers"] = _stack([_init_block(gen, cfg)
-                               for _ in range(cfg.num_layers)])
+    n_prefix = num_prefix_layers(cfg)
+    params["prefix_layers"] = [_init_block(gen, cfg, dense_ffn=True)
+                               for _ in range(n_prefix)]
+    params["layers"] = _init_stacked(gen, cfg, cfg.num_layers - n_prefix)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=L.dtype_of(cfg),
                                       device=dev)
     return params
@@ -100,10 +134,18 @@ def param_count(params) -> int:
 
 
 def layer_params(params, i: int) -> Dict:
-    """Layer ``i``'s parameters: views into the stacked leaves."""
+    """Stacked layer ``i``'s parameters: views into the stacked leaves."""
     def pick(t):
         return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) else t[i]
     return pick(params["layers"])
+
+
+def blocks(params) -> List[Dict]:
+    """Every layer's parameters in order: the prefix layers, then views
+    into the stacked ones."""
+    n = params["layers"]["norm1"].shape[0]
+    return list(params["prefix_layers"]) + [layer_params(params, i)
+                                            for i in range(n)]
 
 
 def static_windows(cfg: ModelConfig) -> List[Optional[int]]:
@@ -134,13 +176,17 @@ def _soft_cap(cfg: ModelConfig, logits):
 
 
 class Cache:
-    """Paged decode cache: per-layer page pools stacked over layers, plus
-    the (B, max_pages) int32 block table.
+    """Paged decode cache: per-layer page pools stacked over all layers
+    (prefix layers included: they share the pools' shapes), plus the (B,
+    max_pages) int32 block table.
 
-    ``kv`` holds ``k_pages``/``v_pages`` of shape (L, Hkv, P, page_size, D)
-    or, with ``cfg.kv_dtype``, packed int8 pools (L, Hkv, P, page_size,
-    D // pack) plus ``k_scale_pages``/``v_scale_pages`` (L, Hkv, P,
-    page_size, 1); every leaf has its page axis at ``ndim - 3``, as in the
+    For GQA, ``kv`` holds ``k_pages``/``v_pages`` of shape (L, Hkv, P,
+    page_size, D) or, with ``cfg.kv_dtype``, packed int8 pools (L, Hkv, P,
+    page_size, D // pack) plus ``k_scale_pages``/``v_scale_pages`` (L, Hkv,
+    P, page_size, 1).  For MLA it holds the latent and rope pools
+    ``ckv_pages`` (L, P, page_size, R) and ``kpe_pages`` (L, P, page_size,
+    Dpe), packed with ``ckv_scale_pages``/``kpe_scale_pages`` when
+    quantized.  Every leaf has its page axis at ``ndim - 3``, as in the
     reference.  Steps write the pools in place; :meth:`with_tables` swaps in
     a refreshed table (the host-side allocation lives in
     serving/paged_cache.py)."""
@@ -154,7 +200,8 @@ class Cache:
 
     @property
     def num_pages(self) -> int:
-        return self.kv["k_pages"].shape[2]
+        leaf = next(t for name, t in self.kv.items() if name.endswith("_pages"))
+        return leaf.shape[leaf.ndim - 3]
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s pools: views, so writes land in the stacked pools."""
@@ -183,8 +230,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     max_pages = -(-max_len // page_size)
     if num_blocks is None:
         num_blocks = batch * max_pages
-    kv = L.init_paged_kv_cache(cfg, num_blocks, page_size, dev,
-                               layers=cfg.num_layers)
+    init_pools = (L.init_mla_paged_cache if cfg.attention == "mla"
+                  else L.init_paged_kv_cache)
+    kv = init_pools(cfg, num_blocks, page_size, dev, layers=cfg.num_layers)
     tables = torch.zeros((batch, max_pages), dtype=torch.int32, device=dev)
     return Cache(kv, max_len, page_size, tables)
 
@@ -207,9 +255,12 @@ def copy_pages(cache: Cache, src, dst) -> Cache:
 
 
 def _block(p, x, cfg, attend):
+    """One block (lm.py:487, :657): attention, then the MoE or the MLP."""
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     x = x + attend(p["attn"], h)
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+    if "moe" in p:
+        return x + L.moe(p["moe"], h2, cfg)[0]
     return x + L.mlp(p["mlp"], h2, cfg)
 
 
@@ -230,12 +281,16 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
     rf = rope_fraction(cfg)
     tables = cache.tables
     append = L.decode_append_index(pos, tables, cache.page_size, cache.num_pages)
-    for i in range(cfg.num_layers):
+    for i, p in enumerate(blocks(params)):
         pools = cache.layer(i)
-        x = _block(layer_params(params, i), x, cfg,
-                   lambda pa, h: L.attention_decode_paged(
-                       pa, h, cfg, pools, pos, tables, window=wlist[i],
-                       rope_fraction=rf, append=append))
+        if cfg.attention == "mla":
+            attend = lambda pa, h: L.mla_decode_paged(  # noqa: E731
+                pa, h, cfg, pools, pos, tables, window=wlist[i], append=append)
+        else:
+            attend = lambda pa, h: L.attention_decode_paged(  # noqa: E731
+                pa, h, cfg, pools, pos, tables, window=wlist[i],
+                rope_fraction=rf, append=append)
+        x = _block(p, x, cfg, attend)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)[:, 0]
     return _soft_cap(cfg, logits), cache
@@ -296,12 +351,16 @@ def _prefill_trunk(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
     x = L.embed(params["embed"], tokens).to(L.dtype_of(cfg))
     wlist = static_windows(cfg)
     rf = rope_fraction(cfg)
-    for i in range(cfg.num_layers):
+    for i, p in enumerate(blocks(params)):
         pools = cache.layer(i)
-        x = _block(layer_params(params, i), x, cfg,
-                   lambda pa, h: L.attention_prefill_paged(
-                       pa, h, cfg, pools, pos, cache.tables, lens,
-                       window=wlist[i], rope_fraction=rf))
+        if cfg.attention == "mla":
+            attend = lambda pa, h: L.mla_prefill_paged(  # noqa: E731
+                pa, h, cfg, pools, pos, cache.tables, lens, window=wlist[i])
+        else:
+            attend = lambda pa, h: L.attention_prefill_paged(  # noqa: E731
+                pa, h, cfg, pools, pos, cache.tables, lens, window=wlist[i],
+                rope_fraction=rf)
+        x = _block(p, x, cfg, attend)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), lens
 
 

@@ -18,6 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import mla_paged as MP
+from repro_torch.kernels import mla_paged_quant as MPQ
+from repro_torch.kernels import mla_prefill as MF
+from repro_torch.kernels import mla_prefill_quant as MFQ
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import paged_attention_quant as PAQ
 from repro_torch.kernels import prefill_attention as PF
@@ -123,3 +127,118 @@ def test_cuda_quant_kernels_match_plain_versions(fmt):
                     for pool_k, pool_p, new in zip(p1, p2, (knq, vnq, kns, vns)):
                         assert torch.equal(pool_k[:, pg, of], new[bi, :, c])
                         assert torch.equal(pool_p[:, pg, of], new[bi, :, c])
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention: deepseek-v2-lite-16B's widths (16 heads, a
+# 512-wide latent, a 64-wide rope part), the model's scale 1 / sqrt(192)
+# ---------------------------------------------------------------------------
+
+MLA = dict(b=4, h=16, r=512, pe=64, ps=16, mp=8, chunk=32)
+MLA_SCALE = 192 ** -0.5
+
+
+def _mla_inputs(seed, dtype, fmt=None):
+    """Tables, decode lengths (a len-0 slot), chunk starts and lengths (an
+    idle slot, a partial chunk), queries, a chunk and pools (quantized per
+    row when ``fmt`` is set: then (packed, packed, scales, scales))."""
+    dev = torch.device("cuda")
+    m = MLA
+    rng = np.random.default_rng(seed)
+    num_pages = m["b"] * m["mp"] + 1
+    tables = torch.as_tensor(_tables(rng, m["b"], m["mp"], num_pages), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+
+    def latent(*lead):
+        ckv, kpe = rand(*lead, m["r"]), rand(*lead, m["pe"])
+        if fmt is None:
+            return [ckv, kpe]
+        (cq, cs), (pq, ps) = ref.quantize_rows(ckv, fmt), ref.quantize_rows(kpe, fmt)
+        return [cq, pq, cs, ps]
+
+    return dict(
+        tables=tables, num_pages=num_pages,
+        lens=torch.tensor([0, 1, 77, m["mp"] * m["ps"]], dtype=torch.int32, device=dev),
+        starts=torch.tensor([0, 16, 48, 96], dtype=torch.int32, device=dev),
+        clens=torch.tensor([32, 0, 19, 32], dtype=torch.int32, device=dev),
+        q=rand(m["b"], m["h"], m["r"]), qpe=rand(m["b"], m["h"], m["pe"]),
+        qc=rand(m["b"], m["h"], m["chunk"], m["r"]),
+        qpec=rand(m["b"], m["h"], m["chunk"], m["pe"]),
+        new=latent(m["b"], m["chunk"]), pools=latent(num_pages, m["ps"]))
+
+
+def _mla_decode_case(fmt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    mod, plain_fn = (MP, ref.mla_paged) if fmt is None else (MPQ, ref.mla_paged_quant)
+    kernel = MP.mla_paged if fmt is None else MPQ.mla_paged_quant
+    kw = {} if fmt is None else {"fmt": fmt}
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, 40):
+            x = _mla_inputs(8, dtype, fmt)
+            n0 = mod.KERNEL.launches
+            got = kernel(x["q"], x["qpe"], *x["pools"], x["tables"], x["lens"],
+                         sm_scale=MLA_SCALE, window=window, **kw)
+            assert mod.KERNEL.launches == n0 + 1
+            want = plain_fn(x["q"], x["qpe"], *x["pools"], x["tables"], x["lens"],
+                            sm_scale=MLA_SCALE, window=window, **kw)
+            assert _within_limit(got, want) and got[0].abs().max().item() == 0.0
+
+
+def _mla_prefill_case(fmt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    mod, plain_fn = ((MF, ref.paged_mla_prefill) if fmt is None else
+                     (MFQ, ref.paged_mla_prefill_quant))
+    kernel = MF.mla_prefill if fmt is None else MFQ.mla_prefill_quant
+    kw = {} if fmt is None else {"fmt": fmt}
+    ps = MLA["ps"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, 40):
+            x = _mla_inputs(9, dtype, fmt)
+            p1 = [t.clone() for t in x["pools"]]
+            p2 = [t.clone() for t in x["pools"]]
+            args = (x["tables"], x["starts"], x["clens"])
+            n0 = mod.KERNEL.launches
+            out = kernel(x["qc"], x["qpec"], *x["new"], *p1, *args,
+                         sm_scale=MLA_SCALE, window=window, **kw)[0]
+            assert mod.KERNEL.launches == n0 + 1
+            plain = plain_fn(x["qc"], x["qpec"], *x["new"], *p2, *args,
+                             sm_scale=MLA_SCALE, window=window, **kw)[0]
+            assert _within_limit(out, plain)
+            tb = x["tables"].cpu().numpy()
+            for bi, (s0, n) in enumerate(zip(x["starts"].tolist(), x["clens"].tolist())):
+                for c in range(n):
+                    pg, of = int(tb[bi, (s0 + c) // ps]), (s0 + c) % ps
+                    for pool_k, pool_p, new in zip(p1, p2, x["new"]):
+                        assert torch.equal(pool_k[pg, of], new[bi, c])
+                        assert torch.equal(pool_p[pg, of], new[bi, c])
+
+
+@pytest.mark.cuda
+def test_cuda_mla_paged_matches_plain_version():
+    """On a card: the paged MLA decode kernel against its plain version,
+    bf16 and fp32, with a len-0 slot and a window."""
+    _mla_decode_case(None)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_prefill_matches_plain_version():
+    """On a card: the MLA chunked-prefill kernel against its plain version,
+    bf16 and fp32, with an idle slot, a partial chunk and a window; both
+    write the chunk's latent and rope rows at its live positions."""
+    _mla_prefill_case(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_mla_paged_quant_matches_plain_version(fmt):
+    _mla_decode_case(fmt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_mla_prefill_quant_matches_plain_version(fmt):
+    """The quantized twins also write the packed bytes and both scales."""
+    _mla_prefill_case(fmt)

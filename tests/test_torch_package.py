@@ -174,6 +174,53 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
         assert cs.teacher_forced_ok(tf), tf
 
 
+def test_chip_smoke_mla_phases_rehearse_on_the_cpu():
+    """chip_smoke.py's MLA phases, run here with CPU tensors: the four MLA
+    kernel checks at deepseek-v2-lite-16B's full-width shapes, fp and
+    quantized, with the controls of the bf16 limit; the four deepseek
+    serving runs on a reduced model (one dense prefix layer, one MoE layer:
+    ticks and TTFT equal across KV formats, the window byte-identical and
+    with fewer dispatches); and the teacher-forced comparison with its
+    routing agreement, fp and int8."""
+    import dataclasses
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro_torch.kernels import mla_paged as MP
+    from repro_torch.kernels import mla_paged_quant as MPQ
+    from repro_torch.kernels import mla_prefill as MF
+    from repro_torch.kernels import mla_prefill_quant as MFQ
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import KERNELS
+
+    cpu = torch.device("cpu")
+    for check, mod, fmt, window in ((cs.check_mla_decode, MP, None, 256),
+                                    (cs.check_mla_prefill, MF, None, 96),
+                                    (cs.check_mla_decode, MPQ, "int4", None),
+                                    (cs.check_mla_prefill, MFQ, "int8", 96)):
+        r = check(torch, np, ref, mod, torch.float32, window, None, False, cpu,
+                  fmt=fmt)
+        assert r["err"] == 0.0
+        r = check(torch, np, ref, mod, torch.bfloat16, None, None, False, cpu,
+                  fmt=fmt)
+        assert r["ulps"] == 0.0 and cs.kernel_ok(r), r
+    base = get_config("deepseek_v2_lite_16b").reduced()
+    params = lm.init(base, 0, device="cpu")
+    runs = cs.mla_serving_phase(torch, np, lm, base, params, KERNELS, cpu)
+    assert set(runs) == {"fp", "int8", "int4", "int8, sync_every=16"}
+    assert all(n == 0 for run in runs.values() for n in run[3].values())
+    assert lm.decode_loop.__name__ == "decode_loop"  # restored after the run
+    for kv_dtype in (None, "int8"):
+        cfg2 = dataclasses.replace(base, dtype="bfloat16", kv_dtype=kv_dtype)
+        tf = cs.teacher_forced(torch, np, lm, cfg2, cpu)
+        assert tf["route_share"] > 0.9 and cs.teacher_forced_ok(tf), tf
+
+
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_port(
         tmp_path, monkeypatch, capsys):
     if torch.cuda.is_available():
