@@ -8,10 +8,11 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/repro_torch``.  It
 imports neither JAX nor the JAX package.  Phases (any failure exits non-zero;
 no phase is skipped):
 
-1. build the eight CUDA kernels (fp and quantized decode, fp and quantized
-   chunked prefill, each for GQA and for multi-head latent attention) from
-   the four sources in ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a,
-   one process per source, in parallel) and print the card's name and power
+1. build the nine CUDA kernels (fp and quantized decode, fp and quantized
+   chunked prefill, each for GQA and for multi-head latent attention, and
+   the contiguous flash-attention forward of training) from the five
+   sources in ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a, one
+   process per source, in parallel) and print the card's name and power
    limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
    full-width shapes of its path (qwen2-1.5B: Hq 12, Hkv 2, D 128;
@@ -22,7 +23,11 @@ no phase is skipped):
    in ulps of the plain value, checked against an fp32- and a
    bf16-accumulating control); time kernel, plain version and, as a
    yardstick only, ``scaled_dot_product_attention`` over the gathered (for
-   the quantized kernels: gathered and dequantized) pages;
+   the quantized kernels: gathered and dequantized) pages.  The flash
+   kernel is held at qwen2-1.5B's training shapes (batch 8 x seq 1024,
+   causal, on the strided views the forward hands it), on a suffix block of
+   256 queries over 1024 keys (causal and not), a ragged length (1000) and
+   head dim 64, and timed beside SDPA, forward and forward + backward;
 3. serve full-width qwen2-1.5B (28 layers, bf16, seeded random weights)
    through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
    prefix cache, guards, greedy): 16 requests of 100-600 prompt tokens, half
@@ -47,12 +52,24 @@ latent pages and int8 with ``sync_every=16`` under the no-host-sync check
 to per-tick int8), and teacher-forced logits at depth 2 (the dense prefix
 layer and one MoE layer), with the share of MoE routing choices the card and
 the CPU make alike; the limits are qwen's, over the steps whose read token
-both route to the same experts (at least half of them).
+both route to the same experts (at least half of them);
+
+5. train full-width qwen2-1.5B (28 layers, bf16, seeded) through
+   ``make_train_step`` (the loss with per-layer recompute, its gradient,
+   AdamW with fp32 masters) for 8 steps at batch 8 x seq 1024 on synthetic
+   tokens, resetting the flash kernel's launch count before and reading it
+   after (56 a step: each layer's forward and its recompute), with the loss
+   falling and every loss and grad norm finite; profile 2 more steps; hold
+   one depth-2 step's loss, grad norm and attention-weight gradient cosines
+   on the card against the CPU's fp32 plain path and against the card's bf16
+   path with the plain attention, with three planted attention faults that
+   must fail those limits; and run the training CLI on the reduced model through injected failures
+   (at least one restart, the last step reached, a finite loss).
 
 The last three lines are the card's name and power limit, the kernel table
-as one JSON line (each kernel's launches from its own path's default-pool
-run: fp, or int8 for the quantized kernels), and
-``{"ok": true, "device": {...}}``.
+as one JSON line (each kernel's launches from its own path's run: the
+default-pool serving run, fp or int8 for the quantized kernels; the 8
+training steps for the flash kernel), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -568,6 +585,87 @@ def check_mla_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
 
 
 # ---------------------------------------------------------------------------
+# phase 2, flash attention: qwen2-1.5B's full-sequence training shapes
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# (label, batch, q heads, kv heads, Sq, Sk, head dim, causal): the training
+# forward's shapes first, then a suffix block of queries (causal and not),
+# a ragged length and a head dim of 64
+FLASH_CASES = (
+    ("train", TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, True),
+    ("suffix, causal", TRAIN_BATCH, HQ, HKV, 256, TRAIN_SEQ, HEAD_DIM, True),
+    ("suffix, non-causal", TRAIN_BATCH, HQ, HKV, 256, TRAIN_SEQ, HEAD_DIM, False),
+    ("ragged", TRAIN_BATCH, HQ, HKV, 1000, 1000, HEAD_DIM, True),
+    ("head dim 64", TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, 64, True),
+)
+
+
+def flash_inputs(torch, case, dtype, dev, seed=21):
+    """Q, K, V of a case as ``attention_full`` hands them to the kernel: (B,
+    H, S, D) views of (B, S, H, D) projections."""
+    _, b, hq, hkv, sq, sk, d, _ = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    return (rand(b, sq, hq, d).transpose(1, 2), rand(b, sk, hkv, d).transpose(1, 2),
+            rand(b, sk, hkv, d).transpose(1, 2))
+
+
+def flash_pairs(case) -> int:
+    """The (query, key) pairs a case's mask keeps: causal queries align to
+    the keys' suffix."""
+    _, b, hq, _, sq, sk, _, causal = case
+    if not causal:
+        return b * hq * sq * sk
+    return b * hq * sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
+
+
+def check_flash(torch, np, ref, mod, dtype, case, flush, timed, dev):
+    """The flash-attention kernel against its plain version on one case;
+    timed: the kernel, the plain version, SDPA, and one forward + backward
+    through ``FlashAttentionFn`` against SDPA's."""
+    _, b, hq, hkv, sq, sk, d, causal = case
+    q, k, v = flash_inputs(torch, case, dtype, dev)
+    run = lambda: mod.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain_run = lambda: ref.attention(q, k, v, causal=causal)  # noqa: E731
+    before = mod.KERNEL.launches
+    out, plain = run(), plain_run()
+    mod.KERNEL.launches = before  # comparison launches do not count
+    assert torch.isfinite(out).all() and out.shape == q.shape
+    res = {"err": (out.float() - plain.float()).abs().max().item()}
+    if dtype == torch.bfloat16:
+        res["ulps"] = bf16_ulps(torch, out, plain)
+        qi = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=dev)[None, :]
+        mask = (ki <= qi) if causal else torch.ones(sq, sk, dtype=torch.bool, device=dev)
+        kg, vg = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        res.update(accumulation_controls(torch, q, kg, vg, mask[None, None], plain,
+                                         scale=d ** -0.5))
+    if timed:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        res["ms"] = time_ms(torch, run, flush=flush)
+        res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
+        res["library_ms"] = time_ms(torch, lambda: sdpa(
+            q, k, v, is_causal=causal, enable_gqa=True), flush=flush)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        dout = torch.randn(q.shape, device=dev).to(dtype)
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(), (qg, kg, vg), dout)
+
+        res["fwd_bwd_ms"] = time_ms(torch, fwd_bwd(
+            lambda: mod.FlashAttentionFn.apply(qg, kg, vg, causal, None)), flush=flush)
+        res["sdpa_fwd_bwd_ms"] = time_ms(torch, fwd_bwd(
+            lambda: sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)), flush=flush)
+        mod.KERNEL.launches = before
+        isz = q.element_size()
+        nbytes = (2 * q.numel() + 2 * k.numel()) * isz  # q in, out; k, v in
+        flops = 4.0 * d * flash_pairs(case)
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
 
@@ -911,15 +1009,262 @@ def log_teacher_forced(label, tf, gated, seconds):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 8
+# Limits of the depth-2 check, one training step's loss and gradients.  The
+# kernel path against the card's own bf16 path with the plain attention (the
+# same arithmetic but the kernel): the loss within 0.02 nats, the grad norm
+# within 5%.  Against the CPU's fp32 plain path: the grad norm within 5%, and
+# the loss within 1e-4 of itself, not within 0.02 nats: random tied N(0, 1)
+# embeddings put the depth-2 loss near 1139 nats, where bf16 rounding alone
+# (the plain-attention control) moved it 0.039 nats on an H100 (the kernel
+# path 0.032), twice a 0.02-nat limit; 1e-4 of the loss is three times that
+# control's 3.5e-5.  The embedding's self-score dominates that loss and the
+# global grad norm, so attention moves them little: the cosine of each
+# attention weight's gradient (``layers/attn/*``) with the CPU's is what
+# notices a wrong attention, and its least must reach TRAIN_ATTN_COS_MIN.
+# The planted faults of TRAIN_FAULTS are run in the kernel's place on every
+# check and must each fail the limits.  On an H100 the kernel path read
+# 0.999932 (1 - cos 6.8e-5) and the faults 0.371, -0.047 and 0.99689 (3.1e-3,
+# the last key tile dropped); 0.9995 (5e-4) sits between, about 7x from each.
+TRAIN_LOSS_NATS, TRAIN_LOSS_REL, TRAIN_GNORM_RATIO = 0.02, 1e-4, 0.05
+TRAIN_ATTN_COS_MIN = 0.9995
+TRAIN_FAULTS = ("non-causal", "kv heads swapped", "last key tile dropped")
+
+
+def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
+    """``steps`` AdamW steps of ``make_train_step`` on ``SyntheticTokens``
+    (seed 0) from seeded parameters, each ended by a device sync; then, with
+    ``profile_steps``, that many more under ``torch.profiler``.  The logits
+    stay unchunked (``logits_chunk`` 0, as the reference CLI): at full width
+    they fit.  Returns the losses, grad norms, step seconds (the batch drawn
+    beforehand), the flash kernel's launches over the first ``steps``, the
+    peak memory on a card and the profile."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels.flash_attention import KERNEL
+    from repro_torch.launch.train import build_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    state = build_state(cfg, 0, device)
+    step_fn = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=steps))
+    data = SyntheticTokens(DataConfig(batch=batch, seq=seq,
+                                      vocab_size=cfg.vocab_size, seed=0))
+
+    def step(i):
+        nonlocal state
+        inputs = data.batch_at(i)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, inputs)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        if cuda:
+            torch.cuda.synchronize()
+        return loss, gnorm, time.perf_counter() - t0
+
+    KERNEL.launches = 0
+    res = {"losses": [], "gnorms": [], "seconds": []}
+    for i in range(steps):
+        loss, gnorm, dt = step(i)
+        res["losses"].append(loss)
+        res["gnorms"].append(gnorm)
+        res["seconds"].append(dt)
+    res["launches"] = KERNEL.launches
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    if profile_steps:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps, steps + profile_steps):
+                step(i)
+            res["profile_wall"] = time.perf_counter() - t0
+        res["profile"] = step_breakdown(torch, prof.key_averages())
+    return res
+
+
+# device kernels by name: the flash kernel, the matrix products (cuBLAS's
+# nvjet / cutlass / gemm kernels), everything else
+def _kernel_group(name: str) -> str:
+    if "flash_attention_kernel" in name:
+        return "flash kernel"
+    if any(t in name.lower() for t in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "GEMMs"
+    return "other kernels"
+
+
+# the ranges the port annotates (torch.profiler.record_function)
+RANGES = ("flash_attention.backward", "adamw_update")
+
+
+def step_breakdown(torch, events):
+    """Device time (ms) of a profiled window: busy in all, by kernel group,
+    and, overlapping those groups, the kernels launched inside the annotated
+    ranges (the flash backward's plain recompute, the AdamW update).  A
+    range also shows on the device's timeline as an annotation of its own
+    span: it is not a kernel and is left out of the sums."""
+    from torch.autograd import DeviceType
+
+    rows = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
+    out = {"device busy": sum(e.self_device_time_total for e in rows) / 1e3}
+    for e in rows:
+        g = _kernel_group(e.key)
+        out[g] = out.get(g, 0.0) + e.self_device_time_total / 1e3
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.key in RANGES:
+            out["inside " + e.key] = e.device_time_total / 1e3
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    out["top"] = [(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                  for e in rows[:8]]
+    return out
+
+
+@contextlib.contextmanager
+def attention_as(ops, fn):
+    """Inside the block, ``ops.attention`` is ``fn`` on every device (the
+    plain version, a control of what bf16 alone moves, or a planted
+    fault)."""
+    attention = ops.attention
+    ops.attention = fn
+    try:
+        yield
+    finally:
+        ops.attention = attention
+
+
+def planted_fault(torch, ref, fault):
+    """The plain attention with a fault the depth-2 check must catch: the
+    causal mask dropped, the two groups' K/V heads exchanged, or the last
+    32-key tile (the kernel's tile) masked off for every query."""
+    def attention(q, k, v, *, causal=False, **kw):
+        if fault == "non-causal":
+            causal = False
+        elif fault == "kv heads swapped":
+            k, v = k.flip(1), v.flip(1)
+        else:
+            assert fault == "last key tile dropped", fault
+            kw["kv_len"] = torch.full((q.shape[0],), k.shape[2] - 32, device=q.device)
+        return ref.attention(q, k, v, causal=causal, **kw)
+    return attention
+
+
+def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
+    """One loss and gradient at depth 2, full width: the card's bf16 kernel
+    path against the plain path in fp32 on the CPU (the same seeded
+    parameters upcast); as a control of what bf16 alone moves, the card's
+    bf16 path with the plain attention; and, as controls the limits must
+    reject, each of TRAIN_FAULTS in the kernel's place.  Returns each run's
+    loss, global gradient norm and least ``layers/attn/*`` gradient cosine
+    with the CPU's, and the kernel path's per-leaf cosines."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import global_norm
+    from repro_torch.optim.adamw import leaves
+
+    params = lm.init(cfg2, 7, device=dev)
+    names = leaf_names(params)
+    b = SyntheticTokens(DataConfig(batch=batch, seq=seq,
+                                   vocab_size=cfg2.vocab_size, seed=1)).batch_at(0)
+    cpu = torch.device("cpu")
+    runs = {}
+    for label, attention in (("cpu fp32", None), ("card bf16", None),
+                             ("card bf16, plain attention", ref.attention),
+                             *((f"fault: {f}", planted_fault(torch, ref, f))
+                               for f in TRAIN_FAULTS)):
+        on_cpu = label == "cpu fp32"
+        c = dataclasses.replace(cfg2, dtype="float32") if on_cpu else cfg2
+        p = _tree_to(torch, params, cpu, torch.float32) if on_cpu else params
+        d = cpu if on_cpu else dev
+        flat = leaves(p)
+        for t in flat:
+            t.requires_grad_(True)
+        with (contextlib.nullcontext() if attention is None
+              else attention_as(ops, attention)):
+            loss, _ = lm.loss_fn(p, c, torch.as_tensor(b["tokens"], device=d),
+                                 torch.as_tensor(b["labels"], device=d), remat=True)
+            grads = torch.autograd.grad(loss, flat)
+        for t in flat:
+            t.requires_grad_(False)
+        gnorm = global_norm(grads).item()
+        grads = [g.float().cpu() for g in grads]
+        if on_cpu:
+            ref_grads = grads
+        cos = {name: torch.nn.functional.cosine_similarity(
+            a.double().flatten(), w.double().flatten(), dim=0).item()
+               for name, a, w in zip(names, grads, ref_grads)}
+        if label == "card bf16":
+            runs["cosines"] = cos
+        runs[label] = (loss.detach().item(), gnorm,
+                       min(c for n, c in cos.items() if n.startswith("layers/attn/")))
+    return runs
+
+
+def leaf_names(tree, path=""):
+    """Path names of a tree's leaves in ``optim.adamw.leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{path}/{i}")]
+    return [path.lstrip("/")]
+
+
+def _tree_to(torch, tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to(torch, v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(torch, v, device, dtype) for v in tree]
+    return tree.detach().to(device=device, dtype=dtype)
+
+
+def train_limits_failed(r, label="card bf16"):
+    """The depth-2 limits that run ``label`` (the kernel path, or a planted
+    fault in its place) fails."""
+    (loss, gnorm, cos), (loss32, gnorm32, _) = r[label], r["cpu fp32"]
+    plain, gplain, _ = r["card bf16, plain attention"]
+    checks = {"loss vs card plain": abs(loss - plain) <= TRAIN_LOSS_NATS,
+              "grad norm vs card plain": abs(gnorm / gplain - 1) <= TRAIN_GNORM_RATIO,
+              "loss vs CPU": abs(loss - loss32) <= TRAIN_LOSS_REL * abs(loss32),
+              "grad norm vs CPU": abs(gnorm / gnorm32 - 1) <= TRAIN_GNORM_RATIO,
+              "attn grad cosine": cos >= TRAIN_ATTN_COS_MIN}
+    return [name for name, ok in checks.items() if not ok]
+
+
+def train_card_vs_cpu_ok(r, label="card bf16") -> bool:
+    return not train_limits_failed(r, label)
+
+
+def recovery_run(torch, device, ckpt_dir, steps=20, failure_prob="0.1", seed="0"):
+    """The training CLI on reduced qwen2-1.5B with injected failures (this
+    seed's FaultInjector fails some steps): restarts from its checkpoints
+    and reaches its last step.  Returns the CLI's result and the flash
+    kernel's launches."""
+    from repro_torch.kernels.flash_attention import KERNEL
+    from repro_torch.launch import train
+
+    res = train.main(["--arch", "qwen2_1_5b", "--reduced", "--steps", str(steps),
+                      "--failure-prob", failure_prob, "--seed", seed,
+                      "--device", device.type, "--ckpt-dir", str(ckpt_dir)])
+    return res, KERNEL.launches
+
+
+# ---------------------------------------------------------------------------
 # phase 2, driven
 # ---------------------------------------------------------------------------
 
 
 def kernel_phase(torch, np, ref, flush, device):
     """Every kernel against its plain version, bf16 and fp32, with and
-    without a window; the quantized kernels in int8 and int4.  Returns the
-    timed results by kernel name (the quantized kernels' int8 run; int4's
-    timing is logged)."""
+    without a window; the quantized kernels in int8 and int4; the flash
+    kernel on FLASH_CASES.  Returns the timed results by kernel name (the
+    quantized kernels' int8 run; int4's timing is logged)."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import mla_paged as MP
     from repro_torch.kernels import mla_paged_quant as MPQ
     from repro_torch.kernels import mla_prefill as MF
@@ -971,6 +1316,30 @@ def kernel_phase(torch, np, ref, flush, device):
                         raise AssertionError(f"{name} {fmt} disagrees with its plain version")
                     if timed and fmt in (None, "int8"):
                         table[name] = r
+    for case in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype == torch.bfloat16 and case[0] == "train"
+            r = check_flash(torch, np, ref, FA, dtype, case, flush, timed, device)
+            if "ulps" in r:
+                limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
+                         f"{BF16_ULPS:g}; controls: fp32-accumulating "
+                         f"{r['fp32_acc_ulps']:.2f}, bf16-accumulating "
+                         f"{r['bf16_acc_ulps']:.2f})")
+            else:
+                limit = f"limit {FP32_ATOL:.0e}"
+            if timed:
+                limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                          f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                          f"({r['bound_by']}); forward + backward: FlashAttentionFn "
+                          f"{r['fwd_bwd_ms']:.4f} ms, sdpa {r['sdpa_fwd_bwd_ms']:.4f} ms")
+                table["flash_attention"] = r
+            _, b, hq, hkv, sq, sk, d, causal = case
+            log(f"[kernel] flash_attention {case[0]} {str(dtype)[6:]} (B {b}, Hq {hq}, "
+                f"Hkv {hkv}, Sq {sq}, Sk {sk}, D {d}, causal={causal}): max abs err "
+                f"{r['err']:.3e}, {limit}")
+            if not kernel_ok(r):
+                raise AssertionError(f"flash_attention {case[0]} disagrees with its "
+                                     "plain version")
     return table
 
 
@@ -980,7 +1349,8 @@ def kernel_phase(torch, np, ref, flush, device):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after the kernel phase (a short first check)")
+                    help="kernels: stop after the kernel phase (a short first "
+                         "check)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1036,8 +1406,35 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # ---- phase 3: serve full-width qwen2-1.5B -----------------------------
     cfg = get_config("qwen2_1_5b")
+    main_launches = serving_phases(torch, np, lm, cfg, KERNELS, device)
+    main_launches["flash_attention"] = training_phase(torch, np, lm, cfg, device)
+
+    # ---- result lines --------------------------------------------------
+    rows = []
+    for name, k in KERNELS.items():
+        r = table[name]  # the quantized kernels: their int8 timing
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": str(k.source.relative_to(ROOT)), "replaces": k.replaces,
+            "launches": main_launches[name], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def serving_phases(torch, np, lm, cfg, KERNELS, device):
+    """Phases 3 and 4 for qwen2-1.5B, then for deepseek-v2-lite-16B.
+    Returns each serving kernel's launches on its own path's run."""
+    # ---- phase 3: serve full-width qwen2-1.5B -----------------------------
+    from repro_torch.configs import get_config
+
     t0 = time.perf_counter()
     params = lm.init(cfg, 0, device=device)
     torch.cuda.synchronize()
@@ -1095,24 +1492,77 @@ def main(argv=None) -> int:
         assert not gated or teacher_forced_ok(tf, argmax=False), (kv_dtype, tf)
     log(f"[time] phase 4 ({mla.name} teacher-forced): "
         f"{time.perf_counter() - t_phase:.1f} s")
+    return main_launches
 
-    # ---- result lines --------------------------------------------------
-    rows = []
-    for name, k in KERNELS.items():
-        r = table[name]  # the quantized kernels: their int8 timing
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": str(k.source.relative_to(ROOT)), "replaces": k.replaces,
-            "launches": main_launches[name], "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
-    log(card)
-    log(json.dumps({"kernels": rows}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+
+def training_phase(torch, np, lm, cfg, device) -> int:
+    """Phase 5: full-width qwen2-1.5B trains TRAIN_STEPS steps through the
+    flash kernel (twice a layer a step: the forward, and its recompute under
+    the per-layer checkpoint), with two more steps profiled; the depth-2
+    card-vs-CPU check of the loss and gradient; and the training CLI on the
+    reduced model recovering from injected failures.  Returns the flash
+    kernel's launches over the TRAIN_STEPS steps."""
+    import statistics
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tr = train_steps(torch, cfg, device, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                     profile_steps=2)
+    med = statistics.median(tr["seconds"][1:])
+    per_step = 2 * cfg.num_layers
+    log(f"[train] {cfg.name} full width, bf16, batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, AdamW (peak lr 3e-4, warmup 1, {TRAIN_STEPS} steps): step "
+        f"time {med * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
+        f"{tr['seconds'][0] * 1e3:.1f} ms), {TRAIN_BATCH * TRAIN_SEQ / med:.0f} "
+        f"tokens/s, peak {tr['peak_gib']:.2f} GiB allocated; losses "
+        + " ".join(f"{x:.4f}" for x in tr["losses"]) + "; grad norms "
+        + " ".join(f"{x:.3f}" for x in tr["gnorms"])
+        + f"; flash_attention launches {tr['launches']} ({per_step} a step)")
+    prof = dict(tr["profile"])
+    top = prof.pop("top")
+    log(f"[train] profile of 2 more steps: wall {tr['profile_wall'] * 1e3:.1f} ms; "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in prof.items()) + "; top kernels: "
+        + "; ".join(f"{name} x{n} {ms:.1f} ms" for name, n, ms in top))
+    assert all(np.isfinite(tr["losses"])) and all(np.isfinite(tr["gnorms"])), tr
+    assert tr["losses"][-1] < tr["losses"][0], tr["losses"]
+    assert tr["launches"] == per_step * TRAIN_STEPS * (device.type == "cuda"), tr
+
+    log(f"[time] phase 5 ({cfg.name} training): {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    r = train_card_vs_cpu(torch, np, lm, cfg2, device)
+    (loss32, gnorm32, _), (plain, gplain, _) = r["cpu fp32"], r["card bf16, plain attention"]
+    log(f"[train] {cfg.name} 2 layers at full width, batch 2 x seq 256, one "
+        f"step's loss, grad norm and least layers/attn/* gradient cosine with "
+        f"CPU fp32: " + "; ".join(
+            f"{label} {lo:.4f} nats (from CPU fp32 {abs(lo - loss32):.4f}, "
+            f"{abs(lo - loss32) / abs(loss32):.2e} of it; from card plain "
+            f"{abs(lo - plain):.4f}), grad norm {gn:.4f} (ratio to CPU "
+            f"{gn / gnorm32:.5f}, to card plain {gn / gplain:.5f}), attn cosine "
+            f"{cos:.6f}" + ("" if label in ("cpu fp32", "card bf16, plain attention")
+                            else f", fails {train_limits_failed(r, label) or 'none'}")
+            for label, (lo, gn, cos) in ((k, r[k]) for k in r if k != "cosines"))
+        + f"; limits: {TRAIN_LOSS_NATS} nats and grad norm {TRAIN_GNORM_RATIO:.0%} "
+        f"against card plain, {TRAIN_LOSS_REL:g} of the loss and grad norm "
+        f"{TRAIN_GNORM_RATIO:.0%} against CPU fp32, attn cosine >= "
+        f"{TRAIN_ATTN_COS_MIN:g}; {time.perf_counter() - t0:.1f} s")
+    log("[train] per-leaf gradient cosine, card bf16 kernel path vs CPU fp32: "
+        + ", ".join(f"{name} {c:.5f}" for name, c in r["cosines"].items()))
+    assert train_card_vs_cpu_ok(r), r
+    for fault in TRAIN_FAULTS:  # the planted faults must fail the limits
+        assert not train_card_vs_cpu_ok(r, f"fault: {fault}"), (fault, r)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        res, launches = recovery_run(torch, device, ckpt_dir)
+    loss = res["last_metrics"]["loss"].item()
+    log(f"[train] reduced CLI with injected failures: {res['steps']} steps, "
+        f"{res['restarts']} restarts, final loss {loss:.4f}, flash_attention "
+        f"launches {launches}, {time.perf_counter() - t0:.1f} s")
+    assert res["restarts"] >= 1 and res["steps"] == 20 and np.isfinite(loss)
+    assert launches > 0 or device.type != "cuda"
+    return tr["launches"]
 
 
 if __name__ == "__main__":

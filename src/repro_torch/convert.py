@@ -1,7 +1,9 @@
-"""Parameter bridge: the reference's parameter tree, as numpy, into the port.
+"""Parameter bridge: the reference's parameter tree, as numpy, into the port,
+and the port's trees back to numpy.
 
     params = params_from_numpy(jax.tree.map(np.asarray, repro_lm.init(cfg, key)),
                                cfg, device="cpu")
+    arrays = tree_to_numpy({"params": params, "opt": opt_state})
 
 The tree keeps its layout (``embed``, the ``prefix_layers`` list, stacked
 ``layers`` leaves of shape (L - prefix, ...), ``final_norm``); each leaf
@@ -53,3 +55,33 @@ def params_from_numpy(tree, cfg, device="cuda"):
         raise ValueError(f"tree has {n_prefix} + {n} layers, config "
                          f"{cfg.num_layers}")
     return params
+
+
+def leaf_to_numpy(t: torch.Tensor):
+    """One tensor on the host as ``(array, dtype name)``.  numpy has no
+    bfloat16, so a bf16 tensor comes back as its raw 16-bit patterns
+    (uint16) named ``"bfloat16"``; any other dtype as itself."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, str(a.dtype)
+
+
+def bits_to_bfloat16(a: np.ndarray) -> torch.Tensor:
+    """The bf16 tensor whose raw 16-bit patterns are ``a`` (any 2-byte
+    dtype: uint16, or the reference's ``ml_dtypes.bfloat16``)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+        torch.bfloat16)
+
+
+def tree_to_numpy(tree):
+    """The port's tree (dicts, lists, tensors) as numpy arrays in the same
+    structure, on the host.  bf16 leaves widen to float32, which is exact;
+    every other leaf keeps its dtype."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -2,5 +2,7 @@
 ctypes wrappers (``paged_attention``, ``prefill_attention`` and their
 quantized twins ``paged_attention_quant``, ``prefill_attention_quant``),
 the latent (MLA) kernels ``mla_paged``, ``mla_prefill`` and their twins
-``mla_paged_quant``, ``mla_prefill_quant``, the plain PyTorch versions
+``mla_paged_quant``, ``mla_prefill_quant``, the contiguous
+``flash_attention`` of the full-sequence forward (with its autograd
+function), the plain PyTorch versions
 (``ref``) and the dispatch layer (``ops``)."""

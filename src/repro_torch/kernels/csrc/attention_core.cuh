@@ -22,8 +22,10 @@
 // memory (one KV page, or one page-sized slice of the chunk), in one of two
 // formats: FpKV (rows of T) or QuantKV (the DequantStage of
 // attention_core.py:127: packed int8 / int4 rows plus one scale per row,
-// dequantized on the way into shared memory).  Either way the tile lands in
-// the same fp32 shared tiles and goes through the one online softmax below.
+// dequantized on the way into shared memory).  RowsKV reads rows of T at a
+// stride (the contiguous full-sequence layout, any sequence length).  Every
+// format lands in the same fp32 shared tiles and goes through the one online
+// softmax below.
 //
 // Multi-head latent attention (MLA) scores a key of width dk = R + Dpe (the
 // shared latent plus its rotary part) and takes as value the key's first
@@ -216,6 +218,59 @@ struct FpKV {
       kd[i] = ks[i];
       vd[i] = vs[i];
     }
+  }
+};
+
+// Start the loads of `cols` rows of d values, row r at src + r * stride (a
+// strided run of rows: a (batch, head) slice of a (B, S, H, D) tensor);
+// rows at or past `valid` read as zeros.
+template <typename T>
+__device__ __forceinline__ void fetch_rows(Stage& st, const T* __restrict__ src,
+                                           long stride, int valid, int cols,
+                                           int d) {
+  constexpr int VEC = vec_elems<T>();
+  const int rv = d / VEC;  // vectors a row
+  const int n = cols * rv;
+#pragma unroll
+  for (int k = 0; k < MAXV; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n) {
+      const int r = i / rv, c = (i - r * rv) * VEC;
+      st.v[k] = r < valid
+                    ? __ldg(reinterpret_cast<const uint4*>(src + r * stride + c))
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// Strided fp K/V rows (the contiguous flash-attention layout): key r at
+// k + r * kstride, value r at v + r * vstride, and only the first `valid`
+// rows of a tile are read: a partial last tile reads nothing past the
+// sequence's end, and its dead rows commit as zeros, so that their (zero)
+// probabilities never multiply garbage (0 * NaN is NaN).
+template <typename T>
+struct RowsKV {
+  using Elem = T;
+  const T *k, *v;
+  long kstride, vstride;
+  int valid;
+  struct Regs {
+    Stage k, v;
+  };
+
+  static bool shapes_ok(int cols, int d, int threads) {
+    return ac::shapes_ok<T>(cols, d, threads);
+  }
+  __device__ RowsKV rows(long n) const {
+    return {k + n * kstride, v + n * vstride, kstride, vstride, valid - (int)n};
+  }
+  __device__ void fetch(Regs& r, int cols, int d) const {
+    fetch_rows<T>(r.k, k, kstride, valid, cols, d);
+    fetch_rows<T>(r.v, v, vstride, valid, cols, d);
+  }
+  __device__ static void commit(Smem& sm, const Regs& r, int cols, int d) {
+    ac::commit<T>(sm.ks, sm.stride, r.k, cols, d);
+    ac::commit<T>(sm.vs, d, r.v, cols, d);
   }
 };
 

@@ -1,11 +1,12 @@
 """Public kernel API: dispatch between the hand-written CUDA kernels and the
 plain PyTorch path, plus the host-side dispatch guard.
 
-Counterpart of ``repro.kernels.ops`` for the serving path.  The routing
-rules are the reference's, kept as explicit rules:
+Counterpart of ``repro.kernels.ops`` for the serving and training paths.
+The routing rules are the reference's, kept as explicit rules:
 
 * a soft-capped model takes the plain path (ops.py:247, :353), because no
-  kernel caps its scores;
+  kernel caps its scores; contiguous attention also sends a window or a
+  ``kv_len`` there (ops.py:219-225);
 * chunked prefill, GQA or MLA, fp or quantized, takes the kernel only when
   ``chunk % page_size == 0`` and the chunk spans at most ``max_pages`` pages
   (ops.py:290, :392, :529, :628);
@@ -24,6 +25,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.errors import GuardError
+from . import flash_attention as _fa
 from . import mla_paged as _mp
 from . import mla_paged_quant as _mpq
 from . import mla_prefill as _mf
@@ -34,12 +36,13 @@ from . import prefill_attention as _pf
 from . import prefill_attention_quant as _pfq
 from . import ref
 
-# the hand-written kernels on the serving path, by name
+# the hand-written kernels on the serving and training paths, by name
 KERNELS = {"paged_attention": _pa.KERNEL, "prefill_attention": _pf.KERNEL,
            "paged_attention_quant": _paq.KERNEL,
            "prefill_attention_quant": _pfq.KERNEL,
            "mla_paged": _mp.KERNEL, "mla_prefill": _mf.KERNEL,
-           "mla_paged_quant": _mpq.KERNEL, "mla_prefill_quant": _mfq.KERNEL}
+           "mla_paged_quant": _mpq.KERNEL, "mla_prefill_quant": _mfq.KERNEL,
+           "flash_attention": _fa.KERNEL}
 
 
 def guard_dispatch(tables, num_pages, page_size, work):
@@ -123,6 +126,25 @@ def guard_dispatch(tables, num_pages, page_size, work):
                 break
     if violations:
         raise GuardError(violations)
+
+
+def attention(q, k, v, *, causal: bool = False, sm_scale=None, **xla_kw):
+    """Contiguous GQA attention (ops.py:211): ``q`` (B, Hq, Sq, D) over
+    ``k``/``v`` (B, Hkv, Sk, D), differentiable.
+
+    A window, ``kv_len`` or a soft cap takes the plain version, as the
+    reference routes them to ``ref.attention``; so does a CPU tensor.  A CUDA
+    tensor otherwise takes the flash kernel through
+    :class:`~.flash_attention.FlashAttentionFn`.  ``out_dtype`` casts the
+    result on both routes, and ``q_chunk`` streams only the plain one."""
+    if (not q.is_cuda
+            or xla_kw.get("window") is not None
+            or xla_kw.get("kv_len") is not None
+            or xla_kw.get("logit_soft_cap") is not None):
+        return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale, **xla_kw)
+    out = _fa.FlashAttentionFn.apply(q, k, v, causal, sm_scale)
+    out_dtype = xla_kw.get("out_dtype")
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,

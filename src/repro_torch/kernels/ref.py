@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving and training paths.
 
 Counterparts of ``repro.kernels.ref``: ``paged_attention`` (ref.py:286),
 ``prefill_attention`` (:343), ``rmsnorm`` (:664), the KV quantization
 primitives with ``paged_attention_quant`` (:115-172) and the latent (MLA)
 oracles ``mla_paged`` (:454), ``mla_prefill`` (:480) and
-``mla_paged_quant`` (:174), op for op.  They are
+``mla_paged_quant`` (:174), and the contiguous ``attention`` (:235), the
+flash-attention kernel's plain version, op for op.  They are
 the oracles the CUDA kernels are held against on the card, and the path
 every CPU tensor takes.  Scores, softmax and the P.V product run in fp32
 whatever the input dtype; the result is cast back to ``out_dtype`` (default:
@@ -465,6 +466,88 @@ def paged_mla_prefill_quant(q_lat, q_pe, ckv_q, kpe_q, ckv_s, kpe_s,
         _context_positions(start_lens, ckv_ctx.shape[1]), pos, chunk_lens,
         sm_scale=sm_scale, window=window, logit_soft_cap=logit_soft_cap)
     return out, ckv_pages, kpe_pages, ckv_scales, kpe_scales
+
+
+# ---------------------------------------------------------------------------
+# Contiguous attention (MHA / GQA, optional causal): the plain version of the
+# flash-attention kernel, and what the reference differentiates in training
+# ---------------------------------------------------------------------------
+
+
+def _attn_block(q, k, v, q_offset, causal, sm_scale, logit_soft_cap, kv_len,
+                window):
+    """Attention for a block of queries at absolute offset ``q_offset``
+    (ref.py:202): fp32 scores, scaled then capped, masked to -inf, and a
+    plain softmax.  A query row with no live key gives NaN, as the
+    reference's does (the flash kernel emits zeros there)."""
+    sq, sk = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if logit_soft_cap is not None:
+        s = logit_soft_cap * torch.tanh(s / logit_soft_cap)
+    mask = None
+    qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+    ki = torch.arange(sk, device=q.device)[None, :]
+    if causal:
+        mask = qi >= ki
+    if window is not None:
+        wmask = (qi - ki) < window
+        mask = wmask if mask is None else (mask & wmask)
+    if kv_len is not None:
+        lens = torch.as_tensor(kv_len, device=q.device)
+        lmask = (ki < lens[:, None])[:, None, None, :]
+        s = s.masked_fill(~lmask, float("-inf"))
+    if mask is not None:
+        s = s.masked_fill(~mask[None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+
+
+# query-chunk size above which the S^2 scores are streamed a chunk of queries
+# at a time (bounds peak memory for long-context prefill)
+CHUNKED_THRESHOLD = 8192
+Q_CHUNK = 512
+
+
+def attention(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    logit_soft_cap: Optional[float] = None,
+    kv_len: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    out_dtype=None,
+    q_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Contiguous attention (ref.py:235), the flash kernel's plain version.
+
+    Causal masks align the queries to the suffix of the keys (query ``i``
+    sits at position ``i + Sk - Sq``); ``window`` keeps keys less than
+    ``window`` positions back; ``kv_len`` (B,) masks keys past each row's
+    length.  GQA repeats each K/V head over its group.  Above
+    ``CHUNKED_THRESHOLD`` queries (or with ``q_chunk``) the queries are
+    streamed in chunks.  The result is cast to ``out_dtype`` (default: q's)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if hq != hkv:
+        assert hq % hkv == 0
+        rep = hq // hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    off = sk - sq  # query absolute offset (suffix convention)
+    chunk = q_chunk or (Q_CHUNK if sq >= CHUNKED_THRESHOLD else None)
+    if chunk is not None and sq % chunk == 0 and sq > chunk:
+        out = torch.cat([
+            _attn_block(q[:, :, i:i + chunk], k, v, i + off, causal, sm_scale,
+                        logit_soft_cap, kv_len, window)
+            for i in range(0, sq, chunk)], dim=2)
+    else:
+        out = _attn_block(q, k, v, off, causal, sm_scale, logit_soft_cap,
+                          kv_len, window)
+    return out.to(out_dtype or q.dtype)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

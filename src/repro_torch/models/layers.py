@@ -1,7 +1,8 @@
 """Model layers of the dense GQA decoder and of the MLA + MoE decoder (plain
-functions over parameter dicts), the port's counterpart of the serving
-subset of ``repro.models.layers``: GQA and multi-head latent attention over
-paged pools, the dense MLP and the capacity-dispatched mixture of experts.
+functions over parameter dicts), the port's counterpart of the serving and
+training subset of ``repro.models.layers``: GQA and multi-head latent
+attention over paged pools, full-sequence GQA attention, the dense MLP and
+the capacity-dispatched mixture of experts.
 
 Parameters are plain dicts of tensors with the reference's tree layout.
 Paged KV pools are updated **in place**: where the reference returned new
@@ -132,6 +133,23 @@ def _qkv(params, x, cfg: ModelConfig):
         k.reshape(b, s, hkv, hd),
         v.reshape(b, s, hkv, hd),
     )
+
+
+def attention_full(params, x, cfg: ModelConfig, positions, window=None,
+                   rope_fraction=1.0):
+    """Full-sequence causal attention, training and prefill (layers.py:158):
+    the rotated (B, S, H, D) projections go to ``ops.attention`` as (B, H,
+    S, D) views, and the output comes back through the same transpose."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta, rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, rope_fraction)
+    out = ops.attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        window=window, logit_soft_cap=cfg.logit_soft_cap,
+    )
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return out.to(x.dtype) @ params["wo"]
 
 
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, page_size: int,

@@ -1,5 +1,6 @@
 """Decoder-only language model, dense GQA and MLA + MoE families: the
-port's counterpart of ``repro.models.lm`` for the serving path.
+port's counterpart of ``repro.models.lm`` for the serving path, and for the
+full-sequence forward and loss of training (dense GQA).
 
 Parameters are a plain dict with the reference's tree layout
 (``lm.init``, lm.py:61): ``embed``, ``prefix_layers`` (a list of unstacked
@@ -13,13 +14,16 @@ blocks: DeepSeek-V2's first, dense-FFN layer; empty for the dense family),
 Two families run: ``family == "dense"`` with GQA attention
 (``qwen2_1_5b``), and ``family == "moe"`` with MLA attention
 (``deepseek_v2_lite_16b``); the others raise ``NotImplementedError`` naming
-their ROADMAP Queue 1 item.
+their ROADMAP Queue 1 item.  The full-sequence forward (:func:`forward`,
+:func:`loss_fn`) runs the dense family; MLA raises there (its ``mla_full``
+is not ported yet).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from . import layers as L
@@ -34,6 +38,7 @@ _NOT_PORTED = {
     "audio": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
 }
 _PORTED = {("dense", "gqa"), ("moe", "mla")}
+BIG_WINDOW = 1 << 30  # "no window" sentinel of layer_windows
 
 
 def require_supported(cfg: ModelConfig):
@@ -157,6 +162,12 @@ def static_windows(cfg: ModelConfig) -> List[Optional[int]]:
             w = None
         out.append(w)
     return out
+
+
+def layer_windows(cfg: ModelConfig) -> List[int]:
+    """Per-layer windows of the full-sequence path, BIG_WINDOW for a global
+    layer (lm.py:99)."""
+    return [w if w is not None else BIG_WINDOW for w in static_windows(cfg)]
 
 
 def rope_fraction(cfg: ModelConfig) -> float:
@@ -374,3 +385,123 @@ def prefill_step(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
     x_last = x[torch.arange(x.shape[0], device=x.device), last]
     logits = L.unembed(params["embed"], x_last, cfg)
     return _soft_cap(cfg, logits), cache
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward and loss (training)
+# ---------------------------------------------------------------------------
+
+
+def require_full_forward(cfg: ModelConfig):
+    """Raise unless the full-sequence forward runs ``cfg`` (dense GQA)."""
+    require_supported(cfg)
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: the full-sequence forward of multi-head latent "
+            "attention (layers.mla_full) is not ported yet: ROADMAP Queue 1 "
+            "item 14 (mla_full)")
+
+
+def training_blocks(params) -> List[Dict]:
+    """Every layer's parameters in order, for a differentiated forward: the
+    prefix layers, then views from one ``unbind`` of each stacked leaf.
+    Autograd joins the layers' gradients into each stacked leaf with one
+    stack (indexing a layer out, as :func:`layer_params` does, would build
+    a zero-filled gradient of the whole stacked leaf for every layer)."""
+    parts = _tree_map(lambda t: t.unbind(0), params["layers"])
+    n = params["layers"]["norm1"].shape[0]
+    return list(params["prefix_layers"]) + [
+        _tree_map(lambda views: views[i], parts) for i in range(n)]
+
+
+def _block_full(p, x, cfg: ModelConfig, positions, window, rope_fraction):
+    """One dense GQA block, full sequence (lm.py:111): attention, then the
+    MLP.  Returns (x, aux_loss); the aux loss is the MoE's, zero here."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+    w = None if cfg.sliding_window is None else window
+    x = x + L.attention_full(p["attn"], h, cfg, positions, window=w,
+                             rope_fraction=rope_fraction)
+    x = x + L.mlp(p["mlp"], L.rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    return x, aux
+
+
+def hidden_forward(params, cfg: ModelConfig, tokens, prefix_embeds=None,
+                   remat: bool = False, residual_constraint=None,
+                   unroll: int = 1):
+    """Final hidden states (B, S_total, d) and the aux loss (lm.py:154).
+
+    ``prefix_embeds`` (B, P, d) go in front of the token embeddings.
+    ``remat`` recomputes each stacked layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` of the scanned body: a layer's flash-attention kernel
+    then launches twice a training step.  ``residual_constraint`` and
+    ``unroll`` are the reference's sharding hint and scan unroll factor,
+    accepted and ignored (one device, a Python loop)."""
+    require_full_forward(cfg)
+    del residual_constraint, unroll
+    x = L.embed(params["embed"], tokens).to(L.dtype_of(cfg))
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    windows = layer_windows(cfg)
+    rf = rope_fraction(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_prefix = len(params["prefix_layers"])
+    for i, p in enumerate(training_blocks(params)):
+        if remat and i >= n_prefix:
+            x, aux = checkpoint(_block_full, p, x, cfg, positions, windows[i],
+                                rf, use_reentrant=False)
+        else:
+            x, aux = _block_full(p, x, cfg, positions, windows[i], rf)
+        aux_total = aux_total + aux
+    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
+
+
+def _logits_of(params, cfg: ModelConfig, x):
+    return _soft_cap(cfg, L.unembed(params["embed"], x, cfg))
+
+
+def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None,
+            remat: bool = False, residual_constraint=None, unroll: int = 1):
+    """Returns (logits (B, S_total, V) fp32, aux_loss) (lm.py:209)."""
+    x, aux = hidden_forward(params, cfg, tokens, prefix_embeds, remat,
+                            residual_constraint, unroll)
+    return _logits_of(params, cfg, x), aux
+
+
+def _ce(params, cfg: ModelConfig, x, labels):
+    """Summed next-token NLL over the labels >= 0, and their count."""
+    logp = torch.log_softmax(_logits_of(params, cfg, x), dim=-1)
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * mask).sum(), mask.sum().float()
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, prefix_embeds=None,
+            remat: bool = False, residual_constraint=None,
+            logits_chunk: int = 0, unroll: int = 1):
+    """Causal LM loss; labels < 0 are masked out (lm.py:226).  Returns
+    ``(ce + aux, {"ce", "aux"})``.
+
+    ``logits_chunk`` > 0 (dividing the sequence) streams the unembedding and
+    log-softmax over sequence chunks, each recomputed in the backward pass,
+    so the live logits are (B, chunk, V) instead of (B, S, V)."""
+    x, aux = hidden_forward(params, cfg, tokens, prefix_embeds, remat,
+                            residual_constraint, unroll)
+    if prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:]
+    s = x.shape[1]
+    if logits_chunk and s % logits_chunk == 0 and s > logits_chunk:
+        nll = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, logits_chunk):
+            n_i, c_i = checkpoint(_ce, params, cfg, x[:, i:i + logits_chunk],
+                                  labels[:, i:i + logits_chunk],
+                                  use_reentrant=False)
+            nll, cnt = nll + n_i, cnt + c_i
+    else:
+        nll, cnt = _ce(params, cfg, x, labels)
+    ce = nll / torch.clamp(cnt, min=1)
+    return ce + aux, {"ce": ce, "aux": aux}

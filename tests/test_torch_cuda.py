@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mla_paged as MP
 from repro_torch.kernels import mla_paged_quant as MPQ
 from repro_torch.kernels import mla_prefill as MF
@@ -242,3 +243,62 @@ def test_cuda_mla_paged_quant_matches_plain_version(fmt):
 def test_cuda_mla_prefill_quant_matches_plain_version(fmt):
     """The quantized twins also write the packed bytes and both scales."""
     _mla_prefill_case(fmt)
+
+
+# ---------------------------------------------------------------------------
+# contiguous flash attention: qwen2-1.5B's heads (12 over 2, D 128)
+# ---------------------------------------------------------------------------
+
+FLASH = [  # (b, hq, hkv, sq, sk, d, causal)
+    (2, 12, 2, 200, 200, 128, True),  # ragged: partial query and key tiles
+    (2, 12, 2, 48, 300, 128, True),  # a suffix block of queries
+    (2, 12, 2, 48, 300, 64, False),
+    (1, 4, 4, 7, 5, 128, False),  # fewer keys than a tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH, ids=[str(c) for c in FLASH])
+def test_cuda_flash_attention_matches_plain_version(case):
+    """On a card: the flash kernel against its plain version, bf16 and fp32,
+    on contiguous inputs and on the (B, H, S, D) views of (B, S, H, D)
+    tensors that the full-sequence forward hands it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    b, hq, hkv, sq, sk, d, causal = case
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(3)
+        rand = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+        views = (rand(b, sq, hq, d).transpose(1, 2), rand(b, sk, hkv, d).transpose(1, 2),
+                 rand(b, sk, hkv, d).transpose(1, 2))
+        for q, k, v in (views, [t.contiguous() for t in views]):
+            n0 = FA.KERNEL.launches
+            got = FA.flash_attention(q, k, v, causal=causal)
+            assert FA.KERNEL.launches == n0 + 1 and got.shape == q.shape
+            want = ref.attention(q, k, v, causal=causal)
+            assert _within_limit(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_fn_gradients_match_plain_autograd():
+    """On a card: ``FlashAttentionFn`` (the kernel forward, the plain
+    version recomputed for the backward) gives autograd's gradients of the
+    plain version; the forward launches the kernel once, the backward not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    shapes = ((2, 12, 96, 128), (2, 2, 96, 128), (2, 2, 96, 128))
+    ins = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    dout = torch.randn(shapes[0], generator=g, device=dev)
+    grads = []
+    for fn in (lambda q, k, v: FA.FlashAttentionFn.apply(q, k, v, True, None),
+               lambda q, k, v: ref.attention(q, k, v, causal=True)):
+        ts = [t.clone().requires_grad_(True) for t in ins]
+        n0 = FA.KERNEL.launches
+        out = fn(*ts)
+        grads.append(torch.autograd.grad(out, ts, dout))
+        assert FA.KERNEL.launches - n0 in (0, 1)
+    for a, w in zip(*grads):
+        assert (a - w).abs().max().item() <= cs.FP32_ATOL

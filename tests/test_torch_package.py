@@ -30,6 +30,9 @@ def test_port_imports_neither_jax_nor_repro():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")]
     assert "repro_torch.serving.engine" in names and len(names) > 20
+    assert {"repro_torch.kernels.flash_attention", "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.distributed.fault", "repro_torch.launch.train"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -219,6 +222,62 @@ def test_chip_smoke_mla_phases_rehearse_on_the_cpu():
         cfg2 = dataclasses.replace(base, dtype="bfloat16", kv_dtype=kv_dtype)
         tf = cs.teacher_forced(torch, np, lm, cfg2, cpu)
         assert tf["route_share"] > 0.9 and cs.teacher_forced_ok(tf), tf
+
+
+def test_chip_smoke_training_phases_rehearse_on_the_cpu(tmp_path):
+    """chip_smoke.py's flash-attention check and training phase, run here
+    with CPU tensors (the plain versions) at small sizes: the kernel check
+    with its bf16 controls on a causal suffix block and a ragged length; a
+    few steps of the train step with one profiled; the depth-2 comparison
+    (its runs, on the CPU all plain, the planted faults failing its
+    limits); the CLI recovering from
+    injected failures."""
+    import dataclasses
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    cpu = torch.device("cpu")
+    for case in (("suffix", 2, 4, 2, 16, 64, 32, True), ("ragged", 2, 4, 2, 50, 50, 16, True),
+                 ("non-causal", 1, 2, 1, 8, 40, 16, False)):
+        assert cs.flash_pairs(case) == _pairs(case)
+        r = cs.check_flash(torch, np, ref, FA, torch.float32, case, None, False, cpu)
+        assert r["err"] == 0.0
+        r = cs.check_flash(torch, np, ref, FA, torch.bfloat16, case, None, False, cpu)
+        assert r["ulps"] == 0.0 and cs.kernel_ok(r), r
+    cfg = get_config("qwen2_1_5b").reduced()
+    tr = cs.train_steps(torch, cfg, cpu, 3, 2, 16, profile_steps=1)
+    assert len(tr["losses"]) == 3 and all(np.isfinite(tr["losses"]))
+    assert tr["launches"] == 0 and "device busy" in tr["profile"]
+    r = cs.train_card_vs_cpu(torch, np, lm, dataclasses.replace(cfg, dtype="bfloat16"),
+                             cpu, seq=64)
+    faults = {f"fault: {f}" for f in cs.TRAIN_FAULTS}
+    assert set(r) == {"card bf16", "card bf16, plain attention", "cpu fp32",
+                      "cosines"} | faults
+    assert r["card bf16"] == r["card bf16, plain attention"]
+    assert set(r["cosines"]) >= {"embed/embedding", "layers/attn/wq", "final_norm"}
+    assert min(r["cosines"].values()) > 0.99
+    assert cs.train_card_vs_cpu_ok(r), r
+    for label in faults:  # each planted fault fails the attention cosine
+        assert "attn grad cosine" in cs.train_limits_failed(r, label), (label, r)
+    res, launches = cs.recovery_run(torch, cpu, tmp_path, steps=6,
+                                    failure_prob="0.2", seed="1")
+    assert res["restarts"] == 1 and res["steps"] == 6 and launches == 0
+
+
+def _pairs(case):
+    """Live (query, key) pairs of a flash case, counted from its mask."""
+    _, b, hq, _, sq, sk, _, causal = case
+    qi = torch.arange(sq)[:, None] + (sk - sq)
+    ki = torch.arange(sk)[None, :]
+    return b * hq * int(((ki <= qi) if causal else torch.ones(sq, sk, dtype=torch.bool)).sum())
 
 
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_port(
