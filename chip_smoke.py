@@ -8,12 +8,12 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/repro_torch``.  It
 imports neither JAX nor the JAX package.  Phases (any failure exits non-zero;
 no phase is skipped):
 
-1. build the nine CUDA kernels (fp and quantized decode, fp and quantized
-   chunked prefill, each for GQA and for multi-head latent attention, and
-   the contiguous flash-attention forward of training) from the five
-   sources in ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a, one
-   process per source, in parallel) and print the card's name and power
-   limit;
+1. build the eleven CUDA kernels (fp and quantized decode, fp and
+   quantized chunked prefill, each for GQA and for multi-head latent
+   attention, the contiguous flash-attention forward of training, and the
+   Mamba-2 SSD's chunk_state and chunk_scan) from the six sources in
+   ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a, one process per
+   source, in parallel) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
    full-width shapes of its path (qwen2-1.5B: Hq 12, Hkv 2, D 128;
    deepseek-v2-lite-16B: 16 heads over a 512-wide latent plus a 64-wide rope
@@ -27,7 +27,14 @@ no phase is skipped):
    kernel is held at qwen2-1.5B's training shapes (batch 8 x seq 1024,
    causal, on the strided views the forward hands it), on a suffix block of
    256 queries over 1024 keys (causal and not), a ragged length (1000) and
-   head dim 64, and timed beside SDPA, forward and forward + backward;
+   head dim 64, and timed beside SDPA, forward and forward + backward.
+   chunk_state and chunk_scan are held on SSD_CASES: the operands of a
+   seeded full-width mamba2-2.7B layer at its training shapes (batch 8 x
+   seq 1024: deep decay, exp(dA) denormal), the same shapes with shallow
+   decay, hymba-1.5B's N 16 / P 50 and a chunk of 64, bf16 and fp32 (fp32
+   within 1e-4 of max(1, max |plain|), bf16 within 2 ulps); a growing-dA
+   case is gated in fp32 and printed in bf16; timed beside the bf16 cuBLAS
+   products their work reduces to, as a yardstick;
 3. serve full-width qwen2-1.5B (28 layers, bf16, seeded random weights)
    through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
    prefix cache, guards, greedy): 16 requests of 100-600 prompt tokens, half
@@ -44,9 +51,10 @@ no phase is skipped):
    standard deviations of the logits, top-10 and argmax agreement), for fp
    and int8 pages within one limit; int4's reading is printed, not gated;
 
-then phases 3 and 4 again for full-width deepseek-v2-lite-16B (27 layers,
-MLA + 64-expert top-6 MoE, 16.2 B parameters, bf16 with an fp32 router,
-after qwen's parameters are freed): the same workload in fp, int8 and int4
+then phases 3 and 4 again for full-width deepseek-v2-lite-16B (MLA +
+64-expert top-6 MoE, bf16 with an fp32 router, after qwen's parameters are
+freed; its serving depth cut to 14 of 27 layers to keep the script within
+half its time limit): the same workload in fp, int8 and int4
 latent pages and int8 with ``sync_every=16`` under the no-host-sync check
 (ticks and mean TTFT equal across the four, window outputs byte-identical
 to per-tick int8), and teacher-forced logits at depth 2 (the dense prefix
@@ -64,12 +72,25 @@ both route to the same experts (at least half of them);
    on the card against the CPU's fp32 plain path and against the card's bf16
    path with the plain attention, with three planted attention faults that
    must fail those limits; and run the training CLI on the reduced model through injected failures
-   (at least one restart, the last step reached, a finite loss).
+   (at least one restart, the last step reached, a finite loss);
+6. full-width mamba2-2.7B (64 layers, d 2560, 80 SSM heads of P 64, state
+   128, bf16 with fp32 a_log/d_skip/dt_bias): train it as phase 5 (128
+   launches of each SSD kernel a step), with its depth-2 check against the
+   CPU's fp32, the card's plain SSD and three planted SSD faults (scan
+   without the causal mask, carried state dropped, state decay from the
+   first row) that must fail the limits; forward (the kernels) against
+   decode_step (the recurrence) at depth 4, and the card's forward against
+   the CPU's fp32 one (phase 4's limits; argmax where the top-2 margin
+   exceeds twice the error); then serve it through the contiguous
+   recurrent-state cache, per tick and with ``sync_every=16`` under the
+   no-host-sync check (8 of the workload's requests: byte-identical
+   outputs, equal ticks and TTFT, fewer dispatches, no SSD launch).
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
 default-pool serving run, fp or int8 for the quantized kernels; the 8
-training steps for the flash kernel), and ``{"ok": true, "device": {...}}``.
+training steps for the flash kernel and for the two SSD kernels), and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -665,6 +686,171 @@ def check_flash(torch, np, ref, mod, dtype, case, flush, timed, dev):
     return res
 
 
+# phase 2, SSD: the Mamba-2 chunk kernels at mamba2-2.7B's training shapes
+# ---------------------------------------------------------------------------
+
+# (label, arch, batch, seq, decay): the SSD operands of one seeded
+# full-width layer of ``arch`` (its projections, causal conv and softplus
+# on an input of unit RMS), as ``layers._ssd_batched`` hands them to the
+# kernels, so the decay is the model's own ("deep": dt near 0.7 a step,
+# dA_cum near -90 by a chunk's end, exp(dA) below fp32's smallest normal);
+# "shallow" keeps the shapes but draws C, B and X from N(0, 1) and lets dA
+# fall by 0.1 |N(0, 1)| a step (tests/test_kernels.py:367's magnitude, with
+# the sign of a decay: Mamba's dA = dt * -exp(a_log) is never positive).
+# hymba's N 16 and P 50 (rows of 100 bytes in bf16) and a chunk of 64 (seq
+# 192: the layer's gcd(192, 128) rule) are checked too.  "growing" is that
+# test's own sign, dA rising by 0.1 |N(0, 1)| a step, with N(0, 1) carried
+# states: the decay factors reach e^10 a chunk and each output sums terms up
+# to ~1e7 that cancel, so an element's bf16 ulp can lie below what fp32 sums
+# in any order resolve; its bf16 reading is printed beside the plain
+# version's own distance from an fp64 evaluation, and only its fp32 pass
+# is gated.
+SSD_CASES = (
+    ("mamba2 training, deep decay", "mamba2_2_7b", TRAIN_BATCH, TRAIN_SEQ, "deep"),
+    ("mamba2 training, shallow decay", "mamba2_2_7b", TRAIN_BATCH, TRAIN_SEQ, "shallow"),
+    ("hymba N 16, P 50", "hymba_1_5b", 2, TRAIN_SEQ, "deep"),
+    ("chunk 64 (seq 192)", "mamba2_2_7b", 2, 192, "deep"),
+    ("mamba2 training, growing dA", "mamba2_2_7b", TRAIN_BATCH, TRAIN_SEQ, "growing"),
+)
+
+
+def ssd_operands(torch, case, dtype, dev, seed=31):
+    """One case's kernel operands: C and B as head-broadcast (``expand``ed,
+    head stride 0) views (B, H, nc, L, N), X (B, H, nc, L, P) in ``dtype``,
+    dA_cum (B, H, nc, L) fp32, and the carried states (the plain chunk_state
+    and state recurrence of them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+
+    _, arch, b, s, decay = case
+    cfg = dataclasses.replace(get_config(arch), dtype=str(dtype)[6:])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    params = L.init_mamba2(g, cfg)
+    h = L.rmsnorm(rand(b, s, cfg.d_model).to(dtype),
+                  torch.ones(cfg.d_model, dtype=dtype, device=dev), cfg.norm_eps)
+    _, xh, ch, bh, dth, chunk = L.mamba2_ssd_inputs(params, h, cfg)
+    xdt = xh * dth[..., None].to(xh.dtype)
+    cc, bb, xx, da = L.ssd_operands(ch, bh, xdt, dth, params["a_log"], chunk)
+    prev = None
+    if decay in ("shallow", "growing"):
+        one_head = (cc.shape[0], 1) + tuple(cc.shape[2:])
+        cc, bb = (rand(*one_head).to(dtype).expand(cc.shape) for _ in range(2))
+        xx = rand(*xx.shape).to(dtype)
+        step = 0.1 * rand(*da.shape).abs()
+        da = torch.cumsum(step if decay == "growing" else -step, dim=-1)
+        if decay == "growing":  # recurred states would overflow: N(0, 1)
+            prev = rand(*xx.shape[:-2], cc.shape[-1], xx.shape[-1])
+    if prev is None:
+        prev = ref.state_recurrence(ref.chunk_state(bb, xx, da), da[..., -1])
+    return cc, bb, xx, da.contiguous(), prev
+
+
+def handed_bytes(t) -> int:
+    """Bytes of the storage a view reads: a broadcast (stride-0) dimension
+    counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def scan_variant(torch, c, b, x, da, prev, *, acc=None, scores=None,
+                 causal=True):
+    """``ref.chunk_scan``'s arithmetic with one thing changed: ``acc`` the
+    dtype it computes in (fp64: the value fp32 sums approximate);
+    ``scores`` a dtype the decayed scores are rounded to before their
+    product with X (bf16: the control a bf16 limit must reject); or
+    ``causal=False``, the decay still selected before the exp but the upper
+    triangle kept (a planted fault: later rows leak into earlier ones)."""
+    acc = acc or torch.float32
+    cf, bf, xf, pf, df = (t.to(acc) for t in (c, b, x, prev, da))
+    n = x.shape[-2]
+    y = torch.einsum("...cln,...cnp->...clp", cf, pf) * torch.exp(df)[..., None]
+    seg = df[..., :, None] - df[..., None, :]
+    mask = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
+    att = torch.einsum("...cln,...cmn->...clm", cf, bf) * torch.exp(torch.where(mask, seg, 0.0))
+    if causal:
+        att = torch.where(mask, att, 0.0)
+    if scores is not None:
+        att = att.to(scores).to(acc)
+    return (y + torch.einsum("...clm,...cmp->...clp", att, xf)).to(x.dtype)
+
+
+def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
+    """chunk_state and chunk_scan (modules ``mods``) against their plain
+    versions on one case's operands.  Returns {kernel: result}; timed: the
+    kernel, the plain version and, as a labelled yardstick, the bf16 cuBLAS
+    products its work reduces to (B^T X for chunk_state; C B^T, its product
+    with X and C S_prev for chunk_scan, per batch, head and chunk, without
+    the decay), and the bound from the bytes handed over (a broadcast B or
+    C once) and the causal pairs' operations."""
+    cst, csc = mods
+    cc, bb, xx, da, prev = ssd_operands(torch, case, dtype, dev)
+    bsz, heads, nc, length, n = cc.shape
+    p = xx.shape[-1]
+    runs = {"chunk_state": (cst, lambda: cst.chunk_state(bb, xx, da),
+                            lambda: ref.chunk_state(bb, xx, da)),
+            "chunk_scan": (csc, lambda: csc.chunk_scan(cc, bb, xx, da, prev),
+                           lambda: ref.chunk_scan(cc, bb, xx, da, prev))}
+    out = {}
+    for name, (mod, run, plain_run) in runs.items():
+        before = mod.KERNEL.launches
+        got, want = run(), plain_run()
+        mod.KERNEL.launches = before  # comparison launches do not count
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert torch.isfinite(got).all(), name
+        res = {"err": (got.float() - want.float()).abs().max().item(),
+               "scale": max(1.0, want.float().abs().max().item()),
+               "da_min": da.min().item()}
+        if got.dtype == torch.bfloat16:
+            res["ulps"] = bf16_ulps(torch, got, want)
+            res["bf16_scores_ulps"] = bf16_ulps(torch, scan_variant(
+                torch, cc, bb, xx, da, prev, scores=torch.bfloat16), want)
+            if case[-1] == "growing":  # the plain version's own distance
+                res["plain_vs_f64_ulps"] = bf16_ulps(torch, want, scan_variant(
+                    torch, cc, bb, xx, da, prev, acc=torch.float64))
+        if timed:
+            res["ms"] = time_ms(torch, run, flush=flush)
+            res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
+            pairs = length * (length + 1) // 2
+            blocks = bsz * heads * nc
+            if name == "chunk_state":
+                bt = bb.transpose(-1, -2).contiguous()
+                yard = lambda: torch.matmul(bt, xx)  # noqa: E731
+                ins = (bb, xx, da)
+                flops = 2.0 * blocks * length * n * p
+            else:
+                c_c, b_t = cc.contiguous(), bb.transpose(-1, -2).contiguous()
+                s16 = prev.to(dtype)
+                yard = lambda: (torch.matmul(torch.matmul(c_c, b_t), xx),  # noqa: E731
+                                torch.matmul(c_c, s16))
+                ins = (cc, bb, xx, da, prev)
+                flops = 2.0 * blocks * (pairs * n + pairs * p + length * n * p)
+            # no single PyTorch call computes the function: the yardstick is
+            # labelled apart and library_ms stays null
+            res["yardstick_ms"] = time_ms(torch, yard, flush=flush)
+            res["library_ms"] = None
+            mod.KERNEL.launches = before
+            nbytes = sum(handed_bytes(t) for t in ins) + got.numel() * got.element_size()
+            res["bytes"], res["flops"] = nbytes, flops
+            res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        out[name] = res
+    return out
+
+
+def ssd_ok(r) -> bool:
+    """bf16 outputs within BF16_ULPS of the plain value (the growing case's
+    bf16 reading is printed, not gated: see SSD_CASES); fp32 outputs within
+    FP32_ATOL of max(1, max |plain|)."""
+    if "plain_vs_f64_ulps" in r:
+        return True
+    if "ulps" in r:
+        return r["ulps"] <= BF16_ULPS
+    return r["err"] <= FP32_ATOL * r["scale"]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -692,14 +878,16 @@ def workload(rng, vocab: int, n: int = 16, shared_len: int = 256):
     return prompts
 
 
-def serve(torch, np, cfg, params, kernels, device, max_new=32, **serve_kw):
-    """One serving run of the workload; ``serve_kw`` go to ServeConfig."""
+def serve(torch, np, cfg, params, kernels, device, max_new=32, requests=16,
+          **serve_kw):
+    """One serving run of the workload's first ``requests`` prompts;
+    ``serve_kw`` go to ServeConfig."""
     from repro_torch.serving import ServeConfig, ServingEngine
 
     scfg = ServeConfig(slots=SLOTS, max_len=MAX_LEN, prefill_chunk=CHUNK,
                        max_new_tokens=max_new, page_size=PAGE, **serve_kw)
     engine = ServingEngine(cfg, params, scfg, device=device)
-    prompts = workload(np.random.default_rng(0), cfg.vocab_size)
+    prompts = workload(np.random.default_rng(0), cfg.vocab_size)[:requests]
     reqs = [engine.submit(p) for p in prompts]
     for k in kernels.values():
         k.launches = 0
@@ -719,6 +907,15 @@ QUANT_KERNELS = ("paged_attention_quant", "prefill_attention_quant")
 MLA_FP_KERNELS = ("mla_paged", "mla_prefill")
 MLA_QUANT_KERNELS = ("mla_paged_quant", "mla_prefill_quant")
 FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
+# Cuts that keep the whole script within half its 1200 s limit on a slow
+# host (a run on an H100 80GB HBM3 at 700 W took 810 s without them, 275 s
+# of it serving mamba2):
+# deepseek-v2-lite-16B serves 14 of its 27 layers (the dense first
+# layer and 13 MoE layers), and mamba2-2.7B serves the first 8 of the
+# workload's 16 requests (one full batch of slots; its prompts replay a
+# token a tick, so its ticks follow the longest prompt).
+MLA_SERVE_LAYERS = 14
+SSM_SERVE_REQUESTS = 8
 
 
 @contextlib.contextmanager
@@ -765,13 +962,20 @@ def make_runner(torch, np, cfg, params, kernels, device, runs):
         engine, reqs, dt, launches = serve(torch, np, cfg, params, kernels,
                                            device, **kw)
         toks = sum(len(r.output) for r in reqs)
+        if engine.pool is not None:
+            memory = (f"{engine.preemptions} preemptions, {engine.pages_shared} "
+                      f"pages shared, peak {engine.peak_kv_blocks()} of "
+                      f"{engine.pool.num_blocks} blocks of {engine.pool.page_bytes} "
+                      f"bytes ({engine.cache.kv_bytes()} KV bytes)")
+        else:
+            memory = f"{engine.cache.kv_bytes()} bytes of recurrent state"
+        if device.type == "cuda":
+            memory += (f", device peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                       " GiB allocated")
         log(f"[serve] {cfg.name} {label}: {len(reqs)} requests, {toks} tokens in "
             f"{dt:.2f} s ({toks / dt:.1f} tok/s), {engine.steps_run} ticks, "
             f"{engine.dispatches} dispatches, mean TTFT {mean_ttft(reqs):.2f} "
-            f"ticks, {engine.preemptions} preemptions, {engine.pages_shared} "
-            f"pages shared, peak {engine.peak_kv_blocks()} of "
-            f"{engine.pool.num_blocks} blocks of {engine.pool.page_bytes} bytes "
-            f"({engine.cache.kv_bytes()} KV bytes), launches {launches}")
+            f"ticks, {memory}, launches {launches}")
         assert all(r.status == "completed" and len(r.output) == 32 for r in reqs), \
             [(r.uid, r.status, r.error) for r in reqs if r.status != "completed"]
         # the run went through its path's kernels and no other (on the CPU,
@@ -890,6 +1094,21 @@ def recorded_routing(layers):
         layers.top_k = top_k
 
 
+def step_agreement(torch, got, want):
+    """One step's logits ``got`` against the reference's ``want``: the max
+    |diff| in standard deviations of ``want`` (not of its max: with tied
+    embeddings each token's own logit dwarfs the rest), how many of its top
+    10 tokens ``got``'s top 10 holds, whether the argmaxes agree (0 or 1),
+    and ``want``'s top-2 margin in standard deviations."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    std = want.std()
+    err = ((got - want).abs().max() / std).item()
+    common = set(got.topk(TOPK).indices.tolist()) & set(want.topk(TOPK).indices.tolist())
+    top2 = want.topk(2).values
+    return err, len(common), int(got.argmax() == want.argmax()), ((top2[0] - top2[1]) / std).item()
+
+
 def teacher_forced(torch, np, lm, cfg4, dev):
     """Prefill a 100-token prompt in 64-token chunks, then 8 decode steps
     with fed tokens, on the card (bf16, kernels) and on the CPU (fp32, plain
@@ -956,13 +1175,9 @@ def teacher_forced(torch, np, lm, cfg4, dev):
            "argmax_agree": 0, "agree_steps": 0, "route_share": 1.0}
     same = total = 0
     for step, (got, want, (rg, read), (rw, _)) in enumerate(zip(*results, *routes)):
-        assert torch.isfinite(got).all()
-        err = ((got - want).abs().max() / want.std()).item()
-        common = set(got.topk(TOPK).indices.tolist()) & set(want.topk(TOPK).indices.tolist())
-        hit = int(got.argmax() == want.argmax())
+        err, common, hit, margin = step_agreement(torch, got, want)
         if not hit:  # the step, its reference top-2 margin and its error, in std
-            top2 = want.topk(2).values
-            res["swaps"].append((step, ((top2[0] - top2[1]) / want.std()).item(), err))
+            res["swaps"].append((step, margin, err))
         agree = True
         for a, b in zip(rg, rw):  # one pick per MoE layer
             for row_a, row_b in zip(a.tolist(), b.tolist()):
@@ -970,12 +1185,12 @@ def teacher_forced(torch, np, lm, cfg4, dev):
                 total += len(row_a)
             agree &= set(a[read].tolist()) == set(b[read].tolist())
         res["err"] = max(res["err"], err)
-        res["top10"] = min(res["top10"], len(common))
+        res["top10"] = min(res["top10"], common)
         res["argmax"] += hit
         if agree:
             res["agree_steps"] += 1
             res["err_agree"] = max(res["err_agree"], err)
-            res["top10_agree"] = min(res["top10_agree"], len(common))
+            res["top10_agree"] = min(res["top10_agree"], common)
             res["argmax_agree"] += hit
     if total:
         res["route_share"] = same / total
@@ -1040,10 +1255,10 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
     ``profile_steps``, that many more under ``torch.profiler``.  The logits
     stay unchunked (``logits_chunk`` 0, as the reference CLI): at full width
     they fit.  Returns the losses, grad norms, step seconds (the batch drawn
-    beforehand), the flash kernel's launches over the first ``steps``, the
-    peak memory on a card and the profile."""
+    beforehand), every kernel's launches over the first ``steps`` (those
+    that launched), the peak memory on a card and the profile."""
     from repro_torch.data import DataConfig, SyntheticTokens
-    from repro_torch.kernels.flash_attention import KERNEL
+    from repro_torch.kernels.ops import KERNELS
     from repro_torch.launch.train import build_state, make_train_step
     from repro_torch.optim import AdamWConfig
 
@@ -1067,14 +1282,15 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
             torch.cuda.synchronize()
         return loss, gnorm, time.perf_counter() - t0
 
-    KERNEL.launches = 0
+    for k in KERNELS.values():
+        k.launches = 0
     res = {"losses": [], "gnorms": [], "seconds": []}
     for i in range(steps):
         loss, gnorm, dt = step(i)
         res["losses"].append(loss)
         res["gnorms"].append(gnorm)
         res["seconds"].append(dt)
-    res["launches"] = KERNEL.launches
+    res["launches"] = {name: k.launches for name, k in KERNELS.items() if k.launches}
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
     if profile_steps:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -1089,24 +1305,26 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
     return res
 
 
-# device kernels by name: the flash kernel, the matrix products (cuBLAS's
+# device kernels by name: the port's kernels, the matrix products (cuBLAS's
 # nvjet / cutlass / gemm kernels), everything else
 def _kernel_group(name: str) -> str:
-    if "flash_attention_kernel" in name:
-        return "flash kernel"
+    for kernel in ("flash_attention", "chunk_state", "chunk_scan"):
+        if f"{kernel}_kernel" in name:
+            return f"{kernel} kernel"
     if any(t in name.lower() for t in ("gemm", "nvjet", "cutlass", "xmma")):
         return "GEMMs"
     return "other kernels"
 
 
 # the ranges the port annotates (torch.profiler.record_function)
-RANGES = ("flash_attention.backward", "adamw_update")
+RANGES = ("flash_attention.backward", "chunk_state.backward",
+          "chunk_scan.backward", "adamw_update")
 
 
 def step_breakdown(torch, events):
     """Device time (ms) of a profiled window: busy in all, by kernel group,
     and, overlapping those groups, the kernels launched inside the annotated
-    ranges (the flash backward's plain recompute, the AdamW update).  A
+    ranges (the kernels' plain recompute in the backward, the AdamW update).  A
     range also shows on the device's timeline as an annotation of its own
     span: it is not a kernel and is left out of the sums."""
     from torch.autograd import DeviceType
@@ -1155,16 +1373,34 @@ def planted_fault(torch, ref, fault):
     return attention
 
 
+def depth2_controls(torch, cfg2):
+    """The depth-2 check's runs after the CPU's and the card's: the card's
+    bf16 path with the plain version of the family's kernels (what bf16
+    alone moves), then each planted fault in the kernels' place, as
+    (label, context-manager factory)."""
+    from repro_torch.kernels import ops, ref
+
+    if cfg2.family == "ssm":
+        return (("card bf16, plain SSD",
+                 lambda: ssd_as(ops, ref.chunk_state, ref.chunk_scan)),
+                *((f"fault: {f}", lambda f=f: ssd_as(ops, *ssd_fault(torch, ref, f)))
+                  for f in SSM_FAULTS))
+    return (("card bf16, plain attention", lambda: attention_as(ops, ref.attention)),
+            *((f"fault: {f}", lambda f=f: attention_as(ops, planted_fault(torch, ref, f)))
+              for f in TRAIN_FAULTS))
+
+
 def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
     """One loss and gradient at depth 2, full width: the card's bf16 kernel
     path against the plain path in fp32 on the CPU (the same seeded
     parameters upcast); as a control of what bf16 alone moves, the card's
-    bf16 path with the plain attention; and, as controls the limits must
-    reject, each of TRAIN_FAULTS in the kernel's place.  Returns each run's
-    loss, global gradient norm and least ``layers/attn/*`` gradient cosine
-    with the CPU's, and the kernel path's per-leaf cosines."""
+    bf16 path with the plain version of its kernels; and, as controls the
+    limits must reject, each planted fault in the kernels' place
+    (:func:`depth2_controls`).  Returns each run's loss, global gradient norm
+    and least gradient cosine with the CPU's over the kernels' layer leaves
+    (``layers/attn/*``, or ``layers/mamba/*`` for the SSM), and the kernel
+    path's per-leaf cosines."""
     from repro_torch.data import DataConfig, SyntheticTokens
-    from repro_torch.kernels import ops, ref
     from repro_torch.optim import global_norm
     from repro_torch.optim.adamw import leaves
 
@@ -1173,11 +1409,10 @@ def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
     b = SyntheticTokens(DataConfig(batch=batch, seq=seq,
                                    vocab_size=cfg2.vocab_size, seed=1)).batch_at(0)
     cpu = torch.device("cpu")
+    prefix = "layers/mamba/" if cfg2.family == "ssm" else "layers/attn/"
     runs = {}
-    for label, attention in (("cpu fp32", None), ("card bf16", None),
-                             ("card bf16, plain attention", ref.attention),
-                             *((f"fault: {f}", planted_fault(torch, ref, f))
-                               for f in TRAIN_FAULTS)):
+    for label, control in (("cpu fp32", None), ("card bf16", None),
+                           *depth2_controls(torch, cfg2)):
         on_cpu = label == "cpu fp32"
         c = dataclasses.replace(cfg2, dtype="float32") if on_cpu else cfg2
         p = _tree_to(torch, params, cpu, torch.float32) if on_cpu else params
@@ -1185,8 +1420,7 @@ def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
         flat = leaves(p)
         for t in flat:
             t.requires_grad_(True)
-        with (contextlib.nullcontext() if attention is None
-              else attention_as(ops, attention)):
+        with contextlib.nullcontext() if control is None else control():
             loss, _ = lm.loss_fn(p, c, torch.as_tensor(b["tokens"], device=d),
                                  torch.as_tensor(b["labels"], device=d), remat=True)
             grads = torch.autograd.grad(loss, flat)
@@ -1202,7 +1436,7 @@ def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
         if label == "card bf16":
             runs["cosines"] = cos
         runs[label] = (loss.detach().item(), gnorm,
-                       min(c for n, c in cos.items() if n.startswith("layers/attn/")))
+                       min(c for n, c in cos.items() if n.startswith(prefix)))
     return runs
 
 
@@ -1223,16 +1457,27 @@ def _tree_to(torch, tree, device, dtype):
     return tree.detach().to(device=device, dtype=dtype)
 
 
+def depth2_limits(r):
+    """The depth-2 limits of a run set: the plain control's label, the loss
+    limit against the CPU's (nats), the cosine limit and its name."""
+    if "card bf16, plain SSD" in r:
+        return ("card bf16, plain SSD", SSM_LOSS_CPU_NATS, SSM_COS_MIN,
+                "mamba grad cosine")
+    return ("card bf16, plain attention", TRAIN_LOSS_REL * abs(r["cpu fp32"][0]),
+            TRAIN_ATTN_COS_MIN, "attn grad cosine")
+
+
 def train_limits_failed(r, label="card bf16"):
     """The depth-2 limits that run ``label`` (the kernel path, or a planted
-    fault in its place) fails."""
+    fault in its place) fails.  A NaN reading fails every limit it enters."""
     (loss, gnorm, cos), (loss32, gnorm32, _) = r[label], r["cpu fp32"]
-    plain, gplain, _ = r["card bf16, plain attention"]
+    plain_label, loss_cpu, cos_min, cos_name = depth2_limits(r)
+    plain, gplain, _ = r[plain_label]
     checks = {"loss vs card plain": abs(loss - plain) <= TRAIN_LOSS_NATS,
               "grad norm vs card plain": abs(gnorm / gplain - 1) <= TRAIN_GNORM_RATIO,
-              "loss vs CPU": abs(loss - loss32) <= TRAIN_LOSS_REL * abs(loss32),
+              "loss vs CPU": abs(loss - loss32) <= loss_cpu,
               "grad norm vs CPU": abs(gnorm / gnorm32 - 1) <= TRAIN_GNORM_RATIO,
-              "attn grad cosine": cos >= TRAIN_ATTN_COS_MIN}
+              cos_name: cos >= cos_min}
     return [name for name, ok in checks.items() if not ok]
 
 
@@ -1262,8 +1507,10 @@ def recovery_run(torch, device, ckpt_dir, steps=20, failure_prob="0.1", seed="0"
 def kernel_phase(torch, np, ref, flush, device):
     """Every kernel against its plain version, bf16 and fp32, with and
     without a window; the quantized kernels in int8 and int4; the flash
-    kernel on FLASH_CASES.  Returns the timed results by kernel name (the
+    kernel on FLASH_CASES; chunk_state and chunk_scan on SSD_CASES.  Returns the timed results by kernel name (the
     quantized kernels' int8 run; int4's timing is logged)."""
+    from repro_torch.kernels import chunk_scan as CSC
+    from repro_torch.kernels import chunk_state as CST
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import mla_paged as MP
     from repro_torch.kernels import mla_paged_quant as MPQ
@@ -1340,6 +1587,38 @@ def kernel_phase(torch, np, ref, flush, device):
             if not kernel_ok(r):
                 raise AssertionError(f"flash_attention {case[0]} disagrees with its "
                                      "plain version")
+    for case in SSD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype == torch.bfloat16 and case is SSD_CASES[0]
+            rs = check_ssd(torch, np, ref, (CST, CSC), dtype, case, flush, timed, device)
+            _, arch, b, s, decay = case
+            for name, r in rs.items():
+                if "plain_vs_f64_ulps" in r:
+                    limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (printed, "
+                             f"not gated: the plain version itself is "
+                             f"{r['plain_vs_f64_ulps']:.2f} ulps from its fp64 "
+                             f"evaluation; control with bf16 scores "
+                             f"{r['bf16_scores_ulps']:.2f})")
+                elif "ulps" in r:
+                    limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
+                             f"{BF16_ULPS:g}; control with bf16 scores "
+                             f"{r['bf16_scores_ulps']:.2f})")
+                else:
+                    limit = (f"{r['err'] / r['scale']:.2e} of max(1, max|plain|) "
+                             f"{r['scale']:.3g} (limit {FP32_ATOL:.0e})")
+                if timed:
+                    limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                              f"bf16 cuBLAS products (yardstick) {r['yardstick_ms']:.4f} ms, "
+                              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                              f"{r['bytes'] / 1e6:.1f} MB handed over, broadcast B/C "
+                              f"once; {r['flops'] / 1e9:.2f} GFLOP over causal pairs)")
+                    table[name] = r
+                log(f"[kernel] {name} {case[0]} {str(dtype)[6:]} ({arch}, batch {b} x "
+                    f"seq {s}, min dA_cum {r['da_min']:.1f}): max abs err "
+                    f"{r['err']:.3e}, {limit}")
+                if not ssd_ok(r):
+                    raise AssertionError(f"{name} {case[0]} disagrees with its plain "
+                                         "version")
     return table
 
 
@@ -1409,6 +1688,8 @@ def main(argv=None) -> int:
     cfg = get_config("qwen2_1_5b")
     main_launches = serving_phases(torch, np, lm, cfg, KERNELS, device)
     main_launches["flash_attention"] = training_phase(torch, np, lm, cfg, device)
+    torch.cuda.empty_cache()
+    main_launches.update(ssm_phase(torch, np, lm, device))
 
     # ---- result lines --------------------------------------------------
     rows = []
@@ -1463,12 +1744,15 @@ def serving_phases(torch, np, lm, cfg, KERNELS, device):
         f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 3, MLA + MoE: serve full-width deepseek-v2-lite-16B --------
-    mla = get_config("deepseek_v2_lite_16b")
+    # depth cut to MLA_SERVE_LAYERS to keep the script in its time limit
+    mla = dataclasses.replace(get_config("deepseek_v2_lite_16b"),
+                              num_layers=MLA_SERVE_LAYERS)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = lm.init(mla, 0, device=device)
     torch.cuda.synchronize()
-    log(f"[serve] {mla.name}: {lm.param_count(params) / 1e9:.3f} B params "
+    log(f"[serve] {mla.name}, {mla.num_layers} of its 27 layers: "
+        f"{lm.param_count(params) / 1e9:.3f} B params "
         f"({mla.dtype}, router fp32) initialised on the card in "
         f"{time.perf_counter() - t0:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB allocated")
@@ -1502,22 +1786,195 @@ def training_phase(torch, np, lm, cfg, device) -> int:
     card-vs-CPU check of the loss and gradient; and the training CLI on the
     reduced model recovering from injected failures.  Returns the flash
     kernel's launches over the TRAIN_STEPS steps."""
-    import statistics
     import tempfile
 
     t_phase = time.perf_counter()
+    launches = train_full_width(torch, np, cfg, device, ("flash_attention",))
+    log(f"[time] phase 5 ({cfg.name} training): {time.perf_counter() - t_phase:.1f} s")
+    depth2_phase(torch, np, lm, cfg, device, TRAIN_FAULTS)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        res, cli_launches = recovery_run(torch, device, ckpt_dir)
+    loss = res["last_metrics"]["loss"].item()
+    log(f"[train] reduced CLI with injected failures: {res['steps']} steps, "
+        f"{res['restarts']} restarts, final loss {loss:.4f}, flash_attention "
+        f"launches {cli_launches}, {time.perf_counter() - t0:.1f} s")
+    assert res["restarts"] >= 1 and res["steps"] == 20 and np.isfinite(loss)
+    assert cli_launches > 0 or device.type != "cuda"
+    return launches["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the Mamba-2 SSM family (mamba2-2.7B)
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2_2_7b"
+SSM_KERNELS = ("chunk_state", "chunk_scan")
+# Limits of the SSM's depth-2 check beyond phase 5's (0.02 nats and 5% of
+# grad norm against the card's plain path, 5% of grad norm against the CPU):
+# the loss within SSM_LOSS_CPU_NATS of the CPU's fp32 one, and the least
+# cosine of a ``layers/mamba/*`` gradient with the CPU's.  SSM_FAULTS are run
+# in the kernels' place and must each fail the limits.
+# On an H100 80GB HBM3 at 700 W the kernel path read 0.999909 (1 - cos
+# 9.1e-5) and the faults 0.015, 0.995800 (4.2e-3: the carried state
+# dropped, which moves only the first rows of the second chunk) and NaN
+# (the first-row decay overflows); 0.9994 (6e-4) sits about 7x from the
+# sound reading and from the subtlest fault.  The loss against the CPU read
+# 2.9e-5 nats.
+SSM_LOSS_CPU_NATS = 0.02
+SSM_COS_MIN = 0.9994
+SSM_FAULTS = ("scan without the causal mask", "carried state dropped",
+              "state decay from the first row")
+
+
+def ssd_fault(torch, ref, fault):
+    """(chunk_state, chunk_scan) plain versions with one planted fault: the
+    scan keeps its decay select but not the causal zeroing (later tokens
+    leak into earlier outputs); the scan drops the state carried into each
+    chunk; or the state weighs each row by its decay from the chunk's first
+    row instead of to its last."""
+    if fault == "scan without the causal mask":
+        return ref.chunk_state, lambda *a: scan_variant(torch, *a, causal=False)
+    if fault == "carried state dropped":
+        return ref.chunk_state, lambda c, b, x, da, prev: ref.chunk_scan(
+            c, b, x, da, torch.zeros_like(prev))
+    assert fault == "state decay from the first row", fault
+
+    def state(b, x, da):
+        w = torch.exp(da[..., :1] - da)
+        return torch.einsum("...cln,...clp->...cnp", b.float() * w[..., None], x.float())
+    return state, ref.chunk_scan
+
+
+@contextlib.contextmanager
+def ssd_as(ops, chunk_state, chunk_scan):
+    """Inside the block, ``ops.chunk_state``/``ops.chunk_scan`` are the given
+    functions on every device (the plain versions, or a planted fault)."""
+    saved = ops.chunk_state, ops.chunk_scan
+    ops.chunk_state, ops.chunk_scan = chunk_state, chunk_scan
+    try:
+        yield
+    finally:
+        ops.chunk_state, ops.chunk_scan = saved
+
+
+def logit_agreement(torch, got_rows, want_rows):
+    """Teacher-forced logits ``got_rows`` against ``want_rows`` (one row a
+    step), as phase 4 reads them (:func:`step_agreement`): the worst error,
+    the fewest top 10 kept, the steps whose argmax agrees, and each
+    disagreeing step's top-2 margin and error (std).  ``argmax_wide`` counts the steps whose reference top-2
+    margin exceeds twice the step's max |diff| and ``argmax_wide_ok`` those
+    of them that agree: there the error cannot swap the two tokens."""
+    res = {"err": 0.0, "top10": TOPK, "argmax": 0, "steps": 0, "swaps": [],
+           "argmax_wide": 0, "argmax_wide_ok": 0}
+    for step, (got, want) in enumerate(zip(got_rows, want_rows)):
+        err, common, hit, margin = step_agreement(torch, got, want)
+        if not hit:
+            res["swaps"].append((step, margin, err))
+        if margin > 2 * err:
+            res["argmax_wide"] += 1
+            res["argmax_wide_ok"] += hit
+        res["err"] = max(res["err"], err)
+        res["top10"] = min(res["top10"], common)
+        res["argmax"] += hit
+        res["steps"] += 1
+    return res
+
+
+def agreement_ok(r) -> bool:
+    return (r["err"] <= TF_STD_LIMIT and r["top10"] >= TF_TOP10_MIN
+            and r["argmax_wide_ok"] == r["argmax_wide"])
+
+
+def log_agreement(label, r):
+    log(f"[e2e] {label}, {r['steps']} steps: worst max|diff| {r['err']:.3e} "
+        f"standard deviations of the reference logits (limit {TF_STD_LIMIT:g}), "
+        f"fewest top-{TOPK} tokens kept {r['top10']} (limit {TF_TOP10_MIN}), "
+        f"argmax agrees at {r['argmax']}/{r['steps']} steps, at "
+        f"{r['argmax_wide_ok']}/{r['argmax_wide']} of those whose top-2 margin "
+        "exceeds twice their max|diff| (gated)"
+        + "".join(f" (step {i}: top-2 margin {m:.3e} std, max|diff| {e:.3e} std)"
+                  for i, m, e in r["swaps"][:8]))
+
+
+def ssm_forward_vs_decode(torch, np, lm, cfg4, dev, seq=256):
+    """The reference's test_decode_matches_forward_ssm (tests/test_models.py:
+    112) at full width: one seeded sequence of ``seq`` tokens (two chunks of
+    128, so the carried state matters) through ``forward`` on the card (bf16,
+    the SSD kernels) and through ``decode_step`` token by token on the card
+    (bf16, the plain recurrence, which shares no code with the kernels);
+    and the card's bf16 forward against the CPU's fp32 forward of the same
+    weights upcast.  Returns the two ``logit_agreement`` readings and the
+    kernels' launches in the card's forward."""
+    from repro_torch.kernels.ops import KERNELS
+
+    params = lm.init(cfg4, 7, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg4.vocab_size, size=(1, seq)), dtype=torch.int32, device=dev)
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        for k in KERNELS.values():
+            k.launches = 0
+        full, _ = lm.forward(params, cfg4, toks)
+        launches = {k: KERNELS[k].launches for k in SSM_KERNELS}
+        full = full[0].float().cpu()
+        cache = lm.init_cache(cfg4, 1, seq, layout="contiguous", device=dev)
+        steps = []
+        for t in range(seq):
+            logits, cache = lm.decode_step(params, cfg4, cache, toks[:, t], t)
+            steps.append(logits[0].float().cpu())
+        cfg32 = dataclasses.replace(cfg4, dtype="float32")
+        full32, _ = lm.forward(_tree_to(torch, params, cpu, torch.float32), cfg32,
+                               toks.cpu())
+    return (logit_agreement(torch, steps, full),
+            logit_agreement(torch, full, full32[0]), launches)
+
+
+def ssm_serving_phase(torch, np, lm, cfg, params, kernels, device):
+    """Phase 6 serving: the phase 3 workload's first SSM_SERVE_REQUESTS
+    requests through the contiguous recurrent-state cache (prompts replayed a token a tick, as the
+    reference), per tick and with ``sync_every=16`` under the no-host-sync
+    check.  The window's outputs are byte-identical to per-tick's, with
+    equal ticks and mean TTFT and fewer host dispatches; no kernel launches
+    (the SSD kernels serve the full-sequence forward only)."""
+    runs = {}
+    run = make_runner(torch, np, cfg, params, kernels, device, runs)
+    kw = dict(cache="contiguous", requests=SSM_SERVE_REQUESTS)
+    tick, tick_reqs = run("contiguous, per tick", (), **kw)
+    with strict_windows(torch, lm, device):
+        win, win_reqs = run("contiguous, sync_every=16", (), sync_every=16, **kw)
+    assert tick.prefill_mode == "replay" and tick.pool is None
+    assert win.steps_run == tick.steps_run and mean_ttft(win_reqs) == mean_ttft(tick_reqs)
+    assert win.decode_windows > 0 and win.dispatches < tick.dispatches
+    assert [r.output for r in win_reqs] == [r.output for r in tick_reqs]
+    log(f"[serve] {cfg.name} sync_every=16: outputs byte-identical to per-tick; "
+        f"{win.dispatches} dispatches ({win.decode_windows} windows, no host "
+        f"sync inside) against {tick.dispatches}; SSD kernel launches "
+        + ", ".join(f"{k} {runs['contiguous, per tick'][3][k]}" for k in SSM_KERNELS))
+    return runs
+
+
+def train_full_width(torch, np, cfg, device, kernels):
+    """TRAIN_STEPS steps of full-width ``cfg`` at TRAIN_BATCH x TRAIN_SEQ,
+    two more profiled; logs them and checks every loss and grad norm
+    finite, the loss falling, and each of ``kernels`` (and no other kernel)
+    launched twice a layer a step on a card: each layer's forward and its
+    recompute.  Returns the launches by kernel."""
+    import statistics
+
     tr = train_steps(torch, cfg, device, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
                      profile_steps=2)
     med = statistics.median(tr["seconds"][1:])
     per_step = 2 * cfg.num_layers
-    log(f"[train] {cfg.name} full width, bf16, batch {TRAIN_BATCH} x seq "
+    log(f"[train] {cfg.name} full width, {cfg.dtype}, batch {TRAIN_BATCH} x seq "
         f"{TRAIN_SEQ}, AdamW (peak lr 3e-4, warmup 1, {TRAIN_STEPS} steps): step "
         f"time {med * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
         f"{tr['seconds'][0] * 1e3:.1f} ms), {TRAIN_BATCH * TRAIN_SEQ / med:.0f} "
         f"tokens/s, peak {tr['peak_gib']:.2f} GiB allocated; losses "
         + " ".join(f"{x:.4f}" for x in tr["losses"]) + "; grad norms "
         + " ".join(f"{x:.3f}" for x in tr["gnorms"])
-        + f"; flash_attention launches {tr['launches']} ({per_step} a step)")
+        + f"; launches {tr['launches']} ({per_step} a step each)")
     prof = dict(tr["profile"])
     top = prof.pop("top")
     log(f"[train] profile of 2 more steps: wall {tr['profile_wall'] * 1e3:.1f} ms; "
@@ -1525,44 +1982,84 @@ def training_phase(torch, np, lm, cfg, device) -> int:
         + "; ".join(f"{name} x{n} {ms:.1f} ms" for name, n, ms in top))
     assert all(np.isfinite(tr["losses"])) and all(np.isfinite(tr["gnorms"])), tr
     assert tr["losses"][-1] < tr["losses"][0], tr["losses"]
-    assert tr["launches"] == per_step * TRAIN_STEPS * (device.type == "cuda"), tr
+    want = ({k: per_step * TRAIN_STEPS for k in kernels}
+            if device.type == "cuda" else {})
+    assert tr["launches"] == want, tr["launches"]
+    return {k: tr["launches"].get(k, 0) for k in kernels}
 
-    log(f"[time] phase 5 ({cfg.name} training): {time.perf_counter() - t_phase:.1f} s")
 
+def depth2_phase(torch, np, lm, cfg, device, faults):
+    """The depth-2 card-vs-CPU check of one training step (full width,
+    batch 2 x seq 256): logs every run's readings, holds the kernel path to
+    the limits and each planted fault of ``faults`` outside them."""
     t0 = time.perf_counter()
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     r = train_card_vs_cpu(torch, np, lm, cfg2, device)
-    (loss32, gnorm32, _), (plain, gplain, _) = r["cpu fp32"], r["card bf16, plain attention"]
+    plain_label, loss_cpu, cos_min, cos_name = depth2_limits(r)
+    (loss32, gnorm32, _), (plain, gplain, _) = r["cpu fp32"], r[plain_label]
     log(f"[train] {cfg.name} 2 layers at full width, batch 2 x seq 256, one "
-        f"step's loss, grad norm and least layers/attn/* gradient cosine with "
-        f"CPU fp32: " + "; ".join(
+        f"step's loss, grad norm and least {cos_name} with CPU fp32: "
+        + "; ".join(
             f"{label} {lo:.4f} nats (from CPU fp32 {abs(lo - loss32):.4f}, "
             f"{abs(lo - loss32) / abs(loss32):.2e} of it; from card plain "
             f"{abs(lo - plain):.4f}), grad norm {gn:.4f} (ratio to CPU "
-            f"{gn / gnorm32:.5f}, to card plain {gn / gplain:.5f}), attn cosine "
-            f"{cos:.6f}" + ("" if label in ("cpu fp32", "card bf16, plain attention")
+            f"{gn / gnorm32:.5f}, to card plain {gn / gplain:.5f}), cosine "
+            f"{cos:.6f}" + ("" if label in ("cpu fp32", plain_label)
                             else f", fails {train_limits_failed(r, label) or 'none'}")
             for label, (lo, gn, cos) in ((k, r[k]) for k in r if k != "cosines"))
         + f"; limits: {TRAIN_LOSS_NATS} nats and grad norm {TRAIN_GNORM_RATIO:.0%} "
-        f"against card plain, {TRAIN_LOSS_REL:g} of the loss and grad norm "
-        f"{TRAIN_GNORM_RATIO:.0%} against CPU fp32, attn cosine >= "
-        f"{TRAIN_ATTN_COS_MIN:g}; {time.perf_counter() - t0:.1f} s")
+        f"against card plain, {loss_cpu:.4g} nats and grad norm "
+        f"{TRAIN_GNORM_RATIO:.0%} against CPU fp32, {cos_name} >= {cos_min:g}; "
+        f"{time.perf_counter() - t0:.1f} s")
     log("[train] per-leaf gradient cosine, card bf16 kernel path vs CPU fp32: "
         + ", ".join(f"{name} {c:.5f}" for name, c in r["cosines"].items()))
     assert train_card_vs_cpu_ok(r), r
-    for fault in TRAIN_FAULTS:  # the planted faults must fail the limits
+    for fault in faults:  # the planted faults must fail the limits
         assert not train_card_vs_cpu_ok(r, f"fault: {fault}"), (fault, r)
 
+
+def ssm_phase(torch, np, lm, device):
+    """Phase 6, full-width mamba2-2.7B (64 layers, d 2560, 80 heads of P 64,
+    N 128, bf16 with fp32 a_log/d_skip/dt_bias): training through the two
+    SSD kernels (TRAIN_STEPS steps and two profiled), the depth-2 check with
+    the SSD faults, forward against decode at depth 4, and serving through
+    the contiguous cache.  Returns the kernels' launches over the training
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KERNELS
+
+    cfg = get_config(SSM_ARCH)
+    t_phase = time.perf_counter()
+    launches = train_full_width(torch, np, cfg, device, SSM_KERNELS)
+    torch.cuda.empty_cache()
+    log(f"[time] phase 6 ({cfg.name} training): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    depth2_phase(torch, np, lm, cfg, device, SSM_FAULTS)
+
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        res, launches = recovery_run(torch, device, ckpt_dir)
-    loss = res["last_metrics"]["loss"].item()
-    log(f"[train] reduced CLI with injected failures: {res['steps']} steps, "
-        f"{res['restarts']} restarts, final loss {loss:.4f}, flash_attention "
-        f"launches {launches}, {time.perf_counter() - t0:.1f} s")
-    assert res["restarts"] >= 1 and res["steps"] == 20 and np.isfinite(loss)
-    assert launches > 0 or device.type != "cuda"
-    return tr["launches"]
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    vs_decode, vs_cpu, fwd_launches = ssm_forward_vs_decode(torch, np, lm, cfg4, device)
+    log_agreement(f"{cfg.name}, 4 layers at full width, card bf16 forward (SSD "
+                  f"kernels, launches {fwd_launches}) vs card bf16 decode_step "
+                  "(the recurrence)", vs_decode)
+    log_agreement(f"{cfg.name}, 4 layers at full width, card bf16 forward vs CPU "
+                  "fp32 forward", vs_cpu)
+    log(f"[time] phase 6 ({cfg.name} depth-2 check and forward vs decode): "
+        f"{time.perf_counter() - t_phase:.1f} s (forward vs decode "
+        f"{time.perf_counter() - t0:.1f} s)")
+    assert agreement_ok(vs_decode) and agreement_ok(vs_cpu), (vs_decode, vs_cpu)
+    assert all(n == cfg4.num_layers for n in fwd_launches.values()), fwd_launches
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, 0, device=device)
+    log(f"[serve] {cfg.name}: {lm.param_count(params) / 1e9:.3f} B params "
+        f"({cfg.dtype}, a_log/d_skip/dt_bias fp32) initialised on the card")
+    ssm_serving_phase(torch, np, lm, cfg, params, KERNELS, device)
+    del params
+    torch.cuda.empty_cache()
+    log(f"[time] phase 6 ({cfg.name} serving): {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

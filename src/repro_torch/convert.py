@@ -7,10 +7,13 @@ and the port's trees back to numpy.
 
 The tree keeps its layout (``embed``, the ``prefix_layers`` list, stacked
 ``layers`` leaves of shape (L - prefix, ...), ``final_norm``); each leaf
-becomes a tensor of the config's dtype on ``device``, except the MoE
-router, which the reference keeps in fp32 whatever the model's dtype
-(layers.py:753).  bfloat16 leaves (``ml_dtypes``) are reinterpreted bit for
-bit.  This module imports neither JAX nor ``repro``.
+becomes a tensor on ``device`` of the dtype ``layers.leaf_dtype`` gives it,
+the rule the port's own ``init`` follows: the config's dtype, except the
+leaves the reference keeps in fp32 whatever the model's dtype
+(``layers.FP32_LEAVES``: the MoE router, layers.py:753, and the SSM's
+a_log, d_skip and dt_bias, layers.py:865-867).  bfloat16 leaves
+(``ml_dtypes``) are reinterpreted bit for bit.  This module imports neither
+JAX nor ``repro``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 
 from .core.device import resolve_device
 from .models import lm
-from .models.layers import dtype_of
+from .models.layers import leaf_dtype
 
 
 def _tensor(a, dtype, device):
@@ -36,7 +39,6 @@ def params_from_numpy(tree, cfg, device="cuda"):
     port's parameters for ``cfg`` on ``device``."""
     lm.require_supported(cfg)
     dev = resolve_device(device)
-    dt = dtype_of(cfg)
     n_prefix = lm.num_prefix_layers(cfg)
     if len(tree.get("prefix_layers") or []) != n_prefix:
         raise ValueError(f"tree has {len(tree.get('prefix_layers') or [])} "
@@ -47,7 +49,7 @@ def params_from_numpy(tree, cfg, device="cuda"):
             return {k: conv(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
-        return _tensor(node, torch.float32 if key == "router" else dt, dev)
+        return _tensor(node, leaf_dtype(key, cfg), dev)
 
     params = conv(tree)
     n = params["layers"]["norm1"].shape[0]

@@ -4,5 +4,6 @@ quantized twins ``paged_attention_quant``, ``prefill_attention_quant``),
 the latent (MLA) kernels ``mla_paged``, ``mla_prefill`` and their twins
 ``mla_paged_quant``, ``mla_prefill_quant``, the contiguous
 ``flash_attention`` of the full-sequence forward (with its autograd
-function), the plain PyTorch versions
+function), the Mamba-2 SSD's ``chunk_state`` and ``chunk_scan`` (each with
+its autograd function), the plain PyTorch versions
 (``ref``) and the dispatch layer (``ops``)."""

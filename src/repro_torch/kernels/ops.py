@@ -1,7 +1,9 @@
 """Public kernel API: dispatch between the hand-written CUDA kernels and the
 plain PyTorch path, plus the host-side dispatch guard.
 
-Counterpart of ``repro.kernels.ops`` for the serving and training paths.
+Counterpart of ``repro.kernels.ops`` for the serving and training paths
+(attention of every kind, and the Mamba-2 SSD's chunk_state and
+chunk_scan).
 The routing rules are the reference's, kept as explicit rules:
 
 * a soft-capped model takes the plain path (ops.py:247, :353), because no
@@ -23,8 +25,11 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..core.errors import GuardError
+from . import chunk_scan as _csc
+from . import chunk_state as _cst
 from . import flash_attention as _fa
 from . import mla_paged as _mp
 from . import mla_paged_quant as _mpq
@@ -42,7 +47,8 @@ KERNELS = {"paged_attention": _pa.KERNEL, "prefill_attention": _pf.KERNEL,
            "prefill_attention_quant": _pfq.KERNEL,
            "mla_paged": _mp.KERNEL, "mla_prefill": _mf.KERNEL,
            "mla_paged_quant": _mpq.KERNEL, "mla_prefill_quant": _mfq.KERNEL,
-           "flash_attention": _fa.KERNEL}
+           "flash_attention": _fa.KERNEL, "chunk_state": _cst.KERNEL,
+           "chunk_scan": _csc.KERNEL}
 
 
 def guard_dispatch(tables, num_pages, page_size, work):
@@ -294,6 +300,41 @@ def mla_prefill_quant(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
     return ref.paged_mla_prefill_quant(*args, fmt=fmt, sm_scale=sm_scale,
                                        window=window,
                                        logit_soft_cap=logit_soft_cap)
+
+
+def chunk_state(b_mat, x, da_cum):
+    """Mamba-2 per-chunk states (ops.py:731): ``b_mat`` (..., C, L, N),
+    ``x`` (..., C, L, P), ``da_cum`` (..., C, L) -> (..., C, N, P) fp32,
+    differentiable, through :class:`~.chunk_state.ChunkStateFn` (the kernel
+    for CUDA tensors, its plain version for CPU ones)."""
+    return _cst.ChunkStateFn.apply(b_mat, x, da_cum.float())
+
+
+def chunk_scan(c_mat, b_mat, x, da_cum, prev_states):
+    """Mamba-2 within-chunk scan plus the carried states (ops.py:744):
+    ``c_mat``/``b_mat`` (..., C, L, N), ``x`` (..., C, L, P), ``da_cum``
+    (..., C, L), ``prev_states`` (..., C, N, P) -> (..., C, L, P) in x's
+    dtype, differentiable, through :class:`~.chunk_scan.ChunkScanFn`."""
+    return _csc.ChunkScanFn.apply(c_mat, b_mat, x, da_cum.float(),
+                                  prev_states.float())
+
+
+def ssd(c_mat, b_mat, x, dt, a_log, *, chunk: int = 64):
+    """The full SSD pass composed from the two kernels and the plain
+    inter-chunk recurrence (ops.py:759): ``c_mat``/``b_mat`` (B, S, N),
+    ``x`` (B, S, P), ``dt`` (B, S), ``a_log`` a scalar -> (B, S, P) in x's
+    dtype."""
+    bsz, s, _ = c_mat.shape
+    p = x.shape[-1]
+    nc = s // chunk
+    rs = lambda t: t.reshape(bsz, nc, chunk, *t.shape[2:])  # noqa: E731
+    da = dt * (-torch.exp(torch.as_tensor(a_log, dtype=torch.float32,
+                                          device=dt.device)))
+    da_cum = torch.cumsum(da.reshape(bsz, nc, chunk), dim=-1)
+    states = chunk_state(rs(b_mat), rs(x), da_cum)
+    incoming = ref.state_recurrence(states, da_cum[..., -1])
+    y = chunk_scan(rs(c_mat), rs(b_mat), rs(x), da_cum, incoming)
+    return y.reshape(bsz, s, p).to(x.dtype)
 
 
 def rmsnorm(x, weight, eps: float = 1e-6):

@@ -4,8 +4,10 @@ Counterparts of ``repro.kernels.ref``: ``paged_attention`` (ref.py:286),
 ``prefill_attention`` (:343), ``rmsnorm`` (:664), the KV quantization
 primitives with ``paged_attention_quant`` (:115-172) and the latent (MLA)
 oracles ``mla_paged`` (:454), ``mla_prefill`` (:480) and
-``mla_paged_quant`` (:174), and the contiguous ``attention`` (:235), the
-flash-attention kernel's plain version, op for op.  They are
+``mla_paged_quant`` (:174), the contiguous ``attention`` (:235), the
+flash-attention kernel's plain version, and the Mamba-2 SSD pieces
+``chunk_state`` (:585), ``chunk_scan`` (:596), ``state_recurrence`` (:619)
+and ``ssd`` (:638), op for op.  They are
 the oracles the CUDA kernels are held against on the card, and the path
 every CPU tensor takes.  Scores, softmax and the P.V product run in fp32
 whatever the input dtype; the result is cast back to ``out_dtype`` (default:
@@ -548,6 +550,85 @@ def attention(
         out = _attn_block(q, k, v, off, causal, sm_scale, logit_soft_cap,
                           kv_len, window)
     return out.to(out_dtype or q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD chunked linear attention (ref.py:579-657)
+# ---------------------------------------------------------------------------
+# Every function takes any number of leading (batch) dimensions: the port
+# keeps batch and head apart, (B, H, ...), where the reference folds them
+# into one (B * H, ...); the arithmetic is the same per (batch, head) row.
+
+
+def chunk_cumsum(dt: torch.Tensor, a_log: torch.Tensor):
+    """dt (B, H, L), a_log (H,) -> (dA_cum, dA), the per-chunk cumulative
+    decay and the per-step decay (ref.py:579)."""
+    da = dt * (-torch.exp(a_log))[None, :, None]
+    return torch.cumsum(da, dim=-1), da
+
+
+def chunk_state(b_mat: torch.Tensor, x: torch.Tensor,
+                da_cum: torch.Tensor) -> torch.Tensor:
+    """Per-chunk state S = sum_l exp(dA_last - dA_l) B_l^T x_l (ref.py:585):
+    b_mat (..., C, L, N), x (..., C, L, P), da_cum (..., C, L) ->
+    (..., C, N, P) fp32."""
+    decay = torch.exp(da_cum[..., -1:] - da_cum)
+    bw = b_mat.float() * decay[..., None]
+    return torch.einsum("...cln,...clp->...cnp", bw, x.float())
+
+
+def chunk_scan(c_mat: torch.Tensor, b_mat: torch.Tensor, x: torch.Tensor,
+               da_cum: torch.Tensor, prev_states: torch.Tensor) -> torch.Tensor:
+    """Within-chunk scan plus the carried state's contribution (ref.py:596):
+    c_mat, b_mat (..., C, L, N), x (..., C, L, P), da_cum (..., C, L),
+    prev_states (..., C, N, P) -> (..., C, L, P) in x's dtype.  The decay
+    exp(dA_l - dA_m) is taken only where l >= m (the select comes before the
+    exp): above the diagonal the exponent is positive and may overflow to
+    inf, and inf * 0 would give NaN."""
+    cf, bf, xf = c_mat.float(), b_mat.float(), x.float()
+    n = x.shape[-2]
+    y_inter = (torch.einsum("...cln,...cnp->...clp", cf, prev_states.float())
+               * torch.exp(da_cum)[..., None])
+    seg = da_cum[..., :, None] - da_cum[..., None, :]  # dA_l - dA_m
+    mask = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
+    att = (torch.einsum("...cln,...cmn->...clm", cf, bf)
+           * torch.exp(torch.where(mask, seg, 0.0)))
+    att = torch.where(mask, att, 0.0)
+    y_intra = torch.einsum("...clm,...cmp->...clp", att, xf)
+    return (y_inter + y_intra).to(x.dtype)
+
+
+def state_recurrence(states: torch.Tensor, da_chunk: torch.Tensor) -> torch.Tensor:
+    """Carry states across chunks, S'_c = exp(dA_chunk_c) S'_{c-1} + S_c
+    (ref.py:619, the reference's ``lax.scan``): ``states`` (..., C, N, P)
+    per-chunk local states, ``da_chunk`` (..., C) each chunk's total decay.
+    Returns the *incoming* state of each chunk, (..., C, N, P) fp32.  A loop
+    over the chunks, differentiable; it stays plain PyTorch on every
+    device."""
+    carry = torch.zeros_like(states[..., 0, :, :], dtype=torch.float32)
+    incoming = []
+    for c in range(states.shape[-3]):
+        incoming.append(carry)
+        carry = carry * torch.exp(da_chunk[..., c])[..., None, None] + states[..., c, :, :]
+    return torch.stack(incoming, dim=-3)
+
+
+def ssd(c_mat: torch.Tensor, b_mat: torch.Tensor, x: torch.Tensor,
+        dt: torch.Tensor, a_log, chunk: int = 64) -> torch.Tensor:
+    """The full SSD pass, the plain composition of the two kernels
+    (ref.py:638): c_mat, b_mat (B, S, N), x (B, S, P), dt (B, S), a_log a
+    scalar (or broadcastable to dt) -> (B, S, P)."""
+    bsz, s, _ = c_mat.shape
+    p = x.shape[-1]
+    nc = s // chunk
+    rs = lambda t: t.reshape(bsz, nc, chunk, *t.shape[2:])  # noqa: E731
+    da = dt * (-torch.exp(torch.as_tensor(a_log, dtype=torch.float32,
+                                          device=dt.device)))
+    da_cum = torch.cumsum(da.reshape(bsz, nc, chunk), dim=-1)
+    states = chunk_state(rs(b_mat), rs(x), da_cum)
+    incoming = state_recurrence(states, da_cum[..., -1])
+    y = chunk_scan(rs(c_mat), rs(b_mat), rs(x), da_cum, incoming)
+    return y.reshape(bsz, s, p)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -8,10 +8,17 @@ or full-width model, on the card by default.
 
 The flags are ``repro.launch.serve``'s, plus ``--device``; as in the
 reference, the KV storage format (int8 / int4 pages) is a ``ServeConfig``
-field with no flag.  Options of the reference that are not ported yet
-(``--spec-decode``, ``--audit``, ``--cache contiguous``, ``--temperature`` >
-0) raise ``NotImplementedError`` naming their ROADMAP item.  The summary line is the
-reference's, followed by the kernel launch counts of the run.
+field with no flag.  ``--cache contiguous`` serves the attention-free SSM
+family over its per-slot recurrent state:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b \
+        --cache contiguous --reduced --device cpu
+
+Options of the reference that are not ported yet (``--spec-decode``,
+``--audit``, ``--cache contiguous`` for an attention model,
+``--temperature`` > 0) raise ``NotImplementedError`` naming their ROADMAP
+item.  The summary line is the reference's, followed by the kernel launch
+counts of the run.
 """
 from __future__ import annotations
 

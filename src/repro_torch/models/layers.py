@@ -1,8 +1,10 @@
-"""Model layers of the dense GQA decoder and of the MLA + MoE decoder (plain
-functions over parameter dicts), the port's counterpart of the serving and
-training subset of ``repro.models.layers``: GQA and multi-head latent
-attention over paged pools, full-sequence GQA attention, the dense MLP and
-the capacity-dispatched mixture of experts.
+"""Model layers of the dense GQA decoder, the MLA + MoE decoder and the
+Mamba-2 SSM (plain functions over parameter dicts), the port's counterpart
+of the serving and training subset of ``repro.models.layers``: GQA and
+multi-head latent attention over paged pools, full-sequence GQA attention,
+the dense MLP, the capacity-dispatched mixture of experts, and the Mamba-2
+layer, full sequence (through the SSD kernels) and one token at a time (the
+recurrence).
 
 Parameters are plain dicts of tensors with the reference's tree layout.
 Paged KV pools are updated **in place**: where the reference returned new
@@ -27,6 +29,18 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
+
+
+# Leaves the reference keeps in fp32 whatever the model's dtype: the MoE
+# router (layers.py:753) and the SSM's per-head a_log, d_skip and dt_bias
+# (layers.py:865-867).  ``lm.init`` and ``convert.params_from_numpy`` both
+# take a leaf's dtype from :func:`leaf_dtype`.
+FP32_LEAVES = frozenset({"router", "a_log", "d_skip", "dt_bias"})
+
+
+def leaf_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
+    """The dtype of the parameter leaf called ``name`` under ``cfg``."""
+    return torch.float32 if name in FP32_LEAVES else dtype_of(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +523,7 @@ def init_moe(gen, cfg: ModelConfig) -> Params:
     d, fe, e = cfg.d_model, mo.d_ff_expert, mo.num_experts
     dt = dtype_of(cfg)
     p = {
-        "router": _dense_init(gen, (d, e), torch.float32),
+        "router": _dense_init(gen, (d, e), leaf_dtype("router", cfg)),
         "w_gate": _dense_init(gen, (e, d, fe), dt),
         "w_up": _dense_init(gen, (e, d, fe), dt),
         "w_down": _dense_init(gen, (e, fe, d), dt),
@@ -584,3 +598,163 @@ def moe(params: Params, x, cfg: ModelConfig):
     density = (gate_idx[..., 0, None] == experts).float().mean(dim=(0, 1))
     aux = (density * probs.mean(dim=(0, 1))).sum() * e * mo.router_aux_weight
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) layer
+# ---------------------------------------------------------------------------
+
+
+def init_mamba2(gen, cfg: ModelConfig) -> Params:
+    """layers.py:848: separate projections (z, x, B, C, dt), the depthwise
+    causal conv, fp32 per-head ``a_log``/``d_skip``/``dt_bias``, the gated
+    norm's weight and the output projection."""
+    sm = cfg.ssm
+    d = cfg.d_model
+    di, nh, n = sm.d_inner(d), sm.num_heads(d), sm.state_dim
+    conv_dim = di + 2 * n
+    dt, dev = dtype_of(cfg), gen.device
+    conv_w = torch.randn((sm.conv_width, conv_dim), generator=gen, device=dev,
+                         dtype=torch.float32) * 0.1
+    return {
+        "w_z": _dense_init(gen, (d, di), dt),
+        "w_x": _dense_init(gen, (d, di), dt),
+        "w_B": _dense_init(gen, (d, n), dt),
+        "w_C": _dense_init(gen, (d, n), dt),
+        "w_dt": _dense_init(gen, (d, nh), dt),
+        "conv_w": conv_w.to(dt),
+        "conv_b": torch.zeros((conv_dim,), dtype=dt, device=dev),
+        "a_log": torch.zeros((nh,), dtype=leaf_dtype("a_log", cfg), device=dev),
+        "d_skip": torch.ones((nh,), dtype=leaf_dtype("d_skip", cfg), device=dev),
+        "dt_bias": torch.zeros((nh,), dtype=leaf_dtype("dt_bias", cfg), device=dev),
+        "norm_w": torch.ones((di,), dtype=dt, device=dev),
+        "out_proj": _dense_init(gen, (di, d), dt),
+    }
+
+
+def _mamba_proj(params, x):
+    """layers.py:873: (z, x, B, C, dt), each ``x @ w``."""
+    return tuple(x @ params[k] for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+
+
+def _causal_conv(x, w, b):
+    """x (B, S, C); the depthwise causal conv of width W as the reference
+    writes it (layers.py:882): a sum of shifted products, then SiLU."""
+    width, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = pad[:, 0:s, :] * w[0][None, None, :]
+    for i in range(1, width):
+        out = out + pad[:, i:i + s, :] * w[i][None, None, :]
+    return F.silu(out + b)
+
+
+def mamba2_ssd_inputs(params, x, cfg: ModelConfig):
+    """The first half of :func:`mamba2_full` (layers.py:892-916): the
+    projections, the causal conv and the softplus of dt.  Returns ``(z, xh,
+    Ch, Bh, dth, chunk)``: ``xh`` (B, H, S, P) a transposed view; ``Ch`` and
+    ``Bh`` (B, H, S, N) the conv's C and B broadcast over the H heads as
+    ``expand``ed views (head stride 0, no copy: autograd sums their
+    gradient over the heads); ``dth`` (B, H, S) fp32; and the chunk, 128 or
+    ``gcd(S, 128)`` for a sequence 128 does not divide."""
+    sm = cfg.ssm
+    b, s, d = x.shape
+    di, nh, n = sm.d_inner(d), sm.num_heads(d), sm.state_dim
+    z, xin, bm, cm, dt = _mamba_proj(params, x)
+    conv_out = _causal_conv(torch.cat([xin, bm, cm], dim=-1), params["conv_w"],
+                            params["conv_b"])
+    xin, bm, cm = torch.split(conv_out, [di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"])  # (b, s, nh)
+    xh = xin.reshape(b, s, nh, sm.head_dim).transpose(1, 2)
+    bh = bm[:, None].expand(b, nh, s, n)
+    ch = cm[:, None].expand(b, nh, s, n)
+    chunk = min(sm.chunk, s)
+    if s % chunk:
+        chunk = math.gcd(s, chunk) or 1
+    return z, xh, ch, bh, dt.transpose(1, 2), chunk
+
+
+def mamba2_full(params: Params, x, cfg: ModelConfig):
+    """Full-sequence Mamba-2 layer (layers.py:892): the SSD through the
+    chunk_state and chunk_scan kernels, the D skip, the SiLU(z)-gated RMS
+    norm and the output projection, with the reference's roundings
+    (``xh * dt`` rounded to the model dtype before the SSD, the SSD's output
+    in the model dtype, the skip and the gate in fp32)."""
+    b, s, _ = x.shape
+    z, xh, ch, bh, dth, chunk = mamba2_ssd_inputs(params, x, cfg)
+    xdt = xh * dth[..., None].to(xh.dtype)
+    y = _ssd_batched(ch, bh, xdt, dth, params["a_log"], chunk)
+    y = y + params["d_skip"][None, :, None, None] * xh
+    y = y.transpose(1, 2).reshape(b, s, -1)
+    y = rmsnorm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
+    return y.to(x.dtype) @ params["out_proj"]
+
+
+def ssd_operands(c, bm, x, dt, a_log, chunk: int):
+    """The SSD kernels' operands (layers.py:923-933): ``c``/``bm`` (..., S,
+    N), ``x`` (..., S, P) as (..., S / chunk, chunk, .) views, and the
+    per-chunk cumulative decay dA_cum (..., S / chunk, chunk) fp32 from
+    ``dt`` (..., H, S) and the per-head ``a_log`` (H,)."""
+    s = c.shape[-2]
+    nc = s // chunk
+    rs = lambda t: t.reshape(*t.shape[:-2], nc, chunk, t.shape[-1])  # noqa: E731
+    da = dt * (-torch.exp(a_log))[:, None]
+    da_cum = torch.cumsum(da.reshape(*da.shape[:-1], nc, chunk), dim=-1)
+    return rs(c), rs(bm), rs(x), da_cum
+
+
+def _ssd_batched(c, bm, x, dt, a_log, chunk: int):
+    """SSD with per-head a_log (layers.py:923): the two kernels (through
+    their autograd functions) around the plain inter-chunk recurrence.
+    Returns (..., S, P) in x's dtype."""
+    cc, bb, xx, da_cum = ssd_operands(c, bm, x, dt, a_log, chunk)
+    states = ops.chunk_state(bb, xx, da_cum)
+    incoming = ref.state_recurrence(states, da_cum[..., -1])
+    y = ops.chunk_scan(cc, bb, xx, da_cum, incoming)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def init_mamba2_cache(cfg: ModelConfig, batch: int, device,
+                      layers: Optional[int] = None) -> Params:
+    """layers.py:938: the recurrent state ``ssm`` (batch, H, N, P) fp32 and
+    the conv window ``conv`` (batch, W - 1, conv_dim) in the model dtype,
+    stacked over ``layers`` in front when given."""
+    sm = cfg.ssm
+    d = cfg.d_model
+    lead = (layers,) if layers is not None else ()
+    conv_dim = sm.d_inner(d) + 2 * sm.state_dim
+    return {
+        "ssm": torch.zeros(lead + (batch, sm.num_heads(d), sm.state_dim,
+                                   sm.head_dim), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros(lead + (batch, sm.conv_width - 1, conv_dim),
+                            dtype=dtype_of(cfg), device=device),
+    }
+
+
+def mamba2_decode(params: Params, x, cfg: ModelConfig, cache):
+    """One token of the SSM recurrence (layers.py:949): h = exp(dt A) h +
+    dt B^T x, y = C h.  ``x`` (B, 1, d); ``cache`` holds ``ssm`` and
+    ``conv`` of one layer.  Returns ``(out, {"ssm", "conv"})``, the new
+    state as new tensors (the caller decides where it lands)."""
+    sm = cfg.ssm
+    b, _, d = x.shape
+    di, nh, n = sm.d_inner(d), sm.num_heads(d), sm.state_dim
+    z, xin, bm, cm, dt = (t[:, 0] for t in _mamba_proj(params, x))
+    window = torch.cat([cache["conv"], torch.cat([xin, bm, cm], dim=-1)[:, None]],
+                       dim=1)
+    conv_out = F.silu((window * params["conv_w"][None]).sum(dim=1)
+                      + params["conv_b"])
+    xin, bm, cm = torch.split(conv_out, [di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"])  # (b, nh)
+    xh = xin.reshape(b, nh, sm.head_dim).float()
+    decay = torch.exp(dt * (-torch.exp(params["a_log"]))[None])  # (b, nh)
+    # the reference's einsums as one broadcast product (the outer product
+    # B^T (x dt)) and one batched product (C h): fewer host ops a token
+    upd = bm.float()[:, None, :, None] * (xh * dt[..., None])[:, :, None, :]
+    h = cache["ssm"] * decay[..., None, None] + upd
+    y = torch.matmul(cm.float()[:, None, None, :], h)[:, :, 0]  # (b, nh, P)
+    y = y + params["d_skip"][None, :, None] * xh
+    y = y.reshape(b, 1, di)
+    y = rmsnorm(y * F.silu(z[:, None]).float(), params["norm_w"], cfg.norm_eps)
+    out = y.to(x.dtype) @ params["out_proj"]
+    return out, {"ssm": h, "conv": window[:, 1:]}

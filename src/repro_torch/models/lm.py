@@ -1,6 +1,7 @@
-"""Decoder-only language model, dense GQA and MLA + MoE families: the
-port's counterpart of ``repro.models.lm`` for the serving path, and for the
-full-sequence forward and loss of training (dense GQA).
+"""Decoder-only language model, dense GQA, MLA + MoE and Mamba-2 SSM
+families: the port's counterpart of ``repro.models.lm`` for the serving
+path, and for the full-sequence forward and loss of training (dense GQA and
+SSM).
 
 Parameters are a plain dict with the reference's tree layout
 (``lm.init``, lm.py:61): ``embed``, ``prefix_layers`` (a list of unstacked
@@ -9,14 +10,16 @@ blocks: DeepSeek-V2's first, dense-FFN layer; empty for the dense family),
 ``final_norm``.  A Python loop over layers takes the place of
 ``jax.lax.scan``.  The paged pools live in :class:`Cache` and are updated
 **in place** by :func:`decode_step`, :func:`prefill_step` and
-:func:`copy_pages` (the reference donated them and returned new ones).
+:func:`copy_pages`, and so is the SSM's recurrent state (the reference
+donated them and returned new ones).
 
-Two families run: ``family == "dense"`` with GQA attention
-(``qwen2_1_5b``), and ``family == "moe"`` with MLA attention
-(``deepseek_v2_lite_16b``); the others raise ``NotImplementedError`` naming
-their ROADMAP Queue 1 item.  The full-sequence forward (:func:`forward`,
-:func:`loss_fn`) runs the dense family; MLA raises there (its ``mla_full``
-is not ported yet).
+Three families run: ``family == "dense"`` with GQA attention
+(``qwen2_1_5b``), ``family == "moe"`` with MLA attention
+(``deepseek_v2_lite_16b``), and the attention-free ``family == "ssm"``
+(``mamba2_2_7b``, over a contiguous recurrent-state cache); the others raise
+``NotImplementedError`` naming their ROADMAP Queue 1 item.  The
+full-sequence forward (:func:`forward`, :func:`loss_fn`) runs the dense and
+SSM families; MLA raises there (its ``mla_full`` is not ported yet).
 """
 from __future__ import annotations
 
@@ -31,19 +34,18 @@ from .config import ModelConfig
 
 # Families not ported yet -> the ROADMAP Queue 1 item that ports them.
 _NOT_PORTED = {
-    "ssm": "item 15 (SSM and hybrid)",
-    "hybrid": "item 15 (SSM and hybrid)",
+    "hybrid": "item 15 (hybrid)",
     "moe": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
     "vlm": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
     "audio": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
 }
-_PORTED = {("dense", "gqa"), ("moe", "mla")}
+_PORTED = {("dense", "gqa"), ("moe", "mla"), ("ssm", "none")}
 BIG_WINDOW = 1 << 30  # "no window" sentinel of layer_windows
 
 
 def require_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder
-    or an MLA + MoE decoder."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder,
+    an MLA + MoE decoder or an attention-free Mamba-2 (SSM) model."""
     if (cfg.family, cfg.attention) in _PORTED and not cfg.is_encoder_decoder:
         return
     if cfg.attention == "mla":
@@ -63,9 +65,12 @@ def require_supported(cfg: ModelConfig):
 def _init_block(gen, cfg: ModelConfig, dense_ffn: bool) -> Dict:
     """One block (lm.py:34): attention (GQA or MLA) and its FFN: the MoE,
     or a dense MLP (an MoE model's dense prefix layer widened to the active
-    experts' width, lm.py:51-57)."""
+    experts' width, lm.py:51-57); or, for the SSM family, its norm and the
+    Mamba-2 layer alone (lm.py:41-44)."""
     dt = L.dtype_of(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)  # noqa: E731
+    if cfg.family == "ssm":
+        return {"norm1": ones(), "mamba": L.init_mamba2(gen, cfg)}
     attn = L.init_mla(gen, cfg) if cfg.attention == "mla" else L.init_attention(gen, cfg)
     p = {"norm1": ones(), "attn": attn, "norm2": ones()}
     mo = cfg.moe
@@ -187,7 +192,9 @@ def _soft_cap(cfg: ModelConfig, logits):
 
 
 class Cache:
-    """Paged decode cache: per-layer page pools stacked over all layers
+    """Decode cache, one of two layouts behind one interface (lm.py:268).
+
+    ``layout="paged"``: per-layer page pools stacked over all layers
     (prefix layers included: they share the pools' shapes), plus the (B,
     max_pages) int32 block table.
 
@@ -200,14 +207,25 @@ class Cache:
     quantized.  Every leaf has its page axis at ``ndim - 3``, as in the
     reference.  Steps write the pools in place; :meth:`with_tables` swaps in
     a refreshed table (the host-side allocation lives in
-    serving/paged_cache.py)."""
+    serving/paged_cache.py).
+
+    ``layout="contiguous"`` (the attention-free SSM family): ``kv`` holds the
+    recurrent state ``ssm`` (L, B, H, N, P) fp32 and the conv window
+    ``conv`` (L, B, W - 1, conv_dim) in the model's dtype, one row per
+    slot, written in place by :func:`decode_step`; no block table."""
 
     def __init__(self, kv: Dict[str, torch.Tensor], max_len: int,
-                 page_size: int, tables: torch.Tensor):
+                 page_size: int, tables: Optional[torch.Tensor],
+                 layout: str = "paged"):
         self.kv = kv
         self.max_len = max_len
         self.page_size = page_size
         self.tables = tables
+        self.layout = layout
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.kv.values())).device
 
     @property
     def num_pages(self) -> int:
@@ -220,24 +238,38 @@ class Cache:
 
     def with_tables(self, tables) -> "Cache":
         """Same pools (shared, not copied) under refreshed block tables."""
-        return Cache(self.kv, self.max_len, self.page_size, tables)
+        return Cache(self.kv, self.max_len, self.page_size, tables, self.layout)
 
     def kv_bytes(self) -> int:
-        """Bytes held by the KV page pools, scale pools included."""
+        """Bytes held by the KV page pools, scale pools included, or by the
+        recurrent state."""
         return sum(t.numel() * t.element_size() for t in self.kv.values())
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                layout: str = "paged", page_size: int = 16,
                num_blocks: Optional[int] = None, device="cuda") -> Cache:
+    """The decode cache of ``batch`` slots (lm.py:317): paged pools for an
+    attention model, the contiguous recurrent state for an attention-free
+    one (``layout="contiguous"``)."""
     require_supported(cfg)
-    if layout == "contiguous":
-        raise NotImplementedError(
-            "the contiguous cache layout is not ported yet (ROADMAP Queue 1 "
-            "item 4, contiguous half); use layout='paged'")
-    if layout != "paged":
+    if layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
+    if layout == "paged" and not cfg.attends:
+        # loud, not a silent downgrade: the caller asked for paging and
+        # this arch has no attention KV state to page (lm.py:322-330)
+        raise ValueError(
+            f"layout='paged' needs an attention KV cache; {cfg.name} "
+            f"(attention={cfg.attention!r}) keeps only recurrent state — "
+            "use layout='contiguous'.")
+    if layout == "contiguous" and cfg.attends:
+        raise NotImplementedError(
+            "the contiguous KV layout of attention models is not ported yet "
+            "(ROADMAP Queue 1 item 4, contiguous half); use layout='paged'")
     dev = resolve_device(device)
+    if layout == "contiguous":
+        state = L.init_mamba2_cache(cfg, batch, dev, layers=cfg.num_layers)
+        return Cache(state, max_len, 0, None, layout="contiguous")
     max_pages = -(-max_len // page_size)
     if num_blocks is None:
         num_blocks = batch * max_pages
@@ -265,6 +297,31 @@ def copy_pages(cache: Cache, src, dst) -> Cache:
 # ---------------------------------------------------------------------------
 
 
+def _rows(mask, t):
+    """A per-slot (B,) mask shaped to broadcast over ``t`` (B, ...)."""
+    return mask.reshape(-1, *([1] * (t.dim() - 1)))
+
+
+def _ssm_block_decode(p, x, cfg: ModelConfig, state, live, fresh):
+    """One SSM block, one token (lm.py:525-544): the norm, the Mamba-2
+    recurrence, the residual.  ``state`` is the layer's ``ssm``/``conv``
+    rows, written in place.  With ``live`` (B,) bool, a slot stepping at
+    ``pos == 0`` (``fresh``) starts from zeroed state and a slot not
+    stepping keeps its state, as the reference's ``_per_slot`` selects:
+    device-side masks, no host sync."""
+    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+    st_in = state
+    if live is not None:
+        st_in = {k: v.masked_fill(_rows(fresh, v), 0) for k, v in state.items()}
+    out, new = L.mamba2_decode(p["mamba"], h, cfg, st_in)
+    for k, v in new.items():
+        if live is None:
+            state[k].copy_(v)
+        else:  # written in place: the output aliases the kept state
+            torch.where(_rows(live, v), v, state[k], out=state[k])
+    return x + out
+
+
 def _block(p, x, cfg, attend):
     """One block (lm.py:487, :657): attention, then the MoE or the MLP."""
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
@@ -283,11 +340,19 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
     Every slot writes its K/V at ``pos`` through its table row, dead ones
     included (into page 0), as the reference does.  ``live`` marks the slots
     genuinely stepping; positional KV caches never need it (a dead slot's
-    write lands beyond its live length), so the dense family ignores it.
+    write lands beyond its live length), so the attention families ignore
+    it.  Recurrent state has no position to hide behind: the SSM family
+    holds a parked slot's state and zeroes a slot stepping at ``pos == 0``
+    (:func:`_ssm_block_decode`).
     """
-    del live  # only recurrent (SSM) state needs it: ROADMAP Queue 1 item 15
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.tables.device)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.device)
     x = L.embed(params["embed"], token[:, None]).to(L.dtype_of(cfg))
+    if cache.layout == "contiguous":
+        fresh = None if live is None else live & (pos == 0)
+        for i, p in enumerate(blocks(params)):
+            x = _ssm_block_decode(p, x, cfg, cache.layer(i), live, fresh)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return _soft_cap(cfg, L.unembed(params["embed"], x, cfg)[:, 0]), cache
     wlist = static_windows(cfg)
     rf = rope_fraction(cfg)
     tables = cache.tables
@@ -324,7 +389,8 @@ def decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, live,
     hits zero, or ``pos`` reaches ``max_len`` (lm.py:638-647).  Dead slots
     re-feed their frozen token at their frozen ``pos``: the write lands past
     their live length (or in the sink page 0) and is never read.  All
-    ``n_steps`` iterations run, as the reference's ``lax.scan`` does.
+    ``n_steps`` iterations run, as the reference's ``lax.scan`` does.  An SSM's
+    recurrent state is held for dead slots by ``live`` (:func:`decode_step`).
 
     Returns ``(tokens (n_steps, B) int32, emitted (n_steps, B) bool)``:
     ``emitted[t, b]`` marks a token the host must deliver; rows after the
@@ -393,7 +459,8 @@ def prefill_step(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
 
 
 def require_full_forward(cfg: ModelConfig):
-    """Raise unless the full-sequence forward runs ``cfg`` (dense GQA)."""
+    """Raise unless the full-sequence forward runs ``cfg`` (dense GQA or
+    SSM)."""
     require_supported(cfg)
     if cfg.attention == "mla":
         raise NotImplementedError(
@@ -415,10 +482,13 @@ def training_blocks(params) -> List[Dict]:
 
 
 def _block_full(p, x, cfg: ModelConfig, positions, window, rope_fraction):
-    """One dense GQA block, full sequence (lm.py:111): attention, then the
-    MLP.  Returns (x, aux_loss); the aux loss is the MoE's, zero here."""
+    """One block, full sequence (lm.py:111): dense GQA attention then the
+    MLP, or the SSM's Mamba-2 layer alone (lm.py:133-134).  Returns (x,
+    aux_loss); the aux loss is the MoE's, zero here."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        return x + L.mamba2_full(p["mamba"], h, cfg), aux
     w = None if cfg.sliding_window is None else window
     x = x + L.attention_full(p["attn"], h, cfg, positions, window=w,
                              rope_fraction=rope_fraction)
@@ -434,8 +504,9 @@ def hidden_forward(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     ``prefix_embeds`` (B, P, d) go in front of the token embeddings.
     ``remat`` recomputes each stacked layer in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
-    ``jax.checkpoint`` of the scanned body: a layer's flash-attention kernel
-    then launches twice a training step.  ``residual_constraint`` and
+    ``jax.checkpoint`` of the scanned body: a layer's kernels (flash
+    attention, or chunk_state and chunk_scan) then launch twice a training
+    step.  ``residual_constraint`` and
     ``unroll`` are the reference's sharding hint and scan unroll factor,
     accepted and ignored (one device, a Python loop)."""
     require_full_forward(cfg)

@@ -31,15 +31,22 @@ ticks (``steps_run``, TTFT ticks, preemptions and shared pages are equal):
   exit path (``_terminate``) that releases its pages; deadlines and
   ``cancel()`` are honoured before each dispatch.
 
-Each tick runs eagerly on the device (no jit): the KV pools are updated in
-place and the sampled token ids are the only per-tick download (one per
-window with ``sync_every > 1``).
+* **contiguous mode** (``cache="contiguous"``) for the attention-free SSM
+  family: a per-slot recurrent-state cache with no pool, no block table, no
+  prefix cache and no guard (the reference's ``self.pool is None`` /
+  ``self.tables is None`` branches); prompts replay one token per tick
+  through the decode step, and the window runs over the same state.
+
+Each tick runs eagerly on the device (no jit): the KV pools (or the
+recurrent state) are updated in place and the sampled token ids are the
+only per-tick download (one per window with ``sync_every > 1``).
 
 Not ported yet, each raising ``NotImplementedError`` where it is asked for:
-``spec_decode`` (ROADMAP Queue 1 item 12), ``cache="contiguous"`` (item 4),
-``audit=True`` and fault injection (item 11), ``temperature > 0`` (item 5,
-with or without the window), and ``drain``/``shutdown``/``snapshot``
-(item 11).
+``spec_decode`` (ROADMAP Queue 1 item 12; for a model without chunked
+prefill the reference's ``ValueError`` comes first), ``cache="contiguous"``
+for an attention model (item 4), ``audit=True`` and fault injection (item
+11), ``temperature > 0`` (item 5, with or without the window), and
+``drain``/``shutdown``/``snapshot`` (item 11).
 """
 from __future__ import annotations
 
@@ -167,16 +174,12 @@ class ServeConfig:
                 f"retry_backoff must be >= 0, got {self.retry_backoff}"
             )
         if self.kv_dtype is not None and self.cache != "paged":
-            # the reference raises this at engine init (engine.py:500); the
-            # contiguous layout itself is not ported, so it is checked here,
-            # before that option raises
+            # the reference raises this at engine init (engine.py:500)
             raise ValueError(
                 f"kv_dtype={self.kv_dtype!r} requires cache='paged'")
-        # no option is silently ignored: what is not ported raises
-        if self.spec_decode is not None:
-            _not_ported(f"spec_decode={self.spec_decode!r}", "12")
-        if self.cache == "contiguous":
-            _not_ported("cache='contiguous'", "4")
+        # no option is silently ignored: what is not ported raises (here,
+        # or at engine init where the model decides: spec_decode, and the
+        # contiguous layout of an attention model, lm.init_cache)
         if self.audit:
             _not_ported("audit=True (the invariant auditor)", "11")
         if self.temperature > 0.0:
@@ -256,21 +259,33 @@ class ServingEngine:
         self.scfg = serve_cfg
         b = serve_cfg.slots
         self.cache_mode = serve_cfg.cache
-        ps = serve_cfg.page_size
-        self.max_pages = blocks_for(serve_cfg.max_len, ps)
-        nb = serve_cfg.num_blocks or b * self.max_pages
-        # physical page 0 is reserved (padding/garbage page), so the device
-        # pool holds nb + 1 pages and the allocator hands out ids 1..nb.
-        self.cache = lm.init_cache(
-            cfg, b, serve_cfg.max_len, layout="paged", page_size=ps,
-            num_blocks=nb + 1, device=self.device,
-        )
-        page_bytes = self.cache.kv_bytes() // (nb + 1)
-        self.pool = BlockPool(nb, ps, base=1, page_bytes=page_bytes)
-        self.tables = SlotTables(self.pool, b, self.max_pages)
+        if self.cache_mode == "paged":
+            ps = serve_cfg.page_size
+            self.max_pages = blocks_for(serve_cfg.max_len, ps)
+            nb = serve_cfg.num_blocks or b * self.max_pages
+            # physical page 0 is reserved (padding/garbage page), so the
+            # device pool holds nb + 1 pages and the allocator hands out ids
+            # 1..nb.
+            self.cache = lm.init_cache(
+                cfg, b, serve_cfg.max_len, layout="paged", page_size=ps,
+                num_blocks=nb + 1, device=self.device,
+            )
+            page_bytes = self.cache.kv_bytes() // (nb + 1)
+            self.pool = BlockPool(nb, ps, base=1, page_bytes=page_bytes)
+            self.tables = SlotTables(self.pool, b, self.max_pages)
+        else:
+            # recurrent state, one row per slot (engine.py:541-544); an
+            # attention model raises inside lm.init_cache
+            self.pool = None
+            self.tables = None
+            self.cache = lm.init_cache(cfg, b, serve_cfg.max_len,
+                                       layout="contiguous", device=self.device)
 
+        # prefix cache: paged attention families only (engine.py:546):
+        # recurrent SSM state must replay
         self.prefix: Optional[PrefixCache] = None
-        if serve_cfg.prefix_cache and lm.supports_chunked_prefill(cfg):
+        if (self.cache_mode == "paged" and serve_cfg.prefix_cache
+                and lm.supports_chunked_prefill(cfg)):
             self.prefix = PrefixCache(
                 self.pool, salt=(cfg.name, serve_cfg.page_size)
             )
@@ -292,6 +307,15 @@ class ServingEngine:
             else "replay"
         )
         self.sync_every = max(1, serve_cfg.sync_every)
+        if serve_cfg.spec_decode is not None:
+            if not lm.supports_chunked_prefill(cfg):
+                # engine.py:575: the verify pass is a chunked prefill
+                raise ValueError(
+                    f"spec_decode={serve_cfg.spec_decode!r} requires a chunked-"
+                    f"prefill arch (GQA/MLA); {cfg.name} (attention="
+                    f"{cfg.attention}, family={cfg.family}) cannot run the "
+                    "verify pass")
+            _not_ported(f"spec_decode={serve_cfg.spec_decode!r}", "12")
         # the device block table is re-uploaded only after the scheduler
         # mutates tables (admission growth, grow-ahead grants and trims,
         # preemption, EOS recycling, COW)
@@ -354,28 +378,30 @@ class ServingEngine:
                 break
             if req is None:
                 break  # everyone queued is backing off
-            need = blocks_for(self._resident_tokens(req), self.pool.page_size)
-            if need > min(self.pool.num_blocks, self.max_pages):
-                # can never fit: fail fast instead of wedging the queue head
-                self.queue.remove(req)
-                self._terminate(req, REJECTED, error=(
-                    f"needs {need} KV blocks; pool holds "
-                    f"{self.pool.num_blocks}, table holds {self.max_pages}"
-                ))
-                continue
             matched: List[int] = []
-            if self.prefix is not None:
-                # keep one replay token uncached (the decode needs a real last
-                # token to feed) and consume only prompt pages
-                ps = self.pool.page_size
-                replay_len = len(req.prompt) + len(req.output)
-                cap = min(len(req.prompt), replay_len - 1) // ps
-                matched = self.prefix.match(req.prompt, cap)
-            shortfall = (need - len(matched)) - self.pool.free
-            if shortfall > 0 and self.prefix is not None:
-                self.prefix.evict(shortfall, protect=frozenset(matched))
-            if self.pool.free < need - len(matched):
-                break
+            if self.pool is not None:
+                need = blocks_for(self._resident_tokens(req),
+                                  self.pool.page_size)
+                if need > min(self.pool.num_blocks, self.max_pages):
+                    # can never fit: fail fast instead of wedging the queue
+                    self.queue.remove(req)
+                    self._terminate(req, REJECTED, error=(
+                        f"needs {need} KV blocks; pool holds "
+                        f"{self.pool.num_blocks}, table holds {self.max_pages}"
+                    ))
+                    continue
+                if self.prefix is not None:
+                    # keep one replay token uncached (the decode needs a real
+                    # last token to feed) and consume only prompt pages
+                    ps = self.pool.page_size
+                    replay_len = len(req.prompt) + len(req.output)
+                    cap = min(len(req.prompt), replay_len - 1) // ps
+                    matched = self.prefix.match(req.prompt, cap)
+                shortfall = (need - len(matched)) - self.pool.free
+                if shortfall > 0 and self.prefix is not None:
+                    self.prefix.evict(shortfall, protect=frozenset(matched))
+                if self.pool.free < need - len(matched):
+                    break
             self.queue.remove(req)
             self.slot_req[s] = req
             self.slot_state[s] = "prefill"
@@ -388,13 +414,14 @@ class ServingEngine:
             if req.admit_step is None:
                 req.admit_step = self.steps_run
             req.cached_tokens = start
-            if matched:
-                self.tables.attach(s, matched)
-                self.pages_shared += len(matched)
-                self._tables_dirty = True
-            if self.tables.ensure_capacity(s, self._resident_tokens(req),
-                                           req.uid):
-                self._tables_dirty = True
+            if self.tables is not None:
+                if matched:
+                    self.tables.attach(s, matched)
+                    self.pages_shared += len(matched)
+                    self._tables_dirty = True
+                if self.tables.ensure_capacity(s, self._resident_tokens(req),
+                                               req.uid):
+                    self._tables_dirty = True
 
     def _pick_victim(self, exclude) -> Optional[int]:
         """Preemption victim: lowest priority, then youngest admission."""
@@ -487,8 +514,9 @@ class ServingEngine:
             self.slot_req[slot] = None
             self.slot_state[slot] = None
             self.pos[slot] = 0
-            self.tables.release_slot(slot)  # blocks recycle immediately
-            self._tables_dirty = True
+            if self.tables is not None:
+                self.tables.release_slot(slot)  # blocks recycle immediately
+                self._tables_dirty = True
         if error is not None:
             req.error = error
         req.status = status
@@ -539,7 +567,7 @@ class ServingEngine:
     def _fresh_cache(self) -> lm.Cache:
         """The cache for the next step, its block table re-uploaded only
         after a scheduler mutation."""
-        if self._tables_dirty:
+        if self.tables is not None and self._tables_dirty:
             self.cache = self.cache.with_tables(torch.as_tensor(
                 self.tables.tables(), device=self.device))
             self._tables_dirty = False
@@ -592,10 +620,11 @@ class ServingEngine:
 
     def _step_inner(self) -> int:
         self._admit()
-        for s in range(self.scfg.slots):
-            if self.slot_req[s] is not None:
-                self._grow(s)
-        self._admit()  # preemption may have freed blocks for the queue head
+        if self.tables is not None:
+            for s in range(self.scfg.slots):
+                if self.slot_req[s] is not None:
+                    self._grow(s)
+            self._admit()  # preemption may have freed blocks for the queue head
         active = [s for s in range(self.scfg.slots) if self.slot_req[s] is not None]
         if not active:
             if self.queue and self.admission_open:
@@ -640,7 +669,9 @@ class ServingEngine:
         copy-on-write over the whole write span, and the dispatch guard over
         the grown tables.  On any failure the grow-ahead is given back
         (survivors trimmed to ``pos + 1``) and the caller falls back to a
-        per-tick step."""
+        per-tick step.  The contiguous mode has nothing to prepare."""
+        if self.tables is None:
+            return True
         if not self._grant_window(active, spans):
             return False
         pairs: List[Tuple[int, int]] = []
@@ -668,6 +699,8 @@ class ServingEngine:
         """Return each live slot's unused grow-ahead pages (keeping the next
         write), so boundary admission and preemption see the pool a per-tick
         engine would."""
+        if self.tables is None:
+            return
         for s in slots:
             if self.slot_req[s] is not None:
                 if self.tables.trim(s, int(self.pos[s]) + 1):
@@ -802,7 +835,7 @@ class ServingEngine:
         """Discharge the kernels' runtime obligations for the ``(slot,
         n_tokens)`` pairs about to dispatch.  A violating slot FAILs through
         ``_terminate`` and is dropped; the survivors proceed untouched."""
-        if not work or not self.scfg.guards:
+        if self.tables is None or not work or not self.scfg.guards:
             return work
         rows = []
         for s, n in work:
@@ -840,14 +873,15 @@ class ServingEngine:
 
     # -- per-tick paths -------------------------------------------------
     def _step_replay(self, active: List[int]) -> int:
-        active, pairs = self._cow_or_preempt(
-            [(s, int(self.pos[s])) for s in active]
-        )
-        self._apply_cow(pairs)
-        active = [s for s, _ in self._guard_work([(s, 1) for s in active])]
-        if not active:
-            self.dispatches -= 1  # nothing actually dispatched
-            return 0
+        if self.tables is not None:
+            active, pairs = self._cow_or_preempt(
+                [(s, int(self.pos[s])) for s in active]
+            )
+            self._apply_cow(pairs)
+            active = [s for s, _ in self._guard_work([(s, 1) for s in active])]
+            if not active:
+                self.dispatches -= 1  # nothing actually dispatched
+                return 0
         feed = np.zeros((self.scfg.slots,), np.int32)
         live = np.zeros((self.scfg.slots,), bool)
         full_len: Dict[int, int] = {}
@@ -894,7 +928,7 @@ class ServingEngine:
             self.token_budget, len(gen), pending, self.prefill_chunk
         )
 
-        if gen:
+        if gen and self.tables is not None:
             gen, pairs = self._cow_or_preempt(
                 [(s, int(self.pos[s])) for s in gen]
             )
@@ -923,7 +957,7 @@ class ServingEngine:
         # COW during the gen dispatch may have preempted a prefilling slot
         chunk_lens = {s: n for s, n in chunk_lens.items()
                       if self.slot_req[s] is not None}
-        if chunk_lens:
+        if chunk_lens and self.tables is not None:
             ok, pairs = self._cow_or_preempt(
                 [(s, int(self.pos[s]) + n - 1) for s, n in chunk_lens.items()]
             )
@@ -971,8 +1005,8 @@ class ServingEngine:
 
     # -- accounting -----------------------------------------------------
     def kv_cache_bytes(self) -> int:
-        """Bytes held by the KV page pools."""
+        """Bytes held by the KV page pools, or by the recurrent state."""
         return self.cache.kv_bytes()
 
     def peak_kv_blocks(self) -> Optional[int]:
-        return self.pool.peak_in_use
+        return None if self.pool is None else self.pool.peak_in_use

@@ -7,9 +7,10 @@ on the card's machine:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 
 Limits, chip_smoke.py's: max abs error 1e-4 in fp32 (the order of fp32
-sums, exp2 against exp); in bf16, two bf16 ulps of the plain value,
-element-wise (both sides accumulate in fp32 and round the output once, so a
-sound kernel lies within one ulp).
+sums, exp2 against exp; for the SSD kernels 1e-4 of max(1, the largest plain
+element)); in bf16, two bf16 ulps of the plain value, element-wise (both
+sides accumulate in fp32 and round the output once, so a sound kernel lies
+within one ulp).
 """
 import importlib.util
 from pathlib import Path
@@ -18,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import chunk_scan as CSC
+from repro_torch.kernels import chunk_state as CST
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mla_paged as MP
 from repro_torch.kernels import mla_paged_quant as MPQ
@@ -302,3 +305,87 @@ def test_cuda_flash_attention_fn_gradients_match_plain_autograd():
         assert FA.KERNEL.launches - n0 in (0, 1)
     for a, w in zip(*grads):
         assert (a - w).abs().max().item() <= cs.FP32_ATOL
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD chunk kernels: mamba2-2.7B's and hymba-1.5B's head shapes
+# ---------------------------------------------------------------------------
+
+SSD = [  # (batch, heads, chunks, L, N, P, deep decay)
+    (2, 80, 2, 128, 128, 64, True),  # mamba2-2.7B
+    (2, 64, 2, 128, 16, 50, True),  # hymba-1.5B: rows of 100 bytes in bf16
+    (1, 8, 3, 64, 128, 64, False),  # a chunk of 64, growing dA
+    (2, 3, 2, 17, 200, 130, True),  # ragged: two N tiles, three P tiles
+]
+
+
+def _ssd_case(case, dtype, dev):
+    b, h, c, l, n, p, deep = case
+    g = torch.Generator(device=dev).manual_seed(5)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    cm, bm = (rand(b, 1, c, l, n).to(dtype).expand(b, h, c, l, n) for _ in range(2))
+    x = rand(b, h, c, l, p).to(dtype)
+    step = rand(b, h, c, l).abs() * (0.7 if deep else 0.1)
+    da = torch.cumsum(-step if deep else step, dim=-1)
+    return cm, bm, x, da, rand(b, h, c, n, p)
+
+
+def _ssd_within_limit(got, want):
+    if got.dtype == torch.bfloat16:
+        return cs.bf16_ulps(torch, got, want) <= cs.BF16_ULPS
+    return (got - want).abs().max().item() <= cs.FP32_ATOL * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD, ids=[str(c) for c in SSD])
+def test_cuda_ssd_kernels_match_plain_versions(case):
+    """On a card: chunk_state and chunk_scan against their plain versions,
+    bf16 and fp32, on head-broadcast (expanded) B and C, on contiguous
+    copies, and with the heads folded into the batch (the reference's
+    layout)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        cm, bm, x, da, prev = _ssd_case(case, dtype, dev)
+        b, h = x.shape[:2]
+        fold = lambda t: t.reshape(b * h, *t.shape[2:])  # noqa: E731
+        for args in ((cm, bm, x, da, prev),
+                     tuple(t.contiguous() for t in (cm, bm, x, da, prev)),
+                     tuple(fold(t) for t in (cm, bm, x, da, prev))):
+            c_, b_, x_, d_, s_ = args
+            n0 = (CST.KERNEL.launches, CSC.KERNEL.launches)
+            st = CST.chunk_state(b_, x_, d_)
+            y = CSC.chunk_scan(c_, b_, x_, d_, s_)
+            assert (CST.KERNEL.launches, CSC.KERNEL.launches) == (n0[0] + 1, n0[1] + 1)
+            assert st.dtype == torch.float32 and y.dtype == dtype
+            assert _ssd_within_limit(st, ref.chunk_state(b_, x_, d_))
+            assert _ssd_within_limit(y, ref.chunk_scan(c_, b_, x_, d_, s_))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_functions_gradients_match_plain_autograd():
+    """On a card: ``ChunkStateFn`` and ``ChunkScanFn`` give autograd's
+    gradients of the plain versions (the backward recomputes them), through
+    the expanded B and C; the forwards launch their kernels once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    case = (2, 8, 2, 128, 128, 64, True)
+    base = [t.clone() for t in _ssd_case(case, torch.float32, dev)]
+    base[0], base[1] = base[0][:, :1].contiguous(), base[1][:, :1].contiguous()
+    g = torch.Generator(device=dev).manual_seed(6)
+    douts = (torch.randn(base[4].shape, generator=g, device=dev),
+             torch.randn(base[2].shape, generator=g, device=dev))
+    grads = []
+    for st_fn, sc_fn in ((CST.ChunkStateFn.apply, CSC.ChunkScanFn.apply),
+                         (ref.chunk_state, ref.chunk_scan)):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        cm, bm = (t.expand(*base[2].shape[:-1], t.shape[-1]) for t in leaves[:2])
+        n0 = (CST.KERNEL.launches, CSC.KERNEL.launches)
+        outs = (st_fn(bm, leaves[2], leaves[3]), sc_fn(cm, bm, *leaves[2:]))
+        grads.append(torch.autograd.grad(outs, leaves, douts))
+        assert (CST.KERNEL.launches - n0[0], CSC.KERNEL.launches - n0[1]) in ((0, 0), (1, 1))
+    for a, w in zip(*grads):
+        assert (a - w).abs().max().item() <= cs.FP32_ATOL * max(1.0, w.abs().max().item())

@@ -77,8 +77,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     (dict(audit=True), "item 11"), (dict(temperature=0.7), "item 5"),
 ])
 def test_unported_serve_options_raise(kw, item):
+    """Raised by ServeConfig, or where the model decides, at engine init
+    (spec_decode; the contiguous layout of an attention model)."""
+    cfg = get_config("qwen2_1_5b").reduced()
+    params = lm.init(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        ServeConfig(**kw)
+        ServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
 
 
 def test_reference_validation_still_raises_value_errors():
@@ -255,7 +259,7 @@ def test_chip_smoke_training_phases_rehearse_on_the_cpu(tmp_path):
     cfg = get_config("qwen2_1_5b").reduced()
     tr = cs.train_steps(torch, cfg, cpu, 3, 2, 16, profile_steps=1)
     assert len(tr["losses"]) == 3 and all(np.isfinite(tr["losses"]))
-    assert tr["launches"] == 0 and "device busy" in tr["profile"]
+    assert tr["launches"] == {} and "device busy" in tr["profile"]
     r = cs.train_card_vs_cpu(torch, np, lm, dataclasses.replace(cfg, dtype="bfloat16"),
                              cpu, seq=64)
     faults = {f"fault: {f}" for f in cs.TRAIN_FAULTS}
@@ -270,6 +274,68 @@ def test_chip_smoke_training_phases_rehearse_on_the_cpu(tmp_path):
     res, launches = cs.recovery_run(torch, cpu, tmp_path, steps=6,
                                     failure_prob="0.2", seed="1")
     assert res["restarts"] == 1 and res["steps"] == 6 and launches == 0
+
+
+def test_chip_smoke_ssm_phases_rehearse_on_the_cpu():
+    """chip_smoke.py's SSM phases, run here with CPU tensors (the plain
+    versions; untimed): the chunk_state/chunk_scan check on a full-width
+    layer's operands at a short sequence (deep decay, hymba's N 16 / P 50,
+    the shallow case); three training steps of reduced mamba2 with one
+    profiled; the depth-2 comparison, each planted SSD fault failing its
+    limits; forward against decode and against the fp32 forward; and the
+    two serving runs over the contiguous cache (windows byte-identical to
+    per tick, no kernel launched)."""
+    import dataclasses
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro_torch.kernels import chunk_scan as CSC
+    from repro_torch.kernels import chunk_state as CST
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import KERNELS
+
+    cpu = torch.device("cpu")
+    for case in (("deep", "mamba2_2_7b", 1, 64, "deep"),
+                 ("shallow", "mamba2_2_7b", 1, 64, "shallow"),
+                 ("growing", "mamba2_2_7b", 1, 64, "growing"),
+                 ("hymba", "hymba_1_5b", 1, 48, "deep")):
+        for dtype in (torch.float32, torch.bfloat16):
+            rs = cs.check_ssd(torch, np, ref, (CST, CSC), dtype, case, None, False, cpu)
+            assert set(rs) == {"chunk_state", "chunk_scan"}
+            assert all(r["err"] == 0.0 and cs.ssd_ok(r) for r in rs.values()), rs
+            if dtype == torch.bfloat16:  # the control the bf16 limit rejects
+                assert rs["chunk_scan"]["bf16_scores_ulps"] > cs.BF16_ULPS
+            if case[-1] == "deep":
+                assert rs["chunk_scan"]["da_min"] < -30
+    x = torch.zeros(4, 1, 3).expand(4, 5, 3)
+    assert cs.handed_bytes(x) == 4 * 3 * 4
+    cfg = get_config("mamba2_2_7b").reduced()
+    tr = cs.train_steps(torch, cfg, cpu, 3, 2, 32, profile_steps=1)
+    assert all(np.isfinite(tr["losses"])) and tr["launches"] == {}
+    assert "inside chunk_scan.backward" in tr["profile"]
+    r = cs.train_card_vs_cpu(torch, np, lm, dataclasses.replace(cfg, dtype="bfloat16"),
+                             cpu, seq=64)
+    faults = {f"fault: {f}" for f in cs.SSM_FAULTS}
+    assert set(r) == {"card bf16", "card bf16, plain SSD", "cpu fp32", "cosines"} | faults
+    # the same arithmetic; the autograd functions' recompute sums the
+    # broadcast B and C gradients in another order
+    np.testing.assert_allclose(r["card bf16"], r["card bf16, plain SSD"], rtol=1e-6)
+    assert cs.train_card_vs_cpu_ok(r), r
+    for label in faults:
+        assert "mamba grad cosine" in cs.train_limits_failed(r, label), (label, r)
+    vs_decode, vs_cpu, launches = cs.ssm_forward_vs_decode(
+        torch, np, lm, dataclasses.replace(cfg, dtype="bfloat16"), cpu, seq=48)
+    assert cs.agreement_ok(vs_decode) and cs.agreement_ok(vs_cpu), (vs_decode, vs_cpu)
+    assert vs_decode["steps"] == 48 and launches == {"chunk_state": 0, "chunk_scan": 0}
+    runs = cs.ssm_serving_phase(torch, np, lm, cfg, lm.init(cfg, 0, device="cpu"),
+                                KERNELS, cpu)
+    assert len(runs) == 2 and lm.decode_loop.__name__ == "decode_loop"
+    assert all(n == 0 for run in runs.values() for n in run[3].values())
 
 
 def _pairs(case):
