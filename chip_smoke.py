@@ -8,12 +8,14 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/repro_torch``.  It
 imports neither JAX nor the JAX package.  Phases (any failure exits non-zero;
 no phase is skipped):
 
-1. build the eleven CUDA kernels (fp and quantized decode, fp and
+1. build the fourteen CUDA kernels (fp and quantized decode, fp and
    quantized chunked prefill, each for GQA and for multi-head latent
-   attention, the contiguous flash-attention forward of training, and the
-   Mamba-2 SSD's chunk_state and chunk_scan) from the six sources in
-   ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a, one process per
-   source, in parallel) and print the card's name and power limit;
+   attention, the contiguous flash-attention forward of training, the
+   Mamba-2 SSD's chunk_state and chunk_scan, and the kernel library's GEMM,
+   weight-only dequantized GEMM and contiguous FlashMLA) from the nine
+   sources in ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a, one
+   process per source, in parallel) and print the card's name and power
+   limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
    full-width shapes of its path (qwen2-1.5B: Hq 12, Hkv 2, D 128;
    deepseek-v2-lite-16B: 16 heads over a 512-wide latent plus a 64-wide rope
@@ -34,7 +36,25 @@ no phase is skipped):
    decay, hymba-1.5B's N 16 / P 50 and a chunk of 64, bf16 and fp32 (fp32
    within 1e-4 of max(1, max |plain|), bf16 within 2 ulps); a growing-dA
    case is gated in fp32 and printed in bf16; timed beside the bf16 cuBLAS
-   products their work reduces to, as a yardstick;
+   products their work reduces to, as a yardstick.  Then the kernel
+   library, driven through ``kernels.ops`` at the paper's kernel
+   experiments' full-width shapes (its path: the three kernels' launches are
+   counted here): ``matmul`` at Table 2's M0-M7 and V0-V7 in bf16,
+   ``dequant_matmul`` at Fig. 15's three shapes for W int8 / int4 / int2 /
+   nf4 x A fp16 and W int2 / int4 x A int8 (float32 out), ``mla`` at Fig.
+   14's three shapes (128 heads over one latent head, D 512, Dpe 64, bf16),
+   plus an fp32 pass of each, the reference's ragged cases (odd K 48, two
+   latent heads) and scale groups no K tile matches.  Limits: fp32 within
+   FP32_ATOL of max(1, max |plain|); 16-bit GEMMs within 2 units of
+   ``lib_units`` (ulps of the output type, at least 2^-12 sqrt(K) rms(a)
+   rms(b)), which cuBLAS's product passes; 16-bit dequantized GEMMs within 2
+   units more than their control (the plain version on the weight rounded
+   to the activations' type, as the kernel multiplies it); MLA within 2
+   bf16 ulps with the attention controls; planted faults (a K tile dropped,
+   each byte's code order swapped) must fail them.  Each is timed (median
+   and spread) beside its plain version and ``torch.matmul`` (GEMM), cuBLAS
+   fp16 on a weight dequantized beforehand (the paper's Fig. 15 baseline, a
+   yardstick) or SDPA with a latent head's heads as its query rows (MLA);
 3. serve full-width qwen2-1.5B (28 layers, bf16, seeded random weights)
    through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
    prefix cache, guards, greedy): 16 requests of 100-600 prompt tokens, half
@@ -89,7 +109,9 @@ both route to the same experts (at least half of them);
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
 default-pool serving run, fp or int8 for the quantized kernels; the 8
-training steps for the flash kernel and for the two SSD kernels), and
+training steps for the flash kernel and for the two SSD kernels; the
+library phase for the library's three, whose rows are M7, the (8, 16384,
+16384) W int4 x A fp16 row and b128_s8192), and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -98,6 +120,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -131,18 +154,39 @@ def gpu_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, each bracketed by
-    CUDA events.  ``flush`` (untimed) runs before each call so that the call
-    finds L2 cold, as the serving path does (every layer has its own pool).
-    A device-side sleep ahead of the start event keeps the card busy while
-    the host enqueues ``fn``, so the events time the device's work and not
-    the host's launch overhead."""
+class Timing(float):
+    """A device time in ms: the median of its calls, carrying the least
+    (``lo``) and the most (``hi``) of them; formatted with a spec it reads
+    ``median (min-max)``."""
+
+    def __new__(cls, times):
+        self = super().__new__(cls, statistics.median(times))
+        self.lo, self.hi, self.calls = min(times), max(times), len(times)
+        return self
+
+    def __format__(self, spec):
+        if not spec:
+            return float.__repr__(self)
+        return f"{float(self):{spec}} ({self.lo:{spec}}-{self.hi:{spec}})"
+
+
+LONG_CALL_MS = 10.0  # a call longer than this is timed LONG_CALL_ITERS times
+LONG_CALL_ITERS = 5
+
+
+def time_ms(torch, fn, iters: int = 20, flush=None) -> Timing:
+    """Device time of ``fn``: the median, least and most over ``iters``
+    calls (``LONG_CALL_ITERS`` for a call over ``LONG_CALL_MS``), each
+    bracketed by CUDA events.  ``flush`` (untimed) runs before each call so
+    that the call finds L2 cold, as the serving path does (every layer has
+    its own pool).  A device-side sleep ahead of the start event keeps the
+    card busy while the host enqueues ``fn``, so the events time the
+    device's work and not the host's launch overhead."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
+    times = []
+    while len(times) < iters:
         if flush is not None:
             flush()
         torch.cuda._sleep(3_000_000)  # ~1.5 ms of device time
@@ -152,8 +196,10 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
         fn()
         e.record()
         e.synchronize()
-        total += s.elapsed_time(e)
-    return total / iters
+        times.append(s.elapsed_time(e))
+        if times[0] > LONG_CALL_MS:
+            iters = min(iters, LONG_CALL_ITERS)
+    return Timing(times)
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -1500,6 +1546,371 @@ def recovery_run(torch, device, ckpt_dir, steps=20, failure_prob="0.1", seed="0"
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the kernel library: the paper's kernel experiments at full width
+# ---------------------------------------------------------------------------
+
+# Table 2 / Fig. 13, copied from benchmarks/bench_gemm.py:17-28: (M, N, K),
+# bf16 in and out, fp32 accumulation
+GEMM_SHAPES = {
+    "M0": (4096, 1024, 8192), "M1": (4096, 8192, 8192),
+    "M2": (4096, 28672, 8192), "M3": (4096, 8192, 28672),
+    "M4": (8192, 1024, 8192), "M5": (8192, 8192, 8192),
+    "M6": (8192, 28672, 8192), "M7": (8192, 8192, 28672),
+    "V0": (1, 16384, 16384), "V1": (1, 43008, 14336),
+    "V2": (1, 14336, 14336), "V3": (1, 57344, 14336),
+    "V4": (1, 14336, 57344), "V5": (1, 9216, 9216),
+    "V6": (1, 36864, 9216), "V7": (1, 9216, 36864),
+}
+# Fig. 15, copied from benchmarks/bench_dequant.py:19-23: (M, N, K)
+DEQUANT_SHAPES = {
+    "m1_n16384_k16384": (8, 16384, 16384),
+    "m1_n8192_k28672": (8, 8192, 28672),
+    "m256_n8192_k8192": (256, 8192, 8192),
+}
+# bench_dequant.py:42: (weight format, activations); int8 activations write
+# float32, as the paper's program does, fp16 ones the library's default fp16
+DEQUANT_ROWS = (("int8", "float16"), ("int4", "float16"), ("int2", "float16"),
+                ("nf4", "float16"), ("int2", "int8"), ("int4", "int8"))
+# Fig. 14, copied from benchmarks/bench_mla.py:17-21: (batch, heads,
+# kv_heads, seqlen_kv, dim, pe_dim), bf16
+MLA_SHAPES = {
+    "b64_s1024": (64, 128, 1, 1024, 512, 64),
+    "b64_s4096": (64, 128, 1, 4096, 512, 64),
+    "b128_s8192": (128, 128, 1, 8192, 512, 64),
+}
+INT8_OPS = 1979e12  # dense int8 tensor-core peak
+# the row of each kernel that goes into the result line
+LIBRARY_ROWS = {"matmul": "M7 bfloat16", "dequant_matmul": "m1_n16384_k16384 int4 x float16",
+                "mla": "b128_s8192 bfloat16"}
+LIBRARY_KERNELS = tuple(LIBRARY_ROWS)
+K_TILE = 32  # the K tile the GEMM's planted fault drops
+
+
+def ragged_cases():
+    """Beyond the paper's shapes: one fp32 pass a kernel (CUDA cores), the
+    reference's ragged cases (odd K 48, tests/test_kernels.py:165; two latent
+    heads, :123-128) and scale groups no K tile of the kernel matches."""
+    return {
+        "matmul": [("fp32 M0", (4096, 1024, 8192), "float32"),
+                   ("odd K", (1000, 1000, 48), "bfloat16"),
+                   ("ragged, CUDA cores", (37, 100, 57), "bfloat16")],
+        "dequant_matmul": [("fp32 m256", (256, 8192, 8192), "int4", "float32", None),
+                           ("odd K", (8, 1024, 48), "int4", "float16", None),
+                           ("group 96", (64, 4096, 12288), "int4", "float16", 96),
+                           ("group 32 bf16", (8, 4096, 4096), "nf4", "bfloat16", 32),
+                           ("group 128 M 5", (5, 4104, 8192), "int2", "float16", 128),
+                           ("group 48 int8", (8, 1024, 1536), "int2", "int8", 48)],
+        "mla": [("fp32 b64_s1024", (64, 128, 1, 1024, 512, 64), "float32"),
+                ("Hkv 2", (1, 32, 2, 128, 64, 32), "bfloat16"),
+                ("Hkv 2 ragged", (4, 128, 2, 1000, 512, 64), "bfloat16")],
+    }
+
+
+def reduced_ragged():
+    """ragged_cases() at the CPU's sizes."""
+    return {
+        "matmul": [("fp32", (64, 32, 256), "float32"), ("odd K", (16, 24, 48), "bfloat16")],
+        "dequant_matmul": [("fp32", (16, 32, 128), "int4", "float32", None),
+                           ("group 96", (8, 16, 384), "int4", "float16", 96),
+                           ("group 48 int8", (8, 16, 192), "int2", "int8", 48)],
+        "mla": [("fp32", (2, 16, 1, 64, 64, 16), "float32"),
+                ("Hkv 2", (1, 32, 2, 40, 64, 32), "bfloat16")],
+    }
+
+
+GEMM_FLOOR = 2.0 ** -12  # the least ulp lib_units counts, in units of sigma
+
+
+def lib_units(torch, got, want, sigma: float) -> float:
+    """Largest |got - want| over the elements in ulps of ``want`` in the
+    16-bit output type (8 significant bits for bf16, 11 for fp16), an ulp
+    counted as at least ``GEMM_FLOOR * sigma``.  ``sigma``, sqrt(K) rms(a)
+    rms(b), is the size of a typical output; an element much smaller is the
+    difference of large fp32 partial sums, which the order and rounding of
+    the sums alone move: tensor cores truncate their fp32 sums, which over
+    the K / 16 = 1792 steps of K = 28672 adds up to ~2^-13 sigma.  The
+    cuBLAS controls pass in these units."""
+    bits = 8 if got.dtype == torch.bfloat16 else 11
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - bits)
+    ulp = ulp.clamp_min(sigma * GEMM_FLOOR)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+def rel_err(torch, got, want) -> float:
+    """Max abs error over max(1, max |want|): fp32 results."""
+    w = want.float()
+    return ((got.float() - w).abs().max() / w.abs().max().clamp_min(1.0)).item()
+
+
+def rms(torch, t) -> float:
+    return (torch.linalg.vector_norm(t, dtype=torch.float32) / t.numel() ** 0.5).item()
+
+
+def library_ok(r) -> bool:
+    """Within its limit, each planted fault beyond it; for the 16-bit GEMMs
+    the cuBLAS control within it too; for bf16 MLA the attention controls
+    (an fp32-accumulating online softmax passes, a bf16 one fails)."""
+    ok = r["err"] <= r["limit"] and all(f > r["limit"] for f in r.get("faults", {}).values())
+    if "cublas_units" in r:
+        ok = ok and r["cublas_units"] <= r["limit"]
+    if "fp32_acc_ulps" in r:
+        ok = ok and r["fp32_acc_ulps"] <= BF16_ULPS and r["bf16_acc_ulps"] > BF16_ULPS
+    return ok
+
+
+def check_gemm(torch, ops, ref, label, shape, dtype, flush, timed, dev, seed=41):
+    """ops.matmul against ref.matmul: bf16 within 2 units (lib_units) of
+    the plain value, with cuBLAS's bf16 product as the control; fp32 within
+    FP32_ATOL of max(1, max |plain|).  The planted fault drops the first
+    K tile."""
+    m, n, k = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((m, k), generator=g, device=dev).to(dt)
+    b = torch.randn((k, n), generator=g, device=dev).to(dt)
+    out = ops.matmul(a, b)  # the library's path: counted
+    plain = ref.matmul(a, b, dt)
+    res = {"kernel": "matmul", "label": f"{label} {dtype}", "shape": shape, "dtype": dt,
+           "max_abs_err": (out.float() - plain.float()).abs().max().item()}
+    if dt == torch.float32:
+        res.update(err=rel_err(torch, out, plain), limit=FP32_ATOL, metric="of max(1, max|plain|)")
+    else:
+        sigma = k ** 0.5 * rms(torch, a) * rms(torch, b)
+        res.update(err=lib_units(torch, out, plain, sigma), limit=BF16_ULPS,
+                   metric="units (lib_units)",
+                   cublas_units=lib_units(torch, torch.matmul(a, b), plain, sigma))
+        if k > K_TILE:
+            dropped = ref.matmul(a[:, K_TILE:], b[K_TILE:], dt)
+            res["faults"] = {"first K tile dropped": lib_units(torch, dropped, plain, sigma)}
+            del dropped
+    del out, plain
+    if timed:
+        n_before = ops.KERNELS["matmul"].launches
+        res["ms"] = time_ms(torch, lambda: ops.matmul(a, b), flush=flush)
+        ops.KERNELS["matmul"].launches = n_before
+        res["plain_ms"] = time_ms(torch, lambda: ref.matmul(a, b, dt), flush=flush)
+        res["library_ms"] = time_ms(torch, lambda: torch.matmul(a, b), flush=flush)
+        isz = a.element_size()
+        res["bound_ms"], res["bound_by"] = bound((m * k + k * n + m * n) * isz,
+                                                 2.0 * m * n * k, BF16_FLOPS)
+    return res
+
+
+def nibbles_swapped(torch, packed, fmt):
+    """The planted fault: each byte's codes read in the opposite order."""
+    b = packed.to(torch.int32) & 0xFF
+    if fmt in ("int4", "nf4"):
+        b = ((b & 0xF) << 4) | (b >> 4)
+    else:  # int2: four crumbs reversed
+        b = ((b & 3) << 6) | ((b & 0xC) << 2) | ((b >> 2) & 0xC) | (b >> 6)
+    return b.to(torch.uint8).view(torch.int8)
+
+
+def rounded_weight(torch, ref, packed, fmt, scales, group, dtype):
+    """The control's weight: each code cast to the activations' 16-bit type
+    and scaled in it, as the kernel (and the TPU kernel) multiplies it."""
+    w = ref.dequant_weight(packed, fmt).to(dtype)
+    if scales is not None:
+        n, k = w.shape
+        w = (w.float().reshape(n, k // group, group)
+             * scales.to(dtype).float()[..., None]).to(dtype).reshape(n, k)
+    return w
+
+
+def check_dequant(torch, ops, ref, label, shape, fmt, adtype, group, flush, timed, dev,
+                  seed=43):
+    """ops.dequant_matmul against ref.dequant_matmul (weights in fp32).
+    16-bit activations: the kernel multiplies each weight rounded to their
+    type, as the TPU kernel does, so the control is the plain version on
+    the weight rounded so; the limit is 2 units (lib_units) more than the
+    control's own reading, and cuBLAS's product on that weight must pass
+    it too; the kernel's distance from the control is printed.  int8 activations (float32 out): within FP32_ATOL of max(1,
+    max |plain|) (integer sums below 2^24: both exact).  The planted fault
+    swaps each byte's code order."""
+    m, n, k = shape
+    pack = ref.WEIGHT_PACK[fmt]
+    dt = getattr(torch, adtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dt == torch.int8:
+        a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    else:
+        a = torch.randn((m, k), generator=g, device=dev).to(dt)
+    bq = torch.randint(-128, 128, (n, k // pack), generator=g, device=dev, dtype=torch.int8)
+    sdt = dt if dt in (torch.bfloat16, torch.float16) else torch.float32
+    scales = None if group is None else (
+        torch.rand((n, k // group), generator=g, device=dev) * 0.1 + 0.01).to(sdt)
+    grp = group or 128
+    out_dt = torch.float32 if dt in (torch.int8, torch.float32) else dt
+    out = ops.dequant_matmul(a, bq, fmt=fmt, scales=scales, out_dtype=out_dt)  # counted
+    plain = ref.dequant_matmul(a, bq, fmt, scales, grp, out_dt)
+    res = {"kernel": "dequant_matmul", "label": f"{label} {fmt} x {adtype}", "shape": shape,
+           "dtype": dt,
+           "max_abs_err": (out.float() - plain.float()).abs().max().item()}
+    swapped = None
+    if fmt != "int8":
+        swapped = ref.dequant_matmul(a, nibbles_swapped(torch, bq, fmt), fmt, scales, grp, out_dt)
+    if out_dt == torch.float32:
+        res.update(err=rel_err(torch, out, plain), limit=FP32_ATOL, metric="of max(1, max|plain|)")
+        if swapped is not None:
+            res["faults"] = {"code order swapped": rel_err(torch, swapped, plain)}
+    else:
+        w = ref.dequant_weight(bq, fmt)
+        if scales is not None:
+            w = (w.reshape(n, k // grp, grp) * scales.float()[..., None]).reshape(n, k)
+        sigma = k ** 0.5 * rms(torch, a) * rms(torch, w)
+        del w
+        wr = rounded_weight(torch, ref, bq, fmt, scales, grp, dt)
+        control = torch.matmul(a.float(), wr.float().t()).to(out_dt)
+        # the same rounded weight through cuBLAS's tensor cores
+        res["cublas_units"] = lib_units(torch, torch.matmul(a, wr.t()), plain, sigma)
+        del wr
+        res["control_units"] = lib_units(torch, control, plain, sigma)
+        res["vs_control_units"] = lib_units(torch, out, control, sigma)
+        res.update(err=lib_units(torch, out, plain, sigma),
+                   limit=BF16_ULPS + res["control_units"], metric="units (lib_units)")
+        if swapped is not None:
+            res["faults"] = {"code order swapped": lib_units(torch, swapped, plain, sigma)}
+    del out, plain, swapped
+    if timed:
+        kern = ops.KERNELS["dequant_matmul"]
+        n_before = kern.launches
+        res["ms"] = time_ms(torch, lambda: ops.dequant_matmul(
+            a, bq, fmt=fmt, scales=scales, out_dtype=out_dt), flush=flush)
+        kern.launches = n_before
+        res["plain_ms"] = time_ms(torch, lambda: ref.dequant_matmul(
+            a, bq, fmt, scales, grp, out_dt), flush=flush)
+        # the paper's baseline, a yardstick only: cuBLAS's fp16 product on
+        # activations and a weight converted to fp16 beforehand
+        a16, w16 = a.half(), ref.dequant_weight(bq, fmt).half()
+        res["yardstick_ms"] = time_ms(torch, lambda: torch.matmul(a16, w16.t()), flush=flush)
+        res["library_ms"] = None  # no PyTorch call dequantizes packed codes
+        res["yardstick_bound_ms"] = (m * k + n * k + m * n) * 2 / HBM_BYTES_PER_S * 1e3
+        del a16, w16
+        osz = torch.empty((), dtype=out_dt).element_size()
+        nbytes = m * k * a.element_size() + n * k // pack + m * n * osz
+        if scales is not None:
+            nbytes += scales.numel() * scales.element_size()
+        res["bound_ms"], res["bound_by"] = bound(
+            nbytes, 2.0 * m * n * k, INT8_OPS if dt == torch.int8 else BF16_FLOPS)
+    return res
+
+
+def check_lib_mla(torch, ops, ref, label, shape, dtype, flush, timed, dev, seed=47):
+    """ops.mla against ref.mla: bf16 within 2 bf16 ulps of the plain value
+    (bf16_ulps), with phase 2's attention controls over the heads of each
+    latent head as query rows; fp32 within FP32_ATOL."""
+    b, h, hkv, s, d, pe = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+    q_pe = torch.randn((b, h, pe), generator=g, device=dev).to(dt)
+    kv = torch.randn((b, s, hkv, d), generator=g, device=dev).to(dt)
+    k_pe = torch.randn((b, s, hkv, pe), generator=g, device=dev).to(dt)
+    scale = (d + pe) ** -0.5
+    out = ops.mla(q, q_pe, kv, k_pe)  # counted
+    plain = ref.mla(q, q_pe, kv, k_pe)
+    err = (out.float() - plain.float()).abs().max().item()
+    res = {"kernel": "mla", "label": f"{label} {dtype}", "shape": shape, "max_abs_err": err}
+    group = h // hkv
+    # the heads of a latent head as the query rows of one attention head
+    qg = torch.cat([q, q_pe], -1).reshape(b, hkv, group, d + pe)
+    kg = torch.cat([kv, k_pe], -1).transpose(1, 2)  # (B, Hkv, S, D + Dpe)
+    vg = kv.transpose(1, 2)
+    if dt == torch.float32:
+        res.update(err=err, limit=FP32_ATOL, metric="max abs")
+    else:
+        res.update(err=bf16_ulps(torch, out, plain), limit=BF16_ULPS, metric="bf16 ulps")
+        mask = torch.ones((1, 1, 1, s), dtype=torch.bool, device=dev)
+        res.update(accumulation_controls(torch, qg, kg, vg, mask,
+                                         plain.reshape(b, hkv, group, d), scale=scale))
+    del out, plain
+    if timed:
+        kern = ops.KERNELS["mla"]
+        n_before = kern.launches
+        res["ms"] = time_ms(torch, lambda: ops.mla(q, q_pe, kv, k_pe), flush=flush)
+        kern.launches = n_before
+        res["plain_ms"] = time_ms(torch, lambda: ref.mla(q, q_pe, kv, k_pe), flush=flush)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qg4, kg4, vg4 = qg.contiguous(), kg.contiguous(), vg.contiguous()
+        res["library_ms"] = time_ms(torch, lambda: sdpa(qg4, kg4, vg4, scale=scale),
+                                    flush=flush)
+        isz = q.element_size()
+        nbytes = (b * s * hkv * (d + pe) + b * h * (d + pe) + b * h * d) * isz
+        res["bound_ms"], res["bound_by"] = bound(nbytes, 2.0 * b * h * s * (2 * d + pe),
+                                                 BF16_FLOPS)
+    return res
+
+
+def library_phase(torch, ref, flush, device, gemm=None, dequant=None, mla=None,
+                  ragged=None, timed=True):
+    """The kernel library driven through ``ops`` at the paper's shapes
+    (GEMM_SHAPES, DEQUANT_SHAPES x DEQUANT_ROWS, MLA_SHAPES) and on
+    ``ragged`` (ragged_cases()): each result held against its plain
+    version, timed beside it and a library call or yardstick.  The three
+    kernels' launch counts are set to 0 first and read at the end: each
+    case's first call through ``ops`` is the path's run; the timing's
+    launches are taken back.  Returns (results, launches)."""
+    from repro_torch.kernels import ops
+
+    gemm = GEMM_SHAPES if gemm is None else gemm
+    dequant = DEQUANT_SHAPES if dequant is None else dequant
+    mla = MLA_SHAPES if mla is None else mla
+    ragged = ragged_cases() if ragged is None else ragged
+    for name in LIBRARY_KERNELS:
+        ops.KERNELS[name].launches = 0
+    out = []
+    for label, shape in gemm.items():
+        out.append(check_gemm(torch, ops, ref, label, shape, "bfloat16", flush, timed, device))
+    for label, shape, dtype in ragged["matmul"]:
+        out.append(check_gemm(torch, ops, ref, label, shape, dtype, flush, False, device))
+    for label, shape in dequant.items():
+        for fmt, adtype in DEQUANT_ROWS:
+            out.append(check_dequant(torch, ops, ref, label, shape, fmt, adtype, None, flush,
+                                     timed, device))
+    for label, shape, fmt, adtype, group in ragged["dequant_matmul"]:
+        out.append(check_dequant(torch, ops, ref, label, shape, fmt, adtype, group, flush,
+                                 False, device))
+    for label, shape in mla.items():
+        out.append(check_lib_mla(torch, ops, ref, label, shape, "bfloat16", flush, timed,
+                                 device))
+    for label, shape, dtype in ragged["mla"]:
+        out.append(check_lib_mla(torch, ops, ref, label, shape, dtype, flush, False, device))
+    launches = {name: ops.KERNELS[name].launches for name in LIBRARY_KERNELS}
+    return out, launches
+
+
+def log_library(r):
+    """One line a library case: its reading against its limit, the
+    controls and faults, and its times."""
+    text = (f"[kernel] {r['kernel']} {r['label']} {tuple(r['shape'])}: {r['err']:.3g} "
+            f"{r['metric']} (limit {r['limit']:.3g}), max abs err {r['max_abs_err']:.3e}")
+    if "cublas_units" in r:
+        text += f"; control cuBLAS {str(r['dtype'])[6:]} {r['cublas_units']:.3g}"
+    if "control_units" in r:
+        text += (f"; control (weight rounded to the activations' type) {r['control_units']:.3g}"
+                 f", kernel vs control {r['vs_control_units']:.3g}")
+    if "fp32_acc_ulps" in r:
+        text += (f"; controls: fp32-accumulating {r['fp32_acc_ulps']:.2f}, "
+                 f"bf16-accumulating {r['bf16_acc_ulps']:.2f}")
+    for fault, v in r.get("faults", {}).items():
+        text += f"; fault '{fault}' {v:.3g}"
+    if "ms" in r:
+        text += f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        if r["kernel"] == "dequant_matmul":
+            text += (f"cuBLAS fp16 on a weight dequantized beforehand (yardstick) "
+                     f"{r['yardstick_ms']:.4f} ms (its bound {r['yardstick_bound_ms']:.4f}), "
+                     f"speedup over it {r['yardstick_ms'] / r['ms']:.2f}x, ")
+        elif r["kernel"] == "mla":
+            text += f"sdpa (a latent head's heads as query rows) {r['library_ms']:.4f} ms, "
+        else:
+            text += f"torch.matmul {r['library_ms']:.4f} ms, "
+        text += f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+    log(text)
+
+
+# ---------------------------------------------------------------------------
 # phase 2, driven
 # ---------------------------------------------------------------------------
 
@@ -1661,7 +2072,8 @@ def main(argv=None) -> int:
     build_log: dict = {}
     build_all(list(KERNELS.values()), log=build_log)
     log(f"[build] {len(KERNELS)} kernels from {len(build_log)} source(s) compiled in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in parallel; each library is "
+        f"keyed by every csrc/*.cuh, so a header edit rebuilds all of them)")
     for name, text in build_log.items():
         fn = ""
         for line in text.splitlines():  # ptxas -v: one block per function
@@ -1676,8 +2088,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     table = kernel_phase(torch, np, ref, flush_buf.zero_, device)
-    del flush_buf
     log(f"[time] phase 2 (kernels vs plain versions): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lib, lib_launches = library_phase(torch, ref, flush_buf.zero_, device)
+    del flush_buf
+    for r in lib:
+        log_library(r)
+        if not library_ok(r):
+            raise AssertionError(f"{r['kernel']} {r['label']} fails its limit or a fault "
+                                 "passes it")
+        if r["label"] == LIBRARY_ROWS[r["kernel"]]:
+            table[r["kernel"]] = r
+    log(f"[launches] the library's path: {json.dumps(lib_launches)}")
+    if not all(lib_launches.values()):
+        raise AssertionError(f"a library kernel was not launched on its path: {lib_launches}")
+    log(f"[time] phase 2, the kernel library ({len(lib)} cases): "
+        f"{time.perf_counter() - t0:.1f} s")
     if args.only == "kernels":
         log(json.dumps({"kernels_checked": sorted(table)}))
         log(json.dumps({"ok": True, "device": {
@@ -1690,6 +2116,7 @@ def main(argv=None) -> int:
     main_launches["flash_attention"] = training_phase(torch, np, lm, cfg, device)
     torch.cuda.empty_cache()
     main_launches.update(ssm_phase(torch, np, lm, device))
+    main_launches.update(lib_launches)
 
     # ---- result lines --------------------------------------------------
     rows = []
@@ -1698,7 +2125,7 @@ def main(argv=None) -> int:
         rows.append({
             "name": name, "route": "cuda",
             "source": str(k.source.relative_to(ROOT)), "replaces": k.replaces,
-            "launches": main_launches[name], "max_abs_err": r["err"],
+            "launches": main_launches[name], "max_abs_err": r.get("max_abs_err", r["err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })

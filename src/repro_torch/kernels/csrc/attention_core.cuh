@@ -29,7 +29,8 @@
 //
 // Multi-head latent attention (MLA) scores a key of width dk = R + Dpe (the
 // shared latent plus its rotary part) and takes as value the key's first
-// dv = R columns: its tiles are FpLatent / QuantLatent, one shared tile of
+// dv = R columns: its tiles are FpLatent / QuantLatent (pool pages) or
+// RowsLatent (strided rows of a contiguous cache), one shared tile of
 // [latent | rope] rows that P.V reads again (no second load), and the
 // latent layout of Smem points the V tile at the K tile.
 // Tiles are read with 16-byte vector loads into registers one tile ahead of
@@ -40,6 +41,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -52,6 +54,8 @@ constexpr int MAXV = 4;  // 16-byte vectors per thread per tile (K or V)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -60,6 +64,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 template <typename T>
@@ -411,6 +419,38 @@ struct QuantKV {
 // 1152 16-byte vectors in bf16 and 2304 in fp32, so these formats hold NV
 // vectors a thread (at 256 threads: 5 and 9), more than FpKV's MAXV.
 
+// Commit a fetched latent tile: vectors [0, cols * r / VEC) are the latent
+// rows, the rest the rope rows, stored side by side in sm.ks as fp32 rows
+// [latent | rope].
+template <typename T, int NV>
+__device__ __forceinline__ void commit_latent(Smem& sm, const uint4 (&v)[NV], int cols, int r,
+                                              int pe) {
+  constexpr int VEC = vec_elems<T>();
+  const int nc = cols * r / VEC, n = nc + cols * pe / VEC;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n) {
+      int row, col;
+      if (i < nc) {
+        const int e = i * VEC;
+        row = e / r;
+        col = e - row * r;
+      } else {
+        const int e = (i - nc) * VEC;
+        row = e / pe;
+        col = r + e - row * pe;
+      }
+      const T* x = reinterpret_cast<const T*>(&v[k]);
+      float* o = sm.ks + row * sm.stride + col;
+#pragma unroll
+      for (int q = 0; q < VEC; q += 4)
+        *reinterpret_cast<float4*>(o + q) = make_float4(
+            to_float(x[q]), to_float(x[q + 1]), to_float(x[q + 2]), to_float(x[q + 3]));
+    }
+  }
+}
+
 // fp latent: rows of R and Dpe values of T.
 template <typename T>
 struct FpLatent {
@@ -443,30 +483,7 @@ struct FpLatent {
     }
   }
   __device__ void commit(Smem& sm, const Regs& st, int cols, int /*dk*/) const {
-    constexpr int VEC = vec_elems<T>();
-    const int nc = cols * r / VEC, n = nc + cols * pe / VEC;
-#pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i < n) {
-        int row, col;
-        if (i < nc) {
-          const int e = i * VEC;
-          row = e / r;
-          col = e - row * r;
-        } else {
-          const int e = (i - nc) * VEC;
-          row = e / pe;
-          col = r + e - row * pe;
-        }
-        const T* x = reinterpret_cast<const T*>(&st.v[k]);
-        float* o = sm.ks + row * sm.stride + col;
-#pragma unroll
-        for (int q = 0; q < VEC; q += 4)
-          *reinterpret_cast<float4*>(o + q) = make_float4(
-              to_float(x[q]), to_float(x[q + 1]), to_float(x[q + 2]), to_float(x[q + 3]));
-      }
-    }
+    commit_latent<T, NV>(sm, st.v, cols, r, pe);
   }
   // n rows of both pools onto `dst` (the prefill kernels' page write)
   __device__ void copy_rows(const FpLatent& dst, int n) const {
@@ -477,6 +494,52 @@ struct FpLatent {
     uint4* pd = reinterpret_cast<uint4*>(dst.kpe);
     for (int i = threadIdx.x; i < nc; i += blockDim.x) cd[i] = c[i];
     for (int i = threadIdx.x; i < np; i += blockDim.x) pd[i] = p[i];
+  }
+};
+
+// Strided latent rows (the contiguous MLA layout, kv (B, S, Hkv, R) and
+// k_pe (B, S, Hkv, Dpe)): latent row j at ckv + j * cstride, rope row j at
+// kpe + j * pstride, and only the first `valid` rows of a tile are read: the
+// rows of a partial last tile past the sequence's end commit as zeros.
+template <typename T>
+struct RowsLatent {
+  using Elem = T;
+  static constexpr int NV = FpLatent<T>::NV;
+  const T *ckv, *kpe;
+  long cstride, pstride;
+  int valid, r, pe;
+  struct Regs {
+    uint4 v[NV];
+  };
+
+  static bool shapes_ok(int cols, int r, int pe, int threads) {
+    return FpLatent<T>::shapes_ok(cols, r, pe, threads);
+  }
+  __device__ RowsLatent rows(long n) const {
+    return {ckv + n * cstride, kpe + n * pstride, cstride, pstride, valid - (int)n, r, pe};
+  }
+  __device__ void fetch(Regs& st, int cols, int /*dk*/) const {
+    constexpr int VEC = vec_elems<T>();
+    const int rc = r / VEC, rp = pe / VEC;
+    const int nc = cols * rc, n = nc + cols * rp;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < nc) {
+        const int row = i / rc;
+        st.v[k] = row < valid ? __ldg(reinterpret_cast<const uint4*>(
+                                    ckv + row * cstride + (i - row * rc) * VEC))
+                              : make_uint4(0u, 0u, 0u, 0u);
+      } else if (i < n) {
+        const int j = i - nc, row = j / rp;
+        st.v[k] = row < valid ? __ldg(reinterpret_cast<const uint4*>(
+                                    kpe + row * pstride + (j - row * rp) * VEC))
+                              : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+  __device__ void commit(Smem& sm, const Regs& st, int cols, int /*dk*/) const {
+    commit_latent<T, NV>(sm, st.v, cols, r, pe);
   }
 };
 

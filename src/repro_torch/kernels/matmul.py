@@ -1,0 +1,72 @@
+"""The kernel library's GEMM: the wrapper around ``csrc/matmul.cu``.
+
+Counterpart of ``repro.kernels.matmul.matmul_program`` (repro/kernels/
+matmul.py:15, the paper's Fig. 16): ``C = A . B`` for A (M, K) and B (K, N)
+of one type (fp32, bf16 or fp16), fp32 accumulation, C rounded once to
+``out_dtype``.  Any M, N, K.  The plain version is ``ref.matmul``; this
+wrapper takes it for CPU tensors only.  For a CUDA tensor it launches the
+kernel or raises: bf16 / fp16 operands with K and N multiples of 8 take the
+tensor cores, everything else the kernel's CUDA-core GEMM (fp32 FMAs, no
+TF32).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ref
+from .build import Kernel, check
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL = Kernel(
+    "matmul", "matmul_launch", [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    replaces="src/repro/kernels/matmul.py:15",
+)
+# the kernel library's element types (the port's attention kernels take
+# only float32 and bfloat16)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the grid's row axis: ceil(M / 128) blocks at most 65535
+MAX_ROWS = 65535 * 128
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"matmul kernel: {msg}")
+
+
+def takes_tensor_cores(dtype, k: int, n: int, *tensors) -> bool:
+    """Whether the tensor-core kernel takes these operands: 16-bit
+    elements, K and N multiples of 8 (16-byte rows) and 16-byte aligned
+    data."""
+    return (dtype in (torch.bfloat16, torch.float16) and k % 8 == 0
+            and n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """``a`` (M, K) @ ``b`` (K, N) -> (M, N) of ``out_dtype`` (default:
+    ``a``'s dtype)."""
+    out_dtype = out_dtype or a.dtype
+    if not a.is_cuda:
+        return ref.matmul(a, b, out_dtype)
+    _require(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
+             f"shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    _require(b.device == a.device, f"b is on {b.device}, a on {a.device}")
+    _require(a.dtype in DTYPES and b.dtype == a.dtype,
+             f"dtypes {a.dtype} / {b.dtype} (one of float32, bfloat16, float16)")
+    _require(out_dtype in DTYPES, f"out_dtype {out_dtype}")
+    m, k = a.shape
+    n = b.shape[1]
+    _require(min(m, n, k) >= 1 and m <= MAX_ROWS and max(n, k) < 2 ** 31,
+             f"M, N, K = {m}, {n}, {k}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    tc = takes_tensor_cores(a.dtype, k, n, a, b)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = KERNEL.function()(DTYPES[a.dtype], DTYPES[out_dtype], a.data_ptr(),
+                               b.data_ptr(), out.data_ptr(), m, n, k, int(tc), stream)
+    check(rc, "matmul")
+    KERNEL.launches += 1
+    return out

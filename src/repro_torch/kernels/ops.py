@@ -1,9 +1,10 @@
 """Public kernel API: dispatch between the hand-written CUDA kernels and the
 plain PyTorch path, plus the host-side dispatch guard.
 
-Counterpart of ``repro.kernels.ops`` for the serving and training paths
+Counterpart of ``repro.kernels.ops``: the serving and training paths
 (attention of every kind, and the Mamba-2 SSD's chunk_state and
-chunk_scan).
+chunk_scan) and the kernel library (``matmul``, ``dequant_matmul``, the
+contiguous FlashMLA ``mla``).
 The routing rules are the reference's, kept as explicit rules:
 
 * a soft-capped model takes the plain path (ops.py:247, :353), because no
@@ -16,7 +17,12 @@ The routing rules are the reference's, kept as explicit rules:
   tensors (or raises), and uses the kernel's plain version for CPU tensors.
 
 The device of the tensors is the only other rule: there is no backend knob,
-so a CUDA tensor on the kernels' path always reaches its kernel.
+so a CUDA tensor on the kernels' path always reaches its kernel.  Nor are
+there the reference's TPU schedule knobs (``block_m/n/k``, ``num_stages``,
+``block_h``): each CUDA kernel picks its own tiles, and the knobs come back
+with the tile-DSL compiler.  Unlike the reference's ``dequant_matmul``
+(ops.py:709-713), a scale layout the kernel cannot take raises rather than
+taking the plain path.
 
 Nothing here catches a build or launch error to fall back.
 """
@@ -30,7 +36,10 @@ import torch
 from ..core.errors import GuardError
 from . import chunk_scan as _csc
 from . import chunk_state as _cst
+from . import dequant_matmul as _dq
 from . import flash_attention as _fa
+from . import matmul as _mm
+from . import mla as _mla
 from . import mla_paged as _mp
 from . import mla_paged_quant as _mpq
 from . import mla_prefill as _mf
@@ -41,14 +50,16 @@ from . import prefill_attention as _pf
 from . import prefill_attention_quant as _pfq
 from . import ref
 
-# the hand-written kernels on the serving and training paths, by name
+# the hand-written kernels, by name: those of the serving and training
+# paths, then the kernel library's
 KERNELS = {"paged_attention": _pa.KERNEL, "prefill_attention": _pf.KERNEL,
            "paged_attention_quant": _paq.KERNEL,
            "prefill_attention_quant": _pfq.KERNEL,
            "mla_paged": _mp.KERNEL, "mla_prefill": _mf.KERNEL,
            "mla_paged_quant": _mpq.KERNEL, "mla_prefill_quant": _mfq.KERNEL,
            "flash_attention": _fa.KERNEL, "chunk_state": _cst.KERNEL,
-           "chunk_scan": _csc.KERNEL}
+           "chunk_scan": _csc.KERNEL, "matmul": _mm.KERNEL,
+           "dequant_matmul": _dq.KERNEL, "mla": _mla.KERNEL}
 
 
 def guard_dispatch(tables, num_pages, page_size, work):
@@ -339,3 +350,29 @@ def ssd(c_mat, b_mat, x, dt, a_log, *, chunk: int = 64):
 
 def rmsnorm(x, weight, eps: float = 1e-6):
     return ref.rmsnorm(x, weight, eps)
+
+
+# ---------------------------------------------------------------------------
+# the kernel library (ops.py:184, :450, :689)
+# ---------------------------------------------------------------------------
+
+
+def matmul(a, b, *, out_dtype=None):
+    """GEMM (ops.py:184): ``a`` (M, K) @ ``b`` (K, N) with fp32
+    accumulation -> (M, N) of ``out_dtype`` (default ``a``'s dtype)."""
+    return _mm.matmul(a, b, out_dtype=out_dtype)
+
+
+def dequant_matmul(a, b_packed, *, fmt: str = "int4", scales=None, out_dtype=None):
+    """Weight-only quantized GEMM (ops.py:689): ``a`` (M, K) @
+    dequant(``b_packed``)^T with B stored (N, K // pack) int8 in ``fmt``
+    (int4, int2, nf4 or int8) and optional (N, K // group) ``scales`` ->
+    (M, N) of ``out_dtype`` (default ``a``'s dtype)."""
+    return _dq.dequant_matmul(a, b_packed, fmt, scales, out_dtype)
+
+
+def mla(q, q_pe, kv, k_pe, *, sm_scale=None):
+    """Contiguous FlashMLA decode (ops.py:450): ``q`` (B, Hq, D), ``q_pe``
+    (B, Hq, Dpe) over ``kv`` (B, S, Hkv, D) and ``k_pe`` (B, S, Hkv, Dpe)
+    -> (B, Hq, D)."""
+    return _mla.mla(q, q_pe, kv, k_pe, sm_scale=sm_scale)

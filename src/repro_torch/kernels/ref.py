@@ -1,13 +1,15 @@
-"""Plain PyTorch versions of the kernels on the serving and training paths.
+"""Plain PyTorch versions of the port's kernels.
 
 Counterparts of ``repro.kernels.ref``: ``paged_attention`` (ref.py:286),
 ``prefill_attention`` (:343), ``rmsnorm`` (:664), the KV quantization
 primitives with ``paged_attention_quant`` (:115-172) and the latent (MLA)
 oracles ``mla_paged`` (:454), ``mla_prefill`` (:480) and
 ``mla_paged_quant`` (:174), the contiguous ``attention`` (:235), the
-flash-attention kernel's plain version, and the Mamba-2 SSD pieces
+flash-attention kernel's plain version, the Mamba-2 SSD pieces
 ``chunk_state`` (:585), ``chunk_scan`` (:596), ``state_recurrence`` (:619)
-and ``ssd`` (:638), op for op.  They are
+and ``ssd`` (:638), and the kernel library's ``matmul`` (:21), weight
+unpacking with ``dequant_matmul`` (:31-104) and contiguous ``mla`` (:549),
+op for op.  They are
 the oracles the CUDA kernels are held against on the card, and the path
 every CPU tensor takes.  Scores, softmax and the P.V product run in fp32
 whatever the input dtype; the result is cast back to ``out_dtype`` (default:
@@ -21,6 +23,75 @@ from typing import Optional
 import torch
 
 _NEG = torch.finfo(torch.float32).min
+
+
+# ---------------------------------------------------------------------------
+# GEMM and the weight-only dequantized GEMM (the kernel library)
+# ---------------------------------------------------------------------------
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """``a`` (M, K) @ ``b`` (K, N) with fp32 products and sums, rounded
+    once to ``out_dtype`` (ref.py:21)."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+# bitsandbytes' NF4 codebook (ref.py:34), index = the 4-bit code
+NF4_CODEBOOK = torch.tensor([
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+    -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+    0.07958029955625534, 0.16093020141124725, 0.24611230194568634, 0.33791524171829224,
+    0.44070982933044434, 0.5626170039176941, 0.7229568362236023, 1.0,
+], dtype=torch.float32)
+# codes a packed int8 byte holds, by weight format
+WEIGHT_PACK = {"int4": 2, "int2": 4, "nf4": 2, "int8": 1}
+
+
+def _crumbs(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., K // pack) int8 -> (..., K) int32 fields of ``bits`` bits,
+    lowest bits first, each masked after the (arithmetic) shift."""
+    b = packed.to(torch.int32)
+    mask = (1 << bits) - 1
+    parts = [(b >> (bits * i)) & mask for i in range(8 // bits)]
+    return torch.stack(parts, dim=-1).reshape(*packed.shape[:-1], -1)
+
+
+def unpack_int2(packed: torch.Tensor) -> torch.Tensor:
+    """(..., K//4) int8 -> (..., K) int8 values in [-2, 1] (ref.py:54)."""
+    vals = _crumbs(packed, 2)
+    return torch.where(vals >= 2, vals - 4, vals).to(torch.int8)
+
+
+def unpack_nf4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., K//2) int8 -> (..., K) float32 codebook values (ref.py:63)."""
+    return NF4_CODEBOOK.to(packed.device)[_crumbs(packed, 4).long()]
+
+
+def dequant_weight(b_packed: torch.Tensor, fmt: str) -> torch.Tensor:
+    """The (N, K) fp32 weight a packed (N, K // pack) int8 matrix holds."""
+    if fmt == "int4":
+        return unpack_int4(b_packed).float()
+    if fmt == "int2":
+        return unpack_int2(b_packed).float()
+    if fmt == "nf4":
+        return unpack_nf4(b_packed)
+    if fmt == "int8":
+        return b_packed.float()
+    raise ValueError(f"unknown dequant format {fmt}")
+
+
+def dequant_matmul(a: torch.Tensor, b_packed: torch.Tensor, fmt: str = "int4",
+                   scales: Optional[torch.Tensor] = None, group_size: int = 128,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """``a`` (M, K) @ dequant(``b_packed``)[N, K]^T -> (M, N) (ref.py:71):
+    B stored N-major with the K axis packed, ``scales`` (N, K // group)
+    per-group; the weight, its scaling and the product in fp32."""
+    w = dequant_weight(b_packed, fmt)
+    if scales is not None:
+        n, k = w.shape
+        w = (w.reshape(n, k // group_size, group_size)
+             * scales.float()[..., None]).reshape(n, k)
+    return torch.matmul(a.float(), w.t()).to(out_dtype)
 
 
 def paged_attention(
@@ -322,6 +393,28 @@ def mla_masked(q_lat, q_pe, c_kv, k_pe, kv_len, sm_scale: float,
     e = torch.exp(scores - m) * mask
     p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
     return torch.einsum("bhs,bsr->bhr", p, c_kv.float())
+
+
+def mla(q: torch.Tensor, q_pe: torch.Tensor, kv: torch.Tensor,
+        k_pe: torch.Tensor, sm_scale: Optional[float] = None,
+        out_dtype=None) -> torch.Tensor:
+    """Contiguous MLA decode (ref.py:549): ``q`` (B, Hq, D) and ``q_pe``
+    (B, Hq, Dpe) against ``kv`` (B, S, Hkv, D) and ``k_pe`` (B, S, Hkv,
+    Dpe), Hq / Hkv query heads a latent head; scores and softmax in fp32,
+    scale 1 / sqrt(D + Dpe) by default, V the latent itself."""
+    b, hq, d = q.shape
+    hkv = kv.shape[2]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d + q_pe.shape[-1])
+    qg = q.reshape(b, hkv, group, d).float()
+    qpeg = q_pe.reshape(b, hkv, group, -1).float()
+    kvf = kv.float()
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, kvf)
+    scores += torch.einsum("bhgp,bshp->bhgs", qpeg, k_pe.float())
+    p = torch.softmax(scores * sm_scale, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, kvf)
+    return out.reshape(b, hq, d).to(out_dtype or q.dtype)
 
 
 def mla_paged(q_lat, q_pe, ckv_pages, kpe_pages, block_tables, seq_lens,

@@ -389,3 +389,105 @@ def test_cuda_ssd_functions_gradients_match_plain_autograd():
         assert (CST.KERNEL.launches - n0[0], CSC.KERNEL.launches - n0[1]) in ((0, 0), (1, 1))
     for a, w in zip(*grads):
         assert (a - w).abs().max().item() <= cs.FP32_ATOL * max(1.0, w.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the kernel library: GEMM, dequantized GEMM, contiguous FlashMLA
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ops  # noqa: E402
+
+LIB_GEMM = [(1, 64, 48), (37, 72, 48), (130, 136, 48), (300, 1000, 520), (37, 100, 57),
+            (1, 1000, 4096)]
+
+
+def _lib_within_limit(got, want, sigma):
+    if got.dtype == torch.float32:
+        return cs.rel_err(torch, got, want) <= cs.FP32_ATOL
+    return cs.lib_units(torch, got, want, sigma) <= cs.BF16_ULPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_cuda_matmul_matches_plain_version(dtype):
+    """Tensor cores (16-bit, K and N multiples of 8) and CUDA cores (fp32,
+    ragged K and N), masked edges, M = 1, every output type."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = getattr(torch, dtype)
+    for m, n, k in LIB_GEMM:
+        a = torch.randn((m, k), generator=g, device=dev).to(dt)
+        b = torch.randn((k, n), generator=g, device=dev).to(dt)
+        for out_dtype in (dt, torch.float32, torch.bfloat16):
+            n0 = ops.KERNELS["matmul"].launches
+            got = ops.matmul(a, b, out_dtype=out_dtype)
+            assert ops.KERNELS["matmul"].launches == n0 + 1
+            want = ref.matmul(a, b, out_dtype)
+            assert _lib_within_limit(got, want, k ** 0.5), (m, n, k, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4", "int2", "nf4"])
+@pytest.mark.parametrize("adtype", ["float16", "bfloat16", "int8", "float32"])
+def test_cuda_dequant_matmul_matches_plain_version(fmt, adtype):
+    """Every format and activation type, with and without scale groups that
+    match no K tile, M = 1, 5, 8, 12 and 70, ragged N and K: 16-bit activations within 2
+    units of the plain version on the weight rounded to their type (the
+    kernel's arithmetic, as the TPU kernel's); int8 and fp32 activations
+    within 1e-4 of max(1, max |plain|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    dt = getattr(torch, adtype)
+    pack = ref.WEIGHT_PACK[fmt]
+    # M <= 8 with K / pack a multiple of 64 bytes takes the decode-shape
+    # kernel (with scales: a group a multiple of 4 * pack); the rest tiles
+    for m, n, k, group in ((8, 128, 256, None), (70, 200, 512, None), (70, 192, 384, 96),
+                           (8, 64, 192, 32), (5, 40, 48, None), (5, 72, 1024, 64),
+                           (1, 40, 512, None), (12, 64, 1024, None)):
+        if dt == torch.int8:
+            a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        else:
+            a = torch.randn((m, k), generator=g, device=dev).to(dt)
+        bq = torch.randint(-128, 128, (n, k // pack), generator=g, device=dev, dtype=torch.int8)
+        sdt = dt if dt in (torch.bfloat16, torch.float16) else torch.float32
+        sc = None if group is None else (
+            torch.rand((n, k // group), generator=g, device=dev) + 0.5).to(sdt)
+        out_dt = torch.float32 if dt in (torch.int8, torch.float32) else dt
+        got = ops.dequant_matmul(a, bq, fmt=fmt, scales=sc, out_dtype=out_dt)
+        grp = group or 128
+        if out_dt == torch.float32:
+            want = ref.dequant_matmul(a, bq, fmt, sc, grp, out_dt)
+            assert cs.rel_err(torch, got, want) <= cs.FP32_ATOL, (m, n, k, group)
+        else:
+            w = cs.rounded_weight(torch, ref, bq, fmt, sc, grp, dt)
+            control = torch.matmul(a.float(), w.float().t()).to(out_dt)
+            sigma = k ** 0.5 * cs.rms(torch, a) * cs.rms(torch, w)
+            assert cs.lib_units(torch, got, control, sigma) <= cs.BF16_ULPS, (m, n, k, group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_cuda_mla_matches_plain_version(dtype):
+    """128 heads over one latent head (the paper's), two latent heads, a
+    ragged sequence and a small head dim."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, dtype)
+    for b, h, hkv, s, d, pe in ((2, 128, 1, 100, 512, 64), (1, 32, 2, 128, 64, 32),
+                                (3, 16, 1, 1000, 512, 64)):
+        q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+        q_pe = torch.randn((b, h, pe), generator=g, device=dev).to(dt)
+        kv = torch.randn((b, s, hkv, d), generator=g, device=dev).to(dt)
+        k_pe = torch.randn((b, s, hkv, pe), generator=g, device=dev).to(dt)
+        got = ops.mla(q, q_pe, kv, k_pe)
+        want = ref.mla(q, q_pe, kv, k_pe)
+        if dt == torch.float16:
+            assert cs.lib_units(torch, got, want, 1.0) <= cs.BF16_ULPS, (b, h, hkv, s)
+        else:
+            assert _within_limit(got, want), (b, h, hkv, s)

@@ -244,7 +244,8 @@ def test_quant_wrappers_take_the_plain_version_only_for_cpu_tensors():
                                 "paged_attention_quant", "prefill_attention_quant",
                                 "mla_paged", "mla_prefill", "mla_paged_quant",
                                 "mla_prefill_quant", "flash_attention",
-                                "chunk_state", "chunk_scan"}
+                                "chunk_state", "chunk_scan", "matmul",
+                                "dequant_matmul", "mla"}
     rng = np.random.default_rng(5)
     q = _t(rng.standard_normal((2, 4, 16)).astype("float32"))
     kp, ks = (_t(a) for a in _quantized(rng, (2, 5, 4, 16), "int8"))
