@@ -22,8 +22,11 @@ no phase is skipped):
    part, scaled by 1 / sqrt(192); page 16, slots 8, chunk 64, max_len 1024;
    bf16 plus an fp32 pass; the quantized kernels in int8 and int4),
    including a len-0 slot, a sliding window and a partial chunk (bf16 limit
-   in ulps of the plain value, checked against an fp32- and a
-   bf16-accumulating control); time kernel, plain version and, as a
+   in ulps of the plain value, checked against three controls: an
+   fp32-accumulating online softmax must pass it, one accumulating in bf16
+   and one rounding P once to bf16 must fail it); every bf16 launch of the
+   flash and fp chunked-prefill kernels must take their tensor-core path
+   (``KERNEL.tc_launches``); time kernel, plain version and, as a
    yardstick only, ``scaled_dot_product_attention`` over the gathered (for
    the quantized kernels: gathered and dequantized) pages.  The flash
    kernel is held at qwen2-1.5B's training shapes (batch 8 x seq 1024,
@@ -218,7 +221,9 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # two fp32 results may straddle a rounding boundary); the limit is two ulps
 # of the plain value, element-wise.  ``accumulation_controls`` shows the limit
 # passes a plain fp32-accumulating online softmax and rejects one that keeps
-# its running sum and P.V accumulator in bf16.
+# its running sum and P.V accumulator in bf16, or rounds its probabilities
+# once to bf16 before P.V (the tensor-core kernels multiply P as a bf16 pair
+# hi + lo instead).
 FP32_ATOL = 1e-4
 BF16_ULPS = 2.0
 NEG_CLAMP = -2.0 ** 20  # the kernels' floor of the running max
@@ -235,35 +240,49 @@ def bf16_ulps(torch, got, want, floor: float = 2.0 ** -16) -> float:
     return ((got.float() - w).abs() / ulp).max().item()
 
 
-def online_softmax(torch, q, k, v, mask, acc_dtype, scale=HEAD_DIM ** -0.5):
+def online_softmax(torch, q, k, v, mask, acc_dtype, scale=HEAD_DIM ** -0.5,
+                   tile=PAGE, p_dtype=None):
     """Attention of ``q`` (..., Sq, D) over ``k`` (..., S, D) and ``v``
-    (..., S, Dv) under ``mask`` (..., Sq, S), a page of keys at a time, with
+    (..., S, Dv) under ``mask`` (..., Sq, S), ``tile`` keys at a time, with
     the running max in fp32 and the running sum and accumulator stored in
-    ``acc_dtype`` after every page: float32 is the kernels' arithmetic,
-    bfloat16 the fault of a kernel that accumulates in bf16."""
+    ``acc_dtype`` after every tile: float32 is the kernels' arithmetic,
+    bfloat16 the fault of a kernel that accumulates in bf16.  ``p_dtype``
+    rounds the probabilities once before P.V (the running sum keeps them
+    unrounded): bfloat16 is the usual FlashAttention-2 shortcut that the
+    tensor-core kernels avoid with their hi + lo pair."""
     qf = q.float() * scale
     m = torch.full(q.shape[:-1] + (1,), NEG_CLAMP, device=q.device)
     l = torch.zeros(q.shape[:-1] + (1,), device=q.device, dtype=acc_dtype)
     acc = torch.zeros(q.shape[:-1] + v.shape[-1:], device=q.device, dtype=acc_dtype)
-    for t in range(0, k.shape[-2], PAGE):
-        sc = qf @ k[..., t:t + PAGE, :].float().transpose(-1, -2)
-        sc = sc.masked_fill(~mask[..., t:t + PAGE], float("-inf"))
+    for t in range(0, k.shape[-2], tile):
+        sc = qf @ k[..., t:t + tile, :].float().transpose(-1, -2)
+        sc = sc.masked_fill(~mask[..., t:t + tile], float("-inf"))
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
         l = (l.float() * alpha + p.sum(-1, keepdim=True)).to(acc_dtype)
-        acc = (acc.float() * alpha + p @ v[..., t:t + PAGE, :].float()).to(acc_dtype)
+        if p_dtype is not None:
+            p = p.to(p_dtype).float()
+        acc = (acc.float() * alpha + p @ v[..., t:t + tile, :].float()).to(acc_dtype)
         m = m_new
     return (acc.float() / l.float().clamp_min(1e-30)).to(q.dtype)
 
 
+# (name, accumulator dtype, keys a tile, probabilities' dtype before P.V)
+CONTROLS = (("fp32_acc_ulps", "float32", PAGE, None),
+            ("bf16_acc_ulps", "bfloat16", PAGE, None),
+            ("bf16_p_ulps", "float32", 64, "bfloat16"))
+
+
 def accumulation_controls(torch, q, k, v, mask, plain, live=None,
                           scale=HEAD_DIM ** -0.5):
-    """bf16 ulps from ``plain`` of an fp32- and a bf16-accumulating online
-    softmax over the same gathered inputs (``live`` masks the rows compared)."""
+    """bf16 ulps from ``plain`` of the CONTROLS over the same gathered
+    inputs (``live`` masks the rows compared): an fp32-accumulating online
+    softmax, a bf16-accumulating one, and an fp32-accumulating one over
+    64-key tiles whose P is rounded once to bf16 before P.V."""
     out = {}
-    for name, acc_dtype in (("fp32_acc_ulps", torch.float32),
-                            ("bf16_acc_ulps", torch.bfloat16)):
-        got = online_softmax(torch, q, k, v, mask, acc_dtype, scale)
+    for name, acc_dtype, tile, p_dtype in CONTROLS:
+        got = online_softmax(torch, q, k, v, mask, getattr(torch, acc_dtype), scale,
+                             tile, p_dtype and getattr(torch, p_dtype))
         if live is not None:
             got, want = torch.where(live, got, 0), torch.where(live, plain, 0)
         else:
@@ -272,14 +291,19 @@ def accumulation_controls(torch, q, k, v, mask, plain, live=None,
     return out
 
 
+def controls_text(r) -> str:
+    return (f"controls: fp32-accumulating {r['fp32_acc_ulps']:.2f}, bf16-accumulating "
+            f"{r['bf16_acc_ulps']:.2f}, P rounded to bf16 {r['bf16_p_ulps']:.2f}")
+
+
 def kernel_ok(r) -> bool:
     """A check's result within its limit.  In bf16 the limit must also pass
-    the fp32-accumulating control and reject the bf16-accumulating one."""
+    the fp32-accumulating control and reject the bf16-accumulating one and
+    the one that rounds P to bf16."""
     if "ulps" not in r:
         return r["err"] <= FP32_ATOL
     return (r["ulps"] <= BF16_ULPS and r["fp32_acc_ulps"] <= BF16_ULPS
-            and r["bf16_acc_ulps"] > BF16_ULPS)
-
+            and r["bf16_acc_ulps"] > BF16_ULPS and r["bf16_p_ulps"] > BF16_ULPS)
 
 
 def _tables(torch, rng, dev):
@@ -460,9 +484,10 @@ def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
     p1, p2 = [t.clone() for t in pools], [t.clone() for t in pools]
     run = lambda: kernel(q, *new, *p1, tables, st, ln, window=window, **kw)[0]  # noqa: E731
     plain_run = lambda: plain_fn(q, *new, *p2, tables, st, ln, window=window, **kw)[0]  # noqa: E731
-    before = mod.KERNEL.launches
+    before, tc_before = mod.KERNEL.launches, mod.KERNEL.tc_launches
     out, plain = run(), plain_run()
-    mod.KERNEL.launches = before
+    tc = mod.KERNEL.tc_launches - tc_before
+    mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
     err = (out.float() - plain.float()).abs().max().item()
     assert torch.isfinite(out).all()
     # live positions hold the chunk's K/V (packed bytes and scales) on both
@@ -470,7 +495,7 @@ def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
     check_pages(torch, tables, starts, lens, num_pages, (p1, p2), pools, new,
                 lambda pool, pg, of: pool[:, pg, of],
                 lambda rows, b, c: rows[b, :, c], lambda pool, idx: pool[:, idx])
-    res = {"err": err}
+    res = {"err": err, "tc_launches": tc}
     # [gathered prior pages ; chunk] for one dense call: SDPA and the controls
     kg = kp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
     vg = vp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
@@ -483,7 +508,7 @@ def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
     if timed:
         res["ms"] = time_ms(torch, run, flush=flush)
         res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
-        mod.KERNEL.launches = before
+        mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
         # yardstick: one SDPA call over the gathered inputs (gather untimed)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         sdpa_ms = time_ms(torch, lambda: sdpa(q, kall, vall, attn_mask=mask), flush=flush)
@@ -695,11 +720,13 @@ def check_flash(torch, np, ref, mod, dtype, case, flush, timed, dev):
     q, k, v = flash_inputs(torch, case, dtype, dev)
     run = lambda: mod.flash_attention(q, k, v, causal=causal)  # noqa: E731
     plain_run = lambda: ref.attention(q, k, v, causal=causal)  # noqa: E731
-    before = mod.KERNEL.launches
+    before, tc_before = mod.KERNEL.launches, mod.KERNEL.tc_launches
     out, plain = run(), plain_run()
-    mod.KERNEL.launches = before  # comparison launches do not count
+    tc = mod.KERNEL.tc_launches - tc_before
+    # comparison launches do not count
+    mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
     assert torch.isfinite(out).all() and out.shape == q.shape
-    res = {"err": (out.float() - plain.float()).abs().max().item()}
+    res = {"err": (out.float() - plain.float()).abs().max().item(), "tc_launches": tc}
     if dtype == torch.bfloat16:
         res["ulps"] = bf16_ulps(torch, out, plain)
         qi = torch.arange(sq, device=dev)[:, None] + (sk - sq)
@@ -724,12 +751,50 @@ def check_flash(torch, np, ref, mod, dtype, case, flush, timed, dev):
             lambda: mod.FlashAttentionFn.apply(qg, kg, vg, causal, None)), flush=flush)
         res["sdpa_fwd_bwd_ms"] = time_ms(torch, fwd_bwd(
             lambda: sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)), flush=flush)
-        mod.KERNEL.launches = before
+        mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
         isz = q.element_size()
         nbytes = (2 * q.numel() + 2 * k.numel()) * isz  # q in, out; k, v in
         flops = 4.0 * d * flash_pairs(case)
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
     return res
+
+
+def tile_cost(torch, PF, FA, flush, dev):
+    """What one 64-key tile of the walk costs the two tensor-core kernels:
+    the chunked prefill at the main path's shapes with every slot's chunk
+    at the same start (0 or 960: 0 or 15 prior tiles before its chunk
+    tile), and the flash forward over 256 queries and 256 or 2048 keys,
+    non-causal (4 or 32 tiles a block).  Returns, for each, (device us a
+    tile, us of the rest of the launch) from the two walks' times."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    max_pages = MAX_LEN // PAGE
+    num_pages = SLOTS * max_pages + 1
+    tables = (torch.randperm(num_pages - 1, device=dev, generator=g) + 1).int()
+    tables = tables.reshape(SLOTS, max_pages)
+    kp, vp = rand(HKV, num_pages, PAGE, HEAD_DIM), rand(HKV, num_pages, PAGE, HEAD_DIM)
+    q, kn, vn = (rand(SLOTS, h, CHUNK, HEAD_DIM) for h in (HQ, HKV, HKV))
+    lens = torch.full((SLOTS,), CHUNK, dtype=torch.int32, device=dev)
+    out = {}
+    before = (PF.KERNEL.launches, PF.KERNEL.tc_launches, FA.KERNEL.launches,
+              FA.KERNEL.tc_launches)
+    ms = []
+    for start in (0, MAX_LEN - CHUNK):
+        st = torch.full((SLOTS,), start, dtype=torch.int32, device=dev)
+        ms.append(time_ms(torch, lambda: PF.prefill_attention(  # noqa: B023
+            q, kn, vn, kp, vp, tables, st, lens), flush=flush))
+    per = (ms[1] - ms[0]) / ((MAX_LEN - CHUNK) // 64) * 1e3
+    out["prefill"] = (per, ms[0] * 1e3 - per)
+    ms = []
+    qf = rand(TRAIN_BATCH, HQ, 256, HEAD_DIM)
+    for sk in (256, 2048):
+        k, v = rand(TRAIN_BATCH, HKV, sk, HEAD_DIM), rand(TRAIN_BATCH, HKV, sk, HEAD_DIM)
+        ms.append(time_ms(torch, lambda: FA.flash_attention(qf, k, v), flush=flush))  # noqa: B023
+    per = (ms[1] - ms[0]) / (2048 // 64 - 256 // 64) * 1e3
+    out["flash"] = (per, ms[0] * 1e3 - 4 * per)
+    (PF.KERNEL.launches, PF.KERNEL.tc_launches, FA.KERNEL.launches,
+     FA.KERNEL.tc_launches) = before
+    return out
 
 
 # phase 2, SSD: the Mamba-2 chunk kernels at mamba2-2.7B's training shapes
@@ -936,7 +1001,7 @@ def serve(torch, np, cfg, params, kernels, device, max_new=32, requests=16,
     prompts = workload(np.random.default_rng(0), cfg.vocab_size)[:requests]
     reqs = [engine.submit(p) for p in prompts]
     for k in kernels.values():
-        k.launches = 0
+        k.launches = k.tc_launches = 0
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -949,6 +1014,7 @@ def serve(torch, np, cfg, params, kernels, device, max_new=32, requests=16,
 
 
 FP_KERNELS = ("paged_attention", "prefill_attention")
+TC_KERNELS = ("prefill_attention",)  # all its bf16 launches on tensor cores
 QUANT_KERNELS = ("paged_attention_quant", "prefill_attention_quant")
 MLA_FP_KERNELS = ("mla_paged", "mla_prefill")
 MLA_QUANT_KERNELS = ("mla_paged_quant", "mla_prefill_quant")
@@ -1004,9 +1070,10 @@ def make_runner(torch, np, cfg, params, kernels, device, runs):
     exactly ``path_kernels`` launched (on the CPU: none), once per layer a
     step, and keeps (engine, requests, seconds, launches) in ``runs``."""
 
-    def run(label, path_kernels, **kw):
+    def run(label, path_kernels, tc_kernels=(), **kw):
         engine, reqs, dt, launches = serve(torch, np, cfg, params, kernels,
                                            device, **kw)
+        tc = {k: kernels[k].tc_launches for k in tc_kernels}
         toks = sum(len(r.output) for r in reqs)
         if engine.pool is not None:
             memory = (f"{engine.preemptions} preemptions, {engine.pages_shared} "
@@ -1021,7 +1088,8 @@ def make_runner(torch, np, cfg, params, kernels, device, runs):
         log(f"[serve] {cfg.name} {label}: {len(reqs)} requests, {toks} tokens in "
             f"{dt:.2f} s ({toks / dt:.1f} tok/s), {engine.steps_run} ticks, "
             f"{engine.dispatches} dispatches, mean TTFT {mean_ttft(reqs):.2f} "
-            f"ticks, {memory}, launches {launches}")
+            f"ticks, {memory}, launches {launches}"
+            + (f", of them on tensor cores {tc}" if tc else ""))
         assert all(r.status == "completed" and len(r.output) == 32 for r in reqs), \
             [(r.uid, r.status, r.error) for r in reqs if r.status != "completed"]
         # the run went through its path's kernels and no other (on the CPU,
@@ -1029,6 +1097,8 @@ def make_runner(torch, np, cfg, params, kernels, device, runs):
         launched = {k for k, n in launches.items() if n > 0}
         assert launched == set(path_kernels if device.type == "cuda" else ()), launches
         assert all(n % cfg.num_layers == 0 for n in launches.values()), launches
+        # every launch of ``tc_kernels`` took its tensor-core path
+        assert all(n == launches[k] for k, n in tc.items()), (tc, launches)
         runs[label] = (engine, reqs, dt, launches)
         return engine, reqs
 
@@ -1042,8 +1112,8 @@ def serving_phase(torch, np, lm, cfg, params, kernels, device):
 
     runs = {}
     run = make_runner(torch, np, cfg, params, kernels, device, runs)
-    fp, fp_reqs = run("fp, default pool", FP_KERNELS)
-    fp_tight, _ = run(f"fp, {FP_BUDGET_BLOCKS} blocks", FP_KERNELS,
+    fp, fp_reqs = run("fp, default pool", FP_KERNELS, TC_KERNELS)
+    fp_tight, _ = run(f"fp, {FP_BUDGET_BLOCKS} blocks", FP_KERNELS, TC_KERNELS,
                       num_blocks=FP_BUDGET_BLOCKS)
     assert fp.pages_shared > 0 and fp_tight.preemptions > 0
     for fmt in ("int8", "int4"):
@@ -1329,7 +1399,7 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
         return loss, gnorm, time.perf_counter() - t0
 
     for k in KERNELS.values():
-        k.launches = 0
+        k.launches = k.tc_launches = 0
     res = {"losses": [], "gnorms": [], "seconds": []}
     for i in range(steps):
         loss, gnorm, dt = step(i)
@@ -1337,6 +1407,8 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
         res["gnorms"].append(gnorm)
         res["seconds"].append(dt)
     res["launches"] = {name: k.launches for name, k in KERNELS.items() if k.launches}
+    res["tc_launches"] = {name: k.tc_launches for name, k in KERNELS.items()
+                          if k.tc_launches}
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
     if profile_steps:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -1406,7 +1478,8 @@ def attention_as(ops, fn):
 def planted_fault(torch, ref, fault):
     """The plain attention with a fault the depth-2 check must catch: the
     causal mask dropped, the two groups' K/V heads exchanged, or the last
-    32-key tile (the kernel's tile) masked off for every query."""
+    32 keys (half the tensor-core kernel's 64-key tile) masked off for
+    every query."""
     def attention(q, k, v, *, causal=False, **kw):
         if fault == "non-causal":
             causal = False
@@ -1651,12 +1724,14 @@ def rms(torch, t) -> float:
 def library_ok(r) -> bool:
     """Within its limit, each planted fault beyond it; for the 16-bit GEMMs
     the cuBLAS control within it too; for bf16 MLA the attention controls
-    (an fp32-accumulating online softmax passes, a bf16 one fails)."""
+    (an fp32-accumulating online softmax passes; a bf16-accumulating one,
+    and one that rounds P to bf16, fail)."""
     ok = r["err"] <= r["limit"] and all(f > r["limit"] for f in r.get("faults", {}).values())
     if "cublas_units" in r:
         ok = ok and r["cublas_units"] <= r["limit"]
     if "fp32_acc_ulps" in r:
-        ok = ok and r["fp32_acc_ulps"] <= BF16_ULPS and r["bf16_acc_ulps"] > BF16_ULPS
+        ok = ok and (r["fp32_acc_ulps"] <= BF16_ULPS and r["bf16_acc_ulps"] > BF16_ULPS
+                     and r["bf16_p_ulps"] > BF16_ULPS)
     return ok
 
 
@@ -1892,8 +1967,7 @@ def log_library(r):
         text += (f"; control (weight rounded to the activations' type) {r['control_units']:.3g}"
                  f", kernel vs control {r['vs_control_units']:.3g}")
     if "fp32_acc_ulps" in r:
-        text += (f"; controls: fp32-accumulating {r['fp32_acc_ulps']:.2f}, "
-                 f"bf16-accumulating {r['bf16_acc_ulps']:.2f}")
+        text += f"; {controls_text(r)}"
     for fault, v in r.get("faults", {}).items():
         text += f"; fault '{fault}' {v:.3g}"
     if "ms" in r:
@@ -1951,9 +2025,7 @@ def kernel_phase(torch, np, ref, flush, device):
                               device, fmt=fmt)
                     if "ulps" in r:
                         limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
-                                 f"{BF16_ULPS:g}; controls: fp32-accumulating "
-                                 f"{r['fp32_acc_ulps']:.2f}, bf16-accumulating "
-                                 f"{r['bf16_acc_ulps']:.2f})")
+                                 f"{BF16_ULPS:g}; {controls_text(r)})")
                     else:
                         limit = f"limit {FP32_ATOL:.0e}"
                     if timed:
@@ -1968,10 +2040,13 @@ def kernel_phase(torch, np, ref, flush, device):
                         limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                                   f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
                     log(f"[kernel] {name}{'' if fmt is None else ' ' + fmt} "
-                        f"{str(dtype)[6:]} window={window}: max abs err "
+                        f"{str(dtype)[6:]} window={window}"
+                        f"{' (tensor cores)' if r.get('tc_launches') else ''}: max abs err "
                         f"{r['err']:.3e}, {limit}")
                     if not kernel_ok(r):
                         raise AssertionError(f"{name} {fmt} disagrees with its plain version")
+                    if name in TC_KERNELS and dtype == torch.bfloat16 and r["tc_launches"] != 1:
+                        raise AssertionError(f"{name} bf16 missed its tensor-core path")
                     if timed and fmt in (None, "int8"):
                         table[name] = r
     for case in FLASH_CASES:
@@ -1980,9 +2055,7 @@ def kernel_phase(torch, np, ref, flush, device):
             r = check_flash(torch, np, ref, FA, dtype, case, flush, timed, device)
             if "ulps" in r:
                 limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
-                         f"{BF16_ULPS:g}; controls: fp32-accumulating "
-                         f"{r['fp32_acc_ulps']:.2f}, bf16-accumulating "
-                         f"{r['bf16_acc_ulps']:.2f})")
+                         f"{BF16_ULPS:g}; {controls_text(r)})")
             else:
                 limit = f"limit {FP32_ATOL:.0e}"
             if timed:
@@ -1993,11 +2066,21 @@ def kernel_phase(torch, np, ref, flush, device):
                 table["flash_attention"] = r
             _, b, hq, hkv, sq, sk, d, causal = case
             log(f"[kernel] flash_attention {case[0]} {str(dtype)[6:]} (B {b}, Hq {hq}, "
-                f"Hkv {hkv}, Sq {sq}, Sk {sk}, D {d}, causal={causal}): max abs err "
+                f"Hkv {hkv}, Sq {sq}, Sk {sk}, D {d}, causal={causal})"
+                f"{' (tensor cores)' if r['tc_launches'] else ''}: max abs err "
                 f"{r['err']:.3e}, {limit}")
             if not kernel_ok(r):
                 raise AssertionError(f"flash_attention {case[0]} disagrees with its "
                                      "plain version")
+            if dtype == torch.bfloat16 and r["tc_launches"] != 1:
+                raise AssertionError(f"flash_attention {case[0]} bf16 missed its "
+                                     "tensor-core path")
+    cost = tile_cost(torch, PF, FA, flush, device)
+    log("[kernel] tile cost (device us a 64-key tile of the walk; us of the rest of the "
+        f"launch): prefill_attention {cost['prefill'][0]:.2f}; {cost['prefill'][1]:.2f} "
+        f"(slots {SLOTS}, chunk {CHUNK}: {HKV * (CHUNK // PAGE) * SLOTS} blocks of 2 key "
+        f"groups), flash_attention {cost['flash'][0]:.2f}; {cost['flash'][1]:.2f} (B "
+        f"{TRAIN_BATCH} x Hq {HQ} x 256 queries: {TRAIN_BATCH * HQ * 2} blocks)")
     for case in SSD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             timed = dtype == torch.bfloat16 and case is SSD_CASES[0]
@@ -2216,7 +2299,8 @@ def training_phase(torch, np, lm, cfg, device) -> int:
     import tempfile
 
     t_phase = time.perf_counter()
-    launches = train_full_width(torch, np, cfg, device, ("flash_attention",))
+    launches = train_full_width(torch, np, cfg, device, ("flash_attention",),
+                                tc_kernels=("flash_attention",))
     log(f"[time] phase 5 ({cfg.name} training): {time.perf_counter() - t_phase:.1f} s")
     depth2_phase(torch, np, lm, cfg, device, TRAIN_FAULTS)
 
@@ -2382,10 +2466,11 @@ def ssm_serving_phase(torch, np, lm, cfg, params, kernels, device):
     return runs
 
 
-def train_full_width(torch, np, cfg, device, kernels):
+def train_full_width(torch, np, cfg, device, kernels, tc_kernels=()):
     """TRAIN_STEPS steps of full-width ``cfg`` at TRAIN_BATCH x TRAIN_SEQ,
     two more profiled; logs them and checks every loss and grad norm
-    finite, the loss falling, and each of ``kernels`` (and no other kernel)
+    finite, the loss falling, every launch of ``tc_kernels`` on its
+    tensor-core path, and each of ``kernels`` (and no other kernel)
     launched twice a layer a step on a card: each layer's forward and its
     recompute.  Returns the launches by kernel."""
     import statistics
@@ -2401,7 +2486,8 @@ def train_full_width(torch, np, cfg, device, kernels):
         f"tokens/s, peak {tr['peak_gib']:.2f} GiB allocated; losses "
         + " ".join(f"{x:.4f}" for x in tr["losses"]) + "; grad norms "
         + " ".join(f"{x:.3f}" for x in tr["gnorms"])
-        + f"; launches {tr['launches']} ({per_step} a step each)")
+        + f"; launches {tr['launches']} ({per_step} a step each)"
+        + (f", of them on tensor cores {tr['tc_launches']}" if tc_kernels else ""))
     prof = dict(tr["profile"])
     top = prof.pop("top")
     log(f"[train] profile of 2 more steps: wall {tr['profile_wall'] * 1e3:.1f} ms; "
@@ -2412,6 +2498,7 @@ def train_full_width(torch, np, cfg, device, kernels):
     want = ({k: per_step * TRAIN_STEPS for k in kernels}
             if device.type == "cuda" else {})
     assert tr["launches"] == want, tr["launches"]
+    assert tr["tc_launches"] == {k: want[k] for k in tc_kernels if k in want}, tr
     return {k: tr["launches"].get(k, 0) for k in kernels}
 
 

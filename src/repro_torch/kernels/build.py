@@ -46,7 +46,9 @@ class Kernel:
 
     ``launches`` is a plain integer that the wrapper adds one to where it
     launches the kernel, and nowhere else; a caller resets it to 0 before a
-    run and reads it after to show the run went through the kernel.
+    run and reads it after to show the run went through the kernel.  A
+    kernel with a tensor-core path beside its CUDA-core one also counts the
+    launches that took it in ``tc_launches``.
     """
 
     def __init__(self, name: str, entry: str, argtypes: Sequence,
@@ -56,6 +58,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.replaces = replaces
         self.launches = 0
+        self.tc_launches = 0
         self._stem = source or name
         self._fn = None
 

@@ -1,15 +1,17 @@
 // Chunked-prefill attention over a paged KV pool, with the chunk's K/V page
 // writes done inside the kernel.
 //
-// Two entry points, one kernel body templated on the K/V format
-// (attention_core.cuh):
+// Two entry points:
 //   * prefill_attention_launch replaces the TPU kernel
 //     repro/kernels/prefill_attention.py:44 (prefill_attention_program):
-//     q (B, Hkv, C * G, D) packed chunk-major with its GQA group
-//     (row = i * G + g), k / v (B, Hkv, C, D) the chunk's own keys and
-//     values, k_pages / v_pages (Hkv, P, ps, D) updated in place, tables
-//     (B, max_pages), starts (B,) prior tokens (page-aligned for a live
-//     slot), lens (B,) live tokens in the chunk  ->  out (B, Hkv, C * G, D);
+//     q (B, Hq, C, D) and out (B, Hq, C, D) on the tensor-core path, read
+//     and written through their strides (the prefill layer's transposed
+//     views cost no copy), or packed chunk-major with their GQA group on
+//     the CUDA-core path ((B, Hkv, C * G, D), row = i * G + g); k / v (B,
+//     Hkv, C, D) the chunk's own keys and values, k_pages / v_pages (Hkv,
+//     P, ps, D) updated in place, tables (B, max_pages), starts (B,) prior
+//     tokens (page-aligned for a live slot), lens (B,) live tokens in the
+//     chunk;
 //   * prefill_attention_quant_launch replaces
 //     repro/kernels/prefill_attention.py:157
 //     (prefill_attention_quant_program): the chunk arrives quantized
@@ -17,29 +19,55 @@
 //     dtype), prior pages are dequantized page by page, the chunk attends
 //     its own dequantized round trip (what later decode steps read back),
 //     and the packed bytes and scales of each chunk page are written into
-//     the four pools, bytes and scales of the same rows together.
+//     the four pools, bytes and scales of the same rows together.  It keeps
+//     the CUDA-core body (attention_core.cuh) for now.
 //
 // Bound on the H100: bytes at serving batch sizes.  Each block reads its
 // slot's prior pages (2 * Hkv * starts * D * itemsize bytes per slot, read
 // once per chunk page), the chunk's Q/K/V, and writes the output plus the
-// chunk's K/V pages.  Its FLOPs (4 * D per query-key pair) outweigh those
-// bytes only for long prior contexts; this simple kernel uses CUDA cores,
-// not tensor cores, so in practice its arithmetic bounds it.
+// chunk's K/V pages; its FLOPs (4 * D per query-key pair) outweigh those
+// bytes only for long prior contexts.
 //
-// Design:
-//   * grid (kv_head, chunk_page, slot), as the TPU grid.  A block holds
-//     page_size * G query rows (96 for qwen2-1.5B), i.e. one chunk page of
-//     positions for the whole GQA group, so every K/V tile it loads serves
-//     all G heads;
+// Grid (kv_head, chunk_page, slot), as the TPU grid.  A block holds
+// page_size * G query rows (96 for qwen2-1.5B), one chunk page of positions
+// for the whole GQA group, so every K/V tile it loads serves all G heads.
+//
+// The fp kernel has two paths, chosen by the wrapper from dtype and shape
+// alone (prefill_attention.py, tensor_core_path):
+//   * tensor cores, bf16 at D 64 or 128 with 64 % ps == 0 and ps * G <= 128:
+//     the online softmax of attention_mma.cuh, P.V as the bf16 pair hi + lo
+//     (1.00 bf16 ulp on the card; P rounded once would read 122).  The
+//     block's rows sit in warps of 16 (ps * G not a multiple of 16 pads its
+//     last warp with dead rows: block row r is query head h * G + r % G at
+//     chunk position bq * ps + r / G).  Keys come in tiles of 64: first the
+//     prior pages (64 / ps of them a tile), gathered by cp.async from each
+//     page's contiguous rows through the slot's table entries, which the
+//     block first copies into shared memory (a copy's address then waits on
+//     no device-memory read); then the chunk's own keys.  Two stages.  At
+//     qwen2-1.5B's serving shapes the grid is 64 blocks on 132 SMs and each
+//     block walks its slot's prior tiles one after another, so the longest
+//     slot's walk, not the grid, sets the time: the block splits that walk
+//     between two key groups of 6 warps (384 threads, every other tile
+//     each), merged through shared memory at the end.  Shared memory 137
+//     KB a block plus 4 bytes a table entry, one block an SM; two key
+//     groups leave 168 registers a thread, and the D 128 instance spills a few words (the
+//     walk's own fields already live in shared memory).  Split-KV across
+//     blocks, which would use the idle SMs, comes with the decode kernel's.
+//   * CUDA cores, fp32 and any other shape: the body shared with the
+//     quantized twin, attention_core.cuh's online softmax in fp32 shared
+//     memory over page-sized tiles, each read with 16-byte vector loads one
+//     tile ahead of the compute; the resident Q block plus the fp32
+//     accumulator take about 120 KB of shared memory at D = 128.
+//
+// Both follow the same rules:
 //   * prior context: pages [lo, ceil(starts / ps)) read through the table,
-//     ragged on starts plus the banded window when set.  The TPU grid ran in
-//     order; here all blocks of a launch run concurrently, so the loop stops
-//     at ceil(starts / ps) and never reads a page that another block of the
-//     same launch is writing (those sit at table index >= starts / ps);
-//   * the chunk itself: keys streamed from the k / v inputs in tiles of
-//     page_size, causal and ragged on lens, never read back through the
-//     pages being written.  Tiling the chunk keeps shared memory at one K/V
-//     tile whatever the chunk width;
+//     ragged on starts plus the banded window when set; a page index out of
+//     range contributes nothing.  The TPU grid ran in order; here all
+//     blocks of a launch run concurrently, so the walk stops at ceil(starts
+//     / ps) and never reads a page that another block of the same launch is
+//     writing (those sit at table index >= starts / ps);
+//   * the chunk itself: keys from the k / v inputs, causal and ragged on
+//     lens, never read back through the pages being written;
 //   * the block then writes its own chunk page into the pools.  A page with
 //     no live token (an idle lens == 0 slot, the dead tail of a partial final
 //     chunk) goes to the reserved sink page 0, and the table index is
@@ -48,19 +76,15 @@
 //     never read for a live position; the pools must start zeroed so that it
 //     holds finite values.  The kernel writes whole pages, dead rows of a
 //     partly live page included, where the plain path sends dead positions
-//     to page 0: pool bytes past lens differ between the two paths;
-//   * every K/V tile (page or chunk slice) is read with 16-byte vector loads
-//     into registers one tile ahead of the compute (attend_tiles), so its
-//     device-memory latency overlaps the scoring of the tile before;
-//   * the resident Q block plus the fp32 accumulator take about 120 KB of
-//     shared memory at D = 128 (above the 48 KB static limit), so the
-//     launcher opts in with cudaFuncSetAttribute(MaxDynamicSharedMemorySize).
+//     to page 0: pool bytes past lens differ between the two paths.
 
 #include "attention_core.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's most on the H100
 
 struct PriorMask {  // prior positions [0, start), banded window when set
   int base, start, q_lo, group, window;
@@ -187,6 +211,139 @@ int launch(const void* q, F chunk_kv, F pools, const void* tables,
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core path (bf16) ------------------------------------------
+
+// Key tiles of am::KEYS: first the slot's prior pages [p_lo, p_hi) through
+// its table entries (am::KEYS / ps pages a tile, copied into shared memory
+// first, so that a copy's address waits on no device-memory read), then the
+// chunk's own keys [c_lo, c_hi) from the k / v inputs.
+struct PrefillKeys {
+  using B = am::bf16;
+  const B *kpool, *vpool;  // the kv head's pools, at page 0
+  const B *kc, *vc;        // the (slot, kv head)'s chunk rows
+  const int* pages;        // table entries p_lo.., -1 where out of range
+  int ps_log2, p_lo, p_hi, start, c_lo, c_hi, n_prior, d, live_rows;
+
+  __device__ bool row(int t, int r, const B*& kp, const B*& vp, int& pos) const {
+    if (t < n_prior) {
+      const int j = t * am::KEYS + r;
+      const int slot = p_lo + (j >> ps_log2), off = j & ((1 << ps_log2) - 1);
+      if (slot >= p_hi) return false;  // never read a page this launch writes
+      const int page = pages[slot - p_lo];
+      if (page < 0) return false;  // contributes nothing
+      const long at = ((long)(page << ps_log2) + off) * d;
+      kp = kpool + at;
+      vp = vpool + at;
+      pos = (slot << ps_log2) + off;
+      return pos < start;
+    }
+    const int kj = c_lo + (t - n_prior) * am::KEYS + r;
+    if (kj >= c_hi) return false;
+    kp = kc + (long)kj * d;
+    vp = vc + (long)kj * d;
+    pos = start + kj;
+    return true;
+  }
+  __device__ int kind(int /*t*/, int r0, int /*r1*/) const {  // a warp of rows [r0, r1)
+    return r0 < live_rows ? am::MASKED : am::SKIP;
+  }
+};
+
+// One block: chunk page bq of slot b for kv head h's GQA group, block row r
+// = query head h * group + r % group at chunk position bq * ps + r / group;
+// q and out are (B, Hq, C, D) given by their strides.  KG key groups of
+// warps split the walk (attention_mma.cuh).
+constexpr int kTcStages = 2;
+constexpr int kKgThreads = 384;  // two key groups while their warps fit this
+
+template <int D, int KG>
+__global__ void __launch_bounds__(KG == 1 ? am::MAX_ROWS * 2 : kKgThreads)
+prefill_attention_kernel_tc(const am::bf16* __restrict__ q, am::Strides qs,
+                            ac::FpKV<am::bf16> chunk_kv, ac::FpKV<am::bf16> pools,
+                            const int* __restrict__ tables, const int* __restrict__ starts,
+                            const int* __restrict__ lens, am::bf16* __restrict__ out,
+                            am::Strides os, int kv_heads, int group, int chunk, int ps,
+                            int max_pages, int num_pages, int window, float qscale) {
+  const int h = blockIdx.x;   // kv head
+  const int bq = blockIdx.y;  // chunk page
+  const int b = blockIdx.z;   // slot
+  const int rows = ps * group;
+  extern __shared__ float4 smem4[];
+  const am::Ring<D, kTcStages, KG> ring(smem4);
+
+  const int start = starts[b];
+  const int len = lens[b];
+  const long bh = (long)b * kv_heads + h;
+  const int i_lo = bq * ps;       // first in-chunk position of this block
+  const int q_lo = start + i_lo;  // its absolute position
+  const int p_hi = min((start + ps - 1) / ps, max_pages);
+  const int p_lo = window > 0 ? max(0, q_lo - window + 1) / ps : 0;
+  const int n_prior = (max(0, p_hi - p_lo) * ps + am::KEYS - 1) / am::KEYS;
+  const int k_lo = window > 0 ? max(0, i_lo - window + 1) : 0;  // first chunk key seen
+  const int c_lo = k_lo / am::KEYS * am::KEYS;
+  const int c_hi = min(i_lo + ps, len);  // causal, ragged on lens
+  const int n_chunk = c_hi > c_lo ? (c_hi - c_lo + am::KEYS - 1) / am::KEYS : 0;
+  const int* row = tables + (long)b * max_pages;
+  const ac::FpKV<am::bf16> head = pools.rows((long)h * num_pages * ps, D);
+  const ac::FpKV<am::bf16> own = chunk_kv.rows(bh * chunk, D);
+  int* pages = reinterpret_cast<int*>(ring.kpos(ring.SLOTS));  // past the ring
+  // The walk's fields live in shared memory: the loader reads them once a
+  // tile, and the registers they would hold go to the softmax state (two
+  // key groups leave a thread 168).
+  __shared__ PrefillKeys src;
+  if (threadIdx.x == 0)
+    src = {head.k, head.v, own.k, own.v, pages, __ffs(ps) - 1, p_lo, p_hi, start, c_lo, c_hi,
+           n_prior, D, rows};
+  for (int i = threadIdx.x; i < p_hi - p_lo; i += blockDim.x) {
+    const int page = row[p_lo + i];
+    pages[i] = page >= 0 && page < num_pages ? page : -1;
+  }
+  __syncthreads();
+
+  auto at = [&](const am::Strides& st, int r) {  // block row r's offset in q or out
+    return b * st.b + (h * group + r % group) * st.h + (i_lo + r / group) * st.s;
+  };
+  const am::PosMask mask{nullptr, q_lo, group, window, true};
+  am::WarpAttention<D> wa;
+  am::attend(
+      wa, ring, [&](int r) { return r < rows ? q + at(qs, r) : nullptr; }, n_prior + n_chunk,
+      src, mask, qscale, q);
+  if ((int)threadIdx.x < (int)blockDim.x / KG)  // key group 0 holds the merged rows
+    wa.store([&](int r) { return r < rows ? out + at(os, r) : nullptr; });
+
+  // ---- the paged write: this block's chunk page, through the table ------
+  const bool live_page = i_lo < len;
+  const int tidx = min(start / ps + bq, max_pages - 1);
+  const int dst = live_page ? row[tidx] : 0;
+  if (dst < 0 || dst >= num_pages) return;  // dropped, like XLA's scatter
+  own.rows(i_lo, D).copy_rows(head.rows((long)dst * ps, D), ps, D);
+}
+
+template <int D, int KG>
+int launch_tc(const void* q, am::Strides qs, ac::FpKV<am::bf16> chunk_kv,
+              ac::FpKV<am::bf16> pools, const void* tables, const void* starts,
+              const void* lens, void* out, am::Strides os, int slots, int kv_heads, int group,
+              int chunk, int ps, int max_pages, int num_pages, int window, float sm_scale,
+              cudaStream_t stream) {
+  using B = am::bf16;
+  const int rows = ps * group, warps = (rows + 15) / 16;
+  // the ring, then the slot's table entries
+  const size_t smem = am::Ring<D, kTcStages, KG>::bytes() + sizeof(int) * (size_t)max_pages;
+  if (chunk % ps != 0 || am::KEYS % ps != 0 || (ps & (ps - 1)) != 0 || rows > am::MAX_ROWS ||
+      slots > 65535 || chunk / ps > 65535 || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = prefill_attention_kernel_tc<D, KG>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(kv_heads, chunk / ps, slots);
+  kernel<<<grid, KG * warps * 32, smem, stream>>>(
+      (const B*)q, qs, chunk_kv, pools, (const int*)tables, (const int*)starts,
+      (const int*)lens, (B*)out, os, kv_heads, group, chunk, ps, max_pages, num_pages, window,
+      sm_scale * ac::LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int PACK>
 ac::QuantKV<T, PACK> quant_kv(void* k, void* v, void* ks, void* vs) {
   return {(int8_t*)k, (int8_t*)v, (T*)ks, (T*)vs};
@@ -195,15 +352,38 @@ ac::QuantKV<T, PACK> quant_kv(void* k, void* v, void* ks, void* vs) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
-// Needs chunk % page_size == 0, page_size a power of two <= 32 and head_dim
-// a multiple of 8, with 16-byte aligned tensors.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for shapes it does not take.
+// tc 1 takes the tensor-core kernel (bfloat16, head_dim 64 or 128, 64 %
+// page_size == 0, page_size * group <= 128), with q and out (B, Hq, C, D)
+// given by their batch, head and row strides in elements (qb ... os);
+// tc 0 the CUDA-core kernel, with q and out contiguous and packed
+// chunk-major with their GQA group, (B, Hkv, C * G, D), and the strides
+// unused.  Needs chunk % page_size == 0, page_size a
+// power of two <= 32 and head_dim a multiple of 8, with 16-byte aligned
+// tensors.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for shapes it does not take.
 extern "C" int prefill_attention_launch(
-    int dtype, const void* q, void* k, void* v, void* k_pages, void* v_pages,
+    int dtype, int tc, const void* q, void* k, void* v, void* k_pages, void* v_pages,
     const void* tables, const void* starts, const void* lens, void* out,
+    long long qb, long long qh, long long qs, long long ob, long long oh, long long os,
     int slots, int kv_heads, int group, int chunk, int d, int ps,
     int max_pages, int num_pages, int window, float sm_scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (tc) {
+    using B = __nv_bfloat16;
+    const ac::FpKV<B> chunk_kv{(B*)k, (B*)v}, pools{(B*)k_pages, (B*)v_pages};
+    const am::Strides qst{qb, qh, qs}, ost{ob, oh, os};
+    const bool split = 2 * 32 * ((ps * group + 15) / 16) <= kKgThreads;  // two key groups
+#define PF_TC(D, KG)                                                                      \
+  return launch_tc<D, KG>(q, qst, chunk_kv, pools, tables, starts, lens, out, ost, slots, \
+                          kv_heads, group, chunk, ps, max_pages, num_pages, window,      \
+                          sm_scale, s)
+    if (dtype == 1 && d == 128 && split) PF_TC(128, 2);
+    if (dtype == 1 && d == 128) PF_TC(128, 1);
+    if (dtype == 1 && d == 64 && split) PF_TC(64, 2);
+    if (dtype == 1 && d == 64) PF_TC(64, 1);
+#undef PF_TC
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0)
     return launch(q, ac::FpKV<float>{(float*)k, (float*)v},
                   ac::FpKV<float>{(float*)k_pages, (float*)v_pages}, tables,

@@ -8,6 +8,11 @@ or not, fp32 scores and accumulation, the output in the input dtype.  The
 plain version is ``ref.attention``; :func:`flash_attention` takes it for CPU
 tensors only.  For a CUDA tensor it launches the kernel or raises.
 
+The kernel has two paths, picked from dtype and shape alone
+(:func:`tensor_core_path`): bf16 at head dim 64 or 128 runs on the tensor
+cores (``KERNEL.tc_launches`` counts those launches), fp32 and any other
+head dim on CUDA cores.
+
 The kernel takes any Sq and Sk (no block-divisibility contract) and reads
 Q, K, V and writes the output through their strides, so the transposed
 views that ``layers.attention_full`` hands it cost no copy; a tensor whose
@@ -31,11 +36,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 KERNEL = Kernel(
     "flash_attention", "flash_attention_launch",
-    [_I, _P, _P, _P, _P, *([_L] * 12), _I, _I, _I, _I, _I, _I, _I,
+    [_I, _I, _P, _P, _P, _P, *([_L] * 12), _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, _P],
     replaces="src/repro/kernels/flash_attention.py:25",
 )
 _MAX_GRID_YZ = 65535
+TC_HEAD_DIMS = (64, 128)
+
+
+def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a launch takes the tensor-core kernel: bf16 at a head dim it
+    is built for.  Sequence lengths, heads and strides do not matter."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
 def _require(cond: bool, msg: str):
@@ -51,7 +63,9 @@ def _rows_aligned(t: torch.Tensor) -> bool:
                     if n > 1))
 
 
-def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+def kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its rows suit the kernels' 16-byte copies (unit
+    stride along D, every row start 16-byte aligned), else a copy that does."""
     if _rows_aligned(t):
         return t
     t = t.contiguous()
@@ -82,18 +96,20 @@ def flash_attention(q, k, v, *, causal: bool = False,
     _require(d % vec == 0, f"head_dim {d} must be a multiple of {vec}")
     _require(hq <= _MAX_GRID_YZ and b <= _MAX_GRID_YZ,
              f"{hq} heads x batch {b} exceed the grid")
-    q, k, v = (_kernel_layout(t) for t in (q, k, v))
+    q, k, v = (kernel_layout(t) for t in (q, k, v))
     out = torch.empty_like(q)  # q's strides: a (B, S, H, D) layout stays so
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    tc = tensor_core_path(q.dtype, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), *strides, b, hq, hkv, sq, sk, d, int(causal),
-            scale, stream)
+            DTYPES[q.dtype], int(tc), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), *strides, b, hq, hkv, sq, sk, d,
+            int(causal), scale, stream)
     check(rc, "flash_attention")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return out
 
 

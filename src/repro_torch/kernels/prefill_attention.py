@@ -8,6 +8,15 @@ updated copies of the pools; here the given pools are written).  The plain
 version is ``ref.paged_prefill_attention``; this wrapper takes it for CPU
 tensors only.  For a CUDA tensor it launches the kernel or raises.
 
+The kernel has two paths, picked from dtype and shape alone
+(:func:`tensor_core_path`).  bf16 at head dim 64 or 128, with 64 keys a
+whole number of pages, a page's GQA rows (page_size * group) at most 128 and
+at most 16384 table entries a slot, runs on the tensor cores, which read q
+and write the output through their (B, Hq, C, D) strides, so the transposed
+views the prefill layer hands over cost no copy (``KERNEL.tc_launches``
+counts those launches).  The rest runs on CUDA cores over q packed
+chunk-major with its GQA group, a copy each way.
+
 Kernel contract (the serving engine's chunk contract): ``chunk %
 page_size == 0``, ``chunk // page_size <= max_pages``, every live slot's
 start page-aligned, and pools that started zeroed (several blocks write the
@@ -25,16 +34,32 @@ import torch
 
 from . import ref
 from .build import Kernel, check
+from .flash_attention import kernel_layout
 from .paged_attention import DTYPES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
     "prefill_attention", "prefill_attention_launch",
-    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     _I, ctypes.c_float, _P],
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, *([ctypes.c_longlong] * 6), _I,
+     _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     replaces="src/repro/kernels/prefill_attention.py:44",
 )
+TC_HEAD_DIMS = (64, 128)
+TC_KEYS = 64  # keys a tile on the tensor-core path
+TC_MAX_ROWS = 128  # query rows a block there (8 warps of 16)
+TC_MAX_PAGES = 16384  # table entries a block copies into shared memory
+
+
+def tensor_core_path(dtype: torch.dtype, head_dim: int, page_size: int,
+                     group: int, max_pages: int) -> bool:
+    """Whether a launch takes the tensor-core kernel: bf16 at a head dim it
+    is built for, pages that tile its 64-key tiles, one page's rows of the
+    GQA group within a block, and a table row that fits shared memory.
+    Slots, chunk, starts and lengths do not matter."""
+    return (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+            and TC_KEYS % page_size == 0 and page_size * group <= TC_MAX_ROWS
+            and max_pages <= TC_MAX_PAGES)
 
 
 def _require(cond: bool, msg: str):
@@ -77,29 +102,36 @@ def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
         _require(t.dtype == torch.int32, f"{name} must be int32")
     _require(k_pages.is_contiguous() and v_pages.is_contiguous()
              and block_tables.is_contiguous(), "pools and tables must be contiguous")
-    # pack queries chunk-major with their GQA group: row = i * group + g
-    qp = q.reshape(b, hkv, group, chunk, d).transpose(2, 3).contiguous()
+    tc = tensor_core_path(q.dtype, d, page_size, group, max_pages)
+    if tc:  # read and written through their strides by the kernel's row mapping
+        qp = kernel_layout(q)
+    else:  # pack queries chunk-major with their GQA group: row = i * group + g
+        qp = q.reshape(b, hkv, group, chunk, d).transpose(2, 3).contiguous()
     kn, vn = k_new.contiguous(), v_new.contiguous()
     starts, lens = start_lens.contiguous(), chunk_lens.contiguous()
-    out = torch.empty_like(qp)
+    out = torch.empty_like(qp)  # qp's strides: a (B, C, H, D) layout stays so
+    strides = [s for t in (qp, out) for s in t.stride()[:3]] if tc else [0] * 6
     vec = 16 // q.element_size()
     _require(d % vec == 0 and 0 < page_size <= 32
              and page_size & (page_size - 1) == 0,
              f"head_dim {d} must be a multiple of {vec} and page_size "
              f"{page_size} a power of two <= 32")
-    for name, t in (("k_new", kn), ("v_new", vn), ("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("q", qp), ("k_new", kn), ("v_new", vn), ("k_pages", k_pages),
+                    ("v_pages", v_pages)):
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], qp.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+            DTYPES[q.dtype], int(tc), qp.data_ptr(), kn.data_ptr(), vn.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            starts.data_ptr(), lens.data_ptr(), out.data_ptr(), b, hkv, group,
+            starts.data_ptr(), lens.data_ptr(), out.data_ptr(), *strides, b, hkv, group,
             chunk, d, page_size, max_pages, num_pages,
             window if window is not None else 0, scale, stream,
         )
     check(rc, "prefill_attention")
     KERNEL.launches += 1
-    out = out.reshape(b, hkv, chunk, group, d).transpose(2, 3)
-    return out.reshape(b, hq, chunk, d), k_pages, v_pages
+    KERNEL.tc_launches += int(tc)
+    if not tc:
+        out = out.reshape(b, hkv, chunk, group, d).transpose(2, 3).reshape(b, hq, chunk, d)
+    return out, k_pages, v_pages

@@ -74,11 +74,61 @@ def test_cuda_kernels_match_plain_versions():
             qc, kn, vn = rand(b, hq, chunk, d), rand(b, hkv, chunk, d), rand(b, hkv, chunk, d)
             starts = torch.tensor([0, 16, 48, 96], dtype=torch.int32, device=dev)
             clens = torch.tensor([32, 0, 19, 32], dtype=torch.int32, device=dev)
+            tc0 = PF.KERNEL.tc_launches
             out, _, _ = PF.prefill_attention(qc, kn, vn, kp.clone(), vp.clone(),
                                              tables, starts, clens, window=window)
+            assert PF.KERNEL.tc_launches == tc0 + (dtype == torch.bfloat16)
             plain, _, _ = ref.paged_prefill_attention(
                 qc, kn, vn, kp.clone(), vp.clone(), tables, starts, clens, window=window)
             assert _within_limit(out, plain)
+
+
+# (hq, hkv, d, page_size): qwen2-1.5B's heads at head dims 128 and 64 (96
+# query rows a block: two key groups of 6 warps), a group of 8 (128 rows:
+# one key group of 8 warps), and a page of 8 positions x a group of 5 (40
+# rows: 8 dead rows pad the last warp of 16)
+PREFILL_TC = [(12, 2, 128, 16), (12, 2, 64, 16), (16, 2, 128, 16), (10, 2, 128, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PREFILL_TC, ids=[str(c) for c in PREFILL_TC])
+def test_cuda_prefill_tensor_core_edges(case):
+    """On a card: bf16 chunked prefill takes the tensor-core path (one
+    tensor-core launch each) on the transposed views the prefill layer
+    hands it, with a one-token chunk, an idle (len-0) slot, a partial
+    chunk and a chunk whose pages reach the last table entry, with and
+    without a window: within two bf16 ulps of the plain version, and both
+    write the chunk's K/V at every live position."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    hq, hkv, d, ps = case
+    dev = torch.device("cuda")
+    b, mp, chunk = 4, 128 // ps, 32
+    num_pages = b * mp + 1
+    tables = torch.as_tensor(_tables(np.random.default_rng(9), b, mp, num_pages), device=dev)
+    starts = torch.tensor([0, 16, 48, 96], dtype=torch.int32, device=dev)
+    clens = torch.tensor([1, 0, 19, 32], dtype=torch.int32, device=dev)  # 96 + 32 = 128
+    g = torch.Generator(device=dev).manual_seed(10)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    kp, vp = rand(hkv, num_pages, ps, d), rand(hkv, num_pages, ps, d)
+    qc = rand(b, chunk, hq, d).transpose(1, 2)  # as attention_prefill_paged hands them
+    kn, vn = rand(b, chunk, hkv, d).transpose(1, 2), rand(b, chunk, hkv, d).transpose(1, 2)
+    tb = tables.cpu().numpy()
+    for window in (None, 40):
+        p1, p2 = [kp.clone(), vp.clone()], [kp.clone(), vp.clone()]
+        n0, tc0 = PF.KERNEL.launches, PF.KERNEL.tc_launches
+        out = PF.prefill_attention(qc, kn, vn, *p1, tables, starts, clens, window=window)[0]
+        assert (PF.KERNEL.launches, PF.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
+        assert out.stride() == qc.stride()  # written in the layer's layout
+        plain = ref.paged_prefill_attention(qc, kn, vn, *p2, tables, starts, clens,
+                                            window=window)[0]
+        assert _within_limit(out, plain)
+        for bi, (s0, n) in enumerate(zip(starts.tolist(), clens.tolist())):
+            for c in range(n):
+                pg, of = int(tb[bi, (s0 + c) // ps]), (s0 + c) % ps
+                for pool_k, pool_p, new in zip(p1, p2, (kn, vn)):
+                    assert torch.equal(pool_k[:, pg, of], new[bi, :, c])
+                    assert torch.equal(pool_p[:, pg, of], new[bi, :, c])
 
 
 @pytest.mark.cuda
@@ -276,11 +326,51 @@ def test_cuda_flash_attention_matches_plain_version(case):
         views = (rand(b, sq, hq, d).transpose(1, 2), rand(b, sk, hkv, d).transpose(1, 2),
                  rand(b, sk, hkv, d).transpose(1, 2))
         for q, k, v in (views, [t.contiguous() for t in views]):
-            n0 = FA.KERNEL.launches
+            n0, tc0 = FA.KERNEL.launches, FA.KERNEL.tc_launches
             got = FA.flash_attention(q, k, v, causal=causal)
             assert FA.KERNEL.launches == n0 + 1 and got.shape == q.shape
+            tc = dtype == torch.bfloat16 and d in FA.TC_HEAD_DIMS
+            assert FA.KERNEL.tc_launches == tc0 + tc
             want = ref.attention(q, k, v, causal=causal)
             assert _within_limit(got, want)
+
+
+FLASH_TC = [  # (b, hq, hkv, sq, sk, d, causal): the tensor-core path's edges
+    (2, 12, 2, 1024, 1024, 128, True),  # qwen2-1.5B's training shape, two batch rows
+    (2, 12, 2, 1024, 1024, 64, True),
+    (2, 12, 2, 200, 333, 128, True),  # Sq and Sk not multiples of 64
+    (2, 12, 2, 130, 77, 64, False),  # non-causal, ragged
+    (2, 6, 1, 300, 100, 128, True),  # Sq > Sk: the first 200 rows see no key
+    (1, 4, 2, 17, 70, 64, True),  # one partial query tile over two key tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_TC, ids=[str(c) for c in FLASH_TC])
+def test_cuda_flash_attention_tensor_core_edges(case):
+    """On a card: bf16 at head dims 64 and 128 takes the tensor-core path
+    (one tensor-core launch each), on the strided (B, H, S, D) views of
+    (B, S, H, D) tensors and on contiguous copies, within two bf16 ulps of
+    the plain version; a causal query row with no key to see (Sq > Sk)
+    emits zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    b, hq, hkv, sq, sk, d, causal = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    views = (rand(b, sq, hq, d).transpose(1, 2), rand(b, sk, hkv, d).transpose(1, 2),
+             rand(b, sk, hkv, d).transpose(1, 2))
+    dead = max(0, sq - sk) if causal else 0  # rows with no key to see
+    for q, k, v in (views, [t.contiguous() for t in views]):
+        n0, tc0 = FA.KERNEL.launches, FA.KERNEL.tc_launches
+        got = FA.flash_attention(q, k, v, causal=causal)
+        assert (FA.KERNEL.launches, FA.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
+        assert got.shape == q.shape and got.stride() == q.stride()
+        want = ref.attention(q, k, v, causal=causal)
+        if dead:
+            assert got[:, :, :dead].abs().max().item() == 0.0
+        assert _within_limit(got[:, :, dead:], want[:, :, dead:])
 
 
 @pytest.mark.cuda

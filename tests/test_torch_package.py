@@ -160,13 +160,15 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
         r = cs.check_prefill(torch, np, ref, PFQ, torch.float32, None, None,
                              False, cpu, fmt=fmt)
         assert r["err"] == 0.0
-    # the bf16 limit passes a sound online softmax and rejects bf16 sums
+    # the bf16 limit passes a sound online softmax and rejects bf16 sums and
+    # P rounded once to bf16 (the shortcut the tensor-core kernels avoid)
     for check, mod, fmt in ((cs.check_decode, PA, None), (cs.check_prefill, PF, None),
                             (cs.check_decode, PAQ, "int8"),
                             (cs.check_prefill, PFQ, "int4")):
         r = check(torch, np, ref, mod, torch.bfloat16, None, None, False, cpu,
                   fmt=fmt)
         assert r["ulps"] == 0.0 and cs.kernel_ok(r), r
+        assert r["bf16_p_ulps"] > cs.BF16_ULPS, r
     cfg = dataclasses.replace(get_config("qwen2_1_5b").reduced(), num_layers=1)
     params = lm.init(cfg, 0, device="cpu")
     runs = cs.serving_phase(torch, np, lm, cfg, params, KERNELS, cpu)
