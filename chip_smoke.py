@@ -24,9 +24,12 @@ no phase is skipped):
    including a len-0 slot, a sliding window and a partial chunk (bf16 limit
    in ulps of the plain value, checked against three controls: an
    fp32-accumulating online softmax must pass it, one accumulating in bf16
-   and one rounding P once to bf16 must fail it); every bf16 launch of the
-   flash and fp chunked-prefill kernels must take their tensor-core path
-   (``KERNEL.tc_launches``); time kernel, plain version and, as a
+   and one rounding P once to bf16 must fail it); the split decode's merge
+   without the rescale to the common max must fail it too (fp32 and bf16),
+   and its grid (splits of 64 keys from static shapes) is printed; every
+   bf16 launch of the flash, fp chunked-prefill and fp decode kernels must
+   take their tensor-core path (``KERNEL.tc_launches``); time kernel, plain
+   version and, as a
    yardstick only, ``scaled_dot_product_attention`` over the gathered (for
    the quantized kernels: gathered and dequantized) pages.  The flash
    kernel is held at qwen2-1.5B's training shapes (batch 8 x seq 1024,
@@ -54,7 +57,9 @@ no phase is skipped):
    units more than their control (the plain version on the weight rounded
    to the activations' type, as the kernel multiplies it); MLA within 2
    bf16 ulps with the attention controls; planted faults (a K tile dropped,
-   each byte's code order swapped) must fail them.  Each is timed (median
+   B's bytes read as a K-major matrix, each byte's code order swapped) must
+   fail them; every Table 2 M shape must take the GEMM's wgmma path
+   (``KERNEL.tc_launches``).  Each is timed (median
    and spread) beside its plain version and ``torch.matmul`` (GEMM), cuBLAS
    fp16 on a weight dequantized beforehand (the paper's Fig. 15 baseline, a
    yardstick) or SDPA with a latent head's heads as its query rows (MLA);
@@ -68,7 +73,9 @@ no phase is skipped):
    bytes of fp's 199 pages (fewer preemptions than fp there), and int8 with
    the multi-step window ``sync_every=16`` (outputs byte-identical to per-tick
    int8, fewer host dispatches, and no host sync inside a window).  Each run
-   resets the kernels' launch counts before it and reads them after;
+   resets the kernels' launch counts before it and reads them after; in the
+   fp runs every launch of the decode and chunked-prefill kernels must have
+   taken their tensor-core paths;
 4. teacher-forced logits at full width, depth cut to 4 layers: the card's
    bf16 kernel path against the plain path in fp32 on the CPU (error in
    standard deviations of the logits, top-10 and argmax agreement), for fp
@@ -299,11 +306,25 @@ def controls_text(r) -> str:
 def kernel_ok(r) -> bool:
     """A check's result within its limit.  In bf16 the limit must also pass
     the fp32-accumulating control and reject the bf16-accumulating one and
-    the one that rounds P to bf16."""
+    the one that rounds P to bf16; for the split decode it must reject the
+    merge without the rescale, in either dtype."""
+    limit = BF16_ULPS if "ulps" in r else FP32_ATOL
+    if r.get("merge_no_rescale", float("inf")) <= limit:
+        return False
     if "ulps" not in r:
         return r["err"] <= FP32_ATOL
     return (r["ulps"] <= BF16_ULPS and r["fp32_acc_ulps"] <= BF16_ULPS
             and r["bf16_acc_ulps"] > BF16_ULPS and r["bf16_p_ulps"] > BF16_ULPS)
+
+
+H100_SMS = 132  # the grid rule's SM count where there is no card (a rehearsal)
+
+
+def decode_grid(torch, PA, dev):
+    """(splits, keys a split) of the decode kernel at the main path's
+    shapes on this device's SM count."""
+    sms = PA.sm_count(dev.index or 0) if dev.type == "cuda" else H100_SMS
+    return PA.decode_splits(SLOTS, HKV, MAX_LEN // PAGE, PAGE, sms)
 
 
 def _tables(torch, rng, dev):
@@ -348,12 +369,23 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
         vp = ref.dequantize_rows(vq, vs, fmt).to(dtype)
     run = lambda: kernel(q, *args, tables, lens_t, window=window, **kw)  # noqa: E731
     plain_run = lambda: plain_fn(q, *args, tables, lens_t, window=window, **kw)  # noqa: E731
-    before = mod.KERNEL.launches
+    before, tc_before = mod.KERNEL.launches, mod.KERNEL.tc_launches
     out, plain = run(), plain_run()
-    mod.KERNEL.launches = before  # comparison launches do not count
+    tc = mod.KERNEL.tc_launches - tc_before
+    mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before  # comparisons do not count
     err = (out.float() - plain.float()).abs().max().item()
     assert torch.isfinite(out).all() and out[2].abs().max().item() == 0.0
-    res = {"err": err}
+    res = {"err": err, "tc_launches": tc}
+    if fmt is None:
+        # the split grid, and the merge's control: the split kernel's
+        # arithmetic in plain PyTorch with the partial states summed as they
+        # stand, not rescaled to their common max, must fail the limit
+        splits, split_keys = decode_grid(torch, mod, dev)
+        res["splits"] = f"{splits} splits of {split_keys} keys, {HKV * SLOTS * splits} blocks"
+        faulty = mod.split_decode(q, kp, vp, tables, lens_t, splits, split_keys,
+                                  window=window, pair=dtype == torch.bfloat16, rescale=False)
+        res["merge_no_rescale"] = (bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
+                                   else (faulty.float() - plain.float()).abs().max().item())
     # the slot's pages gathered for one dense call: SDPA and the controls
     kg = kp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
     vg = vp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
@@ -371,7 +403,7 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     if timed:
         res["ms"] = time_ms(torch, run, flush=flush)
         res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
-        mod.KERNEL.launches = before
+        mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
         # yardstick: one SDPA call over the gathered pages (gather untimed);
         # no single PyTorch call dequantizes paged KV, so for the quantized
         # kernels it is labelled apart and library_ms stays null
@@ -797,6 +829,37 @@ def tile_cost(torch, PF, FA, flush, dev):
     return out
 
 
+def decode_cost(torch, np, PA, flush, dev, calls=20):
+    """Where a bf16 decode launch's device time goes at check_decode's
+    inputs (window None): the split kernel's and the merge kernel's device
+    us a call, from torch.profiler's device rows over ``calls`` calls, L2
+    flushed before each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1)
+    tables, num_pages = _tables(torch, rng, dev)
+    lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
+    lens[2], lens[5] = 0, MAX_LEN
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((SLOTS, HQ, HEAD_DIM), generator=g, device=dev).bfloat16()
+    kp, vp = (torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    lens_t = torch.as_tensor(lens, device=dev)
+    before = PA.KERNEL.launches, PA.KERNEL.tc_launches
+    PA.paged_attention(q, kp, vp, tables, lens_t)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush()
+            PA.paged_attention(q, kp, vp, tables, lens_t)
+        torch.cuda.synchronize()
+    PA.KERNEL.launches, PA.KERNEL.tc_launches = before
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {part: sum(e.self_device_time_total for e in rows if key in e.key) / calls
+            for part, key in (("split", "paged_attention_kernel"), ("merge", "merge_kernel"))}
+
+
 # phase 2, SSD: the Mamba-2 chunk kernels at mamba2-2.7B's training shapes
 # ---------------------------------------------------------------------------
 
@@ -1014,7 +1077,7 @@ def serve(torch, np, cfg, params, kernels, device, max_new=32, requests=16,
 
 
 FP_KERNELS = ("paged_attention", "prefill_attention")
-TC_KERNELS = ("prefill_attention",)  # all its bf16 launches on tensor cores
+TC_KERNELS = ("prefill_attention", "paged_attention")  # all bf16 launches on tensor cores
 QUANT_KERNELS = ("paged_attention_quant", "prefill_attention_quant")
 MLA_FP_KERNELS = ("mla_paged", "mla_prefill")
 MLA_QUANT_KERNELS = ("mla_paged_quant", "mla_prefill_quant")
@@ -1745,10 +1808,12 @@ def check_gemm(torch, ops, ref, label, shape, dtype, flush, timed, dev, seed=41)
     g = torch.Generator(device=dev).manual_seed(seed)
     a = torch.randn((m, k), generator=g, device=dev).to(dt)
     b = torch.randn((k, n), generator=g, device=dev).to(dt)
+    tc_before = ops.KERNELS["matmul"].tc_launches
     out = ops.matmul(a, b)  # the library's path: counted
     plain = ref.matmul(a, b, dt)
     res = {"kernel": "matmul", "label": f"{label} {dtype}", "shape": shape, "dtype": dt,
-           "max_abs_err": (out.float() - plain.float()).abs().max().item()}
+           "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+           "wgmma_launches": ops.KERNELS["matmul"].tc_launches - tc_before}
     if dt == torch.float32:
         res.update(err=rel_err(torch, out, plain), limit=FP32_ATOL, metric="of max(1, max|plain|)")
     else:
@@ -1756,15 +1821,21 @@ def check_gemm(torch, ops, ref, label, shape, dtype, flush, timed, dev, seed=41)
         res.update(err=lib_units(torch, out, plain, sigma), limit=BF16_ULPS,
                    metric="units (lib_units)",
                    cublas_units=lib_units(torch, torch.matmul(a, b), plain, sigma))
+        # B's row-major (K, N) bytes read as a K-major (N, K) matrix: the
+        # descriptor fault the wgmma path's transpose-B bit guards against
+        k_major = ref.matmul(a, b.reshape(n, k).t(), dt)
+        res["faults"] = {"B read as K-major": lib_units(torch, k_major, plain, sigma)}
+        del k_major
         if k > K_TILE:
             dropped = ref.matmul(a[:, K_TILE:], b[K_TILE:], dt)
-            res["faults"] = {"first K tile dropped": lib_units(torch, dropped, plain, sigma)}
+            res["faults"]["first K tile dropped"] = lib_units(torch, dropped, plain, sigma)
             del dropped
     del out, plain
     if timed:
-        n_before = ops.KERNELS["matmul"].launches
+        mm = ops.KERNELS["matmul"]
+        counts = mm.launches, mm.tc_launches
         res["ms"] = time_ms(torch, lambda: ops.matmul(a, b), flush=flush)
-        ops.KERNELS["matmul"].launches = n_before
+        mm.launches, mm.tc_launches = counts
         res["plain_ms"] = time_ms(torch, lambda: ref.matmul(a, b, dt), flush=flush)
         res["library_ms"] = time_ms(torch, lambda: torch.matmul(a, b), flush=flush)
         isz = a.element_size()
@@ -1979,8 +2050,11 @@ def log_library(r):
         elif r["kernel"] == "mla":
             text += f"sdpa (a latent head's heads as query rows) {r['library_ms']:.4f} ms, "
         else:
-            text += f"torch.matmul {r['library_ms']:.4f} ms, "
+            text += (f"torch.matmul {r['library_ms']:.4f} ms (kernel / torch.matmul "
+                     f"{r['ms'] / r['library_ms']:.2f}x), ")
         text += f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+    if r["kernel"] == "matmul" and r.get("wgmma_launches"):
+        text += " [wgmma]"
     log(text)
 
 
@@ -2028,12 +2102,16 @@ def kernel_phase(torch, np, ref, flush, device):
                                  f"{BF16_ULPS:g}; {controls_text(r)})")
                     else:
                         limit = f"limit {FP32_ATOL:.0e}"
+                    if "splits" in r:
+                        limit += (f"; {r['splits']}; control: merge without the rescale "
+                                  f"{r['merge_no_rescale']:.3g}")
                     if timed:
                         if "sdpa_gathered_ms" in r:
                             lib = (f"sdpa over pages gathered{'' if fmt is None else ' and dequantized'} "
                                    f"(yardstick) {r['sdpa_gathered_ms']:.4f} ms")
                         elif fmt is None:
-                            lib = f"sdpa {r['library_ms']:.4f} ms"
+                            lib = (f"sdpa {r['library_ms']:.4f} ms (kernel / sdpa "
+                                   f"{r['ms'] / r['library_ms']:.2f}x)")
                         else:
                             lib = (f"sdpa over dequantized pages (yardstick) "
                                    f"{r['sdpa_dequantized_ms']:.4f} ms")
@@ -2081,6 +2159,10 @@ def kernel_phase(torch, np, ref, flush, device):
         f"(slots {SLOTS}, chunk {CHUNK}: {HKV * (CHUNK // PAGE) * SLOTS} blocks of 2 key "
         f"groups), flash_attention {cost['flash'][0]:.2f}; {cost['flash'][1]:.2f} (B "
         f"{TRAIN_BATCH} x Hq {HQ} x 256 queries: {TRAIN_BATCH * HQ * 2} blocks)")
+    cost = decode_cost(torch, np, PA, flush, device)
+    log(f"[kernel] decode cost (device us a call, torch.profiler, {SLOTS * HKV} (slot, kv "
+        f"head) pairs x {decode_grid(torch, PA, device)[0]} splits): split kernel "
+        f"{cost['split']:.2f}, merge kernel {cost['merge']:.2f}")
     for case in SSD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             timed = dtype == torch.bfloat16 and case is SSD_CASES[0]
@@ -2182,6 +2264,11 @@ def main(argv=None) -> int:
                                  "passes it")
         if r["label"] == LIBRARY_ROWS[r["kernel"]]:
             table[r["kernel"]] = r
+    wgmma = {r["label"]: r["wgmma_launches"] for r in lib
+             if r["kernel"] == "matmul" and r["label"].startswith("M")}
+    log(f"[launches] Table 2's M shapes on wgmma: {json.dumps(wgmma)}")
+    if sorted(wgmma) != [f"M{i} bfloat16" for i in range(8)] or set(wgmma.values()) != {1}:
+        raise AssertionError(f"a Table 2 M shape missed the wgmma path: {wgmma}")
     log(f"[launches] the library's path: {json.dumps(lib_launches)}")
     if not all(lib_launches.values()):
         raise AssertionError(f"a library kernel was not launched on its path: {lib_launches}")

@@ -306,6 +306,29 @@ struct WarpAttention {
         gc::store2(dst + j * 8 + 2 * t, o[j][2 * rr] / den, o[j][2 * rr + 1] / den);
     }
   }
+
+  // The unnormalised state, for a merge in another pass (split-KV): block
+  // row r's O at os + idx(r) * D in fp32, its running max (clamped at
+  // NEG_CLAMP) at ms[idx(r)] and its row sum at ls[idx(r)]; idx(r) < 0: not
+  // stored.
+  template <typename Idx>
+  __device__ void store_state(float* os, float* ms, float* ls, const Idx& idx) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float lt = l[rr] + __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const long i = idx(row0 + g + 8 * rr);
+      if (i < 0) continue;
+#pragma unroll
+      for (int j = 0; j < OT; ++j)
+        gc::store2(os + i * D + j * 8 + 2 * t, o[j][2 * rr], o[j][2 * rr + 1]);
+      if (t == 0) {
+        ms[i] = fmaxf(m[rr], ac::NEG_CLAMP);
+        ls[i] = lt;
+      }
+    }
+  }
 };
 
 // The block's pass over n key tiles.  The block's warps form KG key groups

@@ -9,31 +9,48 @@
 // M0-M7: 0.07-3.9 ms at 989 TFLOP/s bf16), bytes for its decode GEMVs (V0-V7,
 // M = 1: B is read once, 0.16-0.49 ms at 3.35 TB/s).
 //
-// Design (the counterpart of T.Pipelined(..., num_stages) + T.gemm):
-//   * bf16 / fp16: tensor cores, mma.sync m16n8k16 with fp32 accumulation;
-//     A and B tiles stream into shared memory through cp.async, STAGES deep,
-//     so the loads of tile k + STAGES - 1 are in flight while tile k is
-//     multiplied; A fragments by ldmatrix, B (row-major K x N) by
-//     ldmatrix.trans; rows padded by 8 elements so that the eight 16-byte
-//     rows an ldmatrix reads fall in distinct banks;
-//   * two tile shapes: 128 x 128 x 64 over 8 warps (64 x 32 each, two
-//     blocks an SM) for M > 16, and 16 x 64 x 128 over 4 warps for M <= 16
-//     (the GEMVs), where 4 stages of a deep K tile keep enough of B in
-//     flight to stream it (of the tile shapes tried on the card, 128 x 256,
-//     256 x 128 and 4-warp 128 x 128 among them, none ran more than 4%
-//     faster at M5 / M7);
-//   * blocks walk the output in groups of GROUP_M tile rows (the
-//     reference's T.use_swizzle), so the blocks resident together share A
-//     and B panels in L2 instead of streaming all of B once per tile row;
-//   * masked edges: a 16-byte chunk past M, N or K is zero-filled, not read
-//     (K and N multiples of 8 keep every chunk wholly in or out);
-//   * fp32 operands, or K or N not a multiple of 8 or unaligned pointers:
-//     the CUDA-core GEMM of mma_core.cuh (fp32 FMAs, no TF32).
+// Three routes, chosen by the wrapper (matmul.py, route):
+//   * wgmma, 16-bit A and B with M > 16 (the counterpart of
+//     T.Pipelined(..., num_stages) + T.gemm on Hopper's full tensor-core
+//     rate; mma.sync reached ~300 TFLOP/s, 2.7-2.8x torch.matmul, whatever
+//     its tile shape).  A block computes a 128 x 256 tile of C with three
+//     warpgroups: one producer warp keeps a ring of STAGES shared-memory
+//     stages (A 128 x 64 and B 64 x 256, 48 KB) filled by TMA 2-D loads with
+//     128-byte swizzle, each stage's full / empty mbarrier pair handing it
+//     between producer and consumers, and gives its registers away
+//     (setmaxnreg.dec); two consumer warpgroups (setmaxnreg.inc) each run
+//     wgmma.mma_async m64n256k16 over the stage for 64 rows, fp32
+//     accumulators in registers, and release a stage once the products
+//     that read it are done (one wgmma group stays in flight).  The
+//     epilogue rounds each sum once and stores it from registers, the M and
+//     N edges masked; TMA's zero fill masks the loads at the M, N and K
+//     edges.  Blocks walk C in gc::grouped_tile order.
+//   * mma.sync m16n8k16, 16-bit with M <= 16 (the GEMVs, near their bytes
+//     bound): 16 x 64 x 128 tiles over 4 warps, A and B through 4 cp.async
+//     stages, A by ldmatrix, B (row-major K x N) by ldmatrix.trans; rows
+//     padded by 8 elements so that an ldmatrix's eight rows fall in
+//     distinct banks; a 16-byte chunk past M, N or K is zero-filled.
+//   * CUDA cores, for fp32 operands, K or N not a multiple of 8, or
+//     unaligned pointers: the CUDA-core GEMM of mma_core.cuh (fp32 FMAs, no
+//     TF32).
 //
-// Known first bottleneck: mma.sync reaches a fraction of Hopper's peak;
-// wgmma fed by TMA (a warp-specialised producer, a ring of tiles) is the
-// way to the card's full rate.
+// Traps of the wgmma path (hopper_core.cuh has the details):
+//   * B is row-major (K, N), an MN-major operand for wgmma: the descriptor
+//     takes the transpose-B bit, LBO = 8 KB (one 64-column TMA box to the
+//     next) and SBO = 1 KB (8 K rows), where a K-major operand (A) has SBO
+//     = 1 KB and no LBO;
+//   * the TMA descriptors come from the driver's cuTensorMapEncodeTiled,
+//     fetched at run time through the runtime (no -lcuda), and travel as
+//     __grid_constant__ parameters; they need 16-byte strides and bases
+//     (K % 8 == 0, N % 8 == 0, the wrapper's rule);
+//   * shared stages start on 1024-byte boundaries, as 128-byte swizzle
+//     wants;
+//   * a wrong mbarrier parity hangs the launch rather than failing it.
+//
+// What still holds it back: no persistent grid, so a block's epilogue does
+// not overlap the next tile's loads; one block an SM (197 KB of stages).
 
+#include "hopper_core.cuh"
 #include "mma_core.cuh"
 
 namespace {
@@ -112,6 +129,117 @@ int launch_tc(const void* a, const void* b, void* c, int M, int N, int K, cudaSt
   return (int)cudaGetLastError();
 }
 
+// ---- the wgmma path ---------------------------------------------------------
+
+namespace wg {
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+constexpr int CONSUMERS = 2;                     // warpgroups of 64 rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;   // the producer's warpgroup first
+constexpr int A_BYTES = BM * BK * 2;             // 16 KB: 128 rows of 128 bytes
+constexpr int B_BOX = BK * 64 * 2;               // 8 KB: one 64-column box of B
+constexpr int STAGE = A_BYTES + BN / 64 * B_BOX;  // 48 KB
+constexpr size_t SMEM = (size_t)STAGES * STAGE + 1024;  // + room to align to 1 KB
+}  // namespace wg
+
+template <typename T, typename TO>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                    TO* __restrict__ C, int M, int N, int K) {
+  using namespace wg;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  uint8_t* smem = smem_raw + ((1024 - (hc::smem_addr(smem_raw) & 1023)) & 1023);
+  int bm, bn;
+  gc::grouped_tile(M, N, BM, BN, bm, bn);
+  const int ktiles = (K + BK - 1) / BK;
+  const int wgroup = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hc::mbar_init(&full[s], 1);
+      hc::mbar_init(&empty[s], CONSUMERS);
+    }
+    hc::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgroup == 0) {  // the producer: one thread issues every load
+    hc::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % STAGES, r = kt / STAGES;
+        if (r > 0) hc::mbar_wait(&empty[s], (r - 1) & 1);  // its (r - 1)-th release
+        uint8_t* a = smem + s * STAGE;
+        uint8_t* b = a + A_BYTES;
+        hc::mbar_expect_tx(&full[s], STAGE);
+        hc::tma_load_2d(a, &ta, &full[s], kt * BK, bm * BM);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          hc::tma_load_2d(b + j * B_BOX, &tb, &full[s], bn * BN + j * 64, kt * BK);
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows [64 c, 64 c + 64) of the block's tile
+  hc::regs_inc<232>();
+  const int c = wgroup - 1;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % STAGES;
+    hc::mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint8_t* a = smem + s * STAGE + c * 64 * 128;
+    const uint8_t* b = smem + s * STAGE + A_BYTES;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) hc::reg_fence(acc[i]);
+    hc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hc::wgmma_m64n256k16<T>(acc, hc::sw128_desc(a + kk * 32, 16, 1024),
+                              hc::sw128_desc(b + kk * 16 * 128, B_BOX, 1024));
+    hc::wgmma_commit();
+    hc::wgmma_wait<1>();  // tile kt - 1's products are done: release its stage
+#pragma unroll
+    for (int i = 0; i < 128; ++i) hc::reg_fence(acc[i]);
+    if (kt > 0 && threadIdx.x % 128 == 0) hc::mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  hc::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 128; ++i) hc::reg_fence(acc[i]);
+
+  // the epilogue: acc[4 j + 2 h + e] is row m0 + 8 h, column n0 + 8 j + e
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int m0 = bm * BM + c * 64 + warp * 16 + (lane >> 2);
+  const int n0 = bn * BN + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j;  // N is even on this path: n < N means n + 1 < N
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 8 * h;
+      if (m < M && n < N)
+        gc::store2(C + (long)m * N + n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <typename T, typename TO>
+int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t stream) {
+  using namespace wg;
+  CUtensorMap ta, tb;
+  if (!hc::tensor_map_2d<T>(&ta, a, M, K, K, BM) || !hc::tensor_map_2d<T>(&tb, b, K, N, N, BK))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = matmul_wgmma_kernel<T, TO>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, THREADS, SMEM, stream>>>(ta, tb, (TO*)c, M, N, K);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 struct PlainB {  // B's element (k, n) of a row-major (K, N) matrix
   const T* b;
@@ -120,42 +248,39 @@ struct PlainB {  // B's element (k, n) of a row-major (K, N) matrix
 };
 
 template <typename T, typename TO>
-int launch(const void* a, const void* b, void* c, int M, int N, int K, int tensor_cores,
+int launch(const void* a, const void* b, void* c, int M, int N, int K, int route,
            cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    if (tensor_cores) {
-      if (M <= 16) return launch_tc<T, TO, 16, 64, 128, 1, 4, 4>(a, b, c, M, N, K, stream);
-      return launch_tc<T, TO, 128, 128, 64, 2, 4, 3>(a, b, c, M, N, K, stream);
-    }
+    if (route == 2) return launch_wgmma<T, TO>(a, b, c, M, N, K, stream);
+    if (route == 1) return launch_tc<T, TO, 16, 64, 128, 1, 4, 4>(a, b, c, M, N, K, stream);
   }
   return gc::launch_simt<T, TO>(a, PlainB<T>{(const T*)b, N}, c, M, N, K, stream);
 }
 
 template <typename T>
 int launch_out(int out_dtype, const void* a, const void* b, void* c, int M, int N, int K,
-               int tensor_cores, cudaStream_t stream) {
-  if (out_dtype == 0) return launch<T, float>(a, b, c, M, N, K, tensor_cores, stream);
-  if (out_dtype == 1) return launch<T, __nv_bfloat16>(a, b, c, M, N, K, tensor_cores, stream);
-  if (out_dtype == 2) return launch<T, __half>(a, b, c, M, N, K, tensor_cores, stream);
+               int route, cudaStream_t stream) {
+  if (out_dtype == 0) return launch<T, float>(a, b, c, M, N, K, route, stream);
+  if (out_dtype == 1) return launch<T, __nv_bfloat16>(a, b, c, M, N, K, route, stream);
+  if (out_dtype == 2) return launch<T, __half>(a, b, c, M, N, K, route, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype / out_dtype: 0 = float32, 1 = bfloat16, 2 = float16.  tensor_cores
-// != 0 asks for the tensor-core kernel (16-bit inputs only; the caller
-// checks that K and N are multiples of 8 and A and B 16-byte aligned);
-// otherwise the CUDA-core GEMM runs.  M, N, K >= 1.  Returns
+// dtype / out_dtype: 0 = float32, 1 = bfloat16, 2 = float16.  route: 0 =
+// the CUDA-core GEMM (any operands), 1 = mma.sync 16-row tiles, 2 = wgmma
+// (routes 1 and 2 take 16-bit inputs only; the caller checks that K and N
+// are multiples of 8 and A and B 16-byte aligned).  M, N, K >= 1.  Returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for what it does not take.
 extern "C" int matmul_launch(int dtype, int out_dtype, const void* a, const void* b, void* c,
-                             int M, int N, int K, int tensor_cores, void* stream) {
+                             int M, int N, int K, int route, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  if (tensor_cores && (dtype == 0 || K % 8 != 0 || N % 8 != 0))
-    return (int)cudaErrorInvalidValue;
+  if (M < 1 || N < 1 || K < 1 || route < 0 || route > 2) return (int)cudaErrorInvalidValue;
+  if (route && (dtype == 0 || K % 8 != 0 || N % 8 != 0)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_out<float>(out_dtype, a, b, c, M, N, K, 0, s);
-  if (dtype == 1) return launch_out<__nv_bfloat16>(out_dtype, a, b, c, M, N, K, tensor_cores, s);
-  if (dtype == 2) return launch_out<__half>(out_dtype, a, b, c, M, N, K, tensor_cores, s);
+  if (dtype == 1) return launch_out<__nv_bfloat16>(out_dtype, a, b, c, M, N, K, route, s);
+  if (dtype == 2) return launch_out<__half>(out_dtype, a, b, c, M, N, K, route, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,6 @@
 // Paged-attention decode: one query token per slot against a paged KV pool.
 //
-// Two entry points, one kernel body templated on the K/V page format
-// (attention_core.cuh):
+// Two entry points:
 //   * paged_attention_launch replaces the TPU kernel
 //     repro/kernels/paged_attention.py:32 (paged_attention_program):
 //     q (B, Hq, D), k_pages / v_pages (Hkv, P, page_size, D), tables
@@ -15,35 +14,80 @@
 // Bound on the H100: bytes.  A decode step reads every live K and V row of
 // every slot once (2 * Hkv * sum(lens) * D * itemsize bytes; D / pack bytes
 // plus one scale per row when quantized) and does only 4 * Hq * D FLOPs per
-// KV row, far below the card's 295 FLOP/byte ridge.
+// KV row, far below the card's 295 FLOP/byte ridge.  At qwen2-1.5B's
+// serving shape (slots 8, Hkv 2, D 128, lengths up to 1024) that is ~4 MB:
+// ~1.2 us at 3.35 TB/s, so what holds a launch back is latency, not bytes.
 //
-// What the design does about it:
-//   * one block per (kv_head, slot), as the TPU grid: the block keeps its
-//     whole GQA group (Hq / Hkv query rows) resident and reads each K/V page
-//     exactly once for all of them;
-//   * it walks only the live pages [max(0, len - window) / ps, ceil(len / ps))
-//     and reads each page id from the block table itself (no scalar
-//     prefetch on this card).  The TPU kernel walked all max_pages and
-//     masked, which relies on padding entries holding finite values; this
-//     one never touches padding pages, so garbage there (even NaN) cannot
-//     leak in as 0 * NaN;
-//   * each page is read with 16-byte vector loads into registers one page
-//     ahead of the compute, so its device-memory latency overlaps the
-//     scoring of the page before (attention_core.cuh: attend_tiles);
-//   * fp32 accumulation for bf16 inputs, online softmax from
-//     attention_core.cuh (exp2, NEG_CLAMP, safe_div: len == 0 emits zeros).
+// The fp kernel: split-KV over a static grid.
+//   * The TPU grid (kv_head, slot) gives 2 x slots = 16 blocks at qwen's
+//     shape, and each walked its slot's pages one after another: 0.16 ms
+//     on 16 of an H100's 132 SMs (80GB HBM3, 700 W).  Here the grid is
+//     (kv_head, slot, split): split s of a slot scores its keys
+//     [s * split_keys, (s + 1) * split_keys) that are live (inside
+//     [max(0, len - window), len)) and leaves the partial softmax state of
+//     its GQA group's rows in fp32 scratch: O unnormalised, the running max
+//     m (log2 domain, clamped at NEG_CLAMP) and the row sum l.  A second,
+//     small kernel (merge_kernel) rescales the splits to their common max,
+//     sums them, applies safe_div and rounds once to the output type: the
+//     arithmetic of WarpAttention::absorb (attention_mma.cuh) across blocks.
+//   * splits and split_keys come from static shapes and the card's SM count
+//     only (paged_attention.py, decode_splits), never from the lengths: the
+//     host never reads a length (the multi-step window runs with host syncs
+//     forbidden) and the grid stays fixed for graph capture.  A split whose
+//     keys all lie past len, or before the window, reads nothing and leaves
+//     m = NEG_CLAMP, l = 0, which the merge weighs 0 (its O is not read); a
+//     slot with len 0 emits zeros.  At qwen's shape: 16 splits of one
+//     64-key tile, 256 blocks.
+//   * bf16 at D 64 or 128 (the tensor-core path): each split block runs
+//     attention_mma.cuh's WarpAttention over 64-key tiles copied through its
+//     cp.async ring, the keys' absolute positions written beside each tile.
+//     The GQA group's rows (6 for qwen) sit in one warp's 16-row m-tile,
+//     every row at query position len - 1 (PosMask with q0 = len - 1 and
+//     causal: key < len, and len - key <= window); warps whose rows are all
+//     dead only copy.  Key rows outside the live range are zero-filled and
+//     never read (padding pages may hold NaN: 0 * NaN is NaN).  P.V is the
+//     bf16 pair hi + lo (1.00 bf16 ulp; P rounded once to bf16 reads 23-30
+//     ulps on decode).  Splits hold whole 64-key tiles and pages (a power
+//     of two <= 32) nest in them, so no split starts inside a tile.
+//   * fp32, and bf16 at other head dims: attention_core.cuh's CUDA-core
+//     body over the split's pages (16-byte vector loads one page ahead of
+//     the compute), on the same split grid and the same merge.
 //
-// Known first bottleneck: the grid has only 2 * slots blocks for qwen2-1.5B
-// (Hkv = 2), far fewer than the 132 SMs, so most of the card idles.  Split-KV
-// (several blocks per slot over page ranges, merged by a second pass) is the
-// first thing a later change should do here.  Tensor-core scoring (wgmma) and
-// TMA page loads come after that.
+// What still holds it back (H100 80GB HBM3 at 700 W, qwen's shape: 18.3 us
+// a call): two launches a decode step, the split kernel 7.8 us and the
+// merge 5.8 us of device time (chip_smoke.py's decode-cost reading); one
+// warp of four does the arithmetic of a split; the table entry a key row
+// reads is a dependent device-memory load ahead of its copy.
+//
+// The quantized twin keeps the pre-split design (not redesigned yet): one
+// block per (kv_head, slot), splits = 1, walking all live pages on CUDA
+// cores and writing the output itself.
 
 #include "attention_core.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+
+// Where split blocks leave their partial softmax states (fp32 scratch the
+// wrapper allocates): O (slots, heads, splits, D) unnormalised, m and l
+// (slots, heads, splits).  o == nullptr: one split, the block normalises
+// and writes the output itself.
+struct Partials {
+  float *o, *m, *l;
+  int heads, splits;
+  __device__ long row(int b, int qh, int s) const { return ((long)b * heads + qh) * splits + s; }
+  // A split with no live key: weighed 0 by the merge, O left unwritten.
+  __device__ void empty(int b, int qh0, int rows, int s) const {
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      m[row(b, qh0 + r, s)] = ac::NEG_CLAMP;
+      l[row(b, qh0 + r, s)] = 0.f;
+    }
+  }
+};
+
+// ---- the CUDA-core body (fp32, other head dims, the quantized twin) -------
 
 struct DecodeMask {
   int base, len, lo;
@@ -53,7 +97,7 @@ struct DecodeMask {
   }
 };
 
-// The slot's live pages, read through its block-table row.
+// The split's live pages, read through the slot's block-table row.
 template <typename F>
 struct DecodeTiles {
   using KV = F;
@@ -72,24 +116,31 @@ struct DecodeTiles {
   __device__ DecodeMask mask(int t) const { return {(p_lo + t) * ps, len, lo}; }
 };
 
+// Block (kv head, slot, split): the split's pages [s * split_pages, (s + 1)
+// * split_pages) that hold live keys.
 template <typename F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(2 * kThreads)
 paged_attention_kernel(const typename F::Elem* __restrict__ q, F pools,
                        const int* __restrict__ tables,
                        const int* __restrict__ lens,
-                       typename F::Elem* __restrict__ out, int heads,
-                       int kv_heads, int d, int ps, int max_pages,
-                       int num_pages, int window, float qscale) {
+                       typename F::Elem* __restrict__ out, Partials part,
+                       int heads, int kv_heads, int d, int ps, int max_pages,
+                       int num_pages, int window, int split_pages, float qscale) {
   const int h = blockIdx.x;  // kv head
   const int b = blockIdx.y;  // slot
+  const int s = blockIdx.z;  // split
   const int group = heads / kv_heads;
-  extern __shared__ float4 smem4[];
-  ac::Smem sm(reinterpret_cast<float*>(smem4), group, ps, d);
-
   const int len = lens[b];
   const int lo = window > 0 ? max(0, len - window) : 0;
-  const int p_lo = lo / ps;
-  const int p_hi = min((len + ps - 1) / ps, max_pages);
+  const int p_lo = max(lo / ps, s * split_pages);
+  const int p_hi = min(min((len + ps - 1) / ps, max_pages), (s + 1) * split_pages);
+  const int n = max(0, p_hi - p_lo);
+  if (n == 0 && part.o != nullptr) {
+    part.empty(b, h * group, group, s);
+    return;
+  }
+  extern __shared__ float4 smem4[];
+  ac::Smem sm(reinterpret_cast<float*>(smem4), group, ps, d);
 
   const long q_off = ((long)b * heads + (long)h * group) * d;
   ac::load_rows(sm.qs, sm.stride, q + q_off, d, group, d, qscale);
@@ -98,28 +149,162 @@ paged_attention_kernel(const typename F::Elem* __restrict__ q, F pools,
   DecodeTiles<F> src{pools.rows((long)h * num_pages * ps, d),
                      tables + (long)b * max_pages, p_lo, ps, num_pages, len,
                      lo, d};
-  ac::attend_tiles(sm, group, ps, d, max(0, p_hi - p_lo), src);
+  ac::attend_tiles(sm, group, ps, d, n, src);
   __syncthreads();
-  ac::store_rows(out + q_off, d, sm, group, d);
+  if (part.o == nullptr) {
+    ac::store_rows(out + q_off, d, sm, group, d);
+    return;
+  }
+  for (int i = threadIdx.x; i < group * d; i += blockDim.x) {
+    const int r = i / d, c = i - r * d;
+    part.o[part.row(b, h * group + r, s) * d + c] = sm.acc[i];
+  }
+  for (int r = threadIdx.x; r < group; r += blockDim.x) {
+    part.m[part.row(b, h * group + r, s)] = fmaxf(sm.m[r], ac::NEG_CLAMP);
+    part.l[part.row(b, h * group + r, s)] = sm.l[r];
+  }
 }
 
 template <typename F>
 int launch(const void* q, F pools, const void* tables, const void* lens,
-           void* out, int slots, int heads, int kv_heads, int d, int ps,
-           int max_pages, int num_pages, int window, float sm_scale,
-           cudaStream_t stream) {
+           void* out, Partials part, int slots, int heads, int kv_heads, int d,
+           int ps, int max_pages, int num_pages, int window, int split_pages,
+           float sm_scale, cudaStream_t stream) {
   using T = typename F::Elem;
-  if (!F::shapes_ok(ps, d, kThreads)) return (int)cudaErrorInvalidValue;
+  // twice the threads where a tile is more vectors than kThreads hold (fp32
+  // at D 128 with pages of 32)
+  const int threads = F::shapes_ok(ps, d, kThreads) ? kThreads : 2 * kThreads;
+  if (!F::shapes_ok(ps, d, threads)) return (int)cudaErrorInvalidValue;
   const int group = heads / kv_heads;
   const size_t smem = ac::Smem::bytes(group, ps, d);
   auto kernel = paged_attention_kernel<F>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(kv_heads, slots);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, pools, (const int*)tables, (const int*)lens, (T*)out, heads,
-      kv_heads, d, ps, max_pages, num_pages, window, sm_scale * ac::LOG2E);
+  dim3 grid(kv_heads, slots, part.splits);
+  kernel<<<grid, threads, smem, stream>>>(
+      (const T*)q, pools, (const int*)tables, (const int*)lens, (T*)out, part,
+      heads, kv_heads, d, ps, max_pages, num_pages, window, split_pages,
+      sm_scale * ac::LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// ---- the tensor-core body (bf16, D 64 or 128) -----------------------------
+
+constexpr int kTcStages = 2;
+
+// The split's keys in 64-key tiles at absolute positions: key j = KEYS (t0 +
+// t) + r of tile t lies on table entry j / ps at page row j % ps, and is
+// read when it is live (lo <= j < len).
+template <int D>
+struct SplitKeys {
+  using B = am::bf16;
+  const B *kpool, *vpool;  // the kv head's pools, at page 0
+  const int* table;        // the slot's block-table row
+  int ps_log2, t0, lo, len, num_pages, group;
+
+  __device__ bool row(int t, int r, const B*& kp, const B*& vp, int& pos) const {
+    const int j = (t0 + t) * am::KEYS + r;
+    if (j < lo || j >= len) return false;
+    const int page = table[j >> ps_log2];
+    if (page < 0 || page >= num_pages) return false;  // contributes nothing
+    const long at = (((long)page << ps_log2) + (j & ((1 << ps_log2) - 1))) * D;
+    kp = kpool + at;
+    vp = vpool + at;
+    pos = j;
+    return true;
+  }
+  // a warp of block rows [r0, r1): only the group's rows are live
+  __device__ int kind(int /*t*/, int r0, int /*r1*/) const {
+    return r0 < group ? am::MASKED : am::SKIP;
+  }
+};
+
+// Block (kv head, slot, split): block row r < group is query head h * group
+// + r, all at position len - 1; the split's tiles [s * split_tiles, (s + 1)
+// * split_tiles) that hold live keys.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_kernel_tc(const am::bf16* __restrict__ q, ac::FpKV<am::bf16> pools,
+                          const int* __restrict__ tables, const int* __restrict__ lens,
+                          Partials part, int kv_heads, int ps, int max_pages,
+                          int num_pages, int window, int split_tiles, float qscale) {
+  const int h = blockIdx.x;  // kv head
+  const int b = blockIdx.y;  // slot
+  const int s = blockIdx.z;  // split
+  const int group = part.heads / kv_heads;
+  const int len = lens[b];
+  const int keys = min(len, max_pages * ps);  // a length past the table reads no more
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const int t_lo = max(lo / am::KEYS, s * split_tiles);
+  const int t_hi = min((keys + am::KEYS - 1) / am::KEYS, (s + 1) * split_tiles);
+  if (t_hi <= t_lo) {
+    part.empty(b, h * group, group, s);
+    return;
+  }
+  extern __shared__ float4 smem4[];
+  const am::Ring<D, kTcStages, 1> ring(smem4);
+  const ac::FpKV<am::bf16> head = pools.rows((long)h * num_pages * ps, D);
+  const SplitKeys<D> src{head.k, head.v, tables + (long)b * max_pages, __ffs(ps) - 1,
+                         t_lo, lo, keys, num_pages, group};
+  const am::PosMask mask{nullptr, len - 1, group, window, true};
+  const am::bf16* qg = q + ((long)b * part.heads + (long)h * group) * D;
+  am::WarpAttention<D> wa;
+  am::attend(
+      wa, ring, [&](int r) { return r < group ? qg + (long)r * D : nullptr; }, t_hi - t_lo,
+      src, mask, qscale, q);
+  wa.store_state(part.o, part.m, part.l, [&](int r) {
+    return r < group ? part.row(b, h * group + r, s) : -1L;
+  });
+}
+
+template <int D>
+int launch_tc(const void* q, ac::FpKV<am::bf16> pools, const void* tables, const void* lens,
+              Partials part, int slots, int kv_heads, int ps, int max_pages, int num_pages,
+              int window, int split_tiles, float sm_scale, cudaStream_t stream) {
+  const int group = part.heads / kv_heads;
+  if (group > kThreads / 32 * 16 || am::KEYS % ps != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = am::Ring<D, kTcStages, 1>::bytes();
+  auto kernel = paged_attention_kernel_tc<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(kv_heads, slots, part.splits);
+  kernel<<<grid, kThreads, smem, stream>>>((const am::bf16*)q, pools, (const int*)tables,
+                                           (const int*)lens, part, kv_heads, ps, max_pages,
+                                           num_pages, window, split_tiles,
+                                           sm_scale * ac::LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// ---- the merge -------------------------------------------------------------
+
+// Block (slot, query head): out = sum_s w_s O_s / max(sum_s w_s l_s, 1e-30)
+// with w_s = exp2(m_s - max_s m_s), every m clamped at NEG_CLAMP (so a slot
+// whose splits all saw nothing emits 0), rounded once to T.  A split with
+// l == 0 saw no key: its weight is 0 and its O is not read.
+template <typename T>
+__global__ void merge_kernel(Partials part, int d, T* __restrict__ out) {
+  const long r0 = (long)blockIdx.x * part.splits;  // the row's first split
+  const float* m = part.m + r0;
+  const float* l = part.l + r0;
+  float mx = ac::NEG_CLAMP;
+  for (int s = 0; s < part.splits; ++s) mx = fmaxf(mx, m[s]);
+  float den = 0.f;
+  for (int s = 0; s < part.splits; ++s)
+    if (l[s] != 0.f) den += exp2f(m[s] - mx) * l[s];
+  den = fmaxf(den, 1e-30f);
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < part.splits; ++s)
+      if (l[s] != 0.f) acc += exp2f(m[s] - mx) * part.o[(r0 + s) * d + c];
+    out[(long)blockIdx.x * d + c] = ac::from_float<T>(acc / den);
+  }
+}
+
+template <typename T>
+int merge(const Partials& part, int slots, int d, void* out, cudaStream_t stream) {
+  merge_kernel<T><<<slots * part.heads, min(d, kThreads), 0, stream>>>(part, d, (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -131,42 +316,68 @@ ac::QuantKV<T, PACK> quant_pools(void* k, void* v, void* ks, void* vs) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
+// tc 1 takes the tensor-core body (bfloat16, head_dim 64 or 128, at most 64
+// query heads a kv head).  The grid is (kv_heads, slots, splits), split s
+// covering keys [s * split_keys, (s + 1) * split_keys): split_keys a
+// multiple of 64 and splits * split_keys >= max_pages * page_size.
+// o_part (slots, heads, splits, head_dim) and ml_part (2, slots, heads,
+// splits) are fp32 scratch: the partial states, then merged into out.
 // Needs page_size a power of two <= 32 and head_dim a multiple of 8, with
-// 16-byte aligned pools.  Returns cudaGetLastError() after the launch
-// (0 = launched), or cudaErrorInvalidValue for shapes it does not take.
-extern "C" int paged_attention_launch(int dtype, const void* q, void* k_pages,
-                                      void* v_pages, const void* tables,
-                                      const void* lens, void* out, int slots,
-                                      int heads, int kv_heads, int d, int ps,
-                                      int max_pages, int num_pages, int window,
+// 16-byte aligned pools.  Returns the first cudaGetLastError() after the
+// two launches (0 = launched), or cudaErrorInvalidValue for shapes it does
+// not take.
+extern "C" int paged_attention_launch(int dtype, int tc, const void* q, void* k_pages,
+                                      void* v_pages, const void* tables, const void* lens,
+                                      void* out, void* o_part, void* ml_part, int slots,
+                                      int heads, int kv_heads, int d, int ps, int max_pages,
+                                      int num_pages, int window, int splits, int split_keys,
                                       float sm_scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch(q, ac::FpKV<float>{(float*)k_pages, (float*)v_pages}, tables,
-                  lens, out, slots, heads, kv_heads, d, ps, max_pages,
-                  num_pages, window, sm_scale, s);
-  if (dtype == 1)
-    return launch(q,
-                  ac::FpKV<__nv_bfloat16>{(__nv_bfloat16*)k_pages,
-                                          (__nv_bfloat16*)v_pages},
-                  tables, lens, out, slots, heads, kv_heads, d, ps, max_pages,
-                  num_pages, window, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (splits < 1 || splits > 65535 || slots < 1 || slots > 65535 || split_keys < am::KEYS ||
+      split_keys % am::KEYS != 0 || (long)splits * split_keys < (long)max_pages * ps ||
+      ps < 1 || ps > am::KEYS || (ps & (ps - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long rows = (long)slots * heads * splits;
+  const Partials part{(float*)o_part, (float*)ml_part, (float*)ml_part + rows, heads, splits};
+  using B = __nv_bfloat16;
+  int rc = (int)cudaErrorInvalidValue;
+  if (tc && dtype == 1) {
+    const ac::FpKV<B> pools{(B*)k_pages, (B*)v_pages};
+    const int tiles = split_keys / am::KEYS;
+    if (d == 128)
+      rc = launch_tc<128>(q, pools, tables, lens, part, slots, kv_heads, ps, max_pages,
+                          num_pages, window, tiles, sm_scale, st);
+    else if (d == 64)
+      rc = launch_tc<64>(q, pools, tables, lens, part, slots, kv_heads, ps, max_pages,
+                         num_pages, window, tiles, sm_scale, st);
+  } else if (!tc && dtype == 0) {
+    rc = launch(q, ac::FpKV<float>{(float*)k_pages, (float*)v_pages}, tables, lens, out, part,
+                slots, heads, kv_heads, d, ps, max_pages, num_pages, window, split_keys / ps,
+                sm_scale, st);
+  } else if (!tc && dtype == 1) {
+    rc = launch(q, ac::FpKV<B>{(B*)k_pages, (B*)v_pages}, tables, lens, out, part, slots,
+                heads, kv_heads, d, ps, max_pages, num_pages, window, split_keys / ps,
+                sm_scale, st);
+  }
+  if (rc != 0) return rc;
+  return dtype == 0 ? merge<float>(part, slots, d, out, st) : merge<B>(part, slots, d, out, st);
 }
 
 // The quantized twin: pack 1 = int8, 2 = int4; the scale pools are of q's
-// dtype.  Needs head_dim / pack a multiple of 16 bytes, with 16-byte
-// aligned packed pools.
+// dtype.  One block per (kv head, slot) writes the output itself (no split).
+// Needs head_dim / pack a multiple of 16 bytes, with 16-byte aligned packed
+// pools.
 extern "C" int paged_attention_quant_launch(
     int dtype, int pack, const void* q, void* k_pages, void* v_pages,
     void* k_scales, void* v_scales, const void* tables, const void* lens,
     void* out, int slots, int heads, int kv_heads, int d, int ps,
     int max_pages, int num_pages, int window, float sm_scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define PA_QUANT(T, P)                                                       \
-  return launch(q, quant_pools<T, P>(k_pages, v_pages, k_scales, v_scales), \
-                tables, lens, out, slots, heads, kv_heads, d, ps, max_pages, \
-                num_pages, window, sm_scale, s)
+  const Partials direct{nullptr, nullptr, nullptr, heads, 1};
+#define PA_QUANT(T, P)                                                            \
+  return launch(q, quant_pools<T, P>(k_pages, v_pages, k_scales, v_scales),      \
+                tables, lens, out, direct, slots, heads, kv_heads, d, ps,        \
+                max_pages, num_pages, window, max_pages, sm_scale, s)
   if (dtype == 0 && pack == 1) PA_QUANT(float, 1);
   if (dtype == 0 && pack == 2) PA_QUANT(float, 2);
   if (dtype == 1 && pack == 1) PA_QUANT(__nv_bfloat16, 1);

@@ -5,9 +5,12 @@ matmul.py:15, the paper's Fig. 16): ``C = A . B`` for A (M, K) and B (K, N)
 of one type (fp32, bf16 or fp16), fp32 accumulation, C rounded once to
 ``out_dtype``.  Any M, N, K.  The plain version is ``ref.matmul``; this
 wrapper takes it for CPU tensors only.  For a CUDA tensor it launches the
-kernel or raises: bf16 / fp16 operands with K and N multiples of 8 take the
-tensor cores, everything else the kernel's CUDA-core GEMM (fp32 FMAs, no
-TF32).
+kernel or raises, on one of three routes (:func:`route`): bf16 / fp16
+operands with K and N multiples of 8 and 16-byte aligned data take the
+tensor cores, ``wgmma`` fed by TMA from M = ``WGMMA_MIN_M`` (17) up and
+``mma.sync`` below it (the GEMVs, M <= 16); everything else the kernel's
+CUDA-core GEMM (fp32 FMAs, no TF32).  ``KERNEL.tc_launches`` counts the
+``wgmma`` launches.
 """
 from __future__ import annotations
 
@@ -37,11 +40,24 @@ def _require(cond: bool, msg: str):
 
 
 def takes_tensor_cores(dtype, k: int, n: int, *tensors) -> bool:
-    """Whether the tensor-core kernel takes these operands: 16-bit
+    """Whether the tensor-core kernels take these operands: 16-bit
     elements, K and N multiples of 8 (16-byte rows) and 16-byte aligned
     data."""
     return (dtype in (torch.bfloat16, torch.float16) and k % 8 == 0
             and n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+WGMMA_MIN_M = 17  # M <= 16 (the GEMVs) stays on mma.sync's 16-row tiles
+ROUTES = {"cuda": 0, "mma": 1, "wgmma": 2}
+
+
+def route(dtype, m: int, k: int, n: int, *tensors) -> str:
+    """The kernel's route for these operands: ``wgmma`` (16-bit, M >=
+    WGMMA_MIN_M), ``mma`` (16-bit, M below it) or ``cuda`` (fp32, K or N not
+    a multiple of 8, or unaligned data)."""
+    if not takes_tensor_cores(dtype, k, n, *tensors):
+        return "cuda"
+    return "wgmma" if m >= WGMMA_MIN_M else "mma"
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
@@ -62,11 +78,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
              f"M, N, K = {m}, {n}, {k}")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    tc = takes_tensor_cores(a.dtype, k, n, a, b)
+    path = route(a.dtype, m, k, n, a, b)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(DTYPES[a.dtype], DTYPES[out_dtype], a.data_ptr(),
-                               b.data_ptr(), out.data_ptr(), m, n, k, int(tc), stream)
+                               b.data_ptr(), out.data_ptr(), m, n, k, ROUTES[path], stream)
     check(rc, "matmul")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(path == "wgmma")
     return out

@@ -6,12 +6,22 @@ KV pool with a ragged live-length mask, an optional sliding window and
 safe_div (empty slots emit zeros).  The plain version is
 ``ref.paged_attention``; this wrapper takes it for CPU tensors only.  For a
 CUDA tensor it launches the kernel or raises.
+
+The kernel splits each slot's keys across blocks (split-KV) and merges the
+partial softmax states in a second pass.  The split count comes from static
+shapes and the card's SM count alone (:func:`decode_splits`), never from
+``seq_lens``: the wrapper reads no length on the host, so a decode step
+makes no host sync and keeps one grid whatever the lengths.  bf16 at head
+dim 64 or 128 scores on the tensor cores (:func:`tensor_core_path`,
+``KERNEL.tc_launches``); the rest on CUDA cores, over the same split grid.
+:func:`split_decode` rehearses the kernel's arithmetic in plain PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,11 +32,43 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
     "paged_attention", "paged_attention_launch",
-    [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, _P],
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+     _I, _I, ctypes.c_float, _P],
     replaces="src/repro/kernels/paged_attention.py:32",
 )
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_KEYS = 64  # keys a tile; a split holds whole tiles
+TC_HEAD_DIMS = (64, 128)
+TC_MAX_GROUP = 64  # query heads a kv head on the tensor cores: 4 warps of 16 rows
+NEG_CLAMP = -2.0 ** 20  # the kernels' floor of the running max (attention_core.cuh)
+LOG2E = math.log2(math.e)
+
+
+def decode_splits(slots: int, kv_heads: int, max_pages: int, page_size: int,
+                  sms: int) -> Tuple[int, int]:
+    """(splits, keys a split) of the decode grid (kv_heads, slots, splits),
+    from static shapes and the card's SM count only.  Each (slot, kv head)
+    splits its table's keys into whole 64-key tiles, as many splits as one
+    wave of ``sms`` blocks asks for, but no more than one a tile: at
+    qwen2-1.5B's serving shape (slots 8, Hkv 2, 64 pages of 16) 16 splits of
+    64 keys, 256 blocks on 132 SMs."""
+    tiles = max(1, -(-max_pages * page_size // SPLIT_KEYS))
+    want = -(-sms // max(1, slots * kv_heads))  # splits that fill one wave
+    per = max(1, tiles // want)  # tiles a split
+    return -(-tiles // per), per * SPLIT_KEYS
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def tensor_core_path(dtype: torch.dtype, head_dim: int, group: int) -> bool:
+    """Whether a launch scores on the tensor cores: bf16 at a head dim the
+    kernel is built for, with the GQA group in the block's 64 rows.  Slots,
+    pages and lengths do not matter."""
+    return (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+            and group <= TC_MAX_GROUP)
 
 
 def _require(cond: bool, msg: str):
@@ -69,15 +111,81 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    splits, split_keys = decode_splits(b, hkv, max_pages, page_size,
+                                       sm_count(q.device.index or 0))
+    _require(b <= 65535 and splits <= 65535, f"{b} slots x {splits} splits")
+    tc = tensor_core_path(q.dtype, d, hq // hkv)
     out = torch.empty_like(q)
+    # the partial states: O unnormalised, then m and l (fp32 scratch)
+    o_part = torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)
+    ml_part = torch.empty((2, b, hq, splits), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+            DTYPES[q.dtype], int(tc), q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), b, hq, hkv, d, page_size, max_pages, num_pages,
-            window if window is not None else 0, scale, stream,
+            out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), b, hq, hkv, d,
+            page_size, max_pages, num_pages, window if window is not None else 0,
+            splits, split_keys, scale, stream,
         )
     check(rc, "paged_attention")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return out
+
+
+def split_decode(q, k_pages, v_pages, block_tables, seq_lens, splits: int,
+                 split_keys: int, *, sm_scale: Optional[float] = None,
+                 window: Optional[int] = None, pair: bool = False,
+                 rescale: bool = True) -> torch.Tensor:
+    """The split kernel's arithmetic in plain PyTorch (a rehearsal, not a
+    path): each split folds its 64-key tiles of keys [s * split_keys, (s +
+    1) * split_keys) into an online softmax (fp32 scores scaled into the
+    log2 domain, exp2, the running max clamped at NEG_CLAMP) and leaves O,
+    m and l; the merge rescales the splits to their common max, sums them
+    and divides by max(l, 1e-30), rounding once.  ``pair`` multiplies P as
+    the tensor-core kernel's bf16 pair hi + lo; ``rescale=False`` is the
+    faulty merge that sums the splits as they stand."""
+    b, hq, d = q.shape
+    hkv, _, page_size, _ = k_pages.shape
+    group = hq // hkv
+    qscale = (sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)) * LOG2E
+    tables = block_tables.long()
+    k = k_pages[:, tables].transpose(0, 1).reshape(b, hkv, -1, d).float()
+    v = v_pages[:, tables].transpose(0, 1).reshape(b, hkv, -1, d).float()
+    n_keys = k.shape[2]
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.reshape(b, hkv, group, d).float(), k) * qscale
+    pos = torch.arange(n_keys, device=q.device)
+    lens = seq_lens.long()[:, None]
+    live = pos[None, :] < lens
+    if window is not None:
+        live = live & (pos[None, :] >= lens - window)
+    scores = scores.masked_fill(~live[:, None, None, :], float("-inf"))
+    states = []
+    for s in range(splits):
+        m = torch.full((b, hkv, group, 1), float("-inf"), device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros((b, hkv, group, d), device=q.device)
+        for t in range(s * split_keys, min((s + 1) * split_keys, n_keys), SPLIT_KEYS):
+            sc = scores[..., t:t + SPLIT_KEYS]
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            mc = m_new.clamp_min(NEG_CLAMP)
+            alpha, p = torch.exp2(m.clamp_min(NEG_CLAMP) - mc), torch.exp2(sc - mc)
+            vt = v[..., t:t + SPLIT_KEYS, :]
+            if pair:
+                hi = p.bfloat16().float()
+                pv = hi @ vt + (p - hi).bfloat16().float() @ vt
+            else:
+                pv = p @ vt
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + pv
+            m = m_new
+        states.append((o, m.clamp_min(NEG_CLAMP), l))
+    mx = torch.stack([m for _, m, _ in states]).amax(0)
+    out = torch.zeros_like(states[0][0])
+    den = torch.zeros_like(states[0][2])
+    for o, m, l in states:
+        w = torch.exp2(m - mx) if rescale else torch.ones_like(m)
+        out = out + w * o
+        den = den + w * l
+    return (out / den.clamp_min(1e-30)).reshape(b, hq, d).to(q.dtype)

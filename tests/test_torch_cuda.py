@@ -131,6 +131,51 @@ def test_cuda_prefill_tensor_core_edges(case):
                     assert torch.equal(pool_p[:, pg, of], new[bi, :, c])
 
 
+# the split decode's edges: lengths empty, one key, a 64-key tile's last key
+# and the next, inside the second split, windows past the start, a key short
+# of the table and the whole table (so splits past a short length are empty)
+SPLIT_LENS = [0, 1, 64, 65, 100, 700, 1023, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_split_decode_edges(dtype, d):
+    """On a card: the split decode (bf16 on the tensor cores, fp32 on CUDA
+    cores, one grid of 16 splits of 64 keys for any lengths) at pages of 8,
+    16 and 32, window None and 256, on SPLIT_LENS: within the limit of its
+    plain version, a len-0 slot emitting zeros; the merge without the rescale
+    fails the same limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    b, hq, hkv = len(SPLIT_LENS), 12, 2
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=dev)
+    for ps in (8, 16, 32):
+        mp = 1024 // ps
+        num_pages = b * mp + 1
+        tables = torch.as_tensor(_tables(np.random.default_rng(ps), b, mp, num_pages), device=dev)
+        g = torch.Generator(device=dev).manual_seed(ps)
+        rand = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)  # noqa: E731
+        q, kp, vp = rand(b, hq, d), rand(hkv, num_pages, ps, d), rand(hkv, num_pages, ps, d)
+        kp[:, 0] = float("nan")  # the reserved page, never in a table: never read
+        vp[:, 0] = float("nan")
+        splits, keys = PA.decode_splits(b, hkv, mp, ps, PA.sm_count(dev.index or 0))
+        for window in (None, 256):
+            n0, tc0 = PA.KERNEL.launches, PA.KERNEL.tc_launches
+            got = PA.paged_attention(q, kp, vp, tables, lens, window=window)
+            torch.cuda.synchronize()
+            assert (PA.KERNEL.launches, PA.KERNEL.tc_launches) == (
+                n0 + 1, tc0 + (dt == torch.bfloat16))
+            want = ref.paged_attention(q, kp, vp, tables, lens, window=window)
+            assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+            assert _within_limit(got, want), (ps, window)
+            faulty = PA.split_decode(q, kp, vp, tables, lens, splits, keys, window=window,
+                                     pair=dt == torch.bfloat16, rescale=False)
+            assert not _within_limit(faulty, want), (ps, window)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["int8", "int4"])
 def test_cuda_quant_kernels_match_plain_versions(fmt):
@@ -581,3 +626,34 @@ def test_cuda_mla_matches_plain_version(dtype):
             assert cs.lib_units(torch, got, want, 1.0) <= cs.BF16_ULPS, (b, h, hkv, s)
         else:
             assert _within_limit(got, want), (b, h, hkv, s)
+
+
+# the wgmma path's edges: M from its first row (17) to a multiple of the
+# 128-row tile and past it, N from one 8-column group to past a 256-column
+# tile, K from one 8-element group to a 64-element tile and a ragged 4104
+WGMMA_M, WGMMA_N, WGMMA_K = (17, 63, 64, 129, 4096), (8, 136, 264), (8, 72, 4104)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+                                    ("float16", "float16")], ids=str)
+def test_cuda_matmul_wgmma_edges(dtypes):
+    """On a card: every 16-bit shape with M >= 17 takes the wgmma path (one
+    ``tc_launches`` each) and lies within the limit of the plain version, for
+    every output type; M = 16 stays on mma.sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    dt, od = (getattr(torch, x) for x in dtypes)
+    for m in (16, *WGMMA_M):
+        for n in WGMMA_N:
+            for k in WGMMA_K:
+                a = torch.randn((m, k), generator=g, device=dev).to(dt)
+                b = torch.randn((k, n), generator=g, device=dev).to(dt)
+                tc0 = ops.KERNELS["matmul"].tc_launches
+                got = ops.matmul(a, b, out_dtype=od)
+                torch.cuda.synchronize()
+                assert ops.KERNELS["matmul"].tc_launches == tc0 + (m >= 17), (m, n, k)
+                want = ref.matmul(a, b, od)
+                assert _lib_within_limit(got, want, k ** 0.5), (m, n, k)
