@@ -27,8 +27,10 @@ no phase is skipped):
    and one rounding P once to bf16 must fail it); the split decode's merge
    without the rescale to the common max must fail it too (fp32 and bf16),
    and its grid (splits of 64 keys from static shapes) is printed; every
-   bf16 launch of the flash, fp chunked-prefill and fp decode kernels must
-   take their tensor-core path (``KERNEL.tc_launches``); time kernel, plain
+   bf16 launch of the flash, fp chunked-prefill and fp decode kernels, and
+   of the MLA chunked prefill and its quantized twin, must take their
+   tensor-core path (``KERNEL.tc_launches``); the tensor-core prefills'
+   device cost of a key tile is read from two walks; time kernel, plain
    version and, as a
    yardstick only, ``scaled_dot_product_attention`` over the gathered (for
    the quantized kernels: gathered and dequantized) pages.  The flash
@@ -87,7 +89,7 @@ freed; its serving depth cut to 14 of 27 layers to keep the script within
 half its time limit): the same workload in fp, int8 and int4
 latent pages and int8 with ``sync_every=16`` under the no-host-sync check
 (ticks and mean TTFT equal across the four, window outputs byte-identical
-to per-tick int8), and teacher-forced logits at depth 2 (the dense prefix
+to per-tick int8, every MLA chunked-prefill launch on tensor cores), and teacher-forced logits at depth 2 (the dense prefix
 layer and one MoE layer), with the share of MoE routing choices the card and
 the CPU make alike; the limits are qwen's, over the steps whose read token
 both route to the same experts (at least half of them);
@@ -672,11 +674,12 @@ def check_mla_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
     p1, p2 = [t.clone() for t in pools], [t.clone() for t in pools]
     run = lambda: kernel(q, qpe, *new, *p1, tables, st, ln, **kw)[0]  # noqa: E731
     plain_run = lambda: plain_fn(q, qpe, *new, *p2, tables, st, ln, **kw)[0]  # noqa: E731
-    before = mod.KERNEL.launches
+    before, tc_before = mod.KERNEL.launches, mod.KERNEL.tc_launches
     out, plain = run(), plain_run()
-    mod.KERNEL.launches = before
+    tc = mod.KERNEL.tc_launches - tc_before
+    mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
     assert torch.isfinite(out).all()
-    res = {"err": (out.float() - plain.float()).abs().max().item()}
+    res = {"err": (out.float() - plain.float()).abs().max().item(), "tc_launches": tc}
     # live positions hold the chunk's latent and rope rows (packed bytes and
     # both scales) on both paths; pages no chunk writes keep their contents
     check_pages(torch, tables, starts, lens, num_pages, (p1, p2), pools, new,
@@ -695,7 +698,7 @@ def check_mla_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
     if timed:
         res["ms"] = time_ms(torch, run, flush=flush)
         res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
-        mod.KERNEL.launches = before
+        mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
         _yardstick(torch, res, qall, kall.expand(-1, MLA_HEADS, -1, -1),
                    vall.expand(-1, MLA_HEADS, -1, -1), mask, flush)
         pairs, prior_rows = prefill_work(starts, lens, window)
@@ -827,6 +830,35 @@ def tile_cost(torch, PF, FA, flush, dev):
     (PF.KERNEL.launches, PF.KERNEL.tc_launches, FA.KERNEL.launches,
      FA.KERNEL.tc_launches) = before
     return out
+
+
+def mla_tile_cost(torch, MF, flush, dev):
+    """What one 32-key tile of the walk costs the tensor-core MLA prefill:
+    its launch at deepseek-v2-lite-16B's serving shape (bf16, slots 8,
+    chunk 64, 16 heads over R 512 + Dpe 64) with every slot's chunk live
+    and at the same start, 0 or 960 (0 or 30 prior tiles before its chunk
+    tiles: 2 for the longest block).  Returns (device us a tile, us of the
+    rest of the launch) from the two walks' times."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    max_pages = MAX_LEN // PAGE
+    num_pages = SLOTS * max_pages + 1
+    tables = (torch.randperm(num_pages - 1, device=dev, generator=g) + 1).int()
+    tables = tables.reshape(SLOTS, max_pages)
+    q, qpe = rand(SLOTS, MLA_HEADS, CHUNK, RANK), rand(SLOTS, MLA_HEADS, CHUNK, ROPE)
+    cn, pn = rand(SLOTS, CHUNK, RANK), rand(SLOTS, CHUNK, ROPE)
+    cp, pp = rand(num_pages, PAGE, RANK), rand(num_pages, PAGE, ROPE)
+    lens = torch.full((SLOTS,), CHUNK, dtype=torch.int32, device=dev)
+    before = (MF.KERNEL.launches, MF.KERNEL.tc_launches)
+    ms = []
+    for start in (0, MAX_LEN - CHUNK):
+        st = torch.full((SLOTS,), start, dtype=torch.int32, device=dev)
+        ms.append(time_ms(torch, lambda: MF.mla_prefill(  # noqa: B023
+            q, qpe, cn, pn, cp, pp, tables, st, lens, sm_scale=MLA_SCALE), flush=flush))
+    assert MF.KERNEL.tc_launches > before[1]
+    MF.KERNEL.launches, MF.KERNEL.tc_launches = before
+    per = (ms[1] - ms[0]) / ((MAX_LEN - CHUNK) // MF.TC_KEYS) * 1e3
+    return per, ms[0] * 1e3 - CHUNK // MF.TC_KEYS * per
 
 
 def decode_cost(torch, np, PA, flush, dev, calls=20):
@@ -1078,6 +1110,7 @@ def serve(torch, np, cfg, params, kernels, device, max_new=32, requests=16,
 
 FP_KERNELS = ("paged_attention", "prefill_attention")
 TC_KERNELS = ("prefill_attention", "paged_attention")  # all bf16 launches on tensor cores
+MLA_TC_KERNELS = ("mla_prefill", "mla_prefill_quant")  # the same at deepseek's widths
 QUANT_KERNELS = ("paged_attention_quant", "prefill_attention_quant")
 MLA_FP_KERNELS = ("mla_paged", "mla_prefill")
 MLA_QUANT_KERNELS = ("mla_paged_quant", "mla_prefill_quant")
@@ -1214,15 +1247,15 @@ def mla_serving_phase(torch, np, lm, cfg, params, kernels, device):
     are byte-identical to per-tick int8's with fewer host dispatches."""
     runs = {}
     run = make_runner(torch, np, cfg, params, kernels, device, runs)
-    fp, fp_reqs = run("fp", MLA_FP_KERNELS)
+    fp, fp_reqs = run("fp", MLA_FP_KERNELS, MLA_TC_KERNELS[:1])
     for fmt in ("int8", "int4"):
-        eng, reqs = run(fmt, MLA_QUANT_KERNELS, kv_dtype=fmt)
+        eng, reqs = run(fmt, MLA_QUANT_KERNELS, MLA_TC_KERNELS[1:], kv_dtype=fmt)
         log(f"[serve] {cfg.name} {fmt} vs fp: "
             f"{eng.cache.kv_bytes() / fp.cache.kv_bytes():.3f}x the KV bytes")
         assert eng.steps_run == fp.steps_run and mean_ttft(reqs) == mean_ttft(fp_reqs)
     q8, q8_reqs = runs["int8"][:2]
     with strict_windows(torch, lm, device):
-        win, win_reqs = run("int8, sync_every=16", MLA_QUANT_KERNELS,
+        win, win_reqs = run("int8, sync_every=16", MLA_QUANT_KERNELS, MLA_TC_KERNELS[1:],
                             kv_dtype="int8", sync_every=16)
     assert win.steps_run == fp.steps_run and mean_ttft(win_reqs) == mean_ttft(fp_reqs)
     assert win.decode_windows > 0 and win.dispatches < q8.dispatches
@@ -2123,7 +2156,8 @@ def kernel_phase(torch, np, ref, flush, device):
                         f"{r['err']:.3e}, {limit}")
                     if not kernel_ok(r):
                         raise AssertionError(f"{name} {fmt} disagrees with its plain version")
-                    if name in TC_KERNELS and dtype == torch.bfloat16 and r["tc_launches"] != 1:
+                    if (name in TC_KERNELS + MLA_TC_KERNELS and dtype == torch.bfloat16
+                            and r["tc_launches"] != 1):
                         raise AssertionError(f"{name} bf16 missed its tensor-core path")
                     if timed and fmt in (None, "int8"):
                         table[name] = r
@@ -2159,6 +2193,11 @@ def kernel_phase(torch, np, ref, flush, device):
         f"(slots {SLOTS}, chunk {CHUNK}: {HKV * (CHUNK // PAGE) * SLOTS} blocks of 2 key "
         f"groups), flash_attention {cost['flash'][0]:.2f}; {cost['flash'][1]:.2f} (B "
         f"{TRAIN_BATCH} x Hq {HQ} x 256 queries: {TRAIN_BATCH * HQ * 2} blocks)")
+    per, rest = mla_tile_cost(torch, MF, flush, device)
+    log("[kernel] tile cost (device us a 32-key tile of the walk; us of the rest of the "
+        f"launch): mla_prefill {per:.2f}; {rest:.2f} (slots {SLOTS}, chunk {CHUNK}, starts "
+        f"0 and {MAX_LEN - CHUNK}: {PAGE * MLA_HEADS // 64 * (CHUNK // PAGE) * SLOTS} blocks "
+        "of 16 warps)")
     cost = decode_cost(torch, np, PA, flush, device)
     log(f"[kernel] decode cost (device us a call, torch.profiler, {SLOTS * HKV} (slot, kv "
         f"head) pairs x {decode_grid(torch, PA, device)[0]} splits): split kernel "

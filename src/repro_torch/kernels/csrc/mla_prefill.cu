@@ -1,8 +1,7 @@
 // Multi-head latent attention (MLA) chunked prefill over the latent page
 // pools, with the chunk's latent and rope page writes done inside the kernel.
 //
-// Two entry points, one kernel body templated on the latent format
-// (attention_core.cuh):
+// Two entry points, one kernel body a path, templated on the latent format:
 //   * mla_prefill_launch replaces the TPU kernel repro/kernels/mla.py:180
 //     (mla_prefill_program): q_lat (B, H, C, R) absorbed chunk queries, q_pe
 //     (B, H, C, Dpe), ckv / kpe (B, C, R) / (B, C, Dpe) the chunk's own
@@ -13,46 +12,76 @@
 //   * mla_prefill_quant_launch replaces repro/kernels/mla.py:374
 //     (mla_prefill_quant_program): the chunk arrives quantized (ckv / kpe
 //     packed int8 / int4 (B, C, R / pack) / (B, C, Dpe / pack) plus a (B, C,
-//     1) scale each, of q's dtype), the prior pages are dequantized page by
-//     page, the chunk attends its own dequantized round trip (what later
+//     1) scale each, of q's dtype), the prior pages are dequantized on their
+//     way in, the chunk attends its own dequantized round trip (what later
 //     decode steps read back), and the packed bytes and both scales of each
 //     chunk page are written into the four pools together.
 //
 // Scores are q_lat.ckv + q_pe.kpe times the caller's sm_scale; V is the
 // latent, the first R columns of the shared [ckv | kpe] tile.
 //
-// Bound on the H100: at serving chunk sizes the kernel's FLOPs (2 * (2R +
-// Dpe) a query-key pair, 16 heads a position) outweigh its bytes (the chunk's
-// queries and outputs, the latent rows read once); this simple kernel scores
-// with CUDA cores, not tensor cores, so its arithmetic bounds it in practice.
+// Bound on the H100: operations.  At serving chunk sizes the FLOPs (2 (2R +
+// Dpe) a query-key pair, 16 heads a position) outweigh the bytes (the
+// chunk's queries and outputs, each latent row read once): at deepseek-v2-
+// lite-16B's serving shape (slots 8, chunk 64, 16 heads, R 512, Dpe 64,
+// prior contexts up to 960) about 5.5 us of bf16 tensor-core work.
 //
-// Design:
+// Both paths keep the TPU kernel's rules:
 //   * the TPU cell holds a whole chunk page of query rows (page_size * H =
-//     256 at full width, chunk-major: row i * H + h).  Here a block holds rb
-//     of those rows (32 at full width: two positions x 16 heads; fp32 Q,
-//     one key tile and the accumulator take 179 KB of shared memory, opted
-//     in with cudaFuncSetAttribute), so the grid is (page_size * H / rb,
-//     chunk pages, slots): 256 blocks at 8 slots and chunk 64;
-//   * prior context: pages [lo, ceil(starts / ps)) through the table, ragged
-//     on starts plus the banded window.  All blocks of a launch run at once,
-//     so the loop stops at ceil(starts / ps) and never reads a page another
-//     block of the launch writes (those sit at table index >= starts / ps);
-//   * the chunk itself: keys streamed from the ckv / kpe inputs in tiles of
-//     page_size rows, causal and ragged on lens, never read back through the
-//     pages being written;
+//     256 at full width), chunk-major: row i * H + h, position i past the
+//     page's first, head h.  The grid is (row blocks of a chunk page, chunk
+//     pages, slots);
+//   * prior context: pages [p_lo, ceil(starts / ps)) through the table,
+//     ragged on starts plus the banded window.  All blocks of a launch run
+//     at once, so the walk stops at ceil(starts / ps) and never reads a page
+//     another block of the launch writes (those sit at table index >=
+//     starts / ps);
+//   * the chunk itself: keys from the ckv / kpe inputs, causal and ragged on
+//     lens, never read back through the pages being written;
 //   * the first row block of each chunk page writes that page into the pools
 //     (exactly one writer a page).  A page with no live token goes to the
 //     reserved sink page 0, the table index is clamped to max_pages - 1
 //     (mla.py:286-297); several blocks may write page 0 at once, which is
 //     harmless because page 0 is never read for a live position.  Whole
 //     pages are written, dead rows of a partly live page included, where the
-//     plain path sends dead positions to page 0;
-//   * every tile is read with 16-byte vector loads into registers one tile
-//     ahead of the compute (attend_tiles).
+//     plain path sends dead positions to page 0.
+//
+// Two paths, chosen by the wrapper from dtype and shape alone
+// (mla_prefill.py, tensor_core_path):
+//   * tensor cores, bf16 at R 512 with R + Dpe a multiple of 64 and pages of
+//     1-32 positions (a power of two): mla_mma.cuh's step, the one FlashMLA
+//     (mla.cu) runs.  A block holds 64 chunk-major rows (4 positions x 16
+//     heads at full width) and 16 warps, so the grid is (4, 4, 8) = 128
+//     blocks, one wave on 132 SMs, and each 32-key tile (two pages of 16) is
+//     read from device memory once a block, by all 16 heads; scores on
+//     mma.sync in four column quarters, the fp32 online softmax, P.V as the
+//     pair hi + lo (1.00 bf16 ulp where P rounded once reads tens).  Tiles
+//     come through a ring of two stages of cp.async copies, one tile ahead:
+//     each key row finds its own page in the slot's table entries (copied
+//     into shared memory one tile ahead too, so no copy's address waits on a
+//     device-memory read) and writes its absolute position beside the tile,
+//     -1 for a dead row, which is zero-filled (0 * NaN never happens); one
+//     positional mask (causal, the window) then serves prior and chunk keys.
+//     Sixteen threads copy a key row, so each finds the row's page once a
+//     tile.  The quantized twin copies a tile's packed bytes into a staging
+//     tile (each scale into a register) and dequantizes it into the bf16
+//     tile in the step before its own, each value rounded once from code *
+//     scale in fp32, bit for bit the plain version's dequantize-then-round;
+//     each thread then starts the next tile's copies into the staging bytes
+//     it has just read, so they have a whole step to land.  198 KB of
+//     shared memory a block (217 KB quantized int8);
+//   * CUDA cores, fp32 and every other shape: attention_core.cuh's online
+//     softmax in fp32 shared memory.  A block holds rb of a chunk page's
+//     rows (32 at full width: fp32 Q, one key tile and the accumulator take
+//     179 KB of shared memory), and key tiles of page_size rows are read with
+//     16-byte vector loads into registers one tile ahead of the compute.
 
 #include "attention_core.cuh"
+#include "mla_mma.cuh"
 
 namespace {
+
+// ---- the CUDA-core path ---------------------------------------------------
 
 constexpr int kThreads = 256;
 
@@ -203,20 +232,311 @@ ac::QuantLatent<T, PACK> quant_latent(void* ckv, void* kpe, void* cs, void* rs,
   return {(int8_t*)ckv, (int8_t*)kpe, (T*)cs, (T*)rs, r, pe};
 }
 
+// ---- the tensor-core path ------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// The block's keys, in tiles of mm::KEYS: the prior positions [p_lo ps,
+// min(start, p_hi ps)) through the slot's table, then the chunk's own rows
+// [c_lo, c_hi).  Lives in shared memory: the loader reads it once a tile,
+// and the registers it would hold go to the accumulator.
+struct Walk {
+  const int* row;  // the slot's table row
+  long chunk0;     // the slot's first row of the chunk inputs
+  int ps_log2, p_lo, p_hi, start, len, num_pages, n_prior, c_lo, c_hi;
+  int q0, r0, heads, window;  // block row r sits at position q0 + (r0 + r) / heads
+
+  __device__ int tiles() const {
+    return n_prior + (c_hi > c_lo ? (c_hi - c_lo + mm::KEYS - 1) / mm::KEYS : 0);
+  }
+  // Key row r of tile u: its row of the pools (prior) or of the chunk
+  // inputs, and its absolute position; false for a dead row.  `tab` holds
+  // tile u's table entries.
+  __device__ bool key(const int* tab, int u, int r, long& at, bool& prior, int& pos) const {
+    if (u < n_prior) {
+      const int k = (p_lo << ps_log2) + u * mm::KEYS + r;
+      if (k >= start || (k >> ps_log2) >= p_hi) return false;
+      const int page = tab[r >> ps_log2];
+      if (page < 0 || page >= num_pages) return false;
+      at = ((long)page << ps_log2) + (k & ((1 << ps_log2) - 1));
+      prior = true;
+      pos = k;
+      return true;
+    }
+    const int kj = c_lo + (u - n_prior) * mm::KEYS + r;
+    if (kj >= c_hi) return false;
+    at = chunk0 + kj;
+    prior = false;
+    pos = start + kj;
+    return true;
+  }
+};
+
+// One 16-byte vector of codes (16 int8 or 32 int4, low nibble first)
+// dequantized to bf16 at o: each value rounded once from code * scale in
+// fp32, as the plain version's dequantize_rows(...).to(bfloat16).  A code
+// becomes a float without the conversion unit: code + 128 (+ 8 for int4),
+// an unsigned byte, goes into the low mantissa bits of 2^23, and a
+// subtraction leaves the code exactly; the product with a bf16 scale (8
+// significant bits each) is exact in fp32, so one rounding follows, two
+// values to an instruction.
+template <int PACK>
+__device__ __forceinline__ void dequant(bf16* o, const uint4& x, float s) {
+  constexpr uint32_t TWO23 = 0x4B000000u;  // 2^23 as a float's bits
+  constexpr float BIAS = 8388608.f + (PACK == 1 ? 128.f : 8.f);
+  auto code = [&](uint32_t u, int k) {  // byte k of u, biased, as code * s
+    return (__uint_as_float(__byte_perm(u, TWO23, 0x7650 + k)) - BIAS) * s;
+  };
+  auto pair = [](float a, float b) {  // a at the lower address
+    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&h);
+  };
+  uint4* dst = reinterpret_cast<uint4*>(o);
+  if constexpr (PACK == 1) {  // byte k of word i: value 4 i + k
+    const uint32_t w[4] = {x.x ^ 0x80808080u, x.y ^ 0x80808080u, x.z ^ 0x80808080u,
+                           x.w ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 4; i += 2)
+      dst[i / 2] = make_uint4(pair(code(w[i], 0), code(w[i], 1)), pair(code(w[i], 2), code(w[i], 3)),
+                              pair(code(w[i + 1], 0), code(w[i + 1], 1)),
+                              pair(code(w[i + 1], 2), code(w[i + 1], 3)));
+  } else {  // byte k of word i: values 2 (4 i + k) (low nibble) and the next
+#pragma unroll 1  // 32 values a vector: unrolled, their temporaries would spill
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t wi = i < 2 ? (i == 0 ? x.x : x.y) : (i == 2 ? x.z : x.w);
+      const uint32_t lo = (wi & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const uint32_t hi = ((wi >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      dst[i] = make_uint4(pair(code(lo, 0), code(hi, 0)), pair(code(lo, 1), code(hi, 1)),
+                          pair(code(lo, 2), code(hi, 2)), pair(code(lo, 3), code(hi, 3)));
+    }
+  }
+}
+
+// A 16-bit load issued where it stands (volatile: not sunk towards its use).
+__device__ __forceinline__ uint32_t ldg_u16(const void* p) {
+  uint32_t x;
+  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=r"(x) : "l"(p));
+  return x;
+}
+
+// Loads tile u of the walk into stage `stage`: rows of [latent | rope], bf16
+// copied straight into the tile (PACK 0; Lat = FpLatent) at the top of the
+// step before tile u's, or packed int8 (PACK 1) / int4 (PACK 2) bytes
+// copied into a staging tile, each row's two scales held in registers
+// (Lat = QuantLatent).  The staged tile is dequantized into the bf16 tile
+// at the end of the step before its own, after that step's P.V (so one
+// warp's conversion overlaps another's products), and each thread then
+// starts the next tile's copies into the staging bytes it has just read:
+// they have a whole step to land.  Rows of pool and chunk differ only in
+// their base.  Sixteen threads a key row: each finds its row's source once
+// a tile and copies (and converts) every sixteenth 16-byte vector of it.
+template <int PACK, typename Lat>
+struct WalkLoad {
+  static_assert(mm::KEYS * 16 == mm::THREADS, "sixteen threads a key row");
+  const Walk& w;
+  const mm::Smem<bf16>& sm;
+  Lat pool, fresh;  // the pools and the chunk inputs
+  int* tab;         // two slots of mm::KEYS table entries
+  int* kpos;        // two slots of mm::KEYS key positions
+  float* scl;       // the staged tile's scales: latent, then rope
+  int8_t* pk;       // the staged packed tile
+  int ks;
+  uint32_t s_bits = 0;  // the first two threads of a row: a scale of the tile in flight
+
+  __device__ int latent_bytes() const { return PACK ? mm::D / PACK : mm::D * 2; }
+  __device__ int rope_bytes() const { return PACK ? pool.pe / PACK : pool.pe * 2; }
+
+  // Tile u's table entries into slot u % 2 (one copy a page).
+  __device__ void entries(int u) const {
+    if (u >= w.n_prior) return;
+    const int ppt = mm::KEYS >> w.ps_log2, idx = w.p_lo + u * ppt + threadIdx.x;
+    if ((int)threadIdx.x < ppt)
+      gc::cp_async<4>(tab + (u & 1) * mm::KEYS + threadIdx.x, w.row + (idx < w.p_hi ? idx : 0),
+                      idx < w.p_hi);
+  }
+
+  __device__ void issue(int u, int stage) {
+    if (PACK == 0 || u == 0) copy(u, stage);  // quantized: convert() starts the rest
+  }
+
+  __device__ void copy(int u, int stage) {
+    entries(u + 1);
+    const int r = threadIdx.x >> 4, part = threadIdx.x & 15;
+    const int cb = latent_bytes(), pb = rope_bytes();
+    long at = 0;
+    bool prior = false;
+    int pos = -1;
+    const bool live = w.key(tab + (u & 1) * mm::KEYS, u, r, at, prior, pos);
+    // selects of the two bases (a reference to either struct would put both
+    // in local memory)
+    const char* lat = reinterpret_cast<const char*>(prior ? pool.ckv : fresh.ckv) + at * cb;
+    const char* rope = reinterpret_cast<const char*>(prior ? pool.kpe : fresh.kpe) + at * pb;
+    const char* any = reinterpret_cast<const char*>(pool.ckv);
+    char* dst = PACK ? reinterpret_cast<char*>(pk) + r * (cb + pb)
+                     : reinterpret_cast<char*>(sm.kt(stage) + r * ks);
+    for (int v = part * 16; v < cb + pb; v += 256)
+      gc::cp_async<16>(dst + v, live ? (v < cb ? lat + v : rope + (v - cb)) : any, live);
+    if (part == 0) kpos[stage * mm::KEYS + r] = live ? pos : -1;
+    if constexpr (PACK > 0) {
+      const bf16* scales = part ? (prior ? pool.rs : fresh.rs) : (prior ? pool.cs : fresh.cs);
+      if (part < 2) s_bits = live ? ldg_u16(scales + at) : 0u;
+    }
+  }
+
+  __device__ void landed(bool more) {
+    if constexpr (PACK > 0) {
+      if (!more) return;
+      gc::cp_async_wait<0>();
+      const int r = threadIdx.x >> 4, part = threadIdx.x & 15;
+      if (part < 2)
+        scl[part * mm::KEYS + r] = __bfloat162float(__ushort_as_bfloat16((unsigned short)s_bits));
+    }
+  }
+
+  // The staged tile u into stage u % 2, then tile u + 1's copies into the
+  // same staging bytes (each thread's own: no barrier between).
+  __device__ void convert(int u) {
+    if constexpr (PACK > 0) {
+      const int r = threadIdx.x >> 4, part = threadIdx.x & 15;
+      const int cb = latent_bytes(), pb = rope_bytes();
+      const float s_lat = scl[r], s_rope = scl[mm::KEYS + r];
+      const int8_t* src = pk + r * (cb + pb);
+      bf16* dst = sm.kt(u & 1) + r * ks;
+      for (int v = part * 16; v < cb + pb; v += 256) {
+        const uint4 x = *reinterpret_cast<const uint4*>(src + v);
+        if (v < cb)
+          dequant<PACK>(dst + v * PACK, x, s_lat);
+        else
+          dequant<PACK>(dst + mm::D + (v - cb) * PACK, x, s_rope);
+      }
+      if (u + 1 < w.tiles()) copy(u + 1, (u + 1) & 1);
+    }
+  }
+
+  __device__ void first() {
+    if constexpr (PACK > 0) {
+      landed(true);
+      __syncthreads();
+      convert(0);
+    }
+  }
+};
+
+template <int PACK, typename Lat>
+__global__ void __launch_bounds__(mm::THREADS, 1)
+mla_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ q_pe, Lat chunk_kv,
+                      Lat pools, const int* __restrict__ tables, const int* __restrict__ starts,
+                      const int* __restrict__ lens, bf16* __restrict__ out, int heads, int chunk,
+                      int ps, int max_pages, int num_pages, int window, float qscale) {
+  const int sub = blockIdx.x;  // row block within the chunk page
+  const int bq = blockIdx.y;   // chunk page
+  const int b = blockIdx.z;    // slot
+  const int dk = mm::D + pools.pe, ks = dk + 8;
+  extern __shared__ float4 smem4[];
+  const mm::Smem<bf16> sm(smem4, ks);
+  int* tab = reinterpret_cast<int*>(sm.end());
+  int* kpos = tab + 2 * mm::KEYS;
+  float* scl = reinterpret_cast<float*>(kpos + 2 * mm::KEYS);
+  int8_t* pk = reinterpret_cast<int8_t*>(scl + 2 * mm::KEYS);
+  __shared__ Walk w;
+
+  const int r0 = sub * mm::ROWS, rows = min(mm::ROWS, ps * heads - r0);
+  const int i_first = bq * ps;  // first in-chunk position of the chunk page
+  if (threadIdx.x == 0) {
+    const int start = starts[b], len = lens[b];
+    const int i_lo = i_first + r0 / heads, i_hi = i_first + (r0 + rows - 1) / heads;
+    const int p_hi = min((start + ps - 1) / ps, max_pages);
+    const int p_lo = window > 0 ? max(0, start + i_lo - window + 1) / ps : 0;
+    const int n_prior = p_hi > p_lo ? ((p_hi - p_lo) * ps + mm::KEYS - 1) / mm::KEYS : 0;
+    w = {tables + (long)b * max_pages, (long)b * chunk, __ffs(ps) - 1, p_lo, p_hi, start, len,
+         num_pages, n_prior, window > 0 ? max(0, i_lo - window + 1) : 0, min(i_hi + 1, len),
+         start + i_first, r0, heads, window};
+  }
+  __syncthreads();
+
+  WalkLoad<PACK, Lat> ld{w, sm, pools, chunk_kv, tab, kpos, scl, pk, ks};
+  ld.entries(0);
+  gc::cp_async_commit();
+  // block row r: chunk-major row r0 + r of the chunk page, head (r0 + r) %
+  // heads at position i_first + (r0 + r) / heads, in the (B, H, C, .) rows
+  auto row_at = [&](int r) {
+    const int g = r0 + r;
+    return r < rows ? ((long)b * heads + g % heads) * chunk + i_first + g / heads : -1L;
+  };
+  mm::load_q(sm, ks, q, q_pe, pools.pe, row_at);  // committed with tile 0
+  gc::cp_async_wait<0>();  // the entries (Q's copies are not committed yet)
+  __syncthreads();
+  auto live = [&](int t, int r, int j) {  // causal, and the window, by position
+    const int kp = kpos[(t & 1) * mm::KEYS + j], qp = w.q0 + (w.r0 + r) / w.heads;
+    return kp >= 0 && kp <= qp && (w.window <= 0 || qp - kp < w.window);
+  };
+  mm::Acc o;
+  mm::attend(sm, o, w.tiles(), dk, ks, ld, live, qscale);
+  mm::store(o, out, row_at);
+
+  // ---- the paged write: the chunk page, by its first row block -----------
+  if (sub != 0) return;
+  const int tidx = min(w.start / ps + bq, max_pages - 1);
+  const int dst = i_first < w.len ? w.row[tidx] : 0;
+  if (dst < 0 || dst >= num_pages) return;  // dropped, like XLA's scatter
+  chunk_kv.rows(w.chunk0 + i_first).copy_rows(pools.rows((long)dst * ps), ps);
+}
+
+// Whether the tensor-core kernel takes these shapes (mla_prefill.py's
+// tensor_core_path, plus the grid's limits).
+inline bool tc_shapes_ok(int slots, int heads, int chunk, int r, int pe, int ps) {
+  return r == mm::D && pe > 0 && (r + pe) % 64 == 0 && ps >= 1 && ps <= mm::KEYS &&
+         (ps & (ps - 1)) == 0 && chunk % ps == 0 && heads >= 1 && slots >= 1 &&
+         slots <= 65535 && chunk / ps <= 65535;
+}
+
+template <int PACK, typename Lat>
+int launch_tc(const void* q, const void* q_pe, Lat chunk_kv, Lat pools, const void* tables,
+              const void* starts, const void* lens, void* out, int slots, int heads, int chunk,
+              int ps, int max_pages, int num_pages, int window, float sm_scale,
+              cudaStream_t stream) {
+  if (!tc_shapes_ok(slots, heads, chunk, pools.r, pools.pe, ps))
+    return (int)cudaErrorInvalidValue;
+  const int ks = mm::D + pools.pe + 8;
+  // the step's, then table entries, key positions, scales and the staging tile
+  const size_t smem = mm::Smem<bf16>::bytes(ks) + sizeof(int) * 6 * mm::KEYS +
+                      (PACK ? (size_t)mm::KEYS * (mm::D + pools.pe) / PACK : 0);
+  auto kernel = mla_prefill_tc_kernel<PACK, Lat>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((ps * heads + mm::ROWS - 1) / mm::ROWS, chunk / ps, slots);
+  kernel<<<grid, mm::THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)q_pe, chunk_kv, pools, (const int*)tables, (const int*)starts,
+      (const int*)lens, (bf16*)out, heads, chunk, ps, max_pages, num_pages, window,
+      sm_scale * ac::LOG2E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
-// rb query rows a block, dividing page_size * heads.  Needs chunk % page_size
-// == 0, page_size a power of two <= 32, R and Dpe multiples of 16 bytes'
-// worth of elements, and 16-byte aligned tensors.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for shapes it does not take.
+// tc 1 takes the tensor-core kernel (bfloat16, R 512 with R + Dpe a
+// multiple of 64; rb unused), tc 0 the CUDA-core kernel with rb query rows
+// a block, dividing page_size * heads.  Needs chunk % page_size == 0,
+// page_size a power of two <= 32, R and Dpe multiples of 16 bytes' worth of
+// elements, and 16-byte aligned tensors.  Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for shapes it does not take.
 extern "C" int mla_prefill_launch(
-    int dtype, const void* q, const void* q_pe, void* ckv, void* kpe,
+    int dtype, int tc, const void* q, const void* q_pe, void* ckv, void* kpe,
     void* ckv_pages, void* kpe_pages, const void* tables, const void* starts,
     const void* lens, void* out, int slots, int heads, int chunk, int r,
     int pe, int ps, int rb, int max_pages, int num_pages, int window,
     float sm_scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (tc) {
+    using B = __nv_bfloat16;
+    using F = ac::FpLatent<B>;
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_tc<0>(q, q_pe, F{(B*)ckv, (B*)kpe, r, pe},
+                        F{(B*)ckv_pages, (B*)kpe_pages, r, pe}, tables, starts, lens, out,
+                        slots, heads, chunk, ps, max_pages, num_pages, window, sm_scale, s);
+  }
   if (dtype == 0) {
     using F = ac::FpLatent<float>;
     return launch(q, q_pe, F{(float*)ckv, (float*)kpe, r, pe},
@@ -236,16 +556,27 @@ extern "C" int mla_prefill_launch(
 }
 
 // The quantized twin: pack 1 = int8, 2 = int4; the chunk's scales and the
-// scale pools are of q's dtype.  Needs R / pack and Dpe / pack multiples of
-// 16 bytes.
+// scale pools are of q's dtype; tc as above.  Needs R / pack and Dpe / pack
+// multiples of 16 bytes.
 extern "C" int mla_prefill_quant_launch(
-    int dtype, int pack, const void* q, const void* q_pe, void* ckv, void* kpe,
+    int dtype, int tc, int pack, const void* q, const void* q_pe, void* ckv, void* kpe,
     void* ckv_scale, void* kpe_scale, void* ckv_pages, void* kpe_pages,
     void* ckv_scales, void* kpe_scales, const void* tables, const void* starts,
     const void* lens, void* out, int slots, int heads, int chunk, int r,
     int pe, int ps, int rb, int max_pages, int num_pages, int window,
     float sm_scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+#define MLA_PF_QUANT_TC(P)                                                                   \
+  return launch_tc<P>(q, q_pe, quant_latent<__nv_bfloat16, P>(ckv, kpe, ckv_scale, kpe_scale, \
+                                                              r, pe),                        \
+                      quant_latent<__nv_bfloat16, P>(ckv_pages, kpe_pages, ckv_scales,       \
+                                                     kpe_scales, r, pe),                     \
+                      tables, starts, lens, out, slots, heads, chunk, ps, max_pages,         \
+                      num_pages, window, sm_scale, s)
+  if (tc && dtype == 1 && pack == 1) MLA_PF_QUANT_TC(1);
+  if (tc && dtype == 1 && pack == 2) MLA_PF_QUANT_TC(2);
+#undef MLA_PF_QUANT_TC
+  if (tc) return (int)cudaErrorInvalidValue;
 #define MLA_PF_QUANT(T, P)                                                     \
   return launch(q, q_pe, quant_latent<T, P>(ckv, kpe, ckv_scale, kpe_scale, r, pe), \
                 quant_latent<T, P>(ckv_pages, kpe_pages, ckv_scales, kpe_scales, \

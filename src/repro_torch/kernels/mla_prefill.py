@@ -8,6 +8,12 @@ rope rows are written into the pools **in place** from inside the kernel.
 The plain version is ``ref.paged_mla_prefill``; this wrapper takes it for
 CPU tensors only.  For a CUDA tensor it launches the kernel or raises.
 
+The kernel has two paths, picked from dtype and shape alone
+(:func:`tensor_core_path`): bf16 at a latent width of 512 (deepseek-v2-lite-
+16B's serving shape) runs on the tensor cores, 64 query rows a block
+(``KERNEL.tc_launches`` counts those launches); fp32 and every other shape
+run on CUDA cores, :func:`row_block` rows a block.
+
 The kernel contract is the TPU kernel's: ``chunk % page_size == 0``,
 ``chunk // page_size <= max_pages``, page-aligned starts and zeroed pools;
 past a slot's live length it writes whole pages, where the plain version
@@ -30,13 +36,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
     "mla_prefill", "mla_prefill_launch",
-    [_I] + [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P],
+    [_I, _I] + [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P],
     replaces="src/repro/kernels/mla.py:180",
 )
-# query rows a prefill block holds (chunk-major: position x head): 32 at full
-# width, two positions of 16 heads, keeps Q, one key tile and the fp32
+# query rows a CUDA-core block holds (chunk-major: position x head): 32 at
+# full width, two positions of 16 heads, keeps Q, one key tile and the fp32
 # accumulator within a block's shared memory
 MAX_ROW_BLOCK = 32
+TC_RANK = 512  # the latent width the tensor-core kernel is built for
+TC_KEYS = 32  # keys a tile there: pages nest in it
+
+
+def tensor_core_path(dtype: torch.dtype, r: int, pe: int, page_size: int) -> bool:
+    """Whether a launch (of either entry point) takes the tensor-core kernel:
+    bf16 at latent width 512 with R + Dpe a multiple of 64 (four column
+    quarters of 16-wide steps), and pages of 1 to 32 positions, a power of
+    two, that nest in its 32-key tiles.  Heads, slots, chunk, starts and
+    lengths do not matter."""
+    return (dtype == torch.bfloat16 and r == TC_RANK and pe > 0
+            and (r + pe) % 64 == 0 and 1 <= page_size <= TC_KEYS
+            and page_size & (page_size - 1) == 0)
 
 
 def row_block(page_size: int, heads: int) -> int:
@@ -108,10 +127,11 @@ def mla_prefill(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
     q, qp, (tables, starts, lens), out = launch_args(
         q_lat, q_pe, block_tables, start_lens, chunk_lens)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(r + pe)
+    tc = tensor_core_path(q.dtype, r, pe, page_size)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], q.data_ptr(), qp.data_ptr(), ckv.data_ptr(),
+            DTYPES[q.dtype], int(tc), q.data_ptr(), qp.data_ptr(), ckv.data_ptr(),
             kpe.data_ptr(), ckv_pages.data_ptr(), kpe_pages.data_ptr(),
             tables.data_ptr(), starts.data_ptr(), lens.data_ptr(),
             out.data_ptr(), b, h, chunk, r, pe, page_size,
@@ -119,4 +139,5 @@ def mla_prefill(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
             window if window is not None else 0, scale, stream)
     check(rc, "mla_prefill")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return out, ckv_pages, kpe_pages

@@ -11,7 +11,10 @@ into the four pools **in place** through the block table.  The plain
 version is ``ref.paged_mla_prefill_quant``; this wrapper takes it for CPU
 tensors only.  For a CUDA tensor it launches the kernel or raises.
 
-The kernel contract is ``mla_prefill.py``'s.
+The kernel's paths (bf16 at latent width 512 on the tensor cores, the
+prior pages and the chunk dequantized into the bf16 key tile on their way
+in, ``KERNEL.tc_launches`` counting them; the rest on CUDA cores) and its
+contract are ``mla_prefill.py``'s.
 """
 from __future__ import annotations
 
@@ -24,14 +27,14 @@ import torch
 from . import ref
 from .build import Kernel, check
 from .mla_paged import check_latent, requirer
-from .mla_prefill import check_chunk, launch_args, row_block
+from .mla_prefill import check_chunk, launch_args, row_block, tensor_core_path
 from .paged_attention import DTYPES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
     "mla_prefill_quant", "mla_prefill_quant_launch",
-    [_I, _I] + [_P] * 14 + [_I] * 10 + [ctypes.c_float, _P],
+    [_I, _I, _I] + [_P] * 14 + [_I] * 10 + [ctypes.c_float, _P],
     replaces="src/repro/kernels/mla.py:374",
     source="mla_prefill",
 )
@@ -88,10 +91,11 @@ def mla_prefill_quant(q_lat, q_pe, ckv_q, kpe_q, ckv_s, kpe_s, ckv_pages,
     q, qp, (tables, starts, lens), out = launch_args(
         q_lat, q_pe, block_tables, start_lens, chunk_lens)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(r + pe)
+    tc = tensor_core_path(q.dtype, r, pe, page_size)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], pack, q.data_ptr(), qp.data_ptr(),
+            DTYPES[q.dtype], int(tc), pack, q.data_ptr(), qp.data_ptr(),
             *(t.data_ptr() for t in new), ckv_pages.data_ptr(),
             kpe_pages.data_ptr(), ckv_scales.data_ptr(), kpe_scales.data_ptr(),
             tables.data_ptr(), starts.data_ptr(), lens.data_ptr(),
@@ -100,4 +104,5 @@ def mla_prefill_quant(q_lat, q_pe, ckv_q, kpe_q, ckv_s, kpe_s, ckv_pages,
             window if window is not None else 0, scale, stream)
     check(rc, "mla_prefill_quant")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return out, ckv_pages, kpe_pages, ckv_scales, kpe_scales

@@ -299,10 +299,11 @@ def _mla_prefill_case(fmt):
             p1 = [t.clone() for t in x["pools"]]
             p2 = [t.clone() for t in x["pools"]]
             args = (x["tables"], x["starts"], x["clens"])
-            n0 = mod.KERNEL.launches
+            n0, tc0 = mod.KERNEL.launches, mod.KERNEL.tc_launches
             out = kernel(x["qc"], x["qpec"], *x["new"], *p1, *args,
                          sm_scale=MLA_SCALE, window=window, **kw)[0]
             assert mod.KERNEL.launches == n0 + 1
+            assert mod.KERNEL.tc_launches == tc0 + (dtype == torch.bfloat16)
             plain = plain_fn(x["qc"], x["qpec"], *x["new"], *p2, *args,
                              sm_scale=MLA_SCALE, window=window, **kw)[0]
             assert _within_limit(out, plain)
@@ -313,6 +314,64 @@ def _mla_prefill_case(fmt):
                     for pool_k, pool_p, new in zip(p1, p2, x["new"]):
                         assert torch.equal(pool_k[pg, of], new[bi, c])
                         assert torch.equal(pool_p[pg, of], new[bi, c])
+
+
+# (page_size, fmt): pages of 16 (4 row blocks of 64 a chunk page), 8 (2),
+# 32 (8) and 1 (one block of 16 live rows and 48 dead ones), fp and both
+# quantized formats
+MLA_PREFILL_TC = [(ps, fmt) for ps in (1, 8, 16, 32) for fmt in (None, "int8", "int4")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,fmt", MLA_PREFILL_TC, ids=[str(c) for c in MLA_PREFILL_TC])
+def test_cuda_mla_prefill_tensor_core_edges(ps, fmt):
+    """On a card: bf16 MLA chunked prefill (and its quantized twin) at
+    deepseek-v2-lite-16B's widths takes the tensor-core path, one
+    tensor-core launch each, with a one-token chunk, an idle (len-0) slot, a
+    partial chunk and a chunk whose pages reach the last table entry, with
+    and without window 96: within two bf16 ulps of the plain version, and
+    both write the chunk's rows (packed bytes and both scales) at every live
+    position, byte for byte."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    m = MLA
+    dev = torch.device("cuda")
+    b, mp, chunk = m["b"], 128 // ps, m["chunk"]
+    num_pages = b * mp + 1
+    tables = torch.as_tensor(_tables(np.random.default_rng(12), b, mp, num_pages), device=dev)
+    starts = torch.tensor([0, 16, 48, 96], dtype=torch.int32, device=dev) // ps * ps
+    clens = torch.tensor([1, 0, 19, 32], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+
+    def latent(*lead):
+        ckv, kpe = rand(*lead, m["r"]), rand(*lead, m["pe"])
+        if fmt is None:
+            return [ckv, kpe]
+        (cq, cs_), (pq, ps_) = ref.quantize_rows(ckv, fmt), ref.quantize_rows(kpe, fmt)
+        return [cq, pq, cs_, ps_]
+
+    qc, qpec = rand(b, m["h"], chunk, m["r"]), rand(b, m["h"], chunk, m["pe"])
+    new, pools = latent(b, chunk), latent(num_pages, ps)
+    mod, kernel, plain_fn = ((MF, MF.mla_prefill, ref.paged_mla_prefill) if fmt is None else
+                             (MFQ, MFQ.mla_prefill_quant, ref.paged_mla_prefill_quant))
+    kw = {} if fmt is None else {"fmt": fmt}
+    tb = tables.cpu().numpy()
+    for window in (None, 96):
+        p1, p2 = [t.clone() for t in pools], [t.clone() for t in pools]
+        n0, tc0 = mod.KERNEL.launches, mod.KERNEL.tc_launches
+        out = kernel(qc, qpec, *new, *p1, tables, starts, clens, sm_scale=MLA_SCALE,
+                     window=window, **kw)[0]
+        assert (mod.KERNEL.launches, mod.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
+        plain = plain_fn(qc, qpec, *new, *p2, tables, starts, clens, sm_scale=MLA_SCALE,
+                         window=window, **kw)[0]
+        assert torch.isfinite(out).all() and _within_limit(out, plain)
+        for bi, (s0, n) in enumerate(zip(starts.tolist(), clens.tolist())):
+            for c in range(n):
+                pg, of = int(tb[bi, (s0 + c) // ps]), (s0 + c) % ps
+                for pool_k, pool_p, rows in zip(p1, p2, new):
+                    assert torch.equal(pool_k[pg, of], rows[bi, c])
+                    assert torch.equal(pool_p[pg, of], rows[bi, c])
 
 
 @pytest.mark.cuda
