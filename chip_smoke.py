@@ -27,11 +27,13 @@ no phase is skipped):
    and one rounding P once to bf16 must fail it); the split decode's merge
    without the rescale to the common max must fail it too (fp32 and bf16),
    and its grid (splits of 64 keys from static shapes) is printed; every
-   bf16 launch of the flash, fp chunked-prefill and fp decode kernels, and
-   of the MLA chunked prefill and its quantized twin, must take their
-   tensor-core path (``KERNEL.tc_launches``); the tensor-core prefills'
-   device cost of a key tile is read from two walks; time kernel, plain
-   version and, as a
+   bf16 launch of the flash, fp and quantized GQA chunked-prefill and fp
+   decode kernels, and of the MLA chunked prefill and its quantized twin,
+   must take their tensor-core path (``KERNEL.tc_launches``); the
+   tensor-core prefills' device cost of a key tile is read from two walks
+   (the quantized GQA prefill's in int8), and the tensor-core chunk_scan's
+   cost a head of a block's walk from launches of 80 and 40 heads; time
+   kernel, plain version and, as a
    yardstick only, ``scaled_dot_product_attention`` over the gathered (for
    the quantized kernels: gathered and dequantized) pages.  The flash
    kernel is held at qwen2-1.5B's training shapes (batch 8 x seq 1024,
@@ -42,8 +44,11 @@ no phase is skipped):
    seeded full-width mamba2-2.7B layer at its training shapes (batch 8 x
    seq 1024: deep decay, exp(dA) denormal), the same shapes with shallow
    decay, hymba-1.5B's N 16 / P 50 and a chunk of 64, bf16 and fp32 (fp32
-   within 1e-4 of max(1, max |plain|), bf16 within 2 ulps); a growing-dA
-   case is gated in fp32 and printed in bf16; timed beside the bf16 cuBLAS
+   within 1e-4 of max(1, max |plain|), bf16 within 2 ulps, the scan's
+   control with its decayed scores rounded once to bf16 outside them); a
+   growing-dA case is gated in fp32 and printed in bf16; every bf16
+   chunk_scan launch at mamba2's shapes must take its tensor-core path,
+   hymba's and fp32 its CUDA-core one; timed beside the bf16 cuBLAS
    products their work reduces to, as a yardstick.  Then the kernel
    library, driven through ``kernels.ops`` at the paper's kernel
    experiments' full-width shapes (its path: the three kernels' launches are
@@ -76,8 +81,9 @@ no phase is skipped):
    the multi-step window ``sync_every=16`` (outputs byte-identical to per-tick
    int8, fewer host dispatches, and no host sync inside a window).  Each run
    resets the kernels' launch counts before it and reads them after; in the
-   fp runs every launch of the decode and chunked-prefill kernels must have
-   taken their tensor-core paths;
+   fp runs every launch of the decode and chunked-prefill kernels, in the
+   four quantized runs every launch of the quantized chunked prefill, must
+   have taken their tensor-core paths;
 4. teacher-forced logits at full width, depth cut to 4 layers: the card's
    bf16 kernel path against the plain path in fp32 on the CPU (error in
    standard deviations of the logits, top-10 and argmax agreement), for fp
@@ -107,7 +113,8 @@ both route to the same experts (at least half of them);
    (at least one restart, the last step reached, a finite loss);
 6. full-width mamba2-2.7B (64 layers, d 2560, 80 SSM heads of P 64, state
    128, bf16 with fp32 a_log/d_skip/dt_bias): train it as phase 5 (128
-   launches of each SSD kernel a step), with its depth-2 check against the
+   launches of each SSD kernel a step, every chunk_scan launch on tensor
+   cores), with its depth-2 check against the
    CPU's fp32, the card's plain SSD and three planted SSD faults (scan
    without the causal mask, carried state dropped, state decay from the
    first row) that must fail the limits; forward (the kernels) against
@@ -861,6 +868,63 @@ def mla_tile_cost(torch, MF, flush, dev):
     return per, ms[0] * 1e3 - CHUNK // MF.TC_KEYS * per
 
 
+def quant_tile_cost(torch, ref, PFQ, flush, dev, fmt="int8"):
+    """tile_cost's prefill reading for the quantized twin's tensor-core
+    path: the same launches with the pools and the chunk quantized (int8),
+    starts 0 and 960.  Returns (device us a 64-key tile, us of the rest of
+    the launch)."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    max_pages = MAX_LEN // PAGE
+    num_pages = SLOTS * max_pages + 1
+    tables = (torch.randperm(num_pages - 1, device=dev, generator=g) + 1).int()
+    tables = tables.reshape(SLOTS, max_pages)
+    (kq, ks), (vq, vs) = (ref.quantize_rows(rand(HKV, num_pages, PAGE, HEAD_DIM), fmt)
+                          for _ in range(2))
+    (knq, kns), (vnq, vns) = (ref.quantize_rows(rand(SLOTS, HKV, CHUNK, HEAD_DIM), fmt)
+                              for _ in range(2))
+    q = rand(SLOTS, HQ, CHUNK, HEAD_DIM)
+    lens = torch.full((SLOTS,), CHUNK, dtype=torch.int32, device=dev)
+    before = (PFQ.KERNEL.launches, PFQ.KERNEL.tc_launches)
+    ms = []
+    for start in (0, MAX_LEN - CHUNK):
+        st = torch.full((SLOTS,), start, dtype=torch.int32, device=dev)
+        ms.append(time_ms(torch, lambda: PFQ.prefill_attention_quant(  # noqa: B023
+            q, knq, vnq, kns, vns, kq, vq, ks, vs, tables, st, lens, fmt=fmt), flush=flush))
+    assert PFQ.KERNEL.tc_launches > before[1]
+    PFQ.KERNEL.launches, PFQ.KERNEL.tc_launches = before
+    per = (ms[1] - ms[0]) / ((MAX_LEN - CHUNK) // 64) * 1e3
+    return per, ms[0] * 1e3 - per
+
+
+def scan_phase_cost(torch, CSC, flush, dev):
+    """Where a tensor-core chunk_scan launch's time goes at mamba2-2.7B's
+    training shapes (batch 8, 8 chunks of 128, N 128, P 64, bf16, C and B
+    broadcast over the heads): the launch with 80 and with 40 heads, both
+    in 2 head groups a (batch, chunk) (128 blocks), so a block walks 40 or
+    20 heads after its one C B^T.  Returns (device us a head of a block's
+    walk, us of the rest of the launch: C and B in, C B^T, the first
+    head's operands, the launch)."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    b, nc, length, n, p = TRAIN_BATCH, TRAIN_SEQ // 128, 128, 128, 64
+    before = (CSC.KERNEL.launches, CSC.KERNEL.tc_launches)
+    ms = []
+    for heads in (80, 40):
+        cm, bm = (rand(b, 1, nc, length, n).bfloat16().expand(b, heads, nc, length, n)
+                  for _ in range(2))
+        x = rand(b, heads, nc, length, p).bfloat16()
+        da = torch.cumsum(-0.7 * rand(b, heads, nc, length).abs(), dim=-1)
+        prev = rand(b, heads, nc, n, p)
+        ms.append(time_ms(torch, lambda: CSC.chunk_scan(cm, bm, x, da, prev),  # noqa: B023
+                          flush=flush))
+        del cm, bm, x, da, prev
+    assert CSC.KERNEL.tc_launches == before[1] + CSC.KERNEL.launches - before[0]
+    CSC.KERNEL.launches, CSC.KERNEL.tc_launches = before
+    per = (ms[0] - ms[1]) / 20 * 1e3
+    return per, ms[1] * 1e3 - 20 * per
+
+
 def decode_cost(torch, np, PA, flush, dev, calls=20):
     """Where a bf16 decode launch's device time goes at check_decode's
     inputs (window None): the split kernel's and the merge kernel's device
@@ -1002,21 +1066,26 @@ def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
                            lambda: ref.chunk_scan(cc, bb, xx, da, prev))}
     out = {}
     for name, (mod, run, plain_run) in runs.items():
-        before = mod.KERNEL.launches
+        before, tc_before = mod.KERNEL.launches, mod.KERNEL.tc_launches
         got, want = run(), plain_run()
-        mod.KERNEL.launches = before  # comparison launches do not count
+        tc = mod.KERNEL.tc_launches - tc_before
+        mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before  # comparisons do not count
         assert got.shape == want.shape and got.dtype == want.dtype, name
         assert torch.isfinite(got).all(), name
         res = {"err": (got.float() - want.float()).abs().max().item(),
                "scale": max(1.0, want.float().abs().max().item()),
-               "da_min": da.min().item()}
+               "da_min": da.min().item(), "tc_launches": tc}
         if got.dtype == torch.bfloat16:
             res["ulps"] = bf16_ulps(torch, got, want)
             res["bf16_scores_ulps"] = bf16_ulps(torch, scan_variant(
                 torch, cc, bb, xx, da, prev, scores=torch.bfloat16), want)
-            if case[-1] == "growing":  # the plain version's own distance
-                res["plain_vs_f64_ulps"] = bf16_ulps(torch, want, scan_variant(
-                    torch, cc, bb, xx, da, prev, acc=torch.float64))
+            # both sides' distance from an fp64 evaluation (printed): two fp32
+            # sum orders straddle a bf16 rounding where a row's terms cancel
+            f64 = scan_variant(torch, cc, bb, xx, da, prev, acc=torch.float64)
+            res["plain_vs_f64_ulps"] = bf16_ulps(torch, want, f64)
+            res["kernel_vs_f64_ulps"] = bf16_ulps(torch, got, f64)
+            res["gated"] = case[-1] != "growing"
+            del f64
         if timed:
             res["ms"] = time_ms(torch, run, flush=flush)
             res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
@@ -1038,7 +1107,7 @@ def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
             # labelled apart and library_ms stays null
             res["yardstick_ms"] = time_ms(torch, yard, flush=flush)
             res["library_ms"] = None
-            mod.KERNEL.launches = before
+            mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
             nbytes = sum(handed_bytes(t) for t in ins) + got.numel() * got.element_size()
             res["bytes"], res["flops"] = nbytes, flops
             res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
@@ -1047,14 +1116,22 @@ def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
 
 
 def ssd_ok(r) -> bool:
-    """bf16 outputs within BF16_ULPS of the plain value (the growing case's
-    bf16 reading is printed, not gated: see SSD_CASES); fp32 outputs within
-    FP32_ATOL of max(1, max |plain|)."""
-    if "plain_vs_f64_ulps" in r:
+    """bf16 outputs within BF16_ULPS of the plain value, with the control
+    that rounds the decayed scores once to bf16 outside it (the growing
+    case's bf16 reading is printed, not gated: see SSD_CASES); fp32 outputs
+    within FP32_ATOL of max(1, max |plain|)."""
+    if not r.get("gated", True):
         return True
     if "ulps" in r:
-        return r["ulps"] <= BF16_ULPS
+        return r["ulps"] <= BF16_ULPS and r["bf16_scores_ulps"] > BF16_ULPS
     return r["err"] <= FP32_ATOL * r["scale"]
+
+
+def ssd_takes_tensor_cores(case, dtype) -> bool:
+    """Whether chunk_scan's launch on ``case``'s operands must take its
+    tensor-core path: bf16 at mamba2-2.7B's N 128 / P 64 (chunks of 128 or
+    64); hymba-1.5B's P 50 and fp32 stay on CUDA cores."""
+    return dtype == "bfloat16" and case[1] == "mamba2_2_7b"
 
 
 # ---------------------------------------------------------------------------
@@ -1112,6 +1189,7 @@ FP_KERNELS = ("paged_attention", "prefill_attention")
 TC_KERNELS = ("prefill_attention", "paged_attention")  # all bf16 launches on tensor cores
 MLA_TC_KERNELS = ("mla_prefill", "mla_prefill_quant")  # the same at deepseek's widths
 QUANT_KERNELS = ("paged_attention_quant", "prefill_attention_quant")
+QUANT_TC_KERNELS = ("prefill_attention_quant",)  # all its bf16 launches on tensor cores
 MLA_FP_KERNELS = ("mla_paged", "mla_prefill")
 MLA_QUANT_KERNELS = ("mla_paged_quant", "mla_prefill_quant")
 FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
@@ -1213,7 +1291,7 @@ def serving_phase(torch, np, lm, cfg, params, kernels, device):
                       num_blocks=FP_BUDGET_BLOCKS)
     assert fp.pages_shared > 0 and fp_tight.preemptions > 0
     for fmt in ("int8", "int4"):
-        eng, reqs = run(f"{fmt}, default pool", QUANT_KERNELS, kv_dtype=fmt)
+        eng, reqs = run(f"{fmt}, default pool", QUANT_KERNELS, QUANT_TC_KERNELS, kv_dtype=fmt)
         same = sum(a.output == b.output for a, b in zip(reqs, fp_reqs))
         toks = sum(len(r.output) for r in reqs)
         match = sum(x == y for a, b in zip(reqs, fp_reqs)
@@ -1225,11 +1303,11 @@ def serving_phase(torch, np, lm, cfg, params, kernels, device):
     q8, q8_reqs = runs["int8, default pool"][:2]
     nb = blocks_for_bytes(FP_BUDGET_BLOCKS * fp.pool.page_bytes, q8.pool.page_bytes)
     q8_tight, _ = run(f"int8 at the bytes of fp's {FP_BUDGET_BLOCKS} pages "
-                      f"({nb} blocks)", QUANT_KERNELS, kv_dtype="int8",
+                      f"({nb} blocks)", QUANT_KERNELS, QUANT_TC_KERNELS, kv_dtype="int8",
                       num_blocks=nb)
     assert q8_tight.preemptions < fp_tight.preemptions
     with strict_windows(torch, lm, device):
-        win, win_reqs = run("int8, sync_every=16", QUANT_KERNELS,
+        win, win_reqs = run("int8, sync_every=16", QUANT_KERNELS, QUANT_TC_KERNELS,
                             kv_dtype="int8", sync_every=16)
     assert win.decode_windows > 0 and win.dispatches < q8.dispatches
     assert [r.output for r in win_reqs] == [r.output for r in q8_reqs]
@@ -2156,8 +2234,8 @@ def kernel_phase(torch, np, ref, flush, device):
                         f"{r['err']:.3e}, {limit}")
                     if not kernel_ok(r):
                         raise AssertionError(f"{name} {fmt} disagrees with its plain version")
-                    if (name in TC_KERNELS + MLA_TC_KERNELS and dtype == torch.bfloat16
-                            and r["tc_launches"] != 1):
+                    if (name in TC_KERNELS + MLA_TC_KERNELS + QUANT_TC_KERNELS
+                            and dtype == torch.bfloat16 and r["tc_launches"] != 1):
                         raise AssertionError(f"{name} bf16 missed its tensor-core path")
                     if timed and fmt in (None, "int8"):
                         table[name] = r
@@ -2198,25 +2276,31 @@ def kernel_phase(torch, np, ref, flush, device):
         f"launch): mla_prefill {per:.2f}; {rest:.2f} (slots {SLOTS}, chunk {CHUNK}, starts "
         f"0 and {MAX_LEN - CHUNK}: {PAGE * MLA_HEADS // 64 * (CHUNK // PAGE) * SLOTS} blocks "
         "of 16 warps)")
+    per, rest = quant_tile_cost(torch, ref, PFQ, flush, device)
+    log("[kernel] tile cost (device us a 64-key tile of the walk; us of the rest of the "
+        f"launch): prefill_attention_quant int8 {per:.2f}; {rest:.2f} (slots {SLOTS}, chunk "
+        f"{CHUNK}, starts 0 and {MAX_LEN - CHUNK}: {HKV * (CHUNK // PAGE) * SLOTS} blocks of 2 "
+        "key groups, packed tiles staged and dequantized)")
     cost = decode_cost(torch, np, PA, flush, device)
     log(f"[kernel] decode cost (device us a call, torch.profiler, {SLOTS * HKV} (slot, kv "
         f"head) pairs x {decode_grid(torch, PA, device)[0]} splits): split kernel "
         f"{cost['split']:.2f}, merge kernel {cost['merge']:.2f}")
+    per, rest = scan_phase_cost(torch, CSC, flush, device)
+    log("[kernel] phase cost (chunk_scan on tensor cores, mamba2-2.7B training shapes, 128 "
+        f"blocks): device us a head of a block's walk {per:.2f}; us of the rest of the launch "
+        f"(C and B in, C B^T once, the first head's operands) {rest:.2f}")
     for case in SSD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             timed = dtype == torch.bfloat16 and case is SSD_CASES[0]
             rs = check_ssd(torch, np, ref, (CST, CSC), dtype, case, flush, timed, device)
             _, arch, b, s, decay = case
             for name, r in rs.items():
-                if "plain_vs_f64_ulps" in r:
-                    limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (printed, "
-                             f"not gated: the plain version itself is "
-                             f"{r['plain_vs_f64_ulps']:.2f} ulps from its fp64 "
-                             f"evaluation; control with bf16 scores "
-                             f"{r['bf16_scores_ulps']:.2f})")
-                elif "ulps" in r:
-                    limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
-                             f"{BF16_ULPS:g}; control with bf16 scores "
+                if "ulps" in r:
+                    limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value ("
+                             + (f"limit {BF16_ULPS:g}" if r["gated"] else "printed, not gated")
+                             + f"; from an fp64 evaluation: the plain version "
+                             f"{r['plain_vs_f64_ulps']:.2f}, the kernel "
+                             f"{r['kernel_vs_f64_ulps']:.2f}; control with bf16 scores "
                              f"{r['bf16_scores_ulps']:.2f})")
                 else:
                     limit = (f"{r['err'] / r['scale']:.2e} of max(1, max|plain|) "
@@ -2229,11 +2313,17 @@ def kernel_phase(torch, np, ref, flush, device):
                               f"once; {r['flops'] / 1e9:.2f} GFLOP over causal pairs)")
                     table[name] = r
                 log(f"[kernel] {name} {case[0]} {str(dtype)[6:]} ({arch}, batch {b} x "
-                    f"seq {s}, min dA_cum {r['da_min']:.1f}): max abs err "
+                    f"seq {s}, min dA_cum {r['da_min']:.1f})"
+                    f"{' (tensor cores)' if r['tc_launches'] else ''}: max abs err "
                     f"{r['err']:.3e}, {limit}")
                 if not ssd_ok(r):
                     raise AssertionError(f"{name} {case[0]} disagrees with its plain "
                                          "version")
+                want_tc = name == "chunk_scan" and ssd_takes_tensor_cores(case, str(dtype)[6:])
+                if r["tc_launches"] != int(want_tc):
+                    raise AssertionError(f"{name} {case[0]} {str(dtype)[6:]}: "
+                                         f"{r['tc_launches']} tensor-core launches, "
+                                         f"expected {int(want_tc)}")
     return table
 
 
@@ -2448,6 +2538,7 @@ def training_phase(torch, np, lm, cfg, device) -> int:
 
 SSM_ARCH = "mamba2_2_7b"
 SSM_KERNELS = ("chunk_state", "chunk_scan")
+SSM_TC_KERNELS = ("chunk_scan",)  # every forward launch on tensor cores
 # Limits of the SSM's depth-2 check beyond phase 5's (0.02 nats and 5% of
 # grad norm against the card's plain path, 5% of grad norm against the CPU):
 # the loss within SSM_LOSS_CPU_NATS of the CPU's fp32 one, and the least
@@ -2670,7 +2761,8 @@ def ssm_phase(torch, np, lm, device):
 
     cfg = get_config(SSM_ARCH)
     t_phase = time.perf_counter()
-    launches = train_full_width(torch, np, cfg, device, SSM_KERNELS)
+    launches = train_full_width(torch, np, cfg, device, SSM_KERNELS,
+                                tc_kernels=SSM_TC_KERNELS)
     torch.cuda.empty_cache()
     log(f"[time] phase 6 ({cfg.name} training): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()

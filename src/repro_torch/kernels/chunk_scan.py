@@ -10,6 +10,17 @@ launches the kernel or raises.
 
 Leading dimensions, strides and the head-broadcast (``expand``ed) C and B
 are taken as in :mod:`.chunk_state`.
+
+The kernel has two paths, picked from dtype, shapes and strides alone
+(:func:`tensor_core_path`).  bf16 with L, N and P multiples of 16 (L and N
+at most 128) and 16-byte aligned rows runs on the tensor cores
+(``KERNEL.tc_launches`` counts those launches): C B^T in fp32 from bf16
+fragments, the decayed scores and the carried state each multiplied as
+three bf16 terms hi + mid + lo (fp32's precision: a pair is not enough
+where a row's signed products cancel).  Where C and B are broadcast over
+the heads (head stride
+0), one block computes C B^T once for a group of heads (:func:`head_group`).
+The rest (fp32, hymba's P 50 / N 16) runs on CUDA cores in fp32.
 """
 from __future__ import annotations
 
@@ -21,17 +32,53 @@ from . import ref
 from .build import Kernel, check
 from .chunk_state import (MAX_BLOCKS, MAX_CHUNK, check_common, five_d,
                           recompute_grads, require, strides)
-from .paged_attention import DTYPES
+from .paged_attention import DTYPES, sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 KERNEL = Kernel(
     "chunk_scan", "chunk_scan_launch",
-    [_I, _P, _P, _P, _P, _P, _P, *([_L] * 23), _I, _I, _I, _I, _I, _I, _P],
+    [_I, _I, _I, _P, _P, _P, _P, _P, _P, *([_L] * 23), _I, _I, _I, _I, _I, _I, _P],
     replaces="src/repro/kernels/linear_attention.py:58",
     source="linear_attention",
 )
+TC_MAX_N = 128  # state width the tensor-core block holds in shared memory
+TC_P_TILE = 64  # columns of P a tensor-core block
+
+
+def tensor_core_path(dtype: torch.dtype, length: int, n: int, p: int,
+                     aligned: bool = True) -> bool:
+    """Whether a launch takes the tensor-core scan: bf16, chunks of L rows
+    and state and head widths N and P that its 16-row tiles take (L and N
+    within its shared memory), with rows its 16-byte copies can read
+    (``aligned``: :func:`rows_aligned` of the operands)."""
+    return (dtype == torch.bfloat16 and length % 16 == 0 and 0 < length <= MAX_CHUNK
+            and n % 16 == 0 and 0 < n <= TC_MAX_N and p % 16 == 0 and p > 0 and aligned)
+
+
+def rows_aligned(*views: torch.Tensor) -> bool:
+    """Every view starts on 16 bytes and steps 16-byte multiples along its
+    batch, head, chunk and row dimensions (the 5-d views handed over)."""
+    for t in views:
+        vec = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:4]):
+            return False
+    return True
+
+
+def head_group(batch: int, heads: int, nchunks: int, p: int, sms: int,
+               broadcast: bool) -> int:
+    """Heads a tensor-core block takes, sharing one C B^T: where C and B are
+    broadcast over the heads, as many as leave enough groups for the grid
+    (batch x chunks x groups x P tiles) to fill the card's ``sms`` once;
+    otherwise 1.  At mamba2-2.7B's training shapes on 132 SMs: 40 heads, 2
+    groups, 128 blocks."""
+    if not broadcast:
+        return 1
+    tiles = batch * nchunks * -(-p // TC_P_TILE)
+    groups = max(1, min(heads, sms // tiles))
+    return -(-heads // groups)
 
 
 def chunk_scan(c_mat: torch.Tensor, b_mat: torch.Tensor, x: torch.Tensor,
@@ -69,16 +116,20 @@ def chunk_scan(c_mat: torch.Tensor, b_mat: torch.Tensor, x: torch.Tensor,
     require(batch * heads * nc <= MAX_BLOCKS, name, "grid too large")
     y = torch.empty(lead + (nc, length, p), dtype=x.dtype, device=x.device)
     y5 = five_d(y, len(lead))
+    tc = tensor_core_path(x.dtype, length, n, p, rows_aligned(c5, b5, x5, s5))
+    hg = (head_group(batch, heads, nc, p, sm_count(x.device.index or 0),
+                     c5.stride(1) == 0 and b5.stride(1) == 0) if tc else 1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[x.dtype], c5.data_ptr(), b5.data_ptr(), x5.data_ptr(),
+            DTYPES[x.dtype], int(tc), hg, c5.data_ptr(), b5.data_ptr(), x5.data_ptr(),
             da5.data_ptr(), s5.data_ptr(), y5.data_ptr(), *strides(c5, 4),
             *strides(b5, 4), *strides(x5, 4), *strides(da5, 3),
             *strides(s5, 4), *strides(y5, 4), batch, heads, nc, length, n, p,
             stream)
     check(rc, name)
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return y
 
 

@@ -331,6 +331,15 @@ struct WarpAttention {
   }
 };
 
+// A key source whose tiles reach the ring through a staging area of its
+// own declares STAGED (the quantized prefill's loader: packed bytes copied
+// in, dequantized into the ring's bf16 tile); any other copies straight
+// into the ring with load_tile_async.
+template <typename Src, typename = void>
+struct is_staged : std::false_type {};
+template <typename Src>
+struct is_staged<Src, std::void_t<decltype(Src::STAGED)>> : std::bool_constant<Src::STAGED> {};
+
 // The block's pass over n key tiles.  The block's warps form KG key groups
 // of W = blockDim.x / 32 / KG warps; warp w is warp w % W of group w / W and
 // holds query rows [16 (w % W), 16 (w % W) + 16).  Q's 16 W rows (qrow(r))
@@ -339,44 +348,85 @@ struct WarpAttention {
 // scored, one barrier a step.
 // src.row(...) as load_tile_async; src.kind(t, r0, r1) says whether a warp
 // of block rows [r0, r1) skips tile t, takes it whole or masks it with
-// `mask` (whose kpos the pass points at the tile's slot).  With KG > 1 the
-// groups' states merge into group 0 through shared memory (the ring's,
-// after the walk).  Leaves group 0's rows in its warps' `wa`.
+// `mask` (whose kpos the pass points at the tile's slot).
+// A staged source (is_staged, two stages) instead has copy(u, any), which
+// starts step u's copies into its staging area and touches no ring slot,
+// and convert(ring, u), which fills stage u % 2 (tiles and key positions)
+// from what it staged, each thread from the bytes it copied itself, so no
+// barrier lies between the two.  Each thread converts step u + 1 after its
+// share of step u (stage (u + 1) % 2 was freed by the step's barrier) and
+// then starts step u + 2's copies into the bytes it has just read; those
+// stay uncommitted past the next barrier's wait, so they have a whole step
+// to land.
+// With KG > 1 the groups' states merge into group 0 through shared memory
+// (the ring's, after the walk).  Leaves group 0's rows in its warps' `wa`.
 template <int D, int S, int KG, typename QRow, typename Src>
 __device__ void attend(WarpAttention<D>& wa, const Ring<D, S, KG>& ring, const QRow& qrow,
-                       int n, const Src& src, PosMask mask, float qscale, const bf16* any) {
+                       int n, Src& src, PosMask mask, float qscale, const bf16* any) {
+  constexpr bool STAGED = is_staged<Src>::value;
+  static_assert(!STAGED || S == 2, "a staged source converts into two stages");
   const int warps = blockDim.x / 32 / KG;
   const int warp = (threadIdx.x >> 5) % warps, group = (threadIdx.x >> 5) / warps;
   const int r0 = warp * 16;  // the warp's block rows [r0, r0 + 16)
   const int steps = (n + KG - 1) / KG;
   auto load_step = [&](int u) {  // tiles u KG .. u KG + KG - 1 into stage u % S
+    if constexpr (!STAGED) {
 #pragma unroll
-    for (int g = 0; g < KG; ++g)
-      if (u * KG + g < n) load_tile_async(ring, (u % S) * KG + g, u * KG + g, src, any);
+      for (int g = 0; g < KG; ++g)
+        if (u * KG + g < n) load_tile_async(ring, (u % S) * KG + g, u * KG + g, src, any);
+    }
   };
   load_q_async(ring, warps * 16, qrow, any);  // into the last slot
-  for (int u = 0; u < S - 1; ++u) {  // one commit group a stage: Q rides with the first
-    if (u < steps) load_step(u);
-    gc::cp_async_commit();
-  }
-  gc::cp_async_wait<S - 2>();
-  __syncthreads();
-  wa.load_q(ring.q(), r0, mask);
-  for (int u = 0; u < steps; ++u) {
+  if constexpr (!STAGED) {
+    for (int u = 0; u < S - 1; ++u) {  // one commit group a stage: Q rides with the first
+      if (u < steps) load_step(u);
+      gc::cp_async_commit();
+    }
     gc::cp_async_wait<S - 2>();
-    __syncthreads();  // step u landed for all; step u - 1 (and Q) fully read
-    if (u + S - 1 < steps) load_step(u + S - 1);
-    gc::cp_async_commit();
-    const int t = u * KG + group;
-    if (t >= n) continue;
-    const int kind = src.kind(t, r0, r0 + 16);  // uniform across the warp
-    if (kind == SKIP) continue;
-    const int slot = (u % S) * KG + group;
-    if (kind == FULL) {
-      wa.template tile<false>(ring.k(slot), ring.v(slot), qscale, mask);
-    } else {
-      mask.kpos = ring.kpos(slot);
-      wa.template tile<true>(ring.k(slot), ring.v(slot), qscale, mask);
+    __syncthreads();
+    wa.load_q(ring.q(), r0, mask);
+    for (int u = 0; u < steps; ++u) {
+      gc::cp_async_wait<S - 2>();
+      __syncthreads();  // step u landed for all; step u - 1 (and Q) fully read
+      if (u + S - 1 < steps) load_step(u + S - 1);
+      gc::cp_async_commit();
+      const int t = u * KG + group;
+      if (t >= n) continue;
+      const int kind = src.kind(t, r0, r0 + 16);  // uniform across the warp
+      if (kind == SKIP) continue;
+      const int slot = (u % S) * KG + group;
+      if (kind == FULL) {
+        wa.template tile<false>(ring.k(slot), ring.v(slot), qscale, mask);
+      } else {
+        mask.kpos = ring.kpos(slot);
+        wa.template tile<true>(ring.k(slot), ring.v(slot), qscale, mask);
+      }
+    }
+  } else {  // step 0 converted into stage 0, step 1 on its way
+    if (steps > 0) src.copy(0, any);
+    gc::cp_async_commit();  // with Q
+    gc::cp_async_wait<0>();
+    if (steps > 0) src.convert(ring, 0);
+    if (steps > 1) src.copy(1, any);
+    __syncthreads();
+    wa.load_q(ring.q(), r0, mask);
+    for (int u = 0; u < steps; ++u) {
+      __syncthreads();  // step u converted for all; step u - 1 (and Q) fully read
+      const int t = u * KG + group;
+      const int kind = t < n ? src.kind(t, r0, r0 + 16) : SKIP;  // uniform across the warp
+      const int slot = (u % S) * KG + group;
+      if (kind == FULL) {
+        wa.template tile<false>(ring.k(slot), ring.v(slot), qscale, mask);
+      } else if (kind == MASKED) {
+        mask.kpos = ring.kpos(slot);
+        wa.template tile<true>(ring.k(slot), ring.v(slot), qscale, mask);
+      }
+      if (u + 1 < steps) {
+        gc::cp_async_commit();
+        gc::cp_async_wait<0>();  // this thread's copies of step u + 1
+        src.convert(ring, u + 1);
+        if (u + 2 < steps) src.copy(u + 2, any);
+      }
     }
   }
   if (KG > 1) {

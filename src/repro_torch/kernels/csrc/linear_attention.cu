@@ -28,11 +28,17 @@
 // and writes 168 MB of fp32 states for 10.7 GFLOP; chunk_scan reads C, B, X,
 // dA and the carried states and writes Y for 42.9 GFLOP: under 0.25
 // operations a byte, far below the card's ~295 (chip_smoke.py counts the
-// bytes handed over, the expanded B and C once).  This first version does
-// its products on CUDA cores in fp32 (67 TFLOP/s at the card's peak, not
-// the tensor cores' 989), so its arithmetic, not its bytes, sets its time.
+// bytes handed over, the expanded B and C once).  chunk_state, and
+// chunk_scan in fp32 and at shapes its tensor-core path does not take
+// (hymba's P 50), do their products on CUDA cores in fp32 (67 TFLOP/s at
+// the card's peak, not the tensor cores' 989), so their arithmetic, not
+// their bytes, sets their time.  chunk_scan's bf16 launches at L, N and P
+// multiples of 16 run on the tensor cores (chunk_scan_kernel_tc below),
+// computing C B^T once for a group of heads where C and B are broadcast
+// over the heads: 21.5 of the CUDA-core launch's 42.9 GFLOP recomputed C
+// B^T for every head.
 //
-// Design (256 threads a block, as 16 x 16; each thread owns rows ty + 16 i
+// The CUDA-core design (256 threads a block, as 16 x 16; each thread owns rows ty + 16 i
 // and columns tx + 16 j of an output tile, so a warp's shared-memory reads
 // are one broadcast and one run of 16 consecutive words):
 //   * chunk_state: one block per (batch, head, chunk) and tile of 128 state
@@ -54,8 +60,7 @@
 //   * L is at most 128 (the chunk of both SSM configs); rows past L in the
 //     128-row tiles are zero-filled and never stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "mma_core.cuh"
 
 namespace {
 
@@ -292,6 +297,271 @@ chunk_scan_kernel(const T* __restrict__ cm, const T* __restrict__ bm,
   }
 }
 
+// ---- chunk_scan on the tensor cores (bf16) ---------------------------------
+//
+// One block per (batch, chunk, group of heads) and tile of 64 columns of P,
+// L / 16 warps, each holding one m-tile of 16 rows of the chunk:
+//   * scores: S = C B^T accumulated in fp32 by mma.sync m16n8k16 from the
+//     bf16 C and B staged in shared memory (the products are exact; only
+//     the order of the fp32 sums differs from the plain version), only the
+//     column tiles at or left of the warp's diagonal.  The warp keeps its
+//     16 rows of S in registers (C accumulator layout = A fragment layout,
+//     as P in attention), and where C and B have head stride 0 (a Mamba-2
+//     layer's head-broadcast views) S serves every head of the group: it is
+//     computed once a block, not once a head.
+//   * per head, its X (L x 64, bf16) and carried state S_prev (N x 64,
+//     fp32) and dA come by cp.async into one of two buffers while the
+//     previous head is computed.  S_prev is split as it is staged into
+//     three bf16 terms hi + mid + lo (each the rounding of what the ones
+//     before leave: fp32's 24 significant bits), so C S_prev is three
+//     tensor-core products, scaled by exp(dA_l) in fp32; then the decayed
+//     scores S exp(dA_l - dA_m), the decay selected before the expf (m <=
+//     l), go to the tensor cores as three terms too and multiply X, with
+//     the tiles above the diagonal skipped.  Both operands carry signs, and
+//     a row's sum of 128 products can cancel to far below its terms: one
+//     bf16 rounding of the scores reads 4.6-14724 bf16 ulps from the plain
+//     value (chip_smoke.py's bf16_scores control); the pair hi + lo that
+//     serves attention's positive P fails the 2-ulp limit for either
+//     operand in a plain-PyTorch rehearsal
+//     (tests/test_torch_quant_prefill_ssd_tc.py) and read 14 ulps on the
+//     card for S_prev at shallow decay; three terms pass.  Y is rounded
+//     once to bf16 and stored from the fragments.
+//   * expf as above (no fast math): the denormals of deep decays survive.
+// Shared memory at L 128, N 128: C, B (its space then holds S_prev's three
+// terms), two buffers of X, S_prev and dA: 193 KB, one block an SM; rows
+// padded by 16 bytes, so the rows of a warp's ldmatrix fall on distinct
+// banks.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int PT = 64;       // columns of P a block
+constexpr int MAX_N = 128;   // state width the shared memory holds
+constexpr int XST = PT + 8;  // bf16 between rows of X and of hi / lo
+constexpr int SST = PT + 4;  // fp32 between rows of staged S_prev
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// x = hi + mid + lo for two neighbouring values, three bf16 terms (24
+// significant bits, fp32's), each half a bf16 pair (the lower column in
+// the low 16 bits, as mma's A fragment wants)
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;  // exact
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
+}
+
+struct Smem {
+  bf16 *cs, *bs, *hi, *mid, *lo, *x0, *x1;
+  float *s0, *s1, *d0, *d1;
+  int cst;  // bf16 between rows of C and B
+
+  __device__ Smem(void* base, int len, int n) : cst(n + 8) {
+    cs = reinterpret_cast<bf16*>(base);
+    bs = cs + len * cst;
+    hi = bs;  // B is read only before the first head's split
+    mid = hi + n * XST;
+    lo = mid + n * XST;
+    bf16* end = bs + region(len, n);
+    x0 = end;
+    x1 = x0 + len * XST;
+    s0 = reinterpret_cast<float*>(x1 + len * XST);
+    s1 = s0 + n * SST;
+    d0 = s1 + n * SST;
+    d1 = d0 + len;
+  }
+  // elements of B's place: B, then S_prev's three terms
+  __host__ __device__ static int region(int len, int n) {
+    return len * (n + 8) > 3 * n * XST ? len * (n + 8) : 3 * n * XST;
+  }
+  static size_t bytes(int len, int n) {
+    return sizeof(bf16) * ((size_t)len * (n + 8) + region(len, n) + 2 * (size_t)len * XST) +
+           sizeof(float) * (2 * (size_t)n * SST + 2 * (size_t)len);
+  }
+};
+
+__global__ void __launch_bounds__(kMaxL * 2, 1)
+chunk_scan_kernel_tc(const bf16* __restrict__ cm, const bf16* __restrict__ bm,
+                     const bf16* __restrict__ x, const float* __restrict__ da,
+                     const float* __restrict__ prev, bf16* __restrict__ y, Strides4 cs,
+                     Strides4 bs, Strides4 xs, Strides3 ds, Strides4 ps, Strides4 ys,
+                     int heads, int nchunks, int groups, int hg, int len, int n_state,
+                     int p_dim) {
+  const int gi = blockIdx.x % groups;
+  const int bc = blockIdx.x / groups;
+  const int c = bc % nchunks, b = bc / nchunks;
+  const int h0 = gi * hg, nh = min(hg, heads - h0);
+  const int p0 = blockIdx.y * PT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  // the warp's m-tile: warps w and w + 4 share a scheduler, so the second
+  // half takes the m-tiles in reverse and each pair walks the same number
+  // of score tiles left of its diagonals
+  const int mt = warp < warps / 2 ? warp : warps + warps / 2 - 1 - warp;
+  const int g = lane >> 2, t = lane & 3, l0 = mt * 16;
+  extern __shared__ float4 smem4[];
+  const Smem sm(smem4, len, n_state);
+
+  // C and B of the group's first head: the head stride is 0 wherever the
+  // group holds more than one head
+  {
+    const bf16* cp = cm + b * cs.b + h0 * cs.h + c * cs.c;
+    const bf16* bp = bm + b * bs.b + h0 * bs.h + c * bs.c;
+    const int vecs = n_state / 8;
+    for (int i = threadIdx.x; i < len * vecs; i += blockDim.x) {
+      const int r = i / vecs, k = (i % vecs) * 8;
+      gc::cp_async<16>(sm.cs + r * sm.cst + k, cp + r * cs.l + k, true);
+      gc::cp_async<16>(sm.bs + r * sm.cst + k, bp + r * bs.l + k, true);
+    }
+  }
+  // head h0 + i's X, S_prev and dA into buffer `buf`; columns past P are
+  // zero-filled
+  auto load_head = [&](int i, int buf) {
+    const int h = h0 + i;
+    const bf16* xp = x + b * xs.b + h * xs.h + c * xs.c + p0;
+    const float* sp = prev + b * ps.b + h * ps.h + c * ps.c + p0;
+    const float* dp = da + b * ds.b + h * ds.h + c * ds.c;
+    bf16* xd = buf ? sm.x1 : sm.x0;
+    float* sd = buf ? sm.s1 : sm.s0;
+    float* dd = buf ? sm.d1 : sm.d0;
+    for (int k = threadIdx.x; k < len * (PT / 8); k += blockDim.x) {
+      const int r = k / (PT / 8), col = (k % (PT / 8)) * 8;
+      const bool live = p0 + col < p_dim;
+      gc::cp_async<16>(xd + r * XST + col, live ? xp + r * xs.l + col : xp, live);
+    }
+    for (int k = threadIdx.x; k < n_state * (PT / 4); k += blockDim.x) {
+      const int r = k / (PT / 4), col = (k % (PT / 4)) * 4;
+      const bool live = p0 + col < p_dim;
+      gc::cp_async<16>(sd + r * SST + col, live ? sp + r * ps.l + col : sp, live);
+    }
+    for (int k = threadIdx.x; k < len; k += blockDim.x) gc::cp_async<4>(dd + k, dp + k, true);
+  };
+  load_head(0, 0);
+  gc::cp_async_commit();
+  gc::cp_async_wait<0>();
+  __syncthreads();
+
+  // S = C B^T for the warp's rows, the column tiles up to its diagonal
+  float s[kMaxL / 8][4];
+#pragma unroll
+  for (int j = 0; j < kMaxL / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  for (int kk = 0; kk < n_state / 16; ++kk) {
+    uint32_t a[4];
+    gc::ldmatrix_x4(a, sm.cs + (l0 + (lane & 15)) * sm.cst + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < kMaxL / 8; j += 2) {
+      if (j > 2 * mt) continue;  // right of the diagonal tile
+      uint32_t bb[4];
+      gc::ldmatrix_x4(bb, sm.bs + (j * 8 + (lane >> 4) * 8 + (lane & 7)) * sm.cst + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+      gc::mma16816<bf16>(s[j], a, bb[0], bb[1]);
+      gc::mma16816<bf16>(s[j + 1], a, bb[2], bb[3]);
+    }
+  }
+
+  for (int i = 0; i < nh; ++i) {
+    const int buf = i & 1;
+    gc::cp_async_wait<0>();
+    __syncthreads();  // head i landed for all; head i - 1 (and S's B) fully read
+    if (i + 1 < nh) load_head(i + 1, buf ^ 1);
+    gc::cp_async_commit();
+    {  // S_prev as three bf16 terms
+      const float* sd = buf ? sm.s1 : sm.s0;
+      for (int k = threadIdx.x; k < n_state * (PT / 4); k += blockDim.x) {
+        const int r = k / (PT / 4), col = (k % (PT / 4)) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(sd + r * SST + col);
+        uint2 h2, m2, l2;
+        split3(v.x, v.y, h2.x, m2.x, l2.x);
+        split3(v.z, v.w, h2.y, m2.y, l2.y);
+        *reinterpret_cast<uint2*>(sm.hi + r * XST + col) = h2;
+        *reinterpret_cast<uint2*>(sm.mid + r * XST + col) = m2;
+        *reinterpret_cast<uint2*>(sm.lo + r * XST + col) = l2;
+      }
+    }
+    __syncthreads();
+    const bf16* xd = buf ? sm.x1 : sm.x0;
+    const float* dd = buf ? sm.d1 : sm.d0;
+    const float dl[2] = {dd[l0 + g], dd[l0 + g + 8]};
+    float acc[PT / 8][4];
+#pragma unroll
+    for (int j = 0; j < PT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    // the carried part: C S_prev = C hi + C mid + C lo, then times exp(dA_l)
+    for (int kk = 0; kk < n_state / 16; ++kk) {
+      uint32_t a[4];
+      gc::ldmatrix_x4(a, sm.cs + (l0 + (lane & 15)) * sm.cst + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < PT / 8; j += 2) {
+        const int at = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * XST + j * 8 +
+                       (lane >> 4) * 8;
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          uint32_t bt[4];
+          gc::ldmatrix_x4_trans(bt, (term == 0 ? sm.hi : term == 1 ? sm.mid : sm.lo) + at);
+          gc::mma16816<bf16>(acc[j], a, bt[0], bt[1]);
+          gc::mma16816<bf16>(acc[j + 1], a, bt[2], bt[3]);
+        }
+      }
+    }
+    const float el[2] = {expf(dl[0]), expf(dl[1])};
+#pragma unroll
+    for (int j = 0; j < PT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= el[e >> 1];
+    // the chunk's own part: the decayed scores (three terms) times X, the
+    // column tiles at or left of the diagonal
+#pragma unroll
+    for (int kk = 0; kk < kMaxL / 16; ++kk) {
+      if (kk > mt) continue;
+      uint32_t ph[4], pm[4], pl[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // n-tiles 2 kk and 2 kk + 1 of S
+        const int j = 2 * kk + half, m = j * 8 + 2 * t;
+        const float2 dm = *reinterpret_cast<const float2*>(dd + m);
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int l = l0 + g + 8 * (e >> 1), mc = m + (e & 1);
+          v[e] = mc <= l ? s[j][e] * expf(dl[e >> 1] - ((e & 1) ? dm.y : dm.x)) : 0.f;
+        }
+        split3(v[0], v[1], ph[2 * half], pm[2 * half], pl[2 * half]);
+        split3(v[2], v[3], ph[2 * half + 1], pm[2 * half + 1], pl[2 * half + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < PT / 8; j += 2) {
+        uint32_t bx[4];
+        gc::ldmatrix_x4_trans(bx, xd + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * XST +
+                                      j * 8 + (lane >> 4) * 8);
+        gc::mma16816<bf16>(acc[j], ph, bx[0], bx[1]);
+        gc::mma16816<bf16>(acc[j], pm, bx[0], bx[1]);
+        gc::mma16816<bf16>(acc[j], pl, bx[0], bx[1]);
+        gc::mma16816<bf16>(acc[j + 1], ph, bx[2], bx[3]);
+        gc::mma16816<bf16>(acc[j + 1], pm, bx[2], bx[3]);
+        gc::mma16816<bf16>(acc[j + 1], pl, bx[2], bx[3]);
+      }
+    }
+    bf16* yp = y + b * ys.b + (h0 + i) * ys.h + c * ys.c + p0;
+#pragma unroll
+    for (int j = 0; j < PT / 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (p0 + col >= p_dim) continue;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        gc::store2(yp + (l0 + g + 8 * rr) * ys.l + col, acc[j][2 * rr], acc[j][2 * rr + 1]);
+    }
+  }
+}
+
+}  // namespace tc
+
 bool shapes_ok(int batch, int heads, int nchunks, int len, int n_state,
                int p_dim) {
   const long long blocks = (long long)batch * heads * nchunks;
@@ -345,6 +615,46 @@ int launch_scan(const void* cm, const void* bm, const void* x, const void* da,
   return (int)cudaGetLastError();
 }
 
+// Whether the tensor-core scan takes these shapes (chunk_scan.py's
+// tensor_core_path, plus the grid's limits and the 16-byte rows its
+// cp.async copies need).
+bool tc_shapes_ok(const void* cm, const void* bm, const void* x, const void* prev,
+                  Strides4 cs, Strides4 bs, Strides4 xs, Strides4 ps, int batch, int heads,
+                  int nchunks, int groups, int hg, int len, int n_state, int p_dim) {
+  auto rows16 = [](const void* p, Strides4 st, int elems) {  // elems to 16 bytes
+    return (long long)(size_t)p % 16 == 0 && st.b % elems == 0 && st.h % elems == 0 &&
+           st.c % elems == 0 && st.l % elems == 0;
+  };
+  const long long blocks = (long long)batch * nchunks * groups;
+  return len % 16 == 0 && len > 0 && len <= kMaxL && n_state % 16 == 0 && n_state > 0 &&
+         n_state <= tc::MAX_N && p_dim % 16 == 0 && p_dim > 0 && hg >= 1 && groups >= 1 &&
+         (long long)hg * groups >= heads && (long long)hg * (groups - 1) < heads &&
+         (hg == 1 || (cs.h == 0 && bs.h == 0)) && blocks < (1LL << 31) &&
+         (p_dim + tc::PT - 1) / tc::PT <= 65535 && rows16(cm, cs, 8) && rows16(bm, bs, 8) &&
+         rows16(x, xs, 8) && rows16(prev, ps, 4);
+}
+
+int launch_scan_tc(const void* cm, const void* bm, const void* x, const void* da,
+                   const void* prev, void* y, Strides4 cs, Strides4 bs, Strides4 xs,
+                   Strides3 ds, Strides4 ps, Strides4 ys, int batch, int heads, int nchunks,
+                   int hg, int len, int n_state, int p_dim, cudaStream_t stream) {
+  const int groups = hg > 0 ? (heads + hg - 1) / hg : 0;
+  if (!tc_shapes_ok(cm, bm, x, prev, cs, bs, xs, ps, batch, heads, nchunks, groups, hg, len,
+                    n_state, p_dim))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tc::Smem::bytes(len, n_state);
+  auto kernel = tc::chunk_scan_kernel_tc;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(batch * nchunks * groups, (p_dim + tc::PT - 1) / tc::PT);
+  kernel<<<grid, len * 2, smem, stream>>>(
+      (const tc::bf16*)cm, (const tc::bf16*)bm, (const tc::bf16*)x, (const float*)da,
+      (const float*)prev, (tc::bf16*)y, cs, bs, xs, ds, ps, ys, heads, nchunks, groups, hg,
+      len, n_state, p_dim);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (B, C, X and Y); dA, the states and the
@@ -373,8 +683,13 @@ extern "C" int chunk_state_launch(
   return (int)cudaErrorInvalidValue;
 }
 
+// tc 1 takes the tensor-core scan (bfloat16; L, N and P multiples of 16,
+// L and N at most 128; rows and strides of C, B, X and the carried states
+// 16-byte aligned) with hg heads a block sharing one C B^T, which needs C
+// and B of head stride 0 unless hg is 1; tc 0 the CUDA-core kernel (hg
+// unused).
 extern "C" int chunk_scan_launch(
-    int dtype, const void* cm, const void* bm, const void* x, const void* da,
+    int dtype, int tc, int hg, const void* cm, const void* bm, const void* x, const void* da,
     const void* prev, void* y, long long cb, long long ch, long long cc,
     long long cl, long long bb, long long bh, long long bc, long long bl,
     long long xb, long long xh, long long xc, long long xl, long long db,
@@ -386,6 +701,10 @@ extern "C" int chunk_scan_launch(
   const Strides4 cs{cb, ch, cc, cl}, bs{bb, bh, bc, bl}, xs{xb, xh, xc, xl},
       ps{pb, ph, pc, pl}, ys{yb, yh, yc, yl};
   const Strides3 ds{db, dh, dc};
+  if (tc)
+    return dtype == 1 ? launch_scan_tc(cm, bm, x, da, prev, y, cs, bs, xs, ds, ps, ys, batch,
+                                       heads, nchunks, hg, len, n_state, p_dim, s)
+                      : (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_scan<float>(cm, bm, x, da, prev, y, cs, bs, xs, ds, ps, ys,
                               batch, heads, nchunks, len, n_state, p_dim, s);

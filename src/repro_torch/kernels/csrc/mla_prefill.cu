@@ -66,7 +66,8 @@
 //     tile.  The quantized twin copies a tile's packed bytes into a staging
 //     tile (each scale into a register) and dequantizes it into the bf16
 //     tile in the step before its own, each value rounded once from code *
-//     scale in fp32, bit for bit the plain version's dequantize-then-round;
+//     scale in fp32, bit for bit the plain version's dequantize-then-round
+//     (kv_dequant.cuh, the rule the GQA prefill's loader shares);
 //     each thread then starts the next tile's copies into the staging bytes
 //     it has just read, so they have a whole step to land.  198 KB of
 //     shared memory a block (217 KB quantized int8);
@@ -77,6 +78,7 @@
 //     16-byte vector loads into registers one tile ahead of the compute.
 
 #include "attention_core.cuh"
+#include "kv_dequant.cuh"
 #include "mla_mma.cuh"
 
 namespace {
@@ -272,46 +274,6 @@ struct Walk {
   }
 };
 
-// One 16-byte vector of codes (16 int8 or 32 int4, low nibble first)
-// dequantized to bf16 at o: each value rounded once from code * scale in
-// fp32, as the plain version's dequantize_rows(...).to(bfloat16).  A code
-// becomes a float without the conversion unit: code + 128 (+ 8 for int4),
-// an unsigned byte, goes into the low mantissa bits of 2^23, and a
-// subtraction leaves the code exactly; the product with a bf16 scale (8
-// significant bits each) is exact in fp32, so one rounding follows, two
-// values to an instruction.
-template <int PACK>
-__device__ __forceinline__ void dequant(bf16* o, const uint4& x, float s) {
-  constexpr uint32_t TWO23 = 0x4B000000u;  // 2^23 as a float's bits
-  constexpr float BIAS = 8388608.f + (PACK == 1 ? 128.f : 8.f);
-  auto code = [&](uint32_t u, int k) {  // byte k of u, biased, as code * s
-    return (__uint_as_float(__byte_perm(u, TWO23, 0x7650 + k)) - BIAS) * s;
-  };
-  auto pair = [](float a, float b) {  // a at the lower address
-    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    return *reinterpret_cast<uint32_t*>(&h);
-  };
-  uint4* dst = reinterpret_cast<uint4*>(o);
-  if constexpr (PACK == 1) {  // byte k of word i: value 4 i + k
-    const uint32_t w[4] = {x.x ^ 0x80808080u, x.y ^ 0x80808080u, x.z ^ 0x80808080u,
-                           x.w ^ 0x80808080u};
-#pragma unroll
-    for (int i = 0; i < 4; i += 2)
-      dst[i / 2] = make_uint4(pair(code(w[i], 0), code(w[i], 1)), pair(code(w[i], 2), code(w[i], 3)),
-                              pair(code(w[i + 1], 0), code(w[i + 1], 1)),
-                              pair(code(w[i + 1], 2), code(w[i + 1], 3)));
-  } else {  // byte k of word i: values 2 (4 i + k) (low nibble) and the next
-#pragma unroll 1  // 32 values a vector: unrolled, their temporaries would spill
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t wi = i < 2 ? (i == 0 ? x.x : x.y) : (i == 2 ? x.z : x.w);
-      const uint32_t lo = (wi & 0x0F0F0F0Fu) ^ 0x08080808u;
-      const uint32_t hi = ((wi >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-      dst[i] = make_uint4(pair(code(lo, 0), code(hi, 0)), pair(code(lo, 1), code(hi, 1)),
-                          pair(code(lo, 2), code(hi, 2)), pair(code(lo, 3), code(hi, 3)));
-    }
-  }
-}
-
 // A 16-bit load issued where it stands (volatile: not sunk towards its use).
 __device__ __forceinline__ uint32_t ldg_u16(const void* p) {
   uint32_t x;
@@ -389,7 +351,7 @@ struct WalkLoad {
       gc::cp_async_wait<0>();
       const int r = threadIdx.x >> 4, part = threadIdx.x & 15;
       if (part < 2)
-        scl[part * mm::KEYS + r] = __bfloat162float(__ushort_as_bfloat16((unsigned short)s_bits));
+        scl[part * mm::KEYS + r] = kvq::bf16_bits(s_bits);
     }
   }
 
@@ -405,9 +367,9 @@ struct WalkLoad {
       for (int v = part * 16; v < cb + pb; v += 256) {
         const uint4 x = *reinterpret_cast<const uint4*>(src + v);
         if (v < cb)
-          dequant<PACK>(dst + v * PACK, x, s_lat);
+          kvq::dequant<PACK>(dst + v * PACK, x, s_lat);
         else
-          dequant<PACK>(dst + mm::D + (v - cb) * PACK, x, s_rope);
+          kvq::dequant<PACK>(dst + mm::D + (v - cb) * PACK, x, s_rope);
       }
       if (u + 1 < w.tiles()) copy(u + 1, (u + 1) & 1);
     }

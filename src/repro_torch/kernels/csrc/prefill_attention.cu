@@ -19,8 +19,10 @@
 //     dtype), prior pages are dequantized page by page, the chunk attends
 //     its own dequantized round trip (what later decode steps read back),
 //     and the packed bytes and scales of each chunk page are written into
-//     the four pools, bytes and scales of the same rows together.  It keeps
-//     the CUDA-core body (attention_core.cuh) for now.
+//     the four pools, bytes and scales of the same rows together.  Its
+//     bf16 launches at the fp kernel's tensor-core shapes take the same
+//     tensor-core walk with another loader (below); the rest keep the
+//     CUDA-core body.
 //
 // Bound on the H100: bytes at serving batch sizes.  Each block reads its
 // slot's prior pages (2 * Hkv * starts * D * itemsize bytes per slot, read
@@ -53,6 +55,20 @@
 //     groups leave 168 registers a thread, and the D 128 instance spills a few words (the
 //     walk's own fields already live in shared memory).  Split-KV across
 //     blocks, which would use the idle SMs, comes with the decode kernel's.
+//     The quantized twin's tensor-core path (same rule, int8 and int4)
+//     walks the same tiles, but its loader copies each tile's packed bytes
+//     by cp.async into a staging area (one thread a K or V row of the
+//     step's tiles, its scale copied beside) and
+//     dequantizes them into the ring's bf16 tile, code * scale in fp32
+//     rounded once (kv_dequant.cuh, the MLA prefill's rule: bit for bit the
+//     plain version's dequantize-then-round); the chunk's own keys go
+//     through the same staging, since the chunk attends its own
+//     dequantized round trip.  Each thread converts the next step's rows
+//     after its share of the current step and then starts the step after's
+//     copies into the bytes it has just read, so they have a whole step to
+//     land.  Staging is 256 rows of D / pack + 16 bytes, with a scale
+//     word and a key position each, at two key groups (38 KB at int8, D
+//     128: 176 KB a block with the ring and qwen2-1.5B's table row).
 //   * CUDA cores, fp32 and any other shape: the body shared with the
 //     quantized twin, attention_core.cuh's online softmax in fp32 shared
 //     memory over page-sized tiles, each read with 16-byte vector loads one
@@ -80,6 +96,7 @@
 
 #include "attention_core.cuh"
 #include "attention_mma.cuh"
+#include "kv_dequant.cuh"
 
 namespace {
 
@@ -213,18 +230,54 @@ int launch(const void* q, F chunk_kv, F pools, const void* tables,
 
 // ---- the tensor-core path (bf16) ------------------------------------------
 
-// Key tiles of am::KEYS: first the slot's prior pages [p_lo, p_hi) through
-// its table entries (am::KEYS / ps pages a tile, copied into shared memory
-// first, so that a copy's address waits on no device-memory read), then the
-// chunk's own keys [c_lo, c_hi) from the k / v inputs.
-struct PrefillKeys {
-  using B = am::bf16;
-  const B *kpool, *vpool;  // the kv head's pools, at page 0
-  const B *kc, *vc;        // the (slot, kv head)'s chunk rows
-  const int* pages;        // table entries p_lo.., -1 where out of range
-  int ps_log2, p_lo, p_hi, start, c_lo, c_hi, n_prior, d, live_rows;
+using am::bf16;
 
-  __device__ bool row(int t, int r, const B*& kp, const B*& vp, int& pos) const {
+// The block's keys in tiles of am::KEYS, whatever their format: first the
+// slot's prior pages [p_lo, p_hi) through its table entries (am::KEYS / ps
+// pages a tile, copied into shared memory first, so that a copy's address
+// waits on no device-memory read), then the chunk's own keys [c_lo, c_hi)
+// from the chunk inputs.  Lives in shared memory: the loader reads it once a
+// tile, and the registers its fields would hold go to the softmax state.
+struct PrefillWalk {
+  const int* pages;  // table entries p_lo.., -1 where out of range
+  int ps_log2, p_lo, p_hi, start, c_lo, c_hi, n_prior, live_rows;
+
+  // Key row r of tile t: its row in the kv head's pools (prior) or in the
+  // chunk's rows, and its absolute position; false for a dead row.
+  // PrefillKeys::row walks the same rule with its row pointers set in each
+  // branch: taking them from these out-parameters cost the bf16 instance
+  // at D 128 spilled bytes and ~5% of its time on the card.
+  __device__ bool key(int t, int r, bool& prior, long& at, int& pos) const {
+    if (t < n_prior) {
+      const int j = t * am::KEYS + r;
+      const int slot = p_lo + (j >> ps_log2), off = j & ((1 << ps_log2) - 1);
+      if (slot >= p_hi) return false;  // never read a page this launch writes
+      const int page = pages[slot - p_lo];
+      if (page < 0) return false;  // contributes nothing
+      prior = true;
+      at = (long)(page << ps_log2) + off;
+      pos = (slot << ps_log2) + off;
+      return pos < start;
+    }
+    const int kj = c_lo + (t - n_prior) * am::KEYS + r;
+    if (kj >= c_hi) return false;
+    prior = false;
+    at = kj;
+    pos = start + kj;
+    return true;
+  }
+  __device__ int kind(int /*t*/, int r0, int /*r1*/) const {  // a warp of rows [r0, r1)
+    return r0 < live_rows ? am::MASKED : am::SKIP;
+  }
+};
+
+// bf16 keys, copied by cp.async straight into the ring.
+struct PrefillKeys : PrefillWalk {
+  const bf16 *kpool, *vpool;  // the kv head's pools, at page 0
+  const bf16 *kc, *vc;        // the (slot, kv head)'s chunk rows
+  int d;
+
+  __device__ bool row(int t, int r, const bf16*& kp, const bf16*& vp, int& pos) const {
     if (t < n_prior) {
       const int j = t * am::KEYS + r;
       const int slot = p_lo + (j >> ps_log2), off = j & ((1 << ps_log2) - 1);
@@ -244,26 +297,116 @@ struct PrefillKeys {
     pos = start + kj;
     return true;
   }
-  __device__ int kind(int /*t*/, int r0, int /*r1*/) const {  // a warp of rows [r0, r1)
-    return r0 < live_rows ? am::MASKED : am::SKIP;
+};
+
+// Quantized keys: rows of D / PACK packed bytes and a bf16 scale each, and
+// the loader's staging area (its fields too live in shared memory, not in
+// registers beside the softmax state).
+template <int D, int PACK>
+struct QuantKeys : PrefillWalk {
+  const int8_t *kpool, *vpool, *kc, *vc;  // packed rows: pools at page 0, chunk
+  const bf16 *kspool, *vspool, *ksc, *vsc;  // their scales
+  int8_t* stage;  // QuantLoad's staging area
+  int n;          // tiles of the walk
+};
+
+// The quantized keys' loader, a staged source of am::attend: a step's KG
+// tiles of packed K and V rows go by cp.async into a staging area of their
+// own, each row's scale beside them (the aligned 4 bytes that hold it, and
+// which half it is), and are dequantized into the ring's bf16 tiles
+// (kv_dequant.cuh: code * scale in fp32, rounded once, bit for bit the
+// plain version's).  One thread a job, a (tile of the step, key row, K or
+// V): it copies the row and its scale and notes the key's position, then
+// converts the row and, for K, writes the position beside the tile.
+// Nothing of a job stays in registers between its copy and its conversion
+// (the tile's softmax state holds them all).  Staging rows are padded by 16 bytes, so the rows of a warp's
+// copies and loads fall on distinct banks.
+template <int D, int PACK, int KG>
+struct QuantLoad {
+  static constexpr bool STAGED = true;
+  static constexpr int BYTES = D / PACK;  // packed bytes a row
+  static constexpr int ROW = BYTES + 16;  // staging bytes between rows
+  static constexpr int JOBS = KG * am::KEYS * 2;
+  // the rows, then a job's scale word, key position and scale half
+  __host__ __device__ static constexpr size_t bytes() { return (size_t)JOBS * (ROW + 4 + 4 + 1); }
+  const QuantKeys<D, PACK>& w;  // w.stage: JOBS rows of ROW bytes, then JOBS each of the rest
+
+  __device__ uint32_t* words() const { return reinterpret_cast<uint32_t*>(w.stage + JOBS * ROW); }
+  __device__ int* positions() const { return reinterpret_cast<int*>(words() + JOBS); }
+  __device__ uint8_t* halves() const { return reinterpret_cast<uint8_t*>(positions() + JOBS); }
+  __device__ int kind(int t, int r0, int r1) const { return w.kind(t, r0, r1); }
+
+  // Start step u's copies: job j = tile j / (2 KEYS) of the step, key row
+  // (j / 2) % KEYS, K for even j and V for odd.  A dead row is zero-filled,
+  // its scale too.
+  __device__ void copy(int u, const void* any) const {
+    for (int j = threadIdx.x; j < JOBS; j += blockDim.x) {
+      const int t = u * KG + j / (2 * am::KEYS);
+      if (t >= w.n) continue;
+      const int kv = j & 1, r = (j >> 1) % am::KEYS;
+      bool prior = false;
+      long at = 0;
+      int pos = -1;
+      const bool live = w.key(t, r, prior, at, pos);
+      const int8_t* src = (kv ? (prior ? w.vpool : w.vc) : (prior ? w.kpool : w.kc)) + at * BYTES;
+      int8_t* dst = w.stage + j * ROW;
+#pragma unroll
+      for (int c = 0; c < BYTES; c += 16) gc::cp_async<16>(dst + c, live ? src + c : any, live);
+      const bf16* scale = (kv ? (prior ? w.vspool : w.vsc) : (prior ? w.kspool : w.ksc)) + at;
+      const size_t addr = reinterpret_cast<size_t>(scale);
+      gc::cp_async<4>(words() + j, live ? reinterpret_cast<const void*>(addr & ~(size_t)3) : any,
+                      live);
+      // this thread's own slots: read by its convert only
+      positions()[j] = live ? pos : -1;
+      halves()[j] = (addr >> 1) & 1;
+    }
   }
+
+  // Dequantize step u's staged rows into stage u % 2, each thread its own
+  // jobs' bytes (landed: the caller waited for its copies).
+  __device__ void convert(const am::Ring<D, 2, KG>& ring, int u) const {
+    for (int j = threadIdx.x; j < JOBS; j += blockDim.x) {
+      const int g = j / (2 * am::KEYS), t = u * KG + g;
+      if (t >= w.n) continue;
+      const int kv = j & 1, r = (j >> 1) % am::KEYS, slot = (u & 1) * KG + g;
+      const uint32_t word = words()[j];
+      const float scale = kvq::bf16_bits(halves()[j] ? word >> 16 : word);
+      const int8_t* src = w.stage + j * ROW;
+      bf16* dst = (kv ? ring.v(slot) : ring.k(slot)) + r * am::Ring<D, 2, KG>::STRIDE;
+#pragma unroll 1  // a row's vectors one at a time: the softmax state holds the registers
+      for (int c = 0; c < BYTES; c += 16)
+        kvq::dequant<PACK>(dst + c * PACK, *reinterpret_cast<const uint4*>(src + c), scale);
+      if (kv == 0) ring.kpos(slot)[r] = positions()[j];
+    }
+  }
+};
+
+template <typename F>
+struct Pack {  // packed values a byte: 0 for bf16 rows
+  static constexpr int value = 0;
+};
+template <int P>
+struct Pack<ac::QuantKV<bf16, P>> {
+  static constexpr int value = P;
 };
 
 // One block: chunk page bq of slot b for kv head h's GQA group, block row r
 // = query head h * group + r % group at chunk position bq * ps + r / group;
 // q and out are (B, Hq, C, D) given by their strides.  KG key groups of
-// warps split the walk (attention_mma.cuh).
+// warps split the walk (attention_mma.cuh).  F is the keys' format: bf16
+// rows (FpKV) copied straight into the ring, or packed rows with scales
+// (QuantKV) staged and dequantized by QuantLoad.
 constexpr int kTcStages = 2;
 constexpr int kKgThreads = 384;  // two key groups while their warps fit this
 
-template <int D, int KG>
+template <int D, int KG, typename F>
 __global__ void __launch_bounds__(KG == 1 ? am::MAX_ROWS * 2 : kKgThreads)
-prefill_attention_kernel_tc(const am::bf16* __restrict__ q, am::Strides qs,
-                            ac::FpKV<am::bf16> chunk_kv, ac::FpKV<am::bf16> pools,
+prefill_attention_kernel_tc(const bf16* __restrict__ q, am::Strides qs, F chunk_kv, F pools,
                             const int* __restrict__ tables, const int* __restrict__ starts,
-                            const int* __restrict__ lens, am::bf16* __restrict__ out,
+                            const int* __restrict__ lens, bf16* __restrict__ out,
                             am::Strides os, int kv_heads, int group, int chunk, int ps,
                             int max_pages, int num_pages, int window, float qscale) {
+  constexpr int PACK = Pack<F>::value;
   const int h = blockIdx.x;   // kv head
   const int bq = blockIdx.y;  // chunk page
   const int b = blockIdx.z;   // slot
@@ -284,16 +427,23 @@ prefill_attention_kernel_tc(const am::bf16* __restrict__ q, am::Strides qs,
   const int c_hi = min(i_lo + ps, len);  // causal, ragged on lens
   const int n_chunk = c_hi > c_lo ? (c_hi - c_lo + am::KEYS - 1) / am::KEYS : 0;
   const int* row = tables + (long)b * max_pages;
-  const ac::FpKV<am::bf16> head = pools.rows((long)h * num_pages * ps, D);
-  const ac::FpKV<am::bf16> own = chunk_kv.rows(bh * chunk, D);
-  int* pages = reinterpret_cast<int*>(ring.kpos(ring.SLOTS));  // past the ring
-  // The walk's fields live in shared memory: the loader reads them once a
-  // tile, and the registers they would hold go to the softmax state (two
-  // key groups leave a thread 168).
-  __shared__ PrefillKeys src;
-  if (threadIdx.x == 0)
-    src = {head.k, head.v, own.k, own.v, pages, __ffs(ps) - 1, p_lo, p_hi, start, c_lo, c_hi,
-           n_prior, D, rows};
+  const F head = pools.rows((long)h * num_pages * ps, D);
+  const F own = chunk_kv.rows(bh * chunk, D);
+  // past the ring: the quantized loader's staging area, then the slot's
+  // table entries
+  int8_t* stage = reinterpret_cast<int8_t*>(ring.kpos(ring.SLOTS));
+  int* pages = reinterpret_cast<int*>(stage + (PACK ? QuantLoad<D, PACK ? PACK : 1, KG>::bytes() : 0));
+  static_assert(QuantLoad<D, PACK ? PACK : 1, KG>::bytes() % 16 == 0, "table entries 16-byte aligned");
+  const PrefillWalk walk{pages, __ffs(ps) - 1, p_lo, p_hi, start, c_lo, c_hi, n_prior, rows};
+  using Keys = std::conditional_t<PACK == 0, PrefillKeys, QuantKeys<D, PACK ? PACK : 1>>;
+  __shared__ Keys src;
+  if (threadIdx.x == 0) {
+    if constexpr (PACK == 0)
+      src = {walk, head.k, head.v, own.k, own.v, D};
+    else
+      src = {walk, head.k, head.v, own.k, own.v, head.ks, head.vs, own.ks, own.vs, stage,
+             n_prior + n_chunk};
+  }
   for (int i = threadIdx.x; i < p_hi - p_lo; i += blockDim.x) {
     const int page = row[p_lo + i];
     pages[i] = page >= 0 && page < num_pages ? page : -1;
@@ -305,13 +455,18 @@ prefill_attention_kernel_tc(const am::bf16* __restrict__ q, am::Strides qs,
   };
   const am::PosMask mask{nullptr, q_lo, group, window, true};
   am::WarpAttention<D> wa;
-  am::attend(
-      wa, ring, [&](int r) { return r < rows ? q + at(qs, r) : nullptr; }, n_prior + n_chunk,
-      src, mask, qscale, q);
+  auto qrow = [&](int r) { return r < rows ? q + at(qs, r) : nullptr; };
+  if constexpr (PACK == 0) {
+    am::attend(wa, ring, qrow, n_prior + n_chunk, src, mask, qscale, q);
+  } else {
+    QuantLoad<D, PACK, KG> ld{src};
+    am::attend(wa, ring, qrow, n_prior + n_chunk, ld, mask, qscale, q);
+  }
   if ((int)threadIdx.x < (int)blockDim.x / KG)  // key group 0 holds the merged rows
     wa.store([&](int r) { return r < rows ? out + at(os, r) : nullptr; });
 
   // ---- the paged write: this block's chunk page, through the table ------
+  // (quantized: packed bytes and scales of the same rows together)
   const bool live_page = i_lo < len;
   const int tidx = min(start / ps + bq, max_pages - 1);
   const int dst = live_page ? row[tidx] : 0;
@@ -319,29 +474,51 @@ prefill_attention_kernel_tc(const am::bf16* __restrict__ q, am::Strides qs,
   own.rows(i_lo, D).copy_rows(head.rows((long)dst * ps, D), ps, D);
 }
 
-template <int D, int KG>
-int launch_tc(const void* q, am::Strides qs, ac::FpKV<am::bf16> chunk_kv,
-              ac::FpKV<am::bf16> pools, const void* tables, const void* starts,
-              const void* lens, void* out, am::Strides os, int slots, int kv_heads, int group,
-              int chunk, int ps, int max_pages, int num_pages, int window, float sm_scale,
-              cudaStream_t stream) {
-  using B = am::bf16;
+template <int D, int KG, typename F>
+int launch_tc(const void* q, am::Strides qs, F chunk_kv, F pools, const void* tables,
+              const void* starts, const void* lens, void* out, am::Strides os, int slots,
+              int kv_heads, int group, int chunk, int ps, int max_pages, int num_pages,
+              int window, float sm_scale, cudaStream_t stream) {
+  constexpr int PACK = Pack<F>::value;
   const int rows = ps * group, warps = (rows + 15) / 16;
-  // the ring, then the slot's table entries
-  const size_t smem = am::Ring<D, kTcStages, KG>::bytes() + sizeof(int) * (size_t)max_pages;
+  // the ring, the quantized loader's staging area, then the slot's table entries
+  const size_t smem = am::Ring<D, kTcStages, KG>::bytes() +
+                      (PACK ? QuantLoad<D, PACK ? PACK : 1, KG>::bytes() : 0) +
+                      sizeof(int) * (size_t)max_pages;
   if (chunk % ps != 0 || am::KEYS % ps != 0 || (ps & (ps - 1)) != 0 || rows > am::MAX_ROWS ||
       slots > 65535 || chunk / ps > 65535 || smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  auto kernel = prefill_attention_kernel_tc<D, KG>;
+  auto kernel = prefill_attention_kernel_tc<D, KG, F>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(kv_heads, chunk / ps, slots);
   kernel<<<grid, KG * warps * 32, smem, stream>>>(
-      (const B*)q, qs, chunk_kv, pools, (const int*)tables, (const int*)starts,
-      (const int*)lens, (B*)out, os, kv_heads, group, chunk, ps, max_pages, num_pages, window,
-      sm_scale * ac::LOG2E);
+      (const bf16*)q, qs, chunk_kv, pools, (const int*)tables, (const int*)starts,
+      (const int*)lens, (bf16*)out, os, kv_heads, group, chunk, ps, max_pages, num_pages,
+      window, sm_scale * ac::LOG2E);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core launch of format F: two key groups where their warps fit
+// kKgThreads, head dim 64 or 128.
+template <typename F>
+int launch_tc_any(int d, const void* q, am::Strides qs, F chunk_kv, F pools,
+                  const void* tables, const void* starts, const void* lens, void* out,
+                  am::Strides os, int slots, int kv_heads, int group, int chunk, int ps,
+                  int max_pages, int num_pages, int window, float sm_scale,
+                  cudaStream_t stream) {
+  const bool split = 2 * 32 * ((ps * group + 15) / 16) <= kKgThreads;  // two key groups
+#define PF_TC(D, KG)                                                                     \
+  return launch_tc<D, KG, F>(q, qs, chunk_kv, pools, tables, starts, lens, out, os,     \
+                             slots, kv_heads, group, chunk, ps, max_pages, num_pages,   \
+                             window, sm_scale, stream)
+  if (d == 128 && split) PF_TC(128, 2);
+  if (d == 128) PF_TC(128, 1);
+  if (d == 64 && split) PF_TC(64, 2);
+  if (d == 64) PF_TC(64, 1);
+#undef PF_TC
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int PACK>
@@ -370,19 +547,11 @@ extern "C" int prefill_attention_launch(
   cudaStream_t s = (cudaStream_t)stream;
   if (tc) {
     using B = __nv_bfloat16;
-    const ac::FpKV<B> chunk_kv{(B*)k, (B*)v}, pools{(B*)k_pages, (B*)v_pages};
-    const am::Strides qst{qb, qh, qs}, ost{ob, oh, os};
-    const bool split = 2 * 32 * ((ps * group + 15) / 16) <= kKgThreads;  // two key groups
-#define PF_TC(D, KG)                                                                      \
-  return launch_tc<D, KG>(q, qst, chunk_kv, pools, tables, starts, lens, out, ost, slots, \
-                          kv_heads, group, chunk, ps, max_pages, num_pages, window,      \
-                          sm_scale, s)
-    if (dtype == 1 && d == 128 && split) PF_TC(128, 2);
-    if (dtype == 1 && d == 128) PF_TC(128, 1);
-    if (dtype == 1 && d == 64 && split) PF_TC(64, 2);
-    if (dtype == 1 && d == 64) PF_TC(64, 1);
-#undef PF_TC
-    return (int)cudaErrorInvalidValue;
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_tc_any(d, q, am::Strides{qb, qh, qs}, ac::FpKV<B>{(B*)k, (B*)v},
+                         ac::FpKV<B>{(B*)k_pages, (B*)v_pages}, tables, starts, lens, out,
+                         am::Strides{ob, oh, os}, slots, kv_heads, group, chunk, ps, max_pages,
+                         num_pages, window, sm_scale, s);
   }
   if (dtype == 0)
     return launch(q, ac::FpKV<float>{(float*)k, (float*)v},
@@ -400,15 +569,28 @@ extern "C" int prefill_attention_launch(
 }
 
 // The quantized twin: pack 1 = int8, 2 = int4; the chunk's scales and the
-// scale pools are of q's dtype.  Needs head_dim / pack a multiple of 16
-// bytes, with 16-byte aligned packed tensors.
+// scale pools are of q's dtype; tc and the strides of q and out as above
+// (the tensor-core kernel takes the same shapes, with bfloat16 scales).
+// Needs head_dim / pack a multiple of 16 bytes, with 16-byte aligned packed
+// tensors.
 extern "C" int prefill_attention_quant_launch(
-    int dtype, int pack, const void* q, void* k, void* v, void* k_scale,
+    int dtype, int tc, int pack, const void* q, void* k, void* v, void* k_scale,
     void* v_scale, void* k_pages, void* v_pages, void* k_scales,
     void* v_scales, const void* tables, const void* starts, const void* lens,
-    void* out, int slots, int kv_heads, int group, int chunk, int d, int ps,
+    void* out, long long qb, long long qh, long long qs, long long ob, long long oh,
+    long long os, int slots, int kv_heads, int group, int chunk, int d, int ps,
     int max_pages, int num_pages, int window, float sm_scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+#define PF_QUANT_TC(P)                                                                      \
+  return launch_tc_any(d, q, am::Strides{qb, qh, qs},                                      \
+                       quant_kv<__nv_bfloat16, P>(k, v, k_scale, v_scale),                 \
+                       quant_kv<__nv_bfloat16, P>(k_pages, v_pages, k_scales, v_scales),  \
+                       tables, starts, lens, out, am::Strides{ob, oh, os}, slots, kv_heads, \
+                       group, chunk, ps, max_pages, num_pages, window, sm_scale, s)
+  if (tc && dtype == 1 && pack == 1) PF_QUANT_TC(1);
+  if (tc && dtype == 1 && pack == 2) PF_QUANT_TC(2);
+#undef PF_QUANT_TC
+  if (tc) return (int)cudaErrorInvalidValue;
 #define PF_QUANT(T, P)                                                       \
   return launch(q, quant_kv<T, P>(k, v, k_scale, v_scale),                   \
                 quant_kv<T, P>(k_pages, v_pages, k_scales, v_scales), tables, \

@@ -6,11 +6,19 @@ Counterpart of
 (repro/kernels/prefill_attention.py:157).  The chunk arrives quantized
 (``kernels.ops`` quantizes it in plain torch, as the reference does at
 ops.py:392): packed int8 / int4 K/V plus per-token scales.  The kernel
-attends the prior pages dequantized page by page, then the chunk's own
-dequantized round trip, and writes the chunk's packed bytes and scales into
-the four pools **in place** through the block table.  The plain version is
+attends the prior pages dequantized, then the chunk's own dequantized round
+trip, and writes the chunk's packed bytes and scales into the four pools
+**in place** through the block table.  The plain version is
 ``ref.paged_prefill_attention_quant``; this wrapper takes it for CPU tensors
 only.  For a CUDA tensor it launches the kernel or raises.
+
+The kernel has two paths, picked from dtype and shape alone
+(:func:`tensor_core_path`): bf16 at the fp kernel's tensor-core shapes runs
+its tensor-core walk with a loader that dequantizes each staged tile of
+packed bytes into bf16, and reads q and writes the output through their
+(B, Hq, C, D) strides (no copy; ``KERNEL.tc_launches`` counts those
+launches); the rest runs on CUDA cores over q packed chunk-major with its
+GQA group, a copy each way.
 
 The kernel contract is the fp kernel's (``prefill_attention.py``): ``chunk
 % page_size == 0``, ``chunk // page_size <= max_pages``, page-aligned starts
@@ -27,17 +35,33 @@ from typing import Optional
 import torch
 
 from . import ref
+from . import prefill_attention as _fp
 from .build import Kernel, check
+from .flash_attention import kernel_layout
 from .paged_attention import DTYPES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
     "prefill_attention_quant", "prefill_attention_quant_launch",
-    [_I, _I] + [_P] * 13 + [_I] * 9 + [ctypes.c_float, _P],
+    [_I, _I, _I] + [_P] * 13 + [ctypes.c_longlong] * 6 + [_I] * 9 + [ctypes.c_float, _P],
     replaces="src/repro/kernels/prefill_attention.py:157",
     source="prefill_attention",
 )
+# table entries a block copies into shared memory beside the ring and the
+# staging area (38 KB at int8, D 128, two key groups)
+TC_MAX_PAGES = 8192
+
+
+def tensor_core_path(dtype: torch.dtype, head_dim: int, page_size: int,
+                     group: int, max_pages: int) -> bool:
+    """Whether a launch takes the tensor-core kernel: the fp kernel's rule
+    (bf16, head dim 64 or 128, pages that tile its 64-key tiles, a page's
+    GQA rows within a block), int8 or int4 alike, with a table row that
+    fits shared memory beside the staging area.  Slots, chunk, starts and
+    lengths do not matter."""
+    return (_fp.tensor_core_path(dtype, head_dim, page_size, group, max_pages)
+            and max_pages <= TC_MAX_PAGES)
 
 
 def _require(cond: bool, msg: str):
@@ -103,26 +127,32 @@ def prefill_attention_quant(q, k_q, v_q, k_s, v_s, k_pages, v_pages,
              and page_size & (page_size - 1) == 0,
              f"a packed row ({dp} bytes) must be a multiple of 16 bytes and "
              f"page_size {page_size} a power of two <= 32")
-    # pack queries chunk-major with their GQA group: row = i * group + g
-    qp = q.reshape(b, hkv, group, chunk, d).transpose(2, 3).contiguous()
+    tc = tensor_core_path(q.dtype, d, page_size, group, max_pages)
+    if tc:  # read and written through their strides by the kernel's row mapping
+        qp = kernel_layout(q)
+    else:  # pack queries chunk-major with their GQA group: row = i * group + g
+        qp = q.reshape(b, hkv, group, chunk, d).transpose(2, 3).contiguous()
     kq, vq, ks, vs = (t.contiguous() for t in (k_q, v_q, k_s, v_s))
     starts, lens = start_lens.contiguous(), chunk_lens.contiguous()
-    for name, t in (("k_q", kq), ("v_q", vq), ("k_pages", k_pages),
+    for name, t in (("q", qp), ("k_q", kq), ("v_q", vq), ("k_pages", k_pages),
                     ("v_pages", v_pages)):
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    out = torch.empty_like(qp)
+    out = torch.empty_like(qp)  # qp's strides: a (B, C, H, D) layout stays so
+    strides = [s for t in (qp, out) for s in t.stride()[:3]] if tc else [0] * 6
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], pack, qp.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+            DTYPES[q.dtype], int(tc), pack, qp.data_ptr(), kq.data_ptr(), vq.data_ptr(),
             ks.data_ptr(), vs.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
             block_tables.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, hkv, group, chunk, d, page_size, max_pages,
+            out.data_ptr(), *strides, b, hkv, group, chunk, d, page_size, max_pages,
             num_pages, window if window is not None else 0, scale, stream,
         )
     check(rc, "prefill_attention_quant")
     KERNEL.launches += 1
-    out = out.reshape(b, hkv, chunk, group, d).transpose(2, 3)
-    return out.reshape(b, hq, chunk, d), k_pages, v_pages, k_scales, v_scales
+    KERNEL.tc_launches += int(tc)
+    if not tc:
+        out = out.reshape(b, hkv, chunk, group, d).transpose(2, 3).reshape(b, hq, chunk, d)
+    return out, k_pages, v_pages, k_scales, v_scales

@@ -228,6 +228,60 @@ def test_cuda_quant_kernels_match_plain_versions(fmt):
                         assert torch.equal(pool_p[:, pg, of], new[bi, :, c])
 
 
+# (hq, hkv, d, page_size, format): qwen2-1.5B's heads at head dims 128 and
+# 64 on pages of 16 (two key groups of 6 warps) and 8, a group of 4 on pages
+# of 32 (128 rows: one key group of 8 warps), a group of 5 (pages of 8: 40
+# rows, 8 dead rows pad the last warp)
+PREFILL_QUANT_TC = [(12, 2, 128, 16, "int8"), (12, 2, 128, 16, "int4"), (12, 2, 64, 16, "int8"),
+                    (12, 2, 128, 8, "int4"), (8, 2, 128, 32, "int8"), (10, 2, 64, 8, "int4")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PREFILL_QUANT_TC, ids=[str(c) for c in PREFILL_QUANT_TC])
+def test_cuda_prefill_quant_tensor_core_edges(case):
+    """On a card: the bf16 quantized chunked prefill takes the tensor-core
+    path (one tensor-core launch each) on the transposed q the prefill layer
+    hands it, with a one-token chunk, an idle (len-0) slot, a partial chunk
+    and a chunk whose pages reach the last table entry, with and without a
+    window: within two bf16 ulps of the plain version, the output in q's
+    layout, and the four pools byte-identical to the plain version's at
+    every live position (packed bytes and scales)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    hq, hkv, d, ps, fmt = case
+    dev = torch.device("cuda")
+    b, mp, chunk = 4, 128 // ps, 32
+    num_pages = b * mp + 1
+    tables = torch.as_tensor(_tables(np.random.default_rng(12), b, mp, num_pages), device=dev)
+    # page-aligned starts (the kernel's contract): pages of 32 start slot 1 at 0
+    starts = torch.tensor([0, 16, 48, 96], dtype=torch.int32, device=dev) // ps * ps
+    clens = torch.tensor([1, 0, 19, 32], dtype=torch.int32, device=dev)  # 96 + 32 = 128
+    g = torch.Generator(device=dev).manual_seed(13)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    pools = [*ref.quantize_rows(rand(hkv, num_pages, ps, d), fmt),
+             *ref.quantize_rows(rand(hkv, num_pages, ps, d), fmt)]
+    pools = [pools[0], pools[2], pools[1], pools[3]]  # k, v bytes; k, v scales
+    qc = rand(b, chunk, hq, d).transpose(1, 2)  # as attention_prefill_paged hands them
+    (knq, kns), (vnq, vns) = (ref.quantize_rows(rand(b, hkv, chunk, d), fmt) for _ in range(2))
+    tb = tables.cpu().numpy()
+    for window in (None, 40):
+        p1, p2 = [t.clone() for t in pools], [t.clone() for t in pools]
+        n0, tc0 = PFQ.KERNEL.launches, PFQ.KERNEL.tc_launches
+        out = PFQ.prefill_attention_quant(qc, knq, vnq, kns, vns, *p1, tables, starts, clens,
+                                          fmt=fmt, window=window)[0]
+        assert (PFQ.KERNEL.launches, PFQ.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
+        assert out.stride() == qc.stride()  # written in the layer's layout
+        plain = ref.paged_prefill_attention_quant(qc, knq, vnq, kns, vns, *p2, tables, starts,
+                                                  clens, fmt=fmt, window=window)[0]
+        assert _within_limit(out, plain)
+        for bi, (s0, n) in enumerate(zip(starts.tolist(), clens.tolist())):
+            for c in range(n):
+                pg, of = int(tb[bi, (s0 + c) // ps]), (s0 + c) % ps
+                for pool_k, pool_p, new in zip(p1, p2, (knq, vnq, kns, vns)):
+                    assert torch.equal(pool_k[:, pg, of], new[bi, :, c])
+                    assert torch.equal(pool_p[:, pg, of], new[bi, :, c])
+
+
 # ---------------------------------------------------------------------------
 # multi-head latent attention: deepseek-v2-lite-16B's widths (16 heads, a
 # 512-wide latent, a 64-wide rope part), the model's scale 1 / sqrt(192)
@@ -556,6 +610,38 @@ def test_cuda_ssd_kernels_match_plain_versions(case):
             assert st.dtype == torch.float32 and y.dtype == dtype
             assert _ssd_within_limit(st, ref.chunk_state(b_, x_, d_))
             assert _ssd_within_limit(y, ref.chunk_scan(c_, b_, x_, d_, s_))
+
+
+# (batch, heads, chunks, L, C and B broadcast over the heads, X in rows 2 P
+# apart): mamba2-2.7B's N 128 / P 64 at chunks of 128 and 64
+SCAN_TC = [(2, 80, 2, 128, True, False), (2, 6, 3, 64, True, True), (1, 5, 2, 128, False, True),
+           (1, 3, 2, 64, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_TC, ids=[str(c) for c in SCAN_TC])
+def test_cuda_chunk_scan_tensor_core_edges(case):
+    """On a card: bf16 chunk_scan at mamba2's N 128 / P 64 takes its
+    tensor-core path (every launch counted in tc_launches) on head-broadcast
+    and materialised C and B, chunks of 128 and 64 and X read through
+    strided rows, a deep decay: within two bf16 ulps of the plain version
+    (a growing decay's outputs cancel past what the plain version's fp32
+    resolves; chip_smoke.py prints that reading, and the SSD test above
+    holds a chunk of 64 under it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    batch, heads, nc, length, broadcast, strided = case
+    dev = torch.device("cuda")
+    cm, bm, x, da, prev = _ssd_case((batch, heads, nc, length, 128, 64, True),
+                                    torch.bfloat16, dev)
+    if not broadcast:
+        cm, bm = cm.contiguous(), bm.contiguous()
+    if strided:
+        x = torch.cat([x, x], -1)[..., :64]
+    n0, tc0 = CSC.KERNEL.launches, CSC.KERNEL.tc_launches
+    y = CSC.chunk_scan(cm, bm, x, da, prev)
+    assert (CSC.KERNEL.launches, CSC.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
+    assert _ssd_within_limit(y, ref.chunk_scan(cm, bm, x, da, prev))
 
 
 @pytest.mark.cuda
