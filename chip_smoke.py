@@ -24,14 +24,18 @@ no phase is skipped):
    including a len-0 slot, a sliding window and a partial chunk (bf16 limit
    in ulps of the plain value, checked against three controls: an
    fp32-accumulating online softmax must pass it, one accumulating in bf16
-   and one rounding P once to bf16 must fail it); the split decode's merge
-   without the rescale to the common max must fail it too (fp32 and bf16),
-   and its grid (splits of 64 keys from static shapes) is printed; every
+   and one rounding P once to bf16 must fail it); the split decodes' merge
+   without the rescale to the common max must fail it too (fp32 and bf16:
+   the GQA decode, the MLA decode and its quantized twin), and their grids
+   (splits of 64 keys from static shapes) are printed; every
    bf16 launch of the flash, fp and quantized GQA chunked-prefill and fp
-   decode kernels, and of the MLA chunked prefill and its quantized twin,
-   must take their tensor-core path (``KERNEL.tc_launches``); the
+   decode kernels, and of the MLA decode, the MLA chunked prefill and their
+   quantized twins, must take their tensor-core path
+   (``KERNEL.tc_launches``); the
    tensor-core prefills' device cost of a key tile is read from two walks
-   (the quantized GQA prefill's in int8), and the tensor-core chunk_scan's
+   (the quantized GQA prefill's in int8), the split decodes' split and
+   merge kernels' device us a call (the GQA decode; the MLA decode in bf16
+   and int8) from torch.profiler, and the tensor-core chunk_scan's
    cost a head of a block's walk from launches of 80 and 40 heads; time
    kernel, plain version and, as a
    yardstick only, ``scaled_dot_product_attention`` over the gathered (for
@@ -87,7 +91,10 @@ no phase is skipped):
 4. teacher-forced logits at full width, depth cut to 4 layers: the card's
    bf16 kernel path against the plain path in fp32 on the CPU (error in
    standard deviations of the logits, top-10 and argmax agreement), for fp
-   and int8 pages within one limit; int4's reading is printed, not gated;
+   and int8 pages within one limit; int4's reading is printed, not gated,
+   and int4 is gated against the CPU run on the card's codes (every page
+   row quantized as the card quantized it), which leaves the kernels'
+   arithmetic and not the codes' rounding;
 
 then phases 3 and 4 again for full-width deepseek-v2-lite-16B (MLA +
 64-expert top-6 MoE, bf16 with an fp32 router, after qwen's parameters are
@@ -95,10 +102,11 @@ freed; its serving depth cut to 14 of 27 layers to keep the script within
 half its time limit): the same workload in fp, int8 and int4
 latent pages and int8 with ``sync_every=16`` under the no-host-sync check
 (ticks and mean TTFT equal across the four, window outputs byte-identical
-to per-tick int8, every MLA chunked-prefill launch on tensor cores), and teacher-forced logits at depth 2 (the dense prefix
+to per-tick int8, every MLA decode and chunked-prefill launch on tensor
+cores), and teacher-forced logits at depth 2 (the dense prefix
 layer and one MoE layer), with the share of MoE routing choices the card and
 the CPU make alike; the limits are qwen's, over the steps whose read token
-both route to the same experts (at least half of them);
+both route to the same experts (at least half of them), int4 as qwen's;
 
 5. train full-width qwen2-1.5B (28 layers, bf16, seeded) through
    ``make_train_step`` (the loss with per-layer recompute, its gradient,
@@ -315,7 +323,7 @@ def controls_text(r) -> str:
 def kernel_ok(r) -> bool:
     """A check's result within its limit.  In bf16 the limit must also pass
     the fp32-accumulating control and reject the bf16-accumulating one and
-    the one that rounds P to bf16; for the split decode it must reject the
+    the one that rounds P to bf16; for the split decodes it must reject the
     merge without the rescale, in either dtype."""
     limit = BF16_ULPS if "ulps" in r else FP32_ATOL
     if r.get("merge_no_rescale", float("inf")) <= limit:
@@ -599,10 +607,20 @@ def _yardstick(torch, res, q, k, v, mask, flush):
     res["library_ms"] = None
 
 
+def mla_decode_grid(torch, MP, dev):
+    """(splits, keys a split) of the MLA decode kernel at deepseek-v2-lite-
+    16B's serving shape on this device's SM count."""
+    sms = MP.sm_count(dev.index or 0) if dev.type == "cuda" else H100_SMS
+    return MP.split_grid(SLOTS, MLA_HEADS, MAX_LEN // PAGE, PAGE, sms)
+
+
 def check_mla_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
                      fmt=None):
     """The paged MLA decode kernel (``fmt`` None) or its quantized twin
-    against its plain version, at deepseek-v2-lite-16B's widths."""
+    against its plain version, at deepseek-v2-lite-16B's widths, with the
+    split grid and the merge's control (as check_decode)."""
+    from repro_torch.kernels import mla_paged as MP
+
     rng = np.random.default_rng(11)
     tables, num_pages = _tables(torch, rng, dev)
     lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
@@ -622,11 +640,23 @@ def check_mla_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     lens_t = torch.as_tensor(lens, device=dev)
     run = lambda: kernel(q, qpe, *args, tables, lens_t, **kw)  # noqa: E731
     plain_run = lambda: plain_fn(q, qpe, *args, tables, lens_t, **kw)  # noqa: E731
-    before = mod.KERNEL.launches
+    before, tc_before = mod.KERNEL.launches, mod.KERNEL.tc_launches
     out, plain = run(), plain_run()
-    mod.KERNEL.launches = before  # comparison launches do not count
+    tc = mod.KERNEL.tc_launches - tc_before
+    mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before  # comparisons do not count
     assert torch.isfinite(out).all() and out[2].abs().max().item() == 0.0
-    res = {"err": (out.float() - plain.float()).abs().max().item()}
+    res = {"err": (out.float() - plain.float()).abs().max().item(), "tc_launches": tc}
+    # the split grid, and the merge's control: the split kernel's arithmetic
+    # in plain PyTorch over what the kernel attends, with the partial states
+    # summed as they stand, not rescaled to their common max, must fail the
+    # limit
+    splits, split_keys = mla_decode_grid(torch, MP, dev)
+    res["splits"] = f"{splits} splits of {split_keys} keys, {SLOTS * splits} blocks"
+    faulty = MP.split_decode(q, qpe, ckv, kpe, tables, lens_t, splits, split_keys,
+                             sm_scale=MLA_SCALE, window=window,
+                             pair=dtype == torch.bfloat16, rescale=False)
+    res["merge_no_rescale"] = (bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
+                               else (faulty.float() - plain.float()).abs().max().item())
     # each slot's pages gathered for one dense call: SDPA and the controls
     kg = torch.cat([ckv, kpe], -1)[tables.long()].reshape(SLOTS, 1, -1, RANK + ROPE)
     vg = ckv[tables.long()].reshape(SLOTS, 1, -1, RANK)
@@ -643,7 +673,7 @@ def check_mla_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     if timed:
         res["ms"] = time_ms(torch, run, flush=flush)
         res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
-        mod.KERNEL.launches = before
+        mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
         _yardstick(torch, res, q4, kg.expand(-1, MLA_HEADS, -1, -1),
                    vg.expand(-1, MLA_HEADS, -1, -1), mask, flush)
         eff = lens if window is None else np.minimum(lens, window)
@@ -925,14 +955,29 @@ def scan_phase_cost(torch, CSC, flush, dev):
     return per, ms[1] * 1e3 - 20 * per
 
 
-def decode_cost(torch, np, PA, flush, dev, calls=20):
-    """Where a bf16 decode launch's device time goes at check_decode's
-    inputs (window None): the split kernel's and the merge kernel's device
-    us a call, from torch.profiler's device rows over ``calls`` calls, L2
+def split_cost(torch, run, split_key, flush, calls=20):
+    """The device us a call of a split-KV decode's two kernels: the split
+    kernel (its name holds ``split_key``) and the merge, from
+    torch.profiler's device rows over ``calls`` calls of ``run``, L2
     flushed before each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run()  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush()
+            run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {part: sum(e.self_device_time_total for e in rows if key in e.key) / calls
+            for part, key in (("split", split_key), ("merge", "merge_kernel"))}
+
+
+def decode_cost(torch, np, PA, flush, dev, calls=20):
+    """Where a bf16 decode launch's device time goes at check_decode's
+    inputs (window None): split_cost's reading."""
     rng = np.random.default_rng(1)
     tables, num_pages = _tables(torch, rng, dev)
     lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
@@ -943,17 +988,36 @@ def decode_cost(torch, np, PA, flush, dev, calls=20):
               for _ in range(2))
     lens_t = torch.as_tensor(lens, device=dev)
     before = PA.KERNEL.launches, PA.KERNEL.tc_launches
-    PA.paged_attention(q, kp, vp, tables, lens_t)  # built and warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            flush()
-            PA.paged_attention(q, kp, vp, tables, lens_t)
-        torch.cuda.synchronize()
+    cost = split_cost(torch, lambda: PA.paged_attention(q, kp, vp, tables, lens_t),
+                      "paged_attention_kernel", flush, calls)
     PA.KERNEL.launches, PA.KERNEL.tc_launches = before
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {part: sum(e.self_device_time_total for e in rows if key in e.key) / calls
-            for part, key in (("split", "paged_attention_kernel"), ("merge", "merge_kernel"))}
+    return cost
+
+
+def mla_decode_cost(torch, np, ref, MP, MPQ, flush, dev, calls=20):
+    """decode_cost's reading for the bf16 MLA decode and its int8 twin at
+    check_mla_decode's inputs (window None): {"fp": ..., "int8": ...}."""
+    rng = np.random.default_rng(11)
+    tables, num_pages = _tables(torch, rng, dev)
+    lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
+    lens[2], lens[5] = 0, MAX_LEN
+    g = torch.Generator(device=dev).manual_seed(12)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    q, qpe = rand(SLOTS, MLA_HEADS, RANK), rand(SLOTS, MLA_HEADS, ROPE)
+    ckv, kpe = rand(num_pages, PAGE, RANK), rand(num_pages, PAGE, ROPE)
+    lens_t = torch.as_tensor(lens, device=dev)
+    kw = {"sm_scale": MLA_SCALE}
+    (cq, cs_), (pq, ps_) = ref.quantize_rows(ckv, "int8"), ref.quantize_rows(kpe, "int8")
+    before = [(m.KERNEL.launches, m.KERNEL.tc_launches) for m in (MP, MPQ)]
+    cost = {"fp": split_cost(torch, lambda: MP.mla_paged(q, qpe, ckv, kpe, tables, lens_t, **kw),
+                             "mla_paged_tc_kernel", flush, calls),
+            "int8": split_cost(torch, lambda: MPQ.mla_paged_quant(
+                q, qpe, cq, pq, cs_, ps_, tables, lens_t, fmt="int8", **kw),
+                "mla_paged_tc_kernel", flush, calls)}
+    assert MP.KERNEL.tc_launches > before[0][1] and MPQ.KERNEL.tc_launches > before[1][1]
+    for m, b in zip((MP, MPQ), before):
+        m.KERNEL.launches, m.KERNEL.tc_launches = b
+    return cost
 
 
 # phase 2, SSD: the Mamba-2 chunk kernels at mamba2-2.7B's training shapes
@@ -1187,11 +1251,11 @@ def serve(torch, np, cfg, params, kernels, device, max_new=32, requests=16,
 
 FP_KERNELS = ("paged_attention", "prefill_attention")
 TC_KERNELS = ("prefill_attention", "paged_attention")  # all bf16 launches on tensor cores
-MLA_TC_KERNELS = ("mla_prefill", "mla_prefill_quant")  # the same at deepseek's widths
 QUANT_KERNELS = ("paged_attention_quant", "prefill_attention_quant")
 QUANT_TC_KERNELS = ("prefill_attention_quant",)  # all its bf16 launches on tensor cores
 MLA_FP_KERNELS = ("mla_paged", "mla_prefill")
 MLA_QUANT_KERNELS = ("mla_paged_quant", "mla_prefill_quant")
+MLA_TC_KERNELS = MLA_FP_KERNELS + MLA_QUANT_KERNELS  # all bf16 launches at deepseek's widths
 FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
 # Cuts that keep the whole script within half its 1200 s limit on a slow
 # host (a run on an H100 80GB HBM3 at 700 W took 810 s without them, 275 s
@@ -1325,15 +1389,15 @@ def mla_serving_phase(torch, np, lm, cfg, params, kernels, device):
     are byte-identical to per-tick int8's with fewer host dispatches."""
     runs = {}
     run = make_runner(torch, np, cfg, params, kernels, device, runs)
-    fp, fp_reqs = run("fp", MLA_FP_KERNELS, MLA_TC_KERNELS[:1])
+    fp, fp_reqs = run("fp", MLA_FP_KERNELS, MLA_FP_KERNELS)
     for fmt in ("int8", "int4"):
-        eng, reqs = run(fmt, MLA_QUANT_KERNELS, MLA_TC_KERNELS[1:], kv_dtype=fmt)
+        eng, reqs = run(fmt, MLA_QUANT_KERNELS, MLA_QUANT_KERNELS, kv_dtype=fmt)
         log(f"[serve] {cfg.name} {fmt} vs fp: "
             f"{eng.cache.kv_bytes() / fp.cache.kv_bytes():.3f}x the KV bytes")
         assert eng.steps_run == fp.steps_run and mean_ttft(reqs) == mean_ttft(fp_reqs)
     q8, q8_reqs = runs["int8"][:2]
     with strict_windows(torch, lm, device):
-        win, win_reqs = run("int8, sync_every=16", MLA_QUANT_KERNELS, MLA_TC_KERNELS[1:],
+        win, win_reqs = run("int8, sync_every=16", MLA_QUANT_KERNELS, MLA_QUANT_KERNELS,
                             kv_dtype="int8", sync_every=16)
     assert win.steps_run == fp.steps_run and mean_ttft(win_reqs) == mean_ttft(fp_reqs)
     assert win.decode_windows > 0 and win.dispatches < q8.dispatches
@@ -1399,7 +1463,49 @@ def step_agreement(torch, got, want):
     return err, len(common), int(got.argmax() == want.argmax()), ((top2[0] - top2[1]) / std).item()
 
 
-def teacher_forced(torch, np, lm, cfg4, dev):
+@contextlib.contextmanager
+def recorded_codes(ref, codes):
+    """Appends every per-row quantization made inside the block (the KV
+    pages' codes and scales, ``ref.quantize_rows``) to ``codes``, in call
+    order, on the CPU."""
+    quantize = ref.quantize_rows
+
+    def recording(x, fmt="int8"):
+        packed, scales = quantize(x, fmt)
+        codes.append((packed.cpu(), scales.cpu()))
+        return packed, scales
+
+    ref.quantize_rows = recording
+    try:
+        yield
+    finally:
+        ref.quantize_rows = quantize
+
+
+@contextlib.contextmanager
+def replayed_codes(ref, codes):
+    """Inside the block the i-th per-row quantization returns the i-th of
+    ``codes`` (another run's, of the same shapes) on the caller's device,
+    its scales in the caller's dtype: the run attends the pages the other
+    run wrote.  Every recorded quantization must be replayed."""
+    quantize = ref.quantize_rows
+    calls = iter(codes)
+
+    def replaying(x, fmt="int8"):
+        packed, scales = quantize(x, fmt)
+        got, got_scales = next(calls)
+        assert got.shape == packed.shape and got_scales.shape == scales.shape
+        return got.to(packed.device), got_scales.to(scales.device, scales.dtype)
+
+    ref.quantize_rows = replaying
+    try:
+        yield
+        assert next(calls, None) is None, "fewer quantizations than recorded"
+    finally:
+        ref.quantize_rows = quantize
+
+
+def teacher_forced(torch, np, lm, cfg4, dev, shared_codes=False):
     """Prefill a 100-token prompt in 64-token chunks, then 8 decode steps
     with fed tokens, on the card (bf16, kernels) and on the CPU (fp32, plain
     path, the same weights upcast).  Returns, over the 10 steps, the worst
@@ -1414,7 +1520,16 @@ def teacher_forced(torch, np, lm, cfg4, dev):
     router input can flip a near tie between two experts, which moves that
     token's output by a whole expert's contribution.  The ``*_agree`` keys
     hold the three readings over the steps that route alike (every step
-    without experts)."""
+    without experts).
+
+    ``shared_codes`` (quantized KV): also runs the CPU on the card's codes
+    (every page row quantized as the card quantized it, codes and bf16
+    scales, instead of from its own fp32 values) and returns the two
+    comparisons, (own codes, shared codes): the second separates the
+    kernels' arithmetic from the codes' rounding, which at int4 moves a
+    value by up to half of a row's absmax / 7 wherever the card's bf16 and
+    the CPU's fp32 inputs round to different codes."""
+    from repro_torch.kernels import ref
     from repro_torch.models import layers
 
     params = lm.init(cfg4, 7, device=dev)
@@ -1431,40 +1546,58 @@ def teacher_forced(torch, np, lm, cfg4, dev):
     rng = np.random.default_rng(5)
     prompt = rng.integers(0, cfg4.vocab_size, size=100)
     fed = rng.integers(0, cfg4.vocab_size, size=8)
-    results, routes = [], []
-    for c, p, d in ((cfg4, params, dev), (cfg32, p32, torch.device("cpu"))):
-        cache = lm.init_cache(c, 2, 256, page_size=PAGE, num_blocks=40, device=d)
-        tb = np.zeros((2, 16), np.int32)
-        tb[0] = np.arange(1, 17)
-        cache = cache.with_tables(torch.as_tensor(tb, device=d))
-        steps, step_routes = [], []
-        with recorded_routing(layers) as picks:
-            for s0 in (0, 64):
-                n = min(64, 100 - s0)
-                toks = np.zeros((2, 64), np.int32)
-                toks[0, :n] = prompt[s0:s0 + n]
-                start = len(picks)
-                logits, cache = lm.prefill_step(
-                    p, c, cache, torch.as_tensor(toks, device=d),
-                    torch.as_tensor([s0, 0], dtype=torch.int32, device=d),
-                    torch.as_tensor([n, 0], dtype=torch.int32, device=d))
-                steps.append(logits[0].float().cpu())
-                # slot 0's rows (tokens 0..63), the read one last live
-                step_routes.append(([x[:64] for x in picks[start:]], n - 1))
-            for i, t in enumerate(fed):
-                start = len(picks)
-                logits, cache = lm.decode_step(
-                    p, c, cache, torch.as_tensor([int(t), 0], dtype=torch.int32, device=d),
-                    torch.as_tensor([100 + i, 0], dtype=torch.int32, device=d))
-                steps.append(logits[0].float().cpu())
-                step_routes.append(([x[:1] for x in picks[start:]], 0))
-        results.append(steps)
-        routes.append(step_routes)
-    res = {"err": 0.0, "top10": TOPK, "argmax": 0, "steps": len(results[1]),
+    codes = []
+    with (recorded_codes(ref, codes) if shared_codes else contextlib.nullcontext()):
+        card = _tf_run(torch, np, lm, layers, cfg4, params, dev, prompt, fed)
+    cpu = torch.device("cpu")
+    res = _tf_compare(torch, card, _tf_run(torch, np, lm, layers, cfg32, p32, cpu, prompt, fed))
+    if not shared_codes:
+        return res
+    with replayed_codes(ref, codes):
+        shared = _tf_run(torch, np, lm, layers, cfg32, p32, cpu, prompt, fed)
+    return res, _tf_compare(torch, card, shared)
+
+
+def _tf_run(torch, np, lm, layers, c, p, d, prompt, fed):
+    """One teacher-forced run of config ``c`` with params ``p`` on device
+    ``d``: slot 0's logits at each of the 10 steps, and its MoE routing
+    (each step's picks and the row of the token whose logits are read)."""
+    cache = lm.init_cache(c, 2, 256, page_size=PAGE, num_blocks=40, device=d)
+    tb = np.zeros((2, 16), np.int32)
+    tb[0] = np.arange(1, 17)
+    cache = cache.with_tables(torch.as_tensor(tb, device=d))
+    steps, step_routes = [], []
+    with recorded_routing(layers) as picks:
+        for s0 in (0, 64):
+            n = min(64, 100 - s0)
+            toks = np.zeros((2, 64), np.int32)
+            toks[0, :n] = prompt[s0:s0 + n]
+            start = len(picks)
+            logits, cache = lm.prefill_step(
+                p, c, cache, torch.as_tensor(toks, device=d),
+                torch.as_tensor([s0, 0], dtype=torch.int32, device=d),
+                torch.as_tensor([n, 0], dtype=torch.int32, device=d))
+            steps.append(logits[0].float().cpu())
+            # slot 0's rows (tokens 0..63), the read one last live
+            step_routes.append(([x[:64] for x in picks[start:]], n - 1))
+        for i, t in enumerate(fed):
+            start = len(picks)
+            logits, cache = lm.decode_step(
+                p, c, cache, torch.as_tensor([int(t), 0], dtype=torch.int32, device=d),
+                torch.as_tensor([100 + i, 0], dtype=torch.int32, device=d))
+            steps.append(logits[0].float().cpu())
+            step_routes.append(([x[:1] for x in picks[start:]], 0))
+    return steps, step_routes
+
+
+def _tf_compare(torch, card, cpu):
+    """teacher_forced's readings of the card's run against the CPU's."""
+    res = {"err": 0.0, "top10": TOPK, "argmax": 0, "steps": len(cpu[0]),
            "swaps": [], "err_agree": 0.0, "top10_agree": TOPK,
            "argmax_agree": 0, "agree_steps": 0, "route_share": 1.0}
     same = total = 0
-    for step, (got, want, (rg, read), (rw, _)) in enumerate(zip(*results, *routes)):
+    for step, (got, want, (rg, read), (rw, _)) in enumerate(
+            zip(card[0], cpu[0], card[1], cpu[1])):
         err, common, hit, margin = step_agreement(torch, got, want)
         if not hit:  # the step, its reference top-2 margin and its error, in std
             res["swaps"].append((step, margin, err))
@@ -2285,6 +2418,11 @@ def kernel_phase(torch, np, ref, flush, device):
     log(f"[kernel] decode cost (device us a call, torch.profiler, {SLOTS * HKV} (slot, kv "
         f"head) pairs x {decode_grid(torch, PA, device)[0]} splits): split kernel "
         f"{cost['split']:.2f}, merge kernel {cost['merge']:.2f}")
+    cost = mla_decode_cost(torch, np, ref, MP, MPQ, flush, device)
+    log(f"[kernel] MLA decode cost (device us a call, torch.profiler, {SLOTS} slots x "
+        f"{mla_decode_grid(torch, MP, device)[0]} splits of {MLA_HEADS} heads): bf16 split "
+        f"kernel {cost['fp']['split']:.2f}, merge kernel {cost['fp']['merge']:.2f}; int8 "
+        f"split kernel {cost['int8']['split']:.2f}, merge kernel {cost['int8']['merge']:.2f}")
     per, rest = scan_phase_cost(torch, CSC, flush, device)
     log("[kernel] phase cost (chunk_scan on tensor cores, mamba2-2.7B training shapes, 128 "
         f"blocks): device us a head of a block's walk {per:.2f}; us of the rest of the launch "
@@ -2460,12 +2598,17 @@ def serving_phases(torch, np, lm, cfg, KERNELS, device):
     for kv_dtype in (None, "int8", "int4"):
         t0 = time.perf_counter()
         cfg4 = dataclasses.replace(cfg, num_layers=4, kv_dtype=kv_dtype)
+        label = f"{cfg.name}, 4 layers at full width, {kv_dtype or 'fp'} KV"
+        if kv_dtype == "int4":
+            tf, shared = teacher_forced(torch, np, lm, cfg4, device, shared_codes=True)
+            log_teacher_forced(label, tf, False, time.perf_counter() - t0)
+            log_teacher_forced(label + ", the CPU on the card's codes", shared, True,
+                               time.perf_counter() - t0)
+            assert teacher_forced_ok(shared), (kv_dtype, shared)
+            continue
         tf = teacher_forced(torch, np, lm, cfg4, device)
-        gated = kv_dtype != "int4"
-        log_teacher_forced(f"{cfg.name}, 4 layers at full width, "
-                           f"{kv_dtype or 'fp'} KV", tf, gated,
-                           time.perf_counter() - t0)
-        assert not gated or teacher_forced_ok(tf), (kv_dtype, tf)
+        log_teacher_forced(label, tf, True, time.perf_counter() - t0)
+        assert teacher_forced_ok(tf), (kv_dtype, tf)
     log(f"[time] phase 4 ({cfg.name} teacher-forced): "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -2494,12 +2637,18 @@ def serving_phases(torch, np, lm, cfg, KERNELS, device):
     for kv_dtype in (None, "int8", "int4"):
         t0 = time.perf_counter()
         cfg2 = dataclasses.replace(mla, num_layers=2, kv_dtype=kv_dtype)
+        label = (f"{mla.name}, 2 layers (dense prefix + MoE) at full width, "
+                 f"{kv_dtype or 'fp'} KV (argmax printed)")
+        if kv_dtype == "int4":
+            tf, shared = teacher_forced(torch, np, lm, cfg2, device, shared_codes=True)
+            log_teacher_forced(label, tf, False, time.perf_counter() - t0)
+            log_teacher_forced(label + ", the CPU on the card's codes", shared, True,
+                               time.perf_counter() - t0)
+            assert teacher_forced_ok(shared, argmax=False), (kv_dtype, shared)
+            continue
         tf = teacher_forced(torch, np, lm, cfg2, device)
-        gated = kv_dtype != "int4"
-        log_teacher_forced(f"{mla.name}, 2 layers (dense prefix + MoE) at full "
-                           f"width, {kv_dtype or 'fp'} KV (argmax printed)", tf,
-                           gated, time.perf_counter() - t0)
-        assert not gated or teacher_forced_ok(tf, argmax=False), (kv_dtype, tf)
+        log_teacher_forced(label, tf, True, time.perf_counter() - t0)
+        assert teacher_forced_ok(tf, argmax=False), (kv_dtype, tf)
     log(f"[time] phase 4 ({mla.name} teacher-forced): "
         f"{time.perf_counter() - t_phase:.1f} s")
     return main_launches

@@ -1,7 +1,8 @@
 // The dequantization rule of the quantized KV tiles on the tensor-core
-// paths, shared by the MLA chunked prefill (mla_prefill.cu) and the GQA
-// chunked prefill (prefill_attention.cu): packed int8 / int4 bytes staged
-// in shared memory become the bf16 tile the tensor cores read.
+// paths, shared by the MLA chunked prefill (mla_prefill.cu), the MLA
+// decode (mla_paged.cu) and the GQA chunked prefill (prefill_attention.cu):
+// packed int8 / int4 bytes staged in shared memory become the bf16 tile the
+// tensor cores read.
 //
 // Each value is rounded once to bf16 from code * scale in fp32, bit for bit
 // the plain version's dequantize_rows(...).to(bfloat16) (ref.py): a code
@@ -52,6 +53,14 @@ __device__ __forceinline__ void dequant(bf16* o, const uint4& x, float s) {
                           pair(code(lo, 2), code(hi, 2)), pair(code(lo, 3), code(hi, 3)));
     }
   }
+}
+
+// A 16-bit load (a scale, held in a register until its tile is staged)
+// issued where it stands (volatile: not sunk towards its use).
+__device__ __forceinline__ uint32_t ldg_u16(const void* p) {
+  uint32_t x;
+  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=r"(x) : "l"(p));
+  return x;
 }
 
 // The bf16 whose bits are the low half of u (a staged scale), as a float.

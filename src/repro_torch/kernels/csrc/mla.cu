@@ -145,6 +145,7 @@ mla_tc_kernel(const CT* __restrict__ q, const CT* __restrict__ q_pe, const CT* _
   mm::Acc o;
   mm::attend(sm, o, (seq + mm::KEYS - 1) / mm::KEYS, dk, ks, ld,
              [&](int t, int, int j) { return j < seq - t * mm::KEYS; }, qscale);
+  mm::finish(sm, o);
   mm::store(o, out, rows_at);
 }
 

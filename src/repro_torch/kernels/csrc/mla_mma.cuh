@@ -1,12 +1,13 @@
 // The tensor-core step of multi-head latent attention (MLA), shared by the
-// contiguous FlashMLA decode (mla.cu) and the paged chunked prefill
-// (mla_prefill.cu).
+// contiguous FlashMLA decode (mla.cu), the paged chunked prefill
+// (mla_prefill.cu) and the split-KV paged decode (mla_paged.cu).
 //
 // MLA scores a key of width dk = D + Dpe (the latent plus its rope part)
 // and takes as value the key's first D = 512 columns: every query row of a
 // block attends the same latent head, so one key tile in shared memory
-// serves all of them.  A block holds 64 query rows and 16 warps; per tile
-// of 32 keys:
+// serves all of them.  A block holds R query rows (a multiple of 16: 64 for
+// FlashMLA and the prefill, 16 for the decode's heads) and 8 R threads, R /
+// 16 m-tiles x four column quarters of warps; per tile of 32 keys:
 //   - scores: warp (m-tile, quarter) multiplies its 16 rows' queries by the
 //     tile over a quarter of the dk columns (mma.sync m16n8k16, fp32 sums);
 //     the four partial sums meet in shared memory in a fixed order;
@@ -26,7 +27,8 @@
 // The two kernels differ in what they hand `attend`: where Q rows come
 // from, how a key tile is loaded (a contiguous run of keys; pages through a
 // block table, dequantized on the way in), which scores are live, and where
-// output rows go.
+// output rows go.  `attend` leaves the unnormalised state: `finish`
+// normalises it, or a split-KV kernel stores it for a merge.
 
 #pragma once
 
@@ -34,50 +36,53 @@
 
 namespace mm {
 
-constexpr int ROWS = 64;      // query rows a block
+constexpr int ROWS = 64;      // query rows a block (FlashMLA's and the prefill's)
 constexpr int KEYS = 32;      // keys a tile
 constexpr int THREADS = 512;  // 16 warps: (m-tile, column quarter)
 constexpr int D = 512;        // the latent width, V's
 constexpr int SPS = KEYS + 4; // row stride of the partial scores (floats)
 constexpr int PS = KEYS + 8;  // row stride of the probability terms
 
+// Threads of a block of `rows` query rows: rows / 16 m-tiles x 4 quarters.
+__host__ __device__ constexpr int threads(int rows) { return 8 * rows; }
+
 // Shared memory of a block: Q, two key tiles (row stride ks elements), the
 // probability pair, the four partial score sums and the softmax state.
 // Whatever a kernel adds goes at end().
-template <typename CT>
+template <typename CT, int R = ROWS>
 struct Smem {
   CT *qs, *k0, *k1, *ph, *pl;
   float *sp, *m, *l, *alpha;
 
   __device__ Smem(void* base, int ks) {
     qs = reinterpret_cast<CT*>(base);
-    k0 = qs + ROWS * ks;
+    k0 = qs + R * ks;
     k1 = k0 + KEYS * ks;
     ph = k1 + KEYS * ks;
-    pl = ph + ROWS * PS;
-    sp = reinterpret_cast<float*>(pl + ROWS * PS);
-    m = sp + 4 * ROWS * SPS;
-    l = m + ROWS;
-    alpha = l + ROWS;
+    pl = ph + R * PS;
+    sp = reinterpret_cast<float*>(pl + R * PS);
+    m = sp + 4 * R * SPS;
+    l = m + R;
+    alpha = l + R;
   }
   // key tile stage s (a select, not an indexed array: that would live in
   // local memory)
   __device__ CT* kt(int s) const { return s ? k1 : k0; }
-  __device__ void* end() const { return alpha + ROWS; }
+  __device__ void* end() const { return alpha + R; }
   static size_t bytes(int ks) {  // a multiple of 16 for ks a multiple of 8
-    return sizeof(CT) * ((size_t)(ROWS + 2 * KEYS) * ks + 2 * ROWS * PS) +
-           sizeof(float) * (4 * ROWS * SPS + 3 * ROWS);
+    return sizeof(CT) * ((size_t)(R + 2 * KEYS) * ks + 2 * R * PS) +
+           sizeof(float) * (4 * R * SPS + 3 * R);
   }
 };
 
 // Start the copies of the block's Q rows [q | q_pe]: block row r from row
 // qrow(r) of q (D values a row) and q_pe (pe a row), or zeros where qrow(r)
 // < 0.  The caller commits them with the first tile.
-template <typename CT, typename QRow>
-__device__ void load_q(const Smem<CT>& sm, int ks, const CT* __restrict__ q,
+template <typename CT, int R, typename QRow>
+__device__ void load_q(const Smem<CT, R>& sm, int ks, const CT* __restrict__ q,
                        const CT* __restrict__ q_pe, int pe, const QRow& qrow) {
   const int chunks = (D + pe) / 8;
-  for (int i = threadIdx.x; i < ROWS * chunks; i += THREADS) {
+  for (int i = threadIdx.x; i < R * chunks; i += threads(R)) {
     const int r = i / chunks, c = (i % chunks) * 8;
     const long g = qrow(r);
     const bool p = g >= 0;
@@ -88,8 +93,8 @@ __device__ void load_q(const Smem<CT>& sm, int ks, const CT* __restrict__ q,
 
 using Acc = gc::WarpAcc<1, D / 4 / 8>;  // a warp's 16 rows x 128 columns of O
 
-// The online softmax over n key tiles into `o`, normalised (a row with no
-// live key emits 0).  The loader:
+// The online softmax over n key tiles into `o`, unnormalised: O, with the
+// running max and row sum left in sm.m and sm.l.  The loader:
 //   issue(u, stage)  at the top of the step before tile u's, once the
 //                    stage is free: starts tile u's copies into it
 //                    (committed here, with Q for tile 0);
@@ -100,12 +105,13 @@ using Acc = gc::WarpAcc<1, D / 4 / 8>;  // a warp's 16 rows x 128 columns of O
 //                    stage u % 2 from what landed, and start tile u + 1.
 // A loader that copies straight into the tile does nothing in the last
 // three.  mask(t, r, j): whether key j of tile t is live for block row r.
-template <typename CT, typename Load, typename Mask>
-__device__ void attend(const Smem<CT>& sm, Acc& o, int n, int dk, int ks, Load& ld,
+template <typename CT, int R, typename Load, typename Mask>
+__device__ void attend(const Smem<CT, R>& sm, Acc& o, int n, int dk, int ks, Load& ld,
                        const Mask& mask, float qscale) {
+  constexpr int MTS = R / 16;  // m-tiles
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mt = warp & 3, quarter = warp >> 2;
-  if (threadIdx.x < ROWS) {
+  const int mt = warp % MTS, quarter = warp / MTS;
+  if (threadIdx.x < R) {
     sm.m[threadIdx.x] = -CUDART_INF_F;
     sm.l[threadIdx.x] = 0.f;
   }
@@ -124,7 +130,7 @@ __device__ void attend(const Smem<CT>& sm, Acc& o, int n, int dk, int ks, Load& 
       gc::WarpAcc<1, KEYS / 8> s;
       s.zero();
       s.mma_span<CT>(sm.qs + quarter * dq, ks, kt + quarter * dq, ks, mt * 16, 0, dq);
-      s.store(sm.sp + quarter * ROWS * SPS, SPS, ROWS, KEYS, mt * 16, 0);
+      s.store(sm.sp + quarter * R * SPS, SPS, R, KEYS, mt * 16, 0);
     }
     __syncthreads();
     {  // online softmax: 8 lanes a row, 4 keys a lane
@@ -133,8 +139,8 @@ __device__ void attend(const Smem<CT>& sm, Acc& o, int n, int dk, int ks, Load& 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = r * SPS + k0 + e;
-        const float v = ((sm.sp[j] + sm.sp[ROWS * SPS + j]) + sm.sp[2 * ROWS * SPS + j]) +
-                        sm.sp[3 * ROWS * SPS + j];
+        const float v = ((sm.sp[j] + sm.sp[R * SPS + j]) + sm.sp[2 * R * SPS + j]) +
+                        sm.sp[3 * R * SPS + j];
         sc[e] = mask(t, r, k0 + e) ? v * qscale : -CUDART_INF_F;
         mx = fmaxf(mx, sc[e]);
       }
@@ -177,18 +183,24 @@ __device__ void attend(const Smem<CT>& sm, Acc& o, int n, int dk, int ks, Load& 
     gc::cp_async_wait<0>();
     __syncthreads();
   }
-  const int g = lane >> 2;  // o / max(l, 1e-30): a row with no live key emits 0
+}
+
+// o / max(l, 1e-30) after `attend`: a row with no live key emits 0.
+template <typename CT, int R>
+__device__ void finish(const Smem<CT, R>& sm, Acc& o) {
+  const int mt = (threadIdx.x >> 5) % (R / 16), g = (threadIdx.x & 31) >> 2;
   const float f[1][2] = {{1.f / fmaxf(sm.l[mt * 16 + g], 1e-30f),
                           1.f / fmaxf(sm.l[mt * 16 + g + 8], 1e-30f)}};
   o.scale_rows(f);
 }
 
-// Store this warp's share of the output, rounded once: block row r at row
-// orow(r) of out (D values a row), not stored where orow(r) < 0.
-template <typename CT, typename ORow>
+// Store this warp's share of the output, rounded once to CT (or kept in
+// fp32): block row r of a block of R rows at row orow(r) of out (D values
+// a row), not stored where orow(r) < 0.
+template <int R = ROWS, typename CT, typename ORow>
 __device__ void store(const Acc& o, CT* __restrict__ out, const ORow& orow) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mt = warp & 3, quarter = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int mt = warp % (R / 16), quarter = warp / (R / 16), g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const long row = orow(mt * 16 + g + 8 * h);

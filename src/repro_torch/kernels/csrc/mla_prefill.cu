@@ -274,13 +274,6 @@ struct Walk {
   }
 };
 
-// A 16-bit load issued where it stands (volatile: not sunk towards its use).
-__device__ __forceinline__ uint32_t ldg_u16(const void* p) {
-  uint32_t x;
-  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=r"(x) : "l"(p));
-  return x;
-}
-
 // Loads tile u of the walk into stage `stage`: rows of [latent | rope], bf16
 // copied straight into the tile (PACK 0; Lat = FpLatent) at the top of the
 // step before tile u's, or packed int8 (PACK 1) / int4 (PACK 2) bytes
@@ -341,7 +334,7 @@ struct WalkLoad {
     if (part == 0) kpos[stage * mm::KEYS + r] = live ? pos : -1;
     if constexpr (PACK > 0) {
       const bf16* scales = part ? (prior ? pool.rs : fresh.rs) : (prior ? pool.cs : fresh.cs);
-      if (part < 2) s_bits = live ? ldg_u16(scales + at) : 0u;
+      if (part < 2) s_bits = live ? kvq::ldg_u16(scales + at) : 0u;
     }
   }
 
@@ -434,6 +427,7 @@ mla_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ q_pe,
   };
   mm::Acc o;
   mm::attend(sm, o, w.tiles(), dk, ks, ld, live, qscale);
+  mm::finish(sm, o);
   mm::store(o, out, row_at);
 
   // ---- the paged write: the chunk page, by its first row block -----------

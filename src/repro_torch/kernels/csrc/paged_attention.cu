@@ -27,9 +27,10 @@
 //     [max(0, len - window), len)) and leaves the partial softmax state of
 //     its GQA group's rows in fp32 scratch: O unnormalised, the running max
 //     m (log2 domain, clamped at NEG_CLAMP) and the row sum l.  A second,
-//     small kernel (merge_kernel) rescales the splits to their common max,
-//     sums them, applies safe_div and rounds once to the output type: the
-//     arithmetic of WarpAttention::absorb (attention_mma.cuh) across blocks.
+//     small kernel (split_merge.cuh's merge_kernel, shared with the MLA
+//     decode) rescales the splits to their common max, sums them, applies
+//     safe_div and rounds once to the output type: the arithmetic of
+//     WarpAttention::absorb (attention_mma.cuh) across blocks.
 //   * splits and split_keys come from static shapes and the card's SM count
 //     only (paged_attention.py, decode_splits), never from the lengths: the
 //     host never reads a length (the multi-step window runs with host syncs
@@ -53,9 +54,9 @@
 //     body over the split's pages (16-byte vector loads one page ahead of
 //     the compute), on the same split grid and the same merge.
 //
-// What still holds it back (H100 80GB HBM3 at 700 W, qwen's shape: 18.3 us
-// a call): two launches a decode step, the split kernel 7.8 us and the
-// merge 5.8 us of device time (chip_smoke.py's decode-cost reading); one
+// What still holds it back (H100 80GB HBM3 at 700 W, qwen's shape: 16.6 us
+// a call): two launches a decode step, the split kernel 7.7 us and the
+// merge 3.7 us of device time (chip_smoke.py's decode-cost reading); one
 // warp of four does the arithmetic of a split; the table entry a key row
 // reads is a dependent device-memory load ahead of its copy.
 //
@@ -65,27 +66,13 @@
 
 #include "attention_core.cuh"
 #include "attention_mma.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-// Where split blocks leave their partial softmax states (fp32 scratch the
-// wrapper allocates): O (slots, heads, splits, D) unnormalised, m and l
-// (slots, heads, splits).  o == nullptr: one split, the block normalises
-// and writes the output itself.
-struct Partials {
-  float *o, *m, *l;
-  int heads, splits;
-  __device__ long row(int b, int qh, int s) const { return ((long)b * heads + qh) * splits + s; }
-  // A split with no live key: weighed 0 by the merge, O left unwritten.
-  __device__ void empty(int b, int qh0, int rows, int s) const {
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      m[row(b, qh0 + r, s)] = ac::NEG_CLAMP;
-      l[row(b, qh0 + r, s)] = 0.f;
-    }
-  }
-};
+using sk::Partials;
 
 // ---- the CUDA-core body (fp32, other head dims, the quantized twin) -------
 
@@ -155,14 +142,7 @@ paged_attention_kernel(const typename F::Elem* __restrict__ q, F pools,
     ac::store_rows(out + q_off, d, sm, group, d);
     return;
   }
-  for (int i = threadIdx.x; i < group * d; i += blockDim.x) {
-    const int r = i / d, c = i - r * d;
-    part.o[part.row(b, h * group + r, s) * d + c] = sm.acc[i];
-  }
-  for (int r = threadIdx.x; r < group; r += blockDim.x) {
-    part.m[part.row(b, h * group + r, s)] = fmaxf(sm.m[r], ac::NEG_CLAMP);
-    part.l[part.row(b, h * group + r, s)] = sm.l[r];
-  }
+  part.store(sm, b, h * group, group, s, d);
 }
 
 template <typename F>
@@ -277,37 +257,6 @@ int launch_tc(const void* q, ac::FpKV<am::bf16> pools, const void* tables, const
   return (int)cudaGetLastError();
 }
 
-// ---- the merge -------------------------------------------------------------
-
-// Block (slot, query head): out = sum_s w_s O_s / max(sum_s w_s l_s, 1e-30)
-// with w_s = exp2(m_s - max_s m_s), every m clamped at NEG_CLAMP (so a slot
-// whose splits all saw nothing emits 0), rounded once to T.  A split with
-// l == 0 saw no key: its weight is 0 and its O is not read.
-template <typename T>
-__global__ void merge_kernel(Partials part, int d, T* __restrict__ out) {
-  const long r0 = (long)blockIdx.x * part.splits;  // the row's first split
-  const float* m = part.m + r0;
-  const float* l = part.l + r0;
-  float mx = ac::NEG_CLAMP;
-  for (int s = 0; s < part.splits; ++s) mx = fmaxf(mx, m[s]);
-  float den = 0.f;
-  for (int s = 0; s < part.splits; ++s)
-    if (l[s] != 0.f) den += exp2f(m[s] - mx) * l[s];
-  den = fmaxf(den, 1e-30f);
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < part.splits; ++s)
-      if (l[s] != 0.f) acc += exp2f(m[s] - mx) * part.o[(r0 + s) * d + c];
-    out[(long)blockIdx.x * d + c] = ac::from_float<T>(acc / den);
-  }
-}
-
-template <typename T>
-int merge(const Partials& part, int slots, int d, void* out, cudaStream_t stream) {
-  merge_kernel<T><<<slots * part.heads, min(d, kThreads), 0, stream>>>(part, d, (T*)out);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int PACK>
 ac::QuantKV<T, PACK> quant_pools(void* k, void* v, void* ks, void* vs) {
   return {(int8_t*)k, (int8_t*)v, (T*)ks, (T*)vs};
@@ -360,7 +309,8 @@ extern "C" int paged_attention_launch(int dtype, int tc, const void* q, void* k_
                 sm_scale, st);
   }
   if (rc != 0) return rc;
-  return dtype == 0 ? merge<float>(part, slots, d, out, st) : merge<B>(part, slots, d, out, st);
+  return dtype == 0 ? sk::merge<float>(part, slots, d, out, st)
+                   : sk::merge<B>(part, slots, d, out, st);
 }
 
 // The quantized twin: pack 1 = int8, 2 = int4; the scale pools are of q's

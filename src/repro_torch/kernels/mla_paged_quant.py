@@ -9,25 +9,29 @@ rope columns with the rope scale on their way into shared memory, each value
 rounded once to the query's dtype as the TPU kernel does.  The plain version
 is ``ref.mla_paged_quant``; this wrapper takes it for CPU tensors only.  For
 a CUDA tensor it launches the kernel or raises.
+
+The kernel's grid (split-KV from static shapes, then the merge) and paths
+(bf16 at latent width 512 on the tensor cores, each packed tile staged and
+dequantized into the bf16 tile, ``KERNEL.tc_launches`` counting them; the
+rest on CUDA cores) are ``mla_paged.py``'s.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
 
 from . import ref
 from .build import Kernel, check
-from .mla_paged import check_latent, head_block, requirer
+from .mla_paged import check_latent, decode_launch, requirer, tensor_core_path
 from .paged_attention import DTYPES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
     "mla_paged_quant", "mla_paged_quant_launch",
-    [_I, _I] + [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
+    [_I, _I, _I] + [_P] * 11 + [_I] * 11 + [ctypes.c_float, _P],
     replaces="src/repro/kernels/mla.py:301",
     source="mla_paged",
 )
@@ -48,7 +52,7 @@ def mla_paged_quant(q_lat, q_pe, ckv_pages, kpe_pages, ckv_scales, kpe_scales,
     require = requirer("mla_paged_quant")
     require(fmt in ref.KV_PACK, f"format {fmt!r} (int8 or int4)")
     pack = ref.KV_PACK[fmt]
-    b, h, r = q_lat.shape
+    r = q_lat.shape[-1]
     num_pages, page_size, rp = ckv_pages.shape
     pe = q_pe.shape[-1]
     check_latent(require, q_lat, q_pe,
@@ -61,29 +65,22 @@ def mla_paged_quant(q_lat, q_pe, ckv_pages, kpe_pages, ckv_scales, kpe_scales,
             "packed pools must be int8")
     require(ckv_scales.dtype == q_lat.dtype and kpe_scales.dtype == q_lat.dtype,
             "scale pools and queries must share one dtype")
-    require(tuple(q_pe.shape) == (b, h, pe) and rp * pack == r
-            and tuple(kpe_pages.shape) == (num_pages, page_size, pe // pack)
-            and pe % pack == 0,
-            f"shapes q_lat {tuple(q_lat.shape)}, q_pe {tuple(q_pe.shape)}, "
-            f"pools {tuple(ckv_pages.shape)} / {tuple(kpe_pages.shape)} ({fmt})")
+    require(rp * pack == r and pe % pack == 0
+            and tuple(kpe_pages.shape) == (num_pages, page_size, pe // pack),
+            f"pools {tuple(ckv_pages.shape)} / {tuple(kpe_pages.shape)} ({fmt}) against "
+            f"q_lat {tuple(q_lat.shape)}, q_pe {tuple(q_pe.shape)}")
     require(tuple(ckv_scales.shape) == (num_pages, page_size, 1)
             and kpe_scales.shape == ckv_scales.shape, "scales (P, ps, 1)")
-    require(seq_lens.dtype == torch.int32 and tuple(seq_lens.shape) == (b,)
-            and block_tables.shape[0] == b,
-            "one table row and one int32 length per slot")
-    q, qp = q_lat.contiguous(), q_pe.contiguous()
-    tables, lens = block_tables.contiguous(), seq_lens.contiguous()
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(r + pe)
-    out = torch.empty_like(q)
+    q, qp, out, args = decode_launch(require, q_lat, q_pe, block_tables, seq_lens,
+                                     num_pages, page_size, window, sm_scale)
+    tc = tensor_core_path(q.dtype, r, pe, page_size)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], pack, q.data_ptr(), qp.data_ptr(),
+            DTYPES[q.dtype], int(tc), pack, q.data_ptr(), qp.data_ptr(),
             ckv_pages.data_ptr(), kpe_pages.data_ptr(), ckv_scales.data_ptr(),
-            kpe_scales.data_ptr(), tables.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, h, head_block(h), r, pe, page_size,
-            tables.shape[1], num_pages, window if window is not None else 0,
-            scale, stream)
+            kpe_scales.data_ptr(), *args, stream)
     check(rc, "mla_paged_quant")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return out

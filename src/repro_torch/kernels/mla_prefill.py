@@ -29,7 +29,7 @@ import torch
 
 from . import ref
 from .build import Kernel, check
-from .mla_paged import check_latent, requirer
+from .mla_paged import TC_KEYS, check_latent, requirer, tensor_core_path  # noqa: F401 (TC_KEYS: its tile)
 from .paged_attention import DTYPES
 
 _P = ctypes.c_void_p
@@ -43,19 +43,6 @@ KERNEL = Kernel(
 # full width, two positions of 16 heads, keeps Q, one key tile and the fp32
 # accumulator within a block's shared memory
 MAX_ROW_BLOCK = 32
-TC_RANK = 512  # the latent width the tensor-core kernel is built for
-TC_KEYS = 32  # keys a tile there: pages nest in it
-
-
-def tensor_core_path(dtype: torch.dtype, r: int, pe: int, page_size: int) -> bool:
-    """Whether a launch (of either entry point) takes the tensor-core kernel:
-    bf16 at latent width 512 with R + Dpe a multiple of 64 (four column
-    quarters of 16-wide steps), and pages of 1 to 32 positions, a power of
-    two, that nest in its 32-key tiles.  Heads, slots, chunk, starts and
-    lengths do not matter."""
-    return (dtype == torch.bfloat16 and r == TC_RANK and pe > 0
-            and (r + pe) % 64 == 0 and 1 <= page_size <= TC_KEYS
-            and page_size & (page_size - 1) == 0)
 
 
 def row_block(page_size: int, heads: int) -> int:

@@ -139,13 +139,11 @@ def split_decode(q, k_pages, v_pages, block_tables, seq_lens, splits: int,
                  window: Optional[int] = None, pair: bool = False,
                  rescale: bool = True) -> torch.Tensor:
     """The split kernel's arithmetic in plain PyTorch (a rehearsal, not a
-    path): each split folds its 64-key tiles of keys [s * split_keys, (s +
-    1) * split_keys) into an online softmax (fp32 scores scaled into the
-    log2 domain, exp2, the running max clamped at NEG_CLAMP) and leaves O,
-    m and l; the merge rescales the splits to their common max, sums them
-    and divides by max(l, 1e-30), rounding once.  ``pair`` multiplies P as
-    the tensor-core kernel's bf16 pair hi + lo; ``rescale=False`` is the
-    faulty merge that sums the splits as they stand."""
+    path): fp32 scores scaled into the log2 domain under the live-length
+    mask and the window, then :func:`fold_splits` over 64-key tiles,
+    rounded once.  ``pair`` multiplies P as the tensor-core kernel's bf16
+    pair hi + lo; ``rescale=False`` is the faulty merge that sums the
+    splits as they stand."""
     b, hq, d = q.shape
     hkv, _, page_size, _ = k_pages.shape
     group = hq // hkv
@@ -153,25 +151,48 @@ def split_decode(q, k_pages, v_pages, block_tables, seq_lens, splits: int,
     tables = block_tables.long()
     k = k_pages[:, tables].transpose(0, 1).reshape(b, hkv, -1, d).float()
     v = v_pages[:, tables].transpose(0, 1).reshape(b, hkv, -1, d).float()
-    n_keys = k.shape[2]
     scores = torch.einsum("bhgd,bhsd->bhgs", q.reshape(b, hkv, group, d).float(), k) * qscale
-    pos = torch.arange(n_keys, device=q.device)
+    scores = mask_live(scores, seq_lens, window)
+    out = fold_splits(scores, v, splits, split_keys, SPLIT_KEYS, pair=pair, rescale=rescale)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def mask_live(scores, seq_lens, window: Optional[int]):
+    """``scores`` (B, ..., S) with the keys outside [max(0, len - window),
+    len) of each slot set to -inf."""
+    pos = torch.arange(scores.shape[-1], device=scores.device)
     lens = seq_lens.long()[:, None]
     live = pos[None, :] < lens
     if window is not None:
         live = live & (pos[None, :] >= lens - window)
-    scores = scores.masked_fill(~live[:, None, None, :], float("-inf"))
+    live = live.view(live.shape[0], *(1,) * (scores.dim() - 2), -1)  # over the middle axes
+    return scores.masked_fill(~live, float("-inf"))
+
+
+def fold_splits(scores, v, splits: int, split_keys: int, tile: int, *,
+                pair: bool = False, rescale: bool = True) -> torch.Tensor:
+    """A split-KV decode's arithmetic over log2-domain ``scores`` (..., rows,
+    S), -inf where masked, and values ``v`` (..., S, Dv): each split folds
+    its ``tile``-key tiles of keys [s * split_keys, (s + 1) * split_keys)
+    into an online softmax (exp2, the running max clamped at NEG_CLAMP) and
+    leaves O, m and l; the merge rescales the splits to their common max,
+    sums them and divides by max(l, 1e-30).  Returns fp32 (..., rows, Dv).
+    ``pair`` multiplies P as the tensor-core kernels' bf16 pair hi + lo;
+    ``rescale=False`` is the faulty merge that sums the splits as they
+    stand."""
+    n_keys = scores.shape[-1]
+    lead = scores.shape[:-1]
     states = []
     for s in range(splits):
-        m = torch.full((b, hkv, group, 1), float("-inf"), device=q.device)
+        m = torch.full(lead + (1,), float("-inf"), device=scores.device)
         l = torch.zeros_like(m)
-        o = torch.zeros((b, hkv, group, d), device=q.device)
-        for t in range(s * split_keys, min((s + 1) * split_keys, n_keys), SPLIT_KEYS):
-            sc = scores[..., t:t + SPLIT_KEYS]
+        o = torch.zeros(lead + v.shape[-1:], device=scores.device)
+        for t in range(s * split_keys, min((s + 1) * split_keys, n_keys), tile):
+            sc = scores[..., t:t + tile]
             m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
             mc = m_new.clamp_min(NEG_CLAMP)
             alpha, p = torch.exp2(m.clamp_min(NEG_CLAMP) - mc), torch.exp2(sc - mc)
-            vt = v[..., t:t + SPLIT_KEYS, :]
+            vt = v[..., t:t + tile, :]
             if pair:
                 hi = p.bfloat16().float()
                 pv = hi @ vt + (p - hi).bfloat16().float() @ vt
@@ -188,4 +209,4 @@ def split_decode(q, k_pages, v_pages, block_tables, seq_lens, splits: int,
         w = torch.exp2(m - mx) if rescale else torch.ones_like(m)
         out = out + w * o
         den = den + w * l
-    return (out / den.clamp_min(1e-30)).reshape(b, hq, d).to(q.dtype)
+    return out / den.clamp_min(1e-30)

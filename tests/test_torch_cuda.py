@@ -330,10 +330,11 @@ def _mla_decode_case(fmt):
     for dtype in (torch.float32, torch.bfloat16):
         for window in (None, 40):
             x = _mla_inputs(8, dtype, fmt)
-            n0 = mod.KERNEL.launches
+            n0, tc0 = mod.KERNEL.launches, mod.KERNEL.tc_launches
             got = kernel(x["q"], x["qpe"], *x["pools"], x["tables"], x["lens"],
                          sm_scale=MLA_SCALE, window=window, **kw)
             assert mod.KERNEL.launches == n0 + 1
+            assert mod.KERNEL.tc_launches == tc0 + (dtype == torch.bfloat16)
             want = plain_fn(x["q"], x["qpe"], *x["pools"], x["tables"], x["lens"],
                             sm_scale=MLA_SCALE, window=window, **kw)
             assert _within_limit(got, want) and got[0].abs().max().item() == 0.0
@@ -426,6 +427,50 @@ def test_cuda_mla_prefill_tensor_core_edges(ps, fmt):
                 for pool_k, pool_p, rows in zip(p1, p2, new):
                     assert torch.equal(pool_k[pg, of], rows[bi, c])
                     assert torch.equal(pool_p[pg, of], rows[bi, c])
+
+
+# (page_size, fmt): the split decode's pages of 8, 16 and 32 (a 64-key split
+# holds 8, 4 or 2 of them), fp and both quantized formats
+MLA_DECODE_TC = [(ps, fmt) for ps in (8, 16, 32) for fmt in (None, "int8", "int4")]
+# lengths: empty, one key, a split's last key and the next split's first, one
+# inside the second split, windows past the start, the whole table
+MLA_DECODE_LENS = [0, 1, 64, 65, 100, 700, 1023, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,fmt", MLA_DECODE_TC, ids=[str(c) for c in MLA_DECODE_TC])
+def test_cuda_mla_decode_tensor_core_edges(ps, fmt):
+    """On a card: bf16 paged MLA decode (and its quantized twin) at
+    deepseek-v2-lite-16B's widths and serving shape (slots 8, max_len 1024)
+    takes the tensor-core path, one tensor-core launch each, over the split
+    grid's edges (a len-0 slot, lengths at a split's ends, inside one and
+    covering the table), with and without window 256: within two bf16 ulps
+    of the plain version, the len-0 slot all zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    m = MLA
+    dev = torch.device("cuda")
+    b, mp = len(MLA_DECODE_LENS), 1024 // ps
+    num_pages = b * mp + 1
+    tables = torch.as_tensor(_tables(np.random.default_rng(14), b, mp, num_pages), device=dev)
+    lens = torch.tensor(MLA_DECODE_LENS, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(15)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    q, qpe = rand(b, m["h"], m["r"]), rand(b, m["h"], m["pe"])
+    ckv, kpe = rand(num_pages, ps, m["r"]), rand(num_pages, ps, m["pe"])
+    if fmt is None:
+        mod, kernel, plain_fn, pools, kw = MP, MP.mla_paged, ref.mla_paged, [ckv, kpe], {}
+    else:
+        (cq, cs_), (pq, ps_) = ref.quantize_rows(ckv, fmt), ref.quantize_rows(kpe, fmt)
+        mod, kernel, plain_fn = MPQ, MPQ.mla_paged_quant, ref.mla_paged_quant
+        pools, kw = [cq, pq, cs_, ps_], {"fmt": fmt}
+    for window in (None, 256):
+        n0, tc0 = mod.KERNEL.launches, mod.KERNEL.tc_launches
+        out = kernel(q, qpe, *pools, tables, lens, sm_scale=MLA_SCALE, window=window, **kw)
+        assert (mod.KERNEL.launches, mod.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
+        plain = plain_fn(q, qpe, *pools, tables, lens, sm_scale=MLA_SCALE, window=window, **kw)
+        assert torch.isfinite(out).all() and _within_limit(out, plain)
+        assert out[0].abs().max().item() == 0.0
 
 
 @pytest.mark.cuda
