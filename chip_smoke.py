@@ -26,16 +26,17 @@ no phase is skipped):
    fp32-accumulating online softmax must pass it, one accumulating in bf16
    and one rounding P once to bf16 must fail it); the split decodes' merge
    without the rescale to the common max must fail it too (fp32 and bf16:
-   the GQA decode, the MLA decode and its quantized twin), and their grids
-   (splits of 64 keys from static shapes) are printed; every
-   bf16 launch of the flash, fp and quantized GQA chunked-prefill and fp
-   decode kernels, and of the MLA decode, the MLA chunked prefill and their
-   quantized twins, must take their tensor-core path
-   (``KERNEL.tc_launches``); the
+   the GQA decode and its quantized twin, the MLA decode and its quantized
+   twin), and their grids (splits of 64 keys from static shapes) are
+   printed; every bf16 launch of the flash, fp and quantized GQA
+   chunked-prefill and decode kernels, and of the MLA decode, the MLA
+   chunked prefill and their quantized twins, must take their tensor-core
+   path (``KERNEL.tc_launches``); the
    tensor-core prefills' device cost of a key tile is read from two walks
    (the quantized GQA prefill's in int8), the split decodes' split and
-   merge kernels' device us a call (the GQA decode; the MLA decode in bf16
-   and int8) from torch.profiler, and the tensor-core chunk_scan's
+   merge kernels' device us a call (the GQA decode in bf16 and its twin in
+   int8; the MLA decode in bf16 and int8) from torch.profiler, and the
+   tensor-core chunk_scan's
    cost a head of a block's walk from launches of 80 and 40 heads; time
    kernel, plain version and, as a
    yardstick only, ``scaled_dot_product_attention`` over the gathered (for
@@ -49,10 +50,12 @@ no phase is skipped):
    seq 1024: deep decay, exp(dA) denormal), the same shapes with shallow
    decay, hymba-1.5B's N 16 / P 50 and a chunk of 64, bf16 and fp32 (fp32
    within 1e-4 of max(1, max |plain|), bf16 within 2 ulps, the scan's
-   control with its decayed scores rounded once to bf16 outside them); a
-   growing-dA case is gated in fp32 and printed in bf16; every bf16
+   control with its decayed scores rounded once to bf16 outside them, and
+   chunk_state's control with its decayed X rounded once to bf16 outside
+   its limit wherever it takes the tensor cores); a growing-dA case's scan
+   is gated in fp32 and printed in bf16; every bf16 chunk_state and
    chunk_scan launch at mamba2's shapes must take its tensor-core path,
-   hymba's and fp32 its CUDA-core one; timed beside the bf16 cuBLAS
+   hymba's and fp32 their CUDA-core one; timed beside the bf16 cuBLAS
    products their work reduces to, as a yardstick.  Then the kernel
    library, driven through ``kernels.ops`` at the paper's kernel
    experiments' full-width shapes (its path: the three kernels' launches are
@@ -86,8 +89,8 @@ no phase is skipped):
    int8, fewer host dispatches, and no host sync inside a window).  Each run
    resets the kernels' launch counts before it and reads them after; in the
    fp runs every launch of the decode and chunked-prefill kernels, in the
-   four quantized runs every launch of the quantized chunked prefill, must
-   have taken their tensor-core paths;
+   four quantized runs every launch of the quantized decode and chunked
+   prefill, must have taken their tensor-core paths;
 4. teacher-forced logits at full width, depth cut to 4 layers: the card's
    bf16 kernel path against the plain path in fp32 on the CPU (error in
    standard deviations of the logits, top-10 and argmax agreement), for fp
@@ -121,8 +124,8 @@ both route to the same experts (at least half of them), int4 as qwen's;
    (at least one restart, the last step reached, a finite loss);
 6. full-width mamba2-2.7B (64 layers, d 2560, 80 SSM heads of P 64, state
    128, bf16 with fp32 a_log/d_skip/dt_bias): train it as phase 5 (128
-   launches of each SSD kernel a step, every chunk_scan launch on tensor
-   cores), with its depth-2 check against the
+   launches of each SSD kernel a step, every chunk_state and chunk_scan
+   launch on tensor cores), with its depth-2 check against the
    CPU's fp32, the card's plain SSD and three planted SSD faults (scan
    without the causal mask, carried state dropped, state decay from the
    first row) that must fail the limits; forward (the kernels) against
@@ -336,6 +339,12 @@ def kernel_ok(r) -> bool:
 
 H100_SMS = 132  # the grid rule's SM count where there is no card (a rehearsal)
 
+# The kernel table's times of the kernels redesigned for the tensor cores
+# last (the quantized GQA decode's split grid, chunk_state on mma.sync),
+# before that redesign: H100 80GB HBM3 at 700 W, this script's int8 and
+# mamba2 training-shape rows.  Printed beside their new times.
+EARLIER_MS = {"paged_attention_quant": 0.2243, "chunk_state": 0.5258}
+
 
 def decode_grid(torch, PA, dev):
     """(splits, keys a split) of the decode kernel at the main path's
@@ -393,16 +402,18 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     err = (out.float() - plain.float()).abs().max().item()
     assert torch.isfinite(out).all() and out[2].abs().max().item() == 0.0
     res = {"err": err, "tc_launches": tc}
-    if fmt is None:
-        # the split grid, and the merge's control: the split kernel's
-        # arithmetic in plain PyTorch with the partial states summed as they
-        # stand, not rescaled to their common max, must fail the limit
-        splits, split_keys = decode_grid(torch, mod, dev)
-        res["splits"] = f"{splits} splits of {split_keys} keys, {HKV * SLOTS * splits} blocks"
-        faulty = mod.split_decode(q, kp, vp, tables, lens_t, splits, split_keys,
-                                  window=window, pair=dtype == torch.bfloat16, rescale=False)
-        res["merge_no_rescale"] = (bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
-                                   else (faulty.float() - plain.float()).abs().max().item())
+    # the split grid, and the merge's control: the split kernel's arithmetic
+    # in plain PyTorch (over the dequantized pages for the quantized twin)
+    # with the partial states summed as they stand, not rescaled to their
+    # common max, must fail the limit
+    from repro_torch.kernels import paged_attention as PA
+
+    splits, split_keys = decode_grid(torch, PA, dev)
+    res["splits"] = f"{splits} splits of {split_keys} keys, {HKV * SLOTS * splits} blocks"
+    faulty = PA.split_decode(q, kp, vp, tables, lens_t, splits, split_keys,
+                             window=window, pair=dtype == torch.bfloat16, rescale=False)
+    res["merge_no_rescale"] = (bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
+                               else (faulty.float() - plain.float()).abs().max().item())
     # the slot's pages gathered for one dense call: SDPA and the controls
     kg = kp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
     vg = vp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
@@ -975,9 +986,10 @@ def split_cost(torch, run, split_key, flush, calls=20):
             for part, key in (("split", split_key), ("merge", "merge_kernel"))}
 
 
-def decode_cost(torch, np, PA, flush, dev, calls=20):
+def decode_cost(torch, np, ref, PA, PAQ, flush, dev, calls=20):
     """Where a bf16 decode launch's device time goes at check_decode's
-    inputs (window None): split_cost's reading."""
+    inputs (window None): split_cost's reading for the decode and for its
+    int8 twin on the same values quantized, {"fp": ..., "int8": ...}."""
     rng = np.random.default_rng(1)
     tables, num_pages = _tables(torch, rng, dev)
     lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
@@ -987,10 +999,16 @@ def decode_cost(torch, np, PA, flush, dev, calls=20):
     kp, vp = (torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).bfloat16()
               for _ in range(2))
     lens_t = torch.as_tensor(lens, device=dev)
-    before = PA.KERNEL.launches, PA.KERNEL.tc_launches
-    cost = split_cost(torch, lambda: PA.paged_attention(q, kp, vp, tables, lens_t),
-                      "paged_attention_kernel", flush, calls)
-    PA.KERNEL.launches, PA.KERNEL.tc_launches = before
+    (kq, ks), (vq, vs) = _quantized(torch, ref, (kp, vp), "int8")
+    before = [(m.KERNEL.launches, m.KERNEL.tc_launches) for m in (PA, PAQ)]
+    cost = {"fp": split_cost(torch, lambda: PA.paged_attention(q, kp, vp, tables, lens_t),
+                             "paged_attention_kernel", flush, calls),
+            "int8": split_cost(torch, lambda: PAQ.paged_attention_quant(
+                q, kq, vq, ks, vs, tables, lens_t, fmt="int8"),
+                "paged_attention_kernel", flush, calls)}
+    assert PA.KERNEL.tc_launches > before[0][1] and PAQ.KERNEL.tc_launches > before[1][1]
+    for m, b in zip((PA, PAQ), before):
+        m.KERNEL.launches, m.KERNEL.tc_launches = b
     return cost
 
 
@@ -1112,6 +1130,15 @@ def scan_variant(torch, c, b, x, da, prev, *, acc=None, scores=None,
     return (y + torch.einsum("...clm,...cmp->...clp", att, xf)).to(x.dtype)
 
 
+def state_variant(torch, b, x, da, xd_dtype):
+    """``ref.chunk_state`` with the decay on X, Xd = exp(dA_last - dA_l) X_l
+    in fp32, rounded once to ``xd_dtype`` before B^T Xd (bf16: the control
+    the tensor-core kernel's pair hi + lo avoids)."""
+    decay = torch.exp(da[..., -1:] - da)
+    xd = (x.float() * decay[..., None]).to(xd_dtype).float()
+    return torch.einsum("...cln,...clp->...cnp", b.float(), xd)
+
+
 def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
     """chunk_state and chunk_scan (modules ``mods``) against their plain
     versions on one case's operands.  Returns {kernel: result}; timed: the
@@ -1139,6 +1166,13 @@ def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
         res = {"err": (got.float() - want.float()).abs().max().item(),
                "scale": max(1.0, want.float().abs().max().item()),
                "da_min": da.min().item(), "tc_launches": tc}
+        if name == "chunk_state" and dtype == torch.bfloat16:
+            # the control: Xd = exp(dA_last - dA_l) X_l rounded once to bf16
+            # (the kernel multiplies it as the pair hi + lo) must fail the
+            # limit wherever the kernel takes the tensor cores
+            res["bf16_xd_rel"] = (state_variant(torch, bb, xx, da, torch.bfloat16)
+                                  - want).abs().max().item() / res["scale"]
+            res["xd_gated"] = ssd_takes_tensor_cores(case, "bfloat16")
         if got.dtype == torch.bfloat16:
             res["ulps"] = bf16_ulps(torch, got, want)
             res["bf16_scores_ulps"] = bf16_ulps(torch, scan_variant(
@@ -1188,13 +1222,16 @@ def ssd_ok(r) -> bool:
         return True
     if "ulps" in r:
         return r["ulps"] <= BF16_ULPS and r["bf16_scores_ulps"] > BF16_ULPS
+    if r.get("xd_gated") and r["bf16_xd_rel"] <= FP32_ATOL:
+        return False
     return r["err"] <= FP32_ATOL * r["scale"]
 
 
 def ssd_takes_tensor_cores(case, dtype) -> bool:
-    """Whether chunk_scan's launch on ``case``'s operands must take its
-    tensor-core path: bf16 at mamba2-2.7B's N 128 / P 64 (chunks of 128 or
-    64); hymba-1.5B's P 50 and fp32 stay on CUDA cores."""
+    """Whether chunk_state's and chunk_scan's launches on ``case``'s
+    operands must take their tensor-core paths: bf16 at mamba2-2.7B's N 128
+    / P 64 (chunks of 128 or 64); hymba-1.5B's P 50 and fp32 stay on CUDA
+    cores."""
     return dtype == "bfloat16" and case[1] == "mamba2_2_7b"
 
 
@@ -1252,7 +1289,7 @@ def serve(torch, np, cfg, params, kernels, device, max_new=32, requests=16,
 FP_KERNELS = ("paged_attention", "prefill_attention")
 TC_KERNELS = ("prefill_attention", "paged_attention")  # all bf16 launches on tensor cores
 QUANT_KERNELS = ("paged_attention_quant", "prefill_attention_quant")
-QUANT_TC_KERNELS = ("prefill_attention_quant",)  # all its bf16 launches on tensor cores
+QUANT_TC_KERNELS = QUANT_KERNELS  # all their bf16 launches on tensor cores
 MLA_FP_KERNELS = ("mla_paged", "mla_prefill")
 MLA_QUANT_KERNELS = ("mla_paged_quant", "mla_prefill_quant")
 MLA_TC_KERNELS = MLA_FP_KERNELS + MLA_QUANT_KERNELS  # all bf16 launches at deepseek's widths
@@ -2360,7 +2397,9 @@ def kernel_phase(torch, np, ref, flush, device):
                             lib = (f"sdpa over dequantized pages (yardstick) "
                                    f"{r['sdpa_dequantized_ms']:.4f} ms")
                         limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                                  f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                                  f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                                  + (f", before the redesign {EARLIER_MS[name]} ms"
+                                     if name in EARLIER_MS else ""))
                     log(f"[kernel] {name}{'' if fmt is None else ' ' + fmt} "
                         f"{str(dtype)[6:]} window={window}"
                         f"{' (tensor cores)' if r.get('tc_launches') else ''}: max abs err "
@@ -2414,10 +2453,11 @@ def kernel_phase(torch, np, ref, flush, device):
         f"launch): prefill_attention_quant int8 {per:.2f}; {rest:.2f} (slots {SLOTS}, chunk "
         f"{CHUNK}, starts 0 and {MAX_LEN - CHUNK}: {HKV * (CHUNK // PAGE) * SLOTS} blocks of 2 "
         "key groups, packed tiles staged and dequantized)")
-    cost = decode_cost(torch, np, PA, flush, device)
+    cost = decode_cost(torch, np, ref, PA, PAQ, flush, device)
     log(f"[kernel] decode cost (device us a call, torch.profiler, {SLOTS * HKV} (slot, kv "
         f"head) pairs x {decode_grid(torch, PA, device)[0]} splits): split kernel "
-        f"{cost['split']:.2f}, merge kernel {cost['merge']:.2f}")
+        f"{cost['fp']['split']:.2f}, merge kernel {cost['fp']['merge']:.2f}; int8 twin "
+        f"split kernel {cost['int8']['split']:.2f}, merge kernel {cost['int8']['merge']:.2f}")
     cost = mla_decode_cost(torch, np, ref, MP, MPQ, flush, device)
     log(f"[kernel] MLA decode cost (device us a call, torch.profiler, {SLOTS} slots x "
         f"{mla_decode_grid(torch, MP, device)[0]} splits of {MLA_HEADS} heads): bf16 split "
@@ -2443,12 +2483,18 @@ def kernel_phase(torch, np, ref, flush, device):
                 else:
                     limit = (f"{r['err'] / r['scale']:.2e} of max(1, max|plain|) "
                              f"{r['scale']:.3g} (limit {FP32_ATOL:.0e})")
+                    if "bf16_xd_rel" in r:
+                        limit += (f"; control with Xd rounded once to bf16 "
+                                  f"{r['bf16_xd_rel']:.2e}"
+                                  + ("" if r["xd_gated"] else " (printed, not gated)"))
                 if timed:
                     limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                               f"bf16 cuBLAS products (yardstick) {r['yardstick_ms']:.4f} ms, "
                               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
                               f"{r['bytes'] / 1e6:.1f} MB handed over, broadcast B/C "
-                              f"once; {r['flops'] / 1e9:.2f} GFLOP over causal pairs)")
+                              f"once; {r['flops'] / 1e9:.2f} GFLOP over causal pairs)"
+                              + (f", before the redesign {EARLIER_MS[name]} ms"
+                                 if name in EARLIER_MS else ""))
                     table[name] = r
                 log(f"[kernel] {name} {case[0]} {str(dtype)[6:]} ({arch}, batch {b} x "
                     f"seq {s}, min dA_cum {r['da_min']:.1f})"
@@ -2457,7 +2503,7 @@ def kernel_phase(torch, np, ref, flush, device):
                 if not ssd_ok(r):
                     raise AssertionError(f"{name} {case[0]} disagrees with its plain "
                                          "version")
-                want_tc = name == "chunk_scan" and ssd_takes_tensor_cores(case, str(dtype)[6:])
+                want_tc = ssd_takes_tensor_cores(case, str(dtype)[6:])
                 if r["tc_launches"] != int(want_tc):
                     raise AssertionError(f"{name} {case[0]} {str(dtype)[6:]}: "
                                          f"{r['tc_launches']} tensor-core launches, "
@@ -2687,7 +2733,7 @@ def training_phase(torch, np, lm, cfg, device) -> int:
 
 SSM_ARCH = "mamba2_2_7b"
 SSM_KERNELS = ("chunk_state", "chunk_scan")
-SSM_TC_KERNELS = ("chunk_scan",)  # every forward launch on tensor cores
+SSM_TC_KERNELS = SSM_KERNELS  # every forward launch on tensor cores
 # Limits of the SSM's depth-2 check beyond phase 5's (0.02 nats and 5% of
 # grad norm against the card's plain path, 5% of grad norm against the CPU):
 # the loss within SSM_LOSS_CPU_NATS of the CPU's fp32 one, and the least

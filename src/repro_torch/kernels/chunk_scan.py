@@ -20,7 +20,9 @@ three bf16 terms hi + mid + lo (fp32's precision: a pair is not enough
 where a row's signed products cancel).  Where C and B are broadcast over
 the heads (head stride
 0), one block computes C B^T once for a group of heads (:func:`head_group`).
-The rest (fp32, hymba's P 50 / N 16) runs on CUDA cores in fp32.
+The rest (fp32, hymba's P 50 / N 16) runs on CUDA cores in fp32.  The rule
+and the grouping are :mod:`.chunk_state`'s, whose kernel has the same
+tensor-core path.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ import torch
 
 from . import ref
 from .build import Kernel, check
-from .chunk_state import (MAX_BLOCKS, MAX_CHUNK, check_common, five_d,
-                          recompute_grads, require, strides)
+from .chunk_state import (MAX_BLOCKS, MAX_CHUNK, check_common, five_d, head_group,
+                          recompute_grads, require, rows_aligned, strides,
+                          tensor_core_path)
 from .paged_attention import DTYPES, sm_count
 
 _P = ctypes.c_void_p
@@ -43,44 +46,6 @@ KERNEL = Kernel(
     replaces="src/repro/kernels/linear_attention.py:58",
     source="linear_attention",
 )
-TC_MAX_N = 128  # state width the tensor-core block holds in shared memory
-TC_P_TILE = 64  # columns of P a tensor-core block
-
-
-def tensor_core_path(dtype: torch.dtype, length: int, n: int, p: int,
-                     aligned: bool = True) -> bool:
-    """Whether a launch takes the tensor-core scan: bf16, chunks of L rows
-    and state and head widths N and P that its 16-row tiles take (L and N
-    within its shared memory), with rows its 16-byte copies can read
-    (``aligned``: :func:`rows_aligned` of the operands)."""
-    return (dtype == torch.bfloat16 and length % 16 == 0 and 0 < length <= MAX_CHUNK
-            and n % 16 == 0 and 0 < n <= TC_MAX_N and p % 16 == 0 and p > 0 and aligned)
-
-
-def rows_aligned(*views: torch.Tensor) -> bool:
-    """Every view starts on 16 bytes and steps 16-byte multiples along its
-    batch, head, chunk and row dimensions (the 5-d views handed over)."""
-    for t in views:
-        vec = 16 // t.element_size()
-        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:4]):
-            return False
-    return True
-
-
-def head_group(batch: int, heads: int, nchunks: int, p: int, sms: int,
-               broadcast: bool) -> int:
-    """Heads a tensor-core block takes, sharing one C B^T: where C and B are
-    broadcast over the heads, as many as leave enough groups for the grid
-    (batch x chunks x groups x P tiles) to fill the card's ``sms`` once;
-    otherwise 1.  At mamba2-2.7B's training shapes on 132 SMs: 40 heads, 2
-    groups, 128 blocks."""
-    if not broadcast:
-        return 1
-    tiles = batch * nchunks * -(-p // TC_P_TILE)
-    groups = max(1, min(heads, sms // tiles))
-    return -(-heads // groups)
-
-
 def chunk_scan(c_mat: torch.Tensor, b_mat: torch.Tensor, x: torch.Tensor,
                da_cum: torch.Tensor, prev_states: torch.Tensor) -> torch.Tensor:
     """``c_mat``, ``b_mat`` (..., C, L, N) and ``x`` (..., C, L, P) of one

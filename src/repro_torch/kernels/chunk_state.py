@@ -12,6 +12,16 @@ reference's (heads folded into the batch), or (B, H, C, L, .) as the port's
 Mamba-2 layer hands them, where B may be an ``expand``ed view with head
 stride 0 (the kernel reads it through its strides, no copy).  A tensor
 whose last dimension is strided is made contiguous first.
+
+The kernel has two paths, picked from dtype, shapes and strides alone
+(:func:`tensor_core_path`, the rule chunk_scan shares).  bf16 with L, N and
+P multiples of 16 (L and N at most 128) and 16-byte aligned rows runs on the
+tensor cores (``KERNEL.tc_launches`` counts those launches): S = B^T Xd,
+the decay put on X, Xd = exp(dA_last - dA_l) X_l formed in fp32 and
+multiplied as the bf16 pair hi + lo, summed in fp32.  Where B is broadcast
+over the heads (head stride 0) one block stages it once for a group of
+heads (:func:`head_group`).  The rest (fp32, hymba's P 50) runs on CUDA
+cores in fp32.
 """
 from __future__ import annotations
 
@@ -21,19 +31,59 @@ import torch
 
 from . import ref
 from .build import Kernel, check
-from .paged_attention import DTYPES
+from .paged_attention import DTYPES, sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 KERNEL = Kernel(
     "chunk_state", "chunk_state_launch",
-    [_I, _P, _P, _P, _P, *([_L] * 15), _I, _I, _I, _I, _I, _I, _P],
+    [_I, _I, _I, _P, _P, _P, _P, *([_L] * 15), _I, _I, _I, _I, _I, _I, _P],
     replaces="src/repro/kernels/linear_attention.py:21",
     source="linear_attention",
 )
 MAX_CHUNK = 128  # rows of a chunk the kernels take
 MAX_BLOCKS = (1 << 31) - 1
+TC_MAX_N = 128  # state width the tensor-core blocks hold in shared memory
+TC_P_TILE = 64  # columns of P a tensor-core block
+STATE_BLOCKS_PER_SM = 2  # tensor-core chunk_state blocks an SM holds (107 KB each)
+
+
+def tensor_core_path(dtype: torch.dtype, length: int, n: int, p: int,
+                     aligned: bool = True) -> bool:
+    """Whether a launch takes the tensor-core kernels (chunk_state's and
+    chunk_scan's): bf16, chunks of L rows and state and head widths N and P
+    that their 16-row tiles take (L and N within their shared memory), with
+    rows their 16-byte copies can read (``aligned``: :func:`rows_aligned`
+    of the operands)."""
+    return (dtype == torch.bfloat16 and length % 16 == 0 and 0 < length <= MAX_CHUNK
+            and n % 16 == 0 and 0 < n <= TC_MAX_N and p % 16 == 0 and p > 0 and aligned)
+
+
+def rows_aligned(*views: torch.Tensor) -> bool:
+    """Every view starts on 16 bytes and steps 16-byte multiples along its
+    batch, head, chunk and row dimensions (the 5-d views handed over)."""
+    for t in views:
+        vec = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:4]):
+            return False
+    return True
+
+
+def head_group(batch: int, heads: int, nchunks: int, p: int, sms: int,
+               broadcast: bool, per_sm: int = 1) -> int:
+    """Heads a tensor-core block takes, sharing what is broadcast over the
+    heads (the scan's C B^T, the state's staged B): where it is broadcast,
+    as many as leave enough groups for the grid (batch x chunks x groups x P
+    tiles) to fill the card's ``sms`` once with ``per_sm`` blocks each;
+    otherwise 1.  At mamba2-2.7B's training shapes on 132 SMs: 40 heads, 2
+    groups, 128 blocks for the scan (one an SM); 20 heads, 4 groups, 256
+    blocks for the state (two an SM)."""
+    if not broadcast:
+        return 1
+    tiles = batch * nchunks * -(-p // TC_P_TILE)
+    groups = max(1, min(heads, per_sm * sms // tiles))
+    return -(-heads // groups)
 
 
 def require(cond: bool, name: str, msg: str):
@@ -95,15 +145,19 @@ def chunk_state(b_mat: torch.Tensor, x: torch.Tensor,
     require(batch * heads * nc <= MAX_BLOCKS, "chunk_state", "grid too large")
     out = torch.empty(lead + (nc, n, p), dtype=torch.float32, device=x.device)
     out5 = five_d(out, len(lead))
+    tc = tensor_core_path(x.dtype, length, n, p, rows_aligned(bm5, x5))
+    hg = (head_group(batch, heads, nc, p, sm_count(x.device.index or 0),
+                     bm5.stride(1) == 0, per_sm=STATE_BLOCKS_PER_SM) if tc else 1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[x.dtype], bm5.data_ptr(), x5.data_ptr(), da5.data_ptr(),
+            DTYPES[x.dtype], int(tc), hg, bm5.data_ptr(), x5.data_ptr(), da5.data_ptr(),
             out5.data_ptr(), *strides(bm5, 4), *strides(x5, 4),
             *strides(da5, 3), *strides(out5, 4), batch, heads, nc, length, n,
             p, stream)
     check(rc, "chunk_state")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return out
 
 

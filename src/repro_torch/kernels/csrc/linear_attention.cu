@@ -28,15 +28,16 @@
 // and writes 168 MB of fp32 states for 10.7 GFLOP; chunk_scan reads C, B, X,
 // dA and the carried states and writes Y for 42.9 GFLOP: under 0.25
 // operations a byte, far below the card's ~295 (chip_smoke.py counts the
-// bytes handed over, the expanded B and C once).  chunk_state, and
-// chunk_scan in fp32 and at shapes its tensor-core path does not take
-// (hymba's P 50), do their products on CUDA cores in fp32 (67 TFLOP/s at
-// the card's peak, not the tensor cores' 989), so their arithmetic, not
-// their bytes, sets their time.  chunk_scan's bf16 launches at L, N and P
-// multiples of 16 run on the tensor cores (chunk_scan_kernel_tc below),
-// computing C B^T once for a group of heads where C and B are broadcast
-// over the heads: 21.5 of the CUDA-core launch's 42.9 GFLOP recomputed C
-// B^T for every head.
+// bytes handed over, the expanded B and C once).  Both kernels' bf16
+// launches at L, N and P multiples of 16 run on the tensor cores
+// (chunk_state_kernel_tc and chunk_scan_kernel_tc below), each block taking
+// a group of heads where B (and C) are broadcast over the heads: the scan
+// computes C B^T once for the group (21.5 of the CUDA-core launch's 42.9
+// GFLOP recomputed it for every head), the state stages B once for it.
+// fp32, and shapes the tensor-core paths do not take (hymba's P 50), do
+// their products on CUDA cores in fp32 (67 TFLOP/s at the card's peak, not
+// the tensor cores' 989), so their arithmetic, not their bytes, sets their
+// time.
 //
 // The CUDA-core design (256 threads a block, as 16 x 16; each thread owns rows ty + 16 i
 // and columns tx + 16 j of an output tile, so a warp's shared-memory reads
@@ -356,6 +357,14 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t&
   mid = bits(m);
   lo = bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
 }
+// x = hi + lo for two neighbouring values, a bf16 pair each (chunk_state's
+// decayed X: 16 significant bits)
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
 
 struct Smem {
   bf16 *cs, *bs, *hi, *mid, *lo, *x0, *x1;
@@ -560,6 +569,174 @@ chunk_scan_kernel_tc(const bf16* __restrict__ cm, const bf16* __restrict__ bm,
   }
 }
 
+// ---- chunk_state on the tensor cores (bf16) --------------------------------
+//
+// One block per (batch, chunk, group of heads) and tile of 64 columns of P,
+// N / 16 warps, each holding one m-tile of 16 state rows:
+//   * S (N x P) = B^T Xd, Xd[l, p] = exp(dA[L-1] - dA[l]) X[l, p]: the decay
+//     goes on X (formed in fp32 per head), not on B as the plain version
+//     puts it, so one B serves every head of the group.  B (L x N, bf16) is
+//     staged once a block, the group's heads share it where its head stride
+//     is 0, and each warp holds its m-tile of B^T as A fragments in
+//     registers for the whole walk (ldmatrix.trans of B's row-major tile).
+//   * per head, its X (L x 64, bf16) and dA come by cp.async into one of two
+//     buffers while the previous head is computed; Xd is split as it is
+//     formed into the bf16 pair hi + lo (lo the rounding of what hi leaves),
+//     so S is two tensor-core products, B^T hi + B^T lo, summed in fp32 by
+//     mma.sync m16n8k16 over the chunk's rows.  The states are not rounded:
+//     the limit is 1e-4 of max(1, max |plain|), and the pair reads 2.7e-6 -
+//     3.7e-6 of it where Xd rounded once to bf16 reads 1.5e-3 - 2.1e-3 in a
+//     plain-PyTorch rehearsal (tests/test_torch_quant_decode_state_tc.py).
+//   * the fp32 states are stored straight from the accumulator fragments
+//     (streaming stores); the exponent dA[L-1] - dA[l] is <= 0 and goes
+//     through expf (no fast math), so the denormals of deep decays survive.
+// Shared memory at L 128, N 128: B, two buffers of X and dA, and Xd's two
+// terms: 107 KB, two blocks an SM; rows padded by 16 bytes, so the rows of a
+// warp's ldmatrix fall on distinct banks.  At mamba2's training shape a
+// block takes 20 heads (256 blocks), ~1.7x the launch's bound on the H100
+// (PERF.md).  tools/chunk_state_ablation.py times the kernel with one part
+// taken out: the stores, the terms' formation, the mma or the lo term each
+// save a sixth to a tenth, so no one part sets the time; the per-head chain
+// does (two barriers, and each of the 8 warps reads all of Xd's terms from
+// shared memory: 256 KB a head a block).
+struct StateSmem {
+  bf16 *bs, *x0, *x1, *hi, *lo;
+  float *d0, *d1;
+  int bst;  // bf16 between rows of B
+
+  __device__ StateSmem(void* base, int len, int n) : bst(n + 8) {
+    bs = reinterpret_cast<bf16*>(base);
+    x0 = bs + len * bst;
+    x1 = x0 + len * XST;
+    hi = x1 + len * XST;
+    lo = hi + len * XST;
+    d0 = reinterpret_cast<float*>(lo + len * XST);
+    d1 = d0 + len;
+  }
+  static size_t bytes(int len, int n) {
+    return sizeof(bf16) * ((size_t)len * (n + 8) + 4 * (size_t)len * XST) +
+           sizeof(float) * 2 * (size_t)len;
+  }
+};
+
+__global__ void __launch_bounds__(MAX_N * 2, 2)
+chunk_state_kernel_tc(const bf16* __restrict__ bm, const bf16* __restrict__ x,
+                      const float* __restrict__ da, float* __restrict__ out, Strides4 bs,
+                      Strides4 xs, Strides3 ds, Strides4 os, int heads, int nchunks, int groups,
+                      int hg, int len, int n_state, int p_dim) {
+  const int gi = blockIdx.x % groups;
+  const int bc = blockIdx.x / groups;
+  const int c = bc % nchunks, b = bc / nchunks;
+  const int h0 = gi * hg, nh = min(hg, heads - h0);
+  const int p0 = blockIdx.y * PT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, n0 = warp * 16;
+  extern __shared__ float4 smem4[];
+  const StateSmem sm(smem4, len, n_state);
+
+  // B of the group's first head: the head stride is 0 wherever the group
+  // holds more than one head
+  {
+    const bf16* bp = bm + b * bs.b + h0 * bs.h + c * bs.c;
+    const int vecs = n_state / 8;
+    for (int i = threadIdx.x; i < len * vecs; i += blockDim.x) {
+      const int r = i / vecs, k = (i % vecs) * 8;
+      gc::cp_async<16>(sm.bs + r * sm.bst + k, bp + r * bs.l + k, true);
+    }
+  }
+  // head h0 + i's X and dA into buffer `buf`; columns past P are zero-filled
+  auto load_head = [&](int i, int buf) {
+    const int h = h0 + i;
+    const bf16* xp = x + b * xs.b + h * xs.h + c * xs.c + p0;
+    const float* dp = da + b * ds.b + h * ds.h + c * ds.c;
+    bf16* xd = buf ? sm.x1 : sm.x0;
+    float* dd = buf ? sm.d1 : sm.d0;
+    for (int k = threadIdx.x; k < len * (PT / 8); k += blockDim.x) {
+      const int r = k / (PT / 8), col = (k % (PT / 8)) * 8;
+      const bool live = p0 + col < p_dim;
+      gc::cp_async<16>(xd + r * XST + col, live ? xp + r * xs.l + col : xp, live);
+    }
+    for (int k = threadIdx.x; k < len; k += blockDim.x) gc::cp_async<4>(dd + k, dp + k, true);
+  };
+  load_head(0, 0);
+  gc::cp_async_commit();
+  gc::cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's m-tile of B^T, every k-step of the chunk's rows
+  uint32_t bt[kMaxL / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kMaxL / 16; ++kk)
+    if (kk < len / 16)
+      gc::ldmatrix_x4_trans(bt[kk], sm.bs + (kk * 16 + (lane >> 4) * 8 + (lane & 7)) * sm.bst +
+                                        n0 + ((lane >> 3) & 1) * 8);
+
+  for (int i = 0; i < nh; ++i) {
+    const int buf = i & 1;
+    if (i > 0) {
+      gc::cp_async_wait<0>();
+      __syncthreads();  // head i landed for all; head i - 1's terms fully read
+    }
+    if (i + 1 < nh) load_head(i + 1, buf ^ 1);
+    gc::cp_async_commit();
+    {  // Xd = exp(dA[L-1] - dA[l]) X as the pair hi + lo, 8 columns a thread
+      const bf16* xd = buf ? sm.x1 : sm.x0;
+      const float* dd = buf ? sm.d1 : sm.d0;
+      const float last = dd[len - 1];
+      for (int k = threadIdx.x; k < len * (PT / 8); k += blockDim.x) {
+        const int r = k / (PT / 8), col = (k % (PT / 8)) * 8;
+        const float w = expf(last - dd[r]);
+        const uint4 v = *reinterpret_cast<const uint4*>(xd + r * XST + col);
+        uint4 h, l;
+        auto decay = [&](uint32_t u, uint32_t& hu, uint32_t& lu) {  // a bf16 pair
+          split2(__uint_as_float(u << 16) * w, __uint_as_float(u & 0xffff0000u) * w, hu, lu);
+        };
+        decay(v.x, h.x, l.x);
+        decay(v.y, h.y, l.y);
+        decay(v.z, h.z, l.z);
+        decay(v.w, h.w, l.w);
+        *reinterpret_cast<uint4*>(sm.hi + r * XST + col) = h;
+        *reinterpret_cast<uint4*>(sm.lo + r * XST + col) = l;
+      }
+    }
+    __syncthreads();
+    float acc[PT / 8][4];
+#pragma unroll
+    for (int j = 0; j < PT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kMaxL / 16; ++kk) {
+      if (kk >= len / 16) continue;
+#pragma unroll
+      for (int j = 0; j < PT / 8; j += 2) {
+        const int at = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * XST + j * 8 +
+                       (lane >> 4) * 8;
+        uint32_t xh[4], xl[4];
+        gc::ldmatrix_x4_trans(xh, sm.hi + at);
+        gc::ldmatrix_x4_trans(xl, sm.lo + at);
+        gc::mma16816<bf16>(acc[j], bt[kk], xh[0], xh[1]);
+        gc::mma16816<bf16>(acc[j], bt[kk], xl[0], xl[1]);
+        gc::mma16816<bf16>(acc[j + 1], bt[kk], xh[2], xh[3]);
+        gc::mma16816<bf16>(acc[j + 1], bt[kk], xl[2], xl[3]);
+      }
+    }
+    // streaming stores (evict first): the 168 MB of states at mamba2's
+    // training shape pass L2 once (a few % faster than plain stores:
+    // tools/chunk_state_ablation.py)
+    float* op = out + b * os.b + (h0 + i) * os.h + c * os.c + p0;
+#pragma unroll
+    for (int j = 0; j < PT / 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (p0 + col >= p_dim) continue;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        __stcs(reinterpret_cast<float2*>(op + (n0 + g + 8 * rr) * os.l + col),
+               make_float2(acc[j][2 * rr], acc[j][2 * rr + 1]));
+    }
+  }
+}
+
 }  // namespace tc
 
 bool shapes_ok(int batch, int heads, int nchunks, int len, int n_state,
@@ -615,23 +792,53 @@ int launch_scan(const void* cm, const void* bm, const void* x, const void* da,
   return (int)cudaGetLastError();
 }
 
-// Whether the tensor-core scan takes these shapes (chunk_scan.py's
-// tensor_core_path, plus the grid's limits and the 16-byte rows its
-// cp.async copies need).
-bool tc_shapes_ok(const void* cm, const void* bm, const void* x, const void* prev,
-                  Strides4 cs, Strides4 bs, Strides4 xs, Strides4 ps, int batch, int heads,
-                  int nchunks, int groups, int hg, int len, int n_state, int p_dim) {
-  auto rows16 = [](const void* p, Strides4 st, int elems) {  // elems to 16 bytes
-    return (long long)(size_t)p % 16 == 0 && st.b % elems == 0 && st.h % elems == 0 &&
-           st.c % elems == 0 && st.l % elems == 0;
-  };
+// Rows that 16-byte copies can read: the start and every stride a multiple
+// of 16 bytes (elems elements).
+bool rows16(const void* p, Strides4 st, int elems) {
+  return (long long)(size_t)p % 16 == 0 && st.b % elems == 0 && st.h % elems == 0 &&
+         st.c % elems == 0 && st.l % elems == 0;
+}
+
+// Whether the tensor-core kernels' grid takes these shapes (chunk_scan.py's
+// tensor_core_path plus the grid's limits): L, N and P multiples of 16, L
+// and N within shared memory, `groups` blocks of hg heads covering the
+// heads.
+bool tc_grid_ok(int batch, int heads, int nchunks, int groups, int hg, int len, int n_state,
+                int p_dim) {
   const long long blocks = (long long)batch * nchunks * groups;
   return len % 16 == 0 && len > 0 && len <= kMaxL && n_state % 16 == 0 && n_state > 0 &&
          n_state <= tc::MAX_N && p_dim % 16 == 0 && p_dim > 0 && hg >= 1 && groups >= 1 &&
          (long long)hg * groups >= heads && (long long)hg * (groups - 1) < heads &&
-         (hg == 1 || (cs.h == 0 && bs.h == 0)) && blocks < (1LL << 31) &&
-         (p_dim + tc::PT - 1) / tc::PT <= 65535 && rows16(cm, cs, 8) && rows16(bm, bs, 8) &&
+         blocks < (1LL << 31) && (p_dim + tc::PT - 1) / tc::PT <= 65535;
+}
+
+// The tensor-core scan's rule: its grid's, C and B of head stride 0 unless
+// a block takes one head, and rows its cp.async copies can read.
+bool tc_shapes_ok(const void* cm, const void* bm, const void* x, const void* prev,
+                  Strides4 cs, Strides4 bs, Strides4 xs, Strides4 ps, int batch, int heads,
+                  int nchunks, int groups, int hg, int len, int n_state, int p_dim) {
+  return tc_grid_ok(batch, heads, nchunks, groups, hg, len, n_state, p_dim) &&
+         (hg == 1 || (cs.h == 0 && bs.h == 0)) && rows16(cm, cs, 8) && rows16(bm, bs, 8) &&
          rows16(x, xs, 8) && rows16(prev, ps, 4);
+}
+
+int launch_state_tc(const void* bm, const void* x, const void* da, void* out, Strides4 bs,
+                    Strides4 xs, Strides3 ds, Strides4 os, int batch, int heads, int nchunks,
+                    int hg, int len, int n_state, int p_dim, cudaStream_t stream) {
+  const int groups = hg > 0 ? (heads + hg - 1) / hg : 0;
+  if (!tc_grid_ok(batch, heads, nchunks, groups, hg, len, n_state, p_dim) ||
+      (hg > 1 && bs.h != 0) || !rows16(bm, bs, 8) || !rows16(x, xs, 8) || !rows16(out, os, 4))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tc::StateSmem::bytes(len, n_state);
+  auto kernel = tc::chunk_state_kernel_tc;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(batch * nchunks * groups, (p_dim + tc::PT - 1) / tc::PT);
+  kernel<<<grid, n_state * 2, smem, stream>>>((const tc::bf16*)bm, (const tc::bf16*)x,
+                                              (const float*)da, (float*)out, bs, xs, ds, os,
+                                              heads, nchunks, groups, hg, len, n_state, p_dim);
+  return (int)cudaGetLastError();
 }
 
 int launch_scan_tc(const void* cm, const void* bm, const void* x, const void* da,
@@ -664,8 +871,12 @@ int launch_scan_tc(const void* cm, const void* bm, const void* x, const void* da
 // rows.  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for shapes it does not take (a chunk longer than
 // 128 rows, an empty dimension, a grid too large).
+// tc 1 takes the tensor-core state (bfloat16; L, N and P multiples of 16, L
+// and N at most 128; rows and strides of B, X and the states 16-byte
+// aligned) with hg heads a block sharing one staged B, which needs B of
+// head stride 0 unless hg is 1; tc 0 the CUDA-core kernel (hg unused).
 extern "C" int chunk_state_launch(
-    int dtype, const void* bm, const void* x, const void* da, void* out,
+    int dtype, int tc, int hg, const void* bm, const void* x, const void* da, void* out,
     long long bb, long long bh, long long bc, long long bl, long long xb,
     long long xh, long long xc, long long xl, long long db, long long dh,
     long long dc, long long ob, long long oh, long long oc, long long ol,
@@ -674,6 +885,10 @@ extern "C" int chunk_state_launch(
   cudaStream_t s = (cudaStream_t)stream;
   const Strides4 bs{bb, bh, bc, bl}, xs{xb, xh, xc, xl}, os{ob, oh, oc, ol};
   const Strides3 ds{db, dh, dc};
+  if (tc)
+    return dtype == 1 ? launch_state_tc(bm, x, da, out, bs, xs, ds, os, batch, heads, nchunks,
+                                        hg, len, n_state, p_dim, s)
+                      : (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_state<float>(bm, x, da, out, bs, xs, ds, os, batch, heads,
                                nchunks, len, n_state, p_dim, s);

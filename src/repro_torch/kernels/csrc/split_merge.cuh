@@ -21,8 +21,7 @@ constexpr int MERGE_THREADS = 128;
 
 // Where split blocks leave their partial states (fp32 scratch the wrapper
 // allocates): O (slots, heads, splits, d) unnormalised, m and l (slots,
-// heads, splits).  o == nullptr: one split, the block normalises and
-// writes the output itself.
+// heads, splits).
 struct Partials {
   float *o, *m, *l;
   int heads, splits;

@@ -71,6 +71,19 @@ def tensor_core_path(dtype: torch.dtype, head_dim: int, group: int) -> bool:
             and group <= TC_MAX_GROUP)
 
 
+def split_scratch(q: torch.Tensor, kv_heads: int, max_pages: int, page_size: int):
+    """(splits, split_keys, o_part, ml_part) of a decode launch for ``q``
+    (slots, Hq, D) on its card: :func:`decode_splits`' grid and the fp32
+    scratch its split blocks leave their partial states in, O unnormalised
+    (slots, Hq, splits, D), then m and l (2, slots, Hq, splits)."""
+    b, hq, d = q.shape
+    splits, split_keys = decode_splits(b, kv_heads, max_pages, page_size,
+                                       sm_count(q.device.index or 0))
+    o_part = torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)
+    ml_part = torch.empty((2, b, hq, splits), dtype=torch.float32, device=q.device)
+    return splits, split_keys, o_part, ml_part
+
+
 def _require(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"paged_attention kernel: {msg}")
@@ -111,14 +124,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    splits, split_keys = decode_splits(b, hkv, max_pages, page_size,
-                                       sm_count(q.device.index or 0))
+    splits, split_keys, o_part, ml_part = split_scratch(q, hkv, max_pages, page_size)
     _require(b <= 65535 and splits <= 65535, f"{b} slots x {splits} splits")
     tc = tensor_core_path(q.dtype, d, hq // hkv)
     out = torch.empty_like(q)
-    # the partial states: O unnormalised, then m and l (fp32 scratch)
-    o_part = torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)
-    ml_part = torch.empty((2, b, hq, splits), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(

@@ -4,11 +4,17 @@ point of ``csrc/paged_attention.cu``.
 Counterpart of ``repro.kernels.paged_attention.paged_attention_quant_program``
 (repro/kernels/paged_attention.py:93): the decode kernel of
 ``paged_attention.py`` over packed int8 / int4 K/V pools plus per-token
-scale columns, each page dequantized on its way into shared memory (the
-DequantStage of attention_core.cuh), with the value rounded once to the
-query's dtype as the TPU kernel does.  The plain version is
-``ref.paged_attention_quant``; this wrapper takes it for CPU tensors only.
-For a CUDA tensor it launches the kernel or raises.
+scale columns, each value dequantized to the query's dtype (rounded once,
+as the TPU kernel does) on its way into shared memory.  The plain version
+is ``ref.paged_attention_quant``; this wrapper takes it for CPU tensors
+only.  For a CUDA tensor it launches the kernel or raises.
+
+The kernel's grid and paths are ``paged_attention.py``'s: split-KV from
+static shapes (:func:`.paged_attention.decode_splits`), then the merge; bf16
+at head dim 64 or 128 (:func:`.paged_attention.tensor_core_path`) on the
+tensor cores, each 64-key tile's packed rows staged by cp.async and
+dequantized into the bf16 tile (``KERNEL.tc_launches`` counts those
+launches); fp32 and other head dims on CUDA cores.
 """
 from __future__ import annotations
 
@@ -20,14 +26,13 @@ import torch
 
 from . import ref
 from .build import Kernel, check
-from .paged_attention import DTYPES
+from .paged_attention import DTYPES, split_scratch, tensor_core_path
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
     "paged_attention_quant", "paged_attention_quant_launch",
-    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, _P],
+    [_I, _I, _I] + [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P],
     replaces="src/repro/kernels/paged_attention.py:93",
     source="paged_attention",
 )
@@ -83,16 +88,21 @@ def paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    splits, split_keys, o_part, ml_part = split_scratch(q, hkv, max_pages, page_size)
+    _require(b <= 65535 and splits <= 65535, f"{b} slots x {splits} splits")
+    tc = tensor_core_path(q.dtype, d, hq // hkv)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], pack, q.data_ptr(), k_pages.data_ptr(),
+            DTYPES[q.dtype], int(tc), pack, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b,
-            hq, hkv, d, page_size, max_pages, num_pages,
-            window if window is not None else 0, scale, stream,
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            o_part.data_ptr(), ml_part.data_ptr(), b, hq, hkv, d, page_size,
+            max_pages, num_pages, window if window is not None else 0, splits,
+            split_keys, scale, stream,
         )
     check(rc, "paged_attention_quant")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return out

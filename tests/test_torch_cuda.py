@@ -177,6 +177,52 @@ def test_cuda_split_decode_edges(dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_quant_split_decode_edges(fmt, dtype, d):
+    """On a card: the quantized split decode (bf16 on the tensor cores, its
+    packed tiles staged and dequantized; fp32 on CUDA cores; one grid of 16
+    splits of 64 keys for any lengths) at pages of 8, 16 and 32, window
+    None and 256, on SPLIT_LENS: within the limit of its plain version, a
+    len-0 slot emitting zeros, the reserved page's NaN scales never read;
+    the merge without the rescale fails the same limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    b, hq, hkv = len(SPLIT_LENS), 12, 2
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=dev)
+    for ps in (8, 16, 32):
+        mp = 1024 // ps
+        num_pages = b * mp + 1
+        tables = torch.as_tensor(_tables(np.random.default_rng(ps), b, mp, num_pages), device=dev)
+        g = torch.Generator(device=dev).manual_seed(ps)
+        rand = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)  # noqa: E731
+        q = rand(b, hq, d)
+        (kq, ks), (vq, vs) = (ref.quantize_rows(rand(hkv, num_pages, ps, d), fmt)
+                              for _ in range(2))
+        ks[:, 0] = float("nan")  # the reserved page, never in a table: never read
+        vs[:, 0] = float("nan")
+        kp, vp = (ref.dequantize_rows(a, sc, fmt).to(dt) for a, sc in ((kq, ks), (vq, vs)))
+        splits, keys = PA.decode_splits(b, hkv, mp, ps, PA.sm_count(dev.index or 0))
+        for window in (None, 256):
+            n0, tc0 = PAQ.KERNEL.launches, PAQ.KERNEL.tc_launches
+            got = PAQ.paged_attention_quant(q, kq, vq, ks, vs, tables, lens, fmt=fmt,
+                                            window=window)
+            torch.cuda.synchronize()
+            assert (PAQ.KERNEL.launches, PAQ.KERNEL.tc_launches) == (
+                n0 + 1, tc0 + (dt == torch.bfloat16))
+            want = ref.paged_attention_quant(q, kq, vq, ks, vs, tables, lens, fmt=fmt,
+                                             window=window)
+            assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+            assert _within_limit(got, want), (ps, window)
+            faulty = PA.split_decode(q, kp, vp, tables, lens, splits, keys, window=window,
+                                     pair=dt == torch.bfloat16, rescale=False)
+            assert not _within_limit(faulty, want), (ps, window)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["int8", "int4"])
 def test_cuda_quant_kernels_match_plain_versions(fmt):
     """On a card: each quantized kernel against its plain version, bf16 and
@@ -687,6 +733,38 @@ def test_cuda_chunk_scan_tensor_core_edges(case):
     y = CSC.chunk_scan(cm, bm, x, da, prev)
     assert (CSC.KERNEL.launches, CSC.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
     assert _ssd_within_limit(y, ref.chunk_scan(cm, bm, x, da, prev))
+
+
+# (batch, heads, chunks, L, N, P, B broadcast over the heads): mamba2-2.7B's
+# N 128 / P 64 at chunks of 128 and 64, N and P of one m-tile, several head
+# groups (80 heads: 40 groups of 2 at batch 2 x 2 chunks on 132 SMs)
+STATE_TC = [(2, 80, 2, 128, 128, 64, True), (2, 6, 3, 64, 128, 64, True),
+            (1, 5, 2, 128, 16, 64, True), (1, 3, 2, 64, 128, 16, True),
+            (1, 4, 2, 128, 128, 64, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STATE_TC, ids=[str(c) for c in STATE_TC])
+def test_cuda_chunk_state_tensor_core_edges(case):
+    """On a card: bf16 chunk_state at L, N and P multiples of 16 takes its
+    tensor-core path (every launch counted in tc_launches), deep and growing
+    decay: within 1e-4 of max(1, max |plain|); a head-stride-0 B, whose
+    block stages it once for a group of heads, gives states bit-identical
+    to a contiguous copy of B (one head a block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    batch, heads, nc, length, n, p, broadcast = case
+    dev = torch.device("cuda")
+    for deep in (True, False):
+        _, bm, x, da, _ = _ssd_case((batch, heads, nc, length, n, p, deep), torch.bfloat16, dev)
+        if not broadcast:
+            bm = bm.contiguous()
+        n0, tc0 = CST.KERNEL.launches, CST.KERNEL.tc_launches
+        st = CST.chunk_state(bm, x, da)
+        assert (CST.KERNEL.launches, CST.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
+        assert _ssd_within_limit(st, ref.chunk_state(bm, x, da))
+        if broadcast:
+            assert torch.equal(st, CST.chunk_state(bm.contiguous(), x, da))
 
 
 @pytest.mark.cuda
