@@ -72,8 +72,11 @@ no phase is skipped):
    to the activations' type, as the kernel multiplies it); MLA within 2
    bf16 ulps with the attention controls; planted faults (a K tile dropped,
    B's bytes read as a K-major matrix, each byte's code order swapped) must
-   fail them; every Table 2 M shape must take the GEMM's wgmma path
-   (``KERNEL.tc_launches``).  Each is timed (median
+   fail them; every Table 2 M shape must take the GEMM's wgmma path, and
+   every bf16 Fig. 14 shape, two latent heads at a ragged length and
+   deepseek-v2-lite-16B's 16 heads over one latent head at a ragged length
+   FlashMLA's (``KERNEL.tc_launches``); FlashMLA's device cost of a 32-key
+   tile is read from its two b64 shapes.  Each is timed (median
    and spread) beside its plain version and ``torch.matmul`` (GEMM), cuBLAS
    fp16 on a weight dequantized beforehand (the paper's Fig. 15 baseline, a
    yardstick) or SDPA with a latent head's heads as its query rows (MLA);
@@ -2000,6 +2003,9 @@ INT8_OPS = 1979e12  # dense int8 tensor-core peak
 LIBRARY_ROWS = {"matmul": "M7 bfloat16", "dequant_matmul": "m1_n16384_k16384 int4 x float16",
                 "mla": "b128_s8192 bfloat16"}
 LIBRARY_KERNELS = tuple(LIBRARY_ROWS)
+# the library cases that must take FlashMLA's wgmma path
+MLA_WGMMA = (*(f"{k} bfloat16" for k in MLA_SHAPES), "Hkv 2 ragged bfloat16",
+             "16 heads ragged bfloat16")
 K_TILE = 32  # the K tile the GEMM's planted fault drops
 
 
@@ -2019,7 +2025,9 @@ def ragged_cases():
                            ("group 48 int8", (8, 1024, 1536), "int2", "int8", 48)],
         "mla": [("fp32 b64_s1024", (64, 128, 1, 1024, 512, 64), "float32"),
                 ("Hkv 2", (1, 32, 2, 128, 64, 32), "bfloat16"),
-                ("Hkv 2 ragged", (4, 128, 2, 1000, 512, 64), "bfloat16")],
+                ("Hkv 2 ragged", (4, 128, 2, 1000, 512, 64), "bfloat16"),
+                # deepseek-v2-lite-16B's contiguous decode: a partial head group
+                ("16 heads ragged", (8, 16, 1, 777, 512, 64), "bfloat16")],
     }
 
 
@@ -2236,10 +2244,12 @@ def check_lib_mla(torch, ops, ref, label, shape, dtype, flush, timed, dev, seed=
     kv = torch.randn((b, s, hkv, d), generator=g, device=dev).to(dt)
     k_pe = torch.randn((b, s, hkv, pe), generator=g, device=dev).to(dt)
     scale = (d + pe) ** -0.5
+    tc_before = ops.KERNELS["mla"].tc_launches
     out = ops.mla(q, q_pe, kv, k_pe)  # counted
     plain = ref.mla(q, q_pe, kv, k_pe)
     err = (out.float() - plain.float()).abs().max().item()
-    res = {"kernel": "mla", "label": f"{label} {dtype}", "shape": shape, "max_abs_err": err}
+    res = {"kernel": "mla", "label": f"{label} {dtype}", "shape": shape, "max_abs_err": err,
+           "wgmma_launches": ops.KERNELS["mla"].tc_launches - tc_before}
     group = h // hkv
     # the heads of a latent head as the query rows of one attention head
     qg = torch.cat([q, q_pe], -1).reshape(b, hkv, group, d + pe)
@@ -2255,9 +2265,9 @@ def check_lib_mla(torch, ops, ref, label, shape, dtype, flush, timed, dev, seed=
     del out, plain
     if timed:
         kern = ops.KERNELS["mla"]
-        n_before = kern.launches
+        counts = kern.launches, kern.tc_launches
         res["ms"] = time_ms(torch, lambda: ops.mla(q, q_pe, kv, k_pe), flush=flush)
-        kern.launches = n_before
+        kern.launches, kern.tc_launches = counts
         res["plain_ms"] = time_ms(torch, lambda: ref.mla(q, q_pe, kv, k_pe), flush=flush)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qg4, kg4, vg4 = qg.contiguous(), kg.contiguous(), vg.contiguous()
@@ -2334,9 +2344,39 @@ def log_library(r):
             text += (f"torch.matmul {r['library_ms']:.4f} ms (kernel / torch.matmul "
                      f"{r['ms'] / r['library_ms']:.2f}x), ")
         text += f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-    if r["kernel"] == "matmul" and r.get("wgmma_launches"):
+    if r.get("wgmma_launches"):
         text += " [wgmma]"
     log(text)
+
+
+def wgmma_gate(lib):
+    """Every Table 2 M shape on the GEMM's wgmma path and every MLA_WGMMA
+    case on FlashMLA's, one launch each: returns the two maps of label to
+    launches, raises if a case is missing or took another path."""
+    gemm = {r["label"]: r["wgmma_launches"] for r in lib
+            if r["kernel"] == "matmul" and r["label"].startswith("M")}
+    mla = {r["label"]: r["wgmma_launches"] for r in lib
+           if r["kernel"] == "mla" and r["label"] in MLA_WGMMA}
+    if sorted(gemm) != [f"M{i} bfloat16" for i in range(8)] or set(gemm.values()) != {1}:
+        raise AssertionError(f"a Table 2 M shape missed the wgmma path: {gemm}")
+    if sorted(mla) != sorted(MLA_WGMMA) or set(mla.values()) != {1}:
+        raise AssertionError(f"a FlashMLA case missed the wgmma path: {mla}")
+    return gemm, mla
+
+
+def lib_mla_tile_cost(lib, keys: int):
+    """FlashMLA's device cost of one key tile of a block's walk, from its
+    two b64 launches (s 1024 and 4096; 128 blocks, one wave on 132 SMs):
+    (us a tile, us of the rest of the launch, TFLOP/s an SM).  A tile's
+    tensor work is 64 rows x keys x 2 (D + Dpe + 2 D): P.V runs twice, hi
+    and lo."""
+    ms = {r["label"]: r["ms"] for r in lib if r["kernel"] == "mla" and "ms" in r}
+    lo, hi = ms["b64_s1024 bfloat16"], ms["b64_s4096 bfloat16"]
+    _, _, _, s_lo, d, pe = MLA_SHAPES["b64_s1024"]
+    s_hi = MLA_SHAPES["b64_s4096"][3]
+    per = (hi - lo) / ((s_hi - s_lo) // keys) * 1e3
+    flops = 64 * keys * 2 * (d + pe + 2 * d)
+    return per, lo * 1e3 - s_lo // keys * per, flops / (per * 1e-6) / 1e12
 
 
 # ---------------------------------------------------------------------------
@@ -2559,8 +2599,11 @@ def main(argv=None) -> int:
                 fn = line.split("Function properties for")[-1].strip()
             elif "spill" in line:
                 spill = line.strip()
-            elif "registers" in line:
+            elif "Used" in line and "registers" in line:
                 log(f"[build] {name} {fn}: {line.split(':', 1)[-1].strip()}; {spill}")
+        serialized = text.count("(C7514)") + text.count("(C7515)")
+        if serialized:  # ptxas waits after every wgmma of a function
+            log(f"[build] {name}: {serialized} wgmma serialization notes (C7514 / C7515)")
 
     # ---- phase 2: kernels vs plain versions -------------------------------
     t0 = time.perf_counter()
@@ -2577,11 +2620,15 @@ def main(argv=None) -> int:
                                  "passes it")
         if r["label"] == LIBRARY_ROWS[r["kernel"]]:
             table[r["kernel"]] = r
-    wgmma = {r["label"]: r["wgmma_launches"] for r in lib
-             if r["kernel"] == "matmul" and r["label"].startswith("M")}
-    log(f"[launches] Table 2's M shapes on wgmma: {json.dumps(wgmma)}")
-    if sorted(wgmma) != [f"M{i} bfloat16" for i in range(8)] or set(wgmma.values()) != {1}:
-        raise AssertionError(f"a Table 2 M shape missed the wgmma path: {wgmma}")
+    gemm_wgmma, mla_wgmma = wgmma_gate(lib)
+    log(f"[launches] Table 2's M shapes on wgmma: {json.dumps(gemm_wgmma)}")
+    log(f"[launches] FlashMLA's cases on wgmma: {json.dumps(mla_wgmma)}")
+    from repro_torch.kernels import mla as lib_mla
+    per, rest, rate = lib_mla_tile_cost(lib, lib_mla.TC_KEYS)
+    log(f"[kernel] tile cost (device us a {lib_mla.TC_KEYS}-key tile of the walk; us of the "
+        f"rest of the launch): mla (FlashMLA, wgmma) {per:.3f}; {rest:.2f} (b64, s 1024 and "
+        f"4096: 128 blocks of 64 heads, one wave; the pair's tensor work {rate:.2f} TFLOP/s "
+        f"an SM, {rate / (BF16_FLOPS / 132e12):.0%} of its share of the dense peak)")
     log(f"[launches] the library's path: {json.dumps(lib_launches)}")
     if not all(lib_launches.values()):
         raise AssertionError(f"a library kernel was not launched on its path: {lib_launches}")

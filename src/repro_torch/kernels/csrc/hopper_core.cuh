@@ -1,7 +1,9 @@
 // Hopper's asynchronous machinery, for the kernel library's GEMM
-// (matmul.cu): TMA descriptors and 2-D tile loads, mbarriers, the
-// warpgroup product wgmma.mma_async (m64n256k16, fp32 accumulation, A
-// K-major, B MN-major) and setmaxnreg.  sm_90a only.
+// (matmul.cu) and FlashMLA (mla.cu): TMA descriptors and 2-D / 3-D tile
+// loads, mbarriers, named barriers, the warpgroup product wgmma.mma_async
+// (fp32 accumulation: m64n256k16 with A from shared memory or registers and
+// B MN-major; m64nNk16, N 32 or 48, with A and B both K-major) and
+// setmaxnreg.  sm_90a only.
 //
 // * TMA.  cuTensorMapEncodeTiled is a driver function and the libraries
 //   link only the CUDA runtime (build.py's NVCC_FLAGS have no -lcuda), so
@@ -10,23 +12,32 @@
 //   CUDA 12.5).  A descriptor travels to the kernel by value as a
 //   `const __grid_constant__ CUtensorMap` parameter.  Boxes are 128 bytes
 //   wide (64 16-bit elements) with 128-byte swizzle; elements outside the
-//   tensor arrive as zeros, which masks every edge of a tile.  The global
-//   base address and row stride must be multiples of 16 bytes.
+//   tensor arrive as zeros, which masks every edge of a tile (a 3-D map's
+//   box stops at the end of its own batch row).  The global base address
+//   and row strides must be multiples of 16 bytes.
 // * Shared tiles under 128-byte swizzle start on 1024-byte boundaries
 //   (eight 128-byte rows, one swizzle atom), so that TMA's swizzle and
-//   wgmma's agree (the descriptor's base offset stays 0).
-// * wgmma reads both operands from shared memory through 64-bit
-//   descriptors: start address, leading byte offset (LBO) and stride byte
-//   offset (SBO), each in 16-byte units, and the layout (1 = 128-byte
-//   swizzle).  K-major A (rows of 64 K values, 128 bytes): SBO = 1024, the
-//   step from 8 rows to the next 8; LBO unused; the k-th 16-wide step
-//   starts 32 k bytes into the rows.  MN-major B (row-major K x N, rows of
-//   64 N values a box): LBO = the step from one 64-column box to the next,
-//   SBO = 1024, the step from 8 K rows to the next 8; the transpose-B bit
-//   (16-bit types only) says B is MN-major.
+//   wgmma's agree (the descriptor's base offset stays 0).  Row r's 16-byte
+//   chunk c of such a tile lies at r * 128 + ((c ^ r % 8) * 16).
+// * wgmma reads its shared operands through 64-bit descriptors: start
+//   address, leading byte offset (LBO) and stride byte offset (SBO), each
+//   in 16-byte units, and the layout (1 = 128-byte swizzle).  K-major
+//   operand (rows of 64 K values, 128 bytes; A, or B stored N x K as the
+//   keys of an attention score): SBO = 1024, the step from 8 rows to the
+//   next 8; LBO unused; the k-th 16-wide step starts 32 k bytes into the
+//   rows.  MN-major B (row-major K x N, rows of 64 N values a box): LBO =
+//   the step from one 64-column box to the next, SBO = 1024, the step from
+//   8 K rows to the next 8; the transpose-B bit (16-bit types only) says B
+//   is MN-major.  A from registers takes mma.sync's A fragment layout
+//   (m16n8k16) in each warp's 16 rows: an fp32 accumulator's pairs,
+//   rounded and packed, are already an A operand (FlashAttention-3's trick).
 // * A wrong mbarrier phase parity waits forever: the producer waits for
 //   the (r - 1)-th release of a stage before its r-th load, the consumers
 //   for the r-th arrival, parity r & 1.
+// * Named barriers (bar.sync / bar.arrive with a thread count) hand data
+//   between warpgroups without stopping the others: the writer arrives, the
+//   reader syncs.  Generic stores that a wgmma of another warpgroup reads
+//   need fence_proxy_async() before the writer arrives.
 
 #pragma once
 
@@ -66,26 +77,47 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major (rows, cols) tensor of 16-bit T with a row stride of `ld`
-// elements, read in boxes of box_rows x 64 elements with 128-byte swizzle
-// (out-of-bounds elements read as zeros).  False if the driver refuses it.
+// A tensor of 16-bit T read in boxes of 64 contiguous elements x box_rows
+// rows (x 1 in a third dimension) with 128-byte swizzle (out-of-bounds
+// elements read as zeros): `rank` 2 or 3 dimensions, the contiguous one
+// first; strides in elements, the contiguous one's (1) left out.  False if
+// the driver refuses it.
 template <typename T>
-inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                          uint64_t ld, uint32_t box_rows) {
+inline bool tensor_map(CUtensorMap* map, const void* base, uint32_t rank, const uint64_t* dims,
+                       const uint64_t* strides, uint32_t box_rows) {
   static_assert(sizeof(T) == 2, "16-bit elements: a 128-byte box row is 64 of them");
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || rank < 2 || rank > 3) return false;
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {ld * sizeof(T)};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+  cuuint64_t d[3], st[2];
+  for (uint32_t i = 0; i < rank; ++i) d[i] = dims[i];
+  for (uint32_t i = 0; i + 1 < rank; ++i) st[i] = strides[i] * sizeof(T);
+  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), d, st, box, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major (rows, cols) tensor with a row stride of `ld` elements.
+template <typename T>
+inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                          uint64_t ld, uint32_t box_rows) {
+  const uint64_t dims[2] = {cols, rows}, strides[1] = {ld};
+  return tensor_map<T>(map, base, 2, dims, strides, box_rows);
+}
+
+// `batches` row-major (rows, cols) matrices, a row stride of `ld` and a
+// batch stride of `batch_ld` elements: a box never crosses into the next
+// batch's rows.
+template <typename T>
+inline bool tensor_map_3d(CUtensorMap* map, const void* base, uint64_t batches, uint64_t rows,
+                          uint64_t cols, uint64_t ld, uint64_t batch_ld, uint32_t box_rows) {
+  const uint64_t dims[3] = {cols, rows, batches}, strides[2] = {ld, batch_ld};
+  return tensor_map<T>(map, base, 3, dims, strides, box_rows);
 }
 
 // ---- device: barriers and copies --------------------------------------------
@@ -144,6 +176,32 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ... and of a 3-D map: (c0, c1, c2), the batch c2.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: sync waits for all of them, arrive counts this warp and
+// goes on.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Orders this thread's generic shared-memory stores before later accesses
+// of the async proxy (TMA, wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- device: registers and warpgroup products --------------------------------
 
 // Registers a thread of this warpgroup may hold from here on (a multiple of
@@ -178,21 +236,14 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
 }
 
-// d (64 x 256, fp32, the warpgroup's accumulator) += A (64 x 16, K-major) .
-// B (16 x 256, MN-major), asynchronously.  Thread t of the warpgroup holds
-// rows 16 (t / 32) + (t % 32) / 4 + 8 h and columns 8 j + 2 (t % 4) + e in
-// d[4 j + 2 h + e].
+// The accumulator layout of every form below: thread t of the warpgroup
+// holds rows 16 (t / 32) + (t % 32) / 4 + 8 h and columns 8 j + 2 (t % 4) +
+// e of d (64 x N, fp32) in d[4 j + 2 h + e].
 #define HC_D8(i)                                                                          \
   "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]),   \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 #define HC_D32(i) HC_D8(i), HC_D8((i) + 8), HC_D8((i) + 16), HC_D8((i) + 24)
-#define HC_WGMMA_N256(TYPES)                                                              \
-  asm volatile(                                                                           \
-      "{\n"                                                                               \
-      ".reg .pred p;\n"                                                                   \
-      "setp.ne.b32 p, %130, 0;\n"                                                         \
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TYPES " "                            \
-      "{"                                                                                 \
+#define HC_OUT128                                                                         \
       "%0, %1, %2, %3, %4, %5, %6, %7, "                                                  \
       "%8, %9, %10, %11, %12, %13, %14, %15, "                                            \
       "%16, %17, %18, %19, %20, %21, %22, %23, "                                          \
@@ -208,8 +259,17 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint
       "%96, %97, %98, %99, %100, %101, %102, %103, "                                      \
       "%104, %105, %106, %107, %108, %109, %110, %111, "                                  \
       "%112, %113, %114, %115, %116, %117, %118, %119, "                                  \
-      "%120, %121, %122, %123, %124, %125, %126, %127 "                                   \
-      "}, %128, %129, p, 1, 1, 0, 1;\n"                                                   \
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+
+// d += A (64 x 16, K-major, shared memory) . B (16 x 256, MN-major),
+// asynchronously.
+#define HC_WGMMA_N256(TYPES)                                                              \
+  asm volatile(                                                                           \
+      "{\n"                                                                               \
+      ".reg .pred p;\n"                                                                   \
+      "setp.ne.b32 p, %130, 0;\n"                                                         \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TYPES " "                            \
+      "{" HC_OUT128 "}, %128, %129, p, 1, 1, 0, 1;\n"                                     \
       "}\n"                                                                               \
       : HC_D32(0), HC_D32(32), HC_D32(64), HC_D32(96)                                     \
       : "l"(da), "l"(db), "r"(1))
@@ -221,7 +281,72 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
   else
     HC_WGMMA_N256("bf16.bf16");
 }
+
+// d += A (64 x 16, registers: a[0..3] of each thread as an mma.sync
+// m16n8k16 A fragment of its warp's 16 rows, two 16-bit values a register,
+// the lower column in the low half) . B (16 x 256, MN-major),
+// asynchronously.
+#define HC_WGMMA_N256_RS(TYPES)                                                           \
+  asm volatile(                                                                           \
+      "{\n"                                                                               \
+      ".reg .pred p;\n"                                                                   \
+      "setp.ne.b32 p, %133, 0;\n"                                                         \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TYPES " "                            \
+      "{" HC_OUT128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"                    \
+      "}\n"                                                                               \
+      : HC_D32(0), HC_D32(32), HC_D32(64), HC_D32(96)                                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value)
+    HC_WGMMA_N256_RS("f16.f16");
+  else
+    HC_WGMMA_N256_RS("bf16.bf16");
+}
+
+// d (64 x N) = (scale_d ? d : 0) + A (64 x 16, K-major) . B (16 x N,
+// stored N rows of K: K-major, both transpose bits 0), asynchronously; N
+// 32 or 48.
+#define HC_OUT16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HC_OUT24 HC_OUT16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define HC_WGMMA_KK(N, OUTS, DA, DB, SC, TYPES, ...)                                      \
+  asm volatile(                                                                           \
+      "{\n"                                                                               \
+      ".reg .pred p;\n"                                                                   \
+      "setp.ne.b32 p, " SC ", 0;\n"                                                       \
+      "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TYPES " "                         \
+      "{" OUTS "}, " DA ", " DB ", p, 1, 1, 0, 0;\n"                                      \
+      "}\n"                                                                               \
+      : __VA_ARGS__                                                                       \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_m64nNk16_kk(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  static_assert(N == 32 || N == 48, "N 32 or 48");
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  if constexpr (N == 32) {
+    if constexpr (f16)
+      HC_WGMMA_KK(32, HC_OUT16, "%16", "%17", "%18", "f16.f16", HC_D8(0), HC_D8(8));
+    else
+      HC_WGMMA_KK(32, HC_OUT16, "%16", "%17", "%18", "bf16.bf16", HC_D8(0), HC_D8(8));
+  } else {
+    if constexpr (f16)
+      HC_WGMMA_KK(48, HC_OUT24, "%24", "%25", "%26", "f16.f16", HC_D8(0), HC_D8(8), HC_D8(16));
+    else
+      HC_WGMMA_KK(48, HC_OUT24, "%24", "%25", "%26", "bf16.bf16", HC_D8(0), HC_D8(8),
+                  HC_D8(16));
+  }
+}
+
+#undef HC_WGMMA_KK
+#undef HC_OUT24
+#undef HC_OUT16
+#undef HC_WGMMA_N256_RS
 #undef HC_WGMMA_N256
+#undef HC_OUT128
 #undef HC_D32
 #undef HC_D8
 

@@ -6,11 +6,19 @@ the paper's Fig. 18): latent queries ``q`` (B, Hq, D) and rotary queries
 D) and ``k_pe`` (B, S, Hkv, Dpe), Hq / Hkv heads a latent head, V the
 latent itself; fp32, bf16 or fp16.  The plain version is ``ref.mla``; this
 wrapper takes it for CPU tensors only.  For a CUDA tensor it launches the
-kernel or raises: bf16 / fp16 at D 512 with D + Dpe a multiple of 64 (the
-paper's shapes) take its tensor-core path, 64 heads a block; everything
-else its CUDA-core path, up to 16 heads of a latent head a block
-(``mla_paged.head_block``: 128 heads x 512 fp32 accumulators do not fit
-one block).
+kernel or raises, on one of two paths (:func:`tensor_core_path`):
+
+* ``wgmma``, bf16 / fp16 at D 512 with D + Dpe a multiple of 64 up to
+  ``TC_MAX_DK`` (the paper's shapes, deepseek-v2-lite's heads): 64 heads of
+  a latent head a block, a TMA producer and two consumer warpgroups over
+  tiles of ``TC_KEYS`` keys, P as the 16-bit pair hi + lo (``csrc/mla.cu``
+  has the design); counted in ``KERNEL.tc_launches``;
+* CUDA cores, everything else: up to 16 heads of a latent head a block
+  (``mla_paged.head_block``: 128 heads x 512 fp32 accumulators do not fit
+  one block).
+
+Both read Q and the cache through their own 16-byte loads or TMA, so every
+tensor must be 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -28,9 +36,21 @@ from .mla_paged import head_block
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
-    "mla", "mla_launch", [_I, _P, _P, _P, _P, _P, *([_I] * 7), ctypes.c_float, _P],
+    "mla", "mla_launch", [_I, _I, _P, _P, _P, _P, _P, *([_I] * 7), ctypes.c_float, _P],
     replaces="src/repro/kernels/mla.py:33",
 )
+TC_RANK = 512  # the latent width the wgmma kernel is built for
+TC_KEYS = 32  # keys a tile of its walk
+TC_MAX_DK = 832  # the widest D + Dpe whose Q and two key stages fit shared memory
+
+
+def tensor_core_path(dtype: torch.dtype, d: int, pe: int) -> bool:
+    """Whether a launch takes the wgmma kernel (``csrc/mla.cu``'s
+    ``tc_takes``): 16-bit elements at latent width 512 with D + Dpe a
+    multiple of 64 (the 64-column TMA boxes) up to ``TC_MAX_DK``.  Batch,
+    heads, latent heads and sequence length do not matter."""
+    return (dtype in (torch.bfloat16, torch.float16) and d == TC_RANK and pe > 0
+            and (d + pe) % 64 == 0 and d + pe <= TC_MAX_DK)
 
 
 def _require(cond: bool, msg: str):
@@ -63,15 +83,18 @@ def mla(q: torch.Tensor, q_pe: torch.Tensor, kv: torch.Tensor, k_pe: torch.Tenso
     _require(d % vec == 0 and pe % vec == 0,
              f"D {d} and Dpe {pe} must be multiples of 16 bytes' worth of elements")
     q, q_pe, kv, k_pe = (t.contiguous() for t in (q, q_pe, kv, k_pe))
-    _require(all(t.data_ptr() % 16 == 0 for t in (kv, k_pe)),
-             "kv and k_pe must be 16-byte aligned")
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, q_pe, kv, k_pe)),
+             "q, q_pe, kv and k_pe must be 16-byte aligned")
+    tc = tensor_core_path(q.dtype, d, pe)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d + pe)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], q.data_ptr(), q_pe.data_ptr(), kv.data_ptr(), k_pe.data_ptr(),
-            out.data_ptr(), b, hq, hkv, s, d, pe, head_block(hq // hkv), scale, stream)
+            DTYPES[q.dtype], int(tc), q.data_ptr(), q_pe.data_ptr(), kv.data_ptr(),
+            k_pe.data_ptr(), out.data_ptr(), b, hq, hkv, s, d, pe, head_block(hq // hkv),
+            scale, stream)
     check(rc, "mla")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(tc)
     return out

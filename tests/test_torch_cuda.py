@@ -896,6 +896,50 @@ def test_cuda_mla_matches_plain_version(dtype):
             assert _within_limit(got, want), (b, h, hkv, s)
 
 
+# FlashMLA's wgmma path: sequence lengths around its 32-key tiles (one tile,
+# so the second consumer only reads; a ragged last tile; an even and an odd
+# tile count), a partial head group (deepseek-v2-lite-16B's 16 heads), two
+# head groups, two latent heads, and rope widths of 64 and 128 (three
+# stages) and 192 (two)
+MLA_WGMMA_CASES = [  # (b, h, hkv, s, d, pe)
+    (1, 128, 1, 1, 512, 64), (2, 64, 1, 31, 512, 64), (1, 16, 1, 32, 512, 64),
+    (3, 16, 1, 33, 512, 64), (2, 128, 1, 64, 512, 64), (1, 128, 1, 65, 512, 64),
+    (2, 128, 2, 200, 512, 64), (8, 16, 1, 777, 512, 64), (1, 32, 1, 1000, 512, 128),
+    (2, 64, 1, 300, 512, 192),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_mla_wgmma_edges(dtype):
+    """On a card: every case takes the wgmma kernel (one ``tc_launches``
+    each) and lies within the limit of the plain version; fp32 at the same
+    shapes with Dpe 64 stays on the CUDA cores within FP32_ATOL (their fp32
+    tiles hold D + Dpe up to 576)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels import mla as MLA
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    for dt in (getattr(torch, dtype), torch.float32):
+        for b, h, hkv, s, d, pe in MLA_WGMMA_CASES:
+            if dt == torch.float32 and pe > 64:
+                continue
+            q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+            q_pe = torch.randn((b, h, pe), generator=g, device=dev).to(dt)
+            kv = torch.randn((b, s, hkv, d), generator=g, device=dev).to(dt)
+            k_pe = torch.randn((b, s, hkv, pe), generator=g, device=dev).to(dt)
+            before = MLA.KERNEL.tc_launches
+            got = ops.mla(q, q_pe, kv, k_pe)
+            torch.cuda.synchronize()
+            assert MLA.KERNEL.tc_launches - before == int(dt != torch.float32), (dt, b, h, s)
+            want = ref.mla(q, q_pe, kv, k_pe)
+            if dt == torch.float16:
+                assert cs.lib_units(torch, got, want, 1.0) <= cs.BF16_ULPS, (b, h, hkv, s, pe)
+            else:
+                assert _within_limit(got, want), (dt, b, h, hkv, s, pe)
+
+
 # the wgmma path's edges: M from its first row (17) to a multiple of the
 # 128-row tile and past it, N from one 8-column group to past a 256-column
 # tile, K from one 8-element group to a 64-element tile and a ragged 4104

@@ -268,8 +268,9 @@ def test_card_path_launches_the_kernels_and_never_the_plain_versions(card_path):
     kp = _card(torch.randn(2, 100, 2, 64).bfloat16())
     out = ops.mla(q, qp, kv, kp)
     (call,) = card_path["mla"]
-    assert tuple(out.shape) == (2, 32, 512) and call[6:13] == (2, 32, 2, 100, 512, 64, 16)
-    assert abs(call[13] - (512 + 64) ** -0.5) < 1e-9
+    assert tuple(out.shape) == (2, 32, 512) and call[7:14] == (2, 32, 2, 100, 512, 64, 16)
+    assert call[:2] == (1, 1)  # bf16 at D 512, Dpe 64: the wgmma kernel
+    assert abs(call[14] - (512 + 64) ** -0.5) < 1e-9
     assert [ops.KERNELS[n].launches for n in ("matmul", "dequant_matmul", "mla")] == [2, 3, 1]
 
 
