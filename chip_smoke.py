@@ -48,15 +48,21 @@ no phase is skipped):
    chunk_state and chunk_scan are held on SSD_CASES: the operands of a
    seeded full-width mamba2-2.7B layer at its training shapes (batch 8 x
    seq 1024: deep decay, exp(dA) denormal), the same shapes with shallow
-   decay, hymba-1.5B's N 16 / P 50 and a chunk of 64, bf16 and fp32 (fp32
-   within 1e-4 of max(1, max |plain|), bf16 within 2 ulps, the scan's
+   decay, a chunk of 64, bf16 and fp32 (fp32 within 1e-4 of max(1, max
+   |plain|), bf16 within 2 ulps, the scan's
    control with its decayed scores rounded once to bf16 outside them, and
    chunk_state's control with its decayed X rounded once to bf16 outside
    its limit wherever it takes the tensor cores); a growing-dA case's scan
    is gated in fp32 and printed in bf16; every bf16 chunk_state and
    chunk_scan launch at mamba2's shapes must take its tensor-core path,
-   hymba's and fp32 their CUDA-core one; timed beside the bf16 cuBLAS
-   products their work reduces to, as a yardstick.  Then the kernel
+   fp32 its CUDA-core one; timed beside the bf16 cuBLAS products their
+   work reduces to, as a yardstick.  At hymba-1.5B's shapes: the decode
+   (8 slots of 2048 tokens, Hq 25 over Hkv 5, D 64: a group of 5) with its
+   window of 1024, which drops whole splits, and without, bf16 and fp32,
+   under the same limit and controls, every bf16 launch on the tensor
+   cores, timed beside SDPA over the gathered pages; chunk_state and
+   chunk_scan at its training shapes (batch 8 x seq 1024, 64 heads of P
+   50, N 16), every launch on CUDA cores, timed.  Then the kernel
    library, driven through ``kernels.ops`` at the paper's kernel
    experiments' full-width shapes (its path: the three kernels' launches are
    counted here): ``matmul`` at Table 2's M0-M7 and V0-V7 in bf16,
@@ -80,8 +86,9 @@ no phase is skipped):
    and spread) beside its plain version and ``torch.matmul`` (GEMM), cuBLAS
    fp16 on a weight dequantized beforehand (the paper's Fig. 15 baseline, a
    yardstick) or SDPA with a latent head's heads as its query rows (MLA);
-3. serve full-width qwen2-1.5B (28 layers, bf16, seeded random weights)
-   through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
+3. serve full-width qwen2-1.5B (bf16, seeded random weights; its serving
+   depth cut to 14 of 28 layers to keep the script within half its time
+   limit) through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
    prefix cache, guards, greedy): 16 requests of 100-600 prompt tokens, half
    sharing a 256-token prefix, 32 new tokens each; then again with the pool
    at 39% of slots * max_pages (199 blocks), where this workload preempts
@@ -134,15 +141,33 @@ both route to the same experts (at least half of them), int4 as qwen's;
    first row) that must fail the limits; forward (the kernels) against
    decode_step (the recurrence) at depth 4, and the card's forward against
    the CPU's fp32 one (phase 4's limits; argmax where the top-2 margin
-   exceeds twice the error); then serve it through the contiguous
-   recurrent-state cache, per tick and with ``sync_every=16`` under the
-   no-host-sync check (8 of the workload's requests: byte-identical
-   outputs, equal ticks and TTFT, fewer dispatches, no SSD launch).
+   exceeds twice the error); then serve it, cut to 16 of its 64 layers,
+   through the contiguous recurrent-state cache, per tick and with
+   ``sync_every=16`` under the no-host-sync check (8 of the workload's
+   requests: byte-identical
+   outputs, equal ticks and TTFT, fewer dispatches, no SSD launch);
+7. full-width hymba-1.5B (32 layers, d 1600, 25 query heads over 5 KV
+   heads of 64, a window of 1024 on all but layers 0, 16 and 31, 64 SSM
+   heads of P 50 with N 16, d_ff 5504; bf16, seeded): serve 8 of the
+   workload's requests over the paged cache, prompts replayed a token a
+   tick, per tick and with ``sync_every=16`` under the no-host-sync check
+   (byte-identical outputs, equal ticks and TTFT, fewer dispatches; only
+   the decode launches, 32 a tick, all on the tensor cores); decode one
+   slot over 1088 tokens at depth 4 (layer 1 windowed) with a second slot
+   parked, its logits at positions 0-7 and 1024-1087 held against the
+   CPU's fp32 forward (phase 4's limits; the parked slot's recurrent rows
+   must come back bit-identical); train it 8 steps at batch 8 x seq 1024
+   (64 launches of each SSD kernel a step, none on the tensor cores, no
+   flash launch: its attention carries a window on every layer, which the
+   reference routes to the plain version) plus 2 profiled; and its depth-2
+   check against the CPU's fp32 and the card's plain SSD with the three
+   planted SSD faults.
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
 default-pool serving run, fp or int8 for the quantized kernels; the 8
-training steps for the flash kernel and for the two SSD kernels; the
+training steps for the flash kernel and mamba2's for the two SSD
+kernels (hymba's paths' launches are printed in a ``[launches]`` line); the
 library phase for the library's three, whose rows are M7, the (8, 16384,
 16384) W int4 x A fp16 row and b128_s8192), and
 ``{"ok": true, "device": {...}}``.
@@ -150,6 +175,7 @@ library phase for the library's three, whose rows are M7, the (8, 16384,
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -347,20 +373,38 @@ H100_SMS = 132  # the grid rule's SM count where there is no card (a rehearsal)
 # before that redesign: H100 80GB HBM3 at 700 W, this script's int8 and
 # mamba2 training-shape rows.  Printed beside their new times.
 EARLIER_MS = {"paged_attention_quant": 0.2243, "chunk_state": 0.5258}
+# chunk_state at hymba-1.5B's training shape (HYMBA_SSD_CASE) on the
+# 128-row CUDA-core tile, before its 16-row tile: H100 80GB HBM3 at 700 W
+HYMBA_EARLIER_MS = {"chunk_state": 0.4152}
 
 
-def decode_grid(torch, PA, dev):
-    """(splits, keys a split) of the decode kernel at the main path's
-    shapes on this device's SM count."""
+# a GQA decode's serving shape: slots, tokens a slot, query heads, KV heads,
+# head dim (pages of PAGE)
+DecodeShape = collections.namedtuple("DecodeShape", "model slots max_len hq hkv d")
+
+
+QWEN_DECODE = DecodeShape("qwen2-1.5B", SLOTS, MAX_LEN, HQ, HKV, HEAD_DIM)
+# hymba-1.5B: a GQA group of 5 at head dim 64.  Its serving run's shape
+# (SLOTS slots of MAX_LEN tokens: its window of 1024, on 29 of its 32
+# layers, never binds there) carries phase 7's launches; slots of 2048
+# tokens let the window drop whole splits of the longer slots.
+HYMBA_SERVE_DECODE = DecodeShape("hymba-1.5B", SLOTS, MAX_LEN, 25, 5, 64)
+HYMBA_DECODE = HYMBA_SERVE_DECODE._replace(max_len=2048)
+HYMBA_WINDOW = 1024
+
+
+def decode_grid(torch, PA, dev, shape=QWEN_DECODE):
+    """(splits, keys a split) of the decode kernel at ``shape`` on this
+    device's SM count."""
     sms = PA.sm_count(dev.index or 0) if dev.type == "cuda" else H100_SMS
-    return PA.decode_splits(SLOTS, HKV, MAX_LEN // PAGE, PAGE, sms)
+    return PA.decode_splits(shape.slots, shape.hkv, shape.max_len // PAGE, PAGE, sms)
 
 
-def _tables(torch, rng, dev):
-    max_pages = MAX_LEN // PAGE
-    num_pages = SLOTS * max_pages + 1  # page 0 reserved
+def _tables(torch, rng, dev, shape=QWEN_DECODE):
+    max_pages = shape.max_len // PAGE
+    num_pages = shape.slots * max_pages + 1  # page 0 reserved
     perm = rng.permutation(num_pages - 1) + 1
-    tables = perm.reshape(SLOTS, max_pages).astype("int32")
+    tables = perm.reshape(shape.slots, max_pages).astype("int32")
     return torch.as_tensor(tables, device=dev), num_pages
 
 
@@ -370,28 +414,30 @@ def _quantized(torch, ref, pools, fmt):
 
 
 def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
-                 fmt=None):
+                 fmt=None, shape=QWEN_DECODE):
     """The decode kernel (``fmt`` None) or its quantized twin (``fmt`` int8
     or int4, pools quantized from the same random values) against its plain
-    version."""
+    version, at ``shape``."""
+    slots, max_len, hq, hkv, d = (shape.slots, shape.max_len, shape.hq, shape.hkv,
+                                  shape.d)
     rng = np.random.default_rng(1)
-    tables, num_pages = _tables(torch, rng, dev)
-    lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
+    tables, num_pages = _tables(torch, rng, dev, shape)
+    lens = rng.integers(1, max_len + 1, size=slots).astype("int32")
     lens[2] = 0  # an empty slot emits zeros
-    lens[5] = MAX_LEN
+    lens[5] = max_len
     g = torch.Generator(device=dev).manual_seed(2)
-    q = torch.randn((SLOTS, HQ, HEAD_DIM), generator=g, device=dev).to(dtype)
-    kp = torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).to(dtype)
-    vp = torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).to(dtype)
+    q = torch.randn((slots, hq, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
     lens_t = torch.as_tensor(lens, device=dev)
     isz = q.element_size()
     if fmt is None:
-        args, kw, row_bytes = (kp, vp), {}, HEAD_DIM * isz
+        args, kw, row_bytes = (kp, vp), {}, d * isz
         kernel, plain_fn = mod.paged_attention, ref.paged_attention
     else:
         (kq, ks), (vq, vs) = _quantized(torch, ref, (kp, vp), fmt)
         args, kw = (kq, vq, ks, vs), {"fmt": fmt}
-        row_bytes = HEAD_DIM // ref.KV_PACK[fmt] + isz  # packed row + scale
+        row_bytes = d // ref.KV_PACK[fmt] + isz  # packed row + scale
         kernel, plain_fn = mod.paged_attention_quant, ref.paged_attention_quant
         # what the kernel attends: the pages dequantized to q's dtype
         kp = ref.dequantize_rows(kq, ks, fmt).to(dtype)
@@ -411,18 +457,18 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     # common max, must fail the limit
     from repro_torch.kernels import paged_attention as PA
 
-    splits, split_keys = decode_grid(torch, PA, dev)
-    res["splits"] = f"{splits} splits of {split_keys} keys, {HKV * SLOTS * splits} blocks"
+    splits, split_keys = decode_grid(torch, PA, dev, shape)
+    res["splits"] = f"{splits} splits of {split_keys} keys, {hkv * slots * splits} blocks"
     faulty = PA.split_decode(q, kp, vp, tables, lens_t, splits, split_keys,
                              window=window, pair=dtype == torch.bfloat16, rescale=False)
     res["merge_no_rescale"] = (bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
                                else (faulty.float() - plain.float()).abs().max().item())
     # the slot's pages gathered for one dense call: SDPA and the controls
-    kg = kp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
-    vg = vp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
-    kg = kg.repeat_interleave(HQ // HKV, dim=1)
-    vg = vg.repeat_interleave(HQ // HKV, dim=1)
-    ki = torch.arange(MAX_LEN, device=dev)
+    kg = kp[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
+    vg = vp[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
+    kg = kg.repeat_interleave(hq // hkv, dim=1)
+    vg = vg.repeat_interleave(hq // hkv, dim=1)
+    ki = torch.arange(max_len, device=dev)
     mask = ki[None, :] < lens_t[:, None]
     if window is not None:
         mask &= ki[None, :] >= (lens_t[:, None] - window)
@@ -430,7 +476,8 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     q4 = q[:, :, None, :]
     if dtype == torch.bfloat16:
         res["ulps"] = bf16_ulps(torch, out, plain)
-        res.update(accumulation_controls(torch, q4, kg, vg, mask, plain[:, :, None]))
+        res.update(accumulation_controls(torch, q4, kg, vg, mask, plain[:, :, None],
+                                         scale=d ** -0.5))
     if timed:
         res["ms"] = time_ms(torch, run, flush=flush)
         res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
@@ -445,9 +492,9 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
             res["sdpa_dequantized_ms"] = sdpa_ms
         eff = lens if window is None else np.minimum(lens, window)
         live = int(eff.sum())
-        nbytes = (q.numel() * isz * 2 + 2 * HKV * live * row_bytes
-                  + SLOTS * 4 + sum(-(-int(n) // PAGE) for n in eff) * 4)
-        flops = 4.0 * HQ * HEAD_DIM * live
+        nbytes = (q.numel() * isz * 2 + 2 * hkv * live * row_bytes
+                  + slots * 4 + sum(-(-int(n) // PAGE) for n in eff) * 4)
+        flops = 4.0 * hq * d * live
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
     return res
 
@@ -1052,8 +1099,9 @@ def mla_decode_cost(torch, np, ref, MP, MPQ, flush, dev, calls=20):
 # "shallow" keeps the shapes but draws C, B and X from N(0, 1) and lets dA
 # fall by 0.1 |N(0, 1)| a step (tests/test_kernels.py:367's magnitude, with
 # the sign of a decay: Mamba's dA = dt * -exp(a_log) is never positive).
-# hymba's N 16 and P 50 (rows of 100 bytes in bf16) and a chunk of 64 (seq
-# 192: the layer's gcd(192, 128) rule) are checked too.  "growing" is that
+# A chunk of 64 (seq 192: the layer's gcd(192, 128) rule) is checked too,
+# and HYMBA_SSD_CASE, hymba-1.5B's training shapes (N 16 and P 50: rows of
+# 100 bytes in bf16), by the hybrid's phase 2 checks.  "growing" is that
 # test's own sign, dA rising by 0.1 |N(0, 1)| a step, with N(0, 1) carried
 # states: the decay factors reach e^10 a chunk and each output sums terms up
 # to ~1e7 that cancel, so an element's bf16 ulp can lie below what fp32 sums
@@ -1063,10 +1111,10 @@ def mla_decode_cost(torch, np, ref, MP, MPQ, flush, dev, calls=20):
 SSD_CASES = (
     ("mamba2 training, deep decay", "mamba2_2_7b", TRAIN_BATCH, TRAIN_SEQ, "deep"),
     ("mamba2 training, shallow decay", "mamba2_2_7b", TRAIN_BATCH, TRAIN_SEQ, "shallow"),
-    ("hymba N 16, P 50", "hymba_1_5b", 2, TRAIN_SEQ, "deep"),
     ("chunk 64 (seq 192)", "mamba2_2_7b", 2, 192, "deep"),
     ("mamba2 training, growing dA", "mamba2_2_7b", TRAIN_BATCH, TRAIN_SEQ, "growing"),
 )
+HYMBA_SSD_CASE = ("hymba training", "hymba_1_5b", TRAIN_BATCH, TRAIN_SEQ, "deep")
 
 
 def ssd_operands(torch, case, dtype, dev, seed=31):
@@ -1300,12 +1348,21 @@ FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
 # Cuts that keep the whole script within half its 1200 s limit on a slow
 # host (a run on an H100 80GB HBM3 at 700 W took 810 s without them, 275 s
 # of it serving mamba2):
-# deepseek-v2-lite-16B serves 14 of its 27 layers (the dense first
-# layer and 13 MoE layers), and mamba2-2.7B serves the first 8 of the
+# qwen2-1.5B serves 14 of its 28 layers, deepseek-v2-lite-16B 14 of its 27
+# (the dense first layer and 13 MoE layers), and mamba2-2.7B serves the first 8 of the
 # workload's 16 requests (one full batch of slots; its prompts replay a
-# token a tick, so its ticks follow the longest prompt).
+# token a tick, so its ticks follow the longest prompt) over 16 of its 64
+# layers: with hymba-1.5B's phase 7 (its 32 layers serve uncut) a slow
+# host took 790 s, 120 s of it serving mamba2 at 64 layers, a host-bound
+# run whose checks (byte identity, no host sync in a window, no kernel
+# launch) do not depend on depth; qwen's host-bound serving runs (111.5 s
+# of a slow host's 644 s) were then halved to keep its [time] lines within
+# 600 s.  A serving run's ticks and preemptions depend on prompt lengths
+# and block counts, not on depth.
+QWEN_SERVE_LAYERS = 14
 MLA_SERVE_LAYERS = 14
 SSM_SERVE_REQUESTS = 8
+SSM_SERVE_LAYERS = 16
 
 
 @contextlib.contextmanager
@@ -1766,7 +1823,7 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
             for i in range(steps, steps + profile_steps):
                 step(i)
             res["profile_wall"] = time.perf_counter() - t0
-        res["profile"] = step_breakdown(torch, prof.key_averages())
+        res["profile"] = step_breakdown(torch, prof.profiler.kineto_results.events())
     return res
 
 
@@ -1787,25 +1844,51 @@ RANGES = ("flash_attention.backward", "chunk_state.backward",
 
 
 def step_breakdown(torch, events):
-    """Device time (ms) of a profiled window: busy in all, by kernel group,
+    """Device time (ms) of a profiled window, from the profiler's raw events
+    (``kineto_results.events()``: its event tree, over the 10^5 host ops of
+    a step, takes tens of seconds to build): busy in all, by kernel group,
     and, overlapping those groups, the kernels launched inside the annotated
-    ranges (the kernels' plain recompute in the backward, the AdamW update).  A
-    range also shows on the device's timeline as an annotation of its own
-    span: it is not a kernel and is left out of the sums."""
+    ranges (the kernels' plain recompute in the backward, the AdamW
+    update).  A kernel is inside a range when the host op that launched it
+    starts within the range on the range's thread.  A range also shows on
+    the device's timeline as an annotation of its own span: it is not a
+    kernel and is left out of the sums."""
+    import bisect
+
     from torch.autograd import DeviceType
 
-    rows = [e for e in events
-            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
-    out = {"device busy": sum(e.self_device_time_total for e in rows) / 1e3}
-    for e in rows:
-        g = _kernel_group(e.key)
-        out[g] = out.get(g, 0.0) + e.self_device_time_total / 1e3
+    ops, spans, kernels = {}, {}, []
     for e in events:
-        if e.device_type == DeviceType.CPU and e.key in RANGES:
-            out["inside " + e.key] = e.device_time_total / 1e3
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    out["top"] = [(e.key[:80], e.count, e.self_device_time_total / 1e3)
-                  for e in rows[:8]]
+        if e.device_type() == DeviceType.CPU:
+            if e.linked_correlation_id() == 0:  # a host op, not a runtime call
+                ops[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+            if e.name() in RANGES:
+                spans.setdefault((e.name(), e.start_thread_id()), []).append(
+                    (e.start_ns(), e.end_ns()))
+        elif e.device_type() == DeviceType.CUDA and e.name() not in RANGES:
+            kernels.append((e.name(), e.duration_ns() / 1e6, e.linked_correlation_id()))
+    out = {"device busy": sum((ms for _, ms, _ in kernels), 0.0)}
+    by_name = {}
+    for name, ms, _ in kernels:
+        g = _kernel_group(name)
+        out[g] = out.get(g, 0.0) + ms
+        n, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, total + ms)
+    for key, v in spans.items():
+        v.sort()
+        out["inside " + key[0]] = 0.0
+    starts = {key: [a for a, _ in v] for key, v in spans.items()}
+    for _, ms, corr in kernels:
+        if corr not in ops:
+            continue
+        thread, t = ops[corr]
+        for name in RANGES:
+            st = starts.get((name, thread))
+            i = -1 if st is None else bisect.bisect_right(st, t) - 1
+            if i >= 0 and t <= spans[(name, thread)][i][1]:
+                out["inside " + name] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    out["top"] = [(name[:80], n, ms) for name, (n, ms) in top]
     return out
 
 
@@ -1846,7 +1929,7 @@ def depth2_controls(torch, cfg2):
     (label, context-manager factory)."""
     from repro_torch.kernels import ops, ref
 
-    if cfg2.family == "ssm":
+    if cfg2.family in ("ssm", "hybrid"):
         return (("card bf16, plain SSD",
                  lambda: ssd_as(ops, ref.chunk_state, ref.chunk_scan)),
                 *((f"fault: {f}", lambda f=f: ssd_as(ops, *ssd_fault(torch, ref, f)))
@@ -1875,7 +1958,7 @@ def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
     b = SyntheticTokens(DataConfig(batch=batch, seq=seq,
                                    vocab_size=cfg2.vocab_size, seed=1)).batch_at(0)
     cpu = torch.device("cpu")
-    prefix = "layers/mamba/" if cfg2.family == "ssm" else "layers/attn/"
+    prefix = "layers/mamba/" if cfg2.family in ("ssm", "hybrid") else "layers/attn/"
     runs = {}
     for label, control in (("cpu fp32", None), ("card bf16", None),
                            *depth2_controls(torch, cfg2)):
@@ -2386,9 +2469,13 @@ def lib_mla_tile_cost(lib, keys: int):
 
 def kernel_phase(torch, np, ref, flush, device):
     """Every kernel against its plain version, bf16 and fp32, with and
-    without a window; the quantized kernels in int8 and int4; the flash
-    kernel on FLASH_CASES; chunk_state and chunk_scan on SSD_CASES.  Returns the timed results by kernel name (the
-    quantized kernels' int8 run; int4's timing is logged)."""
+    without a window; the quantized kernels in int8 and int4; the decode
+    also at hymba-1.5B's shapes (its serving run's and a window that binds,
+    timed in bf16 with its window and without); the flash kernel on
+    FLASH_CASES; chunk_state and chunk_scan on SSD_CASES and at hymba's
+    training shape (HYMBA_SSD_CASE, timed).  Returns the timed results of
+    qwen2-1.5B's shapes and SSD_CASES[0] by kernel name (the quantized
+    kernels' int8 run; int4's timing and hymba's shapes are logged)."""
     from repro_torch.kernels import chunk_scan as CSC
     from repro_torch.kernels import chunk_state as CST
     from repro_torch.kernels import flash_attention as FA
@@ -2403,53 +2490,44 @@ def kernel_phase(torch, np, ref, flush, device):
 
     table = {}
     quant = ("int8", "int4")
-    cases = (("paged_attention", check_decode, PA, (None,), (None, 256)),
-             ("prefill_attention", check_prefill, PF, (None,), (None, 96)),
-             ("paged_attention_quant", check_decode, PAQ, quant, (None, 256)),
-             ("prefill_attention_quant", check_prefill, PFQ, quant, (None, 96)),
-             ("mla_paged", check_mla_decode, MP, (None,), (None, 256)),
-             ("mla_prefill", check_mla_prefill, MF, (None,), (None, 96)),
-             ("mla_paged_quant", check_mla_decode, MPQ, quant, (None, 256)),
-             ("mla_prefill_quant", check_mla_prefill, MFQ, quant, (None, 96)))
-    for name, check, mod, fmts, windows in cases:
+    # (kernel, check, module, formats, windows, decode shape: None for
+    # qwen2-1.5B's, whose bf16 run without a window is the table's row)
+    cases = (("paged_attention", check_decode, PA, (None,), (None, 256), None),
+             ("paged_attention", check_decode, PA, (None,), (HYMBA_WINDOW, None),
+              HYMBA_SERVE_DECODE),
+             ("paged_attention", check_decode, PA, (None,), (HYMBA_WINDOW, None),
+              HYMBA_DECODE),
+             ("prefill_attention", check_prefill, PF, (None,), (None, 96), None),
+             ("paged_attention_quant", check_decode, PAQ, quant, (None, 256), None),
+             ("prefill_attention_quant", check_prefill, PFQ, quant, (None, 96), None),
+             ("mla_paged", check_mla_decode, MP, (None,), (None, 256), None),
+             ("mla_prefill", check_mla_prefill, MF, (None,), (None, 96), None),
+             ("mla_paged_quant", check_mla_decode, MPQ, quant, (None, 256), None),
+             ("mla_prefill_quant", check_mla_prefill, MFQ, quant, (None, 96), None))
+    for name, check, mod, fmts, windows, shape in cases:
+        kw = {} if shape is None else {"shape": shape}
+        at = ("" if shape is None else
+              f" at {shape.model}'s shape (slots {shape.slots}, max_len {shape.max_len}, "
+              f"Hq {shape.hq}, Hkv {shape.hkv}, D {shape.d})")
         for fmt in fmts:
             for dtype in (torch.bfloat16, torch.float32):
                 for window in windows:
-                    timed = dtype == torch.bfloat16 and window is None
+                    timed = dtype == torch.bfloat16 and (window is None or shape is not None)
                     r = check(torch, np, ref, mod, dtype, window, flush, timed,
-                              device, fmt=fmt)
-                    if "ulps" in r:
-                        limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
-                                 f"{BF16_ULPS:g}; {controls_text(r)})")
-                    else:
-                        limit = f"limit {FP32_ATOL:.0e}"
-                    if "splits" in r:
-                        limit += (f"; {r['splits']}; control: merge without the rescale "
-                                  f"{r['merge_no_rescale']:.3g}")
-                    if timed:
-                        if "sdpa_gathered_ms" in r:
-                            lib = (f"sdpa over pages gathered{'' if fmt is None else ' and dequantized'} "
-                                   f"(yardstick) {r['sdpa_gathered_ms']:.4f} ms")
-                        elif fmt is None:
-                            lib = (f"sdpa {r['library_ms']:.4f} ms (kernel / sdpa "
-                                   f"{r['ms'] / r['library_ms']:.2f}x)")
-                        else:
-                            lib = (f"sdpa over dequantized pages (yardstick) "
-                                   f"{r['sdpa_dequantized_ms']:.4f} ms")
-                        limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                                  f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-                                  + (f", before the redesign {EARLIER_MS[name]} ms"
-                                     if name in EARLIER_MS else ""))
+                              device, fmt=fmt, **kw)
                     log(f"[kernel] {name}{'' if fmt is None else ' ' + fmt} "
-                        f"{str(dtype)[6:]} window={window}"
+                        f"{str(dtype)[6:]} window={window}{at}"
                         f"{' (tensor cores)' if r.get('tc_launches') else ''}: max abs err "
-                        f"{r['err']:.3e}, {limit}")
+                        f"{r['err']:.3e}, {attention_limit_text(name, fmt, r, timed)}")
                     if not kernel_ok(r):
-                        raise AssertionError(f"{name} {fmt} disagrees with its plain version")
+                        raise AssertionError(f"{name} {fmt}{at} disagrees with its plain "
+                                             "version")
+                    # bf16 on the tensor-core path, fp32 off it
                     if (name in TC_KERNELS + MLA_TC_KERNELS + QUANT_TC_KERNELS
-                            and dtype == torch.bfloat16 and r["tc_launches"] != 1):
-                        raise AssertionError(f"{name} bf16 missed its tensor-core path")
-                    if timed and fmt in (None, "int8"):
+                            and r["tc_launches"] != int(dtype == torch.bfloat16)):
+                        raise AssertionError(f"{name} {str(dtype)[6:]}{at}: "
+                                             f"{r['tc_launches']} tensor-core launches")
+                    if timed and fmt in (None, "int8") and shape is None:
                         table[name] = r
     for case in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -2507,48 +2585,87 @@ def kernel_phase(torch, np, ref, flush, device):
     log("[kernel] phase cost (chunk_scan on tensor cores, mamba2-2.7B training shapes, 128 "
         f"blocks): device us a head of a block's walk {per:.2f}; us of the rest of the launch "
         f"(C and B in, C B^T once, the first head's operands) {rest:.2f}")
-    for case in SSD_CASES:
+    for case in (*SSD_CASES, HYMBA_SSD_CASE):
         for dtype in (torch.bfloat16, torch.float32):
-            timed = dtype == torch.bfloat16 and case is SSD_CASES[0]
-            rs = check_ssd(torch, np, ref, (CST, CSC), dtype, case, flush, timed, device)
-            _, arch, b, s, decay = case
-            for name, r in rs.items():
-                if "ulps" in r:
-                    limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value ("
-                             + (f"limit {BF16_ULPS:g}" if r["gated"] else "printed, not gated")
-                             + f"; from an fp64 evaluation: the plain version "
-                             f"{r['plain_vs_f64_ulps']:.2f}, the kernel "
-                             f"{r['kernel_vs_f64_ulps']:.2f}; control with bf16 scores "
-                             f"{r['bf16_scores_ulps']:.2f})")
-                else:
-                    limit = (f"{r['err'] / r['scale']:.2e} of max(1, max|plain|) "
-                             f"{r['scale']:.3g} (limit {FP32_ATOL:.0e})")
-                    if "bf16_xd_rel" in r:
-                        limit += (f"; control with Xd rounded once to bf16 "
-                                  f"{r['bf16_xd_rel']:.2e}"
-                                  + ("" if r["xd_gated"] else " (printed, not gated)"))
-                if timed:
-                    limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                              f"bf16 cuBLAS products (yardstick) {r['yardstick_ms']:.4f} ms, "
-                              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-                              f"{r['bytes'] / 1e6:.1f} MB handed over, broadcast B/C "
-                              f"once; {r['flops'] / 1e9:.2f} GFLOP over causal pairs)"
-                              + (f", before the redesign {EARLIER_MS[name]} ms"
-                                 if name in EARLIER_MS else ""))
-                    table[name] = r
-                log(f"[kernel] {name} {case[0]} {str(dtype)[6:]} ({arch}, batch {b} x "
-                    f"seq {s}, min dA_cum {r['da_min']:.1f})"
-                    f"{' (tensor cores)' if r['tc_launches'] else ''}: max abs err "
-                    f"{r['err']:.3e}, {limit}")
-                if not ssd_ok(r):
-                    raise AssertionError(f"{name} {case[0]} disagrees with its plain "
-                                         "version")
-                want_tc = ssd_takes_tensor_cores(case, str(dtype)[6:])
-                if r["tc_launches"] != int(want_tc):
-                    raise AssertionError(f"{name} {case[0]} {str(dtype)[6:]}: "
-                                         f"{r['tc_launches']} tensor-core launches, "
-                                         f"expected {int(want_tc)}")
+            timed = dtype == torch.bfloat16 and case in (SSD_CASES[0], HYMBA_SSD_CASE)
+            rs = check_ssd_case(torch, np, ref, (CST, CSC), dtype, case, flush, timed,
+                                device, earlier=(HYMBA_EARLIER_MS if case is HYMBA_SSD_CASE
+                                                 else EARLIER_MS))
+            if timed and case is SSD_CASES[0]:
+                table.update(rs)
     return table
+
+
+def attention_limit_text(name, fmt, r, timed, earlier=EARLIER_MS) -> str:
+    """An attention check's reading against its limit, its controls, the
+    split grid, and when ``timed`` its times and bound."""
+    if "ulps" in r:
+        limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
+                 f"{BF16_ULPS:g}; {controls_text(r)})")
+    else:
+        limit = f"limit {FP32_ATOL:.0e}"
+    if "splits" in r:
+        limit += (f"; {r['splits']}; control: merge without the rescale "
+                  f"{r['merge_no_rescale']:.3g}")
+    if timed:
+        if "sdpa_gathered_ms" in r:
+            lib = (f"sdpa over pages gathered{'' if fmt is None else ' and dequantized'} "
+                   f"(yardstick) {r['sdpa_gathered_ms']:.4f} ms")
+        elif fmt is None:
+            lib = (f"sdpa {r['library_ms']:.4f} ms (kernel / sdpa "
+                   f"{r['ms'] / r['library_ms']:.2f}x)")
+        else:
+            lib = (f"sdpa over dequantized pages (yardstick) "
+                   f"{r['sdpa_dequantized_ms']:.4f} ms")
+        limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                  + (f", before the redesign {earlier[name]} ms"
+                     if name in earlier else ""))
+    return limit
+
+
+def check_ssd_case(torch, np, ref, mods, dtype, case, flush, timed, dev, earlier=()):
+    """chunk_state and chunk_scan on ``case`` (check_ssd): logs each
+    reading, holds it to its limit and each launch to the path
+    ``ssd_takes_tensor_cores`` gives it.  Returns {kernel: result}."""
+    rs = check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev)
+    _, arch, b, s, decay = case
+    for name, r in rs.items():
+        if "ulps" in r:
+            limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value ("
+                     + (f"limit {BF16_ULPS:g}" if r["gated"] else "printed, not gated")
+                     + f"; from an fp64 evaluation: the plain version "
+                     f"{r['plain_vs_f64_ulps']:.2f}, the kernel "
+                     f"{r['kernel_vs_f64_ulps']:.2f}; control with bf16 scores "
+                     f"{r['bf16_scores_ulps']:.2f})")
+        else:
+            limit = (f"{r['err'] / r['scale']:.2e} of max(1, max|plain|) "
+                     f"{r['scale']:.3g} (limit {FP32_ATOL:.0e})")
+            if "bf16_xd_rel" in r:
+                limit += (f"; control with Xd rounded once to bf16 "
+                          f"{r['bf16_xd_rel']:.2e}"
+                          + ("" if r["xd_gated"] else " (printed, not gated)"))
+        if timed:
+            limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                      f"bf16 cuBLAS products (yardstick) {r['yardstick_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                      f"{r['bytes'] / 1e6:.1f} MB handed over, broadcast B/C "
+                      f"once; {r['flops'] / 1e9:.2f} GFLOP over causal pairs)"
+                      + (f", before the redesign {earlier[name]} ms"
+                         if name in earlier else ""))
+        log(f"[kernel] {name} {case[0]} {str(dtype)[6:]} ({arch}, batch {b} x "
+            f"seq {s}, min dA_cum {r['da_min']:.1f})"
+            f"{' (tensor cores)' if r['tc_launches'] else ''}: max abs err "
+            f"{r['err']:.3e}, {limit}")
+        if not ssd_ok(r):
+            raise AssertionError(f"{name} {case[0]} disagrees with its plain "
+                                 "version")
+        want_tc = ssd_takes_tensor_cores(case, str(dtype)[6:])
+        if r["tc_launches"] != int(want_tc):
+            raise AssertionError(f"{name} {case[0]} {str(dtype)[6:]}: "
+                                 f"{r['tc_launches']} tensor-core launches, "
+                                 f"expected {int(want_tc)}")
+    return rs
 
 
 # ---------------------------------------------------------------------------
@@ -2646,6 +2763,8 @@ def main(argv=None) -> int:
     main_launches["flash_attention"] = training_phase(torch, np, lm, cfg, device)
     torch.cuda.empty_cache()
     main_launches.update(ssm_phase(torch, np, lm, device))
+    torch.cuda.empty_cache()
+    hybrid_phase(torch, np, lm, device)
     main_launches.update(lib_launches)
 
     # ---- result lines --------------------------------------------------
@@ -2670,15 +2789,17 @@ def main(argv=None) -> int:
 def serving_phases(torch, np, lm, cfg, KERNELS, device):
     """Phases 3 and 4 for qwen2-1.5B, then for deepseek-v2-lite-16B.
     Returns each serving kernel's launches on its own path's run."""
-    # ---- phase 3: serve full-width qwen2-1.5B -----------------------------
+    # ---- phase 3: serve full-width qwen2-1.5B at QWEN_SERVE_LAYERS --------
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
-    params = lm.init(cfg, 0, device=device)
+    served = dataclasses.replace(cfg, num_layers=QWEN_SERVE_LAYERS)
+    params = lm.init(served, 0, device=device)
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {lm.param_count(params) / 1e9:.3f} B params "
-        f"({cfg.dtype}) initialised on the card in {time.perf_counter() - t0:.1f} s")
-    runs = serving_phase(torch, np, lm, cfg, params, KERNELS, device)
+    log(f"[serve] {cfg.name}, {served.num_layers} of its {cfg.num_layers} layers: "
+        f"{lm.param_count(params) / 1e9:.3f} B params ({cfg.dtype}) initialised on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    runs = serving_phase(torch, np, lm, served, params, KERNELS, device)
     # each kernel's launches on its own path's run
     main_launches = {**runs["fp, default pool"][3],
                      **{k: runs["int8, default pool"][3][k] for k in QUANT_KERNELS}}
@@ -2996,8 +3117,8 @@ def ssm_phase(torch, np, lm, device):
     N 128, bf16 with fp32 a_log/d_skip/dt_bias): training through the two
     SSD kernels (TRAIN_STEPS steps and two profiled), the depth-2 check with
     the SSD faults, forward against decode at depth 4, and serving through
-    the contiguous cache.  Returns the kernels' launches over the training
-    steps."""
+    the contiguous cache at SSM_SERVE_LAYERS of its layers.  Returns the
+    kernels' launches over the training steps."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ops import KERNELS
 
@@ -3026,13 +3147,196 @@ def ssm_phase(torch, np, lm, device):
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(cfg, num_layers=SSM_SERVE_LAYERS)
     params = lm.init(cfg, 0, device=device)
-    log(f"[serve] {cfg.name}: {lm.param_count(params) / 1e9:.3f} B params "
-        f"({cfg.dtype}, a_log/d_skip/dt_bias fp32) initialised on the card")
+    log(f"[serve] {cfg.name}, {cfg.num_layers} of its 64 layers: "
+        f"{lm.param_count(params) / 1e9:.3f} B params ({cfg.dtype}, "
+        "a_log/d_skip/dt_bias fp32) initialised on the card")
     ssm_serving_phase(torch, np, lm, cfg, params, KERNELS, device)
     del params
     torch.cuda.empty_cache()
     log(f"[time] phase 6 ({cfg.name} serving): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the hybrid family (hymba-1.5B)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "hymba_1_5b"
+HYBRID_SERVE_KERNELS = ("paged_attention",)  # replayed prompts: no prefill kernel
+HYBRID_SERVE_REQUESTS = 8
+# the window check: 4 layers at full width (layer 1 windowed; 0, 2 and 3
+# global), one slot over 64 tokens past the window of 1024, read at its
+# first 8 positions and its last 64
+HYBRID_WINDOW_LAYERS = 4
+HYBRID_WINDOW_TOKENS = HYMBA_WINDOW + 64
+HYBRID_READ = (range(0, 8), range(HYMBA_WINDOW, HYBRID_WINDOW_TOKENS))
+# the fp32 run's limit (std of the reference logits): fp32 on both sides,
+# the recurrence against the chunked forward; the window moves the read
+# logits by some 3e-2 std, so a decode that ignored it fails
+HYBRID_FP32_STD_LIMIT = 1e-3
+
+
+def hybrid_serving_phase(torch, np, lm, cfg, params, kernels, device):
+    """Phase 7 serving: the phase 3 workload's first HYBRID_SERVE_REQUESTS
+    requests through the paged cache, prompts replayed a token a tick (no
+    prefill kernel, no prefix cache: recurrent state must replay), per tick
+    and with ``sync_every=16`` under the no-host-sync check.  Every launch is
+    the decode's, once a layer a tick, on its tensor-core path; the window's
+    outputs are byte-identical to per-tick's, with equal ticks and mean TTFT
+    and fewer host dispatches."""
+    runs = {}
+    run = make_runner(torch, np, cfg, params, kernels, device, runs)
+    kw = dict(requests=HYBRID_SERVE_REQUESTS)
+    tick, tick_reqs = run("paged, per tick", HYBRID_SERVE_KERNELS, HYBRID_SERVE_KERNELS,
+                          **kw)
+    with strict_windows(torch, lm, device):
+        win, win_reqs = run("paged, sync_every=16", HYBRID_SERVE_KERNELS,
+                            HYBRID_SERVE_KERNELS, sync_every=16, **kw)
+    assert tick.prefill_mode == "replay" and tick.prefix is None and tick.pool is not None
+    assert win.steps_run == tick.steps_run and mean_ttft(win_reqs) == mean_ttft(tick_reqs)
+    assert win.decode_windows > 0 and win.dispatches < tick.dispatches
+    assert [r.output for r in win_reqs] == [r.output for r in tick_reqs]
+    log(f"[serve] {cfg.name} sync_every=16: outputs byte-identical to per-tick; "
+        f"{win.dispatches} dispatches ({win.decode_windows} windows, no host sync "
+        f"inside) against {tick.dispatches}")
+    return runs
+
+
+def hybrid_window_check(torch, np, lm, cfg4, dev, seq=HYBRID_WINDOW_TOKENS,
+                        read=HYBRID_READ):
+    """A window that binds: slot 0 decodes ``seq`` seeded tokens through
+    ``decode_step`` on the card (the decode kernel over pages, the
+    recurrence) in bf16, and again in fp32 on the same weights upcast, while
+    slot 1 stays parked (``live`` False) with random recurrent rows; the
+    logits at the positions of ``read`` against the CPU's fp32 ``forward``
+    of the same tokens on the same weights upcast.  Returns the
+    ``logit_agreement`` readings by label: "bf16", "fp32", and "fp32, no
+    window" (the fp32 decode's late positions against a CPU forward with no
+    window at all: what a decode that ignored the window would read);
+    whether the parked slot's rows came back bit-identical in both runs;
+    and the kernels' launches and tensor-core launches over the steps."""
+    from repro_torch.kernels.ops import KERNELS
+
+    cpu = torch.device("cpu")
+    params = lm.init(cfg4, 7, device=dev)
+    runs = {"bf16": (cfg4, params),
+            "fp32": (dataclasses.replace(cfg4, dtype="float32"),
+                     _tree_to(torch, params, dev, torch.float32))}
+    toks = np.random.default_rng(5).integers(0, cfg4.vocab_size, size=seq)
+    pages = -(-seq // PAGE)
+    tables = np.arange(1, 2 * pages + 1, dtype=np.int32).reshape(2, pages)
+    tables = torch.as_tensor(tables, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    caches, parked = {}, {}
+    for label, (c, _) in runs.items():
+        cache = lm.init_cache(c, 2, seq, page_size=PAGE, num_blocks=2 * pages + 1,
+                              device=dev).with_tables(tables)
+        for name in ("ssm", "conv"):
+            rows = cache.kv[name][:, 1]
+            rows.copy_(torch.randn(rows.shape, generator=g, device=dev))
+        caches[label] = cache
+        parked[label] = {k: cache.kv[k][:, 1].clone() for k in ("ssm", "conv")}
+    live = torch.tensor([True, False], device=dev)
+    steps = sorted(t for r in read for t in r)
+    got = {label: {} for label in runs}
+    for k in KERNELS.values():
+        k.launches = k.tc_launches = 0
+    with torch.no_grad():
+        for t in range(seq):
+            tok = torch.tensor([int(toks[t]), 0], dtype=torch.int32, device=dev)
+            pos = torch.tensor([t, 0], dtype=torch.int32, device=dev)
+            for label, (c, p) in runs.items():
+                logits, caches[label] = lm.decode_step(p, c, caches[label], tok, pos,
+                                                       live=live)
+                if t in steps:
+                    got[label][t] = logits[0].float().cpu()
+        launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        tc = {n: k.tc_launches for n, k in KERNELS.items() if k.tc_launches}
+        held = all(torch.equal(caches[label].kv[k][:, 1], v)
+                   for label in runs for k, v in parked[label].items())
+        p32 = _tree_to(torch, params, cpu, torch.float32)
+        tokens = torch.as_tensor(toks[None], dtype=torch.int32)
+        want = {}
+        for label, window in (("windowed", cfg4.sliding_window), ("no window", None)):
+            c32 = dataclasses.replace(cfg4, dtype="float32", sliding_window=window)
+            full, _ = lm.forward(p32, c32, tokens)
+            want[label] = [full[0, t] for t in steps]
+            del full
+    rows = {label: [got[label][t] for t in steps] for label in runs}
+    late = len(read[0])
+    return ({"bf16": logit_agreement(torch, rows["bf16"], want["windowed"]),
+             "fp32": logit_agreement(torch, rows["fp32"], want["windowed"]),
+             "fp32, no window": logit_agreement(torch, rows["fp32"][late:],
+                                                want["no window"][late:])},
+            held, launches, tc)
+
+
+def hybrid_window_ok(r) -> bool:
+    """Phase 4's limits on both runs; the fp32 run within
+    HYBRID_FP32_STD_LIMIT, which a decode that ignored the window exceeds."""
+    return (agreement_ok(r["bf16"]) and agreement_ok(r["fp32"])
+            and r["fp32"]["err"] <= HYBRID_FP32_STD_LIMIT < r["fp32, no window"]["err"])
+
+
+def hybrid_phase(torch, np, lm, device):
+    """Phase 7, full-width hymba-1.5B (32 layers, d 1600, 25 query heads over
+    5 KV heads of 64, a window of 1024 on 29 layers, 64 SSM heads of P 50
+    with N 16, bf16 with fp32 a_log/d_skip/dt_bias): serving through the
+    paged cache (per tick and in windows), the window check at depth 4,
+    training through the two SSD kernels on CUDA cores (TRAIN_STEPS steps
+    and two profiled; no flash kernel: every layer's attention carries a
+    window, so the plain version runs, as the reference routes it), and the
+    depth-2 check with the SSD faults.  Returns each path's kernel launches:
+    the per-tick serving run's, the training steps'."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KERNELS
+
+    cfg = get_config(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, 0, device=device)
+    log(f"[serve] {cfg.name}: {lm.param_count(params) / 1e9:.3f} B params "
+        f"({cfg.dtype}, a_log/d_skip/dt_bias fp32) initialised on the card; windows "
+        f"{sum(w is not None for w in lm.static_windows(cfg))} of {cfg.num_layers} "
+        "layers")
+    runs = hybrid_serving_phase(torch, np, lm, cfg, params, KERNELS, device)
+    launches = {k: runs["paged, per tick"][3][k] for k in HYBRID_SERVE_KERNELS}
+    del params, runs
+    torch.cuda.empty_cache()
+    log(f"[time] phase 7 ({cfg.name} serving): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg4 = dataclasses.replace(cfg, num_layers=HYBRID_WINDOW_LAYERS)
+    r, held, w_launches, w_tc = hybrid_window_check(torch, np, lm, cfg4, device)
+    read_text = " and ".join(f"{rg[0]}-{rg[-1]}" for rg in HYBRID_READ)
+    for label in ("bf16", "fp32"):
+        log_agreement(f"{cfg.name}, {cfg4.num_layers} layers at full width (windows "
+                      f"{lm.static_windows(cfg4)}), card {label} decode_step over "
+                      f"{HYBRID_WINDOW_TOKENS} tokens vs CPU fp32 forward, positions "
+                      f"{read_text}", r[label])
+    log(f"[e2e] {cfg.name} window control: the card's fp32 logits {r['fp32']['err']:.3e} "
+        f"std from the CPU's windowed forward (limit {HYBRID_FP32_STD_LIMIT:g}), "
+        f"{r['fp32, no window']['err']:.3e} std from a CPU forward with no window at "
+        f"positions {read_text.split(' and ')[-1]} (must exceed the limit); the parked "
+        f"slot's recurrent rows bit-identical: {held}; launches {w_launches}, on "
+        f"tensor cores {w_tc} (the bf16 run's)")
+    assert hybrid_window_ok(r) and held, (r, held)
+    per_run = HYBRID_WINDOW_TOKENS * cfg4.num_layers
+    assert w_launches == {"paged_attention": 2 * per_run}, w_launches
+    assert w_tc == {"paged_attention": per_run}, w_tc
+    torch.cuda.empty_cache()
+    log(f"[time] phase 7 ({cfg.name} window check): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    launches.update(train_full_width(torch, np, cfg, device, SSM_KERNELS))
+    torch.cuda.empty_cache()
+    log(f"[time] phase 7 ({cfg.name} training): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    depth2_phase(torch, np, lm, cfg, device, SSM_FAULTS)
+    log(f"[time] phase 7 ({cfg.name} depth-2 check): {time.perf_counter() - t0:.1f} s")
+    log(f"[launches] {cfg.name}'s paths: {json.dumps(launches)}")
     return launches
 
 

@@ -46,7 +46,9 @@
 //     rows by 64 columns of P.  B (scaled by its row's decay) and X are
 //     staged in shared memory as fp32 ([L][128] and [L][64], 97 KB at L
 //     128); the (N, P) tile accumulates in registers (8 x 4 a thread) over
-//     the chunk's rows.
+//     the chunk's rows.  A state of at most 16 rows (hymba-1.5B's N 16)
+//     takes a tile of 16 rows (1 x 4 a thread, 41 KB): the same sums in the
+//     same order, without the 112 rows of zeros.
 //   * chunk_scan: one block per (batch, head, chunk) and tile of 64 columns
 //     of P.  (1) The (L, L) score tile C B^T accumulates in registers (8 x 8
 //     a thread) over N in steps of 32 columns of C and B staged in shared
@@ -68,10 +70,10 @@ namespace {
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kMaxL = 128;     // rows of a chunk
 constexpr int kTileN = 128;    // chunk_state: state rows a block
+constexpr int kSmallTileN = 16;  // chunk_state: state rows a block at N <= 16
 constexpr int kTileP = 64;     // columns of P a block, both kernels
 constexpr int kStepN = 32;     // chunk_scan: columns of N a step
 constexpr int kRm = kMaxL / 16;   // output rows a thread (8)
-constexpr int kRn = kTileN / 16;  // chunk_state: state rows a thread (8)
 constexpr int kCp = kTileP / 16;  // columns of P a thread (4)
 constexpr int kCm = kMaxL / 16;   // chunk_scan: score columns a thread (8)
 constexpr int kLdStep = kStepN + 1;  // padded: rows of a warp hit distinct banks
@@ -111,20 +113,22 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
   }
 }
 
-template <typename T>
+// TILE_N state rows a block (kTileN, or kSmallTileN where N is that small)
+template <typename T, int TILE_N>
 __global__ void __launch_bounds__(kThreads, 2)
 chunk_state_kernel(const T* __restrict__ bm, const T* __restrict__ x,
                    const float* __restrict__ da, float* __restrict__ out,
                    Strides4 bs, Strides4 xs, Strides3 ds, Strides4 os,
                    int heads, int nchunks, int len, int n_state, int p_dim) {
+  constexpr int kRn = TILE_N / 16;  // state rows a thread
   const int c = blockIdx.x % nchunks;
   const int bh = blockIdx.x / nchunks;
   const int h = bh % heads, b = bh / heads;
-  const int n0 = blockIdx.y * kTileN, p0 = blockIdx.z * kTileP;
+  const int n0 = blockIdx.y * TILE_N, p0 = blockIdx.z * kTileP;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   extern __shared__ float smem[];
-  float* bsm = smem;                    // [kMaxL][kTileN]: w_l * B[l, n0 + n]
-  float* xsm = bsm + kMaxL * kTileN;    // [kMaxL][kTileP]: X[l, p0 + p]
+  float* bsm = smem;                    // [kMaxL][TILE_N]: w_l * B[l, n0 + n]
+  float* xsm = bsm + kMaxL * TILE_N;    // [kMaxL][kTileP]: X[l, p0 + p]
   float* w = xsm + kMaxL * kTileP;      // [kMaxL]: exp(dA[L-1] - dA[l])
 
   const float* dap = da + b * ds.b + h * ds.h + c * ds.c;
@@ -135,8 +139,8 @@ chunk_state_kernel(const T* __restrict__ bm, const T* __restrict__ x,
   __syncthreads();
   const T* bp = bm + b * bs.b + h * bs.h + c * bs.c + n0;
   const int n_live = n_state - n0;
-  for (int i = threadIdx.x; i < kMaxL * kTileN; i += kThreads) {
-    const int r = i / kTileN, col = i % kTileN;
+  for (int i = threadIdx.x; i < kMaxL * TILE_N; i += kThreads) {
+    const int r = i / TILE_N, col = i % TILE_N;
     bsm[i] = (r < len && col < n_live) ? to_f(bp[r * bs.l + col]) * w[r] : 0.f;
   }
   __syncthreads();
@@ -149,7 +153,7 @@ chunk_state_kernel(const T* __restrict__ bm, const T* __restrict__ x,
   for (int l = 0; l < len; ++l) {
     float a[kRn], v[kCp];
 #pragma unroll
-    for (int i = 0; i < kRn; ++i) a[i] = bsm[l * kTileN + ty + 16 * i];
+    for (int i = 0; i < kRn; ++i) a[i] = bsm[l * TILE_N + ty + 16 * i];
 #pragma unroll
     for (int j = 0; j < kCp; ++j) v[j] = xsm[l * kTileP + tx + 16 * j];
 #pragma unroll
@@ -755,12 +759,14 @@ int launch_state(const void* bm, const void* x, const void* da, void* out,
                  int p_dim, cudaStream_t stream) {
   if (!shapes_ok(batch, heads, nchunks, len, n_state, p_dim))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (kMaxL * kTileN + kMaxL * kTileP + kMaxL) * sizeof(float);
-  auto kernel = chunk_state_kernel<T>;
+  const bool small = n_state <= kSmallTileN;
+  const int tile_n = small ? kSmallTileN : kTileN;
+  const size_t smem = (kMaxL * tile_n + kMaxL * kTileP + kMaxL) * sizeof(float);
+  auto kernel = small ? &chunk_state_kernel<T, kSmallTileN> : &chunk_state_kernel<T, kTileN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(batch * heads * nchunks, (n_state + kTileN - 1) / kTileN,
+  dim3 grid(batch * heads * nchunks, (n_state + tile_n - 1) / tile_n,
             (p_dim + kTileP - 1) / kTileP);
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)bm, (const T*)x, (const float*)da, (float*)out, bs, xs, ds, os,

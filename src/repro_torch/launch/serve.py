@@ -9,10 +9,13 @@ or full-width model, on the card by default.
 The flags are ``repro.launch.serve``'s, plus ``--device``; as in the
 reference, the KV storage format (int8 / int4 pages) is a ``ServeConfig``
 field with no flag.  ``--cache contiguous`` serves the attention-free SSM
-family over its per-slot recurrent state:
+family over its per-slot recurrent state; the hybrid serves on the default
+paged cache, its prompts replayed a token a tick:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b \
         --cache contiguous --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b \
+        --reduced --device cpu
 
 Options of the reference that are not ported yet (``--spec-decode``,
 ``--audit``, ``--cache contiguous`` for an attention model,

@@ -4,8 +4,10 @@
         --requests 16 --slots 8 --max-len 1024 --prompt-len 400 \
         --prefill-chunk 64 --max-new 32 --trace-from 20 --trace-ticks 10
 
-Takes ``launch/serve.py``'s flags, plus ``--kv-dtype`` (the KV storage
-format, which serve.py leaves to ``ServeConfig`` as the reference does).  It
+It traces any model serve.py serves (the hybrid too: ``--arch hymba_1_5b``,
+its prompts replayed a token a tick).  It takes ``launch/serve.py``'s
+flags, plus ``--kv-dtype`` (the KV storage format, which serve.py leaves to
+``ServeConfig`` as the reference does).  It
 serves the workload once untraced, timing every tick (the first tick also
 builds the kernels), then serves it again on a fresh engine with the same
 parameters and traces ticks ``[--trace-from, --trace-from +

@@ -7,13 +7,15 @@ checkpoint/restart and injected failures, on the card by default.
         --reduced --steps 20 --failure-prob 0.1
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_2_7b \
         --reduced --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba_1_5b \
+        --reduced --device cpu --steps 20
 
 The flags are ``repro.launch.train``'s, plus ``--device``; the per-step
 line and the ``done:`` line are the reference's, followed by the kernel
 launch counts of the run.  One device only: ``--mesh`` other than ``debug``
 raises ``NotImplementedError`` (ROADMAP Queue 1 item 17), as do the
 models whose full-sequence forward is not ported (``lm.require_full_forward``:
-MLA, the hybrid, encoder-decoder and frontend models).  The
+MLA, encoder-decoder and frontend models).  The
 default ``--ckpt-dir`` lies under the temporary directory (``TMPDIR``).
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Decoder-only language model, dense GQA, MLA + MoE and Mamba-2 SSM
-families: the port's counterpart of ``repro.models.lm`` for the serving
-path, and for the full-sequence forward and loss of training (dense GQA and
-SSM).
+"""Decoder-only language model, dense GQA, MLA + MoE, Mamba-2 SSM and
+hybrid (GQA attention beside Mamba-2) families: the port's counterpart of
+``repro.models.lm`` for the serving path, and for the full-sequence forward
+and loss of training (dense GQA, SSM and hybrid).
 
 Parameters are a plain dict with the reference's tree layout
 (``lm.init``, lm.py:61): ``embed``, ``prefix_layers`` (a list of unstacked
@@ -10,16 +10,19 @@ blocks: DeepSeek-V2's first, dense-FFN layer; empty for the dense family),
 ``final_norm``.  A Python loop over layers takes the place of
 ``jax.lax.scan``.  The paged pools live in :class:`Cache` and are updated
 **in place** by :func:`decode_step`, :func:`prefill_step` and
-:func:`copy_pages`, and so is the SSM's recurrent state (the reference
-donated them and returned new ones).
+:func:`copy_pages`, and so is the recurrent state (the reference donated
+them and returned new ones).
 
-Three families run: ``family == "dense"`` with GQA attention
+Four families run: ``family == "dense"`` with GQA attention
 (``qwen2_1_5b``), ``family == "moe"`` with MLA attention
-(``deepseek_v2_lite_16b``), and the attention-free ``family == "ssm"``
-(``mamba2_2_7b``, over a contiguous recurrent-state cache); the others raise
+(``deepseek_v2_lite_16b``), the attention-free ``family == "ssm"``
+(``mamba2_2_7b``, over a contiguous recurrent-state cache) and ``family ==
+"hybrid"`` (``hymba_1_5b``: each block mixes GQA attention and Mamba-2 half
+and half, over paged pools plus the recurrent state); the others raise
 ``NotImplementedError`` naming their ROADMAP Queue 1 item.  The
-full-sequence forward (:func:`forward`, :func:`loss_fn`) runs the dense and
-SSM families; MLA raises there (its ``mla_full`` is not ported yet).
+full-sequence forward (:func:`forward`, :func:`loss_fn`) runs the dense,
+SSM and hybrid families; MLA raises there (its ``mla_full`` is not ported
+yet).
 """
 from __future__ import annotations
 
@@ -34,18 +37,18 @@ from .config import ModelConfig
 
 # Families not ported yet -> the ROADMAP Queue 1 item that ports them.
 _NOT_PORTED = {
-    "hybrid": "item 15 (hybrid)",
     "moe": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
     "vlm": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
     "audio": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
 }
-_PORTED = {("dense", "gqa"), ("moe", "mla"), ("ssm", "none")}
+_PORTED = {("dense", "gqa"), ("moe", "mla"), ("ssm", "none"), ("hybrid", "gqa")}
 BIG_WINDOW = 1 << 30  # "no window" sentinel of layer_windows
 
 
 def require_supported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder,
-    an MLA + MoE decoder or an attention-free Mamba-2 (SSM) model."""
+    an MLA + MoE decoder, an attention-free Mamba-2 (SSM) model or a GQA +
+    Mamba-2 hybrid."""
     if (cfg.family, cfg.attention) in _PORTED and not cfg.is_encoder_decoder:
         return
     if cfg.attention == "mla":
@@ -66,13 +69,18 @@ def _init_block(gen, cfg: ModelConfig, dense_ffn: bool) -> Dict:
     """One block (lm.py:34): attention (GQA or MLA) and its FFN: the MoE,
     or a dense MLP (an MoE model's dense prefix layer widened to the active
     experts' width, lm.py:51-57); or, for the SSM family, its norm and the
-    Mamba-2 layer alone (lm.py:41-44)."""
+    Mamba-2 layer alone; a hybrid block adds the Mamba-2 layer and its norm
+    ``norm_m`` beside the attention (lm.py:41-44)."""
     dt = L.dtype_of(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)  # noqa: E731
     if cfg.family == "ssm":
         return {"norm1": ones(), "mamba": L.init_mamba2(gen, cfg)}
     attn = L.init_mla(gen, cfg) if cfg.attention == "mla" else L.init_attention(gen, cfg)
-    p = {"norm1": ones(), "attn": attn, "norm2": ones()}
+    p = {"norm1": ones(), "attn": attn}
+    if cfg.family == "hybrid":
+        p["mamba"] = L.init_mamba2(gen, cfg)
+        p["norm_m"] = ones()
+    p["norm2"] = ones()
     mo = cfg.moe
     if mo is not None and mo.num_experts and not dense_ffn:
         p["moe"] = L.init_moe(gen, cfg)
@@ -204,9 +212,12 @@ class Cache:
     P, page_size, 1).  For MLA it holds the latent and rope pools
     ``ckv_pages`` (L, P, page_size, R) and ``kpe_pages`` (L, P, page_size,
     Dpe), packed with ``ckv_scale_pages``/``kpe_scale_pages`` when
-    quantized.  Every leaf has its page axis at ``ndim - 3``, as in the
-    reference.  Steps write the pools in place; :meth:`with_tables` swaps in
-    a refreshed table (the host-side allocation lives in
+    quantized.  Every pool leaf is named ``*_pages`` and has its page axis
+    at ``ndim - 3``, as in the reference.  For the hybrid, ``kv`` also holds
+    each layer's recurrent rows under the reference's names, ``ssm`` (L, B,
+    H, N, P) fp32 and ``conv`` (L, B, W - 1, conv_dim): one row a slot, not
+    paged.  Steps write the pools and rows in place; :meth:`with_tables`
+    swaps in a refreshed table (the host-side allocation lives in
     serving/paged_cache.py).
 
     ``layout="contiguous"`` (the attention-free SSM family): ``kv`` holds the
@@ -241,8 +252,8 @@ class Cache:
         return Cache(self.kv, self.max_len, self.page_size, tables, self.layout)
 
     def kv_bytes(self) -> int:
-        """Bytes held by the KV page pools, scale pools included, or by the
-        recurrent state."""
+        """Bytes held by every leaf: the KV page pools, scale pools included,
+        and the recurrent state (lm.py:309)."""
         return sum(t.numel() * t.element_size() for t in self.kv.values())
 
 
@@ -250,8 +261,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                layout: str = "paged", page_size: int = 16,
                num_blocks: Optional[int] = None, device="cuda") -> Cache:
     """The decode cache of ``batch`` slots (lm.py:317): paged pools for an
-    attention model, the contiguous recurrent state for an attention-free
-    one (``layout="contiguous"``)."""
+    attention model (with each slot's recurrent rows for the hybrid), the
+    contiguous recurrent state for an attention-free one
+    (``layout="contiguous"``)."""
     require_supported(cfg)
     if layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
@@ -276,17 +288,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     init_pools = (L.init_mla_paged_cache if cfg.attention == "mla"
                   else L.init_paged_kv_cache)
     kv = init_pools(cfg, num_blocks, page_size, dev, layers=cfg.num_layers)
+    if cfg.family == "hybrid":  # lm.py:349-350: the state beside the pools
+        kv.update(L.init_mamba2_cache(cfg, batch, dev, layers=cfg.num_layers))
     tables = torch.zeros((batch, max_pages), dtype=torch.int32, device=dev)
     return Cache(kv, max_len, page_size, tables)
 
 
 def copy_pages(cache: Cache, src, dst) -> Cache:
     """Copy-on-write on the device: duplicate physical pages ``src[i]`` onto
-    ``dst[i]`` in every page pool, in place (lm.py:366).  The shared
-    contents never pass through the host."""
+    ``dst[i]`` in every page pool (the ``*_pages`` leaves, lm.py:399), in
+    place (lm.py:366).  The shared contents never pass through the host; a
+    hybrid's recurrent rows are not pages and stay as they are."""
     src = torch.as_tensor(src, dtype=torch.long, device=cache.tables.device)
     dst = torch.as_tensor(dst, dtype=torch.long, device=cache.tables.device)
-    for leaf in cache.kv.values():
+    for name, leaf in cache.kv.items():
+        if not name.endswith("_pages"):
+            continue
         pool = leaf.movedim(leaf.ndim - 3, 0)  # a view: pages leading
         pool[dst] = pool[src]
     return cache
@@ -302,30 +319,35 @@ def _rows(mask, t):
     return mask.reshape(-1, *([1] * (t.dim() - 1)))
 
 
-def _ssm_block_decode(p, x, cfg: ModelConfig, state, live, fresh):
-    """One SSM block, one token (lm.py:525-544): the norm, the Mamba-2
-    recurrence, the residual.  ``state`` is the layer's ``ssm``/``conv``
-    rows, written in place.  With ``live`` (B,) bool, a slot stepping at
-    ``pos == 0`` (``fresh``) starts from zeroed state and a slot not
-    stepping keeps its state, as the reference's ``_per_slot`` selects:
-    device-side masks, no host sync."""
-    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+def _mamba_decode(p, h, cfg: ModelConfig, state, live, fresh):
+    """The Mamba-2 recurrence of one block, one token (lm.py:525-546), its
+    output returned.  ``state`` is the layer's ``ssm``/``conv`` rows,
+    written in place.  With ``live`` (B,) bool, a slot stepping at ``pos ==
+    0`` (``fresh``) starts from zeroed state and a slot not stepping keeps
+    its state, as the reference's ``_per_slot`` selects: device-side masks,
+    no host sync."""
     st_in = state
     if live is not None:
         st_in = {k: v.masked_fill(_rows(fresh, v), 0) for k, v in state.items()}
-    out, new = L.mamba2_decode(p["mamba"], h, cfg, st_in)
+    out, new = L.mamba2_decode(p, h, cfg, st_in)
     for k, v in new.items():
         if live is None:
             state[k].copy_(v)
         else:  # written in place: the output aliases the kept state
             torch.where(_rows(live, v), v, state[k], out=state[k])
-    return x + out
+    return out
 
 
-def _block(p, x, cfg, attend):
-    """One block (lm.py:487, :657): attention, then the MoE or the MLP."""
+def _block(p, x, cfg, attend, recur=None):
+    """One block (lm.py:487, :657): attention, then the MoE or the MLP.  A
+    hybrid block (``recur``: its Mamba-2 step, on ``rmsnorm(x, norm_m)``)
+    adds the mean of the attention and the Mamba-2 outputs
+    (lm.py:535-545)."""
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    x = x + attend(p["attn"], h)
+    delta = attend(p["attn"], h)
+    if recur is not None:
+        delta = 0.5 * (delta + recur(L.rmsnorm(x, p["norm_m"], cfg.norm_eps)))
+    x = x + delta
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     if "moe" in p:
         return x + L.moe(p["moe"], h2, cfg)[0]
@@ -340,17 +362,20 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
     Every slot writes its K/V at ``pos`` through its table row, dead ones
     included (into page 0), as the reference does.  ``live`` marks the slots
     genuinely stepping; positional KV caches never need it (a dead slot's
-    write lands beyond its live length), so the attention families ignore
-    it.  Recurrent state has no position to hide behind: the SSM family
-    holds a parked slot's state and zeroes a slot stepping at ``pos == 0``
-    (:func:`_ssm_block_decode`).
+    write lands beyond its live length), so attention ignores it.
+    Recurrent state has no position to hide behind: the SSM and hybrid
+    families hold a parked slot's state and zero a slot stepping at ``pos ==
+    0`` (:func:`_mamba_decode`).
     """
     pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.device)
     x = L.embed(params["embed"], token[:, None]).to(L.dtype_of(cfg))
+    fresh = None
+    if live is not None and cfg.family in ("ssm", "hybrid"):
+        fresh = live & (pos == 0)
     if cache.layout == "contiguous":
-        fresh = None if live is None else live & (pos == 0)
         for i, p in enumerate(blocks(params)):
-            x = _ssm_block_decode(p, x, cfg, cache.layer(i), live, fresh)
+            h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+            x = x + _mamba_decode(p["mamba"], h, cfg, cache.layer(i), live, fresh)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return _soft_cap(cfg, L.unembed(params["embed"], x, cfg)[:, 0]), cache
     wlist = static_windows(cfg)
@@ -366,7 +391,12 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
             attend = lambda pa, h: L.attention_decode_paged(  # noqa: E731
                 pa, h, cfg, pools, pos, tables, window=wlist[i],
                 rope_fraction=rf, append=append)
-        x = _block(p, x, cfg, attend)
+        recur = None
+        if cfg.family == "hybrid":
+            state = {k: pools[k] for k in ("ssm", "conv")}
+            recur = lambda hm: _mamba_decode(  # noqa: E731
+                p["mamba"], hm, cfg, state, live, fresh)
+        x = _block(p, x, cfg, attend, recur)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)[:, 0]
     return _soft_cap(cfg, logits), cache
@@ -389,8 +419,9 @@ def decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, live,
     hits zero, or ``pos`` reaches ``max_len`` (lm.py:638-647).  Dead slots
     re-feed their frozen token at their frozen ``pos``: the write lands past
     their live length (or in the sink page 0) and is never read.  All
-    ``n_steps`` iterations run, as the reference's ``lax.scan`` does.  An SSM's
-    recurrent state is held for dead slots by ``live`` (:func:`decode_step`).
+    ``n_steps`` iterations run, as the reference's ``lax.scan`` does.  The
+    recurrent state (SSM, hybrid) is held for dead slots by ``live``
+    (:func:`decode_step`).
 
     Returns ``(tokens (n_steps, B) int32, emitted (n_steps, B) bool)``:
     ``emitted[t, b]`` marks a token the host must deliver; rows after the
@@ -459,8 +490,8 @@ def prefill_step(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
 
 
 def require_full_forward(cfg: ModelConfig):
-    """Raise unless the full-sequence forward runs ``cfg`` (dense GQA or
-    SSM)."""
+    """Raise unless the full-sequence forward runs ``cfg`` (dense GQA, SSM
+    or hybrid)."""
     require_supported(cfg)
     if cfg.attention == "mla":
         raise NotImplementedError(
@@ -483,17 +514,26 @@ def training_blocks(params) -> List[Dict]:
 
 def _block_full(p, x, cfg: ModelConfig, positions, window, rope_fraction):
     """One block, full sequence (lm.py:111): dense GQA attention then the
-    MLP, or the SSM's Mamba-2 layer alone (lm.py:133-134).  Returns (x,
-    aux_loss); the aux loss is the MoE's, zero here."""
+    MLP, or the SSM's Mamba-2 layer alone (lm.py:133-134), or the hybrid's
+    mean of the attention and the Mamba-2 layer on ``rmsnorm(x, norm_m)``
+    then the MLP (lm.py:135-137).  Returns (x, aux_loss); the aux loss is
+    the MoE's, zero here.
+
+    ``window`` is the layer's :func:`layer_windows` entry, BIG_WINDOW for a
+    global layer of a windowed model: not None, so ``ops.attention`` takes
+    the plain version there too, as the reference's rule does
+    (repro/kernels/ops.py:218-224)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
+        h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
         return x + L.mamba2_full(p["mamba"], h, cfg), aux
     w = None if cfg.sliding_window is None else window
-    x = x + L.attention_full(p["attn"], h, cfg, positions, window=w,
-                             rope_fraction=rope_fraction)
-    x = x + L.mlp(p["mlp"], L.rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
-    return x, aux
+    attend = lambda pa, h: L.attention_full(  # noqa: E731
+        pa, h, cfg, positions, window=w, rope_fraction=rope_fraction)
+    recur = None
+    if cfg.family == "hybrid":
+        recur = lambda hm: L.mamba2_full(p["mamba"], hm, cfg)  # noqa: E731
+    return _block(p, x, cfg, attend, recur), aux
 
 
 def hidden_forward(params, cfg: ModelConfig, tokens, prefix_embeds=None,
@@ -506,8 +546,8 @@ def hidden_forward(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
     ``jax.checkpoint`` of the scanned body: a layer's kernels (flash
     attention, or chunk_state and chunk_scan) then launch twice a training
-    step.  ``residual_constraint`` and
-    ``unroll`` are the reference's sharding hint and scan unroll factor,
+    step; a hybrid layer recomputes both halves.  ``residual_constraint``
+    and ``unroll`` are the reference's sharding hint and scan unroll factor,
     accepted and ignored (one device, a Python loop)."""
     require_full_forward(cfg)
     del residual_constraint, unroll

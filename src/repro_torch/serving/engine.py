@@ -13,7 +13,9 @@ ticks (``steps_run``, TTFT ticks, preemptions and shared pages are equal):
   (:func:`plan_prefill_chunks`): each tick runs one decode step for the
   generating slots plus prompt chunks within the leftover budget, through
   ``lm.prefill_step`` and the prefill_attention kernel; ``prefill="replay"``
-  streams prompts one token per tick through the decode step instead;
+  streams prompts one token per tick through the decode step instead, the
+  only mode of a model with recurrent state (``lm.supports_chunked_prefill``:
+  the hybrid runs it over its paged pools plus each slot's Mamba-2 rows);
 * **prefix cache**: full prompt pages are indexed when a request finishes
   prefilling, and a later request whose prompt shares them attaches the
   pages at admission; a write into a shared page goes through copy-on-write
@@ -37,8 +39,8 @@ ticks (``steps_run``, TTFT ticks, preemptions and shared pages are equal):
   ``self.tables is None`` branches); prompts replay one token per tick
   through the decode step, and the window runs over the same state.
 
-Each tick runs eagerly on the device (no jit): the KV pools (or the
-recurrent state) are updated in place and the sampled token ids are the
+Each tick runs eagerly on the device (no jit): the KV pools and the
+recurrent state are updated in place and the sampled token ids are the
 only per-tick download (one per window with ``sync_every > 1``).
 
 Not ported yet, each raising ``NotImplementedError`` where it is asked for:
@@ -281,8 +283,8 @@ class ServingEngine:
             self.cache = lm.init_cache(cfg, b, serve_cfg.max_len,
                                        layout="contiguous", device=self.device)
 
-        # prefix cache: paged attention families only (engine.py:546):
-        # recurrent SSM state must replay
+        # prefix cache: paged attention families only (engine.py:532-543):
+        # recurrent SSM/hybrid state must replay
         self.prefix: Optional[PrefixCache] = None
         if (self.cache_mode == "paged" and serve_cfg.prefix_cache
                 and lm.supports_chunked_prefill(cfg)):
@@ -1005,7 +1007,7 @@ class ServingEngine:
 
     # -- accounting -----------------------------------------------------
     def kv_cache_bytes(self) -> int:
-        """Bytes held by the KV page pools, or by the recurrent state."""
+        """Bytes held by the KV page pools and the recurrent state."""
         return self.cache.kv_bytes()
 
     def peak_kv_blocks(self) -> Optional[int]:

@@ -655,6 +655,7 @@ SSD = [  # (batch, heads, chunks, L, N, P, deep decay)
     (2, 64, 2, 128, 16, 50, True),  # hymba-1.5B: rows of 100 bytes in bf16
     (1, 8, 3, 64, 128, 64, False),  # a chunk of 64, growing dA
     (2, 3, 2, 17, 200, 130, True),  # ragged: two N tiles, three P tiles
+    (1, 4, 3, 50, 8, 20, False),  # a state of 8 rows: chunk_state's 16-row tile
 ]
 
 
@@ -969,3 +970,127 @@ def test_cuda_matmul_wgmma_edges(dtypes):
                 assert ops.KERNELS["matmul"].tc_launches == tc0 + (m >= 17), (m, n, k)
                 want = ref.matmul(a, b, od)
                 assert _lib_within_limit(got, want, k ** 0.5), (m, n, k)
+
+
+# ---------------------------------------------------------------------------
+# hymba-1.5B: the decode at its shape, its training step's kernels
+# ---------------------------------------------------------------------------
+
+# tokens a slot and the slots' lengths: the serving run's 8 slots of 1024
+# (chip_smoke.py's engine; the window of 1024 never binds there) and 8 slots
+# of 2048 (the window drops whole splits of the longer slots)
+HYMBA_SHAPES = [(1024, [0, 1, 64, 255, 256, 700, 1000, 1024]),
+                (2048, [0, 1, 64, 700, 1024, 1025, 1500, 2048])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HYMBA_SHAPES, ids=["serving 1024", "2048"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_decode_at_hymba_shape_with_a_binding_window(dtype, shape):
+    """On a card: the decode at hymba-1.5B's heads (25 query heads over 5
+    KV heads of 64, a group of 5) over 8 slots in pages of 16, at the
+    serving run's 1024 tokens a slot and at 2048, where its window of 1024
+    drops whole splits; with that window and with none: within the limit
+    of its plain version, a len-0 slot emitting zeros, bf16 on the tensor
+    cores; the merge without the rescale fails the same limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    max_len, lens = shape
+    assert (cs.HYMBA_SERVE_DECODE.slots, cs.HYMBA_SERVE_DECODE.max_len) == (8, 1024)
+    b, hq, hkv, d, ps, mp = len(lens), 25, 5, 64, 16, max_len // 16
+    num_pages = b * mp + 1
+    tables = torch.as_tensor(_tables(np.random.default_rng(9), b, mp, num_pages), device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)  # noqa: E731
+    q, kp, vp = rand(b, hq, d), rand(hkv, num_pages, ps, d), rand(hkv, num_pages, ps, d)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    splits, keys = PA.decode_splits(b, hkv, mp, ps, PA.sm_count(dev.index or 0))
+    assert splits > 1 and splits * keys >= max_len
+    if max_len == 2048:
+        assert keys <= 1024  # a window of 1024 skips splits
+    for window in (1024, None):
+        n0, tc0 = PA.KERNEL.launches, PA.KERNEL.tc_launches
+        got = PA.paged_attention(q, kp, vp, tables, lens, window=window)
+        torch.cuda.synchronize()
+        assert (PA.KERNEL.launches, PA.KERNEL.tc_launches) == (
+            n0 + 1, tc0 + (dt == torch.bfloat16))
+        want = ref.paged_attention(q, kp, vp, tables, lens, window=window)
+        assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+        assert _within_limit(got, want), window
+        faulty = PA.split_decode(q, kp, vp, tables, lens, splits, keys, window=window,
+                                 pair=dt == torch.bfloat16, rescale=False)
+        assert not _within_limit(faulty, want), window
+
+
+@pytest.mark.cuda
+def test_cuda_hymba_training_step_takes_the_ssd_kernels_off_tensor_cores():
+    """On a card: a training step of full-width hymba-1.5B cut to 2 layers
+    (batch 1 x seq 256, bf16) launches chunk_state and chunk_scan twice a
+    layer (the forward and its recompute), none on the tensor cores (P 50),
+    and no flash kernel (every layer's attention carries a window, so the
+    plain version runs, as the reference routes it); the loss is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("hymba_1_5b"), num_layers=2)
+    state = build_state(cfg, 0, dev)
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=2))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=torch.Generator().manual_seed(0))
+    kernels = (CST.KERNEL, CSC.KERNEL, FA.KERNEL)
+    for k in kernels:
+        k.launches = k.tc_launches = 0
+    state, m = step(state, {"tokens": tokens, "labels": tokens.roll(-1, 1)})
+    assert np.isfinite(m["loss"].item()) and np.isfinite(m["grad_norm"].item())
+    assert [(k.launches, k.tc_launches) for k in kernels] == [(4, 0), (4, 0), (0, 0)]
+
+
+@pytest.mark.cuda
+def test_cuda_step_breakdown_matches_the_profilers_event_tree():
+    """On a card: chip_smoke.py's step breakdown, read from the profiler's
+    raw events, equals what the profiler's event tree (``key_averages``)
+    gives for one profiled training step of reduced mamba2 (the SSD kernels
+    and their plain recompute in the backward, AdamW): the device's busy
+    time, each kernel group, and the device time inside each annotated
+    range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    dev = torch.device("cuda")
+    cfg = get_config("mamba2_2_7b").reduced()
+    state = build_state(cfg, 0, dev)
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=2))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    state, m = step(state, batch)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+    got = cs.step_breakdown(torch, prof.profiler.kineto_results.events())
+    events = prof.key_averages()
+    rows = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in cs.RANGES]
+    want = {"device busy": sum(e.self_device_time_total for e in rows) / 1e3}
+    for e in rows:
+        g = cs._kernel_group(e.key)
+        want[g] = want.get(g, 0.0) + e.self_device_time_total / 1e3
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.key in cs.RANGES:
+            want["inside " + e.key] = e.device_time_total / 1e3
+    top = got.pop("top")
+    assert top and want["device busy"] > 0 and want["inside chunk_scan.backward"] > 0
+    assert set(got) == set(want) and all(
+        got[k] == pytest.approx(want[k], rel=1e-6, abs=1e-6) for k in want), (got, want)

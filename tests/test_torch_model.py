@@ -157,7 +157,7 @@ def test_copy_pages_copies_every_pool_in_place():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("hymba_1_5b", "item 15"), ("granite_moe_3b_a800m", "item 16"),
+    ("granite_moe_3b_a800m", "item 16"),
     ("whisper_tiny", "item 16"), ("internvl2_26b", "item 16"),
 ])
 def test_unported_families_raise_naming_their_roadmap_item(arch, item):
@@ -168,13 +168,15 @@ def test_unported_families_raise_naming_their_roadmap_item(arch, item):
         lm.init_cache(cfg, 1, 16, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mamba2_2_7b"])
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "hymba_1_5b"])
 def test_formerly_unported_families_now_run(arch):
-    """The SSM family (ROADMAP Queue 1 item 15, its SSM half) initialises,
-    takes its contiguous recurrent-state cache and decodes a step."""
+    """The SSM and hybrid families (ROADMAP Queue 1 item 15) initialise,
+    take their caches (the SSM's contiguous recurrent state; the hybrid's
+    paged pools plus recurrent rows) and decode a step."""
     cfg = tconfigs.get_config(arch).reduced()
     params = lm.init(cfg, 0, device="cpu")
-    cache = lm.init_cache(cfg, 2, 16, layout="contiguous", device="cpu")
+    layout = "paged" if cfg.attends else "contiguous"
+    cache = lm.init_cache(cfg, 2, 16, layout=layout, device="cpu")
     logits, _ = lm.decode_step(params, cfg, cache, torch.tensor([1, 2]),
                                torch.tensor([0, 0]))
     assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits).all()

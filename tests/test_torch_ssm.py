@@ -342,9 +342,10 @@ def test_cache_layouts_follow_the_reference():
     qwen = tconfigs.get_config("qwen2_1_5b").reduced()
     with pytest.raises(NotImplementedError, match="item 4"):
         lm.init_cache(qwen, 1, 16, layout="contiguous", device="cpu")
-    for arch in ("hymba_1_5b",):
-        with pytest.raises(NotImplementedError, match=r"item 15 \(hybrid\)"):
-            lm.init(tconfigs.get_config(arch).reduced(), 0, device="cpu")
+    hymba = tconfigs.get_config("hymba_1_5b").reduced()  # paged KV + state
+    with pytest.raises(NotImplementedError, match="item 4"):
+        lm.init_cache(hymba, 1, 16, layout="contiguous", device="cpu")
+    assert set(lm.init_cache(hymba, 1, 16, device="cpu").kv) >= {"ssm", "conv"}
 
 
 # ---------------------------------------------------------------------------
