@@ -62,7 +62,17 @@ no phase is skipped):
    under the same limit and controls, every bf16 launch on the tensor
    cores, timed beside SDPA over the gathered pages; chunk_state and
    chunk_scan at its training shapes (batch 8 x seq 1024, 64 heads of P
-   50, N 16), every launch on CUDA cores, timed.  Then the kernel
+   50, N 16), every launch on CUDA cores, timed.  At granite-moe-3b-a800m's
+   serving shape (8 slots of 1024 tokens, Hq 24 over Hkv 8, D 64: a group
+   of 3, the chunked prefill's page groups 48 rows) the decode, the
+   chunked prefill and their int8 twins, bf16 and fp32, under the same
+   limit and controls, every bf16 launch on the tensor cores, timed.  The
+   flash kernel is also held, timed, at the training shapes of phases
+   8-10: granite's (B 8, 24 over 8 heads, S 1024, D 64, causal), whisper's
+   encoder (B 8, 6 heads, 1500 x 1500 frames, D 64, non-causal: a length
+   no 64-row or 64-key tile divides) and decoder (448 causal), and
+   internvl2's (B 4, 48 over 8 heads, 256 patch rows + 768 tokens, D 128,
+   causal).  Then the kernel
    library, driven through ``kernels.ops`` at the paper's kernel
    experiments' full-width shapes (its path: the three kernels' launches are
    counted here): ``matmul`` at Table 2's M0-M7 and V0-V7 in bf16,
@@ -87,7 +97,7 @@ no phase is skipped):
    fp16 on a weight dequantized beforehand (the paper's Fig. 15 baseline, a
    yardstick) or SDPA with a latent head's heads as its query rows (MLA);
 3. serve full-width qwen2-1.5B (bf16, seeded random weights; its serving
-   depth cut to 14 of 28 layers to keep the script within half its time
+   depth cut to 7 of 28 layers to keep the script within half its time
    limit) through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
    prefix cache, guards, greedy): 16 requests of 100-600 prompt tokens, half
    sharing a 256-token prefix, 32 new tokens each; then again with the pool
@@ -111,7 +121,7 @@ no phase is skipped):
 
 then phases 3 and 4 again for full-width deepseek-v2-lite-16B (MLA +
 64-expert top-6 MoE, bf16 with an fp32 router, after qwen's parameters are
-freed; its serving depth cut to 14 of 27 layers to keep the script within
+freed; its serving depth cut to 7 of 27 layers to keep the script within
 half its time limit): the same workload in fp, int8 and int4
 latent pages and int8 with ``sync_every=16`` under the no-host-sync check
 (ticks and mean TTFT equal across the four, window outputs byte-identical
@@ -161,13 +171,42 @@ both route to the same experts (at least half of them), int4 as qwen's;
    flash launch: its attention carries a window on every layer, which the
    reference routes to the plain version) plus 2 profiled; and its depth-2
    check against the CPU's fp32 and the card's plain SSD with the three
-   planted SSD faults.
+   planted SSD faults.  Its serving is cut to 8 of its 32 layers to keep
+   the script within half its time limit;
+8. full-width granite-moe-3b-a800m (32 layers, d 1536, 24 query heads over
+   8 KV heads of 64, 40 experts of width 512, top 8, tied embeddings;
+   bf16, router fp32, seeded): serve the phase 3 workload at all 32
+   layers with fp and with int8 pages (chunked prefill, prefix cache;
+   ticks and TTFT equal across the two; every decode and prefill launch on
+   the tensor cores); teacher-forced logits at depth 4, fp and int8 KV,
+   against the CPU's fp32 on the card's MoE routing replayed (every step
+   held to phase 4's limits, capacity drops included; the CPU on its own
+   routing printed); train it 8 steps at batch 8 x seq 1024 through the
+   flash kernel (64 launches a step, all on the tensor cores) plus 2
+   profiled;
+9. full-width whisper-tiny (4 encoder and 4 decoder layers, d 384, 6 heads
+   of 64, d_ff 1536 GELU, vocab 51865; bf16, seeded): train it 8 steps at
+   batch 8 on 1500 seeded frames and 448 decoder tokens (12 flash launches
+   a step, all on the tensor cores: the encoder's 4 non-causal, the
+   decoder's 4 causal and their recompute) plus 2 profiled; its
+   teacher-forced ``decode_full`` against the CPU's fp32, and a greedy
+   ``decode_step`` decode of 64 tokens (the KV cache, plain attention, as
+   the reference) against the card's ``decode_full`` of the tokens it
+   fed (phase 4's limits; argmax where the top-2 margin exceeds twice the
+   error);
+10. internvl2-26b at full width (d 6144, 48 query heads over 8 KV heads of
+   128, d_ff 16384, vocab 92553, untied) cut to 2 of its 48 layers: a
+   teacher-forced forward over 256 seeded patch rows and 128 tokens
+   against the CPU's fp32, over the text rows; 2 training steps at batch 4
+   of 256 patch rows and 768 tokens through the flash kernel, the loss
+   finite and its cross-entropy that of the forward's text rows alone.
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
 default-pool serving run, fp or int8 for the quantized kernels; the 8
 training steps for the flash kernel and mamba2's for the two SSD
-kernels (hymba's paths' launches are printed in a ``[launches]`` line); the
+kernels (hymba's and granite's paths' launches are printed in a
+``[launches]`` line); the
 library phase for the library's three, whose rows are M7, the (8, 16384,
 16384) W int4 x A fp16 row and b128_s8192), and
 ``{"ok": true, "device": {...}}``.
@@ -391,6 +430,10 @@ QWEN_DECODE = DecodeShape("qwen2-1.5B", SLOTS, MAX_LEN, HQ, HKV, HEAD_DIM)
 HYMBA_SERVE_DECODE = DecodeShape("hymba-1.5B", SLOTS, MAX_LEN, 25, 5, 64)
 HYMBA_DECODE = HYMBA_SERVE_DECODE._replace(max_len=2048)
 HYMBA_WINDOW = 1024
+# granite-moe-3b-a800m: a GQA group of 3 at head dim 64, served as qwen is
+# (its serving runs' shape: the decode, and the chunked prefill's 48-row
+# page groups of 16 positions x 3 heads)
+GRANITE_DECODE = DecodeShape("granite-moe-3b-a800m", SLOTS, MAX_LEN, 24, 8, 64)
 
 
 def decode_grid(torch, PA, dev, shape=QWEN_DECODE):
@@ -563,29 +606,33 @@ def prefill_work(starts, lens, window):
 
 
 def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
-                  fmt=None):
+                  fmt=None, shape=QWEN_DECODE):
     """The chunked-prefill kernel (``fmt`` None) or its quantized twin
-    against its plain version: outputs, and the pages both write."""
+    against its plain version: outputs, and the pages both write; at the
+    heads and head dim of ``shape`` (its slots and tokens a slot are the
+    main path's SLOTS and MAX_LEN)."""
+    assert (shape.slots, shape.max_len) == (SLOTS, MAX_LEN), shape
+    hq, hkv, d = shape.hq, shape.hkv, shape.d
     rng = np.random.default_rng(3)
     tables, num_pages = _tables(torch, rng, dev)
     starts, lens = _chunk_starts_lens(np, rng)
     g = torch.Generator(device=dev).manual_seed(4)
-    q = torch.randn((SLOTS, HQ, CHUNK, HEAD_DIM), generator=g, device=dev).to(dtype)
-    kn = torch.randn((SLOTS, HKV, CHUNK, HEAD_DIM), generator=g, device=dev).to(dtype)
-    vn = torch.randn((SLOTS, HKV, CHUNK, HEAD_DIM), generator=g, device=dev).to(dtype)
-    kp = torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).to(dtype)
-    vp = torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).to(dtype)
+    q = torch.randn((SLOTS, hq, CHUNK, d), generator=g, device=dev).to(dtype)
+    kn = torch.randn((SLOTS, hkv, CHUNK, d), generator=g, device=dev).to(dtype)
+    vn = torch.randn((SLOTS, hkv, CHUNK, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
     st, ln = torch.as_tensor(starts, device=dev), torch.as_tensor(lens, device=dev)
     isz = q.element_size()
     if fmt is None:
         new, pools, kw = (kn, vn), (kp, vp), {}
-        row_bytes = HEAD_DIM * isz
+        row_bytes = d * isz
         kernel, plain_fn = mod.prefill_attention, ref.paged_prefill_attention
     else:
         (knq, kns), (vnq, vns), (kq, ks), (vq, vs) = _quantized(
             torch, ref, (kn, vn, kp, vp), fmt)
         new, pools, kw = (knq, vnq, kns, vns), (kq, vq, ks, vs), {"fmt": fmt}
-        row_bytes = HEAD_DIM // ref.KV_PACK[fmt] + isz  # packed row + scale
+        row_bytes = d // ref.KV_PACK[fmt] + isz  # packed row + scale
         kernel = mod.prefill_attention_quant
         plain_fn = ref.paged_prefill_attention_quant
         # what the kernel attends: the chunk and the pages dequantized
@@ -607,14 +654,15 @@ def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
                 lambda rows, b, c: rows[b, :, c], lambda pool, idx: pool[:, idx])
     res = {"err": err, "tc_launches": tc}
     # [gathered prior pages ; chunk] for one dense call: SDPA and the controls
-    kg = kp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
-    vg = vp[:, tables.long()].transpose(0, 1).reshape(SLOTS, HKV, -1, HEAD_DIM)
-    kall = torch.cat([kg, kn], 2).repeat_interleave(HQ // HKV, dim=1)
-    vall = torch.cat([vg, vn], 2).repeat_interleave(HQ // HKV, dim=1)
+    kg = kp[:, tables.long()].transpose(0, 1).reshape(SLOTS, hkv, -1, d)
+    vg = vp[:, tables.long()].transpose(0, 1).reshape(SLOTS, hkv, -1, d)
+    kall = torch.cat([kg, kn], 2).repeat_interleave(hq // hkv, dim=1)
+    vall = torch.cat([vg, vn], 2).repeat_interleave(hq // hkv, dim=1)
     mask, live_rows = prefill_mask(torch, st, ln, window)
     if dtype == torch.bfloat16:
         res["ulps"] = bf16_ulps(torch, out, plain)
-        res.update(accumulation_controls(torch, q, kall, vall, mask, plain, live_rows))
+        res.update(accumulation_controls(torch, q, kall, vall, mask, plain, live_rows,
+                                         scale=d ** -0.5))
     if timed:
         res["ms"] = time_ms(torch, run, flush=flush)
         res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
@@ -627,9 +675,9 @@ def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
             res["sdpa_dequantized_ms"] = sdpa_ms
         pairs, prior_rows = prefill_work(starts, lens, window)
         live = int(lens.sum())
-        nbytes = ((HQ * HEAD_DIM * live) * isz * 2  # live Q rows in, out
-                  + 2 * HKV * row_bytes * (live * 2 + prior_rows))
-        flops = 4.0 * HQ * HEAD_DIM * pairs
+        nbytes = ((hq * d * live) * isz * 2  # live Q rows in, out
+                  + 2 * hkv * row_bytes * (live * 2 + prior_rows))
+        flops = 4.0 * hq * d * pairs
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
     return res
 
@@ -814,16 +862,33 @@ def check_mla_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# whisper-tiny trains at batch 8 on its encoder's 1500 frames and its
+# decoder's 448 positions; internvl2-26b at batch 4 on its stub frontend's
+# 256 patch rows before 768 text tokens
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+VLM_BATCH, VLM_PREFIX, VLM_TEXT = 4, 256, 768
 # (label, batch, q heads, kv heads, Sq, Sk, head dim, causal): the training
 # forward's shapes first, then a suffix block of queries (causal and not),
-# a ragged length and a head dim of 64
+# a ragged length and a head dim of 64; then the training shapes of the
+# models of phases 8-10: granite (causal, a group of 3 at D 64), whisper's
+# encoder (non-causal over 1500 frames, ragged against the 64-row and
+# 64-key tiles) and decoder (causal), internvl2 (causal, a group of 6 at D
+# 128 over prefix and text)
 FLASH_CASES = (
     ("train", TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, True),
     ("suffix, causal", TRAIN_BATCH, HQ, HKV, 256, TRAIN_SEQ, HEAD_DIM, True),
     ("suffix, non-causal", TRAIN_BATCH, HQ, HKV, 256, TRAIN_SEQ, HEAD_DIM, False),
     ("ragged", TRAIN_BATCH, HQ, HKV, 1000, 1000, HEAD_DIM, True),
     ("head dim 64", TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, 64, True),
+    ("granite train", TRAIN_BATCH, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 64, True),
+    ("whisper encoder", TRAIN_BATCH, 6, 6, WHISPER_FRAMES, WHISPER_FRAMES, 64, False),
+    ("whisper decoder", TRAIN_BATCH, 6, 6, WHISPER_TOKENS, WHISPER_TOKENS, 64, True),
+    ("internvl2 train", VLM_BATCH, 48, 8, VLM_PREFIX + VLM_TEXT, VLM_PREFIX + VLM_TEXT,
+     128, True),
 )
+# the cases timed beside the table's ("train"): the new models' shapes
+FLASH_TIMED = ("train", "granite train", "whisper encoder", "whisper decoder",
+               "internvl2 train")
 
 
 def flash_inputs(torch, case, dtype, dev, seed=21):
@@ -1348,7 +1413,7 @@ FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
 # Cuts that keep the whole script within half its 1200 s limit on a slow
 # host (a run on an H100 80GB HBM3 at 700 W took 810 s without them, 275 s
 # of it serving mamba2):
-# qwen2-1.5B serves 14 of its 28 layers, deepseek-v2-lite-16B 14 of its 27
+# qwen2-1.5B served 14 of its 28 layers, deepseek-v2-lite-16B 14 of its 27
 # (the dense first layer and 13 MoE layers), and mamba2-2.7B serves the first 8 of the
 # workload's 16 requests (one full batch of slots; its prompts replay a
 # token a tick, so its ticks follow the longest prompt) over 16 of its 64
@@ -1358,11 +1423,18 @@ FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
 # launch) do not depend on depth; qwen's host-bound serving runs (111.5 s
 # of a slow host's 644 s) were then halved to keep its [time] lines within
 # 600 s.  A serving run's ticks and preemptions depend on prompt lengths
-# and block counts, not on depth.
-QWEN_SERVE_LAYERS = 14
-MLA_SERVE_LAYERS = 14
+# and block counts, not on depth.  With phases 8-10 (granite, whisper,
+# internvl2: ~85 s) added, hymba-1.5B's host-bound serving (102-150 s at
+# its 32 layers) serves 8 of them; a run so cut read 495 s of [time] lines
+# on a host ~1.2x slower than the fastest seen, ~620 s on the slowest,
+# so qwen2-1.5B and deepseek-v2-lite-16B serve 7 layers each (49.3 and
+# 55.3 s at 14 there), and granite-moe-3b-a800m all of its 32 (47.7 s).
+QWEN_SERVE_LAYERS = 7
+MLA_SERVE_LAYERS = 7
 SSM_SERVE_REQUESTS = 8
 SSM_SERVE_LAYERS = 16
+HYBRID_SERVE_LAYERS = 8
+GRANITE_SERVE_LAYERS = 32
 
 
 @contextlib.contextmanager
@@ -1545,6 +1617,28 @@ def recorded_routing(layers):
         layers.top_k = top_k
 
 
+@contextlib.contextmanager
+def replayed_routing(layers, picks):
+    """Inside the block the i-th MoE routing decision takes the i-th of
+    ``picks`` (another run's, as ``recorded_routing`` kept them): the same
+    experts in the same order, their gates read from this run's own router
+    probabilities.  Every recorded decision must be replayed."""
+    top_k = layers.top_k
+    calls = iter(picks)
+
+    def replaying(x, k):
+        vals, idx = top_k(x, k)
+        got = next(calls).to(idx.device).reshape(idx.shape)
+        return x.gather(-1, got), got
+
+    layers.top_k = replaying
+    try:
+        yield
+        assert next(calls, None) is None, "fewer routing decisions than recorded"
+    finally:
+        layers.top_k = top_k
+
+
 def step_agreement(torch, got, want):
     """One step's logits ``got`` against the reference's ``want``: the max
     |diff| in standard deviations of ``want`` (not of its max: with tied
@@ -1602,7 +1696,7 @@ def replayed_codes(ref, codes):
         ref.quantize_rows = quantize
 
 
-def teacher_forced(torch, np, lm, cfg4, dev, shared_codes=False):
+def teacher_forced(torch, np, lm, cfg4, dev, shared_codes=False, shared_routing=False):
     """Prefill a 100-token prompt in 64-token chunks, then 8 decode steps
     with fed tokens, on the card (bf16, kernels) and on the CPU (fp32, plain
     path, the same weights upcast).  Returns, over the 10 steps, the worst
@@ -1625,7 +1719,12 @@ def teacher_forced(torch, np, lm, cfg4, dev, shared_codes=False):
     comparisons, (own codes, shared codes): the second separates the
     kernels' arithmetic from the codes' rounding, which at int4 moves a
     value by up to half of a row's absmax / 7 wherever the card's bf16 and
-    the CPU's fp32 inputs round to different codes."""
+    the CPU's fp32 inputs round to different codes.
+
+    ``shared_routing`` (a mixture of experts): likewise also runs the CPU on
+    the card's routing (every MoE layer's experts as the card chose them,
+    ``replayed_routing``) and returns (own routing, shared routing): the
+    second holds every step, capacity drops included, to the limits."""
     from repro_torch.kernels import ref
     from repro_torch.models import layers
 
@@ -1644,13 +1743,15 @@ def teacher_forced(torch, np, lm, cfg4, dev, shared_codes=False):
     prompt = rng.integers(0, cfg4.vocab_size, size=100)
     fed = rng.integers(0, cfg4.vocab_size, size=8)
     codes = []
-    with (recorded_codes(ref, codes) if shared_codes else contextlib.nullcontext()):
+    with (recorded_codes(ref, codes) if shared_codes else contextlib.nullcontext()), \
+            recorded_routing(layers) as picks:
         card = _tf_run(torch, np, lm, layers, cfg4, params, dev, prompt, fed)
     cpu = torch.device("cpu")
     res = _tf_compare(torch, card, _tf_run(torch, np, lm, layers, cfg32, p32, cpu, prompt, fed))
-    if not shared_codes:
+    if not (shared_codes or shared_routing):
         return res
-    with replayed_codes(ref, codes):
+    with (replayed_codes(ref, codes) if shared_codes else contextlib.nullcontext()), \
+            (replayed_routing(layers, picks) if shared_routing else contextlib.nullcontext()):
         shared = _tf_run(torch, np, lm, layers, cfg32, p32, cpu, prompt, fed)
     return res, _tf_compare(torch, card, shared)
 
@@ -1748,6 +1849,7 @@ def log_teacher_forced(label, tf, gated, seconds):
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 8
+TRAIN_FLASH = ("flash_attention",)  # the kernel of the attention models' training
 # Limits of the depth-2 check, one training step's loss and gradients.  The
 # kernel path against the card's own bf16 path with the plain attention (the
 # same arithmetic but the kernel): the loss within 0.02 nats, the grad norm
@@ -1769,14 +1871,16 @@ TRAIN_ATTN_COS_MIN = 0.9995
 TRAIN_FAULTS = ("non-causal", "kv heads swapped", "last key tile dropped")
 
 
-def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
+def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0, extra=None):
     """``steps`` AdamW steps of ``make_train_step`` on ``SyntheticTokens``
     (seed 0) from seeded parameters, each ended by a device sync; then, with
-    ``profile_steps``, that many more under ``torch.profiler``.  The logits
-    stay unchunked (``logits_chunk`` 0, as the reference CLI): at full width
-    they fit.  Returns the losses, grad norms, step seconds (the batch drawn
-    beforehand), every kernel's launches over the first ``steps`` (those
-    that launched), the peak memory on a card and the profile."""
+    ``profile_steps``, that many more under ``torch.profiler``.  ``extra``
+    (the stub frontend's ``frames`` or ``prefix_embeds``) joins every
+    batch.  The logits stay unchunked (``logits_chunk`` 0, as the reference
+    CLI): at full width they fit.  Returns the losses, grad norms, step
+    seconds (the batch drawn beforehand), every kernel's launches over the
+    first ``steps`` (those that launched), the peak memory on a card, the
+    profile and the final state."""
     from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.kernels.ops import KERNELS
     from repro_torch.launch.train import build_state, make_train_step
@@ -1792,7 +1896,7 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
 
     def step(i):
         nonlocal state
-        inputs = data.batch_at(i)
+        inputs = {**data.batch_at(i), **(extra or {})}
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1824,6 +1928,7 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0):
                 step(i)
             res["profile_wall"] = time.perf_counter() - t0
         res["profile"] = step_breakdown(torch, prof.profiler.kineto_results.events())
+    res["state"] = state
     return res
 
 
@@ -2471,11 +2576,14 @@ def kernel_phase(torch, np, ref, flush, device):
     """Every kernel against its plain version, bf16 and fp32, with and
     without a window; the quantized kernels in int8 and int4; the decode
     also at hymba-1.5B's shapes (its serving run's and a window that binds,
-    timed in bf16 with its window and without); the flash kernel on
-    FLASH_CASES; chunk_state and chunk_scan on SSD_CASES and at hymba's
+    timed in bf16 with its window and without); the GQA decode and chunked
+    prefill and their int8 twins at granite-moe-3b-a800m's serving shape
+    (GRANITE_DECODE, timed); the flash kernel on FLASH_CASES (timed on
+    FLASH_TIMED); chunk_state and chunk_scan on SSD_CASES and at hymba's
     training shape (HYMBA_SSD_CASE, timed).  Returns the timed results of
     qwen2-1.5B's shapes and SSD_CASES[0] by kernel name (the quantized
-    kernels' int8 run; int4's timing and hymba's shapes are logged)."""
+    kernels' int8 run; int4's timing and the other models' shapes are
+    logged)."""
     from repro_torch.kernels import chunk_scan as CSC
     from repro_torch.kernels import chunk_state as CST
     from repro_torch.kernels import flash_attention as FA
@@ -2497,9 +2605,15 @@ def kernel_phase(torch, np, ref, flush, device):
               HYMBA_SERVE_DECODE),
              ("paged_attention", check_decode, PA, (None,), (HYMBA_WINDOW, None),
               HYMBA_DECODE),
+             ("paged_attention", check_decode, PA, (None,), (None,), GRANITE_DECODE),
              ("prefill_attention", check_prefill, PF, (None,), (None, 96), None),
+             ("prefill_attention", check_prefill, PF, (None,), (None,), GRANITE_DECODE),
              ("paged_attention_quant", check_decode, PAQ, quant, (None, 256), None),
              ("prefill_attention_quant", check_prefill, PFQ, quant, (None, 96), None),
+             ("paged_attention_quant", check_decode, PAQ, ("int8",), (None,),
+              GRANITE_DECODE),
+             ("prefill_attention_quant", check_prefill, PFQ, ("int8",), (None,),
+              GRANITE_DECODE),
              ("mla_paged", check_mla_decode, MP, (None,), (None, 256), None),
              ("mla_prefill", check_mla_prefill, MF, (None,), (None, 96), None),
              ("mla_paged_quant", check_mla_decode, MPQ, quant, (None, 256), None),
@@ -2531,7 +2645,7 @@ def kernel_phase(torch, np, ref, flush, device):
                         table[name] = r
     for case in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            timed = dtype == torch.bfloat16 and case[0] == "train"
+            timed = dtype == torch.bfloat16 and case[0] in FLASH_TIMED
             r = check_flash(torch, np, ref, FA, dtype, case, flush, timed, device)
             if "ulps" in r:
                 limit = (f"{r['ulps']:.2f} bf16 ulps of the plain value (limit "
@@ -2543,7 +2657,8 @@ def kernel_phase(torch, np, ref, flush, device):
                           f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                           f"({r['bound_by']}); forward + backward: FlashAttentionFn "
                           f"{r['fwd_bwd_ms']:.4f} ms, sdpa {r['sdpa_fwd_bwd_ms']:.4f} ms")
-                table["flash_attention"] = r
+                if case[0] == "train":
+                    table["flash_attention"] = r
             _, b, hq, hkv, sq, sk, d, causal = case
             log(f"[kernel] flash_attention {case[0]} {str(dtype)[6:]} (B {b}, Hq {hq}, "
                 f"Hkv {hkv}, Sq {sq}, Sk {sk}, D {d}, causal={causal})"
@@ -2765,6 +2880,12 @@ def main(argv=None) -> int:
     main_launches.update(ssm_phase(torch, np, lm, device))
     torch.cuda.empty_cache()
     hybrid_phase(torch, np, lm, device)
+    torch.cuda.empty_cache()
+    granite_phase(torch, np, lm, device)
+    torch.cuda.empty_cache()
+    whisper_phase(torch, np, device)
+    torch.cuda.empty_cache()
+    vlm_phase(torch, np, lm, device)
     main_launches.update(lib_launches)
 
     # ---- result lines --------------------------------------------------
@@ -2878,8 +2999,7 @@ def training_phase(torch, np, lm, cfg, device) -> int:
     import tempfile
 
     t_phase = time.perf_counter()
-    launches = train_full_width(torch, np, cfg, device, ("flash_attention",),
-                                tc_kernels=("flash_attention",))
+    launches = train_full_width(torch, np, cfg, device, TRAIN_FLASH, tc_kernels=TRAIN_FLASH)
     log(f"[time] phase 5 ({cfg.name} training): {time.perf_counter() - t_phase:.1f} s")
     depth2_phase(torch, np, lm, cfg, device, TRAIN_FAULTS)
 
@@ -3046,23 +3166,26 @@ def ssm_serving_phase(torch, np, lm, cfg, params, kernels, device):
     return runs
 
 
-def train_full_width(torch, np, cfg, device, kernels, tc_kernels=()):
-    """TRAIN_STEPS steps of full-width ``cfg`` at TRAIN_BATCH x TRAIN_SEQ,
-    two more profiled; logs them and checks every loss and grad norm
-    finite, the loss falling, every launch of ``tc_kernels`` on its
-    tensor-core path, and each of ``kernels`` (and no other kernel)
-    launched twice a layer a step on a card: each layer's forward and its
-    recompute.  Returns the launches by kernel."""
+def train_full_width(torch, np, cfg, device, kernels, tc_kernels=(), per_step=None,
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, extra=None, shape_text=""):
+    """TRAIN_STEPS steps of full-width ``cfg`` at ``batch`` x ``seq`` (with
+    ``extra`` inputs, described by ``shape_text``), two more profiled; logs
+    them and checks every loss and grad norm finite, the loss falling,
+    every launch of ``tc_kernels`` on its tensor-core path, and each of
+    ``kernels`` (and no other kernel) launched ``per_step`` times a step on
+    a card (default twice a layer: each layer's forward and its recompute).
+    Returns the launches by kernel."""
     import statistics
 
-    tr = train_steps(torch, cfg, device, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
-                     profile_steps=2)
+    tr = train_steps(torch, cfg, device, TRAIN_STEPS, batch, seq, profile_steps=2,
+                     extra=extra)
+    del tr["state"]
     med = statistics.median(tr["seconds"][1:])
-    per_step = 2 * cfg.num_layers
-    log(f"[train] {cfg.name} full width, {cfg.dtype}, batch {TRAIN_BATCH} x seq "
-        f"{TRAIN_SEQ}, AdamW (peak lr 3e-4, warmup 1, {TRAIN_STEPS} steps): step "
+    per_step = per_step or 2 * cfg.num_layers
+    log(f"[train] {cfg.name} full width, {cfg.dtype}, batch {batch} x seq "
+        f"{seq}{shape_text}, AdamW (peak lr 3e-4, warmup 1, {TRAIN_STEPS} steps): step "
         f"time {med * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
-        f"{tr['seconds'][0] * 1e3:.1f} ms), {TRAIN_BATCH * TRAIN_SEQ / med:.0f} "
+        f"{tr['seconds'][0] * 1e3:.1f} ms), {batch * seq / med:.0f} "
         f"tokens/s, peak {tr['peak_gib']:.2f} GiB allocated; losses "
         + " ".join(f"{x:.4f}" for x in tr["losses"]) + "; grad norms "
         + " ".join(f"{x:.3f}" for x in tr["gnorms"])
@@ -3296,12 +3419,14 @@ def hybrid_phase(torch, np, lm, device):
     cfg = get_config(HYBRID_ARCH)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    params = lm.init(cfg, 0, device=device)
-    log(f"[serve] {cfg.name}: {lm.param_count(params) / 1e9:.3f} B params "
-        f"({cfg.dtype}, a_log/d_skip/dt_bias fp32) initialised on the card; windows "
-        f"{sum(w is not None for w in lm.static_windows(cfg))} of {cfg.num_layers} "
-        "layers")
-    runs = hybrid_serving_phase(torch, np, lm, cfg, params, KERNELS, device)
+    served = dataclasses.replace(cfg, num_layers=HYBRID_SERVE_LAYERS)
+    params = lm.init(served, 0, device=device)
+    log(f"[serve] {cfg.name}, {served.num_layers} of its {cfg.num_layers} layers: "
+        f"{lm.param_count(params) / 1e9:.3f} B params ({cfg.dtype}, "
+        "a_log/d_skip/dt_bias fp32) initialised on the card; windows "
+        f"{sum(w is not None for w in lm.static_windows(served))} of "
+        f"{served.num_layers} layers")
+    runs = hybrid_serving_phase(torch, np, lm, served, params, KERNELS, device)
     launches = {k: runs["paged, per tick"][3][k] for k in HYBRID_SERVE_KERNELS}
     del params, runs
     torch.cuda.empty_cache()
@@ -3338,6 +3463,273 @@ def hybrid_phase(torch, np, lm, device):
     log(f"[time] phase 7 ({cfg.name} depth-2 check): {time.perf_counter() - t0:.1f} s")
     log(f"[launches] {cfg.name}'s paths: {json.dumps(launches)}")
     return launches
+
+
+
+# ---------------------------------------------------------------------------
+# phase 8: GQA + MoE (granite-moe-3b-a800m)
+# ---------------------------------------------------------------------------
+
+GRANITE_ARCH = "granite_moe_3b_a800m"
+
+
+def granite_serving_phase(torch, np, lm, cfg, params, kernels, device):
+    """Phase 8 serving: the phase 3 workload through the paged cache with
+    chunked prefill and the prefix cache, fp and int8 pages.  Every decode
+    and prefill launch on its tensor-core path; ticks and mean TTFT equal
+    across the two (scheduling depends only on the prompt lengths)."""
+    runs = {}
+    run = make_runner(torch, np, cfg, params, kernels, device, runs)
+    fp, fp_reqs = run("fp, default pool", FP_KERNELS, TC_KERNELS)
+    q8, q8_reqs = run("int8, default pool", QUANT_KERNELS, QUANT_TC_KERNELS,
+                      kv_dtype="int8")
+    assert fp.pages_shared > 0 and fp.prefill_mode == "chunked"
+    assert q8.steps_run == fp.steps_run and mean_ttft(q8_reqs) == mean_ttft(fp_reqs)
+    match = sum(x == y for a, b in zip(q8_reqs, fp_reqs) for x, y in zip(a.output, b.output))
+    log(f"[serve] {cfg.name} int8 vs fp: {q8.cache.kv_bytes() / fp.cache.kv_bytes():.3f}x "
+        f"the KV bytes; tokens equal to fp's {match}/{sum(len(r.output) for r in fp_reqs)}")
+    return runs
+
+
+def granite_phase(torch, np, lm, device):
+    """Phase 8, full-width granite-moe-3b-a800m (32 layers, d 1536, 24
+    query heads over 8 KV heads of 64, 40 experts of width 512, top 8,
+    tied embeddings; bf16 with an fp32 router): serving at
+    GRANITE_SERVE_LAYERS layers (fp and int8 pages); teacher-forced
+    logits at depth 4 against the CPU's fp32 on the card's routing (and, printed,
+    on its own); training through the flash kernel (TRAIN_STEPS steps and
+    two profiled).  Returns each path's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KERNELS
+
+    cfg = get_config(GRANITE_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    served = dataclasses.replace(cfg, num_layers=GRANITE_SERVE_LAYERS)
+    params = lm.init(served, 0, device=device)
+    log(f"[serve] {cfg.name}, {served.num_layers} of its {cfg.num_layers} layers: "
+        f"{lm.param_count(params) / 1e9:.3f} B params ({cfg.dtype}, router fp32) "
+        "initialised on the card")
+    runs = granite_serving_phase(torch, np, lm, served, params, KERNELS, device)
+    launches = {**{k: runs["fp, default pool"][3][k] for k in FP_KERNELS},
+                **{k: runs["int8, default pool"][3][k] for k in QUANT_KERNELS}}
+    del params, runs
+    torch.cuda.empty_cache()
+    log(f"[time] phase 8 ({cfg.name} serving): {time.perf_counter() - t0:.1f} s")
+
+    t_phase = time.perf_counter()
+    for kv_dtype in (None, "int8"):
+        t0 = time.perf_counter()
+        cfg4 = dataclasses.replace(cfg, num_layers=4, kv_dtype=kv_dtype)
+        label = f"{cfg.name}, 4 layers at full width, {kv_dtype or 'fp'} KV"
+        own, shared = teacher_forced(torch, np, lm, cfg4, device, shared_routing=True)
+        log_teacher_forced(label, own, False, time.perf_counter() - t0)
+        log_teacher_forced(label + ", the CPU on the card's routing", shared, True,
+                           time.perf_counter() - t0)
+        assert shared["route_share"] == 1.0 and shared["agree_steps"] == shared["steps"]
+        assert teacher_forced_ok(shared), (kv_dtype, shared)
+    log(f"[time] phase 8 ({cfg.name} teacher-forced): {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    launches.update(train_full_width(torch, np, cfg, device, TRAIN_FLASH,
+                                     tc_kernels=TRAIN_FLASH))
+    torch.cuda.empty_cache()
+    log(f"[time] phase 8 ({cfg.name} training): {time.perf_counter() - t0:.1f} s")
+    log(f"[launches] {cfg.name}'s paths: {json.dumps(launches)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the encoder-decoder (whisper-tiny)
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper_tiny"
+WHISPER_DECODE_STEPS = 64
+
+
+def seeded_embeddings(torch, cfg, batch, rows, dev, seed=11):
+    """Seeded N(0, 1) embeddings (batch, rows, d_model) in the model's
+    dtype: what a stub frontend hands the model (whisper's frames,
+    internvl2's patch rows)."""
+    from repro_torch.models.layers import dtype_of
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((batch, rows, cfg.d_model), generator=g,
+                       device=dev).to(dtype_of(cfg))
+
+
+def whisper_checks(torch, np, encdec, cfg, dev, frames=WHISPER_FRAMES,
+                   tokens=WHISPER_TOKENS, steps=WHISPER_DECODE_STEPS):
+    """Full width (seeded weights, one sequence of ``frames`` seeded frames):
+    the card's bf16 teacher-forced ``decode_full`` over ``tokens`` seeded
+    tokens (the encoder and decoder self-attention through the flash
+    kernel) against the CPU's fp32 on the same weights upcast; and a greedy
+    decode of ``steps`` tokens through ``decode_step`` on the card (the KV
+    cache, plain attention) against the card's ``decode_full`` of the
+    tokens it fed.  Returns the two ``logit_agreement`` readings and the
+    flash kernel's launches and tensor-core launches in the card's
+    teacher-forced run."""
+    from repro_torch.kernels.flash_attention import KERNEL
+
+    params = encdec.init(cfg, 7, device=dev)
+    x = seeded_embeddings(torch, cfg, 1, frames, dev)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(1, tokens)), dtype=torch.int32, device=dev)
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        KERNEL.launches = KERNEL.tc_launches = 0
+        enc = encdec.encode(params, cfg, x)
+        card = encdec.decode_full(params, cfg, toks, enc)[0].float().cpu()
+        launches = (KERNEL.launches, KERNEL.tc_launches)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = _tree_to(torch, params, cpu, torch.float32)
+        want = encdec.decode_full(p32, cfg32, toks.cpu(),
+                                  encdec.encode(p32, cfg32, x.float().cpu()))[0]
+        cross = encdec.cross_kv(params, cfg, enc)
+        cache = encdec.init_cache(cfg, 1, steps, device=dev)
+        fed, rows = [int(toks[0, 0])], []
+        for t in range(steps):
+            tok = torch.tensor(fed[-1:], dtype=torch.int32, device=dev)
+            logits, cache = encdec.decode_step(params, cfg, cache, tok,
+                                               torch.tensor(t, device=dev), cross)
+            rows.append(logits[0].float().cpu())
+            fed.append(int(logits[0].argmax()))
+        full = encdec.decode_full(params, cfg, torch.tensor([fed[:steps]], device=dev),
+                                  enc)[0].float().cpu()
+    return (logit_agreement(torch, card, want), logit_agreement(torch, rows, full),
+            launches)
+
+
+def whisper_phase(torch, np, device):
+    """Phase 9, full-width whisper-tiny (4 encoder and 4 decoder layers, d
+    384, 6 heads of 64, d_ff 1536 GELU, vocab 51865; bf16, seeded): 8
+    training steps at batch 8 on 1500 seeded frames and 448 tokens (the
+    encoder's 4 non-causal and the decoder's 4 causal flash launches a
+    step forward, the decoder's again in its recompute), two profiled; the
+    teacher-forced and greedy decode checks.  Returns the flash kernel's
+    launches over the steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    per_step = cfg.encoder_layers + 2 * cfg.num_layers
+    launches = train_full_width(
+        torch, np, cfg, device, TRAIN_FLASH, tc_kernels=TRAIN_FLASH,
+        per_step=per_step, seq=WHISPER_TOKENS,
+        extra={"frames": seeded_embeddings(torch, cfg, TRAIN_BATCH, WHISPER_FRAMES,
+                                           device)},
+        shape_text=f" (decoder tokens) over {WHISPER_FRAMES} seeded frames")
+    torch.cuda.empty_cache()
+    log(f"[time] phase 9 ({cfg.name} training): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tf, dec, (fl, fl_tc) = whisper_checks(torch, np, encdec, cfg, device)
+    log_agreement(f"{cfg.name} at full width, card bf16 decode_full over "
+                  f"{WHISPER_TOKENS} tokens ({WHISPER_FRAMES} frames; flash launches "
+                  f"{fl}, on tensor cores {fl_tc}) vs CPU fp32", tf)
+    log_agreement(f"{cfg.name}, card bf16 greedy decode_step (KV cache) over "
+                  f"{WHISPER_DECODE_STEPS} tokens vs card decode_full of the tokens fed",
+                  dec)
+    assert agreement_ok(tf) and agreement_ok(dec), (tf, dec)
+    assert fl == fl_tc == cfg.encoder_layers + cfg.num_layers, (fl, fl_tc)
+    log(f"[time] phase 9 ({cfg.name} decode checks): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the frontend family (internvl2-26b), depth cut
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "internvl2_26b"
+VLM_LAYERS = 2  # of its 48: ~1.9 B parameters at full width
+VLM_TRAIN_STEPS = 2
+VLM_CHECK_TEXT = 128
+
+
+def vlm_forward_check(torch, np, lm, cfg, dev, prefix=VLM_PREFIX, text=VLM_CHECK_TEXT):
+    """A teacher-forced forward of one sequence: ``prefix`` seeded patch
+    embeddings before ``text`` seeded tokens, on the card (bf16, the flash
+    kernel) against the CPU's fp32 on the same weights upcast, over the
+    text rows.  Returns the ``logit_agreement`` reading and the flash
+    kernel's launches and tensor-core launches in the card's run."""
+    from repro_torch.kernels.flash_attention import KERNEL
+
+    params = lm.init(cfg, 7, device=dev)
+    pre = seeded_embeddings(torch, cfg, 1, prefix, dev, seed=13)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(1, text)), dtype=torch.int32, device=dev)
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        KERNEL.launches = KERNEL.tc_launches = 0
+        card, _ = lm.forward(params, cfg, toks, prefix_embeds=pre)
+        launches = (KERNEL.launches, KERNEL.tc_launches)
+        card = card[0, prefix:].float().cpu()
+        p32 = _tree_to(torch, params, cpu, torch.float32)
+        del params
+        want, _ = lm.forward(p32, dataclasses.replace(cfg, dtype="float32"), toks.cpu(),
+                             prefix_embeds=pre.float().cpu())
+    return logit_agreement(torch, card, want[0, prefix:]), launches
+
+
+def vlm_train_check(torch, np, lm, cfg, dev, steps=VLM_TRAIN_STEPS, batch=VLM_BATCH,
+                    prefix=VLM_PREFIX, text=VLM_TEXT):
+    """``steps`` training steps on seeded patch prefixes; then, on the
+    trained weights and the next, unseen batch, the loss's cross-entropy
+    against one computed from the forward's text rows alone: the loss
+    leaves the prefix rows out.  Returns the ``train_steps`` result and the
+    two cross-entropies."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+
+    pre = seeded_embeddings(torch, cfg, batch, prefix, dev, seed=17)
+    tr = train_steps(torch, cfg, dev, steps, batch, text, extra={"prefix_embeds": pre})
+    params = tr.pop("state")["params"]
+    b = SyntheticTokens(DataConfig(batch=batch, seq=text, vocab_size=cfg.vocab_size,
+                                   seed=0)).batch_at(steps)
+    toks, labels = (torch.as_tensor(b[k], device=dev) for k in ("tokens", "labels"))
+    with torch.no_grad():
+        _, parts = lm.loss_fn(params, cfg, toks, labels, prefix_embeds=pre)
+        logits, _ = lm.forward(params, cfg, toks, prefix_embeds=pre)
+        logp = torch.log_softmax(logits[:, prefix:], dim=-1)
+        keep = labels >= 0
+        nll = -logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+        text_ce = ((nll * keep).sum() / keep.sum()).item()
+    return tr, parts["ce"].item(), text_ce
+
+
+def vlm_phase(torch, np, lm, device):
+    """Phase 10, internvl2-26b at full width (d 6144, 48 query heads over 8
+    KV heads of 128, d_ff 16384, vocab 92553, untied) cut to VLM_LAYERS of
+    its 48 layers: the prefix forward against the CPU's fp32, and
+    VLM_TRAIN_STEPS training steps at batch VLM_BATCH of VLM_PREFIX patch
+    rows and VLM_TEXT tokens through the flash kernel."""
+    from repro_torch.configs import get_config
+
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    r, (fl, fl_tc) = vlm_forward_check(torch, np, lm, cfg, device)
+    log_agreement(f"{cfg.name}, {VLM_LAYERS} of its {full.num_layers} layers at full width, "
+                  f"card bf16 forward over {VLM_PREFIX} patch rows and {VLM_CHECK_TEXT} "
+                  f"tokens (flash launches {fl}, on tensor cores {fl_tc}) vs CPU fp32, the "
+                  "text rows", r)
+    assert agreement_ok(r) and fl == fl_tc == VLM_LAYERS, (r, fl, fl_tc)
+    torch.cuda.empty_cache()
+    log(f"[time] phase 10 ({cfg.name} forward check): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tr, ce, text_ce = vlm_train_check(torch, np, lm, cfg, device)
+    log(f"[train] {cfg.name}, {VLM_LAYERS} of its {full.num_layers} layers at full width, "
+        f"{cfg.dtype}, batch {VLM_BATCH} x ({VLM_PREFIX} patch rows + {VLM_TEXT} tokens): "
+        f"step times " + " ".join(f"{x * 1e3:.1f}" for x in tr["seconds"]) + " ms, peak "
+        f"{tr['peak_gib']:.2f} GiB allocated; losses "
+        + " ".join(f"{x:.4f}" for x in tr["losses"]) + f"; launches {tr['launches']}, "
+        f"on tensor cores {tr['tc_launches']}; trained loss's ce {ce:.4f}, ce of the "
+        f"forward's text rows {text_ce:.4f}")
+    assert all(np.isfinite(tr["losses"])) and all(np.isfinite(tr["gnorms"])), tr
+    assert abs(ce - text_ce) <= 1e-3 * abs(text_ce), (ce, text_ce)
+    want = 2 * VLM_LAYERS * VLM_TRAIN_STEPS
+    assert tr["launches"] == tr["tc_launches"] == {"flash_attention": want}, tr
+    torch.cuda.empty_cache()
+    log(f"[time] phase 10 ({cfg.name} training): {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

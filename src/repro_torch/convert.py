@@ -2,11 +2,12 @@
 and the port's trees back to numpy.
 
     params = params_from_numpy(jax.tree.map(np.asarray, repro_lm.init(cfg, key)),
-                               cfg, device="cpu")
+                               cfg, device="cpu")  # or repro_encdec.init
     arrays = tree_to_numpy({"params": params, "opt": opt_state})
 
 The tree keeps its layout (``embed``, the ``prefix_layers`` list, stacked
-``layers`` leaves of shape (L - prefix, ...), ``final_norm``); each leaf
+``layers`` leaves of shape (L - prefix, ...), ``final_norm``; an
+encoder-decoder's ``enc_layers`` and ``dec_layers`` stacked); each leaf
 becomes a tensor on ``device`` of the dtype ``layers.leaf_dtype`` gives it,
 the rule the port's own ``init`` follows: the config's dtype, except the
 leaves the reference keeps in fp32 whatever the model's dtype
@@ -35,14 +36,10 @@ def _tensor(a, dtype, device):
 
 
 def params_from_numpy(tree, cfg, device="cuda"):
-    """Convert a numpy parameter tree of ``repro.models.lm.init`` into the
+    """Convert a numpy parameter tree of ``repro.models.lm.init`` (or, for an
+    encoder-decoder ``cfg``, of ``repro.models.encdec.init``) into the
     port's parameters for ``cfg`` on ``device``."""
-    lm.require_supported(cfg)
     dev = resolve_device(device)
-    n_prefix = lm.num_prefix_layers(cfg)
-    if len(tree.get("prefix_layers") or []) != n_prefix:
-        raise ValueError(f"tree has {len(tree.get('prefix_layers') or [])} "
-                         f"prefix layers, config {n_prefix}")
 
     def conv(node, key=None):
         if isinstance(node, dict):
@@ -51,6 +48,19 @@ def params_from_numpy(tree, cfg, device="cuda"):
             return [conv(v) for v in node]
         return _tensor(node, leaf_dtype(key, cfg), dev)
 
+    if cfg.is_encoder_decoder:
+        params = conv(tree)
+        got = (params["enc_layers"]["norm1"].shape[0],
+               params["dec_layers"]["norm1"].shape[0])
+        if got != (cfg.encoder_layers, cfg.num_layers):
+            raise ValueError(f"tree has {got} encoder and decoder layers, config "
+                             f"{(cfg.encoder_layers, cfg.num_layers)}")
+        return params
+    lm.require_supported(cfg)
+    n_prefix = lm.num_prefix_layers(cfg)
+    if len(tree.get("prefix_layers") or []) != n_prefix:
+        raise ValueError(f"tree has {len(tree.get('prefix_layers') or [])} "
+                         f"prefix layers, config {n_prefix}")
     params = conv(tree)
     n = params["layers"]["norm1"].shape[0]
     if n_prefix + n != cfg.num_layers:

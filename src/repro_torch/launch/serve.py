@@ -17,6 +17,11 @@ paged cache, its prompts replayed a token a tick:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b \
         --reduced --device cpu
 
+GQA + MoE (``granite_moe_3b_a800m``) serves as the dense family does, and
+the frontend model (``internvl2_26b``) text only, with no prefix, as the
+reference serves it.  An encoder-decoder model (``whisper_tiny``) is
+refused with the reference's ``SystemExit``.
+
 Options of the reference that are not ported yet (``--spec-decode``,
 ``--audit``, ``--cache contiguous`` for an attention model,
 ``--temperature`` > 0) raise ``NotImplementedError`` naming their ROADMAP
@@ -91,6 +96,8 @@ def make_engine(args, device, params=None, **serve_kw):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:  # as the reference (repro/launch/serve.py:80-81)
+        raise SystemExit("enc-dec serving demo lives in examples/; use an LM arch")
     scfg = ServeConfig(slots=args.slots, max_len=args.max_len,
                        max_new_tokens=args.max_new,
                        temperature=args.temperature, seed=args.seed,

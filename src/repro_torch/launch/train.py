@@ -9,14 +9,19 @@ checkpoint/restart and injected failures, on the card by default.
         --reduced --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba_1_5b \
         --reduced --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper_tiny \
+        --reduced --device cpu --steps 20
 
 The flags are ``repro.launch.train``'s, plus ``--device``; the per-step
 line and the ``done:`` line are the reference's, followed by the kernel
-launch counts of the run.  One device only: ``--mesh`` other than ``debug``
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 17), as do the
-models whose full-sequence forward is not ported (``lm.require_full_forward``:
-MLA, encoder-decoder and frontend models).  The
-default ``--ckpt-dir`` lies under the temporary directory (``TMPDIR``).
+launch counts of the run.  An encoder-decoder model trains through
+``encdec.loss_fn`` on zero ``frames`` (B, frontend_seq, d_model), a model
+with a frontend through ``lm.loss_fn`` on zero ``prefix_embeds`` of that
+shape, as the reference feeds them (repro/launch/train.py:111-120).  One
+device only: ``--mesh`` other than ``debug`` raises
+``NotImplementedError`` (ROADMAP Queue 1 item 17), as do the models whose
+full-sequence forward is not ported (``lm.require_full_forward``: MLA).
+The default ``--ckpt-dir`` lies under the temporary directory (``TMPDIR``).
 """
 from __future__ import annotations
 
@@ -33,8 +38,9 @@ from ..core.device import resolve_device
 from ..data import DataConfig, SyntheticTokens, make_loader
 from ..distributed.fault import FaultConfig, run_with_recovery
 from ..kernels.ops import KERNELS
-from ..models import lm
+from ..models import encdec, lm
 from ..models.config import ModelConfig
+from ..models.layers import DTYPES
 from ..optim import AdamWConfig, adamw_update, init_opt_state
 from ..optim.adamw import leaves
 
@@ -47,9 +53,12 @@ def make_train_step(cfg: ModelConfig, adamw: AdamWConfig,
     parameter, and one AdamW update, which writes ``state`` in place.
 
     ``state`` is ``{"params", "opt"}``; ``batch`` holds ``tokens`` and
-    ``labels`` (B, S) (numpy or tensors) and optionally ``prefix_embeds``.
-    ``metrics`` are device scalars ``loss``, ``ce``, ``aux``, ``lr`` and
-    ``grad_norm``: nothing in a step waits for the host."""
+    ``labels`` (B, S) (numpy or tensors), and ``frames`` (B, T, d) for an
+    encoder-decoder ``cfg`` (``encdec.loss_fn``) or optionally
+    ``prefix_embeds`` (B, P, d) otherwise (``lm.loss_fn``).  ``metrics`` are
+    device scalars ``loss``, the loss's parts (``ce``, and ``aux`` where the
+    model has one: the encoder-decoder has none), ``lr`` and ``grad_norm``:
+    nothing in a step waits for the host."""
 
     def train_step(state, batch):
         params = state["params"]
@@ -59,26 +68,47 @@ def make_train_step(cfg: ModelConfig, adamw: AdamWConfig,
             p.requires_grad_(True)
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)
-        prefix = batch.get("prefix_embeds")
-        if prefix is not None:
-            prefix = torch.as_tensor(prefix, device=dev)
-        loss, parts = lm.loss_fn(params, cfg, tokens, labels,
-                                 prefix_embeds=prefix, remat=True,
-                                 logits_chunk=logits_chunk)
+        if cfg.is_encoder_decoder:
+            frames = torch.as_tensor(batch["frames"], device=dev)
+            loss, parts = encdec.loss_fn(params, cfg, frames, tokens, labels,
+                                         remat=True, logits_chunk=logits_chunk)
+        else:
+            prefix = batch.get("prefix_embeds")
+            if prefix is not None:
+                prefix = torch.as_tensor(prefix, device=dev)
+            loss, parts = lm.loss_fn(params, cfg, tokens, labels,
+                                     prefix_embeds=prefix, remat=True,
+                                     logits_chunk=logits_chunk)
         grads = torch.autograd.grad(loss, flat)  # in the parameters' dtypes
         for p in flat:  # plain tensors again outside the step
             p.requires_grad_(False)
         params, opt, om = adamw_update(params, list(grads), state["opt"], adamw)
-        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
-                   "aux": parts["aux"].detach(), **om}
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in parts.items()}, **om}
         return {"params": params, "opt": opt}, metrics
 
     return train_step
 
 
 def build_state(cfg: ModelConfig, seed: int, device) -> dict:
-    params = lm.init(cfg, seed, device=device)
+    mod = encdec if cfg.is_encoder_decoder else lm
+    params = mod.init(cfg, seed, device=device)
     return {"params": params, "opt": init_opt_state(params)}
+
+
+def frontend_inputs(cfg: ModelConfig, batch: int, device) -> dict:
+    """What the stub frontend hands a step (repro/launch/train.py:111-120):
+    zero ``frames`` for an encoder-decoder, zero ``prefix_embeds`` for a
+    model with a frontend, each (batch, frontend_seq, d_model) in the
+    model's dtype; nothing otherwise."""
+    if cfg.is_encoder_decoder:
+        name = "frames"
+    elif cfg.frontend != "none":
+        name = "prefix_embeds"
+    else:
+        return {}
+    return {name: torch.zeros((batch, cfg.frontend_seq, cfg.d_model),
+                              dtype=DTYPES[cfg.dtype], device=device)}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -113,7 +143,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    lm.require_full_forward(cfg)
+    if not cfg.is_encoder_decoder:
+        lm.require_full_forward(cfg)
     device = resolve_device(args.device)
 
     adamw = AdamWConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 10, 1),
@@ -131,9 +162,11 @@ def main(argv=None):
     fault = FaultConfig(failure_prob=args.failure_prob, seed=args.seed)
     losses = []
 
+    stub = frontend_inputs(cfg, args.batch, device)
+
     def logged_step(state, batch):
         t0 = time.time()
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, {**batch, **stub})
         losses.append(float(metrics["loss"]))
         n = len(losses)
         if n % args.log_every == 0:

@@ -1,28 +1,31 @@
-"""Decoder-only language model, dense GQA, MLA + MoE, Mamba-2 SSM and
-hybrid (GQA attention beside Mamba-2) families: the port's counterpart of
+"""Decoder-only language model: dense GQA, MLA + MoE, GQA + MoE, Mamba-2
+SSM, hybrid (GQA attention beside Mamba-2) and frontend (GQA decoder behind
+a stubbed patch-embedding prefix) families; the port's counterpart of
 ``repro.models.lm`` for the serving path, and for the full-sequence forward
-and loss of training (dense GQA, SSM and hybrid).
+and loss of training.
 
 Parameters are a plain dict with the reference's tree layout
 (``lm.init``, lm.py:61): ``embed``, ``prefix_layers`` (a list of unstacked
-blocks: DeepSeek-V2's first, dense-FFN layer; empty for the dense family),
-``layers`` with every leaf stacked over the remaining layers in front, and
+blocks: DeepSeek-V2's first, dense-FFN layer; empty otherwise), ``layers``
+with every leaf stacked over the remaining layers in front, and
 ``final_norm``.  A Python loop over layers takes the place of
 ``jax.lax.scan``.  The paged pools live in :class:`Cache` and are updated
 **in place** by :func:`decode_step`, :func:`prefill_step` and
 :func:`copy_pages`, and so is the recurrent state (the reference donated
 them and returned new ones).
 
-Four families run: ``family == "dense"`` with GQA attention
-(``qwen2_1_5b``), ``family == "moe"`` with MLA attention
-(``deepseek_v2_lite_16b``), the attention-free ``family == "ssm"``
-(``mamba2_2_7b``, over a contiguous recurrent-state cache) and ``family ==
-"hybrid"`` (``hymba_1_5b``: each block mixes GQA attention and Mamba-2 half
-and half, over paged pools plus the recurrent state); the others raise
-``NotImplementedError`` naming their ROADMAP Queue 1 item.  The
-full-sequence forward (:func:`forward`, :func:`loss_fn`) runs the dense,
-SSM and hybrid families; MLA raises there (its ``mla_full`` is not ported
-yet).
+Every decoder-only family of the configs runs: ``family == "dense"`` with
+GQA attention (``qwen2_1_5b``), ``family == "moe"`` with MLA attention
+(``deepseek_v2_lite_16b``) or with GQA attention (``granite_moe_3b_a800m``),
+the attention-free ``family == "ssm"`` (``mamba2_2_7b``, over a contiguous
+recurrent-state cache), ``family == "hybrid"`` (``hymba_1_5b``: each block
+mixes GQA attention and Mamba-2 half and half, over paged pools plus the
+recurrent state) and ``family == "vlm"`` (``internvl2_26b``: a GQA decoder
+whose training forward takes the stub frontend's ``prefix_embeds``; it
+serves text only, as the reference).  The encoder-decoder (``whisper_tiny``)
+is ``models.encdec``'s.  The full-sequence forward (:func:`forward`,
+:func:`loss_fn`, the MoE's auxiliary loss included) runs every family but
+MLA (its ``mla_full`` is not ported yet).
 """
 from __future__ import annotations
 
@@ -35,29 +38,30 @@ from ..core.device import resolve_device
 from . import layers as L
 from .config import ModelConfig
 
-# Families not ported yet -> the ROADMAP Queue 1 item that ports them.
-_NOT_PORTED = {
-    "moe": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
-    "vlm": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
-    "audio": "item 16 (MoE with GQA attention, encoder-decoder and frontends)",
-}
-_PORTED = {("dense", "gqa"), ("moe", "mla"), ("ssm", "none"), ("hybrid", "gqa")}
+_PORTED = {("dense", "gqa"), ("moe", "mla"), ("moe", "gqa"), ("ssm", "none"),
+           ("hybrid", "gqa"), ("vlm", "gqa")}
 BIG_WINDOW = 1 << 30  # "no window" sentinel of layer_windows
 
 
 def require_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder,
-    an MLA + MoE decoder, an attention-free Mamba-2 (SSM) model or a GQA +
-    Mamba-2 hybrid."""
-    if (cfg.family, cfg.attention) in _PORTED and not cfg.is_encoder_decoder:
+    """Raise unless ``cfg`` is a decoder-only model of a ported family and
+    attention pair: ``ValueError`` for an encoder-decoder (its functions are
+    ``models.encdec``'s), ``NotImplementedError`` for any other pair (MLA
+    without MoE naming its ROADMAP Queue 1 item)."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: its parameters, loss and "
+            "decode are repro_torch.models.encdec's, not lm's")
+    if (cfg.family, cfg.attention) in _PORTED:
         return
     if cfg.attention == "mla":
-        item = "item 13 (MLA serving, ported with MoE only)"
-    else:
-        item = _NOT_PORTED.get(cfg.family, "item 16")
+        raise NotImplementedError(
+            f"{cfg.name} (family={cfg.family}, attention=mla) is not ported to "
+            "PyTorch yet: ROADMAP Queue 1 item 13 (MLA serving, ported with MoE "
+            "only)")
     raise NotImplementedError(
-        f"{cfg.name} (family={cfg.family}, attention={cfg.attention}) is not "
-        f"ported to PyTorch yet: ROADMAP Queue 1 {item}")
+        f"{cfg.name}: family={cfg.family} with attention={cfg.attention} is no "
+        "family of the reference's configs")
 
 
 # ---------------------------------------------------------------------------
@@ -98,17 +102,29 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
-def _init_stacked(gen, cfg: ModelConfig, n: int) -> Dict:
-    """``n`` blocks with every leaf stacked over them in front.  Each block
-    is drawn and copied into preallocated stacked leaves, so at full width
-    the peak holds one copy of the weights plus one block, not two copies."""
-    stacked = None
+def stacked(make, n: int) -> Dict:
+    """``n`` blocks from ``make()`` with every leaf stacked over them in
+    front.  Each block is drawn and copied into preallocated stacked
+    leaves, so at full width the peak holds one copy of the weights plus
+    one block, not two copies."""
+    out = None
     for i in range(n):
-        block = _init_block(gen, cfg, dense_ffn=False)
-        if stacked is None:
-            stacked = _tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), block)
-        _tree_map(lambda dst, src: dst[i].copy_(src), stacked, block)
-    return stacked
+        block = make()
+        if out is None:
+            out = _tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), block)
+        _tree_map(lambda dst, src: dst[i].copy_(src), out, block)
+    return out
+
+
+def unstacked(tree) -> List[Dict]:
+    """Each block's parameters, as views from one ``unbind`` of each
+    stacked leaf.  For a differentiated forward autograd then joins the
+    blocks' gradients into each stacked leaf with one stack (indexing a
+    block out, as :func:`layer_params` does, would build a zero-filled
+    gradient of the whole stacked leaf for every block)."""
+    parts = _tree_map(lambda t: t.unbind(0), tree)
+    return [_tree_map(lambda views: views[i], parts)
+            for i in range(tree["norm1"].shape[0])]
 
 
 def num_prefix_layers(cfg: ModelConfig) -> int:
@@ -135,7 +151,8 @@ def init(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
     n_prefix = num_prefix_layers(cfg)
     params["prefix_layers"] = [_init_block(gen, cfg, dense_ffn=True)
                                for _ in range(n_prefix)]
-    params["layers"] = _init_stacked(gen, cfg, cfg.num_layers - n_prefix)
+    params["layers"] = stacked(lambda: _init_block(gen, cfg, dense_ffn=False),
+                               cfg.num_layers - n_prefix)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=L.dtype_of(cfg),
                                       device=dev)
     return params
@@ -339,10 +356,11 @@ def _mamba_decode(p, h, cfg: ModelConfig, state, live, fresh):
 
 
 def _block(p, x, cfg, attend, recur=None):
-    """One block (lm.py:487, :657): attention, then the MoE or the MLP.  A
-    hybrid block (``recur``: its Mamba-2 step, on ``rmsnorm(x, norm_m)``)
-    adds the mean of the attention and the Mamba-2 outputs
-    (lm.py:535-545)."""
+    """One block (lm.py:111, :487, :657): attention, then the MoE or the
+    MLP.  A hybrid block (``recur``: its Mamba-2 step, on ``rmsnorm(x,
+    norm_m)``) adds the mean of the attention and the Mamba-2 outputs
+    (lm.py:535-545).  Returns ``(x, aux)``: the MoE's load-balance loss, or
+    None without experts."""
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     delta = attend(p["attn"], h)
     if recur is not None:
@@ -350,8 +368,9 @@ def _block(p, x, cfg, attend, recur=None):
     x = x + delta
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     if "moe" in p:
-        return x + L.moe(p["moe"], h2, cfg)[0]
-    return x + L.mlp(p["mlp"], h2, cfg)
+        out, aux = L.moe(p["moe"], h2, cfg)
+        return x + out, aux
+    return x + L.mlp(p["mlp"], h2, cfg), None
 
 
 def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
@@ -396,7 +415,7 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
             state = {k: pools[k] for k in ("ssm", "conv")}
             recur = lambda hm: _mamba_decode(  # noqa: E731
                 p["mamba"], hm, cfg, state, live, fresh)
-        x = _block(p, x, cfg, attend, recur)
+        x, _ = _block(p, x, cfg, attend, recur)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)[:, 0]
     return _soft_cap(cfg, logits), cache
@@ -468,7 +487,7 @@ def _prefill_trunk(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
             attend = lambda pa, h: L.attention_prefill_paged(  # noqa: E731
                 pa, h, cfg, pools, pos, cache.tables, lens, window=wlist[i],
                 rope_fraction=rf)
-        x = _block(p, x, cfg, attend)
+        x, _ = _block(p, x, cfg, attend)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), lens
 
 
@@ -490,8 +509,8 @@ def prefill_step(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
 
 
 def require_full_forward(cfg: ModelConfig):
-    """Raise unless the full-sequence forward runs ``cfg`` (dense GQA, SSM
-    or hybrid)."""
+    """Raise unless the full-sequence forward runs ``cfg``: every ported
+    family but MLA."""
     require_supported(cfg)
     if cfg.attention == "mla":
         raise NotImplementedError(
@@ -502,22 +521,16 @@ def require_full_forward(cfg: ModelConfig):
 
 def training_blocks(params) -> List[Dict]:
     """Every layer's parameters in order, for a differentiated forward: the
-    prefix layers, then views from one ``unbind`` of each stacked leaf.
-    Autograd joins the layers' gradients into each stacked leaf with one
-    stack (indexing a layer out, as :func:`layer_params` does, would build
-    a zero-filled gradient of the whole stacked leaf for every layer)."""
-    parts = _tree_map(lambda t: t.unbind(0), params["layers"])
-    n = params["layers"]["norm1"].shape[0]
-    return list(params["prefix_layers"]) + [
-        _tree_map(lambda views: views[i], parts) for i in range(n)]
+    prefix layers, then the stacked ones :func:`unstacked`."""
+    return list(params["prefix_layers"]) + unstacked(params["layers"])
 
 
 def _block_full(p, x, cfg: ModelConfig, positions, window, rope_fraction):
-    """One block, full sequence (lm.py:111): dense GQA attention then the
-    MLP, or the SSM's Mamba-2 layer alone (lm.py:133-134), or the hybrid's
-    mean of the attention and the Mamba-2 layer on ``rmsnorm(x, norm_m)``
-    then the MLP (lm.py:135-137).  Returns (x, aux_loss); the aux loss is
-    the MoE's, zero here.
+    """One block, full sequence (lm.py:111): GQA attention then the MLP or
+    the MoE, or the SSM's Mamba-2 layer alone (lm.py:133-134), or the
+    hybrid's mean of the attention and the Mamba-2 layer on ``rmsnorm(x,
+    norm_m)`` then the MLP (lm.py:135-137).  Returns (x, aux_loss): the
+    MoE's load-balance loss (lm.py:141-143), zero without experts.
 
     ``window`` is the layer's :func:`layer_windows` entry, BIG_WINDOW for a
     global layer of a windowed model: not None, so ``ops.attention`` takes
@@ -533,7 +546,8 @@ def _block_full(p, x, cfg: ModelConfig, positions, window, rope_fraction):
     recur = None
     if cfg.family == "hybrid":
         recur = lambda hm: L.mamba2_full(p["mamba"], hm, cfg)  # noqa: E731
-    return _block(p, x, cfg, attend, recur), aux
+    x, moe_aux = _block(p, x, cfg, attend, recur)
+    return x, aux if moe_aux is None else moe_aux
 
 
 def hidden_forward(params, cfg: ModelConfig, tokens, prefix_embeds=None,

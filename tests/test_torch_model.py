@@ -19,7 +19,7 @@ from repro import configs as jconfigs
 from repro.models import lm as jlm
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -161,11 +161,32 @@ def test_copy_pages_copies_every_pool_in_place():
     ("whisper_tiny", "item 16"), ("internvl2_26b", "item 16"),
 ])
 def test_unported_families_raise_naming_their_roadmap_item(arch, item):
+    """The families ROADMAP Queue 1 ``item`` ported, whose raise named it
+    until then, now run: granite (GQA + MoE) and internvl2 (a frontend
+    model, served text only) take ``lm``'s parameters and paged cache; the
+    encoder-decoder whisper is ``encdec``'s, and ``lm`` refuses it with a
+    ValueError that says so.  Only MLA without MoE still raises, naming
+    its own item."""
+    assert item == "item 16"
     cfg = tconfigs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=item):
-        lm.init(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        lm.init_cache(cfg, 1, 16, device="cpu")
+    if cfg.is_encoder_decoder:
+        with pytest.raises(ValueError, match="encdec"):
+            lm.init(cfg, 0, device="cpu")
+        params = encdec.init(cfg, 0, device="cpu")
+        cache = encdec.init_cache(cfg, 1, 16, device="cpu")
+        assert tuple(cache["self"]["k"].shape) == (cfg.num_layers, 1, cfg.num_kv_heads,
+                                                   16, cfg.head_dim)
+        assert params["dec_layers"]["xattn"]["wq"].shape[0] == cfg.num_layers
+        return
+    params = lm.init(cfg, 0, device="cpu")
+    cache = lm.init_cache(cfg, 2, 16, device="cpu")
+    logits, _ = lm.decode_step(params, cfg, cache, torch.tensor([1, 2]),
+                               torch.tensor([0, 0]))
+    assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits).all()
+    mla_dense = dataclasses.replace(tconfigs.get_config("deepseek_v2_lite_16b").reduced(),
+                                    family="dense")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        lm.init(mla_dense, 0, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["mamba2_2_7b", "hymba_1_5b"])
