@@ -119,6 +119,23 @@ no phase is skipped):
    row quantized as the card quantized it), which leaves the kernels'
    arithmetic and not the codes' rounding;
 
+12. (between qwen's serving and its phase 4, on the same weights) sampling
+   and speculative decoding: the card's threefry key stream (split keys,
+   random bits, uniforms) equal to the CPU's bit for bit; ``sample`` at
+   temperature 0.8, top-k 50, top-p 0.95 on seeded logits on the card
+   against the same logits on the CPU (a token may differ only where the
+   perturbed top-2 gap is under 1e-5; such rows are counted); the
+   workload's first 8 requests at temperature 0.8 per tick and with
+   ``sync_every=4`` (no request queued: equal streams and keys, different
+   from greedy's); greedy ngram speculation (draft 4, ``sync_every=4``,
+   the spec loop under the no-host-sync check) in fp and int8 pages
+   against phase 3's plain runs (equal streams, or at a request's first
+   divergence the plain path's top-2 margin within twice the verify-vs-
+   decode logit error there, from a one-slot replay; the acceptance, the
+   rounds and the verify calls on the plain attention printed); and a
+   sampled speculative run served twice under one seed, its streams
+   repeated;
+
 then phases 3 and 4 again for full-width deepseek-v2-lite-16B (MLA +
 64-expert top-6 MoE, bf16 with an fp32 router, after qwen's parameters are
 freed; its serving depth cut to 7 of 27 layers to keep the script within
@@ -130,6 +147,9 @@ cores), and teacher-forced logits at depth 2 (the dense prefix
 layer and one MoE layer), with the share of MoE routing choices the card and
 the CPU make alike; the limits are qwen's, over the steps whose read token
 both route to the same experts (at least half of them), int4 as qwen's;
+and phase 12's greedy speculation on its first 8 requests against a plain
+run, both at an MoE capacity with no drops (otherwise a verify chunk's
+batch and a decode step's drop other tokens, as in the reference);
 
 5. train full-width qwen2-1.5B (28 layers, bf16, seeded) through
    ``make_train_step`` (the loss with per-layer recompute, its gradient,
@@ -171,11 +191,11 @@ both route to the same experts (at least half of them), int4 as qwen's;
    flash launch: its attention carries a window on every layer, which the
    reference routes to the plain version) plus 2 profiled; and its depth-2
    check against the CPU's fp32 and the card's plain SSD with the three
-   planted SSD faults.  Its serving is cut to 8 of its 32 layers to keep
+   planted SSD faults.  Its serving is cut to 4 of its 32 layers to keep
    the script within half its time limit;
 8. full-width granite-moe-3b-a800m (32 layers, d 1536, 24 query heads over
    8 KV heads of 64, 40 experts of width 512, top 8, tied embeddings;
-   bf16, router fp32, seeded): serve the phase 3 workload at all 32
+   bf16, router fp32, seeded): serve the phase 3 workload at 16 of its 32
    layers with fp and with int8 pages (chunked prefill, prefix cache;
    ticks and TTFT equal across the two; every decode and prefill launch on
    the tensor cores); teacher-forced logits at depth 4, fp and int8 KV,
@@ -199,7 +219,21 @@ both route to the same experts (at least half of them), int4 as qwen's;
    teacher-forced forward over 256 seeded patch rows and 128 tokens
    against the CPU's fp32, over the text rows; 2 training steps at batch 4
    of 256 patch rows and 768 tokens through the flash kernel, the loss
-   finite and its cross-entropy that of the forward's text rows alone.
+   finite and its cross-entropy that of the forward's text rows alone;
+11. the dense configs chatglm3-6b (32 query heads over 2 KV heads of 128:
+   a GQA group of 16; QKV bias, RoPE over half the head dim), gemma-7b
+   (MHA, 16 heads of 256, GeGLU, tied embeddings) and deepseek-7b (MHA, 32
+   heads of 128) at full width, cut to 4 of their 28 / 28 / 30 layers,
+   seeded random bf16 weights: each serves the workload's first 8 requests
+   (fp pages, chunked prefill, prefix cache) at the ticks and mean TTFT
+   the scheduler gives them (a one-layer reduced model on the CPU), every
+   decode and prefill launch on the tensor cores at D 128 and none at
+   gemma's D 256, and holds its teacher-forced logits against the CPU's
+   fp32 within phase 4's limits (argmax where the top-2 margin exceeds
+   twice the error).  Phase 2 checks and times their kernels at their
+   serving shape (chatglm's decode, chunked prefill and its int8 twin;
+   gemma's decode and prefill; deepseek-7b's decode and prefill) and the
+   flash kernel at gemma's D 256 (B 8, 16 heads, S 1024).
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
@@ -434,6 +468,22 @@ HYMBA_WINDOW = 1024
 # (its serving runs' shape: the decode, and the chunked prefill's 48-row
 # page groups of 16 positions x 3 heads)
 GRANITE_DECODE = DecodeShape("granite-moe-3b-a800m", SLOTS, MAX_LEN, 24, 8, 64)
+# The dense configs of phase 11, at their serving shape: chatglm3-6b's GQA
+# group of 16 at D 128 (the chunked prefill's page groups of 256 rows, split
+# over two blocks of 8 heads), gemma-7b's MHA at D 256 (off the tensor cores:
+# the kernels take D 64 or 128 there) and deepseek-7b's MHA, 32 over 32 at D
+# 128 (a group of 1).
+CHATGLM_DECODE = DecodeShape("chatglm3-6b", SLOTS, MAX_LEN, 32, 2, 128)
+GEMMA_DECODE = DecodeShape("gemma-7b", SLOTS, MAX_LEN, 16, 16, 256)
+DEEPSEEK7B_DECODE = DecodeShape("deepseek-7b", SLOTS, MAX_LEN, 32, 32, 128)
+GQA_TC_HEAD_DIMS = (64, 128)  # the GQA kernels' tensor-core head dims
+
+
+def gqa_takes_tensor_cores(dtype, shape) -> bool:
+    """Where a GQA decode or chunked-prefill launch at ``shape`` must run on
+    the tensor cores: bf16 at D 64 or 128, any GQA group (the prefill splits
+    a page's rows past 128 over blocks)."""
+    return str(dtype) == "torch.bfloat16" and (shape or QWEN_DECODE).d in GQA_TC_HEAD_DIMS
 
 
 def decode_grid(torch, PA, dev, shape=QWEN_DECODE):
@@ -497,15 +547,19 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     # the split grid, and the merge's control: the split kernel's arithmetic
     # in plain PyTorch (over the dequantized pages for the quantized twin)
     # with the partial states summed as they stand, not rescaled to their
-    # common max, must fail the limit
+    # common max, must fail the limit (where there is more than one split:
+    # one split's state needs no rescale)
     from repro_torch.kernels import paged_attention as PA
 
     splits, split_keys = decode_grid(torch, PA, dev, shape)
     res["splits"] = f"{splits} splits of {split_keys} keys, {hkv * slots * splits} blocks"
-    faulty = PA.split_decode(q, kp, vp, tables, lens_t, splits, split_keys,
-                             window=window, pair=dtype == torch.bfloat16, rescale=False)
-    res["merge_no_rescale"] = (bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
-                               else (faulty.float() - plain.float()).abs().max().item())
+    if splits > 1:
+        faulty = PA.split_decode(q, kp, vp, tables, lens_t, splits, split_keys,
+                                 window=window, pair=dtype == torch.bfloat16,
+                                 rescale=False)
+        res["merge_no_rescale"] = (
+            bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
+            else (faulty.float() - plain.float()).abs().max().item())
     # the slot's pages gathered for one dense call: SDPA and the controls
     kg = kp[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
     vg = vp[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
@@ -873,7 +927,8 @@ VLM_BATCH, VLM_PREFIX, VLM_TEXT = 4, 256, 768
 # models of phases 8-10: granite (causal, a group of 3 at D 64), whisper's
 # encoder (non-causal over 1500 frames, ragged against the 64-row and
 # 64-key tiles) and decoder (causal), internvl2 (causal, a group of 6 at D
-# 128 over prefix and text)
+# 128 over prefix and text); and gemma-7b's MHA at D 256 (the CUDA-core
+# body: no model of this script trains it, so no run launches it)
 FLASH_CASES = (
     ("train", TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, True),
     ("suffix, causal", TRAIN_BATCH, HQ, HKV, 256, TRAIN_SEQ, HEAD_DIM, True),
@@ -885,10 +940,11 @@ FLASH_CASES = (
     ("whisper decoder", TRAIN_BATCH, 6, 6, WHISPER_TOKENS, WHISPER_TOKENS, 64, True),
     ("internvl2 train", VLM_BATCH, 48, 8, VLM_PREFIX + VLM_TEXT, VLM_PREFIX + VLM_TEXT,
      128, True),
+    ("gemma-7b D 256", TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 256, True),
 )
 # the cases timed beside the table's ("train"): the new models' shapes
 FLASH_TIMED = ("train", "granite train", "whisper encoder", "whisper decoder",
-               "internvl2 train")
+               "internvl2 train", "gemma-7b D 256")
 
 
 def flash_inputs(torch, case, dtype, dev, seed=21):
@@ -1429,12 +1485,16 @@ FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
 # on a host ~1.2x slower than the fastest seen, ~620 s on the slowest,
 # so qwen2-1.5B and deepseek-v2-lite-16B serve 7 layers each (49.3 and
 # 55.3 s at 14 there), and granite-moe-3b-a800m all of its 32 (47.7 s).
+# With phases 11 and 12 (the dense configs, sampling and speculation: 70.1
+# s on a host where the whole run read 442.9 s), granite serves 16 of its
+# 32 layers (68.2 s at 32 on the slow host) and hymba-1.5B 4 of its 32
+# (48.6 s at 8 there).
 QWEN_SERVE_LAYERS = 7
 MLA_SERVE_LAYERS = 7
 SSM_SERVE_REQUESTS = 8
 SSM_SERVE_LAYERS = 16
-HYBRID_SERVE_LAYERS = 8
-GRANITE_SERVE_LAYERS = 32
+HYBRID_SERVE_LAYERS = 4
+GRANITE_SERVE_LAYERS = 16
 
 
 @contextlib.contextmanager
@@ -1452,19 +1512,20 @@ def no_host_sync(torch, device):
 
 
 @contextlib.contextmanager
-def strict_windows(torch, lm, device):
-    """Every multi-step decode window runs under no_host_sync."""
-    loop = lm.decode_loop
+def strict_windows(torch, lm, device, name="decode_loop"):
+    """Every multi-step window (``lm.decode_loop``, or the speculative
+    ``lm.spec_decode_loop``) runs under no_host_sync."""
+    loop = getattr(lm, name)
 
     def strict_loop(*a, **kw):  # a window must never wait for the host
         with no_host_sync(torch, device):
             return loop(*a, **kw)
 
-    lm.decode_loop = strict_loop
+    setattr(lm, name, strict_loop)
     try:
         yield
     finally:
-        lm.decode_loop = loop
+        setattr(lm, name, loop)
 
 
 def mean_ttft(reqs) -> float:
@@ -1579,6 +1640,249 @@ def mla_serving_phase(torch, np, lm, cfg, params, kernels, device):
             f"{k} {n} ({n // cfg.num_layers} steps x {cfg.num_layers} layers)"
             for k, n in launches.items() if n))
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: sampling and speculative decoding (qwen2-1.5B, deepseek-v2-lite)
+# ---------------------------------------------------------------------------
+
+SAMPLE_T, SAMPLE_TOP_K, SAMPLE_TOP_P = 0.8, 50, 0.95
+SAMPLE_KEYS = 16  # logits tensors of SLOTS rows drawn from on the card and the CPU
+SAMPLE_TIE_GAP = 1e-5  # a perturbed top-2 gap under which the two may pick apart
+# the sampled runs serve one batch of slots (no request waits in the queue,
+# so the window's key stream is per-tick stepping's, lm.decode_loop)
+SAMPLE_REQUESTS = SLOTS
+SPEC_DRAFT, SPEC_SYNC = 4, 4
+# The sampled runs scale the final norm's weight: with tied N(0, 1)
+# embeddings a token's own logit is ~d (1536 for qwen2-1.5B) against the
+# others' standard deviation ~sqrt(d), so a draw at temperature 0.8 always
+# takes the argmax (greedy's token, which a uniform scale keeps); scaled by
+# 0.005 the own logit is ~8 and the draws spread over the vocabulary (at
+# 0.02 the runs' 8 streams all still equalled greedy's, H100 80GB HBM3,
+# 700 W).
+SAMPLE_NORM_SCALE = 0.005
+
+
+def spread_logits(params):
+    """``params`` with the final norm's weight scaled by SAMPLE_NORM_SCALE
+    (the other leaves shared)."""
+    return {**params, "final_norm": params["final_norm"] * SAMPLE_NORM_SCALE}
+
+
+def prng_check(torch, device) -> int:
+    """The card's threefry against the CPU's, bit for bit: split keys,
+    random bits and uniforms for a few keys and shapes.  Returns the 32-bit
+    words compared."""
+    from repro_torch.serving import prng
+
+    words = 0
+    for seed in (0, 3, 2 ** 31 - 1):
+        kc, kd = prng.key(seed), prng.key(seed, device)
+        pairs = [(prng.split(kc, 7), prng.split(kd, 7))]
+        for shape in ((5,), (3, 1000), (SLOTS, WORKLOAD_VOCAB)):
+            pairs.append((prng.random_bits(kc, shape), prng.random_bits(kd, shape)))
+            pairs.append((prng.uniform(kc, shape).view(torch.int32),
+                          prng.uniform(kd, shape).view(torch.int32)))
+        for want, got in pairs:
+            assert torch.equal(got.cpu(), want), (seed, tuple(want.shape))
+            words += want.numel()
+    return words
+
+
+def sample_check(torch, device, keys=SAMPLE_KEYS):
+    """``sample`` at SAMPLE_T, top-k SAMPLE_TOP_K and top-p SAMPLE_TOP_P on
+    seeded logits on the card against the same logits on the CPU.  A row
+    may differ only where the CPU's perturbed logits (cut logits plus the
+    key's gumbel noise) have their top two within SAMPLE_TIE_GAP.  Returns
+    (rows, rows that differ, rows at such a near-tie)."""
+    from repro_torch.serving import prng, sampling
+
+    g = torch.Generator(device=device).manual_seed(13)
+    rows = differ = ties = 0
+    for k in range(keys):
+        logits = torch.randn((SLOTS, WORKLOAD_VOCAB), generator=g, device=device) * 4
+        kw = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, top_p=SAMPLE_TOP_P)
+        got = sampling.sample(logits, prng.key(k, device), **kw).cpu()
+        cpu = logits.cpu()
+        want = sampling.sample(cpu, prng.key(k), **kw)
+        cut = sampling.cut_logits(cpu, SAMPLE_T, SAMPLE_TOP_K, SAMPLE_TOP_P)
+        top2 = (cut + prng.gumbel(prng.key(k), cut.shape)).topk(2).values
+        near = (top2[:, 0] - top2[:, 1]) < SAMPLE_TIE_GAP
+        apart = got != want
+        assert not (apart & ~near).any(), (k, got, want)
+        rows += SLOTS
+        differ += int(apart.sum())
+        ties += int(near.sum())
+    return rows, differ, ties
+
+
+def replay_margin(torch, np, lm, cfg, params, device, prompt, emitted):
+    """One request replayed alone: its prompt through the chunked prefill,
+    then its ``emitted`` tokens but the last through the decode kernel.  At
+    the next position, the decode path's logits (the prefill's where
+    nothing was emitted) against verify's (``lm.verify_step``, the plain
+    attention): the decode path's top-2 margin and the max |verify -
+    decode| logit difference."""
+    max_pages = MAX_LEN // PAGE
+    cache = lm.init_cache(cfg, 1, MAX_LEN, page_size=PAGE, num_blocks=max_pages + 1,
+                          device=device)
+    cache = cache.with_tables(torch.arange(1, max_pages + 1, dtype=torch.int32,
+                                           device=device)[None])
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)  # noqa: E731
+    for s0 in range(0, len(prompt), CHUNK):
+        n = min(CHUNK, len(prompt) - s0)
+        toks = np.zeros((1, CHUNK), np.int32)
+        toks[0, :n] = prompt[s0:s0 + n]
+        dec, cache = lm.prefill_step(params, cfg, cache, dev(toks), dev([s0]), dev([n]))
+    pos, last = len(prompt) - 1, prompt[-1]
+    for t in emitted:
+        pos, last = pos + 1, t
+        dec, cache = lm.decode_step(params, cfg, cache, dev([t]), dev([pos]))
+    ver, cache = lm.verify_step(params, cfg, cache, dev([[last]]), dev([pos]), dev([1]))
+    dec, ver = dec[0].float(), ver[0, 0].float()
+    top2 = dec.topk(2).values
+    return (top2[0] - top2[1]).item(), (ver - dec).abs().max().item()
+
+
+def spec_divergences(torch, np, lm, cfg, params, device, reqs, plain_reqs):
+    """Each request whose speculative stream parts from the plain run's, at
+    its first differing token: (uid, index, the plain path's top-2 margin
+    there, the verify-vs-decode logit error there, replay_margin)."""
+    out = []
+    for r, p in zip(reqs, plain_reqs):
+        assert r.prompt == p.prompt
+        if r.output == p.output:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(r.output, p.output)) if a != b)
+        out.append((r.uid, i, *replay_margin(torch, np, lm, cfg, params, device,
+                                              p.prompt, p.output[:i])))
+    return out
+
+
+def spec_run(torch, np, lm, cfg, params, device, run, label, path, tc, plain_reqs, **kw):
+    """One greedy speculative run (ngram, SPEC_DRAFT, SPEC_SYNC) of the
+    requests ``plain_reqs`` served, the spec loop under no_host_sync: its
+    streams equal the plain run's but at first divergences whose plain
+    top-2 margin lies within twice the verify-vs-decode logit error there
+    (two paths' argmaxes can part only so).  Logs acceptance, rounds, the
+    plain verify calls and the divergences; returns the engine."""
+    from repro_torch.kernels import ops
+
+    for name in ops.PLAIN_PREFILL:
+        ops.PLAIN_PREFILL[name] = 0
+    with strict_windows(torch, lm, device, "spec_decode_loop"):
+        eng, reqs = run(label, path, tc, requests=len(plain_reqs), spec_decode="ngram",
+                        draft_len=SPEC_DRAFT, sync_every=SPEC_SYNC, **kw)
+    plain_calls = {k: n for k, n in ops.PLAIN_PREFILL.items() if n}
+    div = spec_divergences(torch, np, lm, cfg, params, device, reqs, plain_reqs)
+    same = sum(r.output == p.output for r, p in zip(reqs, plain_reqs))
+    log(f"[spec] {cfg.name} {label}: {same}/{len(reqs)} streams equal the plain run's; "
+        f"acceptance {eng.spec_accepted}/{eng.spec_proposed} drafts "
+        f"({eng.spec_accepted / max(eng.spec_proposed, 1):.3f}), {eng.spec_windows} "
+        f"windows, {eng.spec_rounds} rounds ({eng.spec_all_rejected} slot-rounds all "
+        f"rejected, {eng.spec_fallbacks} fallbacks), {eng.dispatches} dispatches; verify "
+        f"calls on the plain attention {plain_calls}; first divergences {len(div)}"
+        + "".join(f" (request {u} at token {i}: plain top-2 margin {m:.4f}, verify vs "
+                  f"decode logit error {e:.4f})" for u, i, m, e in div))
+    assert eng.spec_windows > 0 and sum(plain_calls.values()) > 0, plain_calls
+    assert all(m <= 2 * e for _, _, m, e in div), div
+    return eng
+
+
+def sampled_runs(run, fp_reqs, path, tc, **kw):
+    """A run at SAMPLE_T, per tick and with the window (sync_every
+    SPEC_SYNC, under no_host_sync): their streams and keys are equal, and
+    differ from the greedy run's ``fp_reqs``.  Returns the per-tick
+    engine."""
+    a, a_reqs = run(f"T {SAMPLE_T}, seed 3", path, tc, requests=SAMPLE_REQUESTS,
+                    temperature=SAMPLE_T, seed=3, **kw)
+    b, b_reqs = run(f"T {SAMPLE_T}, seed 3, sync_every={SPEC_SYNC}", path, tc,
+                    requests=SAMPLE_REQUESTS, temperature=SAMPLE_T, seed=3,
+                    sync_every=SPEC_SYNC, **kw)
+    outs = [r.output for r in a_reqs]
+    assert outs == [r.output for r in b_reqs] and torch_equal(a._key, b._key)
+    assert b.decode_windows > 0
+    greedy = [r.output for r in fp_reqs[:SAMPLE_REQUESTS]]
+    moved = sum(o != g for o, g in zip(outs, greedy))
+    log(f"[sample] T {SAMPLE_T}: per-tick and sync_every={SPEC_SYNC} streams and keys "
+        f"equal ({b.decode_windows} windows, no host sync inside); {moved}/{len(outs)} "
+        f"streams differ from greedy's")
+    assert moved > 0
+    return a
+
+
+def torch_equal(a, b) -> bool:
+    return bool((a == b).all())
+
+
+def sampling_spec_phase(torch, np, lm, cfg, params, kernels, device, runs):
+    """Phase 12 on qwen2-1.5B (phase 3's weights and greedy runs): the
+    card's threefry bits and ``sample`` against the CPU's, the sampled runs
+    (sampled_runs, on spread_logits' weights), greedy speculation in fp and
+    int8 pages against phase 3's plain runs (spec_run), and a sampled
+    speculative run served twice under one seed, its streams repeated."""
+    t0 = time.perf_counter()
+    words = prng_check(torch, device)
+    rows, differ, ties = sample_check(torch, device)
+    log(f"[sample] threefry on the card: {words} words (split keys, random bits, "
+        f"uniforms) equal the CPU's; sample (T {SAMPLE_T}, top-k {SAMPLE_TOP_K}, top-p "
+        f"{SAMPLE_TOP_P}) over {rows} rows of {WORKLOAD_VOCAB} logits: {differ} tokens "
+        f"differ from the CPU's, {ties} rows at a perturbed top-2 gap under "
+        f"{SAMPLE_TIE_GAP:g}")
+    run = make_runner(torch, np, cfg, params, kernels, device, runs)
+    spread = make_runner(torch, np, cfg, spread_logits(params), kernels, device, runs)
+    fp_reqs = runs["fp, default pool"][1]
+    sampled_runs(spread, fp_reqs, FP_KERNELS, TC_KERNELS)
+    spec_run(torch, np, lm, cfg, params, device, run, "fp, spec", FP_KERNELS, TC_KERNELS,
+             fp_reqs)
+    spec_run(torch, np, lm, dataclasses.replace(cfg, kv_dtype="int8"), params, device,
+             run, "int8, spec", QUANT_KERNELS, QUANT_TC_KERNELS,
+             runs["int8, default pool"][1], kv_dtype="int8")
+    outs = []
+    for i in range(2):
+        with strict_windows(torch, lm, device, "spec_decode_loop"):
+            eng, reqs = spread(f"T {SAMPLE_T}, seed 5, spec, run {i + 1}", FP_KERNELS,
+                               TC_KERNELS, requests=SAMPLE_REQUESTS, temperature=SAMPLE_T,
+                               seed=5, spec_decode="ngram", draft_len=SPEC_DRAFT,
+                               sync_every=SPEC_SYNC)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1] and eng.spec_windows > 0
+    log(f"[spec] {cfg.name} T {SAMPLE_T} spec: two runs under seed 5 repeat their "
+        f"streams; acceptance {eng.spec_accepted}/{eng.spec_proposed} drafts "
+        f"({eng.spec_accepted / max(eng.spec_proposed, 1):.3f}), {eng.spec_rounds} "
+        f"rounds")
+    log(f"[time] phase 12 ({cfg.name} sampling and speculation): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def moe_no_drops(cfg):
+    """``cfg`` with an MoE capacity at which no expert drops a token (a
+    group's every token fits each expert), so routing does not follow the
+    batch shape: GShard's groups are the batch's, and a verify chunk's
+    batch is not a decode step's."""
+    mo = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=2.0 * mo.num_experts / mo.experts_per_token))
+
+
+def mla_spec_phase(torch, np, lm, cfg, kernels, device, requests=SAMPLE_REQUESTS):
+    """Phase 12 on deepseek-v2-lite-16B: greedy speculation against a plain
+    run on the same weights, both at an MoE capacity with no drops
+    (moe_no_drops; otherwise the verify chunks and decode steps drop other
+    tokens, as in the reference), the workload's first ``requests``."""
+    t0 = time.perf_counter()
+    cfg = moe_no_drops(cfg)
+    params = lm.init(cfg, 0, device=device)
+    runs = {}
+    run = make_runner(torch, np, cfg, params, kernels, device, runs)
+    _, plain = run("fp, no MoE drops", MLA_FP_KERNELS, MLA_FP_KERNELS,
+                   requests=requests)
+    spec_run(torch, np, lm, cfg, params, device, run, "fp, no MoE drops, spec",
+             MLA_FP_KERNELS, MLA_FP_KERNELS, plain)
+    del params, runs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[time] phase 12 ({cfg.name} speculation): {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2614,6 +2918,12 @@ def kernel_phase(torch, np, ref, flush, device):
               GRANITE_DECODE),
              ("prefill_attention_quant", check_prefill, PFQ, ("int8",), (None,),
               GRANITE_DECODE),
+             *((k, chk, mod, (None,), (None,), shape)
+               for shape in (CHATGLM_DECODE, GEMMA_DECODE, DEEPSEEK7B_DECODE)
+               for k, chk, mod in (("paged_attention", check_decode, PA),
+                                   ("prefill_attention", check_prefill, PF))),
+             ("prefill_attention_quant", check_prefill, PFQ, ("int8",), (None,),
+              CHATGLM_DECODE),
              ("mla_paged", check_mla_decode, MP, (None,), (None, 256), None),
              ("mla_prefill", check_mla_prefill, MF, (None,), (None, 96), None),
              ("mla_paged_quant", check_mla_decode, MPQ, quant, (None, 256), None),
@@ -2631,14 +2941,18 @@ def kernel_phase(torch, np, ref, flush, device):
                               device, fmt=fmt, **kw)
                     log(f"[kernel] {name}{'' if fmt is None else ' ' + fmt} "
                         f"{str(dtype)[6:]} window={window}{at}"
-                        f"{' (tensor cores)' if r.get('tc_launches') else ''}: max abs err "
-                        f"{r['err']:.3e}, {attention_limit_text(name, fmt, r, timed)}")
+                        f"{' (tensor cores)' if r.get('tc_launches') else ' (CUDA cores)'}: "
+                        f"max abs err {r['err']:.3e}, "
+                        f"{attention_limit_text(name, fmt, r, timed)}")
                     if not kernel_ok(r):
                         raise AssertionError(f"{name} {fmt}{at} disagrees with its plain "
                                              "version")
-                    # bf16 on the tensor-core path, fp32 off it
+                    # bf16 on the tensor-core path (the GQA kernels at D 64 or
+                    # 128), fp32 off it
+                    want_tc = (dtype == torch.bfloat16 if name.startswith("mla")
+                               else gqa_takes_tensor_cores(dtype, shape))
                     if (name in TC_KERNELS + MLA_TC_KERNELS + QUANT_TC_KERNELS
-                            and r["tc_launches"] != int(dtype == torch.bfloat16)):
+                            and r["tc_launches"] != int(want_tc)):
                         raise AssertionError(f"{name} {str(dtype)[6:]}{at}: "
                                              f"{r['tc_launches']} tensor-core launches")
                     if timed and fmt in (None, "int8") and shape is None:
@@ -2667,9 +2981,10 @@ def kernel_phase(torch, np, ref, flush, device):
             if not kernel_ok(r):
                 raise AssertionError(f"flash_attention {case[0]} disagrees with its "
                                      "plain version")
-            if dtype == torch.bfloat16 and r["tc_launches"] != 1:
-                raise AssertionError(f"flash_attention {case[0]} bf16 missed its "
-                                     "tensor-core path")
+            want_tc = dtype == torch.bfloat16 and case[6] in GQA_TC_HEAD_DIMS
+            if r["tc_launches"] != int(want_tc):
+                raise AssertionError(f"flash_attention {case[0]} {str(dtype)[6:]}: "
+                                     f"{r['tc_launches']} tensor-core launches")
     cost = tile_cost(torch, PF, FA, flush, device)
     log("[kernel] tile cost (device us a 64-key tile of the walk; us of the rest of the "
         f"launch): prefill_attention {cost['prefill'][0]:.2f}; {cost['prefill'][1]:.2f} "
@@ -2719,9 +3034,11 @@ def attention_limit_text(name, fmt, r, timed, earlier=EARLIER_MS) -> str:
                  f"{BF16_ULPS:g}; {controls_text(r)})")
     else:
         limit = f"limit {FP32_ATOL:.0e}"
-    if "splits" in r:
+    if "merge_no_rescale" in r:
         limit += (f"; {r['splits']}; control: merge without the rescale "
                   f"{r['merge_no_rescale']:.3g}")
+    elif "splits" in r:
+        limit += f"; {r['splits']} (no merge to control)"
     if timed:
         if "sdpa_gathered_ms" in r:
             lib = (f"sdpa over pages gathered{'' if fmt is None else ' and dequantized'} "
@@ -2886,6 +3203,8 @@ def main(argv=None) -> int:
     whisper_phase(torch, np, device)
     torch.cuda.empty_cache()
     vlm_phase(torch, np, lm, device)
+    torch.cuda.empty_cache()
+    dense_phase(torch, np, lm, device)
     main_launches.update(lib_launches)
 
     # ---- result lines --------------------------------------------------
@@ -2924,9 +3243,10 @@ def serving_phases(torch, np, lm, cfg, KERNELS, device):
     # each kernel's launches on its own path's run
     main_launches = {**runs["fp, default pool"][3],
                      **{k: runs["int8, default pool"][3][k] for k in QUANT_KERNELS}}
+    log(f"[time] phase 3 ({cfg.name} serving): {time.perf_counter() - t0:.1f} s")
+    sampling_spec_phase(torch, np, lm, served, params, KERNELS, device, runs)
     del params, runs
     torch.cuda.empty_cache()
-    log(f"[time] phase 3 ({cfg.name} serving): {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: teacher-forced, card bf16 vs CPU fp32 -------------------
     t_phase = time.perf_counter()
@@ -2966,6 +3286,7 @@ def serving_phases(torch, np, lm, cfg, KERNELS, device):
     del params, runs
     torch.cuda.empty_cache()
     log(f"[time] phase 3 ({mla.name} serving): {time.perf_counter() - t0:.1f} s")
+    mla_spec_phase(torch, np, lm, mla, KERNELS, device)
 
     # ---- phase 4, MLA + MoE: teacher-forced at full width, 2 layers -------
     t_phase = time.perf_counter()
@@ -3730,6 +4051,94 @@ def vlm_phase(torch, np, lm, device):
     assert tr["launches"] == tr["tc_launches"] == {"flash_attention": want}, tr
     torch.cuda.empty_cache()
     log(f"[time] phase 10 ({cfg.name} training): {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense configs (chatglm3-6b, gemma-7b, deepseek-7b)
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("chatglm3_6b", "gemma_7b", "deepseek_7b")
+DENSE_SHAPES = {"chatglm3_6b": CHATGLM_DECODE, "gemma_7b": GEMMA_DECODE,
+                "deepseek_7b": DEEPSEEK7B_DECODE}
+# Full width at 4 of their 28 / 28 / 30 layers (serving is host-bound and
+# its schedule does not depend on depth; gemma's fp32 masters and moments
+# alone would need ~136 GB to train, so none of the three trains here), the
+# workload's first 8 requests: one batch of slots.
+DENSE_LAYERS = 4
+DENSE_REQUESTS = SLOTS
+
+
+def scheduler_reference(torch, np, lm, requests=DENSE_REQUESTS):
+    """Ticks and mean TTFT ticks the scheduler gives the workload's first
+    ``requests`` requests, served on the CPU by a one-layer reduced
+    qwen2-1.5B: the scheduler sees only prompt lengths, shared prefixes and
+    block counts, the same for every model of the workload."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KERNELS
+
+    cfg = dataclasses.replace(get_config("qwen2_1_5b").reduced(), num_layers=1)
+    cpu = torch.device("cpu")
+    engine, reqs, _, _ = serve(torch, np, cfg, lm.init(cfg, 0, device=cpu), KERNELS,
+                               cpu, requests=requests)
+    return engine.steps_run, mean_ttft(reqs)
+
+
+def dense_tf_ok(r) -> bool:
+    """Phase 4's limits, the argmax agreeing wherever the reference's top-2
+    margin exceeds twice the step's error."""
+    return (r["err"] <= TF_STD_LIMIT and r["top10"] >= TF_TOP10_MIN
+            and all(m <= 2 * e for _, m, e in r["swaps"]))
+
+
+def dense_phase(torch, np, lm, device, configs=None, requests=DENSE_REQUESTS):
+    """Phase 11: each dense config (full width, DENSE_LAYERS layers, seeded
+    random bf16 weights; ``configs`` replaces them) serves the workload's
+    first ``requests`` requests (fp pages, chunked prefill, prefix cache,
+    greedy), with ticks and mean TTFT the scheduler's
+    (scheduler_reference), every decode and prefill launch on the tensor
+    cores at D 128 and none at gemma's D 256; then its teacher-forced logits
+    against the CPU's fp32 within phase 4's limits (dense_tf_ok).  Returns
+    each config's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KERNELS
+
+    t0 = time.perf_counter()
+    ticks, ttft = scheduler_reference(torch, np, lm, requests)
+    log(f"[serve] the scheduler on the workload's first {requests} requests: {ticks} "
+        f"ticks, mean TTFT {ttft:.2f} ticks ({time.perf_counter() - t0:.1f} s)")
+    if configs is None:
+        configs = [dataclasses.replace(get_config(a), num_layers=DENSE_LAYERS)
+                   for a in DENSE_ARCHS]
+    launches = {}
+    for cfg in configs:
+        t0 = time.perf_counter()
+        params = lm.init(cfg, 0, device=device)
+        log(f"[serve] {cfg.name}, {cfg.num_layers} layers at full width (Hq "
+            f"{cfg.num_heads} over Hkv {cfg.num_kv_heads}, D {cfg.head_dim}): "
+            f"{lm.param_count(params) / 1e9:.3f} B params ({cfg.dtype})")
+        runs = {}
+        run = make_runner(torch, np, cfg, params, KERNELS, device, runs)
+        tc = TC_KERNELS if cfg.head_dim in GQA_TC_HEAD_DIMS else ()
+        eng, reqs = run("fp, default pool", FP_KERNELS, tc, requests=requests)
+        on_tc = {k: KERNELS[k].tc_launches for k in FP_KERNELS}
+        assert tc or not any(on_tc.values()), on_tc  # D 256: the CUDA-core bodies
+        assert eng.steps_run == ticks and mean_ttft(reqs) == ttft, (eng.steps_run, ticks)
+        launches[cfg.name] = runs["fp, default pool"][3]
+        log(f"[launches] {cfg.name} serving: {json.dumps(launches[cfg.name])}, on tensor "
+            f"cores {json.dumps(on_tc)}")
+        del params, runs, eng
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        tf = teacher_forced(torch, np, lm, cfg, device)
+        log_teacher_forced(f"{cfg.name}, {cfg.num_layers} layers at full width, fp KV "
+                           "(argmax gated where the top-2 margin exceeds twice the error)",
+                           tf, True, time.perf_counter() - t1)
+        assert dense_tf_ok(tf), tf
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"[time] phase 11 ({cfg.name}): {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

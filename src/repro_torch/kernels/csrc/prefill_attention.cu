@@ -30,13 +30,18 @@
 // chunk's K/V pages; its FLOPs (4 * D per query-key pair) outweigh those
 // bytes only for long prior contexts.
 //
-// Grid (kv_head, chunk_page, slot), as the TPU grid.  A block holds
-// page_size * G query rows (96 for qwen2-1.5B), one chunk page of positions
-// for the whole GQA group, so every K/V tile it loads serves all G heads.
+// Grid (kv_head * hs, chunk_page, slot), as the TPU grid where hs is 1.  A
+// block holds page_size * G / hs query rows (96 for qwen2-1.5B), one chunk
+// page of positions for its part of the GQA group, so every K/V tile it
+// loads serves G / hs heads.  hs (the wrapper's head_split) is the fewest
+// parts, dividing G, whose rows fit a block: 128 rows on the tensor cores,
+// 227 KB of shared memory on the CUDA cores.  A group of 16 at page 16
+// (chatglm3-6b) is 256 rows: two blocks of 8 heads, of which the first
+// alone writes the chunk's pages.
 //
 // The fp kernel has two paths, chosen by the wrapper from dtype and shape
 // alone (prefill_attention.py, tensor_core_path):
-//   * tensor cores, bf16 at D 64 or 128 with 64 % ps == 0 and ps * G <= 128:
+//   * tensor cores, bf16 at D 64 or 128 with 64 % ps == 0 (ps * G / hs <= 128):
 //     the online softmax of attention_mma.cuh, P.V as the bf16 pair hi + lo
 //     (1.00 bf16 ulp on the card; P rounded once would read 122).  The
 //     block's rows sit in warps of 16 (ps * G not a multiple of 16 pads its
@@ -163,11 +168,12 @@ prefill_attention_kernel(const typename F::Elem* __restrict__ q, F chunk_kv,
                          const int* __restrict__ starts,
                          const int* __restrict__ lens,
                          typename F::Elem* __restrict__ out, int kv_heads,
-                         int group, int chunk, int d, int ps, int max_pages,
+                         int group, int hs, int chunk, int d, int ps, int max_pages,
                          int num_pages, int window, float qscale) {
-  const int h = blockIdx.x;   // kv head
-  const int bq = blockIdx.y;  // chunk page
-  const int b = blockIdx.z;   // slot
+  const int h = blockIdx.x / hs;     // kv head
+  const int part = blockIdx.x % hs;  // which part of its GQA group
+  const int bq = blockIdx.y;         // chunk page
+  const int b = blockIdx.z;          // slot
   const int rows = ps * group;
   extern __shared__ float4 smem4[];
   ac::Smem sm(reinterpret_cast<float*>(smem4), rows, ps, d);
@@ -175,7 +181,7 @@ prefill_attention_kernel(const typename F::Elem* __restrict__ q, F chunk_kv,
   const int start = starts[b];
   const int len = lens[b];
   const long bh = (long)b * kv_heads + h;
-  const long q_off = (bh * chunk * group + (long)bq * rows) * d;
+  const long q_off = (((long)b * kv_heads * hs + blockIdx.x) * chunk * group + (long)bq * rows) * d;
   ac::load_rows(sm.qs, sm.stride, q + q_off, d, rows, d, qscale);
   ac::init_state(sm, rows, d);
 
@@ -200,30 +206,31 @@ prefill_attention_kernel(const typename F::Elem* __restrict__ q, F chunk_kv,
   ac::store_rows(out + q_off, d, sm, rows, d);
 
   // ---- the paged write: this block's chunk page, through the table ------
+  // (by the group's first part alone: every part holds the same K/V rows)
   const bool live_page = i_lo < len;
   const int tidx = min(start / ps + bq, max_pages - 1);
   const int dst = live_page ? row[tidx] : 0;
-  if (dst < 0 || dst >= num_pages) return;  // dropped, like XLA's scatter
+  if (part != 0 || dst < 0 || dst >= num_pages) return;  // dropped, like XLA's scatter
   own_rows.rows(i_lo, d).copy_rows(head.rows((long)dst * ps, d), ps, d);
 }
 
 template <typename F>
 int launch(const void* q, F chunk_kv, F pools, const void* tables,
            const void* starts, const void* lens, void* out, int slots,
-           int kv_heads, int group, int chunk, int d, int ps, int max_pages,
+           int kv_heads, int group, int hs, int chunk, int d, int ps, int max_pages,
            int num_pages, int window, float sm_scale, cudaStream_t stream) {
   using T = typename F::Elem;
-  if (chunk % ps != 0 || !F::shapes_ok(ps, d, kThreads))
-    return (int)cudaErrorInvalidValue;
   const size_t smem = ac::Smem::bytes(ps * group, ps, d);
+  if (chunk % ps != 0 || !F::shapes_ok(ps, d, kThreads) || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   auto kernel = prefill_attention_kernel<F>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(kv_heads, chunk / ps, slots);
+  dim3 grid(kv_heads * hs, chunk / ps, slots);
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)q, chunk_kv, pools, (const int*)tables, (const int*)starts,
-      (const int*)lens, (T*)out, kv_heads, group, chunk, d, ps, max_pages,
+      (const int*)lens, (T*)out, kv_heads, group, hs, chunk, d, ps, max_pages,
       num_pages, window, sm_scale * ac::LOG2E);
   return (int)cudaGetLastError();
 }
@@ -390,8 +397,9 @@ struct Pack<ac::QuantKV<bf16, P>> {
   static constexpr int value = P;
 };
 
-// One block: chunk page bq of slot b for kv head h's GQA group, block row r
-// = query head h * group + r % group at chunk position bq * ps + r / group;
+// One block: chunk page bq of slot b for part `part` of kv head h's GQA
+// group (`group` here counts the part's heads), block row r = query head
+// (h * hs + part) * group + r % group at chunk position bq * ps + r / group;
 // q and out are (B, Hq, C, D) given by their strides.  KG key groups of
 // warps split the walk (attention_mma.cuh).  F is the keys' format: bf16
 // rows (FpKV) copied straight into the ring, or packed rows with scales
@@ -404,12 +412,13 @@ __global__ void __launch_bounds__(KG == 1 ? am::MAX_ROWS * 2 : kKgThreads)
 prefill_attention_kernel_tc(const bf16* __restrict__ q, am::Strides qs, F chunk_kv, F pools,
                             const int* __restrict__ tables, const int* __restrict__ starts,
                             const int* __restrict__ lens, bf16* __restrict__ out,
-                            am::Strides os, int kv_heads, int group, int chunk, int ps,
-                            int max_pages, int num_pages, int window, float qscale) {
+                            am::Strides os, int kv_heads, int group, int hs, int chunk,
+                            int ps, int max_pages, int num_pages, int window, float qscale) {
   constexpr int PACK = Pack<F>::value;
-  const int h = blockIdx.x;   // kv head
-  const int bq = blockIdx.y;  // chunk page
-  const int b = blockIdx.z;   // slot
+  const int h = blockIdx.x / hs;     // kv head
+  const int part = blockIdx.x % hs;  // which part of its GQA group
+  const int bq = blockIdx.y;         // chunk page
+  const int b = blockIdx.z;          // slot
   const int rows = ps * group;
   extern __shared__ float4 smem4[];
   const am::Ring<D, kTcStages, KG> ring(smem4);
@@ -451,7 +460,7 @@ prefill_attention_kernel_tc(const bf16* __restrict__ q, am::Strides qs, F chunk_
   __syncthreads();
 
   auto at = [&](const am::Strides& st, int r) {  // block row r's offset in q or out
-    return b * st.b + (h * group + r % group) * st.h + (i_lo + r / group) * st.s;
+    return b * st.b + ((h * hs + part) * group + r % group) * st.h + (i_lo + r / group) * st.s;
   };
   const am::PosMask mask{nullptr, q_lo, group, window, true};
   am::WarpAttention<D> wa;
@@ -466,19 +475,20 @@ prefill_attention_kernel_tc(const bf16* __restrict__ q, am::Strides qs, F chunk_
     wa.store([&](int r) { return r < rows ? out + at(os, r) : nullptr; });
 
   // ---- the paged write: this block's chunk page, through the table ------
-  // (quantized: packed bytes and scales of the same rows together)
+  // (quantized: packed bytes and scales of the same rows together; by the
+  // group's first part alone)
   const bool live_page = i_lo < len;
   const int tidx = min(start / ps + bq, max_pages - 1);
   const int dst = live_page ? row[tidx] : 0;
-  if (dst < 0 || dst >= num_pages) return;  // dropped, like XLA's scatter
+  if (part != 0 || dst < 0 || dst >= num_pages) return;  // dropped, like XLA's scatter
   own.rows(i_lo, D).copy_rows(head.rows((long)dst * ps, D), ps, D);
 }
 
 template <int D, int KG, typename F>
 int launch_tc(const void* q, am::Strides qs, F chunk_kv, F pools, const void* tables,
               const void* starts, const void* lens, void* out, am::Strides os, int slots,
-              int kv_heads, int group, int chunk, int ps, int max_pages, int num_pages,
-              int window, float sm_scale, cudaStream_t stream) {
+              int kv_heads, int group, int hs, int chunk, int ps, int max_pages,
+              int num_pages, int window, float sm_scale, cudaStream_t stream) {
   constexpr int PACK = Pack<F>::value;
   const int rows = ps * group, warps = (rows + 15) / 16;
   // the ring, the quantized loader's staging area, then the slot's table entries
@@ -492,11 +502,11 @@ int launch_tc(const void* q, am::Strides qs, F chunk_kv, F pools, const void* ta
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(kv_heads, chunk / ps, slots);
+  dim3 grid(kv_heads * hs, chunk / ps, slots);
   kernel<<<grid, KG * warps * 32, smem, stream>>>(
       (const bf16*)q, qs, chunk_kv, pools, (const int*)tables, (const int*)starts,
-      (const int*)lens, (bf16*)out, os, kv_heads, group, chunk, ps, max_pages, num_pages,
-      window, sm_scale * ac::LOG2E);
+      (const int*)lens, (bf16*)out, os, kv_heads, group, hs, chunk, ps, max_pages,
+      num_pages, window, sm_scale * ac::LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -505,14 +515,14 @@ int launch_tc(const void* q, am::Strides qs, F chunk_kv, F pools, const void* ta
 template <typename F>
 int launch_tc_any(int d, const void* q, am::Strides qs, F chunk_kv, F pools,
                   const void* tables, const void* starts, const void* lens, void* out,
-                  am::Strides os, int slots, int kv_heads, int group, int chunk, int ps,
-                  int max_pages, int num_pages, int window, float sm_scale,
+                  am::Strides os, int slots, int kv_heads, int group, int hs, int chunk,
+                  int ps, int max_pages, int num_pages, int window, float sm_scale,
                   cudaStream_t stream) {
   const bool split = 2 * 32 * ((ps * group + 15) / 16) <= kKgThreads;  // two key groups
 #define PF_TC(D, KG)                                                                     \
   return launch_tc<D, KG, F>(q, qs, chunk_kv, pools, tables, starts, lens, out, os,     \
-                             slots, kv_heads, group, chunk, ps, max_pages, num_pages,   \
-                             window, sm_scale, stream)
+                             slots, kv_heads, group, hs, chunk, ps, max_pages,          \
+                             num_pages, window, sm_scale, stream)
   if (d == 128 && split) PF_TC(128, 2);
   if (d == 128) PF_TC(128, 1);
   if (d == 64 && split) PF_TC(64, 2);
@@ -529,48 +539,55 @@ ac::QuantKV<T, PACK> quant_kv(void* k, void* v, void* ks, void* vs) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
-// tc 1 takes the tensor-core kernel (bfloat16, head_dim 64 or 128, 64 %
-// page_size == 0, page_size * group <= 128), with q and out (B, Hq, C, D)
-// given by their batch, head and row strides in elements (qb ... os);
-// tc 0 the CUDA-core kernel, with q and out contiguous and packed
-// chunk-major with their GQA group, (B, Hkv, C * G, D), and the strides
-// unused.  Needs chunk % page_size == 0, page_size a
-// power of two <= 32 and head_dim a multiple of 8, with 16-byte aligned
-// tensors.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for shapes it does not take.
+// A kv head's GQA group of `group` query heads is split over `hs` blocks
+// (hs, the last argument, divides group), each taking page_size * group / hs query rows: the
+// block of part p holds query heads h * group + p * group / hs + g, and the
+// first part alone writes the chunk's pages.  tc 1 takes the tensor-core
+// kernel (bfloat16, head_dim 64 or 128, 64 % page_size == 0, page_size *
+// group / hs <= 128), with q and out (B, Hq, C, D) given by their batch,
+// head and row strides in elements (qb ... os); tc 0 the CUDA-core kernel,
+// with q and out contiguous and packed chunk-major with their part of the
+// GQA group, (B, Hkv * hs, C * G / hs, D), and the strides unused.  Needs
+// chunk % page_size == 0, page_size a power of two <= 32 and head_dim a
+// multiple of 8, with 16-byte aligned tensors.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for shapes it does not take
+// (a block's shared memory past 227 KB among them).
 extern "C" int prefill_attention_launch(
     int dtype, int tc, const void* q, void* k, void* v, void* k_pages, void* v_pages,
     const void* tables, const void* starts, const void* lens, void* out,
     long long qb, long long qh, long long qs, long long ob, long long oh, long long os,
     int slots, int kv_heads, int group, int chunk, int d, int ps,
-    int max_pages, int num_pages, int window, float sm_scale, void* stream) {
+    int max_pages, int num_pages, int window, float sm_scale, void* stream, int hs) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (hs < 1 || group % hs != 0) return (int)cudaErrorInvalidValue;
+  group /= hs;  // query heads a block
   if (tc) {
     using B = __nv_bfloat16;
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     return launch_tc_any(d, q, am::Strides{qb, qh, qs}, ac::FpKV<B>{(B*)k, (B*)v},
                          ac::FpKV<B>{(B*)k_pages, (B*)v_pages}, tables, starts, lens, out,
-                         am::Strides{ob, oh, os}, slots, kv_heads, group, chunk, ps, max_pages,
-                         num_pages, window, sm_scale, s);
+                         am::Strides{ob, oh, os}, slots, kv_heads, group, hs, chunk, ps,
+                         max_pages, num_pages, window, sm_scale, s);
   }
   if (dtype == 0)
     return launch(q, ac::FpKV<float>{(float*)k, (float*)v},
                   ac::FpKV<float>{(float*)k_pages, (float*)v_pages}, tables,
-                  starts, lens, out, slots, kv_heads, group, chunk, d, ps,
+                  starts, lens, out, slots, kv_heads, group, hs, chunk, d, ps,
                   max_pages, num_pages, window, sm_scale, s);
   if (dtype == 1) {
     using B = __nv_bfloat16;
     return launch(q, ac::FpKV<B>{(B*)k, (B*)v},
                   ac::FpKV<B>{(B*)k_pages, (B*)v_pages}, tables, starts, lens,
-                  out, slots, kv_heads, group, chunk, d, ps, max_pages,
+                  out, slots, kv_heads, group, hs, chunk, d, ps, max_pages,
                   num_pages, window, sm_scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The quantized twin: pack 1 = int8, 2 = int4; the chunk's scales and the
-// scale pools are of q's dtype; tc and the strides of q and out as above
-// (the tensor-core kernel takes the same shapes, with bfloat16 scales).
+// scale pools are of q's dtype; tc, hs and the strides of q and out as
+// above (the tensor-core kernel takes the same shapes, with bfloat16
+// scales).
 // Needs head_dim / pack a multiple of 16 bytes, with 16-byte aligned packed
 // tensors.
 extern "C" int prefill_attention_quant_launch(
@@ -579,14 +596,16 @@ extern "C" int prefill_attention_quant_launch(
     void* v_scales, const void* tables, const void* starts, const void* lens,
     void* out, long long qb, long long qh, long long qs, long long ob, long long oh,
     long long os, int slots, int kv_heads, int group, int chunk, int d, int ps,
-    int max_pages, int num_pages, int window, float sm_scale, void* stream) {
+    int max_pages, int num_pages, int window, float sm_scale, void* stream, int hs) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (hs < 1 || group % hs != 0) return (int)cudaErrorInvalidValue;
+  group /= hs;  // query heads a block
 #define PF_QUANT_TC(P)                                                                      \
   return launch_tc_any(d, q, am::Strides{qb, qh, qs},                                      \
                        quant_kv<__nv_bfloat16, P>(k, v, k_scale, v_scale),                 \
                        quant_kv<__nv_bfloat16, P>(k_pages, v_pages, k_scales, v_scales),  \
                        tables, starts, lens, out, am::Strides{ob, oh, os}, slots, kv_heads, \
-                       group, chunk, ps, max_pages, num_pages, window, sm_scale, s)
+                       group, hs, chunk, ps, max_pages, num_pages, window, sm_scale, s)
   if (tc && dtype == 1 && pack == 1) PF_QUANT_TC(1);
   if (tc && dtype == 1 && pack == 2) PF_QUANT_TC(2);
 #undef PF_QUANT_TC
@@ -594,7 +613,7 @@ extern "C" int prefill_attention_quant_launch(
 #define PF_QUANT(T, P)                                                       \
   return launch(q, quant_kv<T, P>(k, v, k_scale, v_scale),                   \
                 quant_kv<T, P>(k_pages, v_pages, k_scales, v_scales), tables, \
-                starts, lens, out, slots, kv_heads, group, chunk, d, ps,     \
+                starts, lens, out, slots, kv_heads, group, hs, chunk, d, ps, \
                 max_pages, num_pages, window, sm_scale, s)
   if (dtype == 0 && pack == 1) PF_QUANT(float, 1);
   if (dtype == 0 && pack == 2) PF_QUANT(float, 2);

@@ -12,7 +12,9 @@ The routing rules are the reference's, kept as explicit rules:
   ``kv_len`` there (ops.py:219-225);
 * chunked prefill, GQA or MLA, fp or quantized, takes the kernel only when
   ``chunk % page_size == 0`` and the chunk spans at most ``max_pages`` pages
-  (ops.py:290, :392, :529, :628);
+  (ops.py:290, :392, :529, :628), and its caller did not ask for the plain
+  version (``plain=True``: the speculative verify, whose chunks start at any
+  position, ``lm.verify_step``; ``PLAIN_PREFILL`` counts those calls);
 * otherwise the kernel wrapper runs: it launches the CUDA kernel for CUDA
   tensors (or raises), and uses the kernel's plain version for CPU tensors.
 
@@ -60,6 +62,12 @@ KERNELS = {"paged_attention": _pa.KERNEL, "prefill_attention": _pf.KERNEL,
            "flash_attention": _fa.KERNEL, "chunk_state": _cst.KERNEL,
            "chunk_scan": _csc.KERNEL, "matmul": _mm.KERNEL,
            "dequant_matmul": _dq.KERNEL, "mla": _mla.KERNEL}
+
+# chunked-prefill calls their caller sent to the plain version (the
+# speculative verify), by entry point; a caller resets and reads them as it
+# does the kernels' launch counts
+PLAIN_PREFILL = {"prefill_attention": 0, "prefill_attention_quant": 0,
+                 "mla_prefill": 0, "mla_prefill_quant": 0}
 
 
 def guard_dispatch(tables, num_pages, page_size, work):
@@ -180,17 +188,20 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
 
 def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
                       start_lens, chunk_lens, *, sm_scale=None,
-                      window: Optional[int] = None, logit_soft_cap=None):
+                      window: Optional[int] = None, logit_soft_cap=None,
+                      plain: bool = False):
     """Chunked-prefill attention over a paged KV pool.
 
     ``q``/``k_new``/``v_new`` are the chunk's (B, H*, C, D) projections;
     ``start_lens`` (B,) counts prior resident tokens (the chunk's write
     offset) and ``chunk_lens`` (B,) the live tokens within the chunk.
     Returns ``(out, k_pages, v_pages)``: the chunk's K/V are written into the
-    given pools in place, through the block table.
+    given pools in place, through the block table.  ``plain`` takes the
+    plain version whatever the shape.
     """
-    if _prefill_takes_kernel(q.shape[2], k_pages.shape[2],
-                             block_tables.shape[1], logit_soft_cap):
+    if _prefill_takes_kernel("prefill_attention", plain, q.shape[2],
+                             k_pages.shape[2], block_tables.shape[1],
+                             logit_soft_cap):
         return _pf.prefill_attention(
             q, k_new, v_new, k_pages, v_pages, block_tables, start_lens,
             chunk_lens, sm_scale=sm_scale, window=window)
@@ -200,7 +211,13 @@ def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
         logit_soft_cap=logit_soft_cap)
 
 
-def _prefill_takes_kernel(chunk, page_size, max_pages, logit_soft_cap) -> bool:
+def _prefill_takes_kernel(name, plain, chunk, page_size, max_pages,
+                          logit_soft_cap) -> bool:
+    """The reference's rule for a chunked prefill's kernel, unless the
+    caller asked for the plain version (counted in ``PLAIN_PREFILL``)."""
+    if plain:
+        PLAIN_PREFILL[name] += 1
+        return False
     return (logit_soft_cap is None and chunk % page_size == 0
             and chunk // page_size <= max_pages)
 
@@ -224,7 +241,8 @@ def paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
 def prefill_attention_quant(q, k_new, v_new, k_pages, v_pages, k_scales,
                             v_scales, block_tables, start_lens, chunk_lens, *,
                             fmt: str = "int8", sm_scale=None,
-                            window: Optional[int] = None, logit_soft_cap=None):
+                            window: Optional[int] = None, logit_soft_cap=None,
+                            plain: bool = False):
     """Quantized chunked prefill (ops.py:373): the chunk's fp K/V are
     quantized per token here, the write-time quantization point, with scales
     in the scale pools' dtype; then the kernel (or the plain path) attends
@@ -236,8 +254,9 @@ def prefill_attention_quant(q, k_new, v_new, k_pages, v_pages, k_scales,
     ks, vs = ks.to(k_scales.dtype), vs.to(v_scales.dtype)
     args = (q, kq, vq, ks, vs, k_pages, v_pages, k_scales, v_scales,
             block_tables, start_lens, chunk_lens)
-    if _prefill_takes_kernel(q.shape[2], k_pages.shape[2],
-                             block_tables.shape[1], logit_soft_cap):
+    if _prefill_takes_kernel("prefill_attention_quant", plain, q.shape[2],
+                             k_pages.shape[2], block_tables.shape[1],
+                             logit_soft_cap):
         return _pfq.prefill_attention_quant(*args, fmt=fmt, sm_scale=sm_scale,
                                             window=window)
     return ref.paged_prefill_attention_quant(
@@ -261,15 +280,17 @@ def mla_paged(q_lat, q_pe, ckv_pages, kpe_pages, block_tables, seq_lens, *,
 
 def mla_prefill(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
                 block_tables, start_lens, chunk_lens, *, sm_scale=None,
-                window: Optional[int] = None, logit_soft_cap=None):
+                window: Optional[int] = None, logit_soft_cap=None,
+                plain: bool = False):
     """MLA chunked prefill over the latent pools (ops.py:506): ``q_lat``/
     ``q_pe`` (B, H, C, .), the chunk's ``ckv_new``/``kpe_new`` (B, C, .).
     Returns ``(out (B, H, C, R), ckv_pages, kpe_pages)``: the chunk's latents
     are written into the given pools in place, through the block table."""
     args = (q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages, block_tables,
             start_lens, chunk_lens)
-    if _prefill_takes_kernel(q_lat.shape[2], ckv_pages.shape[1],
-                             block_tables.shape[1], logit_soft_cap):
+    if _prefill_takes_kernel("mla_prefill", plain, q_lat.shape[2],
+                             ckv_pages.shape[1], block_tables.shape[1],
+                             logit_soft_cap):
         return _mf.mla_prefill(*args, sm_scale=sm_scale, window=window)
     return ref.paged_mla_prefill(*args, sm_scale=sm_scale, window=window,
                                  logit_soft_cap=logit_soft_cap)
@@ -292,7 +313,8 @@ def mla_paged_quant(q_lat, q_pe, ckv_pages, kpe_pages, ckv_scales, kpe_scales,
 def mla_prefill_quant(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
                       ckv_scales, kpe_scales, block_tables, start_lens,
                       chunk_lens, *, fmt: str = "int8", sm_scale=None,
-                      window: Optional[int] = None, logit_soft_cap=None):
+                      window: Optional[int] = None, logit_soft_cap=None,
+                      plain: bool = False):
     """Quantized MLA chunked prefill (ops.py:611): the chunk's latent and
     rope rows are quantized per token here, the write-time quantization
     point, with scales in the scale pools' dtype; then the kernel (or the
@@ -304,8 +326,9 @@ def mla_prefill_quant(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
     args = (q_lat, q_pe, cq, pq, cs.to(ckv_scales.dtype), ps.to(kpe_scales.dtype),
             ckv_pages, kpe_pages, ckv_scales, kpe_scales, block_tables,
             start_lens, chunk_lens)
-    if _prefill_takes_kernel(q_lat.shape[2], ckv_pages.shape[1],
-                             block_tables.shape[1], logit_soft_cap):
+    if _prefill_takes_kernel("mla_prefill_quant", plain, q_lat.shape[2],
+                             ckv_pages.shape[1], block_tables.shape[1],
+                             logit_soft_cap):
         return _mfq.mla_prefill_quant(*args, fmt=fmt, sm_scale=sm_scale,
                                       window=window)
     return ref.paged_mla_prefill_quant(*args, fmt=fmt, sm_scale=sm_scale,

@@ -10,12 +10,16 @@ tensors only.  For a CUDA tensor it launches the kernel or raises.
 
 The kernel has two paths, picked from dtype and shape alone
 (:func:`tensor_core_path`).  bf16 at head dim 64 or 128, with 64 keys a
-whole number of pages, a page's GQA rows (page_size * group) at most 128 and
-at most 16384 table entries a slot, runs on the tensor cores, which read q
-and write the output through their (B, Hq, C, D) strides, so the transposed
-views the prefill layer hands over cost no copy (``KERNEL.tc_launches``
-counts those launches).  The rest runs on CUDA cores over q packed
-chunk-major with its GQA group, a copy each way.
+whole number of pages and at most 16384 table entries a slot, runs on the
+tensor cores, which read q and write the output through their (B, Hq, C, D)
+strides, so the transposed views the prefill layer hands over cost no copy
+(``KERNEL.tc_launches`` counts those launches).  The rest runs on CUDA cores
+over q packed chunk-major with its GQA group, a copy each way.  A block
+holds one chunk page of a kv head's GQA group; where those rows do not fit
+a block (more than 128 on the tensor cores, more than the H100's 227 KB of
+shared memory on the CUDA cores: chatglm3-6b's group of 16 at page 16 is
+256 rows), the group is split over :func:`head_split` blocks, the first of
+which writes the chunk's pages.
 
 Kernel contract (the serving engine's chunk contract): ``chunk %
 page_size == 0``, ``chunk // page_size <= max_pages``, every live slot's
@@ -42,24 +46,55 @@ _I = ctypes.c_int
 KERNEL = Kernel(
     "prefill_attention", "prefill_attention_launch",
     [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, *([ctypes.c_longlong] * 6), _I,
-     _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+     _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _I],
     replaces="src/repro/kernels/prefill_attention.py:44",
 )
 TC_HEAD_DIMS = (64, 128)
 TC_KEYS = 64  # keys a tile on the tensor-core path
 TC_MAX_ROWS = 128  # query rows a block there (8 warps of 16)
 TC_MAX_PAGES = 16384  # table entries a block copies into shared memory
+MAX_SMEM = 232448  # a block's shared memory on the H100 (227 KB)
 
 
 def tensor_core_path(dtype: torch.dtype, head_dim: int, page_size: int,
                      group: int, max_pages: int) -> bool:
     """Whether a launch takes the tensor-core kernel: bf16 at a head dim it
-    is built for, pages that tile its 64-key tiles, one page's rows of the
-    GQA group within a block, and a table row that fits shared memory.
-    Slots, chunk, starts and lengths do not matter."""
+    is built for, pages that tile its 64-key tiles, and a table row that
+    fits shared memory.  Any GQA group fits, split over blocks by
+    :func:`head_split`.  Slots, chunk, starts and lengths do not matter."""
+    del group  # a page's rows of any group fit, split over blocks
     return (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
-            and TC_KEYS % page_size == 0 and page_size * group <= TC_MAX_ROWS
-            and max_pages <= TC_MAX_PAGES)
+            and TC_KEYS % page_size == 0 and max_pages <= TC_MAX_PAGES)
+
+
+def core_smem_bytes(rows: int, page_size: int, head_dim: int) -> int:
+    """Shared memory of a CUDA-core block of ``rows`` query rows
+    (``ac::Smem::bytes`` in csrc/attention_core.cuh: Q and a K tile padded
+    to D + 4 floats, a V tile, the accumulator, the scores, three carries)."""
+    d, c = head_dim, page_size
+    return 4 * (rows * (d + 4) + c * (d + 4) + c * d + rows * c + rows * d
+                + 3 * rows)
+
+
+def head_split(tc: bool, group: int, page_size: int, head_dim: int,
+               name: str = "prefill_attention") -> int:
+    """Blocks a kv head's GQA group is split over: the fewest, dividing the
+    group, whose page of query rows fits a block (``TC_MAX_ROWS`` on the
+    tensor cores, ``MAX_SMEM`` bytes on the CUDA cores).  Raises a
+    ``ValueError`` naming the bytes where even one head's page does not
+    fit, before any CUDA call."""
+    for hs in range(1, group + 1):
+        if group % hs:
+            continue
+        rows = page_size * (group // hs)
+        if rows <= TC_MAX_ROWS if tc else (
+                core_smem_bytes(rows, page_size, head_dim) <= MAX_SMEM):
+            return hs
+    need = core_smem_bytes(page_size, page_size, head_dim)
+    raise ValueError(
+        f"{name} kernel: one head's page of {page_size} rows at head_dim "
+        f"{head_dim} needs {need} bytes of shared memory, over the block's "
+        f"{MAX_SMEM}")
 
 
 def _require(cond: bool, msg: str):
@@ -103,10 +138,8 @@ def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     _require(k_pages.is_contiguous() and v_pages.is_contiguous()
              and block_tables.is_contiguous(), "pools and tables must be contiguous")
     tc = tensor_core_path(q.dtype, d, page_size, group, max_pages)
-    if tc:  # read and written through their strides by the kernel's row mapping
-        qp = kernel_layout(q)
-    else:  # pack queries chunk-major with their GQA group: row = i * group + g
-        qp = q.reshape(b, hkv, group, chunk, d).transpose(2, 3).contiguous()
+    hs = head_split(tc, group, page_size, d)
+    qp = packed_queries(q, hkv, hs, tc)
     kn, vn = k_new.contiguous(), v_new.contiguous()
     starts, lens = start_lens.contiguous(), chunk_lens.contiguous()
     out = torch.empty_like(qp)  # qp's strides: a (B, C, H, D) layout stays so
@@ -127,11 +160,29 @@ def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             starts.data_ptr(), lens.data_ptr(), out.data_ptr(), *strides, b, hkv, group,
             chunk, d, page_size, max_pages, num_pages,
-            window if window is not None else 0, scale, stream,
+            window if window is not None else 0, scale, stream, hs,
         )
     check(rc, "prefill_attention")
     KERNEL.launches += 1
     KERNEL.tc_launches += int(tc)
-    if not tc:
-        out = out.reshape(b, hkv, chunk, group, d).transpose(2, 3).reshape(b, hq, chunk, d)
-    return out, k_pages, v_pages
+    return unpacked_output(out, q.shape, hkv, hs, tc), k_pages, v_pages
+
+
+def packed_queries(q, hkv: int, hs: int, tc: bool):
+    """q as the kernel reads it: the tensor cores take (B, Hq, C, D) through
+    its strides; the CUDA cores take it packed chunk-major with each part of
+    a GQA group, (B, Hkv * hs, C * G / hs, D), row = i * G / hs + g."""
+    if tc:
+        return kernel_layout(q)
+    b, hq, chunk, d = q.shape
+    return q.reshape(b, hkv, hs, hq // (hkv * hs), chunk, d).transpose(3, 4).contiguous()
+
+
+def unpacked_output(out, shape, hkv: int, hs: int, tc: bool):
+    """The kernel's output back as (B, Hq, C, D): undoes
+    :func:`packed_queries`."""
+    if tc:
+        return out
+    b, hq, chunk, d = shape
+    sub = hq // (hkv * hs)
+    return out.reshape(b, hkv, hs, chunk, sub, d).transpose(3, 4).reshape(b, hq, chunk, d)

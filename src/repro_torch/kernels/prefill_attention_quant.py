@@ -37,14 +37,13 @@ import torch
 from . import ref
 from . import prefill_attention as _fp
 from .build import Kernel, check
-from .flash_attention import kernel_layout
 from .paged_attention import DTYPES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(
     "prefill_attention_quant", "prefill_attention_quant_launch",
-    [_I, _I, _I] + [_P] * 13 + [ctypes.c_longlong] * 6 + [_I] * 9 + [ctypes.c_float, _P],
+    [_I, _I, _I] + [_P] * 13 + [ctypes.c_longlong] * 6 + [_I] * 9 + [ctypes.c_float, _P, _I],
     replaces="src/repro/kernels/prefill_attention.py:157",
     source="prefill_attention",
 )
@@ -56,10 +55,10 @@ TC_MAX_PAGES = 8192
 def tensor_core_path(dtype: torch.dtype, head_dim: int, page_size: int,
                      group: int, max_pages: int) -> bool:
     """Whether a launch takes the tensor-core kernel: the fp kernel's rule
-    (bf16, head dim 64 or 128, pages that tile its 64-key tiles, a page's
-    GQA rows within a block), int8 or int4 alike, with a table row that
-    fits shared memory beside the staging area.  Slots, chunk, starts and
-    lengths do not matter."""
+    (bf16, head dim 64 or 128, pages that tile its 64-key tiles; any GQA
+    group, split over blocks by ``head_split``), int8 or int4 alike, with a
+    table row that fits shared memory beside the staging area.  Slots,
+    chunk, starts and lengths do not matter."""
     return (_fp.tensor_core_path(dtype, head_dim, page_size, group, max_pages)
             and max_pages <= TC_MAX_PAGES)
 
@@ -128,10 +127,8 @@ def prefill_attention_quant(q, k_q, v_q, k_s, v_s, k_pages, v_pages,
              f"a packed row ({dp} bytes) must be a multiple of 16 bytes and "
              f"page_size {page_size} a power of two <= 32")
     tc = tensor_core_path(q.dtype, d, page_size, group, max_pages)
-    if tc:  # read and written through their strides by the kernel's row mapping
-        qp = kernel_layout(q)
-    else:  # pack queries chunk-major with their GQA group: row = i * group + g
-        qp = q.reshape(b, hkv, group, chunk, d).transpose(2, 3).contiguous()
+    hs = _fp.head_split(tc, group, page_size, d, "prefill_attention_quant")
+    qp = _fp.packed_queries(q, hkv, hs, tc)
     kq, vq, ks, vs = (t.contiguous() for t in (k_q, v_q, k_s, v_s))
     starts, lens = start_lens.contiguous(), chunk_lens.contiguous()
     for name, t in (("q", qp), ("k_q", kq), ("v_q", vq), ("k_pages", k_pages),
@@ -148,11 +145,10 @@ def prefill_attention_quant(q, k_q, v_q, k_s, v_s, k_pages, v_pages,
             v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
             block_tables.data_ptr(), starts.data_ptr(), lens.data_ptr(),
             out.data_ptr(), *strides, b, hkv, group, chunk, d, page_size, max_pages,
-            num_pages, window if window is not None else 0, scale, stream,
+            num_pages, window if window is not None else 0, scale, stream, hs,
         )
     check(rc, "prefill_attention_quant")
     KERNEL.launches += 1
     KERNEL.tc_launches += int(tc)
-    if not tc:
-        out = out.reshape(b, hkv, chunk, group, d).transpose(2, 3).reshape(b, hq, chunk, d)
+    out = _fp.unpacked_output(out, q.shape, hkv, hs, tc)
     return out, k_pages, v_pages, k_scales, v_scales

@@ -204,20 +204,20 @@ def prefill_attention(
 
 def _chunk_scatter_index(start_lens, chunk_lens, block_tables, chunk: int,
                          page_size: int, num_pages: int):
-    """Where the plain path scatters each chunk position: ``(keep, phys,
-    off, pos)``.  The logical page is clamped to ``max_pages - 1`` and the
-    dead chunk tail goes to the reserved page 0 (ops.py:312-326); ``keep``
-    masks page ids outside the pool, whose write XLA drops (a torch index
-    would raise instead)."""
+    """Where the plain path scatters each chunk position: ``(phys, off,
+    pos)``.  The logical page is clamped to ``max_pages - 1`` and the dead
+    chunk tail goes to the reserved page 0 (ops.py:312-326).  A page id
+    outside the pool, whose write XLA drops, lands in page 0 too, as the
+    decode append's does: dropping it would take a boolean index, a host
+    sync on a card.  Only page 0's bytes differ, and nothing reads them."""
     max_pages = block_tables.shape[1]
     ar = torch.arange(chunk, dtype=torch.int32, device=block_tables.device)
     pos = start_lens.to(torch.int32)[:, None] + ar
     logical = torch.clamp(pos // page_size, 0, max_pages - 1)
     phys = torch.gather(block_tables.long(), 1, logical.long())  # (B, C)
     valid = ar[None, :] < chunk_lens.to(torch.int32)[:, None]
-    phys = torch.where(valid, phys, 0)
-    keep = (phys >= 0) & (phys < num_pages)
-    return keep, phys, (pos % page_size).long(), pos
+    valid &= (phys >= 0) & (phys < num_pages)
+    return torch.where(valid, phys, 0), (pos % page_size).long(), pos
 
 
 def _context_positions(start_lens, s_total: int):
@@ -238,15 +238,15 @@ def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     table (the logical page clamped to ``max_pages - 1``, the dead chunk tail
     sent to the reserved page 0), then runs :func:`prefill_attention` over
     the gathered pages.  Returns ``(out, k_pages, v_pages)`` with the pools
-    the same tensors as given.  A page id outside the pool is dropped, as
-    XLA drops an out-of-range scatter (a torch index would raise instead).
+    the same tensors as given.  A page id outside the pool lands in page 0,
+    where XLA drops it (:func:`_chunk_scatter_index`).
     """
     b, hq, chunk, d = q.shape
     hkv, num_pages, page_size, _ = k_pages.shape
-    keep, phys, off, pos = _chunk_scatter_index(
+    phys, off, pos = _chunk_scatter_index(
         start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
-    k_pages[:, phys[keep], off[keep]] = k_new.transpose(0, 1)[:, keep].to(k_pages.dtype)
-    v_pages[:, phys[keep], off[keep]] = v_new.transpose(0, 1)[:, keep].to(v_pages.dtype)
+    k_pages[:, phys, off] = k_new.transpose(0, 1).to(k_pages.dtype)
+    v_pages[:, phys, off] = v_new.transpose(0, 1).to(v_pages.dtype)
     tables = block_tables.long()
 
     def gathered(pages):  # (Hkv, B, max_pages, ps, D) -> (B, Hkv, S, D)
@@ -342,11 +342,11 @@ def paged_prefill_attention_quant(q, k_q, v_q, k_s, v_s, k_pages, v_pages,
     v_pages, k_scales, v_scales)``, the pools being the tensors given."""
     b, hq, chunk, d = q.shape
     hkv, num_pages, page_size, _ = k_pages.shape
-    keep, phys, off, pos = _chunk_scatter_index(
+    phys, off, pos = _chunk_scatter_index(
         start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
     for pool, new in ((k_pages, k_q), (v_pages, v_q), (k_scales, k_s),
                       (v_scales, v_s)):
-        pool[:, phys[keep], off[keep]] = new.transpose(0, 1)[:, keep].to(pool.dtype)
+        pool[:, phys, off] = new.transpose(0, 1).to(pool.dtype)
     tables = block_tables.long()
 
     def gathered(pages, scales):  # (Hkv, B, max_pages, ps, D) -> (B, Hkv, S, D)
@@ -511,10 +511,10 @@ def paged_mla_prefill(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
     ``(out (B, H, C, R), ckv_pages, kpe_pages)``, the pools as given."""
     b, h, chunk, r = q_lat.shape
     num_pages, page_size, _ = ckv_pages.shape
-    keep, phys, off, pos = _chunk_scatter_index(
+    phys, off, pos = _chunk_scatter_index(
         start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
-    ckv_pages[phys[keep], off[keep]] = ckv_new[keep].to(ckv_pages.dtype)
-    kpe_pages[phys[keep], off[keep]] = kpe_new[keep].to(kpe_pages.dtype)
+    ckv_pages[phys, off] = ckv_new.to(ckv_pages.dtype)
+    kpe_pages[phys, off] = kpe_new.to(kpe_pages.dtype)
     tables = block_tables.long()
     ckv_ctx = ckv_pages[tables].reshape(b, -1, r)
     kpe_ctx = kpe_pages[tables].reshape(b, -1, kpe_pages.shape[-1])
@@ -542,11 +542,11 @@ def paged_mla_prefill_quant(q_lat, q_pe, ckv_q, kpe_q, ckv_s, kpe_s,
     ``(out, ckv_pages, kpe_pages, ckv_scales, kpe_scales)``."""
     b, h, chunk, r = q_lat.shape
     num_pages, page_size, _ = ckv_pages.shape
-    keep, phys, off, pos = _chunk_scatter_index(
+    phys, off, pos = _chunk_scatter_index(
         start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
     for pool, new in ((ckv_pages, ckv_q), (kpe_pages, kpe_q),
                       (ckv_scales, ckv_s), (kpe_scales, kpe_s)):
-        pool[phys[keep], off[keep]] = new[keep].to(pool.dtype)
+        pool[phys, off] = new.to(pool.dtype)
     tables = block_tables.long()
 
     def gathered(pages, scales):  # (B, max_pages, ps, .) -> (B, S, .)

@@ -22,11 +22,23 @@ the frontend model (``internvl2_26b``) text only, with no prefix, as the
 reference serves it.  An encoder-decoder model (``whisper_tiny``) is
 refused with the reference's ``SystemExit``.
 
-Options of the reference that are not ported yet (``--spec-decode``,
-``--audit``, ``--cache contiguous`` for an attention model,
-``--temperature`` > 0) raise ``NotImplementedError`` naming their ROADMAP
-item.  The summary line is the reference's, followed by the kernel launch
-counts of the run.
+Sampling and speculative decoding are the reference's flags:
+``--temperature 0.8 --seed 3`` samples under the reference's threefry key
+stream (the same tokens as the JAX package on the same weights), and
+``--spec-decode ngram --draft-len 4`` drafts 4 tokens a round from each
+request's own history and verifies them in one chunk (with ``--sync-every
+N``, up to N rounds a dispatch):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1_5b \
+        --reduced --device cpu --temperature 0.8 --seed 3 \
+        --spec-decode ngram --draft-len 4 --sync-every 4
+
+Options of the reference that are not ported yet (``--audit``, ``--cache
+contiguous`` for an attention model) raise ``NotImplementedError`` naming
+their ROADMAP item.  The summary line is the reference's (with the window's
+and speculation's counts: "k/n drafts accepted (rate)" counts the drafts
+verify accepted, not the model's own token each round adds), followed by
+the kernel launch counts of the run.
 """
 from __future__ import annotations
 
@@ -76,7 +88,7 @@ def parser() -> argparse.ArgumentParser:
                          "decode ticks on the device per dispatch once every "
                          "active request is generating")
     ap.add_argument("--spec-decode", choices=["ngram"], default=None,
-                    help="speculative decoding (not ported yet)")
+                    help="speculative decoding: the draft proposer")
     ap.add_argument("--draft-len", type=int, default=4)
     ap.add_argument("--audit", action="store_true",
                     help="per-tick invariant auditor (not ported yet)")
@@ -138,6 +150,18 @@ def main(argv=None):
         f", {engine.cache_mode} cache: peak {engine.peak_kv_blocks()} "
         f"blocks, {engine.preemptions} preemptions"
     )
+    if engine.sync_every > 1:
+        extra += (
+            f", {engine.decode_windows} multi-step windows "
+            f"({engine.window_fallbacks} fallbacks)"
+        )
+    if engine.spec_proposer is not None:  # serve.py:118-120
+        rate = engine.spec_accepted / max(engine.spec_proposed, 1)
+        extra += (
+            f", {engine.spec_windows} spec windows: "
+            f"{engine.spec_accepted}/{engine.spec_proposed} drafts accepted "
+            f"({rate:.2f})"
+        )
     ttfts = [r.ttft_ticks for r in done if r.ttft_ticks is not None]
     if ttfts:
         extra += f", mean TTFT {sum(ttfts)/len(ttfts):.1f} ticks"

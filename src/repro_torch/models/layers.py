@@ -268,7 +268,7 @@ def attention_decode_paged(params, x, cfg: ModelConfig, cache, pos, tables,
 
 
 def attention_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables,
-                            lens, window=None, rope_fraction=1.0):
+                            lens, window=None, rope_fraction=1.0, plain=False):
     """Chunk-wide prefill against a paged KV pool (layers.py:280).
 
     ``x`` is a (B, C, d) block of prompt tokens per slot; ``pos`` (B,) each
@@ -277,7 +277,9 @@ def attention_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables,
     place (inside the CUDA kernel, or by the plain path's masked scatter)
     and every chunk query attends prior pages plus the chunk causally.  With
     ``cfg.kv_dtype`` the chunk is quantized and attended as its dequantized
-    round trip, and its packed bytes and scales land in the four pools."""
+    round trip, and its packed bytes and scales land in the four pools.
+    ``plain`` sends the attention to the plain version (the speculative
+    verify's chunks, ``lm.verify_step``)."""
     b, c, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _qkv(params, x, cfg)  # (b, c, ...)
@@ -290,12 +292,12 @@ def attention_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables,
         out = ops.prefill_attention_quant(
             *qkv, cache["k_pages"], cache["v_pages"], cache["k_scale_pages"],
             cache["v_scale_pages"], tables, starts, lens, fmt=cfg.kv_dtype,
-            window=window, logit_soft_cap=cfg.logit_soft_cap,
+            window=window, logit_soft_cap=cfg.logit_soft_cap, plain=plain,
         )[0]
     else:
         out = ops.prefill_attention(
             *qkv, cache["k_pages"], cache["v_pages"], tables, starts, lens,
-            window=window, logit_soft_cap=cfg.logit_soft_cap,
+            window=window, logit_soft_cap=cfg.logit_soft_cap, plain=plain,
         )[0]
     out = out.transpose(1, 2).reshape(b, c, h * hd)
     return out.to(x.dtype) @ params["wo"]
@@ -452,13 +454,14 @@ def _mla_prefill_qkv(params, x, cfg: ModelConfig, posmat):
 
 
 def mla_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables, lens,
-                      window=None):
+                      window=None, plain=False):
     """Chunk-wide MLA prefill against the latent page pools (layers.py:635):
     the chunk's latents land in the pages holding ``[pos, pos + lens)`` in
     place (inside the CUDA kernel, or by the plain path's masked scatter) and
     every chunk query attends prior pages plus the chunk causally, in latent
     space.  With ``cfg.kv_dtype`` the chunk is quantized and attended as its
-    dequantized round trip.  Returns the output projection (B, C, d)."""
+    dequantized round trip; ``plain`` sends the attention to the plain
+    version.  Returns the output projection (B, C, d)."""
     c = x.shape[1]
     posmat = pos[:, None] + torch.arange(c, dtype=torch.int32, device=x.device)
     q_lat, q_pe, c_kv, k_pe = _mla_prefill_qkv(params, x, cfg, posmat)
@@ -467,7 +470,7 @@ def mla_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables, lens,
             cache["kpe_pages"])
     starts, lens = pos.to(torch.int32), lens.to(torch.int32)
     kw = dict(sm_scale=_mla_scale(cfg), window=window,
-              logit_soft_cap=cfg.logit_soft_cap)
+              logit_soft_cap=cfg.logit_soft_cap, plain=plain)
     if cfg.kv_dtype is not None:
         out = ops.mla_prefill_quant(
             *args, cache["ckv_scale_pages"], cache["kpe_scale_pages"], tables,

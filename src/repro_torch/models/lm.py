@@ -421,17 +421,20 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
     return _soft_cap(cfg, logits), cache
 
 
-def decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, live,
-                remaining, *, n_steps: int, sample_fn, eos_id: int,
+def decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, key,
+                live, remaining, *, n_steps: int, sample_fn, eos_id: int,
                 max_len: int):
     """Up to ``n_steps`` decode ticks with no host transfer between them:
     the device-resident decode loop of the multi-step window (lm.py:602).
 
     ``feed`` (B,) is each slot's last known token, ``pos`` (B,) its next
-    write position, ``live`` (B,) bool the slots generating, ``remaining``
-    (B,) each slot's token allowance, all device tensors, and they stay on
-    the device: ``sample_fn(logits) -> tokens`` samples there, and the stop
-    rule is applied with masks, so nothing in the loop waits for the host.
+    write position, ``key`` the PRNG key carry (``serving.prng``; None when
+    greedy), ``live`` (B,) bool the slots generating, ``remaining`` (B,)
+    each slot's token allowance, all device tensors, and they stay on the
+    device: ``sample_fn(logits, key, gate) -> (tokens, key)`` samples there
+    (``gate``, the any-slot-live flag, leaves the key unadvanced once every
+    slot has stopped), and the stop rule is applied with masks, so nothing
+    in the loop waits for the host.
     Per iteration, as the per-tick engine's ``_emit_token``: a live slot
     feeds its token, samples the next, advances ``pos`` and burns one
     ``remaining``; it stops when the token equals ``eos_id``, its allowance
@@ -442,21 +445,22 @@ def decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, live,
     recurrent state (SSM, hybrid) is held for dead slots by ``live``
     (:func:`decode_step`).
 
-    Returns ``(tokens (n_steps, B) int32, emitted (n_steps, B) bool)``:
+    Returns ``(tokens (n_steps, B) int32, emitted (n_steps, B) bool, key)``:
     ``emitted[t, b]`` marks a token the host must deliver; rows after the
     last live iteration are all False.  The pools of ``cache`` are written
     in place."""
     toks, emitted = [], []
     for _ in range(n_steps):
         logits, cache = decode_step(params, cfg, cache, feed, pos, live=live)
-        tok = torch.where(live, sample_fn(logits), feed)
+        tok, key = sample_fn(logits, key, live.any())
+        tok = torch.where(live, tok, feed)
         pos = torch.where(live, pos + 1, pos)
         remaining = torch.where(live, remaining - 1, remaining)
         stop = (tok == eos_id) | (remaining <= 0) | (pos >= max_len)
         toks.append(tok)
         emitted.append(live)
         feed, live = tok, live & ~stop
-    return torch.stack(toks), torch.stack(emitted)
+    return torch.stack(toks), torch.stack(emitted), key
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
@@ -464,9 +468,11 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     return cfg.attention in ("gqa", "mla") and cfg.family not in ("ssm", "hybrid")
 
 
-def _prefill_trunk(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
+def _prefill_trunk(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens,
+                   plain: bool = False):
     """Embed, every block's chunk attention + KV page writes, final norm
-    (lm.py:706).  Returns ``x (B, C, d)``."""
+    (lm.py:706).  Returns ``x (B, C, d)``.  ``plain`` sends every block's
+    attention to the plain version (``kernels.ops``' ``plain`` argument)."""
     if not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"chunked prefill supports attention archs (GQA/MLA); {cfg.name} "
@@ -482,11 +488,12 @@ def _prefill_trunk(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
         pools = cache.layer(i)
         if cfg.attention == "mla":
             attend = lambda pa, h: L.mla_prefill_paged(  # noqa: E731
-                pa, h, cfg, pools, pos, cache.tables, lens, window=wlist[i])
+                pa, h, cfg, pools, pos, cache.tables, lens, window=wlist[i],
+                plain=plain)
         else:
             attend = lambda pa, h: L.attention_prefill_paged(  # noqa: E731
                 pa, h, cfg, pools, pos, cache.tables, lens, window=wlist[i],
-                rope_fraction=rf)
+                rope_fraction=rf, plain=plain)
         x, _ = _block(p, x, cfg, attend)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), lens
 
@@ -501,6 +508,133 @@ def prefill_step(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
     x_last = x[torch.arange(x.shape[0], device=x.device), last]
     logits = L.unembed(params["embed"], x_last, cfg)
     return _soft_cap(cfg, logits), cache
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def verify_step(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
+    """Speculative verify (lm.py:780): the chunked prefill's trunk (the same
+    table-directed KV page writes) with every chunk position unembedded.
+    Returns ``(logits (B, C, V) fp32, cache)``; rows of idle slots (``lens
+    == 0``) are garbage the caller masks.
+
+    Its attention takes the plain version at every chunk width, by
+    construction: a verify chunk (``draft_len + 1`` tokens) starts at any
+    position, while the prefill kernels write whole chunk pages from a
+    page-aligned start (a width that is a multiple of the page size would
+    otherwise reach them and overwrite the slot's earlier tokens in its
+    first page).  ``kernels.ops.PLAIN_PREFILL`` counts those calls."""
+    x, _ = _prefill_trunk(params, cfg, cache, tokens, pos, lens, plain=True)
+    return _soft_cap(cfg, L.unembed(params["embed"], x, cfg)), cache
+
+
+def ngram_propose(history, pos, feed, draft_len: int):
+    """The self-speculation proposer (lm.py:800): n-gram lookahead over each
+    slot's own tokens.  ``history`` (B, H) int32 holds them by position
+    (``history[b, pos[b]] == feed[b]``, entries past ``pos`` undefined).
+    The most recent earlier occurrence of the slot's (previous, last)
+    bigram, else of its last token, proposes the ``draft_len`` tokens that
+    followed it; no match (or one too close to the end) repeats ``feed``.
+    Proposals are always valid token ids: verify rejects wrong ones."""
+    b, h = history.shape
+    dev = history.device
+    last = feed.to(torch.int32)
+    pos = pos.to(torch.int32)
+    js = torch.arange(h, dtype=torch.int32, device=dev)[None, :]
+    uni = (js < pos[:, None]) & (history == last[:, None])  # strictly past
+    before = torch.clamp(pos - 1, 0, h - 1).long()[:, None]
+    prev = torch.where(pos > 0, history.gather(1, before)[:, 0],
+                       torch.full_like(pos, -1))
+    shifted = torch.cat([torch.full((b, 1), -1, dtype=history.dtype, device=dev),
+                         history[:, :-1]], dim=1)
+    bi = uni & (shifted == prev[:, None])
+    none = torch.full_like(js.expand(b, h), -1)
+    j_bi = torch.where(bi, js, none).amax(dim=1)
+    j_uni = torch.where(uni, js, none).amax(dim=1)
+    j = torch.where(j_bi >= 0, j_bi, j_uni)
+    cols = j[:, None] + 1 + torch.arange(draft_len, dtype=torch.int32, device=dev)[None, :]
+    ok = (j[:, None] >= 0) & (cols <= pos[:, None])
+    cand = history.gather(1, torch.clamp(cols, 0, h - 1).long())
+    return torch.where(ok, cand, last[:, None])
+
+
+# Draft proposers by ``ServeConfig.spec_decode`` name (lm.py:842): any
+# (history, pos, feed, draft_len) -> (B, draft_len) function qualifies,
+# since verify never trusts a proposal.
+DRAFT_PROPOSERS = {"ngram": ngram_propose}
+
+
+def spec_decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, key,
+                     live, remaining, history, *, n_rounds: int,
+                     draft_len: int, propose_fn, sample_fn, accept_fn,
+                     eos_id: int, max_len: int):
+    """``n_rounds`` draft-verify rounds with no host transfer between them
+    (lm.py:845): each round proposes ``draft_len`` tokens from the slot's
+    own history (``propose_fn``), scores them with the feed token in one
+    chunk (:func:`verify_step`), and emits the accepted prefix plus the
+    model's own next token.  Accept and rollback are masks: the verify chunk
+    writes KV for every position, and a rejected tail is cut by not
+    advancing ``pos`` past the accepted prefix (the next round overwrites
+    it; the engine trims the unused grow-ahead pages at the boundary).
+
+    ``sample_fn(logits (B, C, V), key, gate) -> (targets (B, C), key)``
+    splits the key a fixed number of times a live round
+    (``sampling.spec_sample_step``); ``accept_fn(drafts, targets) -> (B, C)
+    bool`` is the leading-accept mask (``sampling.spec_accept``).  Greedy
+    targets make the stream byte-identical to plain decode.  Per position
+    the per-tick stop rule applies: an earlier EOS, the allowance,
+    ``max_len``.  A slot whose verify logits hold no finite value emits
+    nothing and stops, flagged in ``bad`` (the reference's fault injector
+    also poisons them; the port has none yet, ROADMAP Queue 1 item 11).
+    ``history`` (B, max_len) int32 is updated in place with the emitted
+    tokens.
+
+    Returns ``(targets (n, B, C) int32, emitted (n, B, C) bool, bad (n, B)
+    bool, key)`` with ``C = draft_len + 1``; the pools of ``cache`` are
+    written in place."""
+    c = draft_len + 1
+    dev = feed.device
+    feed = feed.to(torch.int32)
+    pos = pos.to(torch.int32)
+    remaining = remaining.to(torch.int32)
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    b, h = history.shape
+    rows = torch.arange(b, device=dev)[:, None]
+    toks, emits, bads = [], [], []
+    for _ in range(n_rounds):
+        drafts = propose_fn(history, pos, feed, draft_len)
+        chunk = torch.cat([feed[:, None], drafts], dim=1)
+        lens = torch.where(live, c, 0).to(torch.int32)
+        logits, cache = verify_step(params, cfg, cache, chunk, pos, lens)
+        bad = (~torch.isfinite(logits).any(dim=-1)).any(dim=-1) & live
+        tgt, key = sample_fn(logits, key, live.any())
+        eos_hit = tgt == eos_id
+        ieos = eos_hit.to(torch.int32)
+        prev_eos = (torch.cumsum(ieos, dim=1) - ieos) > 0
+        emit = (accept_fn(drafts, tgt) & ~prev_eos
+                & ((pos[:, None] + idx[None, :]) < max_len)
+                & (idx[None, :] < remaining[:, None])
+                & live[:, None] & ~bad[:, None])
+        nem = emit.sum(dim=1, dtype=torch.int32)
+        last_tok = tgt.gather(1, torch.clamp(nem - 1, 0, c - 1).long()[:, None])[:, 0]
+        feed = torch.where(nem > 0, last_tok, feed)
+        # the emitted tokens join the history (a column past its end drops)
+        wcols = torch.where(emit, pos[:, None] + 1 + idx[None, :], h)
+        wide = torch.cat([history, history[:, :1]], dim=1)
+        wide[rows, wcols.long()] = tgt.to(history.dtype)
+        history.copy_(wide[:, :h])
+        pos = pos + nem
+        remaining = remaining - nem
+        stop = ((emit & eos_hit).any(dim=1) | (remaining <= 0)
+                | (pos >= max_len) | bad)
+        live = live & ~stop
+        toks.append(tgt)
+        emits.append(emit)
+        bads.append(bad)
+    return torch.stack(toks), torch.stack(emits), torch.stack(bads), key
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,20 @@ ticks (``steps_run``, TTFT ticks, preemptions and shared pages are equal):
   is generating, up to ``sync_every`` decode ticks run back to back on the
   device (``lm.decode_loop``) after one all-or-nothing grow-ahead page
   grant, and the host drains their tokens once at the end;
+* **sampling** (``temperature > 0``): each step samples on the device
+  (``sampling.sample_step``) under a device-resident PRNG key carry, the
+  reference's threefry stream (``serving.prng``), advanced exactly where the
+  reference's jitted steps advance it: once a decode step and once a
+  prefill step, and once an iteration of the window while any slot lives;
+  greedy never splits it;
+* **speculative decoding** (``spec_decode="ngram"``): when every active
+  slot is generating, up to ``sync_every`` draft-verify rounds run on the
+  device (``lm.spec_decode_loop``): each drafts ``draft_len`` tokens from
+  the slot's own history, scores them with the feed token in one chunk
+  (``lm.verify_step``, whose attention takes the plain version: its chunks
+  start at any position), and emits the accepted prefix plus the model's
+  own next token.  Greedy streams are byte-identical to plain decode; a
+  sampled round splits the key ``draft_len + 2`` ways whatever it accepts;
 * request lifecycle: every request ends in one terminal status through one
   exit path (``_terminate``) that releases its pages; deadlines and
   ``cancel()`` are honoured before each dispatch.
@@ -44,11 +58,10 @@ recurrent state are updated in place and the sampled token ids are the
 only per-tick download (one per window with ``sync_every > 1``).
 
 Not ported yet, each raising ``NotImplementedError`` where it is asked for:
-``spec_decode`` (ROADMAP Queue 1 item 12; for a model without chunked
-prefill the reference's ``ValueError`` comes first), ``cache="contiguous"``
-for an attention model (item 4), ``audit=True`` and fault injection (item
-11), ``temperature > 0`` (item 5, with or without the window), and
-``drain``/``shutdown``/``snapshot`` (item 11).
+``cache="contiguous"`` for an attention model (ROADMAP Queue 1 item 4),
+``audit=True`` and fault injection (item 11), and
+``drain``/``shutdown``/``snapshot`` (item 11).  ``spec_decode`` for a model
+without chunked prefill raises the reference's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -72,7 +85,8 @@ from .paged_cache import (
     SlotTables,
     blocks_for,
 )
-from .sampling import sample_step
+from . import prng
+from .sampling import sample_step, spec_accept, spec_sample_step
 
 
 def plan_prefill_chunks(
@@ -137,9 +151,14 @@ class ServeConfig:
     # generating, after an all-or-nothing grow-ahead page grant (else that
     # boundary falls back to a per-tick step)
     sync_every: int = 1
-    # -- options of the reference not ported yet (each raises) ------------
+    # -- speculative decoding ---------------------------------------------
+    # draft proposer name (lm.DRAFT_PROPOSERS) or None = off; a round drafts
+    # draft_len tokens and verifies them with the feed token in one chunk,
+    # up to sync_every rounds a dispatch; needs a chunked-prefill model
+    # (checked at engine init)
     spec_decode: Optional[str] = None
     draft_len: int = 4
+    # -- not ported yet (raises) ------------------------------------------
     audit: bool = False
     # base ticks a preemption victim waits before re-admission, doubling
     # per preemption (capped at 32x).  0 = immediate re-admission.
@@ -175,17 +194,21 @@ class ServeConfig:
             raise ValueError(
                 f"retry_backoff must be >= 0, got {self.retry_backoff}"
             )
+        if (self.spec_decode is not None
+                and self.spec_decode not in lm.DRAFT_PROPOSERS):
+            raise ValueError(
+                f"unknown spec_decode proposer {self.spec_decode!r} "
+                f"(registered: {sorted(lm.DRAFT_PROPOSERS)})"
+            )
         if self.kv_dtype is not None and self.cache != "paged":
             # the reference raises this at engine init (engine.py:500)
             raise ValueError(
                 f"kv_dtype={self.kv_dtype!r} requires cache='paged'")
         # no option is silently ignored: what is not ported raises (here,
-        # or at engine init where the model decides: spec_decode, and the
-        # contiguous layout of an attention model, lm.init_cache)
+        # or at engine init where the model decides: the contiguous layout
+        # of an attention model, lm.init_cache)
         if self.audit:
             _not_ported("audit=True (the invariant auditor)", "11")
-        if self.temperature > 0.0:
-            _not_ported(f"temperature={self.temperature}", "5")
 
 
 # Request lifecycle: QUEUED <-> RUNNING (preemption re-queues), ending in
@@ -308,16 +331,24 @@ class ServingEngine:
             if serve_cfg.prefill == "chunked" and lm.supports_chunked_prefill(cfg)
             else "replay"
         )
+        # the PRNG key, a device carry advanced only by sampling steps
+        self._key = prng.key(serve_cfg.seed, device=self.device)
         self.sync_every = max(1, serve_cfg.sync_every)
-        if serve_cfg.spec_decode is not None:
-            if not lm.supports_chunked_prefill(cfg):
-                # engine.py:575: the verify pass is a chunked prefill
-                raise ValueError(
-                    f"spec_decode={serve_cfg.spec_decode!r} requires a chunked-"
-                    f"prefill arch (GQA/MLA); {cfg.name} (attention="
-                    f"{cfg.attention}, family={cfg.family}) cannot run the "
-                    "verify pass")
-            _not_ported(f"spec_decode={serve_cfg.spec_decode!r}", "12")
+        if (serve_cfg.spec_decode is not None
+                and not lm.supports_chunked_prefill(cfg)):
+            # engine.py:575: the verify pass is a chunked prefill
+            raise ValueError(
+                f"spec_decode={serve_cfg.spec_decode!r} requires a chunked-"
+                f"prefill arch (GQA/MLA); {cfg.name} (attention="
+                f"{cfg.attention}, family={cfg.family}) cannot run the "
+                "verify pass")
+        self.spec_proposer = serve_cfg.spec_decode
+        self.spec_windows = 0  # speculative dispatches taken
+        self.spec_rounds = 0  # draft-verify rounds drained (>=1 emit or bad)
+        self.spec_proposed = 0  # draft tokens scored by verify
+        self.spec_accepted = 0  # draft tokens accepted (excl. the bonus token)
+        self.spec_all_rejected = 0  # live slot-rounds accepting zero drafts
+        self.spec_fallbacks = 0  # spec window declined -> plain window/tick
         # the device block table is re-uploaded only after the scheduler
         # mutates tables (admission growth, grow-ahead grants and trims,
         # preemption, EOS recycling, COW)
@@ -576,15 +607,26 @@ class ServingEngine:
             self.table_uploads += 1
         return self.cache
 
-    def _greedy(self, logits) -> torch.Tensor:
-        return sample_step(logits, temperature=self.scfg.temperature)[0]
+    def _window_sample(self, logits, key, gate):
+        """The window's ``sample_fn``: one decode iteration's tokens, the key
+        split only while ``gate`` (any slot live) holds."""
+        return sample_step(logits, key, temperature=self.scfg.temperature,
+                           gate=gate)
+
+    def _spec_sample(self, logits, key, gate):
+        """The speculative window's ``sample_fn``: a target a chunk
+        position, the key split draft_len + 2 ways a live round."""
+        return spec_sample_step(logits, key, temperature=self.scfg.temperature,
+                                gate=gate)
 
     def _sample(self, logits) -> Tuple[np.ndarray, np.ndarray]:
-        """Greedy tokens plus a per-row flag for logits with no finite value
-        (failed instead of emitted), in one download."""
+        """Sampled tokens (the key carry advanced once, unless greedy) plus
+        a per-row flag for logits with no finite value (failed instead of
+        emitted), in one download."""
         bad = ~torch.isfinite(logits).any(dim=-1)
-        both = torch.stack([self._greedy(logits), bad.to(torch.int32)])
-        both = both.cpu().numpy()
+        tok, self._key = sample_step(logits, self._key,
+                                     temperature=self.scfg.temperature)
+        both = torch.stack([tok, bad.to(torch.int32)]).cpu().numpy()
         return both[0], both[1].astype(bool)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -635,7 +677,13 @@ class ServingEngine:
                 self.steps_run += 1
             return 0
         self.dispatches += 1
-        if self.sync_every > 1 and all(self._gen_ready(s) for s in active):
+        all_gen = all(self._gen_ready(s) for s in active)
+        if self.spec_proposer is not None and all_gen:
+            done = self._step_spec_window(active)
+            if done is not None:
+                return done
+            self.spec_fallbacks += 1  # no headroom / grant denied
+        if self.sync_every > 1 and all_gen:
             done = self._step_window(active)
             if done is not None:
                 return done
@@ -708,13 +756,9 @@ class ServingEngine:
                 if self.tables.trim(s, int(self.pos[s]) + 1):
                     self._tables_dirty = True
 
-    def _step_window(self, active: List[int]) -> Optional[int]:
-        """Up to ``sync_every`` decode ticks in one dispatch
-        (engine.py:1042).  Feed, positions, stop flags and emitted tokens
-        stay on the device through ``lm.decode_loop``; the host uploads one
-        feed vector and downloads one token buffer.  Returns #active slots,
-        or ``None`` when the pool cannot cover the worst-case window (the
-        caller falls back to a per-tick step)."""
+    def _window_inputs(self, active: List[int]):
+        """Each slot's feed (its last known token), live flag and token
+        allowance for a multi-step window over the ``active`` slots."""
         b = self.scfg.slots
         feed = np.zeros((b,), np.int32)
         live = np.zeros((b,), bool)
@@ -725,6 +769,16 @@ class ServingEngine:
             live[s] = True
             limit = req.max_new_tokens or self.scfg.max_new_tokens
             rem[s] = limit - len(req.output)
+        return feed, live, rem
+
+    def _step_window(self, active: List[int]) -> Optional[int]:
+        """Up to ``sync_every`` decode ticks in one dispatch
+        (engine.py:1042).  Feed, positions, stop flags and emitted tokens
+        stay on the device through ``lm.decode_loop``; the host uploads one
+        feed vector and downloads one token buffer.  Returns #active slots,
+        or ``None`` when the pool cannot cover the worst-case window (the
+        caller falls back to a per-tick step)."""
+        feed, live, rem = self._window_inputs(active)
         # clamp the window to the slots' host-known spans (token allowance
         # and max_len headroom) by halving, as the reference does: iterations
         # past every slot's stop would burn full-batch decode steps and delay
@@ -737,10 +791,10 @@ class ServingEngine:
         spans = {s: min(n, int(rem[s]) + 1) for s in active}
         if not self._prepare_window(active, spans):
             return None
-        toks, emitted = lm.decode_loop(
+        toks, emitted, self._key = lm.decode_loop(
             self.params, self.cfg, self._fresh_cache(), self._dev(feed),
-            self._dev(self.pos), self._dev(live), self._dev(rem), n_steps=n,
-            sample_fn=self._greedy, eos_id=self.scfg.eos_id,
+            self._dev(self.pos), self._key, self._dev(live), self._dev(rem),
+            n_steps=n, sample_fn=self._window_sample, eos_id=self.scfg.eos_id,
             max_len=self.scfg.max_len)
         self.decode_windows += 1
         both = torch.cat([toks, emitted.to(torch.int32)]).cpu().numpy()
@@ -761,6 +815,109 @@ class ServingEngine:
                 self._emit_token(s, req, int(toks[t, s]))
             self.tick_tokens.append(int(row.sum()))
             self.steps_run += 1
+        self._trim_to_pos(active)
+        return len(active)
+
+    # -- speculative draft-verify window --------------------------------
+    def _step_spec_window(self, active: List[int]) -> Optional[int]:
+        """Up to ``sync_every`` draft-verify rounds in one dispatch
+        (engine.py:1115, ``lm.spec_decode_loop``).  Each round's verify chunk
+        writes ``draft_len + 1`` positions through the block tables, so the
+        grow-ahead covers a slot's worst case, ``n * (draft_len + 1)``
+        tokens capped by its allowance plus one round's draft tail; rejected
+        tails stay behind the position carry and ``trim`` returns their
+        pages at the boundary.  Returns #active slots, or ``None`` when a
+        slot lacks ``max_len`` headroom for even one round or the grant /
+        COW / guard preamble declines (the caller falls back to the plain
+        window or a per-tick step, byte-identical by construction)."""
+        scfg = self.scfg
+        k = scfg.draft_len
+        c = k + 1
+        b = scfg.slots
+        feed, live, rem = self._window_inputs(active)
+
+        def span(s: int, n: int) -> int:
+            # furthest write over n rounds: each chunk lands c positions from
+            # the slot's position, and a live round commits at least one
+            return min(n * c, int(rem[s]) + k)
+
+        # halve the rounds to the emission spans, then until every slot's
+        # worst-case chunk write fits under max_len (a verify chunk writes
+        # ahead of what it commits, so headroom is a precondition)
+        n = self.sync_every
+        max_rounds = max(
+            -(-min(int(rem[s]), scfg.max_len - int(self.pos[s])) // c)
+            for s in active
+        )
+        while n // 2 >= max_rounds:
+            n //= 2
+        while n > 1 and any(
+            int(self.pos[s]) + span(s, n) > scfg.max_len for s in active
+        ):
+            n //= 2
+        if any(int(self.pos[s]) + span(s, n) > scfg.max_len for s in active):
+            return None  # a slot within c of max_len: the plain path ends it
+        spans = {s: span(s, n) for s in active}
+        if not self._prepare_window(active, spans):
+            return None
+
+        hist = np.zeros((b, scfg.max_len), np.int32)
+        for s in active:
+            req = self.slot_req[s]
+            toks = req.prompt + req.output
+            hist[s, : len(toks)] = toks
+        toks, emitted, bad, self._key = lm.spec_decode_loop(
+            self.params, self.cfg, self._fresh_cache(), self._dev(feed),
+            self._dev(self.pos), self._key, self._dev(live), self._dev(rem),
+            self._dev(hist), n_rounds=n, draft_len=k,
+            propose_fn=lm.DRAFT_PROPOSERS[self.spec_proposer],
+            sample_fn=self._spec_sample, accept_fn=spec_accept,
+            eos_id=scfg.eos_id, max_len=scfg.max_len)
+        self.spec_windows += 1
+        flat = torch.cat([toks.flatten(), emitted.flatten().to(torch.int32),
+                          bad.flatten().to(torch.int32)]).cpu().numpy()
+        m = n * b * c
+        toks = flat[:m].reshape(n, b, c)
+        emitted = flat[m:2 * m].reshape(n, b, c).astype(bool)
+        bad = flat[2 * m:].reshape(n, b).astype(bool)
+        # drain: replay each round through the per-tick path's bookkeeping;
+        # the emit masks already hold acceptance, EOS, the allowance and
+        # max_len, so _emit_token stops on exactly the tokens they deliver
+        for t in range(n):
+            row = emitted[t]
+            rbad = bad[t]
+            if not row.any() and not rbad.any():
+                break  # every slot stopped; later rounds are dead too
+            self.spec_rounds += 1
+            for s in active:
+                req = self.slot_req[s]
+                if req is None:
+                    continue
+                if rbad[s]:
+                    self.poisoned_rows += 1
+                    self._terminate(
+                        req, FAILED, slot=s,
+                        error="poisoned verify logits (no finite value)")
+                    continue
+                if not row[s].any():
+                    continue
+                acc = int(row[s].sum()) - 1  # drafts accepted this round
+                self.spec_proposed += k
+                self.spec_accepted += acc
+                if acc == 0:
+                    self.spec_all_rejected += 1
+                for i in range(c):
+                    if not row[s, i]:
+                        continue
+                    self.pos[s] += 1
+                    req._cursor += 1  # type: ignore[attr-defined]
+                    self._emit_token(s, req, int(toks[t, s, i]))
+                    if req.done:
+                        break
+            self.tick_tokens.append(int(row.sum()))
+            self.steps_run += 1
+        # rejected draft tails sit in pages past pos under the grow-ahead
+        # grant; trim reclaims them with the unused grant
         self._trim_to_pos(active)
         return len(active)
 

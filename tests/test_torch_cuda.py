@@ -85,9 +85,11 @@ def test_cuda_kernels_match_plain_versions():
 
 # (hq, hkv, d, page_size): qwen2-1.5B's heads at head dims 128 and 64 (96
 # query rows a block: two key groups of 6 warps), a group of 8 (128 rows:
-# one key group of 8 warps), and a page of 8 positions x a group of 5 (40
-# rows: 8 dead rows pad the last warp of 16)
-PREFILL_TC = [(12, 2, 128, 16), (12, 2, 64, 16), (16, 2, 128, 16), (10, 2, 128, 8)]
+# one key group of 8 warps), a page of 8 positions x a group of 5 (40
+# rows: 8 dead rows pad the last warp of 16), and chatglm3-6b's group of 16
+# (256 rows a page: split over two blocks of 8 heads, head_split)
+PREFILL_TC = [(12, 2, 128, 16), (12, 2, 64, 16), (16, 2, 128, 16), (10, 2, 128, 8),
+              (32, 2, 128, 16)]
 
 
 @pytest.mark.cuda
@@ -277,9 +279,11 @@ def test_cuda_quant_kernels_match_plain_versions(fmt):
 # (hq, hkv, d, page_size, format): qwen2-1.5B's heads at head dims 128 and
 # 64 on pages of 16 (two key groups of 6 warps) and 8, a group of 4 on pages
 # of 32 (128 rows: one key group of 8 warps), a group of 5 (pages of 8: 40
-# rows, 8 dead rows pad the last warp)
+# rows, 8 dead rows pad the last warp), and chatglm3-6b's group of 16 (two
+# blocks of 8 heads a page, head_split)
 PREFILL_QUANT_TC = [(12, 2, 128, 16, "int8"), (12, 2, 128, 16, "int4"), (12, 2, 64, 16, "int8"),
-                    (12, 2, 128, 8, "int4"), (8, 2, 128, 32, "int8"), (10, 2, 64, 8, "int4")]
+                    (12, 2, 128, 8, "int4"), (8, 2, 128, 32, "int8"), (10, 2, 64, 8, "int4"),
+                    (32, 2, 128, 16, "int8"), (32, 2, 128, 16, "int4")]
 
 
 @pytest.mark.cuda

@@ -117,12 +117,13 @@ def test_mla_moe_decode_loop_stays_on_the_device(model, monkeypatch, kv_dtype):
     cache = cache.with_tables(torch.tensor(
         [[1, 2, 3, 4], [5, 6, 7, 8], [0, 0, 0, 0]], dtype=torch.int32))
     counter = _SyncCounter(monkeypatch)
-    toks, emitted = lm.decode_loop(
+    toks, emitted, _ = lm.decode_loop(
         params, cfg, cache, torch.tensor([7, 9, 0], dtype=torch.int32),
-        torch.tensor([5, 29, 0], dtype=torch.int32),
+        torch.tensor([5, 29, 0], dtype=torch.int32), None,
         torch.tensor([True, True, False]),
         torch.tensor([3, 10, 0], dtype=torch.int32), n_steps=4,
-        sample_fn=guarded_argmax, eos_id=-1, max_len=32)
+        sample_fn=lambda logits, key, gate: (guarded_argmax(logits), key),
+        eos_id=-1, max_len=32)
     assert counter.calls == []
     monkeypatch.undo()
     assert toks.shape == emitted.shape == (4, 3)

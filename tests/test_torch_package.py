@@ -78,9 +78,31 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 ])
 def test_unported_serve_options_raise(kw, item):
     """Raised by ServeConfig, or where the model decides, at engine init
-    (spec_decode; the contiguous layout of an attention model)."""
+    (the contiguous layout of an attention model).  Items 5 (temperature
+    sampling) and 12 (speculative decoding) are ported: their rows now
+    serve two requests and check what the option does (a sampled stream
+    repeats under its seed and differs from greedy; speculation engages and
+    equals greedy plain decode)."""
     cfg = get_config("qwen2_1_5b").reduced()
     params = lm.init(cfg, 0, device="cpu")
+    if item in ("item 5", "item 12"):
+        params["embed"] = {"embedding": params["embed"]["embedding"] * 0.1}
+        prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [5, 3, 5, 8, 9]]
+
+        def run(**over):
+            eng = ServingEngine(cfg, params, ServeConfig(
+                slots=2, max_len=48, max_new_tokens=6, **over), device="cpu")
+            reqs = [eng.submit(p) for p in prompts]
+            eng.run()
+            return [r.output for r in reqs], eng
+
+        out, eng = run(**kw)
+        greedy, _ = run()
+        if item == "item 5":
+            assert run(**kw)[0] == out != greedy
+        else:
+            assert out == greedy and eng.spec_windows > 0
+        return
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
 
@@ -95,14 +117,21 @@ def test_reference_validation_still_raises_value_errors():
 
 
 def test_fault_injection_and_temperature_sampling_raise():
+    """Fault injection still raises (item 11).  Temperature sampling is
+    ported (item 5): ``sample_step`` draws under the key and splits it, and
+    leaves it where greedy."""
+    from repro_torch.serving import prng
     from repro_torch.serving.sampling import sample_step
     cfg = get_config("qwen2_1_5b").reduced()
     params = lm.init(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         ServingEngine(cfg, params, ServeConfig(slots=1, max_len=16),
                       injector=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sample_step(torch.zeros(2, 8), temperature=1.0)
+    key = prng.key(0)
+    tok, new_key = sample_step(torch.zeros(2, 8), key, temperature=1.0)
+    assert tok.dtype == torch.int32 and ((tok >= 0) & (tok < 8)).all()
+    assert new_key.tolist() == prng.split(key)[0].tolist() != key.tolist()
+    assert sample_step(torch.zeros(2, 8), key)[1] is key
 
 
 def test_serve_cli_runs_on_the_cpu_and_reports_launches(capsys):

@@ -70,9 +70,9 @@ def test_quant_prefill_path_rule_at_qwen_serving_shapes():
     """qwen2-1.5B (both packages' configs: 12 query heads over 2, head dim
     128) served with pages of 16 and 64 table entries takes the tensor
     cores in bf16, int8 and int4 alike; pages of 8 and (with a group of 4)
-    32 too.  fp32, fp16, head dim 96, pages of 12 or 128, a page's rows
-    past 128 (pages of 32 x a group of 6) and a table row past the
-    staging area's room do not."""
+    32 too, and pages of 32 x a group of 6 (192 rows, split over two
+    blocks).  fp32, fp16, head dim 96, pages of 12 or 128 and a table row
+    past the staging area's room do not."""
     cfg, jcfg = get_config("qwen2_1_5b"), jconfigs.get_config("qwen2_1_5b")
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     assert (hq, hkv, d) == (jcfg.num_heads, jcfg.num_kv_heads, jcfg.head_dim) == (12, 2, 128)
@@ -86,7 +86,7 @@ def test_quant_prefill_path_rule_at_qwen_serving_shapes():
     assert not PFQ.tensor_core_path(bf, 96, 16, g, 64)
     assert not PFQ.tensor_core_path(bf, d, 12, g, 64)
     assert not PFQ.tensor_core_path(bf, d, 128, 1, 64)
-    assert not PFQ.tensor_core_path(bf, d, 32, g, 32)
+    assert PFQ.tensor_core_path(bf, d, 32, g, 32)
     assert not PFQ.tensor_core_path(bf, d, 16, g, PFQ.TC_MAX_PAGES + 1)
 
 

@@ -96,8 +96,9 @@ def test_bf16_limit_rejects_p_rounded_once_and_passes_the_hi_lo_pair(cs):
 def test_tensor_core_path_rule_at_qwen_shapes():
     """bf16 at qwen2-1.5B's shapes (both packages' config: head dim 128, 12
     heads over 2; serving pages of 16) takes the tensor-core path in both
-    kernels; fp32, a head dim the kernels are not built for, and a page's
-    GQA rows past 128 take the CUDA-core path."""
+    kernels; fp32 and a head dim the kernels are not built for take the
+    CUDA-core path.  A page's GQA rows past 128 (pages of 32 x a group of
+    6) stay on the tensor cores, split over two blocks of three heads."""
     cfg, jcfg = get_config("qwen2_1_5b"), jconfigs.get_config("qwen2_1_5b")
     d, group = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
     assert (d, group) == (jcfg.head_dim, jcfg.num_heads // jcfg.num_kv_heads) == (128, 6)
@@ -108,7 +109,9 @@ def test_tensor_core_path_rule_at_qwen_shapes():
     assert not FA.tensor_core_path(torch.float32, d)
     assert not FA.tensor_core_path(torch.bfloat16, 96)
     assert not PF.tensor_core_path(torch.float32, d, 16, group, 64)
-    assert not PF.tensor_core_path(torch.bfloat16, d, 32, group, 32)  # 192 rows a block
+    assert PF.tensor_core_path(torch.bfloat16, d, 32, group, 32)  # 192 rows: split
+    assert PF.head_split(True, group, 32, d) == 2
+    assert PF.head_split(True, group, 16, d) == 1
     assert not PF.tensor_core_path(torch.bfloat16, d, 16, group, PF.TC_MAX_PAGES + 1)
 
 

@@ -174,9 +174,10 @@ def test_decode_loop_stays_on_the_device(model, monkeypatch, kv_dtype):
     live = torch.tensor([True, True, False])
     remaining = torch.tensor([3, 10, 0], dtype=torch.int32)
     counter = _SyncCounter(monkeypatch)
-    toks, emitted = lm.decode_loop(params, cfg, cache, feed, pos, live,
-                                   remaining, n_steps=5, sample_fn=guarded_argmax,
-                                   eos_id=-1, max_len=32)
+    toks, emitted, key = lm.decode_loop(
+        params, cfg, cache, feed, pos, None, live, remaining, n_steps=5,
+        sample_fn=lambda logits, key, gate: (guarded_argmax(logits), key),
+        eos_id=-1, max_len=32)
     assert counter.calls == []
     monkeypatch.undo()
     assert toks.shape == emitted.shape == (5, 3) and toks.dtype == torch.int32
@@ -204,6 +205,21 @@ def test_engine_downloads_once_per_window(model, monkeypatch):
     assert set(counter.calls) <= {"cpu", "numpy"}
 
 
-def test_temperature_with_the_window_still_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ServeConfig(sync_every=4, temperature=0.8)
+def test_temperature_with_the_window_still_raises(diverse):
+    """Temperature sampling with the window is ported (it raised until the
+    key stream was): the window's sampled streams equal per-tick stepping's
+    when no request waits in the queue, and the engine's key after the run
+    is the same (tests/test_torch_sampling.py holds both against the
+    reference engine)."""
+    cfg, params = diverse
+    prompts = _prompts()[:2]
+    outs, keys = [], []
+    for sync in (1, 4):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            **BASE, sync_every=sync, temperature=0.8, seed=5), device="cpu")
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run()
+        outs.append([r.output for r in reqs])
+        keys.append(eng._key.tolist())
+        assert (eng.decode_windows > 0) == (sync > 1)
+    assert outs[0] == outs[1] and keys[0] == keys[1]
