@@ -97,7 +97,7 @@ no phase is skipped):
    fp16 on a weight dequantized beforehand (the paper's Fig. 15 baseline, a
    yardstick) or SDPA with a latent head's heads as its query rows (MLA);
 3. serve full-width qwen2-1.5B (bf16, seeded random weights; its serving
-   depth cut to 7 of 28 layers to keep the script within half its time
+   depth cut to 4 of 28 layers to keep the script within half its time
    limit) through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
    prefix cache, guards, greedy): 16 requests of 100-600 prompt tokens, half
    sharing a 256-token prefix, 32 new tokens each; then again with the pool
@@ -138,7 +138,7 @@ no phase is skipped):
 
 then phases 3 and 4 again for full-width deepseek-v2-lite-16B (MLA +
 64-expert top-6 MoE, bf16 with an fp32 router, after qwen's parameters are
-freed; its serving depth cut to 7 of 27 layers to keep the script within
+freed; its serving depth cut to 4 of 27 layers to keep the script within
 half its time limit): the same workload in fp, int8 and int4
 latent pages and int8 with ``sync_every=16`` under the no-host-sync check
 (ticks and mean TTFT equal across the four, window outputs byte-identical
@@ -233,7 +233,31 @@ batch and a decode step's drop other tokens, as in the reference);
    twice the error).  Phase 2 checks and times their kernels at their
    serving shape (chatglm's decode, chunked prefill and its int8 twin;
    gemma's decode and prefill; deepseek-7b's decode and prefill) and the
-   flash kernel at gemma's D 256 (B 8, 16 heads, S 1024).
+   flash kernel at gemma's D 256 (B 8, 16 heads, S 1024);
+13. the serving engine's fault tolerance on full-width qwen2-1.5B at 4
+   layers (seeded random bf16 weights): 12 requests of a 64-token shared
+   prefix plus 8-96 own tokens, 16 new tokens each, over 4 slots of 256
+   tokens, page 16, chunk 64, ``sync_every=4``, greedy, the auditor after
+   every step, a 16-page pool where the fault-free run preempts; a chaos
+   pass under the reference's fixed schedule at 4 times its ticks plus two
+   more table corruptions (every flavor: an out-of-pool id, page 0, another
+   row's page), then a speculative pass (ngram, draft 4) adding a poisoned
+   verify: the hit requests FAILED with the reference's error texts, every
+   other one completed, every corruption rejected by the dispatch guard
+   before any launch, a clean audit every step, the pool empty after
+   ``drain`` and ``shutdown``, no CUDA error, no host sync inside a window,
+   the completed streams equal the fault-free twin's but at a token whose
+   top-2 margin lies within twice the max |diff| of the two paths' logits
+   there (a one-slot replay: the recompute's chunked prefill, the verify's
+   plain attention); guards off, both in-pool corruption flavors caught by
+   the auditor at their tick; the reference's snapshot round trip at page
+   16 (the restored pages byte for byte, the warm request's cached tokens,
+   admission TTFT and stream); then the contiguous strips (the plain
+   attention, no kernel launch) against the paged kernels on qwen2-1.5B and
+   on deepseek-v2-lite-16B at an MoE capacity with no drops, 4 layers each,
+   phase 3's workload's first 8 requests: equal ticks and mean TTFT, streams
+   equal but at such a margin, strips per tick and with ``sync_every=4``
+   byte-identical.
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
@@ -1488,9 +1512,12 @@ FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
 # With phases 11 and 12 (the dense configs, sampling and speculation: 70.1
 # s on a host where the whole run read 442.9 s), granite serves 16 of its
 # 32 layers (68.2 s at 32 on the slow host) and hymba-1.5B 4 of its 32
-# (48.6 s at 8 there).
-QWEN_SERVE_LAYERS = 7
-MLA_SERVE_LAYERS = 7
+# (48.6 s at 8 there).  With phase 13 (fault tolerance and the contiguous
+# cache: 17.0 s of a run whose [time] lines read 449.6 s), qwen2-1.5B and
+# deepseek-v2-lite-16B serve 4 layers each (deepseek: the dense first layer
+# and 3 MoE layers).
+QWEN_SERVE_LAYERS = 4
+MLA_SERVE_LAYERS = 4
 SSM_SERVE_REQUESTS = 8
 SSM_SERVE_LAYERS = 16
 HYBRID_SERVE_LAYERS = 4
@@ -1549,7 +1576,7 @@ def make_runner(torch, np, cfg, params, kernels, device, runs):
                       f"{engine.pool.num_blocks} blocks of {engine.pool.page_bytes} "
                       f"bytes ({engine.cache.kv_bytes()} KV bytes)")
         else:
-            memory = f"{engine.cache.kv_bytes()} bytes of recurrent state"
+            memory = f"{engine.cache.kv_bytes()} bytes of contiguous cache"
         if device.type == "cuda":
             memory += (f", device peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
                        " GiB allocated")
@@ -1716,32 +1743,48 @@ def sample_check(torch, device, keys=SAMPLE_KEYS):
     return rows, differ, ties
 
 
-def replay_margin(torch, np, lm, cfg, params, device, prompt, emitted):
-    """One request replayed alone: its prompt through the chunked prefill,
-    then its ``emitted`` tokens but the last through the decode kernel.  At
-    the next position, the decode path's logits (the prefill's where
-    nothing was emitted) against verify's (``lm.verify_step``, the plain
-    attention): the decode path's top-2 margin and the max |verify -
-    decode| logit difference."""
+def replay_logits(torch, np, lm, cfg, params, device, prompt, emitted,
+                  layout="paged"):
+    """One request replayed alone over a one-slot cache of ``layout``: its
+    prompt through the chunked prefill, then its ``emitted`` tokens through
+    the decode step.  Returns (the logits at the next position, the cache,
+    the last token's position, the last token)."""
     max_pages = MAX_LEN // PAGE
-    cache = lm.init_cache(cfg, 1, MAX_LEN, page_size=PAGE, num_blocks=max_pages + 1,
-                          device=device)
-    cache = cache.with_tables(torch.arange(1, max_pages + 1, dtype=torch.int32,
-                                           device=device)[None])
+    cache = lm.init_cache(cfg, 1, MAX_LEN, layout=layout, page_size=PAGE,
+                          num_blocks=max_pages + 1, device=device)
+    if layout == "paged":
+        cache = cache.with_tables(torch.arange(1, max_pages + 1, dtype=torch.int32,
+                                               device=device)[None])
     dev = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)  # noqa: E731
     for s0 in range(0, len(prompt), CHUNK):
         n = min(CHUNK, len(prompt) - s0)
         toks = np.zeros((1, CHUNK), np.int32)
         toks[0, :n] = prompt[s0:s0 + n]
-        dec, cache = lm.prefill_step(params, cfg, cache, dev(toks), dev([s0]), dev([n]))
+        logits, cache = lm.prefill_step(params, cfg, cache, dev(toks), dev([s0]), dev([n]))
     pos, last = len(prompt) - 1, prompt[-1]
     for t in emitted:
         pos, last = pos + 1, t
-        dec, cache = lm.decode_step(params, cfg, cache, dev([t]), dev([pos]))
+        logits, cache = lm.decode_step(params, cfg, cache, dev([t]), dev([pos]))
+    return logits[0].float(), cache, pos, last
+
+
+def top2_margin(logits) -> float:
+    top2 = logits.topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def replay_margin(torch, np, lm, cfg, params, device, prompt, emitted):
+    """One request replayed alone (replay_logits): its prompt through the
+    chunked prefill, then its ``emitted`` tokens but the last through the
+    decode kernel.  At the next position, the decode path's logits (the
+    prefill's where nothing was emitted) against verify's
+    (``lm.verify_step``, the plain attention): the decode path's top-2
+    margin and the max |verify - decode| logit difference."""
+    dec, cache, pos, last = replay_logits(torch, np, lm, cfg, params, device, prompt,
+                                          emitted)
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)  # noqa: E731
     ver, cache = lm.verify_step(params, cfg, cache, dev([[last]]), dev([pos]), dev([1]))
-    dec, ver = dec[0].float(), ver[0, 0].float()
-    top2 = dec.topk(2).values
-    return (top2[0] - top2[1]).item(), (ver - dec).abs().max().item()
+    return top2_margin(dec), (ver[0, 0].float() - dec).abs().max().item()
 
 
 def spec_divergences(torch, np, lm, cfg, params, device, reqs, plain_reqs):
@@ -3205,6 +3248,8 @@ def main(argv=None) -> int:
     vlm_phase(torch, np, lm, device)
     torch.cuda.empty_cache()
     dense_phase(torch, np, lm, device)
+    torch.cuda.empty_cache()
+    fault_phase(torch, np, lm, device)
     main_launches.update(lib_launches)
 
     # ---- result lines --------------------------------------------------
@@ -4139,6 +4184,318 @@ def dense_phase(torch, np, lm, device, configs=None, requests=DENSE_REQUESTS):
             torch.cuda.empty_cache()
         log(f"[time] phase 11 ({cfg.name}): {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: fault tolerance (qwen2-1.5B) and the contiguous cache
+# ---------------------------------------------------------------------------
+
+# Phase 13 serves full-width models at FAULT_LAYERS layers: its checks
+# (statuses, counters, the ledger, page bytes, ticks) do not depend on depth.
+FAULT_LAYERS = 4
+# The chaos workload: CHAOS_REQUESTS prompts of a CHAOS_SHARED-token shared
+# prefix plus CHAOS_TAIL own tokens, CHAOS_NEW new tokens each, over
+# CHAOS_SLOTS slots of CHAOS_MAX_LEN, CHAOS_SYNC-tick windows, greedy, the
+# auditor on; a pool of CHAOS_BLOCKS pages, where the fault-free run already
+# preempts.  Ticks depend on prompt lengths and block counts only.
+CHAOS_REQUESTS, CHAOS_SHARED, CHAOS_TAIL = 12, 64, (8, 96)
+CHAOS_SLOTS, CHAOS_NEW, CHAOS_MAX_LEN, CHAOS_SYNC = 4, 16, 256, 4
+CHAOS_BLOCKS = 16
+# The reference's fixed schedule (serving/faults.py CHAOS_SCHEDULE, written
+# for a run of 19 ticks) at CHAOS_SCALE times its ticks, plus two more table
+# corruptions (CHAOS_MORE_CORRUPT) so that all three flavors fire, each on a
+# dispatch of its own; the speculative pass adds one spec_poison.
+CHAOS_SCALE = 4
+CHAOS_MORE_CORRUPT = (32, 40)
+CHAOS_SPEC_POISON_TICK = 0
+# the reference's error texts of the requests a fault hits
+FAULT_ERRORS = ("poisoned logits row (no finite value)", "dispatch guard: ",
+                "poisoned verify logits (no finite value)")
+# the guards-off runs: a corruption at GUARDS_OFF_TICK, each in-pool flavor
+# (reserved page 0, another row's page), which the auditor must catch
+GUARDS_OFF_TICK = 10
+# snapshot / restore: the reference's test_roundtrip_restores_warm_ttft at
+# page 16 (its 20-token prompt of 4-token pages is 80 tokens here)
+SNAP_PROMPT, SNAP_PAGE = 80, 16
+CONTIG_REQUESTS = 8
+
+
+def chaos_workload(rng, vocab: int):
+    """CHAOS_REQUESTS prompts: one shared CHAOS_SHARED-token prefix plus
+    CHAOS_TAIL tokens of each request's own, ids folded into ``vocab``."""
+    draw = lambda size: (rng.integers(0, WORKLOAD_VOCAB, size=size) % vocab).tolist()  # noqa: E731
+    shared = draw(CHAOS_SHARED)
+    lo, hi = CHAOS_TAIL
+    return [shared + draw(int(rng.integers(lo, hi + 1))) for _ in range(CHAOS_REQUESTS)]
+
+
+def chaos_schedule(spec: bool):
+    from repro_torch.serving import Fault
+    from repro_torch.serving.faults import CHAOS_SCHEDULE
+
+    out = [Fault(site, tick=t * CHAOS_SCALE, slot=s) for site, t, s in CHAOS_SCHEDULE]
+    out += [Fault("table_corrupt", tick=t, slot=i + 1)
+            for i, t in enumerate(CHAOS_MORE_CORRUPT)]
+    if spec:
+        out.append(Fault("spec_poison", tick=CHAOS_SPEC_POISON_TICK, slot=0))
+    return out
+
+
+def chaos_serve(torch, np, cfg, params, device, injector=None, requests=None, **kw):
+    """One run of the chaos workload (its first ``requests``) with the
+    auditor on, the windows under no_host_sync, drained and shut down.
+    Returns (engine, requests, the kernels' launches, seconds)."""
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    scfg = ServeConfig(slots=CHAOS_SLOTS, max_len=CHAOS_MAX_LEN, page_size=PAGE,
+                       prefill_chunk=CHUNK, max_new_tokens=CHAOS_NEW,
+                       sync_every=CHAOS_SYNC, num_blocks=CHAOS_BLOCKS, audit=True, **kw)
+    eng = ServingEngine(cfg, params, scfg, injector=injector, device=device)
+    prompts = chaos_workload(np.random.default_rng(1), cfg.vocab_size)[:requests]
+    reqs = [eng.submit(p) for p in prompts]
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with strict_windows(torch, lm, device), \
+            strict_windows(torch, lm, device, "spec_decode_loop"):
+        eng.run()
+        eng.drain()
+        eng.shutdown()
+    if device.type == "cuda":
+        torch.cuda.synchronize()  # a CUDA error of the run would raise here
+    launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
+    return eng, reqs, launches, time.perf_counter() - t0
+
+
+def partings(torch, np, lm, cfg, params, device, reqs, twins, others=("recompute",)):
+    """Each request of ``reqs`` whose stream parts from its twin's, at its
+    first differing token i: (uid, i, the twin path's top-2 margin there,
+    the max |diff| of the other paths' logits against it).  The twin path
+    is the prompt's chunked prefill then the decode steps
+    (replay_logits); the other paths are "recompute" (the prompt and the
+    first i tokens through the chunked prefill, as a preempted request
+    resumes), "verify" (the speculative verify's plain attention) and
+    "contiguous" (the same replay over the contiguous strips)."""
+    out = []
+    for r, t in zip(reqs, twins):
+        assert r.prompt == t.prompt
+        if r.output == t.output[:len(r.output)]:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(r.output, t.output)) if a != b)
+        emitted = t.output[:i]
+        dec = replay_logits(torch, np, lm, cfg, params, device, t.prompt, emitted)[0]
+        errs = []
+        for other in others:
+            if other == "verify":
+                errs.append(replay_margin(torch, np, lm, cfg, params, device, t.prompt,
+                                          emitted)[1])
+                continue
+            prompt, em, layout = ((t.prompt + emitted, [], "paged") if other == "recompute"
+                                  else (t.prompt, emitted, "contiguous"))
+            alt = replay_logits(torch, np, lm, cfg, params, device, prompt, em, layout)[0]
+            errs.append((alt - dec).abs().max().item())
+        out.append((r.uid, i, top2_margin(dec), max(errs)))
+    return out
+
+
+def partings_text(div) -> str:
+    return f"{len(div)} partings" + "".join(
+        f" (request {u} at token {i}: top-2 margin {m:.4f}, logit error {e:.4f})"
+        for u, i, m, e in div)
+
+
+def check_chaos(eng, reqs, spec: bool):
+    """The fault-tolerance contract of a chaos pass (serving/faults.py): the
+    hit requests FAILED with the reference's texts, every other request
+    completed, a clean audit every step, every corruption caught by the
+    guard, every page back after shutdown.  Returns the failed requests."""
+    assert all(r.status in ("completed", "failed") for r in reqs), \
+        [(r.uid, r.status, r.error) for r in reqs]
+    failed = [r for r in reqs if r.status == "failed"]
+    assert all(r.error.startswith(FAULT_ERRORS) for r in failed), \
+        [(r.uid, r.error) for r in failed]
+    assert len(failed) == eng.poisoned_rows + eng.guard_failures, \
+        (len(failed), eng.poisoned_rows, eng.guard_failures)
+    fired = eng.injector.fired
+    assert fired["pool_alloc"] > 0 and fired["poison"] == 1 and fired["grant"] == 1
+    assert eng.table_corruptions == 3 == fired["table_corrupt"]
+    assert eng.guard_failures >= eng.table_corruptions > 0
+    assert eng.poisoned_rows == 1 + spec and fired["spec_poison"] == spec
+    assert eng.audits_run >= eng.dispatches > 0  # one audit after every step()
+    assert eng.decode_windows + eng.spec_windows > 0  # no_host_sync had windows
+    assert eng.pool.in_use == 0 and eng.prefix.pages == 0
+    return failed
+
+
+def guards_off_check(torch, np, cfg, params, device):
+    """With guards off, a table corruption reaches the dispatch and the
+    auditor must raise at that tick (tests/test_chaos.py:401), once for each
+    in-pool flavor (reserved page 0, another row's page: an out-of-pool id
+    is for the guard alone).  The card must raise no CUDA error.  Returns
+    the auditor's messages."""
+    from repro_torch.serving import (AuditError, Fault, FaultInjector, ServeConfig,
+                                     ServingEngine)
+
+    msgs = []
+    for flavor in (1, 2):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            slots=CHAOS_SLOTS, max_len=CHAOS_MAX_LEN, page_size=PAGE,
+            prefill_chunk=CHUNK, max_new_tokens=CHAOS_NEW, num_blocks=CHAOS_BLOCKS,
+            audit=True, guards=False),
+            injector=FaultInjector([Fault("table_corrupt", tick=GUARDS_OFF_TICK)]),
+            device=device)
+        eng._corrupt_mode = flavor  # the flavors cycle from this one
+        for p in chaos_workload(np.random.default_rng(1), cfg.vocab_size):
+            eng.submit(p)
+        try:
+            eng.run()
+            raise AssertionError("a corruption with guards off passed the auditor")
+        except AuditError as e:
+            msgs.append(str(e))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        tb = eng.tables.tables()
+        assert eng.table_corruptions == 1 and eng.guard_failures == 0
+        assert ((tb >= 0) & (tb < eng.pool.base + eng.pool.num_blocks)).all()
+        assert "diverged" in msgs[-1], msgs[-1]
+    return msgs
+
+
+def snapshot_check(torch, np, lm, cfg, params, device):
+    """The reference's test_roundtrip_restores_warm_ttft at page SNAP_PAGE:
+    a cold and a warm request, a snapshot, an engine restored from it; the
+    restored engine's pages (re-snapshotted before it serves) equal the
+    snapshot's byte for byte, and its warm request has the warm request's
+    cached tokens, admission TTFT and stream.  Returns (cold, warm,
+    restored, the pages restored, their dtype names)."""
+    from repro_torch.serving import ServeConfig, ServingEngine, audit_engine
+
+    kw = dict(slots=1, max_len=2 * SNAP_PROMPT, max_new_tokens=3, page_size=SNAP_PAGE,
+              prefill_chunk=SNAP_PAGE, token_budget=SNAP_PAGE + 1)
+    prompt = (np.random.default_rng(2).integers(0, WORKLOAD_VOCAB, size=SNAP_PROMPT)
+              % cfg.vocab_size).tolist()
+    eng = ServingEngine(cfg, params, ServeConfig(**kw), device=device)
+    cold, warm = eng.submit(prompt), eng.submit(prompt)
+    eng.run()
+    assert warm.ttft_admit_ticks < cold.ttft_admit_ticks and warm.cached_tokens > 0
+    snap = eng.snapshot()
+    eng2 = ServingEngine.restore(cfg, params, ServeConfig(**kw), snap, device=device)
+    audit_engine(eng2)  # the grafted pages are ledger-consistent
+    again = eng2.snapshot()
+    assert again["nodes"] == snap["nodes"] and again["leaf_dtypes"] == snap["leaf_dtypes"]
+    assert all(np.array_equal(a, b) for a, b in zip(again["leaves"], snap["leaves"]))
+    restored = eng2.submit(prompt)
+    eng2.run()
+    assert restored.output == warm.output == cold.output
+    assert restored.cached_tokens == warm.cached_tokens
+    assert restored.ttft_admit_ticks == warm.ttft_admit_ticks
+    eng2.shutdown()
+    assert eng2.pool.in_use == 0
+    return cold, warm, restored, len(snap["nodes"]), snap["leaf_dtypes"]
+
+
+def contiguous_check(torch, np, lm, cfg, params, device, path, tc, requests):
+    """The phase 3 workload's first ``requests`` over the paged cache (its
+    kernels, ``path``) and over the contiguous strips (no kernel), per tick
+    and with ``sync_every=4`` (no_host_sync): ticks and mean TTFT equal the
+    paged run's, strips per tick and windowed give equal bytes, and their
+    streams equal the paged run's but where a stream parts at a token whose
+    paged top-2 margin lies within twice the max |diff| of the two paths'
+    logits there (a one-slot replay).  Returns the partings."""
+    from repro_torch.kernels.ops import KERNELS
+
+    runs = {}
+    run = make_runner(torch, np, cfg, params, KERNELS, device, runs)
+    paged, paged_reqs = run("paged", path, tc, requests=requests)
+    strip, strip_reqs = run("contiguous", (), cache="contiguous", requests=requests)
+    with strict_windows(torch, lm, device):
+        win, win_reqs = run("contiguous, sync_every=4", (), cache="contiguous",
+                            sync_every=4, requests=requests)
+    assert strip.pool is None and win.decode_windows > 0
+    assert strip.steps_run == paged.steps_run == win.steps_run
+    assert mean_ttft(strip_reqs) == mean_ttft(paged_reqs) == mean_ttft(win_reqs)
+    assert [r.output for r in win_reqs] == [r.output for r in strip_reqs]
+    div = partings(torch, np, lm, cfg, params, device, strip_reqs, paged_reqs,
+                   others=("contiguous",))
+    log(f"[serve] {cfg.name} contiguous vs paged: {strip.steps_run} ticks each, mean TTFT "
+        f"{mean_ttft(strip_reqs):.2f}; {strip.cache.kv_bytes()} strip bytes against "
+        f"{paged.cache.kv_bytes()} pool bytes; sync_every=4 on the strips byte-identical "
+        f"({win.dispatches} dispatches against {strip.dispatches}); "
+        f"{sum(a.output == b.output for a, b in zip(strip_reqs, paged_reqs))}/"
+        f"{len(strip_reqs)} streams equal the paged run's, {partings_text(div)}")
+    assert all(m <= 2 * e for _, _, m, e in div), div
+    return div
+
+
+def fault_phase(torch, np, lm, device, qwen=None, mla=None,
+                contig_requests=CONTIG_REQUESTS):
+    """Phase 13: the serving engine's fault tolerance on full-width
+    qwen2-1.5B at FAULT_LAYERS layers (chaos passes plain and speculative,
+    guards off, snapshot and restore), and the contiguous cache on it and on
+    deepseek-v2-lite-16B at an MoE capacity with no drops, over the phase 3
+    workload's first ``contig_requests`` (``qwen`` and ``mla`` replace the
+    configs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import FaultInjector
+
+    t_phase = time.perf_counter()
+    qwen = qwen or dataclasses.replace(get_config("qwen2_1_5b"), num_layers=FAULT_LAYERS)
+    params = lm.init(qwen, 0, device=device)
+
+    twin, twin_reqs, _, dt = chaos_serve(torch, np, qwen, params, device)
+    assert all(r.status == "completed" for r in twin_reqs) and twin.preemptions > 0
+    log(f"[fault] {qwen.name}, {qwen.num_layers} layers, fault-free twin: {twin.steps_run} "
+        f"ticks, {twin.preemptions} preemptions, {twin.decode_windows} windows, "
+        f"{twin.audits_run} clean audits over {twin.dispatches} dispatches, {dt:.2f} s")
+    for spec in (False, True):
+        label = "speculative pass" if spec else "chaos pass"
+        kw = dict(spec_decode="ngram", draft_len=SPEC_DRAFT) if spec else {}
+        eng, reqs, launched, dt = chaos_serve(torch, np, qwen, params, device,
+                                              FaultInjector(chaos_schedule(spec)), **kw)
+        failed = check_chaos(eng, reqs, spec)
+        assert set(launched) == (set(FP_KERNELS) if device.type == "cuda" else set())
+        div = partings(torch, np, lm, qwen, params, device, reqs, twin_reqs,
+                       others=("recompute", "verify") if spec else ("recompute",))
+        log(f"[fault] {label}: {eng.steps_run} ticks, faults fired "
+            f"{json.dumps(eng.injector.fired)}; {len(failed)} requests failed ("
+            + "; ".join(f"{r.uid}: {r.error[:72]}" for r in failed) + f"), "
+            f"{len(reqs) - len(failed)} completed; poisoned rows {eng.poisoned_rows}, "
+            f"table corruptions {eng.table_corruptions} caught by the guard "
+            f"{eng.guard_failures} times before any launch, {eng.preemptions} preemptions, "
+            f"{eng.decode_windows} windows ({eng.window_fallbacks} fallbacks)"
+            + (f", {eng.spec_windows} spec windows ({eng.spec_fallbacks} fallbacks)"
+               if spec else "")
+            + f"; {eng.audits_run} clean audits over {eng.dispatches} dispatches; pool after "
+            f"shutdown {eng.pool.in_use} pages; no CUDA error, no host sync in a window; "
+            f"launches {json.dumps(launched)}; against the fault-free twin "
+            f"{partings_text(div)}; {dt:.2f} s")
+        assert all(m <= 2 * e for _, _, m, e in div), div
+    msgs = guards_off_check(torch, np, qwen, params, device)
+    log("[fault] guards off: the auditor caught both in-pool corruption flavors at "
+        "their tick (" + "; ".join(m[:60] for m in msgs) + "), no CUDA error")
+    cold, warm, restored, pages, dtypes = snapshot_check(torch, np, lm, qwen, params,
+                                                         device)
+    log(f"[fault] snapshot / restore: {pages} pages ({sorted(set(dtypes))}) restored byte "
+        f"for byte; warm request {warm.cached_tokens} cached tokens, admission TTFT "
+        f"{warm.ttft_admit_ticks} ticks (cold {cold.ttft_admit_ticks}); restored "
+        f"{restored.cached_tokens} and {restored.ttft_admit_ticks}, its stream the warm "
+        "one's")
+    log(f"[time] phase 13 ({qwen.name} fault tolerance): {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    contiguous_check(torch, np, lm, qwen, params, device, FP_KERNELS, TC_KERNELS,
+                     contig_requests)
+    del params
+    mla = moe_no_drops(mla or dataclasses.replace(get_config("deepseek_v2_lite_16b"),
+                                                  num_layers=FAULT_LAYERS))
+    params = lm.init(mla, 0, device=device)
+    contiguous_check(torch, np, lm, mla, params, device, MLA_FP_KERNELS, MLA_FP_KERNELS,
+                     contig_requests)
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[time] phase 13 (the contiguous cache): {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

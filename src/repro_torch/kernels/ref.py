@@ -94,6 +94,15 @@ def dequant_matmul(a: torch.Tensor, b_packed: torch.Tensor, fmt: str = "int4",
     return torch.matmul(a.float(), w.t()).to(out_dtype)
 
 
+def page_ids(block_tables: torch.Tensor, num_pages: int) -> torch.Tensor:
+    """Block-table entries as gather indices into a pool of ``num_pages``,
+    clamped into it as JAX's out-of-range gather clamps.  The dispatch guard
+    rules such an entry out; with guards off (an injected table corruption
+    the invariant auditor must catch after the tick) the plain paths read a
+    real page where torch indexing would raise."""
+    return block_tables.long().clamp(0, num_pages - 1)
+
+
 def paged_attention(
     q: torch.Tensor,  # (B, Hq, D) one query token per slot
     k_pages: torch.Tensor,  # (Hkv, P, page_size, D) physical page pool
@@ -111,7 +120,7 @@ def paged_attention(
     group = hq // hkv
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    tables = block_tables.long()
+    tables = page_ids(block_tables, k_pages.shape[1])
 
     def gathered(pages):  # (Hkv, B, max_pages, ps, D) -> (B, Hkv, S, D)
         return pages[:, tables].transpose(0, 1).reshape(b, hkv, -1, d)
@@ -247,7 +256,7 @@ def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
         start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
     k_pages[:, phys, off] = k_new.transpose(0, 1).to(k_pages.dtype)
     v_pages[:, phys, off] = v_new.transpose(0, 1).to(v_pages.dtype)
-    tables = block_tables.long()
+    tables = page_ids(block_tables, num_pages)
 
     def gathered(pages):  # (Hkv, B, max_pages, ps, D) -> (B, Hkv, S, D)
         return pages[:, tables].transpose(0, 1).reshape(b, hkv, -1, d)
@@ -347,7 +356,7 @@ def paged_prefill_attention_quant(q, k_q, v_q, k_s, v_s, k_pages, v_pages,
     for pool, new in ((k_pages, k_q), (v_pages, v_q), (k_scales, k_s),
                       (v_scales, v_s)):
         pool[:, phys, off] = new.transpose(0, 1).to(pool.dtype)
-    tables = block_tables.long()
+    tables = page_ids(block_tables, num_pages)
 
     def gathered(pages, scales):  # (Hkv, B, max_pages, ps, D) -> (B, Hkv, S, D)
         g = dequantize_rows(pages[:, tables], scales[:, tables], fmt).to(q.dtype)
@@ -427,7 +436,7 @@ def mla_paged(q_lat, q_pe, ckv_pages, kpe_pages, block_tables, seq_lens,
     b, _, r = q_lat.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(r + q_pe.shape[-1])
-    tables = block_tables.long()
+    tables = page_ids(block_tables, ckv_pages.shape[0])
     ckv = ckv_pages[tables].reshape(b, -1, r)
     kpe = kpe_pages[tables].reshape(b, -1, kpe_pages.shape[-1])
     out = mla_masked(q_lat, q_pe, ckv, kpe, seq_lens, sm_scale, window=window,
@@ -515,7 +524,7 @@ def paged_mla_prefill(q_lat, q_pe, ckv_new, kpe_new, ckv_pages, kpe_pages,
         start_lens, chunk_lens, block_tables, chunk, page_size, num_pages)
     ckv_pages[phys, off] = ckv_new.to(ckv_pages.dtype)
     kpe_pages[phys, off] = kpe_new.to(kpe_pages.dtype)
-    tables = block_tables.long()
+    tables = page_ids(block_tables, num_pages)
     ckv_ctx = ckv_pages[tables].reshape(b, -1, r)
     kpe_ctx = kpe_pages[tables].reshape(b, -1, kpe_pages.shape[-1])
     out = mla_prefill(
@@ -547,7 +556,7 @@ def paged_mla_prefill_quant(q_lat, q_pe, ckv_q, kpe_q, ckv_s, kpe_s,
     for pool, new in ((ckv_pages, ckv_q), (kpe_pages, kpe_q),
                       (ckv_scales, ckv_s), (kpe_scales, kpe_s)):
         pool[phys, off] = new.to(pool.dtype)
-    tables = block_tables.long()
+    tables = page_ids(block_tables, num_pages)
 
     def gathered(pages, scales):  # (B, max_pages, ps, .) -> (B, S, .)
         g = dequantize_rows(pages[tables], scales[tables], fmt).to(q_lat.dtype)

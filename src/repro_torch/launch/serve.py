@@ -8,11 +8,16 @@ or full-width model, on the card by default.
 
 The flags are ``repro.launch.serve``'s, plus ``--device``; as in the
 reference, the KV storage format (int8 / int4 pages) is a ``ServeConfig``
-field with no flag.  ``--cache contiguous`` serves the attention-free SSM
-family over its per-slot recurrent state; the hybrid serves on the default
-paged cache, its prompts replayed a token a tick:
+field with no flag.  ``--cache contiguous`` serves any decoder-only model
+over per-slot strips (rings for windowed layers, latent strips for MLA) and
+the SSM family over its per-slot recurrent state, with no pool, prefix cache
+or guard; its attention is the plain version, as the reference's contiguous
+layers.  The hybrid serves on the default paged cache (or on strips), its
+prompts replayed a token a tick:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b \
+        --cache contiguous --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1_5b \
         --cache contiguous --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b \
         --reduced --device cpu
@@ -33,12 +38,17 @@ N``, up to N rounds a dispatch):
         --reduced --device cpu --temperature 0.8 --seed 3 \
         --spec-decode ngram --draft-len 4 --sync-every 4
 
-Options of the reference that are not ported yet (``--audit``, ``--cache
-contiguous`` for an attention model) raise ``NotImplementedError`` naming
-their ROADMAP item.  The summary line is the reference's (with the window's
-and speculation's counts: "k/n drafts accepted (rate)" counts the drafts
-verify accepted, not the model's own token each round adds), followed by
-the kernel launch counts of the run.
+``--audit`` runs the invariant auditor after every tick (page conservation,
+refcounts, radix reachability, slot hygiene; ``serving.faults``) and the
+summary counts the clean audits:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1_5b \
+        --reduced --device cpu --audit --num-blocks 6
+
+The summary line is the reference's (with the window's and speculation's
+counts: "k/n drafts accepted (rate)" counts the drafts verify accepted, not
+the model's own token each round adds), followed by the kernel launch
+counts of the run.
 """
 from __future__ import annotations
 
@@ -91,7 +101,10 @@ def parser() -> argparse.ArgumentParser:
                     help="speculative decoding: the draft proposer")
     ap.add_argument("--draft-len", type=int, default=4)
     ap.add_argument("--audit", action="store_true",
-                    help="per-tick invariant auditor (not ported yet)")
+                    help="run the serving invariant auditor after every "
+                         "tick (page conservation, refcounts, radix "
+                         "reachability, slot hygiene); raises AuditError "
+                         "at the tick the books diverge")
     ap.add_argument("--guards", choices=["on", "off"], default="on",
                     help="block-table range + disjoint-write checks before "
                          "every paged dispatch")
@@ -165,6 +178,8 @@ def main(argv=None):
     ttfts = [r.ttft_ticks for r in done if r.ttft_ticks is not None]
     if ttfts:
         extra += f", mean TTFT {sum(ttfts)/len(ttfts):.1f} ticks"
+    if args.audit:  # serve.py:127-128
+        extra += f", {engine.audits_run} audits clean"
     not_completed = [r for r in done if r.status != "completed"]
     if not_completed:
         extra += f", {len(not_completed)} not completed (" + ", ".join(

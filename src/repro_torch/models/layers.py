@@ -1,15 +1,18 @@
 """Model layers of the dense GQA decoder, the MLA + MoE decoder and the
 Mamba-2 SSM (plain functions over parameter dicts), the port's counterpart
 of the serving and training subset of ``repro.models.layers``: GQA and
-multi-head latent attention over paged pools, full-sequence GQA attention,
-the dense MLP, the capacity-dispatched mixture of experts, and the Mamba-2
-layer, full sequence (through the SSD kernels) and one token at a time (the
-recurrence).
+multi-head latent attention over paged pools and over contiguous per-slot
+strips, full-sequence GQA attention, the dense MLP, the capacity-dispatched
+mixture of experts, and the Mamba-2 layer, full sequence (through the SSD
+kernels) and one token at a time (the recurrence).
 
 Parameters are plain dicts of tensors with the reference's tree layout.
-Paged KV pools are updated **in place**: where the reference returned new
-pools (``.at[...].set`` on donated buffers), these functions write into the
-pools they are given and return only the layer's output.
+Paged KV pools and contiguous strips are updated **in place**: where the
+reference returned new pools (``.at[...].set`` on donated buffers), these
+functions write into the pools they are given and return only the layer's
+output.  The contiguous layers call the plain functions of ``kernels.ref``
+directly, as the reference's call ``ref.*`` (no Pallas kernel serves the
+strips): they never pass through ``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -166,6 +169,26 @@ def attention_full(params, x, cfg: ModelConfig, positions, window=None,
     return out.to(x.dtype) @ params["wo"]
 
 
+def _require_fp_cache(cfg: ModelConfig, layout: str):
+    """The contiguous strips store the model's dtype only (layers.py:178)."""
+    if cfg.kv_dtype is not None:
+        raise ValueError(
+            f"kv_dtype={cfg.kv_dtype!r} requires a paged cache layout; "
+            f"the {layout} cache stores {cfg.dtype} only")
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                  window=None):
+    """One layer's contiguous strips ``k``/``v`` (batch, Hkv, size, D),
+    ``size`` = min(max_len, window) for a windowed layer (a ring buffer),
+    else ``max_len`` (layers.py:186); zero-filled."""
+    _require_fp_cache(cfg, "contiguous")
+    size = min(max_len, window) if window else max_len
+    shape = (batch, cfg.num_kv_heads, size, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+
+
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
                         device, layers: Optional[int] = None):
     """Page pools ``(kv_heads, num_blocks, page_size, head_dim)``, stacked
@@ -303,8 +326,83 @@ def attention_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables,
     return out.to(x.dtype) @ params["wo"]
 
 
+def attention_prefill(params, x, cfg: ModelConfig, cache, pos, lens,
+                      window=None, rope_fraction=1.0):
+    """Chunk-wide prefill against one layer's contiguous strips (ring
+    buffers for windowed layers), layers.py:322: the same contract as
+    :func:`attention_prefill_paged`, the prior context read from the strip
+    **before** the chunk overwrites any ring entry (queries early in the
+    chunk still see context its tail evicts), through ``ref.prefill_attention``.
+    The chunk is then written in place as a gather-select over the strip's
+    entries: entry r takes the latest live chunk token mapping to it, so a
+    chunk longer than a ring keeps its last ``size`` tokens, and a chunk may
+    start at any position."""
+    b, c, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _qkv(params, x, cfg)
+    lens = lens.to(torch.int32)
+    ar = torch.arange(c, dtype=torch.int32, device=x.device)
+    posmat = pos[:, None] + ar
+    q = apply_rope(q, posmat, cfg.rope_theta, rope_fraction)
+    k = apply_rope(k, posmat, cfg.rope_theta, rope_fraction)
+    ks, vs = cache["k"], cache["v"]
+    size = ks.shape[2]
+    r = torch.arange(size, dtype=torch.int32, device=x.device)[None, :]  # (1, S)
+    if window:
+        # ring entry r holds the latest position p < pos with p % size == r
+        sm1 = pos[:, None] - 1
+        p = sm1 - torch.remainder(sm1 - r, size)
+        ctx_pos = torch.where((pos[:, None] > 0) & (p >= 0), p, -1)
+    else:
+        ctx_pos = torch.where(r < pos[:, None], r, -1)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # (B, Hkv, C, D)
+    out = ref.prefill_attention(
+        q.transpose(1, 2), kt, vt, ks, vs, ctx_pos, posmat, lens,
+        window=window, logit_soft_cap=cfg.logit_soft_cap)
+    out = out.transpose(1, 2).reshape(b, c, h * hd)
+    rel = r - pos[:, None]  # (B, S)
+    if window:
+        base = torch.remainder(rel, size)  # ring: chunk index == base mod size
+        cidx = base + torch.div(lens[:, None] - 1 - base, size,
+                                rounding_mode="floor") * size
+    else:
+        cidx = rel
+    sel = ((cidx >= 0) & (cidx < lens[:, None]))[:, None, :, None]
+    cg = cidx.clamp(0, c - 1).long()[:, None, :, None].expand(-1, ks.shape[1], -1, hd)
+    ks.copy_(torch.where(sel, kt.to(ks.dtype).gather(2, cg), ks))
+    vs.copy_(torch.where(sel, vt.to(vs.dtype).gather(2, cg), vs))
+    return out.to(x.dtype) @ params["wo"]
+
+
+def attention_decode(params, x, cfg: ModelConfig, cache, pos, window=None,
+                     rope_fraction=1.0):
+    """One-token decode against one layer's contiguous strips
+    (layers.py:375): slot b's K/V land at ``pos % size`` of a ring (a
+    windowed layer), else at ``min(pos, size - 1)``, in place, then its
+    query attends its first ``min(pos + 1, size)`` entries through
+    ``ref.attention`` (a ring holds exactly the window)."""
+    b = x.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _qkv(params, x, cfg)  # (b, 1, ...)
+    posv = pos[:, None]
+    q = apply_rope(q, posv, cfg.rope_theta, rope_fraction)
+    k = apply_rope(k, posv, cfg.rope_theta, rope_fraction)
+    ks, vs = cache["k"], cache["v"]
+    size = ks.shape[2]
+    slot = (torch.remainder(pos, size) if window
+            else pos.clamp(max=size - 1)).long()
+    rows = torch.arange(b, device=x.device)
+    ks[rows, :, slot] = k[:, 0].to(ks.dtype)
+    vs[rows, :, slot] = v[:, 0].to(vs.dtype)
+    out = ref.attention(q.transpose(1, 2), ks, vs, causal=False,
+                        kv_len=(pos + 1).clamp(max=size),
+                        logit_soft_cap=cfg.logit_soft_cap)
+    out = out.transpose(1, 2).reshape(b, 1, h * hd)
+    return out.to(x.dtype) @ params["wo"]
+
+
 # ---------------------------------------------------------------------------
-# MLA attention (DeepSeek-V2) over latent page pools
+# MLA attention (DeepSeek-V2) over latent page pools and strips
 # ---------------------------------------------------------------------------
 
 
@@ -325,6 +423,21 @@ def init_mla(gen, cfg: ModelConfig) -> Params:
         "w_o": _dense_init(gen, (h * m.v_head_dim, d), dt),
         "w_q": _dense_init(gen, (d, qd), dt),
         "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dt, device=gen.device),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """One layer's contiguous latent strips (layers.py:459): ``c_kv``
+    (batch, max_len, 1, rank) and ``k_pe`` (batch, max_len, 1, rope_dim),
+    zero-filled; a window only masks scores (no ring)."""
+    _require_fp_cache(cfg, "contiguous latent")
+    m = cfg.mla
+    dt = dtype_of(cfg)
+    return {
+        "c_kv": torch.zeros((batch, max_len, 1, m.kv_lora_rank), dtype=dt,
+                            device=device),
+        "k_pe": torch.zeros((batch, max_len, 1, m.qk_rope_head_dim), dtype=dt,
+                            device=device),
     }
 
 
@@ -398,6 +511,27 @@ def _mla_decode_qkv(params, x, cfg: ModelConfig, posv):
     k_pe = apply_rope((x[:, 0] @ params["w_kpe"]).reshape(b, 1, -1), posv,
                       cfg.rope_theta)
     return q_nope, q_pe, c_kv, k_pe
+
+
+def mla_decode(params, x, cfg: ModelConfig, cache, pos, window=None):
+    """One-token MLA decode against one layer's contiguous latent strips
+    (layers.py:514): the token's latent and rope entries land at ``pos``
+    (clamped to the strip, as JAX's ``dynamic_update_slice`` clamps), in
+    place, then the absorbed queries attend the strip under a length mask
+    through ``ref.mla_masked``.  Returns the output projection (B, 1, d)."""
+    b = x.shape[0]
+    q_nope, q_pe, c_kv, k_pe = _mla_decode_qkv(params, x, cfg, pos[:, None])
+    ckv, kpe = cache["c_kv"], cache["k_pe"]
+    at = pos.clamp(max=ckv.shape[1] - 1).long()
+    rows = torch.arange(b, device=x.device)
+    ckv[rows, at, 0] = c_kv.to(ckv.dtype)
+    kpe[rows, at, 0] = k_pe[:, 0].to(kpe.dtype)
+    dt = dtype_of(cfg)
+    out = ref.mla_masked(
+        _mla_absorbed_q(params, q_nope, cfg).to(dt), q_pe.to(dt), ckv[:, :, 0],
+        kpe[:, :, 0], pos + 1, _mla_scale(cfg), window=window,
+        logit_soft_cap=cfg.logit_soft_cap)
+    return _mla_out_proj(params, out, x.dtype, cfg)[:, None]
 
 
 def mla_decode_paged(params, x, cfg: ModelConfig, cache, pos, tables,
@@ -477,6 +611,34 @@ def mla_prefill_paged(params, x, cfg: ModelConfig, cache, pos, tables, lens,
             starts, lens, fmt=cfg.kv_dtype, **kw)[0]
     else:
         out = ops.mla_prefill(*args, tables, starts, lens, **kw)[0]
+    return _mla_out_proj(params, out.transpose(1, 2), x.dtype, cfg)
+
+
+def mla_prefill(params, x, cfg: ModelConfig, cache, pos, lens, window=None):
+    """Chunk-wide MLA prefill against one layer's contiguous latent strips
+    (layers.py:673), the latent twin of :func:`attention_prefill`: prior
+    context from the strip through ``ref.mla_prefill``, then the chunk
+    written in place as a gather-select (the strip stays full length; a
+    window only masks scores).  Returns the output projection (B, C, d)."""
+    c = x.shape[1]
+    lens = lens.to(torch.int32)
+    posmat = pos[:, None] + torch.arange(c, dtype=torch.int32, device=x.device)
+    q_lat, q_pe, c_kv, k_pe = _mla_prefill_qkv(params, x, cfg, posmat)
+    ckv, kpe = cache["c_kv"], cache["k_pe"]
+    r = torch.arange(ckv.shape[1], dtype=torch.int32, device=x.device)[None, :]
+    dt = dtype_of(cfg)
+    out = ref.mla_prefill(
+        q_lat.to(dt), q_pe.to(dt), c_kv, k_pe, ckv[:, :, 0], kpe[:, :, 0],
+        torch.where(r < pos[:, None], r, -1), posmat, lens,
+        sm_scale=_mla_scale(cfg), window=window,
+        logit_soft_cap=cfg.logit_soft_cap)
+    rel = r - pos[:, None]  # (B, S)
+    sel = ((rel >= 0) & (rel < lens[:, None]))[:, :, None, None]
+    cg = rel.clamp(0, c - 1).long()[:, :, None]
+    for strip, new in ((ckv, c_kv), (kpe, k_pe)):
+        idx = cg.expand(-1, -1, new.shape[-1])
+        strip.copy_(torch.where(sel, new.to(strip.dtype).gather(1, idx)[:, :, None],
+                                strip))
     return _mla_out_proj(params, out.transpose(1, 2), x.dtype, cfg)
 
 

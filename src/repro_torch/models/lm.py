@@ -9,10 +9,10 @@ Parameters are a plain dict with the reference's tree layout
 blocks: DeepSeek-V2's first, dense-FFN layer; empty otherwise), ``layers``
 with every leaf stacked over the remaining layers in front, and
 ``final_norm``.  A Python loop over layers takes the place of
-``jax.lax.scan``.  The paged pools live in :class:`Cache` and are updated
-**in place** by :func:`decode_step`, :func:`prefill_step` and
-:func:`copy_pages`, and so is the recurrent state (the reference donated
-them and returned new ones).
+``jax.lax.scan``.  The paged pools (or the contiguous strips) live in
+:class:`Cache` and are updated **in place** by :func:`decode_step`,
+:func:`prefill_step` and :func:`copy_pages`, and so is the recurrent state
+(the reference donated them and returned new ones).
 
 Every decoder-only family of the configs runs: ``family == "dense"`` with
 GQA attention (``qwen2_1_5b``), ``family == "moe"`` with MLA attention
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -212,7 +213,7 @@ def _soft_cap(cfg: ModelConfig, logits):
 
 
 # ---------------------------------------------------------------------------
-# paged decode cache
+# decode caches
 # ---------------------------------------------------------------------------
 
 
@@ -237,23 +238,40 @@ class Cache:
     swaps in a refreshed table (the host-side allocation lives in
     serving/paged_cache.py).
 
-    ``layout="contiguous"`` (the attention-free SSM family): ``kv`` holds the
-    recurrent state ``ssm`` (L, B, H, N, P) fp32 and the conv window
-    ``conv`` (L, B, W - 1, conv_dim) in the model's dtype, one row per
-    slot, written in place by :func:`decode_step`; no block table."""
+    ``layout="contiguous"``: per-slot strips, no block table.  GQA holds
+    ``k``/``v``, a list of one (B, Hkv, size, D) strip a layer, ``size`` the
+    layer's window where it has one (a ring, lm.py:341), else ``max_len``:
+    strips of two sizes cannot stack, so no strip leaf is stacked (the
+    reference stacks only uniform layers, lm.py:359).  MLA holds ``c_kv``
+    (B, max_len, 1, R) and ``k_pe`` (B, max_len, 1, Dpe) a layer.  The SSM
+    family holds the recurrent state ``ssm`` (L, B, H, N, P) fp32 and the
+    conv window ``conv`` (L, B, W - 1, conv_dim), one row per slot; the
+    hybrid both the strips and the state.  Steps write them in place.
 
-    def __init__(self, kv: Dict[str, torch.Tensor], max_len: int,
-                 page_size: int, tables: Optional[torch.Tensor],
-                 layout: str = "paged"):
+    ``groups`` lists the reference's layer groups of the paged pools as
+    ``(start, stop, stacked)``: its unstacked prefix layers one by one, then
+    the rest stacked when their windows agree (lm.py:353-363).
+    :func:`gather_pages` walks the pools in that order, so a snapshot's
+    leaves have the reference's shapes."""
+
+    def __init__(self, kv: Dict[str, Any], max_len: int, page_size: int,
+                 tables: Optional[torch.Tensor], layout: str = "paged",
+                 groups: Optional[List[tuple]] = None):
         self.kv = kv
         self.max_len = max_len
         self.page_size = page_size
         self.tables = tables
         self.layout = layout
+        self.groups = groups
+
+    def leaves(self) -> List[torch.Tensor]:
+        """Every tensor of the cache: stacked leaves, and each layer's strip."""
+        return [t for v in self.kv.values()
+                for t in (v if isinstance(v, list) else [v])]
 
     @property
     def device(self) -> torch.device:
-        return next(iter(self.kv.values())).device
+        return self.leaves()[0].device
 
     @property
     def num_pages(self) -> int:
@@ -261,26 +279,30 @@ class Cache:
         return leaf.shape[leaf.ndim - 3]
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
-        """Layer ``i``'s pools: views, so writes land in the stacked pools."""
+        """Layer ``i``'s pools, strips and state: views of stacked leaves (so
+        writes land in them) and the layer's own strips."""
         return {k: v[i] for k, v in self.kv.items()}
 
     def with_tables(self, tables) -> "Cache":
         """Same pools (shared, not copied) under refreshed block tables."""
-        return Cache(self.kv, self.max_len, self.page_size, tables, self.layout)
+        return Cache(self.kv, self.max_len, self.page_size, tables, self.layout,
+                     self.groups)
 
     def kv_bytes(self) -> int:
         """Bytes held by every leaf: the KV page pools, scale pools included,
-        and the recurrent state (lm.py:309)."""
-        return sum(t.numel() * t.element_size() for t in self.kv.values())
+        or the strips, and the recurrent state (lm.py:309)."""
+        return sum(t.numel() * t.element_size() for t in self.leaves())
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                layout: str = "paged", page_size: int = 16,
                num_blocks: Optional[int] = None, device="cuda") -> Cache:
     """The decode cache of ``batch`` slots (lm.py:317): paged pools for an
-    attention model (with each slot's recurrent rows for the hybrid), the
-    contiguous recurrent state for an attention-free one
-    (``layout="contiguous"``)."""
+    attention model (with each slot's recurrent rows for the hybrid), or
+    ``layout="contiguous"``: per-slot strips (rings for windowed GQA
+    layers, latent strips for MLA) and/or the recurrent state.  The
+    contiguous strips hold the model's dtype only: a ``cfg.kv_dtype`` raises
+    the reference's ``ValueError``."""
     require_supported(cfg)
     if layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
@@ -291,14 +313,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             f"layout='paged' needs an attention KV cache; {cfg.name} "
             f"(attention={cfg.attention!r}) keeps only recurrent state — "
             "use layout='contiguous'.")
-    if layout == "contiguous" and cfg.attends:
-        raise NotImplementedError(
-            "the contiguous KV layout of attention models is not ported yet "
-            "(ROADMAP Queue 1 item 4, contiguous half); use layout='paged'")
     dev = resolve_device(device)
+    wlist = static_windows(cfg)
     if layout == "contiguous":
-        state = L.init_mamba2_cache(cfg, batch, dev, layers=cfg.num_layers)
-        return Cache(state, max_len, 0, None, layout="contiguous")
+        kv: Dict[str, Any] = {}
+        if cfg.attention == "gqa":
+            strips = [L.init_kv_cache(cfg, batch, max_len, dev, window=w)
+                      for w in wlist]
+            kv = {k: [st[k] for st in strips] for k in ("k", "v")}
+        elif cfg.attention == "mla":
+            strips = [L.init_mla_cache(cfg, batch, max_len, dev)
+                      for _ in wlist]
+            kv = {k: [st[k] for st in strips] for k in ("c_kv", "k_pe")}
+        if cfg.family in ("ssm", "hybrid"):
+            kv.update(L.init_mamba2_cache(cfg, batch, dev, layers=cfg.num_layers))
+        return Cache(kv, max_len, 0, None, layout="contiguous")
     max_pages = -(-max_len // page_size)
     if num_blocks is None:
         num_blocks = batch * max_pages
@@ -308,7 +337,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if cfg.family == "hybrid":  # lm.py:349-350: the state beside the pools
         kv.update(L.init_mamba2_cache(cfg, batch, dev, layers=cfg.num_layers))
     tables = torch.zeros((batch, max_pages), dtype=torch.int32, device=dev)
-    return Cache(kv, max_len, page_size, tables)
+    n_prefix = num_prefix_layers(cfg)
+    groups = [(i, i + 1, False) for i in range(n_prefix)]
+    rest = cfg.num_layers - n_prefix
+    if len(set(wlist[n_prefix:])) <= 1 and rest > 1:
+        groups.append((n_prefix, cfg.num_layers, True))
+    else:
+        groups += [(i, i + 1, False) for i in range(n_prefix, cfg.num_layers)]
+    return Cache(kv, max_len, page_size, tables, groups=groups)
 
 
 def copy_pages(cache: Cache, src, dst) -> Cache:
@@ -324,6 +360,59 @@ def copy_pages(cache: Cache, src, dst) -> Cache:
         pool = leaf.movedim(leaf.ndim - 3, 0)  # a view: pages leading
         pool[dst] = pool[src]
     return cache
+
+
+def _pool_leaves(cache: Cache):
+    """Every page-pool leaf in the reference's flatten order (lm.py:410):
+    for each of ``cache.groups``, the ``*_pages`` leaves by name, each a
+    view with its page axis leading: (P, L, ...) for a stacked group, (P,
+    ...) for one layer."""
+    if cache.layout != "paged":
+        raise ValueError("page pools need a paged cache")
+    names = sorted(n for n in cache.kv if n.endswith("_pages"))
+    for start, stop, stacked in cache.groups:
+        for name in names:
+            leaf = cache.kv[name][start:stop] if stacked else cache.kv[name][start]
+            yield leaf.movedim(leaf.ndim - 3, 0)
+
+
+def gather_pages(cache: Cache, pages) -> list:
+    """Contents of physical ``pages`` from every pool leaf, page axis
+    leading: numpy arrays of shape ``(len(pages), *per_page_shape)`` in
+    :func:`page_leaf_shapes`' order (lm.py:410), the payload of the
+    engine's ``snapshot()``.  numpy has no bfloat16: a bf16 pool's pages
+    come back as their raw 16-bit patterns (uint16), as the port's
+    checkpoints store them."""
+    from ..convert import leaf_to_numpy
+
+    idx = torch.as_tensor(list(pages), dtype=torch.long, device=cache.device)
+    return [leaf_to_numpy(pool[idx])[0] for pool in _pool_leaves(cache)]
+
+
+def scatter_pages(cache: Cache, pages, values) -> Cache:
+    """Inverse of :func:`gather_pages` (lm.py:432): write ``values`` (one
+    array a pool leaf, page axis leading; a bf16 leaf's as its raw 16-bit
+    patterns) into physical ``pages`` of every pool leaf, in place."""
+    from ..convert import bits_to_bfloat16
+
+    idx = torch.as_tensor(list(pages), dtype=torch.long, device=cache.device)
+    pools = list(_pool_leaves(cache))
+    values = list(values)
+    if len(values) != len(pools):
+        raise ValueError(f"{len(values)} arrays for {len(pools)} page pools")
+    for pool, v in zip(pools, values):
+        v = (bits_to_bfloat16(v) if v.dtype == np.uint16
+             else torch.from_numpy(np.ascontiguousarray(v)))
+        pool[idx] = v.to(device=pool.device, dtype=pool.dtype)
+    return cache
+
+
+def page_leaf_shapes(cache: Cache) -> list:
+    """``(per_page_shape, dtype_name)`` for every pool leaf in gather order
+    (lm.py:456), with the reference's dtype names ("bfloat16", "float32",
+    "int8"): the layout fingerprint a snapshot is checked against."""
+    return [(tuple(pool.shape[1:]), str(pool.dtype).replace("torch.", ""))
+            for pool in _pool_leaves(cache)]
 
 
 # ---------------------------------------------------------------------------
@@ -373,13 +462,32 @@ def _block(p, x, cfg, attend, recur=None):
     return x + L.mlp(p["mlp"], h2, cfg), None
 
 
+def _decode_attention(cfg: ModelConfig, cache: Cache, pools, pos, window, rf,
+                      append):
+    """One layer's decode attention ``(params, h) -> out`` over its
+    ``pools`` (lm.py:503-524): the paged kernels' path, or the contiguous
+    strips' plain attention."""
+    if cache.layout == "contiguous":
+        if cfg.attention == "mla":
+            return lambda pa, h: L.mla_decode(pa, h, cfg, pools, pos,
+                                              window=window)
+        return lambda pa, h: L.attention_decode(
+            pa, h, cfg, pools, pos, window=window, rope_fraction=rf)
+    if cfg.attention == "mla":
+        return lambda pa, h: L.mla_decode_paged(
+            pa, h, cfg, pools, pos, cache.tables, window=window, append=append)
+    return lambda pa, h: L.attention_decode_paged(
+        pa, h, cfg, pools, pos, cache.tables, window=window, rope_fraction=rf,
+        append=append)
+
+
 def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
                 live=None):
     """One decode step: ``token`` (B,) int32, ``pos`` (B,) int32 ->
     ``(logits (B, V) fp32, cache)``.
 
-    Every slot writes its K/V at ``pos`` through its table row, dead ones
-    included (into page 0), as the reference does.  ``live`` marks the slots
+    Every slot writes its K/V at ``pos`` through its table row (or into its
+    strip), dead ones included (into page 0), as the reference does.  ``live`` marks the slots
     genuinely stepping; positional KV caches never need it (a dead slot's
     write lands beyond its live length), so attention ignores it.
     Recurrent state has no position to hide behind: the SSM and hybrid
@@ -391,7 +499,7 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
     fresh = None
     if live is not None and cfg.family in ("ssm", "hybrid"):
         fresh = live & (pos == 0)
-    if cache.layout == "contiguous":
+    if not cfg.attends:  # the SSM family's recurrent state alone
         for i, p in enumerate(blocks(params)):
             h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
             x = x + _mamba_decode(p["mamba"], h, cfg, cache.layer(i), live, fresh)
@@ -399,17 +507,13 @@ def decode_step(params, cfg: ModelConfig, cache: Cache, token, pos,
         return _soft_cap(cfg, L.unembed(params["embed"], x, cfg)[:, 0]), cache
     wlist = static_windows(cfg)
     rf = rope_fraction(cfg)
-    tables = cache.tables
-    append = L.decode_append_index(pos, tables, cache.page_size, cache.num_pages)
+    append = None
+    if cache.layout == "paged":
+        append = L.decode_append_index(pos, cache.tables, cache.page_size,
+                                       cache.num_pages)
     for i, p in enumerate(blocks(params)):
         pools = cache.layer(i)
-        if cfg.attention == "mla":
-            attend = lambda pa, h: L.mla_decode_paged(  # noqa: E731
-                pa, h, cfg, pools, pos, tables, window=wlist[i], append=append)
-        else:
-            attend = lambda pa, h: L.attention_decode_paged(  # noqa: E731
-                pa, h, cfg, pools, pos, tables, window=wlist[i],
-                rope_fraction=rf, append=append)
+        attend = _decode_attention(cfg, cache, pools, pos, wlist[i], rf, append)
         recur = None
         if cfg.family == "hybrid":
             state = {k: pools[k] for k in ("ssm", "conv")}
@@ -468,17 +572,38 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     return cfg.attention in ("gqa", "mla") and cfg.family not in ("ssm", "hybrid")
 
 
+def _prefill_attention(cfg: ModelConfig, cache: Cache, pools, pos, lens, window,
+                       rf, plain):
+    """One layer's chunk attention ``(params, h) -> out`` over its ``pools``
+    (lm.py:664-686): the paged kernels' path, or the contiguous strips'
+    plain attention."""
+    if cache.layout == "contiguous":
+        if cfg.attention == "mla":
+            return lambda pa, h: L.mla_prefill(pa, h, cfg, pools, pos, lens,
+                                               window=window)
+        return lambda pa, h: L.attention_prefill(
+            pa, h, cfg, pools, pos, lens, window=window, rope_fraction=rf)
+    if cfg.attention == "mla":
+        return lambda pa, h: L.mla_prefill_paged(
+            pa, h, cfg, pools, pos, cache.tables, lens, window=window,
+            plain=plain)
+    return lambda pa, h: L.attention_prefill_paged(
+        pa, h, cfg, pools, pos, cache.tables, lens, window=window,
+        rope_fraction=rf, plain=plain)
+
+
 def _prefill_trunk(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens,
                    plain: bool = False):
-    """Embed, every block's chunk attention + KV page writes, final norm
-    (lm.py:706).  Returns ``x (B, C, d)``.  ``plain`` sends every block's
-    attention to the plain version (``kernels.ops``' ``plain`` argument)."""
+    """Embed, every block's chunk attention + KV page (or strip) writes,
+    final norm (lm.py:706).  Returns ``x (B, C, d)``.  ``plain`` sends every
+    paged block's attention to the plain version (``kernels.ops``' ``plain``
+    argument); the contiguous strips' attention is plain by construction."""
     if not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"chunked prefill supports attention archs (GQA/MLA); {cfg.name} "
             f"(attention={cfg.attention}, family={cfg.family}) replays "
             "prompts through decode_step instead.")
-    dev = cache.tables.device
+    dev = cache.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
     x = L.embed(params["embed"], tokens).to(L.dtype_of(cfg))
@@ -486,14 +611,8 @@ def _prefill_trunk(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens,
     rf = rope_fraction(cfg)
     for i, p in enumerate(blocks(params)):
         pools = cache.layer(i)
-        if cfg.attention == "mla":
-            attend = lambda pa, h: L.mla_prefill_paged(  # noqa: E731
-                pa, h, cfg, pools, pos, cache.tables, lens, window=wlist[i],
-                plain=plain)
-        else:
-            attend = lambda pa, h: L.attention_prefill_paged(  # noqa: E731
-                pa, h, cfg, pools, pos, cache.tables, lens, window=wlist[i],
-                rope_fraction=rf, plain=plain)
+        attend = _prefill_attention(cfg, cache, pools, pos, lens, wlist[i], rf,
+                                    plain)
         x, _ = _block(p, x, cfg, attend)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), lens
 
@@ -526,7 +645,9 @@ def verify_step(params, cfg: ModelConfig, cache: Cache, tokens, pos, lens):
     position, while the prefill kernels write whole chunk pages from a
     page-aligned start (a width that is a multiple of the page size would
     otherwise reach them and overwrite the slot's earlier tokens in its
-    first page).  ``kernels.ops.PLAIN_PREFILL`` counts those calls."""
+    first page).  ``kernels.ops.PLAIN_PREFILL`` counts those calls over
+    pages; over contiguous strips the chunk is a gather-select write from
+    any position (layers.py:358-371), plain as every contiguous layer."""
     x, _ = _prefill_trunk(params, cfg, cache, tokens, pos, lens, plain=True)
     return _soft_cap(cfg, L.unembed(params["embed"], x, cfg)), cache
 
@@ -570,7 +691,7 @@ DRAFT_PROPOSERS = {"ngram": ngram_propose}
 def spec_decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, key,
                      live, remaining, history, *, n_rounds: int,
                      draft_len: int, propose_fn, sample_fn, accept_fn,
-                     eos_id: int, max_len: int):
+                     eos_id: int, max_len: int, poison=None):
     """``n_rounds`` draft-verify rounds with no host transfer between them
     (lm.py:845): each round proposes ``draft_len`` tokens from the slot's
     own history (``propose_fn``), scores them with the feed token in one
@@ -586,11 +707,12 @@ def spec_decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, key,
     bool`` is the leading-accept mask (``sampling.spec_accept``).  Greedy
     targets make the stream byte-identical to plain decode.  Per position
     the per-tick stop rule applies: an earlier EOS, the allowance,
-    ``max_len``.  A slot whose verify logits hold no finite value emits
-    nothing and stops, flagged in ``bad`` (the reference's fault injector
-    also poisons them; the port has none yet, ROADMAP Queue 1 item 11).
-    ``history`` (B, max_len) int32 is updated in place with the emitted
-    tokens.
+    ``max_len``.  ``poison`` (B,) bool, the fault injector's mask (a device
+    tensor, or None), overwrites its slots' verify logits with NaN each
+    round; a slot whose verify logits hold no finite value, injected or
+    not, emits nothing and stops, flagged in ``bad`` for the engine to read
+    at the window's one drain.  ``history`` (B, max_len) int32 is updated
+    in place with the emitted tokens.
 
     Returns ``(targets (n, B, C) int32, emitted (n, B, C) bool, bad (n, B)
     bool, key)`` with ``C = draft_len + 1``; the pools of ``cache`` are
@@ -609,6 +731,8 @@ def spec_decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, key,
         chunk = torch.cat([feed[:, None], drafts], dim=1)
         lens = torch.where(live, c, 0).to(torch.int32)
         logits, cache = verify_step(params, cfg, cache, chunk, pos, lens)
+        if poison is not None:
+            logits = torch.where(poison[:, None, None], torch.nan, logits)
         bad = (~torch.isfinite(logits).any(dim=-1)).any(dim=-1) & live
         tgt, key = sample_fn(logits, key, live.any())
         eos_hit = tgt == eos_id

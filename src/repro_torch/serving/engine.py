@@ -45,29 +45,42 @@ ticks (``steps_run``, TTFT ticks, preemptions and shared pages are equal):
   sampled round splits the key ``draft_len + 2`` ways whatever it accepts;
 * request lifecycle: every request ends in one terminal status through one
   exit path (``_terminate``) that releases its pages; deadlines and
-  ``cancel()`` are honoured before each dispatch.
+  ``cancel()`` are honoured before each dispatch; ``drain()`` stops intake
+  and finishes the residents, ``shutdown()`` also cancels the queue and
+  flushes the prefix index, leaving the pool empty;
+* **fault tolerance** (engine.py:81-91): a ``serving.faults.FaultInjector``
+  fires at the real allocation and dispatch sites (the pool's ``alloc``,
+  the grow-ahead grant, a NaN logits row written on the device before
+  sampling, a corrupted block-table entry that the dispatch guard must
+  reject before any launch, poisoned verify logits inside the speculative
+  window), and ``ServeConfig.audit=True`` re-derives the page ledger after
+  every tick (``faults.audit_engine``);
+* **persistence**: ``snapshot()`` / ``restore()`` carry the radix index and
+  its pages' contents across an engine restart, so a warm prefix stays warm
+  (bf16 pages as raw 16-bit patterns named ``"bfloat16"``).
 
-* **contiguous mode** (``cache="contiguous"``) for the attention-free SSM
-  family: a per-slot recurrent-state cache with no pool, no block table, no
-  prefix cache and no guard (the reference's ``self.pool is None`` /
-  ``self.tables is None`` branches); prompts replay one token per tick
-  through the decode step, and the window runs over the same state.
+* **contiguous mode** (``cache="contiguous"``): per-slot strips of
+  ``max_len`` (ring strips of ``window`` entries for windowed layers) for
+  the attention families, the latent strips for MLA, the recurrent state
+  for the SSM family (and both beside each other for the hybrid); no pool,
+  no block table, no prefix cache and no guard (the reference's
+  ``self.pool is None`` / ``self.tables is None`` branches).  Chunked
+  prefill, the window and speculation run over the strips; the attention
+  there is the plain version, as the reference's contiguous layers call
+  ``ref.*`` (no Pallas kernel exists for it).
 
-Each tick runs eagerly on the device (no jit): the KV pools and the
+Each tick runs eagerly on the device (no jit): the KV pools, strips and the
 recurrent state are updated in place and the sampled token ids are the
 only per-tick download (one per window with ``sync_every > 1``).
-
-Not ported yet, each raising ``NotImplementedError`` where it is asked for:
-``cache="contiguous"`` for an attention model (ROADMAP Queue 1 item 4),
-``audit=True`` and fault injection (item 11), and
-``drain``/``shutdown``/``snapshot`` (item 11).  ``spec_decode`` for a model
-without chunked prefill raises the reference's ``ValueError``.
+``spec_decode`` for a model without chunked prefill raises the reference's
+``ValueError``.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import itertools
+import pickle
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -86,6 +99,7 @@ from .paged_cache import (
     blocks_for,
 )
 from . import prng
+from .faults import FaultInjector, audit_engine
 from .sampling import sample_step, spec_accept, spec_sample_step
 
 
@@ -111,11 +125,6 @@ def plan_prefill_chunks(
         out[slot] = n
         room -= n
     return out
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 item {item})")
 
 
 @dataclasses.dataclass
@@ -158,7 +167,8 @@ class ServeConfig:
     # (checked at engine init)
     spec_decode: Optional[str] = None
     draft_len: int = 4
-    # -- not ported yet (raises) ------------------------------------------
+    # -- fault tolerance --------------------------------------------------
+    # run the invariant auditor (faults.audit_engine) after every tick
     audit: bool = False
     # base ticks a preemption victim waits before re-admission, doubling
     # per preemption (capped at 32x).  0 = immediate re-admission.
@@ -204,11 +214,6 @@ class ServeConfig:
             # the reference raises this at engine init (engine.py:500)
             raise ValueError(
                 f"kv_dtype={self.kv_dtype!r} requires cache='paged'")
-        # no option is silently ignored: what is not ported raises (here,
-        # or at engine init where the model decides: the contiguous layout
-        # of an attention model, lm.init_cache)
-        if self.audit:
-            _not_ported("audit=True (the invariant auditor)", "11")
 
 
 # Request lifecycle: QUEUED <-> RUNNING (preemption re-queues), ending in
@@ -221,6 +226,9 @@ CANCELLED = "cancelled"  # cancel() honored
 FAILED = "failed"  # poisoned logits, retry budget, or outgrew the pool
 REJECTED = "rejected"  # could never be served (admission fail-fast)
 TERMINAL = (COMPLETED, TIMED_OUT, CANCELLED, FAILED, REJECTED)
+
+# snapshot() / restore() wire format version (engine.py:433)
+SNAPSHOT_FORMAT = 1
 
 
 @dataclasses.dataclass
@@ -267,9 +275,7 @@ class Request:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
-                 injector=None, *, device="cuda"):
-        if injector is not None:
-            _not_ported("fault injection", "11")
+                 injector: Optional[FaultInjector] = None, *, device="cuda"):
         self.device = resolve_device(device)
         if serve_cfg.kv_dtype is not None and cfg.kv_dtype != serve_cfg.kv_dtype:
             # the storage format is a property of the cache the steps run
@@ -299,8 +305,7 @@ class ServingEngine:
             self.pool = BlockPool(nb, ps, base=1, page_bytes=page_bytes)
             self.tables = SlotTables(self.pool, b, self.max_pages)
         else:
-            # recurrent state, one row per slot (engine.py:541-544); an
-            # attention model raises inside lm.init_cache
+            # per-slot strips and/or recurrent state (engine.py:527-530)
             self.pool = None
             self.tables = None
             self.cache = lm.init_cache(cfg, b, serve_cfg.max_len,
@@ -373,9 +378,18 @@ class ServingEngine:
         self.completed: List[Request] = []
         self.steps_run = 0
         self.preemptions = 0
-        self.admission_open = True
+        # -- fault tolerance (engine.py:622-634) --------------------------
+        self.admission_open = True  # drain() / shutdown() close intake
         self.poisoned_rows = 0  # logits rows with no finite value seen
+        self.audits_run = 0  # invariant audits executed (scfg.audit)
         self.guard_failures = 0  # requests FAILed by the dispatch guard
+        self.table_corruptions = 0  # injected table_corrupt faults fired
+        self._corrupt_mode = 0  # cycles the injected corruption flavors
+        self.injector = injector
+        if injector is not None:
+            injector.bind_clock(lambda: self.steps_run)
+            if self.pool is not None:
+                self.pool.injector = injector
 
     # ------------------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens=None,
@@ -452,9 +466,24 @@ class ServingEngine:
                     self.tables.attach(s, matched)
                     self.pages_shared += len(matched)
                     self._tables_dirty = True
-                if self.tables.ensure_capacity(s, self._resident_tokens(req),
-                                               req.uid):
+                try:
+                    if self.tables.ensure_capacity(
+                            s, self._resident_tokens(req), req.uid):
+                        self._tables_dirty = True
+                except PoolExhausted:
+                    # an injected alloc fault fired past the free-count
+                    # gate: roll the admission back (matched pages return
+                    # their references) and retry next tick (engine.py:723)
+                    self.tables.release_slot(s)
                     self._tables_dirty = True
+                    self.slot_req[s] = None
+                    self.slot_state[s] = None
+                    self.pos[s] = 0
+                    req._cursor = 0  # type: ignore[attr-defined]
+                    req.cached_tokens = 0
+                    req.status = QUEUED
+                    self.queue.appendleft(req)
+                    break
 
     def _pick_victim(self, exclude) -> Optional[int]:
         """Preemption victim: lowest priority, then youngest admission."""
@@ -619,10 +648,13 @@ class ServingEngine:
         return spec_sample_step(logits, key, temperature=self.scfg.temperature,
                                 gate=gate)
 
-    def _sample(self, logits) -> Tuple[np.ndarray, np.ndarray]:
+    def _sample(self, logits, poison=None) -> Tuple[np.ndarray, np.ndarray]:
         """Sampled tokens (the key carry advanced once, unless greedy) plus
         a per-row flag for logits with no finite value (failed instead of
-        emitted), in one download."""
+        emitted), in one download.  ``poison`` (slots,) bool, the injector's
+        mask, turns its rows to NaN on the device first (engine.py:166)."""
+        if poison is not None:
+            logits = torch.where(self._dev(poison)[:, None], torch.nan, logits)
         bad = ~torch.isfinite(logits).any(dim=-1)
         tok, self._key = sample_step(logits, self._key,
                                      temperature=self.scfg.temperature)
@@ -632,17 +664,17 @@ class ServingEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.array(a), device=self.device)
 
-    def _decode(self, feed: np.ndarray, live: np.ndarray):
+    def _decode(self, feed: np.ndarray, live: np.ndarray, poison=None):
         logits, self.cache = lm.decode_step(
             self.params, self.cfg, self._fresh_cache(), self._dev(feed),
             self._dev(self.pos), live=self._dev(live))
-        return self._sample(logits)
+        return self._sample(logits, poison)
 
-    def _prefill(self, toks: np.ndarray, lens: np.ndarray):
+    def _prefill(self, toks: np.ndarray, lens: np.ndarray, poison=None):
         logits, self.cache = lm.prefill_step(
             self.params, self.cfg, self._fresh_cache(), self._dev(toks),
             self._dev(self.pos), self._dev(lens))
-        return self._sample(logits)
+        return self._sample(logits, poison)
 
     # -- per-tick step --------------------------------------------------
     def _gen_ready(self, s: int) -> bool:
@@ -658,9 +690,15 @@ class ServingEngine:
         """One engine tick (one host dispatch).  Replay mode: one batched
         decode step.  Chunked mode: one decode step for the generating slots
         plus prompt chunks for prefilling slots, together bounded by
-        ``token_budget``.  Returns #active slots."""
+        ``token_budget``.  Cancellations and deadlines are honoured before
+        the dispatch; with ``ServeConfig.audit`` the invariant auditor runs
+        after it.  Returns #active slots."""
         self._sweep_lifecycle()
-        return self._step_inner()
+        n = self._step_inner()
+        if self.scfg.audit:
+            self.audits_run += 1
+            audit_engine(self)
+        return n
 
     def _step_inner(self) -> int:
         self._admit()
@@ -678,12 +716,23 @@ class ServingEngine:
             return 0
         self.dispatches += 1
         all_gen = all(self._gen_ready(s) for s in active)
-        if self.spec_proposer is not None and all_gen:
+        spec_ok = self.spec_proposer is not None and all_gen
+        window_ok = self.sync_every > 1 and all_gen
+        if self.injector is not None and self.injector.pending("poison"):
+            # poison faults land per tick, where per-row detection runs
+            # (engine.py:953-958); the spec window has its own site
+            spec_ok = window_ok = False
+        if spec_ok:
             done = self._step_spec_window(active)
             if done is not None:
                 return done
             self.spec_fallbacks += 1  # no headroom / grant denied
-        if self.sync_every > 1 and all_gen:
+            # the preamble's guard may have FAILed a slot: the plain window
+            # reads every slot it is given (the reference passes the stale
+            # list on and raises there, ROADMAP Queue 3)
+            active = [s for s in active if self.slot_req[s] is not None]
+            window_ok = window_ok and bool(active)
+        if window_ok:
             done = self._step_window(active)
             if done is not None:
                 return done
@@ -700,6 +749,8 @@ class ServingEngine:
         rolls back exactly (each slot trimmed to its pre-grant block count,
         the table-dirty flag restored) and the boundary falls back to a
         per-tick step.  The grant never preempts."""
+        if self.injector is not None and self.injector.fire("grant"):
+            return False  # injected grant failure (engine.py:983)
         pre = {s: self.tables.num_blocks(s) for s in active}
         dirty_before = self._tables_dirty
         for s in active:
@@ -866,13 +917,15 @@ class ServingEngine:
             req = self.slot_req[s]
             toks = req.prompt + req.output
             hist[s, : len(toks)] = toks
+        poison = self._poison_mask(active, site="spec_poison")
         toks, emitted, bad, self._key = lm.spec_decode_loop(
             self.params, self.cfg, self._fresh_cache(), self._dev(feed),
             self._dev(self.pos), self._key, self._dev(live), self._dev(rem),
             self._dev(hist), n_rounds=n, draft_len=k,
             propose_fn=lm.DRAFT_PROPOSERS[self.spec_proposer],
             sample_fn=self._spec_sample, accept_fn=spec_accept,
-            eos_id=scfg.eos_id, max_len=scfg.max_len)
+            eos_id=scfg.eos_id, max_len=scfg.max_len,
+            poison=None if poison is None else self._dev(poison))
         self.spec_windows += 1
         flat = torch.cat([toks.flatten(), emitted.flatten().to(torch.int32),
                           bad.flatten().to(torch.int32)]).cpu().numpy()
@@ -989,12 +1042,65 @@ class ServingEngine:
             pairs += local
         return survivors, pairs
 
+    def _poison_mask(self, rows: List[int],
+                     site: str = "poison") -> Optional[np.ndarray]:
+        """(slots,) bool, the rows the injector poisons this dispatch
+        (``site``: "poison" for per-tick logits, "spec_poison" for the
+        speculative window's verify logits), or None with no injector.  A
+        due fault targets ``fault.slot`` mod the dispatched rows
+        (engine.py:1325)."""
+        if self.injector is None:
+            return None
+        mask = np.zeros((self.scfg.slots,), bool)
+        while rows:
+            f = self.injector.fire(site)
+            if f is None:
+                break
+            mask[rows[f.slot % len(rows)]] = True
+        return mask
+
+    def _fire_table_corrupt(self, work: List[Tuple[int, int]]):
+        """Due ``table_corrupt`` faults overwrite one block-table entry of a
+        dispatched slot: the page backing its write position, inside both
+        the guarded live prefix and the write range (engine.py:1342).
+        Corruption fires whether or not guards are on (with guards off the
+        auditor notices the row diverging from the ledger).  Flavors cycle:
+        out-of-range id, reserved page 0, another dispatched row's page."""
+        if self.injector is None or self.tables is None or not work:
+            return
+        ps = self.pool.page_size
+        out_of_range = self.pool.base + self.pool.num_blocks + 5
+        while True:
+            f = self.injector.fire("table_corrupt")
+            if f is None:
+                break
+            s, n = work[f.slot % len(work)]
+            j = max(0, -(-(int(self.pos[s]) + n) // ps) - 1)
+            mode = self._corrupt_mode % 3
+            self._corrupt_mode += 1
+            if mode == 0:
+                bad = out_of_range
+            elif mode == 1:
+                bad = 0  # the reserved sink page inside the live prefix
+            else:
+                other = next((t for t, _ in work if t != s
+                              and self.tables.num_blocks(t) > 0), None)
+                bad = (self.tables.blocks(other)[0]
+                       if other is not None else out_of_range)
+            self.tables.poke(s, j, bad)
+            self._tables_dirty = True
+            self.table_corruptions += 1
+
     def _guard_work(self, work: List[Tuple[int, int]],
                     ) -> List[Tuple[int, int]]:
         """Discharge the kernels' runtime obligations for the ``(slot,
-        n_tokens)`` pairs about to dispatch.  A violating slot FAILs through
-        ``_terminate`` and is dropped; the survivors proceed untouched."""
-        if self.tables is None or not work or not self.scfg.guards:
+        n_tokens)`` pairs about to dispatch, after any due table corruption
+        fired.  A violating slot FAILs through ``_terminate`` and is
+        dropped; the survivors proceed untouched."""
+        if self.tables is None or not work:
+            return work
+        self._fire_table_corrupt(work)
+        if not self.scfg.guards:
             return work
         rows = []
         for s, n in work:
@@ -1053,7 +1159,7 @@ class ServingEngine:
                 req.prompt[cur] if cur < np_ else req.output[cur - np_]
             )
             live[s] = True
-        next_tok, bad = self._decode(feed, live)
+        next_tok, bad = self._decode(feed, live, self._poison_mask(active))
         for s in active:
             req = self.slot_req[s]
             cur = req._cursor  # type: ignore[attr-defined]
@@ -1100,7 +1206,7 @@ class ServingEngine:
                 req = self.slot_req[s]
                 feed[s] = req.output[-1]
                 live[s] = True
-            next_tok, bad = self._decode(feed, live)
+            next_tok, bad = self._decode(feed, live, self._poison_mask(gen))
             for s in gen:
                 req = self.slot_req[s]
                 self.pos[s] += 1
@@ -1133,7 +1239,8 @@ class ServingEngine:
                 replay = (req.prompt + req.output)[cur : cur + n]
                 toks[s, :n] = replay
                 lens[s] = n
-            ptok, pbad = self._prefill(toks, lens)
+            ptok, pbad = self._prefill(toks, lens,
+                                       self._poison_mask(sorted(chunk_lens)))
             for s, n in chunk_lens.items():
                 req = self.slot_req[s]
                 self.pos[s] += n
@@ -1162,9 +1269,130 @@ class ServingEngine:
                 break
         return self.completed
 
+    # -- lifecycle: drain / shutdown (engine.py:1589-1619) ----------------
+    def drain(self, max_steps: int = 10_000) -> List[Request]:
+        """Stop admission and finish every request already holding a slot.
+        Queued requests stay queued; afterwards the pool holds only
+        prefix-cache pages (reopen intake by setting ``admission_open``)."""
+        self.admission_open = False
+        for _ in range(max_steps):
+            if self.step() == 0:
+                break
+        return self.completed
+
+    def shutdown(self) -> List[Request]:
+        """Drain in-flight work, cancel everything still queued, and flush
+        the prefix index: afterwards the pool holds zero allocated blocks."""
+        self.drain()
+        for s in range(self.scfg.slots):
+            req = self.slot_req[s]
+            if req is not None:  # drain ran out of its step budget
+                self._terminate(req, CANCELLED, slot=s,
+                                error="engine shutdown")
+        while self.queue:
+            self._terminate(self.queue.popleft(), CANCELLED,
+                            error="engine shutdown")
+        if self.prefix is not None:
+            self.prefix.flush()
+            self._tables_dirty = True
+        if self.scfg.audit:
+            self.audits_run += 1
+            audit_engine(self)
+        return self.completed
+
+    # -- crash-safe persistence (engine.py:1622-1720) --------------------
+    def snapshot(self, path: Optional[str] = None) -> dict:
+        """The prefix-cache radix index and the KV contents of its pages:
+        the warm state a restart would otherwise lose.  In-flight slots are
+        not captured (requests are re-submittable).  Returns the snapshot
+        dict; ``path`` also pickles it there.  Page contents are numpy
+        arrays, a bf16 pool's as its raw 16-bit patterns, with their dtype
+        names under ``"leaf_dtypes"``."""
+        if self.prefix is None:
+            raise ValueError(
+                "snapshot() needs the prefix cache enabled "
+                "(paged cache + an attention family)")
+        entries = self.prefix.export()
+        snap = {
+            "format": SNAPSHOT_FORMAT,
+            "model": self.cfg.name,
+            "page_size": self.pool.page_size,
+            "kv_dtype": self.cfg.kv_dtype,
+            "nodes": [(parent, list(blk)) for parent, blk, _ in entries],
+            "leaves": lm.gather_pages(self.cache,
+                                      [page for _, _, page in entries]),
+            "leaf_dtypes": [name for _, name in lm.page_leaf_shapes(self.cache)],
+        }
+        if path is not None:
+            with open(path, "wb") as f:
+                pickle.dump(snap, f)
+        return snap
+
+    def load_snapshot(self, snap) -> int:
+        """Graft a snapshot's cached page chains into this engine (normally
+        a fresh one: :meth:`restore`).  A model, page size, kv dtype or page
+        layout that differs is a loud ``ValueError``.  When the pool is
+        smaller than the snapshot, the longest chain prefixes that fit are
+        restored.  Returns the pages restored."""
+        if not isinstance(snap, dict):
+            with open(snap, "rb") as f:
+                snap = pickle.load(f)
+        if self.prefix is None:
+            raise ValueError("load_snapshot() needs the prefix cache enabled")
+        if snap.get("format") != SNAPSHOT_FORMAT:
+            raise ValueError(
+                f"unknown snapshot format {snap.get('format')!r} "
+                f"(this engine writes {SNAPSHOT_FORMAT})")
+        for field, mine in (("model", self.cfg.name),
+                            ("page_size", self.pool.page_size),
+                            ("kv_dtype", self.cfg.kv_dtype)):
+            if snap[field] != mine:
+                raise ValueError(
+                    f"snapshot {field}={snap[field]!r} does not match "
+                    f"engine {field}={mine!r}")
+        names = snap.get("leaf_dtypes") or [str(a.dtype) for a in snap["leaves"]]
+        want = [(tuple(a.shape[1:]), name)
+                for a, name in zip(snap["leaves"], names)]
+        if want != lm.page_leaf_shapes(self.cache):
+            raise ValueError(
+                "snapshot page-pool layout does not match this engine's "
+                "cache (different reduced config or leaf set)")
+        phys: Dict[int, int] = {}
+        keep: List[int] = []
+        for i, (parent, _blk) in enumerate(snap["nodes"]):
+            if parent >= 0 and parent not in phys:
+                continue  # ancestor skipped (pool ran short): skip the chain
+            if not self.pool.free:
+                continue  # partial restore: the longest prefixes that fit
+            phys[i] = self.pool.alloc(owner="prefix-snapshot")
+            keep.append(i)
+        if keep:
+            lm.scatter_pages(self.cache, [phys[i] for i in keep],
+                             [np.asarray(a)[keep] for a in snap["leaves"]])
+            local = {i: j for j, i in enumerate(keep)}
+            entries = []
+            for i in keep:
+                parent, blk = snap["nodes"][i]
+                entries.append((local[parent] if parent >= 0 else -1,
+                                tuple(blk), phys[i]))
+            self.prefix.import_nodes(entries)
+        return len(keep)
+
+    @classmethod
+    def restore(cls, cfg: ModelConfig, params, serve_cfg: ServeConfig, snap,
+                injector: Optional[FaultInjector] = None, *,
+                device="cuda") -> "ServingEngine":
+        """Crash-safe restart: a fresh engine pre-warmed with a
+        ``snapshot()``'s radix index and page contents, so a warm-prefix
+        request hits the cache at once."""
+        eng = cls(cfg, params, serve_cfg, injector=injector, device=device)
+        eng.load_snapshot(snap)
+        return eng
+
     # -- accounting -----------------------------------------------------
     def kv_cache_bytes(self) -> int:
-        """Bytes held by the KV page pools and the recurrent state."""
+        """Bytes held by the KV page pools or strips and the recurrent
+        state."""
         return self.cache.kv_bytes()
 
     def peak_kv_blocks(self) -> Optional[int]:

@@ -304,8 +304,15 @@ def test_cache_layout_and_bytes_follow_the_reference():
     assert cache.kv["ssm"].dtype == torch.float32 and cache.num_pages == 11
     jc = jlm.init_cache(jcfg, 3, 64, layout="paged", page_size=16, num_blocks=11)
     assert cache.kv_bytes() == jc.kv_bytes()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        lm.init_cache(cfg, 1, 16, layout="contiguous", device="cpu")
+    # the contiguous layout (item 4, once a raise): ring strips of the
+    # window on the windowed layers, max_len strips on the global ones,
+    # the state beside them, the reference's bytes
+    strips = lm.init_cache(cfg, 3, 64, layout="contiguous", device="cpu")
+    sizes = [k.shape[2] for k in strips.kv["k"]]
+    want = [64 if w is None else min(64, w) for w in lm.static_windows(cfg)]
+    assert sizes == want and len(set(sizes)) == 2
+    assert tuple(strips.kv["ssm"].shape) == tuple(cache.kv["ssm"].shape)
+    assert strips.kv_bytes() == jlm.init_cache(jcfg, 3, 64).kv_bytes()
 
 
 # ---------------------------------------------------------------------------

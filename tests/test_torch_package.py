@@ -1,6 +1,7 @@
 """Boundaries of the port: it imports neither JAX nor the JAX package, its
-entry points run on the card unless asked for the CPU, options it has not
-ported raise, and chip_smoke.py refuses to run without a card."""
+entry points run on the card unless asked for the CPU, the serve options
+that once raised now serve, and chip_smoke.py refuses to run without a
+card."""
 import importlib.util
 import os
 import pkgutil
@@ -77,34 +78,36 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     (dict(audit=True), "item 11"), (dict(temperature=0.7), "item 5"),
 ])
 def test_unported_serve_options_raise(kw, item):
-    """Raised by ServeConfig, or where the model decides, at engine init
-    (the contiguous layout of an attention model).  Items 5 (temperature
-    sampling) and 12 (speculative decoding) are ported: their rows now
-    serve two requests and check what the option does (a sampled stream
-    repeats under its seed and differs from greedy; speculation engages and
-    equals greedy plain decode)."""
+    """Each row once raised (ServeConfig, or engine init); all four items are
+    ported, so each row serves two requests and checks what the option
+    does: a sampled stream repeats under its seed and differs from greedy
+    (item 5); speculation engages and equals greedy plain decode (item 12);
+    the contiguous strips serve greedy's paged streams with no pool (item
+    4); the auditor runs after every tick (item 11)."""
     cfg = get_config("qwen2_1_5b").reduced()
     params = lm.init(cfg, 0, device="cpu")
-    if item in ("item 5", "item 12"):
-        params["embed"] = {"embedding": params["embed"]["embedding"] * 0.1}
-        prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [5, 3, 5, 8, 9]]
+    params["embed"] = {"embedding": params["embed"]["embedding"] * 0.1}
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [5, 3, 5, 8, 9]]
 
-        def run(**over):
-            eng = ServingEngine(cfg, params, ServeConfig(
-                slots=2, max_len=48, max_new_tokens=6, **over), device="cpu")
-            reqs = [eng.submit(p) for p in prompts]
-            eng.run()
-            return [r.output for r in reqs], eng
+    def run(**over):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            slots=2, max_len=48, max_new_tokens=6, **over), device="cpu")
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run()
+        assert all(r.status == "completed" for r in reqs)
+        return [r.output for r in reqs], eng
 
-        out, eng = run(**kw)
-        greedy, _ = run()
-        if item == "item 5":
-            assert run(**kw)[0] == out != greedy
-        else:
-            assert out == greedy and eng.spec_windows > 0
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
+    out, eng = run(**kw)
+    greedy, paged = run()
+    if item == "item 5":
+        assert run(**kw)[0] == out != greedy
+    elif item == "item 12":
+        assert out == greedy and eng.spec_windows > 0
+    elif item == "item 4":
+        assert out == greedy and eng.pool is None and eng.tables is None
+        assert eng.steps_run == paged.steps_run
+    else:
+        assert out == greedy and eng.audits_run >= eng.steps_run > 0
 
 
 def test_reference_validation_still_raises_value_errors():
@@ -117,16 +120,21 @@ def test_reference_validation_still_raises_value_errors():
 
 
 def test_fault_injection_and_temperature_sampling_raise():
-    """Fault injection still raises (item 11).  Temperature sampling is
-    ported (item 5): ``sample_step`` draws under the key and splits it, and
-    leaves it where greedy."""
-    from repro_torch.serving import prng
+    """Both once raised; both are ported.  Fault injection (item 11): an
+    injector binds to the engine's tick clock and to its pool's allocation
+    site.  Temperature sampling (item 5): ``sample_step`` draws under the
+    key and splits it, and leaves it where greedy."""
+    from repro_torch.serving import Fault, FaultInjector, prng
     from repro_torch.serving.sampling import sample_step
     cfg = get_config("qwen2_1_5b").reduced()
     params = lm.init(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ServingEngine(cfg, params, ServeConfig(slots=1, max_len=16),
-                      injector=object(), device="cpu")
+    inj = FaultInjector([Fault("pool_alloc", tick=2)])
+    eng = ServingEngine(cfg, params, ServeConfig(slots=1, max_len=16),
+                        injector=inj, device="cpu")
+    assert eng.injector is inj and eng.pool.injector is inj
+    assert inj.fire("pool_alloc") is None  # the engine's clock reads tick 0
+    eng.steps_run = 2
+    assert inj.fire("pool_alloc").fired_at == 2
     key = prng.key(0)
     tok, new_key = sample_step(torch.zeros(2, 8), key, temperature=1.0)
     assert tok.dtype == torch.int32 and ((tok >= 0) & (tok < 8)).all()

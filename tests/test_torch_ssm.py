@@ -339,12 +339,16 @@ def test_cache_layouts_follow_the_reference():
     assert tuple(cache.kv["conv"].shape) == (ssm.num_layers, 3, sm.conv_width - 1, conv_dim)
     jc = jlm.init_cache(jconfigs.get_config(ARCH).reduced(), 3, 16)
     assert cache.kv_bytes() == jc.kv_bytes()
-    qwen = tconfigs.get_config("qwen2_1_5b").reduced()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        lm.init_cache(qwen, 1, 16, layout="contiguous", device="cpu")
+    # the attention models' contiguous strips (item 4, once a raise): the
+    # reference's leaves and bytes, the hybrid's state beside its strips
+    for arch, names in (("qwen2_1_5b", {"k", "v"}),
+                        ("hymba_1_5b", {"k", "v", "ssm", "conv"})):
+        cfg = tconfigs.get_config(arch).reduced()
+        strips = lm.init_cache(cfg, 3, 16, layout="contiguous", device="cpu")
+        assert set(strips.kv) == names and strips.tables is None
+        jstrips = jlm.init_cache(jconfigs.get_config(arch).reduced(), 3, 16)
+        assert strips.kv_bytes() == jstrips.kv_bytes()
     hymba = tconfigs.get_config("hymba_1_5b").reduced()  # paged KV + state
-    with pytest.raises(NotImplementedError, match="item 4"):
-        lm.init_cache(hymba, 1, 16, layout="contiguous", device="cpu")
     assert set(lm.init_cache(hymba, 1, 16, device="cpu").kv) >= {"ssm", "conv"}
 
 
