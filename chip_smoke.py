@@ -72,7 +72,10 @@ no phase is skipped):
    encoder (B 8, 6 heads, 1500 x 1500 frames, D 64, non-causal: a length
    no 64-row or 64-key tile divides) and decoder (448 causal), and
    internvl2's (B 4, 48 over 8 heads, 256 patch rows + 768 tokens, D 128,
-   causal).  Then the kernel
+   causal), and at phase 14's deepseek-v2-lite-16B training shape (B 8, 16
+   over 16 heads, S 1024, keys 192 wide over values 128, causal: every bf16
+   launch on the tensor cores, timed beside SDPA with the kernel SDPA ran
+   named).  Then the kernel
    library, driven through ``kernels.ops`` at the paper's kernel
    experiments' full-width shapes (its path: the three kernels' launches are
    counted here): ``matmul`` at Table 2's M0-M7 and V0-V7 in bf16,
@@ -258,13 +261,24 @@ batch and a decode step's drop other tokens, as in the reference);
    phase 3's workload's first 8 requests: equal ticks and mean TTFT, streams
    equal but at such a margin, strips per tick and with ``sync_every=4``
    byte-identical.
+14. MLA + MoE training: full-width deepseek-v2-lite-16B at 4 of its 27
+   layers (the dense layer 0 and 3 MoE layers; bf16, router fp32,
+   seeded) trains 8 AdamW steps at batch 8 x seq 1024 through the flash
+   kernel at keys 192 / values 128 (7 launches a step, every one on the
+   tensor cores: layer 0 is not recomputed) plus 2 profiled (GEMMs, the
+   MoE dispatch, the flash forward, its plain backward, AdamW); the
+   depth-2 check (the dense layer and one MoE layer) with every run on the
+   kernel path's MoE routing, phase 5's limits and its three planted
+   attention faults failing them; the depth-2 teacher-forced forward over
+   256 tokens against the CPU's fp32 on the card's routing (phase 4's
+   limits); and the reduced training CLI through injected failures.
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
 default-pool serving run, fp or int8 for the quantized kernels; the 8
 training steps for the flash kernel and mamba2's for the two SSD
-kernels (hymba's and granite's paths' launches are printed in a
-``[launches]`` line); the
+kernels (hymba's, granite's and deepseek's training paths' launches are
+printed in a ``[launches]`` line); the
 library phase for the library's three, whose rows are M7, the (8, 16384,
 16384) W int4 x A fp16 row and b128_s8192), and
 ``{"ok": true, "device": {...}}``.
@@ -951,8 +965,11 @@ VLM_BATCH, VLM_PREFIX, VLM_TEXT = 4, 256, 768
 # models of phases 8-10: granite (causal, a group of 3 at D 64), whisper's
 # encoder (non-causal over 1500 frames, ragged against the 64-row and
 # 64-key tiles) and decoder (causal), internvl2 (causal, a group of 6 at D
-# 128 over prefix and text); and gemma-7b's MHA at D 256 (the CUDA-core
-# body: no model of this script trains it, so no run launches it)
+# 128 over prefix and text); gemma-7b's MHA at D 256 (the CUDA-core body:
+# no model of this script trains it, so no run launches it); and
+# deepseek-v2-lite's MLA heads (phase 14), whose keys (128 nope + 64 rope)
+# are wider than their values: the head dim is then the pair (Dk, Dv), the
+# scale 1 / sqrt(Dk)
 FLASH_CASES = (
     ("train", TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, True),
     ("suffix, causal", TRAIN_BATCH, HQ, HKV, 256, TRAIN_SEQ, HEAD_DIM, True),
@@ -965,20 +982,46 @@ FLASH_CASES = (
     ("internvl2 train", VLM_BATCH, 48, 8, VLM_PREFIX + VLM_TEXT, VLM_PREFIX + VLM_TEXT,
      128, True),
     ("gemma-7b D 256", TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 256, True),
+    ("deepseek train", TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, (192, 128), True),
 )
 # the cases timed beside the table's ("train"): the new models' shapes
 FLASH_TIMED = ("train", "granite train", "whisper encoder", "whisper decoder",
-               "internvl2 train", "gemma-7b D 256")
+               "internvl2 train", "gemma-7b D 256", "deepseek train")
+# the flash kernel's tensor-core (Dk, Dv) pairs: GQA's head dims and MLA's
+FLASH_TC_PAIRS = ((64, 64), (128, 128), (192, 128))
+
+
+def flash_widths(case):
+    """A flash case's key and value widths (Dk, Dv)."""
+    d = case[6]
+    return d if isinstance(d, tuple) else (d, d)
 
 
 def flash_inputs(torch, case, dtype, dev, seed=21):
-    """Q, K, V of a case as ``attention_full`` hands them to the kernel: (B,
-    H, S, D) views of (B, S, H, D) projections."""
-    _, b, hq, hkv, sq, sk, d, _ = case
+    """Q, K, V of a case as ``attention_full`` and ``mla_full`` hand them
+    to the kernel: (B, H, S, D) views of (B, S, H, D) projections, V Dv
+    wide."""
+    _, b, hq, hkv, sq, sk, _, _ = case
+    dk, dv = flash_widths(case)
     g = torch.Generator(device=dev).manual_seed(seed)
     rand = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
-    return (rand(b, sq, hq, d).transpose(1, 2), rand(b, sk, hkv, d).transpose(1, 2),
-            rand(b, sk, hkv, d).transpose(1, 2))
+    return (rand(b, sq, hq, dk).transpose(1, 2), rand(b, sk, hkv, dk).transpose(1, 2),
+            rand(b, sk, hkv, dv).transpose(1, 2))
+
+
+def sdpa_kernel(torch, fn) -> str:
+    """The device kernel that one call of ``fn`` (an SDPA call) spends the
+    most time in, by name: which backend SDPA dispatched to."""
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spent = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            spent[e.name()] = spent.get(e.name(), 0) + e.duration_ns()
+    return max(spent, key=spent.get)[:60] if spent else "none"
 
 
 def flash_pairs(case) -> int:
@@ -994,7 +1037,8 @@ def check_flash(torch, np, ref, mod, dtype, case, flush, timed, dev):
     """The flash-attention kernel against its plain version on one case;
     timed: the kernel, the plain version, SDPA, and one forward + backward
     through ``FlashAttentionFn`` against SDPA's."""
-    _, b, hq, hkv, sq, sk, d, causal = case
+    _, b, hq, hkv, sq, sk, _, causal = case
+    d, dv = flash_widths(case)
     q, k, v = flash_inputs(torch, case, dtype, dev)
     run = lambda: mod.flash_attention(q, k, v, causal=causal)  # noqa: E731
     plain_run = lambda: ref.attention(q, k, v, causal=causal)  # noqa: E731
@@ -1003,7 +1047,7 @@ def check_flash(torch, np, ref, mod, dtype, case, flush, timed, dev):
     tc = mod.KERNEL.tc_launches - tc_before
     # comparison launches do not count
     mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
-    assert torch.isfinite(out).all() and out.shape == q.shape
+    assert torch.isfinite(out).all() and out.shape == (b, hq, sq, dv)
     res = {"err": (out.float() - plain.float()).abs().max().item(), "tc_launches": tc}
     if dtype == torch.bfloat16:
         res["ulps"] = bf16_ulps(torch, out, plain)
@@ -1019,8 +1063,10 @@ def check_flash(torch, np, ref, mod, dtype, case, flush, timed, dev):
         res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
         res["library_ms"] = time_ms(torch, lambda: sdpa(
             q, k, v, is_causal=causal, enable_gqa=True), flush=flush)
+        res["library_kernel"] = sdpa_kernel(torch, lambda: sdpa(
+            q, k, v, is_causal=causal, enable_gqa=True))
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-        dout = torch.randn(q.shape, device=dev).to(dtype)
+        dout = torch.randn(out.shape, device=dev).to(dtype)
 
         def fwd_bwd(fn):
             return lambda: torch.autograd.grad(fn(), (qg, kg, vg), dout)
@@ -1031,8 +1077,8 @@ def check_flash(torch, np, ref, mod, dtype, case, flush, timed, dev):
             lambda: sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)), flush=flush)
         mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
         isz = q.element_size()
-        nbytes = (2 * q.numel() + 2 * k.numel()) * isz  # q in, out; k, v in
-        flops = 4.0 * d * flash_pairs(case)
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * isz
+        flops = 2.0 * (d + dv) * flash_pairs(case)  # Q.K^T, then P.V
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
     return res
 
@@ -2290,9 +2336,11 @@ def _kernel_group(name: str) -> str:
     return "other kernels"
 
 
-# the ranges the port annotates (torch.profiler.record_function)
+# the ranges the port annotates (torch.profiler.record_function); of the
+# MoE's forward (and its recompute) the kernels other than GEMMs are its
+# dispatch
 RANGES = ("flash_attention.backward", "chunk_state.backward",
-          "chunk_scan.backward", "adamw_update")
+          "chunk_scan.backward", "adamw_update", "moe")
 
 
 def step_breakdown(torch, events):
@@ -2301,8 +2349,10 @@ def step_breakdown(torch, events):
     a step, takes tens of seconds to build): busy in all, by kernel group,
     and, overlapping those groups, the kernels launched inside the annotated
     ranges (the kernels' plain recompute in the backward, the AdamW
-    update).  A kernel is inside a range when the host op that launched it
-    starts within the range on the range's thread.  A range also shows on
+    update, the MoE's forward and recompute, of which "MoE dispatch" are
+    the kernels other than GEMMs).  A kernel is inside a range when the
+    host op that launched it starts within the range on the range's
+    thread.  A range also shows on
     the device's timeline as an annotation of its own span: it is not a
     kernel and is left out of the sums."""
     import bisect
@@ -2329,8 +2379,10 @@ def step_breakdown(torch, events):
     for key, v in spans.items():
         v.sort()
         out["inside " + key[0]] = 0.0
+    if any(name == "moe" for name, _ in spans):
+        out["MoE dispatch"] = 0.0
     starts = {key: [a for a, _ in v] for key, v in spans.items()}
-    for _, ms, corr in kernels:
+    for kname, ms, corr in kernels:
         if corr not in ops:
             continue
         thread, t = ops[corr]
@@ -2339,6 +2391,8 @@ def step_breakdown(torch, events):
             i = -1 if st is None else bisect.bisect_right(st, t) - 1
             if i >= 0 and t <= spans[(name, thread)][i][1]:
                 out["inside " + name] += ms
+                if name == "moe" and _kernel_group(kname) != "GEMMs":
+                    out["MoE dispatch"] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     out["top"] = [(name[:80], n, ms) for name, (n, ms) in top]
     return out
@@ -2391,7 +2445,7 @@ def depth2_controls(torch, cfg2):
               for f in TRAIN_FAULTS))
 
 
-def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
+def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256, shared_routing=False):
     """One loss and gradient at depth 2, full width: the card's bf16 kernel
     path against the plain path in fp32 on the CPU (the same seeded
     parameters upcast); as a control of what bf16 alone moves, the card's
@@ -2400,8 +2454,14 @@ def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
     (:func:`depth2_controls`).  Returns each run's loss, global gradient norm
     and least gradient cosine with the CPU's over the kernels' layer leaves
     (``layers/attn/*``, or ``layers/mamba/*`` for the SSM), and the kernel
-    path's per-leaf cosines."""
+    path's per-leaf cosines.
+
+    ``shared_routing`` (a mixture of experts): the kernel path runs first
+    and every other run takes its MoE routing (``replayed_routing``), so
+    that a near tie between two experts, which a bf16 router input can
+    flip, moves no run by a whole expert's contribution."""
     from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import layers
     from repro_torch.optim import global_norm
     from repro_torch.optim.adamw import leaves
 
@@ -2411,9 +2471,12 @@ def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
                                    vocab_size=cfg2.vocab_size, seed=1)).batch_at(0)
     cpu = torch.device("cpu")
     prefix = "layers/mamba/" if cfg2.family in ("ssm", "hybrid") else "layers/attn/"
-    runs = {}
-    for label, control in (("cpu fp32", None), ("card bf16", None),
-                           *depth2_controls(torch, cfg2)):
+    order = [("cpu fp32", None), ("card bf16", None), *depth2_controls(torch, cfg2)]
+    if shared_routing:
+        order[:2] = order[1::-1]
+    runs, waiting, ref_grads, picks, seconds = {}, [], None, [], []
+    for label, control in order:
+        t0 = time.perf_counter()
         on_cpu = label == "cpu fp32"
         c = dataclasses.replace(cfg2, dtype="float32") if on_cpu else cfg2
         p = _tree_to(torch, params, cpu, torch.float32) if on_cpu else params
@@ -2421,23 +2484,38 @@ def train_card_vs_cpu(torch, np, lm, cfg2, dev, batch=2, seq=256):
         flat = leaves(p)
         for t in flat:
             t.requires_grad_(True)
-        with contextlib.nullcontext() if control is None else control():
+        if not shared_routing:
+            routing = contextlib.nullcontext()
+        elif label == "card bf16":
+            routing = recorded_routing(layers)
+        else:
+            routing = replayed_routing(layers, picks)
+        with routing as recorded, \
+                contextlib.nullcontext() if control is None else control():
             loss, _ = lm.loss_fn(p, c, torch.as_tensor(b["tokens"], device=d),
                                  torch.as_tensor(b["labels"], device=d), remat=True)
             grads = torch.autograd.grad(loss, flat)
+        if shared_routing and label == "card bf16":
+            picks = recorded
         for t in flat:
             t.requires_grad_(False)
         gnorm = global_norm(grads).item()
-        grads = [g.float().cpu() for g in grads]
+        grads = [g.float().to(dev) for g in grads]  # the cosines on the card
         if on_cpu:
             ref_grads = grads
-        cos = {name: torch.nn.functional.cosine_similarity(
-            a.double().flatten(), w.double().flatten(), dim=0).item()
-               for name, a, w in zip(names, grads, ref_grads)}
-        if label == "card bf16":
-            runs["cosines"] = cos
-        runs[label] = (loss.detach().item(), gnorm,
-                       min(c for n, c in cos.items() if n.startswith(prefix)))
+        waiting.append((label, loss.detach().item(), gnorm, grads))
+        seconds.append(f"{label} {time.perf_counter() - t0:.1f}")
+        if ref_grads is None:
+            continue
+        for lab, lo, gn, gs in waiting:
+            cos = {name: torch.nn.functional.cosine_similarity(
+                a.double().flatten(), w.double().flatten(), dim=0).item()
+                   for name, a, w in zip(names, gs, ref_grads)}
+            if lab == "card bf16":
+                runs["cosines"] = cos
+            runs[lab] = (lo, gn, min(c for n, c in cos.items() if n.startswith(prefix)))
+        waiting = []
+    log("[train] depth-2 runs' seconds: " + ", ".join(seconds))
     return runs
 
 
@@ -2486,15 +2564,16 @@ def train_card_vs_cpu_ok(r, label="card bf16") -> bool:
     return not train_limits_failed(r, label)
 
 
-def recovery_run(torch, device, ckpt_dir, steps=20, failure_prob="0.1", seed="0"):
-    """The training CLI on reduced qwen2-1.5B with injected failures (this
+def recovery_run(torch, device, ckpt_dir, steps=20, failure_prob="0.1", seed="0",
+                 arch="qwen2_1_5b"):
+    """The training CLI on reduced ``arch`` with injected failures (this
     seed's FaultInjector fails some steps): restarts from its checkpoints
     and reaches its last step.  Returns the CLI's result and the flash
     kernel's launches."""
     from repro_torch.kernels.flash_attention import KERNEL
     from repro_torch.launch import train
 
-    res = train.main(["--arch", "qwen2_1_5b", "--reduced", "--steps", str(steps),
+    res = train.main(["--arch", arch, "--reduced", "--steps", str(steps),
                       "--failure-prob", failure_prob, "--seed", seed,
                       "--device", device.type, "--ckpt-dir", str(ckpt_dir)])
     return res, KERNEL.launches
@@ -3011,20 +3090,22 @@ def kernel_phase(torch, np, ref, flush, device):
                 limit = f"limit {FP32_ATOL:.0e}"
             if timed:
                 limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                          f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                          f"({r['bound_by']}); forward + backward: FlashAttentionFn "
-                          f"{r['fwd_bwd_ms']:.4f} ms, sdpa {r['sdpa_fwd_bwd_ms']:.4f} ms")
+                          f"sdpa {r['library_ms']:.4f} ms ({r['library_kernel']}), bound "
+                          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); forward + backward: "
+                          f"FlashAttentionFn {r['fwd_bwd_ms']:.4f} ms, sdpa "
+                          f"{r['sdpa_fwd_bwd_ms']:.4f} ms")
                 if case[0] == "train":
                     table["flash_attention"] = r
-            _, b, hq, hkv, sq, sk, d, causal = case
+            _, b, hq, hkv, sq, sk, _, causal = case
+            d, dv = flash_widths(case)
             log(f"[kernel] flash_attention {case[0]} {str(dtype)[6:]} (B {b}, Hq {hq}, "
-                f"Hkv {hkv}, Sq {sq}, Sk {sk}, D {d}, causal={causal})"
-                f"{' (tensor cores)' if r['tc_launches'] else ''}: max abs err "
-                f"{r['err']:.3e}, {limit}")
+                f"Hkv {hkv}, Sq {sq}, Sk {sk}, D {d}{'' if dv == d else f', Dv {dv}'}, "
+                f"causal={causal}){' (tensor cores)' if r['tc_launches'] else ''}: max abs "
+                f"err {r['err']:.3e}, {limit}")
             if not kernel_ok(r):
                 raise AssertionError(f"flash_attention {case[0]} disagrees with its "
                                      "plain version")
-            want_tc = dtype == torch.bfloat16 and case[6] in GQA_TC_HEAD_DIMS
+            want_tc = dtype == torch.bfloat16 and (d, dv) in FLASH_TC_PAIRS
             if r["tc_launches"] != int(want_tc):
                 raise AssertionError(f"flash_attention {case[0]} {str(dtype)[6:]}: "
                                      f"{r['tc_launches']} tensor-core launches")
@@ -3250,6 +3331,8 @@ def main(argv=None) -> int:
     dense_phase(torch, np, lm, device)
     torch.cuda.empty_cache()
     fault_phase(torch, np, lm, device)
+    torch.cuda.empty_cache()
+    mla_training_phase(torch, np, lm, device)
     main_launches.update(lib_launches)
 
     # ---- result lines --------------------------------------------------
@@ -3571,17 +3654,19 @@ def train_full_width(torch, np, cfg, device, kernels, tc_kernels=(), per_step=No
     return {k: tr["launches"].get(k, 0) for k in kernels}
 
 
-def depth2_phase(torch, np, lm, cfg, device, faults):
+def depth2_phase(torch, np, lm, cfg, device, faults, shared_routing=False):
     """The depth-2 card-vs-CPU check of one training step (full width,
-    batch 2 x seq 256): logs every run's readings, holds the kernel path to
-    the limits and each planted fault of ``faults`` outside them."""
+    batch 2 x seq 256; ``shared_routing``: every run on the kernel path's
+    MoE routing): logs every run's readings, holds the kernel path to the
+    limits and each planted fault of ``faults`` outside them."""
     t0 = time.perf_counter()
     cfg2 = dataclasses.replace(cfg, num_layers=2)
-    r = train_card_vs_cpu(torch, np, lm, cfg2, device)
+    r = train_card_vs_cpu(torch, np, lm, cfg2, device, shared_routing=shared_routing)
     plain_label, loss_cpu, cos_min, cos_name = depth2_limits(r)
     (loss32, gnorm32, _), (plain, gplain, _) = r["cpu fp32"], r[plain_label]
     log(f"[train] {cfg.name} 2 layers at full width, batch 2 x seq 256, one "
-        f"step's loss, grad norm and least {cos_name} with CPU fp32: "
+        f"step's loss, grad norm and least {cos_name} with CPU fp32"
+        f"{' (every run on the card kernel path MoE routing)' if shared_routing else ''}: "
         + "; ".join(
             f"{label} {lo:.4f} nats (from CPU fp32 {abs(lo - loss32):.4f}, "
             f"{abs(lo - loss32) / abs(loss32):.2e} of it; from card plain "
@@ -4496,6 +4581,99 @@ def fault_phase(torch, np, lm, device, qwen=None, mla=None,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     log(f"[time] phase 13 (the contiguous cache): {time.perf_counter() - t0:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 14: MLA + MoE training (deepseek-v2-lite-16B)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek_v2_lite_16b"
+# 4 of its 27 layers: the dense layer 0 and 3 MoE layers (~2.26 B parameters,
+# ~34 GiB of weights, gradients, fp32 masters and moments before activations)
+MLA_TRAIN_LAYERS = 4
+MLA_CHECK_TOKENS = 256  # the depth-2 teacher-forced forward's sequence
+
+
+def mla_forward_check(torch, np, lm, cfg2, dev, seq=MLA_CHECK_TOKENS):
+    """A teacher-forced forward of one seeded sequence at ``cfg2``'s depth:
+    the card's bf16 run (the flash kernel) against the CPU's fp32 one on the
+    same weights upcast, the CPU on the card's MoE routing
+    (``replayed_routing``).  Returns the ``logit_agreement`` reading over
+    every position and the flash kernel's launches and tensor-core launches
+    in the card's run."""
+    from repro_torch.kernels.flash_attention import KERNEL
+    from repro_torch.models import layers
+
+    params = lm.init(cfg2, 7, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg2.vocab_size, size=(1, seq)), dtype=torch.int32, device=dev)
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        KERNEL.launches = KERNEL.tc_launches = 0
+        with recorded_routing(layers) as picks:
+            card, _ = lm.forward(params, cfg2, toks)
+        launches = (KERNEL.launches, KERNEL.tc_launches)
+        card = card[0].float().cpu()
+        p32 = _tree_to(torch, params, cpu, torch.float32)
+        del params
+        with replayed_routing(layers, picks):
+            want, _ = lm.forward(p32, dataclasses.replace(cfg2, dtype="float32"), toks.cpu())
+    return logit_agreement(torch, card, want[0]), launches
+
+
+def mla_training_phase(torch, np, lm, device, full=None, layers_=MLA_TRAIN_LAYERS,
+                       ckpt_steps=20, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Phase 14, deepseek-v2-lite-16B at full width (d 2048, 16 heads of MLA:
+    latent rank 512, keys 128 nope + 64 rope, values 128; 64 routed experts
+    top-6 and 2 shared of width 1408, the first layer dense; vocab 102400,
+    untied) cut to ``layers_`` of its 27 layers: TRAIN_STEPS steps at batch
+    8 x seq 1024 through the flash kernel at Dk 192 / Dv 128 (layer 0 once
+    a step, the recomputed MoE layers twice) and two more profiled; the
+    depth-2 check (the dense layer and one MoE layer) on the kernel path's
+    MoE routing, the planted attention faults failing it; the depth-2
+    teacher-forced forward against the CPU's fp32 (phase 4's limits); and
+    the reduced training CLI through injected failures.  ``full``,
+    ``batch`` and ``seq`` replace the config and the training shape (a
+    rehearsal's).  Returns the flash kernel's launches over the TRAIN_STEPS
+    steps."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    full = full or get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=layers_)
+    t0 = time.perf_counter()
+    per_step = 2 * cfg.num_layers - lm.num_prefix_layers(cfg)
+    launches = train_full_width(
+        torch, np, cfg, device, TRAIN_FLASH, tc_kernels=TRAIN_FLASH, per_step=per_step,
+        batch=batch, seq=seq, shape_text=f", {cfg.num_layers} of its {full.num_layers} layers")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[time] phase 14 ({cfg.name} training): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    depth2_phase(torch, np, lm, full, device, TRAIN_FAULTS, shared_routing=True)
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    r, (fl, fl_tc) = mla_forward_check(torch, np, lm, cfg2, device)
+    log_agreement(f"{cfg.name}, 2 layers (dense prefix + MoE) at full width, card bf16 "
+                  f"forward over {MLA_CHECK_TOKENS} tokens (flash launches {fl}, on tensor "
+                  f"cores {fl_tc}) vs CPU fp32 on the card's MoE routing", r)
+    on_card = device.type == "cuda"
+    assert agreement_ok(r) and (fl, fl_tc) == ((2, 2) if on_card else (0, 0)), (r, fl, fl_tc)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        res, cli_launches = recovery_run(torch, device, ckpt_dir, steps=ckpt_steps,
+                                         arch=MLA_ARCH)
+    loss = res["last_metrics"]["loss"].item()
+    log(f"[train] reduced {MLA_ARCH} CLI with injected failures: {res['steps']} steps, "
+        f"{res['restarts']} restarts, final loss {loss:.4f}, flash_attention launches "
+        f"{cli_launches}")
+    assert res["restarts"] >= 1 and res["steps"] == ckpt_steps and np.isfinite(loss)
+    assert cli_launches > 0 or not on_card
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[time] phase 14 ({cfg.name} checks): {time.perf_counter() - t0:.1f} s")
+    log(f"[launches] {cfg.name}'s training path: {json.dumps(launches)}")
+    return launches
 
 
 if __name__ == "__main__":

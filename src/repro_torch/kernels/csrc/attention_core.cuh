@@ -139,29 +139,34 @@ __device__ __forceinline__ void commit(float* dst, int sstride, const Stage& st,
 // output accumulator and the per-row softmax carries.  Q and K rows are
 // padded to d + 4 floats: 16-byte aligned, and rows a lane apart start four
 // banks apart, so a quarter warp's float4 reads of eight rows hit all 32
-// banks once.
+// banks once.  V rows and the accumulator are dv wide (d unless the values
+// are narrower or wider than the keys: OwnV).
 struct Smem {
+  struct OwnV {};  // tag: a V tile of its own, dv wide
   float *qs, *ks, *vs, *s, *acc, *m, *l, *alpha;
   int stride, vstride;  // floats between Q/K rows, and between V rows
 
-  __device__ Smem(float* base, int rows, int cols, int d) {
+  __device__ Smem(float* base, int rows, int cols, int d) : Smem(base, rows, cols, d, d, OwnV{}) {}
+
+  __device__ Smem(float* base, int rows, int cols, int d, int dv, OwnV) {
     stride = d + 4;
-    vstride = d;
+    vstride = dv;
     qs = base;
     ks = qs + rows * stride;
     vs = ks + cols * stride;
-    acc = vs + cols * d;  // every float4-read array starts 16-byte aligned
-    s = acc + rows * d;
+    acc = vs + cols * dv;  // every float4-read array starts 16-byte aligned
+    s = acc + rows * dv;
     m = s + rows * cols;
     l = m + rows;
     alpha = l + rows;
   }
 
-  static size_t bytes(int rows, int cols, int d) {
+  static size_t bytes(int rows, int cols, int d, int dv) {
     return sizeof(float) * ((size_t)rows * (d + 4) + (size_t)cols * (d + 4) +
-                            (size_t)cols * d + (size_t)rows * cols +
-                            (size_t)rows * d + 3 * (size_t)rows);
+                            (size_t)cols * dv + (size_t)rows * cols +
+                            (size_t)rows * dv + 3 * (size_t)rows);
   }
+  static size_t bytes(int rows, int cols, int d) { return bytes(rows, cols, d, d); }
 
   // The latent layout: Q and K rows of dk values (padded to dk + 4 as
   // above), V the first dv columns of the K tile itself, the accumulator
@@ -255,30 +260,31 @@ __device__ __forceinline__ void fetch_rows(Stage& st, const T* __restrict__ src,
 // k + r * kstride, value r at v + r * vstride, and only the first `valid`
 // rows of a tile are read: a partial last tile reads nothing past the
 // sequence's end, and its dead rows commit as zeros, so that their (zero)
-// probabilities never multiply garbage (0 * NaN is NaN).
+// probabilities never multiply garbage (0 * NaN is NaN).  Keys are d wide
+// (the width attend_tiles passes), values dv wide.
 template <typename T>
 struct RowsKV {
   using Elem = T;
   const T *k, *v;
   long kstride, vstride;
-  int valid;
+  int valid, dv;
   struct Regs {
     Stage k, v;
   };
 
-  static bool shapes_ok(int cols, int d, int threads) {
-    return ac::shapes_ok<T>(cols, d, threads);
+  static bool shapes_ok(int cols, int d, int dv, int threads) {
+    return ac::shapes_ok<T>(cols, d, threads) && ac::shapes_ok<T>(cols, dv, threads);
   }
   __device__ RowsKV rows(long n) const {
-    return {k + n * kstride, v + n * vstride, kstride, vstride, valid - (int)n};
+    return {k + n * kstride, v + n * vstride, kstride, vstride, valid - (int)n, dv};
   }
   __device__ void fetch(Regs& r, int cols, int d) const {
     fetch_rows<T>(r.k, k, kstride, valid, cols, d);
-    fetch_rows<T>(r.v, v, vstride, valid, cols, d);
+    fetch_rows<T>(r.v, v, vstride, valid, cols, dv);
   }
-  __device__ static void commit(Smem& sm, const Regs& r, int cols, int d) {
+  __device__ void commit(Smem& sm, const Regs& r, int cols, int d) const {
     ac::commit<T>(sm.ks, sm.stride, r.k, cols, d);
-    ac::commit<T>(sm.vs, d, r.v, cols, d);
+    ac::commit<T>(sm.vs, sm.vstride, r.v, cols, dv);
   }
 };
 

@@ -14,8 +14,12 @@
 //   * the output divides by max(l, 1e-30) (safe_div): a row with no live
 //     key emits 0.
 //
+// Queries and keys are DK wide, values and the output DV wide: DK == DV
+// for GQA, DK 192 over DV 128 for MLA's expanded heads (deepseek-v2-lite's
+// training forward).
+//
 // Per warp: 16 query rows.  Q lives in registers as bf16 A fragments of
-// m16n8k16 (loaded once with ldmatrix); S (16 x 64 keys) and O (16 x D) in
+// m16n8k16 (loaded once with ldmatrix); S (16 x 64 keys) and O (16 x DV) in
 // fp32 registers; the row max by quad shuffles.  The S accumulator turns
 // into P's A fragments in registers (the C and A layouts of m16n8k16 line
 // up), as a pair p = hi + lo, hi = bf16(p) and lo = bf16(p - hi): the TPU
@@ -35,9 +39,10 @@
 // no live key) in shared memory beside it, written by the threads that copy
 // the rows, so one positional mask serves paged, chunk and contiguous keys;
 // each thread computes its rows' query positions once.  Q is copied through
-// the last stage before the first tile needs it.  Rows are padded to D + 8
-// elements (16 bytes), so the 8 rows of one ldmatrix fall on distinct
-// banks.  A block whose grid leaves SMs idle can split its key walk between
+// the last stage before the first tile needs it, or, where its 128 rows of
+// DK do not fit a stage (DK > DV), through a place of its own.  Rows are
+// padded to DK + 8 or DV + 8 elements (16 bytes), so the 8 rows of one
+// ldmatrix fall on distinct banks.  A block whose grid leaves SMs idle can split its key walk between
 // two groups of warps (key groups, KG): each group scores every other tile
 // against the same rows, and the two softmax states merge through shared
 // memory at the end, as two halves of a split-KV would.
@@ -57,28 +62,34 @@ struct Strides {  // elements between batches, heads and rows
   long b, h, s;
 };
 
-// Shared memory of a block: S stages of KG slots of [K tile | V tile] (Q
-// borrows the last slot before the first tile is scored), then each slot's
-// key positions.  KG > 1 splits the key walk between KG groups of warps
-// (key groups): group g scores tiles g, g + KG, ... against the same query
-// rows, and the groups' softmax states merge at the end.
-template <int D, int S, int KG = 1>
+// Shared memory of a block: S stages of KG slots of [K tile | V tile], K
+// rows DK wide and V rows DV wide; Q's rows (DK wide) borrow the last slot
+// before the first tile is scored where they fit it (DK <= DV), else take a
+// place of their own after the slots; then each slot's key positions.  KG >
+// 1 splits the key walk between KG groups of warps (key groups): group g
+// scores tiles g, g + KG, ... against the same query rows, and the groups'
+// softmax states merge at the end.
+template <int DK, int DV, int S, int KG = 1>
 struct Ring {
   static_assert(S >= 2, "a ring of at least two stages");
-  static constexpr int STRIDE = D + 8;  // elements between rows
-  static constexpr int TILE = KEYS * STRIDE;
+  static constexpr int KSTRIDE = DK + 8;  // elements between K (and Q) rows
+  static constexpr int VSTRIDE = DV + 8;  // elements between V rows
+  static constexpr int KTILE = KEYS * KSTRIDE;
+  static constexpr int SLOT = KTILE + KEYS * VSTRIDE;
   static constexpr int SLOTS = S * KG;
+  static constexpr bool Q_OWN = MAX_ROWS * KSTRIDE > SLOT;  // Q has a place of its own
+  static constexpr int QSIZE = Q_OWN ? MAX_ROWS * KSTRIDE : 0;
   bf16* base;
 
   __device__ explicit Ring(void* smem) : base(reinterpret_cast<bf16*>(smem)) {}
-  __device__ bf16* k(int s) const { return base + 2 * s * TILE; }
-  __device__ bf16* v(int s) const { return base + (2 * s + 1) * TILE; }
+  __device__ bf16* k(int s) const { return base + s * SLOT; }
+  __device__ bf16* v(int s) const { return base + s * SLOT + KTILE; }
   __device__ int* kpos(int s) const {
-    return reinterpret_cast<int*>(base + 2 * SLOTS * TILE) + s * KEYS;
+    return reinterpret_cast<int*>(base + SLOTS * SLOT + QSIZE) + s * KEYS;
   }
-  __device__ bf16* q() const { return k(SLOTS - 1); }
+  __device__ bf16* q() const { return Q_OWN ? base + SLOTS * SLOT : k(SLOTS - 1); }
   static constexpr size_t bytes() {
-    return sizeof(bf16) * 2 * SLOTS * (size_t)TILE + sizeof(int) * SLOTS * KEYS;
+    return sizeof(bf16) * ((size_t)SLOTS * SLOT + QSIZE) + sizeof(int) * SLOTS * KEYS;
   }
 };
 
@@ -87,31 +98,49 @@ struct Ring {
 // `any` is a readable address for the zero-filling copies.
 template <typename Ring, typename QRow>
 __device__ void load_q_async(const Ring& ring, int rows, const QRow& row, const bf16* any) {
-  constexpr int CH = (Ring::STRIDE - 8) / 8;
+  constexpr int CH = (Ring::KSTRIDE - 8) / 8;
   for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
     const int r = i / CH, c = (i % CH) * 8;
     const bf16* p = row(r);
-    gc::cp_async<16>(ring.q() + r * Ring::STRIDE + c, p ? p + c : any, p != nullptr);
+    gc::cp_async<16>(ring.q() + r * Ring::KSTRIDE + c, p ? p + c : any, p != nullptr);
   }
 }
 
 // Copy key tile t into slot s: src.row(t, r, kp, vp, pos) gives key row r's
 // K and V rows and its absolute position, or returns false (zero-filled,
-// position -1).
+// position -1).  At DK == DV one job copies a 16-byte chunk of a K row and
+// the same chunk of its V row; otherwise each job copies one chunk of
+// either.
 template <typename Ring, typename Src>
 __device__ void load_tile_async(const Ring& ring, int s, int t, const Src& src,
                                 const bf16* any) {
-  constexpr int CH = (Ring::STRIDE - 8) / 8;
+  constexpr int KCH = (Ring::KSTRIDE - 8) / 8, VCH = (Ring::VSTRIDE - 8) / 8;
   bf16 *kd = ring.k(s), *vd = ring.v(s);
   int* kpos = ring.kpos(s);
-  for (int i = threadIdx.x; i < KEYS * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bf16 *kp = any, *vp = any;
-    int pos = -1;
-    const bool live = src.row(t, r, kp, vp, pos);
-    gc::cp_async<16>(kd + r * Ring::STRIDE + c, live ? kp + c : any, live);
-    gc::cp_async<16>(vd + r * Ring::STRIDE + c, live ? vp + c : any, live);
-    if (c == 0) kpos[r] = live ? pos : -1;
+  if constexpr (KCH == VCH) {
+    for (int i = threadIdx.x; i < KEYS * KCH; i += blockDim.x) {
+      const int r = i / KCH, c = (i % KCH) * 8;
+      const bf16 *kp = any, *vp = any;
+      int pos = -1;
+      const bool live = src.row(t, r, kp, vp, pos);
+      gc::cp_async<16>(kd + r * Ring::KSTRIDE + c, live ? kp + c : any, live);
+      gc::cp_async<16>(vd + r * Ring::VSTRIDE + c, live ? vp + c : any, live);
+      if (c == 0) kpos[r] = live ? pos : -1;
+    }
+  } else {
+    for (int i = threadIdx.x; i < KEYS * (KCH + VCH); i += blockDim.x) {
+      const int r = i / (KCH + VCH), j = i % (KCH + VCH);
+      const bf16 *kp = any, *vp = any;
+      int pos = -1;
+      const bool live = src.row(t, r, kp, vp, pos);
+      if (j < KCH) {
+        gc::cp_async<16>(kd + r * Ring::KSTRIDE + j * 8, live ? kp + j * 8 : any, live);
+        if (j == 0) kpos[r] = live ? pos : -1;
+      } else {
+        const int c = (j - KCH) * 8;
+        gc::cp_async<16>(vd + r * Ring::VSTRIDE + c, live ? vp + c : any, live);
+      }
+    }
   }
 }
 
@@ -145,14 +174,16 @@ __device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& 
   lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
-// One warp's 16 query rows through the online softmax.
-template <int D>
+// One warp's 16 query rows through the online softmax: scores over DK
+// columns, values and output DV wide.
+template <int DK, int DV>
 struct WarpAttention {
-  static_assert(D % 16 == 0, "head dim a multiple of 16");
-  static constexpr int KT = D / 16;    // k-steps of Q.K^T
+  static_assert(DK % 16 == 0 && DV % 16 == 0, "head dims multiples of 16");
+  static constexpr int KT = DK / 16;   // k-steps of Q.K^T
   static constexpr int NT = KEYS / 8;  // n-tiles of S
-  static constexpr int OT = D / 8;     // n-tiles of O
-  static constexpr int ST = D + 8;     // elements between rows in the ring
+  static constexpr int OT = DV / 8;    // n-tiles of O
+  static constexpr int KST = DK + 8;   // elements between Q and K rows in the ring
+  static constexpr int VST = DV + 8;   // elements between V rows
   static constexpr int FIELDS = 4 + 4 * OT;  // floats of one thread's state
   uint32_t qf[KT][4];
   int row0;   // the warp's first block row
@@ -167,7 +198,7 @@ struct WarpAttention {
     row0 = r0;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk)
-      gc::ldmatrix_x4(qf[kk], qs + (r0 + (lane & 15)) * ST + kk * 16 + (lane >> 4) * 8);
+      gc::ldmatrix_x4(qf[kk], qs + (r0 + (lane & 15)) * KST + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       qp[rr] = mask.qpos(r0 + g + 8 * rr);
@@ -195,7 +226,7 @@ struct WarpAttention {
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t b[4];
-        gc::ldmatrix_x4(b, ks + (j * 8 + (lane >> 4) * 8 + (lane & 7)) * ST + kk * 16 +
+        gc::ldmatrix_x4(b, ks + (j * 8 + (lane >> 4) * 8 + (lane & 7)) * KST + kk * 16 +
                                ((lane >> 3) & 1) * 8);
         gc::mma16816<bf16>(s[j], qf[kk], b[0], b[1]);
         gc::mma16816<bf16>(s[j + 1], qf[kk], b[2], b[3]);
@@ -245,7 +276,7 @@ struct WarpAttention {
 #pragma unroll
       for (int j = 0; j < OT; j += 2) {
         uint32_t b[4];
-        gc::ldmatrix_x4_trans(b, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ST +
+        gc::ldmatrix_x4_trans(b, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * VST +
                                      j * 8 + (lane >> 4) * 8);
         gc::mma16816<bf16>(o[j], ph, b[0], b[1]);
         gc::mma16816<bf16>(o[j], pl, b[0], b[1]);
@@ -308,7 +339,7 @@ struct WarpAttention {
   }
 
   // The unnormalised state, for a merge in another pass (split-KV): block
-  // row r's O at os + idx(r) * D in fp32, its running max (clamped at
+  // row r's O at os + idx(r) * DV in fp32, its running max (clamped at
   // NEG_CLAMP) at ms[idx(r)] and its row sum at ls[idx(r)]; idx(r) < 0: not
   // stored.
   template <typename Idx>
@@ -322,7 +353,7 @@ struct WarpAttention {
       if (i < 0) continue;
 #pragma unroll
       for (int j = 0; j < OT; ++j)
-        gc::store2(os + i * D + j * 8 + 2 * t, o[j][2 * rr], o[j][2 * rr + 1]);
+        gc::store2(os + i * DV + j * 8 + 2 * t, o[j][2 * rr], o[j][2 * rr + 1]);
       if (t == 0) {
         ms[i] = fmaxf(m[rr], ac::NEG_CLAMP);
         ls[i] = lt;
@@ -360,8 +391,8 @@ struct is_staged<Src, std::void_t<decltype(Src::STAGED)>> : std::bool_constant<S
 // to land.
 // With KG > 1 the groups' states merge into group 0 through shared memory
 // (the ring's, after the walk).  Leaves group 0's rows in its warps' `wa`.
-template <int D, int S, int KG, typename QRow, typename Src>
-__device__ void attend(WarpAttention<D>& wa, const Ring<D, S, KG>& ring, const QRow& qrow,
+template <int DK, int DV, int S, int KG, typename QRow, typename Src>
+__device__ void attend(WarpAttention<DK, DV>& wa, const Ring<DK, DV, S, KG>& ring, const QRow& qrow,
                        int n, Src& src, PosMask mask, float qscale, const bf16* any) {
   constexpr bool STAGED = is_staged<Src>::value;
   static_assert(!STAGED || S == 2, "a staged source converts into two stages");
@@ -430,9 +461,9 @@ __device__ void attend(WarpAttention<D>& wa, const Ring<D, S, KG>& ring, const Q
     }
   }
   if (KG > 1) {
-    constexpr int FIELDS = WarpAttention<D>::FIELDS;
-    using R = Ring<D, S, KG>;
-    static_assert(4 * FIELDS * 2 * MAX_ROWS * (KG - 1) <= 2 * 2 * R::SLOTS * R::TILE,
+    constexpr int FIELDS = WarpAttention<DK, DV>::FIELDS;
+    using R = Ring<DK, DV, S, KG>;
+    static_assert(4 * FIELDS * 2 * MAX_ROWS * (KG - 1) <= 2 * R::SLOTS * R::SLOT,
                   "the groups' states fit the ring");
     const int tid = warp * 32 + (threadIdx.x & 31), stride = warps * 32;
     float* x = reinterpret_cast<float*>(ring.base);

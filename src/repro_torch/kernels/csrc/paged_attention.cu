@@ -265,13 +265,14 @@ struct QuantSplitKeys : SplitRule {
 
   // Dequantize tile u's staged rows into stage u % 2, each thread its own
   // jobs' bytes (landed: the caller waited for its copies).
-  __device__ void convert(const am::Ring<D, kTcStages, 1>& ring, int u) const {
+  __device__ void convert(const am::Ring<D, D, kTcStages, 1>& ring, int u) const {
     for (int j = threadIdx.x; j < JOBS; j += blockDim.x) {
       const int kv = j & 1, r = j >> 1, slot = u & 1;
       const uint32_t word = words()[j];
       const float scale = kvq::bf16_bits(halves()[j] ? word >> 16 : word);
       const int8_t* src = stage + j * ROW;
-      bf16* dst = (kv ? ring.v(slot) : ring.k(slot)) + r * am::Ring<D, kTcStages, 1>::STRIDE;
+      using R = am::Ring<D, D, kTcStages, 1>;
+      bf16* dst = (kv ? ring.v(slot) : ring.k(slot)) + r * R::KSTRIDE;  // K and V rows alike
 #pragma unroll 1  // a row's vectors one at a time: the softmax state holds the registers
       for (int c = 0; c < BYTES; c += 16)
         kvq::dequant<PACK>(dst + c * PACK, *reinterpret_cast<const uint4*>(src + c), scale);
@@ -293,7 +294,7 @@ struct Pack<ac::QuantKV<bf16, P>> {
 // loader's staging area.
 template <int D, int PACK>
 constexpr size_t tc_smem() {
-  return am::Ring<D, kTcStages, 1>::bytes() +
+  return am::Ring<D, D, kTcStages, 1>::bytes() +
          (PACK ? QuantSplitKeys<D, PACK ? PACK : 1>::bytes() : 0);
 }
 
@@ -323,14 +324,14 @@ paged_attention_kernel_tc(const bf16* __restrict__ q, F pools, const int* __rest
     return;
   }
   extern __shared__ float4 smem4[];
-  const am::Ring<D, kTcStages, 1> ring(smem4);
+  const am::Ring<D, D, kTcStages, 1> ring(smem4);
   const F head = pools.rows((long)h * num_pages * ps, D);
   const SplitRule rule{tables + (long)b * max_pages, __ffs(ps) - 1, t_lo, lo, keys, num_pages,
                        group};
   const am::PosMask mask{nullptr, len - 1, group, window, true};
   const bf16* qg = q + ((long)b * part.heads + (long)h * group) * D;
   auto qrow = [&](int r) { return r < group ? qg + (long)r * D : nullptr; };
-  am::WarpAttention<D> wa;
+  am::WarpAttention<D, D> wa;
   if constexpr (PACK == 0) {
     SplitKeys<D> src{rule, head.k, head.v};
     am::attend(wa, ring, qrow, t_hi - t_lo, src, mask, qscale, q);

@@ -371,7 +371,7 @@ struct QuantLoad {
 
   // Dequantize step u's staged rows into stage u % 2, each thread its own
   // jobs' bytes (landed: the caller waited for its copies).
-  __device__ void convert(const am::Ring<D, 2, KG>& ring, int u) const {
+  __device__ void convert(const am::Ring<D, D, 2, KG>& ring, int u) const {
     for (int j = threadIdx.x; j < JOBS; j += blockDim.x) {
       const int g = j / (2 * am::KEYS), t = u * KG + g;
       if (t >= w.n) continue;
@@ -379,7 +379,8 @@ struct QuantLoad {
       const uint32_t word = words()[j];
       const float scale = kvq::bf16_bits(halves()[j] ? word >> 16 : word);
       const int8_t* src = w.stage + j * ROW;
-      bf16* dst = (kv ? ring.v(slot) : ring.k(slot)) + r * am::Ring<D, 2, KG>::STRIDE;
+      using R = am::Ring<D, D, 2, KG>;
+      bf16* dst = (kv ? ring.v(slot) : ring.k(slot)) + r * R::KSTRIDE;  // K and V rows alike
 #pragma unroll 1  // a row's vectors one at a time: the softmax state holds the registers
       for (int c = 0; c < BYTES; c += 16)
         kvq::dequant<PACK>(dst + c * PACK, *reinterpret_cast<const uint4*>(src + c), scale);
@@ -421,7 +422,7 @@ prefill_attention_kernel_tc(const bf16* __restrict__ q, am::Strides qs, F chunk_
   const int b = blockIdx.z;          // slot
   const int rows = ps * group;
   extern __shared__ float4 smem4[];
-  const am::Ring<D, kTcStages, KG> ring(smem4);
+  const am::Ring<D, D, kTcStages, KG> ring(smem4);
 
   const int start = starts[b];
   const int len = lens[b];
@@ -463,7 +464,7 @@ prefill_attention_kernel_tc(const bf16* __restrict__ q, am::Strides qs, F chunk_
     return b * st.b + ((h * hs + part) * group + r % group) * st.h + (i_lo + r / group) * st.s;
   };
   const am::PosMask mask{nullptr, q_lo, group, window, true};
-  am::WarpAttention<D> wa;
+  am::WarpAttention<D, D> wa;
   auto qrow = [&](int r) { return r < rows ? q + at(qs, r) : nullptr; };
   if constexpr (PACK == 0) {
     am::attend(wa, ring, qrow, n_prior + n_chunk, src, mask, qscale, q);
@@ -492,7 +493,7 @@ int launch_tc(const void* q, am::Strides qs, F chunk_kv, F pools, const void* ta
   constexpr int PACK = Pack<F>::value;
   const int rows = ps * group, warps = (rows + 15) / 16;
   // the ring, the quantized loader's staging area, then the slot's table entries
-  const size_t smem = am::Ring<D, kTcStages, KG>::bytes() +
+  const size_t smem = am::Ring<D, D, kTcStages, KG>::bytes() +
                       (PACK ? QuantLoad<D, PACK ? PACK : 1, KG>::bytes() : 0) +
                       sizeof(int) * (size_t)max_pages;
   if (chunk % ps != 0 || am::KEYS % ps != 0 || (ps & (ps - 1)) != 0 || rows > am::MAX_ROWS ||

@@ -154,8 +154,11 @@ def guard_dispatch(tables, num_pages, page_size, work):
 
 
 def attention(q, k, v, *, causal: bool = False, sm_scale=None, **xla_kw):
-    """Contiguous GQA attention (ops.py:211): ``q`` (B, Hq, Sq, D) over
-    ``k``/``v`` (B, Hkv, Sk, D), differentiable.
+    """Contiguous GQA attention (ops.py:211): ``q`` (B, Hq, Sq, Dk) over
+    ``k`` (B, Hkv, Sk, Dk) and ``v`` (B, Hkv, Sk, Dv) -> (B, Hq, Sq, Dv),
+    differentiable.  Dv differs from Dk for MLA's expanded heads
+    (``layers.mla_full``); the reference's Pallas route takes one head_dim
+    only, its XLA route (``ref.attention``) any Dv.
 
     A window, ``kv_len`` or a soft cap takes the plain version, as the
     reference routes them to ``ref.attention``; so does a CPU tensor.  A CUDA

@@ -38,7 +38,7 @@ import torch
 
 from . import ref
 from .build import Kernel, check
-from .flash_attention import kernel_layout
+from .flash_attention import MAX_SMEM, core_smem_bytes, kernel_layout
 from .paged_attention import DTYPES
 
 _P = ctypes.c_void_p
@@ -53,7 +53,6 @@ TC_HEAD_DIMS = (64, 128)
 TC_KEYS = 64  # keys a tile on the tensor-core path
 TC_MAX_ROWS = 128  # query rows a block there (8 warps of 16)
 TC_MAX_PAGES = 16384  # table entries a block copies into shared memory
-MAX_SMEM = 232448  # a block's shared memory on the H100 (227 KB)
 
 
 def tensor_core_path(dtype: torch.dtype, head_dim: int, page_size: int,
@@ -65,15 +64,6 @@ def tensor_core_path(dtype: torch.dtype, head_dim: int, page_size: int,
     del group  # a page's rows of any group fit, split over blocks
     return (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
             and TC_KEYS % page_size == 0 and max_pages <= TC_MAX_PAGES)
-
-
-def core_smem_bytes(rows: int, page_size: int, head_dim: int) -> int:
-    """Shared memory of a CUDA-core block of ``rows`` query rows
-    (``ac::Smem::bytes`` in csrc/attention_core.cuh: Q and a K tile padded
-    to D + 4 floats, a V tile, the accumulator, the scores, three carries)."""
-    d, c = head_dim, page_size
-    return 4 * (rows * (d + 4) + c * (d + 4) + c * d + rows * c + rows * d
-                + 3 * rows)
 
 
 def head_split(tc: bool, group: int, page_size: int, head_dim: int,

@@ -19,8 +19,14 @@ launch counts of the run.  An encoder-decoder model trains through
 with a frontend through ``lm.loss_fn`` on zero ``prefix_embeds`` of that
 shape, as the reference feeds them (repro/launch/train.py:111-120).  One
 device only: ``--mesh`` other than ``debug`` raises
-``NotImplementedError`` (ROADMAP Queue 1 item 17), as do the models whose
-full-sequence forward is not ported (``lm.require_full_forward``: MLA).
+``NotImplementedError`` (ROADMAP Queue 1 item 17).  MLA + MoE
+(``deepseek_v2_lite_16b``) trains through ``layers.mla_full``, its
+attention on the flash kernel at key width 192 and value width 128 on a
+card:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek_v2_lite_16b --reduced --device cpu --steps 20
+
 The default ``--ckpt-dir`` lies under the temporary directory (``TMPDIR``).
 """
 from __future__ import annotations

@@ -426,6 +426,30 @@ def init_mla(gen, cfg: ModelConfig) -> Params:
     }
 
 
+def mla_full(params, x, cfg: ModelConfig, positions):
+    """Full-sequence MLA, training and prefill (layers.py:428): the latent
+    expanded into per-head keys (``w_uk``'s nope columns beside the shared
+    rotated rope key) and values (``w_uv``), causal attention of the
+    rotated queries through ``ops.attention`` on (B, H, S, D) views of the
+    (B, S, H, D) projections (on a card the flash kernel, at key width nope
+    + rope and value width ``v_head_dim``), then ``w_o``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h, dn, dr = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = (x @ params["w_q"]).reshape(b, s, h, dn + dr)
+    q_pe = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    c_kv = rmsnorm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(x @ params["w_kpe"], positions, cfg.rope_theta)
+    k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, dn)
+    v = (c_kv @ params["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    q = torch.cat([q[..., :dn], q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True, sm_scale=_mla_scale(cfg))
+    out = out.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
+    return out.to(x.dtype) @ params["w_o"]
+
+
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     """One layer's contiguous latent strips (layers.py:459): ``c_kv``
     (batch, max_len, 1, rank) and ``k_pe`` (batch, max_len, 1, rope_dim),
@@ -716,7 +740,8 @@ def top_k(x, k: int):
 
 def moe(params: Params, x, cfg: ModelConfig):
     """Capacity-based top-k routing with grouped dispatch (layers.py:773).
-    Returns ``(output, aux_loss)``.
+    Returns ``(output, aux_loss)``.  Its forward runs inside a named range
+    ("moe"), so that a profile can sum the dispatch's device time.
 
     The tokens split into G groups (:func:`_moe_groups`); each group routes
     through the fp32 router, keeps its top k experts per token (gates
@@ -729,6 +754,11 @@ def moe(params: Params, x, cfg: ModelConfig):
     MLP is added on all tokens.  All shapes are static and nothing waits for
     the host: the dispatch is a ``scatter_add_`` (each slot takes one
     nonzero row, so the sum is exact) and the combine a ``gather``."""
+    with torch.profiler.record_function("moe"):
+        return _moe(params, x, cfg)
+
+
+def _moe(params: Params, x, cfg: ModelConfig):
     mo = cfg.moe
     b, s, d = x.shape
     t = b * s

@@ -24,8 +24,8 @@ recurrent state) and ``family == "vlm"`` (``internvl2_26b``: a GQA decoder
 whose training forward takes the stub frontend's ``prefix_embeds``; it
 serves text only, as the reference).  The encoder-decoder (``whisper_tiny``)
 is ``models.encdec``'s.  The full-sequence forward (:func:`forward`,
-:func:`loss_fn`, the MoE's auxiliary loss included) runs every family but
-MLA (its ``mla_full`` is not ported yet).
+:func:`loss_fn`, the MoE's auxiliary loss included) runs every family,
+MLA through ``layers.mla_full`` (deepseek-v2-lite's training).
 """
 from __future__ import annotations
 
@@ -767,14 +767,9 @@ def spec_decode_loop(params, cfg: ModelConfig, cache: Cache, feed, pos, key,
 
 
 def require_full_forward(cfg: ModelConfig):
-    """Raise unless the full-sequence forward runs ``cfg``: every ported
-    family but MLA."""
+    """Raise unless the full-sequence forward runs ``cfg``: every family
+    and attention pair that :func:`require_supported` takes."""
     require_supported(cfg)
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: the full-sequence forward of multi-head latent "
-            "attention (layers.mla_full) is not ported yet: ROADMAP Queue 1 "
-            "item 14 (mla_full)")
 
 
 def training_blocks(params) -> List[Dict]:
@@ -784,10 +779,11 @@ def training_blocks(params) -> List[Dict]:
 
 
 def _block_full(p, x, cfg: ModelConfig, positions, window, rope_fraction):
-    """One block, full sequence (lm.py:111): GQA attention then the MLP or
-    the MoE, or the SSM's Mamba-2 layer alone (lm.py:133-134), or the
-    hybrid's mean of the attention and the Mamba-2 layer on ``rmsnorm(x,
-    norm_m)`` then the MLP (lm.py:135-137).  Returns (x, aux_loss): the
+    """One block, full sequence (lm.py:111): GQA attention or MLA
+    (``layers.mla_full``, lm.py:131-132) then the MLP or the MoE (a dense
+    prefix layer, or experts), or the SSM's Mamba-2 layer alone
+    (lm.py:133-134), or the hybrid's mean of the attention and the Mamba-2
+    layer on ``rmsnorm(x, norm_m)`` then the MLP (lm.py:135-137).  Returns (x, aux_loss): the
     MoE's load-balance loss (lm.py:141-143), zero without experts.
 
     ``window`` is the layer's :func:`layer_windows` entry, BIG_WINDOW for a
@@ -799,8 +795,11 @@ def _block_full(p, x, cfg: ModelConfig, positions, window, rope_fraction):
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
         return x + L.mamba2_full(p["mamba"], h, cfg), aux
     w = None if cfg.sliding_window is None else window
-    attend = lambda pa, h: L.attention_full(  # noqa: E731
-        pa, h, cfg, positions, window=w, rope_fraction=rope_fraction)
+    if cfg.attention == "mla":
+        attend = lambda pa, h: L.mla_full(pa, h, cfg, positions)  # noqa: E731
+    else:
+        attend = lambda pa, h: L.attention_full(  # noqa: E731
+            pa, h, cfg, positions, window=w, rope_fraction=rope_fraction)
     recur = None
     if cfg.family == "hybrid":
         recur = lambda hm: L.mamba2_full(p["mamba"], hm, cfg)  # noqa: E731

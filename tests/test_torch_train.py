@@ -212,15 +212,13 @@ def test_loss_and_every_gradient_match_reference(model, logits_chunk, prefix):
 
 
 def test_full_forward_refuses_unported_families():
-    """MLA's full forward is still item 14's; an encoder-decoder's is
-    ``encdec``'s, not ``lm``'s; every other family runs it (granite and
-    internvl2 since item 16)."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        lm.require_full_forward(tconfigs.get_config("deepseek_v2_lite_16b").reduced())
+    """An encoder-decoder's full forward is ``encdec``'s, not ``lm``'s;
+    every decoder-only family runs it (granite and internvl2 since item 16,
+    MLA + MoE since item 14's ``mla_full``: tests/test_torch_mla_full.py)."""
     with pytest.raises(ValueError, match="encdec"):
         lm.require_full_forward(tconfigs.get_config("whisper_tiny").reduced())
-    for arch in ("mamba2_2_7b", "hymba_1_5b", "granite_moe_3b_a800m",
-                 "internvl2_26b"):  # ported
+    for arch in ("deepseek_v2_lite_16b", "mamba2_2_7b", "hymba_1_5b",
+                 "granite_moe_3b_a800m", "internvl2_26b"):  # ported
         lm.require_full_forward(tconfigs.get_config(arch).reduced())
 
 
@@ -398,10 +396,16 @@ def test_train_cli_recovers_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert "kernel launches on cpu: none" in out
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000000", "step_00000006"]
     base = ["--arch", "qwen2_1_5b", "--reduced", "--device", "cpu"]
-    for argv, item in ((["--mesh", "single_pod"], "item 17"),
-                       (["--arch", "deepseek_v2_lite_16b"], "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            train.main(base + argv)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        train.main(base + ["--mesh", "single_pod"])
+    # deepseek, refused here until item 14's mla_full, trains through an
+    # injected failure
+    res = train.main(base + ["--arch", "deepseek_v2_lite_16b", "--steps", "6",
+                             "--batch", "2", "--seq", "16", "--failure-prob", "0.2",
+                             "--seed", "1", "--ckpt-dir", str(tmp_path / "deepseek")])
+    assert res["steps"] == 6 and res["restarts"] > 0
+    assert np.isfinite(res["last_metrics"]["loss"].item())
+    assert set(res["last_metrics"]) >= {"loss", "ce", "aux"}
     # whisper, refused here until item 16, trains (tests/test_torch_encdec.py)
     res = train.main(base + ["--arch", "whisper_tiny", "--steps", "1", "--batch", "1",
                              "--seq", "8", "--ckpt-dir", str(tmp_path / "whisper")])
