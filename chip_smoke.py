@@ -230,13 +230,15 @@ batch and a decode step's drop other tokens, as in the reference);
    seeded random bf16 weights: each serves the workload's first 8 requests
    (fp pages, chunked prefill, prefix cache) at the ticks and mean TTFT
    the scheduler gives them (a one-layer reduced model on the CPU), every
-   decode and prefill launch on the tensor cores at D 128 and none at
-   gemma's D 256, and holds its teacher-forced logits against the CPU's
+   decode and prefill launch on the tensor cores at D 128, at gemma's D 256
+   every prefill launch (wgmma) and no decode launch, and holds its
+   teacher-forced logits against the CPU's
    fp32 within phase 4's limits (argmax where the top-2 margin exceeds
    twice the error).  Phase 2 checks and times their kernels at their
    serving shape (chatglm's decode, chunked prefill and its int8 twin;
    gemma's decode and prefill; deepseek-7b's decode and prefill) and the
-   flash kernel at gemma's D 256 (B 8, 16 heads, S 1024);
+   flash kernel at gemma's D 256 (B 8, 16 heads, S 1024), both D 256
+   kernels on wgmma (csrc/hopper_attention.cuh);
 13. the serving engine's fault tolerance on full-width qwen2-1.5B at 4
    layers (seeded random bf16 weights): 12 requests of a 64-token shared
    prefix plus 8-96 own tokens, 16 new tokens each, over 4 slots of 256
@@ -271,7 +273,13 @@ batch and a decode step's drop other tokens, as in the reference);
    kernel path's MoE routing, phase 5's limits and its three planted
    attention faults failing them; the depth-2 teacher-forced forward over
    256 tokens against the CPU's fp32 on the card's routing (phase 4's
-   limits); and the reduced training CLI through injected failures.
+   limits); and the reduced training CLI through injected failures;
+15. gemma-7b training: full width (d 3072, 16 heads of 256, GeGLU d_ff
+   24576, vocab 256000, tied) at 2 of its 28 layers trains 8 AdamW steps
+   at batch 8 x seq 1024 through the flash kernel at D 256 on wgmma (4
+   launches a step, every one on the tensor cores) plus 2 profiled; the
+   depth-2 check with phase 5's limits and its three planted attention
+   faults failing them.
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
@@ -487,6 +495,10 @@ EARLIER_MS = {"paged_attention_quant": 0.2243, "chunk_state": 0.5258}
 # chunk_state at hymba-1.5B's training shape (HYMBA_SSD_CASE) on the
 # 128-row CUDA-core tile, before its 16-row tile: H100 80GB HBM3 at 700 W
 HYMBA_EARLIER_MS = {"chunk_state": 0.4152}
+# The flash forward and the chunked prefill at gemma-7b's D 256 on the
+# CUDA-core bodies, before their wgmma redesign: H100 80GB HBM3 at 700 W,
+# this script's "gemma-7b D 256" flash case and GEMMA_DECODE prefill rows
+GEMMA_EARLIER_MS = {"flash_attention": 10.2694, "prefill_attention": 0.5654}
 
 
 # a GQA decode's serving shape: slots, tokens a slot, query heads, KV heads,
@@ -508,20 +520,25 @@ HYMBA_WINDOW = 1024
 GRANITE_DECODE = DecodeShape("granite-moe-3b-a800m", SLOTS, MAX_LEN, 24, 8, 64)
 # The dense configs of phase 11, at their serving shape: chatglm3-6b's GQA
 # group of 16 at D 128 (the chunked prefill's page groups of 256 rows, split
-# over two blocks of 8 heads), gemma-7b's MHA at D 256 (off the tensor cores:
-# the kernels take D 64 or 128 there) and deepseek-7b's MHA, 32 over 32 at D
-# 128 (a group of 1).
+# over two blocks of 8 heads), gemma-7b's MHA at D 256 (the chunked prefill
+# on wgmma, a block the chunk's 64 rows of a kv head; the decode on its
+# CUDA-core body) and deepseek-7b's MHA, 32 over 32 at D 128 (a group of 1).
 CHATGLM_DECODE = DecodeShape("chatglm3-6b", SLOTS, MAX_LEN, 32, 2, 128)
 GEMMA_DECODE = DecodeShape("gemma-7b", SLOTS, MAX_LEN, 16, 16, 256)
 DEEPSEEK7B_DECODE = DecodeShape("deepseek-7b", SLOTS, MAX_LEN, 32, 32, 128)
-GQA_TC_HEAD_DIMS = (64, 128)  # the GQA kernels' tensor-core head dims
+GQA_TC_HEAD_DIMS = (64, 128)  # the GQA kernels' mma.sync head dims
+PREFILL_WGMMA_HEAD_DIM = 256  # the fp chunked prefill's wgmma head dim (gemma-7b)
 
 
-def gqa_takes_tensor_cores(dtype, shape) -> bool:
-    """Where a GQA decode or chunked-prefill launch at ``shape`` must run on
-    the tensor cores: bf16 at D 64 or 128, any GQA group (the prefill splits
-    a page's rows past 128 over blocks)."""
-    return str(dtype) == "torch.bfloat16" and (shape or QWEN_DECODE).d in GQA_TC_HEAD_DIMS
+def gqa_takes_tensor_cores(dtype, shape, kernel="paged_attention") -> bool:
+    """Where a GQA ``kernel`` launch at ``shape`` must run on the tensor
+    cores: bf16 at D 64 or 128, any GQA group (the prefill splits a page's
+    rows past 128 over blocks); and the fp chunked prefill at D 256 too, on
+    wgmma (the main path's chunk of CHUNK positions times a group of 1 is
+    one 64-row tile)."""
+    d = (shape or QWEN_DECODE).d
+    return str(dtype) == "torch.bfloat16" and (
+        d in GQA_TC_HEAD_DIMS or (kernel == "prefill_attention" and d == PREFILL_WGMMA_HEAD_DIM))
 
 
 def decode_grid(torch, PA, dev, shape=QWEN_DECODE):
@@ -965,8 +982,8 @@ VLM_BATCH, VLM_PREFIX, VLM_TEXT = 4, 256, 768
 # models of phases 8-10: granite (causal, a group of 3 at D 64), whisper's
 # encoder (non-causal over 1500 frames, ragged against the 64-row and
 # 64-key tiles) and decoder (causal), internvl2 (causal, a group of 6 at D
-# 128 over prefix and text); gemma-7b's MHA at D 256 (the CUDA-core body:
-# no model of this script trains it, so no run launches it); and
+# 128 over prefix and text); gemma-7b's MHA at D 256 (on wgmma; phase 15
+# trains gemma through it); and
 # deepseek-v2-lite's MLA heads (phase 14), whose keys (128 nope + 64 rope)
 # are wider than their values: the head dim is then the pair (Dk, Dv), the
 # scale 1 / sqrt(Dk)
@@ -988,7 +1005,8 @@ FLASH_CASES = (
 FLASH_TIMED = ("train", "granite train", "whisper encoder", "whisper decoder",
                "internvl2 train", "gemma-7b D 256", "deepseek train")
 # the flash kernel's tensor-core (Dk, Dv) pairs: GQA's head dims and MLA's
-FLASH_TC_PAIRS = ((64, 64), (128, 128), (192, 128))
+# on mma.sync, gemma-7b's 256 on wgmma
+FLASH_TC_PAIRS = ((64, 64), (128, 128), (192, 128), (256, 256))
 
 
 def flash_widths(case):
@@ -3061,18 +3079,19 @@ def kernel_phase(torch, np, ref, flush, device):
                     timed = dtype == torch.bfloat16 and (window is None or shape is not None)
                     r = check(torch, np, ref, mod, dtype, window, flush, timed,
                               device, fmt=fmt, **kw)
+                    earlier = GEMMA_EARLIER_MS if shape is GEMMA_DECODE else EARLIER_MS
                     log(f"[kernel] {name}{'' if fmt is None else ' ' + fmt} "
                         f"{str(dtype)[6:]} window={window}{at}"
                         f"{' (tensor cores)' if r.get('tc_launches') else ' (CUDA cores)'}: "
                         f"max abs err {r['err']:.3e}, "
-                        f"{attention_limit_text(name, fmt, r, timed)}")
+                        f"{attention_limit_text(name, fmt, r, timed, earlier)}")
                     if not kernel_ok(r):
                         raise AssertionError(f"{name} {fmt}{at} disagrees with its plain "
                                              "version")
                     # bf16 on the tensor-core path (the GQA kernels at D 64 or
-                    # 128), fp32 off it
+                    # 128, the fp prefill at D 256 too), fp32 off it
                     want_tc = (dtype == torch.bfloat16 if name.startswith("mla")
-                               else gqa_takes_tensor_cores(dtype, shape))
+                               else gqa_takes_tensor_cores(dtype, shape, name))
                     if (name in TC_KERNELS + MLA_TC_KERNELS + QUANT_TC_KERNELS
                             and r["tc_launches"] != int(want_tc)):
                         raise AssertionError(f"{name} {str(dtype)[6:]}{at}: "
@@ -3094,6 +3113,9 @@ def kernel_phase(torch, np, ref, flush, device):
                           f"{r['bound_ms']:.4f} ms ({r['bound_by']}); forward + backward: "
                           f"FlashAttentionFn {r['fwd_bwd_ms']:.4f} ms, sdpa "
                           f"{r['sdpa_fwd_bwd_ms']:.4f} ms")
+                if case[0] == "gemma-7b D 256":
+                    limit += (f"; before the redesign (CUDA cores) "
+                              f"{GEMMA_EARLIER_MS['flash_attention']} ms")
                 if case[0] == "train":
                     table["flash_attention"] = r
             _, b, hq, hkv, sq, sk, _, causal = case
@@ -3333,6 +3355,8 @@ def main(argv=None) -> int:
     fault_phase(torch, np, lm, device)
     torch.cuda.empty_cache()
     mla_training_phase(torch, np, lm, device)
+    torch.cuda.empty_cache()
+    gemma_training_phase(torch, np, lm, device)
     main_launches.update(lib_launches)
 
     # ---- result lines --------------------------------------------------
@@ -4191,9 +4215,8 @@ DENSE_ARCHS = ("chatglm3_6b", "gemma_7b", "deepseek_7b")
 DENSE_SHAPES = {"chatglm3_6b": CHATGLM_DECODE, "gemma_7b": GEMMA_DECODE,
                 "deepseek_7b": DEEPSEEK7B_DECODE}
 # Full width at 4 of their 28 / 28 / 30 layers (serving is host-bound and
-# its schedule does not depend on depth; gemma's fp32 masters and moments
-# alone would need ~136 GB to train, so none of the three trains here), the
-# workload's first 8 requests: one batch of slots.
+# its schedule does not depend on depth), the workload's first 8 requests:
+# one batch of slots.  Phase 15 trains gemma at 2 layers.
 DENSE_LAYERS = 4
 DENSE_REQUESTS = SLOTS
 
@@ -4226,7 +4249,8 @@ def dense_phase(torch, np, lm, device, configs=None, requests=DENSE_REQUESTS):
     first ``requests`` requests (fp pages, chunked prefill, prefix cache,
     greedy), with ticks and mean TTFT the scheduler's
     (scheduler_reference), every decode and prefill launch on the tensor
-    cores at D 128 and none at gemma's D 256; then its teacher-forced logits
+    cores at D 128, and at gemma's D 256 every prefill launch (wgmma) and no
+    decode launch (its CUDA-core body); then its teacher-forced logits
     against the CPU's fp32 within phase 4's limits (dense_tf_ok).  Returns
     each config's kernel launches."""
     from repro_torch.configs import get_config
@@ -4248,10 +4272,13 @@ def dense_phase(torch, np, lm, device, configs=None, requests=DENSE_REQUESTS):
             f"{lm.param_count(params) / 1e9:.3f} B params ({cfg.dtype})")
         runs = {}
         run = make_runner(torch, np, cfg, params, KERNELS, device, runs)
-        tc = TC_KERNELS if cfg.head_dim in GQA_TC_HEAD_DIMS else ()
+        shape = DecodeShape(cfg.name, SLOTS, MAX_LEN, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.head_dim)
+        tc = tuple(k for k in TC_KERNELS
+                   if gqa_takes_tensor_cores(getattr(torch, cfg.dtype), shape, k))
         eng, reqs = run("fp, default pool", FP_KERNELS, tc, requests=requests)
         on_tc = {k: KERNELS[k].tc_launches for k in FP_KERNELS}
-        assert tc or not any(on_tc.values()), on_tc  # D 256: the CUDA-core bodies
+        assert not any(on_tc[k] for k in FP_KERNELS if k not in tc), on_tc
         assert eng.steps_run == ticks and mean_ttft(reqs) == ttft, (eng.steps_run, ticks)
         launches[cfg.name] = runs["fp, default pool"][3]
         log(f"[launches] {cfg.name} serving: {json.dumps(launches[cfg.name])}, on tensor "
@@ -4672,6 +4699,48 @@ def mla_training_phase(torch, np, lm, device, full=None, layers_=MLA_TRAIN_LAYER
     if on_card:
         torch.cuda.empty_cache()
     log(f"[time] phase 14 ({cfg.name} checks): {time.perf_counter() - t0:.1f} s")
+    log(f"[launches] {cfg.name}'s training path: {json.dumps(launches)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: gemma-7b training (the flash kernel at D 256 on wgmma)
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH = "gemma_7b"
+# 2 of its 28 layers: ~1.34 B parameters, 0.79 B of them the tied 256000 x
+# 3072 embedding (~21.5 GB of weights, gradients, fp32 masters and moments
+# before activations); all 28 (~8.5 B) would need ~136 GB
+GEMMA_TRAIN_LAYERS = 2
+
+
+def gemma_training_phase(torch, np, lm, device, full=None, layers_=GEMMA_TRAIN_LAYERS,
+                         batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Phase 15, gemma-7b at full width (d 3072, 16 heads of 256 over 16,
+    GeGLU d_ff 24576, vocab 256000, tied embeddings) cut to ``layers_`` of
+    its 28 layers: TRAIN_STEPS steps at batch 8 x seq 1024 through the
+    flash kernel at D 256 on wgmma (each layer's forward and its recompute,
+    every launch on the tensor cores) and two more profiled; then the
+    depth-2 check with the planted attention faults failing it.  ``full``,
+    ``batch`` and ``seq`` replace the config and the training shape (a
+    rehearsal's).  Returns the flash kernel's launches over the TRAIN_STEPS
+    steps."""
+    from repro_torch.configs import get_config
+
+    full = full or get_config(GEMMA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=layers_)
+    t0 = time.perf_counter()
+    launches = train_full_width(
+        torch, np, cfg, device, TRAIN_FLASH, tc_kernels=TRAIN_FLASH, batch=batch, seq=seq,
+        shape_text=f", {cfg.num_layers} of its {full.num_layers} layers")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[time] phase 15 ({cfg.name} training): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    depth2_phase(torch, np, lm, full, device, TRAIN_FAULTS)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[time] phase 15 ({cfg.name} checks): {time.perf_counter() - t0:.1f} s")
     log(f"[launches] {cfg.name}'s training path: {json.dumps(launches)}")
     return launches
 

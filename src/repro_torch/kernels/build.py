@@ -6,8 +6,11 @@ Each ``csrc/<source>.cu`` compiles on its own, with ``nvcc`` for
 hold several kernels (an fp kernel and its quantized twin share a body), each
 an entry point of the same library.  Libraries land in ``_build/`` beside
 this file (listed in .gitignore), named by a digest of the sources and
-flags, so an edited kernel rebuilds and an unchanged one loads from disk.  Nothing is built at import: the first launch builds, or a
-caller builds every kernel at once, in parallel, with :func:`build_all`.
+flags, so an edited kernel rebuilds and an unchanged one loads from disk.
+A kernel's tile constants may be stated once, in its Python module, and
+reach its source as ``-D`` macros (``Kernel(defines=...)``).  Nothing is
+built at import: the first launch builds, or a caller builds every kernel
+at once, in parallel, with :func:`build_all`.
 """
 from __future__ import annotations
 
@@ -49,10 +52,15 @@ class Kernel:
     run and reads it after to show the run went through the kernel.  A
     kernel with a tensor-core path beside its CUDA-core one also counts the
     launches that took it in ``tc_launches``.
+
+    ``defines`` (optional) are macros the source is compiled with, each
+    ``-DNAME=value``: constants its wrapper's shape rule reads too, so they
+    are stated in one place.  Kernels of one source pass the same ones.
     """
 
     def __init__(self, name: str, entry: str, argtypes: Sequence,
-                 replaces: str, source: Optional[str] = None):
+                 replaces: str, source: Optional[str] = None,
+                 defines: Optional[Dict[str, int]] = None):
         self.name = name
         self.entry = entry
         self.argtypes = list(argtypes)
@@ -60,6 +68,7 @@ class Kernel:
         self.launches = 0
         self.tc_launches = 0
         self._stem = source or name
+        self.defines = dict(defines or {})
         self._fn = None
 
     @property
@@ -70,11 +79,14 @@ class Kernel:
         h = hashlib.sha256()
         for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
             h.update(src.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags()).encode())
         return BUILD_DIR / f"lib{self._stem}_{h.hexdigest()[:16]}.so"
 
+    def flags(self) -> List[str]:
+        return [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted(self.defines.items()))]
+
     def build_command(self, out: Path) -> List[str]:
-        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+        return [nvcc_path(), *self.flags(), "-o", str(out), str(self.source)]
 
     def function(self):
         """The ctypes entry point, building the library first if needed."""

@@ -1,8 +1,9 @@
 // Hopper's asynchronous machinery, for the kernel library's GEMM
-// (matmul.cu) and FlashMLA (mla.cu): TMA descriptors and 2-D / 3-D tile
-// loads, mbarriers, named barriers, the warpgroup product wgmma.mma_async
-// (fp32 accumulation: m64n256k16 with A from shared memory or registers and
-// B MN-major; m64nNk16, N 32 or 48, with A and B both K-major) and
+// (matmul.cu), FlashMLA (mla.cu) and the head-width-256 attention walk
+// (hopper_attention.cuh): TMA descriptors and 2-D / 3-D / 4-D tile loads,
+// mbarriers, named barriers, the warpgroup product wgmma.mma_async (fp32
+// accumulation: m64n256k16 with A from shared memory or registers and B
+// MN-major; m64nNk16, N 32, 48 or 64, with A and B both K-major) and
 // setmaxnreg.  sm_90a only.
 //
 // * TMA.  cuTensorMapEncodeTiled is a driver function and the libraries
@@ -78,24 +79,25 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A tensor of 16-bit T read in boxes of 64 contiguous elements x box_rows
-// rows (x 1 in a third dimension) with 128-byte swizzle (out-of-bounds
-// elements read as zeros): `rank` 2 or 3 dimensions, the contiguous one
-// first; strides in elements, the contiguous one's (1) left out.  False if
-// the driver refuses it.
+// rows (x 1 in a third and fourth dimension) with 128-byte swizzle
+// (out-of-bounds elements read as zeros): `rank` 2 to 4 dimensions, the
+// contiguous one first; strides in elements, the contiguous one's (1) left
+// out, in any order (a (B, S, H, D) projection read as (D, S, H, B) has its
+// row stride above its head stride).  False if the driver refuses it.
 template <typename T>
 inline bool tensor_map(CUtensorMap* map, const void* base, uint32_t rank, const uint64_t* dims,
                        const uint64_t* strides, uint32_t box_rows) {
   static_assert(sizeof(T) == 2, "16-bit elements: a 128-byte box row is 64 of them");
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || rank < 2 || rank > 3) return false;
+  if (fn == nullptr || rank < 2 || rank > 4) return false;
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  cuuint64_t d[3], st[2];
+  cuuint64_t d[4], st[3];
   for (uint32_t i = 0; i < rank; ++i) d[i] = dims[i];
   for (uint32_t i = 0; i + 1 < rank; ++i) st[i] = strides[i] * sizeof(T);
-  const cuuint32_t box[3] = {64, box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const cuuint32_t box[4] = {64, box_rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return fn(map, type, rank, const_cast<void*>(base), d, st, box, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -118,6 +120,22 @@ inline bool tensor_map_3d(CUtensorMap* map, const void* base, uint64_t batches, 
                           uint64_t cols, uint64_t ld, uint64_t batch_ld, uint32_t box_rows) {
   const uint64_t dims[3] = {cols, rows, batches}, strides[2] = {ld, batch_ld};
   return tensor_map<T>(map, base, 3, dims, strides, box_rows);
+}
+
+// `batches` x `heads` matrices of `rows` rows and `cols` columns, given by
+// their row, head and batch strides in elements (a (B, H, S, D) view of a
+// (B, S, H, D) projection, read through its strides): boxes of box_rows
+// rows of one (head, batch).  A stride whose dimension is 1 is never
+// stepped; it is replaced by 16 bytes' worth, which the driver takes.
+template <typename T>
+inline bool tensor_map_4d(CUtensorMap* map, const void* base, uint64_t batches, uint64_t heads,
+                          uint64_t rows, uint64_t cols, uint64_t ld, uint64_t head_ld,
+                          uint64_t batch_ld, uint32_t box_rows) {
+  const uint64_t one = 16 / sizeof(T);
+  const uint64_t dims[4] = {cols, rows, heads, batches};
+  const uint64_t strides[3] = {rows > 1 ? ld : one, heads > 1 ? head_ld : one,
+                               batches > 1 ? batch_ld : one};
+  return tensor_map<T>(map, base, 4, dims, strides, box_rows);
 }
 
 // ---- device: barriers and copies --------------------------------------------
@@ -183,6 +201,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ... and of a 4-D map: (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -308,9 +337,10 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
 
 // d (64 x N) = (scale_d ? d : 0) + A (64 x 16, K-major) . B (16 x N,
 // stored N rows of K: K-major, both transpose bits 0), asynchronously; N
-// 32 or 48.
+// 32, 48 or 64.
 #define HC_OUT16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define HC_OUT24 HC_OUT16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define HC_OUT32 HC_OUT24 ", %24, %25, %26, %27, %28, %29, %30, %31"
 #define HC_WGMMA_KK(N, OUTS, DA, DB, SC, TYPES, ...)                                      \
   asm volatile(                                                                           \
       "{\n"                                                                               \
@@ -325,23 +355,31 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_m64nNk16_kk(float (&d)[N / 2], uint64_t da, uint64_t db,
                                                   int scale_d) {
-  static_assert(N == 32 || N == 48, "N 32 or 48");
+  static_assert(N == 32 || N == 48 || N == 64, "N 32, 48 or 64");
   constexpr bool f16 = std::is_same<T, __half>::value;
   if constexpr (N == 32) {
     if constexpr (f16)
       HC_WGMMA_KK(32, HC_OUT16, "%16", "%17", "%18", "f16.f16", HC_D8(0), HC_D8(8));
     else
       HC_WGMMA_KK(32, HC_OUT16, "%16", "%17", "%18", "bf16.bf16", HC_D8(0), HC_D8(8));
-  } else {
+  } else if constexpr (N == 48) {
     if constexpr (f16)
       HC_WGMMA_KK(48, HC_OUT24, "%24", "%25", "%26", "f16.f16", HC_D8(0), HC_D8(8), HC_D8(16));
     else
       HC_WGMMA_KK(48, HC_OUT24, "%24", "%25", "%26", "bf16.bf16", HC_D8(0), HC_D8(8),
                   HC_D8(16));
+  } else {
+    if constexpr (f16)
+      HC_WGMMA_KK(64, HC_OUT32, "%32", "%33", "%34", "f16.f16", HC_D8(0), HC_D8(8), HC_D8(16),
+                  HC_D8(24));
+    else
+      HC_WGMMA_KK(64, HC_OUT32, "%32", "%33", "%34", "bf16.bf16", HC_D8(0), HC_D8(8),
+                  HC_D8(16), HC_D8(24));
   }
 }
 
 #undef HC_WGMMA_KK
+#undef HC_OUT32
 #undef HC_OUT24
 #undef HC_OUT16
 #undef HC_WGMMA_N256_RS

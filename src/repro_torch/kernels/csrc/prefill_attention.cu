@@ -39,9 +39,32 @@
 // (chatglm3-6b) is 256 rows: two blocks of 8 heads, of which the first
 // alone writes the chunk's pages.
 //
-// The fp kernel has two paths, chosen by the wrapper from dtype and shape
+// The fp kernel has three paths, chosen by the wrapper from dtype and shape
 // alone (prefill_attention.py, tensor_core_path):
-//   * tensor cores, bf16 at D 64 or 128 with 64 % ps == 0 (ps * G / hs <= 128):
+//   * wgmma, bf16 at D 256 (gemma-7b) where the chunk's C x G query rows are
+//     64 or 128, C a multiple of 64, and pages of 8-32 positions tile 32-key
+//     tiles: prefill_attention_kernel_wg over hopper_attention.cuh.  Bound at
+//     gemma's serving shape (8 slots of 1024, chunk 64, 16 heads over 16):
+//     bytes, 0.022 ms.  The CUDA-core body re-read a slot's whole prior
+//     context once per chunk page (grid (kv head, chunk page, slot)), in fp32
+//     FMAs; here a block holds one kv head of one slot and all of its chunk's
+//     rows (grid (kv head, slot), 128 blocks on 132 SMs at gemma's shape), so
+//     each prior page is read once per (slot, kv head).  A producer thread
+//     copies the query tiles, then the prior pages through the slot's table
+//     entries (copied into shared memory first), a TMA box of ps rows a page
+//     per 64-column box (a page out of the pool is read from the sink page 0
+//     and masked), then the chunk's own keys; 4 stages.  At 64 rows the two
+//     consumer warpgroups walk alternate tiles over the same rows, each with
+//     its own O, max and sum, and merge through the ring at the end; at 128
+//     each takes its 64 rows over every tile.  The walk is the flash
+//     kernel's at 32-key tiles (scores by m64n32k16, P as the pair hi + lo
+//     times V by m64n256k16; 64 x 2 read 4-5% slower here,
+//     tools/d256_wgmma_ablation.py); every tile is masked (prior positions
+//     below starts and in the window, the chunk causal and ragged on lens).  Then the consumers
+//     write all C / ps chunk pages of the kv head, a dead page to the sink
+//     page 0.  165 KB of shared memory plus 4 bytes a table entry at 64
+//     rows; no spills.
+//   * mma.sync, bf16 at D 64 or 128 with 64 % ps == 0 (ps * G / hs <= 128):
 //     the online softmax of attention_mma.cuh, P.V as the bf16 pair hi + lo
 //     (1.00 bf16 ulp on the card; P rounded once would read 122).  The
 //     block's rows sit in warps of 16 (ps * G not a multiple of 16 pads its
@@ -74,7 +97,8 @@
 //     land.  Staging is 256 rows of D / pack + 16 bytes, with a scale
 //     word and a key position each, at two key groups (38 KB at int8, D
 //     128: 176 KB a block with the ring and qwen2-1.5B's table row).
-//   * CUDA cores, fp32 and any other shape: the body shared with the
+//   * CUDA cores, fp32 and any other shape (the quantized twin at D 256
+//     too): the body shared with the
 //     quantized twin, attention_core.cuh's online softmax in fp32 shared
 //     memory over page-sized tiles, each read with 16-byte vector loads one
 //     tile ahead of the compute; the resident Q block plus the fp32
@@ -101,6 +125,7 @@
 
 #include "attention_core.cuh"
 #include "attention_mma.cuh"
+#include "hopper_attention.cuh"
 #include "kv_dequant.cuh"
 
 namespace {
@@ -532,6 +557,194 @@ int launch_tc_any(int d, const void* q, am::Strides qs, F chunk_kv, F pools,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- the warpgroup path: bf16 at D 256 ----------------------------------
+
+// WG_KEYS (keys a tile) and WG_STAGES (tiles in flight) come from the build:
+// prefill_attention.py states them once, for its shape rule and for this file.
+#if !defined(WG_KEYS) || !defined(WG_STAGES)
+#error "WG_KEYS and WG_STAGES are passed by build.py (prefill_attention.KERNEL.defines)"
+#endif
+using WgLayout = ha::Layout<WG_KEYS, WG_STAGES>;
+// At 64 rows the consumers take alternate tiles, so each stage must keep one
+// reader: with an odd count a stage's rounds alternate between them, and a
+// consumer could wait two phases ahead, where the parity cannot tell them
+// apart (a misread on the card at 3 stages).
+static_assert(WG_STAGES % 2 == 0, "alternate tiles need an even number of stages");
+
+// Block (kv head h, slot b): all C x G query rows of the chunk, head-major
+// (block row R is query head h G + R / C at chunk position R % C), 64 or
+// 128 of them; C is a multiple of 64 (wg_takes), so each 64-row query tile
+// is one TMA box at one head.  The producer copies the query tiles, then the slot's prior
+// pages [p_lo, p_hi) through its table entries (copied into shared memory
+// first), WG_KEYS / ps pages a tile, a TMA box of ps rows a page per
+// 64-column box (a dead page, out of the pool or past p_hi, is read from
+// the sink page 0 and masked), then the chunk's own keys [0, lens) from the
+// chunk inputs.  At 64 rows the two consumers take alternate tiles over the
+// same rows (each stage read by one) and merge through the ring at the
+// end; at 128 each takes its 64 rows over every tile.  Every tile is
+// masked: prior positions below starts (and in the window), the chunk's
+// causal and ragged on lens.  Then the consumers write all C / ps chunk
+// pages of the kv head (a dead page to the sink page 0).
+__global__ void __launch_bounds__(ha::THREADS, 1)
+prefill_attention_kernel_wg(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tkn,
+                            const __grid_constant__ CUtensorMap tvn,
+                            const __grid_constant__ CUtensorMap tkp,
+                            const __grid_constant__ CUtensorMap tvp, const bf16* __restrict__ kn,
+                            const bf16* __restrict__ vn, bf16* __restrict__ kpool,
+                            bf16* __restrict__ vpool, const int* __restrict__ tables,
+                            const int* __restrict__ starts, const int* __restrict__ lens,
+                            bf16* __restrict__ out, am::Strides os, int kv_heads, int group,
+                            int chunk, int ps, int max_pages, int num_pages, int window,
+                            float qscale) {
+  using W = ha::Consumer<WG_KEYS, WG_STAGES>;
+  extern __shared__ float4 smem4[];  // one declaration for the file's kernels
+  uint8_t* smem = ha::aligned(smem4);
+  const int rows = chunk * group, split = rows == ha::ROWS;
+  const WgLayout lay(rows / ha::ROWS);
+  const ha::Bars<WG_STAGES> bars{reinterpret_cast<uint64_t*>(smem + lay.bars())};
+  int* pages = reinterpret_cast<int*>(smem + lay.extra());  // table entries p_lo..
+  const int h = blockIdx.x;  // kv head
+  const int b = blockIdx.y;  // slot
+  const int start = starts[b], len = lens[b];
+  const int p_hi = min((start + ps - 1) / ps, max_pages);
+  const int p_lo = window > 0 ? max(0, start - window + 1) / ps : 0;
+  const int n_prior = (max(0, p_hi - p_lo) * ps + WG_KEYS - 1) / WG_KEYS;
+  const int n = n_prior + (len + WG_KEYS - 1) / WG_KEYS;
+  const int* row = tables + (long)b * max_pages;
+  for (int i = threadIdx.x; i < p_hi - p_lo; i += blockDim.x) {
+    const int page = row[p_lo + i];
+    pages[i] = page >= 0 && page < num_pages ? page : -1;
+  }
+  if (threadIdx.x == 0) bars.init(split ? 1 : 2);
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer: one thread issues every copy
+    hc::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hc::mbar_expect_tx(bars.q(), lay.q_tiles * ha::Q_BYTES);
+      for (int i = 0; i < lay.q_tiles; ++i)
+        for (int j = 0; j < ha::BOXES; ++j)
+          hc::tma_load_4d(smem + lay.q(i) + j * ha::Q_BOX, &tq, bars.q(), j * ha::BOX,
+                          i * ha::ROWS % chunk, h * group + i * ha::ROWS / chunk, b);
+      const int per = WG_KEYS / ps;  // pages a prior tile
+      for (int u = 0; u < n; ++u) {
+        const int s = u % WG_STAGES, r = u / WG_STAGES;
+        if (r > 0) hc::mbar_wait(&bars.empty()[s], (r - 1) & 1);  // its (r - 1)-th release
+        hc::mbar_expect_tx(&bars.full[s], 2 * WgLayout::KV_BYTES);
+        if (u < n_prior) {
+          for (int p = 0; p < per; ++p) {
+            const int slot = p_lo + u * per + p;
+            const int page = slot < p_hi ? pages[slot - p_lo] : -1;
+            const int at = (h * num_pages + max(page, 0)) * ps;  // dead: the sink page
+            for (int j = 0; j < ha::BOXES; ++j) {
+              const int dst = j * WgLayout::K_BOX + p * ps * 128;
+              hc::tma_load_2d(smem + lay.k(s) + dst, &tkp, &bars.full[s], j * ha::BOX, at);
+              hc::tma_load_2d(smem + lay.v(s) + dst, &tvp, &bars.full[s], j * ha::BOX, at);
+            }
+          }
+        } else {
+          const int k0 = (u - n_prior) * WG_KEYS;
+          for (int j = 0; j < ha::BOXES; ++j) {
+            hc::tma_load_4d(smem + lay.k(s) + j * WgLayout::K_BOX, &tkn, &bars.full[s],
+                            j * ha::BOX, k0, h, b);
+            hc::tma_load_4d(smem + lay.v(s) + j * WgLayout::K_BOX, &tvn, &bars.full[s],
+                            j * ha::BOX, k0, h, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+  hc::regs_inc<232>();
+  const int c = threadIdx.x / 128 - 1;
+  W w(smem, lay, split ? 0 : c, qscale);
+  const int r_base = split ? 0 : c * ha::ROWS;  // this consumer's first block row
+  const int ps_log2 = __ffs(ps) - 1;
+  w.wait_q();
+  int t = split ? c : 0;
+  const int stride = split ? 2 : 1;
+  for (; t < n_prior; t += stride)
+    w.step(t, true, [&](int r, int j) {
+      const int kidx = t * WG_KEYS + j;
+      const int slot = p_lo + (kidx >> ps_log2);
+      const int pos = (slot << ps_log2) + (kidx & (ps - 1));
+      const int q_pos = start + (r_base + r) % chunk;
+      return slot < p_hi && pages[slot - p_lo] >= 0 && pos < start &&
+             (window <= 0 || q_pos - pos < window);
+    });
+  for (; t < n; t += stride)
+    w.step(t, true, [&](int r, int j) {
+      const int i = (r_base + r) % chunk, kj = (t - n_prior) * WG_KEYS + j;
+      return kj <= i && kj < len && (window <= 0 || i - kj < window);
+    });
+  if (split) w.merge(c == 1);
+  if (!split || c == 0)
+    w.store([&](int r) {
+      const int R = r_base + r;
+      return out + b * os.b + (h * group + R / chunk) * os.h + (R % chunk) * os.s;
+    });
+
+  // ---- the paged write: the chunk's pages of this kv head, through the table
+  const int ct = threadIdx.x - 128;  // the consumers' 256 threads
+  constexpr int VECS = ha::D / 8;    // 16-byte vectors a row
+  for (int j = ct; j < chunk * VECS * 2; j += 256) {
+    const int kv = j & 1, vec = (j >> 1) % VECS, i = j / (2 * VECS);
+    const int bq = i / ps;
+    const int dst = bq * ps < len ? row[min(start / ps + bq, max_pages - 1)] : 0;
+    if (dst < 0 || dst >= num_pages) continue;  // dropped, like XLA's scatter
+    const long from = (((long)b * kv_heads + h) * chunk + i) * ha::D + vec * 8;
+    const long to = (((long)h * num_pages + dst) * ps + i % ps) * ha::D + vec * 8;
+    *reinterpret_cast<uint4*>((kv ? vpool : kpool) + to) =
+        *reinterpret_cast<const uint4*>((kv ? vn : kn) + from);
+  }
+}
+
+// Whether the warpgroup path takes a launch (the guard behind wgmma_fits in
+// prefill_attention.py): bf16 at D 256, C x G of 64 or 128 rows with C a
+// multiple of 64 (a query tile is one 64-row TMA box at one head: past C it
+// would read zeros, not the next head), pages of 8 to WG_KEYS rows (a power
+// of two: TMA boxes of whole 1024-byte swizzle atoms) tiling the key tiles,
+// and the table row beside the ring.
+inline bool wg_takes(int d, int rows, int chunk, int ps, int max_pages) {
+  return d == ha::D && (rows == ha::ROWS || rows == 2 * ha::ROWS) && chunk % ha::ROWS == 0 &&
+         ps >= 8 &&
+         ps <= WG_KEYS && (ps & (ps - 1)) == 0 && chunk % ps == 0 &&
+         WgLayout(rows / ha::ROWS).bytes(sizeof(int) * (size_t)max_pages) <= (size_t)ha::MAX_SMEM;
+}
+
+int launch_wg(const void* q, am::Strides qs, const void* kn, const void* vn, void* kpool,
+              void* vpool, const void* tables, const void* starts, const void* lens, void* out,
+              am::Strides os, int slots, int kv_heads, int group, int chunk, int ps,
+              int max_pages, int num_pages, int window, float sm_scale, cudaStream_t stream) {
+  const int rows = chunk * group;
+  if (!wg_takes(ha::D, rows, chunk, ps, max_pages) || slots > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = WgLayout(rows / ha::ROWS).bytes(sizeof(int) * (size_t)max_pages);
+  const uint64_t heads = (uint64_t)kv_heads * group, prow = (uint64_t)ha::D;
+  CUtensorMap tq, tkn, tvn, tkp, tvp;
+  if (!hc::tensor_map_4d<bf16>(&tq, q, slots, heads, chunk, ha::D, qs.s, qs.h, qs.b, ha::ROWS) ||
+      !hc::tensor_map_4d<bf16>(&tkn, kn, slots, kv_heads, chunk, ha::D, prow, chunk * prow,
+                               kv_heads * chunk * prow, WG_KEYS) ||
+      !hc::tensor_map_4d<bf16>(&tvn, vn, slots, kv_heads, chunk, ha::D, prow, chunk * prow,
+                               kv_heads * chunk * prow, WG_KEYS) ||
+      !hc::tensor_map_2d<bf16>(&tkp, kpool, (uint64_t)kv_heads * num_pages * ps, ha::D, prow,
+                               ps) ||
+      !hc::tensor_map_2d<bf16>(&tvp, vpool, (uint64_t)kv_heads * num_pages * ps, ha::D, prow,
+                               ps))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = prefill_attention_kernel_wg;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(kv_heads, slots);
+  kernel<<<grid, ha::THREADS, smem, stream>>>(
+      tq, tkn, tvn, tkp, tvp, (const bf16*)kn, (const bf16*)vn, (bf16*)kpool, (bf16*)vpool,
+      (const int*)tables, (const int*)starts, (const int*)lens, (bf16*)out, os, kv_heads, group,
+      chunk, ps, max_pages, num_pages, window, sm_scale * ac::LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int PACK>
 ac::QuantKV<T, PACK> quant_kv(void* k, void* v, void* ks, void* vs) {
   return {(int8_t*)k, (int8_t*)v, (T*)ks, (T*)vs};
@@ -545,8 +758,9 @@ ac::QuantKV<T, PACK> quant_kv(void* k, void* v, void* ks, void* vs) {
 // block of part p holds query heads h * group + p * group / hs + g, and the
 // first part alone writes the chunk's pages.  tc 1 takes the tensor-core
 // kernel (bfloat16, head_dim 64 or 128, 64 % page_size == 0, page_size *
-// group / hs <= 128), with q and out (B, Hq, C, D) given by their batch,
-// head and row strides in elements (qb ... os); tc 0 the CUDA-core kernel,
+// group / hs <= 128; or head_dim 256 on wgmma, hs 1, chunk * group 64 or
+// 128 with chunk % 64 == 0, page_size 8 to 32), with q and out (B, Hq, C,
+// D) given by their batch, head and row strides in elements (qb ... os); tc 0 the CUDA-core kernel,
 // with q and out contiguous and packed chunk-major with their part of the
 // GQA group, (B, Hkv * hs, C * G / hs, D), and the strides unused.  Needs
 // chunk % page_size == 0, page_size a power of two <= 32 and head_dim a
@@ -565,6 +779,12 @@ extern "C" int prefill_attention_launch(
   if (tc) {
     using B = __nv_bfloat16;
     if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (d == ha::D) {
+      if (hs != 1) return (int)cudaErrorInvalidValue;
+      return launch_wg(q, am::Strides{qb, qh, qs}, k, v, k_pages, v_pages, tables, starts, lens,
+                       out, am::Strides{ob, oh, os}, slots, kv_heads, group, chunk, ps,
+                       max_pages, num_pages, window, sm_scale, s);
+    }
     return launch_tc_any(d, q, am::Strides{qb, qh, qs}, ac::FpKV<B>{(B*)k, (B*)v},
                          ac::FpKV<B>{(B*)k_pages, (B*)v_pages}, tables, starts, lens, out,
                          am::Strides{ob, oh, os}, slots, kv_heads, group, hs, chunk, ps,

@@ -11,10 +11,11 @@ which the TPU program, with one head_dim, does not take.  The plain version
 is ``ref.attention``; :func:`flash_attention` takes it for CPU tensors only.
 For a CUDA tensor it launches the kernel or raises.
 
-The kernel has two paths, picked from dtype and widths alone
+The kernel has three paths, picked from dtype and widths alone
 (:func:`tensor_core_path`): bf16 at a (Dk, Dv) pair of ``TC_PAIRS`` runs on
-the tensor cores (``KERNEL.tc_launches`` counts those launches), fp32 and
-any other pair on CUDA cores; a pair neither takes raises
+the tensor cores, by mma.sync at ``MMA_PAIRS`` and by wgmma fed by TMA at
+``WGMMA_PAIRS`` (gemma-7b's 256; ``KERNEL.tc_launches`` counts both), fp32
+and any other pair on CUDA cores; a pair none takes raises
 (:func:`check_widths`).
 
 The kernel takes any Sq and Sk (no block-divisibility contract) and reads
@@ -38,25 +39,47 @@ from .paged_attention import DTYPES
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_MAX_GRID_YZ = 65535
+# (Dk, Dv) pairs of the tensor-core kernels: on mma.sync GQA's head dims and
+# MLA's expanded heads at deepseek-v2-lite's widths (128 nope + 64 rope over
+# 128); on wgmma gemma-7b's 256 (``flash_attention_kernel_wg``)
+MMA_PAIRS = ((64, 64), (128, 128), (192, 128))
+WGMMA_PAIRS = ((256, 256),)
+TC_PAIRS = MMA_PAIRS + WGMMA_PAIRS
+TC_HEAD_DIMS = tuple(dk for dk, dv in TC_PAIRS if dk == dv)
+MAX_SMEM = 232448  # a block's shared memory on the H100 (227 KB)
+_CORE_THREADS, _CORE_VECTORS = 256, 4  # the CUDA-core block, ac::MAXV
+# The warpgroup walk at head width 256 (csrc/hopper_attention.cuh): 64 query
+# rows a consumer warpgroup, keys a tile in stages of [K | V], 256 wide; the
+# flash kernel instantiates it at WG_KEYS x WG_STAGES (64 x 2 beat 32 x 4 by
+# 6%, tools/d256_wgmma_ablation.py), which reach its source as macros (the
+# prefill at its own).
+WG_D, WG_ROWS = 256, 64
+WG_KEYS, WG_STAGES = 64, 2
 KERNEL = Kernel(
     "flash_attention", "flash_attention_launch",
     [_I, _I, _P, _P, _P, _P, *([_L] * 12), _I, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, _P],
     replaces="src/repro/kernels/flash_attention.py:25",
+    defines={"WG_KEYS": WG_KEYS, "WG_STAGES": WG_STAGES},
 )
-_MAX_GRID_YZ = 65535
-# (Dk, Dv) pairs of the tensor-core kernel: GQA's head dims, and MLA's
-# expanded heads at deepseek-v2-lite's widths (128 nope + 64 rope over 128)
-TC_PAIRS = ((64, 64), (128, 128), (192, 128))
-TC_HEAD_DIMS = tuple(dk for dk, dv in TC_PAIRS if dk == dv)
-MAX_SMEM = 232448  # a block's shared memory on the H100 (227 KB)
-_CORE_THREADS, _CORE_VECTORS = 256, 4  # the CUDA-core block, ac::MAXV
+
+
+def wgmma_smem_bytes(q_tiles: int, keys: int, stages: int, extra: int = 0) -> int:
+    """Shared memory of a warpgroup attention block (``ha::Layout::bytes``):
+    ``q_tiles`` query tiles of 64 x 256 bf16, ``stages`` stages of [K | V]
+    tiles of ``keys`` keys, a 128-byte place for the mbarriers, ``extra``
+    bytes the kernel keeps beside them (the prefill's table entries), and
+    1024 bytes to align the base to a swizzle atom."""
+    ring = stages * 2 * keys * WG_D * 2
+    return q_tiles * WG_ROWS * WG_D * 2 + ring + 128 + extra + 1024
 
 
 def tensor_core_path(dtype: torch.dtype, dk: int, dv: Optional[int] = None) -> bool:
-    """Whether a launch takes the tensor-core kernel: bf16 at a (Dk, Dv)
-    pair it is built for (``dv`` defaults to ``dk``).  Sequence lengths,
-    heads and strides do not matter."""
+    """Whether a launch takes a tensor-core kernel: bf16 at a (Dk, Dv) pair
+    one is built for (``dv`` defaults to ``dk``): mma.sync at
+    ``MMA_PAIRS``, wgmma at ``WGMMA_PAIRS``.  Sequence lengths, heads and
+    strides do not matter."""
     return dtype == torch.bfloat16 and (dk, dk if dv is None else dv) in TC_PAIRS
 
 

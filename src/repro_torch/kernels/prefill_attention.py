@@ -8,12 +8,15 @@ updated copies of the pools; here the given pools are written).  The plain
 version is ``ref.paged_prefill_attention``; this wrapper takes it for CPU
 tensors only.  For a CUDA tensor it launches the kernel or raises.
 
-The kernel has two paths, picked from dtype and shape alone
+The kernel has three paths, picked from dtype and shape alone
 (:func:`tensor_core_path`).  bf16 at head dim 64 or 128, with 64 keys a
 whole number of pages and at most 16384 table entries a slot, runs on the
-tensor cores, which read q and write the output through their (B, Hq, C, D)
-strides, so the transposed views the prefill layer hands over cost no copy
-(``KERNEL.tc_launches`` counts those launches).  The rest runs on CUDA cores
+tensor cores by mma.sync; bf16 at head dim 256 (gemma-7b) where the chunk's
+C x G query rows are 64 or 128 (C a multiple of 64) and pages of 8-32 rows
+tile its 32-key tiles runs by wgmma fed by TMA, one block a (kv head, slot)
+holding the whole chunk (:func:`wgmma_fits`).  Both read q and write the output through their
+(B, Hq, C, D) strides, so the transposed views the prefill layer hands over
+cost no copy (``KERNEL.tc_launches`` counts those launches).  The rest runs on CUDA cores
 over q packed chunk-major with its GQA group, a copy each way.  A block
 holds one chunk page of a kv head's GQA group; where those rows do not fit
 a block (more than 128 on the tensor cores, more than the H100's 227 KB of
@@ -38,32 +41,63 @@ import torch
 
 from . import ref
 from .build import Kernel, check
-from .flash_attention import MAX_SMEM, core_smem_bytes, kernel_layout
+from .flash_attention import (MAX_SMEM, WG_D, WG_ROWS, core_smem_bytes, kernel_layout,
+                              wgmma_smem_bytes)
 from .paged_attention import DTYPES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+TC_HEAD_DIMS = (64, 128)  # mma.sync's head dims
+TC_KEYS = 64  # keys a tile on the mma.sync path
+TC_MAX_ROWS = 128  # query rows a block there (8 warps of 16)
+TC_MAX_PAGES = 16384  # table entries a block copies into shared memory
+# the wgmma walk's key tiles, which reach the source as macros (an even count
+# of stages; 64 x 2 read 4-5% slower, tools/d256_wgmma_ablation.py)
+WG_KEYS, WG_STAGES = 32, 4
+WG_BLOCK_ROWS = (WG_ROWS, 2 * WG_ROWS)  # a wgmma block's C x G query rows
+WG_MIN_PAGE = 8  # a page's TMA box: whole 1024-byte swizzle atoms
 KERNEL = Kernel(
     "prefill_attention", "prefill_attention_launch",
     [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, *([ctypes.c_longlong] * 6), _I,
      _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _I],
     replaces="src/repro/kernels/prefill_attention.py:44",
+    defines={"WG_KEYS": WG_KEYS, "WG_STAGES": WG_STAGES},
 )
-TC_HEAD_DIMS = (64, 128)
-TC_KEYS = 64  # keys a tile on the tensor-core path
-TC_MAX_ROWS = 128  # query rows a block there (8 warps of 16)
-TC_MAX_PAGES = 16384  # table entries a block copies into shared memory
+
+
+def mma_fits(page_size: int, max_pages: int) -> bool:
+    """The mma.sync path's shape rule at head dim 64 or 128: pages tile its
+    64-key tiles and a table row fits shared memory.  Any GQA group fits,
+    split over blocks by :func:`head_split`, and the chunk does not
+    matter."""
+    return TC_KEYS % page_size == 0 and max_pages <= TC_MAX_PAGES
+
+
+def wgmma_fits(page_size: int, group: int, chunk: int, max_pages: int) -> bool:
+    """The wgmma path's shape rule at head dim 256 (``wg_takes`` in
+    csrc/prefill_attention.cu): the chunk's C x G query rows one or two
+    64-row tiles, each one head's 64 positions (a 64-row TMA box of q at
+    one head, so C a multiple of 64), pages of a power of two from 8 rows
+    up to a key tile (``WG_KEYS``), and the table row beside the ring in
+    shared memory."""
+    rows = chunk * group
+    return (rows in WG_BLOCK_ROWS and chunk % WG_ROWS == 0
+            and WG_MIN_PAGE <= page_size <= WG_KEYS
+            and page_size & (page_size - 1) == 0 and chunk % page_size == 0
+            and wgmma_smem_bytes(rows // WG_ROWS, WG_KEYS, WG_STAGES, 4 * max_pages) <= MAX_SMEM)
 
 
 def tensor_core_path(dtype: torch.dtype, head_dim: int, page_size: int,
-                     group: int, max_pages: int) -> bool:
-    """Whether a launch takes the tensor-core kernel: bf16 at a head dim it
-    is built for, pages that tile its 64-key tiles, and a table row that
-    fits shared memory.  Any GQA group fits, split over blocks by
-    :func:`head_split`.  Slots, chunk, starts and lengths do not matter."""
-    del group  # a page's rows of any group fit, split over blocks
-    return (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
-            and TC_KEYS % page_size == 0 and max_pages <= TC_MAX_PAGES)
+                     group: int, max_pages: int, chunk: int) -> bool:
+    """Whether a launch of ``chunk`` positions takes a tensor-core kernel:
+    bf16 at D 64 or 128 where :func:`mma_fits` (mma.sync), or at D 256
+    where :func:`wgmma_fits` (wgmma).  Slots, starts and lengths do not
+    matter."""
+    if dtype != torch.bfloat16:
+        return False
+    if head_dim == WG_D:
+        return wgmma_fits(page_size, group, chunk, max_pages)
+    return head_dim in TC_HEAD_DIMS and mma_fits(page_size, max_pages)
 
 
 def head_split(tc: bool, group: int, page_size: int, head_dim: int,
@@ -127,8 +161,8 @@ def prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
         _require(t.dtype == torch.int32, f"{name} must be int32")
     _require(k_pages.is_contiguous() and v_pages.is_contiguous()
              and block_tables.is_contiguous(), "pools and tables must be contiguous")
-    tc = tensor_core_path(q.dtype, d, page_size, group, max_pages)
-    hs = head_split(tc, group, page_size, d)
+    tc = tensor_core_path(q.dtype, d, page_size, group, max_pages, chunk)
+    hs = head_split(tc, group, page_size, d)  # 1 on the wgmma path: C x G <= 128
     qp = packed_queries(q, hkv, hs, tc)
     kn, vn = k_new.contiguous(), v_new.contiguous()
     starts, lens = start_lens.contiguous(), chunk_lens.contiguous()

@@ -46,6 +46,7 @@ KERNEL = Kernel(
     [_I, _I, _I] + [_P] * 13 + [ctypes.c_longlong] * 6 + [_I] * 9 + [ctypes.c_float, _P, _I],
     replaces="src/repro/kernels/prefill_attention.py:157",
     source="prefill_attention",
+    defines=_fp.KERNEL.defines,
 )
 # table entries a block copies into shared memory beside the ring and the
 # staging area (38 KB at int8, D 128, two key groups)
@@ -54,13 +55,14 @@ TC_MAX_PAGES = 8192
 
 def tensor_core_path(dtype: torch.dtype, head_dim: int, page_size: int,
                      group: int, max_pages: int) -> bool:
-    """Whether a launch takes the tensor-core kernel: the fp kernel's rule
-    (bf16, head dim 64 or 128, pages that tile its 64-key tiles; any GQA
-    group, split over blocks by ``head_split``), int8 or int4 alike, with a
-    table row that fits shared memory beside the staging area.  Slots,
-    chunk, starts and lengths do not matter."""
-    return (_fp.tensor_core_path(dtype, head_dim, page_size, group, max_pages)
-            and max_pages <= TC_MAX_PAGES)
+    """Whether a launch takes the tensor-core kernel: the fp kernel's
+    mma.sync rule (bf16, head dim 64 or 128, pages that tile its 64-key
+    tiles; any GQA group, split over blocks by ``head_split``), int8 or
+    int4 alike, with a table row that fits shared memory beside the staging
+    area.  Head dim 256 keeps the CUDA-core body (the quantized twin has no
+    wgmma walk).  Slots, chunk, starts and lengths do not matter."""
+    return (dtype == torch.bfloat16 and head_dim in _fp.TC_HEAD_DIMS
+            and _fp.mma_fits(page_size, max_pages) and max_pages <= TC_MAX_PAGES)
 
 
 def _require(cond: bool, msg: str):

@@ -133,6 +133,106 @@ def test_cuda_prefill_tensor_core_edges(case):
                     assert torch.equal(pool_p[:, pg, of], new[bi, :, c])
 
 
+# (hq, hkv, chunk, page_size) at D 256 on wgmma: gemma-7b's serving shape
+# (16 over 16, a chunk of 64: one 64-row tile, two consumers on alternate
+# key tiles), a group of 2 (128 rows: a head a consumer), a chunk of 128 at
+# pages of 8, and pages of 32 (a page a key tile); then 64 rows over two
+# heads of a 32-position chunk, which the wgmma rule refuses (a query tile
+# is one TMA box at one head) and the CUDA-core body takes
+PREFILL_WG = [(16, 16, 64, 16), (8, 4, 64, 16), (4, 4, 128, 8), (4, 4, 64, 32), (8, 4, 32, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PREFILL_WG, ids=[str(c) for c in PREFILL_WG])
+def test_cuda_prefill_wgmma_d256_edges(case):
+    """On a card: bf16 chunked prefill at D 256 takes the wgmma path (one
+    tensor-core launch each) on the transposed views the prefill layer
+    hands it, with a one-token chunk, an idle (len-0) slot, a partial chunk
+    and a chunk whose pages reach the last table entry, with and without a
+    window: within two bf16 ulps of the plain version, both write the
+    chunk's K/V at every live position, and the idle slot's pages keep their
+    bytes (its dead pages go to the sink page 0).  A chunk below 64
+    positions takes the CUDA-core body, held to the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    hq, hkv, chunk, ps = case
+    dev, d, b, max_len = torch.device("cuda"), 256, 4, 512
+    mp = max_len // ps
+    num_pages = b * mp + 1
+    tables = torch.as_tensor(_tables(np.random.default_rng(11), b, mp, num_pages), device=dev)
+    starts = torch.tensor([0, 32, 256, max_len - chunk], dtype=torch.int32, device=dev)
+    clens = torch.tensor([1, 0, min(37, chunk - 1), chunk], dtype=torch.int32, device=dev)
+    tc = PF.tensor_core_path(torch.bfloat16, d, ps, hq // hkv, mp, chunk)
+    assert tc == (chunk % 64 == 0)
+    g = torch.Generator(device=dev).manual_seed(12)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    kp, vp = rand(hkv, num_pages, ps, d), rand(hkv, num_pages, ps, d)
+    qc = rand(b, chunk, hq, d).transpose(1, 2)  # as attention_prefill_paged hands them
+    kn, vn = rand(b, chunk, hkv, d).transpose(1, 2), rand(b, chunk, hkv, d).transpose(1, 2)
+    tb = tables.cpu().numpy()
+    idle = [int(tb[1, 32 // ps + i]) for i in range(chunk // ps)]  # slot 1's chunk pages
+    for window in (None, 96):
+        p1, p2 = [kp.clone(), vp.clone()], [kp.clone(), vp.clone()]
+        n0, tc0 = PF.KERNEL.launches, PF.KERNEL.tc_launches
+        out = PF.prefill_attention(qc, kn, vn, *p1, tables, starts, clens, window=window)[0]
+        assert (PF.KERNEL.launches, PF.KERNEL.tc_launches) == (n0 + 1, tc0 + int(tc))
+        assert not tc or out.stride() == qc.stride()  # written in the layer's layout
+        plain = ref.paged_prefill_attention(qc, kn, vn, *p2, tables, starts, clens,
+                                            window=window)[0]
+        assert _within_limit(out, plain)
+        for bi, (s0, n) in enumerate(zip(starts.tolist(), clens.tolist())):
+            for c in range(n):
+                pg, of = int(tb[bi, (s0 + c) // ps]), (s0 + c) % ps
+                for pool_k, pool_p, new in zip(p1, p2, (kn, vn)):
+                    assert torch.equal(pool_k[:, pg, of], new[bi, :, c])
+                    assert torch.equal(pool_p[:, pg, of], new[bi, :, c])
+        for pool, orig in zip(p1, (kp, vp)):
+            assert torch.equal(pool[:, idle], orig[:, idle])
+
+
+# (b, hq, hkv, sq, sk, causal) at D 256 on wgmma: gemma-7b's training shape
+# at two batch rows, Sq and Sk off the 128-row and 32-key tiles, non-causal
+# and ragged, Sq > Sk (the first 200 rows see no key), one partial query
+# tile whose second consumer has no row
+FLASH_WG = [(2, 16, 16, 1024, 1024, True), (2, 4, 2, 200, 333, True),
+            (2, 4, 4, 130, 77, False), (2, 4, 2, 300, 100, True), (1, 2, 1, 17, 70, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_WG, ids=[str(c) for c in FLASH_WG])
+def test_cuda_flash_attention_wgmma_d256_edges(case):
+    """On a card: bf16 at (256, 256) takes the wgmma path (one tensor-core
+    launch each) on the strided (B, H, S, D) views of (B, S, H, D) tensors
+    and on contiguous copies, within two bf16 ulps of the plain version; a
+    causal query row with no key to see emits zeros; fp32 at D 256 keeps
+    the CUDA-core body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    b, hq, hkv, sq, sk, causal = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    views = (rand(b, sq, hq, 256).transpose(1, 2), rand(b, sk, hkv, 256).transpose(1, 2),
+             rand(b, sk, hkv, 256).transpose(1, 2))
+    dead = max(0, sq - sk) if causal else 0
+    for q, k, v in (views, [t.contiguous() for t in views]):
+        n0, tc0 = FA.KERNEL.launches, FA.KERNEL.tc_launches
+        got = FA.flash_attention(q, k, v, causal=causal)
+        assert (FA.KERNEL.launches, FA.KERNEL.tc_launches) == (n0 + 1, tc0 + 1)
+        assert got.shape == q.shape and got.stride() == q.stride()
+        want = ref.attention(q, k, v, causal=causal)
+        if dead:
+            assert got[:, :, :dead].abs().max().item() == 0.0
+        assert _within_limit(got[:, :, dead:], want[:, :, dead:])
+    if sq * sk <= 1 << 16:  # the CUDA-core body, slow at the large shapes
+        q, k, v = (t.float() for t in views)
+        tc0 = FA.KERNEL.tc_launches
+        got = FA.flash_attention(q, k, v, causal=causal)
+        assert FA.KERNEL.tc_launches == tc0
+        want = ref.attention(q, k, v, causal=causal)
+        assert _within_limit(got[:, :, dead:], want[:, :, dead:])
+
+
 # the split decode's edges: lengths empty, one key, a 64-key tile's last key
 # and the next, inside the second split, windows past the start, a key short
 # of the table and the whole table (so splits past a short length are empty)
@@ -582,7 +682,7 @@ def test_cuda_flash_attention_matches_plain_version(case):
             n0, tc0 = FA.KERNEL.launches, FA.KERNEL.tc_launches
             got = FA.flash_attention(q, k, v, causal=causal)
             assert FA.KERNEL.launches == n0 + 1 and got.shape == q.shape
-            tc = dtype == torch.bfloat16 and d in FA.TC_HEAD_DIMS
+            tc = FA.tensor_core_path(dtype, d)
             assert FA.KERNEL.tc_launches == tc0 + tc
             want = ref.attention(q, k, v, causal=causal)
             assert _within_limit(got, want)

@@ -245,7 +245,7 @@ def test_prefill_splits_chatglm_rows_over_blocks(monkeypatch):
     full = tconfigs.get_config("chatglm3_6b")
     group = full.num_heads // full.num_kv_heads
     assert (group, full.head_dim) == (16, 128)
-    assert PF.tensor_core_path(torch.bfloat16, 128, 16, group, 64)
+    assert PF.tensor_core_path(torch.bfloat16, 128, 16, group, 64, 64)
     assert PF.head_split(True, group, 16, 128) == 2
     assert PF.core_smem_bytes(256, 16, 128) == 302336 > PF.MAX_SMEM
     assert PF.head_split(False, group, 16, 128) == 2  # 159,488 bytes a block

@@ -286,7 +286,7 @@ def test_chip_smoke_granite_checks_rehearse_on_the_cpu(monkeypatch):
     assert (shape.hq, shape.hkv, shape.d) == (full.num_heads, full.num_kv_heads,
                                               full.head_dim)
     assert PF.tensor_core_path(torch.bfloat16, shape.d, cs.PAGE, shape.hq // shape.hkv,
-                               shape.max_len // cs.PAGE)
+                               shape.max_len // cs.PAGE, cs.CHUNK)
     short = shape._replace(max_len=256)
     for check, mod, fmt, at in ((cs.check_decode, PA, None, short),
                                 (cs.check_prefill, PF, None, shape),

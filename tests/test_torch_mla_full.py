@@ -211,19 +211,20 @@ def test_flash_fn_with_narrow_values_takes_the_plain_route_on_the_cpu(case):
 
 def test_tensor_core_pairs_and_width_rule():
     """bf16 takes the tensor cores at (64, 64), (128, 128) and MLA's (192,
-    128), which deepseek-v2-lite's widths give; any other pair, fp32 and
-    values wider than keys take the CUDA cores; a pair neither path takes
-    (widths off the 16-byte vector, or a block over the shared memory)
-    raises before any CUDA call."""
+    128), which deepseek-v2-lite's widths give, on mma.sync, and at gemma's
+    (256, 256) on wgmma; any other pair, fp32 and values wider than keys
+    take the CUDA cores; a pair neither path takes (widths off the 16-byte
+    vector, or a block over the shared memory) raises before any CUDA
+    call."""
     m = tconfigs.get_config(ARCH).mla
     assert (m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim) == (192, 128)
-    for dk, dv in ((64, 64), (128, 128), (192, 128)):
+    for dk, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
         assert FA.tensor_core_path(torch.bfloat16, dk, dv)
         assert not FA.tensor_core_path(torch.float32, dk, dv)
         FA.check_widths(torch.bfloat16, dk, dv)
         FA.check_widths(torch.float32, dk, dv)
-    assert FA.tensor_core_path(torch.bfloat16, 128) and FA.TC_HEAD_DIMS == (64, 128)
-    for dk, dv in ((128, 192), (192, 192), (256, 256), (96, 96), (192, 64)):
+    assert FA.tensor_core_path(torch.bfloat16, 128) and FA.TC_HEAD_DIMS == (64, 128, 256)
+    for dk, dv in ((128, 192), (192, 192), (256, 128), (96, 96), (192, 64)):
         assert not FA.tensor_core_path(torch.bfloat16, dk, dv)
         FA.check_widths(torch.bfloat16, dk, dv)  # the CUDA cores take it
     for dtype, dk, dv, match in ((torch.bfloat16, 192, 100, "multiples of 8"),

@@ -104,15 +104,15 @@ def test_tensor_core_path_rule_at_qwen_shapes():
     assert (d, group) == (jcfg.head_dim, jcfg.num_heads // jcfg.num_kv_heads) == (128, 6)
     assert FA.tensor_core_path(torch.bfloat16, d)
     assert FA.tensor_core_path(torch.bfloat16, 64)
-    assert PF.tensor_core_path(torch.bfloat16, d, 16, group, 1024 // 16)
-    assert PF.tensor_core_path(torch.bfloat16, 64, 8, 5, PF.TC_MAX_PAGES)
+    assert PF.tensor_core_path(torch.bfloat16, d, 16, group, 1024 // 16, 64)
+    assert PF.tensor_core_path(torch.bfloat16, 64, 8, 5, PF.TC_MAX_PAGES, 64)
     assert not FA.tensor_core_path(torch.float32, d)
     assert not FA.tensor_core_path(torch.bfloat16, 96)
-    assert not PF.tensor_core_path(torch.float32, d, 16, group, 64)
-    assert PF.tensor_core_path(torch.bfloat16, d, 32, group, 32)  # 192 rows: split
+    assert not PF.tensor_core_path(torch.float32, d, 16, group, 64, 64)
+    assert PF.tensor_core_path(torch.bfloat16, d, 32, group, 32, 64)  # 192 rows: split
     assert PF.head_split(True, group, 32, d) == 2
     assert PF.head_split(True, group, 16, d) == 1
-    assert not PF.tensor_core_path(torch.bfloat16, d, 16, group, PF.TC_MAX_PAGES + 1)
+    assert not PF.tensor_core_path(torch.bfloat16, d, 16, group, PF.TC_MAX_PAGES + 1, 64)
 
 
 # ---------------------------------------------------------------------------
