@@ -27,15 +27,19 @@ no phase is skipped):
    and one rounding P once to bf16 must fail it); the split decodes' merge
    without the rescale to the common max must fail it too (fp32 and bf16:
    the GQA decode and its quantized twin, the MLA decode and its quantized
-   twin), and their grids (splits of 64 keys from static shapes) are
-   printed; every bf16 launch of the flash, fp and quantized GQA
-   chunked-prefill and decode kernels, and of the MLA decode, the MLA
-   chunked prefill and their quantized twins, must take their tensor-core
-   path (``KERNEL.tc_launches``); the
+   twin), and their grids (splits of 64 keys from static shapes; the
+   walk's of 128) are printed; every bf16 launch of the flash, fp and
+   quantized GQA chunked-prefill and decode kernels, and of the MLA decode,
+   the MLA chunked prefill and their quantized twins, must take their
+   tensor-core path (``KERNEL.tc_launches``), but the GQA decodes at D 256
+   and at a group of 1, which must take the bulk-copy walk
+   (``KERNEL.walk_launches``; there the merge of the walk's warps without
+   its rescale must fail the limit too); the
    tensor-core prefills' device cost of a key tile is read from two walks
    (the quantized GQA prefill's in int8), the split decodes' split and
    merge kernels' device us a call (the GQA decode in bf16 and its twin in
-   int8; the MLA decode in bf16 and int8) from torch.profiler, and the
+   int8 at qwen2-1.5B's and gemma-7b's shapes; the MLA decode in bf16 and
+   int8) from torch.profiler, and the
    tensor-core chunk_scan's
    cost a head of a block's walk from launches of 80 and 40 heads; time
    kernel, plain version and, as a
@@ -230,15 +234,17 @@ batch and a decode step's drop other tokens, as in the reference);
    seeded random bf16 weights: each serves the workload's first 8 requests
    (fp pages, chunked prefill, prefix cache) at the ticks and mean TTFT
    the scheduler gives them (a one-layer reduced model on the CPU), every
-   decode and prefill launch on the tensor cores at D 128, at gemma's D 256
-   every prefill launch (wgmma) and no decode launch, and holds its
+   prefill launch on the tensor cores (at gemma's D 256 on wgmma), every
+   decode launch on the tensor cores at chatglm's group of 16 and on the
+   bulk-copy walk at gemma's D 256 and deepseek-7b's group of 1
+   (csrc/decode_walk.cuh), and holds its
    teacher-forced logits against the CPU's
    fp32 within phase 4's limits (argmax where the top-2 margin exceeds
    twice the error).  Phase 2 checks and times their kernels at their
    serving shape (chatglm's decode, chunked prefill and its int8 twin;
-   gemma's decode and prefill; deepseek-7b's decode and prefill) and the
-   flash kernel at gemma's D 256 (B 8, 16 heads, S 1024), both D 256
-   kernels on wgmma (csrc/hopper_attention.cuh);
+   gemma's and deepseek-7b's decode, its int8 and int4 twin on the walk,
+   and prefill) and the flash kernel at gemma's D 256 (B 8, 16 heads, S
+   1024), the D 256 flash and prefill on wgmma (csrc/hopper_attention.cuh);
 13. the serving engine's fault tolerance on full-width qwen2-1.5B at 4
    layers (seeded random bf16 weights): 12 requests of a 64-token shared
    prefix plus 8-96 own tokens, 16 new tokens each, over 4 slots of 256
@@ -475,9 +481,11 @@ def kernel_ok(r) -> bool:
     """A check's result within its limit.  In bf16 the limit must also pass
     the fp32-accumulating control and reject the bf16-accumulating one and
     the one that rounds P to bf16; for the split decodes it must reject the
-    merge without the rescale, in either dtype."""
+    merge without the rescale, in either dtype (and the walk's decode the
+    merge of its warps' states without theirs)."""
     limit = BF16_ULPS if "ulps" in r else FP32_ATOL
-    if r.get("merge_no_rescale", float("inf")) <= limit:
+    if min(r.get("merge_no_rescale", float("inf")),
+           r.get("warp_merge_no_rescale", float("inf"))) <= limit:
         return False
     if "ulps" not in r:
         return r["err"] <= FP32_ATOL
@@ -495,10 +503,14 @@ EARLIER_MS = {"paged_attention_quant": 0.2243, "chunk_state": 0.5258}
 # chunk_state at hymba-1.5B's training shape (HYMBA_SSD_CASE) on the
 # 128-row CUDA-core tile, before its 16-row tile: H100 80GB HBM3 at 700 W
 HYMBA_EARLIER_MS = {"chunk_state": 0.4152}
-# The flash forward and the chunked prefill at gemma-7b's D 256 on the
-# CUDA-core bodies, before their wgmma redesign: H100 80GB HBM3 at 700 W,
-# this script's "gemma-7b D 256" flash case and GEMMA_DECODE prefill rows
-GEMMA_EARLIER_MS = {"flash_attention": 10.2694, "prefill_attention": 0.5654}
+# The flash forward, the chunked prefill and the decode at gemma-7b's D 256
+# on the CUDA-core bodies, before their redesigns (wgmma; the decode's
+# bulk-copy walk): H100 80GB HBM3 at 700 W, this script's "gemma-7b D 256"
+# flash case and GEMMA_DECODE prefill and decode rows (the quantized
+# decode's: tools/decode_walk_ablation.py)
+GEMMA_EARLIER_MS = {"flash_attention": 10.2694, "prefill_attention": 0.5654,
+                    "paged_attention": 0.1082, ("paged_attention_quant", "int8"): 0.2032,
+                    ("paged_attention_quant", "int4"): 0.1916}
 
 
 # a GQA decode's serving shape: slots, tokens a slot, query heads, KV heads,
@@ -521,31 +533,77 @@ GRANITE_DECODE = DecodeShape("granite-moe-3b-a800m", SLOTS, MAX_LEN, 24, 8, 64)
 # The dense configs of phase 11, at their serving shape: chatglm3-6b's GQA
 # group of 16 at D 128 (the chunked prefill's page groups of 256 rows, split
 # over two blocks of 8 heads), gemma-7b's MHA at D 256 (the chunked prefill
-# on wgmma, a block the chunk's 64 rows of a kv head; the decode on its
-# CUDA-core body) and deepseek-7b's MHA, 32 over 32 at D 128 (a group of 1).
+# on wgmma, a block the chunk's 64 rows of a kv head; the decode on the
+# bulk-copy walk) and deepseek-7b's MHA, 32 over 32 at D 128 (a group of 1:
+# the decode on the walk too).
 CHATGLM_DECODE = DecodeShape("chatglm3-6b", SLOTS, MAX_LEN, 32, 2, 128)
 GEMMA_DECODE = DecodeShape("gemma-7b", SLOTS, MAX_LEN, 16, 16, 256)
 DEEPSEEK7B_DECODE = DecodeShape("deepseek-7b", SLOTS, MAX_LEN, 32, 32, 128)
+# deepseek-7b's decode and its int8 twin on mma.sync before the walk (H100
+# 80GB HBM3 at 700 W: row 1 this script's DEEPSEEK7B_DECODE row; the twin
+# tools/decode_walk_ablation.py's)
+DEEPSEEK7B_EARLIER_MS = {"paged_attention": 0.0701, ("paged_attention_quant", "int8"): 0.0709}
+EARLIER_BY_SHAPE = {GEMMA_DECODE: GEMMA_EARLIER_MS,
+                    DEEPSEEK7B_DECODE: DEEPSEEK7B_EARLIER_MS}  # else EARLIER_MS
 GQA_TC_HEAD_DIMS = (64, 128)  # the GQA kernels' mma.sync head dims
 PREFILL_WGMMA_HEAD_DIM = 256  # the fp chunked prefill's wgmma head dim (gemma-7b)
+# The GQA decodes' bulk-copy walk (paged_attention.py's walk_path, restated:
+# the script holds the port to it): head dims with any group up to 4, head
+# dims at a group of 1, the least page
+WALK_KERNELS = ("paged_attention", "paged_attention_quant")
+WALK_HEAD_DIMS, WALK_MAX_GROUP, WALK_MIN_PAGE = (256,), 4, 8
+WALK_GROUP1_HEAD_DIMS = (64, 128)
+# The kernels line's row of the walk: the fp decode at gemma-7b's serving
+# shape (phase 2), launched by phase 11's gemma serving run
+WALK_ROW = "paged_attention (bulk-copy walk, gemma-7b)"
+WALK_SOURCE = "src/repro_torch/kernels/csrc/decode_walk.cuh"
+
+
+def gqa_takes_walk(dtype, shape) -> bool:
+    """Where a GQA decode launch (fp or quantized) at ``shape`` must take
+    the bulk-copy walk: bf16 at D 256 with up to WALK_MAX_GROUP query heads
+    a kv head (gemma-7b), or at a group of 1 at a head dim of
+    WALK_GROUP1_HEAD_DIMS, over pages of PAGE."""
+    shape = shape or QWEN_DECODE
+    group = shape.hq // shape.hkv
+    return str(dtype) == "torch.bfloat16" and PAGE >= WALK_MIN_PAGE and (
+        (shape.d in WALK_HEAD_DIMS and group <= WALK_MAX_GROUP)
+        or (shape.d in WALK_GROUP1_HEAD_DIMS and group == 1))
 
 
 def gqa_takes_tensor_cores(dtype, shape, kernel="paged_attention") -> bool:
     """Where a GQA ``kernel`` launch at ``shape`` must run on the tensor
     cores: bf16 at D 64 or 128, any GQA group (the prefill splits a page's
-    rows past 128 over blocks); and the fp chunked prefill at D 256 too, on
-    wgmma (the main path's chunk of CHUNK positions times a group of 1 is
-    one 64-row tile)."""
+    rows past 128 over blocks), but for a decode the walk takes; and the fp
+    chunked prefill at D 256 too, on wgmma (the main path's chunk of CHUNK
+    positions times a group of 1 is one 64-row tile)."""
     d = (shape or QWEN_DECODE).d
+    if kernel in WALK_KERNELS and gqa_takes_walk(dtype, shape):
+        return False
     return str(dtype) == "torch.bfloat16" and (
         d in GQA_TC_HEAD_DIMS or (kernel == "prefill_attention" and d == PREFILL_WGMMA_HEAD_DIM))
 
 
-def decode_grid(torch, PA, dev, shape=QWEN_DECODE):
+def decode_grid(torch, PA, dev, shape=QWEN_DECODE, dtype=None):
     """(splits, keys a split) of the decode kernel at ``shape`` on this
-    device's SM count."""
+    device's SM count: the walk's grid where a ``dtype`` launch takes the
+    walk, else the split bodies'."""
     sms = PA.sm_count(dev.index or 0) if dev.type == "cuda" else H100_SMS
-    return PA.decode_splits(shape.slots, shape.hkv, shape.max_len // PAGE, PAGE, sms)
+    rule = (PA.walk_splits if dtype is not None
+            and PA.walk_path(dtype, shape.d, shape.hq // shape.hkv, PAGE) else PA.decode_splits)
+    return rule(shape.slots, shape.hkv, shape.max_len // PAGE, PAGE, sms)
+
+
+def counts(mod) -> tuple:
+    """A kernel's launch counts: (launches, tc_launches, walk_launches)."""
+    k = mod.KERNEL
+    return k.launches, k.tc_launches, k.walk_launches
+
+
+def restore(mod, saved):
+    """Puts back counts(mod) as they were: launches made to compare a kernel
+    with its plain version do not count."""
+    mod.KERNEL.launches, mod.KERNEL.tc_launches, mod.KERNEL.walk_launches = saved
 
 
 def _tables(torch, rng, dev, shape=QWEN_DECODE):
@@ -561,6 +619,29 @@ def _quantized(torch, ref, pools, fmt):
     return [ref.quantize_rows(p, fmt) for p in pools]
 
 
+def decode_inputs(torch, np, ref, dtype, dev, fmt=None, shape=QWEN_DECODE):
+    """check_decode's seeded inputs at ``shape``: (q, kp, vp, args, kw,
+    tables, lens), ``args`` / ``kw`` the pools and format the kernel takes
+    (for ``fmt`` int8 or int4 the pools quantized from the same random
+    values, and kp / vp their dequantized pages in q's dtype: what the
+    kernel attends), lens numpy int32 (an empty slot, a full one)."""
+    rng = np.random.default_rng(1)
+    tables, num_pages = _tables(torch, rng, dev, shape)
+    lens = rng.integers(1, shape.max_len + 1, size=shape.slots).astype("int32")
+    lens[2] = 0  # an empty slot emits zeros
+    lens[5] = shape.max_len
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((shape.slots, shape.hq, shape.d), generator=g, device=dev).to(dtype)
+    kp, vp = (torch.randn((shape.hkv, num_pages, PAGE, shape.d), generator=g,
+                          device=dev).to(dtype) for _ in range(2))
+    if fmt is None:
+        return q, kp, vp, (kp, vp), {}, tables, lens
+    (kq, ks), (vq, vs) = _quantized(torch, ref, (kp, vp), fmt)
+    kp = ref.dequantize_rows(kq, ks, fmt).to(dtype)
+    vp = ref.dequantize_rows(vq, vs, fmt).to(dtype)
+    return q, kp, vp, (kq, vq, ks, vs), {"fmt": fmt}, tables, lens
+
+
 def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
                  fmt=None, shape=QWEN_DECODE):
     """The decode kernel (``fmt`` None) or its quantized twin (``fmt`` int8
@@ -568,53 +649,48 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     version, at ``shape``."""
     slots, max_len, hq, hkv, d = (shape.slots, shape.max_len, shape.hq, shape.hkv,
                                   shape.d)
-    rng = np.random.default_rng(1)
-    tables, num_pages = _tables(torch, rng, dev, shape)
-    lens = rng.integers(1, max_len + 1, size=slots).astype("int32")
-    lens[2] = 0  # an empty slot emits zeros
-    lens[5] = max_len
-    g = torch.Generator(device=dev).manual_seed(2)
-    q = torch.randn((slots, hq, d), generator=g, device=dev).to(dtype)
-    kp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
-    vp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
+    q, kp, vp, args, kw, tables, lens = decode_inputs(torch, np, ref, dtype, dev, fmt, shape)
     lens_t = torch.as_tensor(lens, device=dev)
     isz = q.element_size()
     if fmt is None:
-        args, kw, row_bytes = (kp, vp), {}, d * isz
+        row_bytes = d * isz
         kernel, plain_fn = mod.paged_attention, ref.paged_attention
     else:
-        (kq, ks), (vq, vs) = _quantized(torch, ref, (kp, vp), fmt)
-        args, kw = (kq, vq, ks, vs), {"fmt": fmt}
         row_bytes = d // ref.KV_PACK[fmt] + isz  # packed row + scale
         kernel, plain_fn = mod.paged_attention_quant, ref.paged_attention_quant
-        # what the kernel attends: the pages dequantized to q's dtype
-        kp = ref.dequantize_rows(kq, ks, fmt).to(dtype)
-        vp = ref.dequantize_rows(vq, vs, fmt).to(dtype)
     run = lambda: kernel(q, *args, tables, lens_t, window=window, **kw)  # noqa: E731
     plain_run = lambda: plain_fn(q, *args, tables, lens_t, window=window, **kw)  # noqa: E731
-    before, tc_before = mod.KERNEL.launches, mod.KERNEL.tc_launches
+    before = counts(mod)
     out, plain = run(), plain_run()
-    tc = mod.KERNEL.tc_launches - tc_before
-    mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before  # comparisons do not count
+    tc, walk = (n - b for n, b in zip(counts(mod)[1:], before[1:]))
+    restore(mod, before)  # comparisons do not count
     err = (out.float() - plain.float()).abs().max().item()
     assert torch.isfinite(out).all() and out[2].abs().max().item() == 0.0
-    res = {"err": err, "tc_launches": tc}
+    res = {"err": err, "tc_launches": tc, "walk_launches": walk}
     # the split grid, and the merge's control: the split kernel's arithmetic
     # in plain PyTorch (over the dequantized pages for the quantized twin)
     # with the partial states summed as they stand, not rescaled to their
     # common max, must fail the limit (where there is more than one split:
-    # one split's state needs no rescale)
+    # one split's state needs no rescale); on the walk, its rehearsal with
+    # the splits' and, apart, the warps' states summed so
     from repro_torch.kernels import paged_attention as PA
 
-    splits, split_keys = decode_grid(torch, PA, dev, shape)
+    splits, split_keys = decode_grid(torch, PA, dev, shape, dtype)
     res["splits"] = f"{splits} splits of {split_keys} keys, {hkv * slots * splits} blocks"
+
+    def ulps_or_err(faulty):
+        return (bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
+                else (faulty.float() - plain.float()).abs().max().item())
+
+    if walk:
+        res["warp_merge_no_rescale"] = ulps_or_err(PA.walk_decode(
+            q, kp, vp, tables, lens_t, splits, split_keys, window=window, warp_rescale=False))
     if splits > 1:
-        faulty = PA.split_decode(q, kp, vp, tables, lens_t, splits, split_keys,
-                                 window=window, pair=dtype == torch.bfloat16,
-                                 rescale=False)
-        res["merge_no_rescale"] = (
-            bf16_ulps(torch, faulty, plain) if dtype == torch.bfloat16
-            else (faulty.float() - plain.float()).abs().max().item())
+        res["merge_no_rescale"] = ulps_or_err(
+            PA.walk_decode(q, kp, vp, tables, lens_t, splits, split_keys, window=window,
+                           split_rescale=False) if walk else
+            PA.split_decode(q, kp, vp, tables, lens_t, splits, split_keys, window=window,
+                            pair=dtype == torch.bfloat16, rescale=False))
     # the slot's pages gathered for one dense call: SDPA and the controls
     kg = kp[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
     vg = vp[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
@@ -633,7 +709,7 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     if timed:
         res["ms"] = time_ms(torch, run, flush=flush)
         res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
-        mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
+        restore(mod, before)
         # yardstick: one SDPA call over the gathered pages (gather untimed);
         # no single PyTorch call dequantizes paged KV, so for the quantized
         # kernels it is labelled apart and library_ms stays null
@@ -1245,29 +1321,27 @@ def split_cost(torch, run, split_key, flush, calls=20):
             for part, key in (("split", split_key), ("merge", "merge_kernel"))}
 
 
-def decode_cost(torch, np, ref, PA, PAQ, flush, dev, calls=20):
+def decode_cost(torch, np, ref, PA, PAQ, flush, dev, calls=20, shape=QWEN_DECODE):
     """Where a bf16 decode launch's device time goes at check_decode's
-    inputs (window None): split_cost's reading for the decode and for its
-    int8 twin on the same values quantized, {"fp": ..., "int8": ...}."""
-    rng = np.random.default_rng(1)
-    tables, num_pages = _tables(torch, rng, dev)
-    lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
-    lens[2], lens[5] = 0, MAX_LEN
-    g = torch.Generator(device=dev).manual_seed(2)
-    q = torch.randn((SLOTS, HQ, HEAD_DIM), generator=g, device=dev).bfloat16()
-    kp, vp = (torch.randn((HKV, num_pages, PAGE, HEAD_DIM), generator=g, device=dev).bfloat16()
-              for _ in range(2))
+    inputs at ``shape`` (window None): split_cost's reading for the decode
+    and for its int8 twin on the same values quantized, {"fp": ...,
+    "int8": ...}, the split kernel's name the route's (the walk's at
+    gemma-7b's D 256)."""
+    walk = gqa_takes_walk(torch.bfloat16, shape)
+    key = "decode_walk_kernel" if walk else "paged_attention_kernel"
+    q, kp, vp, _, _, tables, lens = decode_inputs(torch, np, ref, torch.bfloat16, dev,
+                                                  shape=shape)
     lens_t = torch.as_tensor(lens, device=dev)
     (kq, ks), (vq, vs) = _quantized(torch, ref, (kp, vp), "int8")
-    before = [(m.KERNEL.launches, m.KERNEL.tc_launches) for m in (PA, PAQ)]
+    before = [counts(m) for m in (PA, PAQ)]
     cost = {"fp": split_cost(torch, lambda: PA.paged_attention(q, kp, vp, tables, lens_t),
-                             "paged_attention_kernel", flush, calls),
+                             key, flush, calls),
             "int8": split_cost(torch, lambda: PAQ.paged_attention_quant(
-                q, kq, vq, ks, vs, tables, lens_t, fmt="int8"),
-                "paged_attention_kernel", flush, calls)}
-    assert PA.KERNEL.tc_launches > before[0][1] and PAQ.KERNEL.tc_launches > before[1][1]
+                q, kq, vq, ks, vs, tables, lens_t, fmt="int8"), key, flush, calls)}
+    on_route = 2 if walk else 1  # counts' index: the walk's launches or mma.sync's
+    assert all(counts(m)[on_route] > b[on_route] for m, b in zip((PA, PAQ), before))
     for m, b in zip((PA, PAQ), before):
-        m.KERNEL.launches, m.KERNEL.tc_launches = b
+        restore(m, b)
     return cost
 
 
@@ -1534,7 +1608,7 @@ def serve(torch, np, cfg, params, kernels, device, max_new=32, requests=16,
     prompts = workload(np.random.default_rng(0), cfg.vocab_size)[:requests]
     reqs = [engine.submit(p) for p in prompts]
     for k in kernels.values():
-        k.launches = k.tc_launches = 0
+        k.launches = k.tc_launches = k.walk_launches = 0
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2318,7 +2392,7 @@ def train_steps(torch, cfg, device, steps, batch, seq, profile_steps=0, extra=No
         return loss, gnorm, time.perf_counter() - t0
 
     for k in KERNELS.values():
-        k.launches = k.tc_launches = 0
+        k.launches = k.tc_launches = k.walk_launches = 0
     res = {"losses": [], "gnorms": [], "seconds": []}
     for i in range(steps):
         loss, gnorm, dt = step(i)
@@ -3064,6 +3138,8 @@ def kernel_phase(torch, np, ref, flush, device):
                                    ("prefill_attention", check_prefill, PF))),
              ("prefill_attention_quant", check_prefill, PFQ, ("int8",), (None,),
               CHATGLM_DECODE),
+             *(("paged_attention_quant", check_decode, PAQ, quant, (None,), shape)
+               for shape in (GEMMA_DECODE, DEEPSEEK7B_DECODE)),
              ("mla_paged", check_mla_decode, MP, (None,), (None, 256), None),
              ("mla_prefill", check_mla_prefill, MF, (None,), (None, 96), None),
              ("mla_paged_quant", check_mla_decode, MPQ, quant, (None, 256), None),
@@ -3079,25 +3155,34 @@ def kernel_phase(torch, np, ref, flush, device):
                     timed = dtype == torch.bfloat16 and (window is None or shape is not None)
                     r = check(torch, np, ref, mod, dtype, window, flush, timed,
                               device, fmt=fmt, **kw)
-                    earlier = GEMMA_EARLIER_MS if shape is GEMMA_DECODE else EARLIER_MS
+                    earlier = EARLIER_BY_SHAPE.get(shape, EARLIER_MS)
+                    body = (" (walk)" if r.get("walk_launches") else
+                            " (tensor cores)" if r.get("tc_launches") else " (CUDA cores)")
                     log(f"[kernel] {name}{'' if fmt is None else ' ' + fmt} "
-                        f"{str(dtype)[6:]} window={window}{at}"
-                        f"{' (tensor cores)' if r.get('tc_launches') else ' (CUDA cores)'}: "
+                        f"{str(dtype)[6:]} window={window}{at}{body}: "
                         f"max abs err {r['err']:.3e}, "
                         f"{attention_limit_text(name, fmt, r, timed, earlier)}")
                     if not kernel_ok(r):
                         raise AssertionError(f"{name} {fmt}{at} disagrees with its plain "
                                              "version")
                     # bf16 on the tensor-core path (the GQA kernels at D 64 or
-                    # 128, the fp prefill at D 256 too), fp32 off it
+                    # 128, the fp prefill at D 256 too) or the GQA decodes'
+                    # walk where it takes them, fp32 off both
                     want_tc = (dtype == torch.bfloat16 if name.startswith("mla")
                                else gqa_takes_tensor_cores(dtype, shape, name))
+                    want_walk = name in WALK_KERNELS and gqa_takes_walk(dtype, shape)
                     if (name in TC_KERNELS + MLA_TC_KERNELS + QUANT_TC_KERNELS
                             and r["tc_launches"] != int(want_tc)):
                         raise AssertionError(f"{name} {str(dtype)[6:]}{at}: "
                                              f"{r['tc_launches']} tensor-core launches")
+                    if r.get("walk_launches", 0) != int(want_walk):
+                        raise AssertionError(f"{name} {str(dtype)[6:]}{at}: "
+                                             f"{r.get('walk_launches')} walk launches")
                     if timed and fmt in (None, "int8") and shape is None:
                         table[name] = r
+                    if (timed and fmt is None and shape is GEMMA_DECODE
+                            and name == "paged_attention"):
+                        table[WALK_ROW] = r
     for case in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             timed = dtype == torch.bfloat16 and case[0] in FLASH_TIMED
@@ -3147,11 +3232,15 @@ def kernel_phase(torch, np, ref, flush, device):
         f"launch): prefill_attention_quant int8 {per:.2f}; {rest:.2f} (slots {SLOTS}, chunk "
         f"{CHUNK}, starts 0 and {MAX_LEN - CHUNK}: {HKV * (CHUNK // PAGE) * SLOTS} blocks of 2 "
         "key groups, packed tiles staged and dequantized)")
-    cost = decode_cost(torch, np, ref, PA, PAQ, flush, device)
-    log(f"[kernel] decode cost (device us a call, torch.profiler, {SLOTS * HKV} (slot, kv "
-        f"head) pairs x {decode_grid(torch, PA, device)[0]} splits): split kernel "
-        f"{cost['fp']['split']:.2f}, merge kernel {cost['fp']['merge']:.2f}; int8 twin "
-        f"split kernel {cost['int8']['split']:.2f}, merge kernel {cost['int8']['merge']:.2f}")
+    for shape in (QWEN_DECODE, GEMMA_DECODE):
+        cost = decode_cost(torch, np, ref, PA, PAQ, flush, device, shape=shape)
+        body = "walk" if gqa_takes_walk(torch.bfloat16, shape) else "split"
+        log(f"[kernel] decode cost at {shape.model}'s shape (device us a call, torch.profiler, "
+            f"{shape.slots * shape.hkv} (slot, kv head) pairs x "
+            f"{decode_grid(torch, PA, device, shape, torch.bfloat16)[0]} splits): {body} "
+            f"kernel {cost['fp']['split']:.2f}, merge kernel {cost['fp']['merge']:.2f}; int8 "
+            f"twin {body} kernel {cost['int8']['split']:.2f}, merge kernel "
+            f"{cost['int8']['merge']:.2f}")
     cost = mla_decode_cost(torch, np, ref, MP, MPQ, flush, device)
     log(f"[kernel] MLA decode cost (device us a call, torch.profiler, {SLOTS} slots x "
         f"{mla_decode_grid(torch, MP, device)[0]} splits of {MLA_HEADS} heads): bf16 split "
@@ -3185,6 +3274,9 @@ def attention_limit_text(name, fmt, r, timed, earlier=EARLIER_MS) -> str:
                   f"{r['merge_no_rescale']:.3g}")
     elif "splits" in r:
         limit += f"; {r['splits']} (no merge to control)"
+    if "warp_merge_no_rescale" in r:
+        limit += f"; control: the warps' merge without the rescale {r['warp_merge_no_rescale']:.3g}"
+    before = earlier.get((name, fmt), earlier.get(name))
     if timed:
         if "sdpa_gathered_ms" in r:
             lib = (f"sdpa over pages gathered{'' if fmt is None else ' and dequantized'} "
@@ -3197,8 +3289,7 @@ def attention_limit_text(name, fmt, r, timed, earlier=EARLIER_MS) -> str:
                    f"{r['sdpa_dequantized_ms']:.4f} ms")
         limit += (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-                  + (f", before the redesign {earlier[name]} ms"
-                     if name in earlier else ""))
+                  + (f", before the redesign {before} ms" if before else ""))
     return limit
 
 
@@ -3350,7 +3441,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     vlm_phase(torch, np, lm, device)
     torch.cuda.empty_cache()
-    dense_phase(torch, np, lm, device)
+    main_launches[WALK_ROW] = dense_phase(torch, np, lm, device)["gemma-7b"][WALK_ROW]
     torch.cuda.empty_cache()
     fault_phase(torch, np, lm, device)
     torch.cuda.empty_cache()
@@ -3361,11 +3452,12 @@ def main(argv=None) -> int:
 
     # ---- result lines --------------------------------------------------
     rows = []
-    for name, k in KERNELS.items():
+    for name, k in [*KERNELS.items(), (WALK_ROW, KERNELS["paged_attention"])]:
         r = table[name]  # the quantized kernels: their int8 timing
         rows.append({
             "name": name, "route": "cuda",
-            "source": str(k.source.relative_to(ROOT)), "replaces": k.replaces,
+            "source": (WALK_SOURCE if name == WALK_ROW else str(k.source.relative_to(ROOT))),
+            "replaces": k.replaces,
             "launches": main_launches[name], "max_abs_err": r.get("max_abs_err", r["err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3840,7 +3932,7 @@ def hybrid_window_check(torch, np, lm, cfg4, dev, seq=HYBRID_WINDOW_TOKENS,
     steps = sorted(t for r in read for t in r)
     got = {label: {} for label in runs}
     for k in KERNELS.values():
-        k.launches = k.tc_launches = 0
+        k.launches = k.tc_launches = k.walk_launches = 0
     with torch.no_grad():
         for t in range(seq):
             tok = torch.tensor([int(toks[t]), 0], dtype=torch.int32, device=dev)
@@ -4052,7 +4144,7 @@ def whisper_checks(torch, np, encdec, cfg, dev, frames=WHISPER_FRAMES,
         0, cfg.vocab_size, size=(1, tokens)), dtype=torch.int32, device=dev)
     cpu = torch.device("cpu")
     with torch.no_grad():
-        KERNEL.launches = KERNEL.tc_launches = 0
+        KERNEL.launches = KERNEL.tc_launches = KERNEL.walk_launches = 0
         enc = encdec.encode(params, cfg, x)
         card = encdec.decode_full(params, cfg, toks, enc)[0].float().cpu()
         launches = (KERNEL.launches, KERNEL.tc_launches)
@@ -4135,7 +4227,7 @@ def vlm_forward_check(torch, np, lm, cfg, dev, prefix=VLM_PREFIX, text=VLM_CHECK
         0, cfg.vocab_size, size=(1, text)), dtype=torch.int32, device=dev)
     cpu = torch.device("cpu")
     with torch.no_grad():
-        KERNEL.launches = KERNEL.tc_launches = 0
+        KERNEL.launches = KERNEL.tc_launches = KERNEL.walk_launches = 0
         card, _ = lm.forward(params, cfg, toks, prefix_embeds=pre)
         launches = (KERNEL.launches, KERNEL.tc_launches)
         card = card[0, prefix:].float().cpu()
@@ -4249,8 +4341,9 @@ def dense_phase(torch, np, lm, device, configs=None, requests=DENSE_REQUESTS):
     first ``requests`` requests (fp pages, chunked prefill, prefix cache,
     greedy), with ticks and mean TTFT the scheduler's
     (scheduler_reference), every decode and prefill launch on the tensor
-    cores at D 128, and at gemma's D 256 every prefill launch (wgmma) and no
-    decode launch (its CUDA-core body); then its teacher-forced logits
+    cores at D 128 (the decode on the walk where gqa_takes_walk says so),
+    and at gemma's D 256 every prefill launch (wgmma) and every decode launch
+    on the bulk-copy walk; then its teacher-forced logits
     against the CPU's fp32 within phase 4's limits (dense_tf_ok).  Returns
     each config's kernel launches."""
     from repro_torch.configs import get_config
@@ -4281,8 +4374,14 @@ def dense_phase(torch, np, lm, device, configs=None, requests=DENSE_REQUESTS):
         assert not any(on_tc[k] for k in FP_KERNELS if k not in tc), on_tc
         assert eng.steps_run == ticks and mean_ttft(reqs) == ttft, (eng.steps_run, ticks)
         launches[cfg.name] = runs["fp, default pool"][3]
+        # the decode's launches all on the walk where it takes them, else none
+        on_walk = {k: KERNELS[k].walk_launches for k in FP_KERNELS}
+        walks = gqa_takes_walk(getattr(torch, cfg.dtype), shape)
+        assert on_walk == {k: launches[cfg.name][k] if walks and k in WALK_KERNELS else 0
+                           for k in FP_KERNELS}, (on_walk, launches[cfg.name])
         log(f"[launches] {cfg.name} serving: {json.dumps(launches[cfg.name])}, on tensor "
-            f"cores {json.dumps(on_tc)}")
+            f"cores {json.dumps(on_tc)}, on the walk {json.dumps(on_walk)}")
+        launches[cfg.name][WALK_ROW] = on_walk["paged_attention"]
         del params, runs, eng
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -4637,7 +4736,7 @@ def mla_forward_check(torch, np, lm, cfg2, dev, seq=MLA_CHECK_TOKENS):
         0, cfg2.vocab_size, size=(1, seq)), dtype=torch.int32, device=dev)
     cpu = torch.device("cpu")
     with torch.no_grad():
-        KERNEL.launches = KERNEL.tc_launches = 0
+        KERNEL.launches = KERNEL.tc_launches = KERNEL.walk_launches = 0
         with recorded_routing(layers) as picks:
             card, _ = lm.forward(params, cfg2, toks)
         launches = (KERNEL.launches, KERNEL.tc_launches)

@@ -51,7 +51,8 @@ class Kernel:
     launches the kernel, and nowhere else; a caller resets it to 0 before a
     run and reads it after to show the run went through the kernel.  A
     kernel with a tensor-core path beside its CUDA-core one also counts the
-    launches that took it in ``tc_launches``.
+    launches that took it in ``tc_launches``; the GQA decodes count the
+    launches that took their bulk-copy walk in ``walk_launches``.
 
     ``defines`` (optional) are macros the source is compiled with, each
     ``-DNAME=value``: constants its wrapper's shape rule reads too, so they
@@ -67,6 +68,7 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self.tc_launches = 0
+        self.walk_launches = 0
         self._stem = source or name
         self.defines = dict(defines or {})
         self._fn = None

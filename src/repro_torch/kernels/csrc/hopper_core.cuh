@@ -1,10 +1,11 @@
 // Hopper's asynchronous machinery, for the kernel library's GEMM
-// (matmul.cu), FlashMLA (mla.cu) and the head-width-256 attention walk
-// (hopper_attention.cuh): TMA descriptors and 2-D / 3-D / 4-D tile loads,
-// mbarriers, named barriers, the warpgroup product wgmma.mma_async (fp32
-// accumulation: m64n256k16 with A from shared memory or registers and B
-// MN-major; m64nNk16, N 32, 48 or 64, with A and B both K-major) and
-// setmaxnreg.  sm_90a only.
+// (matmul.cu), FlashMLA (mla.cu), the head-width-256 attention walk
+// (hopper_attention.cuh) and the paged decode's bulk-copy walk
+// (decode_walk.cuh): TMA descriptors and 2-D / 3-D / 4-D tile loads, 1-D
+// bulk copies, mbarriers, named barriers, the warpgroup product
+// wgmma.mma_async (fp32 accumulation: m64n256k16 with A from shared memory
+// or registers and B MN-major; m64nNk16, N 32, 48 or 64, with A and B both
+// K-major) and setmaxnreg.  sm_90a only.
 //
 // * TMA.  cuTensorMapEncodeTiled is a driver function and the libraries
 //   link only the CUDA runtime (build.py's NVCC_FLAGS have no -lcuda), so
@@ -212,6 +213,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// A 1-D bulk copy: `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) from device memory at src into shared memory
+// at dst, counted on `bar`.  No tensor map: one thread moves a whole page.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -55,11 +55,28 @@
 //     body over the split's pages (16-byte vector loads one page ahead of
 //     the compute), on the same split grid and the same merge.
 //
-// What still holds it back (H100 80GB HBM3 at 700 W, qwen's shape: 16.6 us
-// a call): two launches a decode step, the split kernel 7.7 us and the
-// merge 3.7 us of device time (chip_smoke.py's decode-cost reading); one
-// warp of four does the arithmetic of a split; the table entry a key row
-// reads is a dependent device-memory load ahead of its copy.
+// What still holds the split bodies back (H100 80GB HBM3 at 700 W, qwen's
+// shape: 16.6 us a call): two launches a decode step, the split kernel 7.7
+// us and the merge 3.7 us of device time (chip_smoke.py's decode-cost
+// reading); one warp of four does the arithmetic of a split; the table
+// entry a key row reads is a dependent device-memory load ahead of its
+// copy.
+//
+// The bulk-copy walk (route 2, decode_walk.cuh): bf16 at D 256 with up to 4
+// query heads a kv head (gemma-7b's MHA) and at a group of 1 at D 64 / 128
+// (deepseek-7b's), pages of 8 to 32.  At these shapes the CUDA-core body
+// streamed ~4.7 GB/s a block (0.108 ms at gemma's serving shape against
+// SDPA's 0.071 and a 0.019 bound): one page in flight, fetched into
+// registers, converted in shared memory behind three barriers; mma.sync kept
+// 1 row of its 16 live (0.070 ms at deepseek-7b's).  The walk keeps
+// WALK_STAGES pages of K and V in flight a block by cp.async.bulk (one
+// producer thread, mbarriers), every consumer warp scores a share of each
+// page in fp32 registers, and its grid splits a slot's keys finer
+// (walk_splits: 128 keys a split at gemma's shape, 1024 blocks), so that a
+// long slot streams through many SMs: 0.044 ms at gemma's shape, 0.046 at
+// deepseek-7b's (H100 80GB HBM3 at 700 W).  The quantized twin copies the
+// packed pages and their scale columns the same way and dequantizes in
+// registers.  Both still end in the merge launch.
 //
 // The quantized twin takes the same grid, merge and paths.  Its bf16
 // launches at D 64 or 128 run the same WarpAttention walk with a staged
@@ -76,6 +93,7 @@
 
 #include "attention_core.cuh"
 #include "attention_mma.cuh"
+#include "decode_walk.cuh"
 #include "kv_dequant.cuh"
 #include "split_merge.cuh"
 
@@ -410,16 +428,19 @@ int merged(int rc, int dtype, const Partials& part, int slots, int d, void* out,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
-// tc 1 takes the tensor-core body (bfloat16, head_dim 64 or 128, at most 64
-// query heads a kv head).  The grid is (kv_heads, slots, splits), split s
-// covering keys [s * split_keys, (s + 1) * split_keys): split_keys a
-// multiple of 64 and splits * split_keys >= max_pages * page_size.
-// o_part (slots, heads, splits, head_dim) and ml_part (2, slots, heads,
-// splits) are fp32 scratch: the partial states, then merged into out.
-// Needs page_size a power of two <= 32 and head_dim a multiple of 8, with
-// 16-byte aligned pools.  Returns the first cudaGetLastError() after the
-// two launches (0 = launched), or cudaErrorInvalidValue for shapes it does
-// not take.
+// tc is the route: 0 the CUDA-core body; 1 the tensor-core body (bfloat16,
+// head_dim 64 or 128, at most 64 query heads a kv head); 2 the bulk-copy
+// walk (bfloat16, head_dim 256 with at most 4 query heads a kv head or
+// head_dim 64 / 128 at one, pages of 8 to 32).  The grid is (kv_heads,
+// slots, splits), split s covering keys [s * split_keys, (s + 1) *
+// split_keys) and splits * split_keys >= max_pages * page_size: routes 0
+// and 1 take split_keys a multiple of 64, the walk whole pages, at most
+// WALK_SPLIT_KEYS.  o_part (slots, heads, splits, head_dim) and ml_part (2,
+// slots, heads, splits) are fp32 scratch: the partial states, then merged
+// into out.  Needs page_size a power of two <= 32 and head_dim a multiple
+// of 8, with 16-byte aligned pools.  Returns the first cudaGetLastError()
+// after the two launches (0 = launched), or cudaErrorInvalidValue for
+// shapes it does not take.
 extern "C" int paged_attention_launch(int dtype, int tc, const void* q, void* k_pages,
                                       void* v_pages, const void* tables, const void* lens,
                                       void* out, void* o_part, void* ml_part, int slots,
@@ -427,11 +448,19 @@ extern "C" int paged_attention_launch(int dtype, int tc, const void* q, void* k_
                                       int num_pages, int window, int splits, int split_keys,
                                       float sm_scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!grid_ok(slots, splits, split_keys, ps, max_pages)) return (int)cudaErrorInvalidValue;
   const Partials part = partials(o_part, ml_part, slots, heads, splits);
+  if (tc == 2) {
+    const dw::Pools pools{(const uint8_t*)k_pages, (const uint8_t*)v_pages, nullptr, nullptr};
+    const int rc = dtype == 1 ? dw::launch<0>(d, heads / kv_heads, q, pools, tables, lens, part,
+                                              slots, kv_heads, ps, max_pages, num_pages, window,
+                                              splits, split_keys, sm_scale, st)
+                              : (int)cudaErrorInvalidValue;
+    return merged(rc, dtype, part, slots, d, out, st);
+  }
+  if (!grid_ok(slots, splits, split_keys, ps, max_pages)) return (int)cudaErrorInvalidValue;
   using B = __nv_bfloat16;
   int rc = (int)cudaErrorInvalidValue;
-  if (tc && dtype == 1)
+  if (tc == 1 && dtype == 1)
     rc = launch_tc_any(d, q, ac::FpKV<B>{(B*)k_pages, (B*)v_pages}, tables, lens, part, slots,
                        kv_heads, ps, max_pages, num_pages, window, split_keys, sm_scale, st);
   else if (!tc && dtype == 0)
@@ -445,17 +474,30 @@ extern "C" int paged_attention_launch(int dtype, int tc, const void* q, void* k_
 }
 
 // The quantized twin: pack 1 = int8, 2 = int4; the scale pools are of q's
-// dtype; tc, the grid and the scratch as above (the tensor-core body takes
-// the same shapes, with bfloat16 scales).  Needs head_dim / pack a multiple
-// of 16 bytes, with 16-byte aligned packed pools.
+// dtype; tc, the grid and the scratch as above (the tensor-core body and the
+// walk take the same shapes, with bfloat16 scales; the walk also 16-byte
+// aligned scale pools).  Needs head_dim / pack a multiple of 16 bytes, with
+// 16-byte aligned packed pools.
 extern "C" int paged_attention_quant_launch(
     int dtype, int tc, int pack, const void* q, void* k_pages, void* v_pages, void* k_scales,
     void* v_scales, const void* tables, const void* lens, void* out, void* o_part,
     void* ml_part, int slots, int heads, int kv_heads, int d, int ps, int max_pages,
     int num_pages, int window, int splits, int split_keys, float sm_scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!grid_ok(slots, splits, split_keys, ps, max_pages)) return (int)cudaErrorInvalidValue;
   const Partials part = partials(o_part, ml_part, slots, heads, splits);
+  if (tc == 2) {
+    const dw::Pools pools{(const uint8_t*)k_pages, (const uint8_t*)v_pages,
+                          (const __nv_bfloat16*)k_scales, (const __nv_bfloat16*)v_scales};
+    int rc = (int)cudaErrorInvalidValue;
+    if (dtype == 1 && pack == 1)
+      rc = dw::launch<1>(d, heads / kv_heads, q, pools, tables, lens, part, slots, kv_heads, ps,
+                         max_pages, num_pages, window, splits, split_keys, sm_scale, st);
+    else if (dtype == 1 && pack == 2)
+      rc = dw::launch<2>(d, heads / kv_heads, q, pools, tables, lens, part, slots, kv_heads, ps,
+                         max_pages, num_pages, window, splits, split_keys, sm_scale, st);
+    return merged(rc, dtype, part, slots, d, out, st);
+  }
+  if (!grid_ok(slots, splits, split_keys, ps, max_pages)) return (int)cudaErrorInvalidValue;
   int rc = (int)cudaErrorInvalidValue;
 #define PA_QUANT_TC(P)                                                                         \
   rc = launch_tc_any(d, q, quant_pools<__nv_bfloat16, P>(k_pages, v_pages, k_scales, v_scales), \
@@ -465,8 +507,8 @@ extern "C" int paged_attention_quant_launch(
   rc = launch(q, quant_pools<T, P>(k_pages, v_pages, k_scales, v_scales), tables, lens, part, \
               slots, heads, kv_heads, d, ps, max_pages, num_pages, window, split_keys / ps,  \
               sm_scale, st)
-  if (tc && dtype == 1 && pack == 1) PA_QUANT_TC(1);
-  else if (tc && dtype == 1 && pack == 2) PA_QUANT_TC(2);
+  if (tc == 1 && dtype == 1 && pack == 1) PA_QUANT_TC(1);
+  else if (tc == 1 && dtype == 1 && pack == 2) PA_QUANT_TC(2);
   else if (!tc && dtype == 0 && pack == 1) PA_QUANT(float, 1);
   else if (!tc && dtype == 0 && pack == 2) PA_QUANT(float, 2);
   else if (!tc && dtype == 1 && pack == 1) PA_QUANT(__nv_bfloat16, 1);

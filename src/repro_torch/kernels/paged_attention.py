@@ -9,12 +9,24 @@ CUDA tensor it launches the kernel or raises.
 
 The kernel splits each slot's keys across blocks (split-KV) and merges the
 partial softmax states in a second pass.  The split count comes from static
-shapes and the card's SM count alone (:func:`decode_splits`), never from
-``seq_lens``: the wrapper reads no length on the host, so a decode step
-makes no host sync and keeps one grid whatever the lengths.  bf16 at head
-dim 64 or 128 scores on the tensor cores (:func:`tensor_core_path`,
-``KERNEL.tc_launches``); the rest on CUDA cores, over the same split grid.
-:func:`split_decode` rehearses the kernel's arithmetic in plain PyTorch.
+shapes and the card's SM count alone, never from ``seq_lens``: the wrapper
+reads no length on the host, so a decode step makes no host sync and keeps
+one grid whatever the lengths.  A launch takes one of three bodies
+(:func:`route`, the C entry point's ``tc`` argument):
+
+* 2, the bulk-copy walk (:func:`walk_path`, ``KERNEL.walk_launches``): bf16
+  at head dim 256 with up to ``WALK_MAX_GROUP`` query heads a kv head
+  (gemma-7b's MHA), over pages of at least ``WALK_MIN_PAGE`` positions.  A
+  producer warp copies whole pages of K and V into a ring of shared memory
+  by ``cp.async.bulk`` and every consumer warp scores its share of each
+  page on the CUDA cores, on :func:`walk_splits`' finer grid;
+* 1, mma.sync (:func:`tensor_core_path`, ``KERNEL.tc_launches``): bf16 at
+  head dim 64 or 128, on :func:`decode_splits`' grid;
+* 0, the CUDA-core body: fp32 and every other shape, on the same grid.
+
+:func:`split_decode` rehearses the split kernels' arithmetic in plain
+PyTorch, :func:`walk_decode` the walk's (its warps' key shares and their
+merge).
 """
 from __future__ import annotations
 
@@ -30,18 +42,37 @@ from .build import Kernel, check
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_KEYS = 64  # keys a tile; a split holds whole tiles
+TC_HEAD_DIMS = (64, 128)
+TC_MAX_GROUP = 64  # query heads a kv head on the tensor cores: 4 warps of 16 rows
+# The bulk-copy walk (csrc/decode_walk.cuh): its tile constants, passed to
+# the source as -D macros (KERNEL.defines), and the shapes it takes
+WALK_STAGES = 4  # pages of K and V in flight a block
+WALK_SPLIT_KEYS = 128  # keys a split at most (walk_splits halves it for small grids)
+WALK_WARPS = 4  # consumer warps a block, beside the producer warp
+WALK_ROUND = 8  # keys the consumer warps score together: WALK_ROUND / WALK_WARPS each
+WALK_HEAD_DIMS = (256,)  # any group up to WALK_MAX_GROUP
+# a group of 1 only (deepseek-7b's MHA): tools/decode_walk_ablation.py read
+# the walk 0.045 ms against mma.sync's 0.070 at its shape, and 0.033 against
+# 0.044 at its heads of 64 (H100 80GB HBM3 at 700 W; PERF.md)
+WALK_GROUP1_HEAD_DIMS = (64, 128)
+WALK_MAX_GROUP = 4  # query rows a warp keeps in registers: q and O, D / 32 each a lane
+WALK_MIN_PAGE = 8  # a page's scale column is one 16-byte bulk copy of bf16 at 8 rows
+WALK_WAVE_BLOCKS = 2  # walk_splits halves its splits until the grid holds this many blocks an SM
+MAX_SMEM = 232448  # the most shared memory a block may take (H100)
+NEG_CLAMP = -2.0 ** 20  # the kernels' floor of the running max (attention_core.cuh)
+LOG2E = math.log2(math.e)
+WALK_DEFINES = {"WALK_STAGES": WALK_STAGES, "WALK_SPLIT_KEYS": WALK_SPLIT_KEYS,
+                "WALK_WARPS": WALK_WARPS, "WALK_ROUND": WALK_ROUND}
 KERNEL = Kernel(
     "paged_attention", "paged_attention_launch",
     [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
      _I, _I, ctypes.c_float, _P],
     replaces="src/repro/kernels/paged_attention.py:32",
+    defines=WALK_DEFINES,
 )
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SPLIT_KEYS = 64  # keys a tile; a split holds whole tiles
-TC_HEAD_DIMS = (64, 128)
-TC_MAX_GROUP = 64  # query heads a kv head on the tensor cores: 4 warps of 16 rows
-NEG_CLAMP = -2.0 ** 20  # the kernels' floor of the running max (attention_core.cuh)
-LOG2E = math.log2(math.e)
+ROUTES = {"cuda cores": 0, "mma.sync": 1, "walk": 2}  # the C entry point's tc argument
 
 
 def decode_splits(slots: int, kv_heads: int, max_pages: int, page_size: int,
@@ -71,14 +102,75 @@ def tensor_core_path(dtype: torch.dtype, head_dim: int, group: int) -> bool:
             and group <= TC_MAX_GROUP)
 
 
-def split_scratch(q: torch.Tensor, kv_heads: int, max_pages: int, page_size: int):
+def walk_path(dtype: torch.dtype, head_dim: int, group: int, page_size: int) -> bool:
+    """Whether a launch takes the bulk-copy walk: bf16 at a head dim of
+    ``WALK_HEAD_DIMS`` with at most ``WALK_MAX_GROUP`` query heads a kv head
+    (q and O of the group's rows live in a warp's registers), or of
+    ``WALK_GROUP1_HEAD_DIMS`` at a group of 1, over pages of at least
+    ``WALK_MIN_PAGE`` positions (a page's bf16 scale column, the quantized
+    twin's, is then a whole 16-byte bulk copy; both decodes keep one
+    route).  Slots and lengths do not matter."""
+    if dtype != torch.bfloat16 or page_size < WALK_MIN_PAGE:
+        return False
+    return ((head_dim in WALK_HEAD_DIMS and group <= WALK_MAX_GROUP)
+            or (head_dim in WALK_GROUP1_HEAD_DIMS and group == 1))
+
+
+def route(dtype: torch.dtype, head_dim: int, group: int, page_size: int) -> int:
+    """The body a launch takes, as the C entry point's ``tc`` code
+    (``ROUTES``): the walk where :func:`walk_path` takes it, else mma.sync
+    where :func:`tensor_core_path` does, else the CUDA cores."""
+    if walk_path(dtype, head_dim, group, page_size):
+        return ROUTES["walk"]
+    return int(tensor_core_path(dtype, head_dim, group))
+
+
+def walk_splits(slots: int, kv_heads: int, max_pages: int, page_size: int,
+                sms: int) -> Tuple[int, int]:
+    """(splits, keys a split) of the walk's grid (kv_heads, slots, splits),
+    from static shapes and the card's SM count only.  A split holds
+    ``WALK_SPLIT_KEYS`` keys (whole pages: 8 of 16 positions), so that a
+    long slot's keys stream through many SMs at once while the merge reads
+    few partial states; where slots x kv heads x splits would leave fewer
+    than ``WALK_WAVE_BLOCKS`` blocks an SM, the split halves (down to one
+    page).  At gemma-7b's serving shape (slots 8, Hkv 16, 64 pages of 16) 8
+    splits of 128 keys, 1024 blocks on 132 SMs."""
+    keys = max_pages * page_size
+    split = max(WALK_SPLIT_KEYS, page_size)
+    while (split > page_size
+           and slots * kv_heads * -(-keys // split) < WALK_WAVE_BLOCKS * sms):
+        split //= 2
+    return -(-keys // split), split
+
+
+def walk_smem_bytes(head_dim: int, group: int, page_size: int, pack: int = 0) -> int:
+    """Shared memory of a walk block (decode_walk.cuh's Layout): the ring
+    of WALK_STAGES stages, each a page of K and of V (bf16 rows, or ``pack``
+    1 / 2 packed int8 / int4 rows plus their bf16 scale columns), the full
+    and empty mbarriers, the split's table entries and the warps' merge
+    area (O, m and l of each warp's rows: the group rounded up to a power of
+    two)."""
+    rows = 1 << max(0, group - 1).bit_length()
+    row_bytes = head_dim * 2 if pack == 0 else head_dim // pack
+    scale_bytes = 0 if pack == 0 else page_size * 2
+    stage = 2 * (page_size * row_bytes + scale_bytes)
+    bars = 16 * WALK_STAGES
+    pages = 4 * (WALK_SPLIT_KEYS // WALK_MIN_PAGE)
+    merge = 4 * WALK_WARPS * rows * (head_dim + 2)
+    return WALK_STAGES * stage + bars + pages + merge
+
+
+def split_scratch(q: torch.Tensor, kv_heads: int, max_pages: int, page_size: int,
+                  walk: bool = False):
     """(splits, split_keys, o_part, ml_part) of a decode launch for ``q``
-    (slots, Hq, D) on its card: :func:`decode_splits`' grid and the fp32
-    scratch its split blocks leave their partial states in, O unnormalised
-    (slots, Hq, splits, D), then m and l (2, slots, Hq, splits)."""
+    (slots, Hq, D) on its card: the grid (:func:`walk_splits`' for the
+    walk, else :func:`decode_splits`') and the fp32 scratch its split
+    blocks leave their partial states in, O unnormalised (slots, Hq,
+    splits, D), then m and l (2, slots, Hq, splits)."""
     b, hq, d = q.shape
-    splits, split_keys = decode_splits(b, kv_heads, max_pages, page_size,
-                                       sm_count(q.device.index or 0))
+    rule = walk_splits if walk else decode_splits
+    splits, split_keys = rule(b, kv_heads, max_pages, page_size,
+                              sm_count(q.device.index or 0))
     o_part = torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)
     ml_part = torch.empty((2, b, hq, splits), dtype=torch.float32, device=q.device)
     return splits, split_keys, o_part, ml_part
@@ -124,14 +216,18 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    splits, split_keys, o_part, ml_part = split_scratch(q, hkv, max_pages, page_size)
+    tc = route(q.dtype, d, hq // hkv, page_size)
+    if tc == ROUTES["walk"]:
+        _require(walk_smem_bytes(d, hq // hkv, page_size) <= MAX_SMEM,
+                 "the walk's shared memory at this shape")
+    splits, split_keys, o_part, ml_part = split_scratch(
+        q, hkv, max_pages, page_size, walk=tc == ROUTES["walk"])
     _require(b <= 65535 and splits <= 65535, f"{b} slots x {splits} splits")
-    tc = tensor_core_path(q.dtype, d, hq // hkv)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], int(tc), q.data_ptr(), k_pages.data_ptr(),
+            DTYPES[q.dtype], tc, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
             out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), b, hq, hkv, d,
             page_size, max_pages, num_pages, window if window is not None else 0,
@@ -139,7 +235,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
         )
     check(rc, "paged_attention")
     KERNEL.launches += 1
-    KERNEL.tc_launches += int(tc)
+    KERNEL.tc_launches += int(tc == ROUTES["mma.sync"])
+    KERNEL.walk_launches += int(tc == ROUTES["walk"])
     return out
 
 
@@ -189,6 +286,16 @@ def fold_splits(scores, v, splits: int, split_keys: int, tile: int, *,
     ``pair`` multiplies P as the tensor-core kernels' bf16 pair hi + lo;
     ``rescale=False`` is the faulty merge that sums the splits as they
     stand."""
+    o, _, l = merge_states(split_states(scores, v, splits, split_keys, tile, pair=pair),
+                           rescale=rescale)
+    return o / l.clamp_min(1e-30)
+
+
+def split_states(scores, v, splits: int, split_keys: int, tile: int, *,
+                 pair: bool = False, acc_dtype=torch.float32):
+    """The partial state (O, m, l) each split of :func:`fold_splits` leaves:
+    O unnormalised, m clamped at NEG_CLAMP.  ``acc_dtype`` bfloat16 is the
+    fault of a kernel that keeps l and O in bf16 after every tile."""
     n_keys = scores.shape[-1]
     lead = scores.shape[:-1]
     states = []
@@ -207,10 +314,16 @@ def fold_splits(scores, v, splits: int, split_keys: int, tile: int, *,
                 pv = hi @ vt + (p - hi).bfloat16().float() @ vt
             else:
                 pv = p @ vt
-            l = l * alpha + p.sum(-1, keepdim=True)
-            o = o * alpha + pv
+            l = (l * alpha + p.sum(-1, keepdim=True)).to(acc_dtype).float()
+            o = (o * alpha + pv).to(acc_dtype).float()
             m = m_new
         states.append((o, m.clamp_min(NEG_CLAMP), l))
+    return states
+
+
+def merge_states(states, rescale: bool = True):
+    """Partial states (O, m, l) rescaled to their common max and summed:
+    (O, max m, l).  ``rescale=False`` sums them as they stand (a fault)."""
     mx = torch.stack([m for _, m, _ in states]).amax(0)
     out = torch.zeros_like(states[0][0])
     den = torch.zeros_like(states[0][2])
@@ -218,4 +331,48 @@ def fold_splits(scores, v, splits: int, split_keys: int, tile: int, *,
         w = torch.exp2(m - mx) if rescale else torch.ones_like(m)
         out = out + w * o
         den = den + w * l
-    return out / den.clamp_min(1e-30)
+    return out, mx, den
+
+
+def walk_decode(q, k_pages, v_pages, block_tables, seq_lens, splits: int,
+                split_keys: int, *, sm_scale: Optional[float] = None,
+                window: Optional[int] = None, warps: int = WALK_WARPS,
+                round_keys: int = WALK_ROUND, warp_rescale: bool = True,
+                split_rescale: bool = True, acc_dtype=torch.float32) -> torch.Tensor:
+    """The bulk-copy walk's arithmetic in plain PyTorch (a rehearsal, not a
+    path; bf16 pools, or the quantized twin's dequantized to bf16): q
+    prescaled by sm_scale log2e in fp32; in each split, key j of a page
+    falls to warp (j % round_keys) // (round_keys // warps), which folds its
+    keys in runs of round_keys // warps into its own online softmax; the
+    warps' states merge, rescaled to their common max, into the split's
+    state; the splits merge as split_merge.cuh does, rounded once.  Keys
+    outside [max(0, len - window), len) and pages outside the pool (which
+    the kernel does not copy) contribute nothing, their values unread.
+    ``warp_rescale`` / ``split_rescale`` False sum the states as they stand,
+    ``acc_dtype`` bfloat16 keeps l and O in bf16: three faults."""
+    b, hq, d = q.shape
+    hkv, num_pages, page_size, _ = k_pages.shape
+    group = hq // hkv
+    qscale = (sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)) * LOG2E
+    tables = block_tables.long()
+    inside = ((tables >= 0) & (tables < num_pages)).repeat_interleave(page_size, 1)
+    pages = tables.clamp(0, num_pages - 1)
+    k = k_pages[:, pages].transpose(0, 1).reshape(b, hkv, -1, d).float()
+    v = v_pages[:, pages].transpose(0, 1).reshape(b, hkv, -1, d).float()
+    qs = q.reshape(b, hkv, group, d).float() * qscale
+    live = mask_live(torch.zeros(b, k.shape[2], device=q.device), seq_lens, window) == 0
+    live = live & inside
+    scores = torch.einsum("bhgd,bhsd->bhgs", qs, k).masked_fill(
+        ~live[:, None, None, :], float("-inf"))
+    v = v.masked_fill(~live[:, None, :, None], 0.0)  # a dead key's value is never read
+    share = round_keys // warps
+    warp_of = torch.arange(scores.shape[-1], device=q.device) % page_size % round_keys // share
+    per_warp = []
+    for w in range(warps):
+        idx = torch.nonzero(warp_of == w).flatten()
+        per_warp.append(split_states(scores[..., idx], v[..., idx, :], splits,
+                                     split_keys // warps, share, acc_dtype=acc_dtype))
+    states = [merge_states([per_warp[w][s] for w in range(warps)], rescale=warp_rescale)
+              for s in range(splits)]
+    o, _, l = merge_states(states, rescale=split_rescale)
+    return (o / l.clamp_min(1e-30)).reshape(b, hq, d).to(q.dtype)

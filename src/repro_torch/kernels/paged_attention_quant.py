@@ -9,12 +9,17 @@ as the TPU kernel does) on its way into shared memory.  The plain version
 is ``ref.paged_attention_quant``; this wrapper takes it for CPU tensors
 only.  For a CUDA tensor it launches the kernel or raises.
 
-The kernel's grid and paths are ``paged_attention.py``'s: split-KV from
-static shapes (:func:`.paged_attention.decode_splits`), then the merge; bf16
-at head dim 64 or 128 (:func:`.paged_attention.tensor_core_path`) on the
-tensor cores, each 64-key tile's packed rows staged by cp.async and
-dequantized into the bf16 tile (``KERNEL.tc_launches`` counts those
-launches); fp32 and other head dims on CUDA cores.
+The kernel's grid and routes are ``paged_attention.py``'s
+(:func:`.paged_attention.route`): split-KV from static shapes, then the
+merge.  bf16 at head dim 256 (gemma-7b's) takes the bulk-copy walk
+(``KERNEL.walk_launches``): each page's packed K and V rows and their scale
+columns come into shared memory by ``cp.async.bulk``, and each value is
+dequantized in registers, code x scale in fp32 rounded once to bf16, as the
+plain version rounds it; a scale column is one 16-byte copy at pages of 8
+or more, so smaller pages keep the older routes.  bf16 at head dim 64 or 128
+runs on the tensor cores, each 64-key tile's packed rows staged by cp.async
+and dequantized into the bf16 tile (``KERNEL.tc_launches``); fp32 and other
+head dims on CUDA cores.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import torch
 
 from . import ref
 from .build import Kernel, check
-from .paged_attention import DTYPES, split_scratch, tensor_core_path
+from .paged_attention import (DTYPES, MAX_SMEM, ROUTES, WALK_DEFINES, route,
+                              split_scratch, walk_smem_bytes)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +41,7 @@ KERNEL = Kernel(
     [_I, _I, _I] + [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P],
     replaces="src/repro/kernels/paged_attention.py:93",
     source="paged_attention",
+    defines=WALK_DEFINES,
 )
 
 
@@ -88,14 +95,21 @@ def paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    splits, split_keys, o_part, ml_part = split_scratch(q, hkv, max_pages, page_size)
+    tc = route(q.dtype, d, hq // hkv, page_size)
+    if tc == ROUTES["walk"]:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned (the walk "
+                     "copies a page's scale column whole)")
+        _require(walk_smem_bytes(d, hq // hkv, page_size, pack) <= MAX_SMEM,
+                 "the walk's shared memory at this shape")
+    splits, split_keys, o_part, ml_part = split_scratch(
+        q, hkv, max_pages, page_size, walk=tc == ROUTES["walk"])
     _require(b <= 65535 and splits <= 65535, f"{b} slots x {splits} splits")
-    tc = tensor_core_path(q.dtype, d, hq // hkv)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
-            DTYPES[q.dtype], int(tc), pack, q.data_ptr(), k_pages.data_ptr(),
+            DTYPES[q.dtype], tc, pack, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             o_part.data_ptr(), ml_part.data_ptr(), b, hq, hkv, d, page_size,
@@ -104,5 +118,6 @@ def paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
         )
     check(rc, "paged_attention_quant")
     KERNEL.launches += 1
-    KERNEL.tc_launches += int(tc)
+    KERNEL.tc_launches += int(tc == ROUTES["mma.sync"])
+    KERNEL.walk_launches += int(tc == ROUTES["walk"])
     return out

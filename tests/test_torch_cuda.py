@@ -324,6 +324,102 @@ def test_cuda_quant_split_decode_edges(fmt, dtype, d):
             assert not _within_limit(faulty, want), (ps, window)
 
 
+# The bulk-copy walk (decode_walk.cuh): (hq, hkv, d, page_size) at gemma-7b's
+# MHA at D 256, a group of 2, a group of 3 over pages of 8 (4 rows a warp,
+# one dead), pages of 32, and a group of 1 at D 128 (deepseek-7b) and 64;
+# lengths empty, one key, a page's last key, a length past a 128-key split's
+# end, a window's start inside a page, a full table
+WALK = [(16, 16, 256, 16), (8, 4, 256, 16), (12, 4, 256, 8), (4, 4, 256, 32),
+        (32, 32, 128, 16), (4, 4, 64, 16)]
+WALK_LENS = [0, 1, 15, 16, 200, 555, 1000, 1024]
+
+
+def _walk_reference(q, kp, vp, tables, lens, window, num_pages):
+    """The decode in fp32, rounded once, over pools as given (the quantized
+    twin's dequantized to bf16), with the keys of a table entry outside the
+    pool left out, as the kernels skip such a page (the plain version clamps
+    it into the pool), and a dead key's value never read."""
+    b, hq, d = q.shape
+    hkv, _, ps, _ = kp.shape
+    t = tables.long()
+    inside = ((t >= 0) & (t < num_pages)).repeat_interleave(ps, 1)
+    t = t.clamp(0, num_pages - 1)
+    k = kp[:, t].transpose(0, 1).reshape(b, hkv, -1, d).float()
+    v = vp[:, t].transpose(0, 1).reshape(b, hkv, -1, d).float()
+    pos = torch.arange(k.shape[2], device=q.device)
+    n = lens.long()[:, None]
+    live = inside & (pos[None] < n) & (pos[None] >= (n - window if window else 0))
+    s = torch.einsum("bhgd,bhsd->bhgs", q.reshape(b, hkv, hq // hkv, d).float(), k) * d ** -0.5
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True).clamp_min(-1e30))
+    o = p @ v.masked_fill(~live[:, None, :, None], 0.0)
+    return (o / p.sum(-1, keepdim=True).clamp_min(1e-30)).reshape(b, hq, d).to(q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [None, "int8", "int4"], ids=["bf16", "int8", "int4"])
+@pytest.mark.parametrize("case", WALK, ids=[str(c) for c in WALK])
+def test_cuda_decode_walk_edges(case, fmt):
+    """On a card: rows 1 and 3 on the bulk-copy walk (one walk launch each,
+    none on the tensor cores) on WALK_LENS, with and without a window of
+    200: within two bf16 ulps of the plain version, a len-0 slot emitting
+    zeros, the reserved page's NaN never read.  Then with a table entry out
+    of the pool on a live page and NaN planted in the dead rows of a page a
+    length or the window cuts: within two ulps of the decode without those
+    keys, every value finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    hq, hkv, d, ps = case
+    dev = torch.device("cuda")
+    b, mp = len(WALK_LENS), 1024 // ps
+    num_pages = b * mp + 1
+    tables = torch.as_tensor(_tables(np.random.default_rng(ps + d), b, mp, num_pages), device=dev)
+    lens = torch.tensor(WALK_LENS, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(d + hq)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    q = rand(b, hq, d)
+    kf, vf = rand(hkv, num_pages, ps, d), rand(hkv, num_pages, ps, d)
+    if fmt is None:
+        kp, vp = kf, vf
+        pools, mod, kw = [kp, vp], PA, {}
+        plain = ref.paged_attention
+    else:
+        (kq, ks), (vq, vs) = ref.quantize_rows(kf, fmt), ref.quantize_rows(vf, fmt)
+        pools, mod, kw = [kq, vq, ks, vs], PAQ, {"fmt": fmt}
+        plain = ref.paged_attention_quant
+    nan = pools[-2:]  # the values, or the scales, a dead row must never reach
+    for t in nan:
+        t[:, 0] = float("nan")  # the reserved page, never in a table
+    kernel = PA.paged_attention if fmt is None else PAQ.paged_attention_quant
+    assert PA.walk_path(torch.bfloat16, d, hq // hkv, ps)
+    for window in (None, 200):
+        n0 = (mod.KERNEL.launches, mod.KERNEL.tc_launches, mod.KERNEL.walk_launches)
+        got = kernel(q, *pools, tables, lens, window=window, **kw)
+        torch.cuda.synchronize()
+        assert (mod.KERNEL.launches, mod.KERNEL.tc_launches, mod.KERNEL.walk_launches) == (
+            n0[0] + 1, n0[1], n0[2] + 1)
+        want = plain(q, *pools, tables, lens, window=window, **kw)
+        assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+        assert _within_limit(got, want), window
+    # under a window of 96: slot 5 (555 keys) with table entry 3 out of the
+    # pool; NaN in the rows past slot 2's 15 keys and before slot 4's window
+    # (its 200 keys from 104)
+    bad = tables.clone()
+    bad[5, 3] = num_pages + 7
+    for slot, page, cut in ((2, 0, slice(15, None)), (4, 104 // ps, slice(0, 104 % ps))):
+        for t in nan:  # K and V rows, or both scale columns
+            t[:, int(tables[slot, page]), cut] = float("nan")
+    if fmt is None:
+        kd, vd = pools
+    else:
+        kd, vd = (ref.dequantize_rows(a, sc, fmt).bfloat16() for a, sc in
+                  ((pools[0], pools[2]), (pools[1], pools[3])))
+    got = kernel(q, *pools, bad, lens, window=96, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _within_limit(got, _walk_reference(q, kd, vd, bad, lens, 96, num_pages))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["int8", "int4"])
 def test_cuda_quant_kernels_match_plain_versions(fmt):
