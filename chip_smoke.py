@@ -178,7 +178,7 @@ batch and a decode step's drop other tokens, as in the reference);
    first row) that must fail the limits; forward (the kernels) against
    decode_step (the recurrence) at depth 4, and the card's forward against
    the CPU's fp32 one (phase 4's limits; argmax where the top-2 margin
-   exceeds twice the error); then serve it, cut to 16 of its 64 layers,
+   exceeds twice the error); then serve it, cut to 8 of its 64 layers (16 until slice 21),
    through the contiguous recurrent-state cache, per tick and with
    ``sync_every=16`` under the no-host-sync check (8 of the workload's
    requests: byte-identical
@@ -202,7 +202,7 @@ batch and a decode step's drop other tokens, as in the reference);
    the script within half its time limit;
 8. full-width granite-moe-3b-a800m (32 layers, d 1536, 24 query heads over
    8 KV heads of 64, 40 experts of width 512, top 8, tied embeddings;
-   bf16, router fp32, seeded): serve the phase 3 workload at 16 of its 32
+   bf16, router fp32, seeded): serve the phase 3 workload at 8 of its 32 (16 until slice 21)
    layers with fp and with int8 pages (chunked prefill, prefix cache;
    ticks and TTFT equal across the two; every decode and prefill launch on
    the tensor cores); teacher-forced logits at depth 4, fp and int8 KV,
@@ -285,7 +285,14 @@ batch and a decode step's drop other tokens, as in the reference);
    at batch 8 x seq 1024 through the flash kernel at D 256 on wgmma (4
    launches a step, every one on the tensor cores) plus 2 profiled; the
    depth-2 check with phase 5's limits and its three planted attention
-   faults failing them.
+   faults failing them;
+16. the mesh: full-width qwen2-1.5B at 4 of its 28 layers trains 8 AdamW
+   steps at batch 8 x seq 1024 through ``launch/train.py``'s mesh path (a
+   1x1 ``DeviceMesh`` over an NCCL group on the card, the state as
+   DTensors); step 1's loss, grad norm and every gradient against the step
+   without a mesh (byte-identical, else phase 5's limits), the flash
+   kernel's launches against that step's; the step time, tokens/s, peak
+   memory, the step's roofline terms and the measured MFU.
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
@@ -312,9 +319,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))  # the port, beside this script
+# the card's peaks and a kernel's bound, stated once in the port
+from repro_torch.roofline.analysis import HW_H100  # noqa: E402
+from repro_torch.roofline.analysis import kernel_bound as bound  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+HBM_BYTES_PER_S = HW_H100["hbm_bw"]
+BF16_FLOPS = HW_H100["peak_flops_bf16"]
+INT8_OPS = HW_H100["peak_ops_int8"]
 
 # main-path shapes: qwen2-1.5B served with slots 8, max_len 1024, chunk 64
 SLOTS, MAX_LEN, PAGE, CHUNK = 8, 1024, 16, 64
@@ -384,12 +396,6 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> Timing:
         if times[0] > LONG_CALL_MS:
             iters = min(iters, LONG_CALL_ITERS)
     return Timing(times)
-
-
-def bound(nbytes: float, flops: float, peak_flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -1653,13 +1659,15 @@ FP_BUDGET_BLOCKS = int(0.39 * SLOTS * (MAX_LEN // PAGE))  # 199: fp preempts
 # (48.6 s at 8 there).  With phase 13 (fault tolerance and the contiguous
 # cache: 17.0 s of a run whose [time] lines read 449.6 s), qwen2-1.5B and
 # deepseek-v2-lite-16B serve 4 layers each (deepseek: the dense first layer
-# and 3 MoE layers).
+# and 3 MoE layers).  With phase 16 (the mesh: 5.8 s of a run whose [time]
+# lines read 570.7 s on a slow host), mamba2-2.7B and granite-moe-3b-a800m
+# serve 8 layers each (38.3 and 33.4 s at 16 there).
 QWEN_SERVE_LAYERS = 4
 MLA_SERVE_LAYERS = 4
 SSM_SERVE_REQUESTS = 8
-SSM_SERVE_LAYERS = 16
+SSM_SERVE_LAYERS = 8
 HYBRID_SERVE_LAYERS = 4
-GRANITE_SERVE_LAYERS = 16
+GRANITE_SERVE_LAYERS = 8
 
 
 @contextlib.contextmanager
@@ -2704,7 +2712,6 @@ MLA_SHAPES = {
     "b64_s4096": (64, 128, 1, 4096, 512, 64),
     "b128_s8192": (128, 128, 1, 8192, 512, 64),
 }
-INT8_OPS = 1979e12  # dense int8 tensor-core peak
 # the row of each kernel that goes into the result line
 LIBRARY_ROWS = {"matmul": "M7 bfloat16", "dequant_matmul": "m1_n16384_k16384 int4 x float16",
                 "mla": "b128_s8192 bfloat16"}
@@ -3358,7 +3365,6 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port's sources are missing under {SRC}",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.build import build_all
@@ -3448,6 +3454,8 @@ def main(argv=None) -> int:
     mla_training_phase(torch, np, lm, device)
     torch.cuda.empty_cache()
     gemma_training_phase(torch, np, lm, device)
+    torch.cuda.empty_cache()
+    mesh_phase(torch, np, lm, device, card)
     main_launches.update(lib_launches)
 
     # ---- result lines --------------------------------------------------
@@ -4841,6 +4849,182 @@ def gemma_training_phase(torch, np, lm, device, full=None, layers_=GEMMA_TRAIN_L
         torch.cuda.empty_cache()
     log(f"[time] phase 15 ({cfg.name} checks): {time.perf_counter() - t0:.1f} s")
     log(f"[launches] {cfg.name}'s training path: {json.dumps(launches)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the mesh (the distributed layer on the card, and the roofline)
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "qwen2_1_5b"
+MESH_LAYERS = 4  # of its 28, at full width
+
+
+def step1_comparison(torch, plain, meshed):
+    """Step 1's loss, grad norm and every gradient without and with the
+    mesh: whether all are equal byte for byte, the largest difference, and
+    the least gradient cosine."""
+    (loss_p, gn_p, grads_p), (loss_m, gn_m, grads_m) = plain, meshed
+    equal = (torch.equal(loss_p, loss_m) and torch.equal(gn_p, gn_m)
+             and all(torch.equal(a, b) for a, b in zip(grads_p, grads_m)))
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(grads_p, grads_m))
+    cos = min(float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0)) for a, b in zip(grads_p, grads_m))
+    return {"equal": equal, "loss": (float(loss_p), float(loss_m)),
+            "grad_norm": (float(gn_p), float(gn_m)), "max_grad_diff": diff, "min_cos": cos}
+
+
+def step1_ok(r) -> bool:
+    """Byte-identical, or within phase 5's depth-2 limits of each other."""
+    if r["equal"]:
+        return True
+    (lp, lm_), (gp, gm) = r["loss"], r["grad_norm"]
+    return (abs(lp - lm_) <= TRAIN_LOSS_REL * abs(lp) and abs(gm / gp - 1) <= TRAIN_GNORM_RATIO
+            and r["min_cos"] >= TRAIN_ATTN_COS_MIN)
+
+
+def flash_flops(b, hq, s, d, causal=True) -> float:
+    """The flash forward's operations at one launch (QK^T and PV over the
+    live pairs), which FlopCounterMode cannot see in a ctypes kernel."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4.0 * b * hq * pairs * d
+
+
+def mesh_phase(torch, np, lm, device, card, full=None, layers_=MESH_LAYERS,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """Phase 16, the mesh: full-width qwen2-1.5B at ``layers_`` of its 28
+    layers trains ``steps`` steps at batch 8 x seq 1024 through
+    ``launch/train.py``'s mesh path (``build_mesh("debug")``: a 1x1
+    ``DeviceMesh`` over an NCCL group on the card; the state placed as
+    DTensors by ``state_specs``; ``cells.make_train_step``).  Step 1's loss,
+    grad norm and every gradient are held against the step without a mesh
+    on the same weights and batch (byte-identical, else phase 5's depth-2
+    limits with the difference printed), and the flash kernel's launches
+    against that step's, a layer's forward and its recompute a step.
+    Prints the step time, tokens/s, peak memory, the step's roofline terms
+    at (1, 1) and the measured MFU beside the card's name and power limit.
+    ``full``, ``batch``, ``seq`` and ``steps`` replace the config and the
+    shape (a rehearsal's).  Returns the flash kernel's launches."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import KERNEL
+    from repro_torch.launch import cells, train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.roofline.analysis import (
+        CollectiveTally, RooflineTerms, analytic_hbm_bytes, measured_mfu, model_flops)
+
+    t0 = time.perf_counter()
+    full = full or get_config(MESH_ARCH)
+    cfg = dataclasses.replace(full, num_layers=layers_)
+    cell = cells.Cell(f"train b{batch} s{seq}", "train", seq, batch)
+    cuda = device.type == "cuda"
+    data = SyntheticTokens(DataConfig(batch=batch, seq=seq, vocab_size=cfg.vocab_size, seed=0))
+    opened = not dist.is_initialized()
+    mesh = train.build_mesh("debug", device)
+    try:
+        if cuda and (dist.get_backend() != "nccl" or mesh.device_type != "cuda"):
+            raise AssertionError(f"the mesh phase needs NCCL on the card: "
+                                 f"{dist.get_backend()}, {mesh.device_type}")
+        # ---- step 1 without and with the mesh, on the same weights and batch
+        params = lm.init(cfg, 0, device=device)
+        KERNEL.tc_launches = KERNEL.launches = 0
+        loss, _, grads = train.loss_and_grads(cfg, params, data.batch_at(0))
+        plain_launches = KERNEL.launches
+        plain_tc = KERNEL.tc_launches
+        plain = (loss.detach(), global_norm(grads), grads)
+        # the step's FLOPs, counted apart: the counter's dispatch rounds
+        # some products otherwise than the step it counts
+        with FlopCounterMode(display=False) as counter:
+            train.loss_and_grads(cfg, params, data.batch_at(0))
+        placed = shd.place_tree(params, shd.named(mesh, shd.param_specs(params, cfg, mesh)))
+        KERNEL.tc_launches = KERNEL.launches = 0
+        with CollectiveTally() as tally:
+            loss_m, _, grads_m = cells.make_grad_step(cfg, mesh, cell, logits_chunk=0)(
+                placed, data.batch_at(0))
+        mesh_launches = KERNEL.launches
+        grads_m = [g.full_tensor() for g in grads_m]
+        cmp = step1_comparison(torch, plain, (loss_m, global_norm(grads_m), grads_m))
+        log(f"[mesh] step 1 of {cfg.name} at {cfg.num_layers} of its {full.num_layers} "
+            f"layers on the 1x1 mesh ({dist.get_backend()}, {mesh.device_type}) against "
+            f"the step without a mesh: "
+            + ("byte-identical (loss, grad norm, every gradient)" if cmp["equal"] else
+               f"NOT byte-identical: largest gradient difference {cmp['max_grad_diff']:.3e}, "
+               f"least cosine {cmp['min_cos']:.6f}")
+            + f"; loss {cmp['loss'][0]:.4f} / {cmp['loss'][1]:.4f}, grad norm "
+            f"{cmp['grad_norm'][0]:.3f} / {cmp['grad_norm'][1]:.3f}; flash launches "
+            f"{plain_launches} / {mesh_launches}; collectives on the mesh "
+            f"{json.dumps(tally.counts)}")
+        if not step1_ok(cmp):
+            raise AssertionError(f"the mesh's step 1 differs from the plain step: {cmp}")
+        if mesh_launches != plain_launches or (cuda and plain_launches != 2 * cfg.num_layers):
+            raise AssertionError(f"flash launches: mesh {mesh_launches}, plain "
+                                 f"{plain_launches}, want {2 * cfg.num_layers} on a card")
+        flops = counter.get_total_flops() + plain_tc * flash_flops(
+            batch, cfg.num_heads, seq, cfg.head_dim)
+        del params, placed, grads, grads_m, plain
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        # ---- train through launch/train.py's mesh path
+        state = train.build_state(cfg, 0, device)
+        state = shd.place_tree(state, shd.named(mesh, train.state_specs(cfg, mesh, state)))
+        step = cells.make_train_step(cfg, mesh, cell, AdamWConfig(warmup_steps=1,
+                                                                  total_steps=steps),
+                                     logits_chunk=0)
+        KERNEL.tc_launches = KERNEL.launches = 0
+        losses, seconds = [], []
+        for i in range(steps):
+            batch_i = data.batch_at(i)
+            if cuda:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, batch_i)
+            losses.append(m["loss"].item())
+            if cuda:
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t1)
+        launches = {"flash_attention": KERNEL.launches}
+        tc = KERNEL.tc_launches
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        del state
+    finally:
+        if opened and dist.is_initialized():
+            dist.destroy_process_group()
+    med = statistics.median(seconds[1:]) if len(seconds) > 1 else seconds[0]
+    log(f"[mesh] {cfg.name} full width, {cfg.num_layers} of its {full.num_layers} layers, "
+        f"{cfg.dtype}, batch {batch} x seq {seq} on the 1x1 mesh: step time {med * 1e3:.1f} ms "
+        f"(median of steps 2-{steps}; first {seconds[0] * 1e3:.1f} ms), "
+        f"{batch * seq / med:.0f} tokens/s, peak {peak:.2f} GiB allocated; losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; flash launches {launches['flash_attention']} ({2 * cfg.num_layers} a step), "
+        f"{tc} on tensor cores")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"mesh training losses: {losses}")
+    want = 2 * cfg.num_layers * steps if cuda else 0
+    if launches["flash_attention"] != want or (cuda and tc != want):
+        raise AssertionError(f"mesh training launches {launches}, {tc} on tensor cores, "
+                             f"want {want}")
+    mf = model_flops(cfg, cell)
+    terms = RooflineTerms(
+        arch=cfg.name, shape=cell.name, mesh="1x1", flops=flops, hbm_bytes=0.0,
+        coll_bytes=float(tally.total), coll_breakdown=dict(tally.bytes), model_flops=mf,
+        chips=1, analytic_bytes=analytic_hbm_bytes(cfg, cell, {"data": 1, "model": 1},
+                                                    flash_attention=True))
+    log(f"[mesh] roofline of this step at (1, 1): FLOPs {flops:.4e} (FlopCounterMode "
+        f"{counter.get_total_flops():.4e} + the flash kernel's {plain_tc} launches), "
+        f"analytic HBM bytes {terms.analytic_bytes:.4e}, collective bytes {terms.coll_bytes:.0f}; "
+        f"compute {terms.compute_s * 1e3:.1f} ms, memory {terms.memory_s * 1e3:.1f} ms, "
+        f"collective {terms.collective_s * 1e3:.1f} ms, dominant {terms.dominant}, useful "
+        f"fraction {terms.useful_fraction:.3f}, MFU at the roofline {terms.mfu:.3f}")
+    log(f"[mesh] measured MFU: model FLOPs {mf:.4e} / ({med:.4f} s x "
+        f"{HW_H100['peak_flops_bf16']:.3g} FLOP/s) = {measured_mfu(mf, med):.4f} on {card}")
+    log(f"[time] phase 16 ({cfg.name} on the mesh): {time.perf_counter() - t0:.1f} s")
     return launches
 
 

@@ -17,7 +17,9 @@ Atomicity: leaves are written into ``step_X.tmp``, and the directory is
 renamed only after the manifest (with ``complete=true``) is flushed; a
 crashed writer leaves a ``.tmp`` that restore ignores.  Restart picks the
 newest complete manifest (``latest_step``).  Restore places each leaf on the
-device and in the dtype of the state it restores into.
+device and in the dtype of the state it restores into, and on a mesh by
+``shardings`` (or a DTensor leaf's own placement).  A DTensor leaf is saved
+whole: every rank gathers it, and rank 0 writes it.
 """
 from __future__ import annotations
 
@@ -29,8 +31,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..convert import bits_to_bfloat16, leaf_to_numpy
+from ..distributed import sharding as shd
 
 
 def _flatten_with_paths(tree, path: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
@@ -45,16 +50,14 @@ def _flatten_with_paths(tree, path: Tuple[str, ...] = ()) -> List[Tuple[str, Any
 
 def _host_leaf(leaf) -> Tuple[np.ndarray, str]:
     if isinstance(leaf, torch.Tensor):
-        return leaf_to_numpy(leaf)
+        return leaf_to_numpy(_whole(leaf))
     a = np.asarray(leaf)
     return a, str(a.dtype)
 
 
-def _no_shardings(shardings):
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh of shardings is not ported yet: ROADMAP "
-            "Queue 1 item 17 (distributed)")
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (gathered from every rank), else ``t``."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def save(state, step: int, directory: str | Path, keep: Optional[int] = None):
@@ -107,19 +110,23 @@ def latest_step(directory: str | Path) -> Optional[int]:
 def restore(state_like, step: int, directory: str | Path, shardings=None):
     """Load ``step`` into the structure of ``state_like`` (shapes validated):
     a new tree whose leaves have the device and dtype of ``state_like``'s.
-    ``shardings`` (the reference's mesh placement) must be None."""
-    _no_shardings(shardings)
+    ``shardings`` (a matching tree of ``distributed.sharding.NamedSharding``)
+    places each leaf on its mesh as a DTensor of its spec, as the
+    reference's ``device_put`` does; without it, a DTensor leaf of
+    ``state_like`` comes back in its own placement."""
     directory = Path(directory) / f"step_{step:08d}"
     manifest = json.loads((directory / "manifest.json").read_text())
     if not manifest.get("complete"):
         raise ValueError(f"checkpoint at {directory} is incomplete")
     by_key = {e["key"]: e for e in manifest["keys"]}
 
-    def load(like, path):
+    def load(like, path, sharding):
         if isinstance(like, dict):
-            return {k: load(v, path + (str(k),)) for k, v in like.items()}
+            return {k: load(v, path + (str(k),), sharding and sharding[k])
+                    for k, v in like.items()}
         if isinstance(like, (list, tuple)):
-            return [load(v, path + (str(i),)) for i, v in enumerate(like)]
+            return [load(v, path + (str(i),), sharding and sharding[i])
+                    for i, v in enumerate(like)]
         key = "/".join(path)
         entry = by_key.get(key)
         if entry is None:
@@ -130,9 +137,15 @@ def restore(state_like, step: int, directory: str | Path, shardings=None):
                 f"{key}: checkpoint shape {arr.shape} != expected {tuple(like.shape)}")
         t = (bits_to_bfloat16(arr) if entry["dtype"] == "bfloat16"
              else torch.from_numpy(np.array(arr)))
-        return t.to(device=like.device, dtype=like.dtype)
+        t = t.to(device=like.device, dtype=like.dtype)
+        if sharding is not None:
+            return shd.place(t, sharding.mesh, sharding.spec)
+        if isinstance(like, DTensor):
+            return distribute_tensor(t, like.device_mesh, like.placements,
+                                     src_data_rank=None)
+        return t
 
-    return load(state_like, ())
+    return load(state_like, (), shardings)
 
 
 def _to_host(tree):
@@ -142,7 +155,7 @@ def _to_host(tree):
     if isinstance(tree, (list, tuple)):
         return [_to_host(v) for v in tree]
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        return _whole(tree.detach()).to("cpu", copy=True)
     return np.array(tree)
 
 
@@ -162,7 +175,10 @@ class CheckpointManager:
             return False
         self.wait()  # one in-flight save at a time
         # snapshot to host NOW, so training can update the state in place
+        # (every rank gathers its DTensors; rank 0 alone writes)
         host_state = _to_host(state)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return True
         if self.async_save:
             self._thread = threading.Thread(
                 target=save, args=(host_state, step, self.directory, self.keep),

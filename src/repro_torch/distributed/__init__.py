@@ -1,3 +1,4 @@
-"""Distributed training support of the port: the single-process part of
-fault tolerance (``fault``).  Sharding and pipelining wait for ROADMAP Queue 1
-item 17."""
+"""Distributed training support of the port on ``torch.distributed``: the
+sharding rules and their DTensor placements (``sharding``), the GPipe
+pipeline (``pipeline``) and fault tolerance with elastic re-meshing
+(``fault``)."""

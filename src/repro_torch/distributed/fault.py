@@ -6,7 +6,7 @@ failed step from the last complete checkpoint, and stragglers are detected
 by deadline.  Failures and stragglers are *injected* (the same
 ``np.random.default_rng(seed)`` stream as the reference, so the same steps
 fail), so the recovery paths are exercised by tests.  Elastic re-meshing
-waits for the port's distributed layer (ROADMAP Queue 1 item 17).
+re-places a state on a mesh with another data axis (``elastic_remesh``).
 """
 from __future__ import annotations
 
@@ -93,8 +93,9 @@ def run_with_recovery(
     """The fault-tolerant training loop.
 
     ``loader_factory(step)`` must return a deterministic-resume iterator
-    starting at ``step``; ``shardings`` (the reference's mesh placement)
-    must be None.  On (injected) failure: restore the latest
+    starting at ``step``; ``shardings`` (a tree of
+    ``distributed.sharding.NamedSharding``) places a restored state on its
+    mesh.  On (injected) failure: restore the latest
     checkpoint, rebuild the loader at that step, continue.  Returns run
     metadata (restarts, straggler log, final state).
     """
@@ -153,8 +154,22 @@ def run_with_recovery(
 
 
 def elastic_remesh(host_state, new_mesh, state_specs):
-    """Re-place a state onto a different mesh: not ported yet (ROADMAP
-    Queue 1 item 17, distributed)."""
-    raise NotImplementedError(
-        "elastic re-meshing needs the port's distributed layer: ROADMAP "
-        "Queue 1 item 17 (distributed)")
+    """Re-place a (host) state tree onto a different mesh.
+
+    Because ZeRO-1 state sharding is *derived* from the mesh (zero1_specs),
+    growing/shrinking the data axis is just a placement on the new mesh —
+    no tensor layout surgery.  ``state_specs`` must be the specs computed
+    against ``new_mesh``; each leaf (a tensor or numpy array every rank
+    holds whole, or a DTensor of another mesh, gathered first) becomes a
+    DTensor of its spec on ``new_mesh`` (fault.py:144-157)."""
+    from torch.distributed.tensor import DTensor
+
+    from . import sharding as shd
+
+    def place(spec, x):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        return shd.place(t.to(new_mesh.device_type), new_mesh, spec)
+
+    return shd.tree_map2(place, state_specs, host_state)

@@ -30,10 +30,12 @@ Nothing here catches a build or launch error to fall back.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..core.errors import GuardError
 from . import chunk_scan as _csc
@@ -164,7 +166,10 @@ def attention(q, k, v, *, causal: bool = False, sm_scale=None, **xla_kw):
     reference routes them to ``ref.attention``; so does a CPU tensor.  A CUDA
     tensor otherwise takes the flash kernel through
     :class:`~.flash_attention.FlashAttentionFn`.  ``out_dtype`` casts the
-    result on both routes, and ``q_chunk`` streams only the plain one."""
+    result on both routes, and ``q_chunk`` streams only the plain one.
+    DTensors on a mesh take :func:`sharded_attention`."""
+    if isinstance(q, DTensor):
+        return sharded_attention(q, k, v, causal=causal, sm_scale=sm_scale, **xla_kw)
     if (not q.is_cuda
             or xla_kw.get("window") is not None
             or xla_kw.get("kv_len") is not None
@@ -173,6 +178,77 @@ def attention(q, k, v, *, causal: bool = False, sm_scale=None, **xla_kw):
     out = _fa.FlashAttentionFn.apply(q, k, v, causal, sm_scale)
     out_dtype = xla_kw.get("out_dtype")
     return out if out_dtype is None else out.to(out_dtype)
+
+
+def _even(mesh, placements, shape, dim) -> bool:
+    parts = math.prod(mesh.size(i) for i, p in enumerate(placements) if p == Shard(dim))
+    return shape[dim] % parts == 0
+
+
+def _attention_layout(mesh, q_placements, q_shape, hkv: int):
+    """How :func:`sharded_attention` spreads (q, k/v, k/v's gradient) over
+    ``mesh``, from the placements q arrives with (the ``attn_q`` hint's):
+    q keeps a batch (0), head (1) or sequence (2) shard that is even, and
+    anything else is replicated.  K/V follow a batch shard, and a head
+    shard when their heads divide as q's do; otherwise each rank holds
+    them whole, and the gradient each rank computes for them is a partial
+    sum (``Partial``): its own heads' or query rows' share."""
+    hq = q_shape[1]
+    qp = [p if isinstance(p, Shard) and p.dim < 3 else Replicate() for p in q_placements]
+    for d in (0, 1, 2):
+        if not _even(mesh, qp, q_shape, d):
+            qp = [Replicate() if p == Shard(d) else p for p in qp]
+    parts = math.prod(mesh.size(i) for i, p in enumerate(qp) if p == Shard(1))
+    follow = hkv % parts == 0
+    if not follow:  # each rank's q heads must stay within whole kv groups
+        hl, g = hq // parts, hq // hkv
+        if not (g % hl == 0 or hl % g == 0):
+            qp = [Replicate() if p == Shard(1) else p for p in qp]
+            follow = True
+    kp, gp = [], []
+    for p in qp:
+        if p == Shard(0) or (p == Shard(1) and follow):
+            kp.append(p)
+            gp.append(p)
+        else:
+            kp.append(Replicate())
+            gp.append(Replicate() if p == Replicate() else Partial())
+    return tuple(qp), tuple(kp), tuple(gp)
+
+
+def sharded_attention(q, k, v, *, causal: bool = False, sm_scale=None, **xla_kw):
+    """:func:`attention` of DTensors: each rank runs the kernel (or, on the
+    CPU, the plain version) on its own shard through ``local_map``; DTensor
+    has no rule for the ctypes kernel.  Batch and head shards are
+    independent.  A rank holding query rows ``[o, o + n)`` of a sequence
+    shard (``make_hints``' fallback when the heads do not divide) sees, for
+    a causal mask, only keys ``[0, o + n + Sk - Sq)``: the kernels align a
+    causal mask to the end of the keys, so K/V are cut there first.  A rank
+    holding a block of q heads whose K/V are whole picks their kv heads."""
+    from ..distributed import sharding as shd
+
+    mesh = q.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    k, v = (t if isinstance(t, DTensor) else
+            DTensor.from_local(t, mesh, whole, run_check=False) for t in (k, v))
+    hq, sq, hkv, sk = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
+    qp, kp, gp = _attention_layout(mesh, q.placements, tuple(q.shape), hkv)
+    h0 = shd.shard_offset(mesh, qp, hq, 1)
+    o = shd.shard_offset(mesh, qp, sq, 2)
+    heads_split = Shard(1) in qp and kp[qp.index(Shard(1))] != Shard(1)
+
+    def run(ql, kl, vl):
+        if heads_split:
+            g = hq // hkv
+            k0, k1 = h0 // g, (h0 + ql.shape[1] - 1) // g + 1
+            kl, vl = kl[:, k0:k1], vl[:, k0:k1]
+        if Shard(2) in qp and causal:
+            cut = o + ql.shape[2] + sk - sq
+            kl, vl = kl[:, :, :cut], vl[:, :, :cut]
+        return attention(ql, kl, vl, causal=causal, sm_scale=sm_scale, **xla_kw)
+
+    return shd.local_call(run, (q, k, v), (qp, kp, kp), qp, mesh,
+                          in_grad_placements=(qp, gp, gp))
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,

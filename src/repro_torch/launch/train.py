@@ -17,9 +17,13 @@ line and the ``done:`` line are the reference's, followed by the kernel
 launch counts of the run.  An encoder-decoder model trains through
 ``encdec.loss_fn`` on zero ``frames`` (B, frontend_seq, d_model), a model
 with a frontend through ``lm.loss_fn`` on zero ``prefix_embeds`` of that
-shape, as the reference feeds them (repro/launch/train.py:111-120).  One
-device only: ``--mesh`` other than ``debug`` raises
-``NotImplementedError`` (ROADMAP Queue 1 item 17).  MLA + MoE
+shape, as the reference feeds them (repro/launch/train.py:111-120).
+``--mesh debug`` (the default) trains on the reference's 1x1 mesh: the
+state placed as DTensors by ``param_specs`` / ``zero1_specs``, the batch
+by ``data_specs``, each step ``cells.make_train_step``'s; at world size 1
+it equals the step without a mesh byte for byte.  ``--mesh single_pod`` /
+``multi_pod`` need 256 / 512 ranks (``torchrun`` at that world size) and
+raise the reference's ``RuntimeError`` otherwise.  MLA + MoE
 (``deepseek_v2_lite_16b``) trains through ``layers.mla_full``, its
 attention on the flash kernel at key width 192 and value width 128 on a
 card:
@@ -37,11 +41,13 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
 from ..configs import get_config
 from ..core.device import resolve_device
 from ..data import DataConfig, SyntheticTokens, make_loader
+from ..distributed import sharding as shd
 from ..distributed.fault import FaultConfig, run_with_recovery
 from ..kernels.ops import KERNELS
 from ..models import encdec, lm
@@ -49,46 +55,61 @@ from ..models.config import ModelConfig
 from ..models.layers import DTYPES
 from ..optim import AdamWConfig, adamw_update, init_opt_state
 from ..optim.adamw import leaves
+from .cells import Cell
+from .cells import make_train_step as make_mesh_step
+from .mesh import make_debug_mesh, make_production_mesh
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch, logits_chunk: int = 0,
+                   residual_constraint=None):
+    """The loss with per-layer recompute (``remat=True``) and its gradient
+    with respect to every parameter, in the parameters' dtypes and leaf
+    order: ``(loss, parts, grads)``.  ``batch`` holds ``tokens`` and
+    ``labels`` (B, S) (numpy or tensors), and ``frames`` (B, T, d) for an
+    encoder-decoder ``cfg`` (``encdec.loss_fn``) or optionally
+    ``prefix_embeds`` (B, P, d) otherwise (``lm.loss_fn``).
+    ``residual_constraint`` is the residual stream's hint between layers
+    (``cells.make_train_step``'s, on a mesh)."""
+    flat = leaves(params)
+    dev = flat[0].device
+    for p in flat:
+        p.requires_grad_(True)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    if cfg.is_encoder_decoder:
+        frames = torch.as_tensor(batch["frames"], device=dev)
+        loss, parts = encdec.loss_fn(params, cfg, frames, tokens, labels,
+                                     remat=True, logits_chunk=logits_chunk)
+    else:
+        prefix = batch.get("prefix_embeds")
+        if prefix is not None:
+            prefix = torch.as_tensor(prefix, device=dev)
+        loss, parts = lm.loss_fn(params, cfg, tokens, labels,
+                                 prefix_embeds=prefix, remat=True,
+                                 residual_constraint=residual_constraint,
+                                 logits_chunk=logits_chunk)
+    grads = torch.autograd.grad(loss, flat)  # in the parameters' dtypes
+    for p in flat:  # plain tensors again outside the step
+        p.requires_grad_(False)
+    return loss, parts, list(grads)
 
 
 def make_train_step(cfg: ModelConfig, adamw: AdamWConfig,
-                    logits_chunk: int = 0):
+                    logits_chunk: int = 0, residual_constraint=None):
     """``train_step(state, batch) -> (state, metrics)``, the single-device
-    part of ``cells.make_train_step`` (cells.py:296-326): the loss with
-    per-layer recompute (``remat=True``), its gradient with respect to every
-    parameter, and one AdamW update, which writes ``state`` in place.
+    part of ``cells.make_train_step`` (cells.py:296-326):
+    :func:`loss_and_grads` and one AdamW update, which writes ``state`` in
+    place.
 
-    ``state`` is ``{"params", "opt"}``; ``batch`` holds ``tokens`` and
-    ``labels`` (B, S) (numpy or tensors), and ``frames`` (B, T, d) for an
-    encoder-decoder ``cfg`` (``encdec.loss_fn``) or optionally
-    ``prefix_embeds`` (B, P, d) otherwise (``lm.loss_fn``).  ``metrics`` are
-    device scalars ``loss``, the loss's parts (``ce``, and ``aux`` where the
-    model has one: the encoder-decoder has none), ``lr`` and ``grad_norm``:
-    nothing in a step waits for the host."""
+    ``state`` is ``{"params", "opt"}``.  ``metrics`` are device scalars
+    ``loss``, the loss's parts (``ce``, and ``aux`` where the model has one:
+    the encoder-decoder has none), ``lr`` and ``grad_norm``: nothing in a
+    step waits for the host."""
 
     def train_step(state, batch):
-        params = state["params"]
-        flat = leaves(params)
-        dev = flat[0].device
-        for p in flat:
-            p.requires_grad_(True)
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        labels = torch.as_tensor(batch["labels"], device=dev)
-        if cfg.is_encoder_decoder:
-            frames = torch.as_tensor(batch["frames"], device=dev)
-            loss, parts = encdec.loss_fn(params, cfg, frames, tokens, labels,
-                                         remat=True, logits_chunk=logits_chunk)
-        else:
-            prefix = batch.get("prefix_embeds")
-            if prefix is not None:
-                prefix = torch.as_tensor(prefix, device=dev)
-            loss, parts = lm.loss_fn(params, cfg, tokens, labels,
-                                     prefix_embeds=prefix, remat=True,
-                                     logits_chunk=logits_chunk)
-        grads = torch.autograd.grad(loss, flat)  # in the parameters' dtypes
-        for p in flat:  # plain tensors again outside the step
-            p.requires_grad_(False)
-        params, opt, om = adamw_update(params, list(grads), state["opt"], adamw)
+        loss, parts, grads = loss_and_grads(cfg, state["params"], batch,
+                                            logits_chunk, residual_constraint)
+        params, opt, om = adamw_update(state["params"], grads, state["opt"], adamw)
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in parts.items()}, **om}
         return {"params": params, "opt": opt}, metrics
@@ -140,23 +161,47 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def state_specs(cfg: ModelConfig, mesh, state) -> dict:
+    """The train state's specs on ``mesh``: ``param_specs`` for the
+    parameters, ``zero1_specs`` for the optimizer state (train.py:44)."""
+    pspecs = shd.param_specs(state["params"], cfg, mesh)
+    return {"params": pspecs, "opt": shd.zero1_specs(state["opt"], pspecs, mesh)}
+
+
+def build_mesh(name: str, device):
+    """``--mesh``: the 1x1 debug mesh (NCCL on the card, gloo on the CPU),
+    or a production mesh, which needs its world size (under ``torchrun``)."""
+    if name == "debug":
+        return make_debug_mesh(1, 1, device=device)
+    return make_production_mesh(multi_pod=name == "multi_pod", device_type=device.type)
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.mesh != "debug":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: meshes over many devices are not ported "
-            "yet: ROADMAP Queue 1 item 17 (distributed)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if not cfg.is_encoder_decoder:
         lm.require_full_forward(cfg)
     device = resolve_device(args.device)
+    opened = not dist.is_initialized()
+    try:
+        mesh = build_mesh(args.mesh, device)
+        return _train(args, cfg, device, mesh)
+    finally:
+        if opened and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _train(args, cfg: ModelConfig, device, mesh):
     adamw = AdamWConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                         total_steps=args.steps)
     state = build_state(cfg, args.seed, device)
-    step_fn = make_train_step(cfg, adamw, logits_chunk=0)
+    specs = state_specs(cfg, mesh, state)
+    shardings = shd.named(mesh, specs)
+    state = shd.place_tree(state, shardings)
+    cell = Cell("cli", "train", args.seq, args.batch)
+    step_fn = make_mesh_step(cfg, mesh, cell, adamw=adamw, logits_chunk=0)
     data_cfg = DataConfig(batch=args.batch, seq=args.seq,
                           vocab_size=cfg.vocab_size, seed=args.seed)
     dataset = SyntheticTokens(data_cfg)
@@ -187,7 +232,7 @@ def main(argv=None):
     for k in KERNELS.values():
         k.launches = 0
     result = run_with_recovery(logged_step, state, loader_factory, args.steps,
-                               ckpt, fault=fault)
+                               ckpt, shardings=shardings, fault=fault)
     ckpt.wait()
     print(
         f"done: {result['steps']} steps, {result['restarts']} restarts, "

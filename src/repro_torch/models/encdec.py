@@ -46,9 +46,9 @@ def max_dec_positions(cfg: ModelConfig) -> int:
 
 def _attn_proj(params, x, heads, kv_heads, head_dim):
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, s, kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(b, s, kv_heads, head_dim)
+    q = L.split_heads(x @ params["wq"], b, s, heads, head_dim)
+    k = L.split_heads(x @ params["wk"], b, s, kv_heads, head_dim)
+    v = L.split_heads(x @ params["wv"], b, s, kv_heads, head_dim)
     return q, k, v
 
 
@@ -103,7 +103,7 @@ def _self_attn(p, x, cfg: ModelConfig, causal: bool, cache=None, pos=None):
     else:
         out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             causal=causal)
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    out = L.merge_heads(out, b, s)
     return out.to(x.dtype) @ p["wo"]
 
 
@@ -112,9 +112,9 @@ def _cross_attn(p, x, enc_kv, cfg: ModelConfig):
     through the plain ``ref.attention`` (encdec.py:101)."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    q = L.split_heads(x @ p["wq"], b, s, h, hd)
     out = ref.attention(q.transpose(1, 2), enc_kv[0], enc_kv[1], causal=False)
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    out = L.merge_heads(out, b, s)
     return out.to(x.dtype) @ p["wo"]
 
 

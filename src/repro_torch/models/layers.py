@@ -16,12 +16,15 @@ strips): they never pass through ``kernels.ops``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..distributed import sharding as shd
 from ..kernels import ops, ref
 from .config import ModelConfig
 
@@ -62,6 +65,45 @@ def _dense_init(gen: torch.Generator, shape, dtype, scale=None):
 
 
 # ---------------------------------------------------------------------------
+# Sharding hints (layers.py:25-55): the step functions install activation
+# constraints that apply while their step runs on DTensors (``cells.
+# make_hints``): attention heads or, failing that, the query sequence over
+# `model`; the MoE's expert buffers; the residual stream around a block.
+# With no hints installed a hint is the identity, and a plain tensor passes
+# every hint unchanged.
+# ---------------------------------------------------------------------------
+
+_HINT_STACK: list = []
+
+
+@contextlib.contextmanager
+def shard_hints(**hooks):
+    """hooks: name -> fn(x) -> x (``cells.Constraint``: a redistribute)."""
+    _HINT_STACK.append(hooks)
+    try:
+        yield
+    finally:
+        _HINT_STACK.pop()
+
+
+def _hint(name: str, x):
+    for h in reversed(_HINT_STACK):
+        if name in h and h[name] is not None:
+            return h[name](x)
+    return x
+
+
+def hint_spec(name: str, shape):
+    """The spec the innermost hook ``name`` gives a tensor of ``shape``, or
+    None: where the port runs an op without a DTensor rule through
+    ``local_map``, this is its placement (the reference's constraint)."""
+    for h in reversed(_HINT_STACK):
+        if name in h and h[name] is not None:
+            return h[name].spec_of(tuple(shape))
+    return None
+
+
+# ---------------------------------------------------------------------------
 # Norm / embeddings / rope
 # ---------------------------------------------------------------------------
 
@@ -79,7 +121,38 @@ def init_embedding(gen, cfg: ModelConfig) -> Params:
 
 
 def embed(params: Params, tokens):
+    if isinstance(params["embedding"], DTensor):
+        return _embed_sharded(params["embedding"], tokens)
     return params["embedding"][tokens.long()]
+
+
+def _embed_sharded(table, tokens):
+    """:func:`embed` on a DTensor table, each rank on its shards
+    (``local_map``; torch 2.11's DTensor rule for the lookup's backward,
+    an ``index_put``, fails): the tokens' batch over
+    the data axes as they come, a vocabulary shard (``embedding``'s spec)
+    read where it holds a token, the rows summed over the shards
+    (``Partial``) where the vocabulary is split."""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tp = tuple(p if p == Shard(0) else Replicate() for p in tokens.placements)
+    wp = tuple(p if p == Shard(0) else Replicate() for p in table.placements)
+    split = Shard(0) in wp
+    outp = tuple(Partial() if w == Shard(0) else t for t, w in zip(tp, wp))
+    wgrad = tuple(Partial() if t == Shard(0) else w for t, w in zip(tp, wp))
+    v0 = shd.shard_offset(mesh, wp, table.shape[0], 0)
+
+    def run(w, ids):
+        if not split:
+            return w[ids.long()]
+        ids = ids.long() - v0
+        mine = (ids >= 0) & (ids < w.shape[0])
+        return w[torch.where(mine, ids, 0)] * mine[..., None].to(w.dtype)
+
+    return shd.local_call(run, (table, tokens), (wp, tp), outp, mesh,
+                          in_grad_placements=(wgrad, tp))
 
 
 def unembed(params: Params, x, cfg: ModelConfig):
@@ -146,26 +219,60 @@ def _qkv(params, x, cfg: ModelConfig):
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     return (
-        q.reshape(b, s, h, hd),
-        k.reshape(b, s, hkv, hd),
-        v.reshape(b, s, hkv, hd),
+        split_heads(q, b, s, h, hd),
+        split_heads(k, b, s, hkv, hd),
+        split_heads(v, b, s, hkv, hd),
     )
+
+
+def merge_heads(t, b: int, s: int):
+    """(B, H, S, D) -> (B, S, H * D), the inverse of :func:`split_heads`.
+    A DTensor is copied contiguous first (its reshape runs the local
+    ``view``), and its gradient comes back contiguous and in its own
+    placements (``sharding.pin``)."""
+    t = t.transpose(1, 2)
+    if isinstance(t, DTensor):
+        t = t.clone(memory_format=torch.contiguous_format)
+        return shd.pin(shd.contiguous_grad(t).reshape(b, s, -1))
+    return t.reshape(b, s, -1)
+
+
+def split_heads(t, *shape):
+    """``t.reshape(*shape)``, its last dim split into (heads, width).  A
+    DTensor whose shard of that dim does not hold whole heads (q heads that
+    do not divide `model`: ``make_hints``' sequence fallback follows) is
+    gathered along it first, as GSPMD would; DTensor refuses the view.  Its
+    gradient is made contiguous on the way back."""
+    if not isinstance(t, DTensor):
+        return t.reshape(*shape)
+    dim = t.ndim - 1
+    parts = math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                      if p == Shard(dim))
+    if shape[-2] % parts:
+        t = t.redistribute(t.device_mesh, [Replicate() if p == Shard(dim) else p
+                                           for p in t.placements])
+    # the heads' gradient comes back transposed (attention takes (B, H, S, D)
+    # views), which the reshape's backward, a DTensor view, cannot take
+    return shd.contiguous_grad(t.reshape(*shape))
 
 
 def attention_full(params, x, cfg: ModelConfig, positions, window=None,
                    rope_fraction=1.0):
     """Full-sequence causal attention, training and prefill (layers.py:158):
     the rotated (B, S, H, D) projections go to ``ops.attention`` as (B, H,
-    S, D) views, and the output comes back through the same transpose."""
+    S, D) views, and the output comes back through the same transpose; q
+    and the output pass the ``attn_q`` hint, K and V ``attn_kv``."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, rope_fraction)
     out = ops.attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        _hint("attn_q", q.transpose(1, 2)), _hint("attn_kv", k.transpose(1, 2)),
+        _hint("attn_kv", v.transpose(1, 2)), causal=True,
         window=window, logit_soft_cap=cfg.logit_soft_cap,
     )
-    out = out.transpose(1, 2).reshape(b, s, -1)
+    out = merge_heads(_hint("attn_q", out), b, s)
+    out = _hint("attn_out", out)
     return out.to(x.dtype) @ params["wo"]
 
 
@@ -389,6 +496,10 @@ def attention_decode(params, x, cfg: ModelConfig, cache, pos, window=None,
     k = apply_rope(k, posv, cfg.rope_theta, rope_fraction)
     ks, vs = cache["k"], cache["v"]
     size = ks.shape[2]
+    if isinstance(ks, DTensor):
+        out = _decode_sharded(q.transpose(1, 2), k[:, 0], v[:, 0], ks, vs, pos,
+                              window, cfg.logit_soft_cap)
+        return merge_heads(out, b, 1).to(x.dtype) @ params["wo"]
     slot = (torch.remainder(pos, size) if window
             else pos.clamp(max=size - 1)).long()
     rows = torch.arange(b, device=x.device)
@@ -399,6 +510,63 @@ def attention_decode(params, x, cfg: ModelConfig, cache, pos, window=None,
                         logit_soft_cap=cfg.logit_soft_cap)
     out = out.transpose(1, 2).reshape(b, 1, h * hd)
     return out.to(x.dtype) @ params["wo"]
+
+
+def _decode_sharded(q, k_new, v_new, ks, vs, pos, window, soft_cap):
+    """:func:`attention_decode`'s write and attention on strips that are
+    DTensors, each rank on its shards (``local_map``; DTensor has no rule
+    for the write), placed as ``cells.cache_specs`` places them: batch over
+    the data axes, kv heads over `model`, or failing that the strip's
+    positions (split-KV).  A rank writes the new row only where it holds
+    its slot, and scores its own keys into a partial softmax state (the
+    sum of values weighted by ``exp(s - m)``, their weight ``l`` and the
+    running max ``m``); the states of the split-KV ranks are gathered and
+    merged.  ``q`` (B, H, 1, D), ``k_new``/``v_new`` (B, Hkv, D)."""
+    mesh = ks.device_mesh
+    sp = ks.placements
+    b, hq, _, d = q.shape
+    hkv, size = ks.shape[1], ks.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qp = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in sp)
+    posp = tuple(Shard(0) if p == Shard(0) else Replicate() for p in sp)
+    # a partial state (1, B, H, 1, .): one a split-KV rank, stacked in front
+    statep = tuple(Shard(0) if p == Shard(2) else
+                   (Shard(p.dim + 1) if p in (Shard(0), Shard(1)) else Replicate())
+                   for p in sp)
+    o_seq = shd.shard_offset(mesh, sp, size, 2)
+
+    def run(ql, kn, vn, ksl, vsl, posl):
+        n = ksl.shape[2]
+        slot = (torch.remainder(posl, size) if window
+                else posl.clamp(max=size - 1)).long() - o_seq
+        mine = ((slot >= 0) & (slot < n))[:, None, None]
+        rows = torch.arange(ksl.shape[0], device=ksl.device)
+        at = slot.clamp(0, n - 1)
+        ksl[rows, :, at] = torch.where(mine, kn.to(ksl.dtype), ksl[rows, :, at])
+        vsl[rows, :, at] = torch.where(mine, vn.to(vsl.dtype), vsl[rows, :, at])
+        group = ql.shape[1] // ksl.shape[1]
+        kf = ksl.float().repeat_interleave(group, dim=1)
+        vf = vsl.float().repeat_interleave(group, dim=1)
+        sc = torch.einsum("bhqd,bhkd->bhqk", ql.float(), kf) * scale
+        if soft_cap is not None:
+            sc = soft_cap * torch.tanh(sc / soft_cap)
+        live = (posl + 1).clamp(max=size)
+        keys = o_seq + torch.arange(n, device=ksl.device)
+        sc = sc.masked_fill(~(keys[None, :] < live[:, None])[:, None, None, :],
+                            float("-inf"))
+        m = sc.amax(dim=-1)
+        e = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        acc = torch.einsum("bhqk,bhkd->bhqd", e, vf)
+        return acc[None], e.sum(dim=-1)[None], m[None]
+
+    acc, l, m = shd.local_call(run, (q, k_new, v_new, ks, vs, pos),
+                               (qp, qp, qp, sp, sp, posp), (statep, statep, statep),
+                               mesh)
+    whole = tuple(Replicate() if p == Shard(0) else p for p in statep)
+    acc, l, m = (t.redistribute(mesh, whole) for t in (acc, l, m))
+    w = torch.exp(m - m.amax(dim=0, keepdim=True))
+    out = (acc * w[..., None]).sum(dim=0) / (l * w).sum(dim=0)[..., None]
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -436,18 +604,18 @@ def mla_full(params, x, cfg: ModelConfig, positions):
     m = cfg.mla
     b, s, _ = x.shape
     h, dn, dr = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
-    q = (x @ params["w_q"]).reshape(b, s, h, dn + dr)
+    q = split_heads(x @ params["w_q"], b, s, h, dn + dr)
     q_pe = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     c_kv = rmsnorm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
     k_pe = apply_rope(x @ params["w_kpe"], positions, cfg.rope_theta)
-    k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, dn)
-    v = (c_kv @ params["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    k_nope = split_heads(c_kv @ params["w_uk"], b, s, h, dn)
+    v = split_heads(c_kv @ params["w_uv"], b, s, h, m.v_head_dim)
     q = torch.cat([q[..., :dn], q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=True, sm_scale=_mla_scale(cfg))
-    out = out.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
-    return out.to(x.dtype) @ params["w_o"]
+    out = merge_heads(out, b, s)
+    return _hint("attn_out", out).to(x.dtype) @ params["w_o"]
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device):
@@ -767,32 +935,119 @@ def _moe(params: Params, x, cfg: ModelConfig):
     tg = t // g
     cap = max(1, int(mo.capacity_factor * tg * k / e))
     xg = x.reshape(g, tg, d)
-    logits = xg.float() @ params["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = top_k(probs, k)  # (G, tg, k)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-    # position of each (token, choice) within its expert's queue, per group
     experts = torch.arange(e, device=x.device)
-    flat = (gate_idx.reshape(g, tg * k)[..., None] == experts).long()  # (G, tg*k, E)
-    pos = ((flat.cumsum(dim=1) - flat) * flat).sum(dim=-1)  # (G, tg*k)
-    keep = (pos < cap).to(x.dtype)
-    dest = gate_idx.reshape(g, tg * k) * cap + pos.clamp(0, cap - 1)
-    dest = dest[..., None].expand(g, tg * k, d)
-    updates = (xg[:, :, None, :] * keep.reshape(g, tg, k, 1)).reshape(g, tg * k, d)
-    expert_in = torch.zeros((g, e * cap, d), dtype=x.dtype, device=x.device)
-    expert_in = expert_in.scatter_add_(1, dest, updates).reshape(g, e, cap, d)
-    h = (F.silu(torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"]))
-         * torch.einsum("gecd,edf->gecf", expert_in, params["w_up"]))
-    expert_out = torch.einsum("gecf,efd->gecd", h, params["w_down"])
-    gathered = torch.gather(expert_out.reshape(g, e * cap, d), 1, dest)
-    wts = (gate_vals.reshape(g, tg * k) * keep)[..., None].to(gathered.dtype)
-    out = (gathered * wts).reshape(g, tg, k, d).sum(dim=2).reshape(t, d)
+    weights = (params["w_gate"], params["w_up"], params["w_down"])
+    if isinstance(x, DTensor):
+        probs, gate_vals, gate_idx = _route_sharded(xg, params["router"], k, e, cap)
+        out = _dispatch_sharded(xg, gate_vals, gate_idx, weights, e, cap)
+    else:
+        probs, gate_vals, gate_idx = _route(xg, params["router"], k)
+        out = _dispatch(xg, gate_vals, gate_idx, *weights, e, cap)
+    out = out.reshape(t, d)
     if "shared" in params:
         out = out + mlp(params["shared"], x.reshape(t, d), cfg)
     # load-balance auxiliary loss (Switch-style)
     density = (gate_idx[..., 0, None] == experts).float().mean(dim=(0, 1))
     aux = (density * probs.mean(dim=(0, 1))).sum() * e * mo.router_aux_weight
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _route(xg, router, k: int):
+    """The fp32 router over ``xg`` (G, tg, d): the probabilities, and each
+    token's top ``k`` gates (renormalised) and experts."""
+    logits = xg.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = top_k(probs, k)  # (G, tg, k)
+    return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), gate_idx
+
+
+def _moe_groups_placement(xg, e: int, cap: int):
+    """The ``moe_expert`` hint's (G, E, cap, d) spec, and the groups'
+    placement it gives the tokens (G over the data axes when they divide)."""
+    g, _, d = xg.shape
+    spec = hint_spec("moe_expert", (g, e, cap, d)) or shd.Spec(None, None, None, None)
+    return spec, shd.to_placements(shd.Spec(spec[0], None, None), xg.device_mesh)
+
+
+def _route_sharded(xg, router, k: int, e: int, cap: int):
+    """:func:`_route` on DTensors, each rank on its groups (``local_map``:
+    DTensor cannot carry the gradient of top-k's selection back through
+    the router's product): every `model` rank routes its groups whole, so
+    only the router's gradient is a partial sum, over the data axes."""
+    mesh = xg.device_mesh
+    _, xp = _moe_groups_placement(xg, e, cap)
+    whole = (Replicate(),) * mesh.ndim
+    rgrad = tuple(Partial() if p == Shard(0) else Replicate() for p in xp)
+    return shd.local_call(lambda xl, rl: _route(xl, rl, k), (xg, router), (xp, whole),
+                          (xp, xp, xp), mesh, in_grad_placements=(xp, rgrad))
+
+
+def _dispatch(xg, gate_vals, gate_idx, w_gate, w_up, w_down, e: int, cap: int,
+              e0: int = 0):
+    """The capacity dispatch, the expert products and the combine of
+    :func:`moe` over ``xg`` (G, tg, d), for the experts ``[e0, e0 +
+    w_gate.shape[0])`` of ``e``: a choice of another expert is dropped as a
+    zero row (expert parallelism: the ranks' outputs sum to the whole)."""
+    g, tg, d = xg.shape
+    k = gate_idx.shape[-1]
+    e_loc = w_gate.shape[0]
+    # position of each (token, choice) within its expert's queue, per group
+    experts = torch.arange(e, device=xg.device)
+    idx = gate_idx.reshape(g, tg * k)
+    flat = (idx[..., None] == experts).long()  # (G, tg*k, E)
+    pos = ((flat.cumsum(dim=1) - flat) * flat).sum(dim=-1)  # (G, tg*k)
+    keep = (pos < cap).to(xg.dtype)
+    if e_loc != e:  # this rank's experts only
+        mine = (idx >= e0) & (idx < e0 + e_loc)
+        keep = keep * mine.to(keep.dtype)
+        idx = torch.where(mine, idx - e0, 0)
+    dest = idx * cap + pos.clamp(0, cap - 1)
+    dest = dest[..., None].expand(g, tg * k, d)
+    updates = (xg[:, :, None, :] * keep.reshape(g, tg, k, 1)).reshape(g, tg * k, d)
+    expert_in = torch.zeros((g, e_loc * cap, d), dtype=xg.dtype, device=xg.device)
+    expert_in = expert_in.scatter_add_(1, dest, updates).reshape(g, e_loc, cap, d)
+    h = (F.silu(torch.einsum("gecd,edf->gecf", expert_in, w_gate))
+         * torch.einsum("gecd,edf->gecf", expert_in, w_up))
+    expert_out = torch.einsum("gecf,efd->gecd", h, w_down)
+    gathered = torch.gather(expert_out.reshape(g, e_loc * cap, d), 1, dest)
+    wts = (gate_vals.reshape(g, tg * k) * keep)[..., None].to(gathered.dtype)
+    return (gathered * wts).reshape(g, tg, k, d).sum(dim=2)
+
+
+def _dispatch_sharded(xg, gate_vals, gate_idx, weights, e: int, cap: int):
+    """:func:`_dispatch` on DTensors: DTensor has no rule for its scatter,
+    so each rank runs it on its shards (``local_map``), placed as the
+    reference's ``moe_expert`` hint places the (G, E, cap, d) buffers:
+    groups over the data axes when they divide, experts over `model`
+    (expert parallelism) when E divides; with experts whole, the expert
+    weights keep their tensor-parallel shards (F over `model`).  Where a
+    rank holds a share of the experts or of F, its output, and the
+    gradients of its tokens and gates, are partial sums."""
+    mesh = xg.device_mesh
+    spec, xp = _moe_groups_placement(xg, e, cap)
+    ep = shd.to_placements(shd.Spec(spec[1], None, None), mesh)
+    wps = ([], [], [])
+    for i, p in enumerate(ep):
+        tp = weights[0].placements[i] == Shard(2) and weights[2].placements[i] == Shard(1)
+        for wp, sharded in zip(wps, (Shard(2), Shard(2), Shard(1))):
+            wp.append(p if p == Shard(0) else (sharded if tp else Replicate()))
+    wps = tuple(tuple(wp) for wp in wps)
+    split = [wps[0][i] != Replicate() for i in range(mesh.ndim)]
+    outp = tuple(Partial() if split[i] else p for i, p in enumerate(xp))
+    wgrad = tuple(tuple(Partial() if xp[i] == Shard(0) else p for i, p in enumerate(wp))
+                  for wp in wps)
+    e0 = shd.shard_offset(mesh, ep, e, 0)
+
+    def run(xl, vl, il, wg, wu, wd):
+        return _dispatch(xl, vl, il, wg, wu, wd, e, cap, e0)
+
+    # pinned: the partial gradients of the tokens and gates are summed here,
+    # before they reach the routing's backward (DTensor cannot take a
+    # partial sum through top-k's)
+    xg, gate_vals = (shd.pin(t.redistribute(mesh, xp)) for t in (xg, gate_vals))
+    return shd.local_call(run, (xg, gate_vals, gate_idx, *weights),
+                          (xp, xp, xp, *wps), outp, mesh,
+                          in_grad_placements=(outp, outp, xp, *wgrad))
 
 
 # ---------------------------------------------------------------------------
@@ -859,13 +1114,13 @@ def mamba2_ssd_inputs(params, x, cfg: ModelConfig):
                             params["conv_b"])
     xin, bm, cm = torch.split(conv_out, [di, n, n], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"])  # (b, s, nh)
-    xh = xin.reshape(b, s, nh, sm.head_dim).transpose(1, 2)
+    xh = shd.contiguous_grad(xin.reshape(b, s, nh, sm.head_dim)).transpose(1, 2)
     bh = bm[:, None].expand(b, nh, s, n)
     ch = cm[:, None].expand(b, nh, s, n)
     chunk = min(sm.chunk, s)
     if s % chunk:
         chunk = math.gcd(s, chunk) or 1
-    return z, xh, ch, bh, dt.transpose(1, 2), chunk
+    return z, xh, ch, bh, shd.contiguous_grad(dt).transpose(1, 2), chunk
 
 
 def mamba2_full(params: Params, x, cfg: ModelConfig):
@@ -877,7 +1132,8 @@ def mamba2_full(params: Params, x, cfg: ModelConfig):
     b, s, _ = x.shape
     z, xh, ch, bh, dth, chunk = mamba2_ssd_inputs(params, x, cfg)
     xdt = xh * dth[..., None].to(xh.dtype)
-    y = _ssd_batched(ch, bh, xdt, dth, params["a_log"], chunk)
+    ssd = _ssd_sharded if isinstance(xdt, DTensor) else _ssd_batched
+    y = ssd(ch, bh, xdt, dth, params["a_log"], chunk)
     y = y + params["d_skip"][None, :, None, None] * xh
     y = y.transpose(1, 2).reshape(b, s, -1)
     y = rmsnorm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
@@ -906,6 +1162,28 @@ def _ssd_batched(c, bm, x, dt, a_log, chunk: int):
     incoming = ref.state_recurrence(states, da_cum[..., -1])
     y = ops.chunk_scan(cc, bb, xx, da_cum, incoming)
     return y.reshape(x.shape).to(x.dtype)
+
+
+def _ssd_sharded(c, bm, x, dt, a_log, chunk: int):
+    """:func:`_ssd_batched` on DTensors: DTensor has no rule for the SSD
+    kernels, so each rank runs them on its shards (``local_map``).  The SSD
+    is independent across the batch and the heads, so every operand takes
+    the batch and head shards ``x`` arrives with (the reference places no
+    hint here; a head shard follows the column-parallel ``w_x``), and
+    anything else whole; ``a_log`` (H,) follows the heads, and its
+    gradient is a partial sum over the batch shards."""
+    mesh = x.device_mesh
+    xp = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in x.placements)
+    for d in (0, 1):
+        if x.shape[d] % math.prod(mesh.size(i) for i, p in enumerate(xp) if p == Shard(d)):
+            xp = tuple(Replicate() if p == Shard(d) else p for p in xp)
+    dtp = xp  # (B, H, S)
+    ap = tuple(Shard(0) if p == Shard(1) else Replicate() for p in xp)
+    agrad = tuple(Partial() if p == Shard(0) else ap[i] for i, p in enumerate(xp))
+    return shd.local_call(
+        lambda cl, bl, xl, dl, al: _ssd_batched(cl, bl, xl, dl, al, chunk),
+        (c, bm, x, dt, a_log), (xp, xp, xp, dtp, ap), xp, mesh,
+        in_grad_placements=(xp, xp, xp, dtp, agrad))
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, device,
@@ -942,14 +1220,34 @@ def mamba2_decode(params: Params, x, cfg: ModelConfig, cache):
     xin, bm, cm = torch.split(conv_out, [di, n, n], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"])  # (b, nh)
     xh = xin.reshape(b, nh, sm.head_dim).float()
-    decay = torch.exp(dt * (-torch.exp(params["a_log"]))[None])  # (b, nh)
-    # the reference's einsums as one broadcast product (the outer product
-    # B^T (x dt)) and one batched product (C h): fewer host ops a token
-    upd = bm.float()[:, None, :, None] * (xh * dt[..., None])[:, :, None, :]
-    h = cache["ssm"] * decay[..., None, None] + upd
-    y = torch.matmul(cm.float()[:, None, None, :], h)[:, :, 0]  # (b, nh, P)
-    y = y + params["d_skip"][None, :, None] * xh
+    step = _ssm_step_sharded if isinstance(cache["ssm"], DTensor) else _ssm_step
+    y, h = step(xh, dt, bm, cm, cache["ssm"], params["a_log"], params["d_skip"])
     y = y.reshape(b, 1, di)
     y = rmsnorm(y * F.silu(z[:, None]).float(), params["norm_w"], cfg.norm_eps)
     out = y.to(x.dtype) @ params["out_proj"]
     return out, {"ssm": h, "conv": window[:, 1:]}
+
+
+def _ssm_step(xh, dt, bm, cm, state, a_log, d_skip):
+    """One token of the recurrence on (B, H, P) ``xh``, (B, H) ``dt``, (B,
+    N) ``bm``/``cm`` and the (B, H, N, P) ``state``: ``(y, new state)``."""
+    decay = torch.exp(dt * (-torch.exp(a_log))[None])  # (b, nh)
+    # the reference's einsums as one broadcast product (the outer product
+    # B^T (x dt)) and one batched product (C h): fewer host ops a token
+    upd = bm.float()[:, None, :, None] * (xh * dt[..., None])[:, :, None, :]
+    h = state * decay[..., None, None] + upd
+    y = torch.matmul(cm.float()[:, None, None, :], h)[:, :, 0]  # (b, nh, P)
+    return y + d_skip[None, :, None] * xh, h
+
+
+def _ssm_step_sharded(xh, dt, bm, cm, state, a_log, d_skip):
+    """:func:`_ssm_step` on DTensors, each rank on its shards (``local_map``:
+    DTensor has no rule for its broadcast batched product), placed as the
+    state (``cells.cache_specs``): batch over the data axes, heads over
+    `model`; B and C whole on `model`."""
+    mesh = state.device_mesh
+    sp = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in state.placements)
+    bp = tuple(p if p == Shard(0) else Replicate() for p in sp)
+    hp = tuple(Shard(0) if p == Shard(1) else Replicate() for p in sp)
+    return shd.local_call(_ssm_step, (xh, dt, bm, cm, state, a_log, d_skip),
+                          (sp, sp, bp, bp, sp, hp, hp), (sp, sp), mesh)

@@ -455,11 +455,11 @@ def _block(p, x, cfg, attend, recur=None):
     if recur is not None:
         delta = 0.5 * (delta + recur(L.rmsnorm(x, p["norm_m"], cfg.norm_eps)))
     x = x + delta
-    h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+    h2 = L._hint("block_in", L.rmsnorm(x, p["norm2"], cfg.norm_eps))
     if "moe" in p:
         out, aux = L.moe(p["moe"], h2, cfg)
-        return x + out, aux
-    return x + L.mlp(p["mlp"], h2, cfg), None
+        return x + L._hint("block_out", out), aux
+    return x + L._hint("block_out", L.mlp(p["mlp"], h2, cfg)), None
 
 
 def _decode_attention(cfg: ModelConfig, cache: Cache, pools, pos, window, rf,
@@ -792,17 +792,20 @@ def _block_full(p, x, cfg: ModelConfig, positions, window, rope_fraction):
     (repro/kernels/ops.py:218-224)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-        return x + L.mamba2_full(p["mamba"], h, cfg), aux
+        h = L._hint("block_in", L.rmsnorm(x, p["norm1"], cfg.norm_eps))
+        return x + L._hint("block_out", L.mamba2_full(p["mamba"], h, cfg)), aux
     w = None if cfg.sliding_window is None else window
     if cfg.attention == "mla":
-        attend = lambda pa, h: L.mla_full(pa, h, cfg, positions)  # noqa: E731
+        attend = lambda pa, h: L._hint("block_out", L.mla_full(  # noqa: E731
+            pa, L._hint("attn_in", h), cfg, positions))
     else:
-        attend = lambda pa, h: L.attention_full(  # noqa: E731
-            pa, h, cfg, positions, window=w, rope_fraction=rope_fraction)
+        attend = lambda pa, h: L._hint("block_out", L.attention_full(  # noqa: E731
+            pa, L._hint("attn_in", h), cfg, positions, window=w,
+            rope_fraction=rope_fraction))
     recur = None
     if cfg.family == "hybrid":
-        recur = lambda hm: L.mamba2_full(p["mamba"], hm, cfg)  # noqa: E731
+        recur = lambda hm: L._hint("block_out", L.mamba2_full(  # noqa: E731
+            p["mamba"], L._hint("block_in", hm), cfg))
     x, moe_aux = _block(p, x, cfg, attend, recur)
     return x, aux if moe_aux is None else moe_aux
 
@@ -818,10 +821,13 @@ def hidden_forward(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     ``jax.checkpoint`` of the scanned body: a layer's kernels (flash
     attention, or chunk_state and chunk_scan) then launch twice a training
     step; a hybrid layer recomputes both halves.  ``residual_constraint``
-    and ``unroll`` are the reference's sharding hint and scan unroll factor,
-    accepted and ignored (one device, a Python loop)."""
+    (``fn(x) -> x``, the sequence-parallel hint) applies to the residual
+    stream entering and leaving each stacked layer, as the reference's
+    scanned body does (lm.py:184-194); ``unroll``, the reference's scan
+    unroll factor, is accepted and ignored (a Python loop)."""
     require_full_forward(cfg)
-    del residual_constraint, unroll
+    del unroll
+    rc = residual_constraint or (lambda t: t)
     x = L.embed(params["embed"], tokens).to(L.dtype_of(cfg))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -832,11 +838,18 @@ def hidden_forward(params, cfg: ModelConfig, tokens, prefix_embeds=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     n_prefix = len(params["prefix_layers"])
     for i, p in enumerate(training_blocks(params)):
-        if remat and i >= n_prefix:
+        stacked_layer = i >= n_prefix
+        if stacked_layer:
+            x = rc(x)
+        if remat and stacked_layer:
             x, aux = checkpoint(_block_full, p, x, cfg, positions, windows[i],
                                 rf, use_reentrant=False)
         else:
             x, aux = _block_full(p, x, cfg, positions, windows[i], rf)
+        if stacked_layer:
+            # the outgoing carry too: the tensor the per-layer checkpoint
+            # saves for the backward pass (lm.py:188-192)
+            x = rc(x)
         aux_total = aux_total + aux
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
 
@@ -873,6 +886,7 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, prefix_embeds=None,
     so the live logits are (B, chunk, V) instead of (B, S, V)."""
     x, aux = hidden_forward(params, cfg, tokens, prefix_embeds, remat,
                             residual_constraint, unroll)
+    x = L._hint("block_in", x)  # the unembedding's input, gathered on a mesh
     if prefix_embeds is not None:
         x = x[:, prefix_embeds.shape[1]:]
     s = x.shape[1]

@@ -33,7 +33,11 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.serving.engine" in names and len(names) > 20
     assert {"repro_torch.kernels.flash_attention", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
-            "repro_torch.distributed.fault", "repro_torch.launch.train"} <= set(names)
+            "repro_torch.distributed.fault", "repro_torch.launch.train",
+            "repro_torch.distributed.sharding", "repro_torch.distributed.pipeline",
+            "repro_torch.launch.mesh", "repro_torch.launch.cells",
+            "repro_torch.launch.dryrun", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.report"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"

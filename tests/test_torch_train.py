@@ -357,8 +357,19 @@ def test_fault_injector_fails_the_same_steps_as_reference():
                 fails[i].append(step)
     assert fails[0] == fails[1] and len(fails[0]) > 5
     assert mine.injected_stragglers == theirs.injected_stragglers > 0
-    with pytest.raises(NotImplementedError, match="item 17"):
-        fault.elastic_remesh({}, None, {})
+    # elastic_remesh re-places a host state on a mesh (multi-rank: test_torch_mesh.py)
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    try:
+        mesh = make_debug_mesh(device="cpu")
+        host = {"w": np.arange(6, dtype=np.float32).reshape(3, 2), "n": [np.int64(4)]}
+        placed = fault.elastic_remesh(host, mesh, {"w": shd.Spec("data", None),
+                                                   "n": [shd.Spec()]})
+        assert isinstance(placed["w"], shd.DTensor) and placed["w"].device_mesh is mesh
+        assert np.array_equal(placed["w"].full_tensor().numpy(), host["w"])
+        assert placed["n"][0].full_tensor().item() == 4
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_recovery_from_injected_failures_is_deterministic(tmp_path):
@@ -396,7 +407,8 @@ def test_train_cli_recovers_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert "kernel launches on cpu: none" in out
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000000", "step_00000006"]
     base = ["--arch", "qwen2_1_5b", "--reduced", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # a production mesh needs its 256 ranks: the reference's RuntimeError
+    with pytest.raises(RuntimeError, match="needs 256 ranks, found world size 1"):
         train.main(base + ["--mesh", "single_pod"])
     # deepseek, refused here until item 14's mla_full, trains through an
     # injected failure
