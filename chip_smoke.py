@@ -292,7 +292,22 @@ batch and a decode step's drop other tokens, as in the reference);
    DTensors); step 1's loss, grad norm and every gradient against the step
    without a mesh (byte-identical, else phase 5's limits), the flash
    kernel's launches against that step's; the step time, tokens/s, peak
-   memory, the step's roofline terms and the measured MFU.
+   memory, the step's roofline terms and the measured MFU;
+17. the compiler (``repro_torch.core``): tile programs compiled with
+   ``target="cuda"`` (CUDA C++ for sm_90a, emitted by
+   ``core/backends/cuda.py`` and built in phase 1 beside the hand-written
+   kernels): the quickstart's Fig. 16 matmul (examples/torch_quickstart.py,
+   fp32 512^3) within 1e-4 of max |plain|; every PARITY_CASES entry of
+   ``kernels/matmul.py`` and ``kernels/flash_attention.py`` against the
+   port's ``reference`` interpreter run on the card on the same seeded
+   inputs, within 1e-5 of max(1, max |reference|); ``matmul_program`` at
+   Table 2's M7 (bf16, blocks 128 x 128 x 64) within 2 ``lib_units`` of the
+   plain version (row 13's limit, cuBLAS's product as its control), timed
+   beside row 13's kernel and ``torch.matmul``; ``flash_attention_program`` at qwen2-1.5B's training
+   shape (bf16, causal, 64 x 64 blocks) within 2 bf16 ulps of the plain
+   version, timed beside row 10's kernel and SDPA.  Each emitted kernel's
+   launches are counted on that path run (the comparisons' and timings'
+   taken back), its registers (``-Xptxas -v``) and shared memory printed.
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
@@ -3380,8 +3395,10 @@ def main(argv=None) -> int:
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
     build_log: dict = {}
-    build_all(list(KERNELS.values()), log=build_log)
-    log(f"[build] {len(KERNELS)} kernels from {len(build_log)} source(s) compiled in "
+    compiled = compiler_kernels(torch, device)  # phase 17's, emitted (no nvcc yet)
+    build_all([*KERNELS.values(), *(k.kernel for k in compiled.values())], log=build_log)
+    log(f"[build] {len(KERNELS)} kernels and {len(compiled)} emitted by the compiler from "
+        f"{len(build_log)} source(s) compiled in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in parallel; each library is "
         f"keyed by every csrc/*.cuh, so a header edit rebuilds all of them)")
     for name, text in build_log.items():
@@ -3457,6 +3474,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mesh_phase(torch, np, lm, device, card)
     main_launches.update(lib_launches)
+    torch.cuda.empty_cache()
+    emitted_rows = compiler_phase(torch, ref, KERNELS, compiled, build_log, device)
 
     # ---- result lines --------------------------------------------------
     rows = []
@@ -3470,6 +3489,7 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    rows.extend(emitted_rows)
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
@@ -5027,6 +5047,174 @@ def mesh_phase(torch, np, lm, device, card, full=None, layers_=MESH_LAYERS,
     log(f"[time] phase 16 ({cfg.name} on the mesh): {time.perf_counter() - t0:.1f} s")
     return launches
 
+
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the compiler
+# ---------------------------------------------------------------------------
+
+COMPILED_M7 = dict(block_M=128, block_N=128, block_K=64)  # GEMM_SHAPES["M7"]'s blocks
+COMPILED_FLASH = dict(block_M=64, block_N=64)  # 128 x 128 exceeds the block's shared memory
+PARITY_ATOL = 1e-5  # of max(1, max |reference|), fp32
+# the emitted kernels in the result line, with the TPU programs they replace
+EMITTED = {"quickstart": ("compiled quickstart matmul (fp32 512^3)", "examples/torch_quickstart.py",
+                          "examples/quickstart.py:20"),
+           "M7": ("compiled matmul_program (M7)", "src/repro_torch/kernels/matmul.py",
+                  "src/repro/kernels/matmul.py:15"),
+           "flash": ("compiled flash_attention_program", "src/repro_torch/kernels/flash_attention.py",
+                     "src/repro/kernels/flash_attention.py:25")}
+
+
+def quickstart_module():
+    """examples/torch_quickstart.py, loaded as a module (its program and
+    entry point)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compiler_kernels(torch, device):
+    """Phase 17's programs compiled with ``target="cuda"`` (emitted text,
+    built in phase 1 with the hand-written kernels): the quickstart's, each
+    PARITY_CASES entry's, M7's and qwen2-1.5B's flash forward's."""
+    from repro_torch import kernels as K
+    from repro_torch.core import compile as tl_compile
+
+    progs = {"quickstart": quickstart_module().Matmul}
+    progs.update(dict(K.parity_programs()))
+    m, n, k = GEMM_SHAPES["M7"]
+    progs["M7"] = K.matmul_program(m, n, k, "bfloat16", "bfloat16", **COMPILED_M7)
+    progs["flash"] = K.flash_attention_program(TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ,
+                                               HEAD_DIM, True, dtype="bfloat16",
+                                               **COMPILED_FLASH)
+    return {name: tl_compile(p, target="cuda") for name, p in progs.items()}
+
+
+def ptxas_registers(text: str) -> str:
+    """The registers and spills ``-Xptxas -v`` reports for a source's kernel."""
+    regs = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
+            if "Used" in ln and "registers" in ln]
+    spill = [ln.strip() for ln in text.splitlines() if "spill" in ln]
+    return f"{regs[0] if regs else '?'}; {spill[0] if spill else ''}"
+
+
+def compiler_phase(torch, ref, KERNELS, compiled, build_log, device):
+    """Phase 17 (see the module docstring).  Returns the emitted kernels'
+    rows of the result line."""
+    from repro_torch import kernels as K
+    from repro_torch.core import compile as tl_compile
+    from repro_torch.kernels import flash_attention as FA
+
+    t0 = time.perf_counter()
+    for k in compiled.values():
+        k.launches = 0
+    rows, results = [], {}
+    # the quickstart, through its own entry point on the card
+    qs = quickstart_module().main([])
+    assert qs["kernel"] is compiled["quickstart"] and qs["err"] <= FP32_ATOL
+    launches = qs["kernel"].launches
+    a, b = (torch.randn((512, 512), device=device) for _ in range(2))
+    results["quickstart"] = {
+        "max_abs_err": qs["max_abs_err"],
+        "ms": time_ms(torch, lambda: compiled["quickstart"](a, b)),
+        "plain_ms": time_ms(torch, lambda: ref.matmul(a, b, torch.float32)),
+        "library_ms": time_ms(torch, lambda: torch.matmul(a, b)),
+        "bound": bound(3 * 512 * 512 * 4, 2.0 * 512 ** 3, HW_H100["peak_flops_fp32"])}
+    qs["kernel"].launches = launches
+    log(f"[compiler] quickstart Fig. 16 matmul (fp32 512^3): {qs['err']:.2e} of max |plain| "
+        f"(limit {FP32_ATOL:g})")
+    # every parity case against the reference interpreter on the card
+    for name, prog in K.parity_programs():
+        kern = compiled[name]
+        g = torch.Generator(device=device).manual_seed(53)
+        args = [torch.randn(p.shape, generator=g, device=device) for p in kern.arg_params]
+        got = kern(*args)
+        want = tl_compile(prog, target="reference")(*args)
+        err = ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+        log(f"[compiler] {name} (fp32) against the reference interpreter on the card: "
+            f"{err:.2e} of max(1, max |reference|) (limit {PARITY_ATOL:g})")
+        if not err <= PARITY_ATOL:
+            raise AssertionError(f"{name}: the emitted kernel fails its limit ({err:.3e})")
+    # M7: Table 2's GEMM, bf16
+    m, n, k = GEMM_SHAPES["M7"]
+    g = torch.Generator(device=device).manual_seed(41)
+    a = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    b = torch.randn((k, n), generator=g, device=device).to(torch.bfloat16)
+    mm = compiled["M7"]
+    out = mm(a, b)  # the path's launch
+    plain = ref.matmul(a, b, torch.bfloat16)
+    sigma = k ** 0.5 * rms(torch, a) * rms(torch, b)
+    units = lib_units(torch, out, plain, sigma)
+    control = lib_units(torch, torch.matmul(a, b), plain, sigma)
+    results["M7"] = {"max_abs_err": (out.float() - plain.float()).abs().max().item()}
+    del out
+    log(f"[compiler] matmul_program M7 {(m, n, k)} bf16 (blocks {COMPILED_M7}): {units:.3g} "
+        f"units (lib_units; limit {BF16_ULPS:g}), control cuBLAS {control:.3g}")
+    if not (units <= BF16_ULPS and control <= BF16_ULPS):
+        raise AssertionError(f"M7: the emitted GEMM fails its limit ({units:.3g} units)")
+    launches = mm.launches
+    row13 = KERNELS["matmul"]
+    saved = row13.launches, row13.tc_launches
+    from repro_torch.kernels import ops
+    results["M7"].update(
+        ms=time_ms(torch, lambda: mm(a, b)),
+        row_ms=time_ms(torch, lambda: ops.matmul(a, b)),
+        plain_ms=time_ms(torch, lambda: ref.matmul(a, b, torch.bfloat16)),
+        library_ms=time_ms(torch, lambda: torch.matmul(a, b)),
+        bound=bound((m * k + k * n + m * n) * 2, 2.0 * m * n * k, BF16_FLOPS))
+    row13.launches, row13.tc_launches = saved
+    mm.launches = launches
+    del a, b, plain
+    # qwen2-1.5B's flash forward, bf16
+    case = ("train", TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, True)
+    q, kk, v = (t.contiguous() for t in flash_inputs(torch, case, torch.bfloat16, device))
+    fl = compiled["flash"]
+    out = fl(q, kk, v)  # the path's launch
+    plain = ref.attention(q, kk, v, causal=True)
+    ulps = bf16_ulps(torch, out, plain)
+    results["flash"] = {"max_abs_err": (out.float() - plain.float()).abs().max().item()}
+    log(f"[compiler] flash_attention_program (B {TRAIN_BATCH}, {HQ} over {HKV} heads, S "
+        f"{TRAIN_SEQ}, D {HEAD_DIM}, causal, bf16, blocks {COMPILED_FLASH}): {ulps:.2f} bf16 "
+        f"ulps of the plain version (limit {BF16_ULPS:g})")
+    if not (ulps <= BF16_ULPS and torch.isfinite(out).all()):
+        raise AssertionError(f"flash: the emitted kernel fails its limit ({ulps:.3g} ulps)")
+    launches = fl.launches
+    saved = FA.KERNEL.launches, FA.KERNEL.tc_launches
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results["flash"].update(
+        ms=time_ms(torch, lambda: fl(q, kk, v)),
+        row_ms=time_ms(torch, lambda: FA.flash_attention(q, kk, v, causal=True)),
+        plain_ms=time_ms(torch, lambda: ref.attention(q, kk, v, causal=True)),
+        library_ms=time_ms(torch, lambda: sdpa(q, kk, v, is_causal=True, enable_gqa=True)),
+        bound=bound((2 * q.numel() + kk.numel() + v.numel()) * 2,
+                    2.0 * 2 * HEAD_DIM * flash_pairs(case), BF16_FLOPS))
+    FA.KERNEL.launches, FA.KERNEL.tc_launches = saved
+    fl.launches = launches
+    del q, kk, v, out, plain
+    # the path's launches: one a program, comparisons and timings taken back
+    path = {name: compiled[name].launches for name in EMITTED}
+    log(f"[launches] the compiler's path: {json.dumps(path)}")
+    if not all(path.values()):
+        raise AssertionError(f"an emitted kernel was not launched on its path: {path}")
+    for name, (label, source, replaces) in EMITTED.items():
+        r, kern = results[name], compiled[name]
+        regs = ptxas_registers(build_log.get(kern.kernel.source.name, ""))
+        beside = (f", the hand-written row's {r['row_ms']:.4f} ms" if "row_ms" in r else "")
+        log(f"[compiler] {label}: {r['ms']:.4f} ms{beside}, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}); {kern.threads} threads, {kern.smem_bytes} B of shared memory, "
+            f"{regs}; grid {kern.info.grid}")
+        rows.append({"name": label, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                     "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    log(f"[time] phase 17 (the compiler): {time.perf_counter() - t0:.1f} s")
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -8,7 +8,45 @@ function), the Mamba-2 SSD's ``chunk_state`` and ``chunk_scan`` (each with
 its autograd function), the kernel library's ``matmul``,
 ``dequant_matmul`` and contiguous ``mla``, the plain PyTorch versions
 (``ref``) and the dispatch layer (``ops``), exported here as
-``repro.kernels`` exports its ``ops`` and ``ref``."""
-from . import ops, ref
+``repro.kernels`` exports its ``ops`` and ``ref``.
 
-__all__ = ["ops", "ref"]
+Beside the wrappers, the tile programs that the port's compiler
+(``repro_torch.core``) compiles: ``matmul_program`` (``matmul``),
+``flash_attention_program`` (``flash_attention``) and the attention core
+they compose (``attention_core``), each module with its ``PARITY_CASES``;
+:func:`parity_programs` and :func:`parity_inputs` are the registry of
+``repro.kernels`` (repro/kernels/__init__.py:36-80) over them."""
+from . import attention_core, flash_attention, matmul, ops, ref
+from .flash_attention import flash_attention_program
+from .matmul import matmul_program
+
+# the modules that declare PARITY_CASES, sorted by name as the JAX
+# package's discovery sorts them (the other modules here hold no program)
+PARITY_MODULES = (flash_attention, matmul)
+
+
+def parity_modules():
+    """Every module here that declares ``PARITY_CASES``."""
+    return list(PARITY_MODULES)
+
+
+def parity_programs():
+    """Yield ``(name, TileProgram)`` for every program at tiny shapes: one
+    entry per ``PARITY_CASES`` item of each module."""
+    for mod in parity_modules():
+        yield from mod.parity_programs()
+
+
+def parity_inputs(name, program, rng):
+    """Inputs for one parity case, or ``None`` for the generic random fill
+    (a module whose params carry semantic constraints defines a
+    ``parity_inputs(name, program, rng)`` hook; none here does yet)."""
+    for mod in parity_modules():
+        hook = getattr(mod, "parity_inputs", None)
+        if hook is not None and name in dict(mod.PARITY_CASES):
+            return hook(name, program, rng)
+    return None
+
+
+__all__ = ["ops", "ref", "attention_core", "matmul_program", "flash_attention_program",
+           "parity_modules", "parity_programs", "parity_inputs"]

@@ -10,7 +10,10 @@ flags, so an edited kernel rebuilds and an unchanged one loads from disk.
 A kernel's tile constants may be stated once, in its Python module, and
 reach its source as ``-D`` macros (``Kernel(defines=...)``).  Nothing is
 built at import: the first launch builds, or a caller builds every kernel
-at once, in parallel, with :func:`build_all`.
+at once, in parallel, with :func:`build_all`.  A kernel may also be
+generated text (the tile compiler's CUDA backend, ``core/backends/cuda.py``):
+``Kernel(text=...)`` writes it under ``_build/`` at build time and builds it
+with the same flags and rules.
 """
 from __future__ import annotations
 
@@ -57,11 +60,15 @@ class Kernel:
     ``defines`` (optional) are macros the source is compiled with, each
     ``-DNAME=value``: constants its wrapper's shape rule reads too, so they
     are stated in one place.  Kernels of one source pass the same ones.
+
+    ``text`` (optional) is a whole generated source in place of a
+    ``csrc/`` file; the library is named by a digest of it and the flags.
     """
 
     def __init__(self, name: str, entry: str, argtypes: Sequence,
                  replaces: str, source: Optional[str] = None,
-                 defines: Optional[Dict[str, int]] = None):
+                 defines: Optional[Dict[str, int]] = None,
+                 text: Optional[str] = None):
         self.name = name
         self.entry = entry
         self.argtypes = list(argtypes)
@@ -71,18 +78,27 @@ class Kernel:
         self.walk_launches = 0
         self._stem = source or name
         self.defines = dict(defines or {})
+        self.text = text
         self._fn = None
+
+    def _digest(self) -> str:
+        h = hashlib.sha256()
+        if self.text is not None:
+            h.update(self.text.encode())
+        else:
+            for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
+                h.update(src.read_bytes())
+        h.update(" ".join(self.flags()).encode())
+        return h.hexdigest()[:16]
 
     @property
     def source(self) -> Path:
+        if self.text is not None:
+            return BUILD_DIR / f"{self._stem}_{self._digest()}.cu"
         return CSRC / f"{self._stem}.cu"
 
     def library_path(self) -> Path:
-        h = hashlib.sha256()
-        for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
-            h.update(src.read_bytes())
-        h.update(" ".join(self.flags()).encode())
-        return BUILD_DIR / f"lib{self._stem}_{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{self._stem}_{self._digest()}.so"
 
     def flags(self) -> List[str]:
         return [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted(self.defines.items()))]
@@ -117,6 +133,8 @@ def build_all(kernels: Sequence[Kernel], log: Optional[Dict[str, str]] = None):
         if out.exists() or out in wanted:  # kernels of one source build once
             continue
         wanted.add(out)
+        if k.text is not None:
+            k.source.write_text(k.text)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs.append((k, out, tmp, subprocess.Popen(
             k.build_command(tmp), stdout=subprocess.PIPE,

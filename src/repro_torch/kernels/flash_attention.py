@@ -23,8 +23,12 @@ Q, K, V and writes the output through their strides, so the transposed
 views that ``layers.attention_full`` hands it cost no copy; a tensor whose
 rows are not 16-byte aligned, or whose last dimension is strided, is made
 contiguous first.
+
+The same module holds ``flash_attention_program`` itself, the tile program
+that the port's compiler (``repro_torch.core``) compiles with
+``target="cuda"`` or runs with ``target="reference"``, and its
+``PARITY_CASES``.
 """
-from __future__ import annotations
 
 import ctypes
 import math
@@ -32,6 +36,9 @@ from typing import Optional
 
 import torch
 
+from ..core import TileProgram
+from ..core import lang as T
+from . import attention_core as AC
 from . import ref
 from .build import Kernel, check
 from .paged_attention import DTYPES
@@ -221,3 +228,96 @@ class FlashAttentionFn(torch.autograd.Function):
                                     sm_scale=ctx.sm_scale)
             dq, dk, dv = torch.autograd.grad(out, inputs, dout)
         return dq, dk, dv, None, None
+
+
+# ---------------------------------------------------------------------------
+# The tile program (repro/kernels/flash_attention.py:25, paper Table 3 /
+# Fig. 12): online-softmax attention with the KV sequence streamed through
+# the pipelined loop, composed from the shared attention core
+# (attention_core.py): a contiguous KV source, per-head Q blocks (GQA through
+# the head index), and a causal mask.  The m/l running statistics live in
+# fragment buffers.
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_program(
+    batch: int,
+    heads: int,
+    kv_heads: int,
+    seq_q: int,
+    seq_kv: int,
+    head_dim: int,
+    causal: bool = False,
+    block_M: int = 128,
+    block_N: int = 128,
+    dtype: str = "float32",
+    accum_dtype: str = "float32",
+    num_stages: int = 2,
+    sm_scale: Optional[float] = None,
+) -> TileProgram:
+    if seq_q % block_M or seq_kv % block_N:
+        raise ValueError("sequence lengths must be divisible by block sizes")
+    if heads % kv_heads:
+        raise ValueError("GQA requires heads % kv_heads == 0")
+    group = heads // kv_heads
+    scale = (sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)) * 1.44269504  # log2(e)
+
+    @T.prim_func
+    def FlashAttn(
+        Q: T.Tensor((batch, heads, seq_q, head_dim), dtype),
+        K: T.Tensor((batch, kv_heads, seq_kv, head_dim), dtype),
+        V: T.Tensor((batch, kv_heads, seq_kv, head_dim), dtype),
+        Output: T.Tensor((batch, heads, seq_q, head_dim), dtype),
+    ):
+        with T.Kernel(T.ceildiv(seq_q, block_M), heads, batch, threads=256) as (bx, by, bz):
+            Q_shared = T.alloc_shared((block_M, head_dim), dtype)
+            K_shared = T.alloc_shared((block_N, head_dim), dtype)
+            V_shared = T.alloc_shared((block_N, head_dim), dtype)
+            acc_s = T.alloc_fragment((block_M, block_N), accum_dtype)
+            ons = AC.OnlineSoftmax(block_M, head_dim, scale, accum_dtype)
+
+            kv_head = by // group
+            T.copy(Q[bz, by, bx * block_M, 0], Q_shared)
+
+            def load_kv(k):
+                T.copy(K[bz, kv_head, k * block_N, 0], K_shared)
+                T.copy(V[bz, kv_head, k * block_N, 0], V_shared)
+                return K_shared, V_shared
+
+            def mask(k):
+                if not causal:
+                    return None
+                return AC.causal(
+                    lambda i: (bx * block_M + i) + (seq_kv - seq_q),
+                    lambda j: k * block_N + j,
+                )
+
+            AC.attend(
+                ons, acc_s, block_N, T.ceildiv(seq_kv, block_N), load_kv,
+                lambda s, ks, k: AC.scores(s, Q_shared, ks), mask,
+                num_stages=num_stages,
+            )
+            ons.finalize(Output[bz, by, bx * block_M, 0])
+
+    return FlashAttn
+
+
+# Tiny-shape configs of the backend-parity suite; covers GQA (heads !=
+# kv_heads) and the causal masked-elementwise path.
+PARITY_CASES = [
+    (
+        "flash_attention_gqa",
+        dict(batch=1, heads=2, kv_heads=1, seq_q=16, seq_kv=32, head_dim=16,
+             block_M=16, block_N=16),
+    ),
+    (
+        "flash_attention_causal",
+        dict(batch=1, heads=1, kv_heads=1, seq_q=32, seq_kv=32, head_dim=16,
+             causal=True, block_M=16, block_N=16),
+    ),
+]
+
+
+def parity_programs():
+    for name, cfg in PARITY_CASES:
+        yield name, flash_attention_program(**cfg)

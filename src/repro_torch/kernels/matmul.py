@@ -11,13 +11,19 @@ tensor cores, ``wgmma`` fed by TMA from M = ``WGMMA_MIN_M`` (17) up and
 ``mma.sync`` below it (the GEMVs, M <= 16); everything else the kernel's
 CUDA-core GEMM (fp32 FMAs, no TF32).  ``KERNEL.tc_launches`` counts the
 ``wgmma`` launches.
+
+The same module holds ``matmul_program`` itself, the tile program that the
+port's compiler (``repro_torch.core``) compiles with ``target="cuda"`` or
+runs with ``target="reference"``, and its ``PARITY_CASES``.
 """
-from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from ..core import TileProgram
+from ..core import lang as T
 from . import ref
 from .build import Kernel, check
 
@@ -87,3 +93,67 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     KERNEL.launches += 1
     KERNEL.tc_launches += int(path == "wgmma")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The tile program (repro/kernels/matmul.py:15, the paper's Fig. 16 almost
+# verbatim): tiles of A and B stream through shared windows inside a
+# pipelined reduction loop, accumulating into a fragment; scheduling (block
+# shapes, stages, swizzle) arrives via the factory arguments.
+# ---------------------------------------------------------------------------
+
+
+def matmul_program(
+    M: int,
+    N: int,
+    K: int,
+    in_dtype: str = "float32",
+    out_dtype: str = "float32",
+    accum_dtype: str = "float32",
+    block_M: int = 128,
+    block_N: int = 128,
+    block_K: int = 64,
+    num_stages: int = 2,
+    swizzle: Optional[int] = None,
+) -> TileProgram:
+    if M % block_M or N % block_N or K % block_K:
+        raise ValueError(
+            f"matmul {M}x{N}x{K}: blocks ({block_M},{block_N},{block_K}) must divide"
+        )
+
+    @T.prim_func
+    def Matmul(
+        A: T.Tensor((M, K), in_dtype),
+        B: T.Tensor((K, N), in_dtype),
+        C: T.Tensor((M, N), out_dtype),
+    ):
+        with T.Kernel(T.ceildiv(N, block_N), T.ceildiv(M, block_M), threads=128) as (bx, by):
+            A_shared = T.alloc_shared((block_M, block_K), in_dtype)
+            B_shared = T.alloc_shared((block_K, block_N), in_dtype)
+            C_local = T.alloc_fragment((block_M, block_N), accum_dtype)
+            if swizzle:
+                T.use_swizzle(swizzle)
+            T.clear(C_local)
+            for k in T.Pipelined(T.ceildiv(K, block_K), num_stages=num_stages):
+                T.copy(A[by * block_M, k * block_K], A_shared)
+                T.copy(B[k * block_K, bx * block_N], B_shared)
+                T.gemm(A_shared, B_shared, C_local)
+            T.copy(C_local, C[by * block_M, bx * block_N])
+
+    return Matmul
+
+
+# Tiny-shape configs of the backend-parity suite; the swizzled case covers
+# the flattened grid path (the CUDA backend's decode of blockIdx.x).
+PARITY_CASES = [
+    ("matmul_f32", dict(M=32, N=32, K=32, block_M=16, block_N=16, block_K=16)),
+    (
+        "matmul_swizzled",
+        dict(M=32, N=32, K=32, block_M=16, block_N=16, block_K=16, swizzle=2),
+    ),
+]
+
+
+def parity_programs():
+    for name, cfg in PARITY_CASES:
+        yield name, matmul_program(**cfg)

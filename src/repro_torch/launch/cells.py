@@ -408,8 +408,11 @@ def make_prefill_step(cfg: ModelConfig, mesh, cell: Cell) -> Callable:
         with torch.no_grad(), context():
             if cfg.is_encoder_decoder:
                 enc = encdec.encode(params, cfg, inputs["frames"])
-                logits = encdec.decode_full(params, cfg, inputs["tokens"], enc)
-                return logits[:, -1].float()
+                # the last position's logits alone, as XLA keeps of the
+                # reference's full logits when the step returns only them
+                x = encdec.decode_hidden(params, cfg, inputs["tokens"], enc)
+                x = L._hint("block_in", x[:, -1:])
+                return L.unembed(params["embed"], x, cfg)[:, 0].float()
             x, _ = lm.hidden_forward(
                 params, cfg, inputs["tokens"],
                 prefix_embeds=inputs.get("prefix_embeds"),

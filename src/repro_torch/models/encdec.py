@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
@@ -89,21 +90,29 @@ def _self_attn(p, x, cfg: ModelConfig, causal: bool, cache=None, pos=None):
     """Self-attention (encdec.py:73).  With ``cache`` ({"k", "v"} (B, Hkv,
     max_len, D) of one layer): the step's K/V are written at ``pos`` in
     place and the queries attend positions 0..pos through the plain
-    ``ref.attention``; without it, the sequence attends itself through
+    ``ref.attention``; strips that are DTensors (a one-token step on a
+    mesh) take ``layers._decode_sharded``, each rank writing and scoring its
+    own shards.  Without a cache, the sequence attends itself through
     ``ops.attention`` (the flash kernel on a card)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _attn_proj(p, x, h, hkv, hd)
-    if cache is not None:
+    if isinstance(cache, dict) and isinstance(cache["k"], DTensor):
+        # strips placed on a mesh: each rank writes and scores its own shards
+        out = L._decode_sharded(q.transpose(1, 2), k[:, 0], v[:, 0], cache["k"],
+                                cache["v"], pos.reshape(1).expand(b), None, None)
+    elif cache is not None:
         at = pos.reshape(1).long() + torch.arange(s, device=x.device)
         cache["k"].index_copy_(2, at, k.transpose(1, 2).to(cache["k"].dtype))
         cache["v"].index_copy_(2, at, v.transpose(1, 2).to(cache["v"].dtype))
         out = ref.attention(q.transpose(1, 2), cache["k"], cache["v"], causal=False,
                             kv_len=(pos + 1).to(torch.int32).expand(b))
     else:
-        out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                            causal=causal)
-    out = L.merge_heads(out, b, s)
+        out = ops.attention(L._hint("attn_q", q.transpose(1, 2)),
+                            L._hint("attn_kv", k.transpose(1, 2)),
+                            L._hint("attn_kv", v.transpose(1, 2)), causal=causal)
+        out = L._hint("attn_q", out)
+    out = L._hint("attn_out", L.merge_heads(out, b, s))
     return out.to(x.dtype) @ p["wo"]
 
 
@@ -113,8 +122,10 @@ def _cross_attn(p, x, enc_kv, cfg: ModelConfig):
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q = L.split_heads(x @ p["wq"], b, s, h, hd)
-    out = ref.attention(q.transpose(1, 2), enc_kv[0], enc_kv[1], causal=False)
-    out = L.merge_heads(out, b, s)
+    out = ref.attention(L._hint("attn_q", q.transpose(1, 2)), L._hint("attn_kv", enc_kv[0]),
+                        L._hint("attn_kv", enc_kv[1]), causal=False)
+    out = L._hint("attn_q", out)
+    out = L._hint("attn_out", L.merge_heads(out, b, s))
     return out.to(x.dtype) @ p["wo"]
 
 
@@ -126,10 +137,10 @@ def encode(params, cfg: ModelConfig, frames, unroll: int = 1):
     t = frames.shape[1]
     x = frames.to(L.dtype_of(cfg)) + params["enc_pos"][None, :t]
     for p in unstacked(params["enc_layers"]):
-        h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-        x = x + _self_attn(p["attn"], h, cfg, causal=False)
-        h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h2, cfg)
+        h = L._hint("attn_in", L.rmsnorm(x, p["norm1"], cfg.norm_eps))
+        x = x + L._hint("block_out", _self_attn(p["attn"], h, cfg, causal=False))
+        h2 = L._hint("block_in", L.rmsnorm(x, p["norm2"], cfg.norm_eps))
+        x = x + L._hint("block_out", L.mlp(p["mlp"], h2, cfg))
     return L.rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -139,20 +150,20 @@ def cross_kv(params, cfg: ModelConfig, enc_out) -> Tuple[torch.Tensor, torch.Ten
     b, t, _ = enc_out.shape
     ks, vs = [], []
     for p in unstacked(params["dec_layers"]):
-        ks.append((enc_out @ p["xattn"]["wk"]).reshape(
-            b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2))
-        vs.append((enc_out @ p["xattn"]["wv"]).reshape(
-            b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2))
+        ks.append(L.split_heads(enc_out @ p["xattn"]["wk"], b, t, cfg.num_kv_heads,
+                                cfg.head_dim).transpose(1, 2))
+        vs.append(L.split_heads(enc_out @ p["xattn"]["wv"], b, t, cfg.num_kv_heads,
+                                cfg.head_dim).transpose(1, 2))
     return torch.stack(ks), torch.stack(vs)
 
 
 def _dec_layer(p, x, ck, cv, cfg: ModelConfig):
-    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    x = x + _self_attn(p["attn"], h, cfg, causal=True)
-    hx = L.rmsnorm(x, p["norm_x"], cfg.norm_eps)
-    x = x + _cross_attn(p["xattn"], hx, (ck, cv), cfg)
-    h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h2, cfg)
+    h = L._hint("attn_in", L.rmsnorm(x, p["norm1"], cfg.norm_eps))
+    x = x + L._hint("block_out", _self_attn(p["attn"], h, cfg, causal=True))
+    hx = L._hint("attn_in", L.rmsnorm(x, p["norm_x"], cfg.norm_eps))
+    x = x + L._hint("block_out", _cross_attn(p["xattn"], hx, (ck, cv), cfg))
+    h2 = L._hint("block_in", L.rmsnorm(x, p["norm2"], cfg.norm_eps))
+    return x + L._hint("block_out", L.mlp(p["mlp"], h2, cfg))
 
 
 def decode_hidden(params, cfg: ModelConfig, tokens, enc_out, unroll: int = 1,
@@ -223,6 +234,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
                      for name in ("k", "v")}}
 
 
+def _layer_of(t, i: int):
+    """Layer ``i`` of a stacked cache leaf, a view.  A DTensor (its layer
+    axis whole) is sliced on each rank's shard: DTensor's own select runs
+    its propagation on the whole stack, which the dry run's memory tracker
+    counts as a step's allocation."""
+    if not isinstance(t, DTensor):
+        return t[i]
+    local = t.to_local()[i]
+    placements = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in t.placements]
+    return DTensor.from_local(local, t.device_mesh, placements, run_check=False,
+                              shape=t.shape[1:], stride=t.stride()[1:])
+
+
 def decode_step(params, cfg: ModelConfig, cache, token, pos, cross, unroll: int = 1):
     """One decode step (encdec.py:216): ``token`` (B,) at position ``pos``
     (an int or a 0-d tensor, the same for every row) over ``cross`` =
@@ -234,7 +258,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, cross, unroll: int 
     x = x + params["dec_pos"].index_select(0, pos.reshape(1).long())[None]
     ck, cv = cross
     for i, p in enumerate(unstacked(params["dec_layers"])):
-        kv = {name: cache["self"][name][i] for name in ("k", "v")}
+        kv = {name: _layer_of(cache["self"][name], i) for name in ("k", "v")}
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
         x = x + _self_attn(p["attn"], h, cfg, causal=False, cache=kv, pos=pos)
         hx = L.rmsnorm(x, p["norm_x"], cfg.norm_eps)

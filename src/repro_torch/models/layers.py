@@ -711,19 +711,40 @@ def mla_decode(params, x, cfg: ModelConfig, cache, pos, window=None):
     (clamped to the strip, as JAX's ``dynamic_update_slice`` clamps), in
     place, then the absorbed queries attend the strip under a length mask
     through ``ref.mla_masked``.  Returns the output projection (B, 1, d)."""
-    b = x.shape[0]
     q_nope, q_pe, c_kv, k_pe = _mla_decode_qkv(params, x, cfg, pos[:, None])
     ckv, kpe = cache["c_kv"], cache["k_pe"]
     at = pos.clamp(max=ckv.shape[1] - 1).long()
-    rows = torch.arange(b, device=x.device)
-    ckv[rows, at, 0] = c_kv.to(ckv.dtype)
-    kpe[rows, at, 0] = k_pe[:, 0].to(kpe.dtype)
+    _write_latent(ckv, at, c_kv)
+    _write_latent(kpe, at, k_pe[:, 0])
     dt = dtype_of(cfg)
     out = ref.mla_masked(
         _mla_absorbed_q(params, q_nope, cfg).to(dt), q_pe.to(dt), ckv[:, :, 0],
         kpe[:, :, 0], pos + 1, _mla_scale(cfg), window=window,
         logit_soft_cap=cfg.logit_soft_cap)
     return _mla_out_proj(params, out, x.dtype, cfg)[:, None]
+
+
+def _write_latent(strip, at, new):
+    """``strip[b, at[b], 0] = new[b]`` in place, ``strip`` (B, S, 1, W).  A
+    DTensor strip (``cells.cache_specs``: batch over the data axes, the
+    latent width over `model`, the positions whole) is written on each
+    rank's shards (``local_map``): DTensor has no rule for an in-place write
+    that would change its placement."""
+    if not isinstance(strip, DTensor):
+        strip[torch.arange(strip.shape[0], device=strip.device), at, 0] = new.to(strip.dtype)
+        return
+    sp = strip.placements
+    if Shard(1) in sp or Shard(2) in sp:
+        raise ValueError(f"a latent strip sharded along its positions: {sp}")
+    newp = tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(3) else Replicate()
+                 for p in sp)
+    atp = tuple(Shard(0) if p == Shard(0) else Replicate() for p in sp)
+
+    def run(sl, al, nl):
+        sl[torch.arange(sl.shape[0], device=sl.device), al, 0] = nl.to(sl.dtype)
+        return nl
+
+    shd.local_call(run, (strip, at, new), (sp, atp, newp), newp, strip.device_mesh)
 
 
 def mla_decode_paged(params, x, cfg: ModelConfig, cache, pos, tables,

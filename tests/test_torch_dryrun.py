@@ -2,7 +2,10 @@
 reduced qwen2 (dense), granite (GQA + MoE) and mamba2 (SSD) on a (2, 2)
 mesh of 4 fake ranks, for train, prefill and decode: every cell runs, its
 FLOPs a rank over the ranks cover the model's, and its state a rank is
-what the JAX package's specs give on the same mesh; the report's tables."""
+what the JAX package's specs give on the same mesh; the report's tables.
+The three cells that ended in error at full size (whisper's decode and
+prefill, deepseek-v2-lite's decode) run on the production single-pod mesh
+of 256 fake ranks."""
 import dataclasses
 import math
 
@@ -128,3 +131,26 @@ def test_report_tables_read_the_records(records):
     assert len(picks) == 3 and picks[0].shape == "train_4k"
     t = report.terms_of(recs[("qwen2_1_5b", "train_4k")])
     assert t.flops > 0 and t.analytic_bytes > 0 and t.link_bw == 450e9
+
+
+# the three cells that ended in error before their placements were repaired:
+# whisper's 6 heads and 1500 frames over `model` 16, deepseek's latent strips
+REPAIRED = [("whisper_tiny", "decode_32k"), ("whisper_tiny", "prefill_32k"),
+            ("deepseek_v2_lite_16b", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", REPAIRED, ids=["-".join(c) for c in REPAIRED])
+def test_repaired_single_pod_cell_runs_at_full_size(tmp_path, arch, shape):
+    """The named config and cell on the production single-pod mesh (a fake
+    group of 256 ranks): the step runs, and a rank's peak fits 80 GB."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    D.open_fake_group(256)
+    try:
+        rec = D.run_cell(arch, shape, "single_pod", force=True, out_dir=tmp_path)
+    finally:
+        dist.destroy_process_group()
+        torch.set_num_threads(threads)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["chips"] == 256 and rec["fits_80gb"]
+    assert rec["flops"] > 0 and rec["peak_bytes"] >= rec["state_bytes"] > 0

@@ -2,7 +2,11 @@
 ranks on one card): the GPipe pipeline on 4 ranks against the JAX package's
 sequential stack; the sharded training step at (data, model) = (2, 1) and
 (1, 2) against one process's, on a reduced qwen2 whose 3 q heads do not
-divide 2 (the sequence fallback and its causal cut); a checkpoint restored
+divide 2 (the sequence fallback and its causal cut); a reduced whisper whose
+3 heads and 7 encoder frames do not divide `model` 2 (prefill, cross K/V and
+decode steps on sequence-sharded strips) and reduced deepseek-v2-lite's
+decode on latent strips sharded over `model` against one process; a
+checkpoint restored
 onto a mesh (``restore(shardings=)``) and a state re-placed from data 1 to
 data 2 (``elastic_remesh``), every leaf byte for byte; the training CLI's
 1x1 mesh against the step without one, byte for byte; the meshes' refusals.
@@ -40,6 +44,82 @@ def small_cfg():
 CONFIGS = {"qwen2, 3 heads": small_cfg,
            "granite": lambda: get_config("granite_moe_3b_a800m").reduced(),
            "mamba2": lambda: get_config("mamba2_2_7b").reduced()}
+
+
+def whisper_cfg():
+    """Reduced whisper with 3 heads and 7 frames: neither divides 2."""
+    return dataclasses.replace(get_config("whisper_tiny").reduced(), num_heads=3,
+                               num_kv_heads=3, frontend_seq=7)
+
+
+W_BATCH, W_SEQ, W_CACHE, W_STEPS = 2, 6, 8, 3
+
+
+def whisper_run(cfg, mesh=None):
+    """Last-position prefill logits, then W_STEPS decode steps' logits and
+    the written self-attention strips, on ``mesh`` (the port's cells: hints,
+    ``cache_specs``) or in one process."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import cells
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+
+    params = encdec.init(cfg, 0, device="cpu")
+    g = np.random.default_rng(0)
+    frames = torch.from_numpy(
+        g.standard_normal((W_BATCH, cfg.frontend_seq, cfg.d_model)).astype(np.float32))
+    tokens = torch.from_numpy(g.integers(0, cfg.vocab_size, (W_BATCH, W_SEQ)).astype(np.int32))
+    enc = encdec.encode(params, cfg, frames)
+    cache = encdec.init_cache(cfg, W_BATCH, W_CACHE, device="cpu")
+    if mesh is None:
+        x = encdec.decode_hidden(params, cfg, tokens, enc)
+        prefill = L.unembed(params["embed"], x[:, -1:], cfg)[:, 0].float()
+        cross = encdec.cross_kv(params, cfg, enc)
+        logits = [encdec.decode_step(params, cfg, cache, tokens[:, i], i, cross)[0]
+                  for i in range(W_STEPS)]
+    else:
+        params = shd.place_tree(params, shd.named(mesh, shd.param_specs(params, cfg, mesh)))
+        prefill = cells.make_prefill_step(cfg, mesh, cells.Cell("p", "prefill", W_SEQ, W_BATCH))(
+            params, {"frames": frames, "tokens": tokens})
+        cache = shd.place_tree(cache, shd.named(mesh, cells.cache_specs(cfg, cache, mesh,
+                                                                         W_BATCH)))
+        enc = shd.place(enc, mesh, shd.Spec(*shd.batch_spec(mesh, W_BATCH), None, None))
+        with implicit_replication():
+            cross = encdec.cross_kv(params, cfg, enc)
+        step = cells.make_serve_step(cfg, mesh, cells.Cell("d", "decode", W_CACHE, W_BATCH))
+        logits = [step(params, cache, cross, tokens[:, i], torch.tensor(i, dtype=torch.int32))[0]
+                  for i in range(W_STEPS)]
+    return {"prefill": _numpy(prefill), "logits": np.stack([_numpy(t) for t in logits]),
+            **{f"cache/{k}": _numpy(v) for k, v in cache["self"].items()}}
+
+
+def mla_decode_run(mesh=None):
+    """W_STEPS decode steps of reduced deepseek-v2-lite (MLA + MoE) over the
+    contiguous latent strips, whose latent width ``cache_specs`` shards over
+    `model`: the logits and the written strips, on ``mesh`` or in one
+    process."""
+    from repro_torch.launch import cells
+    from repro_torch.models import lm
+
+    cfg = get_config("deepseek_v2_lite_16b").reduced()
+    params = lm.init(cfg, 0, device="cpu")
+    cache = lm.init_cache(cfg, W_BATCH, W_CACHE, layout="contiguous", device="cpu")
+    g = np.random.default_rng(2)
+    tokens = torch.from_numpy(g.integers(0, cfg.vocab_size, (W_BATCH, W_STEPS)).astype(np.int32))
+    if mesh is None:
+        logits = [lm.decode_step(params, cfg, cache, tokens[:, i],
+                                 torch.full((W_BATCH,), i, dtype=torch.int32))[0]
+                  for i in range(W_STEPS)]
+    else:
+        params = shd.place_tree(params, shd.named(mesh, shd.param_specs(params, cfg, mesh)))
+        cache.kv = shd.place_tree(cache.kv, shd.named(mesh, cells.cache_specs(
+            cfg, cache, mesh, W_BATCH)))
+        step = cells.make_serve_step(cfg, mesh, cells.Cell("d", "decode", W_CACHE, W_BATCH))
+        logits = [step(params, cache, tokens[:, i], torch.tensor(i, dtype=torch.int32))[0]
+                  for i in range(W_STEPS)]
+    return {"logits": np.stack([_numpy(t) for t in logits]),
+            **{k: _numpy(v) for k, v in _flat(cache.kv).items()}}
 
 
 def single_process(cfg):
@@ -97,6 +177,10 @@ def _mesh_worker(rank, world, port, ckpt_dir, host_state, queue):
                     state, m = step(state, data().batch_at(i))
                     metrics.append((m["loss"].item(), m["grad_norm"].item()))
                 out[name, shape] = (metrics, {k: _numpy(v) for k, v in _flat(state).items()})
+        model2 = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                            mesh_dim_names=("data", "model"))
+        out["whisper"] = whisper_run(whisper_cfg(), model2)
+        out["mla decode"] = mla_decode_run(model2)
         cfg = small_cfg()
         # the checkpoint back onto the data-2 mesh, and the host state re-placed
         mesh = DeviceMesh("cpu", torch.arange(2).reshape(2, 1),
@@ -127,6 +211,8 @@ def two_ranks(tmp_path_factory):
     checkpoint.save(state, 0, ckpt_dir)
     host_np = shd.tree_map_with_path(lambda _, t: t.numpy().copy(), state)
     singles = {name: single_process(make_cfg()) for name, make_cfg in CONFIGS.items()}
+    singles["whisper"] = whisper_run(whisper_cfg())
+    singles["mla decode"] = mla_decode_run()
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = pipeline.free_port()
@@ -155,6 +241,31 @@ def test_sharded_training_step_equals_one_process(two_ranks, name, shape):
     assert got.keys() == single.keys() and len(got) > 20
     for k in single:
         np.testing.assert_allclose(got[k], single[k], rtol=TOL, atol=TOL, err_msg=k)
+
+
+def test_whisper_heads_not_dividing_model_equal_one_process(two_ranks):
+    """3 heads and 7 frames over `model` 2: the cross K/V's heads gathered
+    before their view, the frames left whole, the decode strips written and
+    scored on their sequence shards; values within 1e-5 of one process."""
+    out, singles, _ = two_ranks
+    got, want = out["whisper"], singles["whisper"]
+    assert got.keys() == want.keys() and want["logits"].shape[0] == W_STEPS
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=TOL, atol=TOL, err_msg=k)
+    assert np.abs(want["cache/k"][:, :, :, :W_STEPS]).min() > 0  # the steps wrote
+
+
+def test_mla_decode_on_latent_strips_sharded_over_model_equals_one_process(two_ranks):
+    """The latent strips' in-place write on each rank's shard of the latent
+    width (``layers._write_latent``), then the scores summed over the shards
+    before the softmax: logits and strips within 1e-5 of one process."""
+    out, singles, _ = two_ranks
+    got, want = out["mla decode"], singles["mla decode"]
+    assert got.keys() == want.keys() and any(k.startswith("c_kv") for k in want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=TOL, atol=TOL, err_msg=k)
+    ckv = next(v for k, v in want.items() if k.startswith("c_kv"))
+    assert np.abs(ckv[:, :W_STEPS]).min() > 0  # the steps wrote
 
 
 @pytest.mark.parametrize("how", ["restored", "remeshed"])

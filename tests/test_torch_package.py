@@ -37,7 +37,18 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.distributed.sharding", "repro_torch.distributed.pipeline",
             "repro_torch.launch.mesh", "repro_torch.launch.cells",
             "repro_torch.launch.dryrun", "repro_torch.roofline.analysis",
-            "repro_torch.roofline.report"} <= set(names)
+            "repro_torch.roofline.report",
+            # the tile-DSL compiler and its programs
+            "repro_torch.core.expr", "repro_torch.core.buffer", "repro_torch.core.layout",
+            "repro_torch.core.tile_ops", "repro_torch.core.program",
+            "repro_torch.core.schedule", "repro_torch.core.infer",
+            "repro_torch.core.compiler", "repro_torch.core.errors",
+            "repro_torch.core.lowering.phases", "repro_torch.core.lowering.windows",
+            "repro_torch.core.lowering.indexing", "repro_torch.core.lowering.grid",
+            "repro_torch.core.lowering.cost", "repro_torch.core.lowering.fingerprint",
+            "repro_torch.core.lowering.verify", "repro_torch.core.lowering.module",
+            "repro_torch.core.lowering.pipeline", "repro_torch.core.backends.reference",
+            "repro_torch.core.backends.cuda", "repro_torch.kernels.attention_core"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"

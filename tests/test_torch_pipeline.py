@@ -1,0 +1,599 @@
+"""The port's pass pipeline, backend registry and backends (``repro_torch.
+core``) against the JAX package's (``tests/test_pipeline.py``).
+
+* the per-pass unit tests of the JAX suite on the port, and every prefix of
+  ``PIPELINE`` run on ``small_gemm_program`` in both packages, the fields
+  each prefix fills equal;
+* across the packages, for every PARITY_CASES entry of ``kernels/matmul.py``
+  and ``kernels/flash_attention.py`` plus the quickstart's and
+  ``small_gemm_program``: phases, windows (index maps evaluated at sample
+  grid points), grid, dimension semantics, stages, params, cost FLOPs and
+  HBM bytes and the verifier's obligations equal exactly; the shared-memory
+  plan (the port's own, for the card) against bytes reckoned by hand;
+* the port's ``reference`` and ``sanitize`` backends against the JAX
+  package's ``reference`` backend and its ``pallas`` backend in interpret
+  mode, on the same numpy inputs from a seed, at 1e-5;
+* the CUDA backend here, without ``nvcc`` or a card: its text exists for
+  every case, is identical for two independent traces, asks for the plan's
+  shared memory, keeps Python's floor rule; the ops it does not take yet
+  raise at compile time naming ROADMAP Queue 1 item 19; a ``cuda`` kernel
+  called on CPU tensors raises.
+"""
+import importlib.util
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Schedule as JSchedule
+from repro.core import compile as jcompile
+from repro.core.lowering import LoweredModule as JLoweredModule
+from repro.core.lowering import PIPELINE as JPIPELINE
+from repro.core.lowering import make_index_map as jmake_index_map
+from repro.kernels import flash_attention as jflash
+from repro.kernels import matmul as jmatmul
+from repro_torch.core import (
+    LoweringError,
+    Schedule,
+    analyze,
+    available_backends,
+    compile as tl_compile,
+    get_backend,
+    program_fingerprint,
+    register_backend,
+)
+from repro_torch.core import lang as T
+from repro_torch.core.lowering import (
+    LOOP,
+    PIPELINE,
+    POST,
+    LoweredModule,
+    make_index_map,
+    run_pipeline,
+    schedule_key,
+)
+from repro_torch.core.lowering.pipeline import (
+    pass_collect_windows,
+    pass_estimate_cost,
+    pass_plan_grid,
+    pass_plan_params,
+    pass_plan_stages,
+    pass_plan_vmem,
+    pass_split_phases,
+)
+from repro_torch.kernels import parity_inputs, parity_programs
+from repro_torch.kernels.flash_attention import flash_attention_program
+from repro_torch.kernels.matmul import matmul_program
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def small_gemm_program(T=T, bm=16, bn=16, bk=16, kext=2):
+    """Hand-built pipelined GEMM used by the per-pass unit tests (the JAX
+    suite's, traced with either package's ``T``)."""
+    M, N, K = 2 * bm, 2 * bn, kext * bk
+
+    @T.prim_func
+    def SmallGemm(
+        A: T.Tensor((M, K), "float32"),
+        B: T.Tensor((K, N), "float32"),
+        C: T.Tensor((M, N), "float32"),
+    ):
+        with T.Kernel(N // bn, M // bm) as (bx, by):
+            A_s = T.alloc_shared((bm, bk))
+            B_s = T.alloc_shared((bk, bn))
+            C_l = T.alloc_fragment((bm, bn))
+            T.clear(C_l)
+            for k in T.Pipelined(kext, num_stages=2):
+                T.copy(A[by * bm, k * bk], A_s)
+                T.copy(B[k * bk, bx * bn], B_s)
+                T.gemm(A_s, B_s, C_l)
+            T.copy(C_l, C[by * bm, bx * bn])
+
+    return SmallGemm
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _jax_quickstart():
+    """The JAX quickstart's program without running its script: its
+    ``Matmul`` body at its shapes."""
+    from repro.core import lang as JT
+
+    M = N = K = 512
+    bM = bN = bK = 128
+
+    @JT.prim_func
+    def Matmul(A: JT.Tensor((M, K), "float32"), B: JT.Tensor((K, N), "float32"),
+               C: JT.Tensor((M, N), "float32")):
+        with JT.Kernel(JT.ceildiv(N, bN), JT.ceildiv(M, bM), threads=128) as (bx, by):
+            A_shared = JT.alloc_shared((bM, bK), "float32")
+            B_shared = JT.alloc_shared((bK, bN), "float32")
+            C_local = JT.alloc_fragment((bM, bN), "float32")
+            JT.clear(C_local)
+            for k in JT.Pipelined(JT.ceildiv(K, bK), num_stages=2):
+                JT.copy(A[by * bM, k * bK], A_shared)
+                JT.copy(B[k * bK, bx * bN], B_shared)
+                JT.gemm(A_shared, B_shared, C_local)
+            JT.copy(C_local, C[by * bM, bx * bN])
+
+    return Matmul
+
+
+def _pairs():
+    """(name, port program factory, JAX program factory) of every case."""
+    from repro.core import lang as JT
+
+    out = [(n, lambda c=c: matmul_program(**c), lambda c=c: jmatmul.matmul_program(**c))
+           for n, c in jmatmul.PARITY_CASES]
+    out += [(n, lambda c=c: flash_attention_program(**c),
+             lambda c=c: jflash.flash_attention_program(**c)) for n, c in jflash.PARITY_CASES]
+    out.append(("quickstart", lambda: _example("torch_quickstart").Matmul, _jax_quickstart))
+    out.append(("small_gemm", small_gemm_program, lambda: small_gemm_program(JT)))
+    return out
+
+
+PAIRS = {n: (p, j) for n, p, j in _pairs()}
+
+
+# ---------------------------------------------------------------------------
+# Per-pass unit tests
+# ---------------------------------------------------------------------------
+
+
+class TestPasses:
+    def _module(self, *passes, schedule=None):
+        m = LoweredModule(small_gemm_program(), schedule or Schedule())
+        for p in passes:
+            p(m)
+        return m
+
+    def test_split_phases(self):
+        m = self._module(pass_split_phases)
+        assert len(m.phases.pre) == 1  # the clear
+        assert m.phases.pipeline is not None and m.phases.pipeline.extent == 2
+        assert len(m.phases.post) == 1  # the store copy
+
+    def test_collect_windows(self):
+        m = self._module(pass_split_phases, pass_collect_windows)
+        assert len(m.in_windows) == 2 and len(m.out_windows) == 1
+        assert all(w.phase == LOOP for w in m.in_windows)
+        assert m.out_windows[0].phase == POST
+        assert set(m.fed_by) == {w.onchip.name for w in m.in_windows}
+
+    def test_plan_grid_orders_axes(self):
+        m = self._module(pass_split_phases, pass_collect_windows, pass_plan_grid)
+        # (by, bx) reversed + the pipelined axis innermost
+        assert m.grid == (2, 2, 2)
+        assert m.grid_plan.dimension_semantics == ("parallel", "parallel", "arbitrary")
+        assert m.grid_plan.kdim == 2
+        env = m.grid_plan.env_builder(1, 0, 1)
+        assert env["bx"] == 0 and env["by"] == 1
+
+    def test_plan_stages_schedule_override(self):
+        m = self._module(pass_split_phases, pass_plan_stages)
+        assert m.num_stages == 2  # from T.Pipelined
+        m2 = self._module(pass_split_phases, pass_plan_stages, schedule=Schedule(num_stages=3))
+        assert m2.num_stages == 3
+
+    def test_plan_vmem_lays_out_shared_memory(self):
+        m = self._module(pass_split_phases, pass_collect_windows, pass_plan_stages,
+                         pass_plan_vmem)
+        # one copy a tile (the backend stages one at a time), 16-byte aligned
+        assert [b.copies for b in m.vmem.buffers] == [1, 1, 1]
+        assert [b.offset for b in m.vmem.buffers] == [0, 1024, 2048]
+        assert m.vmem.total_bytes == 3 * 16 * 16 * 4 and m.vmem.ok
+
+    def test_plan_params(self):
+        m = self._module(pass_split_phases, pass_collect_windows, pass_plan_params)
+        assert [p.name for p in m.arg_params] == ["A", "B"]
+        assert [p.name for p in m.out_params] == ["C"]
+        assert m.window_param_idx == [0, 1]
+        # the fragment accumulator is scratch (not window-backed)
+        assert [b.name for b in m.scratch_bufs] == [m.phases.pre[0].buffer.name]
+
+    def test_estimate_cost(self):
+        m = self._module(pass_split_phases, pass_collect_windows, pass_plan_grid,
+                         pass_plan_stages, pass_plan_vmem, pass_plan_params,
+                         pass_estimate_cost)
+        # 2*M*N*K flops for the full problem
+        assert m.cost.flops == 2 * 32 * 32 * 32
+        assert m.cost.hbm_bytes > 0
+        assert m.cost.grid == (2, 2, 2)
+        # judged against the H100's peaks (roofline.analysis.HW_H100)
+        assert m.cost.compute_seconds() == pytest.approx(m.cost.flops / 989e12)
+        assert m.cost.memory_seconds() == pytest.approx(m.cost.hbm_bytes / 3.35e12)
+
+    def test_run_pipeline_fills_everything(self):
+        m = run_pipeline(small_gemm_program(), Schedule())
+        for field in ("phases", "inference", "grid_plan", "vmem", "cost"):
+            assert getattr(m, field) is not None, field
+        assert PIPELINE[0][0] == "split_phases" and PIPELINE[-1][0] == "estimate_cost"
+
+
+# the fields each pass fills, read the same way in both packages
+_FIELDS = {
+    "split_phases": lambda m: (len(m.phases.pre), m.phases.pipeline.extent, len(m.phases.post)),
+    "infer_layouts": lambda m: ([(g.m, g.n, g.k) for g in m.inference.gemms],
+                                [p.extents for p in m.inference.parallels]),
+    "collect_windows": lambda m: [(w.param.name, w.phase, w.is_output, w.aliased, w.block_shape)
+                                  for w in (*m.in_windows, *m.out_windows)],
+    "plan_grid": lambda m: (m.grid, m.dimension_semantics, m.grid_plan.kdim),
+    "plan_stages": lambda m: m.num_stages,
+    "plan_vmem": lambda m: [(b.scope, b.logical_shape)
+                            for b in m.vmem.buffers],
+    "plan_params": lambda m: ([p.name for p in m.arg_params], [p.name for p in m.out_params],
+                              m.window_param_idx, len(m.scratch_bufs)),
+    "verify": lambda m: [(o.kind, o.param, o.tables, o.axis) for o in m.obligations],
+    "estimate_cost": lambda m: (m.cost.flops, m.cost.hbm_bytes, m.cost.grid),
+}
+
+
+@pytest.mark.parametrize("upto", range(1, len(PIPELINE) + 1),
+                         ids=[name for name, _ in PIPELINE])
+def test_pipeline_prefix_equals_the_jax_packages(upto):
+    """Every prefix of PIPELINE on small_gemm_program in both packages: the
+    same passes in the same order, and the fields each fills equal."""
+    from repro.core import lang as JT
+
+    assert [n for n, _ in PIPELINE] == [n for n, _ in JPIPELINE]
+    m = LoweredModule(small_gemm_program(), Schedule())
+    jm = JLoweredModule(small_gemm_program(JT), JSchedule())
+    for (name, p), (_, jp) in zip(PIPELINE[:upto], JPIPELINE[:upto]):
+        p(m)
+        jp(jm)
+    name = PIPELINE[upto - 1][0]
+    assert _FIELDS[name](m) == _FIELDS[name](jm), name
+
+
+class TestFingerprintAndCache:
+    def test_fingerprint_stable_across_retrace(self):
+        assert program_fingerprint(small_gemm_program()) == program_fingerprint(
+            small_gemm_program())
+
+    def test_fingerprint_distinguishes_structure(self):
+        assert program_fingerprint(small_gemm_program(bk=16)) != program_fingerprint(
+            small_gemm_program(bk=8, kext=4))
+
+    def test_schedule_key_excludes_notes(self):
+        a, b = Schedule(), Schedule()
+        b.notes["advisory"] = 1
+        assert schedule_key(a) == schedule_key(b)
+        assert schedule_key(Schedule(num_stages=3)) != schedule_key(a)
+
+    def test_analysis_cache_shared_across_retrace(self):
+        sched = Schedule()
+        assert analyze(small_gemm_program(), sched) is analyze(small_gemm_program(), sched)
+
+    def test_compile_cache_returns_same_kernel(self):
+        k1 = tl_compile(small_gemm_program(), target="reference")
+        k2 = tl_compile(small_gemm_program(), target="ref")
+        assert k1 is k2
+        # a different target is a different cache entry
+        k3 = tl_compile(small_gemm_program(), target="cuda")
+        assert k3 is not k1 and k3.backend == "cuda"
+
+
+class TestRegistry:
+    def test_builtins_registered(self):
+        assert set(available_backends()) >= {"cuda", "reference", "sanitize"}
+
+    def test_aliases(self):
+        assert get_backend("ref") is get_backend("reference")
+        assert get_backend("interp") is get_backend("reference")
+        assert get_backend("gpu") is get_backend("cuda")
+
+    def test_default_target_is_cuda(self):
+        from repro_torch.core.compiler import DEFAULT_TARGET
+
+        assert DEFAULT_TARGET == "cuda"
+        assert tl_compile(small_gemm_program()).backend == "cuda"
+
+    def test_unknown_backend_raises(self):
+        with pytest.raises(LoweringError, match="Unknown backend"):
+            tl_compile(small_gemm_program(), target="pallas")
+
+    def test_register_third_party_backend(self):
+        calls = {}
+
+        @register_backend("_test_counting")
+        def emit(module):
+            calls["module"] = module
+            return get_backend("reference")(module)
+
+        try:
+            kern = tl_compile(small_gemm_program(), target="_test_counting")
+            assert calls["module"].program is kern.program
+            a = torch.ones((32, 32))
+            torch.testing.assert_close(kern(a, a), a @ a, rtol=1e-5, atol=0)
+        finally:
+            from repro_torch.core.backends import _REGISTRY
+
+            _REGISTRY.pop("_test_counting", None)
+
+
+# ---------------------------------------------------------------------------
+# Across the packages: the analysis, field by field
+# ---------------------------------------------------------------------------
+
+
+def _index_points(m, jm, w, jw):
+    """Each window's index map at every grid point (the JAX package's and
+    the port's), on tiny grids every point, else a sample."""
+    import itertools
+
+    pts = list(itertools.product(*[range(e) for e in m.grid]))[:64]
+    f = make_index_map(w.region, m.grid_plan.env_builder)
+    jf = jmake_index_map(jw.region, jm.grid_plan.env_builder)
+    return ([tuple(int(v) for v in f(*p)) for p in pts],
+            [tuple(int(v) for v in jf(*p)) for p in pts])
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_analysis_equals_the_jax_packages(name):
+    port, jax_prog = PAIRS[name]
+    m, jm = analyze(port(), Schedule()), _jax_analyze(jax_prog())
+    phase = lambda ph: ([type(o).__name__ for o in ph.pre],  # noqa: E731
+                        [type(o).__name__ for o in ph.pipeline.body] if ph.pipeline else None,
+                        [type(o).__name__ for o in ph.post])
+    assert phase(m.phases) == phase(jm.phases)
+    windows = lambda mm: [(w.param.name, w.phase, w.is_output, w.aliased, w.block_shape,  # noqa
+                           w.onchip is not None) for w in (*mm.in_windows, *mm.out_windows)]
+    assert windows(m) == windows(jm)
+    for w, jw in zip((*m.in_windows, *m.out_windows), (*jm.in_windows, *jm.out_windows)):
+        got, want = _index_points(m, jm, w, jw)
+        assert got == want, w.param.name
+    assert m.grid == jm.grid and m.dimension_semantics == jm.dimension_semantics
+    assert m.grid_plan.kdim == jm.grid_plan.kdim and m.num_stages == jm.num_stages
+    assert _FIELDS["plan_params"](m) == _FIELDS["plan_params"](jm)
+    assert (m.cost.flops, m.cost.hbm_bytes, m.cost.grid) == (
+        jm.cost.flops, jm.cost.hbm_bytes, jm.cost.grid)
+    assert _FIELDS["verify"](m) == _FIELDS["verify"](jm)
+    assert [(g.m, g.n, g.k) for g in m.inference.gemms] == [
+        (g.m, g.n, g.k) for g in jm.inference.gemms]
+
+
+def _jax_analyze(prog):
+    from repro.core import analyze as janalyze
+
+    return janalyze(prog, JSchedule())
+
+
+def test_shared_memory_plan_reckoned_by_hand():
+    """The card's plan: every shared and fragment buffer once, rows padded
+    to whole 16-byte vectors, a tensor-core operand whose rows are whole
+    128-byte bank lines one vector wider, offsets 16-byte aligned."""
+    qs = analyze(_example("torch_quickstart").Matmul)
+    # A, B and C at 128 x 128 fp32, the GEMM on the CUDA cores
+    assert [b.offset for b in qs.vmem.buffers] == [0, 65536, 131072]
+    assert qs.vmem.total_bytes == 3 * 128 * 128 * 4 == 196608
+    fl = analyze(flash_attention_program(8, 12, 2, 1024, 1024, 128, True, 64, 64,
+                                         dtype="bfloat16"))
+    # Q and K (the scores' tensor-core operands) 64 x (128 + 8) bf16, V
+    # 64 x 128 bf16 (P.V takes fp32 P: CUDA cores), the scores 64 x (64 + 4)
+    # fp32, the output accumulator 64 x 128 fp32, five fp32 rows of 64
+    by_hand = 2 * 64 * 136 * 2 + 64 * 128 * 2 + 64 * 68 * 4 + 64 * 128 * 4 + 5 * 64 * 4
+    assert fl.vmem.total_bytes == by_hand == 102656 and fl.vmem.ok
+    m7 = analyze(matmul_program(8192, 8192, 28672, "bfloat16", "bfloat16"))
+    assert m7.vmem.total_bytes == 128 * 72 * 2 + 64 * 136 * 2 + 128 * 132 * 4 == 103424
+    # flash at 128 x 128: over the block's 232,448 bytes, so the card refuses
+    big = analyze(flash_attention_program(8, 12, 2, 1024, 1024, 128, True, 128, 128,
+                                          dtype="bfloat16"))
+    assert big.vmem.total_bytes == 2 * 128 * 136 * 2 + 128 * 128 * 2 + 128 * 132 * 4 \
+        + 128 * 128 * 4 + 5 * 128 * 4 == 238080 and not big.vmem.ok
+
+
+# ---------------------------------------------------------------------------
+# Backend parity: the port's interpreters against the JAX package's backends
+# ---------------------------------------------------------------------------
+
+_CASES = dict(parity_programs())
+
+
+def _make_input(param, rng):
+    if param.dtype.startswith(("int", "uint")):
+        return rng.integers(-4, 4, size=param.shape).astype(param.dtype)
+    return rng.standard_normal(param.shape).astype(param.dtype)
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_backend_parity_with_the_jax_package(name):
+    port, jax_prog = PAIRS[name]
+    prog, jprog = port(), jax_prog()
+    rk, sk = tl_compile(prog, target="reference"), tl_compile(prog, target="sanitize")
+    jr = jcompile(jprog, target="reference")
+    jp = jcompile(jprog, JSchedule(interpret=True), target="pallas")
+    assert [p.name for p in rk.arg_params] == [p.name for p in jr.arg_params]
+    rng = np.random.default_rng(0)
+    args = parity_inputs(name, prog, rng)
+    if args is None:
+        args = [_make_input(p, rng) for p in rk.arg_params]
+    got = rk(*[torch.from_numpy(a) for a in args]).numpy()
+    np.testing.assert_array_equal(sk(*[torch.from_numpy(a) for a in args]).numpy(), got)
+    for want in (jr(*args), jp(*args)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_parity_registry_mirrors_the_jax_packages():
+    names = [n for n, _ in parity_programs()]
+    assert names == [n for n, _ in jflash.PARITY_CASES] + [n for n, _ in jmatmul.PARITY_CASES]
+    assert all(parity_inputs(n, p, np.random.default_rng(0)) is None for n, p in _CASES.items())
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_dequant_stage_scratch_is_vector_aligned(fmt):
+    """The attention core's quantized KV source: its local unpack scratch
+    rows are whole 16-byte vectors (the TPU's: whole 128 lanes), its window
+    mirrors the page layout, and it dequantizes as the plain rule does."""
+    from repro_torch.kernels import attention_core as AC
+
+    rows, feat = 8, 24
+    cols = feat // AC.KV_PACK[fmt]
+
+    @T.prim_func
+    def Deq(P: T.Tensor((rows, cols), "int8"), S: T.Tensor((rows, 1), "float32"),
+            O: T.Tensor((rows, feat), "float32")):
+        with T.Kernel(1) as bx:
+            st = AC.DequantStage(rows, feat, fmt)
+            T.copy(st.load(P[0, 0], S[0, 0]), O[0, 0])
+
+    m = run_pipeline(Deq, Schedule())
+    scratch = [b for b in m.scratch_bufs if b.dtype == "int8"]
+    assert scratch and all(b.shape[-1] % 16 == 0 for b in scratch)
+    assert [w.onchip.shape[-1] for w in m.in_windows if w.onchip.dtype == "int8"] == [cols]
+    rng = np.random.default_rng(1)
+    packed = rng.integers(-128, 128, (rows, cols)).astype(np.int8)
+    scale = rng.standard_normal((rows, 1)).astype(np.float32)
+    got = tl_compile(Deq, target="reference")(torch.from_numpy(packed), torch.from_numpy(scale))
+    if fmt == "int4":
+        lo, hi = packed & 15, (packed >> 4) & 15
+        codes = np.stack([lo, hi], -1).reshape(rows, feat).astype(np.int32)
+        codes = np.where(codes >= 8, codes - 16, codes)
+    else:
+        codes = packed.astype(np.int32)
+    np.testing.assert_allclose(got.numpy(), codes * scale, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA backend without a card
+# ---------------------------------------------------------------------------
+
+
+def _cuda(prog):
+    return tl_compile(prog, target="cuda", use_cache=False)
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_cuda_source_is_deterministic_and_asks_for_the_plan(name):
+    port, _ = PAIRS[name]
+    k1, k2 = _cuda(port()), _cuda(port())
+    assert k1.backend == "cuda" and k1.source and k1.source == k2.source
+    m = analyze(port())
+    blocks = int(np.prod([e for i, e in enumerate(m.grid) if i != m.grid_plan.kdim]))
+    threads = port().threads or 128
+    assert k1.smem_bytes == m.vmem.total_bytes
+    assert f"<<<{blocks}, {threads}, {m.vmem.total_bytes}, " in k1.source
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in k1.source
+    assert 'extern "C" int tl_launch(' in k1.source
+    # every shared buffer at its planned offset
+    for i, b in enumerate(m.vmem.buffers):
+        assert f"(tl_smem + {b.offset});" in k1.source
+    assert k1.kernel.text == k1.source and k1.launches == 0
+
+
+def test_cuda_source_keeps_python_floor_semantics():
+    """An index that may be negative goes through the floor helpers; one
+    that cannot stays C's ``/`` and ``%``."""
+
+    @T.prim_func
+    def Shift(X: T.Tensor((4, 32), "float32"), O: T.Tensor((4, 32), "float32")):
+        with T.Kernel(1) as bx:
+            xs = T.alloc_shared((4, 32), "float32")
+            ys = T.alloc_fragment((4, 32), "float32")
+            T.copy(X[0, 0], xs)
+            for i, j in T.Parallel(4, 32):
+                ys[i, j] = xs[(i - 2) % 4, (j - 5) // 2 + 3]
+            T.copy(ys, O[0, 0])
+
+    src = _cuda(Shift).source
+    assert "tl_mod((v" in src and "tl_floordiv((v" in src
+    x = torch.arange(128, dtype=torch.float32).reshape(4, 32)
+    got = tl_compile(Shift, target="reference")(x)
+    want = torch.stack([x[(i - 2) % 4, [(j - 5) // 2 + 3 for j in range(32)]]
+                        for i in range(4)])
+    torch.testing.assert_close(got, want)
+
+
+def test_cuda_source_types_and_literals():
+    """bf16 tiles load and store through conversions, a value of a 16-bit
+    type rounds to nearest even, -inf is INFINITY, and NEG_CLAMP stays a
+    float literal."""
+    from repro_torch.kernels.attention_core import NEG_CLAMP
+
+    src = _cuda(flash_attention_program(1, 2, 1, 32, 32, 16, True, 16, 16,
+                                        dtype="bfloat16")).source
+    assert "__nv_bfloat16" in src and "__float2bfloat16_rn(" in src
+    assert "__bfloat162float(" in src and "(-INFINITY)" in src
+    assert f"{NEG_CLAMP!r}f" in src and "exp2f(" in src
+    assert "nvcuda::wmma::mma_sync" in src  # Q.K^T on the tensor cores
+
+
+def _unsupported():
+    @T.prim_func
+    def Custom(X: T.Tensor((8, 32), "float32"), O: T.Tensor((8, 32), "float32")):
+        with T.Kernel(1) as bx:
+            xs = T.alloc_shared((8, 32), "float32")
+            sm = T.alloc_fragment((8, 32), "float32")
+            T.copy(X[0, 0], xs)
+            T.call_tile_lib(lambda v: v * 2, sm, xs, name="double")
+            T.copy(sm, O[0, 0])
+
+    @T.prim_func
+    def Atomic(X: T.Tensor((4, 8, 32), "float32"), O: T.Tensor((8, 32), "float32")):
+        with T.Kernel(4) as bx:
+            xs = T.alloc_shared((8, 32), "float32")
+            T.copy(X[bx, 0, 0], xs)
+            T.atomic_add(O[0, 0], xs)
+
+    @T.prim_func
+    def Cumsum(X: T.Tensor((8, 32), "float32"), O: T.Tensor((8, 32), "float32")):
+        with T.Kernel(1) as bx:
+            xs = T.alloc_shared((8, 32), "float32")
+            cs = T.alloc_fragment((8, 32), "float32")
+            T.copy(X[0, 0], xs)
+            T.cumsum(xs, cs, dim=1)
+            T.copy(cs, O[0, 0])
+
+    @T.prim_func
+    def Gather(Tbl: T.ScalarTensor((4,), "int32"), Src: T.Tensor((4, 8, 32), "float32"),
+               Out: T.Tensor((4, 8, 32), "float32")):
+        with T.Kernel(4) as bx:
+            s = T.alloc_shared((8, 32), "float32")
+            T.copy(Src[Tbl[bx], 0, 0], s)
+            T.copy(s, Out[bx, 0, 0])
+
+    return {"CustomOp 'double'": Custom, "AtomicOp atomic_add": Atomic,
+            "CumsumOp": Cumsum, "scalar-prefetch table 'Tbl'": Gather}
+
+
+@pytest.mark.parametrize("what", sorted(_unsupported()))
+def test_cuda_backend_raises_for_what_it_does_not_take_yet(what):
+    prog = _unsupported()[what]
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(what) + ".*ROADMAP Queue 1 item 19, second half"):
+        _cuda(prog)
+    # the reference interpreter still runs it: nothing falls back silently
+    assert tl_compile(prog, target="reference").backend == "reference"
+
+
+def test_cuda_kernel_without_a_card_raises():
+    kern = _cuda(small_gemm_program())
+    a = torch.ones((32, 32))
+    with pytest.raises(RuntimeError, match="compiled for target 'cuda'"):
+        kern(a, a)
+    assert kern.launches == 0
+
+
+def test_quickstart_runs_on_the_cpu_only_when_asked(monkeypatch, capsys):
+    qs = _example("torch_quickstart")
+    res = qs.main(["--device", "cpu"])
+    assert res["kernel"].backend == "reference" and res["err"] <= 1e-4
+    assert "matmul matches torch" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        qs.main([])
