@@ -298,16 +298,30 @@ batch and a decode step's drop other tokens, as in the reference);
    ``core/backends/cuda.py`` and built in phase 1 beside the hand-written
    kernels): the quickstart's Fig. 16 matmul (examples/torch_quickstart.py,
    fp32 512^3) within 1e-4 of max |plain|; every PARITY_CASES entry of
-   ``kernels/matmul.py`` and ``kernels/flash_attention.py`` against the
-   port's ``reference`` interpreter run on the card on the same seeded
-   inputs, within 1e-5 of max(1, max |reference|); ``matmul_program`` at
+   ``kernels/matmul.py``, ``kernels/flash_attention.py``,
+   ``kernels/paged_attention.py`` and ``kernels/prefill_attention.py``
+   against the port's ``reference`` interpreter run on the card on the same
+   seeded inputs (the paged modules' ``parity_inputs``: valid block tables),
+   every output (the prefill's pools too, page 0 excluded where a dead chunk
+   page writes it) within 1e-5 of max(1, max |reference|); ``matmul_program`` at
    Table 2's M7 (bf16, blocks 128 x 128 x 64) within 2 ``lib_units`` of the
    plain version (row 13's limit, cuBLAS's product as its control), timed
    beside row 13's kernel and ``torch.matmul``; ``flash_attention_program`` at qwen2-1.5B's training
    shape (bf16, causal, 64 x 64 blocks) within 2 bf16 ulps of the plain
-   version, timed beside row 10's kernel and SDPA.  Each emitted kernel's
-   launches are counted on that path run (the comparisons' and timings'
-   taken back), its registers (``-Xptxas -v``) and shared memory printed.
+   version, timed beside row 10's kernel and SDPA; the paged programs at
+   qwen2-1.5B's serving shape (``paged_attention_program`` and
+   ``prefill_attention_program`` in bf16, their quantized twins in int8; 8
+   slots, 12 query heads over 2 KV heads of 128, pages of 16, 1024 tokens a
+   slot, chunks of 64) on phase 2's inputs for rows 1-4, each output within
+   2 bf16 ulps of the row's plain version and the pages the prefill writes
+   byte for byte the plain version's (with the program's whole-page writes,
+   page 0 excepted), timed with L2 flushed beside rows 1-4, their plain
+   versions and SDPA over the gathered inputs (the library call of rows 1-2,
+   the labelled yardstick of rows 3-4).  Each emitted kernel's launches are
+   counted on that path run (the comparisons' and timings' taken back), its
+   registers (``-Xptxas -v``), shared memory and grid printed.  With
+   ``--only kernels`` the script stops after phases 1, 2 and 17 and lists
+   every hand-written and emitted kernel it checked.
 
 The last three lines are the card's name and power limit, the kernel table
 as one JSON line (each kernel's launches from its own path's run: the
@@ -668,8 +682,7 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     """The decode kernel (``fmt`` None) or its quantized twin (``fmt`` int8
     or int4, pools quantized from the same random values) against its plain
     version, at ``shape``."""
-    slots, max_len, hq, hkv, d = (shape.slots, shape.max_len, shape.hq, shape.hkv,
-                                  shape.d)
+    slots, hkv, d = shape.slots, shape.hkv, shape.d
     q, kp, vp, args, kw, tables, lens = decode_inputs(torch, np, ref, dtype, dev, fmt, shape)
     lens_t = torch.as_tensor(lens, device=dev)
     isz = q.element_size()
@@ -713,16 +726,7 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
             PA.split_decode(q, kp, vp, tables, lens_t, splits, split_keys, window=window,
                             pair=dtype == torch.bfloat16, rescale=False))
     # the slot's pages gathered for one dense call: SDPA and the controls
-    kg = kp[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
-    vg = vp[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
-    kg = kg.repeat_interleave(hq // hkv, dim=1)
-    vg = vg.repeat_interleave(hq // hkv, dim=1)
-    ki = torch.arange(max_len, device=dev)
-    mask = ki[None, :] < lens_t[:, None]
-    if window is not None:
-        mask &= ki[None, :] >= (lens_t[:, None] - window)
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None, :]
+    q4, kg, vg, mask = decode_gathered(torch, q, kp, vp, tables, lens_t, window)
     if dtype == torch.bfloat16:
         res["ulps"] = bf16_ulps(torch, out, plain)
         res.update(accumulation_controls(torch, q4, kg, vg, mask, plain[:, :, None],
@@ -739,13 +743,35 @@ def check_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
         res["library_ms"] = sdpa_ms if fmt is None else None
         if fmt is not None:
             res["sdpa_dequantized_ms"] = sdpa_ms
-        eff = lens if window is None else np.minimum(lens, window)
-        live = int(eff.sum())
-        nbytes = (q.numel() * isz * 2 + 2 * hkv * live * row_bytes
-                  + slots * 4 + sum(-(-int(n) // PAGE) for n in eff) * 4)
-        flops = 4.0 * hq * d * live
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        res["bound_ms"], res["bound_by"] = decode_bound(np, q, lens, window, row_bytes, hkv)
     return res
+
+
+def decode_gathered(torch, q, kp, vp, tables, lens_t, window=None):
+    """A decode's slots as one dense SDPA call takes them: (q (B, Hq, 1,
+    D), each slot's pages gathered into (B, Hq, max_len, D) K and V, the
+    live-key mask (B, 1, 1, max_len))."""
+    slots, hq, d = q.shape
+    hkv = kp.shape[0]
+    kg, vg = (p[:, tables.long()].transpose(0, 1).reshape(slots, hkv, -1, d)
+              .repeat_interleave(hq // hkv, dim=1) for p in (kp, vp))
+    ki = torch.arange(kg.shape[2], device=q.device)
+    mask = ki[None, :] < lens_t[:, None]
+    if window is not None:
+        mask &= ki[None, :] >= (lens_t[:, None] - window)
+    return q[:, :, None, :], kg, vg, mask[:, None, None, :]
+
+
+def decode_bound(np, q, lens, window, row_bytes, hkv):
+    """(ms, bound_by) of a decode call: q in and out, each live key's K
+    and V row (``row_bytes`` each) and its table entries read once, and
+    4 x Hq x D operations a live key, counted from this run's lengths."""
+    slots, hq, d = q.shape
+    eff = lens if window is None else np.minimum(lens, window)
+    live = int(eff.sum())
+    nbytes = (q.numel() * q.element_size() * 2 + 2 * hkv * live * row_bytes
+              + slots * 4 + sum(-(-int(n) // PAGE) for n in eff) * 4)
+    return bound(nbytes, 4.0 * hq * d * live, BF16_FLOPS)
 
 
 def _chunk_starts_lens(np, rng):
@@ -817,33 +843,15 @@ def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
     against its plain version: outputs, and the pages both write; at the
     heads and head dim of ``shape`` (its slots and tokens a slot are the
     main path's SLOTS and MAX_LEN)."""
-    assert (shape.slots, shape.max_len) == (SLOTS, MAX_LEN), shape
     hq, hkv, d = shape.hq, shape.hkv, shape.d
-    rng = np.random.default_rng(3)
-    tables, num_pages = _tables(torch, rng, dev)
-    starts, lens = _chunk_starts_lens(np, rng)
-    g = torch.Generator(device=dev).manual_seed(4)
-    q = torch.randn((SLOTS, hq, CHUNK, d), generator=g, device=dev).to(dtype)
-    kn = torch.randn((SLOTS, hkv, CHUNK, d), generator=g, device=dev).to(dtype)
-    vn = torch.randn((SLOTS, hkv, CHUNK, d), generator=g, device=dev).to(dtype)
-    kp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
-    vp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
+    (q, new, pools, kw, row_bytes, tables, num_pages, starts, lens,
+     (kn, vn, kp, vp)) = prefill_inputs(torch, np, ref, dtype, dev, fmt, shape)
     st, ln = torch.as_tensor(starts, device=dev), torch.as_tensor(lens, device=dev)
-    isz = q.element_size()
     if fmt is None:
-        new, pools, kw = (kn, vn), (kp, vp), {}
-        row_bytes = d * isz
         kernel, plain_fn = mod.prefill_attention, ref.paged_prefill_attention
     else:
-        (knq, kns), (vnq, vns), (kq, ks), (vq, vs) = _quantized(
-            torch, ref, (kn, vn, kp, vp), fmt)
-        new, pools, kw = (knq, vnq, kns, vns), (kq, vq, ks, vs), {"fmt": fmt}
-        row_bytes = d // ref.KV_PACK[fmt] + isz  # packed row + scale
         kernel = mod.prefill_attention_quant
         plain_fn = ref.paged_prefill_attention_quant
-        # what the kernel attends: the chunk and the pages dequantized
-        kn, vn, kp, vp = (ref.dequantize_rows(a, b, fmt).to(dtype) for a, b in
-                          ((knq, kns), (vnq, vns), (kq, ks), (vq, vs)))
     p1, p2 = [t.clone() for t in pools], [t.clone() for t in pools]
     run = lambda: kernel(q, *new, *p1, tables, st, ln, window=window, **kw)[0]  # noqa: E731
     plain_run = lambda: plain_fn(q, *new, *p2, tables, st, ln, window=window, **kw)[0]  # noqa: E731
@@ -860,11 +868,8 @@ def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
                 lambda rows, b, c: rows[b, :, c], lambda pool, idx: pool[:, idx])
     res = {"err": err, "tc_launches": tc}
     # [gathered prior pages ; chunk] for one dense call: SDPA and the controls
-    kg = kp[:, tables.long()].transpose(0, 1).reshape(SLOTS, hkv, -1, d)
-    vg = vp[:, tables.long()].transpose(0, 1).reshape(SLOTS, hkv, -1, d)
-    kall = torch.cat([kg, kn], 2).repeat_interleave(hq // hkv, dim=1)
-    vall = torch.cat([vg, vn], 2).repeat_interleave(hq // hkv, dim=1)
-    mask, live_rows = prefill_mask(torch, st, ln, window)
+    kall, vall, mask, live_rows = prefill_gathered(torch, q, (kn, vn, kp, vp), tables, st, ln,
+                                                   window)
     if dtype == torch.bfloat16:
         res["ulps"] = bf16_ulps(torch, out, plain)
         res.update(accumulation_controls(torch, q, kall, vall, mask, plain, live_rows,
@@ -879,13 +884,65 @@ def check_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
         res["library_ms"] = sdpa_ms if fmt is None else None
         if fmt is not None:
             res["sdpa_dequantized_ms"] = sdpa_ms
-        pairs, prior_rows = prefill_work(starts, lens, window)
-        live = int(lens.sum())
-        nbytes = ((hq * d * live) * isz * 2  # live Q rows in, out
-                  + 2 * hkv * row_bytes * (live * 2 + prior_rows))
-        flops = 4.0 * hq * d * pairs
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        res["bound_ms"], res["bound_by"] = prefill_bound(q, starts, lens, window, row_bytes,
+                                                         hkv)
     return res
+
+
+def prefill_inputs(torch, np, ref, dtype, dev, fmt=None, shape=QWEN_DECODE):
+    """check_prefill's seeded inputs at the heads and head dim of ``shape``
+    (SLOTS slots of MAX_LEN tokens, chunks of CHUNK): (q, new, pools, kw,
+    row_bytes, tables, num_pages, starts, lens, attended), ``new`` / ``pools``
+    the chunk's K/V and the pools the kernel takes (for ``fmt`` int8 or int4
+    quantized from the same random values: packed bytes, then scales),
+    ``kw`` the format, ``row_bytes`` a pool row's bytes, starts and lens
+    numpy int32, and ``attended`` the chunk's and the pools' K and V in q's
+    dtype as the kernel attends them (dequantized for the twin)."""
+    assert (shape.slots, shape.max_len) == (SLOTS, MAX_LEN), shape
+    hq, hkv, d = shape.hq, shape.hkv, shape.d
+    rng = np.random.default_rng(3)
+    tables, num_pages = _tables(torch, rng, dev)
+    starts, lens = _chunk_starts_lens(np, rng)
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((SLOTS, hq, CHUNK, d), generator=g, device=dev).to(dtype)
+    kn = torch.randn((SLOTS, hkv, CHUNK, d), generator=g, device=dev).to(dtype)
+    vn = torch.randn((SLOTS, hkv, CHUNK, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((hkv, num_pages, PAGE, d), generator=g, device=dev).to(dtype)
+    if fmt is None:
+        return (q, (kn, vn), (kp, vp), {}, d * q.element_size(), tables, num_pages, starts,
+                lens, (kn, vn, kp, vp))
+    (knq, kns), (vnq, vns), (kq, ks), (vq, vs) = _quantized(torch, ref, (kn, vn, kp, vp), fmt)
+    attended = tuple(ref.dequantize_rows(a, b, fmt).to(dtype) for a, b in
+                     ((knq, kns), (vnq, vns), (kq, ks), (vq, vs)))
+    return (q, (knq, vnq, kns, vns), (kq, vq, ks, vs), {"fmt": fmt},
+            d // ref.KV_PACK[fmt] + q.element_size(),  # packed row + scale
+            tables, num_pages, starts, lens, attended)
+
+
+def prefill_gathered(torch, q, attended, tables, st, ln, window=None):
+    """A chunked prefill as one dense SDPA call takes it: ([each slot's
+    prior pages gathered ; the chunk] as K and V (B, Hq, max_len + chunk,
+    D), the mask, the live rows); ``attended`` is prefill_inputs'."""
+    kn, vn, kp, vp = attended
+    hq, hkv, d = q.shape[1], kn.shape[1], q.shape[3]
+    kall, vall = (torch.cat([p[:, tables.long()].transpose(0, 1).reshape(SLOTS, hkv, -1, d),
+                             n], 2).repeat_interleave(hq // hkv, dim=1)
+                  for p, n in ((kp, kn), (vp, vn)))
+    return (kall, vall, *prefill_mask(torch, st, ln, window))
+
+
+def prefill_bound(q, starts, lens, window, row_bytes, hkv):
+    """(ms, bound_by) of a chunked-prefill call: the live query rows in
+    and out, the chunk's live K/V rows read and written, the prior rows read
+    once, and 4 x Hq x D operations a (query, key) pair, counted from this
+    run's starts and lengths."""
+    _, hq, _, d = q.shape
+    pairs, prior_rows = prefill_work(starts, lens, window)
+    live = int(lens.sum())
+    nbytes = ((hq * d * live) * q.element_size() * 2  # live Q rows in, out
+              + 2 * hkv * row_bytes * (live * 2 + prior_rows))
+    return bound(nbytes, 4.0 * hq * d * pairs, BF16_FLOPS)
 
 
 # ---------------------------------------------------------------------------
@@ -3365,8 +3422,8 @@ def check_ssd_case(torch, np, ref, mods, dtype, case, flush, timed, dev, earlier
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="kernels: stop after the kernel phase (a short first "
-                         "check)")
+                    help="kernels: stop after the build, the kernel phase and the "
+                         "compiler's (a short first check)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3444,7 +3501,8 @@ def main(argv=None) -> int:
     log(f"[time] phase 2, the kernel library ({len(lib)} cases): "
         f"{time.perf_counter() - t0:.1f} s")
     if args.only == "kernels":
-        log(json.dumps({"kernels_checked": sorted(table)}))
+        emitted_rows = compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device)
+        log(json.dumps({"kernels_checked": sorted(table) + [r["name"] for r in emitted_rows]}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3475,7 +3533,7 @@ def main(argv=None) -> int:
     mesh_phase(torch, np, lm, device, card)
     main_launches.update(lib_launches)
     torch.cuda.empty_cache()
-    emitted_rows = compiler_phase(torch, ref, KERNELS, compiled, build_log, device)
+    emitted_rows = compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device)
 
     # ---- result lines --------------------------------------------------
     rows = []
@@ -5063,7 +5121,22 @@ EMITTED = {"quickstart": ("compiled quickstart matmul (fp32 512^3)", "examples/t
            "M7": ("compiled matmul_program (M7)", "src/repro_torch/kernels/matmul.py",
                   "src/repro/kernels/matmul.py:15"),
            "flash": ("compiled flash_attention_program", "src/repro_torch/kernels/flash_attention.py",
-                     "src/repro/kernels/flash_attention.py:25")}
+                     "src/repro/kernels/flash_attention.py:25"),
+           "decode": ("compiled paged_attention_program (qwen2-1.5B decode, bf16)",
+                      "src/repro_torch/kernels/paged_attention.py",
+                      "src/repro/kernels/paged_attention.py:32"),
+           "decode int8": ("compiled paged_attention_quant_program (qwen2-1.5B decode, int8)",
+                           "src/repro_torch/kernels/paged_attention.py",
+                           "src/repro/kernels/paged_attention.py:93"),
+           "prefill": ("compiled prefill_attention_program (qwen2-1.5B chunk 64, bf16)",
+                       "src/repro_torch/kernels/prefill_attention.py",
+                       "src/repro/kernels/prefill_attention.py:44"),
+           "prefill int8": ("compiled prefill_attention_quant_program (qwen2-1.5B chunk 64, int8)",
+                            "src/repro_torch/kernels/prefill_attention.py",
+                            "src/repro/kernels/prefill_attention.py:157")}
+# the paged programs at qwen2-1.5B's serving shape: the format each takes and
+# the hand-written row (PERF.md section 6, rows 1-4) it is timed beside
+PAGED_EMITTED = {"decode": None, "decode int8": "int8", "prefill": None, "prefill int8": "int8"}
 
 
 def quickstart_module():
@@ -5092,7 +5165,140 @@ def compiler_kernels(torch, device):
     progs["flash"] = K.flash_attention_program(TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ,
                                                HEAD_DIM, True, dtype="bfloat16",
                                                **COMPILED_FLASH)
+    progs.update(paged_programs(K))
     return {name: tl_compile(p, target="cuda") for name, p in progs.items()}
+
+
+def paged_programs(K):
+    """The paged programs at qwen2-1.5B's serving shape (QWEN_DECODE: 8
+    slots, 12 query heads over 2 KV heads of 128, pages of 16, 64 pages a
+    slot and page 0 reserved; chunks of CHUNK), bf16, the twins in int8."""
+    max_pages = MAX_LEN // PAGE
+    cfg = dict(slots=SLOTS, heads=HQ, kv_heads=HKV, head_dim=HEAD_DIM, page_size=PAGE,
+               max_pages=max_pages, num_pages=SLOTS * max_pages + 1, dtype="bfloat16")
+    return {"decode": K.paged_attention_program(**cfg),
+            "decode int8": K.paged_attention_quant_program(**cfg, fmt="int8"),
+            "prefill": K.prefill_attention_program(**cfg, chunk=CHUNK),
+            "prefill int8": K.prefill_attention_quant_program(**cfg, chunk=CHUNK, fmt="int8")}
+
+
+def as_outputs(out) -> tuple:
+    """A compiled kernel's outputs as a tuple (one output, or several in
+    out_params order)."""
+    return out if isinstance(out, tuple) else (out,)
+
+
+def dead_chunk_page(prog, args) -> bool:
+    """Whether a prefill program's inputs leave a chunk page with no live
+    token: its cells all write the reserved page 0, in no set order, so the
+    pools are compared with page 0 excluded."""
+    names = [p.name for p in prog.params]
+    if "Starts" not in names:
+        return False
+    lens = args[names.index("Lens")]
+    ps = prog.params[names.index("KPages")].shape[2]
+    chunk = prog.params[names.index("K")].shape[2]
+    return bool((lens < chunk - ps + 1).any())
+
+
+def emitted_err(torch, kern, got, want, dead: bool) -> float:
+    """The largest error of every output of an emitted kernel against the
+    reference interpreter's, each in units of max(1, max |reference|); the
+    pools without page 0 where ``dead``."""
+    errs = []
+    for p, g, w in zip(kern.out_params, as_outputs(got), as_outputs(want), strict=True):
+        if dead and p.name != "Output":
+            g, w = g[:, 1:], w[:, 1:]
+        g, w = g.double(), w.double()
+        errs.append(((g - w).abs().max() / w.abs().max().clamp_min(1.0)).item())
+    return max(errs)
+
+
+def expected_pools(plain_pools, new, tables, starts, lens):
+    """The pools the paged-prefill program leaves: the plain version's,
+    with every chunk page that holds a live token written whole (the TPU
+    program's page write: the dead tail of a partial page too, where the
+    plain version keeps the old rows)."""
+    out = [t.clone() for t in plain_pools]
+    tb = tables.cpu().numpy()
+    max_pages = tb.shape[1]
+    for b in range(SLOTS):
+        for bq in range(CHUNK // PAGE):
+            if bq * PAGE < int(lens[b]):
+                page = int(tb[b, min(int(starts[b]) // PAGE + bq, max_pages - 1)])
+                for pool, rows in zip(out, new):
+                    pool[:, page] = rows[b, :, bq * PAGE:(bq + 1) * PAGE]
+    return out
+
+
+def check_paged_program(torch, np, ref, kern, name, dev):
+    """An emitted paged program (``name`` of PAGED_EMITTED) on phase 2's
+    inputs for its hand-written row at qwen2-1.5B's serving shape, against
+    the row's plain version: the output within BF16_ULPS, finite, an empty
+    slot's zeros; the prefill's pools byte for byte the plain version's
+    with the program's whole-page writes, page 0 excepted.  Returns the
+    readings (``err``, ``ulps``, ``finite``, ``empty_slot_zero`` or
+    ``pages_equal``, ``bound``), the calls to time by name (the emitted
+    kernel, the hand-written row, the plain version, SDPA over the gathered
+    inputs) and the row's module, whose counts the timing must not move."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import paged_attention_quant as PAQ
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import prefill_attention_quant as PFQ
+
+    fmt = PAGED_EMITTED[name]
+    res = {}
+    if name.startswith("decode"):
+        q, kp, vp, pools, kw, tables, lens = decode_inputs(torch, np, ref, torch.bfloat16, dev,
+                                                           fmt)
+        lens_t = torch.as_tensor(lens, device=dev)
+        run = lambda: kern(tables, lens_t, q, *pools)  # noqa: E731
+        row, mod = ((lambda: PA.paged_attention(q, *pools, tables, lens_t), PA) if fmt is None
+                    else (lambda: PAQ.paged_attention_quant(q, *pools, tables, lens_t, fmt=fmt),
+                          PAQ))
+        plain_fn = ref.paged_attention if fmt is None else ref.paged_attention_quant
+        plain_run = lambda: plain_fn(q, *pools, tables, lens_t, **kw)  # noqa: E731
+        out, plain = run(), plain_run()
+        res["empty_slot_zero"] = out[2].abs().max().item() == 0.0
+        sdpa_args = decode_gathered(torch, q, kp, vp, tables, lens_t)
+        row_bytes = HEAD_DIM * 2 if fmt is None else HEAD_DIM // ref.KV_PACK[fmt] + 2
+        res["bound"] = decode_bound(np, q, lens, None, row_bytes, HKV)
+    else:
+        (q, new, pools, kw, row_bytes, tables, _, starts, lens,
+         attended) = prefill_inputs(torch, np, ref, torch.bfloat16, dev, fmt)
+        st, ln = torch.as_tensor(starts, device=dev), torch.as_tensor(lens, device=dev)
+        # Q chunk-major with its group, (slots, kv_heads, chunk * group, D):
+        # repacked once, untimed
+        qp = PF.packed_queries(q, HKV, 1, False).reshape(SLOTS, HKV, -1, HEAD_DIM)
+        run = lambda: kern(tables, st, ln, qp, *new, *pools)  # noqa: E731
+        p1, p2 = [t.clone() for t in pools], [t.clone() for t in pools]
+        row, mod = ((lambda: PF.prefill_attention(q, *new, *p1, tables, st, ln)[0], PF)
+                    if fmt is None else
+                    (lambda: PFQ.prefill_attention_quant(q, *new, *p1, tables, st, ln,
+                                                         fmt=fmt)[0], PFQ))
+        plain_fn = (ref.paged_prefill_attention if fmt is None
+                    else ref.paged_prefill_attention_quant)
+        plain_run = lambda: plain_fn(q, *new, *p2, tables, st, ln, **kw)[0]  # noqa: E731
+        got = run()
+        out = PF.unpacked_output(got[-1], q.shape, HKV, 1, False)
+        plain = plain_run()
+        want = expected_pools(p2, new, tables, starts, lens)
+        res["pages_equal"] = all(torch.equal(g[:, 1:], w[:, 1:])
+                                 for g, w in zip(got[:-1], want, strict=True))
+        sdpa_args = (q, *prefill_gathered(torch, q, attended, tables, st, ln)[:3])
+        res["bound"] = prefill_bound(q, starts, lens, None, row_bytes, HKV)
+    res["err"] = (out.float() - plain.float()).abs().max().item()
+    res["ulps"] = bf16_ulps(torch, out, plain)
+    res["finite"] = bool(torch.isfinite(out).all())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = {"ms": run, "row_ms": row, "plain_ms": plain_run,
+             "sdpa_ms": lambda: sdpa(*sdpa_args[:3], attn_mask=sdpa_args[3])}
+    return res, calls, mod
+
+
+def paged_program_ok(r) -> bool:
+    return (r["ulps"] <= BF16_ULPS and r["finite"] and r.get("empty_slot_zero", True)
+            and r.get("pages_equal", True))
 
 
 def ptxas_registers(text: str) -> str:
@@ -5103,7 +5309,7 @@ def ptxas_registers(text: str) -> str:
     return f"{regs[0] if regs else '?'}; {spill[0] if spill else ''}"
 
 
-def compiler_phase(torch, ref, KERNELS, compiled, build_log, device):
+def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device):
     """Phase 17 (see the module docstring).  Returns the emitted kernels'
     rows of the result line."""
     from repro_torch import kernels as K
@@ -5128,16 +5334,24 @@ def compiler_phase(torch, ref, KERNELS, compiled, build_log, device):
     qs["kernel"].launches = launches
     log(f"[compiler] quickstart Fig. 16 matmul (fp32 512^3): {qs['err']:.2e} of max |plain| "
         f"(limit {FP32_ATOL:g})")
-    # every parity case against the reference interpreter on the card
+    # every parity case against the reference interpreter on the card, on
+    # its module's inputs where it has a hook (valid block tables), every
+    # output compared (the prefill's pools too)
     for name, prog in K.parity_programs():
         kern = compiled[name]
-        g = torch.Generator(device=device).manual_seed(53)
-        args = [torch.randn(p.shape, generator=g, device=device) for p in kern.arg_params]
+        args = K.parity_inputs(name, prog, np.random.default_rng(53))
+        if args is None:
+            g = torch.Generator(device=device).manual_seed(53)
+            args = [torch.randn(p.shape, generator=g, device=device) for p in kern.arg_params]
+        else:
+            args = [torch.as_tensor(a, device=device) for a in args]
         got = kern(*args)
         want = tl_compile(prog, target="reference")(*args)
-        err = ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+        dead = dead_chunk_page(prog, [a.cpu().numpy() for a in args])
+        err = emitted_err(torch, kern, got, want, dead)
         log(f"[compiler] {name} (fp32) against the reference interpreter on the card: "
-            f"{err:.2e} of max(1, max |reference|) (limit {PARITY_ATOL:g})")
+            f"{err:.2e} of max(1, max |reference|), {len(as_outputs(got))} output(s)"
+            f"{', page 0 excluded' if dead else ''} (limit {PARITY_ATOL:g})")
         if not err <= PARITY_ATOL:
             raise AssertionError(f"{name}: the emitted kernel fails its limit ({err:.3e})")
     # M7: Table 2's GEMM, bf16
@@ -5196,6 +5410,32 @@ def compiler_phase(torch, ref, KERNELS, compiled, build_log, device):
     FA.KERNEL.launches, FA.KERNEL.tc_launches = saved
     fl.launches = launches
     del q, kk, v, out, plain
+    # the paged programs at qwen2-1.5B's serving shape, on phase 2's inputs
+    # for rows 1-4, timed with L2 flushed beside the hand-written rows
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    for name in PAGED_EMITTED:
+        kern = compiled[name]
+        r, calls, mod = check_paged_program(torch, np, ref, kern, name, device)
+        log(f"[compiler] {EMITTED[name][0]}: {r['ulps']:.2f} bf16 ulps of the plain version "
+            f"(limit {BF16_ULPS:g}; max abs err {r['err']:.3e})"
+            + ("" if "pages_equal" not in r else
+               f", pages written {'equal' if r['pages_equal'] else 'UNEQUAL'} to the plain "
+               "version's with the program's whole-page writes (page 0 excepted)"))
+        if not paged_program_ok(r):
+            raise AssertionError(f"{name}: the emitted kernel fails its check: {r}")
+        # the timing's launches do not count, the row's nor the program's
+        saved = {a: getattr(mod.KERNEL, a) for a in ("launches", "tc_launches", "walk_launches")
+                 if hasattr(mod.KERNEL, a)}
+        launches = kern.launches
+        times = {k: time_ms(torch, fn, flush=flush_buf.zero_) for k, fn in calls.items()}
+        for a, n in saved.items():
+            setattr(mod.KERNEL, a, n)
+        kern.launches = launches
+        sdpa = times.pop("sdpa_ms")
+        results[name] = {"max_abs_err": r["err"], "bound": r["bound"], **times,
+                         "library_ms": sdpa if PAGED_EMITTED[name] is None else None,
+                         "yardstick_ms": None if PAGED_EMITTED[name] is None else sdpa}
+    del flush_buf
     # the path's launches: one a program, comparisons and timings taken back
     path = {name: compiled[name].launches for name in EMITTED}
     log(f"[launches] the compiler's path: {json.dumps(path)}")
@@ -5205,10 +5445,13 @@ def compiler_phase(torch, ref, KERNELS, compiled, build_log, device):
         r, kern = results[name], compiled[name]
         regs = ptxas_registers(build_log.get(kern.kernel.source.name, ""))
         beside = (f", the hand-written row's {r['row_ms']:.4f} ms" if "row_ms" in r else "")
+        library = (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else
+                   f"library none (yardstick: SDPA over the dequantized inputs "
+                   f"{r['yardstick_ms']:.4f} ms)")
         log(f"[compiler] {label}: {r['ms']:.4f} ms{beside}, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}); {kern.threads} threads, {kern.smem_bytes} B of shared memory, "
-            f"{regs}; grid {kern.info.grid}")
+            f"{library}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); {kern.threads} "
+            f"threads, {kern.smem_bytes} B of shared memory, {regs}; grid {kern.info.grid}: "
+            f"{kern.blocks} blocks")
         rows.append({"name": label, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],

@@ -12,18 +12,34 @@ The counterpart of the JAX package's ``backends/pallas_tpu.py``
 * the pipelined axis is a serial loop inside the block: PRE runs once
   before it and POST once after it (no ``k == 0`` / ``k == last`` guards);
 * every ``shared`` and ``fragment`` buffer lives in dynamic shared memory at
-  the offset the shared-memory plan (``schedule.plan_vmem``) gives it; the
-  bytes requested at launch are the plan's, and a plan over the card's
-  budget raises :class:`ScheduleError` instead of launching;
+  the offset the shared-memory plan (``schedule.plan_vmem``) gives it (two
+  buffers whose live ranges do not meet may share bytes); the bytes
+  requested at launch are the plan's, and a plan over the card's budget
+  raises :class:`ScheduleError` instead of launching;
 * each tile op is a block-strided loop over its elements (a copy moves
   16-byte vectors where its rows allow), with ``__syncthreads()`` wherever a
-  later op touches what an earlier one wrote or read;
+  later op touches bytes an earlier one wrote or read;
 * ``T.gemm`` accumulates in fp32: 16-bit operands into an fp32 tile
   (``schedule.tensor_core_gemm``) go through ``wmma`` m16n16k16, each warp
   a group of 16 x 16 accumulator tiles, loaded from and stored back to
   shared memory each call, or held in the warp's registers for the whole
   pipelined loop when no other op of the loop touches the accumulator;
   everything else runs a loop on the CUDA cores.
+
+Block tables (``T.ScalarTensor``, the TPU's scalar prefetch) are ``int32``
+device operands of the kernel, read straight from global memory wherever an
+index expression loads them: a copy's region start (``KPages[bh, Tables[bz,
+k], 0, 0]``, the paged gather and the table-directed store), a mask, a
+``T.minimum`` or ``T.if_then_else`` of entries.  Each thread reads the entry
+itself; the block's table row is not staged in shared memory (a decode
+block reads one entry a pipelined step, from L1 after the first thread).
+
+Outputs are allocated by the wrapper: a pure output zero-filled, an in-out
+one (a window the lowering marks ``aliased``, such as a page pool the
+prefill writes through its table) a copy of its input, so pages no block
+writes keep their contents and the caller's tensor is never written; the
+kernel returns them in ``out_params`` order, as the reference interpreter
+does.
 
 Index arithmetic keeps Python's floor semantics (``//`` and ``%`` of a
 possibly negative operand go through floor helpers); float16 / bfloat16
@@ -33,9 +49,9 @@ through ``kernels/build.py`` (its ``NVCC_FLAGS``, a plain C entry point,
 ctypes) at the first call, into ``kernels/_build/``.
 
 Not taken yet (ROADMAP Queue 1 item 19, second half): ``CustomOp``
-(``T.call_tile_lib``), ``AtomicOp``, ``CumsumOp`` and scalar-prefetch
-tables (``T.ScalarTensor``).  They raise ``NotImplementedError`` at compile
-time; nothing falls back to the reference interpreter.
+(``T.call_tile_lib``), ``AtomicOp``, ``CumsumOp`` and a batched ``T.gemm``.
+They raise ``NotImplementedError`` at compile time; nothing falls back to
+the reference interpreter.
 """
 from __future__ import annotations
 
@@ -112,6 +128,13 @@ __device__ __forceinline__ float tl_rf16(float x) { return __half2float(__float2
 
 def _pending(what: str):
     raise NotImplementedError(f"cuda backend: {what} is not supported yet ({_PENDING})")
+
+
+def _in_memory(buf: TileBuffer) -> bool:
+    """A kernel operand in device memory (a tensor or a block table), laid
+    out row-major at its own shape; the other buffers live in shared memory
+    at the plan's offsets."""
+    return buf.scope in (GLOBAL, SCALAR)
 
 
 def _is_float(dt: str) -> bool:
@@ -269,7 +292,7 @@ class _Emitter:
 
     # -- buffers ------------------------------------------------------------
     def strides(self, buf: TileBuffer) -> Tuple[int, ...]:
-        shape = buf.shape if buf.scope == GLOBAL else self.plan[buf.name].physical_shape
+        shape = buf.shape if _in_memory(buf) else self.plan[buf.name].physical_shape
         out, acc = [], 1
         for s in reversed(shape):
             out.append(acc)
@@ -277,7 +300,7 @@ class _Emitter:
         return tuple(reversed(out))
 
     def offset(self, buf: TileBuffer, coords: List[str]) -> str:
-        wide = buf.scope == GLOBAL
+        wide = _in_memory(buf)
         terms = []
         for c, st in zip(coords, self.strides(buf)):
             if c == "0":
@@ -301,8 +324,6 @@ class _Emitter:
             return self.var(e.name), _WEAK_INT
         if isinstance(e, LoadExpr):
             buf = e.buffer
-            if buf.scope == SCALAR:
-                _pending(f"scalar-prefetch table {buf.name!r} (T.ScalarTensor)")
             coords = [self.int_expr(i) for i in e.indices]
             return _load(self.ptr[buf.name], self.offset(buf, coords), buf.dtype), buf.dtype
         if isinstance(e, CastExpr):
@@ -402,12 +423,18 @@ class _Emitter:
     def touch(self, reads: List[TileBuffer], writes: List[TileBuffer]):
         """Emit a barrier when this op reads or writes a shared buffer an
         earlier op wrote since the last one, or writes one read since."""
-        r = {b.name for b in reads if b.scope not in (GLOBAL, SCALAR)}
-        w = {b.name for b in writes if b.scope not in (GLOBAL, SCALAR)}
-        if (r | w) & self.written or w & self.read:
+        r = {b.name for b in reads if not _in_memory(b)}
+        w = {b.name for b in writes if not _in_memory(b)}
+        if self.meet(r | w, self.written) or self.meet(w, self.read):
             self.barrier()
         self.read |= r
         self.written |= w
+
+    def meet(self, names: Set[str], others: Set[str]) -> bool:
+        """Whether a buffer of ``names`` shares bytes with one of ``others``
+        (itself, or a buffer the plan placed over it)."""
+        span = lambda n: (self.plan[n].offset, self.plan[n].offset + self.plan[n].bytes)  # noqa: E731
+        return any(a < d and c < b for (a, b) in map(span, names) for (c, d) in map(span, others))
 
     def barrier(self):
         self.src("__syncthreads();")
@@ -486,8 +513,6 @@ class _Emitter:
 
     def copy(self, op: CopyOp):
         src, dst = op.src, op.dst
-        if src.buffer.scope == SCALAR or dst.buffer.scope == SCALAR:
-            _pending("a copy of a scalar-prefetch table")
         self.touch([src.buffer], [dst.buffer])
         starts = {}
         for side, r in (("s", src), ("d", dst)):
@@ -550,7 +575,7 @@ class _Emitter:
             dec = linear_decompose(r.starts[-1])
             if dec is None or any(v % vec for v in dec.values()):
                 return 1
-            if r.buffer.scope != GLOBAL and self.plan[r.buffer.name].offset % 16:
+            if not _in_memory(r.buffer) and self.plan[r.buffer.name].offset % 16:
                 return 1
         return vec
 
@@ -831,12 +856,16 @@ class _Emitter:
         return s.text()
 
 
+def _blocks(module: LoweredModule) -> int:
+    """The launch's blocks: one a cell of the parallel grid."""
+    plan = module.grid_plan
+    return math.prod(e for i, e in enumerate(plan.grid) if i != plan.kdim)
+
+
 def emit_source(module: LoweredModule) -> Tuple[str, str, int]:
     """``(source, entry, threads)``: the kernel and its C launch entry."""
     prog = module.program
     for p in prog.params:
-        if p.scope == SCALAR:
-            _pending(f"scalar-prefetch table {p.name!r} (T.ScalarTensor)")
         if p.dtype not in _CTYPE:
             _pending(f"dtype {p.dtype} of {p.name!r}")
     if not module.vmem.ok:
@@ -846,8 +875,7 @@ def emit_source(module: LoweredModule) -> Tuple[str, str, int]:
     em = _Emitter(module)
     name = f"tl_{prog.name}"
     body = em.kernel(name)
-    plan = module.grid_plan
-    blocks = math.prod(e for i, e in enumerate(plan.grid) if i != plan.kdim)
+    blocks = _blocks(module)
     smem = module.vmem.total_bytes
     params = ", ".join(f"void* p{i}" for i in range(len(prog.params)))
     casts = ", ".join(
@@ -871,10 +899,12 @@ extern "C" int {entry}({params}, void* stream) {{
 
 class CudaKernel(CompiledKernel):
     """A compiled program on the card: ``kernel(*inputs)`` allocates the
-    outputs (zero-filled, as the reference interpreter's) on the inputs'
-    device, launches on ``torch.cuda.current_stream()`` and returns them.
-    ``source`` is the emitted text, ``kernel`` its ``build.Kernel`` (built at
-    the first call), ``launches`` the count of launches made."""
+    outputs on the inputs' device, as the reference interpreter does (a pure
+    output zero-filled, an in-out one of ``aliased`` a copy of its input),
+    launches on ``torch.cuda.current_stream()`` and returns them in
+    ``out_params`` order.  ``source`` is the emitted text, ``kernel`` its
+    ``build.Kernel`` (built at the first call), ``blocks`` and ``threads``
+    its launch grid, ``launches`` the count of launches made."""
 
     def __init__(self, module: LoweredModule, source: str, entry: str, threads: int):
         from ...kernels.build import Kernel
@@ -882,8 +912,14 @@ class CudaKernel(CompiledKernel):
         prog = module.program
         self.source = source
         self.threads = threads
+        self.blocks = _blocks(module)
         self.smem_bytes = module.vmem.total_bytes
         self.launches = 0
+        # the in-out outputs: seeded from the input of the same name
+        self.aliased = tuple(w.param.name for w in module.out_windows if w.aliased)
+        missing = set(self.aliased) - {p.name for p in module.arg_params}
+        if missing:
+            raise LoweringError(f"{prog.name}: aliased outputs {sorted(missing)} have no input")
         self.kernel = Kernel(f"tl_{prog.name}", entry,
                              [ctypes.c_void_p] * (len(prog.params) + 1),
                              replaces="src/repro/core/backends/pallas_tpu.py:59",
@@ -919,7 +955,9 @@ class CudaKernel(CompiledKernel):
             tensors[p.name] = t
         if device is None:
             raise RuntimeError(f"{prog.name}: a 'cuda' kernel needs CUDA tensors")
-        outs = [torch.zeros(p.shape, dtype=torch_dtype(p.dtype), device=device)
+        # an in-out output starts as a copy of its input, never the caller's
+        outs = [tensors[p.name].clone() if p.name in self.aliased else
+                torch.zeros(p.shape, dtype=torch_dtype(p.dtype), device=device)
                 for p in self.out_params]
         tensors.update({p.name: o for p, o in zip(self.out_params, outs)})
         with torch.cuda.device(device):

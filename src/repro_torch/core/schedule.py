@@ -133,28 +133,57 @@ def physical_tile_shape(shape: Tuple[int, ...], dtype: str,
     return tuple(s)
 
 
+def live_ranges(program) -> Dict[str, Tuple[int, int]]:
+    """Each buffer's live range over the program's top-level ops: the first
+    and the last op that reads or writes it.  A loop is one op, so a buffer
+    that a loop touches is live for the whole loop."""
+    out: Dict[str, Tuple[int, int]] = {}
+    for i, op in enumerate(program.ops):
+        for b in (*op.buffers_read(), *op.buffers_written()):
+            lo, hi = out.get(b.name, (i, i))
+            out[b.name] = (min(lo, i), max(hi, i))
+    return out
+
+
 def plan_vmem(program, schedule: Schedule, check: bool = True) -> VmemPlan:
     """Lay out every ``shared`` and ``fragment`` buffer of a traced program
     in one block's dynamic shared memory (rows as ``physical_tile_shape``
-    pads them): each at a 16-byte aligned offset,
-    in allocation order, one copy each (the CUDA backend stages one tile at
-    a time; a ring that honours ``num_stages`` would multiply the loop's
-    windows).
+    pads them): each at a 16-byte aligned offset, one copy each (the CUDA
+    backend stages one tile at a time; a ring that honours ``num_stages``
+    would multiply the loop's windows).
+
+    Buffers are placed in allocation order, each at the lowest offset free
+    of every buffer placed before it whose live range (:func:`live_ranges`)
+    meets its own: a buffer dead before another is first touched shares its
+    bytes (a quantized stage's unpack scratch, used before the pipelined
+    loop, under the loop's tiles).  Where every range meets every other, as
+    in a GEMM or the flash forward, the buffers follow one another.  The
+    CUDA backend orders the accesses of two buffers that share bytes by the
+    same barriers as those of one buffer.
 
     ``check=False`` returns the (possibly over-budget) plan instead of
     raising — the pass pipeline uses this so the budget stays a *backend*
     feasibility concern (the reference interpreter has no shared memory).
     """
     plans: List[BufferPlan] = []
-    offset = 0
     tc = tensor_core_operands(program)
+    live = live_ranges(program)
+    whole = (0, len(program.ops))  # a buffer no op touches
     for buf in program.allocs:
         phys = physical_tile_shape(buf.shape, buf.dtype, buf.name in tc)
         nbytes = math.prod(phys) * dtype_bits(buf.dtype) // 8
-        offset = round_up(offset, SMEM_ALIGN)
+        lo, hi = live.get(buf.name, whole)
+        taken = sorted((q.offset, q.offset + q.bytes) for q in plans
+                       if live.get(q.name, whole)[0] <= hi and lo <= live.get(q.name, whole)[1])
+        offset = 0
+        for start, end in taken:
+            if start >= offset + nbytes:
+                break
+            if end > offset:
+                offset = round_up(end, SMEM_ALIGN)
         plans.append(BufferPlan(buf.name, buf.scope, buf.shape, phys, 1, nbytes, offset))
-        offset += nbytes
-    plan = VmemPlan(plans, round_up(offset, SMEM_ALIGN), schedule.smem_limit)
+    total = max((q.offset + q.bytes for q in plans), default=0)
+    plan = VmemPlan(plans, round_up(total, SMEM_ALIGN), schedule.smem_limit)
     if check and not plan.ok:
         raise ScheduleError(
             f"{program.name}: shared-memory budget exceeded —\n{plan.summary()}\n"

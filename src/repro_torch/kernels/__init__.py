@@ -12,17 +12,23 @@ its autograd function), the kernel library's ``matmul``,
 
 Beside the wrappers, the tile programs that the port's compiler
 (``repro_torch.core``) compiles: ``matmul_program`` (``matmul``),
-``flash_attention_program`` (``flash_attention``) and the attention core
-they compose (``attention_core``), each module with its ``PARITY_CASES``;
-:func:`parity_programs` and :func:`parity_inputs` are the registry of
-``repro.kernels`` (repro/kernels/__init__.py:36-80) over them."""
-from . import attention_core, flash_attention, matmul, ops, ref
+``flash_attention_program`` (``flash_attention``), the paged decode
+``paged_attention_program`` and its twin ``paged_attention_quant_program``
+(``paged_attention``), the chunked prefill ``prefill_attention_program``
+and its twin ``prefill_attention_quant_program`` (``prefill_attention``),
+and the attention core they compose (``attention_core``), each module with
+its ``PARITY_CASES``; :func:`parity_programs` and :func:`parity_inputs` are
+the registry of ``repro.kernels`` (repro/kernels/__init__.py:36-80) over
+them."""
+from . import attention_core, flash_attention, matmul, ops, paged_attention, prefill_attention, ref
 from .flash_attention import flash_attention_program
 from .matmul import matmul_program
+from .paged_attention import paged_attention_program, paged_attention_quant_program
+from .prefill_attention import prefill_attention_program, prefill_attention_quant_program
 
 # the modules that declare PARITY_CASES, sorted by name as the JAX
 # package's discovery sorts them (the other modules here hold no program)
-PARITY_MODULES = (flash_attention, matmul)
+PARITY_MODULES = (flash_attention, matmul, paged_attention, prefill_attention)
 
 
 def parity_modules():
@@ -40,7 +46,8 @@ def parity_programs():
 def parity_inputs(name, program, rng):
     """Inputs for one parity case, or ``None`` for the generic random fill
     (a module whose params carry semantic constraints defines a
-    ``parity_inputs(name, program, rng)`` hook; none here does yet)."""
+    ``parity_inputs(name, program, rng)`` hook: the paged programs' block
+    tables must hold valid page ids)."""
     for mod in parity_modules():
         hook = getattr(mod, "parity_inputs", None)
         if hook is not None and name in dict(mod.PARITY_CASES):
@@ -49,4 +56,6 @@ def parity_inputs(name, program, rng):
 
 
 __all__ = ["ops", "ref", "attention_core", "matmul_program", "flash_attention_program",
+           "paged_attention_program", "paged_attention_quant_program",
+           "prefill_attention_program", "prefill_attention_quant_program",
            "parity_modules", "parity_programs", "parity_inputs"]

@@ -145,9 +145,10 @@ class DequantStage:
     ``packed_local`` is local scratch, whose rows are rounded up to whole
     16-byte vectors (layout.py's ``VECTOR_BYTES``; the JAX package rounds
     to the TPU's 128 lanes).  The staging copy fills only the live
-    ``[0:cols]`` columns, and the padding tail is zeroed once at allocation
-    so the sanitizing interpreter never sees an uninitialized read whatever
-    later passes do with the buffer.
+    ``[0:cols]`` columns, and the whole scratch is zeroed once at allocation,
+    padded or not (shared memory on the card starts undefined), so no
+    backend ever reads an uninitialized byte of it whatever later passes do
+    with the buffer.
     """
 
     def __init__(self, rows, feat, fmt, dtype="float32"):
@@ -165,8 +166,7 @@ class DequantStage:
         self.scale_shared = T.alloc_shared((rows, 1), dtype)
         self.deq = T.alloc_fragment((rows, feat), dtype)
         self.out = T.alloc_shared((rows, feat), dtype)
-        if padded != self.cols:
-            T.clear(self.packed_local)
+        T.clear(self.packed_local)
 
     def packed_rows(self, r0, r1):
         """The live packed columns of rows ``[r0:r1]`` of the staged bytes —

@@ -27,9 +27,17 @@ one grid whatever the lengths.  A launch takes one of three bodies
 :func:`split_decode` rehearses the split kernels' arithmetic in plain
 PyTorch, :func:`walk_decode` the walk's (its warps' key shares and their
 merge).
-"""
-from __future__ import annotations
 
+The same module holds the TPU program itself and its quantized twin,
+``paged_attention_program`` and ``paged_attention_quant_program``
+(repro/kernels/paged_attention.py:32 and :93), the tile programs that the
+port's compiler (``repro_torch.core``) compiles with ``target="cuda"`` or
+runs with ``target="reference"``: the KV pages gathered through the block
+table (a ``T.ScalarTensor``), every table entry of the pipelined axis read
+whatever the slot's length, so padding entries must hold valid page ids.
+Their ``PARITY_CASES`` and ``parity_inputs`` are the JAX module's
+(:168-230).
+"""
 import ctypes
 import functools
 import math
@@ -37,6 +45,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core import TileProgram
+from ..core import lang as T
+from . import attention_core as AC
 from . import ref
 from .build import Kernel, check
 
@@ -376,3 +387,196 @@ def walk_decode(q, k_pages, v_pages, block_tables, seq_lens, splits: int,
               for s in range(splits)]
     o, _, l = merge_states(states, rescale=split_rescale)
     return (o / l.clamp_min(1e-30)).reshape(b, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The tile programs (repro/kernels/paged_attention.py:32 and :93): grid
+# (kv_head, slot), the KV-page axis pipelined, each step's K/V page gathered
+# through the block table; the shared online softmax (attention_core.py)
+# with GQA group-major Q packing and the ragged mask against ``Lens``.
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_program(
+    slots: int,
+    heads: int,
+    kv_heads: int,
+    head_dim: int,
+    page_size: int,
+    max_pages: int,
+    num_pages: int,
+    window: Optional[int] = None,
+    dtype: str = "float32",
+    accum_dtype: str = "float32",
+    num_stages: int = 2,
+    sm_scale: Optional[float] = None,
+) -> TileProgram:
+    if heads % kv_heads:
+        raise ValueError("GQA requires heads % kv_heads == 0")
+    group = heads // kv_heads
+    scale = (sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)) * 1.44269504  # log2(e)
+
+    @T.prim_func
+    def PagedAttn(
+        Tables: T.ScalarTensor((slots, max_pages), "int32"),
+        Lens: T.ScalarTensor((slots,), "int32"),
+        Q: T.Tensor((slots, heads, head_dim), dtype),
+        KPages: T.Tensor((kv_heads, num_pages, page_size, head_dim), dtype),
+        VPages: T.Tensor((kv_heads, num_pages, page_size, head_dim), dtype),
+        Output: T.Tensor((slots, heads, head_dim), dtype),
+    ):
+        with T.Kernel(kv_heads, slots) as (bh, bz):
+            Q_shared = T.alloc_shared((group, head_dim), dtype)
+            K_shared = T.alloc_shared((page_size, head_dim), dtype)
+            V_shared = T.alloc_shared((page_size, head_dim), dtype)
+            acc_s = T.alloc_fragment((group, page_size), accum_dtype)
+            # safe_div: empty slots (len 0) divide by the floor -> zeros
+            ons = AC.OnlineSoftmax(group, head_dim, scale, accum_dtype,
+                                   safe_div=True)
+
+            T.copy(Q[bz, bh * group, 0], Q_shared)
+
+            def load_kv(k):
+                # the paged gather: page index loaded from the block table
+                T.copy(KPages[bh, Tables[bz, k], 0, 0], K_shared)
+                T.copy(VPages[bh, Tables[bz, k], 0, 0], V_shared)
+                return K_shared, V_shared
+
+            # the slot's live positions are [max(0, len - window), len)
+            def mask(k):
+                return AC.ragged(Lens[bz], lambda j: k * page_size + j, window)
+
+            AC.attend(
+                ons, acc_s, page_size, max_pages, load_kv,
+                lambda s, ks, k: AC.scores(s, Q_shared, ks), mask,
+                num_stages=num_stages,
+            )
+            ons.finalize(Output[bz, bh * group, 0])
+
+    return PagedAttn
+
+
+def paged_attention_quant_program(
+    slots: int,
+    heads: int,
+    kv_heads: int,
+    head_dim: int,
+    page_size: int,
+    max_pages: int,
+    num_pages: int,
+    fmt: str = "int8",
+    window: Optional[int] = None,
+    dtype: str = "float32",
+    accum_dtype: str = "float32",
+    num_stages: int = 2,
+    sm_scale: Optional[float] = None,
+) -> TileProgram:
+    """The fp program with ``load_kv`` routed through
+    :class:`attention_core.DequantStage`: pages of packed int8 K/V
+    (``head_dim // pack`` bytes a token) and a scale column a token,
+    unpacked and scaled between the page copy and the score GEMM."""
+    if heads % kv_heads:
+        raise ValueError("GQA requires heads % kv_heads == 0")
+    group = heads // kv_heads
+    pack = AC.KV_PACK[fmt]
+    scale = (sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)) * 1.44269504  # log2(e)
+
+    @T.prim_func
+    def PagedAttnQuant(
+        Tables: T.ScalarTensor((slots, max_pages), "int32"),
+        Lens: T.ScalarTensor((slots,), "int32"),
+        Q: T.Tensor((slots, heads, head_dim), dtype),
+        KPages: T.Tensor((kv_heads, num_pages, page_size, head_dim // pack), "int8"),
+        VPages: T.Tensor((kv_heads, num_pages, page_size, head_dim // pack), "int8"),
+        KScales: T.Tensor((kv_heads, num_pages, page_size, 1), dtype),
+        VScales: T.Tensor((kv_heads, num_pages, page_size, 1), dtype),
+        Output: T.Tensor((slots, heads, head_dim), dtype),
+    ):
+        with T.Kernel(kv_heads, slots) as (bh, bz):
+            Q_shared = T.alloc_shared((group, head_dim), dtype)
+            kq = AC.DequantStage(page_size, head_dim, fmt, dtype)
+            vq = AC.DequantStage(page_size, head_dim, fmt, dtype)
+            acc_s = T.alloc_fragment((group, page_size), accum_dtype)
+            ons = AC.OnlineSoftmax(group, head_dim, scale, accum_dtype,
+                                   safe_div=True)
+
+            T.copy(Q[bz, bh * group, 0], Q_shared)
+
+            def load_kv(k):
+                # paged gather + inline dequant (page index from the table)
+                ks = kq.load(KPages[bh, Tables[bz, k], 0, 0],
+                             KScales[bh, Tables[bz, k], 0, 0])
+                vs = vq.load(VPages[bh, Tables[bz, k], 0, 0],
+                             VScales[bh, Tables[bz, k], 0, 0])
+                return ks, vs
+
+            def mask(k):
+                return AC.ragged(Lens[bz], lambda j: k * page_size + j, window)
+
+            AC.attend(
+                ons, acc_s, page_size, max_pages, load_kv,
+                lambda s, ks, k: AC.scores(s, Q_shared, ks), mask,
+                num_stages=num_stages,
+            )
+            ons.finalize(Output[bz, bh * group, 0])
+
+    return PagedAttnQuant
+
+
+# Tiny-shape configs of the backend-parity suite: GQA and MQA groupings, a
+# sliding window, ragged lengths (parity_inputs below), and the quantized
+# twin in int8 and packed int4.
+PARITY_CASES = [
+    (
+        "paged_attention_mqa",
+        dict(slots=2, heads=2, kv_heads=1, head_dim=16, page_size=16,
+             max_pages=2, num_pages=4),
+    ),
+    (
+        "paged_attention_gqa_ragged",
+        dict(slots=3, heads=4, kv_heads=2, head_dim=16, page_size=16,
+             max_pages=2, num_pages=8),
+    ),
+    (
+        "paged_attention_windowed",
+        dict(slots=2, heads=2, kv_heads=2, head_dim=16, page_size=16,
+             max_pages=2, num_pages=4, window=12),
+    ),
+    (
+        "paged_attention_quant_int8",
+        dict(slots=3, heads=4, kv_heads=2, head_dim=16, page_size=16,
+             max_pages=2, num_pages=8, fmt="int8"),
+    ),
+    (
+        "paged_attention_quant_int4",
+        dict(slots=2, heads=2, kv_heads=1, head_dim=16, page_size=16,
+             max_pages=2, num_pages=4, fmt="int4"),
+    ),
+]
+
+
+def parity_programs():
+    for name, cfg in PARITY_CASES:
+        maker = paged_attention_quant_program if "quant" in name else paged_attention_program
+        yield name, maker(**cfg)
+
+
+def parity_inputs(name, program, rng):
+    """Valid numpy inputs of a parity case: tables drawn without
+    replacement (each page owned by one slot), ragged lengths (a partial
+    page among them), full-range packed bytes and positive scales for the
+    quantized twin."""
+    cfg = dict(PARITY_CASES)[name]
+    slots, mp, np_ = cfg["slots"], cfg["max_pages"], cfg["num_pages"]
+    pages = rng.permutation(np_)[: slots * mp].reshape(slots, mp).astype("int32")
+    max_len = mp * cfg["page_size"]
+    lens = (rng.integers(1, max_len + 1, size=slots)).astype("int32")
+    args = [pages, lens]
+    for p in program.input_params()[2:]:
+        if str(p.dtype).startswith("int"):
+            args.append(rng.integers(-128, 128, size=p.shape).astype(p.dtype))
+        elif p.name.endswith("Scales"):
+            args.append(rng.uniform(0.05, 0.2, size=p.shape).astype(p.dtype))
+        else:
+            args.append(rng.standard_normal(p.shape).astype(p.dtype))
+    return args

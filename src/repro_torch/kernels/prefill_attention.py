@@ -30,15 +30,28 @@ start page-aligned, and pools that started zeroed (several blocks write the
 sink page 0 at once).  Past a slot's live length the kernel writes whole
 pages where the plain version sends dead positions to page 0, so pool bytes
 past ``chunk_lens`` differ between the two.
-"""
-from __future__ import annotations
 
+The same module holds the TPU program itself and its quantized twin,
+``prefill_attention_program`` and ``prefill_attention_quant_program``
+(repro/kernels/prefill_attention.py:44 and :157), the tile programs that the
+port's compiler (``repro_torch.core``) compiles with ``target="cuda"`` or
+runs with ``target="reference"``, with their ``PARITY_CASES`` and
+``parity_inputs`` (:296 onwards).  They take Q packed chunk-major,
+``(slots, kv_heads, chunk * group, head_dim)`` (:func:`packed_queries` with
+one part a group), and write the chunk's K/V (packed bytes and scales, for
+the twin) into the pools through the block table: in-out operands whose
+pages no block writes keep their contents.  A chunk page with no live token
+goes to the reserved page 0, and the table index is clamped to the row.
+"""
 import ctypes
 import math
 from typing import Optional
 
 import torch
 
+from ..core import TileProgram
+from ..core import lang as T
+from . import attention_core as AC
 from . import ref
 from .build import Kernel, check
 from .flash_attention import (MAX_SMEM, WG_D, WG_ROWS, core_smem_bytes, kernel_layout,
@@ -210,3 +223,317 @@ def unpacked_output(out, shape, hkv: int, hs: int, tc: bool):
     b, hq, chunk, d = shape
     sub = hq // (hkv * hs)
     return out.reshape(b, hkv, hs, chunk, sub, d).transpose(3, 4).reshape(b, hq, chunk, d)
+
+
+# ---------------------------------------------------------------------------
+# The tile programs (repro/kernels/prefill_attention.py:44 and :157): grid
+# (kv_head, chunk page, slot), the prior-KV page axis pipelined and gathered
+# through the block table, then the chunk itself (causal, ragged against
+# ``Lens``), then the paged write of this cell's chunk page through the
+# table.  Contract: ``chunk % page_size == 0`` and every live slot's
+# ``Starts`` page-aligned; chunk pages with no live token write page 0 and
+# the table index is clamped, so an idle slot never clobbers a live page.
+# ---------------------------------------------------------------------------
+
+
+def prefill_attention_program(
+    slots: int,
+    heads: int,
+    kv_heads: int,
+    head_dim: int,
+    chunk: int,
+    page_size: int,
+    max_pages: int,
+    num_pages: int,
+    window: Optional[int] = None,
+    dtype: str = "float32",
+    accum_dtype: str = "float32",
+    num_stages: int = 2,
+    sm_scale: Optional[float] = None,
+) -> TileProgram:
+    if heads % kv_heads:
+        raise ValueError("GQA requires heads % kv_heads == 0")
+    if chunk % page_size:
+        raise ValueError("chunk must be a multiple of page_size")
+    group = heads // kv_heads
+    cpp = chunk // page_size  # chunk pages: K/V pages written per slot
+    rows = page_size * group  # query rows per grid cell (chunk-major packed)
+    scale = (sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)) * 1.44269504  # log2(e)
+
+    @T.prim_func
+    def PrefillAttn(
+        Tables: T.ScalarTensor((slots, max_pages), "int32"),
+        Starts: T.ScalarTensor((slots,), "int32"),  # prior tokens (page-aligned)
+        Lens: T.ScalarTensor((slots,), "int32"),  # live tokens in the chunk
+        Q: T.Tensor((slots, kv_heads, chunk * group, head_dim), dtype),
+        K: T.Tensor((slots, kv_heads, chunk, head_dim), dtype),
+        V: T.Tensor((slots, kv_heads, chunk, head_dim), dtype),
+        KPages: T.Tensor((kv_heads, num_pages, page_size, head_dim), dtype),
+        VPages: T.Tensor((kv_heads, num_pages, page_size, head_dim), dtype),
+        Output: T.Tensor((slots, kv_heads, chunk * group, head_dim), dtype),
+    ):
+        with T.Kernel(kv_heads, cpp, slots) as (bh, bq, bz):
+            Q_shared = T.alloc_shared((rows, head_dim), dtype)
+            Kc_shared = T.alloc_shared((chunk, head_dim), dtype)
+            Vc_shared = T.alloc_shared((chunk, head_dim), dtype)
+            Kp_shared = T.alloc_shared((page_size, head_dim), dtype)
+            Vp_shared = T.alloc_shared((page_size, head_dim), dtype)
+            acc_s = T.alloc_fragment((rows, page_size), accum_dtype)
+            acc_c = T.alloc_fragment((rows, chunk), accum_dtype)
+            # safe_div: rows past Lens are fully masked -> zeros, not nan
+            ons = AC.OnlineSoftmax(rows, head_dim, scale, accum_dtype,
+                                   safe_div=True)
+
+            T.copy(Q[bz, bh, bq * rows, 0], Q_shared)
+            T.copy(K[bz, bh, 0, 0], Kc_shared)
+            T.copy(V[bz, bh, 0, 0], Vc_shared)
+
+            # the absolute position of query row r (chunk-major packing)
+            q_pos = lambda r: Starts[bz] + bq * page_size + r // group  # noqa: E731
+
+            # prior KV, gathered through the block table
+            def load_prior(kp):
+                T.copy(KPages[bh, Tables[bz, kp], 0, 0], Kp_shared)
+                T.copy(VPages[bh, Tables[bz, kp], 0, 0], Vp_shared)
+                return Kp_shared, Vp_shared
+
+            def prior_mask(kp):
+                # prior positions [0, Starts) are live; the chunk's own
+                # pages and table padding are masked
+                k_pos = lambda j: kp * page_size + j  # noqa: E731
+                m = AC.ragged(Starts[bz], k_pos)
+                if window is not None:
+                    m = AC.both(m, AC.banded(q_pos, k_pos, window))
+                return m
+
+            AC.attend(
+                ons, acc_s, page_size, max_pages, load_prior,
+                lambda s, ks, k: AC.scores(s, Q_shared, ks), prior_mask,
+                num_stages=num_stages,
+            )
+
+            # the chunk itself, keys straight from K/V (never read back
+            # through the pages being written): causal, ragged against Lens
+            AC.scores(acc_c, Q_shared, Kc_shared)
+            in_pos = lambda r: bq * page_size + r // group  # noqa: E731
+            cmask = AC.both(
+                AC.causal(in_pos, lambda j: j),
+                AC.ragged(Lens[bz], lambda j: j),
+            )
+            if window is not None:
+                cmask = AC.both(cmask, AC.banded(in_pos, lambda j: j, window))
+            ons.update(acc_c, chunk, Vc_shared, cmask)
+
+            ons.finalize(Output[bz, bh, bq * rows, 0])
+
+            # the paged write of this cell's chunk page through the table:
+            # a page with no live token lands in page 0, the index clamped
+            live_page = (bq * page_size) < Lens[bz]
+            tidx = T.minimum(Starts[bz] // page_size + bq, max_pages - 1)
+            dst_page = T.if_then_else(live_page, Tables[bz, tidx], 0)
+            T.copy(
+                Kc_shared[bq * page_size : bq * page_size + page_size, :],
+                KPages[bh, dst_page, 0, 0],
+            )
+            T.copy(
+                Vc_shared[bq * page_size : bq * page_size + page_size, :],
+                VPages[bh, dst_page, 0, 0],
+            )
+
+    return PrefillAttn
+
+
+def prefill_attention_quant_program(
+    slots: int,
+    heads: int,
+    kv_heads: int,
+    head_dim: int,
+    chunk: int,
+    page_size: int,
+    max_pages: int,
+    num_pages: int,
+    fmt: str = "int8",
+    window: Optional[int] = None,
+    dtype: str = "float32",
+    accum_dtype: str = "float32",
+    num_stages: int = 2,
+    sm_scale: Optional[float] = None,
+) -> TileProgram:
+    """The fp program with both KV paths routed through
+    :class:`attention_core.DequantStage`.  The chunk arrives quantized
+    (packed int8 and a scale a token); its staged bytes and scales are
+    copied as they are into the four pools through the table, and the
+    chunk's own attention reads their dequantized round trip.  Prior pages
+    dequantize a page at a time, as in the quantized decode."""
+    if heads % kv_heads:
+        raise ValueError("GQA requires heads % kv_heads == 0")
+    if chunk % page_size:
+        raise ValueError("chunk must be a multiple of page_size")
+    group = heads // kv_heads
+    cpp = chunk // page_size
+    rows = page_size * group
+    pack = AC.KV_PACK[fmt]
+    scale = (sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)) * 1.44269504  # log2(e)
+
+    @T.prim_func
+    def PrefillAttnQuant(
+        Tables: T.ScalarTensor((slots, max_pages), "int32"),
+        Starts: T.ScalarTensor((slots,), "int32"),  # prior tokens (page-aligned)
+        Lens: T.ScalarTensor((slots,), "int32"),  # live tokens in the chunk
+        Q: T.Tensor((slots, kv_heads, chunk * group, head_dim), dtype),
+        K: T.Tensor((slots, kv_heads, chunk, head_dim // pack), "int8"),
+        V: T.Tensor((slots, kv_heads, chunk, head_dim // pack), "int8"),
+        KScale: T.Tensor((slots, kv_heads, chunk, 1), dtype),
+        VScale: T.Tensor((slots, kv_heads, chunk, 1), dtype),
+        KPages: T.Tensor((kv_heads, num_pages, page_size, head_dim // pack), "int8"),
+        VPages: T.Tensor((kv_heads, num_pages, page_size, head_dim // pack), "int8"),
+        KScales: T.Tensor((kv_heads, num_pages, page_size, 1), dtype),
+        VScales: T.Tensor((kv_heads, num_pages, page_size, 1), dtype),
+        Output: T.Tensor((slots, kv_heads, chunk * group, head_dim), dtype),
+    ):
+        with T.Kernel(kv_heads, cpp, slots) as (bh, bq, bz):
+            Q_shared = T.alloc_shared((rows, head_dim), dtype)
+            kc = AC.DequantStage(chunk, head_dim, fmt, dtype)
+            vc = AC.DequantStage(chunk, head_dim, fmt, dtype)
+            kp = AC.DequantStage(page_size, head_dim, fmt, dtype)
+            vp = AC.DequantStage(page_size, head_dim, fmt, dtype)
+            acc_s = T.alloc_fragment((rows, page_size), accum_dtype)
+            acc_c = T.alloc_fragment((rows, chunk), accum_dtype)
+            # safe_div: rows past Lens are fully masked -> zeros, not nan
+            ons = AC.OnlineSoftmax(rows, head_dim, scale, accum_dtype,
+                                   safe_div=True)
+
+            T.copy(Q[bz, bh, bq * rows, 0], Q_shared)
+            # stage and dequantize the chunk once (the round trip every
+            # later decode step reads back from the pages)
+            Kc = kc.load(K[bz, bh, 0, 0], KScale[bz, bh, 0, 0])
+            Vc = vc.load(V[bz, bh, 0, 0], VScale[bz, bh, 0, 0])
+
+            q_pos = lambda r: Starts[bz] + bq * page_size + r // group  # noqa: E731
+
+            # prior KV: paged gather + inline dequant
+            def load_prior(kpg):
+                ks = kp.load(KPages[bh, Tables[bz, kpg], 0, 0],
+                             KScales[bh, Tables[bz, kpg], 0, 0])
+                vs = vp.load(VPages[bh, Tables[bz, kpg], 0, 0],
+                             VScales[bh, Tables[bz, kpg], 0, 0])
+                return ks, vs
+
+            def prior_mask(kpg):
+                k_pos = lambda j: kpg * page_size + j  # noqa: E731
+                m = AC.ragged(Starts[bz], k_pos)
+                if window is not None:
+                    m = AC.both(m, AC.banded(q_pos, k_pos, window))
+                return m
+
+            AC.attend(
+                ons, acc_s, page_size, max_pages, load_prior,
+                lambda s, ks, k: AC.scores(s, Q_shared, ks), prior_mask,
+                num_stages=num_stages,
+            )
+
+            # the chunk itself (its dequantized round trip)
+            AC.scores(acc_c, Q_shared, Kc)
+            in_pos = lambda r: bq * page_size + r // group  # noqa: E731
+            cmask = AC.both(
+                AC.causal(in_pos, lambda j: j),
+                AC.ragged(Lens[bz], lambda j: j),
+            )
+            if window is not None:
+                cmask = AC.both(cmask, AC.banded(in_pos, lambda j: j, window))
+            ons.update(acc_c, chunk, Vc, cmask)
+
+            ons.finalize(Output[bz, bh, bq * rows, 0])
+
+            # the paged write: packed bytes and scales as they were staged
+            # (dead chunk pages land in page 0, as in the fp program)
+            live_page = (bq * page_size) < Lens[bz]
+            tidx = T.minimum(Starts[bz] // page_size + bq, max_pages - 1)
+            dst_page = T.if_then_else(live_page, Tables[bz, tidx], 0)
+            T.copy(
+                kc.packed_rows(bq * page_size, bq * page_size + page_size),
+                KPages[bh, dst_page, 0, 0],
+            )
+            T.copy(
+                vc.packed_rows(bq * page_size, bq * page_size + page_size),
+                VPages[bh, dst_page, 0, 0],
+            )
+            T.copy(
+                kc.scale_shared[bq * page_size : bq * page_size + page_size, :],
+                KScales[bh, dst_page, 0, 0],
+            )
+            T.copy(
+                vc.scale_shared[bq * page_size : bq * page_size + page_size, :],
+                VScales[bh, dst_page, 0, 0],
+            )
+
+    return PrefillAttnQuant
+
+
+# Tiny-shape configs of the backend-parity suite: MQA, a multi-page chunk
+# under GQA, a sliding window, and the quantized twin in int8 and int4.
+PARITY_CASES = [
+    (
+        "prefill_attention_mqa",
+        dict(slots=2, heads=2, kv_heads=1, head_dim=16, chunk=16,
+             page_size=16, max_pages=4, num_pages=8),
+    ),
+    (
+        "prefill_attention_gqa_multipage",
+        dict(slots=2, heads=4, kv_heads=2, head_dim=16, chunk=32,
+             page_size=16, max_pages=4, num_pages=8),
+    ),
+    (
+        "prefill_attention_windowed",
+        dict(slots=2, heads=2, kv_heads=2, head_dim=16, chunk=16,
+             page_size=16, max_pages=4, num_pages=8, window=20),
+    ),
+    (
+        "prefill_attention_quant_int8",
+        dict(slots=2, heads=4, kv_heads=2, head_dim=16, chunk=32,
+             page_size=16, max_pages=4, num_pages=8, fmt="int8"),
+    ),
+    (
+        "prefill_attention_quant_int4",
+        dict(slots=2, heads=2, kv_heads=1, head_dim=16, chunk=16,
+             page_size=16, max_pages=4, num_pages=8, fmt="int4"),
+    ),
+]
+
+
+def parity_programs():
+    for name, cfg in PARITY_CASES:
+        maker = prefill_attention_quant_program if "quant" in name else prefill_attention_program
+        yield name, maker(**cfg)
+
+
+def parity_inputs(name, program, rng):
+    """Valid numpy inputs of a parity case: distinct pages a slot,
+    page-aligned starts that leave room for the chunk's pages, and live
+    lengths ragged within the last chunk page only (every chunk page live:
+    a fully dead page writes the shared page 0, whose last contents depend
+    on the order the cells run).  The in-out pools ride after the pure
+    inputs."""
+    cfg = dict(PARITY_CASES)[name]
+    slots, mp, np_ = cfg["slots"], cfg["max_pages"], cfg["num_pages"]
+    ps, chunk = cfg["page_size"], cfg["chunk"]
+    cpp = chunk // ps
+    pages = rng.permutation(np_)[: slots * mp].reshape(slots, mp).astype("int32")
+    prior_pages = rng.integers(0, mp - cpp + 1, size=slots)
+    starts = (prior_pages * ps).astype("int32")
+    lens = rng.integers(chunk - ps + 1, chunk + 1, size=slots).astype("int32")
+
+    def fill(p):
+        if str(p.dtype).startswith("int"):
+            return rng.integers(-128, 128, size=p.shape).astype(p.dtype)
+        if p.name.endswith(("Scale", "Scales")):
+            return rng.uniform(0.05, 0.2, size=p.shape).astype(p.dtype)
+        return rng.standard_normal(p.shape).astype(p.dtype)
+
+    args = [pages, starts, lens]
+    for p in program.input_params()[3:]:
+        args.append(fill(p))
+    for p in program.output_params():
+        if p.name in ("KPages", "VPages", "KScales", "VScales"):
+            args.append(fill(p))
+    return args

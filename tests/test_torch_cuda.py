@@ -1297,8 +1297,10 @@ def test_cuda_step_breakdown_matches_the_profilers_event_tree():
 
 
 def _compiled_cases():
-    """Every PARITY_CASES entry of the compiler's program modules, in fp32
-    and in bf16 (the bf16 ones take wmma for their 16-bit GEMMs)."""
+    """Every PARITY_CASES entry of the compiler's program modules (the
+    paged decode and chunked prefill, fp and quantized, among them), in fp32,
+    and the GEMM's and flash forward's in bf16 (they take wmma for their
+    16-bit GEMMs)."""
     from repro_torch import kernels as K
 
     out = [(name, "float32", prog) for name, prog in K.parity_programs()]
@@ -1310,30 +1312,144 @@ def _compiled_cases():
     return out
 
 
+def _case_inputs(name, prog, kern, seed, dev, dtype="float32"):
+    """A case's inputs on the card: its module's ``parity_inputs`` where it
+    has a hook (valid block tables), else seeded normal values."""
+    from repro_torch import kernels as K
+
+    args = K.parity_inputs(name, prog, np.random.default_rng(seed))
+    if args is not None:
+        return [torch.as_tensor(a, device=dev) for a in args]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(p.shape, generator=g, device=dev).to(getattr(torch, dtype))
+            for p in kern.arg_params]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(18))
 def test_cuda_emitted_kernels_match_the_reference_interpreter(case):
     """On a card: each tile program compiled with ``target="cuda"`` (built
     by nvcc from the emitted text) against the ``reference`` interpreter on
-    the card on the same seeded inputs: fp32 within 1e-5 of max(1, max
-    |reference|), bf16 within two bf16 ulps; one launch counted."""
+    the card on the same seeded inputs, every output (the prefill's pools
+    too): fp32 within 1e-5 of max(1, max |reference|), bf16 within two bf16
+    ulps; one launch counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
     from repro_torch.core import compile as tl_compile
 
     cases = _compiled_cases()
-    assert len(cases) == 8
+    assert len(cases) == 18
     name, dtype, prog = cases[case]
     dev = torch.device("cuda")
     kern = tl_compile(prog, target="cuda", use_cache=False)
-    g = torch.Generator(device=dev).manual_seed(case)
-    args = [torch.randn(p.shape, generator=g, device=dev).to(getattr(torch, dtype))
-            for p in kern.arg_params]
-    got = kern(*args)
-    want = tl_compile(prog, target="reference")(*args)
-    assert kern.launches == 1 and got.dtype == want.dtype and got.device.type == "cuda"
+    args = _case_inputs(name, prog, kern, case, dev, dtype)
+    got = cs.as_outputs(kern(*args))
+    want = cs.as_outputs(tl_compile(prog, target="reference")(*args))
+    assert kern.launches == 1 and len(got) == len(want)
+    assert all(g.dtype == w.dtype and g.device.type == "cuda" for g, w in zip(got, want))
     if dtype == "bfloat16":
-        assert cs.bf16_ulps(torch, got, want) <= cs.BF16_ULPS, name
+        assert cs.bf16_ulps(torch, got[0], want[0]) <= cs.BF16_ULPS, name
     else:
-        err = ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+        dead = cs.dead_chunk_page(prog, [a.cpu().numpy() for a in args])
+        err = cs.emitted_err(torch, kern, got, want, dead)
         assert err <= 1e-5, (name, err)
+
+
+def _prefill_case(fmt, dtype="float32"):
+    """A chunked-prefill program (fp or its quantized twin) at a small shape
+    and inputs on the card with dead chunk pages: slot 0 live over its
+    whole chunk, slot 1 live over 5 of 32 tokens (its second page dead),
+    slot 2 idle at an unaligned start; page 0 reserved."""
+    from repro_torch import kernels as K
+
+    cfg = dict(slots=3, heads=4, kv_heads=2, head_dim=32, chunk=32, page_size=16,
+               max_pages=4, num_pages=13, dtype=dtype)
+    prog = (K.prefill_attention_program(**cfg) if fmt is None
+            else K.prefill_attention_quant_program(**cfg, fmt=fmt))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    tables = torch.as_tensor(_tables(rng, 3, 4, 13), device=dev)
+    starts = torch.tensor([0, 32, 37], dtype=torch.int32, device=dev)
+    lens = torch.tensor([32, 5, 0], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    rest = []
+    for p in [*prog.input_params()[3:], *(p for p in prog.output_params() if p.name != "Output")]:
+        if p.dtype == "int8":
+            rest.append(torch.randint(-128, 128, p.shape, generator=g, device=dev,
+                                      dtype=torch.int8))
+        elif p.name.endswith(("Scale", "Scales")):
+            rest.append(torch.rand(p.shape, generator=g, device=dev).mul(0.1).add(0.05)
+                        .to(getattr(torch, dtype)))
+        else:
+            rest.append(torch.randn(p.shape, generator=g, device=dev).to(getattr(torch, dtype)))
+    return prog, [tables, starts, lens, *rest]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [None, "int8"])
+def test_cuda_emitted_prefill_keeps_the_pages_no_block_writes(fmt):
+    """On a card: the emitted prefill's pools start as copies of the given
+    pools, so every page no chunk page of any slot maps to keeps its bytes;
+    the given tensors are never written; output and pools match the
+    reference interpreter, page 0 (the dead pages' sink) excluded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
+    from repro_torch.core import compile as tl_compile
+
+    prog, args = _prefill_case(fmt)
+    kern = tl_compile(prog, target="cuda", use_cache=False)
+    given = [a.clone() for a in args]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(args, given))
+    want = tl_compile(prog, target="reference")(*args)
+    assert cs.emitted_err(torch, kern, got, want, dead=True) <= 1e-5
+    names = [p.name for p in kern.arg_params]
+    tb, st = args[0].cpu().numpy(), args[1].cpu().numpy()
+    max_pages = tb.shape[1]
+    touched = {int(tb[b, min(int(st[b]) // 16 + c, max_pages - 1)])
+               for b in range(3) for c in range(2)} | {0}
+    keep = [pg for pg in range(13) if pg not in touched]
+    assert keep
+    for p, out in zip(kern.out_params, got):
+        if p.name != "Output":
+            assert torch.equal(out[:, keep], args[names.index(p.name)][:, keep]), p.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["decode", "decode int8", "prefill", "prefill int8"])
+def test_cuda_emitted_dead_table_entry_changes_no_output(program):
+    """On a card: a table entry past a slot's live pages is read (every
+    entry of the pipelined axis is) but masked, so moving it to another
+    valid page changes no output byte, page 0 of the pools aside (slot 0's
+    fourth entry: the decode's slot 0 holds 20 tokens, the prefill's chunk
+    starts at 0 and covers two pages; the new page is slot 2's first, which
+    no block writes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
+    from repro_torch import kernels as K
+    from repro_torch.core import compile as tl_compile
+
+    fmt = "int8" if program.endswith("int8") else None
+    if program.startswith("prefill"):
+        prog, args = _prefill_case(fmt)
+    else:
+        cfg = dict(slots=3, heads=4, kv_heads=2, head_dim=32, page_size=16, max_pages=4,
+                   num_pages=13)
+        prog = (K.paged_attention_program(**cfg) if fmt is None
+                else K.paged_attention_quant_program(**cfg, fmt=fmt))
+        pprog, pargs = _prefill_case(fmt)  # its tables and pools, lengths of its own
+        pools = [a for p, a in zip(pprog.input_params() + pprog.output_params(), pargs)
+                 if p.name in ("KPages", "VPages", "KScales", "VScales")]
+        q = torch.randn((3, 4, 32), device="cuda")
+        args = [pargs[0], torch.tensor([20, 64, 1], dtype=torch.int32, device="cuda"), q,
+                *pools]
+    kern = tl_compile(prog, target="cuda", use_cache=False)
+    before = cs.as_outputs(kern(*args))
+    moved = args[0].clone()
+    moved[0, 3] = args[0][2, 0]
+    after = cs.as_outputs(kern(moved, *args[1:]))
+    for p, b, a in zip(kern.out_params, before, after, strict=True):
+        if p.name != "Output":  # page 0, the dead pages' sink, in no set order
+            b, a = b[:, 1:], a[:, 1:]
+        assert torch.equal(b, a), p.name

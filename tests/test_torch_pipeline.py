@@ -4,20 +4,23 @@ core``) against the JAX package's (``tests/test_pipeline.py``).
 * the per-pass unit tests of the JAX suite on the port, and every prefix of
   ``PIPELINE`` run on ``small_gemm_program`` in both packages, the fields
   each prefix fills equal;
-* across the packages, for every PARITY_CASES entry of ``kernels/matmul.py``
-  and ``kernels/flash_attention.py`` plus the quickstart's and
+* across the packages, for every PARITY_CASES entry of ``kernels/matmul.py``,
+  ``kernels/flash_attention.py``, ``kernels/paged_attention.py`` and
+  ``kernels/prefill_attention.py`` plus the quickstart's and
   ``small_gemm_program``: phases, windows (index maps evaluated at sample
   grid points), grid, dimension semantics, stages, params, cost FLOPs and
   HBM bytes and the verifier's obligations equal exactly; the shared-memory
   plan (the port's own, for the card) against bytes reckoned by hand;
 * the port's ``reference`` and ``sanitize`` backends against the JAX
   package's ``reference`` backend and its ``pallas`` backend in interpret
-  mode, on the same numpy inputs from a seed, at 1e-5;
+  mode, on the same numpy inputs from a seed, at 1e-5, every output of a
+  tuple (the prefill's pools too);
 * the CUDA backend here, without ``nvcc`` or a card: its text exists for
   every case, is identical for two independent traces, asks for the plan's
-  shared memory, keeps Python's floor rule; the ops it does not take yet
-  raise at compile time naming ROADMAP Queue 1 item 19; a ``cuda`` kernel
-  called on CPU tensors raises.
+  shared memory, keeps Python's floor rule, reads block tables from int32
+  operands and seeds in-out outputs from their inputs; the ops it does not
+  take yet raise at compile time naming ROADMAP Queue 1 item 19; a ``cuda``
+  kernel called on CPU tensors raises.
 """
 import importlib.util
 import re
@@ -34,6 +37,8 @@ from repro.core.lowering import PIPELINE as JPIPELINE
 from repro.core.lowering import make_index_map as jmake_index_map
 from repro.kernels import flash_attention as jflash
 from repro.kernels import matmul as jmatmul
+from repro.kernels import paged_attention as jpaged
+from repro.kernels import prefill_attention as jprefill
 from repro_torch.core import (
     LoweringError,
     Schedule,
@@ -63,7 +68,9 @@ from repro_torch.core.lowering.pipeline import (
     pass_plan_vmem,
     pass_split_phases,
 )
+from repro_torch.kernels import paged_attention as paged
 from repro_torch.kernels import parity_inputs, parity_programs
+from repro_torch.kernels import prefill_attention as prefill
 from repro_torch.kernels.flash_attention import flash_attention_program
 from repro_torch.kernels.matmul import matmul_program
 
@@ -143,6 +150,13 @@ def _pairs():
            for n, c in jmatmul.PARITY_CASES]
     out += [(n, lambda c=c: flash_attention_program(**c),
              lambda c=c: jflash.flash_attention_program(**c)) for n, c in jflash.PARITY_CASES]
+    # the paged programs: the decode and the chunked prefill, fp and quantized
+    for port, jmod in ((paged, jpaged), (prefill, jprefill)):
+        for n, c in jmod.PARITY_CASES:
+            maker = "_quant_program" if "quant" in n else "_program"
+            name = jmod.__name__.rsplit(".", 1)[-1] + maker
+            out.append((n, lambda c=c, f=getattr(port, name): f(**c),
+                        lambda c=c, f=getattr(jmod, name): f(**c)))
     out.append(("quickstart", lambda: _example("torch_quickstart").Matmul, _jax_quickstart))
     out.append(("small_gemm", small_gemm_program, lambda: small_gemm_program(JT)))
     return out
@@ -332,22 +346,29 @@ class TestRegistry:
 # ---------------------------------------------------------------------------
 
 
-def _index_points(m, jm, w, jw):
+def _index_points(m, jm, w, jw, tables):
     """Each window's index map at every grid point (the JAX package's and
-    the port's), on tiny grids every point, else a sample."""
+    the port's), on tiny grids every point, else a sample; a map whose
+    starts load a block table reads ``tables`` (the scalar-prefetch refs,
+    in declaration order)."""
     import itertools
 
     pts = list(itertools.product(*[range(e) for e in m.grid]))[:64]
-    f = make_index_map(w.region, m.grid_plan.env_builder)
-    jf = jmake_index_map(jw.region, jm.grid_plan.env_builder)
-    return ([tuple(int(v) for v in f(*p)) for p in pts],
-            [tuple(int(v) for v in jf(*p)) for p in pts])
+    scalars = [p for p in m.program.params if p.scope == "scalar"]
+    jscalars = [p for p in jm.program.params if p.scope == "scalar"]
+    f = make_index_map(w.region, m.grid_plan.env_builder, scalars)
+    jf = jmake_index_map(jw.region, jm.grid_plan.env_builder, jscalars)
+    return ([tuple(int(v) for v in f(*p, *tables)) for p in pts],
+            [tuple(int(v) for v in jf(*p, *tables)) for p in pts])
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_analysis_equals_the_jax_packages(name):
     port, jax_prog = PAIRS[name]
-    m, jm = analyze(port(), Schedule()), _jax_analyze(jax_prog())
+    prog = port()
+    m, jm = analyze(prog, Schedule()), _jax_analyze(jax_prog())
+    args = parity_inputs(name, prog, np.random.default_rng(0)) or []
+    tables = args[:len([p for p in prog.params if p.scope == "scalar"])]
     phase = lambda ph: ([type(o).__name__ for o in ph.pre],  # noqa: E731
                         [type(o).__name__ for o in ph.pipeline.body] if ph.pipeline else None,
                         [type(o).__name__ for o in ph.post])
@@ -356,7 +377,7 @@ def test_analysis_equals_the_jax_packages(name):
                            w.onchip is not None) for w in (*mm.in_windows, *mm.out_windows)]
     assert windows(m) == windows(jm)
     for w, jw in zip((*m.in_windows, *m.out_windows), (*jm.in_windows, *jm.out_windows)):
-        got, want = _index_points(m, jm, w, jw)
+        got, want = _index_points(m, jm, w, jw, tables)
         assert got == want, w.param.name
     assert m.grid == jm.grid and m.dimension_semantics == jm.dimension_semantics
     assert m.grid_plan.kdim == jm.grid_plan.kdim and m.num_stages == jm.num_stages
@@ -411,6 +432,19 @@ def _make_input(param, rng):
     return rng.standard_normal(param.shape).astype(param.dtype)
 
 
+# Cases whose inputs the JAX package's reference and Pallas-interpret
+# backends do not agree on within 1e-5: the int8 prefill's dequantized keys
+# and values reach 127 x 0.2, its outputs 23, and the two differ by 2.97e-5
+# where sums cancel (an element of 0.4), 1.29 times the limit.
+_JAX_BACKENDS_APART = {"prefill_attention_quant_int8"}
+
+
+def _outputs(out):
+    """Every output of a kernel as numpy arrays: a tuple's elements each
+    (the prefill's pools beside its output)."""
+    return [np.asarray(o) for o in (out if isinstance(out, (tuple, list)) else (out,))]
+
+
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_backend_parity_with_the_jax_package(name):
     port, jax_prog = PAIRS[name]
@@ -423,16 +457,39 @@ def test_backend_parity_with_the_jax_package(name):
     args = parity_inputs(name, prog, rng)
     if args is None:
         args = [_make_input(p, rng) for p in rk.arg_params]
-    got = rk(*[torch.from_numpy(a) for a in args]).numpy()
-    np.testing.assert_array_equal(sk(*[torch.from_numpy(a) for a in args]).numpy(), got)
-    for want in (jr(*args), jp(*args)):
-        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    ts = [torch.from_numpy(a) for a in args]
+    got = _outputs(rk(*ts))
+    for s, g in zip(_outputs(sk(*ts)), got, strict=True):
+        np.testing.assert_array_equal(s, g)
+    apart = []
+    for g, r, p in zip(got, _outputs(jr(*args)), _outputs(jp(*args)), strict=True):
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5)
+        if np.allclose(r, p, rtol=1e-5, atol=1e-5):
+            np.testing.assert_allclose(g, p, rtol=1e-5, atol=1e-5)
+        else:
+            # the JAX package's own two backends differ by more than the
+            # limit: the port may be no farther from Pallas-interpret than
+            # the JAX package's reference is
+            apart.append(np.abs(g - p).max() <= np.abs(r - p).max())
+    assert all(apart) and bool(apart) == (name in _JAX_BACKENDS_APART)
 
 
 def test_parity_registry_mirrors_the_jax_packages():
     names = [n for n, _ in parity_programs()]
-    assert names == [n for n, _ in jflash.PARITY_CASES] + [n for n, _ in jmatmul.PARITY_CASES]
-    assert all(parity_inputs(n, p, np.random.default_rng(0)) is None for n, p in _CASES.items())
+    assert names == [n for mod in (jflash, jmatmul, jpaged, jprefill) for n, _ in mod.PARITY_CASES]
+    # the paged modules' hooks give the JAX package's inputs, the others none
+    hooked = {n for mod in (jpaged, jprefill) for n, _ in mod.PARITY_CASES}
+    jprogs = {n: p for mod in (jpaged, jprefill) for n, p in mod.parity_programs()}
+    for n, p in _CASES.items():
+        args = parity_inputs(n, p, np.random.default_rng(0))
+        if n not in hooked:
+            assert args is None, n
+            continue
+        jmod = jpaged if n in dict(jpaged.PARITY_CASES) else jprefill
+        want = jmod.parity_inputs(n, jprogs[n], np.random.default_rng(0))
+        assert len(args) == len(want)
+        for a, w in zip(args, want):
+            np.testing.assert_array_equal(a, w)
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4"])
@@ -559,16 +616,7 @@ def _unsupported():
             T.cumsum(xs, cs, dim=1)
             T.copy(cs, O[0, 0])
 
-    @T.prim_func
-    def Gather(Tbl: T.ScalarTensor((4,), "int32"), Src: T.Tensor((4, 8, 32), "float32"),
-               Out: T.Tensor((4, 8, 32), "float32")):
-        with T.Kernel(4) as bx:
-            s = T.alloc_shared((8, 32), "float32")
-            T.copy(Src[Tbl[bx], 0, 0], s)
-            T.copy(s, Out[bx, 0, 0])
-
-    return {"CustomOp 'double'": Custom, "AtomicOp atomic_add": Atomic,
-            "CumsumOp": Cumsum, "scalar-prefetch table 'Tbl'": Gather}
+    return {"CustomOp 'double'": Custom, "AtomicOp atomic_add": Atomic, "CumsumOp": Cumsum}
 
 
 @pytest.mark.parametrize("what", sorted(_unsupported()))
@@ -579,6 +627,100 @@ def test_cuda_backend_raises_for_what_it_does_not_take_yet(what):
         _cuda(prog)
     # the reference interpreter still runs it: nothing falls back silently
     assert tl_compile(prog, target="reference").backend == "reference"
+
+
+def _gather():
+    @T.prim_func
+    def Gather(Tbl: T.ScalarTensor((4,), "int32"), Src: T.Tensor((4, 8, 32), "float32"),
+               Out: T.Tensor((4, 8, 32), "float32")):
+        with T.Kernel(4) as bx:
+            s = T.alloc_shared((8, 32), "float32")
+            T.copy(Src[Tbl[bx], 0, 0], s)
+            T.copy(s, Out[bx, 0, 0])
+
+    return Gather
+
+
+def test_cuda_backend_reads_a_block_table_from_an_int32_operand():
+    """A ``T.ScalarTensor`` is an int32 operand of the kernel, and a copy's
+    region start loads its entry for the block."""
+    gather = _gather()
+    src = _cuda(gather).source
+    assert "tl_Gather(const int* __restrict__ g0, const float* __restrict__ g1, " in src
+    assert re.search(r"const int _os\d+ = g0\[\(long long\)\(v\d+\)\];", src)
+    assert "static_cast<const int*>(p0)" in src
+    tbl = torch.tensor([2, 0, 3, 1], dtype=torch.int32)
+    x = torch.randn(4, 8, 32)
+    torch.testing.assert_close(tl_compile(gather, target="reference")(tbl, x), x[tbl.long()])
+
+
+_PAGED = sorted(n for mod in (jpaged, jprefill) for n, _ in mod.PARITY_CASES)
+
+
+@pytest.mark.parametrize("name", _PAGED)
+def test_cuda_source_of_a_paged_program_reads_its_tables(name):
+    """Each paged program's block tables (``Tables``, ``Lens``, and the
+    prefill's ``Starts``) are int32 operands its text reads."""
+    prog = PAIRS[name][0]()
+    src = _cuda(prog).source
+    body = src[src.index("tl_smem[];"):src.index('extern "C" int tl_launch(')]
+    tables = [(i, p) for i, p in enumerate(prog.params) if p.name in ("Tables", "Starts", "Lens")]
+    assert [p.name for _, p in tables] == (
+        ["Tables", "Starts", "Lens"] if name.startswith("prefill") else ["Tables", "Lens"])
+    for i, p in tables:
+        assert f"const int* __restrict__ g{i}" in src and f"g{i}[" in body, p.name
+    # the paged gather: the page index a region start, loaded from the table
+    assert re.search(r"const int _os\d+ = g0\[\(long long\)\(v\d+\) \* \d+LL "
+                     r"\+ \(long long\)\(v\d+\)\];", body)
+    if name.startswith("prefill"):
+        # the page write: the clamped table entry, page 0 for a dead page
+        assert re.search(r"const int _od\d+ = \(.* \? \(int\)\(g0\[.*min\(.*\) : "
+                         r"\(int\)\(0\)\);", body)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that answers ``is_cuda`` like a card's."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("name", ["paged_attention_gqa_ragged", "prefill_attention_mqa",
+                                  "prefill_attention_quant_int8"])
+def test_cuda_kernel_seeds_in_out_outputs_from_their_inputs(name, monkeypatch):
+    """The pools the prefill writes through its table are in-out outputs:
+    the wrapper hands the kernel a copy of each (pages no block writes keep
+    their contents, the caller's tensor is never written) and zeros for a
+    pure output, and returns them in out_params order.  The kernel's C call
+    is recorded (no card here)."""
+    import contextlib
+    import types
+
+    prog = PAIRS[name][0]()
+    kern = _cuda(prog)
+    pools = [p.name for p in prog.output_params() if p.name != "Output"]
+    assert kern.aliased == tuple(pools)
+    assert [p.name for p in kern.out_params] == pools + ["Output"]
+    calls = []
+    monkeypatch.setattr(kern.kernel, "function", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    args = [torch.from_numpy(a).as_subclass(_OnCard)
+            for a in parity_inputs(name, prog, np.random.default_rng(0))]
+    outs = kern(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    (call,) = calls
+    ptr = {p.name: call[i] for i, p in enumerate(prog.params)}
+    given = dict(zip([p.name for p in kern.arg_params], args))
+    for p, o in zip(kern.out_params, outs, strict=True):
+        assert ptr[p.name] == o.data_ptr()
+        if p.name in pools:  # a copy of the input, at another address
+            assert torch.equal(o, given[p.name]) and o.data_ptr() != given[p.name].data_ptr()
+        else:
+            assert not o.any()
+    assert kern.launches == 1
 
 
 def test_cuda_kernel_without_a_card_raises():

@@ -2,8 +2,9 @@
 (``tests/test_verify.py``): the static verifier pass, the sanitizing
 reference interpreter and the dispatch guard, on the port's compiler
 (``repro_torch.core``) and its programs.  Each planted defect raises the
-error the JAX package raises, with the same message; the paged programs'
-obligations wait for their port (ROADMAP Queue 1 item 19, second half)."""
+error the JAX package raises, with the same message; every program's
+obligations, the paged decode's and chunked prefill's among them, are the
+kinds the dispatch guard discharges."""
 import numpy as np
 import pytest
 import torch
@@ -232,7 +233,10 @@ class TestSanitizer:
         args = parity_inputs(name, prog, rng)
         if args is None:
             args = [_make_input(p, rng) for p in sk.arg_params]
-        np.testing.assert_array_equal(sk(*_t(*args)).numpy(), rk(*_t(*args)).numpy())
+        got, want = sk(*_t(*args)), rk(*_t(*args))
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        for g, w in zip(got, want, strict=True):  # the prefill's pools too
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
 
     def test_duplicate_write_detected(self, rng):
         a = rng.standard_normal((32, 128)).astype(np.float32)
