@@ -317,9 +317,29 @@ batch and a decode step's drop other tokens, as in the reference);
    byte for byte the plain version's (with the program's whole-page writes,
    page 0 excepted), timed with L2 flushed beside rows 1-4, their plain
    versions and SDPA over the gathered inputs (the library call of rows 1-2,
-   the labelled yardstick of rows 3-4).  Each emitted kernel's launches are
+   the labelled yardstick of rows 3-4); ``kernels/mla.py``'s nine
+   PARITY_CASES join the parity loop, and its five programs run at full
+   width: the paged MLA decode and chunked prefill (``mla_paged_program``,
+   ``mla_prefill_program`` in bf16, their twins in int8) at
+   deepseek-v2-lite-16B's serving shape (8 slots, 16 heads over a 512-wide
+   latent plus 64 rope, pages of 16, 1024 tokens a slot, chunks of 64; the
+   prefills compiled with ``Schedule(workspace=True)``, their largest tiles
+   in a per-block global workspace) on phase 2's inputs for rows 6-9, each
+   within 2 bf16 ulps of the row's plain version, finite, the decode's
+   empty slot zeros, the prefill's pages byte for byte the plain version's
+   with the program's whole-page writes (page 0 excepted); and FlashMLA
+   (``mla_program``, Fig. 18) at row 5's b128_s8192 in bf16 with blocks
+   64 x 32 (the largest that fit without the workspace) within 2 bf16 ulps
+   of ``mla.fig18_plain`` (the program's own arithmetic: the max a tile, P
+   rounded to bf16; its distance from ``ref.mla`` printed beside row 5's "P
+   rounded to bf16" control, not gated); each timed with L2 flushed beside
+   its row, the row's plain version and SDPA (row 5's library call; rows
+   6-9's labelled yardstick over the gathered inputs).  A small MLA prefill
+   compiled with a shared-memory limit that forces buffers into the
+   workspace gives outputs byte-equal to the same program all in shared
+   memory (fp32 and bf16).  Each emitted kernel's launches are
    counted on that path run (the comparisons' and timings' taken back), its
-   registers (``-Xptxas -v``), shared memory and grid printed.  With
+   registers (``-Xptxas -v``), shared memory, workspace and grid printed.  With
    ``--only kernels`` the script stops after phases 1, 2 and 17 and lists
    every hand-written and emitted kernel it checked.
 
@@ -445,15 +465,21 @@ BF16_ULPS = 2.0
 NEG_CLAMP = -2.0 ** 20  # the kernels' floor of the running max
 
 
-def bf16_ulps(torch, got, want, floor: float = 2.0 ** -16) -> float:
-    """Largest |got - want| over the elements, in bf16 ulps of ``want``
-    (an ulp of at least ``floor``, where fp32 summation order alone moves
-    the result)."""
+def ulps_of(torch, got, want, floor: float = 2.0 ** -16):
+    """|got - want| element by element, in bf16 ulps of ``want`` (an ulp of
+    at least ``floor``, where fp32 summation order alone moves the
+    result)."""
     w = want.float()
     _, e = torch.frexp(w)
     ulp = torch.ldexp(torch.ones_like(w), e - 8).clamp_min(floor)
     ulp = torch.where(w == 0, torch.full_like(w, floor), ulp)
-    return ((got.float() - w).abs() / ulp).max().item()
+    return (got.float() - w).abs() / ulp
+
+
+def bf16_ulps(torch, got, want, floor: float = 2.0 ** -16) -> float:
+    """Largest |got - want| over the elements, in bf16 ulps of ``want``
+    (ulps_of)."""
+    return ulps_of(torch, got, want, floor).max().item()
 
 
 def online_softmax(torch, q, k, v, mask, acc_dtype, scale=HEAD_DIM ** -0.5,
@@ -986,13 +1012,11 @@ def mla_decode_grid(torch, MP, dev):
     return MP.split_grid(SLOTS, MLA_HEADS, MAX_LEN // PAGE, PAGE, sms)
 
 
-def check_mla_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
-                     fmt=None):
-    """The paged MLA decode kernel (``fmt`` None) or its quantized twin
-    against its plain version, at deepseek-v2-lite-16B's widths, with the
-    split grid and the merge's control (as check_decode)."""
-    from repro_torch.kernels import mla_paged as MP
-
+def mla_decode_inputs(torch, np, ref, dtype, dev, fmt=None):
+    """check_mla_decode's seeded inputs: (q, q_pe, args, ckv, kpe,
+    row_bytes, tables, lens), ``args`` the pools the kernel takes (packed,
+    then their scales, for ``fmt``), ckv / kpe what it attends, lens numpy
+    int32 (an empty slot, a full one)."""
     rng = np.random.default_rng(11)
     tables, num_pages = _tables(torch, rng, dev)
     lens = rng.integers(1, MAX_LEN + 1, size=SLOTS).astype("int32")
@@ -1003,6 +1027,31 @@ def check_mla_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
     q, qpe = rand(SLOTS, MLA_HEADS, RANK), rand(SLOTS, MLA_HEADS, ROPE)
     args, ckv, kpe, row_bytes = _latent(
         torch, ref, rand(num_pages, PAGE, RANK), rand(num_pages, PAGE, ROPE), fmt, dtype)
+    return q, qpe, args, ckv, kpe, row_bytes, tables, lens
+
+
+def mla_decode_bound(lens, window, row_bytes, isz):
+    """(bytes, flops) of the paged MLA decode at deepseek-v2-lite-16B's
+    serving shape: the queries in and the output out, each live latent and
+    rope row read once with its table entry, one score and one P.V product
+    a live (head, key) pair."""
+    eff = lens if window is None else [min(int(n), window) for n in lens]
+    live = int(sum(int(n) for n in eff))
+    nbytes = (SLOTS * MLA_HEADS * (2 * RANK + ROPE) * isz  # q_lat, q_pe in; out
+              + live * row_bytes + SLOTS * 4
+              + sum(-(-int(n) // PAGE) for n in eff) * 4)
+    return nbytes, 2.0 * MLA_HEADS * (2 * RANK + ROPE) * live
+
+
+def check_mla_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
+                     fmt=None):
+    """The paged MLA decode kernel (``fmt`` None) or its quantized twin
+    against its plain version, at deepseek-v2-lite-16B's widths, with the
+    split grid and the merge's control (as check_decode)."""
+    from repro_torch.kernels import mla_paged as MP
+
+    q, qpe, args, ckv, kpe, row_bytes, tables, lens = mla_decode_inputs(
+        torch, np, ref, dtype, dev, fmt)
     kw = {"sm_scale": MLA_SCALE, "window": window}
     if fmt is None:
         kernel, plain_fn = mod.mla_paged, ref.mla_paged
@@ -1048,21 +1097,17 @@ def check_mla_decode(torch, np, ref, mod, dtype, window, flush, timed, dev,
         mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
         _yardstick(torch, res, q4, kg.expand(-1, MLA_HEADS, -1, -1),
                    vg.expand(-1, MLA_HEADS, -1, -1), mask, flush)
-        eff = lens if window is None else np.minimum(lens, window)
-        live = int(eff.sum())
-        isz = q.element_size()
-        nbytes = (SLOTS * MLA_HEADS * (2 * RANK + ROPE) * isz  # q_lat, q_pe in; out
-                  + live * row_bytes + SLOTS * 4
-                  + sum(-(-int(n) // PAGE) for n in eff) * 4)
-        flops = 2.0 * MLA_HEADS * (2 * RANK + ROPE) * live
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        res["bound_ms"], res["bound_by"] = bound(
+            *mla_decode_bound(lens, window, row_bytes, q.element_size()), BF16_FLOPS)
     return res
 
 
-def check_mla_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
-                      fmt=None):
-    """The MLA chunked-prefill kernel (``fmt`` None) or its quantized twin
-    against its plain version: outputs, and the pages both write."""
+def mla_prefill_inputs(torch, np, ref, dtype, dev, fmt=None):
+    """check_mla_prefill's seeded inputs: (q, q_pe, new, cn, pn, row_bytes,
+    pools, ckv, kpe, tables, num_pages, starts, lens), ``new`` / ``pools``
+    the chunk's rows and the pools the kernel takes (packed, then their
+    scales, for ``fmt``), cn / pn and ckv / kpe what it attends, starts and
+    lens numpy int32 (a partial chunk, an idle slot, a one-token chunk)."""
     rng = np.random.default_rng(13)
     tables, num_pages = _tables(torch, rng, dev)
     starts, lens = _chunk_starts_lens(np, rng)
@@ -1073,6 +1118,27 @@ def check_mla_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
                                      rand(SLOTS, CHUNK, ROPE), fmt, dtype)
     pools, ckv, kpe, _ = _latent(torch, ref, rand(num_pages, PAGE, RANK),
                                  rand(num_pages, PAGE, ROPE), fmt, dtype)
+    return q, qpe, new, cn, pn, row_bytes, pools, ckv, kpe, tables, num_pages, starts, lens
+
+
+def mla_prefill_bound(starts, lens, window, row_bytes, isz):
+    """(bytes, flops) of the MLA chunked prefill at deepseek-v2-lite-16B's
+    serving shape: the live queries in and out, the chunk's rows in and
+    written to their pages, each prior row read once; one score and one P.V
+    product a live (head, query, key) triple."""
+    pairs, prior_rows = prefill_work(starts, lens, window)
+    live = int(lens.sum())
+    nbytes = (MLA_HEADS * (2 * RANK + ROPE) * isz * live  # live q in, out
+              + row_bytes * (live * 2 + prior_rows))  # chunk in, pages out, prior
+    return nbytes, 2.0 * MLA_HEADS * (2 * RANK + ROPE) * pairs
+
+
+def check_mla_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
+                      fmt=None):
+    """The MLA chunked-prefill kernel (``fmt`` None) or its quantized twin
+    against its plain version: outputs, and the pages both write."""
+    (q, qpe, new, cn, pn, row_bytes, pools, ckv, kpe, tables, num_pages, starts,
+     lens) = mla_prefill_inputs(torch, np, ref, dtype, dev, fmt)
     kw = {"sm_scale": MLA_SCALE, "window": window}
     if fmt is None:
         kernel, plain_fn = mod.mla_prefill, ref.paged_mla_prefill
@@ -1110,13 +1176,8 @@ def check_mla_prefill(torch, np, ref, mod, dtype, window, flush, timed, dev,
         mod.KERNEL.launches, mod.KERNEL.tc_launches = before, tc_before
         _yardstick(torch, res, qall, kall.expand(-1, MLA_HEADS, -1, -1),
                    vall.expand(-1, MLA_HEADS, -1, -1), mask, flush)
-        pairs, prior_rows = prefill_work(starts, lens, window)
-        live = int(lens.sum())
-        isz = q.element_size()
-        nbytes = (MLA_HEADS * (2 * RANK + ROPE) * isz * live  # live q in, out
-                  + row_bytes * (live * 2 + prior_rows))  # chunk in, pages out, prior
-        flops = 2.0 * MLA_HEADS * (2 * RANK + ROPE) * pairs
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        res["bound_ms"], res["bound_by"] = bound(
+            *mla_prefill_bound(starts, lens, window, row_bytes, q.element_size()), BF16_FLOPS)
     return res
 
 
@@ -3501,7 +3562,8 @@ def main(argv=None) -> int:
     log(f"[time] phase 2, the kernel library ({len(lib)} cases): "
         f"{time.perf_counter() - t0:.1f} s")
     if args.only == "kernels":
-        emitted_rows = compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device)
+        emitted_rows = compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device,
+                                      table.get("mla"))
         log(json.dumps({"kernels_checked": sorted(table) + [r["name"] for r in emitted_rows]}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3533,7 +3595,8 @@ def main(argv=None) -> int:
     mesh_phase(torch, np, lm, device, card)
     main_launches.update(lib_launches)
     torch.cuda.empty_cache()
-    emitted_rows = compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device)
+    emitted_rows = compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device,
+                                  table.get("mla"))
 
     # ---- result lines --------------------------------------------------
     rows = []
@@ -5133,10 +5196,32 @@ EMITTED = {"quickstart": ("compiled quickstart matmul (fp32 512^3)", "examples/t
                        "src/repro/kernels/prefill_attention.py:44"),
            "prefill int8": ("compiled prefill_attention_quant_program (qwen2-1.5B chunk 64, int8)",
                             "src/repro_torch/kernels/prefill_attention.py",
-                            "src/repro/kernels/prefill_attention.py:157")}
+                            "src/repro/kernels/prefill_attention.py:157"),
+           "flash mla": ("compiled mla_program (FlashMLA b128_s8192, bf16)",
+                         "src/repro_torch/kernels/mla.py", "src/repro/kernels/mla.py:33"),
+           "mla decode": ("compiled mla_paged_program (deepseek-v2-lite-16B decode, bf16)",
+                          "src/repro_torch/kernels/mla.py", "src/repro/kernels/mla.py:110"),
+           "mla prefill": ("compiled mla_prefill_program (deepseek-v2-lite-16B chunk 64, bf16)",
+                           "src/repro_torch/kernels/mla.py", "src/repro/kernels/mla.py:180"),
+           "mla decode int8": ("compiled mla_paged_quant_program (deepseek-v2-lite-16B decode, "
+                               "int8)", "src/repro_torch/kernels/mla.py",
+                               "src/repro/kernels/mla.py:301"),
+           "mla prefill int8": ("compiled mla_prefill_quant_program (deepseek-v2-lite-16B chunk "
+                                "64, int8)", "src/repro_torch/kernels/mla.py",
+                                "src/repro/kernels/mla.py:374")}
 # the paged programs at qwen2-1.5B's serving shape: the format each takes and
 # the hand-written row (PERF.md section 6, rows 1-4) it is timed beside
 PAGED_EMITTED = {"decode": None, "decode int8": "int8", "prefill": None, "prefill int8": "int8"}
+# the paged MLA programs at deepseek-v2-lite-16B's serving shape: the format
+# each takes (rows 6-9 beside them)
+MLA_EMITTED = {"mla decode": None, "mla decode int8": "int8", "mla prefill": None,
+               "mla prefill int8": "int8"}
+# FlashMLA at row 5's shape: the largest blocks whose tiles fit one block's
+# shared memory (64 / 64 needs 311,552 bytes)
+COMPILED_FLASH_MLA = dict(block_N=64, block_H=32)
+# the workspace check: kernels/mla.py's "mla_prefill" parity case under a
+# shared-memory limit that sends its four largest buffers to the workspace
+WORKSPACE_CASE, WORKSPACE_SMEM = "mla_prefill", 4096
 
 
 def quickstart_module():
@@ -5166,7 +5251,45 @@ def compiler_kernels(torch, device):
                                                HEAD_DIM, True, dtype="bfloat16",
                                                **COMPILED_FLASH)
     progs.update(paged_programs(K))
-    return {name: tl_compile(p, target="cuda") for name, p in progs.items()}
+    out = {name: tl_compile(p, target="cuda") for name, p in progs.items()}
+    out.update(mla_programs(K))
+    return out
+
+
+def mla_programs(K):
+    """kernels/mla.py's programs compiled for the card: the paged MLA decode
+    and chunked prefill at deepseek-v2-lite-16B's serving shape (8 slots, 16
+    heads over a 512-wide latent plus 64 rope, pages of 16, 64 pages a slot
+    and page 0 reserved; chunks of CHUNK; bf16, the twins int8; the
+    prefills with the workspace), FlashMLA at row 5's b128_s8192 in bf16
+    (COMPILED_FLASH_MLA), and the workspace check's pair: WORKSPACE_CASE in
+    fp32 and bf16, each all in shared memory and with buffers forced into
+    the workspace."""
+    from repro_torch.core import Schedule
+    from repro_torch.core import compile as tl_compile
+
+    max_pages = MAX_LEN // PAGE
+    cfg = dict(slots=SLOTS, heads=MLA_HEADS, dim=RANK, pe_dim=ROPE, page_size=PAGE,
+               max_pages=max_pages, num_pages=SLOTS * max_pages + 1, dtype="bfloat16",
+               sm_scale=MLA_SCALE)
+    ws = Schedule(workspace=True)
+    b, h, hkv, s, d, pe = MLA_SHAPES["b128_s8192"]
+    out = {"flash mla": tl_compile(K.mla_program(b, h, hkv, s, d, pe, dtype="bfloat16",
+                                                 **COMPILED_FLASH_MLA), target="cuda"),
+           "mla decode": tl_compile(K.mla_paged_program(**cfg), target="cuda"),
+           "mla decode int8": tl_compile(K.mla_paged_quant_program(**cfg, fmt="int8"),
+                                         target="cuda"),
+           "mla prefill": tl_compile(K.mla_prefill_program(**cfg, chunk=CHUNK), ws,
+                                     target="cuda"),
+           "mla prefill int8": tl_compile(K.mla_prefill_quant_program(
+               **cfg, chunk=CHUNK, fmt="int8"), ws, target="cuda")}
+    small = dict(K.mla.PARITY_CASES)[WORKSPACE_CASE]
+    forced = Schedule(workspace=True, smem_limit=WORKSPACE_SMEM)
+    for dtype in ("float32", "bfloat16"):
+        prog = K.mla_prefill_program(**small, dtype=dtype)
+        out[f"workspace {dtype}"] = tl_compile(prog, forced, target="cuda")
+        out[f"all shared {dtype}"] = tl_compile(prog, target="cuda")
+    return out
 
 
 def paged_programs(K):
@@ -5191,14 +5314,23 @@ def as_outputs(out) -> tuple:
 def dead_chunk_page(prog, args) -> bool:
     """Whether a prefill program's inputs leave a chunk page with no live
     token: its cells all write the reserved page 0, in no set order, so the
-    pools are compared with page 0 excluded."""
+    pools are compared with page 0 excluded.  The GQA prefill's pool is
+    ``KPages`` and its chunk ``K``, MLA's ``KVPages`` and ``CKV``; either
+    way the page size and the chunk are the next-to-last extents."""
     names = [p.name for p in prog.params]
     if "Starts" not in names:
         return False
     lens = args[names.index("Lens")]
-    ps = prog.params[names.index("KPages")].shape[2]
-    chunk = prog.params[names.index("K")].shape[2]
+    pool, rows = ("KPages", "K") if "KPages" in names else ("KVPages", "CKV")
+    ps = prog.params[names.index(pool)].shape[-2]
+    chunk = prog.params[names.index(rows)].shape[-2]
     return bool((lens < chunk - ps + 1).any())
+
+
+def without_page0(t):
+    """A pool without page 0: the GQA pools (kv heads, pages, page, D) on
+    their second axis, MLA's latent pools (pages, page, D) on their first."""
+    return t[1:] if t.dim() == 3 else t[:, 1:]
 
 
 def emitted_err(torch, kern, got, want, dead: bool) -> float:
@@ -5208,7 +5340,7 @@ def emitted_err(torch, kern, got, want, dead: bool) -> float:
     errs = []
     for p, g, w in zip(kern.out_params, as_outputs(got), as_outputs(want), strict=True):
         if dead and p.name != "Output":
-            g, w = g[:, 1:], w[:, 1:]
+            g, w = without_page0(g), without_page0(w)
         g, w = g.double(), w.double()
         errs.append(((g - w).abs().max() / w.abs().max().clamp_min(1.0)).item())
     return max(errs)
@@ -5218,7 +5350,9 @@ def expected_pools(plain_pools, new, tables, starts, lens):
     """The pools the paged-prefill program leaves: the plain version's,
     with every chunk page that holds a live token written whole (the TPU
     program's page write: the dead tail of a partial page too, where the
-    plain version keeps the old rows)."""
+    plain version keeps the old rows).  A 3-D pool is MLA's latent layout
+    (pages, page, .) with chunk rows (slots, chunk, .); a 4-D one the GQA
+    layout, its kv-head axis first (as without_page0)."""
     out = [t.clone() for t in plain_pools]
     tb = tables.cpu().numpy()
     max_pages = tb.shape[1]
@@ -5227,7 +5361,10 @@ def expected_pools(plain_pools, new, tables, starts, lens):
             if bq * PAGE < int(lens[b]):
                 page = int(tb[b, min(int(starts[b]) // PAGE + bq, max_pages - 1)])
                 for pool, rows in zip(out, new):
-                    pool[:, page] = rows[b, :, bq * PAGE:(bq + 1) * PAGE]
+                    if pool.dim() == 3:
+                        pool[page] = rows[b, bq * PAGE:(bq + 1) * PAGE]
+                    else:
+                        pool[:, page] = rows[b, :, bq * PAGE:(bq + 1) * PAGE]
     return out
 
 
@@ -5301,6 +5438,153 @@ def paged_program_ok(r) -> bool:
             and r.get("pages_equal", True))
 
 
+def check_mla_program(torch, np, ref, kern, name, dev):
+    """An emitted paged MLA program (``name`` of MLA_EMITTED) on phase 2's
+    inputs for its hand-written row (6-9) at deepseek-v2-lite-16B's serving
+    shape, against the row's plain version: as check_paged_program, but
+    returning the row's kernel (whose counts the timing must not move).  The
+    prefill's queries are packed chunk-major with the heads (row ``i * H +
+    h``) and its output unpacked, both untimed."""
+    from repro_torch.kernels import mla_paged as MP
+    from repro_torch.kernels import mla_paged_quant as MPQ
+    from repro_torch.kernels import mla_prefill as MF
+    from repro_torch.kernels import mla_prefill_quant as MFQ
+
+    fmt = MLA_EMITTED[name]
+    kw = {"sm_scale": MLA_SCALE} if fmt is None else {"sm_scale": MLA_SCALE, "fmt": fmt}
+    res = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if "decode" in name:
+        q, qpe, args, ckv, kpe, row_bytes, tables, lens = mla_decode_inputs(
+            torch, np, ref, torch.bfloat16, dev, fmt)
+        lens_t = torch.as_tensor(lens, device=dev)
+        run = lambda: kern(tables, lens_t, q, qpe, *args)  # noqa: E731
+        mod, plain_fn = (MP, ref.mla_paged) if fmt is None else (MPQ, ref.mla_paged_quant)
+        hand = MP.mla_paged if fmt is None else MPQ.mla_paged_quant
+        row = lambda: hand(q, qpe, *args, tables, lens_t, **kw)  # noqa: E731
+        plain_run = lambda: plain_fn(q, qpe, *args, tables, lens_t, **kw)  # noqa: E731
+        out, plain = run(), plain_run()
+        res["empty_slot_zero"] = out[2].abs().max().item() == 0.0
+        kg = torch.cat([ckv, kpe], -1)[tables.long()].reshape(SLOTS, 1, -1, RANK + ROPE)
+        vg = ckv[tables.long()].reshape(SLOTS, 1, -1, RANK)
+        mask = (torch.arange(MAX_LEN, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+        q4 = torch.cat([q, qpe], -1)[:, :, None, :]
+        yard = lambda: sdpa(q4, kg.expand(-1, MLA_HEADS, -1, -1),  # noqa: E731
+                            vg.expand(-1, MLA_HEADS, -1, -1), attn_mask=mask, scale=MLA_SCALE)
+        res["bound"] = bound(*mla_decode_bound(lens, None, row_bytes, 2), BF16_FLOPS)
+    else:
+        (q, qpe, new, cn, pn, row_bytes, pools, ckv, kpe, tables, _, starts,
+         lens) = mla_prefill_inputs(torch, np, ref, torch.bfloat16, dev, fmt)
+        st, ln = torch.as_tensor(starts, device=dev), torch.as_tensor(lens, device=dev)
+        qp = q.permute(0, 2, 1, 3).reshape(SLOTS, CHUNK * MLA_HEADS, RANK)
+        qpep = qpe.permute(0, 2, 1, 3).reshape(SLOTS, CHUNK * MLA_HEADS, ROPE)
+        run = lambda: kern(tables, st, ln, qp, qpep, *new, *pools)  # noqa: E731
+        p1, p2 = [t.clone() for t in pools], [t.clone() for t in pools]
+        mod = MF if fmt is None else MFQ
+        hand = MF.mla_prefill if fmt is None else MFQ.mla_prefill_quant
+        plain_fn = ref.paged_mla_prefill if fmt is None else ref.paged_mla_prefill_quant
+        row = lambda: hand(q, qpe, *new, *p1, tables, st, ln, **kw)[0]  # noqa: E731
+        plain_run = lambda: plain_fn(q, qpe, *new, *p2, tables, st, ln, **kw)[0]  # noqa: E731
+        got = run()
+        out = got[-1].reshape(SLOTS, CHUNK, MLA_HEADS, RANK).permute(0, 2, 1, 3)
+        plain = plain_run()
+        want = expected_pools(p2, new, tables, starts, lens)
+        res["pages_equal"] = all(torch.equal(g[1:], w[1:])
+                                 for g, w in zip(got[:-1], want, strict=True))
+        kall = torch.cat([torch.cat([ckv, kpe], -1)[tables.long()].reshape(
+            SLOTS, -1, RANK + ROPE), torch.cat([cn, pn], -1)], 1)[:, None]
+        vall = torch.cat([ckv[tables.long()].reshape(SLOTS, -1, RANK), cn], 1)[:, None]
+        mask, _ = prefill_mask(torch, st, ln, None)
+        qall = torch.cat([q, qpe], -1)
+        yard = lambda: sdpa(qall, kall.expand(-1, MLA_HEADS, -1, -1),  # noqa: E731
+                            vall.expand(-1, MLA_HEADS, -1, -1), attn_mask=mask, scale=MLA_SCALE)
+        res["bound"] = bound(*mla_prefill_bound(starts, lens, None, row_bytes, 2), BF16_FLOPS)
+    res["err"] = (out.float() - plain.float()).abs().max().item()
+    res["ulps"] = bf16_ulps(torch, out, plain)
+    res["finite"] = bool(torch.isfinite(out).all())
+    calls = {"ms": run, "row_ms": row, "plain_ms": plain_run, "sdpa_ms": yard}
+    return res, calls, mod.KERNEL
+
+
+def check_flash_mla_program(torch, ref, kern, dev, flash_row=None):
+    """The emitted FlashMLA at row 5's b128_s8192 in bf16 on
+    check_lib_mla's inputs: within BF16_ULPS of ``mla.fig18_plain`` at its
+    block_N (the program's own arithmetic), finite; its distance from
+    ``ref.mla`` (which keeps P in fp32) read beside row 5's "P rounded to
+    bf16" control (``flash_row``, phase 2's reading), not gated.  Returns
+    the readings and the calls to time (the emitted kernel, row 5 through
+    ``ops.mla``, ``ref.mla``, ``fig18_plain`` and SDPA over a latent
+    head's heads as query rows, row 5's library call)."""
+    from repro_torch.kernels import mla as MLA
+    from repro_torch.kernels import ops
+
+    b, h, hkv, s, d, pe = MLA_SHAPES["b128_s8192"]
+    g = torch.Generator(device=dev).manual_seed(47)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
+    q_pe = torch.randn((b, h, pe), generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn((b, s, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    k_pe = torch.randn((b, s, hkv, pe), generator=g, device=dev).to(torch.bfloat16)
+    run = lambda: kern(q, q_pe, kv, k_pe)  # noqa: E731
+    fig18 = lambda: MLA.fig18_plain(q, q_pe, kv, k_pe,  # noqa: E731
+                                    block_N=COMPILED_FLASH_MLA["block_N"])
+    out, want = run(), fig18()
+    plain = ref.mla(q, q_pe, kv, k_pe)
+    diff = (out.float() - want.float()).abs()
+    worst = int(diff.argmax())
+    # elements at 1 and at 2 or more ulps (bf16_ulps', rounded), where the
+    # 2-ulp ones are outputs under 2^-8, at bf16_ulps' floor
+    units = ulps_of(torch, out, want).round()
+    res = {"ulps": bf16_ulps(torch, out, want), "finite": bool(torch.isfinite(out).all()),
+           "apart": int((diff > 0).sum()), "size": diff.numel(),
+           "at_1": int((units == 1).sum()), "at_2_or_more": int((units >= 2).sum()),
+           "worst": (diff.flatten()[worst].item(), want.flatten()[worst].float().item()),
+           "err": (out.float() - plain.float()).abs().max().item(),
+           "ref_mla_ulps": bf16_ulps(torch, out, plain),
+           "p_rounded_control": None if flash_row is None else flash_row.get("bf16_p_ulps")}
+    del out, want, plain, diff, units
+    scale = (d + pe) ** -0.5
+    qg = torch.cat([q, q_pe], -1).reshape(b, hkv, h // hkv, d + pe)
+    kg = torch.cat([kv, k_pe], -1).transpose(1, 2).contiguous()
+    vg = kv.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    isz = q.element_size()
+    nbytes = (b * s * hkv * (d + pe) + b * h * (d + pe) + b * h * d) * isz
+    res["bound"] = bound(nbytes, 2.0 * b * h * s * (2 * d + pe), BF16_FLOPS)
+    calls = {"ms": run, "row_ms": lambda: ops.mla(q, q_pe, kv, k_pe),
+             "plain_ms": lambda: ref.mla(q, q_pe, kv, k_pe), "fig18_plain_ms": fig18,
+             "sdpa_ms": lambda: sdpa(qg, kg, vg, scale=scale)}
+    return res, calls, ops.KERNELS["mla"]
+
+
+def workspace_check(torch, np, compiled, dev):
+    """WORKSPACE_CASE compiled with buffers forced into the workspace
+    against the same program all in shared memory, on its parity inputs
+    (the fp32 program's, rounded to bf16 for the bf16 pair): every output
+    byte-equal.  Returns the workspace's buffers and bytes a block, shared
+    bytes and the all-shared kernel's, by dtype."""
+    from repro_torch import kernels as K
+
+    out = {}
+    base = compiled["all shared float32"].program
+    for dtype in ("float32", "bfloat16"):
+        ws, shared = compiled[f"workspace {dtype}"], compiled[f"all shared {dtype}"]
+        assert ws.workspace_bytes > 0 and shared.workspace_bytes == 0
+        args = K.parity_inputs(WORKSPACE_CASE, base, np.random.default_rng(61))
+        args = [torch.as_tensor(a, device=dev) for a in args]
+        args = [a.to(getattr(torch, dtype)) if a.is_floating_point() else a for a in args]
+        launches = ws.launches, shared.launches
+        equal = all(torch.equal(a, b) for a, b in zip(as_outputs(ws(*args)),
+                                                      as_outputs(shared(*args)), strict=True))
+        ws.launches, shared.launches = launches
+        if not equal:
+            raise AssertionError(f"{WORKSPACE_CASE} {dtype}: the workspace's outputs differ "
+                                 "from the all-shared kernel's")
+        plan = ws.info.vmem
+        out[dtype] = (plan.workspace(), plan.workspace_bytes, plan.total_bytes,
+                      shared.smem_bytes)
+    return out
+
+
 def ptxas_registers(text: str) -> str:
     """The registers and spills ``-Xptxas -v`` reports for a source's kernel."""
     regs = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
@@ -5309,9 +5593,10 @@ def ptxas_registers(text: str) -> str:
     return f"{regs[0] if regs else '?'}; {spill[0] if spill else ''}"
 
 
-def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device):
+def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_row=None):
     """Phase 17 (see the module docstring).  Returns the emitted kernels'
-    rows of the result line."""
+    rows of the result line.  ``flash_row`` is phase 2's reading of row 5
+    at b128_s8192 (its "P rounded to bf16" control)."""
     from repro_torch import kernels as K
     from repro_torch.core import compile as tl_compile
     from repro_torch.kernels import flash_attention as FA
@@ -5435,7 +5720,54 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device):
         results[name] = {"max_abs_err": r["err"], "bound": r["bound"], **times,
                          "library_ms": sdpa if PAGED_EMITTED[name] is None else None,
                          "yardstick_ms": None if PAGED_EMITTED[name] is None else sdpa}
+    # the paged MLA programs at deepseek-v2-lite-16B's serving shape, on
+    # phase 2's inputs for rows 6-9, and FlashMLA at row 5's b128_s8192
+    checks = [(name, lambda n=name: check_mla_program(torch, np, ref, compiled[n], n, device))
+              for name in MLA_EMITTED]
+    checks.append(("flash mla", lambda: check_flash_mla_program(
+        torch, ref, compiled["flash mla"], device, flash_row)))
+    for name, check in checks:
+        kern = compiled[name]
+        r, calls, row = check()
+        if name == "flash mla":
+            control = r["p_rounded_control"]
+            log(f"[compiler] {EMITTED[name][0]} (blocks {COMPILED_FLASH_MLA}): {r['ulps']:.2f} "
+                f"bf16 ulps of mla.fig18_plain (limit {BF16_ULPS:g}; {r['apart']} of {r['size']} "
+                f"elements differ, {r['at_1']} by 1 ulp and {r['at_2_or_more']} by 2 or more, "
+                f"the largest by {r['worst'][0]:.3e} at {r['worst'][1]:.3e}); "
+                f"{r['ref_mla_ulps']:.2f} "
+                f"bf16 ulps of ref.mla (P in fp32; not gated), beside row 5's control 'P "
+                f"rounded to bf16' {'not run' if control is None else f'{control:.2f}'}")
+            ok = r["ulps"] <= BF16_ULPS and r["finite"]
+        else:
+            log(f"[compiler] {EMITTED[name][0]}: {r['ulps']:.2f} bf16 ulps of the plain version "
+                f"(limit {BF16_ULPS:g}; max abs err {r['err']:.3e})"
+                + (f", empty slot zeros {r['empty_slot_zero']}" if "empty_slot_zero" in r else
+                   f", pages written {'equal' if r['pages_equal'] else 'UNEQUAL'} to the plain "
+                   "version's with the program's whole-page writes (page 0 excepted)"))
+            ok = paged_program_ok(r)
+        if not ok:
+            raise AssertionError(f"{name}: the emitted kernel fails its check: {r}")
+        saved = {a: getattr(row, a) for a in ("launches", "tc_launches", "walk_launches")}
+        launches = kern.launches
+        times = {k: time_ms(torch, fn, flush=flush_buf.zero_) for k, fn in calls.items()}
+        for a, n in saved.items():
+            setattr(row, a, n)
+        kern.launches = launches
+        sdpa = times.pop("sdpa_ms")
+        fig18 = times.pop("fig18_plain_ms", None)
+        if fig18 is not None:
+            log(f"[compiler] mla.fig18_plain at b128_s8192: {fig18:.4f} ms")
+        results[name] = {"max_abs_err": r["err"], "bound": r["bound"], **times,
+                         "library_ms": sdpa if name == "flash mla" else None,
+                         "yardstick_ms": None if name == "flash mla" else sdpa}
     del flush_buf
+    # the workspace check: forced into the workspace against all shared
+    for dtype, (names, ws, smem, all_smem) in workspace_check(torch, np, compiled,
+                                                               device).items():
+        log(f"[compiler] workspace check, {WORKSPACE_CASE} {dtype} at a shared-memory limit of "
+            f"{WORKSPACE_SMEM} B: {smem} B shared + {ws} B of workspace a block ({', '.join(names)}"
+            f") byte-equal to the all-shared kernel ({all_smem} B shared)")
     # the path's launches: one a program, comparisons and timings taken back
     path = {name: compiled[name].launches for name in EMITTED}
     log(f"[launches] the compiler's path: {json.dumps(path)}")
@@ -5446,12 +5778,15 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device):
         regs = ptxas_registers(build_log.get(kern.kernel.source.name, ""))
         beside = (f", the hand-written row's {r['row_ms']:.4f} ms" if "row_ms" in r else "")
         library = (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else
-                   f"library none (yardstick: SDPA over the dequantized inputs "
+                   f"library none (yardstick: SDPA over the gathered, dequantized inputs "
                    f"{r['yardstick_ms']:.4f} ms)")
+        ws = ("" if not kern.workspace_bytes else
+              f" and {kern.workspace_bytes} B of global workspace a block "
+              f"({', '.join(kern.info.vmem.workspace())})")
         log(f"[compiler] {label}: {r['ms']:.4f} ms{beside}, plain {r['plain_ms']:.4f} ms, "
             f"{library}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); {kern.threads} "
-            f"threads, {kern.smem_bytes} B of shared memory, {regs}; grid {kern.info.grid}: "
-            f"{kern.blocks} blocks")
+            f"threads, {kern.smem_bytes} B of shared memory{ws}, {regs}; grid "
+            f"{kern.info.grid}: {kern.blocks} blocks")
         rows.append({"name": label, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],

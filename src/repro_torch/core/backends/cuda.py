@@ -15,7 +15,13 @@ The counterpart of the JAX package's ``backends/pallas_tpu.py``
   the offset the shared-memory plan (``schedule.plan_vmem``) gives it (two
   buffers whose live ranges do not meet may share bytes); the bytes
   requested at launch are the plan's, and a plan over the card's budget
-  raises :class:`ScheduleError` instead of launching;
+  raises :class:`ScheduleError` instead of launching.  A plan made with
+  ``Schedule(workspace=True)`` may put its largest buffers in a per-block
+  global workspace instead: one more kernel operand, block ``b``'s part at
+  ``b * workspace_bytes``, allocated at each launch, each buffer at its
+  offset there; ``wmma`` reaches it through generic pointers and the same
+  barriers order its accesses (``__syncthreads()`` orders a block's global
+  accesses as its shared ones);
 * each tile op is a block-strided loop over its elements (a copy moves
   16-byte vectors where its rows allow), with ``__syncthreads()`` wherever a
   later op touches bytes an earlier one wrote or read;
@@ -74,7 +80,7 @@ from ..expr import (
     WhereExpr,
 )
 from ..lowering.module import CompiledKernel, LoweredInfo, LoweredModule
-from ..schedule import tensor_core_gemm
+from ..schedule import WORKSPACE, tensor_core_gemm
 from ..tile_ops import (
     AtomicOp,
     CopyOp,
@@ -132,8 +138,9 @@ def _pending(what: str):
 
 def _in_memory(buf: TileBuffer) -> bool:
     """A kernel operand in device memory (a tensor or a block table), laid
-    out row-major at its own shape; the other buffers live in shared memory
-    at the plan's offsets."""
+    out row-major at its own shape; the other buffers are the block's own,
+    at the plan's offsets in shared memory or in the block's workspace
+    (tracked by the barriers alike)."""
     return buf.scope in (GLOBAL, SCALAR)
 
 
@@ -267,12 +274,13 @@ class _Emitter:
         self.src = _Source()
         self.var_names: Dict[str, str] = {}
         self.plan = {b.name: b for b in module.vmem.buffers}
+        self.workspace_bytes = module.vmem.workspace_bytes
         self.ptr: Dict[str, str] = {}
         for i, p in enumerate(self.program.params):
             self.ptr[p.name] = f"g{i}"
         for i, b in enumerate(self.program.allocs):
             self.ptr[b.name] = f"s{i}"
-        # hazards since the last barrier: shared buffers written / read
+        # hazards since the last barrier: block buffers written / read
         self.written: Set[str] = set()
         self.read: Set[str] = set()
         self.tmp = 0
@@ -421,8 +429,9 @@ class _Emitter:
 
     # -- barriers -----------------------------------------------------------
     def touch(self, reads: List[TileBuffer], writes: List[TileBuffer]):
-        """Emit a barrier when this op reads or writes a shared buffer an
-        earlier op wrote since the last one, or writes one read since."""
+        """Emit a barrier when this op reads or writes a block buffer (shared
+        or workspace) an earlier op wrote since the last one, or writes one
+        read since."""
         r = {b.name for b in reads if not _in_memory(b)}
         w = {b.name for b in writes if not _in_memory(b)}
         if self.meet(r | w, self.written) or self.meet(w, self.read):
@@ -432,9 +441,11 @@ class _Emitter:
 
     def meet(self, names: Set[str], others: Set[str]) -> bool:
         """Whether a buffer of ``names`` shares bytes with one of ``others``
-        (itself, or a buffer the plan placed over it)."""
-        span = lambda n: (self.plan[n].offset, self.plan[n].offset + self.plan[n].bytes)  # noqa: E731
-        return any(a < d and c < b for (a, b) in map(span, names) for (c, d) in map(span, others))
+        (itself, or a buffer the plan placed over it in the same space)."""
+        span = lambda n: (self.plan[n].space, self.plan[n].offset,  # noqa: E731
+                          self.plan[n].offset + self.plan[n].bytes)
+        return any(x == y and a < d and c < b
+                   for (x, a, b) in map(span, names) for (y, c, d) in map(span, others))
 
     def barrier(self):
         self.src("__syncthreads();")
@@ -833,12 +844,18 @@ class _Emitter:
         args = ", ".join(
             f"{'' if p in prog.output_params() else 'const '}{_CTYPE[p.dtype]}* "
             f"__restrict__ {self.ptr[p.name]}" for p in prog.params)
+        if self.workspace_bytes:
+            args += ", unsigned char* tl_ws"
         s(f'extern "C" __global__ void __launch_bounds__({self.threads}) {name}({args})')
         s.open("")
         s("extern __shared__ __align__(128) unsigned char tl_smem[];")
+        if self.workspace_bytes:
+            s(f"unsigned char* const tl_block_ws = tl_ws + (size_t)blockIdx.x * "
+              f"{self.workspace_bytes}ULL;")
         for b in prog.allocs:
+            base = "tl_block_ws" if self.plan[b.name].space == WORKSPACE else "tl_smem"
             s(f"{_CTYPE[b.dtype]}* const {self.ptr[b.name]} = "
-              f"reinterpret_cast<{_CTYPE[b.dtype]}*>(tl_smem + {self.plan[b.name].offset});")
+              f"reinterpret_cast<{_CTYPE[b.dtype]}*>({base} + {self.plan[b.name].offset});")
         s("int _block = blockIdx.x;")
         for i in reversed(par):
             s(f"const int {self.var(f'_grid{i}')} = _block % {grid[i]}; _block /= {grid[i]};")
@@ -863,7 +880,9 @@ def _blocks(module: LoweredModule) -> int:
 
 
 def emit_source(module: LoweredModule) -> Tuple[str, str, int]:
-    """``(source, entry, threads)``: the kernel and its C launch entry."""
+    """``(source, entry, threads)``: the kernel and its C launch entry (its
+    operands' pointers, the workspace's where the plan has one, the
+    stream)."""
     prog = module.program
     for p in prog.params:
         if p.dtype not in _CTYPE:
@@ -881,6 +900,10 @@ def emit_source(module: LoweredModule) -> Tuple[str, str, int]:
     casts = ", ".join(
         f"static_cast<{'' if p in prog.output_params() else 'const '}{_CTYPE[p.dtype]}*>(p{i})"
         for i, p in enumerate(prog.params))
+    ws = module.vmem.workspace_bytes
+    if ws:
+        params += ", void* ws"
+        casts += ", static_cast<unsigned char*>(ws)"
     entry = "tl_launch"
     launch = f'''
 extern "C" int {entry}({params}, void* stream) {{
@@ -894,6 +917,9 @@ extern "C" int {entry}({params}, void* stream) {{
 '''
     header = (f"// {prog.name}: emitted by repro_torch.core.backends.cuda\n"
               f"// grid {blocks} blocks x {em.threads} threads, {smem} bytes of shared memory\n")
+    if ws:
+        header += (f"// {ws} bytes of global workspace a block: "
+                   f"{', '.join(module.vmem.workspace())}\n")
     return header + _PRELUDE + "\n" + body + launch, entry, em.threads
 
 
@@ -904,7 +930,10 @@ class CudaKernel(CompiledKernel):
     launches on ``torch.cuda.current_stream()`` and returns them in
     ``out_params`` order.  ``source`` is the emitted text, ``kernel`` its
     ``build.Kernel`` (built at the first call), ``blocks`` and ``threads``
-    its launch grid, ``launches`` the count of launches made."""
+    its launch grid, ``smem_bytes`` and ``workspace_bytes`` the shared
+    memory and the global workspace a block (allocated at each launch,
+    ``blocks * workspace_bytes`` bytes), ``launches`` the count of launches
+    made."""
 
     def __init__(self, module: LoweredModule, source: str, entry: str, threads: int):
         from ...kernels.build import Kernel
@@ -914,6 +943,7 @@ class CudaKernel(CompiledKernel):
         self.threads = threads
         self.blocks = _blocks(module)
         self.smem_bytes = module.vmem.total_bytes
+        self.workspace_bytes = module.vmem.workspace_bytes
         self.launches = 0
         # the in-out outputs: seeded from the input of the same name
         self.aliased = tuple(w.param.name for w in module.out_windows if w.aliased)
@@ -921,7 +951,7 @@ class CudaKernel(CompiledKernel):
         if missing:
             raise LoweringError(f"{prog.name}: aliased outputs {sorted(missing)} have no input")
         self.kernel = Kernel(f"tl_{prog.name}", entry,
-                             [ctypes.c_void_p] * (len(prog.params) + 1),
+                             [ctypes.c_void_p] * (len(prog.params) + 1 + bool(self.workspace_bytes)),
                              replaces="src/repro/core/backends/pallas_tpu.py:59",
                              text=source)
         info = LoweredInfo(
@@ -960,10 +990,13 @@ class CudaKernel(CompiledKernel):
                 torch.zeros(p.shape, dtype=torch_dtype(p.dtype), device=device)
                 for p in self.out_params]
         tensors.update({p.name: o for p, o in zip(self.out_params, outs)})
+        ptrs = [tensors[p.name].data_ptr() for p in prog.params]
+        if self.workspace_bytes:  # never read before the block writes it
+            ws = torch.empty(self.blocks * self.workspace_bytes, dtype=torch.uint8, device=device)
+            ptrs.append(ws.data_ptr())
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = self.kernel.function()(*[tensors[p.name].data_ptr() for p in prog.params],
-                                        stream)
+            rc = self.kernel.function()(*ptrs, stream)
         check(rc, prog.name)
         self.launches += 1
         return outs[0] if len(outs) == 1 else tuple(outs)

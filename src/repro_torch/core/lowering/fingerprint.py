@@ -173,4 +173,5 @@ def schedule_key(schedule: Schedule) -> tuple:
         if schedule.dimension_semantics is not None
         else None,
         schedule.smem_limit,
+        schedule.workspace,
     )

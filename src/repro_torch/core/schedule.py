@@ -10,7 +10,9 @@ paper axis             realization here
 thread binding         ``T.Kernel(threads=)`` is the CUDA block size; each
                        tile op is a block-strided loop over its elements
 memory layout          Layout/Fragment (layout.py/infer.py); every shared
-                       and fragment buffer lives in dynamic shared memory
+                       and fragment buffer lives in dynamic shared memory,
+                       or, with ``Schedule(workspace=True)``, the largest in
+                       a per-block global workspace where they do not fit
 tensorization          T.gemm -> an fp32-accumulating loop on the CUDA cores
 pipeline               T.Pipelined -> a serial loop inside the block; the
                        stage count is recorded, one copy of each tile staged
@@ -37,6 +39,9 @@ from .layout import BANK_BYTES, BANKS, round_up, vector_elems
 # buffer's offset in it (one 16-byte vector).
 SMEM_BYTES = 232_448
 SMEM_ALIGN = 16
+# A block's part of the global workspace starts on a 128-byte line.
+WORKSPACE_ALIGN = 128
+SHARED, WORKSPACE = "shared", "workspace"  # the two spaces a buffer lives in
 
 
 @dataclasses.dataclass
@@ -47,6 +52,10 @@ class Schedule:
     grid_swizzle: Optional[int] = None  # override T.use_swizzle
     dimension_semantics: Optional[Tuple[str, ...]] = None  # rarely needed
     smem_limit: int = SMEM_BYTES
+    # Opt-in: where the block's shared memory cannot hold its tiles, the
+    # largest go to a per-block global workspace (the card's counterpart of
+    # the TPU's VMEM budget, which is ~470 times one block's shared memory).
+    workspace: bool = False
     # Advisory: collected for the cost model / roofline.
     notes: Dict[str, object] = dataclasses.field(default_factory=dict)
 
@@ -59,7 +68,8 @@ class BufferPlan:
     physical_shape: Tuple[int, ...]  # rows padded to whole 16-byte vectors
     copies: int  # staging copies (1: the backend stages one tile at a time)
     bytes: int
-    offset: int = 0  # byte offset in the block's dynamic shared memory
+    offset: int = 0  # byte offset in the block's part of its space
+    space: str = SHARED  # dynamic shared memory, or the block's workspace
 
     @property
     def waste(self) -> float:
@@ -70,23 +80,35 @@ class BufferPlan:
 
 @dataclasses.dataclass
 class VmemPlan:
-    """The block's shared-memory plan (the JAX package's VMEM plan)."""
+    """The block's shared-memory plan (the JAX package's VMEM plan):
+    ``total_bytes`` of shared memory, and ``workspace_bytes`` of global
+    workspace a block (0 unless the schedule asked for one and the tiles
+    did not fit)."""
 
     buffers: List[BufferPlan]
     total_bytes: int
     limit: int
+    workspace_bytes: int = 0
 
     @property
     def ok(self) -> bool:
         return self.total_bytes <= self.limit
 
+    def workspace(self) -> List[str]:
+        """Names of the buffers in the workspace, in allocation order."""
+        return [b.name for b in self.buffers if b.space == WORKSPACE]
+
     def summary(self) -> str:
         lines = [f"shared-memory plan: {self.total_bytes} B / {self.limit} B"]
+        if self.workspace_bytes:
+            lines.append(f"workspace: {self.workspace_bytes} B a block, holding "
+                         f"{', '.join(self.workspace())}")
         for b in self.buffers:
             lines.append(
                 f"  {b.name:<16} {b.scope:<8} {str(b.logical_shape):<18} -> "
                 f"{str(b.physical_shape):<18} @{b.offset:<7} = {b.bytes/2**10:8.1f} KiB"
                 + (f"  (pad waste {b.waste:.0%})" if b.waste > 0 else "")
+                + ("  [workspace]" if b.space == WORKSPACE else "")
             )
         return "\n".join(lines)
 
@@ -145,6 +167,26 @@ def live_ranges(program) -> Dict[str, Tuple[int, int]]:
     return out
 
 
+def _lay_out(plans: List[BufferPlan], live: Dict[str, Tuple[int, int]], whole) -> int:
+    """Set each plan's offset, in order: the lowest 16-byte aligned offset
+    free of every buffer placed before it whose live range meets its own.
+    Returns the bytes the buffers span."""
+    placed: List[BufferPlan] = []
+    for p in plans:
+        lo, hi = live.get(p.name, whole)
+        taken = sorted((q.offset, q.offset + q.bytes) for q in placed
+                       if live.get(q.name, whole)[0] <= hi and lo <= live.get(q.name, whole)[1])
+        offset = 0
+        for start, end in taken:
+            if start >= offset + p.bytes:
+                break
+            if end > offset:
+                offset = round_up(end, SMEM_ALIGN)
+        p.offset = offset
+        placed.append(p)
+    return max((q.offset + q.bytes for q in placed), default=0)
+
+
 def plan_vmem(program, schedule: Schedule, check: bool = True) -> VmemPlan:
     """Lay out every ``shared`` and ``fragment`` buffer of a traced program
     in one block's dynamic shared memory (rows as ``physical_tile_shape``
@@ -161,29 +203,37 @@ def plan_vmem(program, schedule: Schedule, check: bool = True) -> VmemPlan:
     CUDA backend orders the accesses of two buffers that share bytes by the
     same barriers as those of one buffer.
 
+    With ``schedule.workspace``, while the shared part is over
+    ``schedule.smem_limit`` the largest buffer left (the first in allocation
+    order among equals) moves to the block's part of a global workspace,
+    and the shared part is laid out again; the workspace is laid out by the
+    same rule, its size a block rounded up to ``WORKSPACE_ALIGN``.  A plan
+    that fits moves nothing.
+
     ``check=False`` returns the (possibly over-budget) plan instead of
     raising — the pass pipeline uses this so the budget stays a *backend*
     feasibility concern (the reference interpreter has no shared memory).
     """
-    plans: List[BufferPlan] = []
     tc = tensor_core_operands(program)
     live = live_ranges(program)
     whole = (0, len(program.ops))  # a buffer no op touches
+    plans: List[BufferPlan] = []
     for buf in program.allocs:
         phys = physical_tile_shape(buf.shape, buf.dtype, buf.name in tc)
         nbytes = math.prod(phys) * dtype_bits(buf.dtype) // 8
-        lo, hi = live.get(buf.name, whole)
-        taken = sorted((q.offset, q.offset + q.bytes) for q in plans
-                       if live.get(q.name, whole)[0] <= hi and lo <= live.get(q.name, whole)[1])
-        offset = 0
-        for start, end in taken:
-            if start >= offset + nbytes:
-                break
-            if end > offset:
-                offset = round_up(end, SMEM_ALIGN)
-        plans.append(BufferPlan(buf.name, buf.scope, buf.shape, phys, 1, nbytes, offset))
-    total = max((q.offset + q.bytes for q in plans), default=0)
-    plan = VmemPlan(plans, round_up(total, SMEM_ALIGN), schedule.smem_limit)
+        plans.append(BufferPlan(buf.name, buf.scope, buf.shape, phys, 1, nbytes))
+    moved: List[BufferPlan] = []
+    while True:
+        shared = [p for p in plans if p.space == SHARED]
+        total = round_up(_lay_out(shared, live, whole), SMEM_ALIGN)
+        if total <= schedule.smem_limit or not schedule.workspace or not shared:
+            break
+        largest = max(shared, key=lambda p: p.bytes)  # the first of equals
+        largest.space = WORKSPACE
+        moved.append(largest)
+    ws = round_up(_lay_out([p for p in plans if p.space == WORKSPACE], live, whole),
+                  WORKSPACE_ALIGN) if moved else 0
+    plan = VmemPlan(plans, total, schedule.smem_limit, ws)
     if check and not plan.ok:
         raise ScheduleError(
             f"{program.name}: shared-memory budget exceeded —\n{plan.summary()}\n"

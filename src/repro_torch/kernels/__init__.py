@@ -16,19 +16,25 @@ Beside the wrappers, the tile programs that the port's compiler
 ``paged_attention_program`` and its twin ``paged_attention_quant_program``
 (``paged_attention``), the chunked prefill ``prefill_attention_program``
 and its twin ``prefill_attention_quant_program`` (``prefill_attention``),
-and the attention core they compose (``attention_core``), each module with
+FlashMLA's ``mla_program`` (the paper's Fig. 18) with the paged MLA decode
+``mla_paged_program``, the MLA chunked prefill ``mla_prefill_program`` and
+their twins ``mla_paged_quant_program``, ``mla_prefill_quant_program``
+(``mla``), and the attention core they compose (``attention_core``), each module with
 its ``PARITY_CASES``; :func:`parity_programs` and :func:`parity_inputs` are
 the registry of ``repro.kernels`` (repro/kernels/__init__.py:36-80) over
 them."""
-from . import attention_core, flash_attention, matmul, ops, paged_attention, prefill_attention, ref
+from . import (attention_core, flash_attention, matmul, mla, ops, paged_attention,
+               prefill_attention, ref)
 from .flash_attention import flash_attention_program
 from .matmul import matmul_program
+from .mla import (mla_paged_program, mla_paged_quant_program, mla_prefill_program,
+                  mla_prefill_quant_program, mla_program)
 from .paged_attention import paged_attention_program, paged_attention_quant_program
 from .prefill_attention import prefill_attention_program, prefill_attention_quant_program
 
 # the modules that declare PARITY_CASES, sorted by name as the JAX
 # package's discovery sorts them (the other modules here hold no program)
-PARITY_MODULES = (flash_attention, matmul, paged_attention, prefill_attention)
+PARITY_MODULES = (flash_attention, matmul, mla, paged_attention, prefill_attention)
 
 
 def parity_modules():
@@ -58,4 +64,5 @@ def parity_inputs(name, program, rng):
 __all__ = ["ops", "ref", "attention_core", "matmul_program", "flash_attention_program",
            "paged_attention_program", "paged_attention_quant_program",
            "prefill_attention_program", "prefill_attention_quant_program",
-           "parity_modules", "parity_programs", "parity_inputs"]
+           "mla_program", "mla_paged_program", "mla_paged_quant_program", "mla_prefill_program",
+           "mla_prefill_quant_program", "parity_modules", "parity_programs", "parity_inputs"]

@@ -1298,7 +1298,8 @@ def test_cuda_step_breakdown_matches_the_profilers_event_tree():
 
 def _compiled_cases():
     """Every PARITY_CASES entry of the compiler's program modules (the
-    paged decode and chunked prefill, fp and quantized, among them), in fp32,
+    paged decode and chunked prefill, fp and quantized, and kernels/mla.py's
+    FlashMLA, paged MLA decode and MLA chunked prefill among them), in fp32,
     and the GEMM's and flash forward's in bf16 (they take wmma for their
     16-bit GEMMs)."""
     from repro_torch import kernels as K
@@ -1326,7 +1327,7 @@ def _case_inputs(name, prog, kern, seed, dev, dtype="float32"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(18))
+@pytest.mark.parametrize("case", range(27))
 def test_cuda_emitted_kernels_match_the_reference_interpreter(case):
     """On a card: each tile program compiled with ``target="cuda"`` (built
     by nvcc from the emitted text) against the ``reference`` interpreter on
@@ -1338,7 +1339,7 @@ def test_cuda_emitted_kernels_match_the_reference_interpreter(case):
     from repro_torch.core import compile as tl_compile
 
     cases = _compiled_cases()
-    assert len(cases) == 18
+    assert len(cases) == 27
     name, dtype, prog = cases[case]
     dev = torch.device("cuda")
     kern = tl_compile(prog, target="cuda", use_cache=False)
@@ -1453,3 +1454,22 @@ def test_cuda_emitted_dead_table_entry_changes_no_output(program):
         if p.name != "Output":  # page 0, the dead pages' sink, in no set order
             b, a = b[:, 1:], a[:, 1:]
         assert torch.equal(b, a), p.name
+
+
+@pytest.mark.cuda
+def test_cuda_emitted_workspace_is_byte_equal_to_shared():
+    """On a card: kernels/mla.py's small MLA prefill compiled with a
+    shared-memory limit that sends buffers to the per-block global
+    workspace (the query tile and, in bf16, ``wmma`` accumulators among
+    them) gives outputs byte-equal to the same program all in shared
+    memory, in fp32 and bf16 (``chip_smoke.workspace_check``, phase 17's
+    check); the workspace is allocated at each launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
+    from repro_torch import kernels as K
+
+    compiled = cs.mla_programs(K)  # text only: a kernel builds at its first call
+    res = cs.workspace_check(torch, np, compiled, torch.device("cuda"))
+    assert set(res) == {"float32", "bfloat16"}
+    for names, ws, smem, all_smem in res.values():
+        assert names and ws > 0 and smem <= cs.WORKSPACE_SMEM < all_smem

@@ -5,8 +5,10 @@ core``) against the JAX package's (``tests/test_pipeline.py``).
   ``PIPELINE`` run on ``small_gemm_program`` in both packages, the fields
   each prefix fills equal;
 * across the packages, for every PARITY_CASES entry of ``kernels/matmul.py``,
-  ``kernels/flash_attention.py``, ``kernels/paged_attention.py`` and
-  ``kernels/prefill_attention.py`` plus the quickstart's and
+  ``kernels/flash_attention.py``, ``kernels/mla.py`` (FlashMLA and the
+  paged MLA decode and chunked prefill, fp and quantized),
+  ``kernels/paged_attention.py`` and ``kernels/prefill_attention.py`` plus
+  the quickstart's and
   ``small_gemm_program``: phases, windows (index maps evaluated at sample
   grid points), grid, dimension semantics, stages, params, cost FLOPs and
   HBM bytes and the verifier's obligations equal exactly; the shared-memory
@@ -37,6 +39,7 @@ from repro.core.lowering import PIPELINE as JPIPELINE
 from repro.core.lowering import make_index_map as jmake_index_map
 from repro.kernels import flash_attention as jflash
 from repro.kernels import matmul as jmatmul
+from repro.kernels import mla as jmla
 from repro.kernels import paged_attention as jpaged
 from repro.kernels import prefill_attention as jprefill
 from repro_torch.core import (
@@ -68,6 +71,7 @@ from repro_torch.core.lowering.pipeline import (
     pass_plan_vmem,
     pass_split_phases,
 )
+from repro_torch.kernels import mla
 from repro_torch.kernels import paged_attention as paged
 from repro_torch.kernels import parity_inputs, parity_programs
 from repro_torch.kernels import prefill_attention as prefill
@@ -157,11 +161,19 @@ def _pairs():
             name = jmod.__name__.rsplit(".", 1)[-1] + maker
             out.append((n, lambda c=c, f=getattr(port, name): f(**c),
                         lambda c=c, f=getattr(jmod, name): f(**c)))
+    # FlashMLA (Fig. 18) and the paged MLA decode and chunked prefill, fp
+    # and quantized
+    for n, c in jmla.PARITY_CASES:
+        name = next(m for m in _MLA_MAKERS if n.startswith(m)) + "_program"
+        out.append((n, lambda c=c, f=getattr(mla, name): f(**c),
+                    lambda c=c, f=getattr(jmla, name): f(**c)))
     out.append(("quickstart", lambda: _example("torch_quickstart").Matmul, _jax_quickstart))
     out.append(("small_gemm", small_gemm_program, lambda: small_gemm_program(JT)))
     return out
 
 
+# each MLA case's program by the longest prefix of its name
+_MLA_MAKERS = ("mla_paged_quant", "mla_prefill_quant", "mla_paged", "mla_prefill", "mla")
 PAIRS = {n: (p, j) for n, p, j in _pairs()}
 
 
@@ -437,6 +449,38 @@ def _make_input(param, rng):
 # and values reach 127 x 0.2, its outputs 23, and the two differ by 2.97e-5
 # where sums cancel (an element of 0.4), 1.29 times the limit.
 _JAX_BACKENDS_APART = {"prefill_attention_quant_int8"}
+# Cases whose output both of the JAX package's backends compute farther than
+# 1e-5 from the same program run in fp64: the int8 MLA prefill's dequantized
+# latents reach 127 x 0.2 and its scores 100, so an fp32 ulp of an exp2
+# argument near 30 moves an output element of 0.2 by 2e-5.  The fp64 run is
+# the JAX package's own program (``dtype`` and ``accum_dtype`` float64)
+# through the JAX package's reference interpreter with x64 on, on the same
+# inputs widened to fp64; its GEMMs still round their products to fp32
+# (``preferred_element_type``), and it lies within 1e-5 of the case's value
+# computed wholly in fp64 (test_jax_fp64_run_is_the_int8_mla_prefills_value).
+# The port is held to the fp64 run at 1e-5, must lie nearer to it than either
+# JAX backend, and no farther from the JAX package's reference than the JAX
+# package's Pallas-interpret is.
+_JAX_BACKENDS_OFF_FP64 = {"mla_prefill_quant_int8"}
+
+
+def _widened(args):
+    return [a.astype(np.float64) if a.dtype == np.float32 else a for a in args]
+
+
+def _jax_fp64_outputs(name, args):
+    """A case's outputs from the JAX package's program built in fp64, run
+    by the JAX package's reference interpreter with x64 on, on ``args``
+    widened to fp64; floating outputs returned in fp64."""
+    import jax
+
+    cfg = dict(jmla.PARITY_CASES)[name]
+    maker = next(m for m in _MLA_MAKERS if name.startswith(m)) + "_program"
+    with jax.enable_x64(True):
+        prog = getattr(jmla, maker)(**cfg, dtype="float64", accum_dtype="float64")
+        out = _outputs(jcompile(prog, target="reference")(*_widened(args)))
+    assert all(o.dtype == np.float64 for o in out if o.dtype.kind == "f")
+    return out
 
 
 def _outputs(out):
@@ -462,6 +506,19 @@ def test_backend_parity_with_the_jax_package(name):
     for s, g in zip(_outputs(sk(*ts)), got, strict=True):
         np.testing.assert_array_equal(s, g)
     apart = []
+    if name in _JAX_BACKENDS_OFF_FP64:
+        far = []
+        for g, r, p, t in zip(got, _outputs(jr(*args)), _outputs(jp(*args)),
+                              _jax_fp64_outputs(name, args), strict=True):
+            np.testing.assert_allclose(g, t, rtol=1e-5, atol=1e-5)
+            g, r, p = (x.astype(np.float64) for x in (g, r, p))
+            d = np.abs(g - t).max()
+            assert d <= np.abs(r - t).max() and d <= np.abs(p - t).max()
+            assert np.abs(g - r).max() <= np.abs(p - r).max()
+            far += [not np.allclose(r, t, rtol=1e-5, atol=1e-5),
+                    not np.allclose(p, t, rtol=1e-5, atol=1e-5)]
+        assert all(far[-2:])  # both JAX backends miss the fp64 run on Output, the last
+        return
     for g, r, p in zip(got, _outputs(jr(*args)), _outputs(jp(*args)), strict=True):
         np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5)
         if np.allclose(r, p, rtol=1e-5, atol=1e-5):
@@ -474,18 +531,66 @@ def test_backend_parity_with_the_jax_package(name):
     assert all(apart) and bool(apart) == (name in _JAX_BACKENDS_APART)
 
 
+def _mla_prefill_quant_fp64(cfg, args):
+    """The int8 MLA chunked prefill's output, computed wholly in fp64 with
+    numpy from its parity inputs: every prior position below the slot's
+    start, then the chunk's own latents causally up to its live length,
+    keys and values dequantized as code x scale, the softmax over
+    ``q.latent + q_pe.rope`` at 1 / sqrt(dim + pe_dim); rows chunk-major with
+    their head, a row with no live key zeros."""
+    tables, starts, lens, q, qpe, ckv, kpe, cs, ps_, kvp, kpp, kvs, kps = args
+    heads, dim, pe, chunk = cfg["heads"], cfg["dim"], cfg["pe_dim"], cfg["chunk"]
+    f = np.float64
+    out = np.zeros(q.shape)
+    for b in range(cfg["slots"]):
+        prior = slice(0, int(starts[b]))
+        lat = np.concatenate([(kvp[tables[b]].astype(f) * kvs[tables[b]]).reshape(-1, dim)[prior],
+                              ckv[b].astype(f) * cs[b]])
+        rope = np.concatenate([(kpp[tables[b]].astype(f) * kps[tables[b]]).reshape(-1, pe)[prior],
+                               kpe[b].astype(f) * ps_[b]])
+        s = (q[b].astype(f) @ lat.T + qpe[b].astype(f) @ rope.T) / np.sqrt(dim + pe)
+        i = np.arange(chunk * heads)[:, None] // heads
+        j = np.arange(chunk)[None, :]
+        live = np.concatenate([np.ones((chunk * heads, int(starts[b])), bool),
+                               (j <= i) & (j < lens[b])], axis=1)
+        s = np.where(live, s, -np.inf)
+        top = s.max(axis=1, keepdims=True)
+        e = np.where(live, np.exp(s - np.where(np.isfinite(top), top, 0.0)), 0.0)
+        den = e.sum(axis=1, keepdims=True)
+        out[b] = (e / np.where(den > 0, den, 1.0)) @ lat
+    return out
+
+
+def test_jax_fp64_run_is_the_int8_mla_prefills_value():
+    """The oracle of the int8 MLA prefill's parity case (the JAX package's
+    program in fp64 through its reference interpreter, whose GEMMs round to
+    fp32) within 1e-5 of the case's value computed wholly in fp64 by numpy,
+    where both JAX backends in fp32 are not."""
+    name = "mla_prefill_quant_int8"
+    cfg = dict(jmla.PARITY_CASES)[name]
+    jprog = jmla.mla_prefill_quant_program(**cfg)
+    args = jmla.parity_inputs(name, jprog, np.random.default_rng(0))
+    want = _mla_prefill_quant_fp64(cfg, args)
+    np.testing.assert_allclose(_jax_fp64_outputs(name, args)[-1], want, rtol=1e-5, atol=1e-5)
+    for kern in (jcompile(jprog, target="reference"),
+                 jcompile(jprog, JSchedule(interpret=True), target="pallas")):
+        assert not np.allclose(np.asarray(kern(*args)[-1]), want, rtol=1e-5, atol=1e-5)
+
+
 def test_parity_registry_mirrors_the_jax_packages():
     names = [n for n, _ in parity_programs()]
-    assert names == [n for mod in (jflash, jmatmul, jpaged, jprefill) for n, _ in mod.PARITY_CASES]
-    # the paged modules' hooks give the JAX package's inputs, the others none
-    hooked = {n for mod in (jpaged, jprefill) for n, _ in mod.PARITY_CASES}
-    jprogs = {n: p for mod in (jpaged, jprefill) for n, p in mod.parity_programs()}
+    assert names == [n for mod in (jflash, jmatmul, jmla, jpaged, jprefill)
+                     for n, _ in mod.PARITY_CASES]
+    # the paged modules' hooks give the JAX package's inputs (MLA's for its
+    # paged cases, none for FlashMLA), the others none
+    hooked = {n for mod in (jmla, jpaged, jprefill) for n, _ in mod.PARITY_CASES} - {"mla"}
+    jprogs = {n: p for mod in (jmla, jpaged, jprefill) for n, p in mod.parity_programs()}
     for n, p in _CASES.items():
         args = parity_inputs(n, p, np.random.default_rng(0))
         if n not in hooked:
             assert args is None, n
             continue
-        jmod = jpaged if n in dict(jpaged.PARITY_CASES) else jprefill
+        jmod = next(m for m in (jmla, jpaged, jprefill) if n in dict(m.PARITY_CASES))
         want = jmod.parity_inputs(n, jprogs[n], np.random.default_rng(0))
         assert len(args) == len(want)
         for a, w in zip(args, want):
@@ -654,7 +759,8 @@ def test_cuda_backend_reads_a_block_table_from_an_int32_operand():
     torch.testing.assert_close(tl_compile(gather, target="reference")(tbl, x), x[tbl.long()])
 
 
-_PAGED = sorted(n for mod in (jpaged, jprefill) for n, _ in mod.PARITY_CASES)
+_PAGED = sorted(n for mod in (jmla, jpaged, jprefill) for n, _ in mod.PARITY_CASES
+                if n != "mla")
 
 
 @pytest.mark.parametrize("name", _PAGED)
@@ -665,14 +771,15 @@ def test_cuda_source_of_a_paged_program_reads_its_tables(name):
     src = _cuda(prog).source
     body = src[src.index("tl_smem[];"):src.index('extern "C" int tl_launch(')]
     tables = [(i, p) for i, p in enumerate(prog.params) if p.name in ("Tables", "Starts", "Lens")]
+    prefill = name.startswith(("prefill", "mla_prefill"))
     assert [p.name for _, p in tables] == (
-        ["Tables", "Starts", "Lens"] if name.startswith("prefill") else ["Tables", "Lens"])
+        ["Tables", "Starts", "Lens"] if prefill else ["Tables", "Lens"])
     for i, p in tables:
         assert f"const int* __restrict__ g{i}" in src and f"g{i}[" in body, p.name
     # the paged gather: the page index a region start, loaded from the table
     assert re.search(r"const int _os\d+ = g0\[\(long long\)\(v\d+\) \* \d+LL "
                      r"\+ \(long long\)\(v\d+\)\];", body)
-    if name.startswith("prefill"):
+    if prefill:
         # the page write: the clamped table entry, page 0 for a dead page
         assert re.search(r"const int _od\d+ = \(.* \? \(int\)\(g0\[.*min\(.*\) : "
                          r"\(int\)\(0\)\);", body)
