@@ -337,7 +337,26 @@ batch and a decode step's drop other tokens, as in the reference);
    6-9's labelled yardstick over the gathered inputs).  A small MLA prefill
    compiled with a shared-memory limit that forces buffers into the
    workspace gives outputs byte-equal to the same program all in shared
-   memory (fp32 and bf16).  Each emitted kernel's launches are
+   memory (fp32 and bf16).  ``kernels/linear_attention.py``'s two
+   PARITY_CASES and ``kernels/dequant_matmul.py``'s int4, odd-K int4, int8
+   and int2 join the parity loop (its nf4 case, a ``T.call_tile_lib``, must
+   raise item 19's message at compile time).  ``chunk_state_program`` and
+   ``chunk_scan_program`` run at rows 11-12's shape (mamba2-2.7B training:
+   640 (batch, head) rows x 8 chunks of 128, N 128, P 64; C and B
+   materialised over the heads, untimed) on phase 2's operands
+   (SSD_EMITTED: the deep and shallow decays in bf16, the growing one in
+   fp32 with chunk_scan under ``Schedule(workspace=True)``) against rows
+   11-12's plain versions at the rows' limits (fp32 states within 1e-4 of
+   max(1, max |plain|), bf16 Y within 2 ulps, each control outside); the
+   deep pair is timed with L2 flushed beside rows 11-12, their plain
+   versions and the cuBLAS yardstick, the bound from the program's own
+   operands beside the row's.  ``dequant_matmul_program`` runs at row 14's
+   shape (W int4 / int8 / int2 x A fp16, blocks of 8 x 128 x 128: the
+   8-row product on the CUDA cores) and in int4 at m256_n8192_k8192 (64^3
+   blocks, ``wmma``), its Ct compared transposed within 2 ``lib_units``
+   (plus its control) of ``ref.dequant_matmul``, the code-order fault
+   outside, timed beside row 14 and cuBLAS fp16 on a pre-dequantized
+   weight.  Each emitted kernel's launches are
    counted on that path run (the comparisons' and timings' taken back), its
    registers (``-Xptxas -v``), shared memory, workspace and grid printed.  With
    ``--only kernels`` the script stops after phases 1, 2 and 17 and lists
@@ -1622,8 +1641,6 @@ def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
     C once) and the causal pairs' operations."""
     cst, csc = mods
     cc, bb, xx, da, prev = ssd_operands(torch, case, dtype, dev)
-    bsz, heads, nc, length, n = cc.shape
-    p = xx.shape[-1]
     runs = {"chunk_state": (cst, lambda: cst.chunk_state(bb, xx, da),
                             lambda: ref.chunk_state(bb, xx, da)),
             "chunk_scan": (csc, lambda: csc.chunk_scan(cc, bb, xx, da, prev),
@@ -1660,20 +1677,7 @@ def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
         if timed:
             res["ms"] = time_ms(torch, run, flush=flush)
             res["plain_ms"] = time_ms(torch, plain_run, flush=flush)
-            pairs = length * (length + 1) // 2
-            blocks = bsz * heads * nc
-            if name == "chunk_state":
-                bt = bb.transpose(-1, -2).contiguous()
-                yard = lambda: torch.matmul(bt, xx)  # noqa: E731
-                ins = (bb, xx, da)
-                flops = 2.0 * blocks * length * n * p
-            else:
-                c_c, b_t = cc.contiguous(), bb.transpose(-1, -2).contiguous()
-                s16 = prev.to(dtype)
-                yard = lambda: (torch.matmul(torch.matmul(c_c, b_t), xx),  # noqa: E731
-                                torch.matmul(c_c, s16))
-                ins = (cc, bb, xx, da, prev)
-                flops = 2.0 * blocks * (pairs * n + pairs * p + length * n * p)
+            yard, ins, flops = ssd_work(torch, name, cc, bb, xx, da, prev)
             # no single PyTorch call computes the function: the yardstick is
             # labelled apart and library_ms stays null
             res["yardstick_ms"] = time_ms(torch, yard, flush=flush)
@@ -1684,6 +1688,26 @@ def check_ssd(torch, np, ref, mods, dtype, case, flush, timed, dev):
             res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
         out[name] = res
     return out
+
+
+def ssd_work(torch, name, cc, bb, xx, da, prev):
+    """One SSD kernel's work on a case's operands: the yardstick call (the
+    bf16 cuBLAS products it reduces to: B^T X for chunk_state; C B^T, its
+    product with X and C S_prev for chunk_scan, per batch, head and chunk,
+    without the decay), the inputs it is handed and its operations (the
+    causal pairs')."""
+    bsz, heads, nc, length, n = cc.shape
+    p = xx.shape[-1]
+    pairs = length * (length + 1) // 2
+    blocks = bsz * heads * nc
+    if name == "chunk_state":
+        bt = bb.transpose(-1, -2).contiguous()
+        return (lambda: torch.matmul(bt, xx)), (bb, xx, da), 2.0 * blocks * length * n * p
+    c_c, b_t = cc.contiguous(), bb.transpose(-1, -2).contiguous()
+    s16 = prev.to(xx.dtype)
+    yard = lambda: (torch.matmul(torch.matmul(c_c, b_t), xx),  # noqa: E731
+                    torch.matmul(c_c, s16))
+    return yard, (cc, bb, xx, da, prev), 2.0 * blocks * (pairs * n + pairs * p + length * n * p)
 
 
 def ssd_ok(r) -> bool:
@@ -3001,8 +3025,11 @@ def rounded_weight(torch, ref, packed, fmt, scales, group, dtype):
 
 
 def check_dequant(torch, ops, ref, label, shape, fmt, adtype, group, flush, timed, dev,
-                  seed=43):
-    """ops.dequant_matmul against ref.dequant_matmul (weights in fp32).
+                  seed=43, program=None):
+    """ops.dequant_matmul, or an emitted ``dequant_matmul_program`` given as
+    ``program`` (its Ct (N, M) compared transposed; timed beside the
+    library's kernel, ``row_ms``), against ref.dequant_matmul (weights in
+    fp32).
     16-bit activations: the kernel multiplies each weight rounded to their
     type, as the TPU kernel does, so the control is the plain version on
     the weight rounded so; the limit is 2 units (lib_units) more than the
@@ -3024,7 +3051,12 @@ def check_dequant(torch, ops, ref, label, shape, fmt, adtype, group, flush, time
         torch.rand((n, k // group), generator=g, device=dev) * 0.1 + 0.01).to(sdt)
     grp = group or 128
     out_dt = torch.float32 if dt in (torch.int8, torch.float32) else dt
-    out = ops.dequant_matmul(a, bq, fmt=fmt, scales=scales, out_dtype=out_dt)  # counted
+    if program is None:
+        run = lambda: ops.dequant_matmul(a, bq, fmt=fmt, scales=scales,  # noqa: E731
+                                         out_dtype=out_dt)
+    else:
+        run = lambda: program(a, bq).t()  # noqa: E731
+    out = run()  # counted
     plain = ref.dequant_matmul(a, bq, fmt, scales, grp, out_dt)
     res = {"kernel": "dequant_matmul", "label": f"{label} {fmt} x {adtype}", "shape": shape,
            "dtype": dt,
@@ -3056,10 +3088,13 @@ def check_dequant(torch, ops, ref, label, shape, fmt, adtype, group, flush, time
     del out, plain, swapped
     if timed:
         kern = ops.KERNELS["dequant_matmul"]
-        n_before = kern.launches
-        res["ms"] = time_ms(torch, lambda: ops.dequant_matmul(
-            a, bq, fmt=fmt, scales=scales, out_dtype=out_dt), flush=flush)
-        kern.launches = n_before
+        n_before = kern.launches, None if program is None else program.launches
+        res["ms"] = time_ms(torch, run, flush=flush)
+        if program is not None:
+            res["row_ms"] = time_ms(torch, lambda: ops.dequant_matmul(
+                a, bq, fmt=fmt, scales=scales, out_dtype=out_dt), flush=flush)
+            program.launches = n_before[1]
+        kern.launches = n_before[0]
         res["plain_ms"] = time_ms(torch, lambda: ref.dequant_matmul(
             a, bq, fmt, scales, grp, out_dt), flush=flush)
         # the paper's baseline, a yardstick only: cuBLAS's fp16 product on
@@ -5178,6 +5213,13 @@ def mesh_phase(torch, np, lm, device, card, full=None, layers_=MESH_LAYERS,
 COMPILED_M7 = dict(block_M=128, block_N=128, block_K=64)  # GEMM_SHAPES["M7"]'s blocks
 COMPILED_FLASH = dict(block_M=64, block_N=64)  # 128 x 128 exceeds the block's shared memory
 PARITY_ATOL = 1e-5  # of max(1, max |reference|), fp32
+# the dequantized GEMM's programs in the result line: W x A fp16 at a
+# DEQUANT_SHAPES shape in a format the backend takes (row 14's shape, and
+# int4 at m256 on wmma)
+DEQUANT_EMITTED = {"dequant int4": ("m1_n16384_k16384", "int4"),
+                   "dequant int8": ("m1_n16384_k16384", "int8"),
+                   "dequant int2": ("m1_n16384_k16384", "int2"),
+                   "dequant int4 m256": ("m256_n8192_k8192", "int4")}
 # the emitted kernels in the result line, with the TPU programs they replace
 EMITTED = {"quickstart": ("compiled quickstart matmul (fp32 512^3)", "examples/torch_quickstart.py",
                           "examples/quickstart.py:20"),
@@ -5208,7 +5250,17 @@ EMITTED = {"quickstart": ("compiled quickstart matmul (fp32 512^3)", "examples/t
                                "src/repro/kernels/mla.py:301"),
            "mla prefill int8": ("compiled mla_prefill_quant_program (deepseek-v2-lite-16B chunk "
                                 "64, int8)", "src/repro_torch/kernels/mla.py",
-                                "src/repro/kernels/mla.py:374")}
+                                "src/repro/kernels/mla.py:374"),
+           "chunk_state mamba2": ("compiled chunk_state_program (mamba2-2.7B training, bf16)",
+                                  "src/repro_torch/kernels/linear_attention.py",
+                                  "src/repro/kernels/linear_attention.py:21"),
+           "chunk_scan mamba2": ("compiled chunk_scan_program (mamba2-2.7B training, bf16)",
+                                 "src/repro_torch/kernels/linear_attention.py",
+                                 "src/repro/kernels/linear_attention.py:58"),
+           **{name: (f"compiled dequant_matmul_program ({shape} {fmt} x float16)",
+                     "src/repro_torch/kernels/dequant_matmul.py",
+                     "src/repro/kernels/dequant_matmul.py:25")
+              for name, (shape, fmt) in DEQUANT_EMITTED.items()}}
 # the paged programs at qwen2-1.5B's serving shape: the format each takes and
 # the hand-written row (PERF.md section 6, rows 1-4) it is timed beside
 PAGED_EMITTED = {"decode": None, "decode int8": "int8", "prefill": None, "prefill int8": "int8"}
@@ -5219,6 +5271,19 @@ MLA_EMITTED = {"mla decode": None, "mla decode int8": "int8", "mla prefill": Non
 # FlashMLA at row 5's shape: the largest blocks whose tiles fit one block's
 # shared memory (64 / 64 needs 311,552 bytes)
 COMPILED_FLASH_MLA = dict(block_N=64, block_H=32)
+# the parity cases the CUDA backend does not take yet, each with the op its
+# raise names (ROADMAP Queue 1 item 19): nf4's codebook lookup
+CUDA_PENDING = {"dequant_matmul_nf4": "CustomOp 'nf4_decode' (T.call_tile_lib)"}
+# the SSD programs at rows 11-12's shape (mamba2-2.7B training, SSD_CASES),
+# on C and B materialised over the (batch, head) rows: bf16 on the decaying
+# cases (the first timed), fp32 on the growing one, its chunk_scan under
+# Schedule(workspace=True) (262,656 B a block all in shared memory)
+SSD_EMITTED = ((SSD_CASES[0], "bfloat16"), (SSD_CASES[1], "bfloat16"),
+               (SSD_CASES[3], "float32"))
+# DEQUANT_EMITTED's blocks, fp16 out as the library's row: 8 rows at M 8 (the
+# product on the CUDA cores: wmma takes 16), 64^3 at M 256 (wmma)
+COMPILED_DEQUANT = {"m1_n16384_k16384": dict(block_M=8, block_N=128, block_K=128),
+                    "m256_n8192_k8192": dict(block_M=64, block_N=64, block_K=64)}
 # the workspace check: kernels/mla.py's "mla_prefill" parity case under a
 # shared-memory limit that sends its four largest buffers to the workspace
 WORKSPACE_CASE, WORKSPACE_SMEM = "mla_prefill", 4096
@@ -5244,16 +5309,55 @@ def compiler_kernels(torch, device):
     from repro_torch.core import compile as tl_compile
 
     progs = {"quickstart": quickstart_module().Matmul}
-    progs.update(dict(K.parity_programs()))
+    progs.update((n, p) for n, p in K.parity_programs() if n not in CUDA_PENDING)
     m, n, k = GEMM_SHAPES["M7"]
     progs["M7"] = K.matmul_program(m, n, k, "bfloat16", "bfloat16", **COMPILED_M7)
     progs["flash"] = K.flash_attention_program(TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ,
                                                HEAD_DIM, True, dtype="bfloat16",
                                                **COMPILED_FLASH)
     progs.update(paged_programs(K))
+    progs.update(dequant_programs(K))
     out = {name: tl_compile(p, target="cuda") for name, p in progs.items()}
     out.update(mla_programs(K))
+    out.update(ssd_programs(K))
     return out
+
+
+def ssd_program_cfg() -> dict:
+    """The SSD programs' shape at mamba2-2.7B's training batch and sequence:
+    (batch x heads) rows of TRAIN_SEQ / chunk chunks."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SSM_ARCH)
+    sm = cfg.ssm
+    chunk = min(sm.chunk, TRAIN_SEQ)
+    return dict(batch=TRAIN_BATCH * sm.expand * cfg.d_model // sm.head_dim,
+                nchunks=TRAIN_SEQ // chunk, chunk_l=chunk, dstate=sm.state_dim,
+                headdim=sm.head_dim)
+
+
+def ssd_programs(K):
+    """kernels/linear_attention.py's programs compiled for the card at
+    ssd_program_cfg(): bf16 (EMITTED's rows), and fp32 with chunk_scan under
+    the workspace."""
+    from repro_torch.core import Schedule
+    from repro_torch.core import compile as tl_compile
+
+    cfg = ssd_program_cfg()
+    return {"chunk_state mamba2": tl_compile(K.chunk_state_program(**cfg, dtype="bfloat16"),
+                                             target="cuda"),
+            "chunk_scan mamba2": tl_compile(K.chunk_scan_program(**cfg, dtype="bfloat16"),
+                                            target="cuda"),
+            "chunk_state mamba2 fp32": tl_compile(K.chunk_state_program(**cfg), target="cuda"),
+            "chunk_scan mamba2 fp32": tl_compile(K.chunk_scan_program(**cfg),
+                                                 Schedule(workspace=True), target="cuda")}
+
+
+def dequant_programs(K):
+    """DEQUANT_EMITTED's programs at COMPILED_DEQUANT's blocks, fp16 out."""
+    return {name: K.dequant_matmul_program(*DEQUANT_SHAPES[shape], fmt, "float16", "float16",
+                                           **COMPILED_DEQUANT[shape])
+            for name, (shape, fmt) in DEQUANT_EMITTED.items()}
 
 
 def mla_programs(K):
@@ -5556,6 +5660,78 @@ def check_flash_mla_program(torch, ref, kern, dev, flash_row=None):
     return res, calls, ops.KERNELS["mla"]
 
 
+def check_ssd_programs(torch, ref, compiled, case, dtype, flush, timed, dev):
+    """The emitted chunk_state and chunk_scan (SSD_EMITTED) on one SSD_CASES
+    case's operands, C and B materialised over the (batch, head) rows
+    (untimed), against rows 11-12's plain versions at the rows' phase-2
+    limits: chunk_state's fp32 states within FP32_ATOL of max(1, max
+    |plain|) (in bf16 with the control that rounds the decayed X once to
+    bf16 outside it); chunk_scan's bf16 Y within BF16_ULPS, the control
+    with bf16 scores outside it, its fp32 Y within FP32_ATOL of max(1, max
+    |plain|) (ssd_ok's rules).  Returns {program: readings}; timed, also the emitted kernel,
+    the hand-written row, the plain version and the yardstick (ssd_work),
+    the bound from the program's operands and the row's (a broadcast C or B
+    once).  Only the first call of each program counts a launch."""
+    from repro_torch.kernels import chunk_scan as CSC
+    from repro_torch.kernels import chunk_state as CST
+
+    dt = getattr(torch, dtype)
+    cc, bb, xx, da, prev = ssd_operands(torch, case, dt, dev)
+    flat = lambda t: t.contiguous().reshape(-1, *t.shape[2:])  # noqa: E731
+    c2, b2, x2, d2, p2 = (flat(t) for t in (cc, bb, xx, da, prev))
+    suffix = "" if dtype == "bfloat16" else " fp32"
+    kst, ksc = compiled["chunk_state mamba2" + suffix], compiled["chunk_scan mamba2" + suffix]
+    assert tuple(kst.arg_params[0].shape) == tuple(b2.shape), (kst.arg_params[0].shape, b2.shape)
+    runs = {"chunk_state": (kst, CST, lambda: kst(b2, x2, d2),
+                            lambda: CST.chunk_state(bb, xx, da),
+                            lambda: ref.chunk_state(bb, xx, da)),
+            "chunk_scan": (ksc, CSC, lambda: ksc(c2, b2, x2, d2, p2),
+                           lambda: CSC.chunk_scan(cc, bb, xx, da, prev),
+                           lambda: ref.chunk_scan(cc, bb, xx, da, prev))}
+    out = {}
+    for name, (kern, mod, run, row, plain_run) in runs.items():
+        got, want = run(), plain_run()
+        got = got.reshape(want.shape)
+        assert got.dtype == want.dtype, name
+        assert torch.isfinite(got).all(), name
+        out_bytes = got.numel() * got.element_size()
+        res = {"err": (got.float() - want.float()).abs().max().item(),
+               "scale": max(1.0, want.float().abs().max().item())}
+        res["max_abs_err"] = res["err"]
+        if name == "chunk_state" and dtype == "bfloat16":
+            res["bf16_xd_rel"] = (state_variant(torch, bb, xx, da, torch.bfloat16)
+                                  - want).abs().max().item() / res["scale"]
+            res["xd_gated"] = True
+        if got.dtype == torch.bfloat16:
+            res["ulps"] = bf16_ulps(torch, got, want)
+            res["at_2_or_more"] = int((ulps_of(torch, got, want).round() >= 2).sum())
+            res["bf16_scores_ulps"] = bf16_ulps(torch, scan_variant(
+                torch, cc, bb, xx, da, prev, scores=torch.bfloat16), want)
+            # both sides' distance from an fp64 evaluation (printed, as phase 2's)
+            f64 = scan_variant(torch, cc, bb, xx, da, prev, acc=torch.float64)
+            res["plain_vs_f64_ulps"] = bf16_ulps(torch, want, f64)
+            res["kernel_vs_f64_ulps"] = bf16_ulps(torch, got, f64)
+            del f64
+        del got, want
+        if timed:
+            launches = kern.launches
+            saved = mod.KERNEL.launches, mod.KERNEL.tc_launches
+            yard, ins, flops = ssd_work(torch, name, cc, bb, xx, da, prev)
+            res.update(ms=time_ms(torch, run, flush=flush), row_ms=time_ms(torch, row, flush=flush),
+                       plain_ms=time_ms(torch, plain_run, flush=flush),
+                       yardstick_ms=time_ms(torch, yard, flush=flush), library_ms=None,
+                       yardstick="the bf16 cuBLAS products of its work")
+            mod.KERNEL.launches, mod.KERNEL.tc_launches = saved
+            kern.launches = launches
+            own = (b2, x2, d2) if name == "chunk_state" else (c2, b2, x2, d2, p2)
+            res["bound"] = bound(sum(t.numel() * t.element_size() for t in own) + out_bytes,
+                                 flops, BF16_FLOPS)
+            res["row_bound"] = bound(sum(handed_bytes(t) for t in ins) + out_bytes, flops,
+                                     BF16_FLOPS)
+        out[name] = res
+    return out
+
+
 def workspace_check(torch, np, compiled, dev):
     """WORKSPACE_CASE compiled with buffers forced into the workspace
     against the same program all in shared memory, on its parity inputs
@@ -5600,6 +5776,7 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
     from repro_torch import kernels as K
     from repro_torch.core import compile as tl_compile
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
     for k in compiled.values():
@@ -5623,11 +5800,22 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
     # its module's inputs where it has a hook (valid block tables), every
     # output compared (the prefill's pools too)
     for name, prog in K.parity_programs():
+        if name in CUDA_PENDING:  # raises at compile time, before any CUDA call
+            try:
+                tl_compile(prog, target="cuda", use_cache=False)
+            except NotImplementedError as e:
+                if CUDA_PENDING[name] not in str(e) or "item 19" not in str(e):
+                    raise
+                log(f"[compiler] {name}: raises as it should: {e}")
+                continue
+            raise AssertionError(f"{name}: the CUDA backend took it; take it off CUDA_PENDING")
         kern = compiled[name]
         args = K.parity_inputs(name, prog, np.random.default_rng(53))
         if args is None:
             g = torch.Generator(device=device).manual_seed(53)
-            args = [torch.randn(p.shape, generator=g, device=device) for p in kern.arg_params]
+            args = [torch.randint(-128, 128, p.shape, generator=g, device=device,
+                                  dtype=torch.int8) if p.dtype == "int8" else
+                    torch.randn(p.shape, generator=g, device=device) for p in kern.arg_params]
         else:
             args = [torch.as_tensor(a, device=device) for a in args]
         got = kern(*args)
@@ -5659,7 +5847,6 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
     launches = mm.launches
     row13 = KERNELS["matmul"]
     saved = row13.launches, row13.tc_launches
-    from repro_torch.kernels import ops
     results["M7"].update(
         ms=time_ms(torch, lambda: mm(a, b)),
         row_ms=time_ms(torch, lambda: ops.matmul(a, b)),
@@ -5761,6 +5948,44 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
         results[name] = {"max_abs_err": r["err"], "bound": r["bound"], **times,
                          "library_ms": sdpa if name == "flash mla" else None,
                          "yardstick_ms": None if name == "flash mla" else sdpa}
+    # the SSD programs at rows 11-12's shape, against their plain versions
+    for case, dtype in SSD_EMITTED:
+        timed = case is SSD_EMITTED[0][0]
+        for name, r in check_ssd_programs(torch, ref, compiled, case, dtype, flush_buf.zero_,
+                                          timed, device).items():
+            limit = (f"{r['ulps']:.2f} bf16 ulps of the plain version (limit {BF16_ULPS:g}; "
+                     f"{r['at_2_or_more']} elements at 2 or more; the control with bf16 scores "
+                     f"{r['bf16_scores_ulps']:.2f}); of an fp64 evaluation the kernel "
+                     f"{r['kernel_vs_f64_ulps']:.2f}, the plain version "
+                     f"{r['plain_vs_f64_ulps']:.2f}" if "ulps" in r else
+                     f"{r['err'] / r['scale']:.3e} of max(1, max |plain|) (limit {FP32_ATOL:g}"
+                     + (f"; the control with X decayed and rounded once to bf16 "
+                        f"{r['bf16_xd_rel']:.2e})" if "bf16_xd_rel" in r else ")"))
+            ws = ", the workspace" if dtype == "float32" and name == "chunk_scan" else ""
+            log(f"[compiler] {name}_program, {case[0]} (batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+                f"{dtype}{ws}): {limit}, max abs err {r['err']:.3e}")
+            if not ssd_ok(r):
+                raise AssertionError(f"{name} {case[0]} {dtype}: the emitted kernel fails its "
+                                     f"check: {r}")
+            if timed:
+                results[f"{name} mamba2"] = r
+                log(f"[compiler] {name} mamba2: bound from its operands {r['bound'][0]:.4f} ms, "
+                    f"from the row's (C and B once across heads) {r['row_bound'][0]:.4f} ms")
+    # the dequantized GEMM at row 14's shape (and int4 at m256), against the
+    # plain version at the library's limit, timed beside row 14
+    for name, (shape, fmt) in DEQUANT_EMITTED.items():
+        r = check_dequant(torch, ops, ref, shape, DEQUANT_SHAPES[shape], fmt, "float16", None,
+                          flush_buf.zero_, True, device, program=compiled[name])
+        log(f"[compiler] {EMITTED[name][0]} (blocks {COMPILED_DEQUANT[shape]}): "
+            f"{r['err']:.3g} units (lib_units; limit {r['limit']:.3g}), cuBLAS on the rounded "
+            f"weight {r['cublas_units']:.3g}"
+            + "".join(f", planted fault ({f}) {v:.3g}" for f, v in r.get("faults", {}).items()))
+        if not library_ok(r):
+            raise AssertionError(f"{name}: the emitted kernel fails its limit or a fault "
+                                 f"passes it: {r}")
+        r["bound"] = (r["bound_ms"], r["bound_by"])
+        r["yardstick"] = "cuBLAS fp16 on a pre-dequantized weight"
+        results[name] = r
     del flush_buf
     # the workspace check: forced into the workspace against all shared
     for dtype, (names, ws, smem, all_smem) in workspace_check(torch, np, compiled,
@@ -5777,9 +6002,9 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
         r, kern = results[name], compiled[name]
         regs = ptxas_registers(build_log.get(kern.kernel.source.name, ""))
         beside = (f", the hand-written row's {r['row_ms']:.4f} ms" if "row_ms" in r else "")
+        yardstick = r.get("yardstick", "SDPA over the gathered, dequantized inputs")
         library = (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else
-                   f"library none (yardstick: SDPA over the gathered, dequantized inputs "
-                   f"{r['yardstick_ms']:.4f} ms)")
+                   f"library none (yardstick: {yardstick} {r['yardstick_ms']:.4f} ms)")
         ws = ("" if not kern.workspace_bytes else
               f" and {kern.workspace_bytes} B of global workspace a block "
               f"({', '.join(kern.info.vmem.workspace())})")

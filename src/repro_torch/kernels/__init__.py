@@ -19,13 +19,18 @@ and its twin ``prefill_attention_quant_program`` (``prefill_attention``),
 FlashMLA's ``mla_program`` (the paper's Fig. 18) with the paged MLA decode
 ``mla_paged_program``, the MLA chunked prefill ``mla_prefill_program`` and
 their twins ``mla_paged_quant_program``, ``mla_prefill_quant_program``
-(``mla``), and the attention core they compose (``attention_core``), each module with
-its ``PARITY_CASES``; :func:`parity_programs` and :func:`parity_inputs` are
+(``mla``), the Mamba-2 SSD's ``chunk_state_program`` and
+``chunk_scan_program`` (``linear_attention``), the weight-only dequantized
+GEMM's ``dequant_matmul_program`` (``dequant_matmul``), and the attention
+core they compose (``attention_core``), each module with its
+``PARITY_CASES``; :func:`parity_programs` and :func:`parity_inputs` are
 the registry of ``repro.kernels`` (repro/kernels/__init__.py:36-80) over
 them."""
-from . import (attention_core, flash_attention, matmul, mla, ops, paged_attention,
-               prefill_attention, ref)
+from . import (attention_core, dequant_matmul, flash_attention, linear_attention, matmul, mla,
+               ops, paged_attention, prefill_attention, ref)
+from .dequant_matmul import dequant_matmul_program
 from .flash_attention import flash_attention_program
+from .linear_attention import chunk_scan_program, chunk_state_program
 from .matmul import matmul_program
 from .mla import (mla_paged_program, mla_paged_quant_program, mla_prefill_program,
                   mla_prefill_quant_program, mla_program)
@@ -34,7 +39,8 @@ from .prefill_attention import prefill_attention_program, prefill_attention_quan
 
 # the modules that declare PARITY_CASES, sorted by name as the JAX
 # package's discovery sorts them (the other modules here hold no program)
-PARITY_MODULES = (flash_attention, matmul, mla, paged_attention, prefill_attention)
+PARITY_MODULES = (dequant_matmul, flash_attention, linear_attention, matmul, mla,
+                  paged_attention, prefill_attention)
 
 
 def parity_modules():
@@ -65,4 +71,5 @@ __all__ = ["ops", "ref", "attention_core", "matmul_program", "flash_attention_pr
            "paged_attention_program", "paged_attention_quant_program",
            "prefill_attention_program", "prefill_attention_quant_program",
            "mla_program", "mla_paged_program", "mla_paged_quant_program", "mla_prefill_program",
-           "mla_prefill_quant_program", "parity_modules", "parity_programs", "parity_inputs"]
+           "mla_prefill_quant_program", "dequant_matmul_program", "chunk_state_program",
+           "chunk_scan_program", "parity_modules", "parity_programs", "parity_inputs"]

@@ -15,6 +15,15 @@ quietly take its plain path.
 With 16-bit activations the kernel multiplies, as the TPU kernel does, the
 weight cast to the activation type and scaled in it; the plain version
 keeps both in fp32 (csrc/dequant_matmul.cu says where that rounds).
+
+The same module holds ``dequant_matmul_program`` itself, the tile program
+that the port's compiler (``repro_torch.core``) compiles with
+``target="cuda"`` or runs with ``target="reference"``, and its
+``PARITY_CASES``.  The CUDA backend takes the int8, int4 and int2 formats;
+nf4's codebook lookup is a ``T.call_tile_lib`` (a torch function over
+``ref.NF4_CODEBOOK``), which only the reference interpreter runs yet.
+The program sets its function's ``__annotations__`` itself, so the
+``T.Tensor`` objects reach the tracer under the ``annotations`` import.
 """
 from __future__ import annotations
 
@@ -22,6 +31,9 @@ import ctypes
 
 import torch
 
+from ..core import TileProgram
+from ..core import lang as T
+from ..core.buffer import torch_dtype
 from . import ref
 from .build import Kernel, check
 from .matmul import DTYPES as OUT_DTYPES
@@ -111,3 +123,136 @@ def dequant_matmul(a: torch.Tensor, b_packed: torch.Tensor, fmt: str = "int4",
     check(rc, "dequant_matmul")
     KERNEL.launches += 1
     return out if kernel_out == out_dtype else out.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# The tile program (repro/kernels/dequant_matmul.py:25, the paper's Fig.
+# 15/17): the packed weight tile streams through a shared window, is
+# unpacked to the compute dtype inside the kernel by shift / mask arithmetic
+# over its int8 bytes, then meets the activations in T.gemm.
+# ---------------------------------------------------------------------------
+
+
+def dequant_matmul_program(
+    M: int,
+    N: int,
+    K: int,
+    fmt: str = "int4",
+    in_dtype: str = "float32",
+    out_dtype: str = "float32",
+    accum_dtype: str = "float32",
+    block_M: int = 64,
+    block_N: int = 64,
+    block_K: int = 64,
+    num_stages: int = 2,
+    with_scales: bool = False,
+) -> TileProgram:
+    """C^T[N, M] = dequant(B)[N, K] @ A[M, K]^T  (the paper's transposed layout)."""
+    if fmt not in ref.WEIGHT_PACK:
+        raise ValueError(f"unknown quant format {fmt}")
+    pack = ref.WEIGHT_PACK[fmt]
+    if block_K % pack:
+        raise ValueError("block_K must be a multiple of the pack factor")
+    storage_dtype = "int8"
+    if M % block_M or N % block_N or K % block_K:
+        raise ValueError("blocks must divide problem shape")
+
+    params = dict(
+        A=T.Tensor((M, K), in_dtype),
+        B=T.Tensor((N, K // pack), storage_dtype),
+        Ct=T.Tensor((N, M), out_dtype),
+    )
+    if with_scales:
+        params["Scales"] = T.Tensor((N, K // block_K), in_dtype)
+
+    def body(A, B, Ct, Scales=None):
+        with T.Kernel(T.ceildiv(N, block_N), T.ceildiv(M, block_M), threads=128) as (bx, by):
+            A_shared = T.alloc_shared((block_M, block_K), in_dtype)
+            B_shared = T.alloc_shared((block_N, block_K // pack), storage_dtype)
+            B_local = T.alloc_fragment((block_N, block_K // pack), storage_dtype)
+            B_dequant = T.alloc_fragment((block_N, block_K), in_dtype)
+            Ct_local = T.alloc_fragment((block_N, block_M), accum_dtype)
+            if with_scales:
+                S_shared = T.alloc_shared((block_N, 1), in_dtype)
+
+            T.clear(Ct_local)
+            for k in T.Pipelined(T.ceildiv(K, block_K), num_stages=num_stages):
+                T.copy(A[by * block_M, k * block_K], A_shared)
+                T.copy(B[bx * block_N, k * (block_K // pack)], B_shared)
+                if with_scales:
+                    T.copy(Scales[bx * block_N, k], S_shared)
+                T.copy(B_shared, B_local)
+                if fmt == "int4":
+                    for i, j in T.Parallel(block_N, block_K):
+                        v = (B_local[i, j // 2] >> ((j % 2) * 4)) & 15
+                        v = T.if_then_else(v >= 8, v - 16, v)
+                        B_dequant[i, j] = T.cast(v, in_dtype)
+                elif fmt == "int2":
+                    for i, j in T.Parallel(block_N, block_K):
+                        v = (B_local[i, j // 4] >> ((j % 4) * 2)) & 3
+                        v = T.if_then_else(v >= 2, v - 4, v)
+                        B_dequant[i, j] = T.cast(v, in_dtype)
+                elif fmt == "int8":
+                    for i, j in T.Parallel(block_N, block_K):
+                        B_dequant[i, j] = T.cast(B_local[i, j], in_dtype)
+                else:  # nf4: the codebook through the tile-library escape hatch
+
+                    def _nf4_decode(packed):
+                        # (block_N, block_K // 2) int8 -> (block_N, block_K)
+                        # codebook values, low nibble first
+                        return ref.unpack_nf4(packed).to(torch_dtype(in_dtype))
+
+                    T.call_tile_lib(_nf4_decode, B_dequant, B_local, name="nf4_decode")
+                if with_scales:
+                    for i, j in T.Parallel(block_N, block_K):
+                        B_dequant[i, j] = B_dequant[i, j] * S_shared[i, 0]
+                T.gemm(B_dequant, A_shared, Ct_local, transpose_B=True)
+            T.copy(Ct_local, Ct[bx * block_N, by * block_M])
+
+    # a prim_func with the right signature (scales optional)
+    if with_scales:
+
+        def fn(A: params["A"], B: params["B"], Ct: params["Ct"], Scales: params["Scales"]):
+            body(A, B, Ct, Scales)
+
+    else:
+
+        def fn(A: params["A"], B: params["B"], Ct: params["Ct"]):
+            body(A, B, Ct)
+
+    fn.__name__ = f"dequant_matmul_{fmt}"
+    fn.__annotations__ = dict(params)
+    return T.prim_func(fn)
+
+
+# Tiny-shape configs of the backend-parity suite (the JAX module's): int4
+# the two-way sub-byte unpack, int8 the straight cast, int2 the four-way
+# unpack, nf4 the codebook through T.call_tile_lib; the odd-K int4 case
+# (K 48: 3 K-blocks) a K no multiple of block_K * pack.
+PARITY_CASES = [
+    (
+        "dequant_matmul_int4",
+        dict(M=16, N=16, K=32, fmt="int4", block_M=16, block_N=16, block_K=16),
+    ),
+    (
+        "dequant_matmul_int4_oddk",
+        dict(M=16, N=16, K=48, fmt="int4", block_M=16, block_N=16, block_K=16),
+    ),
+    (
+        "dequant_matmul_int8",
+        dict(M=16, N=16, K=32, fmt="int8", block_M=16, block_N=16, block_K=16),
+    ),
+    (
+        "dequant_matmul_int2",
+        dict(M=16, N=16, K=32, fmt="int2", block_M=16, block_N=16, block_K=16),
+    ),
+    (
+        "dequant_matmul_nf4",
+        dict(M=16, N=16, K=32, fmt="nf4", block_M=16, block_N=16, block_K=16),
+    ),
+]
+
+
+def parity_programs():
+    for name, cfg in PARITY_CASES:
+        yield name, dequant_matmul_program(**cfg)

@@ -1298,13 +1298,16 @@ def test_cuda_step_breakdown_matches_the_profilers_event_tree():
 
 def _compiled_cases():
     """Every PARITY_CASES entry of the compiler's program modules (the
-    paged decode and chunked prefill, fp and quantized, and kernels/mla.py's
-    FlashMLA, paged MLA decode and MLA chunked prefill among them), in fp32,
-    and the GEMM's and flash forward's in bf16 (they take wmma for their
-    16-bit GEMMs)."""
+    paged decode and chunked prefill, fp and quantized, kernels/mla.py's
+    FlashMLA, paged MLA decode and MLA chunked prefill, the SSD's chunk_state
+    and chunk_scan and the dequantized GEMM's int4, int8 and int2 among
+    them; not nf4, whose codebook lookup the backend does not take yet), in
+    fp32, and the GEMM's and flash forward's in bf16 (they take wmma for
+    their 16-bit GEMMs)."""
     from repro_torch import kernels as K
 
-    out = [(name, "float32", prog) for name, prog in K.parity_programs()]
+    out = [(name, "float32", prog) for name, prog in K.parity_programs()
+           if name not in cs.CUDA_PENDING]
     out += [(name + " bf16", "bfloat16", K.matmul_program(**cfg, in_dtype="bfloat16",
                                                           out_dtype="bfloat16"))
             for name, cfg in K.matmul.PARITY_CASES]
@@ -1315,19 +1318,22 @@ def _compiled_cases():
 
 def _case_inputs(name, prog, kern, seed, dev, dtype="float32"):
     """A case's inputs on the card: its module's ``parity_inputs`` where it
-    has a hook (valid block tables), else seeded normal values."""
+    has a hook (valid block tables), else seeded normal values (int8 ones
+    over the whole byte: the dequantized GEMM's packed codes)."""
     from repro_torch import kernels as K
 
     args = K.parity_inputs(name, prog, np.random.default_rng(seed))
     if args is not None:
         return [torch.as_tensor(a, device=dev) for a in args]
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn(p.shape, generator=g, device=dev).to(getattr(torch, dtype))
+    return [torch.randint(-128, 128, p.shape, generator=g, device=dev, dtype=torch.int8)
+            if p.dtype == "int8" else
+            torch.randn(p.shape, generator=g, device=dev).to(getattr(torch, dtype))
             for p in kern.arg_params]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(27))
+@pytest.mark.parametrize("case", range(33))
 def test_cuda_emitted_kernels_match_the_reference_interpreter(case):
     """On a card: each tile program compiled with ``target="cuda"`` (built
     by nvcc from the emitted text) against the ``reference`` interpreter on
@@ -1339,7 +1345,7 @@ def test_cuda_emitted_kernels_match_the_reference_interpreter(case):
     from repro_torch.core import compile as tl_compile
 
     cases = _compiled_cases()
-    assert len(cases) == 27
+    assert len(cases) == 33
     name, dtype, prog = cases[case]
     dev = torch.device("cuda")
     kern = tl_compile(prog, target="cuda", use_cache=False)
@@ -1473,3 +1479,56 @@ def test_cuda_emitted_workspace_is_byte_equal_to_shared():
     assert set(res) == {"float32", "bfloat16"}
     for names, ws, smem, all_smem in res.values():
         assert names and ws > 0 and smem <= cs.WORKSPACE_SMEM < all_smem
+
+
+# small ragged shapes: chunk_scan with 48-row chunks (C.B^T on wmma: 48 x 48
+# over N 32), P 40; the dequantized GEMM at M 24 (8-row blocks: the CUDA
+# cores) and M 48 (16-row blocks: wmma), K 96 in blocks of 32
+RAGGED_EMITTED = {
+    "chunk_scan bf16": dict(batch=3, nchunks=2, chunk_l=48, dstate=32, headdim=40,
+                            dtype="bfloat16"),
+    "dequant int4 M 24": dict(M=24, N=48, K=96, fmt="int4", in_dtype="float16",
+                              out_dtype="float16", block_M=8, block_N=16, block_K=32),
+    "dequant int4 M 48": dict(M=48, N=48, K=96, fmt="int4", in_dtype="float16",
+                              out_dtype="float16", block_M=16, block_N=16, block_K=32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RAGGED_EMITTED))
+def test_cuda_emitted_ssd_and_dequant_match_plain_versions_at_ragged_shapes(case):
+    """On a card: the emitted chunk_scan (bf16) and dequantized GEMM (int4 x
+    fp16) at small ragged shapes against their plain versions,
+    ``ref.chunk_scan`` within two bf16 ulps and ``ref.dequant_matmul``
+    within two ``lib_units`` (chip_smoke's limits); the GEMM's output is
+    Ct (N, M), compared transposed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
+    from repro_torch import kernels as K
+    from repro_torch.core import compile as tl_compile
+
+    cfg = RAGGED_EMITTED[case]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    if case.startswith("chunk_scan"):
+        kern = tl_compile(K.chunk_scan_program(**cfg), target="cuda", use_cache=False)
+        b, nc, ln, n, p = (cfg[k] for k in ("batch", "nchunks", "chunk_l", "dstate", "headdim"))
+        c, bm = (torch.randn((b, nc, ln, n), generator=g, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        x = torch.randn((b, nc, ln, p), generator=g, device=dev).to(torch.bfloat16)
+        da = torch.cumsum(-0.1 * torch.rand((b, nc, ln), generator=g, device=dev), dim=-1)
+        prev = torch.randn((b, nc, n, p), generator=g, device=dev)
+        got, want = kern(c, bm, x, da, prev), ref.chunk_scan(c, bm, x, da, prev)
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        assert cs.bf16_ulps(torch, got, want) <= cs.BF16_ULPS
+    else:
+        kern = tl_compile(K.dequant_matmul_program(**cfg), target="cuda", use_cache=False)
+        m, n, k = cfg["M"], cfg["N"], cfg["K"]
+        a = torch.randn((m, k), generator=g, device=dev).to(torch.float16)
+        bq = torch.randint(-128, 128, (n, k // 2), generator=g, device=dev, dtype=torch.int8)
+        got = kern(a, bq).t()
+        want = ref.dequant_matmul(a, bq, "int4", out_dtype=torch.float16)
+        sigma = k ** 0.5 * cs.rms(torch, a) * cs.rms(torch, ref.dequant_weight(bq, "int4"))
+        assert cs.lib_units(torch, got, want, sigma) <= cs.BF16_ULPS
+        assert ("nvcuda::wmma::mma_sync" in kern.source) == (cfg["block_M"] == 16)
+    assert kern.launches == 1

@@ -7,8 +7,10 @@ core``) against the JAX package's (``tests/test_pipeline.py``).
 * across the packages, for every PARITY_CASES entry of ``kernels/matmul.py``,
   ``kernels/flash_attention.py``, ``kernels/mla.py`` (FlashMLA and the
   paged MLA decode and chunked prefill, fp and quantized),
-  ``kernels/paged_attention.py`` and ``kernels/prefill_attention.py`` plus
-  the quickstart's and
+  ``kernels/paged_attention.py``, ``kernels/prefill_attention.py``,
+  ``kernels/linear_attention.py`` (the Mamba-2 SSD's chunk_state and
+  chunk_scan) and ``kernels/dequant_matmul.py`` (int4, int8, int2, nf4)
+  plus the quickstart's and
   ``small_gemm_program``: phases, windows (index maps evaluated at sample
   grid points), grid, dimension semantics, stages, params, cost FLOPs and
   HBM bytes and the verifier's obligations equal exactly; the shared-memory
@@ -21,8 +23,10 @@ core``) against the JAX package's (``tests/test_pipeline.py``).
   every case, is identical for two independent traces, asks for the plan's
   shared memory, keeps Python's floor rule, reads block tables from int32
   operands and seeds in-out outputs from their inputs; the ops it does not
-  take yet raise at compile time naming ROADMAP Queue 1 item 19; a ``cuda``
-  kernel called on CPU tensors raises.
+  take yet raise at compile time naming ROADMAP Queue 1 item 19 (nf4's
+  codebook lookup among them); a ``cuda`` kernel called on CPU tensors
+  raises; the SSD programs at mamba2-2.7B's training shape and the
+  dequantized GEMM at Fig. 15's shape plan within the block's shared memory.
 """
 import importlib.util
 import re
@@ -37,7 +41,9 @@ from repro.core import compile as jcompile
 from repro.core.lowering import LoweredModule as JLoweredModule
 from repro.core.lowering import PIPELINE as JPIPELINE
 from repro.core.lowering import make_index_map as jmake_index_map
+from repro.kernels import dequant_matmul as jdequant
 from repro.kernels import flash_attention as jflash
+from repro.kernels import linear_attention as jlinear
 from repro.kernels import matmul as jmatmul
 from repro.kernels import mla as jmla
 from repro.kernels import paged_attention as jpaged
@@ -71,10 +77,13 @@ from repro_torch.core.lowering.pipeline import (
     pass_plan_vmem,
     pass_split_phases,
 )
+from repro_torch.kernels import dequant_matmul as dequant
+from repro_torch.kernels import linear_attention as linear
 from repro_torch.kernels import mla
 from repro_torch.kernels import paged_attention as paged
 from repro_torch.kernels import parity_inputs, parity_programs
 from repro_torch.kernels import prefill_attention as prefill
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_program
 from repro_torch.kernels.matmul import matmul_program
 
@@ -167,6 +176,12 @@ def _pairs():
         name = next(m for m in _MLA_MAKERS if n.startswith(m)) + "_program"
         out.append((n, lambda c=c, f=getattr(mla, name): f(**c),
                     lambda c=c, f=getattr(jmla, name): f(**c)))
+    # the Mamba-2 SSD's chunk_state and chunk_scan
+    for (n, (jf, c)), (_, (f, _)) in zip(jlinear.PARITY_CASES, linear.PARITY_CASES, strict=True):
+        out.append((n, lambda c=c, f=f: f(**c), lambda c=c, f=jf: f(**c)))
+    # the dequantized GEMM in its four formats (nf4 through T.call_tile_lib)
+    out += [(n, lambda c=c: dequant.dequant_matmul_program(**c),
+             lambda c=c: jdequant.dequant_matmul_program(**c)) for n, c in jdequant.PARITY_CASES]
     out.append(("quickstart", lambda: _example("torch_quickstart").Matmul, _jax_quickstart))
     out.append(("small_gemm", small_gemm_program, lambda: small_gemm_program(JT)))
     return out
@@ -579,7 +594,7 @@ def test_jax_fp64_run_is_the_int8_mla_prefills_value():
 
 def test_parity_registry_mirrors_the_jax_packages():
     names = [n for n, _ in parity_programs()]
-    assert names == [n for mod in (jflash, jmatmul, jmla, jpaged, jprefill)
+    assert names == [n for mod in (jdequant, jflash, jlinear, jmatmul, jmla, jpaged, jprefill)
                      for n, _ in mod.PARITY_CASES]
     # the paged modules' hooks give the JAX package's inputs (MLA's for its
     # paged cases, none for FlashMLA), the others none
@@ -640,7 +655,12 @@ def _cuda(prog):
     return tl_compile(prog, target="cuda", use_cache=False)
 
 
-@pytest.mark.parametrize("name", sorted(PAIRS))
+# the cases the CUDA backend emits: all but nf4, whose codebook lookup is a
+# T.call_tile_lib (test_cuda_backend_raises_for_nf4s_codebook_lookup)
+EMITS = sorted(set(PAIRS) - {"dequant_matmul_nf4"})
+
+
+@pytest.mark.parametrize("name", EMITS)
 def test_cuda_source_is_deterministic_and_asks_for_the_plan(name):
     port, _ = PAIRS[name]
     k1, k2 = _cuda(port()), _cuda(port())
@@ -732,6 +752,70 @@ def test_cuda_backend_raises_for_what_it_does_not_take_yet(what):
         _cuda(prog)
     # the reference interpreter still runs it: nothing falls back silently
     assert tl_compile(prog, target="reference").backend == "reference"
+
+
+def test_cuda_backend_raises_for_nf4s_codebook_lookup():
+    """dequant_matmul_nf4's codebook lookup is a ``T.call_tile_lib``: the
+    CUDA backend raises item 19's message before any CUDA call, and the
+    reference interpreter runs the program, equal to the plain version."""
+    cfg = dict(dequant.PARITY_CASES)["dequant_matmul_nf4"]
+    prog = dequant.dequant_matmul_program(**cfg)
+    with pytest.raises(NotImplementedError,
+                       match=re.escape("CustomOp 'nf4_decode' (T.call_tile_lib)")
+                       + ".*ROADMAP Queue 1 item 19, second half"):
+        _cuda(prog)
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((cfg["M"], cfg["K"])).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-128, 128, (cfg["N"], cfg["K"] // 2)).astype(np.int8))
+    got = tl_compile(prog, target="reference")(a, b)
+    torch.testing.assert_close(got.t(), ref.dequant_matmul(a, b, "nf4"), rtol=1e-5, atol=1e-5)
+
+
+# mamba2-2.7B's training shape (B 8 x S 1024, 80 heads of P 64, N 128,
+# chunks of 128) as the programs take it: (batch x heads) rows of 8 chunks
+SSD_TRAIN = dict(batch=8 * 80, nchunks=8, chunk_l=128, dstate=128, headdim=64)
+# Fig. 15's m1_n16384_k16384 (M padded to 8) as row 14 runs it: fp16
+# activations and output, 8 x 128 x 128 blocks
+DEQUANT_ROW14 = dict(M=8, N=16384, K=16384, in_dtype="float16", out_dtype="float16",
+                     block_M=8, block_N=128, block_K=128)
+
+
+def test_cuda_source_at_the_card_shapes_fits_the_plan():
+    """The new programs at the card's shapes, emitted here without nvcc:
+    chunk_state and chunk_scan at mamba2-2.7B's training shape in bf16, and
+    fp32 chunk_scan under ``Schedule(workspace=True)`` (its 262,656 B do not
+    fit all in shared memory, so without the workspace it raises); the
+    dequantized GEMM at row 14's shape in int4, int8 and int2 (the 8-row
+    product on the CUDA cores) and int4 at m256_n8192_k8192 on ``wmma``;
+    each plan within the block's 232,448 bytes, one block a grid cell."""
+    from repro_torch.core import ScheduleError
+
+    budget = 232448
+    emitted = {
+        "chunk_state bf16": _cuda(linear.chunk_state_program(**SSD_TRAIN, dtype="bfloat16")),
+        "chunk_scan bf16": _cuda(linear.chunk_scan_program(**SSD_TRAIN, dtype="bfloat16")),
+        "chunk_scan fp32": tl_compile(linear.chunk_scan_program(**SSD_TRAIN),
+                                      Schedule(workspace=True), target="cuda", use_cache=False),
+    }
+    for fmt in ("int4", "int8", "int2"):
+        emitted[fmt] = _cuda(dequant.dequant_matmul_program(**DEQUANT_ROW14, fmt=fmt))
+    emitted["int4 m256"] = _cuda(dequant.dequant_matmul_program(
+        256, 8192, 8192, "int4", "float16", "float16"))
+    for name, k in emitted.items():
+        assert k.smem_bytes <= budget and k.info.vmem.ok, name
+    assert {n: k.blocks for n, k in emitted.items()} == {
+        "chunk_state bf16": 5120, "chunk_scan bf16": 5120, "chunk_scan fp32": 5120,
+        "int4": 128, "int8": 128, "int2": 128, "int4 m256": 512}
+    assert emitted["chunk_state bf16"].smem_bytes == 115200
+    assert emitted["chunk_scan bf16"].smem_bytes == 186880
+    assert (emitted["chunk_scan fp32"].smem_bytes, emitted["chunk_scan fp32"].workspace_bytes) \
+        == (197120, 65536)
+    assert emitted["int4"].smem_bytes == 55296 and emitted["int4 m256"].smem_bytes == 39936
+    # C.B^T and the m256 product on wmma; the 8-row products on the CUDA cores
+    wmma = {n for n, k in emitted.items() if "nvcuda::wmma::mma_sync" in k.source}
+    assert wmma == {"chunk_scan bf16", "int4 m256"}
+    with pytest.raises(ScheduleError, match="shared-memory budget exceeded"):
+        _cuda(linear.chunk_scan_program(**SSD_TRAIN))
 
 
 def _gather():
