@@ -338,9 +338,9 @@ batch and a decode step's drop other tokens, as in the reference);
    compiled with a shared-memory limit that forces buffers into the
    workspace gives outputs byte-equal to the same program all in shared
    memory (fp32 and bf16).  ``kernels/linear_attention.py``'s two
-   PARITY_CASES and ``kernels/dequant_matmul.py``'s int4, odd-K int4, int8
-   and int2 join the parity loop (its nf4 case, a ``T.call_tile_lib``, must
-   raise item 19's message at compile time).  ``chunk_state_program`` and
+   PARITY_CASES and ``kernels/dequant_matmul.py``'s int4, odd-K int4, int8,
+   int2 and nf4 (its codebook lookup a ``T.call_tile_lib``, rewritten into
+   T ops) join the parity loop.  ``chunk_state_program`` and
    ``chunk_scan_program`` run at rows 11-12's shape (mamba2-2.7B training:
    640 (batch, head) rows x 8 chunks of 128, N 128, P 64; C and B
    materialised over the heads, untimed) on phase 2's operands
@@ -351,12 +351,21 @@ batch and a decode step's drop other tokens, as in the reference);
    deep pair is timed with L2 flushed beside rows 11-12, their plain
    versions and the cuBLAS yardstick, the bound from the program's own
    operands beside the row's.  ``dequant_matmul_program`` runs at row 14's
-   shape (W int4 / int8 / int2 x A fp16, blocks of 8 x 128 x 128: the
-   8-row product on the CUDA cores) and in int4 at m256_n8192_k8192 (64^3
+   shape (W int4 / int8 / int2 / nf4 x A fp16, blocks of 8 x 128 x 128:
+   the 8-row product on the CUDA cores) and in int4 at m256_n8192_k8192 (64^3
    blocks, ``wmma``), its Ct compared transposed within 2 ``lib_units``
    (plus its control) of ``ref.dequant_matmul``, the code-order fault
    outside, timed beside row 14 and cuBLAS fp16 on a pre-dequantized
-   weight.  Each emitted kernel's launches are
+   weight.  The T language's last ops (TILE_LANGUAGE: ``T.atomic_add`` /
+   ``_max`` / ``_min`` from 64 blocks into one tile, ``T.cumsum`` forward and
+   reversed, ``T.call_tile_lib`` with ``torch.softmax`` and a doubling, a
+   batched bf16 ``T.gemm`` on ``wmma``) run against the reference
+   interpreter on the card within 1e-5 of max(1, max |reference|), timed
+   beside their plain versions; examples/torch_custom_kernel.py runs
+   through its ``main`` (autotuned, within 1e-4 of its oracle); and
+   ``tune_matmul`` at M7 (within 2 ``lib_units``) prints its winner, its
+   predicted and measured time beside row 13's.  Each emitted kernel's
+   launches are
    counted on that path run (the comparisons' and timings' taken back), its
    registers (``-Xptxas -v``), shared memory, workspace and grid printed.  With
    ``--only kernels`` the script stops after phases 1, 2 and 17 and lists
@@ -378,6 +387,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -5219,7 +5229,25 @@ PARITY_ATOL = 1e-5  # of max(1, max |reference|), fp32
 DEQUANT_EMITTED = {"dequant int4": ("m1_n16384_k16384", "int4"),
                    "dequant int8": ("m1_n16384_k16384", "int8"),
                    "dequant int2": ("m1_n16384_k16384", "int2"),
+                   "dequant nf4": ("m1_n16384_k16384", "nf4"),
                    "dequant int4 m256": ("m256_n8192_k8192", "int4")}
+# the T language's programs with no kernel of the JAX package behind them
+# (T.atomic_*, T.cumsum, T.call_tile_lib, a batched T.gemm): each the Pallas
+# backend's handling of its op replaces (repro/core/backends/pallas_tpu.py)
+PALLAS_OPS = "src/repro/core/backends/pallas_tpu.py"
+TILE_LANGUAGE = {
+    "atomic add": ("compiled T.atomic_add (64 blocks into one 64 x 256 fp32 tile)",
+                   f"{PALLAS_OPS}:428"),
+    "atomic max": ("compiled T.atomic_max (the same)", f"{PALLAS_OPS}:428"),
+    "atomic min": ("compiled T.atomic_min (the same)", f"{PALLAS_OPS}:428"),
+    "cumsum": ("compiled T.cumsum (64 tiles of 64 x 256 fp32, along 256)", f"{PALLAS_OPS}:333"),
+    "cumsum reverse": ("compiled T.cumsum reversed (the same, along 64)", f"{PALLAS_OPS}:333"),
+    "softmax": ("compiled T.call_tile_lib torch.softmax (64 tiles of 32 x 256 fp32)",
+                f"{PALLAS_OPS}:418"),
+    "doubling": ("compiled T.call_tile_lib v * 2 (the same)", f"{PALLAS_OPS}:418"),
+    "batched gemm": ("compiled batched T.gemm (8 x 4 batches of 64^3, bf16 into fp32, wmma)",
+                     f"{PALLAS_OPS}:292"),
+}
 # the emitted kernels in the result line, with the TPU programs they replace
 EMITTED = {"quickstart": ("compiled quickstart matmul (fp32 512^3)", "examples/torch_quickstart.py",
                           "examples/quickstart.py:20"),
@@ -5260,7 +5288,14 @@ EMITTED = {"quickstart": ("compiled quickstart matmul (fp32 512^3)", "examples/t
            **{name: (f"compiled dequant_matmul_program ({shape} {fmt} x float16)",
                      "src/repro_torch/kernels/dequant_matmul.py",
                      "src/repro/kernels/dequant_matmul.py:25")
-              for name, (shape, fmt) in DEQUANT_EMITTED.items()}}
+              for name, (shape, fmt) in DEQUANT_EMITTED.items()},
+           **{name: (label, "chip_smoke.py", replaces)
+              for name, (label, replaces) in TILE_LANGUAGE.items()},
+           "custom kernel": ("compiled examples/torch_custom_kernel.py (autotuned; int4 dequant, "
+                             "gelu through T.call_tile_lib)", "examples/torch_custom_kernel.py",
+                             "examples/custom_kernel.py:18"),
+           "tuned M7": ("compiled tune_matmul's winner (M7)", "src/repro_torch/kernels/matmul.py",
+                        "src/repro/kernels/matmul.py:84")}
 # the paged programs at qwen2-1.5B's serving shape: the format each takes and
 # the hand-written row (PERF.md section 6, rows 1-4) it is timed beside
 PAGED_EMITTED = {"decode": None, "decode int8": "int8", "prefill": None, "prefill int8": "int8"}
@@ -5271,9 +5306,6 @@ MLA_EMITTED = {"mla decode": None, "mla decode int8": "int8", "mla prefill": Non
 # FlashMLA at row 5's shape: the largest blocks whose tiles fit one block's
 # shared memory (64 / 64 needs 311,552 bytes)
 COMPILED_FLASH_MLA = dict(block_N=64, block_H=32)
-# the parity cases the CUDA backend does not take yet, each with the op its
-# raise names (ROADMAP Queue 1 item 19): nf4's codebook lookup
-CUDA_PENDING = {"dequant_matmul_nf4": "CustomOp 'nf4_decode' (T.call_tile_lib)"}
 # the SSD programs at rows 11-12's shape (mamba2-2.7B training, SSD_CASES),
 # on C and B materialised over the (batch, head) rows: bf16 on the decaying
 # cases (the first timed), fp32 on the growing one, its chunk_scan under
@@ -5289,27 +5321,152 @@ COMPILED_DEQUANT = {"m1_n16384_k16384": dict(block_M=8, block_N=128, block_K=128
 WORKSPACE_CASE, WORKSPACE_SMEM = "mla_prefill", 4096
 
 
-def quickstart_module():
-    """examples/torch_quickstart.py, loaded as a module (its program and
-    entry point)."""
+@functools.lru_cache(maxsize=None)
+def example_module(name: str):
+    """examples/<name>.py, loaded once as a module (its programs and entry
+    point): the same tile-library functions, so the same compiled kernels,
+    on every call."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
+def tile_language_programs():
+    """TILE_LANGUAGE's programs: atomics from 64 blocks into one tile, scans
+    along either axis of 64 tiles, two tile-library functions over 64 tiles
+    and a batched GEMM over two batch dims.  (This module postpones its
+    annotations, so each body gets its ``T.Tensor`` parameters by
+    ``__annotations__``.)"""
+    import torch
+
+    from repro_torch.core import lang as T
+
+    def prim(body, **params):
+        body.__annotations__ = params
+        return T.prim_func(body)
+
+    def atomic(update):
+        def Atomic(X, O):
+            with T.Kernel(64) as bx:
+                xs = T.alloc_shared((64, 256), "float32")
+                T.copy(X[bx, 0, 0], xs)
+                update(O[0, 0], xs)
+
+        return prim(Atomic, X=T.Tensor((64, 64, 256), "float32"),
+                    O=T.Tensor((64, 256), "float32"))
+
+    def cumsum(dim, reverse):
+        def Cumsum(X, O):
+            with T.Kernel(64) as bx:
+                xs = T.alloc_shared((64, 256), "float32")
+                cs = T.alloc_fragment((64, 256), "float32")
+                T.copy(X[bx, 0, 0], xs)
+                T.cumsum(xs, cs, dim=dim, reverse=reverse)
+                T.copy(cs, O[bx, 0, 0])
+
+        return prim(Cumsum, X=T.Tensor((64, 64, 256), "float32"),
+                    O=T.Tensor((64, 64, 256), "float32"))
+
+    def tile_lib(fn, name):
+        def Custom(X, O):
+            with T.Kernel(64) as bx:
+                xs = T.alloc_shared((32, 256), "float32")
+                ys = T.alloc_fragment((32, 256), "float32")
+                T.copy(X[bx, 0, 0], xs)
+                T.call_tile_lib(fn, ys, xs, name=name)
+                T.copy(ys, O[bx, 0, 0])
+
+        return prim(Custom, X=T.Tensor((64, 32, 256), "float32"),
+                    O=T.Tensor((64, 32, 256), "float32"))
+
+    def BatchedGemm(A, B, C):
+        with T.Kernel(8) as bx:
+            a = T.alloc_shared((4, 64, 64), "bfloat16")
+            b = T.alloc_shared((4, 64, 64), "bfloat16")
+            c = T.alloc_fragment((4, 64, 64), "float32")
+            T.copy(A[bx, 0, 0, 0], a)
+            T.copy(B[0, 0, 0], b)
+            T.clear(c)
+            T.gemm(a, b, c)
+            T.copy(c, C[bx, 0, 0, 0])
+
+    return {"atomic add": atomic(T.atomic_add), "atomic max": atomic(T.atomic_max),
+            "atomic min": atomic(T.atomic_min), "cumsum": cumsum(1, False),
+            "cumsum reverse": cumsum(0, True),
+            "softmax": tile_lib(lambda v: torch.softmax(v, dim=-1), "softmax"),
+            "doubling": tile_lib(lambda v: v * 2, "doubling"),
+            "batched gemm": prim(BatchedGemm, A=T.Tensor((8, 4, 64, 64), "bfloat16"),
+                                 B=T.Tensor((4, 64, 64), "bfloat16"),
+                                 C=T.Tensor((8, 4, 64, 64), "float32"))}
+
+
+def tile_language_inputs(torch, kern, device, seed=61):
+    """Seeded inputs of a TILE_LANGUAGE program: normal values (bf16 for the
+    GEMM), scaled by 3 so the softmax's exponents spread."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.randn(p.shape, generator=g, device=device) * 3).to(getattr(torch, p.dtype))
+            for p in kern.arg_params]
+
+
+def tile_language_plain(torch, name, args):
+    """``(plain, library)``: a TILE_LANGUAGE program's plain PyTorch version
+    and, where one PyTorch call computes the same function, that call (else
+    None), each a function of nothing."""
+    x = args[0]
+    if name.startswith("atomic"):
+        o = args[1]
+        red = {"atomic add": lambda: o + x.sum(0),
+               "atomic max": lambda: torch.maximum(o, x.amax(0)),
+               "atomic min": lambda: torch.minimum(o, x.amin(0))}[name]
+        return red, None
+    if name == "cumsum":
+        f = lambda: torch.cumsum(x, 2)  # noqa: E731
+        return f, f
+    if name == "cumsum reverse":
+        return lambda: x.flip(1).cumsum(1).flip(1), None
+    if name == "softmax":
+        f = lambda: torch.softmax(x, -1)  # noqa: E731
+        return f, f
+    if name == "doubling":
+        f = lambda: x * 2  # noqa: E731
+        return f, f
+    b = args[1]
+    f = lambda: torch.matmul(x.float(), b.float())  # noqa: E731  (fp32 out, as the program)
+    return f, f
+
+
+def tile_language_bound(name, args) -> tuple:
+    """The least time of a TILE_LANGUAGE program's work: its inputs read and
+    output written once against its operations (fp32 on the CUDA cores; the
+    GEMM's at the bf16 tensor-core rate)."""
+    x = args[0]
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    if name == "batched gemm":
+        b = args[1]
+        nbytes += x.shape[0] * b.shape[0] * x.shape[2] * b.shape[2] * 4
+        return bound(nbytes, 2.0 * x.numel() // x.shape[-1] * b.shape[-1] * x.shape[-1],
+                     BF16_FLOPS)
+    out = args[1].numel() * 4 if name.startswith("atomic") else x.numel() * 4
+    ops = {"softmax": 5.0}.get(name, 1.0) * x.numel()
+    return bound(nbytes + out, ops, HW_H100["peak_flops_fp32"])
+
+
 def compiler_kernels(torch, device):
     """Phase 17's programs compiled with ``target="cuda"`` (emitted text,
     built in phase 1 with the hand-written kernels): the quickstart's, each
-    PARITY_CASES entry's, M7's and qwen2-1.5B's flash forward's."""
+    PARITY_CASES entry's, TILE_LANGUAGE's, M7's, qwen2-1.5B's flash
+    forward's, the paged, MLA, SSD and dequant programs at their rows'
+    shapes, the custom kernel example's and tune_matmul's winner at M7."""
     from repro_torch import kernels as K
+    from repro_torch.core import autotune
     from repro_torch.core import compile as tl_compile
 
-    progs = {"quickstart": quickstart_module().Matmul}
-    progs.update((n, p) for n, p in K.parity_programs() if n not in CUDA_PENDING)
+    progs = {"quickstart": example_module("torch_quickstart").Matmul}
+    progs.update(K.parity_programs())
+    progs.update(tile_language_programs())
     m, n, k = GEMM_SHAPES["M7"]
     progs["M7"] = K.matmul_program(m, n, k, "bfloat16", "bfloat16", **COMPILED_M7)
     progs["flash"] = K.flash_attention_program(TRAIN_BATCH, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ,
@@ -5320,6 +5477,11 @@ def compiler_kernels(torch, device):
     out = {name: tl_compile(p, target="cuda") for name, p in progs.items()}
     out.update(mla_programs(K))
     out.update(ssd_programs(K))
+    # the custom kernel example's and tune_matmul's winners at M7, compiled
+    # here (their entry points find them in the compile cache)
+    ex = example_module("torch_custom_kernel")
+    out["custom kernel"], _ = autotune(ex.fused_dequant_gelu_matmul, ex.CONFIGS)
+    out["tuned M7"], _ = K.tune_matmul(m, n, k, "bfloat16", "bfloat16")
     return out
 
 
@@ -5783,7 +5945,7 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
         k.launches = 0
     rows, results = [], {}
     # the quickstart, through its own entry point on the card
-    qs = quickstart_module().main([])
+    qs = example_module("torch_quickstart").main([])
     assert qs["kernel"] is compiled["quickstart"] and qs["err"] <= FP32_ATOL
     launches = qs["kernel"].launches
     a, b = (torch.randn((512, 512), device=device) for _ in range(2))
@@ -5800,15 +5962,6 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
     # its module's inputs where it has a hook (valid block tables), every
     # output compared (the prefill's pools too)
     for name, prog in K.parity_programs():
-        if name in CUDA_PENDING:  # raises at compile time, before any CUDA call
-            try:
-                tl_compile(prog, target="cuda", use_cache=False)
-            except NotImplementedError as e:
-                if CUDA_PENDING[name] not in str(e) or "item 19" not in str(e):
-                    raise
-                log(f"[compiler] {name}: raises as it should: {e}")
-                continue
-            raise AssertionError(f"{name}: the CUDA backend took it; take it off CUDA_PENDING")
         kern = compiled[name]
         args = K.parity_inputs(name, prog, np.random.default_rng(53))
         if args is None:
@@ -5986,7 +6139,77 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
         r["bound"] = (r["bound_ms"], r["bound_by"])
         r["yardstick"] = "cuBLAS fp16 on a pre-dequantized weight"
         results[name] = r
-    del flush_buf
+    # the T language's last ops: each program against the reference
+    # interpreter on the card, timed beside its plain version
+    for name, prog in tile_language_programs().items():
+        kern = compiled[name]
+        args = tile_language_inputs(torch, kern, device)
+        got = kern(*args)  # the path's launch
+        want = tl_compile(prog, target="reference")(*args)
+        err = emitted_err(torch, kern, got, want, False)
+        log(f"[compiler] {TILE_LANGUAGE[name][0]}: {err:.2e} of max(1, max |reference|) "
+            f"against the reference interpreter on the card (limit {PARITY_ATOL:g})")
+        if not (err <= PARITY_ATOL and torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: the emitted kernel fails its limit ({err:.3e})")
+        plain, library = tile_language_plain(torch, name, args)
+        launches = kern.launches
+        results[name] = {"max_abs_err": (got.double() - want.double()).abs().max().item(),
+                         "ms": time_ms(torch, lambda: kern(*args)),
+                         "plain_ms": time_ms(torch, plain),
+                         "bound": tile_language_bound(name, args)}
+        results[name]["library_ms"] = None if library is None else results[name]["plain_ms"]
+        kern.launches = launches
+        del got, want, args
+    # the custom kernel example through its own entry point: autotuned, the
+    # winner found in the compile cache (built in phase 1)
+    ex = example_module("torch_custom_kernel")
+    res = ex.main([])
+    cust = compiled["custom kernel"]
+    if not (res["kernel"] is cust and res["err"] <= ex.LIMIT):
+        raise AssertionError(f"the custom kernel example fails: {res['err']:.3e} (limit "
+                             f"{ex.LIMIT:g}), its kernel the one built: {res['kernel'] is cust}")
+    w = res["winner"]
+    log(f"[compiler] examples/torch_custom_kernel.py: the autotuner's winner {w.config} "
+        f"(predicted {w.score * 1e3:.4f} ms); {res['err']:.2e} of max(1, max |oracle|) against "
+        f"gelu(ref.dequant_matmul) (limit {ex.LIMIT:g})")
+    a, bp = ex.inputs(device)
+    launches = cust.launches
+    results["custom kernel"] = {
+        "max_abs_err": res["max_abs_err"], "ms": time_ms(torch, lambda: cust(a, bp)),
+        "plain_ms": time_ms(torch, lambda: ex.gelu(ref.dequant_matmul(a, bp, "int4").t())),
+        "library_ms": None,
+        "bound": bound(a.numel() * 4 + bp.numel() + ex.M * ex.N * 4,
+                       2.0 * ex.M * ex.N * ex.K, HW_H100["peak_flops_fp32"])}
+    cust.launches = launches
+    # tune_matmul at M7: the winner's predicted and measured time beside
+    # row 13's and the fixed blocks' program
+    m, n, k = GEMM_SHAPES["M7"]
+    tuned, winner = K.tune_matmul(m, n, k, "bfloat16", "bfloat16")
+    if tuned is not compiled["tuned M7"]:
+        raise AssertionError("tune_matmul's winner is not the kernel built in phase 1")
+    g = torch.Generator(device=device).manual_seed(41)
+    a = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    b = torch.randn((k, n), generator=g, device=device).to(torch.bfloat16)
+    out = tuned(a, b)  # the path's launch
+    plain = ref.matmul(a, b, torch.bfloat16)
+    sigma = k ** 0.5 * rms(torch, a) * rms(torch, b)
+    units = lib_units(torch, out, plain, sigma)
+    if not (units <= BF16_ULPS and torch.isfinite(out).all()):
+        raise AssertionError(f"tuned M7: the emitted GEMM fails its limit ({units:.3g} units)")
+    launches = tuned.launches
+    results["tuned M7"] = {
+        "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+        "ms": time_ms(torch, lambda: tuned(a, b)), "row_ms": results["M7"]["row_ms"],
+        "plain_ms": results["M7"]["plain_ms"],
+        "library_ms": results["M7"]["library_ms"], "bound": results["M7"]["bound"]}
+    tuned.launches = launches
+    log(f"[compiler] tune_matmul M7 {(m, n, k)} bf16: winner {winner.config}, predicted "
+        f"{winner.score * 1e3:.4f} ms (compute {winner.compute_s * 1e3:.4f}, memory "
+        f"{winner.memory_s * 1e3:.4f}), measured {results['tuned M7']['ms']:.4f} ms; "
+        f"{units:.3g} units (lib_units; limit {BF16_ULPS:g}); beside row 13's "
+        f"{results['M7']['row_ms']:.4f} ms and the fixed blocks' {results['M7']['ms']:.4f} ms "
+        f"({COMPILED_M7})")
+    del a, b, out, plain, flush_buf
     # the workspace check: forced into the workspace against all shared
     for dtype, (names, ws, smem, all_smem) in workspace_check(torch, np, compiled,
                                                                device).items():
@@ -6004,7 +6227,8 @@ def compiler_phase(torch, np, ref, KERNELS, compiled, build_log, device, flash_r
         beside = (f", the hand-written row's {r['row_ms']:.4f} ms" if "row_ms" in r else "")
         yardstick = r.get("yardstick", "SDPA over the gathered, dequantized inputs")
         library = (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else
-                   f"library none (yardstick: {yardstick} {r['yardstick_ms']:.4f} ms)")
+                   f"library none (yardstick: {yardstick} {r['yardstick_ms']:.4f} ms)"
+                   if "yardstick_ms" in r else "library none")
         ws = ("" if not kern.workspace_bytes else
               f" and {kern.workspace_bytes} B of global workspace a block "
               f"({', '.join(kern.info.vmem.workspace())})")

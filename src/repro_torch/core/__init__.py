@@ -8,7 +8,8 @@ priority-ordered layout inference (infer.py, layout.py) on the card's
 geometry, a pass-based lowering pipeline (lowering/) producing a
 LoweredModule analysis artifact, and a pluggable backend registry
 (backends/: ``cuda`` — CUDA C++ for ``sm_90a`` — the ``reference`` trace
-interpreter over torch tensors, and ``sanitize``)::
+interpreter over torch tensors, and ``sanitize``).  ``autotune`` adds the
+cost-model config search over cached analyses, on the card's peaks::
 
     from repro_torch.core import compile, lang as T
     kernel = compile(program, target="cuda")        # on the card
@@ -16,6 +17,7 @@ interpreter over torch tensors, and ``sanitize``)::
 """
 
 from . import program as lang  # the "T" namespace:  from repro_torch.core import lang as T
+from .autotune import autotune, grid_configs
 from .backends import available_backends, get_backend, register_backend
 from .buffer import FRAGMENT, GLOBAL, SCALAR, SHARED, Region, TileBuffer
 from .compiler import clear_compile_cache, compile
@@ -43,6 +45,8 @@ from .schedule import Schedule, plan_vmem
 
 __all__ = [
     "lang",
+    "autotune",
+    "grid_configs",
     "FRAGMENT",
     "GLOBAL",
     "SCALAR",

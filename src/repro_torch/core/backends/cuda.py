@@ -54,10 +54,20 @@ says so, as torch's ``.to()`` does.  The source is built with ``nvcc``
 through ``kernels/build.py`` (its ``NVCC_FLAGS``, a plain C entry point,
 ctypes) at the first call, into ``kernels/_build/``.
 
-Not taken yet (ROADMAP Queue 1 item 19, second half): ``CustomOp``
-(``T.call_tile_lib``), ``AtomicOp``, ``CumsumOp`` and a batched ``T.gemm``.
-They raise ``NotImplementedError`` at compile time; nothing falls back to
-the reference interpreter.
+Every op of the T language is taken; nothing falls back to the reference
+interpreter, and nothing runs on the host between launches:
+
+* ``T.call_tile_lib`` (``CustomOp``): its torch function is rewritten into
+  the T language's own ops before emission (``tile_lib.lower_tile_lib``, on
+  a copy of the program that ``analyze`` then plans);
+* ``T.atomic_add`` / ``_max`` / ``_min`` (``AtomicOp``): one atomic an
+  element into the in-out window (``atomicAdd``; max and min by
+  ``atomicCAS`` on the bit pattern for floats, NaN winning as in
+  ``torch.maximum``);
+* ``T.cumsum`` (``CumsumOp``): a thread a line, accumulated in fp32 (fp64,
+  int64 for their types) and each prefix rounded to the source's type;
+* a batched ``T.gemm``: the leading dims, broadcast as ``torch.matmul``'s,
+  loop over the 2-D paths (``wmma`` or the CUDA cores).
 """
 from __future__ import annotations
 
@@ -85,7 +95,6 @@ from ..tile_ops import (
     AtomicOp,
     CopyOp,
     CumsumOp,
-    CustomOp,
     FillOp,
     GemmOp,
     ParallelOp,
@@ -95,10 +104,11 @@ from ..tile_ops import (
     SerialOp,
     TileOp,
 )
+from ..lowering import analyze
 from . import register_backend
+from .tile_lib import lower_tile_lib
 
 DEFAULT_THREADS = 128
-_PENDING = "ROADMAP Queue 1 item 19, second half"
 
 _CTYPE = {
     "float32": "float", "float64": "double", "bfloat16": "__nv_bfloat16",
@@ -131,9 +141,46 @@ __device__ __forceinline__ float tl_rbf16(float x) { return __bfloat162float(__f
 __device__ __forceinline__ float tl_rf16(float x) { return __half2float(__float2half_rn(x)); }
 """
 
-
-def _pending(what: str):
-    raise NotImplementedError(f"cuda backend: {what} is not supported yet ({_PENDING})")
+# torch.maximum / torch.minimum as atomics on a float type: compare-and-swap
+# on the bit pattern (16-bit types on their 16 bits), a NaN on either side
+# winning as in torch
+_CAS_ATOMICS = r"""
+template <bool Max, typename F> __device__ __forceinline__ bool tl_takes(F cur, F v) {
+  return (v != v && cur == cur) || (Max ? v > cur : v < cur);
+}
+template <bool Max> __device__ void tl_atomic_ext(float* p, float v) {
+  unsigned int* a = reinterpret_cast<unsigned int*>(p);
+  unsigned int old = *a, seen;
+  do {
+    seen = old;
+    if (!tl_takes<Max>(__uint_as_float(seen), v)) return;
+    old = atomicCAS(a, seen, __float_as_uint(v));
+  } while (old != seen);
+}
+template <bool Max> __device__ void tl_atomic_ext(__half* p, float v) {
+  unsigned short* a = reinterpret_cast<unsigned short*>(p);
+  const __half h = __float2half_rn(v);
+  unsigned short old = *a, seen;
+  do {
+    seen = old;
+    if (!tl_takes<Max>(__half2float(__ushort_as_half(seen)), __half2float(h))) return;
+    old = atomicCAS(a, seen, __half_as_ushort(h));
+  } while (old != seen);
+}
+template <bool Max> __device__ void tl_atomic_ext(__nv_bfloat16* p, float v) {
+  unsigned short* a = reinterpret_cast<unsigned short*>(p);
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  unsigned short old = *a, seen;
+  do {
+    seen = old;
+    if (!tl_takes<Max>(__bfloat162float(__ushort_as_bfloat16(seen)), __bfloat162float(h))) return;
+    old = atomicCAS(a, seen, __bfloat16_as_ushort(h));
+  } while (old != seen);
+}
+"""
+# the types an atomic takes: add by atomicAdd, max / min by atomicMax /
+# atomicMin on int32 and by tl_atomic_ext on the floats
+_ATOMIC_TYPES = ("float32", "float16", "bfloat16", "int32")
 
 
 def _in_memory(buf: TileBuffer) -> bool:
@@ -287,6 +334,7 @@ class _Emitter:
         # accumulators held in registers over the pipelined loop: buffer
         # name -> fragment array
         self.promoted: Dict[str, str] = {}
+        self.cas_atomics = False  # tl_atomic_ext called: its helpers go in the prelude
 
     # -- names ------------------------------------------------------------
     def var(self, name: str) -> str:
@@ -459,19 +507,23 @@ class _Emitter:
         n = math.prod(shape)
         e = self.fresh("e")
         self.src.open(f"for (int {e} = threadIdx.x; {e} < {n}; {e} += {self.threads})")
+        body(self.unravel(e, shape))
+        self.src.close()
+
+    def unravel(self, e: str, shape: Tuple[int, ...]) -> List[str]:
+        """Constants holding the coordinates of flat index ``e`` in a
+        row-major box of ``shape``."""
         coords, inner = [], 1
         for d, size in reversed(list(enumerate(shape))):
             q = f"{e} / {inner}" if inner > 1 else e
             coords.append("0" if size == 1 else q if d == 0 else f"({q}) % {size}")
             inner *= size
-        coords.reverse()
         names = []
-        for c in coords:
+        for c in reversed(coords):
             name = self.fresh("i")
             self.src(f"const int {name} = {c};")
             names.append(name)
-        body(names)
-        self.src.close()
+        return names
 
     # -- ops ----------------------------------------------------------------
     def ops(self, ops: List[TileOp]):
@@ -498,12 +550,10 @@ class _Emitter:
             self.loop(op.var, op.extent, op.body)
         elif isinstance(op, PipelinedOp):
             raise LoweringError("cuda backend: a nested T.Pipelined loop")
-        elif isinstance(op, CustomOp):
-            _pending(f"CustomOp {op.name!r} (T.call_tile_lib)")
         elif isinstance(op, AtomicOp):
-            _pending(f"AtomicOp atomic_{op.kind} into {op.dst.buffer.name!r}")
+            self.atomic(op)
         elif isinstance(op, CumsumOp):
-            _pending(f"CumsumOp over {op.src.name!r} (T.cumsum)")
+            self.cumsum(op)
         else:
             raise LoweringError(f"cuda backend: unhandled op {op!r}")
 
@@ -522,21 +572,23 @@ class _Emitter:
             out.append(s if collapsed else (next(it) if s == "0" else f"{s} + {next(it)}"))
         return out
 
+    def starts(self, region: ResolvedRegion, side: str) -> List[str]:
+        """A region's starts, each a literal or a constant bound here."""
+        names = []
+        for e in region.starts:
+            code = self.int_expr(e)
+            if code.lstrip("-").isdigit():
+                names.append(code)
+            else:
+                n = self.fresh(f"o{side}")
+                self.src(f"const int {n} = {code};")
+                names.append(n)
+        return names
+
     def copy(self, op: CopyOp):
         src, dst = op.src, op.dst
         self.touch([src.buffer], [dst.buffer])
-        starts = {}
-        for side, r in (("s", src), ("d", dst)):
-            names = []
-            for e in r.starts:
-                code = self.int_expr(e)
-                if code.lstrip("-").isdigit():
-                    names.append(code)
-                else:
-                    n = self.fresh(f"o{side}")
-                    self.src(f"const int {n} = {code};")
-                    names.append(n)
-            starts[side] = names
+        starts = {"s": self.starts(src, "s"), "d": self.starts(dst, "d")}
         tile = src.tile_shape
         vec = self.vector_width(op, tile)
         sp, dp = self.ptr[src.buffer.name], self.ptr[dst.buffer.name]
@@ -656,12 +708,73 @@ class _Emitter:
 
         self.strided(kept or (1,), body)
 
+    def atomic(self, op: AtomicOp):
+        """``dst op= src`` into the in-out window, one atomic an element:
+        blocks of the grid meet there in no order.  ``src`` is read in its
+        own row-major order against the region's (the interpreter's
+        reshape)."""
+        dst, src = op.dst, op.src
+        dt = dst.buffer.dtype
+        if dst.buffer.scope != GLOBAL or dt not in _ATOMIC_TYPES:
+            raise LoweringError(
+                f"cuda backend: T.atomic_{op.kind} into {dst.buffer.name} ({dst.buffer.scope} "
+                f"{dt}); atomics go to a global tensor of {', '.join(_ATOMIC_TYPES)}")
+        if math.prod(dst.sizes) != src.size:
+            raise LoweringError(f"cuda backend: T.atomic_{op.kind}: {src.name} {src.shape} "
+                                f"into a region of {dst.sizes}")
+        self.touch([src], [])
+        starts = self.starts(dst, "d")
+        n = math.prod(dst.sizes)
+        e = self.fresh("e")
+        self.src.open(f"for (int {e} = threadIdx.x; {e} < {n}; {e} += {self.threads})")
+        dc = [c if s == "0" else f"{s} + {c}" for s, c in zip(starts, self.unravel(e, dst.sizes))]
+        value = _load(self.ptr[src.name], self.offset(src, self.unravel(e, src.shape)), src.dtype)
+        at = f"&{self.ptr[dst.buffer.name]}[{self.offset(dst.buffer, dc)}]"
+        if op.kind == "add":
+            self.src(f"atomicAdd({at}, {_store_value(value, dt)});")
+        elif _is_float(dt):
+            self.cas_atomics = True
+            self.src(f"tl_atomic_ext<{'true' if op.kind == 'max' else 'false'}>({at}, "
+                     f"(float)({value}));")
+        else:
+            fn = {"max": "atomicMax", "min": "atomicMin"}[op.kind]
+            self.src(f"{fn}({at}, {_store_value(value, dt)});")
+        self.src.close()
+
+    def cumsum(self, op: CumsumOp):
+        """A scan along ``axis``, forward or reversed: a thread a line,
+        accumulated in fp32 (fp64, int64 for their types), each prefix
+        rounded to the source's type and stored in the destination's (as
+        ``torch.cumsum`` then the interpreter's cast)."""
+        src, dst, ax = op.src, op.dst, op.axis
+        if src.shape != dst.shape:
+            raise LoweringError(f"cuda backend: T.cumsum from {src.shape} into {dst.shape}")
+        self.touch([src], [dst])
+        kept = tuple(d for i, d in enumerate(src.shape) if i != ax)
+        n = src.shape[ax]
+        acc_t = ("double" if src.dtype == "float64" else "float" if _is_float(src.dtype)
+                 else "long long")
+
+        def body(c):
+            acc, r = self.fresh("acc"), self.fresh("r")
+            self.src(f"{acc_t} {acc} = 0;")
+            self.src.open(f"for (int {r} = {n - 1}; {r} >= 0; --{r})" if op.reverse
+                          else f"for (int {r} = 0; {r} < {n}; ++{r})")
+            full = list(c[:ax]) + [r] + list(c[ax:]) if kept else [r]
+            self.src(f"{acc} += {_load(self.ptr[src.name], self.offset(src, full), src.dtype)};")
+            self.src(f"{self.ptr[dst.name]}[{self.offset(dst, full)}] = "
+                     f"{_store_value(_round(acc, src.dtype), dst.dtype)};")
+            self.src.close()
+
+        self.strided(kept or (1,), body)
+
     # -- T.gemm --------------------------------------------------------------
     def gemm(self, op: GemmOp):
         a, b, c = op.a, op.b, op.c
-        if a.ndim != 2 or b.ndim != 2 or c.ndim != 2:
-            _pending(f"a batched T.gemm ({a.shape} @ {b.shape})")
-        if c.name in self.promoted:
+        if max(a.ndim, b.ndim, c.ndim) > 2:
+            self.touch([a, b, c], [c])
+            self.batched(op)
+        elif c.name in self.promoted:
             self.touch([a, b], [])
             self.wmma(op, self.promoted[c.name])
         elif self.takes_wmma(op):
@@ -672,26 +785,66 @@ class _Emitter:
             self.gemm_cuda_cores(op)
 
     def takes_wmma(self, op: GemmOp) -> bool:
-        return tensor_core_gemm(op) and all(
-            self.plan[x.name].offset % 32 == 0 for x in (op.a, op.b, op.c))
+        """A tensor-core GEMM whose every tile (each batch's too) starts at a
+        32-byte aligned address, as ``wmma`` loads and stores ask."""
+        from ..buffer import dtype_bits
 
-    def gemm_cuda_cores(self, op: GemmOp):
+        return tensor_core_gemm(op) and all(
+            self.plan[x.name].offset % 32 == 0
+            and all(st * dtype_bits(x.dtype) // 8 % 32 == 0 for st in self.strides(x)[:-2])
+            for x in (op.a, op.b, op.c))
+
+    def batched(self, op: GemmOp):
+        """A batched ``T.gemm``: a loop over the accumulator's leading dims,
+        the operands' broadcast as ``torch.matmul``'s (a missing or size-1
+        dim reads batch 0), each batch on the 2-D path its operands take."""
         a, b, c = op.a, op.b, op.c
+        lead = c.shape[:-2]
+        for x in (a, b):
+            xl = x.shape[:-2]
+            if len(xl) > len(lead) or any(s not in (1, t) for s, t in
+                                          zip(xl, lead[len(lead) - len(xl):])):
+                raise LoweringError(f"cuda backend: T.gemm {a.shape} @ {b.shape} into "
+                                    f"{c.shape}: the batch dims do not broadcast")
+        bt = self.fresh("bt")
+        self.src.open(f"for (int {bt} = 0; {bt} < {math.prod(lead)}; ++{bt})")
+        coords = self.unravel(bt, lead)
+        bases = {}
+        for x in (a, b, c):
+            skip = len(lead) - (x.ndim - 2)
+            terms = [f"{coords[skip + d]} * {st}" for d, (s, st) in
+                     enumerate(zip(x.shape[:-2], self.strides(x)[:-2])) if s != 1]
+            bases[x.name] = f"({self.ptr[x.name]} + {' + '.join(terms) or '0'})"
+        if self.takes_wmma(op):
+            self.wmma(op, bases=bases)
+        else:
+            self.gemm_cuda_cores(op, bases)
+        self.src.close()
+
+    def mat(self, x: TileBuffer, bases: Optional[Dict[str, str]]) -> Tuple[str, int]:
+        """A GEMM operand's matrix: its base pointer (a batch's, in a batched
+        GEMM) and its row stride."""
+        return (bases or {}).get(x.name, self.ptr[x.name]), self.strides(x)[-2]
+
+    def gemm_cuda_cores(self, op: GemmOp, bases: Optional[Dict[str, str]] = None):
+        a, b, c = op.a, op.b, op.c
+        (A, lda), (B, ldb), (C, ldc) = (self.mat(x, bases) for x in (a, b, c))
+        at = lambda r, k, ld: f"({r}) * {ld} + ({k})"  # noqa: E731
 
         def body(ij):
             i, j = ij
             acc, kk = self.fresh("acc"), self.fresh("k")
             self.src(f"float {acc} = 0.0f;")
             self.src.open(f"for (int {kk} = 0; {kk} < {op.k}; ++{kk})")
-            ao = self.offset(a, [kk, i] if op.transpose_a else [i, kk])
-            bo = self.offset(b, [j, kk] if op.transpose_b else [kk, j])
-            self.src(f"{acc} += (float)({_load(self.ptr[a.name], ao, a.dtype)}) * "
-                     f"(float)({_load(self.ptr[b.name], bo, b.dtype)});")
+            ao = at(kk, i, lda) if op.transpose_a else at(i, kk, lda)
+            bo = at(j, kk, ldb) if op.transpose_b else at(kk, j, ldb)
+            self.src(f"{acc} += (float)({_load(A, ao, a.dtype)}) * "
+                     f"(float)({_load(B, bo, b.dtype)});")
             self.src.close()
-            co = self.offset(c, [i, j])
-            cur = _load(self.ptr[c.name], co, c.dtype)
+            co = at(i, j, ldc)
+            cur = _load(C, co, c.dtype)
             value = _round(f"(float)({cur}) + {_round(acc, c.dtype)}", c.dtype)
-            self.src(f"{self.ptr[c.name]}[{co}] = {_store_value(value, c.dtype)};")
+            self.src(f"{C}[{co}] = {_store_value(value, c.dtype)};")
 
         self.strided((op.m, op.n), body)
 
@@ -731,14 +884,14 @@ class _Emitter:
         s.close()
         s.close()
 
-    def c_load(self, frag: str, c: TileBuffer) -> str:
-        ldc = self.strides(c)[0]
-        return (f"nvcuda::wmma::load_matrix_sync({frag}, {self.ptr[c.name]} + (_tm + _x * 16) * "
+    def c_load(self, frag: str, c: TileBuffer, bases: Optional[Dict[str, str]] = None) -> str:
+        C, ldc = self.mat(c, bases)
+        return (f"nvcuda::wmma::load_matrix_sync({frag}, {C} + (_tm + _x * 16) * "
                 f"{ldc} + _tn + _y * 16, {ldc}, nvcuda::wmma::mem_row_major);")
 
-    def c_store(self, frag: str, c: TileBuffer) -> str:
-        ldc = self.strides(c)[0]
-        return (f"nvcuda::wmma::store_matrix_sync({self.ptr[c.name]} + (_tm + _x * 16) * "
+    def c_store(self, frag: str, c: TileBuffer, bases: Optional[Dict[str, str]] = None) -> str:
+        C, ldc = self.mat(c, bases)
+        return (f"nvcuda::wmma::store_matrix_sync({C} + (_tm + _x * 16) * "
                 f"{ldc} + _tn + _y * 16, {frag}, {ldc}, nvcuda::wmma::mem_row_major);")
 
     def accumulators(self, frag: str, gm: int, gn: int, per_warp: Optional[int] = None) -> str:
@@ -746,17 +899,18 @@ class _Emitter:
         return (f"nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> "
                 f"{frag}{lead}[{gm}][{gn}];")
 
-    def wmma(self, op: GemmOp, frag: Optional[str] = None):
+    def wmma(self, op: GemmOp, frag: Optional[str] = None,
+             bases: Optional[Dict[str, str]] = None):
         """``C += A . B`` on the tensor cores.  Without ``frag`` each warp
         loads its accumulator tiles from shared memory and stores them back;
         with it (an accumulator promoted over the pipelined loop) they stay
-        in the warp's registers, ``frag[_g]``."""
+        in the warp's registers, ``frag[_g]``.  ``bases``: a batch's
+        matrices in a batched GEMM."""
         a, b, c = op.a, op.b, op.c
         et = _CTYPE[a.dtype]
-        lda, ldb = self.strides(a)[0], self.strides(b)[0]
+        (A, lda), (B, ldb) = self.mat(a, bases), self.mat(b, bases)
         la = "col_major" if op.transpose_a else "row_major"
         lb = "col_major" if op.transpose_b else "row_major"
-        A, B = self.ptr[a.name], self.ptr[b.name]
         a_tile = (f"{A} + _kk * {lda} + _tm + _x * 16" if op.transpose_a
                   else f"{A} + (_tm + _x * 16) * {lda} + _kk")
         b_tile = (f"{B} + (_tn + _y * 16) * {ldb} + _kk" if op.transpose_b
@@ -767,7 +921,7 @@ class _Emitter:
             acc = f"{frag}[_g]" if frag else "_c"
             if not frag:
                 s(self.accumulators("_c", gm, gn))
-                self.tiles(gm, gn, self.c_load("_c[_x][_y]", c))
+                self.tiles(gm, gn, self.c_load("_c[_x][_y]", c, bases))
             s.open(f"for (int _kk = 0; _kk < {op.k}; _kk += 16)")
             s(f"nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, {et}, "
               f"nvcuda::wmma::{la}> _a[{gm}];")
@@ -783,7 +937,7 @@ class _Emitter:
                                f"{acc}[_x][_y]);")
             s.close()
             if not frag:
-                self.tiles(gm, gn, self.c_store("_c[_x][_y]", c))
+                self.tiles(gm, gn, self.c_store("_c[_x][_y]", c, bases))
 
         self.each_group(op.m, op.n, body)
 
@@ -791,7 +945,8 @@ class _Emitter:
         """The tensor-core GEMMs of a pipelined loop body whose accumulator
         no other op of the body touches: their accumulator tiles can stay in
         registers for the whole loop."""
-        gemms = [op for op in body if isinstance(op, GemmOp) and self.takes_wmma(op)]
+        gemms = [op for op in body if isinstance(op, GemmOp) and self.takes_wmma(op)
+                 and op.c.ndim == 2]
         out, seen = [], set()
         for g in gemms:
             if g.c.name in seen:
@@ -886,7 +1041,8 @@ def emit_source(module: LoweredModule) -> Tuple[str, str, int]:
     prog = module.program
     for p in prog.params:
         if p.dtype not in _CTYPE:
-            _pending(f"dtype {p.dtype} of {p.name!r}")
+            raise LoweringError(f"cuda backend: {p.name} is {p.dtype}, a type the emitted "
+                                f"kernels do not take (one of {', '.join(_CTYPE)})")
     if not module.vmem.ok:
         raise ScheduleError(
             f"{prog.name}: shared-memory budget exceeded —\n{module.vmem.summary()}\n"
@@ -920,7 +1076,8 @@ extern "C" int {entry}({params}, void* stream) {{
     if ws:
         header += (f"// {ws} bytes of global workspace a block: "
                    f"{', '.join(module.vmem.workspace())}\n")
-    return header + _PRELUDE + "\n" + body + launch, entry, em.threads
+    prelude = _PRELUDE + (_CAS_ATOMICS if em.cas_atomics else "")
+    return header + prelude + "\n" + body + launch, entry, em.threads
 
 
 class CudaKernel(CompiledKernel):
@@ -1004,5 +1161,8 @@ class CudaKernel(CompiledKernel):
 
 @register_backend("cuda")
 def emit_cuda(module: LoweredModule) -> CompiledKernel:
+    program = lower_tile_lib(module.program)
+    if program is not module.program:  # the rewritten copy's own plan
+        module = analyze(program, module.schedule)
     source, entry, threads = emit_source(module)
     return CudaKernel(module, source, entry, threads)

@@ -571,12 +571,29 @@ def cumsum(src, dst, dim: int = -1, reverse: bool = False):
     _builder().record(CumsumOp(src, dst, dim, reverse))
 
 
-def atomic_add(dst, src):
-    d = as_region(dst)
+def _atomic(kind: str, dst, src):
     from .tile_ops import _resolve_against
 
-    dres = _resolve_against(d, as_region(src))
-    _builder().record(AtomicOp("add", dres, src))
+    dres = _resolve_against(as_region(dst), as_region(src))
+    _builder().record(AtomicOp(kind, dres, src))
+
+
+def atomic_add(dst, src):
+    """``dst += src`` element by element, ``dst`` a region of a global
+    tensor that blocks of the grid may share."""
+    _atomic("add", dst, src)
+
+
+def atomic_max(dst, src):
+    """``dst = torch.maximum(dst, src)`` element by element, as
+    ``atomic_add``."""
+    _atomic("max", dst, src)
+
+
+def atomic_min(dst, src):
+    """``dst = torch.minimum(dst, src)`` element by element, as
+    ``atomic_add``."""
+    _atomic("min", dst, src)
 
 
 def call_tile_lib(fn: Callable, output: TileBuffer, *inputs: TileBuffer, name=None):

@@ -115,11 +115,13 @@ class VmemPlan:
 
 def tensor_core_gemm(op) -> bool:
     """Whether a ``T.gemm`` runs on the tensor cores (``wmma`` m16n16k16):
-    16-bit operands of one type into an fp32 2-D accumulator, every extent a
-    multiple of 16.  Other GEMMs run on the CUDA cores."""
+    16-bit operands of one type into an fp32 accumulator (2-D, or batched
+    over the operands' leading dims), every extent a multiple of 16.  Other
+    GEMMs run on the CUDA cores."""
     a, b, c = op.a, op.b, op.c
     return (a.dtype == b.dtype and a.dtype in ("bfloat16", "float16")
-            and c.dtype == "float32" and a.ndim == b.ndim == c.ndim == 2
+            and c.dtype == "float32" and min(a.ndim, b.ndim) >= 2
+            and c.ndim == max(a.ndim, b.ndim)
             and op.m % 16 == 0 and op.n % 16 == 0 and op.k % 16 == 0)
 
 

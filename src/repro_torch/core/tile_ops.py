@@ -396,7 +396,7 @@ class SerialOp(TileOp):
 class AtomicOp(TileOp):
     """``T.atomic_{add,max,min}`` into a global region (an in-out window:
     the reference interpreter reads, combines and writes it back; the CUDA
-    backend does not take it yet)."""
+    backend issues one atomic an element)."""
 
     kind: str
     dst: ResolvedRegion
@@ -416,7 +416,7 @@ class CustomOp(TileOp):
     The paper injects C++/PTX via ``T.import_source``/``T.call_extern``/
     ``T.ptx``; here ``fn`` is a function on torch tensors that consumes and
     produces whole tiles (the reference interpreter calls it; the CUDA
-    backend does not take it yet).
+    backend rewrites it into T ops, ``backends/tile_lib.py``).
     """
 
     fn: Callable[..., Any]

@@ -21,7 +21,8 @@ FlashMLA's ``mla_program`` (the paper's Fig. 18) with the paged MLA decode
 their twins ``mla_paged_quant_program``, ``mla_prefill_quant_program``
 (``mla``), the Mamba-2 SSD's ``chunk_state_program`` and
 ``chunk_scan_program`` (``linear_attention``), the weight-only dequantized
-GEMM's ``dequant_matmul_program`` (``dequant_matmul``), and the attention
+GEMM's ``dequant_matmul_program`` (``dequant_matmul``), the autotuned
+``tune_matmul`` (``matmul``), and the attention
 core they compose (``attention_core``), each module with its
 ``PARITY_CASES``; :func:`parity_programs` and :func:`parity_inputs` are
 the registry of ``repro.kernels`` (repro/kernels/__init__.py:36-80) over
@@ -31,7 +32,7 @@ from . import (attention_core, dequant_matmul, flash_attention, linear_attention
 from .dequant_matmul import dequant_matmul_program
 from .flash_attention import flash_attention_program
 from .linear_attention import chunk_scan_program, chunk_state_program
-from .matmul import matmul_program
+from .matmul import matmul_program, tune_matmul
 from .mla import (mla_paged_program, mla_paged_quant_program, mla_prefill_program,
                   mla_prefill_quant_program, mla_program)
 from .paged_attention import paged_attention_program, paged_attention_quant_program
@@ -72,4 +73,5 @@ __all__ = ["ops", "ref", "attention_core", "matmul_program", "flash_attention_pr
            "prefill_attention_program", "prefill_attention_quant_program",
            "mla_program", "mla_paged_program", "mla_paged_quant_program", "mla_prefill_program",
            "mla_prefill_quant_program", "dequant_matmul_program", "chunk_state_program",
-           "chunk_scan_program", "parity_modules", "parity_programs", "parity_inputs"]
+           "chunk_scan_program", "tune_matmul", "parity_modules", "parity_programs",
+           "parity_inputs"]

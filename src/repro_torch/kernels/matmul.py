@@ -14,7 +14,8 @@ CUDA-core GEMM (fp32 FMAs, no TF32).  ``KERNEL.tc_launches`` counts the
 
 The same module holds ``matmul_program`` itself, the tile program that the
 port's compiler (``repro_torch.core``) compiles with ``target="cuda"`` or
-runs with ``target="reference"``, and its ``PARITY_CASES``.
+runs with ``target="reference"``, its ``PARITY_CASES``, and the cost-model
+autotuner's ``default_configs`` and ``tune_matmul`` (repro/kernels/matmul.py:71-97).
 """
 
 import ctypes
@@ -22,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..core import TileProgram
+from ..core import TileProgram, autotune, grid_configs
 from ..core import lang as T
 from . import ref
 from .build import Kernel, check
@@ -157,3 +158,32 @@ PARITY_CASES = [
 def parity_programs():
     for name, cfg in PARITY_CASES:
         yield name, matmul_program(**cfg)
+
+
+def default_configs(M: int, N: int, K: int):
+    """Candidate schedules for the cost-model autotuner (the JAX module's)."""
+    bms = [b for b in (256, 128, 64, 32) if M % b == 0]
+    bns = [b for b in (256, 128, 64, 32) if N % b == 0]
+    bks = [b for b in (512, 256, 128, 64, 32) if K % b == 0]
+    return grid_configs(
+        block_M=bms or [M],
+        block_N=bns or [N],
+        block_K=bks or [K],
+        num_stages=[2, 3],
+    )
+
+
+def tune_matmul(M, N, K, in_dtype="bfloat16", out_dtype="bfloat16", schedule=None):
+    """``matmul_program`` at the blocks the cost model scores best on the
+    card, compiled for it: ``(kernel, winner)``."""
+
+    def build(**cfg):
+        return matmul_program(M, N, K, in_dtype, out_dtype, "float32", **cfg)
+
+    return autotune(
+        build,
+        [c for c in default_configs(M, N, K)
+         if M % c["block_M"] == 0 and N % c["block_N"] == 0 and K % c["block_K"] == 0],
+        schedule=schedule,
+        cache_key=("matmul", M, N, K, in_dtype),
+    )

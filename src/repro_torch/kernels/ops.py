@@ -21,8 +21,9 @@ The routing rules are the reference's, kept as explicit rules:
 The device of the tensors is the only other rule: there is no backend knob,
 so a CUDA tensor on the kernels' path always reaches its kernel.  Nor are
 there the reference's TPU schedule knobs (``block_m/n/k``, ``num_stages``,
-``block_h``): each CUDA kernel picks its own tiles, and the knobs come back
-with the tile-DSL compiler.  Unlike the reference's ``dequant_matmul``
+``block_h``): each hand-written CUDA kernel picks its own tiles.  The knobs
+live with the tile-DSL compiler's programs (``matmul_program``'s blocks,
+``tune_matmul``, ``core.autotune``), which no call here compiles.  Unlike the reference's ``dequant_matmul``
 (ops.py:709-713), a scale layout the kernel cannot take raises rather than
 taking the plain path.
 

@@ -1300,14 +1300,13 @@ def _compiled_cases():
     """Every PARITY_CASES entry of the compiler's program modules (the
     paged decode and chunked prefill, fp and quantized, kernels/mla.py's
     FlashMLA, paged MLA decode and MLA chunked prefill, the SSD's chunk_state
-    and chunk_scan and the dequantized GEMM's int4, int8 and int2 among
-    them; not nf4, whose codebook lookup the backend does not take yet), in
+    and chunk_scan and the dequantized GEMM's int4, int8, int2 and nf4 (its
+    codebook lookup a T.call_tile_lib rewritten into T ops) among them), in
     fp32, and the GEMM's and flash forward's in bf16 (they take wmma for
     their 16-bit GEMMs)."""
     from repro_torch import kernels as K
 
-    out = [(name, "float32", prog) for name, prog in K.parity_programs()
-           if name not in cs.CUDA_PENDING]
+    out = [(name, "float32", prog) for name, prog in K.parity_programs()]
     out += [(name + " bf16", "bfloat16", K.matmul_program(**cfg, in_dtype="bfloat16",
                                                           out_dtype="bfloat16"))
             for name, cfg in K.matmul.PARITY_CASES]
@@ -1333,7 +1332,7 @@ def _case_inputs(name, prog, kern, seed, dev, dtype="float32"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(33))
+@pytest.mark.parametrize("case", range(34))
 def test_cuda_emitted_kernels_match_the_reference_interpreter(case):
     """On a card: each tile program compiled with ``target="cuda"`` (built
     by nvcc from the emitted text) against the ``reference`` interpreter on
@@ -1345,7 +1344,7 @@ def test_cuda_emitted_kernels_match_the_reference_interpreter(case):
     from repro_torch.core import compile as tl_compile
 
     cases = _compiled_cases()
-    assert len(cases) == 33
+    assert len(cases) == 34
     name, dtype, prog = cases[case]
     dev = torch.device("cuda")
     kern = tl_compile(prog, target="cuda", use_cache=False)
@@ -1532,3 +1531,115 @@ def test_cuda_emitted_ssd_and_dequant_match_plain_versions_at_ragged_shapes(case
         assert cs.lib_units(torch, got, want, sigma) <= cs.BF16_ULPS
         assert ("nvcuda::wmma::mma_sync" in kern.source) == (cfg["block_M"] == 16)
     assert kern.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(cs.TILE_LANGUAGE))
+def test_cuda_emitted_tile_language_matches_the_reference_interpreter(name):
+    """On a card: the T language's last ops (chip_smoke's TILE_LANGUAGE:
+    atomics from 64 blocks into one tile, scans along either axis, two
+    tile-library functions rewritten into T ops, a batched bf16 GEMM on
+    wmma) against the reference interpreter on the card, within 1e-5 of
+    max(1, max |reference|); an atomic's in-out tensor is a copy, the
+    caller's unwritten."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
+    from repro_torch.core import compile as tl_compile
+
+    dev = torch.device("cuda")
+    prog = cs.tile_language_programs()[name]
+    kern = tl_compile(prog, target="cuda", use_cache=False)
+    args = cs.tile_language_inputs(torch, kern, dev)
+    keep = [a.clone() for a in args]
+    got = kern(*args)
+    want = tl_compile(prog, target="reference")(*args)
+    assert kern.launches == 1 and all(torch.equal(a, k) for a, k in zip(args, keep))
+    assert cs.emitted_err(torch, kern, got, want, False) <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_cuda_emitted_batched_gemm_on_the_cuda_cores_broadcasts_b():
+    """On a card: an fp32 batched T.gemm (the CUDA cores) with B shared by
+    the batches, against the reference interpreter and torch.matmul."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
+    from repro_torch.core import compile as tl_compile
+    from repro_torch.core import lang as T
+
+    @T.prim_func
+    def BatchedGemm(A: T.Tensor((2, 4, 32, 16), "float32"), B: T.Tensor((16, 48), "float32"),
+                    C: T.Tensor((2, 4, 32, 48), "float32")):
+        with T.Kernel(2) as bx:
+            a = T.alloc_shared((4, 32, 16), "float32")
+            b = T.alloc_shared((16, 48), "float32")
+            c = T.alloc_fragment((4, 32, 48), "float32")
+            T.copy(A[bx, 0, 0, 0], a)
+            T.copy(B[0, 0], b)
+            T.clear(c)
+            T.gemm(a, b, c)
+            T.copy(c, C[bx, 0, 0, 0])
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn((2, 4, 32, 16), generator=g, device=dev)
+    b = torch.randn((16, 48), generator=g, device=dev)
+    kern = tl_compile(BatchedGemm, target="cuda", use_cache=False)
+    got = kern(a, b)
+    assert "wmma" not in kern.source
+    torch.testing.assert_close(got, tl_compile(BatchedGemm, target="reference")(a, b),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, torch.matmul(a, b), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_custom_kernel_example_and_tune_matmul():
+    """On a card: examples/torch_custom_kernel.py through its main (the
+    autotuner's winner compiled for the card, within its limit of its
+    oracle), and tune_matmul at a small shape against the plain GEMM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
+    from repro_torch.kernels import tune_matmul
+
+    res = cs.example_module("torch_custom_kernel").main([])
+    assert res["kernel"].backend == "cuda" and res["kernel"].launches >= 1
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randn((256, 512), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((512, 384), generator=g, device=dev).to(torch.bfloat16)
+    kern, winner = tune_matmul(256, 384, 512, "bfloat16", "bfloat16")
+    out = kern(a, b)
+    sigma = 512 ** 0.5 * cs.rms(torch, a) * cs.rms(torch, b)
+    assert winner.feasible
+    assert cs.lib_units(torch, out, ref.matmul(a, b, torch.bfloat16), sigma) <= cs.BF16_ULPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int32"])
+@pytest.mark.parametrize("kind", ["add", "max", "min"])
+def test_cuda_emitted_atomics_of_each_type(dtype, kind):
+    """On a card: T.atomic_add / _max / _min into a bf16, fp16 or int32
+    tensor (the 16-bit types' own atomicAdd and a 16-bit compare-and-swap;
+    int32's atomicAdd / atomicMax / atomicMin) from 8 blocks, on small
+    integers, so every order of the sums is exact: equal to the reference
+    interpreter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the emitted kernels have no CPU mode)")
+    from repro_torch.core import compile as tl_compile
+    from repro_torch.core import lang as T
+
+    update = getattr(T, f"atomic_{kind}")
+
+    @T.prim_func
+    def Atomic(X: T.Tensor((8, 16, 64), dtype), O: T.Tensor((16, 64), dtype)):
+        with T.Kernel(8) as bx:
+            xs = T.alloc_shared((16, 64), dtype)
+            T.copy(X[bx, 0, 0], xs)
+            update(O[0, 0], xs)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, o = (torch.randint(-8, 8, shape, generator=g, device=dev).to(getattr(torch, dtype))
+            for shape in ((8, 16, 64), (16, 64)))
+    kern = tl_compile(Atomic, target="cuda", use_cache=False)
+    assert ("tl_atomic_ext" in kern.source) == (kind != "add" and dtype != "int32")
+    assert torch.equal(kern(x, o), tl_compile(Atomic, target="reference")(x, o))

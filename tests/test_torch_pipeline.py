@@ -22,9 +22,11 @@ core``) against the JAX package's (``tests/test_pipeline.py``).
 * the CUDA backend here, without ``nvcc`` or a card: its text exists for
   every case, is identical for two independent traces, asks for the plan's
   shared memory, keeps Python's floor rule, reads block tables from int32
-  operands and seeds in-out outputs from their inputs; the ops it does not
-  take yet raise at compile time naming ROADMAP Queue 1 item 19 (nf4's
-  codebook lookup among them); a ``cuda`` kernel called on CPU tensors
+  operands and seeds in-out outputs from their inputs; it takes every op of
+  the T language (``T.call_tile_lib`` rewritten into T ops, nf4's codebook
+  lookup among them, atomics, ``T.cumsum``, a batched ``T.gemm``), and a
+  tile-library function with an aten op outside the rewrite's set raises at
+  compile time without running; a ``cuda`` kernel called on CPU tensors
   raises; the SSD programs at mamba2-2.7B's training shape and the
   dequantized GEMM at Fig. 15's shape plan within the block's shared memory.
 """
@@ -59,6 +61,7 @@ from repro_torch.core import (
     register_backend,
 )
 from repro_torch.core import lang as T
+from repro_torch.core.backends.tile_lib import lower_tile_lib
 from repro_torch.core.lowering import (
     LOOP,
     PIPELINE,
@@ -655,9 +658,9 @@ def _cuda(prog):
     return tl_compile(prog, target="cuda", use_cache=False)
 
 
-# the cases the CUDA backend emits: all but nf4, whose codebook lookup is a
-# T.call_tile_lib (test_cuda_backend_raises_for_nf4s_codebook_lookup)
-EMITS = sorted(set(PAIRS) - {"dequant_matmul_nf4"})
+# the cases the CUDA backend emits: all of them (nf4's codebook lookup, a
+# T.call_tile_lib, rewritten into T ops)
+EMITS = sorted(PAIRS)
 
 
 @pytest.mark.parametrize("name", EMITS)
@@ -715,7 +718,11 @@ def test_cuda_source_types_and_literals():
     assert "nvcuda::wmma::mma_sync" in src  # Q.K^T on the tensor cores
 
 
-def _unsupported():
+def _last_ops():
+    """Programs of the T language's last four ops: a tile-library function
+    (``T.call_tile_lib``), an atomic add, a scan and a batched GEMM (fp32,
+    on the CUDA cores, and bf16, on ``wmma``)."""
+
     @T.prim_func
     def Custom(X: T.Tensor((8, 32), "float32"), O: T.Tensor((8, 32), "float32")):
         with T.Kernel(1) as bx:
@@ -741,29 +748,71 @@ def _unsupported():
             T.cumsum(xs, cs, dim=1)
             T.copy(cs, O[0, 0])
 
-    return {"CustomOp 'double'": Custom, "AtomicOp atomic_add": Atomic, "CumsumOp": Cumsum}
+    return {"CustomOp 'double'": Custom, "AtomicOp atomic_add": Atomic, "CumsumOp": Cumsum,
+            "batched T.gemm fp32": batched_gemm_program("float32"),
+            "batched T.gemm bf16": batched_gemm_program("bfloat16")}
 
 
-@pytest.mark.parametrize("what", sorted(_unsupported()))
-def test_cuda_backend_raises_for_what_it_does_not_take_yet(what):
-    prog = _unsupported()[what]
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(what) + ".*ROADMAP Queue 1 item 19, second half"):
-        _cuda(prog)
-    # the reference interpreter still runs it: nothing falls back silently
+def batched_gemm_program(dtype, T=T):
+    """C[g, h] = A[g, h] . B[h] over (2, 4) batches of 32 x 16 by 16 x 32:
+    A's batch a grid cell's, B's broadcast over the cells."""
+
+    @T.prim_func
+    def BatchedGemm(A: T.Tensor((2, 4, 32, 16), dtype), B: T.Tensor((4, 16, 32), dtype),
+                    C: T.Tensor((2, 4, 32, 32), "float32")):
+        with T.Kernel(2) as bx:
+            a = T.alloc_shared((4, 32, 16), dtype)
+            b = T.alloc_shared((4, 16, 32), dtype)
+            c = T.alloc_fragment((4, 32, 32), "float32")
+            T.copy(A[bx, 0, 0, 0], a)
+            T.copy(B[0, 0, 0], b)
+            T.clear(c)
+            T.gemm(a, b, c)
+            T.copy(c, C[bx, 0, 0, 0])
+
+    return BatchedGemm
+
+
+@pytest.mark.parametrize("what", sorted(_last_ops()))
+def test_cuda_backend_emits_the_last_ops(what):
+    """Each of the T language's last four ops emits, deterministically, a
+    kernel that asks for its program's shared-memory plan; the reference
+    interpreter still runs the program (nothing falls back)."""
+    prog = _last_ops()[what]
+    k1, k2 = _cuda(prog), _cuda(_last_ops()[what])
+    assert k1.source and k1.source == k2.source
+    m = analyze(lower_tile_lib(prog))
+    assert k1.smem_bytes == m.vmem.total_bytes
+    assert f", {m.vmem.total_bytes}, " in k1.source and "NotImplemented" not in k1.source
     assert tl_compile(prog, target="reference").backend == "reference"
 
 
-def test_cuda_backend_raises_for_nf4s_codebook_lookup():
-    """dequant_matmul_nf4's codebook lookup is a ``T.call_tile_lib``: the
-    CUDA backend raises item 19's message before any CUDA call, and the
-    reference interpreter runs the program, equal to the plain version."""
+def test_cuda_backend_emits_each_ops_code():
+    """What each op becomes: the tile-library call a ``T.Parallel`` over its
+    output, the atomic an ``atomicAdd`` into the in-out window (seeded from
+    the caller's tensor), the scan a thread a line, the fp32 batched GEMM a
+    loop over the batches on the CUDA cores and the bf16 one on ``wmma``."""
+    ops = _last_ops()
+    custom = _cuda(ops["CustomOp 'double'"]).source
+    assert "] * (float)(2))" in custom and "tl_atomic" not in custom
+    atomic = _cuda(ops["AtomicOp atomic_add"])
+    assert "atomicAdd(&g1[" in atomic.source and atomic.aliased == ("O",)
+    scan = _cuda(ops["CumsumOp"]).source
+    assert "for (int _r" in scan and "+= s0[" in scan
+    f32, bf16 = (_cuda(ops[f"batched T.gemm {t}"]).source for t in ("fp32", "bf16"))
+    assert "for (int _bt" in f32 and "wmma" not in f32
+    assert "for (int _bt" in bf16 and "nvcuda::wmma::mma_sync" in bf16
+
+
+def test_nf4_program_emits_and_its_interpreter_run_equals_the_plain_version():
+    """dequant_matmul_nf4's codebook lookup (a ``T.call_tile_lib``) is
+    emitted as a select tree over the 16 codebook values, no call to torch;
+    the reference interpreter runs the program, equal to the plain
+    version."""
     cfg = dict(dequant.PARITY_CASES)["dequant_matmul_nf4"]
     prog = dequant.dequant_matmul_program(**cfg)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape("CustomOp 'nf4_decode' (T.call_tile_lib)")
-                       + ".*ROADMAP Queue 1 item 19, second half"):
-        _cuda(prog)
+    src = _cuda(prog).source
+    assert src.count(" ? ") >= 15 and "-0.6961928009986877f" in src
     rng = np.random.default_rng(3)
     a = torch.from_numpy(rng.standard_normal((cfg["M"], cfg["K"])).astype(np.float32))
     b = torch.from_numpy(rng.integers(-128, 128, (cfg["N"], cfg["K"] // 2)).astype(np.int8))

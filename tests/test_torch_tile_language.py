@@ -5,8 +5,11 @@ where the JAX tests read the TPU's (a warp of 32 lanes, 16-byte vectors,
 the m16n8k tensor-core tile, a 232,448-byte shared-memory budget).  Programs
 run through ``target="reference"`` (the trace interpreter over torch
 tensors); the tests that compared the Pallas lowering compare the JAX
-package's Pallas program in interpret mode instead.  The autotuner is not
-ported yet (ROADMAP Queue 1 item 19, second half)."""
+package's Pallas program in interpret mode instead.  The autotuner's tests
+are tests/test_torch_autotune.py.  The ops the JAX package's language lacks
+(``T.atomic_max`` / ``T.atomic_min``) are held to its IR's ``AtomicOp``
+through its Pallas lowering; ``T.call_tile_lib`` as the CUDA backend emits
+it (its function rewritten into T ops) is held to the function itself."""
 import numpy as np
 import pytest
 import torch
@@ -26,6 +29,7 @@ from repro_torch.core import lang as T
 from repro_torch.core.expr import ConstExpr, VarExpr, evaluate, linear_decompose, static_eval
 from repro_torch.core.layout import IterVar, Layout
 from repro_torch.core.schedule import physical_tile_shape, swizzle_decode
+from repro_torch.core.backends.tile_lib import lower_tile_lib
 
 
 @pytest.fixture(autouse=True)
@@ -44,6 +48,80 @@ def rng():
 def _run(kernel, *arrays):
     out = kernel(*[torch.from_numpy(np.ascontiguousarray(a)) for a in arrays])
     return out.numpy()
+
+
+def _atomic_program(L, update):
+    """Four grid cells each combining a (16, 128) tile into one output, in
+    either package's language (``L``); ``update(dst, src)`` records the
+    atomic."""
+
+    @L.prim_func
+    def Atomic(X: L.Tensor((4, 16, 128), "float32"), O: L.Tensor((16, 128), "float32")):
+        with L.Kernel(4) as bx:
+            xs = L.alloc_shared((16, 128), "float32")
+            L.copy(X[bx, 0, 0], xs)
+            update(O[0, 0], xs)
+
+    return Atomic
+
+
+def _cumsum_program(L, dim, reverse):
+    @L.prim_func
+    def Cumsum(X: L.Tensor((2, 16, 64), "float32"), O: L.Tensor((2, 16, 64), "float32")):
+        with L.Kernel(2) as bx:
+            xs = L.alloc_shared((16, 64), "float32")
+            cs = L.alloc_fragment((16, 64), "float32")
+            L.copy(X[bx, 0, 0], xs)
+            L.cumsum(xs, cs, dim=dim, reverse=reverse)
+            L.copy(cs, O[bx, 0, 0])
+
+    return Cumsum
+
+
+def _batched_gemm_program(L, b_shape):
+    """A (2, 4, 32, 16) batch a cell times B (``b_shape``: (16, 32) shared by
+    the batches, or (4, 16, 32) one a batch) into C (2, 4, 32, 32)."""
+
+    @L.prim_func
+    def BatchedGemm(A: L.Tensor((2, 4, 32, 16), "float32"), B: L.Tensor(b_shape, "float32"),
+                    C: L.Tensor((2, 4, 32, 32), "float32")):
+        with L.Kernel(2) as bx:
+            a = L.alloc_shared((4, 32, 16), "float32")
+            b = L.alloc_shared(b_shape, "float32")
+            c = L.alloc_fragment((4, 32, 32), "float32")
+            L.copy(A[bx, 0, 0, 0], a)
+            L.copy(B[(0,) * len(b_shape)], b)
+            L.clear(c)
+            L.gemm(a, b, c)
+            L.copy(c, C[bx, 0, 0, 0])
+
+    return BatchedGemm
+
+
+def _tile_lib_program(fn, name):
+    @T.prim_func
+    def Custom(X: T.Tensor((8, 128), "float32"), O: T.Tensor((8, 128), "float32")):
+        with T.Kernel(1) as bx:
+            xs = T.alloc_shared((8, 128), "float32")
+            sm = T.alloc_fragment((8, 128), "float32")
+            T.copy(X[0, 0], xs)
+            T.call_tile_lib(fn, sm, xs, name=name)
+            T.copy(sm, O[0, 0])
+
+    return Custom
+
+
+# the functions the repo passes to T.call_tile_lib, but nf4's (a program of
+# its own): the doubling of tests/test_torch_pipeline.py, the softmax below,
+# the torch custom-kernel example's gelu; and one through a comparison, a
+# select, a row minimum, a reshape and a permute (index maps, no copies)
+_TILE_LIB = {
+    "double": lambda v: v * 2,
+    "softmax": lambda v: torch.softmax(v, dim=-1),
+    "gelu": lambda x: 0.5 * x * (1 + torch.tanh(0.7978845608 * (x + 0.044715 * x**3))),
+    "permuted": lambda v: torch.where(v > 0, v, -v.amin(-1, keepdim=True))
+    .reshape(8, 2, 64).permute(1, 0, 2).reshape(8, 128),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +528,116 @@ class TestMoreOps:
         x = rng.standard_normal((8, 128), dtype=np.float32)
         e = np.exp(x)
         np.testing.assert_allclose(_run(kern, x), e / e.sum(-1, keepdims=True), atol=1e-5)
+
+    @pytest.mark.parametrize("kind", ["max", "min"])
+    def test_atomic_max_and_min_against_the_jax_package(self, rng, kind):
+        """``T.atomic_max`` / ``T.atomic_min`` (the JAX package's IR has the
+        ops, its language only ``atomic_add``): the port's interpreter equals
+        the JAX package's Pallas lowering in interpret mode and numpy, the
+        caller's tensor unwritten."""
+        from repro.core import Schedule as JSchedule
+        from repro.core import compile as jcompile
+        from repro.core import lang as JT
+        from repro.core.program import _builder as jbuilder
+        from repro.core.tile_ops import AtomicOp as JAtomicOp
+        from repro.core.tile_ops import _resolve_against, as_region
+
+        def jatomic(dst, src):
+            jbuilder().record(JAtomicOp(kind, _resolve_against(as_region(dst), as_region(src)),
+                                        src))
+
+        port = _atomic_program(T, getattr(T, f"atomic_{kind}"))
+        jprog = _atomic_program(JT, jatomic)
+        x = rng.standard_normal((4, 16, 128), dtype=np.float32)
+        o0 = rng.standard_normal((16, 128), dtype=np.float32)
+        keep = o0.copy()
+        want = np.asarray(jcompile(jprog, JSchedule(interpret=True))(x, o0))
+        got = _run(tl_compile(port, target="reference"), x, o0)
+        np.testing.assert_array_equal(got, want)
+        combine = np.maximum if kind == "max" else np.minimum
+        np.testing.assert_array_equal(got, combine.reduce([o0, *x]))
+        np.testing.assert_array_equal(o0, keep)
+
+    @pytest.mark.parametrize("dim,reverse", [(1, False), (1, True), (0, True)])
+    def test_cumsum_against_the_jax_package(self, rng, dim, reverse):
+        """``T.cumsum`` forward and reversed, along either axis: the port's
+        interpreter against the JAX package's Pallas lowering (interpret
+        mode) and numpy."""
+        from repro.core import Schedule as JSchedule
+        from repro.core import compile as jcompile
+        from repro.core import lang as JT
+
+        x = rng.standard_normal((2, 16, 64), dtype=np.float32)
+        got = _run(tl_compile(_cumsum_program(T, dim, reverse), target="reference"), x)
+        want = np.asarray(jcompile(_cumsum_program(JT, dim, reverse),
+                                   JSchedule(interpret=True))(x))
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        flip = (lambda a: np.flip(a, dim + 1)) if reverse else (lambda a: a)
+        np.testing.assert_allclose(got, flip(np.cumsum(flip(x), dim + 1)), atol=1e-5)
+
+    def test_batched_gemm_against_the_jax_package(self, rng):
+        """A batched ``T.gemm`` with B shared by the batches: the port's
+        interpreter against the JAX package's Pallas lowering (interpret
+        mode); with B one a batch, against ``numpy.matmul``'s broadcast (the
+        JAX package's ``dot_general`` with no batch dims takes that case's
+        outer product over both batch axes, ROADMAP Queue 3)."""
+        from repro.core import Schedule as JSchedule
+        from repro.core import compile as jcompile
+        from repro.core import lang as JT
+
+        a = rng.standard_normal((2, 4, 32, 16), dtype=np.float32)
+        b = rng.standard_normal((16, 32), dtype=np.float32)
+        got = _run(tl_compile(_batched_gemm_program(T, (16, 32)), target="reference"), a, b)
+        want = np.asarray(jcompile(_batched_gemm_program(JT, (16, 32)),
+                                   JSchedule(interpret=True))(a, b))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        bb = rng.standard_normal((4, 16, 32), dtype=np.float32)
+        got = _run(tl_compile(_batched_gemm_program(T, (4, 16, 32)), target="reference"), a, bb)
+        np.testing.assert_allclose(got, np.matmul(a, bb), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("name", ["nf4", *_TILE_LIB])
+    def test_tile_lib_rewrite_equals_the_function(self, rng, name):
+        """``T.call_tile_lib`` as the CUDA backend emits it: the program with
+        its function rewritten into T ops (``lower_tile_lib``), run through
+        the reference interpreter, equals the program whose interpreter calls
+        the function: nf4's codebook lookup bit for bit, the others within
+        1e-6."""
+        if name == "nf4":
+            from repro_torch.kernels import dequant_matmul as dequant
+
+            cfg = dict(dequant.PARITY_CASES)["dequant_matmul_nf4"]
+            prog = dequant.dequant_matmul_program(**cfg)
+            args = (rng.standard_normal((cfg["M"], cfg["K"]), dtype=np.float32),
+                    rng.integers(-128, 128, (cfg["N"], cfg["K"] // 2)).astype(np.int8))
+        else:
+            prog = _tile_lib_program(_TILE_LIB[name], name)
+            args = (rng.standard_normal((8, 128), dtype=np.float32) * 3,)
+        low = lower_tile_lib(prog)
+        assert low is not prog and not any(type(op).__name__ == "CustomOp" for op in low._walk())
+        want = _run(tl_compile(prog, target="reference"), *args)
+        got = _run(tl_compile(low, target="reference"), *args)
+        if name == "nf4":
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+    def test_tile_lib_op_outside_the_set_raises_at_compile_time(self):
+        """A tile-library function with an aten op the rewrite does not take
+        (``torch.sort``) raises ``LoweringError`` naming the op and the
+        ``CustomOp`` when compiled for the card; it was only traced, over
+        fake tensors, never run on data."""
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        seen = []
+
+        def sorted_rows(v):
+            seen.append(type(v))
+            return torch.sort(v, dim=-1).values
+
+        prog = _tile_lib_program(sorted_rows, "sorted_rows")
+        with pytest.raises(LoweringError, match=r"custom op sorted_rows .*aten\.sort"):
+            tl_compile(prog, target="cuda", use_cache=False)
+        assert seen and all(issubclass(t, FakeTensor) for t in seen)
 
     def test_reference_backend_flash_attention(self, rng):
         """The port's trace interpreter agrees with the JAX package's Pallas
