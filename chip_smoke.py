@@ -95,14 +95,17 @@ no phase is skipped):
    to the activations' type, as the kernel multiplies it); MLA within 2
    bf16 ulps with the attention controls; planted faults (a K tile dropped,
    B's bytes read as a K-major matrix, each byte's code order swapped) must
-   fail them; every Table 2 M shape must take the GEMM's wgmma path, and
+   fail them; every Table 2 M shape must take the GEMM's wgmma path, every
+   Fig. 15 case the dequantized GEMM's wgmma walk (its fp32 and odd-K
+   cases the CUDA cores), and
    every bf16 Fig. 14 shape, two latent heads at a ragged length and
    deepseek-v2-lite-16B's 16 heads over one latent head at a ragged length
    FlashMLA's (``KERNEL.tc_launches``); FlashMLA's device cost of a 32-key
    tile is read from its two b64 shapes.  Each is timed (median
    and spread) beside its plain version and ``torch.matmul`` (GEMM), cuBLAS
    fp16 on a weight dequantized beforehand (the paper's Fig. 15 baseline, a
-   yardstick) or SDPA with a latent head's heads as its query rows (MLA);
+   yardstick; each Fig. 15 cell also beside its time before the walk,
+   DEQUANT_EARLIER_MS) or SDPA with a latent head's heads as its query rows (MLA);
 3. serve full-width qwen2-1.5B (bf16, seeded random weights; its serving
    depth cut to 4 of 28 layers to keep the script within half its time
    limit) through ``ServingEngine`` with its defaults (paged KV, chunked prefill,
@@ -2879,6 +2882,16 @@ MLA_SHAPES = {
     "b64_s4096": (64, 128, 1, 4096, 512, 64),
     "b128_s8192": (128, 128, 1, 8192, 512, 64),
 }
+# Row 14 at each Fig. 15 cell before its redesign on wgmma (the mma.sync
+# tiles and the decode-shape kernel): H100 80GB HBM3 at 700 W, this script's
+# library phase.  Printed beside the walk's times.
+DEQUANT_EARLIER_MS = {f"{shape} {fmt} x {act}": t for shape, times in (
+    ("m1_n16384_k16384", (0.1221, 0.0770, 0.0992, 0.1016, 0.0775, 0.0836)),
+    ("m1_n8192_k28672", (0.1123, 0.0815, 0.0805, 0.0947, 0.0723, 0.0910)),
+    ("m256_n8192_k8192", (0.2500, 0.2291, 0.2215, 0.2469, 0.2681, 0.2781)))
+    for (fmt, act), t in zip(DEQUANT_ROWS, times)}
+# the dequantized GEMM's ragged cases that must keep the CUDA cores
+DEQUANT_NO_WGMMA = ("fp32 m256 int4 x float32", "odd K int4 x float16")
 # the row of each kernel that goes into the result line
 LIBRARY_ROWS = {"matmul": "M7 bfloat16", "dequant_matmul": "m1_n16384_k16384 int4 x float16",
                 "mla": "b128_s8192 bfloat16"}
@@ -3066,11 +3079,14 @@ def check_dequant(torch, ops, ref, label, shape, fmt, adtype, group, flush, time
                                          out_dtype=out_dt)
     else:
         run = lambda: program(a, bq).t()  # noqa: E731
+    kern = ops.KERNELS["dequant_matmul"]
+    tc_before = kern.tc_launches
     out = run()  # counted
     plain = ref.dequant_matmul(a, bq, fmt, scales, grp, out_dt)
     res = {"kernel": "dequant_matmul", "label": f"{label} {fmt} x {adtype}", "shape": shape,
            "dtype": dt,
-           "max_abs_err": (out.float() - plain.float()).abs().max().item()}
+           "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+           "wgmma_launches": kern.tc_launches - tc_before}
     swapped = None
     if fmt != "int8":
         swapped = ref.dequant_matmul(a, nibbles_swapped(torch, bq, fmt), fmt, scales, grp, out_dt)
@@ -3097,14 +3113,13 @@ def check_dequant(torch, ops, ref, label, shape, fmt, adtype, group, flush, time
             res["faults"] = {"code order swapped": lib_units(torch, swapped, plain, sigma)}
     del out, plain, swapped
     if timed:
-        kern = ops.KERNELS["dequant_matmul"]
-        n_before = kern.launches, None if program is None else program.launches
+        n_before = kern.launches, kern.tc_launches, None if program is None else program.launches
         res["ms"] = time_ms(torch, run, flush=flush)
         if program is not None:
             res["row_ms"] = time_ms(torch, lambda: ops.dequant_matmul(
                 a, bq, fmt=fmt, scales=scales, out_dtype=out_dt), flush=flush)
-            program.launches = n_before[1]
-        kern.launches = n_before[0]
+            program.launches = n_before[2]
+        kern.launches, kern.tc_launches = n_before[:2]
         res["plain_ms"] = time_ms(torch, lambda: ref.dequant_matmul(
             a, bq, fmt, scales, grp, out_dt), flush=flush)
         # the paper's baseline, a yardstick only: cuBLAS's fp16 product on
@@ -3229,6 +3244,9 @@ def log_library(r):
             text += (f"cuBLAS fp16 on a weight dequantized beforehand (yardstick) "
                      f"{r['yardstick_ms']:.4f} ms (its bound {r['yardstick_bound_ms']:.4f}), "
                      f"speedup over it {r['yardstick_ms'] / r['ms']:.2f}x, ")
+            if r["label"] in DEQUANT_EARLIER_MS:
+                before = DEQUANT_EARLIER_MS[r["label"]]
+                text += f"before the redesign {before:.4f} ms ({before / r['ms']:.2f}x), "
         elif r["kernel"] == "mla":
             text += f"sdpa (a latent head's heads as query rows) {r['library_ms']:.4f} ms, "
         else:
@@ -3241,18 +3259,29 @@ def log_library(r):
 
 
 def wgmma_gate(lib):
-    """Every Table 2 M shape on the GEMM's wgmma path and every MLA_WGMMA
-    case on FlashMLA's, one launch each: returns the two maps of label to
-    launches, raises if a case is missing or took another path."""
+    """Every Table 2 M shape on the GEMM's wgmma path, every MLA_WGMMA case
+    on FlashMLA's and every Fig. 15 case on the dequantized GEMM's walk, one
+    launch each, and the dequantized GEMM's DEQUANT_NO_WGMMA cases on none:
+    returns the three maps of label to launches, raises if a case is missing
+    or took another path."""
     gemm = {r["label"]: r["wgmma_launches"] for r in lib
             if r["kernel"] == "matmul" and r["label"].startswith("M")}
     mla = {r["label"]: r["wgmma_launches"] for r in lib
            if r["kernel"] == "mla" and r["label"] in MLA_WGMMA}
+    fig15 = [f"{shape} {fmt} x {adtype}" for shape in DEQUANT_SHAPES
+             for fmt, adtype in DEQUANT_ROWS]
+    dequant = {r["label"]: r["wgmma_launches"] for r in lib
+               if r["kernel"] == "dequant_matmul"
+               and r["label"] in (*fig15, *DEQUANT_NO_WGMMA)}
     if sorted(gemm) != [f"M{i} bfloat16" for i in range(8)] or set(gemm.values()) != {1}:
         raise AssertionError(f"a Table 2 M shape missed the wgmma path: {gemm}")
     if sorted(mla) != sorted(MLA_WGMMA) or set(mla.values()) != {1}:
         raise AssertionError(f"a FlashMLA case missed the wgmma path: {mla}")
-    return gemm, mla
+    if (sorted(dequant) != sorted((*fig15, *DEQUANT_NO_WGMMA))
+            or any(dequant[label] != (label in fig15) for label in dequant)):
+        raise AssertionError(f"a Fig. 15 case missed the dequantized GEMM's walk, or a "
+                             f"CUDA-core case took it: {dequant}")
+    return gemm, mla, dequant
 
 
 def lib_mla_tile_cost(lib, keys: int):
@@ -3592,9 +3621,11 @@ def main(argv=None) -> int:
                                  "passes it")
         if r["label"] == LIBRARY_ROWS[r["kernel"]]:
             table[r["kernel"]] = r
-    gemm_wgmma, mla_wgmma = wgmma_gate(lib)
+    gemm_wgmma, mla_wgmma, dequant_wgmma = wgmma_gate(lib)
     log(f"[launches] Table 2's M shapes on wgmma: {json.dumps(gemm_wgmma)}")
     log(f"[launches] FlashMLA's cases on wgmma: {json.dumps(mla_wgmma)}")
+    log(f"[launches] the dequantized GEMM's Fig. 15 cases on its wgmma walk (fp32 and "
+        f"odd K on the CUDA cores): {json.dumps(dequant_wgmma)}")
     from repro_torch.kernels import mla as lib_mla
     per, rest, rate = lib_mla_tile_cost(lib, lib_mla.TC_KEYS)
     log(f"[kernel] tile cost (device us a {lib_mla.TC_KEYS}-key tile of the walk; us of the "

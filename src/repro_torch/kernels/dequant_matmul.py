@@ -16,12 +16,22 @@ With 16-bit activations the kernel multiplies, as the TPU kernel does, the
 weight cast to the activation type and scaled in it; the plain version
 keeps both in fp32 (csrc/dequant_matmul.cu says where that rounds).
 
+Two routes (:func:`route`): ``wgmma``, the warp-specialised walk of
+``csrc/dequant_wgmma.cuh`` (16-bit activations in every format; int8 ones
+with integer codes and no scales; K and K / pack multiples of 16; 16-byte
+aligned data), from M = 1 up, a block of 64 weight rows by
+:func:`block_rows` activation rows (:func:`grid`, :func:`tile_plan`); and
+the CUDA cores for everything else.  ``KERNEL.tc_launches`` counts the
+``wgmma`` launches.  The walk's tile constants are stated here once and
+reach the source as ``-D`` macros (``KERNEL.defines``).
+
 The same module holds ``dequant_matmul_program`` itself, the tile program
 that the port's compiler (``repro_torch.core``) compiles with
 ``target="cuda"`` or runs with ``target="reference"``, and its
-``PARITY_CASES``.  The CUDA backend takes the int8, int4 and int2 formats;
-nf4's codebook lookup is a ``T.call_tile_lib`` (a torch function over
-``ref.NF4_CODEBOOK``), which only the reference interpreter runs yet.
+``PARITY_CASES``.  The CUDA backend takes every format: nf4's codebook
+lookup, a ``T.call_tile_lib`` (a torch function over
+``ref.NF4_CODEBOOK``), is rewritten into T ops by
+``core/backends/tile_lib.py`` before it emits.
 The program sets its function's ``__annotations__`` itself, so the
 ``T.Tensor`` objects reach the tracer under the ``annotations`` import.
 """
@@ -41,13 +51,33 @@ from .matmul import MAX_ROWS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# The wgmma walk's tile constants (csrc/dequant_wgmma.cuh's Plan), passed to
+# the source as -D macros: the activation bytes a stage at most, the ring's
+# bytes, the stages at most, the ladder of activation rows a block (powers of
+# two), and the consumer warpgroups a block at BM <= 64 (the decode's warps)
+# and above.  The ring holds six 36 KB stages at BM 256.
+ACT_STAGE = 16384
+RING = 221184
+MAX_STAGES = 16
+MIN_BM, MAX_BM = 8, 256
+CONSUMERS_SMALL, CONSUMERS_LARGE = 4, 2
+WEIGHT_ROW = 128  # weight bytes a row a stage at most: one 128-byte swizzle span
+ROWS = 64  # weight rows a block: one warpgroup product's M
+MAX_SMEM = 232448  # the most shared memory a block may take (H100)
+S8_MAX_K = 1 << 17  # int8 activations: the int32 sums of codes scaled up to 64x stay exact
+DEFINES = {"DQ_ACT_STAGE": ACT_STAGE, "DQ_RING": RING, "DQ_MAX_STAGES": MAX_STAGES,
+           "DQ_MIN_BM": MIN_BM, "DQ_MAX_BM": MAX_BM, "DQ_CONSUMERS_SMALL": CONSUMERS_SMALL,
+           "DQ_CONSUMERS_LARGE": CONSUMERS_LARGE}
 KERNEL = Kernel(
     "dequant_matmul", "dequant_matmul_launch",
     [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     replaces="src/repro/kernels/dequant_matmul.py:25",
+    defines=DEFINES,
 )
 DTYPES = {**OUT_DTYPES, torch.int8: 3}
 FORMATS = {"int8": 0, "int4": 1, "int2": 2, "nf4": 3}
+ROUTES = {"cuda": 0, "wgmma": 1}  # the C entry point's route argument
 
 
 def _require(cond: bool, msg: str):
@@ -60,17 +90,64 @@ def scale_group(k: int, scales) -> int:
     return k // scales.shape[1] if scales is not None else 128
 
 
-def takes_tensor_cores(dtype, fmt: str, k: int, scaled: bool, *tensors) -> bool:
-    """Whether the tensor-core kernel takes these operands: 16-bit
-    activations, or int8 ones with integer codes and no scales (exact in
-    fp16); K and K / pack multiples of 16; 16-byte aligned data."""
+def route(dtype, fmt: str, k: int, scaled: bool, *tensors) -> str:
+    """``wgmma`` for 16-bit activations, or int8 ones with integer codes, no
+    scales and K at most S8_MAX_K; K and K / pack multiples of 16 (TMA's
+    16-byte rows, the walk's whole products); 16-byte aligned data.
+    ``cuda`` (the CUDA cores) otherwise."""
     pack = ref.WEIGHT_PACK[fmt]
     if dtype == torch.int8:
-        ok = fmt != "nf4" and not scaled
+        ok = fmt != "nf4" and not scaled and k <= S8_MAX_K
     else:
         ok = dtype in (torch.bfloat16, torch.float16)
-    return (ok and k % 16 == 0 and (k // pack) % 16 == 0
-            and all(t.data_ptr() % 16 == 0 for t in tensors))
+    ok = (ok and k % 16 == 0 and (k // pack) % 16 == 0
+          and all(t.data_ptr() % 16 == 0 for t in tensors))
+    return "wgmma" if ok else "cuda"
+
+
+def block_rows(m: int) -> int:
+    """Activation rows a block (the product's N): the smallest power of two
+    from MIN_BM that holds M, MAX_BM above it."""
+    bm = MIN_BM
+    while bm < m and bm < MAX_BM:
+        bm *= 2
+    return bm
+
+
+def grid(m: int, n: int) -> tuple:
+    """The walk's grid: (weight-row blocks, activation-row blocks).  At M <=
+    MAX_BM one activation block, so each weight tile is decoded once."""
+    return -(-n // ROWS), -(-m // block_rows(m))
+
+
+def _pow2_floor(x: int) -> int:
+    p = 1
+    while 2 * p <= x:
+        p *= 2
+    return p
+
+
+def tile_plan(bm: int, act_bytes: int, pack: int) -> dict:
+    """A walk block's tiles (dequant_wgmma.cuh's Plan, the same rule): its
+    consumer warpgroups and threads (the producer's warpgroup first), k a
+    stage ``bk`` (WEIGHT_ROW weight bytes a row at most, ACT_STAGE
+    activation bytes at most, one 128-byte activation box at least), weight
+    bytes a row a stage ``wb`` (one TMA box), the stage's bytes, the ring's stages (a multiple of the consumers, so that
+    each stage serves one consumer, and twice them at least: a stage is
+    released at its consumer's next stage), the products a stage and a
+    register group, and the block's dynamic shared memory."""
+    consumers = CONSUMERS_SMALL if bm <= 64 else CONSUMERS_LARGE
+    kstep = 16 if act_bytes == 2 else 32
+    kbox = 128 // act_bytes
+    bk = max(kbox, min(WEIGHT_ROW * pack, _pow2_floor(ACT_STAGE // (bm * act_bytes))))
+    wb = bk // pack
+    stage = bm * bk * act_bytes + ROWS * wb
+    stages = max(2 * consumers, min(MAX_STAGES, RING // stage) // consumers * consumers)
+    steps = bk // kstep
+    chunk = 4 if steps >= 8 else steps // 2
+    return dict(consumers=consumers, threads=(consumers + 1) * 128, bk=bk, wb=wb,
+                boxes=bk // kbox, stage=stage, stages=stages, steps=steps, chunk=chunk,
+                chunks=steps // chunk, smem=stages * stage + 1024)
 
 
 def dequant_matmul(a: torch.Tensor, b_packed: torch.Tensor, fmt: str = "int4",
@@ -113,15 +190,19 @@ def dequant_matmul(a: torch.Tensor, b_packed: torch.Tensor, fmt: str = "int4",
     # other output type is its float32 result rounded once more here
     kernel_out = out_dtype if out_dtype in (torch.float32, a.dtype) else torch.float32
     out = torch.empty((m, n), dtype=kernel_out, device=a.device)
-    tc = takes_tensor_cores(a.dtype, fmt, k, scales is not None, a, b_packed)
+    path = route(a.dtype, fmt, k, scales is not None, a, b_packed)
+    if path == "wgmma":
+        smem = tile_plan(block_rows(m), a.element_size(), pack)["smem"]
+        _require(smem <= MAX_SMEM, f"the walk's shared memory at this shape ({smem} bytes)")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = KERNEL.function()(
             DTYPES[a.dtype], OUT_DTYPES[kernel_out], FORMATS[fmt], a.data_ptr(),
             b_packed.data_ptr(), scales.data_ptr() if scales is not None else None,
-            out.data_ptr(), m, n, k, group, int(tc), stream)
+            out.data_ptr(), m, n, k, group, ROUTES[path], stream)
     check(rc, "dequant_matmul")
     KERNEL.launches += 1
+    KERNEL.tc_launches += int(path == "wgmma")
     return out if kernel_out == out_dtype else out.to(out_dtype)
 
 

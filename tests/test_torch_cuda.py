@@ -1037,21 +1037,26 @@ def test_cuda_matmul_matches_plain_version(dtype):
 @pytest.mark.parametrize("adtype", ["float16", "bfloat16", "int8", "float32"])
 def test_cuda_dequant_matmul_matches_plain_version(fmt, adtype):
     """Every format and activation type, with and without scale groups that
-    match no K tile, M = 1, 5, 8, 12 and 70, ragged N and K: 16-bit activations within 2
+    match no K tile, M = 1, 5, 8, 12, 64, 70, 129 and 256, ragged N and K: 16-bit activations within 2
     units of the plain version on the weight rounded to their type (the
     kernel's arithmetic, as the TPU kernel's); int8 and fp32 activations
-    within 1e-4 of max(1, max |plain|)."""
+    within 1e-4 of max(1, max |plain|).  Each case takes the route
+    ``dequant_matmul.route`` gives it (the wgmma walk counts tc_launches)."""
+    from repro_torch.kernels import dequant_matmul as DQ
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     dt = getattr(torch, adtype)
     pack = ref.WEIGHT_PACK[fmt]
-    # M <= 8 with K / pack a multiple of 64 bytes takes the decode-shape
-    # kernel (with scales: a group a multiple of 4 * pack); the rest tiles
+    # the walk's activation blocks of 8 to 256 rows (M 129: two of 256's
+    # halves empty; N 136 and 200 no multiple of its 64 weight rows); odd K
+    # (48 / pack) keeps the CUDA cores
     for m, n, k, group in ((8, 128, 256, None), (70, 200, 512, None), (70, 192, 384, 96),
                            (8, 64, 192, 32), (5, 40, 48, None), (5, 72, 1024, 64),
-                           (1, 40, 512, None), (12, 64, 1024, None)):
+                           (1, 40, 512, None), (12, 64, 1024, None), (64, 256, 512, None),
+                           (129, 136, 1024, None), (256, 200, 2048, None), (256, 130, 768, 48)):
         if dt == torch.int8:
             a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         else:
@@ -1061,7 +1066,10 @@ def test_cuda_dequant_matmul_matches_plain_version(fmt, adtype):
         sc = None if group is None else (
             torch.rand((n, k // group), generator=g, device=dev) + 0.5).to(sdt)
         out_dt = torch.float32 if dt in (torch.int8, torch.float32) else dt
+        tc = ops.KERNELS["dequant_matmul"].tc_launches
         got = ops.dequant_matmul(a, bq, fmt=fmt, scales=sc, out_dtype=out_dt)
+        took = ops.KERNELS["dequant_matmul"].tc_launches - tc
+        assert took == (DQ.route(dt, fmt, k, sc is not None, a, bq) == "wgmma"), (m, n, k, group)
         grp = group or 128
         if out_dt == torch.float32:
             want = ref.dequant_matmul(a, bq, fmt, sc, grp, out_dt)

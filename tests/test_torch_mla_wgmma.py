@@ -237,6 +237,10 @@ def _lib_rows(cs, mla_launches=1, ms=(0.15, 0.53)):
     rows += [{"kernel": "mla", "label": label, "wgmma_launches": mla_launches}
              for label in cs.MLA_WGMMA]
     rows += [{"kernel": "mla", "label": "Hkv 2 bfloat16", "wgmma_launches": 0}]
+    rows += [{"kernel": "dequant_matmul", "label": f"{shape} {fmt} x {adtype}",
+              "wgmma_launches": 1} for shape in cs.DEQUANT_SHAPES for fmt, adtype in cs.DEQUANT_ROWS]
+    rows += [{"kernel": "dequant_matmul", "label": label, "wgmma_launches": 0}
+             for label in cs.DEQUANT_NO_WGMMA]
     for label, t in zip(("b64_s1024 bfloat16", "b64_s4096 bfloat16"), ms):
         next(r for r in rows if r["label"] == label)["ms"] = t
     return rows
@@ -249,7 +253,7 @@ def test_chip_smoke_gates_flashmlas_wgmma_cases(cs):
     ragged = {label: shape for label, shape, _ in cs.ragged_cases()["mla"]}
     b, h, hkv, s, d, pe = ragged["16 heads ragged"]
     assert (h, hkv, d, pe) == (16, 1, 512, 64) and s % MLA.TC_KEYS
-    gemm, mla = cs.wgmma_gate(_lib_rows(cs))
+    gemm, mla, _ = cs.wgmma_gate(_lib_rows(cs))
     assert set(mla.values()) == {1} and len(gemm) == 8
     for bad in (0, 2):
         with pytest.raises(AssertionError, match="FlashMLA"):
